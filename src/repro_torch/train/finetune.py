@@ -1,0 +1,90 @@
+"""Classifier finetuning (the paper's §4.3 procedure), port of
+``repro.train.finetune``: used by each contributor inside the ColD Fusion
+loop and to evaluate a base model (full finetune or linear probe).
+
+Autograd computes the gradients; the step is the reference's: clip the
+(head, body) tree by global norm 1.0, AdamW update, add.  ``finetune``
+trains a clone of what it is given, never the caller's tensors: the body a
+contributor downloads is a view into the Repository's published row.
+"""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.data.pipeline import batches
+from repro_torch.models import encoder as E
+from repro_torch.optim.optimizers import adamw, clip_by_global_norm, linear_decay_lr
+from repro_torch.train.losses import accuracy, cls_loss
+from repro_torch.utils.pytree import (tree_device, tree_from_paths, tree_leaves,
+                                      tree_leaves_with_path, tree_map)
+
+
+def _to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
+    return {k: torch.as_tensor(v, device=device).long() for k, v in batch.items()}
+
+
+def train_step(cfg: ArchConfig, opt, trainable, opt_state, body, batch):
+    """One step on ``trainable`` (``{"head"}`` or ``{"head", "body"}``;
+    leaves require grad) in place.  Returns (opt_state, loss, acc)."""
+    leaves = tree_leaves(trainable)
+    logits = E.classify(cfg, trainable.get("body", body), trainable["head"], batch["tokens"])
+    loss = cls_loss(logits, batch["labels"])
+    grads = torch.autograd.grad(loss, leaves)
+    with torch.no_grad():
+        paths = [path for path, _ in tree_leaves_with_path(trainable)]
+        grad_tree, _ = clip_by_global_norm(tree_from_paths(zip(paths, grads)), 1.0)
+        updates, opt_state = opt.update(grad_tree, opt_state, trainable)
+        for p, u in zip(leaves, tree_leaves(updates)):
+            p.add_(u)
+        acc = accuracy(logits, batch["labels"])
+    return opt_state, loss.detach(), acc
+
+
+def finetune(
+    cfg: ArchConfig,
+    body,
+    head,
+    x: np.ndarray,
+    y: np.ndarray,
+    *,
+    steps: int,
+    batch_size: int = 32,
+    lr: float = 5e-4,
+    lr_decay: float = 0.0,
+    frozen_body: bool = False,
+    seed: int = 0,
+) -> Tuple[Dict, Dict, Dict]:
+    """Finetune (body, head) on (x, y).  Returns (body, head, metrics).
+    ``frozen_body=True`` trains only the head (linear probing); the body is
+    then returned as given."""
+    device = tree_device(body)
+    opt = adamw(linear_decay_lr(lr, lr_decay))
+    fresh = lambda t: tree_map(lambda p: p.detach().clone().requires_grad_(True), t)
+    trainable = {"head": fresh(head)} if frozen_body else {"head": fresh(head), "body": fresh(body)}
+    opt_state = opt.init(trainable)
+    it = batches(x, y, batch_size, rng=np.random.default_rng(seed), epochs=10_000)
+    losses, accs = [], []
+    for _ in range(steps):
+        b = _to_device(next(it), device)
+        opt_state, loss, acc = train_step(cfg, opt, trainable, opt_state, body, b)
+        losses.append(float(loss))
+        accs.append(float(acc))
+    out = tree_map(lambda p: p.detach(), trainable)
+    return out.get("body", body), out["head"], {"loss": losses, "train_acc": accs}
+
+
+@torch.no_grad()
+def evaluate(cfg: ArchConfig, body, head, x: np.ndarray, y: np.ndarray,
+             batch_size: int = 64) -> float:
+    device = tree_device(body)
+    correct, total = 0, 0
+    for b in batches(x, y, batch_size, drop_remainder=False):
+        b = _to_device(b, device)
+        logits = E.classify(cfg, body, head, b["tokens"])
+        correct += int(torch.sum(torch.argmax(logits, -1) == b["labels"]))
+        total += len(b["labels"])
+    return correct / max(total, 1)

@@ -1,0 +1,67 @@
+"""Helpers over parameter trees: nested ``dict``s of tensors.
+
+Leaves are visited in the order ``jax.tree_util`` flattens a dict — keys
+sorted at every level — so a leaf list (and the flat row built from it)
+means the same thing in the port and in the JAX package.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, List, Tuple
+
+import torch
+
+Tree = Dict[str, Any]
+
+
+def tree_leaves_with_path(tree, prefix: str = "") -> List[Tuple[str, torch.Tensor]]:
+    """``[(path, leaf)]`` in sorted-key order, paths ``/``-joined."""
+    if not isinstance(tree, dict):
+        return [(prefix, tree)]
+    out: List[Tuple[str, torch.Tensor]] = []
+    for key in sorted(tree):
+        out.extend(tree_leaves_with_path(tree[key], f"{prefix}/{key}" if prefix else str(key)))
+    return out
+
+
+def tree_leaves(tree) -> List[torch.Tensor]:
+    return [leaf for _, leaf in tree_leaves_with_path(tree)]
+
+
+def tree_map(fn: Callable, tree, *rest):
+    """Apply ``fn`` leafwise over trees of the same structure."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest)) for k in tree}
+    return fn(tree, *rest)
+
+
+def tree_from_paths(items) -> Tree:
+    """``[(path, leaf)]`` -> nested dict (the inverse of
+    ``tree_leaves_with_path``)."""
+    out: Tree = {}
+    for path, leaf in items:
+        node = out
+        parts = path.split("/")
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = leaf
+    return out
+
+
+def tree_sub(a, b):
+    return tree_map(torch.subtract, a, b)
+
+
+def tree_sq_norm(tree) -> torch.Tensor:
+    """Σ over leaves of Σ x² in float32 (a 0-d tensor)."""
+    return sum(torch.sum(torch.square(x.float())) for x in tree_leaves(tree))
+
+
+def tree_isfinite(tree) -> bool:
+    """Every floating leaf is finite everywhere."""
+    return all(bool(torch.isfinite(x).all()) for x in tree_leaves(tree)
+               if x.is_floating_point())
+
+
+def tree_device(tree) -> torch.device:
+    """The device of a tree's first leaf (trees never span devices)."""
+    return tree_leaves(tree)[0].device

@@ -17,6 +17,8 @@ def pytest_configure(config):
         "markers",
         "slow: multi-second subprocess tests (forced fake-device jax init); "
         "deselect with -m 'not slow' when they already ran in the same CI pass")
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card (the port's kernels); skips without one")
 
 
 @pytest.fixture(autouse=True)
