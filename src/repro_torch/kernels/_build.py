@@ -16,8 +16,10 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from pathlib import Path
+from typing import Dict, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
@@ -64,6 +66,13 @@ def build(name: str) -> Built:
     log_path.write_text(log)
     os.replace(tmp, out)  # atomic: a concurrent build never loads a partial file
     return Built(name, out, seconds, log)
+
+
+def build_all(names: Sequence[str]) -> Dict[str, Built]:
+    """Build several sources at once: one ``nvcc`` process each, all
+    started together (the threads only wait on their subprocess)."""
+    with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
+        return dict(zip(names, pool.map(build, names)))
 
 
 @functools.lru_cache(maxsize=None)
