@@ -7,8 +7,9 @@ Phases (any failed check raises, so the script exits non-zero):
 
 1. the card: name, count, and ``nvidia-smi``'s name and power limit;
 2. build every kernel from ``src/repro_torch/kernels/csrc`` (``cold_fuse``,
-   ``decode_accum``, ``row_sketch``: one ``nvcc`` each, all started
-   together; time, and ptxas' registers and spills per kernel);
+   ``decode_accum``, ``row_sketch``, ``flash_attention``, ``rwkv6_scan``:
+   one ``nvcc`` each, all started together; time, and ptxas' registers
+   and spills per kernel);
 3. each kernel against its plain PyTorch version on the card, at the main
    paths' shapes and on ragged shapes: ``cold_fuse`` at K=5 x
    N=123,969,792 bf16 (one NaN row of weight 0, alpha 1.0 and 0.3);
@@ -16,10 +17,20 @@ Phases (any failed check raises, so the script exits non-zero):
    deltas, block 1024, kb 64, duplicates, plus a NaN-scale row of weight
    0), at block 32768, at a ragged size and at C=1; ``row_sketch`` of the
    bf16 body with 32 buckets, of 1,000,003 f32 with 7 and of 100 elements;
+   ``flash_attention`` at gemma3-1b's prefill shape (B=4, Sq=1024,
+   Sk=1280, 4 query heads on 1 kv head, hd 256, bf16, window 512 and
+   none), at decode (Sq=1, q_offset 1100), in f32 at hd 32-256 with
+   ragged lengths, and with rows that see no key; ``rwkv6_scan`` at
+   rwkv6-7b's prefill shape (B=4, T=256, H=64, hd=64, f32, logw down to
+   -20), with the state chained across two calls, with bf16 inputs and at
+   hd 32;
 4. kernel and plain-version times (CUDA events, five windows after a
-   warm-up, the median printed) beside each kernel's bound;
-5. small-input checks: the same screen + fuse, and the same small queue
-   drained by the contributor service, on the card and on the CPU (whose
+   warm-up, the median printed) beside each kernel's bound, and for
+   ``flash_attention`` the time of ``scaled_dot_product_attention`` on
+   the same inputs and mask;
+5. small-input checks: the same screen + fuse, the same small queue
+   drained by the contributor service, and reduced f32 gemma3 and rwkv6
+   models serving the same prompts, on the card and on the CPU (whose
    paths the CPU tests hold against the JAX package) must agree;
 6. the ColD Fusion loop (slice 1), through the entry points a user calls:
    a Repository over a RoBERTa-base body at full width (random weights from
@@ -33,14 +44,27 @@ Phases (any failed check raises, so the script exits non-zero):
    the card), 2 compressed ones and a byte-identical replay that must be
    rejected; round 2 an all-dense cohort; round 3 three honest compressed
    submissions and a runaway one that must fuse 3/4.  Round 1's published
-   base is held against ``cold_fuse_plain`` over the host-decoded rows.
+   base is held against ``cold_fuse_plain`` over the host-decoded rows;
+8. the serving path (slice 3), for gemma3-1b (26 layers, d 1152, vocab
+   262,144) and then rwkv6-7b (32 layers, d 4096), both at full width in
+   bf16 with random weights from seed 0: ``launch.serve.main`` serves 4
+   prompts (1024 tokens for gemma3, 256 for rwkv6) x 32 new tokens, then
+   ``Engine.generate`` the same on its own model (gemma3's cache 1280
+   long, so its 512-token window bites in prefill and decode); prefill and
+   decode are timed; then both models run teacher-forced on the kernel
+   path's tokens once more and once with the kernels' plain versions, and
+   the logits and greedy tokens are compared.
 
-Before each of phases 6 and 7 every kernel's launch counter is set to 0; it
-is read just after.  The last lines are the kernels' JSON record (launches
-from phase 7), ``nvidia-smi``'s line and ``{"ok": true, "device": {...}}``.
-Without a card (or without the rest of the repository beside it) the script
-exits non-zero and prints no result.
+Before each of phases 6 and 7, and before each model of phase 8, every
+kernel's launch counter is set to 0; it is read just after.  The last lines
+are the kernels' JSON record (launches from phase 7 for the three fuse
+kernels, from phase 8 for the other two), ``nvidia-smi``'s line and
+``{"ok": true, "device": {...}}``.  Without a card (or without the rest of
+the repository beside it) the script exits non-zero and prints no result.
 """
+import contextlib
+import dataclasses
+import io
 import json
 import math
 import os
@@ -51,31 +75,43 @@ import sys
 import tempfile
 import time
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
 
-from repro_torch.configs import CONFIG, TINY  # noqa: E402
+from repro_torch.configs import CONFIG, TINY, get_config, reduce_config  # noqa: E402
 from repro_torch.core import (Contributor, EvalTask, Repository,  # noqa: E402
                               evaluate_base_model, run_cold_fusion)
 from repro_torch.data.synthetic import SyntheticSuite  # noqa: E402
 from repro_torch.checkpoint import io as ckpt  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.cold_fuse import cold_fuse, cold_fuse_plain  # noqa: E402
+from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.kernels.decode_accum import decode_accum, decode_accum_plain  # noqa: E402
+from repro_torch.kernels.flash_attention import (flash_attention,  # noqa: E402
+                                                 flash_attention_plain)
 from repro_torch.kernels.row_sketch import row_sketch, row_sketch_plain  # noqa: E402
+from repro_torch.kernels.rwkv6_scan import rwkv6_scan, rwkv6_scan_plain  # noqa: E402
+from repro_torch.launch.serve import main as serve_main  # noqa: E402
+from repro_torch.models import rwkv as rwkv_mod  # noqa: E402
 from repro_torch.models.encoder import init_encoder_body  # noqa: E402
+from repro_torch.models.transformer import forward_lm, init_cache, init_lm  # noqa: E402
+from repro_torch.serve.engine import Engine  # noqa: E402
+from repro_torch.train.step import make_serve_step  # noqa: E402
 from repro_torch.serve.cold_service import (AdmissionPolicy, ColdService,  # noqa: E402
                                             ContributorClient)
 from repro_torch.utils.flat import (LANE, CohortSketch, FlatSpec, delta_decode,  # noqa: E402
                                     delta_encode)
-from repro_torch.utils.pytree import tree_map  # noqa: E402
+from repro_torch.utils.pytree import tree_leaves, tree_map  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 F32_FLOPS = 67e12           # H100 SXM float32 outside the tensor cores
+BF16_FLOPS = 989e12         # H100 SXM bf16 tensor cores, dense
 N_ROBERTA = 123_969_792     # elements of the RoBERTa-base body (FlatSpec.size)
 K_MAIN = 5
-KERNELS = ("cold_fuse", "decode_accum", "row_sketch")
+KERNELS = ("cold_fuse", "decode_accum", "row_sketch", "flash_attention", "rwkv6_scan")
 CODEC_BLOCK, CODEC_KB = 1024, 64   # the service's default delta codec
 C_SERVICE = 4
 # novelty threshold of the service phases: a replay scores 0; three Adam
@@ -85,6 +121,22 @@ C_SERVICE = 4
 # 0.03; this script's run on an H100 printed 0.056 for the nearest distinct
 # pair), so the screen is set at the documented safe floor, not at 0.1
 NOVELTY = 0.01
+GEMMA = get_config("gemma3-1b")
+RWKV = get_config("rwkv6-7b")
+GEMMA_WINDOW = GEMMA.pattern[0].window  # the local layers' 512
+# relative nudge of the plain attention / recurrence output in the serving
+# comparison: about the f32 difference between kernel and plain that the
+# "[check] flash_attention ... f32" lines show on an H100 (6e-7 at unit scale)
+NUDGE = 1e-6
+# the serving phases: 4 prompts of 1024 (gemma3) or 256 (rwkv6) tokens, 32
+# new tokens; flash_attention's prefill kernel shape is (B, Sq, Sk, Hq, Hkv,
+# hd) with Sk the Engine's max_len, rwkv6_scan's (B, T, H, hd)
+SERVE_NEW = 32
+GEMMA_PROMPT, GEMMA_MAX_LEN = 1024, 1280
+RWKV_PROMPT, RWKV_MAX_LEN = 256, 256 + SERVE_NEW
+FLASH_PREFILL = (4, GEMMA_PROMPT, GEMMA_MAX_LEN, GEMMA.num_heads, GEMMA.num_kv_heads,
+                 GEMMA.head_dim)
+RWKV_PREFILL = (4, RWKV_PROMPT, RWKV.d_model // RWKV.ssm.head_dim, RWKV.ssm.head_dim)
 
 
 def check(ok, msg):
@@ -156,13 +208,14 @@ def fuse_inputs(K, N, dtype, gen, nan_row=None):
 
 
 def reset_launches():
-    for fn in (cold_fuse, decode_accum, row_sketch):
+    for fn in (cold_fuse, decode_accum, row_sketch, flash_attention, rwkv6_scan):
         fn.launches = 0
 
 
 def launches():
     return {"cold_fuse": cold_fuse.launches, "decode_accum": decode_accum.launches,
-            "row_sketch": row_sketch.launches}
+            "row_sketch": row_sketch.launches, "flash_attention": flash_attention.launches,
+            "rwkv6_scan": rwkv6_scan.launches}
 
 
 def time_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -300,10 +353,10 @@ def median_windows(fn, iters: int, warmup: int = 2):
     return sorted(runs)[2], runs
 
 
-def bound_of(nbytes: float, flops: float):
-    """(bound_ms, bound_by): the larger of bytes at 3.35 TB/s and f32
-    operations at 67 TFLOP/s."""
-    b, o = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
+def bound_of(nbytes: float, flops: float, peak: float = F32_FLOPS):
+    """(bound_ms, bound_by): the larger of bytes at 3.35 TB/s and the
+    operations at ``peak`` (f32 67 TFLOP/s unless given)."""
+    b, o = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
     return max(b, o), "bytes" if b >= o else "operations"
 
 
@@ -646,6 +699,409 @@ def phase_service_path(workdir):
     return err
 
 
+# ---------------------------------------------------------------------------
+# slice 3: the serving path (flash_attention, rwkv6_scan)
+# ---------------------------------------------------------------------------
+
+
+def bf16_close(got, want, what):
+    """max |got - want| (f32), checked elementwise against 1 bf16 ulp of
+    the larger side plus 2e-5 x max(1, max |want|): both sides sum in f32
+    in another order (the f32 bound, which matters where the sum cancels
+    to a small value) and round once."""
+    g, w = got.float(), want.float()
+    check(bool(torch.isfinite(g).all()), f"{what}: kernel output is not finite")
+    err = (g - w).abs()
+    tol = bf16_ulp(torch.maximum(g.abs(), w.abs())) + 2e-5 * max(1.0, w.abs().max().item())
+    ok = bool((err <= tol).all())
+    check(ok, f"{what}: differs by more than 1 bf16 ulp + 2e-5 x max(1, max|plain|) "
+          f"(max |d| {err.max().item():.3g})")
+    return err.max().item()
+
+
+def f32_close(got, want, what, rel=2e-5):
+    """max |got - want|, checked against rel x max(1, max |want|): f32 sums
+    in another order."""
+    check(bool(torch.isfinite(got).all()), f"{what}: kernel output is not finite")
+    err = (got.float() - want.float()).abs().max().item()
+    scale = max(1.0, want.float().abs().max().item())
+    check(err <= rel * scale, f"{what}: max |d| {err:.3g} > {rel} x {scale:.3g}")
+    return err
+
+
+def qkv_on_card(B, Sq, Sk, Hq, Hkv, hd, dtype, gen):
+    dev = torch.device("cuda")
+    return (torch.randn((B, Sq, Hq, hd), generator=gen, device=dev).to(dtype),
+            torch.randn((B, Sk, Hkv, hd), generator=gen, device=dev).to(dtype),
+            torch.randn((B, Sk, Hkv, hd), generator=gen, device=dev).to(dtype))
+
+
+def phase_flash_checks(gen):
+    """flash_attention against flash_attention_plain on the card.  Returns
+    gemma3-1b's prefill-shaped bf16 inputs and the largest error there."""
+    B, Sq, Sk, Hq, Hkv, hd = FLASH_PREFILL
+    q, k, v = qkv_on_card(B, Sq, Sk, Hq, Hkv, hd, torch.bfloat16, gen)
+    worst = 0.0
+    for window in (GEMMA_WINDOW, None):
+        e = bf16_close(flash_attention(q, k, v, causal=True, window=window),
+                       flash_attention_plain(q, k, v, causal=True, window=window),
+                       f"flash prefill window={window}")
+        worst = max(worst, e)
+        print(f"[check] flash_attention vs plain, gemma3-1b prefill B={B} Sq={Sq} Sk={Sk} "
+              f"Hq={Hq} Hkv={Hkv} hd={hd} bf16 window={window}: max|d| {e:.3g} "
+              "(bound 1 bf16 ulp + 2e-5 x max(1, max|o|))")
+        qd = q[:, :1].contiguous()
+        e = bf16_close(flash_attention(qd, k, v, causal=True, window=window, q_offset=1100),
+                       flash_attention_plain(qd, k, v, causal=True, window=window,
+                                             q_offset=1100), f"flash decode window={window}")
+        worst = max(worst, e)
+        print(f"[check] flash_attention vs plain, decode Sq=1 q_offset=1100 Sk={Sk} bf16 "
+              f"window={window}: max|d| {e:.3g} (bound 1 bf16 ulp + 2e-5 x max(1, max|o|))")
+    for (b, sq, sk, hq, hkv, d, causal, window, off) in (
+            (2, 96, 160, 4, 1, 256, True, 64, 0), (2, 77, 133, 8, 2, 64, True, None, 56),
+            (3, 45, 45, 4, 4, 128, False, None, 0),
+            (2, 70, 101, 4, 1, 128, True, 17, 31), (1, 33, 40, 4, 2, 32, True, 8, 7)):
+        qs, ks, vs = qkv_on_card(b, sq, sk, hq, hkv, d, torch.float32, gen)
+        e = f32_close(flash_attention(qs, ks, vs, causal=causal, window=window, q_offset=off),
+                      flash_attention_plain(qs, ks, vs, causal=causal, window=window,
+                                            q_offset=off), f"flash f32 hd={d}")
+        print(f"[check] flash_attention vs plain, f32 B={b} Sq={sq} Sk={sk} Hq={hq} Hkv={hkv} "
+              f"hd={d} causal={causal} window={window} q_offset={off}: max|d| {e:.3g} "
+              "(bound 2e-5 x max(1, max|o|))")
+    qs, ks, vs = qkv_on_card(1, 40, 64, 4, 1, 64, torch.float32, gen)
+    got = flash_attention(qs, ks, vs, causal=True, window=8, q_offset=66)
+    want = flash_attention_plain(qs, ks, vs, causal=True, window=8, q_offset=66)
+    f32_close(got, want, "flash partly masked")
+    check(bool((got[:, 6:] == 0).all()) and bool((got[:, :5] != 0).any()),
+          "flash: rows that see no key must be 0, the others not")
+    print("[check] flash_attention fully masked rows (q_offset 66, window 8, Sk 64: rows 6.. "
+          "see no key): exactly 0, rows 0..4 match the plain version")
+    return (q, k, v), worst
+
+
+def visible_entries(Sq, Sk, causal, window, q_offset):
+    """Score entries the masks leave visible, summed over the query rows."""
+    qp = torch.arange(Sq, dtype=torch.int64) + q_offset
+    hi = torch.clamp(qp + 1, max=Sk) if causal else torch.full_like(qp, Sk)
+    lo = torch.clamp(qp - window + 1, min=0) if window is not None else torch.zeros_like(qp)
+    return int(torch.clamp(hi - lo, min=0).sum())
+
+
+def phase_flash_timing(inputs, card):
+    """Kernel, plain version and SDPA at gemma3-1b's prefill shape (both
+    layer kinds) and at decode.  Returns the global-layer prefill numbers."""
+    q, k, v = inputs
+    B, Sq, Hq, hd = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    out = None
+    for label, qq, window, off in (("prefill global", q, None, 0),
+                                   ("prefill local", q, GEMMA_WINDOW, 0),
+                                   ("decode global", q[:, :1].contiguous(), None, 1100),
+                                   ("decode local", q[:, :1].contiguous(), GEMMA_WINDOW, 1100)):
+        sq = qq.shape[1]
+        nbytes = 2 * qq.numel() * qq.element_size() + 2 * k.numel() * k.element_size()
+        flops = 4 * hd * B * Hq * visible_entries(sq, Sk, True, window, off)
+        bound, bound_by = bound_of(nbytes, flops, BF16_FLOPS)
+        iters = 20 if sq > 1 else 200
+        ms, runs = median_windows(lambda: flash_attention(qq, k, v, causal=True, window=window,
+                                                          q_offset=off), iters=iters)
+        plain, plain_runs = median_windows(lambda: flash_attention_plain(
+            qq, k, v, causal=True, window=window, q_offset=off), iters=5, warmup=1)
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (qq, k, v))
+        qp = torch.arange(sq, device=q.device)[:, None] + off
+        kp = torch.arange(Sk, device=q.device)[None, :]
+        mask = kp <= qp
+        if window is not None:
+            mask &= kp > qp - window
+        lib, lib_runs = median_windows(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, enable_gqa=True), iters=iters)
+        print(f"[time] flash_attention {label} B={B} Sq={sq} Sk={Sk} Hq={Hq} Hkv={Hkv} hd={hd} "
+              f"bf16 on {card}: kernel_ms {ms:.4f} (windows {[round(r, 4) for r in runs]}), "
+              f"bound_ms {bound:.4f} ({bound_by}: {nbytes / 1e6:.1f} MB at 3.35 TB/s, "
+              f"{flops / 1e9:.2f} GFLOP at 989 TFLOP/s), kernel/bound {ms / bound:.2f}x, "
+              f"plain_ms {plain:.4f} (windows {[round(r, 3) for r in plain_runs]}), "
+              f"library_ms {lib:.4f} (scaled_dot_product_attention, same mask, windows "
+              f"{[round(r, 4) for r in lib_runs]})")
+        if out is None:
+            out = (ms, plain, bound, bound_by, lib)
+    return out
+
+
+def rwkv_on_card(B, T, H, hd, dtype, gen, lo=-20.0):
+    """Random r, k, v, logw (in [lo, -0.0025], log-uniform magnitudes), u,
+    s0 on the card."""
+    dev = torch.device("cuda")
+    r, k, v = (torch.randn((B, T, H, hd), generator=gen, device=dev).to(dtype)
+               for _ in range(3))
+    mag = torch.rand((B, T, H, hd), generator=gen, device=dev)
+    logw = (-torch.exp(-6.0 + mag * (math.log(-lo) + 6.0))).to(dtype)
+    u = 0.5 * torch.randn((H, hd), generator=gen, device=dev)
+    s0 = 0.3 * torch.randn((B, H, hd, hd), generator=gen, device=dev)
+    return r, k, v, logw, u, s0
+
+
+def phase_rwkv_checks(gen):
+    """rwkv6_scan against rwkv6_scan_plain on the card.  Returns
+    rwkv6-7b's prefill-shaped f32 inputs and the largest error there."""
+    B, T, H, hd = RWKV_PREFILL
+    args = rwkv_on_card(B, T, H, hd, torch.float32, gen)
+    check(args[3].min().item() < -19.0, "the logw draw must reach -20")
+    (y, s), (yp, sp) = rwkv6_scan(*args), rwkv6_scan_plain(*args)
+    ey, es = f32_close(y, yp, "rwkv y"), f32_close(s, sp, "rwkv state")
+    print(f"[check] rwkv6_scan vs plain, rwkv6-7b prefill B={B} T={T} H={H} hd={hd} f32, logw "
+          f"in [{args[3].min().item():.2f}, {args[3].max().item():.4f}]: y max|d| {ey:.3g}, "
+          f"state max|d| {es:.3g} (bound 2e-5 x max(1, max|plain|))")
+    worst = max(ey, es)
+    r, k, v, logw, u, s0 = args
+    y1, s1 = rwkv6_scan(*(t[:, :100].contiguous() for t in (r, k, v, logw)), u, s0)
+    y2, s2 = rwkv6_scan(*(t[:, 100:].contiguous() for t in (r, k, v, logw)), u, s1)
+    e = max(f32_close(torch.cat([y1, y2], 1), yp, "rwkv chained y"),
+            f32_close(s2, sp, "rwkv chained state"))
+    print(f"[check] rwkv6_scan state chained across two calls (T=100 then 156) vs one plain "
+          f"call: max|d| {e:.3g}")
+    rb, kb, vb, wb, ub, sb = rwkv_on_card(2, 45, 8, 64, torch.bfloat16, gen)
+    (y, s), (yp2, sp2) = (rwkv6_scan(rb, kb, vb, wb, ub, sb),
+                          rwkv6_scan_plain(rb, kb, vb, wb, ub, sb))
+    check(y.dtype == torch.bfloat16, "rwkv6_scan must keep r's dtype")
+    e = bf16_close(y, yp2, "rwkv bf16 y")
+    es = f32_close(s, sp2, "rwkv bf16-input state")
+    print(f"[check] rwkv6_scan bf16 inputs B=2 T=45 H=8 hd=64: y max|d| {e:.3g} (bound 1 bf16 "
+          f"ulp + 2e-5 x max(1, max|y|)), f32 state max|d| {es:.3g}")
+    a32 = rwkv_on_card(3, 37, 4, 32, torch.float32, gen)
+    (y, s), (yp3, sp3) = rwkv6_scan(*a32), rwkv6_scan_plain(*a32)
+    e = max(f32_close(y, yp3, "rwkv hd32 y"), f32_close(s, sp3, "rwkv hd32 state"))
+    print(f"[check] rwkv6_scan f32 B=3 T=37 H=4 hd=32: max|d| {e:.3g}")
+    return args, worst
+
+
+def phase_rwkv_timing(args, card):
+    r, k, v, logw, u, s0 = args
+    B, T, H, hd = r.shape
+    nbytes = 5 * r.numel() * r.element_size() + u.numel() * 4 + 2 * s0.numel() * 4
+    flops = 5 * B * T * H * hd * hd  # per state element and step: y 2, the k v product and S 2
+    bound, bound_by = bound_of(nbytes, flops)
+    out = None
+    for label, sl in (("prefill", slice(None)), ("decode", slice(0, 1))):
+        a = [t[:, sl].contiguous() for t in (r, k, v, logw)] + [u, s0]
+        t_steps = a[0].shape[1]
+        nb = 5 * a[0].numel() * 4 + u.numel() * 4 + 2 * s0.numel() * 4
+        bd, bd_by = bound_of(nb, 5 * B * t_steps * H * hd * hd)
+        ms, runs = median_windows(lambda: rwkv6_scan(*a), iters=20 if t_steps > 1 else 200)
+        plain, plain_runs = median_windows(lambda: rwkv6_scan_plain(*a), iters=3, warmup=1)
+        print(f"[time] rwkv6_scan {label} B={B} T={t_steps} H={H} hd={hd} f32 on {card}: "
+              f"kernel_ms {ms:.4f} (windows {[round(x, 4) for x in runs]}), bound_ms {bd:.4f} "
+              f"({bd_by}: {nb / 1e6:.1f} MB at 3.35 TB/s, {5 * B * t_steps * H * hd * hd / 1e9:.3f}"
+              f" GFLOP at 67 TFLOP/s), kernel/bound {ms / bd:.2f}x, plain_ms {plain:.4f} "
+              f"(windows {[round(x, 3) for x in plain_runs]})")
+        if out is None:
+            out = (ms, plain, bound, bound_by, None)
+    print("[time] rwkv6_scan library_ms: none — no single PyTorch call computes the RWKV6 "
+          "recurrence")
+    return out
+
+
+class plain_kernels:
+    """Inside the block the serving path computes with the kernels' plain
+    versions (the reference run of the comparison): the module globals the
+    model calls are swapped, and put back on exit.  ``nudge`` scales their
+    f32 result by (1 + nudge) before it is rounded to the working dtype: a
+    perturbation of the size of an f32 summation-order difference, whose
+    effect on the logits is the yardstick for the kernel's."""
+
+    def __init__(self, nudge: float = 0.0):
+        self.nudge = nudge
+
+    def __enter__(self):
+        self.saved = (kops.flash_attention, rwkv_mod.rwkv6_scan)
+        f = 1.0 + self.nudge
+
+        def flash(q, k, v, **kw):
+            return (flash_attention_plain(q.float(), k.float(), v.float(), **kw) * f).to(q.dtype)
+
+        def scan(r, k, v, logw, u, s0):
+            y, s = rwkv6_scan_plain(r.float(), k.float(), v.float(), logw.float(), u, s0)
+            return (y * f).to(r.dtype), s
+
+        kops.flash_attention = flash
+        rwkv_mod.rwkv6_scan = scan
+        return self
+
+    def __exit__(self, *exc):
+        kops.flash_attention, rwkv_mod.rwkv6_scan = self.saved
+
+
+@torch.inference_mode()
+def teacher_forced(cfg, params, prompts, gen_tokens, max_len):
+    """(prefill logits [B, P, V], decode logits [B, n-1, V]) with the
+    decode steps fed the given generated tokens."""
+    dev = torch.device("cuda")
+    B, P = prompts.shape
+    cache = init_cache(cfg, B, max_len, device=dev)
+    logits, _, cache = forward_lm(cfg, params, torch.as_tensor(prompts, device=dev),
+                                  cache=cache, cache_index=0)
+    serve = make_serve_step(cfg)
+    gen = torch.as_tensor(gen_tokens, device=dev)
+    dec = []
+    for t in range(1, gen.shape[1]):
+        lg, cache = serve(params, cache, gen[:, t - 1:t], P + t - 1)
+        dec.append(lg)
+    return logits, torch.stack(dec, 1)
+
+
+def logit_diff(a, b):
+    """(max |a - b|, mean |a - b|) over bf16 logits, in f32, row by row."""
+    mx, tot, n = 0.0, 0.0, 0
+    for i in range(a.shape[0]):
+        d = (a[i].float() - b[i].float()).abs()
+        mx, tot, n = max(mx, d.max().item()), tot + d.sum().item(), n + d.numel()
+        del d
+    return mx, tot / n
+
+
+def logits_agreement(kern, plain, floor, what):
+    """Kernel-path logits against the plain path's: max and mean |d| must
+    stay within 4x those between the plain path and its nudged run
+    (``floor``), the spread that rounding the same f32 values to bf16 at a
+    different last bit produces through the whole model."""
+    check(bool(torch.isfinite(kern).all()), f"{what}: logits not finite")
+    mx, mean = logit_diff(kern, plain)
+    check(mx <= 4 * floor[0], f"{what}: max|d| {mx:.3g} > 4 x the nudged plain run's "
+          f"{floor[0]:.3g}")
+    check(mean <= 4 * floor[1], f"{what}: mean|d| {mean:.3g} > 4 x the nudged plain run's "
+          f"{floor[1]:.3g}")
+    return mx, mean
+
+
+def phase_serve(arch, cfg, prompt_len, new_tokens, max_len, kernel, least, card):
+    """One model at full width through ``launch.serve.main`` and then
+    ``Engine.generate``, with the launches of ``kernel`` counted over both;
+    then the same prompts through the plain versions, compared."""
+    dev = torch.device("cuda")
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):  # it prints every prompt: keep its summary line
+        res_cli = serve_main(["--arch", arch, "--batch", "4", "--prompt-len", str(prompt_len),
+                              "--new-tokens", str(new_tokens), "--seed", "0",
+                              "--device", "cuda"])
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    print(out.getvalue().splitlines()[0])
+    check(res_cli.tokens.shape == (4, prompt_len + new_tokens), "launcher output shape")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    t0 = time.perf_counter()
+    params = init_lm(cfg, gen, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    eng = Engine(cfg, params, max_len=max_len)
+    prompts = np.random.default_rng(1).integers(3, cfg.vocab_size, (4, prompt_len))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = eng.generate(prompts, max_new_tokens=new_tokens)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    counts = launches()
+    check(counts[kernel] >= least, f"{kernel} launched {counts[kernel]} times serving {arch}, "
+          f"expected >= {least}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"[serve] {arch} ({cfg.num_layers} layers, d {cfg.d_model}, vocab {cfg.vocab_size}, "
+          f"{n_params / 1e9:.3f} B params bf16, init {init_s:.2f} s): launcher 4 x {prompt_len} "
+          f"-> {new_tokens} in {cli_s:.1f} s (with its own init); Engine.generate 4 x "
+          f"{prompt_len} -> {new_tokens} (max_len {max_len}) {gen_s:.3f} s; launches "
+          f"{counts}; peak {peak:.2f} GiB")
+
+    # timing split (after the counted run): prefill alone, then whole generates
+    with torch.inference_mode():
+        toks = torch.as_tensor(prompts, device=dev)
+
+        def prefill():
+            eng._prefill(params, toks, init_cache(cfg, 4, max_len, device=dev))
+
+        pre_ms, pre_runs = median_windows(prefill, iters=3, warmup=1)
+    gen_runs = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.generate(prompts, max_new_tokens=new_tokens)
+        torch.cuda.synchronize()
+        gen_runs.append((time.perf_counter() - t0) * 1e3)
+    gen_ms = sorted(gen_runs)[1]
+    dec_ms = (gen_ms - pre_ms) / (new_tokens - 1)
+    print(f"[serve] {arch} on {card}: prefill 4 x {prompt_len} {pre_ms:.2f} ms (windows "
+          f"{[round(x, 2) for x in pre_runs]}); generate {gen_ms:.1f} ms (runs "
+          f"{[round(x, 1) for x in gen_runs]}); decode {dec_ms:.2f} ms per step of 4 tokens; "
+          f"{4 * new_tokens / gen_ms * 1e3:.1f} tokens/s, {4 * prompt_len / pre_ms * 1e3:.0f} "
+          "prompt tokens/s in prefill")
+
+    # agreement with the plain versions, teacher-forced on the kernel path's tokens
+    gen_k = res.tokens[:, prompt_len:]
+    pre_k, dec_k = teacher_forced(cfg, params, prompts, gen_k, max_len)
+    check(np.array_equal(torch.argmax(torch.cat([pre_k[:, -1:], dec_k], 1), -1).cpu().numpy(),
+                         gen_k), "teacher-forced kernel path must repeat Engine.generate")
+    with plain_kernels():
+        pre_p, dec_p = teacher_forced(cfg, params, prompts, gen_k, max_len)
+    with plain_kernels(nudge=NUDGE):
+        pre_n, dec_n = teacher_forced(cfg, params, prompts, gen_k, max_len)
+    floor_pre, floor_dec = logit_diff(pre_n, pre_p), logit_diff(dec_n, dec_p)
+    del pre_n, dec_n
+    a_pre = logits_agreement(pre_k, pre_p, floor_pre, f"{arch} prefill logits")
+    a_dec = logits_agreement(dec_k, dec_p, floor_dec, f"{arch} decode logits")
+    mean_logit = pre_p[:, -1].float().abs().mean().item()
+    steps_k = torch.cat([pre_k[:, -1:], dec_k], 1).float()
+    steps_p = torch.cat([pre_p[:, -1:], dec_p], 1).float()
+    d_step = (steps_k - steps_p).abs().amax(-1)            # [B, n]
+    top2 = torch.topk(steps_p, 2, dim=-1)
+    margin = top2.values[..., 0] - top2.values[..., 1]
+    decided = margin > 2 * d_step
+    agree = top2.indices[..., 0].cpu().numpy() == gen_k
+    dec_np = decided.cpu().numpy()
+    check(bool(agree[dec_np].all()), f"{arch}: greedy tokens differ from the plain path where "
+          "its top-2 margin exceeds twice the logit difference")
+    print(f"[serve] {arch} kernel vs plain (teacher-forced): prefill logits max|d| {a_pre[0]:.4g} "
+          f"mean|d| {a_pre[1]:.3g}, decode logits max|d| {a_dec[0]:.4g} mean|d| {a_dec[1]:.3g} "
+          f"(mean |logit| {mean_logit:.3g}); the plain path nudged by {NUDGE:g} moves them by "
+          f"max {floor_pre[0]:.4g} / mean {floor_pre[1]:.3g} (prefill) and max "
+          f"{floor_dec[0]:.4g} / mean {floor_dec[1]:.3g} (decode), bound 4x; tokens: "
+          f"{int(dec_np.sum())}/{dec_np.size} decided by a margin > 2 x max|d| and all agree; "
+          f"{int(agree.sum())}/{agree.size} agree overall")
+    del pre_k, dec_k, pre_p, dec_p, params, eng
+    torch.cuda.empty_cache()
+    return counts[kernel], {"prefill_ms": pre_ms, "decode_ms": dec_ms,
+                            "tokens_per_s": 4 * new_tokens / gen_ms * 1e3}
+
+
+def small_lm_cfg(arch):
+    cfg = reduce_config(get_config(arch))
+    if arch == "gemma3-1b":
+        pattern = tuple(dataclasses.replace(b, window=8) if b.window else b for b in cfg.pattern)
+        cfg = dataclasses.replace(cfg, num_layers=8, pattern=pattern)
+    return cfg
+
+
+def phase_small_lm():
+    """Reduced f32 gemma3 (window 8, 8 layers) and rwkv6 on the card and on
+    the CPU (whose path the CPU tests hold against the JAX package)."""
+    for arch in ("gemma3-1b", "rwkv6-7b"):
+        cfg = small_lm_cfg(arch)
+        params = init_lm(cfg, torch.Generator().manual_seed(5), device="cpu")
+        prompts = np.random.default_rng(6).integers(3, cfg.vocab_size, (3, 12))
+        out = {}
+        for dev in ("cpu", "cuda"):
+            p = tree_map(lambda x: x.to(dev), params)
+            res = Engine(cfg, p, max_len=32).generate(prompts, max_new_tokens=16)
+            with torch.inference_mode():
+                lg, _, _ = forward_lm(cfg, p, torch.as_tensor(res.tokens, device=dev))
+            out[dev] = (res.tokens, lg.cpu())
+        d = (out["cpu"][1] - out["cuda"][1]).abs().max().item()
+        check(np.array_equal(out["cpu"][0], out["cuda"][0]), f"small {arch}: tokens differ")
+        check(d <= 1e-4, f"small {arch}: card and CPU logits differ by {d:.3g} > 1e-4")
+        print(f"[small] reduced f32 {cfg.name} ({cfg.num_layers} layers): 3 x 12 -> 16 tokens "
+              f"identical on card and CPU; logits over all 28 positions max|d| {d:.3g} "
+              "(bound 1e-4)")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card", file=sys.stderr)
@@ -681,10 +1137,18 @@ def main() -> int:
     sk = phase_sketch_timing(sk_row, smi)
     del sk_row
     torch.cuda.empty_cache()
+    fl_inputs, fl_err = phase_flash_checks(gen)
+    fl = phase_flash_timing(fl_inputs, smi)
+    del fl_inputs
+    rw_inputs, rw_err = phase_rwkv_checks(gen)
+    rw = phase_rwkv_timing(rw_inputs, smi)
+    del rw_inputs
+    torch.cuda.empty_cache()
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke-") as workdir:
         phase_small_agreement()
         phase_small_service(workdir)
+        phase_small_lm()
 
         torch.cuda.reset_peak_memory_stats()
         reset_launches()
@@ -709,21 +1173,31 @@ def main() -> int:
     for kernel, least in (("decode_accum", 3), ("row_sketch", 5), ("cold_fuse", 1)):
         check(counts[kernel] >= least, f"{kernel} launched {counts[kernel]} times on the "
               f"service path, expected >= {least}")
+
+    # the serving path (slice 3), one model at a time, counts reset before each
+    counts["flash_attention"], _ = phase_serve(
+        "gemma3-1b", GEMMA, GEMMA_PROMPT, SERVE_NEW, GEMMA_MAX_LEN, "flash_attention",
+        GEMMA.num_layers * SERVE_NEW, smi)
+    counts["rwkv6_scan"], _ = phase_serve(
+        "rwkv6-7b", RWKV, RWKV_PROMPT, SERVE_NEW, RWKV_MAX_LEN, "rwkv6_scan",
+        RWKV.num_layers * SERVE_NEW, smi)
     print(f"[done] {time.perf_counter() - t0:.1f} s after the card check")
 
     def record(name, replaces, err, timing):
-        k_ms, k_plain, k_bound, k_by = timing
+        k_ms, k_plain, k_bound, k_by = timing[:4]
         return {"name": name, "route": "cuda",
                 "source": f"src/repro_torch/kernels/csrc/{name}.cu",
                 "replaces": replaces, "launches": counts[name], "max_abs_err": err,
                 "ms": k_ms, "plain_ms": k_plain, "bound_ms": k_bound, "bound_by": k_by,
-                "library_ms": None}
+                "library_ms": timing[4] if len(timing) > 4 else None}
 
     print(json.dumps({"kernels": [
         record("cold_fuse", "src/repro/kernels/cold_fuse.py:61", max_err,
                (ms, plain_ms, bound_ms, bound_by)),
         record("decode_accum", "src/repro/kernels/cold_fuse.py:170", dec_err, dec),
-        record("row_sketch", "src/repro/kernels/cold_fuse.py:253", sk_err, sk)]}))
+        record("row_sketch", "src/repro/kernels/cold_fuse.py:253", sk_err, sk),
+        record("flash_attention", "src/repro/kernels/flash_attention.py:28", fl_err, fl),
+        record("rwkv6_scan", "src/repro/kernels/rwkv6_scan.py:35", rw_err, rw)]}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}))
     return 0

@@ -35,4 +35,5 @@ TINY = dataclasses.replace(
     max_seq_len=64,
     param_dtype="float32",
     compute_dtype="float32",
+    remat=False,
 )

@@ -1,7 +1,8 @@
-"""Public fuse entry points (port of the single-device part of
+"""Public kernel entry points (port of the single-device part of
 ``repro.kernels.ops``).  The kernel is chosen by the tensors' device inside
-each wrapper (``cold_fuse``, ``decode_accum``, ``row_sketch``): CUDA runs
-the hand-written kernel, the CPU its plain version."""
+each wrapper (``cold_fuse``, ``decode_accum``, ``row_sketch``,
+``flash_attention``, ``rwkv6_scan``): CUDA runs the hand-written kernel,
+the CPU its plain version."""
 from __future__ import annotations
 
 from typing import Optional, Tuple
@@ -10,8 +11,12 @@ import torch
 
 from repro_torch.kernels.cold_fuse import cold_fuse
 from repro_torch.kernels.decode_accum import decode_accum
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.row_sketch import row_sketch as _row_sketch
+from repro_torch.kernels.rwkv6_scan import rwkv6_scan
 from repro_torch.utils.flat import SKETCH_BUCKETS, FlatSpec, StagedBuffer
+
+RWKV_LOGW_FLOOR = -4.0  # the TPU kernel's contract (see repro.kernels.rwkv6_scan)
 
 
 def fuse_flat(base, contribs, weights, alpha: float = 1.0,
@@ -99,3 +104,21 @@ def row_sketch(row: torch.Tensor, n_buckets: int = SKETCH_BUCKETS) -> torch.Tens
     tile-bucketed sums and sums of squares, in one read of the row.  The
     host logic that screens with it is ``utils.flat.CohortSketch``."""
     return _row_sketch(row, n_buckets)
+
+
+def attention(q, k, v, *, causal: bool = True, window: Optional[int] = None, q_offset: int = 0,
+              block_q: int = 128, block_k: int = 128) -> torch.Tensor:
+    """Blocked attention (GQA, causal, sliding window).  ``block_q`` and
+    ``block_k`` are the TPU kernel's tile sizes, kept for the reference's
+    signature; the CUDA kernel's tiles are fixed (32 x 32)."""
+    del block_q, block_k
+    return flash_attention(q, k, v, causal=causal, window=window, q_offset=q_offset)
+
+
+def rwkv6_mix(r, k, v, logw, u, s0, *, chunk: int = 16) -> Tuple[torch.Tensor, torch.Tensor]:
+    """RWKV6 recurrence with ``logw`` clamped to ``[RWKV_LOGW_FLOOR, 0]``,
+    as the reference's wrapper clamps it to its chunked kernel's contract.
+    ``chunk`` is that kernel's chunk length, kept for the signature; the
+    CUDA kernel is sequential and needs no chunking."""
+    del chunk
+    return rwkv6_scan(r, k, v, torch.clamp(logw, RWKV_LOGW_FLOOR, 0.0), u, s0)

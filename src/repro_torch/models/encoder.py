@@ -48,7 +48,8 @@ def encode(cfg: ArchConfig, body, tokens: torch.Tensor) -> torch.Tensor:
     x = body["embed"][tokens].to(cdt) + body["pos"][None, :S].to(cdt)
     for i in range(cfg.num_layers):
         p = body["layers"][f"layer{i}"]
-        x = x + L.attention_fwd(cfg, p["attn"], L.norm_fwd(cfg, p["norm1"], x))
+        out, _ = L.attention_fwd(cfg, p["attn"], L.norm_fwd(cfg, p["norm1"], x), causal=False)
+        x = x + out
         x = x + L.mlp_fwd(cfg, p["mlp"], L.norm_fwd(cfg, p["norm2"], x))
     return L.norm_fwd(cfg, body["final_norm"], x)
 

@@ -1,23 +1,33 @@
-"""Layers of the RoBERTa-style encoder (port of the parts of
-``repro.models.layers`` the encoder runs).  Functional, like the reference:
-``init_*`` returns a dict of tensors, ``*_fwd`` applies it.
+"""Layers of the port's models (port of ``repro.models.layers``): norms,
+activations, RoPE, GQA attention with an optional KV cache, dense FFNs.
+Functional, like the reference: ``init_*`` returns a dict of tensors,
+``*_fwd`` applies it.
 
 Numerics follow the reference:
 * the norm runs in f32 with the biased variance and ``cfg.norm_eps`` and
   casts back to the input dtype;
 * ``gelu`` is the tanh approximation (``jax.nn.gelu``'s default);
-* attention scales q by 1/sqrt(hd) in f32, softmaxes in f32, and casts the
-  probabilities to v's dtype before the second product — written with
-  ``matmul``/``softmax`` as the reference writes it.
+* RoPE is rotate-half, with ``cos``/``sin`` cast to x's dtype before the
+  products;
+* the encoder's bidirectional, uncached attention scales q by 1/sqrt(hd)
+  in f32, softmaxes in f32, and casts the probabilities to v's dtype
+  before the second product — written with ``einsum``/``softmax`` as the
+  reference writes it, so it trains through autograd;
+* causal or cached attention (the decoder) goes through
+  ``kernels.ops.attention``: the hand-written kernel on the card, its plain
+  version on the CPU.  It keeps the probabilities in f32, so at bf16 it
+  differs from the reference's ``_sdpa`` by that rounding only.
 """
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, RopeCfg
+from repro_torch.kernels import ops
 
 
 def normal_init(gen: torch.Generator, shape, std: float, dtype, device) -> torch.Tensor:
@@ -70,23 +80,86 @@ def init_attention(cfg: ArchConfig, gen: torch.Generator, dtype, device):
     }
 
 
-def attention_fwd(cfg: ArchConfig, p, x: torch.Tensor) -> torch.Tensor:
-    """Bidirectional self-attention with no cache (the encoder's case):
-    x [B, S, D] -> [B, S, D].  GQA broadcasts kv heads to query heads."""
-    B, S, _ = x.shape
-    hd, nq, nkv = cfg.head_dim, cfg.num_heads, cfg.num_kv_heads
-    q = (x @ p["wq"]).reshape(B, S, nq, hd)
-    k = (x @ p["wk"]).reshape(B, S, nkv, hd)
-    v = (x @ p["wv"]).reshape(B, S, nkv, hd)
-    rep = nq // nkv
+def rope_freqs(rope: RopeCfg, head_dim: int, device=None) -> torch.Tensor:
+    half = head_dim // 2
+    return 1.0 / (rope.theta ** (torch.arange(0, half, dtype=torch.float32, device=device) / half))
+
+
+def rope_angles(rope: RopeCfg, positions: torch.Tensor, head_dim: int) -> torch.Tensor:
+    """positions [..., S] -> angles [..., S, head_dim//2] (f32)."""
+    inv = rope_freqs(rope, head_dim, positions.device)
+    pos = positions.float() / rope.scaling
+    return pos[..., None] * inv
+
+
+def apply_rope(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
+    """x: [B, S, H, hd]; angles: [B, S, hd//2].  Rotate-half convention
+    (HF Llama/Mistral/Gemma); cos and sin are cast to x's dtype first."""
+    half = x.shape[-1] // 2
+    x1, x2 = x[..., :half], x[..., half:]
+    cos = torch.cos(angles)[..., None, :].to(x.dtype)  # [B,S,1,half]
+    sin = torch.sin(angles)[..., None, :].to(x.dtype)
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+
+
+def _sdpa_bidirectional(q, k, v):
+    """The encoder's attention: no mask, no cache, differentiable."""
+    hd = q.shape[-1]
+    rep = q.shape[2] // k.shape[2]
     qf = q.float() / math.sqrt(hd)
     kf = torch.repeat_interleave(k.float(), rep, dim=2)
     vf = torch.repeat_interleave(v, rep, dim=2)
     scores = torch.einsum("bqhd,bkhd->bhqk", qf, kf)
     probs = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype), vf)
-    out = out.reshape(B, S, nq * hd) @ p["wo"]
-    return out.to(x.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype), vf)
+
+
+def attention_fwd(cfg: ArchConfig, p, x: torch.Tensor, *, angles=None, causal: bool = True,
+                  window: Optional[int] = None, q_offset: int = 0, kv_cache=None,
+                  cache_index: Optional[int] = None):
+    """Self-attention: x [B, Sq, D] -> (out [B, Sq, D], cache).
+
+    ``kv_cache``: optional dict {"k": [B, S_cache, Hkv, hd], "v": ...}; with
+    ``cache_index`` (an int) the new k/v are written into it IN PLACE at
+    that offset and attention runs over the whole cache (the decode path);
+    the same dict is returned.  The reference's ring-buffer cache is not
+    ported.  Without a cache the returned cache is None."""
+    B, Sq, _ = x.shape
+    hd, nq, nkv = cfg.head_dim, cfg.num_heads, cfg.num_kv_heads
+    q = (x @ p["wq"]).reshape(B, Sq, nq, hd)
+    k = (x @ p["wk"]).reshape(B, Sq, nkv, hd)
+    v = (x @ p["wv"]).reshape(B, Sq, nkv, hd)
+    if angles is not None:
+        q = apply_rope(q, angles)
+        k = apply_rope(k, angles)
+    if kv_cache is not None:
+        ck, cv = kv_cache["k"], kv_cache["v"]
+        if cache_index is not None:
+            i = int(cache_index)
+            if not 0 <= i <= ck.shape[1] - Sq:
+                raise ValueError(f"cache_index {i} + {Sq} new positions overrun a cache of "
+                                 f"{ck.shape[1]}")
+            ck[:, i:i + Sq] = k.to(ck.dtype)
+            cv[:, i:i + Sq] = v.to(cv.dtype)
+        k, v = ck, cv
+    if causal or kv_cache is not None or window is not None:
+        out = ops.attention(q, k, v, causal=causal, window=window, q_offset=q_offset)
+    else:
+        out = _sdpa_bidirectional(q, k, v)
+    out = out.reshape(B, Sq, nq * hd) @ p["wo"]
+    return out.to(x.dtype), kv_cache
+
+
+def init_glu(cfg: ArchConfig, gen: torch.Generator, dtype, device):
+    d, f = cfg.d_model, cfg.d_ff
+    return {"w_gate": dense_init(gen, d, f, dtype, device),
+            "w_up": dense_init(gen, d, f, dtype, device),
+            "w_down": dense_init(gen, f, d, dtype, device)}
+
+
+def glu_fwd(cfg: ArchConfig, p, x: torch.Tensor) -> torch.Tensor:
+    act = activation(cfg.act)
+    return (act(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
 
 
 def init_mlp(cfg: ArchConfig, gen: torch.Generator, dtype, device):

@@ -1,0 +1,134 @@
+"""RWKV6 ("Finch", arXiv:2404.05892) — attention-free mixer with
+data-dependent decay, plus the RWKV channel-mix FFN.  Port of
+``repro.models.rwkv``; parameter trees carry the reference's keys.
+
+Time-mix recurrence per head (state S in R^{hd x hd}, f32):
+
+    out_t = r_t · (diag(u) k_t v_tᵀ + S_t)
+    S_t+1 = diag(w_t) S_t + k_t v_tᵀ
+
+with per-token per-channel decay w_t = exp(-exp(w0 + LoRA_w(x̄_t))).  The
+recurrence goes straight to the ``rwkv6_scan`` wrapper (the hand-written
+kernel on the card, its plain version on the CPU) with
+``logw = -exp(w0 + LoRA_w(x̄_t))``, unclamped as in the reference model
+(``kernels.ops.rwkv6_mix`` clamps, so the model does not call it).
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels.rwkv6_scan import rwkv6_scan
+from repro_torch.models.layers import dense_init, normal_init
+
+
+def num_heads(cfg: ArchConfig) -> int:
+    return cfg.d_model // cfg.ssm.head_dim
+
+
+def _lora_init(gen, d: int, r: int, dtype, device):
+    return {"a": dense_init(gen, d, r, dtype, device),
+            "b": normal_init(gen, (r, d), 0.01, dtype, device)}
+
+
+def _lora(p, x):
+    return torch.tanh(x @ p["a"]) @ p["b"]
+
+
+def init_time_mix(cfg: ArchConfig, gen: torch.Generator, dtype, device):
+    """Draw order: mu, lora_mix, lora_w, u, wr, wk, wv, wg, wo."""
+    d, r = cfg.d_model, cfg.ssm.decay_lora
+    H, hd = num_heads(cfg), cfg.ssm.head_dim
+    mu = torch.rand((5, d), generator=gen, dtype=torch.float32, device=gen.device)
+    p = {
+        "mu": mu.to(device=device, dtype=dtype),  # static lerp base (w,k,v,r,g)
+        "lora_mix": _lora_init(gen, d, 32, dtype, device),  # shared data-dependent mix delta
+        "lora_w": _lora_init(gen, d, r, dtype, device),
+        "w0": torch.full((d,), -6.0, dtype=torch.float32, device=device),
+        "u": normal_init(gen, (H, hd), 0.1, torch.float32, device),  # bonus for the current token
+    }
+    for name in ("wr", "wk", "wv", "wg", "wo"):
+        p[name] = dense_init(gen, d, d, dtype, device)
+    p["ln_scale"] = torch.ones((d,), dtype=dtype, device=device)  # per-head group norm
+    p["ln_bias"] = torch.zeros((d,), dtype=dtype, device=device)
+    return p
+
+
+def _token_shift(x, last=None):
+    """Previous-token features; ``last`` [B,1,D] carries decode state."""
+    if last is None:
+        last = torch.zeros_like(x[:, :1])
+    return torch.cat([last, x[:, :-1]], dim=1)
+
+
+def _ddlerp(p, x, xx):
+    """Data-dependent lerp between current (x) and shifted (xx) features."""
+    base = xx + (x - xx) * p["mu"][0].to(x.dtype)  # coarse mix for the delta net
+    delta = _lora(p["lora_mix"], base)
+    return [xx + (x - xx) * (p["mu"][i].to(x.dtype) + delta) for i in range(5)]  # w,k,v,r,g
+
+
+def time_mix_fwd(cfg: ArchConfig, p, x, *, state=None, return_state=False):
+    """x: [B,S,D] -> (y [B,S,D], new_state).  state={"S":[B,H,hd,hd] f32,
+    "shift":[B,1,D]}; new_state is a fresh dict (None unless
+    ``return_state``)."""
+    B, S, D = x.shape
+    H, hd = num_heads(cfg), cfg.ssm.head_dim
+    last = state["shift"] if state is not None else None
+    xx = _token_shift(x, last)
+    xw, xk, xv, xr, xg = _ddlerp(p, x, xx)
+
+    # the reference casts r, k, v to f32 for the recurrence (rwkv.py:102)
+    r = (xr @ p["wr"]).reshape(B, S, H, hd).float()
+    k = (xk @ p["wk"]).reshape(B, S, H, hd).float()
+    v = (xv @ p["wv"]).reshape(B, S, H, hd).float()
+    g = F.silu(xg @ p["wg"])
+    # data-dependent log-decay, <= 0: w = exp(logw) is in (0, 1]
+    logw = -torch.exp(p["w0"] + _lora(p["lora_w"], xw).float()).reshape(B, S, H, hd)
+
+    if state is not None:
+        s0 = state["S"]
+    else:
+        s0 = torch.zeros((B, H, hd, hd), dtype=torch.float32, device=x.device)
+    y, s_final = rwkv6_scan(r.contiguous(), k.contiguous(), v.contiguous(), logw.contiguous(),
+                            p["u"], s0)
+
+    # per-head group norm (biased variance, eps 64e-5)
+    mu = torch.mean(y, dim=-1, keepdim=True)
+    var = torch.var(y, dim=-1, keepdim=True, unbiased=False)
+    yh = (y - mu) * torch.rsqrt(var + 64e-5)
+    y = yh.reshape(B, S, D) * p["ln_scale"].float() + p["ln_bias"].float()
+
+    out = (y.to(x.dtype) * g) @ p["wo"]
+    new_state = {"S": s_final, "shift": x[:, -1:]} if return_state else None
+    return out, new_state
+
+
+def init_channel_mix(cfg: ArchConfig, gen: torch.Generator, dtype, device):
+    d, f = cfg.d_model, cfg.d_ff
+    return {
+        "mu_k": torch.full((d,), 0.5, dtype=dtype, device=device),
+        "mu_r": torch.full((d,), 0.5, dtype=dtype, device=device),
+        "wk": dense_init(gen, d, f, dtype, device),
+        "wv": dense_init(gen, f, d, dtype, device),
+        "wr": dense_init(gen, d, d, dtype, device),
+    }
+
+
+def channel_mix_fwd(cfg: ArchConfig, p, x, *, last=None, return_state=False):
+    xx = _token_shift(x, last)
+    xk = xx + (x - xx) * p["mu_k"]
+    xr = xx + (x - xx) * p["mu_r"]
+    k = torch.square(F.relu(xk @ p["wk"]))
+    out = torch.sigmoid(xr @ p["wr"]) * (k @ p["wv"])
+    return (out, x[:, -1:]) if return_state else (out, None)
+
+
+def init_rwkv_state(cfg: ArchConfig, batch: int, dtype, device):
+    H, hd = num_heads(cfg), cfg.ssm.head_dim
+    return {
+        "S": torch.zeros((batch, H, hd, hd), dtype=torch.float32, device=device),
+        "shift": torch.zeros((batch, 1, cfg.d_model), dtype=dtype, device=device),
+        "cm_shift": torch.zeros((batch, 1, cfg.d_model), dtype=dtype, device=device),
+    }

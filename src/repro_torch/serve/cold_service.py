@@ -44,6 +44,7 @@ import numpy as np
 from repro_torch.checkpoint import io as ckpt
 from repro_torch.core.repository import Repository
 from repro_torch.utils import faults
+from repro_torch.utils.device import resolve_device
 from repro_torch.utils.flat import (LANE, FlatSpec, delta_checksum, delta_encode,
                                     row_checksum, row_sketch_host)
 
@@ -192,10 +193,12 @@ class ContributorClient:
             time.sleep(min(remaining, random.uniform(delay / 2, delay)))
             delay = min(delay * 2, max_interval)
 
-    def download_base(self, device="cpu"):
+    def download_base(self, device="cuda"):
         """Pull the latest published base tree (Fig. 1, step 1) onto
-        ``device``.  The base npz is durable before repository.json names
-        it, so the load never races a publish into a missing file."""
+        ``device`` (the card unless the caller asks for the CPU).  The base
+        npz is durable before repository.json names it, so the load never
+        races a publish into a missing file."""
+        device = resolve_device(device)
         meta = ckpt.load_json(os.path.join(self.root, "repository.json"))
         it = int(meta["iteration"])
         return ckpt.load(os.path.join(self.root, f"base_iter{it:04d}.npz"), device=device)

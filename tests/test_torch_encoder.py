@@ -89,7 +89,8 @@ def test_attention_matches_reference(setup):
     rng = np.random.default_rng(2)
     x = rng.normal(size=(B, S, SHAPE["d_model"])).astype(np.float32)
     p = body["layers"]["layer0"]["attn"]
-    got = TL.attention_fwd(TCFG, _t(p), torch.from_numpy(x))
+    got, cache = TL.attention_fwd(TCFG, _t(p), torch.from_numpy(x), causal=False)
+    assert cache is None
     want, _ = JL.attention_fwd(JCFG, p, jnp.asarray(x), angles=None, causal=False)
     _assert_close(got, want, 1e-5)
 

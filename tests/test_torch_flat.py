@@ -144,11 +144,14 @@ def test_config_fields_match_jax():
         from repro_torch.configs import roberta_base as trb
         jc, tc = getattr(jrb, name), getattr(trb, name)
         for f in dataclasses.fields(tbase.ArchConfig):
-            if f.name in ("pattern", "rope"):
+            if f.name in ("pattern", "rope", "ssm"):
                 continue
             assert getattr(tc, f.name) == getattr(jc, f.name), (name, f.name)
-        assert [(b.mixer, b.ffn) for b in tc.pattern] == [(b.mixer, b.ffn) for b in jc.pattern]
-        assert tc.rope.kind == jc.rope.kind
+        assert [dataclasses.astuple(b) for b in tc.pattern] == \
+            [(b.mixer, b.window, b.ffn, b.rope_theta) for b in jc.pattern]
+        assert (tc.rope.kind, tc.rope.theta, tc.rope.scaling) == \
+            (jc.rope.kind, jc.rope.theta, jc.rope.scaling)
+        assert (tc.ssm.head_dim, tc.ssm.decay_lora) == (jc.ssm.head_dim, jc.ssm.decay_lora)
     assert TINY.param_dtype == "float32"
 
 
