@@ -7,9 +7,11 @@ Phases (any failed check raises, so the script exits non-zero):
 
 1. the card: name, count, and ``nvidia-smi``'s name and power limit;
 2. build every kernel from ``src/repro_torch/kernels/csrc`` (``cold_fuse``,
-   ``decode_accum``, ``row_sketch``, ``flash_attention``, ``rwkv6_scan``:
-   one ``nvcc`` each, all started together; time, and ptxas' registers
-   and spills per kernel);
+   ``decode_accum``, ``row_sketch``, the three routes of ``flash_attention``
+   — ``flash_prefill`` on the tensor cores for bf16, ``flash_decode``
+   split-K for decode shapes, ``flash_attention`` FMA loops for f32
+   prefill — and ``rwkv6_scan``: one ``nvcc`` each, all started together;
+   time, and ptxas' registers and spills per kernel);
 3. each kernel against its plain PyTorch version on the card, at the main
    paths' shapes and on ragged shapes: ``cold_fuse`` at K=5 x
    N=123,969,792 bf16 (one NaN row of weight 0, alpha 1.0 and 0.3);
@@ -19,15 +21,18 @@ Phases (any failed check raises, so the script exits non-zero):
    bf16 body with 32 buckets, of 1,000,003 f32 with 7 and of 100 elements;
    ``flash_attention`` at gemma3-1b's prefill shape (B=4, Sq=1024,
    Sk=1280, 4 query heads on 1 kv head, hd 256, bf16, window 512 and
-   none), at decode (Sq=1, q_offset 1100), in f32 at hd 32-256 with
-   ragged lengths, and with rows that see no key; ``rwkv6_scan`` at
+   none), at decode (Sq=1, q_offset 1100, bf16 and f32), in f32 at hd
+   32-256 with ragged lengths, bf16 prefill at hd 64 and 128, and with
+   rows that see no key, each call checked to take its route; ``rwkv6_scan`` at
    rwkv6-7b's prefill shape (B=4, T=256, H=64, hd=64, f32, logw down to
    -20), with the state chained across two calls, with bf16 inputs and at
    hd 32;
 4. kernel and plain-version times (CUDA events, five windows after a
    warm-up, the median printed) beside each kernel's bound, and for
-   ``flash_attention`` the time of ``scaled_dot_product_attention`` on
-   the same inputs and mask;
+   ``flash_attention`` the route and the time of
+   ``scaled_dot_product_attention`` on the same inputs and mask; both
+   again replayed from a CUDA graph, which leaves out the host's work per
+   call (the device time);
 5. small-input checks: the same screen + fuse, the same small queue
    drained by the contributor service, and reduced f32 gemma3 and rwkv6
    models serving the same prompts, on the card and on the CPU (whose
@@ -51,7 +56,11 @@ Phases (any failed check raises, so the script exits non-zero):
    prompts (1024 tokens for gemma3, 256 for rwkv6) x 32 new tokens, then
    ``Engine.generate`` the same on its own model (gemma3's cache 1280
    long, so its 512-token window bites in prefill and decode); prefill and
-   decode are timed; then both models run teacher-forced on the kernel
+   decode are timed, and gemma3's launches are counted per route
+   (prefill on the tensor-core route, decode on the split-K route); one
+   prefill and 8 decode steps run under ``torch.profiler`` for the
+   kernels' device time against the wall time (the device's idle share); then
+   both models run teacher-forced on the kernel
    path's tokens once more and once with the kernels' plain versions, and
    the logits and greedy tokens are compared.
 
@@ -87,6 +96,7 @@ from repro_torch.core import (Contributor, EvalTask, Repository,  # noqa: E402
 from repro_torch.data.synthetic import SyntheticSuite  # noqa: E402
 from repro_torch.checkpoint import io as ckpt  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels import flash_attention as fa_mod  # noqa: E402
 from repro_torch.kernels.cold_fuse import cold_fuse, cold_fuse_plain  # noqa: E402
 from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.kernels.decode_accum import decode_accum, decode_accum_plain  # noqa: E402
@@ -111,7 +121,11 @@ F32_FLOPS = 67e12           # H100 SXM float32 outside the tensor cores
 BF16_FLOPS = 989e12         # H100 SXM bf16 tensor cores, dense
 N_ROBERTA = 123_969_792     # elements of the RoBERTa-base body (FlatSpec.size)
 K_MAIN = 5
-KERNELS = ("cold_fuse", "decode_accum", "row_sketch", "flash_attention", "rwkv6_scan")
+# the CUDA sources: flash_attention's three routes live in three files
+SOURCES = ("cold_fuse", "decode_accum", "row_sketch", "flash_prefill", "flash_decode",
+           "flash_attention", "rwkv6_scan")
+FLASH_SOURCE = {"prefill_tc": "flash_prefill", "decode": "flash_decode",
+                "prefill_fma": "flash_attention"}
 CODEC_BLOCK, CODEC_KB = 1024, 64   # the service's default delta codec
 C_SERVICE = 4
 # novelty threshold of the service phases: a replay scores 0; three Adam
@@ -208,8 +222,9 @@ def fuse_inputs(K, N, dtype, gen, nan_row=None):
 
 
 def reset_launches():
-    for fn in (cold_fuse, decode_accum, row_sketch, flash_attention, rwkv6_scan):
+    for fn in (cold_fuse, decode_accum, row_sketch, rwkv6_scan):
         fn.launches = 0
+    fa_mod.reset_launches()
 
 
 def launches():
@@ -346,6 +361,26 @@ def phase_main_path():
     check(pspec.size == N_ROBERTA and row.dtype == torch.bfloat16, "published base shape/dtype")
     check(bool(torch.isfinite(row).all()), "published base is not finite")
     print(f"[main] published base: {pspec.size} bf16 elements, all finite")
+
+def graph_windows(fn, iters: int):
+    """Device time per call: ``iters`` calls captured in one CUDA graph and
+    replayed, five windows of one replay each (median ms, all windows).
+    Without the host's per-call work, this is the kernels' own time."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    runs = [time_ms(graph.replay, iters=1, warmup=0) / iters for _ in range(5)]
+    del graph
+    return sorted(runs)[2], runs
+
 
 def median_windows(fn, iters: int, warmup: int = 2):
     """Five timing windows: (median ms, all windows)."""
@@ -736,46 +771,84 @@ def qkv_on_card(B, Sq, Sk, Hq, Hkv, hd, dtype, gen):
             torch.randn((B, Sk, Hkv, hd), generator=gen, device=dev).to(dtype))
 
 
+def flash_routed(want_route, q, k, v, **kw):
+    """flash_attention on the card, checked to launch once through
+    ``want_route`` (the route ``fa_mod.route`` names for these shapes)."""
+    check(fa_mod.route(q.dtype, q.shape[1], q.shape[2], k.shape[2]) == want_route,
+          f"flash: {tuple(q.shape)} {q.dtype} is not routed to {want_route}")
+    before = dict(flash_attention.launches_by_route)
+    out = flash_attention(q, k, v, **kw)
+    after = flash_attention.launches_by_route
+    check(after[want_route] == before[want_route] + 1
+          and sum(after[r] for r in fa_mod.ROUTES) == sum(before[r] for r in fa_mod.ROUTES) + 1,
+          f"flash: the call did not launch once through the {want_route} route")
+    return out
+
+
 def phase_flash_checks(gen):
-    """flash_attention against flash_attention_plain on the card.  Returns
-    gemma3-1b's prefill-shaped bf16 inputs and the largest error there."""
+    """flash_attention against flash_attention_plain on the card, each
+    call through the route it must take.  Returns gemma3-1b's
+    prefill-shaped bf16 inputs and the largest error there."""
     B, Sq, Sk, Hq, Hkv, hd = FLASH_PREFILL
     q, k, v = qkv_on_card(B, Sq, Sk, Hq, Hkv, hd, torch.bfloat16, gen)
     worst = 0.0
     for window in (GEMMA_WINDOW, None):
-        e = bf16_close(flash_attention(q, k, v, causal=True, window=window),
+        e = bf16_close(flash_routed("prefill_tc", q, k, v, causal=True, window=window),
                        flash_attention_plain(q, k, v, causal=True, window=window),
                        f"flash prefill window={window}")
         worst = max(worst, e)
         print(f"[check] flash_attention vs plain, gemma3-1b prefill B={B} Sq={Sq} Sk={Sk} "
-              f"Hq={Hq} Hkv={Hkv} hd={hd} bf16 window={window}: max|d| {e:.3g} "
-              "(bound 1 bf16 ulp + 2e-5 x max(1, max|o|))")
+              f"Hq={Hq} Hkv={Hkv} hd={hd} bf16 window={window}, route prefill_tc: max|d| "
+              f"{e:.3g} (bound 1 bf16 ulp + 2e-5 x max(1, max|o|))")
         qd = q[:, :1].contiguous()
-        e = bf16_close(flash_attention(qd, k, v, causal=True, window=window, q_offset=1100),
+        e = bf16_close(flash_routed("decode", qd, k, v, causal=True, window=window,
+                                    q_offset=1100),
                        flash_attention_plain(qd, k, v, causal=True, window=window,
                                              q_offset=1100), f"flash decode window={window}")
         worst = max(worst, e)
         print(f"[check] flash_attention vs plain, decode Sq=1 q_offset=1100 Sk={Sk} bf16 "
-              f"window={window}: max|d| {e:.3g} (bound 1 bf16 ulp + 2e-5 x max(1, max|o|))")
+              f"window={window}, route decode: max|d| {e:.3g} (bound 1 bf16 ulp + 2e-5 x "
+              "max(1, max|o|))")
+        qf, kf, vf = q[:, :1].float(), k.float(), v.float()
+        e = f32_close(flash_routed("decode", qf, kf, vf, causal=True, window=window,
+                                   q_offset=1100),
+                      flash_attention_plain(qf, kf, vf, causal=True, window=window,
+                                            q_offset=1100), f"flash f32 decode window={window}")
+        print(f"[check] flash_attention vs plain, decode Sq=1 q_offset=1100 Sk={Sk} f32 "
+              f"window={window}, route decode: max|d| {e:.3g} (bound 2e-5 x max(1, max|o|))")
     for (b, sq, sk, hq, hkv, d, causal, window, off) in (
             (2, 96, 160, 4, 1, 256, True, 64, 0), (2, 77, 133, 8, 2, 64, True, None, 56),
             (3, 45, 45, 4, 4, 128, False, None, 0),
             (2, 70, 101, 4, 1, 128, True, 17, 31), (1, 33, 40, 4, 2, 32, True, 8, 7)):
         qs, ks, vs = qkv_on_card(b, sq, sk, hq, hkv, d, torch.float32, gen)
-        e = f32_close(flash_attention(qs, ks, vs, causal=causal, window=window, q_offset=off),
+        e = f32_close(flash_routed("prefill_fma", qs, ks, vs, causal=causal, window=window,
+                                   q_offset=off),
                       flash_attention_plain(qs, ks, vs, causal=causal, window=window,
                                             q_offset=off), f"flash f32 hd={d}")
         print(f"[check] flash_attention vs plain, f32 B={b} Sq={sq} Sk={sk} Hq={hq} Hkv={hkv} "
-              f"hd={d} causal={causal} window={window} q_offset={off}: max|d| {e:.3g} "
-              "(bound 2e-5 x max(1, max|o|))")
+              f"hd={d} causal={causal} window={window} q_offset={off}, route prefill_fma: "
+              f"max|d| {e:.3g} (bound 2e-5 x max(1, max|o|))")
+        qb, kb, vb = qs.bfloat16(), ks.bfloat16(), vs.bfloat16()
+        e = bf16_close(flash_routed("prefill_tc", qb, kb, vb, causal=causal, window=window,
+                                    q_offset=off),
+                       flash_attention_plain(qb, kb, vb, causal=causal, window=window,
+                                             q_offset=off), f"flash bf16 hd={d}")
+        print(f"[check] flash_attention vs plain, the same in bf16, route prefill_tc: max|d| "
+              f"{e:.3g} (bound 1 bf16 ulp + 2e-5 x max(1, max|o|))")
     qs, ks, vs = qkv_on_card(1, 40, 64, 4, 1, 64, torch.float32, gen)
-    got = flash_attention(qs, ks, vs, causal=True, window=8, q_offset=66)
-    want = flash_attention_plain(qs, ks, vs, causal=True, window=8, q_offset=66)
-    f32_close(got, want, "flash partly masked")
-    check(bool((got[:, 6:] == 0).all()) and bool((got[:, :5] != 0).any()),
-          "flash: rows that see no key must be 0, the others not")
+    for dtype, rt in ((torch.float32, "prefill_fma"), (torch.bfloat16, "prefill_tc")):
+        qq, kk, vv = qs.to(dtype), ks.to(dtype), vs.to(dtype)
+        got = flash_routed(rt, qq, kk, vv, causal=True, window=8, q_offset=66)
+        want = flash_attention_plain(qq, kk, vv, causal=True, window=8, q_offset=66)
+        (f32_close if dtype == torch.float32 else bf16_close)(got, want, "flash partly masked")
+        check(bool((got[:, 6:] == 0).all()) and bool((got[:, :5] != 0).any()),
+              "flash: rows that see no key must be 0, the others not")
+    got = flash_routed("decode", qs[:, :1].bfloat16(), ks.bfloat16(), vs.bfloat16(),
+                       causal=True, window=8, q_offset=100)
+    check(bool((got == 0).all()), "flash decode: a row that sees no key must be 0")
     print("[check] flash_attention fully masked rows (q_offset 66, window 8, Sk 64: rows 6.. "
-          "see no key): exactly 0, rows 0..4 match the plain version")
+          "see no key): exactly 0 in f32 and bf16, rows 0..4 match the plain version; "
+          "decode at q_offset 100: exactly 0")
     return (q, k, v), worst
 
 
@@ -787,19 +860,30 @@ def visible_entries(Sq, Sk, causal, window, q_offset):
     return int(torch.clamp(hi - lo, min=0).sum())
 
 
+def visible_keys(Sq, Sk, causal, window, q_offset):
+    """Keys that some query row sees: the K and V rows a call must read."""
+    lo = max(0, q_offset - window + 1) if window is not None else 0
+    hi = min(Sk, q_offset + Sq) if causal else Sk
+    return max(0, hi - lo)
+
+
 def phase_flash_timing(inputs, card):
     """Kernel, plain version and SDPA at gemma3-1b's prefill shape (both
-    layer kinds) and at decode.  Returns the global-layer prefill numbers."""
+    layer kinds) and at decode.  Returns the global-layer prefill numbers
+    and, per line, its route and numbers."""
     q, k, v = inputs
     B, Sq, Hq, hd = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
-    out = None
+    out, lines = None, []
     for label, qq, window, off in (("prefill global", q, None, 0),
                                    ("prefill local", q, GEMMA_WINDOW, 0),
                                    ("decode global", q[:, :1].contiguous(), None, 1100),
                                    ("decode local", q[:, :1].contiguous(), GEMMA_WINDOW, 1100)):
         sq = qq.shape[1]
-        nbytes = 2 * qq.numel() * qq.element_size() + 2 * k.numel() * k.element_size()
+        rt = fa_mod.route(qq.dtype, sq, Hq, Hkv)
+        # q read and o written once; each visible K and V row read once
+        nbytes = (2 * qq.numel() * qq.element_size()
+                  + 2 * B * Hkv * hd * k.element_size() * visible_keys(sq, Sk, True, window, off))
         flops = 4 * hd * B * Hq * visible_entries(sq, Sk, True, window, off)
         bound, bound_by = bound_of(nbytes, flops, BF16_FLOPS)
         iters = 20 if sq > 1 else 200
@@ -815,16 +899,30 @@ def phase_flash_timing(inputs, card):
             mask &= kp > qp - window
         lib, lib_runs = median_windows(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=mask, enable_gqa=True), iters=iters)
+        g_ms, g_runs = graph_windows(lambda: flash_attention(qq, k, v, causal=True, window=window,
+                                                             q_offset=off), iters)
+        g_lib, g_lib_runs = graph_windows(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, enable_gqa=True), iters)
         print(f"[time] flash_attention {label} B={B} Sq={sq} Sk={Sk} Hq={Hq} Hkv={Hkv} hd={hd} "
-              f"bf16 on {card}: kernel_ms {ms:.4f} (windows {[round(r, 4) for r in runs]}), "
+              f"bf16 on {card}: route {rt} ({FLASH_SOURCE[rt]}.cu), kernel_ms {ms:.4f} "
+              f"(windows {[round(r, 4) for r in runs]}), "
               f"bound_ms {bound:.4f} ({bound_by}: {nbytes / 1e6:.1f} MB at 3.35 TB/s, "
               f"{flops / 1e9:.2f} GFLOP at 989 TFLOP/s), kernel/bound {ms / bound:.2f}x, "
               f"plain_ms {plain:.4f} (windows {[round(r, 3) for r in plain_runs]}), "
               f"library_ms {lib:.4f} (scaled_dot_product_attention, same mask, windows "
               f"{[round(r, 4) for r in lib_runs]})")
+        print(f"[time] flash_attention {label} replayed from a CUDA graph of {iters} calls "
+              f"(device time, no host work per call): kernel {g_ms:.4f} ms (windows "
+              f"{[round(r, 4) for r in g_runs]}), kernel/bound {g_ms / bound:.2f}x, "
+              f"scaled_dot_product_attention {g_lib:.4f} ms (windows "
+              f"{[round(r, 4) for r in g_lib_runs]})")
+        lines.append({"label": label, "route": rt, "graph_ms": g_ms, "library_graph_ms": g_lib,
+                      "source": f"src/repro_torch/kernels/csrc/{FLASH_SOURCE[rt]}.cu",
+                      "ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": bound_by,
+                      "library_ms": lib})
         if out is None:
             out = (ms, plain, bound, bound_by, lib)
-    return out
+    return out, lines
 
 
 def rwkv_on_card(B, T, H, hd, dtype, gen, lo=-20.0):
@@ -972,10 +1070,13 @@ def logits_agreement(kern, plain, floor, what):
     return mx, mean
 
 
-def phase_serve(arch, cfg, prompt_len, new_tokens, max_len, kernel, least, card):
+def phase_serve(arch, cfg, prompt_len, new_tokens, max_len, kernel, least, card,
+                routes_least=None):
     """One model at full width through ``launch.serve.main`` and then
-    ``Engine.generate``, with the launches of ``kernel`` counted over both;
-    then the same prompts through the plain versions, compared."""
+    ``Engine.generate``, with the launches of ``kernel`` counted over both
+    (and, for ``flash_attention``, per route, each at least its entry of
+    ``routes_least``); then the same prompts through the plain versions,
+    compared."""
     dev = torch.device("cuda")
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
@@ -1005,12 +1106,19 @@ def phase_serve(arch, cfg, prompt_len, new_tokens, max_len, kernel, least, card)
     counts = launches()
     check(counts[kernel] >= least, f"{kernel} launched {counts[kernel]} times serving {arch}, "
           f"expected >= {least}")
+    by_route = dict(flash_attention.launches_by_route)
+    for rt, n in (routes_least or {}).items():
+        check(by_route[rt] >= n, f"flash_attention's {rt} route launched {by_route[rt]} times "
+              f"serving {arch}, expected >= {n}")
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     print(f"[serve] {arch} ({cfg.num_layers} layers, d {cfg.d_model}, vocab {cfg.vocab_size}, "
           f"{n_params / 1e9:.3f} B params bf16, init {init_s:.2f} s): launcher 4 x {prompt_len} "
           f"-> {new_tokens} in {cli_s:.1f} s (with its own init); Engine.generate 4 x "
           f"{prompt_len} -> {new_tokens} (max_len {max_len}) {gen_s:.3f} s; launches "
           f"{counts}; peak {peak:.2f} GiB")
+    if routes_least:
+        print(f"[serve] {arch} flash_attention launches by route: {by_route} (each route at "
+              f"least {routes_least})")
 
     # timing split (after the counted run): prefill alone, then whole generates
     with torch.inference_mode():
@@ -1034,6 +1142,22 @@ def phase_serve(arch, cfg, prompt_len, new_tokens, max_len, kernel, least, card)
           f"{[round(x, 1) for x in gen_runs]}); decode {dec_ms:.2f} ms per step of 4 tokens; "
           f"{4 * new_tokens / gen_ms * 1e3:.1f} tokens/s, {4 * prompt_len / pre_ms * 1e3:.0f} "
           "prompt tokens/s in prefill")
+
+    # where the time goes: the kernels' device time in one prefill and in 8
+    # decode steps, against the unprofiled wall times above
+    with torch.inference_mode():
+        cache = init_cache(cfg, 4, max_len, device=dev)
+        logits, cache = eng._prefill(params, toks, cache)
+        nxt = torch.argmax(logits, dim=-1)[:, None]
+        step = make_serve_step(cfg)
+
+        def decode8():
+            for t in range(8):
+                step(params, cache, nxt, prompt_len + t)
+
+        print_split(arch, f"prefill 4 x {prompt_len}", pre_ms, device_split(prefill))
+        print_split(arch, "8 decode steps", 8 * dec_ms, device_split(decode8))
+        del cache, logits
 
     # agreement with the plain versions, teacher-forced on the kernel path's tokens
     gen_k = res.tokens[:, prompt_len:]
@@ -1068,8 +1192,45 @@ def phase_serve(arch, cfg, prompt_len, new_tokens, max_len, kernel, least, card)
           f"{int(agree.sum())}/{agree.size} agree overall")
     del pre_k, dec_k, pre_p, dec_p, params, eng
     torch.cuda.empty_cache()
-    return counts[kernel], {"prefill_ms": pre_ms, "decode_ms": dec_ms,
-                            "tokens_per_s": 4 * new_tokens / gen_ms * 1e3}
+    return counts[kernel], by_route, {"prefill_ms": pre_ms, "decode_ms": dec_ms,
+                                      "tokens_per_s": 4 * new_tokens / gen_ms * 1e3}
+
+
+def device_split(fn):
+    """One call of ``fn`` under ``torch.profiler``: (device-busy ms, top 6
+    kernels and the port's own kernels, each as (name, ms, count)), or None
+    when the profiler recorded no device event.  Busy is the sum of the
+    kernels' device intervals (one stream, so they do not overlap)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            ms, n = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    if not by_name:
+        return None
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+    ours = [(re.search(r"(\w+_kernel)", k).group(1), ms, n) for k, (ms, n) in ranked
+            if re.search(r"(flash|rwkv6_scan)\w*_kernel", k)]
+    return (sum(ms for ms, _ in by_name.values()), [(k[:70], ms, n) for k, (ms, n) in ranked[:6]],
+            ours)
+
+
+def print_split(arch, what, wall_ms, split):
+    if split is None:
+        print(f"[profile] {arch} {what}: device time not measured (the profiler recorded no "
+              "device event)")
+        return
+    busy, top, ours = split
+    print(f"[profile] {arch} {what}: kernels busy {busy:.2f} ms of {wall_ms:.2f} ms wall "
+          f"(unprofiled), device idle {max(0.0, 1 - busy / wall_ms) * 100:.1f} %; top kernels "
+          + "; ".join(f"{name} {ms:.3f} ms x{n}" for name, ms, n in top)
+          + "; the port's kernels " + "; ".join(f"{name} {ms:.3f} ms x{n}" for name, ms, n in ours))
 
 
 def small_lm_cfg(arch):
@@ -1114,13 +1275,13 @@ def main() -> int:
           f"python {sys.version.split()[0]}")
 
     t0 = time.perf_counter()
-    built = _build.build_all(KERNELS)
-    print(f"[build] {len(KERNELS)} sources, one nvcc each, started together: "
+    built = _build.build_all(SOURCES)
+    print(f"[build] {len(SOURCES)} sources, one nvcc each, started together: "
           f"{time.perf_counter() - t0:.1f} s")
-    for kernel in KERNELS:
-        b = built[kernel]
+    for source in SOURCES:
+        b = built[source]
         took = f"nvcc {b.seconds:.1f} s" if b.seconds else "built earlier in this checkout"
-        print(f"[build] {kernel}.cu -> {b.path.name}: {took}")
+        print(f"[build] {source}.cu -> {b.path.name}: {took}")
         for line in ptxas_summary(b.log):
             print(f"  ptxas {line}")
 
@@ -1138,7 +1299,7 @@ def main() -> int:
     del sk_row
     torch.cuda.empty_cache()
     fl_inputs, fl_err = phase_flash_checks(gen)
-    fl = phase_flash_timing(fl_inputs, smi)
+    fl, fl_lines = phase_flash_timing(fl_inputs, smi)
     del fl_inputs
     rw_inputs, rw_err = phase_rwkv_checks(gen)
     rw = phase_rwkv_timing(rw_inputs, smi)
@@ -1175,28 +1336,39 @@ def main() -> int:
               f"service path, expected >= {least}")
 
     # the serving path (slice 3), one model at a time, counts reset before each
-    counts["flash_attention"], _ = phase_serve(
+    # prefill: one launch per layer and generate; decode: one per layer and step
+    counts["flash_attention"], fl_routes, _ = phase_serve(
         "gemma3-1b", GEMMA, GEMMA_PROMPT, SERVE_NEW, GEMMA_MAX_LEN, "flash_attention",
-        GEMMA.num_layers * SERVE_NEW, smi)
-    counts["rwkv6_scan"], _ = phase_serve(
+        GEMMA.num_layers * SERVE_NEW, smi,
+        routes_least={"prefill_tc": GEMMA.num_layers,
+                      "decode": GEMMA.num_layers * (SERVE_NEW - 1)})
+    counts["rwkv6_scan"], _, _ = phase_serve(
         "rwkv6-7b", RWKV, RWKV_PROMPT, SERVE_NEW, RWKV_MAX_LEN, "rwkv6_scan",
         RWKV.num_layers * SERVE_NEW, smi)
     print(f"[done] {time.perf_counter() - t0:.1f} s after the card check")
 
-    def record(name, replaces, err, timing):
+    def record(name, replaces, err, timing, source=None):
         k_ms, k_plain, k_bound, k_by = timing[:4]
         return {"name": name, "route": "cuda",
-                "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+                "source": f"src/repro_torch/kernels/csrc/{source or name}.cu",
                 "replaces": replaces, "launches": counts[name], "max_abs_err": err,
                 "ms": k_ms, "plain_ms": k_plain, "bound_ms": k_bound, "bound_by": k_by,
                 "library_ms": timing[4] if len(timing) > 4 else None}
+
+    # flash_attention's numbers are those of its first [time] line (prefill,
+    # global layer); "routes" holds every [time] line and the serving
+    # phase's launches per route
+    flash = record("flash_attention", "src/repro/kernels/flash_attention.py:28", fl_err, fl,
+                   source=FLASH_SOURCE[fl_lines[0]["route"]])
+    flash["launches_by_route"] = fl_routes
+    flash["routes"] = fl_lines
 
     print(json.dumps({"kernels": [
         record("cold_fuse", "src/repro/kernels/cold_fuse.py:61", max_err,
                (ms, plain_ms, bound_ms, bound_by)),
         record("decode_accum", "src/repro/kernels/cold_fuse.py:170", dec_err, dec),
         record("row_sketch", "src/repro/kernels/cold_fuse.py:253", sk_err, sk),
-        record("flash_attention", "src/repro/kernels/flash_attention.py:28", fl_err, fl),
+        flash,
         record("rwkv6_scan", "src/repro/kernels/rwkv6_scan.py:35", rw_err, rw)]}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}))

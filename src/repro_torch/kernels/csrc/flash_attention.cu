@@ -2,27 +2,29 @@
 // Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention.py:_kernel
-// (launched by flash_attention).  For q [B, Sq, Hq, hd] and k, v
-// [B, Sk, Hkv, hd] (bf16 or f32, contiguous; query head h reads kv head
+// (launched by flash_attention) for f32.  For q [B, Sq, Hq, hd] and k, v
+// [B, Sk, Hkv, hd] (f32, contiguous; query head h reads kv head
 // h / (Hq / Hkv)) it computes, in f32,
 //
 //     s[i, j] = (q_i * hd^-0.5) . k_j          over the visible keys j
 //     o_i     = sum_j softmax_j(s[i, :]) v_j    (0 where no key is visible)
 //
 // with key j visible from the query at absolute position p_i = q_offset + i
-// when j < Sk, j <= p_i (causal) and j > p_i - window (window > 0), and
-// writes o in q's dtype.
+// when j < Sk, j <= p_i (causal) and j > p_i - window (window > 0).
 //
-// What bounds it: at the serving path's prefill shape (gemma3-1b, B=4,
-// Sq=1024, Sk=1280, Hq=4, Hkv=1, hd=256) the visible score entries need
-// 4 * hd FLOPs each (QK^T and PV), 8.6 GFLOP on a global layer: the
-// tensor cores' bf16 rate would bound it near 8.7 us, while the bytes
-// (q, k, v read once, o written once: 22 MB) take 6.6 us at 3.35 TB/s.
-// This first kernel does its products on the CUDA cores in f32
-// (67 TFLOP/s), so it runs well above that bound; wgmma tiles are later
-// work.  At
-// decode (Sq = 1) the bytes of the cache dominate and B x Hq blocks are
-// too few to fill the card; split-K decode is later work too.
+// This file is the f32 prefill route of the port's flash_attention
+// (kernels/flash_attention.py): f32 q, k, v with more than DECODE_ROWS
+// query rows per kv head.  bf16 prefill runs on the tensor cores
+// (csrc/flash_prefill.cu) and every decode shape, bf16 or f32, splits the
+// cache over the card (csrc/flash_decode.cu).
+//
+// What bounds it: its products run as f32 FMAs on the CUDA cores, each fed
+// by a shared-memory load, so shared-memory bandwidth bounds it, far above
+// the f32 FMA peak (67 TFLOP/s).  The tensor cores would be faster, but
+// only in TF32 for f32 inputs, which keeps about 10 mantissa bits: the
+// port's f32 paths are held to 2e-5 of the plain version, so this route
+// stays on exact f32 arithmetic.  It runs only on the reduced f32 models
+// of the tests and the smoke run, never on the full-width serving path.
 //
 // Design:
 // * One block of 128 threads per (q-tile of 32 rows, query head, batch).
@@ -41,7 +43,6 @@
 //   shared memory limit first.
 // * QK^T and PV are plain FMA loops in the kernel (no library calls).
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -57,10 +58,6 @@ template <typename T>
 __device__ __forceinline__ T from_f32(float x);
 template <>
 __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 // 16 bytes of T (one vector load) widened to floats
 template <typename T>
@@ -74,20 +71,6 @@ struct Vec16<float> {
     out[1] = x.y;
     out[2] = x.z;
     out[3] = x.w;
-  }
-};
-template <>
-struct Vec16<__nv_bfloat16> {
-  static constexpr int N = 8;
-  __device__ __forceinline__ static void load(const __nv_bfloat16* p, float* out) {
-    const uint4 x = *reinterpret_cast<const uint4*>(p);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&x);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float2 f = __bfloat1622float2(h[e]);
-      out[2 * e] = f.x;
-      out[2 * e + 1] = f.y;
-    }
   }
 };
 
@@ -273,21 +256,18 @@ cudaError_t dispatch(int hd, const void* q, const void* k, const void* v, void* 
 
 extern "C" {
 
-// q [B, Sq, Hq, hd], k/v [B, Sk, Hkv, hd], o like q; all contiguous,
-// 16-byte aligned, of one dtype (is_bf16: bf16, else f32).  hd in {32, 64, 128, 256}, Hq a multiple
-// of Hkv, B, Sq, Hq >= 1 and Sk >= 0 (the caller checked).  window <= 0
-// means no window.  Returns the first CUDA error of the attribute call or
-// the launch (0 on success).
+// q [B, Sq, Hq, hd], k/v [B, Sk, Hkv, hd], o like q; all f32, contiguous,
+// 16-byte aligned.  hd in {32, 64, 128, 256}, Hq a multiple of Hkv, B, Sq,
+// Hq >= 1 and Sk >= 0 (the caller checked).  window <= 0 means no window.
+// Returns the first CUDA error of the attribute call or the launch (0 on
+// success).
 int flash_attention_launch(const void* q, const void* k, const void* v, void* o, int B, int Sq,
                            int Sk, int Hq, int Hkv, int hd, int causal, int window,
-                           int q_offset, float scale, int is_bf16, void* stream_ptr) {
+                           int q_offset, float scale, void* stream_ptr) {
   if (B < 1 || Sq < 1 || Sk < 0 || Hq < 1 || Hkv < 1 || Hq % Hkv != 0 || Hq > 65535 ||
       B > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  if (is_bf16)
-    return (int)dispatch<__nv_bfloat16>(hd, q, k, v, o, B, Sq, Sk, Hq, Hkv, causal, window,
-                                        q_offset, scale, stream);
   return (int)dispatch<float>(hd, q, k, v, o, B, Sq, Sk, Hq, Hkv, causal, window, q_offset,
                               scale, stream);
 }

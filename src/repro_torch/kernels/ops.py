@@ -110,7 +110,8 @@ def attention(q, k, v, *, causal: bool = True, window: Optional[int] = None, q_o
               block_q: int = 128, block_k: int = 128) -> torch.Tensor:
     """Blocked attention (GQA, causal, sliding window).  ``block_q`` and
     ``block_k`` are the TPU kernel's tile sizes, kept for the reference's
-    signature; the CUDA kernel's tiles are fixed (32 x 32)."""
+    signature; the CUDA kernels pick their own tiles, by route
+    (``flash_attention.route``)."""
     del block_q, block_k
     return flash_attention(q, k, v, causal=causal, window=window, q_offset=q_offset)
 
