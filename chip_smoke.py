@@ -10,8 +10,9 @@ Phases (any failed check raises, so the script exits non-zero):
    ``decode_accum``, ``row_sketch``, the three routes of ``flash_attention``
    — ``flash_prefill`` on the tensor cores for bf16, ``flash_decode``
    split-K for decode shapes, ``flash_attention`` FMA loops for f32
-   prefill — and ``rwkv6_scan``: one ``nvcc`` each, all started together;
-   time, and ptxas' registers and spills per kernel);
+   prefill — and the two routes of ``rwkv6_scan``, ``rwkv6_scan`` for
+   T > 1 and ``rwkv6_step`` for T = 1: one ``nvcc`` each, all started
+   together; time, and ptxas' registers and spills per kernel);
 3. each kernel against its plain PyTorch version on the card, at the main
    paths' shapes and on ragged shapes: ``cold_fuse`` at K=5 x
    N=123,969,792 bf16 (one NaN row of weight 0, alpha 1.0 and 0.3);
@@ -25,14 +26,16 @@ Phases (any failed check raises, so the script exits non-zero):
    32-256 with ragged lengths, bf16 prefill at hd 64 and 128, and with
    rows that see no key, each call checked to take its route; ``rwkv6_scan`` at
    rwkv6-7b's prefill shape (B=4, T=256, H=64, hd=64, f32, logw down to
-   -20), with the state chained across two calls, with bf16 inputs and at
-   hd 32;
+   -20), with the state chained across two calls, at the decode shape
+   (T=1), as 32 chained T=1 calls against one plain call of T=32, with
+   bf16 inputs and at hd 32, each call checked to take its route;
 4. kernel and plain-version times (CUDA events, five windows after a
    warm-up, the median printed) beside each kernel's bound, and for
    ``flash_attention`` the route and the time of
    ``scaled_dot_product_attention`` on the same inputs and mask; both
    again replayed from a CUDA graph, which leaves out the host's work per
-   call (the device time);
+   call (the device time); ``rwkv6_scan`` likewise per route, with its
+   wrapper's host time per call;
 5. small-input checks: the same screen + fuse, the same small queue
    drained by the contributor service, and reduced f32 gemma3 and rwkv6
    models serving the same prompts, on the card and on the CPU (whose
@@ -56,8 +59,9 @@ Phases (any failed check raises, so the script exits non-zero):
    prompts (1024 tokens for gemma3, 256 for rwkv6) x 32 new tokens, then
    ``Engine.generate`` the same on its own model (gemma3's cache 1280
    long, so its 512-token window bites in prefill and decode); prefill and
-   decode are timed, and gemma3's launches are counted per route
-   (prefill on the tensor-core route, decode on the split-K route); one
+   decode are timed, and the launches are counted per route (gemma3:
+   prefill on the tensor-core route, decode on the split-K route; rwkv6:
+   prefill on the scan route, decode on the step route); one
    prefill and 8 decode steps run under ``torch.profiler`` for the
    kernels' device time against the wall time (the device's idle share); then
    both models run teacher-forced on the kernel
@@ -103,6 +107,7 @@ from repro_torch.kernels.decode_accum import decode_accum, decode_accum_plain  #
 from repro_torch.kernels.flash_attention import (flash_attention,  # noqa: E402
                                                  flash_attention_plain)
 from repro_torch.kernels.row_sketch import row_sketch, row_sketch_plain  # noqa: E402
+from repro_torch.kernels import rwkv6_scan as rs_mod  # noqa: E402
 from repro_torch.kernels.rwkv6_scan import rwkv6_scan, rwkv6_scan_plain  # noqa: E402
 from repro_torch.launch.serve import main as serve_main  # noqa: E402
 from repro_torch.models import rwkv as rwkv_mod  # noqa: E402
@@ -123,9 +128,10 @@ N_ROBERTA = 123_969_792     # elements of the RoBERTa-base body (FlatSpec.size)
 K_MAIN = 5
 # the CUDA sources: flash_attention's three routes live in three files
 SOURCES = ("cold_fuse", "decode_accum", "row_sketch", "flash_prefill", "flash_decode",
-           "flash_attention", "rwkv6_scan")
+           "flash_attention", "rwkv6_scan", "rwkv6_step")
 FLASH_SOURCE = {"prefill_tc": "flash_prefill", "decode": "flash_decode",
                 "prefill_fma": "flash_attention"}
+RWKV_SOURCE = {"scan": "rwkv6_scan", "step": "rwkv6_step"}
 CODEC_BLOCK, CODEC_KB = 1024, 64   # the service's default delta codec
 C_SERVICE = 4
 # novelty threshold of the service phases: a replay scores 0; three Adam
@@ -222,9 +228,10 @@ def fuse_inputs(K, N, dtype, gen, nan_row=None):
 
 
 def reset_launches():
-    for fn in (cold_fuse, decode_accum, row_sketch, rwkv6_scan):
+    for fn in (cold_fuse, decode_accum, row_sketch):
         fn.launches = 0
     fa_mod.reset_launches()
+    rs_mod.reset_launches()
 
 
 def launches():
@@ -938,64 +945,161 @@ def rwkv_on_card(B, T, H, hd, dtype, gen, lo=-20.0):
     return r, k, v, logw, u, s0
 
 
+def rwkv_routed(want_route, *args):
+    """rwkv6_scan on the card, checked to launch once through ``want_route``
+    (the route ``rs_mod.route`` names for this T)."""
+    check(rs_mod.route(args[0].shape[1]) == want_route,
+          f"rwkv: T={args[0].shape[1]} is not routed to {want_route}")
+    before = dict(rwkv6_scan.launches_by_route)
+    out = rwkv6_scan(*args)
+    after = rwkv6_scan.launches_by_route
+    check(after[want_route] == before[want_route] + 1
+          and sum(after.values()) == sum(before.values()) + 1,
+          f"rwkv: the call did not launch once through the {want_route} route")
+    return out
+
+
 def phase_rwkv_checks(gen):
-    """rwkv6_scan against rwkv6_scan_plain on the card.  Returns
-    rwkv6-7b's prefill-shaped f32 inputs and the largest error there."""
+    """rwkv6_scan against rwkv6_scan_plain on the card, each call through
+    the route it must take.  Returns rwkv6-7b's prefill-shaped f32 inputs
+    and the largest error there."""
     B, T, H, hd = RWKV_PREFILL
     args = rwkv_on_card(B, T, H, hd, torch.float32, gen)
     check(args[3].min().item() < -19.0, "the logw draw must reach -20")
-    (y, s), (yp, sp) = rwkv6_scan(*args), rwkv6_scan_plain(*args)
+    (y, s), (yp, sp) = rwkv_routed("scan", *args), rwkv6_scan_plain(*args)
     ey, es = f32_close(y, yp, "rwkv y"), f32_close(s, sp, "rwkv state")
     print(f"[check] rwkv6_scan vs plain, rwkv6-7b prefill B={B} T={T} H={H} hd={hd} f32, logw "
-          f"in [{args[3].min().item():.2f}, {args[3].max().item():.4f}]: y max|d| {ey:.3g}, "
-          f"state max|d| {es:.3g} (bound 2e-5 x max(1, max|plain|))")
+          f"in [{args[3].min().item():.2f}, {args[3].max().item():.4f}], route scan: y max|d| "
+          f"{ey:.3g}, state max|d| {es:.3g} (bound 2e-5 x max(1, max|plain|))")
     worst = max(ey, es)
     r, k, v, logw, u, s0 = args
-    y1, s1 = rwkv6_scan(*(t[:, :100].contiguous() for t in (r, k, v, logw)), u, s0)
-    y2, s2 = rwkv6_scan(*(t[:, 100:].contiguous() for t in (r, k, v, logw)), u, s1)
+    y1, s1 = rwkv_routed("scan", *(t[:, :100].contiguous() for t in (r, k, v, logw)), u, s0)
+    y2, s2 = rwkv_routed("scan", *(t[:, 100:].contiguous() for t in (r, k, v, logw)), u, s1)
     e = max(f32_close(torch.cat([y1, y2], 1), yp, "rwkv chained y"),
             f32_close(s2, sp, "rwkv chained state"))
     print(f"[check] rwkv6_scan state chained across two calls (T=100 then 156) vs one plain "
           f"call: max|d| {e:.3g}")
+    # decode: one step at rwkv6-7b's decode shape, then 32 chained steps
+    # against one plain call of T=32
+    one = [t[:, :1].contiguous() for t in (r, k, v, logw)] + [u, s0]
+    (y, s), (yp1, sp1) = rwkv_routed("step", *one), rwkv6_scan_plain(*one)
+    e = max(f32_close(y, yp1, "rwkv step y"), f32_close(s, sp1, "rwkv step state"))
+    print(f"[check] rwkv6_scan vs plain, rwkv6-7b decode B={B} T=1 H={H} hd={hd} f32, logw in "
+          f"[{one[3].min().item():.2f}, {one[3].max().item():.4f}], route step: max|d| {e:.3g} "
+          "(bound 2e-5 x max(1, max|plain|))")
+    n = SERVE_NEW
+    yp32, sp32 = rwkv6_scan_plain(*(t[:, :n] for t in (r, k, v, logw)), u, s0)
+    st, ys = s0, []
+    for t in range(n):
+        yt, st = rwkv_routed("step", *(x[:, t:t + 1].contiguous() for x in (r, k, v, logw)), u,
+                             st)
+        ys.append(yt)
+    e = max(f32_close(torch.cat(ys, 1), yp32, "rwkv 32 chained steps y"),
+            f32_close(st, sp32, "rwkv 32 chained steps state"))
+    print(f"[check] rwkv6_scan {n} chained T=1 calls (route step) vs one plain call of T={n}: "
+          f"every y and the state max|d| {e:.3g}")
     rb, kb, vb, wb, ub, sb = rwkv_on_card(2, 45, 8, 64, torch.bfloat16, gen)
-    (y, s), (yp2, sp2) = (rwkv6_scan(rb, kb, vb, wb, ub, sb),
+    (y, s), (yp2, sp2) = (rwkv_routed("scan", rb, kb, vb, wb, ub, sb),
                           rwkv6_scan_plain(rb, kb, vb, wb, ub, sb))
     check(y.dtype == torch.bfloat16, "rwkv6_scan must keep r's dtype")
     e = bf16_close(y, yp2, "rwkv bf16 y")
     es = f32_close(s, sp2, "rwkv bf16-input state")
+    one = [t[:, :1].contiguous() for t in (rb, kb, vb, wb)] + [ub, sb]
+    (y, s), (yp2, sp2) = rwkv_routed("step", *one), rwkv6_scan_plain(*one)
+    e1 = max(bf16_close(y, yp2, "rwkv bf16 step y"), f32_close(s, sp2, "rwkv bf16 step state"))
     print(f"[check] rwkv6_scan bf16 inputs B=2 T=45 H=8 hd=64: y max|d| {e:.3g} (bound 1 bf16 "
-          f"ulp + 2e-5 x max(1, max|y|)), f32 state max|d| {es:.3g}")
+          f"ulp + 2e-5 x max(1, max|y|)), f32 state max|d| {es:.3g}; T=1 (route step) max|d| "
+          f"{e1:.3g}")
     a32 = rwkv_on_card(3, 37, 4, 32, torch.float32, gen)
-    (y, s), (yp3, sp3) = rwkv6_scan(*a32), rwkv6_scan_plain(*a32)
+    (y, s), (yp3, sp3) = rwkv_routed("scan", *a32), rwkv6_scan_plain(*a32)
     e = max(f32_close(y, yp3, "rwkv hd32 y"), f32_close(s, sp3, "rwkv hd32 state"))
-    print(f"[check] rwkv6_scan f32 B=3 T=37 H=4 hd=32: max|d| {e:.3g}")
+    one = [t[:, :1].contiguous() for t in a32[:4]] + list(a32[4:])
+    (y, s), (yp3, sp3) = rwkv_routed("step", *one), rwkv6_scan_plain(*one)
+    e1 = max(f32_close(y, yp3, "rwkv hd32 step y"), f32_close(s, sp3, "rwkv hd32 step state"))
+    print(f"[check] rwkv6_scan f32 B=3 T=37 H=4 hd=32: route scan max|d| {e:.3g}, T=1 route step "
+          f"max|d| {e1:.3g}")
     return args, worst
 
 
+def host_us(fn, iters: int = 500) -> float:
+    """Host time per call in microseconds: ``iters`` calls on the host
+    clock with no synchronisation inside the loop (the device runs behind;
+    a call's time is what the host spends issuing it)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    us = (time.perf_counter() - t0) / iters * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
 def phase_rwkv_timing(args, card):
+    """Kernel and plain version at rwkv6-7b's prefill and decode shapes,
+    eager and replayed from a CUDA graph; the wrapper's host time per call.  Returns the prefill numbers and, per
+    line, its route and numbers."""
     r, k, v, logw, u, s0 = args
     B, T, H, hd = r.shape
-    nbytes = 5 * r.numel() * r.element_size() + u.numel() * 4 + 2 * s0.numel() * 4
-    flops = 5 * B * T * H * hd * hd  # per state element and step: y 2, the k v product and S 2
-    bound, bound_by = bound_of(nbytes, flops)
-    out = None
+    out, lines = None, []
     for label, sl in (("prefill", slice(None)), ("decode", slice(0, 1))):
         a = [t[:, sl].contiguous() for t in (r, k, v, logw)] + [u, s0]
         t_steps = a[0].shape[1]
+        rt = rs_mod.route(t_steps)
+        # r, k, v, logw read and y written once; u read; the state read and written
         nb = 5 * a[0].numel() * 4 + u.numel() * 4 + 2 * s0.numel() * 4
-        bd, bd_by = bound_of(nb, 5 * B * t_steps * H * hd * hd)
-        ms, runs = median_windows(lambda: rwkv6_scan(*a), iters=20 if t_steps > 1 else 200)
+        flops = 5 * B * t_steps * H * hd * hd  # per state element and step: y 2, k v, S 2
+        bd, bd_by = bound_of(nb, flops)
+        iters = 20 if t_steps > 1 else 200
+        ms, runs = median_windows(lambda: rwkv6_scan(*a), iters=iters)
+        g_ms, g_runs = graph_windows(lambda: rwkv6_scan(*a), iters)
         plain, plain_runs = median_windows(lambda: rwkv6_scan_plain(*a), iters=3, warmup=1)
-        print(f"[time] rwkv6_scan {label} B={B} T={t_steps} H={H} hd={hd} f32 on {card}: "
-              f"kernel_ms {ms:.4f} (windows {[round(x, 4) for x in runs]}), bound_ms {bd:.4f} "
-              f"({bd_by}: {nb / 1e6:.1f} MB at 3.35 TB/s, {5 * B * t_steps * H * hd * hd / 1e9:.3f}"
-              f" GFLOP at 67 TFLOP/s), kernel/bound {ms / bd:.2f}x, plain_ms {plain:.4f} "
-              f"(windows {[round(x, 3) for x in plain_runs]})")
+        h_us = host_us(lambda: rwkv6_scan(*a))
+        print(f"[time] rwkv6_scan {label} B={B} T={t_steps} H={H} hd={hd} f32 on {card}: route "
+              f"{rt} ({RWKV_SOURCE[rt]}.cu), kernel_ms {ms:.4f} (windows "
+              f"{[round(x, 4) for x in runs]}), bound_ms {bd:.4f} ({bd_by}: {nb / 1e6:.1f} MB at "
+              f"3.35 TB/s, {flops / 1e9:.3f} GFLOP at 67 TFLOP/s), kernel/bound {ms / bd:.2f}x, "
+              f"plain_ms {plain:.4f} (windows {[round(x, 3) for x in plain_runs]})")
+        print(f"[time] rwkv6_scan {label} replayed from a CUDA graph of {iters} calls (device "
+              f"time, no host work per call): kernel {g_ms:.4f} ms (windows "
+              f"{[round(x, 4) for x in g_runs]}), kernel/bound {g_ms / bd:.2f}x")
+        line = {"label": label, "route": rt, "graph_ms": g_ms, "host_us": h_us}
+        if rt == "step":
+            # the replay above finds the 4.2 MB state in L2; serving does not
+            # (32 layers' states are 134 MB): rotate over 16 states (67 MB)
+            # and keep every output, as the cache keeps each layer's
+            states = [s0.clone() for _ in range(16)]
+            outs = []
+            c_ms, c_runs = graph_windows(
+                lambda: outs.append(rwkv6_scan(*a[:5], states[len(outs) % 16])), iters)
+            del states, outs
+            line["graph_cold_ms"] = c_ms
+            print(f"[time] rwkv6_scan decode replayed from a CUDA graph, the state cold in L2 "
+                  f"(16 states, 67 MB, in turn; every output kept): kernel {c_ms:.4f} ms "
+                  f"(windows {[round(x, 4) for x in c_runs]}), kernel/bound {c_ms / bd:.2f}x")
+            # the C entry point alone, with the wrapper's arguments prepared once
+            y, s_fin = torch.empty_like(a[0]), torch.empty_like(s0)
+            lib = rs_mod._lib("rwkv6_step")
+            stream = torch._C._cuda_getCurrentRawStream(a[0].get_device())
+            c_args = [t.data_ptr() for t in a] + [y.data_ptr(), s_fin.data_ptr(), B, H, hd, 0,
+                                                  stream]
+            c_us = host_us(lambda: lib.rwkv6_step_launch(*c_args))
+            a_us = host_us(lambda: (torch.empty_like(a[0]), torch.empty_like(s0)))
+            k_us = host_us(lambda: rs_mod._check(*a))
+            print(f"[time] rwkv6_scan decode host time per call on {card}: wrapper "
+                  f"{h_us:.2f} us (checks, two outputs, ctypes, launch), of which the C entry "
+                  f"point through ctypes (with the launch) {c_us:.2f} us, the two output "
+                  f"allocations {a_us:.2f} us, the shape/device checks {k_us:.2f} us")
+        else:
+            print(f"[time] rwkv6_scan {label} host time per call on {card}: {h_us:.2f} us")
+        lines.append({**line, "source": f"src/repro_torch/kernels/csrc/{RWKV_SOURCE[rt]}.cu",
+                      "ms": ms, "plain_ms": plain, "bound_ms": bd, "bound_by": bd_by,
+                      "library_ms": None})
         if out is None:
-            out = (ms, plain, bound, bound_by, None)
+            out = (ms, plain, bd, bd_by, None)
     print("[time] rwkv6_scan library_ms: none — no single PyTorch call computes the RWKV6 "
           "recurrence")
-    return out
+    return out, lines
 
 
 class plain_kernels:
@@ -1071,12 +1175,11 @@ def logits_agreement(kern, plain, floor, what):
 
 
 def phase_serve(arch, cfg, prompt_len, new_tokens, max_len, kernel, least, card,
-                routes_least=None):
+                routes_least):
     """One model at full width through ``launch.serve.main`` and then
-    ``Engine.generate``, with the launches of ``kernel`` counted over both
-    (and, for ``flash_attention``, per route, each at least its entry of
-    ``routes_least``); then the same prompts through the plain versions,
-    compared."""
+    ``Engine.generate``, with the launches of ``kernel`` counted over both,
+    and per route, each at least its entry of ``routes_least``; then the
+    same prompts through the plain versions, compared."""
     dev = torch.device("cuda")
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
@@ -1106,9 +1209,10 @@ def phase_serve(arch, cfg, prompt_len, new_tokens, max_len, kernel, least, card,
     counts = launches()
     check(counts[kernel] >= least, f"{kernel} launched {counts[kernel]} times serving {arch}, "
           f"expected >= {least}")
-    by_route = dict(flash_attention.launches_by_route)
-    for rt, n in (routes_least or {}).items():
-        check(by_route[rt] >= n, f"flash_attention's {rt} route launched {by_route[rt]} times "
+    by_route = dict({"flash_attention": flash_attention,
+                     "rwkv6_scan": rwkv6_scan}[kernel].launches_by_route)
+    for rt, n in routes_least.items():
+        check(by_route[rt] >= n, f"{kernel}'s {rt} route launched {by_route[rt]} times "
               f"serving {arch}, expected >= {n}")
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     print(f"[serve] {arch} ({cfg.num_layers} layers, d {cfg.d_model}, vocab {cfg.vocab_size}, "
@@ -1116,9 +1220,8 @@ def phase_serve(arch, cfg, prompt_len, new_tokens, max_len, kernel, least, card,
           f"-> {new_tokens} in {cli_s:.1f} s (with its own init); Engine.generate 4 x "
           f"{prompt_len} -> {new_tokens} (max_len {max_len}) {gen_s:.3f} s; launches "
           f"{counts}; peak {peak:.2f} GiB")
-    if routes_least:
-        print(f"[serve] {arch} flash_attention launches by route: {by_route} (each route at "
-              f"least {routes_least})")
+    print(f"[serve] {arch} {kernel} launches by route: {by_route}, total {counts[kernel]} (each "
+          f"route at least {routes_least})")
 
     # timing split (after the counted run): prefill alone, then whole generates
     with torch.inference_mode():
@@ -1216,7 +1319,7 @@ def device_split(fn):
         return None
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
     ours = [(re.search(r"(\w+_kernel)", k).group(1), ms, n) for k, (ms, n) in ranked
-            if re.search(r"(flash|rwkv6_scan)\w*_kernel", k)]
+            if re.search(r"(flash|rwkv6)\w*_kernel", k)]
     return (sum(ms for ms, _ in by_name.values()), [(k[:70], ms, n) for k, (ms, n) in ranked[:6]],
             ours)
 
@@ -1302,7 +1405,7 @@ def main() -> int:
     fl, fl_lines = phase_flash_timing(fl_inputs, smi)
     del fl_inputs
     rw_inputs, rw_err = phase_rwkv_checks(gen)
-    rw = phase_rwkv_timing(rw_inputs, smi)
+    rw, rw_lines = phase_rwkv_timing(rw_inputs, smi)
     del rw_inputs
     torch.cuda.empty_cache()
 
@@ -1342,9 +1445,10 @@ def main() -> int:
         GEMMA.num_layers * SERVE_NEW, smi,
         routes_least={"prefill_tc": GEMMA.num_layers,
                       "decode": GEMMA.num_layers * (SERVE_NEW - 1)})
-    counts["rwkv6_scan"], _, _ = phase_serve(
+    counts["rwkv6_scan"], rw_routes, _ = phase_serve(
         "rwkv6-7b", RWKV, RWKV_PROMPT, SERVE_NEW, RWKV_MAX_LEN, "rwkv6_scan",
-        RWKV.num_layers * SERVE_NEW, smi)
+        RWKV.num_layers * SERVE_NEW, smi,
+        routes_least={"scan": RWKV.num_layers, "step": RWKV.num_layers * (SERVE_NEW - 1)})
     print(f"[done] {time.perf_counter() - t0:.1f} s after the card check")
 
     def record(name, replaces, err, timing, source=None):
@@ -1362,14 +1466,17 @@ def main() -> int:
                    source=FLASH_SOURCE[fl_lines[0]["route"]])
     flash["launches_by_route"] = fl_routes
     flash["routes"] = fl_lines
+    # rwkv6_scan's likewise: the prefill line (scan route), then every line
+    rwkv = record("rwkv6_scan", "src/repro/kernels/rwkv6_scan.py:35", rw_err, rw)
+    rwkv["launches_by_route"] = rw_routes
+    rwkv["routes"] = rw_lines
 
     print(json.dumps({"kernels": [
         record("cold_fuse", "src/repro/kernels/cold_fuse.py:61", max_err,
                (ms, plain_ms, bound_ms, bound_by)),
         record("decode_accum", "src/repro/kernels/cold_fuse.py:170", dec_err, dec),
         record("row_sketch", "src/repro/kernels/cold_fuse.py:253", sk_err, sk),
-        flash,
-        record("rwkv6_scan", "src/repro/kernels/rwkv6_scan.py:35", rw_err, rw)]}))
+        flash, rwkv]}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}))
     return 0

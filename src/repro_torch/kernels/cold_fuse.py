@@ -24,6 +24,7 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._launch import launch_on
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 BLOCKS_PER_SM = 4
@@ -91,12 +92,9 @@ def _launch(base, contribs, weights, alpha):
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     n_blocks = max(1, min(-(-chunks // threads), sms * BLOCKS_PER_SM))
     scratch = torch.empty((n_blocks, K), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.cold_fuse_launch(
-            base.data_ptr(), contribs.data_ptr(), w.data_ptr(), float(alpha),
-            fused.data_ptr(), sq.data_ptr(), scratch.data_ptr(), N, K, n_blocks,
-            _DTYPE_CODE[base.dtype], int(vec), stream)
+    err = launch_on(base, lib.cold_fuse_launch, base.data_ptr(), contribs.data_ptr(),
+                    w.data_ptr(), float(alpha), fused.data_ptr(), sq.data_ptr(),
+                    scratch.data_ptr(), N, K, n_blocks, _DTYPE_CODE[base.dtype], int(vec))
     if err != 0:
         raise RuntimeError(f"cold_fuse launch failed: CUDA error {err} "
                            f"({lib.cold_fuse_error_string(err).decode()})")

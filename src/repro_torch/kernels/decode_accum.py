@@ -27,6 +27,7 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._launch import launch_on
 from repro_torch.utils.flat import LANE, MAX_DELTA_BLOCK
 
 
@@ -86,11 +87,9 @@ def _launch(indices, values, scales, weights, size, block):
     sq = torch.empty((C,), dtype=torch.float32, device=dev)
     sq_part = torch.empty((nb * C,), dtype=torch.float32, device=dev)
     lib = _lib()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.decode_accum_launch(
-            indices.data_ptr(), values.data_ptr(), scales.data_ptr(), w.data_ptr(),
-            acc.data_ptr(), sq.data_ptr(), sq_part.data_ptr(), size, nb, kb, C, block, stream)
+    err = launch_on(indices, lib.decode_accum_launch, indices.data_ptr(),
+                    values.data_ptr(), scales.data_ptr(), w.data_ptr(), acc.data_ptr(),
+                    sq.data_ptr(), sq_part.data_ptr(), size, nb, kb, C, block)
     if err != 0:
         raise RuntimeError(f"decode_accum launch failed: CUDA error {err} "
                            f"({lib.decode_accum_error_string(err).decode()})")

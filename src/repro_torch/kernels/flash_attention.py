@@ -37,7 +37,6 @@ route, and the decode route's combine kernel on its own.
 """
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import functools
 from typing import NamedTuple, Optional
@@ -45,6 +44,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._launch import launch_on
 
 HEAD_DIMS = (32, 64, 128, 256)
 ROUTES = ("decode", "prefill_tc", "prefill_fma")
@@ -172,37 +172,28 @@ def _launch(q, k, v, causal, window, q_offset):
     out = torch.empty_like(q)
     which = route(q.dtype, Sq, Hq, Hkv)
     win = 0 if window is None else int(window)
-    # switching devices costs a few microseconds a call; decode makes many calls
-    index = q.get_device()
-    switch = (torch.cuda.device(index) if index != torch.cuda.current_device()
-              else contextlib.nullcontext())
-    with switch:
-        # the raw handle: torch.cuda.current_stream() builds a Stream object,
-        # about 9 us a call on an H100 host against 0.1 us for this
-        stream = torch._C._cuda_getCurrentRawStream(index)
-        if which == "decode":
-            plan = decode_plan(B, Sq, Sk, Hkv, causal=causal, window=window, q_offset=q_offset)
-            # f32 partials of every (batch, kv head, split, row): (m, l), then acc [hd]
-            n = B * Hkv * plan.n_splits * Sq * (Hq // Hkv)
-            part = torch.empty(n * (2 + hd), dtype=torch.float32, device=q.device)
-            source = "flash_decode"
-            lib = _lib(source)
-            err = lib.flash_decode_launch(
-                *ptrs, part.data_ptr(), part.data_ptr() + 8 * n, out.data_ptr(), B, Sq, Sk, Hq,
-                Hkv, hd, int(causal), win, int(q_offset), hd ** -0.5 * LOG2E, plan.k_lo,
-                plan.k_hi, plan.chunk, plan.n_splits, int(q.dtype == torch.bfloat16), stream)
-        elif which == "prefill_tc":
-            source = "flash_prefill"
-            lib = _lib(source)
-            err = lib.flash_prefill_launch(*ptrs, out.data_ptr(), B, Sq, Sk, Hq, Hkv, hd,
-                                           int(causal), win, int(q_offset), hd ** -0.5 * LOG2E,
-                                           stream)
-        else:
-            source = "flash_attention"
-            lib = _lib(source)
-            err = lib.flash_attention_launch(*ptrs, out.data_ptr(), B, Sq, Sk, Hq, Hkv, hd,
-                                             int(causal), win, int(q_offset), hd ** -0.5,
-                                             stream)
+    if which == "decode":
+        plan = decode_plan(B, Sq, Sk, Hkv, causal=causal, window=window, q_offset=q_offset)
+        # f32 partials of every (batch, kv head, split, row): (m, l), then acc [hd]
+        n = B * Hkv * plan.n_splits * Sq * (Hq // Hkv)
+        part = torch.empty(n * (2 + hd), dtype=torch.float32, device=q.device)
+        source = "flash_decode"
+        lib = _lib(source)
+        err = launch_on(
+            q, lib.flash_decode_launch, *ptrs, part.data_ptr(), part.data_ptr() + 8 * n,
+            out.data_ptr(), B, Sq, Sk, Hq, Hkv, hd, int(causal), win, int(q_offset),
+            hd ** -0.5 * LOG2E, plan.k_lo, plan.k_hi, plan.chunk, plan.n_splits,
+            int(q.dtype == torch.bfloat16))
+    elif which == "prefill_tc":
+        source = "flash_prefill"
+        lib = _lib(source)
+        err = launch_on(q, lib.flash_prefill_launch, *ptrs, out.data_ptr(), B, Sq, Sk, Hq,
+                        Hkv, hd, int(causal), win, int(q_offset), hd ** -0.5 * LOG2E)
+    else:
+        source = "flash_attention"
+        lib = _lib(source)
+        err = launch_on(q, lib.flash_attention_launch, *ptrs, out.data_ptr(), B, Sq, Sk,
+                        Hq, Hkv, hd, int(causal), win, int(q_offset), hd ** -0.5)
     if err != 0:
         msg = getattr(lib, f"{source}_error_string")(err).decode()
         raise RuntimeError(f"flash_attention {which} launch failed: CUDA error {err} ({msg})")

@@ -19,6 +19,7 @@ import functools
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._launch import launch_on
 from repro_torch.utils.flat import LANE
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -66,11 +67,9 @@ def _launch(row: torch.Tensor, n_buckets: int) -> torch.Tensor:
     grid = grid_for(n_buckets, torch.cuda.get_device_properties(dev).multi_processor_count)
     partial = torch.empty((2 * grid,), dtype=torch.float64, device=dev)
     out = torch.empty((2, n_buckets), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.row_sketch_launch(row.data_ptr(), row.shape[0], _DTYPE_CODE[row.dtype],
-                                    int(row.data_ptr() % 16 == 0), n_buckets, grid,
-                                    partial.data_ptr(), out.data_ptr(), stream)
+    err = launch_on(row, lib.row_sketch_launch, row.data_ptr(), row.shape[0],
+                    _DTYPE_CODE[row.dtype], int(row.data_ptr() % 16 == 0), n_buckets,
+                    grid, partial.data_ptr(), out.data_ptr())
     if err != 0:
         raise RuntimeError(f"row_sketch launch failed: CUDA error {err} "
                            f"({lib.row_sketch_error_string(err).decode()})")
