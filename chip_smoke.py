@@ -17,8 +17,11 @@ Phases (any failed check raises, so the script exits non-zero):
    paths' shapes and on ragged shapes: ``cold_fuse`` at K=5 x
    N=123,969,792 bf16 (one NaN row of weight 0, alpha 1.0 and 0.3);
    ``decode_accum`` at the service shape (C=4 compressed RoBERTa-base
-   deltas, block 1024, kb 64, duplicates, plus a NaN-scale row of weight
-   0), at block 32768, at a ragged size and at C=1; ``row_sketch`` of the
+   deltas, block 1024, kb 64, plus a NaN-scale row of weight 0, with
+   random offsets where slot 1 repeats slot 0 and with a top-k's offsets
+   as the codec writes them; called twice, the two results must be
+   bit-identical), at C=64 (the service's ``max_cohort``) at the same
+   shape, at block 32768, at a ragged size and at C=1; ``row_sketch`` of the
    bf16 body with 32 buckets, of 1,000,003 f32 with 7 and of 100 elements;
    ``flash_attention`` at gemma3-1b's prefill shape (B=4, Sq=1024,
    Sk=1280, 4 query heads on 1 kv head, hd 256, bf16, window 512 and
@@ -35,7 +38,9 @@ Phases (any failed check raises, so the script exits non-zero):
    ``scaled_dot_product_attention`` on the same inputs and mask; both
    again replayed from a CUDA graph, which leaves out the host's work per
    call (the device time); ``rwkv6_scan`` likewise per route, with its
-   wrapper's host time per call;
+   wrapper's host time per call; ``decode_accum`` at C=4 and C=64, on
+   both payload kinds, eager and from a CUDA graph, beside
+   ``torch.zeros`` of its f32 accumulator (the write floor);
 5. small-input checks: the same screen + fuse, the same small queue
    drained by the contributor service, and reduced f32 gemma3 and rwkv6
    models serving the same prompts, on the card and on the CPU (whose
@@ -134,6 +139,7 @@ FLASH_SOURCE = {"prefill_tc": "flash_prefill", "decode": "flash_decode",
 RWKV_SOURCE = {"scan": "rwkv6_scan", "step": "rwkv6_step"}
 CODEC_BLOCK, CODEC_KB = 1024, 64   # the service's default delta codec
 C_SERVICE = 4
+C_MAX_COHORT = 64                  # AdmissionPolicy's default max_cohort
 # novelty threshold of the service phases: a replay scores 0; three Adam
 # steps from a random-init body move nearly every element by about lr, a
 # shared isotropic growth that shrinks the relative distance of distinct
@@ -402,14 +408,26 @@ def bound_of(nbytes: float, flops: float, peak: float = F32_FLOPS):
     return max(b, o), "bytes" if b >= o else "operations"
 
 
-def payloads_on_card(C, size, block, kb, gen, nan_row=None):
-    """Random codec arrays on the card: offsets with duplicates (slot 1
-    repeats slot 0), int8 values, small f32 scales, weights in [0.5, 1.5)."""
+def payloads_on_card(C, size, block, kb, gen, nan_row=None, topk=False):
+    """Random codec arrays on the card: offsets drawn at random with slot 1
+    repeating slot 0 or, with ``topk``, as ``delta_encode`` writes them: a
+    row's kb distinct offsets in the order of a top-k of random magnitudes
+    (``topk`` of random keys, a chunk of rows at a time); int8 values,
+    small f32 scales, weights in [0.5, 1.5)."""
     dev = torch.device("cuda")
     nb = -(-size // block)
-    idx = torch.randint(0, block, (C, nb, kb), generator=gen, device=dev).to(torch.int16)
-    if kb >= 2:
-        idx[:, :, 1] = idx[:, :, 0]
+    if topk:
+        idx = torch.empty((C, nb, kb), dtype=torch.int16, device=dev)
+        rows = idx.view(-1, kb)
+        chunk = max(1, (1 << 26) // block)  # 256 MB of f32 keys at a time
+        for r0 in range(0, rows.shape[0], chunk):
+            keys = torch.rand((min(chunk, rows.shape[0] - r0), block), generator=gen, device=dev)
+            rows[r0:r0 + keys.shape[0]] = keys.topk(kb, dim=1).indices.to(torch.int16)
+        del keys
+    else:
+        idx = torch.randint(0, block, (C, nb, kb), generator=gen, device=dev).to(torch.int16)
+        if kb >= 2:
+            idx[:, :, 1] = idx[:, :, 0]
     val = torch.randint(-127, 128, (C, nb, kb), generator=gen, device=dev).to(torch.int8)
     scl = torch.rand((C, nb), generator=gen, device=dev) * 1e-4
     w = torch.rand(C, generator=gen, device=dev) + 0.5
@@ -417,6 +435,13 @@ def payloads_on_card(C, size, block, kb, gen, nan_row=None):
         scl[nan_row] = float("nan")
         w[nan_row] = 0.0
     return idx, val, scl, w
+
+
+# decode_accum's payload kinds: random offsets with slot 1 repeating slot 0
+# (every row takes the kernel's path for repeats; the kind the record's
+# `ms` has always timed), and the codec's top-k offsets (no repeats, the
+# service's traffic)
+DECODE_KINDS = ("repeats", "top-k")
 
 
 def decode_error(got, want):
@@ -434,22 +459,51 @@ def decode_error(got, want):
     return err, worst
 
 
+def decode_repeats(args, size, block):
+    """Whether two calls on the same inputs give the same bits (sq may hold a
+    NaN, which equals nothing as a float, so the bits are compared)."""
+    first = decode_accum(*args, size=size, block=block)
+    again = decode_accum(*args, size=size, block=block)
+    return all(torch.equal(x.view(torch.int32), y.view(torch.int32))
+               for x, y in zip(first, again))
+
+
 def phase_decode_checks(gen):
-    """decode_accum against decode_accum_plain on the card.  Returns the
-    service shape's C=4 inputs and the largest acc error there."""
+    """decode_accum against decode_accum_plain on the card, on both payload
+    kinds, and called twice on the same inputs, which must give the same
+    bits.  Returns the service shape's inputs by (C, kind) and the largest
+    acc error."""
     nb = -(-N_ROBERTA // CODEC_BLOCK)
     print(f"[check] decode_accum vs plain, C={C_SERVICE}+1 nb={nb} kb={CODEC_KB} "
-          f"block={CODEC_BLOCK} size={N_ROBERTA}, duplicates, row {C_SERVICE} NaN scale "
-          "with weight 0")
-    idx, val, scl, w = payloads_on_card(C_SERVICE + 1, N_ROBERTA, CODEC_BLOCK, CODEC_KB, gen,
-                                        nan_row=C_SERVICE)
-    got = decode_accum(idx, val, scl, w, size=N_ROBERTA, block=CODEC_BLOCK)
-    want = decode_accum_plain(idx, val, scl, w, size=N_ROBERTA, block=CODEC_BLOCK)
-    err, rel = decode_error(got, want)
-    print(f"  service shape: acc max|d| {err:.3g} (bound 1e-6 x max|acc| = "
-          f"{1e-6 * want[0].abs().max().item():.3g}), sq max rel err {rel:.3g} (bound 1e-5), "
-          f"sq[{C_SERVICE}]={got[1][C_SERVICE].item()}")
-    del got, want
+          f"block={CODEC_BLOCK} size={N_ROBERTA}, row {C_SERVICE} NaN scale with weight 0")
+    inputs, err = {}, 0.0
+    for kind in DECODE_KINDS:
+        args = payloads_on_card(C_SERVICE + 1, N_ROBERTA, CODEC_BLOCK, CODEC_KB, gen,
+                                nan_row=C_SERVICE, topk=kind == "top-k")
+        got = decode_accum(*args, size=N_ROBERTA, block=CODEC_BLOCK)
+        want = decode_accum_plain(*args, size=N_ROBERTA, block=CODEC_BLOCK)
+        e, rel = decode_error(got, want)
+        check(decode_repeats(args, N_ROBERTA, CODEC_BLOCK),
+              f"decode_accum ({kind} offsets): two calls on the same inputs differ")
+        print(f"  service shape, {kind} offsets: acc max|d| {e:.3g} (bound 1e-6 x max|acc| = "
+              f"{1e-6 * want[0].abs().max().item():.3g}), sq max rel err {rel:.3g} (bound "
+              f"1e-5), sq[{C_SERVICE}]={got[1][C_SERVICE].item()}; called twice: bit-identical")
+        err = max(err, e)
+        inputs[C_SERVICE, kind] = tuple(t[:C_SERVICE].contiguous() for t in args)
+        del got, want, args
+    for kind in DECODE_KINDS:
+        wide = payloads_on_card(C_MAX_COHORT, N_ROBERTA, CODEC_BLOCK, CODEC_KB, gen,
+                                topk=kind == "top-k")
+        e, r = decode_error(decode_accum(*wide, size=N_ROBERTA, block=CODEC_BLOCK),
+                            decode_accum_plain(*wide, size=N_ROBERTA, block=CODEC_BLOCK))
+        check(decode_repeats(wide, N_ROBERTA, CODEC_BLOCK),
+              f"decode_accum (C={C_MAX_COHORT}, {kind} offsets): two calls differ")
+        err = max(err, e)
+        inputs[C_MAX_COHORT, kind] = wide
+        print(f"  C={C_MAX_COHORT} (the service's max_cohort) at the service shape, {kind} "
+              f"offsets: acc max|d| {e:.3g}, sq max rel err {r:.3g}; called twice: "
+              "bit-identical")
+        torch.cuda.empty_cache()
     for C, size, block, kb, nan_row in ((3, 10_000_019, 32768, 100, 1),
                                         (1, 1_000_003, 1024, 64, None),
                                         (2, 3_000_001, 2048, 2048, None)):
@@ -458,28 +512,72 @@ def phase_decode_checks(gen):
                             decode_accum_plain(*args, size=size, block=block))
         print(f"  ragged C={C} size={size} block={block} kb={kb}: acc max|d| {e:.3g}, "
               f"sq max rel err {r:.3g}")
-    return (idx[:C_SERVICE].contiguous(), val[:C_SERVICE].contiguous(),
-            scl[:C_SERVICE].contiguous(), w[:C_SERVICE].contiguous()), err
+    return inputs, err
+
+
+def decode_bound(C, nb, kb):
+    """decode_accum's bound at the service size: the payloads read once, the
+    f32 accumulator and sq written once."""
+    nbytes = C * nb * kb * 3 + C * nb * 4 + C * 4 + N_ROBERTA * 4 + C * 4
+    flops = 4 * C * nb * kb  # per entry: dequantise, square-add (2), weight, add
+    return bound_of(nbytes, flops) + (nbytes,)
+
+
+def decode_floor(card):
+    """The write floor: ``torch.zeros`` of the f32 accumulator (ms)."""
+    floor, runs = median_windows(
+        lambda: torch.zeros(N_ROBERTA, dtype=torch.float32, device="cuda"), iters=20)
+    print(f"[time] decode_accum write floor: torch.zeros({N_ROBERTA}) f32 on {card}: "
+          f"{floor:.4f} ms (windows {[round(r, 4) for r in runs]})")
+    return floor
+
+
+def decode_time(args, kind, card):
+    """Eager and CUDA-graph (device) times of one payload at the service
+    size, beside its bound: {"ms", "graph_ms", "bound_ms", "bound_by"}."""
+    C, nb, kb = args[0].shape
+    call = lambda: decode_accum(*args, size=N_ROBERTA, block=CODEC_BLOCK)  # noqa: E731
+    bound, bound_by, nbytes = decode_bound(C, nb, kb)
+    iters = 20 if C <= C_SERVICE else 5
+    ms, runs = median_windows(call, iters=iters)
+    g_ms, g_runs = graph_windows(call, iters)
+    print(f"[time] decode_accum C={C} nb={nb} kb={kb}, {kind} offsets, on {card}: "
+          f"kernel_ms {ms:.4f} (windows {[round(r, 4) for r in runs]}), from a CUDA graph "
+          f"(device) {g_ms:.4f} (windows {[round(r, 4) for r in g_runs]}), bound_ms "
+          f"{bound:.4f} ({nbytes / 1e6:.1f} MB at 3.35 TB/s), device/bound "
+          f"{g_ms / bound:.2f}x")
+    return {"ms": ms, "graph_ms": g_ms, "bound_ms": bound, "bound_by": bound_by}
 
 
 def phase_decode_timing(inputs, card):
-    idx, val, scl, w = inputs
-    C, nb, kb = idx.shape
-    nbytes = idx.numel() * 2 + val.numel() + scl.numel() * 4 + C * 4 + N_ROBERTA * 4 + C * 4
-    flops = 4 * C * nb * kb  # per entry: dequantise, square-add (2), weight, add
-    bound, bound_by = bound_of(nbytes, flops)
-    ms, runs = median_windows(
-        lambda: decode_accum(idx, val, scl, w, size=N_ROBERTA, block=CODEC_BLOCK), iters=20)
+    """Eager and CUDA-graph (device) times at C=4 and C=64 on both payload
+    kinds beside the bound and the write floor.  The record's ``ms`` and
+    ``graph_ms`` are those of the repeated offsets, the kind earlier
+    records timed; ``codec_ms`` and ``codec_graph_ms`` those of the codec's
+    top-k offsets.  Returns the C=4 (ms, plain_ms, bound_ms, bound_by) and
+    the extra numbers."""
+    floor = decode_floor(card)
+    out = {key: decode_time(a, key[1], card) for key, a in inputs.items()}
+    idx, val, scl, w = inputs[C_SERVICE, "repeats"]
     plain, plain_runs = median_windows(
         lambda: decode_accum_plain(idx, val, scl, w, size=N_ROBERTA, block=CODEC_BLOCK),
         iters=3, warmup=1)
-    print(f"[time] decode_accum C={C} nb={nb} kb={kb} on {card}: kernel_ms {ms:.4f} "
-          f"(windows {[round(r, 4) for r in runs]}), bound_ms {bound:.4f} "
-          f"({nbytes / 1e6:.1f} MB at 3.35 TB/s), kernel/bound {ms / bound:.2f}x, "
-          f"plain_ms {plain:.4f} (windows {[round(r, 3) for r in plain_runs]})")
+    print(f"[time] decode_accum plain C={C_SERVICE}, repeats offsets: plain_ms {plain:.4f} "
+          f"(windows {[round(r, 3) for r in plain_runs]})")
     print("[time] decode_accum library_ms: none — no single PyTorch call computes the "
           "weighted scatter acc and the per-row sq together")
-    return ms, plain, bound, bound_by
+
+    def numbers(C):
+        rep, top = out[C, "repeats"], out[C, "top-k"]
+        return {"graph_ms": rep["graph_ms"], "codec_ms": top["ms"],
+                "codec_graph_ms": top["graph_ms"]}
+
+    main = out[C_SERVICE, "repeats"]
+    wide = out[C_MAX_COHORT, "repeats"]
+    extra = dict(numbers(C_SERVICE), write_floor_ms=floor,
+                 wide=dict(numbers(C_MAX_COHORT), C=C_MAX_COHORT, ms=wide["ms"],
+                           bound_ms=wide["bound_ms"]))
+    return (main["ms"], plain, main["bound_ms"], main["bound_by"]), extra
 
 
 def sketch_error(got, want, x):
@@ -1394,7 +1492,7 @@ def main() -> int:
     del inputs
     torch.cuda.empty_cache()
     dec_inputs, dec_err = phase_decode_checks(gen)
-    dec = phase_decode_timing(dec_inputs, smi)
+    dec, dec_extra = phase_decode_timing(dec_inputs, smi)
     del dec_inputs
     torch.cuda.empty_cache()
     sk_row, sk_err = phase_sketch_checks(gen)
@@ -1474,7 +1572,8 @@ def main() -> int:
     print(json.dumps({"kernels": [
         record("cold_fuse", "src/repro/kernels/cold_fuse.py:61", max_err,
                (ms, plain_ms, bound_ms, bound_by)),
-        record("decode_accum", "src/repro/kernels/cold_fuse.py:170", dec_err, dec),
+        dict(record("decode_accum", "src/repro/kernels/cold_fuse.py:170", dec_err, dec),
+             **dec_extra),
         record("row_sketch", "src/repro/kernels/cold_fuse.py:253", sk_err, sk),
         flash, rwkv]}))
     print(nvidia_smi())

@@ -17,12 +17,18 @@ kernel ``repro/kernels/cold_fuse.py:_decode_kernel`` and reads the codec
 arrays as stored, so the dequantised ``[C, nb, kb]`` f32 array never
 exists), CPU tensors through ``decode_accum_plain``.  No fallback: a failed
 build or launch raises.  ``decode_accum.launches`` counts kernel launches.
+
+The kernel is one launch of about one wave of persistent blocks:
+``partition`` splits the nb codec blocks into one contiguous range per
+block, ``layout`` picks how many entries a lane loads at once and how many
+codec blocks a warp adds at once, and the blocks' partial sums of squares
+meet in a small scratch kept per card and stream.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import Dict, List, Tuple
 
 import torch
 
@@ -48,16 +54,80 @@ def decode_accum_plain(indices: torch.Tensor, values: torch.Tensor, scales: torc
     return acc[:size].clone(), sq
 
 
+def layout(kb: int, idx_ptr: int, val_ptr: int) -> Tuple[int, int]:
+    """``(vec, groups)``: the kernel's lanes load ``vec`` consecutive entries
+    at once, and a warp adds ``groups`` codec blocks at once, 32/groups
+    lanes to a row.  A row of 64 entries (the service's codec) goes to 16
+    lanes of 4 (8-byte loads of offsets, 4 of values); any other kb, or a
+    payload off those byte boundaries, one entry a lane (the last round
+    masked)."""
+    if kb == 64 and idx_ptr % 8 == 0 and val_ptr % 4 == 0:
+        return 4, 2
+    return 1, 1
+
+
+def partition(nb: int, slots: int) -> Tuple[int, int]:
+    """``(grid, per)``: block g takes the contiguous codec blocks
+    ``[g·per, min(nb, (g+1)·per))``, about one wave of ``slots`` resident
+    blocks; every codec block falls to exactly one block."""
+    per = -(-nb // max(1, slots))
+    return -(-nb // per), per
+
+
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = _build.load("decode_accum")
     p = ctypes.c_void_p
     i = ctypes.c_int
-    lib.decode_accum_launch.argtypes = [p, p, p, p, p, p, p, ctypes.c_longlong, i, i, i, i, p]
-    lib.decode_accum_launch.restype = ctypes.c_int
-    lib.decode_accum_error_string.argtypes = [ctypes.c_int]
+    lib.decode_accum_plan.argtypes = [i, i, i, i, ctypes.POINTER(i), ctypes.POINTER(i)]
+    lib.decode_accum_plan.restype = i
+    lib.decode_accum_launch.argtypes = [p, p, p, p, p, p, p, p, ctypes.c_longlong,
+                                        i, i, i, i, i, i, i, i, i, p]
+    lib.decode_accum_launch.restype = i
+    lib.decode_accum_error_string.argtypes = [i]
     lib.decode_accum_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _raise_on(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"decode_accum {what} failed: CUDA error {err} "
+                           f"({_lib().decode_accum_error_string(err).decode()})")
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(index: int, vec: int, groups: int, block: int, C: int) -> Tuple[int, int]:
+    """``(warps per block, resident blocks on the card)`` from the occupancy
+    query: once per card, layout and size class, which is also when the C
+    side sets the kernel's shared-memory attributes."""
+    warps, per_sm = ctypes.c_int(0), ctypes.c_int(0)
+    with torch.cuda.device(index):
+        _raise_on(_lib().decode_accum_plan(vec, groups, block, C, ctypes.byref(warps),
+                                           ctypes.byref(per_sm)), "plan")
+    sms = torch.cuda.get_device_properties(index).multi_processor_count
+    return warps.value, per_sm.value * sms
+
+
+# (card index, raw stream) -> [the last-block ticket, int32, which every
+# launch leaves at 0; then the blocks' sq partials, f64, one tensor for
+# each size the stream has needed].  A stream's launches run one after
+# another, so they share them; launches on two streams never do.  A larger
+# cohort appends a partials tensor at least twice as large and keeps the
+# old ones, which a CUDA graph captured on the stream may still point at.
+# A graph keeps its capture stream's scratch, so two graphs captured on one
+# stream must not replay at the same time (as with PyTorch's own
+# per-stream workspaces).
+_SCRATCH: Dict[Tuple[int, int], List[torch.Tensor]] = {}
+
+
+def _scratch(dev: torch.device, stream: int, n: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    held = _SCRATCH.get((dev.index, stream))
+    if held is None:  # zeroed on the stream itself, before its first launch
+        held = _SCRATCH[dev.index, stream] = [torch.zeros((1,), dtype=torch.int32, device=dev)]
+    if len(held) == 1 or held[-1].numel() < n:
+        held.append(torch.empty((max(n, 2 * held[-1].numel()),), dtype=torch.float64,
+                                device=dev))
+    return held[-1], held[0]
 
 
 def _check(indices, values, scales, weights, size, block):
@@ -83,16 +153,16 @@ def _launch(indices, values, scales, weights, size, block):
         raise ValueError("decode_accum kernel takes contiguous payload arrays")
     dev = indices.device
     w = weights.to(device=dev, dtype=torch.float32).contiguous()
+    vec, groups = layout(kb, indices.data_ptr(), values.data_ptr())
+    warps, slots = _plan(dev.index, vec, groups, block, C)
+    grid, per = partition(nb, slots)
+    part, ticket = _scratch(dev, torch._C._cuda_getCurrentRawStream(dev.index), grid * C)
     acc = torch.empty((size,), dtype=torch.float32, device=dev)
     sq = torch.empty((C,), dtype=torch.float32, device=dev)
-    sq_part = torch.empty((nb * C,), dtype=torch.float32, device=dev)
-    lib = _lib()
-    err = launch_on(indices, lib.decode_accum_launch, indices.data_ptr(),
-                    values.data_ptr(), scales.data_ptr(), w.data_ptr(), acc.data_ptr(),
-                    sq.data_ptr(), sq_part.data_ptr(), size, nb, kb, C, block)
-    if err != 0:
-        raise RuntimeError(f"decode_accum launch failed: CUDA error {err} "
-                           f"({lib.decode_accum_error_string(err).decode()})")
+    _raise_on(launch_on(indices, _lib().decode_accum_launch, indices.data_ptr(),
+                        values.data_ptr(), scales.data_ptr(), w.data_ptr(), acc.data_ptr(),
+                        sq.data_ptr(), part.data_ptr(), ticket.data_ptr(), size, nb, kb, C,
+                        block, vec, groups, warps, grid, per), "launch")
     decode_accum.launches += 1
     return acc, sq
 

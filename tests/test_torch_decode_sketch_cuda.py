@@ -4,9 +4,9 @@ PyTorch versions, on the card.  Imports neither JAX nor the JAX package:
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_decode_sketch_cuda.py
 
 Each test skips without a card (the kernels have no CPU mode).
-Tolerances: ``acc`` |Δ| ≤ 1e-6·max|acc_plain| (the contributors are summed
-in the same order, but FMA contraction and the order of duplicate offsets
-may move the last bit); ``sq`` relative 1e-5, NaN where the plain version
+Tolerances: ``acc`` |Δ| ≤ 1e-6·max|acc_plain| (the kernel adds each element's
+terms contributor by contributor and slot by slot, but FMA contraction and
+``index_add_``'s order of duplicate offsets may move the last bit); ``sq`` relative 1e-5, NaN where the plain version
 is NaN; sketch sums |Δ| ≤ 1e-5 · that bucket's Σ|x| (f32 sums in another
 order), sums of squares relative 1e-5."""
 import numpy as np
@@ -25,12 +25,15 @@ def _card():
     return torch.device("cuda")
 
 
-def _payloads(C, N, block, kb, seed, nan_row=None):
+def _payloads(C, N, block, kb, seed, nan_row=None, distinct=False):
     rng = np.random.default_rng(seed)
     nb = -(-N // block)
-    idx = rng.integers(0, block, size=(C, nb, kb)).astype(np.int16)
-    if kb >= 2:
-        idx[:, :, 1] = idx[:, :, 0]  # duplicates add up
+    if distinct:  # a top-k's offsets, as the codec writes them: no repeats in a row
+        idx = np.argsort(rng.random((C, nb, block)), axis=2)[:, :, :kb].astype(np.int16)
+    else:
+        idx = rng.integers(0, block, size=(C, nb, kb)).astype(np.int16)
+        if kb >= 2:
+            idx[:, :, 1] = idx[:, :, 0]  # duplicates add up
     val = rng.integers(-127, 128, size=(C, nb, kb)).astype(np.int8)
     scl = (rng.random((C, nb)) * 1e-2).astype(np.float32)
     w = (rng.random(C) + 0.5).astype(np.float32)
@@ -57,10 +60,20 @@ def assert_decode_close(got, want):
     (5, 1_000_003, 1024, 64, 4),       # ragged size, a NaN row of weight 0
     (3, 200_001, 32768, 100, 1),       # the largest block: 128 KB of shared memory
     (1, 70_000, 2048, 2048, None),     # C = 1, every slot
+    (64, 300_000, 1024, 64, 9),        # the service's max_cohort, a NaN row
+    (7, 100_003, 1024, 64, None),      # C not a multiple of the 4 rows a slab holds
+    (3, 50_000, 2048, 512, None),      # kb = 512: one entry a lane, sixteen rounds a row
+    (2, 40_000, 1024, 100, None),      # kb = 100: one entry a lane, last round masked
+    (5, 30_000, 1024, 128, 2),         # kb = 128: one entry a lane, four rounds a row
+    (3, 30_000, 1024, 384, None),      # kb = 384: one entry a lane, twelve rounds a row
 ])
-def test_decode_accum_matches_plain_on_card(C, N, block, kb, nan_row):
+@pytest.mark.parametrize("distinct", [False, True])
+def test_decode_accum_matches_plain_on_card(C, N, block, kb, nan_row, distinct):
+    """Rows with repeated offsets take the kernel's atomic adds, rows whose
+    offsets are all distinct (as the codec writes them) its plain adds."""
     dev = _card()
-    args = [t.to(dev) for t in _payloads(C, N, block, kb, seed=N, nan_row=nan_row)]
+    args = [t.to(dev) for t in _payloads(C, N, block, kb, seed=N, nan_row=nan_row,
+                                         distinct=distinct)]
     before = tda.decode_accum.launches
     got = tda.decode_accum(*args, size=N, block=block)
     torch.cuda.synchronize()
@@ -70,13 +83,97 @@ def test_decode_accum_matches_plain_on_card(C, N, block, kb, nan_row):
 
 
 @pytest.mark.cuda
-def test_decode_accum_empty_slots_launch_nothing():
+@pytest.mark.parametrize("C,kb", [(3, 0), (0, 64)])
+def test_decode_accum_empty_slots_launch_nothing(C, kb):
     dev = _card()
-    args = [t.to(dev) for t in _payloads(3, 5000, 1024, 0, seed=1)]
+    args = [t.to(dev) for t in _payloads(C, 5000, 1024, kb, seed=1)]
     before = tda.decode_accum.launches
     acc, sq = tda.decode_accum(*args, size=5000, block=1024)
     assert tda.decode_accum.launches == before
-    assert acc.is_cuda and not acc.any() and not sq.any()
+    assert acc.is_cuda and not acc.any() and sq.shape == (C,) and not sq.any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,N,block,kb", [(4, 1_000_000, 1024, 64), (64, 200_000, 1024, 64),
+                                          (3, 100_000, 2048, 256), (5, 50_000, 1024, 100)])
+@pytest.mark.parametrize("distinct", [False, True])
+def test_decode_accum_repeats_bit_for_bit(C, N, block, kb, distinct):
+    """Contributors meet in a fixed order and sq's partial sums in a fixed
+    tree, so two calls give the same bits, with repeated offsets inside a
+    row (random offsets repeat often: 64 of 1024) and without."""
+    dev = _card()
+    args = [t.to(dev) for t in _payloads(C, N, block, kb, seed=C + kb, distinct=distinct)]
+    before = tda.decode_accum.launches
+    first = tda.decode_accum(*args, size=N, block=block)
+    second = tda.decode_accum(*args, size=N, block=block)
+    torch.cuda.synchronize()
+    assert tda.decode_accum.launches == before + 2
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
+
+
+@pytest.mark.cuda
+def test_decode_accum_on_two_streams_at_once():
+    """Launches on two streams overlap without sharing the last-block ticket
+    or the sq partials: each stream's results are right and repeat."""
+    dev = _card()
+    cases = [[t.to(dev) for t in _payloads(C, 400_000, 1024, 64, seed=C, distinct=C == 6)]
+             for C in (3, 6)]
+    want = [tda.decode_accum_plain(*a, size=400_000, block=1024) for a in cases]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    got = [[], []]
+    for _ in range(4):  # no synchronisation between the two streams' launches
+        for i, s in enumerate(streams):
+            with torch.cuda.stream(s):
+                got[i].append(tda.decode_accum(*cases[i], size=400_000, block=1024))
+    torch.cuda.synchronize()
+    for i in range(2):
+        for g in got[i]:
+            assert_decode_close(g, want[i])
+            assert torch.equal(g[0], got[i][0][0])
+            assert torch.equal(g[1].view(torch.int32), got[i][0][1].view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_decode_accum_graph_survives_a_larger_cohort_on_its_stream():
+    """A CUDA graph keeps the scratch it was captured with: a larger cohort
+    on the same stream afterwards grows the scratch, and the graph's replay
+    still gives the right answer."""
+    dev = _card()
+    small = [t.to(dev) for t in _payloads(2, 300_000, 1024, 64, seed=4)]
+    large = [t.to(dev) for t in _payloads(64, 300_000, 1024, 64, seed=5)]
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        tda.decode_accum(*small, size=300_000, block=1024)  # warm up outside the capture
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        out = tda.decode_accum(*small, size=300_000, block=1024)
+    with torch.cuda.stream(stream):
+        big = tda.decode_accum(*large, size=300_000, block=1024)
+        graph.replay()
+    torch.cuda.synchronize()
+    assert_decode_close(big, tda.decode_accum_plain(*large, size=300_000, block=1024))
+    assert_decode_close(out, tda.decode_accum_plain(*small, size=300_000, block=1024))
+
+
+@pytest.mark.cuda
+def test_decode_accum_unaligned_payload_takes_single_entry_loads():
+    """A payload view that starts off a 4-byte boundary is loaded one entry a
+    lane (``layout`` (1, 1)) and gives the same answer."""
+    dev = _card()
+    idx, val, scl, w = [t.to(dev) for t in _payloads(3, 60_000, 1024, 64, seed=3)]
+    moved = []
+    for t in (idx, val):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)
+        buf[1:] = t.reshape(-1)
+        moved.append(buf[1:].view(t.shape))
+    assert tda.layout(64, moved[0].data_ptr(), moved[1].data_ptr()) == (1, 1)
+    assert tda.layout(64, idx.data_ptr(), val.data_ptr()) == (4, 2)
+    got = tda.decode_accum(*moved, scl, w, size=60_000, block=1024)
+    assert_decode_close(got, tda.decode_accum_plain(idx, val, scl, w, size=60_000, block=1024))
 
 
 @pytest.mark.cuda
