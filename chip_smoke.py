@@ -41,15 +41,30 @@ Phases (any failed check raises, so the script exits non-zero):
    wrapper's host time per call; ``decode_accum`` at C=4 and C=64, on
    both payload kinds, eager and from a CUDA graph, beside
    ``torch.zeros`` of its f32 accumulator (the write floor);
-5. small-input checks: the same screen + fuse, the same small queue
-   drained by the contributor service, and reduced f32 gemma3 and rwkv6
-   models serving the same prompts, on the card and on the CPU (whose
-   paths the CPU tests hold against the JAX package) must agree;
-6. the ColD Fusion loop (slice 1), through the entry points a user calls:
-   a Repository over a RoBERTa-base body at full width (random weights from
-   a seed), two iterations of 4 contributors x 3 finetune steps, an
-   adversarial cohort (3 honest, one NaN, one runaway upload) that must
-   fuse 3/5, and a frozen-probe evaluation;
+5. small-input checks: the same screen + fuse (the flat engine, and the
+   per-leaf engine's ``fisher`` and ``ties`` repositories over a TINY f32
+   body), the same small queue drained by the contributor service, and
+   reduced f32 gemma3 and rwkv6 models serving the same prompts, on the
+   card and on the CPU (whose paths the CPU tests hold against the JAX
+   package) must agree;
+6. the ColD Fusion training path (slices 1 and 4), through the entry points
+   a user calls, at RoBERTa-base's full width: ``pretrain_mlm`` (20 steps of
+   batch 32 x 128 tokens at lr 5e-4 from a body drawn from seed 0, after
+   the same at 2e-3 and 1e-3 for their losses only; every loss finite)
+   gives theta_0; a Repository over theta_0 runs two iterations of 4
+   contributors x 3 finetune steps, an adversarial cohort (3 honest, one
+   NaN, one runaway upload) that must fuse 3/5, and a frozen-probe
+   evaluation; ``train_multitask`` takes 8 steps over the 4 tasks (body and
+   heads finite); 4 ``Contributor(with_fisher=True)`` fuse 4/4 into a
+   ``Repository(fusion_op="fisher")`` and 4 contributors 4/4 into a
+   ``Repository(fusion_op="ties", density 0.2)``, both finite.  The
+   pretrain, multitask and finetune steps, each ``compute_fisher`` call and
+   each per-leaf fuse are timed (host clock, synchronised).  After the
+   counts are read: the same cohort with all-ones Fishers must equal
+   ``average``'s ``cold_fuse`` within 1 bf16 ulp, and ``ties`` on the CPU
+   must give the card's result within 1 bf16 ulp on ``embed`` and two other
+   leaves, with the same number of kept elements per contributor; the
+   ``ties`` threshold (``topk``) is timed on ``embed`` beside ``kthvalue``;
 7. the contributor service loop (slice 2) at the same width, in a
    temporary root: ``Repository(root, spill=True)`` behind a
    ``ColdService`` with the novelty screen on; round 1 takes 2 dense
@@ -101,7 +116,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src
 
 from repro_torch.configs import CONFIG, TINY, get_config, reduce_config  # noqa: E402
 from repro_torch.core import (Contributor, EvalTask, Repository,  # noqa: E402
-                              evaluate_base_model, run_cold_fusion)
+                              evaluate_base_model, fusion, run_cold_fusion)
 from repro_torch.data.synthetic import SyntheticSuite  # noqa: E402
 from repro_torch.checkpoint import io as ckpt  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
@@ -119,18 +134,32 @@ from repro_torch.models import rwkv as rwkv_mod  # noqa: E402
 from repro_torch.models.encoder import init_encoder_body  # noqa: E402
 from repro_torch.models.transformer import forward_lm, init_cache, init_lm  # noqa: E402
 from repro_torch.serve.engine import Engine  # noqa: E402
+from repro_torch.train import finetune as FT  # noqa: E402
+from repro_torch.train import pretrain as pretrain_mod  # noqa: E402
+from repro_torch.train import pretrain_mlm, train_multitask  # noqa: E402
 from repro_torch.train.step import make_serve_step  # noqa: E402
 from repro_torch.serve.cold_service import (AdmissionPolicy, ColdService,  # noqa: E402
                                             ContributorClient)
 from repro_torch.utils.flat import (LANE, CohortSketch, FlatSpec, delta_decode,  # noqa: E402
                                     delta_encode)
-from repro_torch.utils.pytree import tree_leaves, tree_map  # noqa: E402
+from repro_torch.utils.pytree import tree_leaves, tree_leaves_with_path, tree_map  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 F32_FLOPS = 67e12           # H100 SXM float32 outside the tensor cores
 BF16_FLOPS = 989e12         # H100 SXM bf16 tensor cores, dense
 N_ROBERTA = 123_969_792     # elements of the RoBERTa-base body (FlatSpec.size)
 K_MAIN = 5
+# the training path at full width (phase 6): batch x sequence of every step
+SEQ_MAIN, BATCH_MAIN = 128, 32
+PRETRAIN_STEPS, MULTITASK_STEPS = 20, 8
+# theta_0's lr, not the reference's 2e-3: in bf16 at this width the loss
+# rises after the warmup at 2e-3 and at 1e-3; phase 6 runs both (printed,
+# not used) beside it, so every run shows why
+PRETRAIN_LR = 5e-4
+PRETRAIN_LR_REJECTED = (2e-3, 1e-3)
+TIES_DENSITY = 0.2
+# the leaves whose ties result the CPU recomputes (embed is the largest)
+TIES_LEAVES = ("embed", "layers/layer0/attn/wq", "layers/layer11/mlp/w_down")
 # the CUDA sources: flash_attention's three routes live in three files
 SOURCES = ("cold_fuse", "decode_accum", "row_sketch", "flash_prefill", "flash_decode",
            "flash_attention", "rwkv6_scan", "rwkv6_step")
@@ -327,31 +356,227 @@ def phase_small_agreement():
           f"(bound 1e-5), fused {recs[1].n_accepted}/{recs[1].n_contributions} on both")
 
 
-def phase_main_path():
-    seq, batch = 128, 32
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    repo = Repository(init_encoder_body(CONFIG, gen, device="cuda"))
+def phase_small_per_leaf():
+    """The per-leaf engine's fisher and ties repositories, card against CPU,
+    on the same TINY f32 cohort (3 noisy uploads and a NaN one)."""
+    gen = torch.Generator().manual_seed(3)
+    body = init_encoder_body(TINY, gen, device="cpu")
+    noise = torch.Generator().manual_seed(4)
+    uploads = [tree_map(lambda x: x + 0.01 * torch.randn(x.shape, generator=noise), body)
+               for _ in range(3)]
+    uploads.append(tree_map(lambda x: torch.full_like(x, float("nan")), body))
+    fishers = [tree_map(lambda x: torch.rand(x.shape, generator=noise), body) for _ in uploads]
+    for op, kw in (("fisher", {}), ("ties", {"density": TIES_DENSITY})):
+        bases, recs = [], []
+        for dev in ("cpu", "cuda"):
+            on = lambda t: tree_map(lambda x: x.to(dev), t)
+            repo = Repository(on(body), fusion_op=op, fusion_kwargs=kw)
+            check(not repo.use_flat, f"{op} must take the per-leaf engine")
+            for u, f in zip(uploads, fishers):
+                repo.upload(on(u), on(f))
+            recs.append(repo.fuse_pending())
+            bases.append(repo.flat_base_host())
+        d = (bases[0] - bases[1]).abs().max().item()
+        check(recs[0].n_accepted == recs[1].n_accepted == 3, f"small {op}: 3/4 must fuse")
+        check(d <= 1e-5, f"small {op}: card and CPU published bases differ by {d:.3g} > 1e-5")
+        print(f"[small] TINY f32 {op} repository, cohort of 4 (one NaN): card vs CPU published "
+              f"base max|d| {d:.3g} (bound 1e-5), fused {recs[1].n_accepted}/"
+              f"{recs[1].n_contributions} on both")
+
+
+@contextlib.contextmanager
+def timed(module, name):
+    """Time every call of ``module.name`` on the host clock, synchronised
+    on both sides, into the yielded list (seconds); restored on exit."""
+    fn, seconds = getattr(module, name), []
+
+    def wrapper(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        return out
+
+    setattr(module, name, wrapper)
+    try:
+        yield seconds
+    finally:
+        setattr(module, name, fn)
+
+
+def median_ms(seconds) -> str:
+    return (f"median {1e3 * float(np.median(seconds)):.1f} ms over {len(seconds)} "
+            f"(min {1e3 * min(seconds):.1f}, max {1e3 * max(seconds):.1f})")
+
+
+def all_finite(tree) -> bool:
+    return all(bool(torch.isfinite(x).all()) for x in tree_leaves(tree))
+
+
+def main_contributors(suite, tids, **kw):
+    out = []
+    for tid in tids:
+        d = suite.dataset(tid, 128, 32, SEQ_MAIN)
+        out.append(Contributor(CONFIG, tid, suite.tasks[tid].num_classes, d["x_train"],
+                               d["y_train"], steps=3, batch_size=BATCH_MAIN, seed=tid, **kw))
+    return out
+
+
+def loss_summary(losses) -> str:
+    warm = max(10, len(losses) // 20)
+    return (f"loss {losses[0]:.4f} -> {losses[-1]:.4f}, max after the {warm}-step warmup "
+            f"{max(losses[warm:]):.4f} (min {min(losses):.4f}); every step: "
+            f"{' '.join(f'{x:.3f}' for x in losses)}")
+
+
+def phase_pretrain(suite, card):
+    """Step 1 of the main path: theta_0 from ``pretrain_mlm`` at full width,
+    after the same pretraining at the larger lrs it does not use."""
+    for lr in PRETRAIN_LR_REJECTED:
+        _, m = pretrain_mlm(CONFIG, suite, steps=PRETRAIN_STEPS, batch_size=BATCH_MAIN,
+                            seq_len=SEQ_MAIN, lr=lr)
+        check(all(math.isfinite(x) for x in m["loss"]), f"lr {lr:g}: losses not finite")
+        print(f"[main] pretrain_mlm at lr {lr:g} (not used): {loss_summary(m['loss'])}")
+    t0 = time.perf_counter()
+    with timed(pretrain_mod, "mlm_step") as step_s:
+        body, m = pretrain_mlm(CONFIG, suite, steps=PRETRAIN_STEPS, batch_size=BATCH_MAIN,
+                               seq_len=SEQ_MAIN, lr=PRETRAIN_LR)
+    losses = m["loss"]
+    check(len(losses) == PRETRAIN_STEPS and all(math.isfinite(x) for x in losses),
+          f"pretrain losses not finite: {losses}")
+    check(all_finite(body), "pretrained body is not finite")
+    print(f"[main] pretrain_mlm {PRETRAIN_STEPS} steps (batch {BATCH_MAIN}, seq {SEQ_MAIN}, "
+          f"lr {PRETRAIN_LR:g}): {loss_summary(losses)}; {time.perf_counter() - t0:.1f} s")
+    print(f"[time] pretrain step on {card}: {median_ms(step_s)}")
+    return body
+
+
+def phase_fisher(theta, suite, card):
+    """One iteration of 4 Contributor(with_fisher=True) into a fisher
+    Repository; returns the cohort for the all-ones check."""
+    contribs = main_contributors(suite, range(4), with_fisher=True)
+    repo = Repository(theta, fusion_op="fisher")
+    check(not repo.use_flat, "fusion_op='fisher' must take the per-leaf engine")
+    base = repo.download()
+    bodies = []
+    with timed(FT, "compute_fisher") as fisher_s:
+        for c in contribs:
+            bodies.append(c.contribute(base))
+            repo.upload(bodies[-1], c.last_fisher)
+    check(all(all_finite(c.last_fisher) for c in contribs), "a Fisher is not finite")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rec = repo.fuse_pending()
+    torch.cuda.synchronize()
+    fuse_s = time.perf_counter() - t0
+    print(f"[main] fisher iteration: fused {rec.n_accepted}/{rec.n_contributions} "
+          f"(diff norms {[f'{n:.4g}' for n in rec.diff_norms]})")
+    check((rec.n_accepted, rec.n_contributions) == (4, 4), "the fisher cohort must fuse 4/4")
+    check(all_finite(repo.download()), "the fisher base is not finite")
+    print(f"[time] compute_fisher on {card} (4 batches of {BATCH_MAIN} x {SEQ_MAIN}, "
+          f"f32 squares of bf16 grads): {median_ms(fisher_s)}")
+    print(f"[time] fisher fuse on {card} (screen + per-leaf fuse of 4, synchronised): "
+          f"{1e3 * fuse_s:.1f} ms")
+    return bodies
+
+
+def phase_ties(theta, contribs, card):
+    """One iteration of 4 contributors into a ties Repository; returns the
+    base and the cohort for the CPU comparison."""
+    repo = Repository(theta, fusion_op="ties", fusion_kwargs={"density": TIES_DENSITY})
+    base = repo.download()
+    bodies = [c.contribute(base) for c in contribs]
+    for b in bodies:
+        repo.upload(b)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rec = repo.fuse_pending()
+    torch.cuda.synchronize()
+    fuse_s = time.perf_counter() - t0
+    print(f"[main] ties iteration (density {TIES_DENSITY}): fused {rec.n_accepted}/"
+          f"{rec.n_contributions} (diff norms {[f'{n:.4g}' for n in rec.diff_norms]})")
+    check((rec.n_accepted, rec.n_contributions) == (4, 4), "the ties cohort must fuse 4/4")
+    check(all_finite(repo.download()), "the ties base is not finite")
+    print(f"[time] ties fuse on {card} (screen + per-leaf fuse of 4, synchronised): "
+          f"{1e3 * fuse_s:.1f} ms")
+    return base, bodies, repo.download()
+
+
+def check_fisher_ones(bodies):
+    """With all-ones Fishers the fisher fuse is the plain average."""
+    ones = tree_map(lambda x: torch.ones(x.shape, dtype=torch.float32, device=x.device),
+                    bodies[0])
+    spec = FlatSpec.from_tree(bodies[0])
+    got = spec.flatten(fusion.fisher_weighted(bodies, [ones] * len(bodies)))
+    want = spec.flatten(fusion.average(bodies))
+    err = (got.float() - want.float()).abs()
+    ok = bool((err <= bf16_ulp(torch.maximum(got.float().abs(), want.float().abs()))).all())
+    check(ok, f"all-ones fisher differs from average by more than 1 bf16 ulp "
+              f"(max |d| {err.max().item():.3g})")
+    print(f"[check] fisher fuse with all-ones Fishers vs average (cold_fuse) over "
+          f"{spec.size:,} bf16: max|d| {err.max().item():.3g}, "
+          f"{int(torch.count_nonzero(err))} elements differ, all within 1 bf16 ulp")
+
+
+def check_ties_on_cpu(base, bodies, fused, card):
+    """ties on the CPU against the card's published leaves, and the kept
+    elements per contributor; then the threshold's two selections timed."""
+    def leaf(tree, path):
+        return dict(tree_leaves_with_path(tree))[path]
+
+    for path in TIES_LEAVES:
+        b_card, m_card = leaf(base, path), [leaf(b, path) for b in bodies]
+        b_cpu, m_cpu = b_card.cpu(), [m.cpu() for m in m_card]
+        want = fusion.ties({"w": b_cpu}, [{"w": m} for m in m_cpu], density=TIES_DENSITY)["w"]
+        got = leaf(fused, path).cpu()
+        err = (got.float() - want.float()).abs()
+        ok = bool((err <= bf16_ulp(torch.maximum(got.float().abs(),
+                                                 want.float().abs()))).all())
+        check(ok, f"ties {path}: card and CPU differ by more than 1 bf16 ulp "
+                  f"(max |d| {err.max().item():.3g})")
+        kept_card = [int(torch.count_nonzero(fusion.ties_trim(
+            m.float() - b_card.float(), TIES_DENSITY))) for m in m_card]
+        kept_cpu = [int(torch.count_nonzero(fusion.ties_trim(
+            m.float() - b_cpu.float(), TIES_DENSITY))) for m in m_cpu]
+        check(kept_card == kept_cpu, f"ties {path}: kept {kept_card} on the card, "
+                                     f"{kept_cpu} on the CPU")
+        print(f"[check] ties {path} {tuple(got.shape)}: card vs CPU max|d| "
+              f"{err.max().item():.3g} (bound 1 bf16 ulp), nonzero kept per contributor "
+              f"{kept_card} on both (k = {max(1, int(TIES_DENSITY * got.numel())):,}; a delta "
+              "with fewer nonzeros keeps them all)")
+    mag = (bodies[0]["embed"].float() - base["embed"].float()).abs().reshape(-1)
+    n, k = mag.numel(), max(1, int(TIES_DENSITY * mag.numel()))
+    check(fusion.ties_threshold(mag, k).item() == torch.kthvalue(mag, n - k + 1).values.item(),
+          "topk's and kthvalue's thresholds differ")
+    t_topk = time_ms(lambda: fusion.ties_threshold(mag, k), iters=5)
+    t_kth = time_ms(lambda: torch.kthvalue(mag, n - k + 1), iters=5)
+    print(f"[time] ties threshold on embed ({n:,} f32, k {k:,}) on {card}: topk {t_topk:.3f} ms, "
+          f"kthvalue {t_kth:.3f} ms (the same value)")
+
+
+def phase_main_path(card):
+    suite = SyntheticSuite(vocab_size=CONFIG.vocab_size, num_tasks=16, seed=0)
+    theta0 = phase_pretrain(suite, card)
+    repo = Repository(theta0)
     spec = FlatSpec.from_tree(repo.download())
     check(spec.size == N_ROBERTA and spec.dtype == "bfloat16",
           f"RoBERTa-base body is {spec.size} {spec.dtype}, expected {N_ROBERTA} bfloat16")
-    suite = SyntheticSuite(vocab_size=CONFIG.vocab_size, num_tasks=16, seed=0)
-    contribs = []
-    for tid in range(4):
-        d = suite.dataset(tid, 128, 32, seq)
-        contribs.append(Contributor(CONFIG, tid, suite.tasks[tid].num_classes,
-                                    d["x_train"], d["y_train"], steps=3, batch_size=batch,
-                                    seed=tid))
+    seq, batch = SEQ_MAIN, BATCH_MAIN
+    contribs = main_contributors(suite, range(4))
     t0 = time.perf_counter()
-    run_cold_fusion(CONFIG, repo, contribs, iterations=2, progress=True)
+    with timed(FT, "train_step") as ft_s:
+        run_cold_fusion(CONFIG, repo, contribs, iterations=2, progress=True)
     torch.cuda.synchronize()
-    print(f"[main] 2 iterations x 4 contributors x 3 steps (batch {batch}, seq {seq}): "
-          f"{time.perf_counter() - t0:.1f} s")
+    print(f"[main] 2 iterations x 4 contributors x 3 steps (batch {batch}, seq {seq}) from "
+          f"theta_0: {time.perf_counter() - t0:.1f} s")
+    print(f"[time] contributor finetune step on {card} (body + head, AdamW): {median_ms(ft_s)}")
 
     base = repo.download()
     for c in contribs[:3]:
         repo.upload(c.contribute(base))
     repo.upload(tree_map(lambda x: torch.full_like(x, float("nan")), base))
-    noise = torch.Generator(device="cuda").manual_seed(1)
+    noise = torch.Generator(device=repo.device).manual_seed(1)
     repo.upload(tree_map(lambda x: x + (100.0 * torch.randn(
         x.shape, generator=noise, device=x.device)).to(x.dtype), base))
     rec = repo.fuse_pending()
@@ -374,6 +599,22 @@ def phase_main_path():
     check(pspec.size == N_ROBERTA and row.dtype == torch.bfloat16, "published base shape/dtype")
     check(bool(torch.isfinite(row).all()), "published base is not finite")
     print(f"[main] published base: {pspec.size} bf16 elements, all finite")
+
+    # the paper's centralised baseline (Fig. 2) over the same 4 tasks
+    datasets = [(c.task_id, c.x, c.y, c.num_classes) for c in contribs]
+    with timed(FT, "train_step") as mt_s:
+        mt_body, heads = train_multitask(CONFIG, theta0, datasets, steps=MULTITASK_STEPS,
+                                         batch_size=batch)
+    check(all_finite(mt_body) and all(all_finite(h) for h in heads.values()),
+          "multitask body or heads not finite")
+    print(f"[main] train_multitask {MULTITASK_STEPS} steps over tasks {sorted(heads)}: body "
+          f"and {len(heads)} heads finite")
+    print(f"[time] multitask step on {card}: {median_ms(mt_s)}")
+    del mt_body, heads
+
+    fisher_bodies = phase_fisher(pub, suite, card)
+    ties_held = phase_ties(pub, contribs, card)
+    return fisher_bodies, ties_held
 
 def graph_windows(fn, iters: int):
     """Device time per call: ``iters`` calls captured in one CUDA graph and
@@ -1509,18 +1750,22 @@ def main() -> int:
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke-") as workdir:
         phase_small_agreement()
+        phase_small_per_leaf()
         phase_small_service(workdir)
         phase_small_lm()
 
         torch.cuda.reset_peak_memory_stats()
         reset_launches()
-        phase_main_path()
+        fisher_bodies, ties_held = phase_main_path(smi)
         loop = launches()
-        print(f"[main] launches on the ColD Fusion loop: {loop}")
+        print(f"[main] launches on the training path: {loop}")
         check(loop["cold_fuse"] >= 4,
               f"cold_fuse launched {loop['cold_fuse']} times on the loop, expected >= 4")
         print(f"[main] torch.cuda.max_memory_allocated: "
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        check_fisher_ones(fisher_bodies)
+        check_ties_on_cpu(*ties_held, smi)
+        del fisher_bodies, ties_held
         torch.cuda.empty_cache()
 
         torch.cuda.reset_peak_memory_stats()

@@ -95,7 +95,8 @@ def run_cold_fusion(
 ) -> ColdFusionRun:
     """Run the ColD Fusion loop (paper §4.4).  Each iteration samples
     ``contributors_per_iter`` contributors (all, if None), collects their
-    finetuned bodies and fuses them; evaluation follows §4.4."""
+    finetuned bodies (with each one's Fisher, for ``fusion_op="fisher"``)
+    and fuses them; evaluation follows §4.4."""
     rng = np.random.default_rng(seed)
     log = ColdFusionRun()
 
@@ -115,7 +116,8 @@ def run_cold_fusion(
             pool = [pool[i] for i in idx]
         base = repo.download()
         for c in pool:
-            repo.upload(c.contribute(base))
+            body = c.contribute(base)
+            repo.upload(body, fisher=getattr(c, "last_fisher", None))
         rec = repo.fuse_pending()
         if progress:
             print(f"[cold] iter {it + 1}/{iterations}: fused {rec.n_accepted}/"

@@ -1,17 +1,26 @@
 """The central Repository (paper Fig. 1): a versioned base-model store that
 accepts contributions, screens them (§9), fuses them (§3) and publishes the
-next base.  Port of the single-device flat engine of
-``repro.core.repository``.
+next base.  Port of the single-device engines of ``repro.core.repository``:
 
-``upload`` folds each contribution into a flat ``[N]`` staging row at once
-(the tree is released).  ``fuse_pending`` stacks the cohort to ``[K, N]`` and
-screens + fuses it in ONE streaming pass: ``cold_fuse`` emits the fused row
-and each contributor's ``sq_diff``; the §9 MAD screen runs on those norms,
-and rejected contributors get weight 0 in a second pass over the
-already-staged buffer (the kernel masks zero-weight rows by a select, so a
-NaN row adds nothing).  A cohort that holds delta-compressed queue
-submissions fuses through ``decode_accum`` instead (``MixedStage``): their
-payloads are decoded inside the fuse, never into one dense row each.
+* the **flat engine** (``average``, ``damped``, ``task_arithmetic``; the
+  default for them) — described below;
+* the **per-leaf engine** (``fisher``, ``ties``, or ``use_flat=False``) —
+  ``upload`` stages the tree as given (with its Fisher), and
+  ``fuse_pending`` screens the trees (``screen_contributions``) and fuses
+  the accepted ones with ``core.fusion.fuse``, synchronously.  It keeps
+  the flat engine's ``download()`` contract, history, snapshots and files,
+  but cannot spill and keeps no cohort sketch.
+
+On the flat engine ``upload`` folds each contribution into a flat ``[N]``
+staging row at once (the tree is released).  ``fuse_pending`` stacks the
+cohort to ``[K, N]`` and screens + fuses it in ONE streaming pass:
+``cold_fuse`` emits the fused row and each contributor's ``sq_diff``; the §9
+MAD screen runs on those norms, and rejected contributors get weight 0 in a
+second pass over the already-staged buffer (the kernel masks zero-weight
+rows by a select, so a NaN row adds nothing).  A cohort that holds
+delta-compressed queue submissions fuses through ``decode_accum`` instead
+(``MixedStage``): their payloads are decoded inside the fuse, never into one
+dense row each.
 
 Staging is double-buffered: uploads fill the front side while
 ``fuse_pending(wait=False)`` runs on the back.  A CUDA launch is already
@@ -34,8 +43,7 @@ it in place (``train.finetune`` clones what it trains).
 
 Not ported yet (each raises where the reference takes it): ``mesh=``,
 ``spill_workers>0``, ``rollback``, ``compact``, ``contribute_async``,
-publish listeners, ``RepositoryFamily``, sharded files, and the per-leaf
-engine for ``fisher``/``ties``.
+publish listeners, ``RepositoryFamily`` and sharded files.
 """
 from __future__ import annotations
 
@@ -50,15 +58,18 @@ import numpy as np
 import torch
 
 from repro_torch.checkpoint import io as ckpt
-from repro_torch.core.validation import ScreenReport, norms_from_sq, screen_norms
+from repro_torch.core import fusion
+from repro_torch.core.validation import (ScreenReport, norms_from_sq, screen_contributions,
+                                         screen_norms)
 from repro_torch.kernels import ops
 from repro_torch.utils import faults
 from repro_torch.utils.device import resolve_device
 from repro_torch.utils.flat import (SKETCH_BUCKETS, BufferPair, CohortSketch, FlatSpec,
                                     StagedBuffer, StagingSide, delta_decode, delta_entries,
                                     sketch_apply_delta)
+from repro_torch.utils.pytree import tree_device
 
-# operators the flat engine covers
+# operators the flat engine covers; the others (fisher, ties) fuse per leaf
 FLAT_OPS = ("average", "damped", "task_arithmetic")
 
 MANIFEST = "staging_manifest.json"
@@ -140,20 +151,26 @@ class Repository:
         mad_threshold: float = 5.0,
         root: Optional[str] = None,
         keep_history: bool = False,
+        use_flat: Optional[bool] = None,
         spill: bool = False,
         spill_workers: int = 0,
         mesh: Optional[Any] = None,
         mesh_axes: Optional[Any] = None,
     ):
-        if fusion_op not in FLAT_OPS:
-            raise ValueError(f"fusion_op={fusion_op!r} is not ported; "
-                             f"the port fuses {FLAT_OPS}")
+        if use_flat is None:
+            use_flat = fusion_op in FLAT_OPS
+        elif use_flat and fusion_op not in FLAT_OPS:
+            raise ValueError(f"flat engine does not cover fusion_op={fusion_op!r}")
         if mesh is not None or mesh_axes is not None:
             raise _not_ported("Repository(mesh=) (the multi-device slice)")
         if spill_workers:
             raise _not_ported("Repository(spill_workers>0)")
         if spill and not root:
             raise ValueError("spill=True requires an on-disk root")
+        if spill and not use_flat:
+            raise ValueError("spill=True requires the flat engine "
+                             f"(fusion_op={fusion_op!r}, use_flat={use_flat})")
+        self.use_flat = use_flat
         self.fusion_op = fusion_op
         self.fusion_kwargs = dict(fusion_kwargs or {})
         self.screen = screen
@@ -242,22 +259,31 @@ class Repository:
         self._finalize_inflight()
         return self._base
 
-    def upload(self, params, weight: Optional[float] = None) -> int:
+    def upload(self, params, fisher=None, weight: Optional[float] = None) -> int:
         """Contributor pushes a finetuned body (Fig. 1, step 3), optionally
-        with a contribution weight.  Returns the ticket id.  With
-        ``spill=True`` the row goes to the root (atomic write + manifest
-        append) and only its path stays in memory."""
-        row = self._spec.flatten(params)
-        if row.device != self.device:
-            raise ValueError(f"upload on {row.device}; the repository lives on {self.device}")
+        with its diagonal Fisher (for ``fusion_op="fisher"``) and a
+        contribution weight.  Returns the ticket id.  The flat engine folds
+        the tree into a staging row at once; with ``spill=True`` the row
+        goes to the root (atomic write + manifest append) and only its path
+        stays in memory.  The per-leaf engine stages the tree and its Fisher
+        as given (not copied: callers must not update them in place)."""
+        if tree_device(params) != self.device:
+            raise ValueError(f"upload on {tree_device(params)}; the repository lives on "
+                             f"{self.device}")
         side = self._buffers.front
         idx = len(side.rows)
-        if self.spill:
-            side.rows.append(self._spill_row(row, idx, weight))
+        if not self.use_flat:
+            side.rows.append(params)
+            if self.root:
+                ckpt.save(self._contrib_path(idx), params)
+        elif self.spill:
+            side.rows.append(self._spill_row(self._spec.flatten(params), idx, weight))
         else:
+            row = self._spec.flatten(params)
             if self.root:
                 ckpt.save_flat(self._contrib_path(idx), row, self._spec)
             side.rows.append(row)
+        side.fishers.append(fisher)
         side.weights.append(weight)
         return idx
 
@@ -305,6 +331,7 @@ class Repository:
             if bi is not None:
                 entry["base_iteration"] = int(bi)
         side.rows.append(path)
+        side.fishers.append(None)
         side.weights.append(weight)
         side.manifest.append(entry)
         self._write_manifest()
@@ -320,7 +347,11 @@ class Repository:
     def enable_cohort_sketch(self, *, window: int = 32,
                              n_buckets: int = SKETCH_BUCKETS) -> CohortSketch:
         """Create (or adopt the recovered) ``CohortSketch`` the novelty
-        screen queries, sketch the current base and persist the state."""
+        screen queries, sketch the current base and persist the state.
+        Requires the flat engine."""
+        if not self.use_flat:
+            raise ValueError("cohort sketch requires the flat engine — the row sketch is "
+                             "a statistic over flat [N] rows")
         sk = self.cohort_sketch
         if sk is not None and (sk.size != self._spec.size or sk.n_buckets != n_buckets):
             warnings.warn(
@@ -351,8 +382,9 @@ class Repository:
     def _refresh_base_sketch(self) -> None:
         """Recompute the base's sketch (the screen's distance normalizer)
         and persist it; runs at every publish.  Advisory state: a lost write
-        costs one stale-scale decision, never a double fuse."""
-        if self.cohort_sketch is None:
+        costs one stale-scale decision, never a double fuse.  No-op on the
+        per-leaf engine (a recovered sketch stays as it was)."""
+        if self.cohort_sketch is None or not self.use_flat:
             return
         self.cohort_sketch.set_base(self._sketch_of_staged(self._base_flat),
                                     iteration=self.iteration)
@@ -416,7 +448,8 @@ class Repository:
         step 4).  Finalizes any in-flight fuse, swaps the front staging
         buffer to the back and launches the fuse.  ``wait=False`` returns a
         ``PendingFusion`` at once; ``flush()`` (or the next
-        ``fuse_pending``/``download``) screens and publishes it."""
+        ``fuse_pending``/``download``) screens and publishes it.  On the
+        per-leaf engine ``wait`` is ignored (the fuse is synchronous)."""
         if buffer is not None:
             raise _not_ported("fuse_pending(buffer=)")
         self._finalize_inflight()
@@ -424,6 +457,16 @@ class Repository:
             raise RuntimeError("no contributions to fuse")
         t0 = time.time()
         back = self._buffers.swap()
+        if not self.use_flat:
+            self._mark_back_fusing()
+            try:
+                rec = self._fuse_pending_pytree(t0, back)
+            except Exception:
+                self._restore_back()
+                raise
+            self._buffers.retire_back()
+            self._after_publish(rec)
+            return rec
         try:
             pf = self._dispatch_flat(back, t0)
         except Exception:
@@ -603,11 +646,48 @@ class Repository:
             diff_norms=report.diff_norms if report else [],
             wall_time=time.time() - pf.t0,
         )
+        self._publish(fused)
+        pf.record = rec
+        return rec
+
+    def _publish(self, fused: torch.Tensor) -> None:
+        """Install a fused ``[N]`` row as the base (the old one goes to the
+        snapshots with ``keep_history``)."""
         if self.keep_history:
             self._snapshots.append(self._base)
         self._base_flat = fused
         self._base = self._spec.unflatten(fused)
-        pf.record = rec
+
+    def _fuse_pending_pytree(self, t0: float, back: StagingSide) -> FusionRecord:
+        """The per-leaf engine: screen the staged trees, keep the accepted
+        models, Fishers and weights, fuse them with ``core.fusion``."""
+        models, fishers, weights = back.rows, back.fishers, back.weights
+        report: Optional[ScreenReport] = None
+        if self.screen:
+            report = screen_contributions(self._base, models, mad_threshold=self.mad_threshold)
+            models = [models[i] for i in report.accepted]
+            fishers = [fishers[i] for i in report.accepted]
+            weights = [weights[i] for i in report.accepted]
+            if not models:
+                raise RuntimeError(f"all contributions rejected: {report.reasons}")
+        kw = dict(self.fusion_kwargs)
+        if self.fusion_op == "fisher":
+            if any(f is None for f in fishers):
+                raise RuntimeError("fusion_op='fisher' requires upload(..., fisher=...)")
+            kw["fishers"] = fishers
+        elif (self.fusion_op in ("average", "damped") and "weights" not in kw
+              and weights and all(w is not None for w in weights)):
+            kw["weights"] = weights
+        new_base = fusion.fuse(self.fusion_op, self._base, models, **kw)
+        rec = FusionRecord(
+            iteration=self.iteration,
+            n_contributions=len(back.rows),
+            n_accepted=len(models),
+            op=self.fusion_op,
+            diff_norms=report.diff_norms if report else [],
+            wall_time=time.time() - t0,
+        )
+        self._publish(self._spec.flatten(new_base))
         return rec
 
     def _mark_back_fusing(self) -> None:
@@ -632,6 +712,7 @@ class Repository:
             e.pop("fusing", None)
         front = self._buffers.front
         back.rows.extend(front.rows)
+        back.fishers.extend(front.fishers)
         back.weights.extend(front.weights)
         back.manifest.extend(front.manifest)
         self._buffers.front = back
@@ -714,7 +795,8 @@ class Repository:
         marked in flight whose ``staged_at`` is behind the repository were
         consumed by a publish that landed (skipped); missing or unreadable
         rows are skipped with a warning; a compressed row of another vintage
-        is skipped; a FlatSpec mismatch or a sharded row raises."""
+        is skipped; a FlatSpec mismatch or a sharded row raises.  The
+        per-leaf engine stages each recovered row as a tree."""
         spec = self._spec
         side = self._buffers.front
         recovered = 0
@@ -743,10 +825,16 @@ class Repository:
             if meta.get("sharded"):
                 raise ValueError(f"staged row {e['file']} is sharded: sharded layouts are "
                                  "not ported yet (multi-device slice)")
-            side.rows.append(path if self.spill else self._load_staged_row(path))
+            if self.spill:
+                side.rows.append(path)
+            elif self.use_flat:
+                side.rows.append(self._load_staged_row(path))
+            else:
+                side.rows.append(spec.unflatten(self._load_staged_row(path)))
             fresh = {k: v for k, v in e.items() if k != "fusing"}
             fresh["staged_at"] = self._staging_iteration()
             side.manifest.append(fresh)
+            side.fishers.append(None)
             side.weights.append(e.get("weight"))
             recovered += 1
         if self.root:
@@ -783,7 +871,11 @@ class Repository:
         repo = cls(base, root=None, **kw)
         repo.iteration = it
         repo.root = root
-        repo.spill = spill
+        if spill and not repo.use_flat:
+            warnings.warn("spill=True requested but the repository reopened on the per-leaf "
+                          "engine — staged rows will NOT be spilled or crash-recoverable "
+                          "until reopened on the flat engine")
+        repo.spill = spill and repo.use_flat
         repo._persisted_iteration = it
         if "families" in meta:
             repo.extra_meta["families"] = meta["families"]

@@ -17,9 +17,14 @@ from typing import Callable
 import numpy as np
 import torch
 
-from repro_torch.utils.pytree import tree_leaves, tree_map
+from repro_torch.utils.pytree import (tree_from_paths, tree_leaves, tree_leaves_with_path,
+                                      tree_map)
 
 Schedule = Callable[[int], float]
+
+
+def constant_lr(lr: float) -> Schedule:
+    return lambda step: lr
 
 
 def linear_decay_lr(lr: float, decay_per_step: float, min_lr: float = 0.0) -> Schedule:
@@ -47,6 +52,20 @@ def clip_by_global_norm(tree, max_norm: float):
     g = global_norm(tree)
     scale = torch.clamp(max_norm / (g + 1e-9), max=1.0)
     return tree_map(lambda x: x * scale.to(x.dtype), tree), g
+
+
+@torch.no_grad()
+def clipped_step(opt, params, opt_state, grads, max_norm: float = 1.0):
+    """The reference's training step after the gradients: clip ``grads``
+    (one per leaf of ``params``, in tree order) by global norm, take
+    ``opt``'s update and add it to ``params`` in place.  Returns the new
+    optimizer state."""
+    paths = [path for path, _ in tree_leaves_with_path(params)]
+    grad_tree, _ = clip_by_global_norm(tree_from_paths(zip(paths, grads)), max_norm)
+    updates, opt_state = opt.update(grad_tree, opt_state, params)
+    for p, u in zip(tree_leaves(params), tree_leaves(updates)):
+        p.add_(u)
+    return opt_state
 
 
 @dataclass(frozen=True)

@@ -509,13 +509,15 @@ def sketch_apply_delta(base_sketch, indices, dvals, base_at,
 
 
 class StagingSide:
-    """One side of the double buffer: staged rows (tensors or spill-file
-    paths), their weights and, with spill, their manifest entries."""
+    """One side of the double buffer: staged rows (tensors, trees on the
+    per-leaf engine, or spill-file paths), their Fishers and weights and,
+    with spill, their manifest entries."""
 
-    __slots__ = ("rows", "weights", "manifest")
+    __slots__ = ("rows", "fishers", "weights", "manifest")
 
     def __init__(self):
         self.rows: List[Any] = []
+        self.fishers: List[Any] = []
         self.weights: List[Any] = []
         self.manifest: List[Dict[str, Any]] = []
 

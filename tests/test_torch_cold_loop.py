@@ -122,8 +122,9 @@ def test_repository_upload_weights_and_history():
 def test_repository_all_rejected_keeps_the_cohort_staged():
     jcfg, _ = _cfgs()
     jbody = JE.init_encoder_body(jcfg, jax.random.PRNGKey(0))
-    with pytest.raises(ValueError, match="not ported"):
-        TRepository(_t(jbody), fusion_op="fisher")
+    for op in ("fisher", "ties", "average"):  # the engine each operator takes
+        assert TRepository(_t(jbody), fusion_op=op).use_flat is JRepository(
+            jbody, fusion_op=op).use_flat is (op == "average")
     bad = jax.tree.map(lambda x: np.full(x.shape, np.inf, np.float32), jbody)
     good = _cohort(jbody, "float32", np.random.default_rng(4))[0]
     jrepo, trepo = JRepository(jbody), TRepository(_t(jbody))
@@ -138,6 +139,122 @@ def test_repository_all_rejected_keeps_the_cohort_staged():
     jrec, trec = jrepo.fuse_pending(), trepo.fuse_pending()
     assert (trec.n_accepted, trec.n_contributions) == (jrec.n_accepted, jrec.n_contributions) == (1, 2)
     _assert_base_close(trepo.download(), jrepo.download(), atol=1e-5)
+
+
+def _fishers(uploads, rng):
+    """A positive Fisher per upload (numpy f32 trees both packages read)."""
+    return [jax.tree.map(lambda x: rng.gamma(0.5, size=x.shape).astype(np.float32), u)
+            for u in uploads]
+
+
+PER_LEAF = [("average", {}, {"use_flat": False}), ("fisher", {}, {}),
+            ("ties", {"density": 0.2}, {}), ("ties", {"density": 1.0, "lam": 0.5}, {})]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("op,kw,engine", PER_LEAF)
+def test_per_leaf_repository_same_cohort_same_base(dtype, op, kw, engine):
+    """The per-leaf engine screens the trees (NaN and runaway rejected) and
+    fuses the accepted ones with each package's ``fusion.fuse``."""
+    jcfg, _ = _cfgs(dtype)
+    jbody = JE.init_encoder_body(jcfg, jax.random.PRNGKey(0))
+    uploads = _cohort(jbody, dtype, np.random.default_rng(1))
+    fishers = _fishers(uploads, np.random.default_rng(2))
+    jrepo = JRepository(jbody, fusion_op=op, fusion_kwargs=kw, keep_history=True, **engine)
+    trepo = TRepository(_t(jbody), fusion_op=op, fusion_kwargs=kw, keep_history=True, **engine)
+    assert trepo.use_flat is jrepo.use_flat is False
+    for u, f in zip(uploads, fishers):
+        jrepo.upload(jax.tree.map(jnp.asarray, u), jax.tree.map(jnp.asarray, f))
+        trepo.upload(convert.from_jax_params(u, "cpu"), convert.from_jax_params(f, "cpu"))
+    jrec, trec = jrepo.fuse_pending(), trepo.fuse_pending()
+    assert (trec.n_accepted, trec.n_contributions, trec.op) == (
+        jrec.n_accepted, jrec.n_contributions, jrec.op) == (3, 5, op)
+    np.testing.assert_allclose(trec.diff_norms[:3], jrec.diff_norms[:3], rtol=1e-4)
+    _assert_base_close(trepo.download(), jrepo.download(), atol=1e-5, bf16=dtype == "bfloat16")
+    _assert_base_close(trepo.snapshot(0), jbody, atol=0)
+    assert trepo.iteration == jrepo.iteration == 1 and trepo.n_staged == 0
+
+
+def test_upload_takes_the_reference_positional_order():
+    """``upload(params, fisher, weight)`` in both packages: a Fisher second,
+    a weight third, on both engines."""
+    jcfg, _ = _cfgs()
+    jbody = JE.init_encoder_body(jcfg, jax.random.PRNGKey(2))
+    uploads = _cohort(jbody, "float32", np.random.default_rng(3))[:3]
+    fishers = _fishers(uploads, np.random.default_rng(4))
+    for op in ("fisher", "average"):
+        jrepo, trepo = JRepository(jbody, fusion_op=op), TRepository(_t(jbody), fusion_op=op)
+        for u, f, w in zip(uploads, fishers, (1.0, 2.0, 5.0)):
+            jrepo.upload(jax.tree.map(jnp.asarray, u), jax.tree.map(jnp.asarray, f), w)
+            trepo.upload(convert.from_jax_params(u, "cpu"), convert.from_jax_params(f, "cpu"), w)
+        jrepo.fuse_pending()
+        trepo.fuse_pending()
+        _assert_base_close(trepo.download(), jrepo.download(), atol=1e-5)
+    # the weights were taken as weights: not the plain average
+    plain = TRepository(_t(jbody))
+    for u in uploads:
+        plain.upload(convert.from_jax_params(u, "cpu"))
+    plain.fuse_pending()
+    assert not torch.equal(plain._base_flat, trepo._base_flat)
+
+
+def test_per_leaf_engine_refusals_match_reference(tmp_path):
+    jcfg, _ = _cfgs()
+    jbody = JE.init_encoder_body(jcfg, jax.random.PRNGKey(0))
+    for Repo, body in ((JRepository, jbody), (TRepository, _t(jbody))):
+        with pytest.raises(ValueError, match="flat engine does not cover fusion_op='ties'"):
+            Repo(body, fusion_op="ties", use_flat=True)
+        with pytest.raises(ValueError, match="spill=True requires the flat engine"):
+            Repo(body, fusion_op="ties", root=str(tmp_path / Repo.__module__), spill=True)
+    # a missing Fisher raises at the fuse, and the cohort stays staged
+    good = _cohort(jbody, "float32", np.random.default_rng(4))[:2]
+    fisher = _fishers(good, np.random.default_rng(5))[0]
+    jrepo = JRepository(jbody, fusion_op="fisher")
+    trepo = TRepository(_t(jbody), fusion_op="fisher")
+    jrepo.upload(jax.tree.map(jnp.asarray, good[0]), jax.tree.map(jnp.asarray, fisher))
+    jrepo.upload(jax.tree.map(jnp.asarray, good[1]))
+    trepo.upload(convert.from_jax_params(good[0], "cpu"), convert.from_jax_params(fisher, "cpu"))
+    trepo.upload(convert.from_jax_params(good[1], "cpu"))
+    for repo in (jrepo, trepo):
+        with pytest.raises(RuntimeError, match=r"requires upload\(\.\.\., fisher=\.\.\.\)"):
+            repo.fuse_pending()
+        assert repo.iteration == 0 and repo.n_staged == 2
+    with pytest.raises(ValueError, match="cohort sketch requires the flat engine"):
+        trepo.enable_cohort_sketch()
+
+
+def test_ties_root_opens_across_packages(tmp_path):
+    """A ``ties`` root written by either package opens in the other at the
+    same base, op, kwargs and history, and fuses on."""
+    jcfg, _ = _cfgs()
+    jbody = JE.init_encoder_body(jcfg, jax.random.PRNGKey(0))
+    cohorts = [_cohort(jbody, "float32", np.random.default_rng(s))[:3] for s in (6, 7)]
+    kw = dict(fusion_op="ties", fusion_kwargs={"density": 0.3})
+    jroot, troot = str(tmp_path / "jax"), str(tmp_path / "torch")
+    jrepo, trepo = JRepository(jbody, root=jroot, **kw), TRepository(_t(jbody), root=troot, **kw)
+    for u in cohorts[0]:
+        jrepo.upload(jax.tree.map(jnp.asarray, u))
+        trepo.upload(convert.from_jax_params(u, "cpu"))
+    jrepo.fuse_pending()
+    trepo.fuse_pending()
+    t_of_j = TRepository.open(jroot, device="cpu")
+    j_of_t = JRepository.open(troot)
+    for opened, writer in ((t_of_j, jrepo), (j_of_t, trepo)):
+        assert (opened.fusion_op, opened.fusion_kwargs, opened.iteration, opened.use_flat) == (
+            "ties", {"density": 0.3}, 1, False)
+        assert [r.n_accepted for r in opened.history] == [r.n_accepted for r in writer.history]
+    _assert_base_close(t_of_j.download(), jrepo.download(), atol=0)
+    _assert_base_close(trepo.download(), j_of_t.download(), atol=0)
+    for u in cohorts[1]:
+        t_of_j.upload(convert.from_jax_params(u, "cpu"))
+        j_of_t.upload(jax.tree.map(jnp.asarray, u))
+    t_of_j.fuse_pending()
+    j_of_t.fuse_pending()
+    # and back again: each package reopens what the other just published
+    _assert_base_close(TRepository.open(troot, device="cpu").download(), j_of_t.download(),
+                       atol=0)
+    _assert_base_close(t_of_j.download(), JRepository.open(jroot).download(), atol=0)
+    _assert_base_close(t_of_j.download(), j_of_t.download(), atol=1e-5)
 
 
 def _suites():
@@ -229,7 +346,8 @@ def _imported_modules(path):
 
 
 def test_port_imports_neither_jax_nor_repro():
-    files = [os.path.join(ROOT, "chip_smoke.py")]
+    files = [os.path.join(ROOT, "chip_smoke.py"),
+             os.path.join(ROOT, "examples", "cold_fusion_multitask_torch.py")]
     for dirpath, _, names in os.walk(os.path.join(ROOT, "src", "repro_torch")):
         files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
     assert len(files) > 20
