@@ -43,10 +43,11 @@ Phases (any failed check raises, so the script exits non-zero):
    ``torch.zeros`` of its f32 accumulator (the write floor);
 5. small-input checks: the same screen + fuse (the flat engine, and the
    per-leaf engine's ``fisher`` and ``ties`` repositories over a TINY f32
-   body), the same small queue drained by the contributor service, and
-   reduced f32 gemma3 and rwkv6 models serving the same prompts, on the
-   card and on the CPU (whose paths the CPU tests hold against the JAX
-   package) must agree;
+   body), the same small queue drained by the contributor service, phase
+   8's three gated rounds and async merge on a TINY f32 body, and reduced
+   f32 gemma3 and rwkv6 models serving the same prompts, on the card and
+   on the CPU (whose paths the CPU tests hold against the JAX package) must
+   agree: decisions, counters, listener calls, files and rows;
 6. the ColD Fusion training path (slices 1 and 4), through the entry points
    a user calls, at RoBERTa-base's full width: ``pretrain_mlm`` (20 steps of
    batch 32 x 128 tokens at lr 5e-4 from a body drawn from seed 0, after
@@ -73,7 +74,25 @@ Phases (any failed check raises, so the script exits non-zero):
    rejected; round 2 an all-dense cohort; round 3 three honest compressed
    submissions and a runaway one that must fuse 3/4.  Round 1's published
    base is held against ``cold_fuse_plain`` over the host-decoded rows;
-8. the serving path (slice 3), for gemma3-1b (26 layers, d 1152, vocab
+8. the Repository lifecycle behind the regression gate, at the same width
+   in its own temporary root: ``Repository(spill=True, spill_workers=2)``
+   behind ``ColdService(gate=RegressionGate(ProbeSuite(N)))`` with the
+   novelty screen and compaction to 2 bases, and a publish listener.
+   Round 1: 4 honest dense submissions fuse 4/4 and pass the gate.  Round
+   2: 4 submissions of the base plus N(0, s^2) noise, s = 10, 12.5, 15 and
+   17.5 (``HARM_SCALES``), admitted by the §9 and novelty screens, trip the
+   gate: 4 quarantined, one rollback to a row
+   equal to round 1's bit for bit.  Round 3: 2 dense and 2 compressed
+   submissions on the rolled-back base fuse 4/4 and pass; compaction
+   leaves base_iter0001 and base_iter0002.  Then ``contribute_async`` (alpha
+   1/3) must equal ``cold_fuse_plain`` within 1 bf16 ulp, and a runaway
+   with a NaN is rejected with state unchanged.  The listener must see
+   iterations 1, 2, 1, 2, 3 and the launches must be exact: ``cold_fuse`` 4,
+   ``decode_accum`` 1, ``row_sketch`` 6.  ``ProbeSuite.score`` (device row
+   and host copy), ``MultitaskEvals.score`` on 4 tasks x 32 x 128,
+   ``rollback`` (load, persist, sketch), ``compact`` and each round's
+   finetune, submit and serve are timed;
+9. the serving path (slice 3), for gemma3-1b (26 layers, d 1152, vocab
    262,144) and then rwkv6-7b (32 layers, d 4096), both at full width in
    bf16 with random weights from seed 0: ``launch.serve.main`` serves 4
    prompts (1024 tokens for gemma3, 256 for rwkv6) x 32 new tokens, then
@@ -88,10 +107,10 @@ Phases (any failed check raises, so the script exits non-zero):
    path's tokens once more and once with the kernels' plain versions, and
    the logits and greedy tokens are compared.
 
-Before each of phases 6 and 7, and before each model of phase 8, every
+Before each of phases 6, 7 and 8, and before each model of phase 9, every
 kernel's launch counter is set to 0; it is read just after.  The last lines
 are the kernels' JSON record (launches from phase 7 for the three fuse
-kernels, from phase 8 for the other two), ``nvidia-smi``'s line and
+kernels, from phase 9 for the other two), ``nvidia-smi``'s line and
 ``{"ok": true, "device": {...}}``.  Without a card (or without the rest of
 the repository beside it) the script exits non-zero and prints no result.
 """
@@ -106,6 +125,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -140,6 +160,8 @@ from repro_torch.train import pretrain_mlm, train_multitask  # noqa: E402
 from repro_torch.train.step import make_serve_step  # noqa: E402
 from repro_torch.serve.cold_service import (AdmissionPolicy, ColdService,  # noqa: E402
                                             ContributorClient)
+from repro_torch.serve.probes import MultitaskEvals, ProbeSuite, RegressionGate  # noqa: E402
+from repro_torch.core.validation import screen_norms  # noqa: E402
 from repro_torch.utils.flat import (LANE, CohortSketch, FlatSpec, delta_decode,  # noqa: E402
                                     delta_encode)
 from repro_torch.utils.pytree import tree_leaves, tree_leaves_with_path, tree_map  # noqa: E402
@@ -176,6 +198,15 @@ C_MAX_COHORT = 64                  # AdmissionPolicy's default max_cohort
 # 0.03; this script's run on an H100 printed 0.056 for the nearest distinct
 # pair), so the screen is set at the documented safe floor, not at 0.1
 NOVELTY = 0.01
+# the lifecycle phase's harmful cohort: row i is the base plus N(0, s_i^2)
+# noise per element, s_i = HARM_NOISE * (1 + i / 4), from the reference's
+# gate scenario's N(0, 10^2) (tests/test_cold_service.py).  At one scale the
+# four rows' sketches agree to 6e-4-8e-4 at RoBERTa-base width (the sketch's
+# lower bounds see isotropic noise only through 32 bucket sums), so the
+# novelty screen took three for near-duplicates of the first on an H100;
+# distinct scales keep the norms within the MAD screen's cutoff
+HARM_NOISE = 10.0
+HARM_SCALES = tuple(HARM_NOISE * (1 + i / 4) for i in range(4))
 GEMMA = get_config("gemma3-1b")
 RWKV = get_config("rwkv6-7b")
 GEMMA_WINDOW = GEMMA.pattern[0].window  # the local layers' 512
@@ -386,11 +417,15 @@ def phase_small_per_leaf():
 
 @contextlib.contextmanager
 def timed(module, name):
-    """Time every call of ``module.name`` on the host clock, synchronised
-    on both sides, into the yielded list (seconds); restored on exit."""
-    fn, seconds = getattr(module, name), []
+    """Time every call of ``module.name`` made on this thread on the host
+    clock, synchronised on both sides, into the yielded list (seconds);
+    restored on exit.  Calls from other threads (the spill executor) run
+    untimed."""
+    fn, seconds, me = getattr(module, name), [], threading.current_thread()
 
     def wrapper(*args, **kwargs):
+        if threading.current_thread() is not me:
+            return fn(*args, **kwargs)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = fn(*args, **kwargs)
@@ -878,16 +913,19 @@ def copy_into_queue(src: str, name: str) -> str:
     return dst
 
 
-def run_until(svc, target: int, timeout: float = 600.0):
-    """Poll the service until it has published ``target`` and is idle."""
+def serve_until(svc, done, timeout: float = 300.0):
+    """Poll the service until ``done(status)`` holds and it is idle; fail at
+    once when a cohort is stuck below ``min_cohort`` with the queue empty."""
     t0 = time.perf_counter()
     while True:
         st = svc.run_once()
         check(st["last_error"] is None, f"service error: {st['last_error']}")
-        if st["iteration"] >= target and not st["inflight"] and st["queue_depth"] == 0:
+        if done(st) and not st["inflight"] and st["staged"] == 0 and st["queue_depth"] == 0:
             return st
-        check(time.perf_counter() - t0 < timeout,
-              f"service did not publish iteration {target} in {timeout} s: {st}")
+        check(not (st["queue_depth"] == 0 and not st["inflight"]
+                   and 0 < st["staged"] < svc.policy.min_cohort),
+              f"a cohort of {st['staged']} is stuck below min_cohort: {st}")
+        check(time.perf_counter() - t0 < timeout, f"service did not settle in {timeout} s: {st}")
 
 
 def nearest_pair(repo, iteration: int, n: int) -> float:
@@ -911,7 +949,7 @@ def drain_small(device, root, rows, spec, b0):
             row=r, spec=spec, base_iteration=0, compress=i >= 2, base=b0, sketch=i != 1)
         if i == 2:
             copy_into_queue(os.path.join(root, "queue", sid + ".npz"), "replay-000000.npz")
-    st = run_until(svc, 1, timeout=120)
+    st = serve_until(svc, lambda st: st["iteration"] >= 1, timeout=120)
     rec = repo.history[-1]
     return (rec.n_accepted, rec.n_contributions, st["recent_rejects"],
             repo.flat_base_host().float())
@@ -986,7 +1024,7 @@ def phase_service_path(workdir):
         split["submit"].append(sum(submit_s["dense"]) + sum(submit_s["compressed"])
                                - sum(split["submit"]))
         t_sv = time.perf_counter()
-        st = run_until(svc, target)
+        st = serve_until(svc, lambda st: st["iteration"] >= target)
         split["serve"].append(time.perf_counter() - t_sv)
         return st
 
@@ -1077,7 +1115,367 @@ def phase_service_path(workdir):
     print(f"[service] per round, finetune {[round(x, 2) for x in split['finetune']]} s, "
           f"submit {[round(x, 2) for x in split['submit']]} s, serve (admit, stage, fuse, "
           f"publish) {[round(x, 2) for x in split['serve']]} s")
-    return err
+    return split
+
+
+# ---------------------------------------------------------------------------
+# the Repository lifecycle behind the regression gate
+# ---------------------------------------------------------------------------
+
+
+def gated_service(repo, size):
+    """The lifecycle's daemon: min cohort 4, the novelty screen, compaction
+    to two bases and the gate with the reference's probe defaults."""
+    gate = RegressionGate(ProbeSuite(size, n_tasks=4, n_examples=32, seed=0))
+    return ColdService(repo, gate=gate, policy=AdmissionPolicy(
+        min_cohort=4, novelty_threshold=NOVELTY, compact_keep_bases=2))
+
+
+def lifecycle_files(root):
+    """(base files, archived rows no manifest entry names, queue npz,
+    quarantine npz) of a root."""
+    named = {e["file"] for e in ckpt.load_json(
+        os.path.join(root, "staging_manifest.json"))["entries"]}
+    names = os.listdir(root)
+    npz = lambda d: sorted(f for f in os.listdir(os.path.join(root, d)) if f.endswith(".npz"))
+    return (sorted(f for f in names if re.match(r"^base_iter\d{4,}\.npz$", f)),
+            sorted(f for f in names if re.match(r"^iter\d{4,}_contrib\d{3,}\.npz$", f)
+                   and f not in named),
+            npz("queue"), npz("quarantine") if os.path.isdir(os.path.join(root, "quarantine"))
+            else [])
+
+
+def rejection(fn):
+    """The text of the RuntimeError ``fn()`` raises, or None if it returns."""
+    try:
+        fn()
+    except RuntimeError as err:
+        return str(err)
+    return None
+
+
+def small_lifecycle(device, root, body, noise):
+    """The lifecycle phase's three gated rounds and async merge on a TINY
+    f32 body on ``device``.  Each submission is the submitting root's
+    current base plus a noise row from ``noise``, so the two devices see
+    the same contributions relative to their own bases."""
+    spec = FlatSpec.from_tree(body)
+    repo = Repository(tree_map(lambda x: x.to(device), body), root=root, spill=True,
+                      spill_workers=2)
+    seen = []
+    repo.add_publish_listener(lambda it, tree, flat: seen.append((it, flat is not None)))
+    svc = gated_service(repo, spec.size)
+
+    def submit(i, name, scale, it, compress=False):
+        b = repo.flat_base_host()
+        ContributorClient(root, name).submit(row=b + scale * noise[i], spec=spec,
+                                             base_iteration=it, compress=compress, base=b)
+
+    counters = lambda st: tuple(st[k] for k in (
+        "iteration", "fused_queue_submissions", "rejected_total", "novelty_rejected_total",
+        "quarantined_total", "rollbacks_total")) + (st["last_gate"]["ok"],)
+    out = {"status": [], "rows": []}
+    for i in range(4):
+        submit(i, f"h{i}", 0.01, 0)
+    out["status"].append(counters(serve_until(svc, lambda st: st["iteration"] == 1, 120)))
+    out["rows"].append(repo.flat_base_host())
+    for i in range(4):
+        submit(4 + i, f"bad{i}", HARM_SCALES[i], 1)
+    out["status"].append(counters(serve_until(svc, lambda st: st["rollbacks_total"] >= 1, 120)))
+    out["rows"].append(repo.flat_base_host())
+    for i in range(4):
+        submit(8 + i, f"g{i}", 0.01, 1, compress=i >= 2)
+    out["status"].append(counters(serve_until(svc, lambda st: st["iteration"] == 2, 120)))
+    out["rows"].append(repo.flat_base_host())
+    svc.close()
+    rec = repo.contribute_async(spec.unflatten((out["rows"][-1] + 0.01 * noise[12]).to(device)))
+    out["rows"].append(repo.flat_base_host())
+    bad = out["rows"][-1] + 0.01 * noise[13]
+    bad[0] = float("nan")
+    reason = rejection(lambda: repo.contribute_async(spec.unflatten(bad.to(device))))
+    out["nan_rejected"] = (reason is not None and reason.startswith("async contribution rejected")
+                           and torch.equal(repo.flat_base_host(), out["rows"][-1]))
+    out.update(seen=seen, op=rec.op, files=lifecycle_files(root),
+               history=[(r.n_accepted, r.n_contributions) for r in repo.history])
+    return out
+
+
+def phase_small_lifecycle(workdir):
+    """The lifecycle's rounds on a TINY f32 body, on the CPU and on the card:
+    the same decisions, counters, listener calls, files and rows."""
+    gen = torch.Generator().manual_seed(5)
+    body = init_encoder_body(TINY, gen, device="cpu")
+    n = FlatSpec.from_tree(body).size
+    noise = [torch.randn(n, generator=gen) for _ in range(14)]
+    cpu, card = (small_lifecycle(dev, os.path.join(workdir, f"small-life-{dev}"), body, noise)
+                 for dev in ("cpu", "cuda"))
+    for key in ("status", "seen", "op", "files", "history", "nan_rejected"):
+        check(cpu[key] == card[key], f"small lifecycle {key}: CPU {cpu[key]}, card {card[key]}")
+    want_status = [(1, 4, 0, 0, 0, 0, True), (1, 4, 0, 0, 4, 1, False),
+                   (2, 8, 0, 0, 4, 1, True)]
+    check(card["status"] == want_status, f"small lifecycle counters {card['status']}, "
+          f"expected {want_status}")
+    check(card["seen"] == [(1, True), (2, True), (1, True), (2, True), (3, True)],
+          f"small lifecycle listener calls {card['seen']}")
+    check(card["files"] == (["base_iter0001.npz", "base_iter0002.npz", "base_iter0003.npz"], [],
+                            [], [f"bad{i}-000000.npz" for i in range(4)]),
+          f"small lifecycle files {card['files']}")
+    check(card["nan_rejected"], "small lifecycle: a NaN async contribution must be rejected "
+          "with the row unchanged")
+    for dev in (cpu, card):
+        check(torch.equal(dev["rows"][1], dev["rows"][0]), "small lifecycle: the rolled-back row "
+              "differs from round 1's")
+    d = max((a - b).abs().max().item() for a, b in zip(cpu["rows"], card["rows"]))
+    check(d <= 1e-5, f"small lifecycle: card and CPU rows differ by {d:.3g} > 1e-5")
+    print(f"[small] TINY f32 gated lifecycle (spill_workers 2, compaction to 2 bases): rounds "
+          f"{card['status']} (iteration, fused, rejected, near-duplicates, quarantined, "
+          f"rollbacks, gate ok) on both; the rollback restores round 1's row bit for bit; "
+          f"listener {[it for it, _ in card['seen']]}; {card['op']}, NaN merge rejected; card vs "
+          f"CPU rows max|d| {d:.3g} (bound 1e-5)")
+
+
+@contextlib.contextmanager
+def compaction_log(root):
+    """Record (ms, bytes of the files it deleted, counts) of every
+    ``Repository.compact`` call; the ms include its flush, which waits on
+    the executor's publish write."""
+    fn, log = Repository.compact, []
+
+    def sizes():
+        return {f: os.path.getsize(os.path.join(root, f)) for f in os.listdir(root)
+                if ".tmp-" not in f and os.path.isfile(os.path.join(root, f))}
+
+    def wrapper(self, **kw):
+        before, t = sizes(), time.perf_counter()
+        out = fn(self, **kw)
+        ms, after = 1e3 * (time.perf_counter() - t), sizes()
+        log.append((ms, sum(n for f, n in before.items() if f not in after), out))
+        return out
+
+    Repository.compact = wrapper
+    try:
+        yield log
+    finally:
+        Repository.compact = fn
+
+
+def median_s(fn, n: int = 20) -> float:
+    """Median seconds of ``n`` calls of ``fn`` (host clock; ``fn`` ends in
+    a device-to-host read, so it is synchronised)."""
+    times = []
+    for _ in range(n):
+        t = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t)
+    return float(np.median(times))
+
+
+def phase_lifecycle(workdir, card, service_split):
+    """The Repository lifecycle behind the regression gate at RoBERTa-base
+    width: a gated, compacting daemon over spill_workers=2 takes an honest
+    cohort, a harmful one (quarantined, rolled back), an honest mixed
+    cohort on the rolled-back base, then contribute_async."""
+    seq, batch = 128, 32
+    root = os.path.join(workdir, "lifecycle")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    repo = Repository(init_encoder_body(CONFIG, gen, device="cuda"), root=root, spill=True,
+                      spill_workers=2)
+    spec = FlatSpec.from_tree(repo.download())
+    check(spec.size == N_ROBERTA and spec.dtype == "bfloat16",
+          f"RoBERTa-base body is {spec.size} {spec.dtype}, expected {N_ROBERTA} bfloat16")
+    seen = []
+
+    def listen(it, tree, flat):
+        rec = repo.history[-1] if repo.history else None
+        seen.append((it, flat is not None,
+                     None if rec is None else (rec.n_accepted, rec.n_contributions)))
+
+    repo.add_publish_listener(listen)
+    svc = gated_service(repo, spec.size)
+    suite = SyntheticSuite(vocab_size=CONFIG.vocab_size, num_tasks=16, seed=0)
+    contribs = []
+    for tid in range(8, 12):
+        d = suite.dataset(tid, 128, 32, seq)
+        contribs.append(Contributor(CONFIG, tid, suite.tasks[tid].num_classes, d["x_train"],
+                                    d["y_train"], steps=3, batch_size=batch, seed=tid))
+    split = {"finetune": [], "submit": [], "serve": []}
+
+    def finetune():
+        t = time.perf_counter()
+        base = repo.download()
+        bodies = [c.contribute(base) for c in contribs]
+        torch.cuda.synchronize()
+        split["finetune"].append(time.perf_counter() - t)
+        return base, bodies
+
+    def submit_all(items):
+        t = time.perf_counter()
+        for name, kw in items:
+            ContributorClient(root, name).submit(**kw)
+        split["submit"].append(time.perf_counter() - t)
+
+    def serve(done):
+        t = time.perf_counter()
+        st = serve_until(svc, done)
+        split["serve"].append(time.perf_counter() - t)
+        return st
+
+    # round 1: four honest dense submissions
+    base, bodies = finetune()
+    submit_all([(f"c{i}", dict(params=bodies[i], base_iteration=0)) for i in range(4)])
+    with compaction_log(root) as compacts:
+        st = serve(lambda st: st["iteration"] == 1)
+    check(seen[-1][2] == (4, 4), f"round 1 fused {seen[-1][2]}, expected (4, 4)")
+    check(st["last_gate"]["ok"], f"round 1: the gate must pass: {st['last_gate']}")
+    check(ckpt.load_json(os.path.join(root, "gate_state.json"))["iteration"] == 1,
+          "round 1: gate_state.json must name iteration 1")
+    row1 = repo.flat_base_host()
+    print(f"[lifecycle] round 1: fused 4/4 dense, gate ok (probe losses "
+          f"{ {k: round(v, 4) for k, v in st['last_gate']['scores'].items()} }, worst delta "
+          f"{st['last_gate']['worst_delta']:.4g}); gate_state.json at iteration 1")
+    probe = svc.gate.probes
+    t_dev = median_s(lambda: probe.score(repo.flat_base()))
+    t_host = median_s(lambda: probe.score(row1))
+    t_copy = median_s(repo.flat_base_host, 5)
+    check(probe.score(repo.flat_base()) == probe.score(row1),
+          "ProbeSuite scores differ between the device row and its host copy")
+    print(f"[time] ProbeSuite.score (4 tasks x 32 examples, N={N_ROBERTA:,} bf16) on {card}: "
+          f"{1e3 * t_dev:.3f} ms from the device row (gather on the card), {1e3 * t_host:.3f} "
+          f"ms from the host copy; the host copy itself (flat_base_host, "
+          f"{2 * N_ROBERTA / 1e6:.1f} MB) {1e3 * t_copy:.1f} ms (medians)")
+
+    # round 2: a harmful cohort the §9 screen admits
+    b1 = repo.flat_base()
+    harmful = []
+    for i in range(4):
+        g = torch.Generator(device="cuda").manual_seed(100 + i)
+        harmful.append((b1.float() + HARM_SCALES[i] * torch.randn(
+            N_ROBERTA, generator=g, device="cuda")).to(torch.bfloat16))
+    submit_all([(f"bad{i}", dict(row=harmful[i], spec=spec, base_iteration=1))
+                for i in range(4)])
+    del harmful
+    rejected0 = st["rejected_total"]
+    with compaction_log(root) as more, timed(ckpt, "load") as load_s, \
+            timed(Repository, "_persist_base") as persist_s, \
+            timed(Repository, "_refresh_base_sketch") as sketch_s, \
+            timed(Repository, "rollback") as rollback_s:
+        st = serve(lambda st: st["rollbacks_total"] >= 1)
+    compacts += more
+    check(seen[-2][:2] == (2, True) and seen[-2][2] == (4, 4),
+          f"round 2 must publish 4/4 before the gate: listener {seen}")
+    check(st["rejected_total"] == rejected0, f"round 2: the screens rejected "
+          f"{st['rejected_total'] - rejected0}, expected 0")
+    check(not st["last_gate"]["ok"], f"round 2: the gate must trip: {st['last_gate']}")
+    files = lifecycle_files(root)
+    check((st["quarantined_total"], st["rollbacks_total"]) == (4, 1),
+          f"round 2: quarantined {st['quarantined_total']}, rollbacks {st['rollbacks_total']}")
+    check(files[2] == [] and files[3] == [f"bad{i}-000000.npz" for i in range(4)],
+          f"round 2: queue {files[2]}, quarantine {files[3]}")
+    check(repo.iteration == 1 and torch.equal(repo.flat_base_host(), row1),
+          "round 2: the rollback must restore round 1's row bit for bit")
+    check(ckpt.load_json(os.path.join(root, "gate_state.json"))["iteration"] == 1,
+          "round 2: gate_state.json must stay at iteration 1")
+    print(f"[lifecycle] round 2: harmful cohort (base + N(0, s^2), s = "
+          f"{[round(x, 1) for x in HARM_SCALES]}) admitted 4/4 by the MAD and novelty screens "
+          f"(nearest novelty distance {nearest_pair(repo, 1, 4):.4f}), fused 4/4; gate tripped "
+          f"(regressed "
+          f"{st['last_gate']['regressed']}, worst delta {st['last_gate']['worst_delta']:.4g}, "
+          f"tolerance 0.5); quarantined 4, rolled back to iteration 1, row equal to round 1's "
+          f"bit for bit; gate_state.json still at iteration 1")
+    print(f"[time] rollback on {card}: {rollback_s[0]:.3f} s in all (flush, base_iter0001.npz "
+          f"load {sum(load_s):.3f} s, persist {persist_s[-1]:.3f} s, base sketch "
+          f"{sketch_s[-1]:.4f} s)")
+
+    # round 3: 2 dense and 2 compressed on the rolled-back base
+    decode0 = decode_accum.launches
+    base, bodies = finetune()
+    submit_all([(f"c{i}", dict(params=bodies[i], base_iteration=1, compress=i >= 2, base=base))
+                for i in range(4)])
+    with compaction_log(root) as more:
+        st = serve(lambda st: st["iteration"] == 2)
+    compacts += more
+    check(seen[-1][:2] == (2, True) and seen[-1][2] == (4, 4), f"round 3 fused {seen[-1]}")
+    check(decode_accum.launches > decode0, "round 3: decode_accum was not launched")
+    check(st["last_gate"]["ok"], f"round 3: the gate must pass: {st['last_gate']}")
+    files = lifecycle_files(root)
+    check(files[0] == ["base_iter0001.npz", "base_iter0002.npz"] and files[1] == [],
+          f"round 3: bases {files[0]}, unnamed archived rows {files[1]}")
+    print(f"[lifecycle] round 3: fused 4/4 (2 dense, 2 compressed against iteration 1, "
+          f"decode_accum {decode_accum.launches - decode0} launch), gate ok; compacted to "
+          f"{files[0]}")
+    print(f"[time] compact on {card} (with its flush): " + ", ".join(
+        f"{ms:.2f} ms removing {removed / 1e6:.1f} MB ({out['bases_removed']} bases, "
+        f"{out['rows_removed']} rows)" for ms, removed, out in compacts))
+    svc.close()
+
+    # contribute_async: one honest body at alpha 1/3, then a runaway
+    base = repo.download()
+    body = contribs[0].contribute(base)
+    b_row, c_row = spec.flatten(base), spec.flatten(body)
+    plain, _ = cold_fuse_plain(b_row, c_row[None], torch.ones(1, device="cuda"), 1.0 / 3.0)
+    # the kernel rounds b + a*(t - b) once (an FMA), the plain version twice;
+    # where the result cancels to near 0 (t = -2b at a = 1/3) the two differ
+    # by an f32 rounding of the operands, which can exceed 1 bf16 ulp of the
+    # result.  The exact value: the same formula in f64 at the f32 alpha the
+    # kernel receives, rounded once to f32 and then to bf16
+    a32 = float(np.float32(1.0 / 3.0))
+    exact = (b_row.double() + a32 * (c_row.double() - b_row.double())).float().to(b_row.dtype)
+    t = time.perf_counter()
+    rec = repo.contribute_async(body)
+    async_s = time.perf_counter() - t
+    check(rec.op == "async-damped(0.333)" and repo.iteration == 3, f"async record {rec}")
+    err = fused_error(repo.flat_base(), exact)
+    got, pf = repo.flat_base().float(), plain.float()
+    d = (got - pf).abs()
+    beyond = d > bf16_ulp(torch.maximum(got.abs(), pf.abs()))
+    operands = torch.maximum(b_row.float().abs(), (a32 * (c_row.float() - b_row.float())).abs())
+    f32_ulp = torch.exp2(torch.floor(torch.log2(operands.clamp_min(2.0 ** -126))) - 23)
+    check(bool((d[beyond] <= f32_ulp[beyond]).all()), "contribute_async differs from "
+          "cold_fuse_plain by more than 1 bf16 ulp and the f32 rounding of the operands")
+    n_beyond = int(beyond.sum())
+    row3 = repo.flat_base_host()
+    noise = torch.Generator(device="cuda").manual_seed(1)
+    run_row = (b_row.float() + 100.0 * torch.randn(N_ROBERTA, generator=noise,
+                                                   device="cuda")).to(torch.bfloat16)
+    norm = (run_row.float() - repo.flat_base().float()).norm().item()
+    one = screen_norms([norm])
+    run_row[0] = float("nan")  # a runaway that diverged
+    reason = rejection(lambda: repo.contribute_async(spec.unflatten(run_row)))
+    check(reason is not None and reason.startswith("async contribution rejected")
+          and repo.iteration == 3
+          and torch.equal(repo.flat_base_host(), row3),
+          f"the runaway must be rejected with state unchanged: {reason}")
+    print(f"[lifecycle] contribute_async (alpha 1/3, {rec.op}) over the same [1, N] stage: vs "
+          f"the exactly rounded value max|d| {err:.3g} (bound 1 bf16 ulp); vs cold_fuse_plain "
+          f"max|d| {d.max().item():.3g}, {n_beyond} elements beyond 1 bf16 ulp, where the result "
+          f"cancels (largest such |result| {got[beyond].abs().max().item() if n_beyond else 0:.3g}), "
+          f"each within 1 f32 ulp of the operands; {async_s:.3f} s. The phase-7 "
+          f"runaway (norm {norm:.4g}) passes a one-norm screen (accepted {one.accepted}: the MAD "
+          f"test needs 3 norms); with one NaN it is rejected ({reason}), iteration and row "
+          "unchanged")
+    check([s[:2] for s in seen] == [(1, True), (2, True), (1, True), (2, True), (3, True)],
+          f"listener calls {seen}")
+
+    # the gate a user would run on real tasks
+    held_out = []
+    for tid in range(8, 12):
+        d = suite.dataset(tid, 1, 32, seq, split_seed=2)
+        held_out.append((tid, d["x_test"], d["y_test"], suite.tasks[tid].num_classes))
+    evals = MultitaskEvals(CONFIG, repo.download(), held_out, seed=0)
+    scores = evals.score(repo.flat_base())
+    check(all(math.isfinite(v) for v in scores.values()), f"MultitaskEvals scores {scores}")
+    t_ev = median_s(lambda: evals.score(repo.flat_base()), 5)
+    print(f"[time] MultitaskEvals.score (4 tasks x 32 x {seq} tokens, RoBERTa-base bf16 "
+          f"forward) on {card}: {1e3 * t_ev:.1f} ms (median of 5); losses "
+          f"{ {k: round(v, 4) for k, v in scores.items()} }")
+    print(f"[lifecycle] finetune (rounds 1, 3) {[round(x, 2) for x in split['finetune']]} s, "
+          f"submit (rounds 1-3) {[round(x, 2) for x in split['submit']]} s, serve (admit, stage, "
+          f"fuse, probe, publish, compact; round 2 with the rollback) "
+          f"{[round(x, 2) for x in split['serve']]} s")
+    print(f"[lifecycle] serve of an all-dense cohort of 4 on {card}: round 1 here "
+          f"(spill_workers 2, gated, compacting) {split['serve'][0]:.2f} s; phase 7's round 2 "
+          f"(synchronous writes, no gate) {service_split['serve'][1]:.2f} s (two runs in one "
+          "process on a host whose speed moves 20-30 %)")
 
 
 # ---------------------------------------------------------------------------
@@ -1752,6 +2150,7 @@ def main() -> int:
         phase_small_agreement()
         phase_small_per_leaf()
         phase_small_service(workdir)
+        phase_small_lifecycle(workdir)
         phase_small_lm()
 
         torch.cuda.reset_peak_memory_stats()
@@ -1771,12 +2170,30 @@ def main() -> int:
         torch.cuda.reset_peak_memory_stats()
         reset_launches()
         t_service = time.perf_counter()
-        phase_service_path(workdir)
+        service_split = phase_service_path(workdir)
         counts = launches()
         print(f"[service] launches on the service path: {counts}; "
               f"{time.perf_counter() - t_service:.1f} s")
         print(f"[service] torch.cuda.max_memory_allocated: "
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        torch.cuda.empty_cache()
+
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t_life = time.perf_counter()
+        phase_lifecycle(workdir, smi, service_split)
+        life = launches()
+        print(f"[lifecycle] launches on the lifecycle path: {life}; "
+              f"{time.perf_counter() - t_life:.1f} s")
+        print(f"[lifecycle] torch.cuda.max_memory_allocated: "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    # worked out from the code: cold_fuse for the two dense cohorts and both
+    # async passes (the rejected one launches before its screen; the mixed
+    # cohort fuses through decode_accum and a plain combine); row_sketch for
+    # the service's first base sketch and each of the 5 base movements
+    for kernel, want in (("cold_fuse", 4), ("decode_accum", 1), ("row_sketch", 6)):
+        check(life[kernel] == want, f"{kernel} launched {life[kernel]} times on the lifecycle "
+              f"path, expected {want}")
     for kernel, least in (("decode_accum", 3), ("row_sketch", 5), ("cold_fuse", 1)):
         check(counts[kernel] >= least, f"{kernel} launched {counts[kernel]} times on the "
               f"service path, expected >= {least}")

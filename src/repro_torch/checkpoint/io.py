@@ -67,7 +67,7 @@ def _atomic_savez(path: str, arrays: Dict[str, np.ndarray]) -> None:
     if not path.endswith(".npz"):  # np.savez semantics: ".npz" is appended
         path += ".npz"
     os.makedirs(os.path.dirname(path), exist_ok=True)
-    tmp = f"{path}.tmp-{os.getpid()}"
+    tmp = f"{path}.tmp-{os.getpid()}-{threading.get_ident()}"  # spill workers are threads
     try:
         np.savez(tmp, **arrays)
         if not tmp.endswith(".npz") and os.path.exists(tmp + ".npz"):

@@ -37,20 +37,35 @@ rows live in the root, listed in ``staging_manifest.json``, and
 publish.  Every file is the JAX package's format, so a root written by
 either package opens in the other.
 
+``spill_workers=N`` moves the row and publish writes onto a thread pool.
+The host copy of each row and each base is taken on the calling thread
+before the write is queued, so no worker reads a device tensor; a fuse waits
+on each spilled row's own write before it opens the file, and ``flush()``
+(and ``rollback``, ``compact``, ``contribute_async``) drains the pool and
+raises the first write error again.
+
+The lifecycle (paper §8): ``contribute_async`` merges one model at once
+(damped, ``α = 1/(1+iteration)``); ``rollback`` restores an earlier base
+from the in-memory snapshots or from its retained ``base_iterNNNN.npz``;
+``compact`` deletes superseded bases and unreferenced archived rows;
+``add_publish_listener`` subscribes to every base movement.
+
 The published base (``download()``) is a tree of views into the fused row,
 which is also the ``base`` operand of the next fuse: callers must not update
 it in place (``train.finetune`` clones what it trains).
 
 Not ported yet (each raises where the reference takes it): ``mesh=``,
-``spill_workers>0``, ``rollback``, ``compact``, ``contribute_async``,
-publish listeners, ``RepositoryFamily`` and sharded files.
+``fuse_pending(buffer=)``, ``RepositoryFamily`` and sharded files.
 """
 from __future__ import annotations
 
 import json
 import os
+import re
+import threading
 import time
 import warnings
+from concurrent.futures import Future, ThreadPoolExecutor
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Union
 
@@ -74,6 +89,10 @@ FLAT_OPS = ("average", "damped", "task_arithmetic")
 
 MANIFEST = "staging_manifest.json"
 SKETCH_FILE = "cohort_sketch.json"
+
+# on-disk artifact names in the root (``compact`` walks these)
+_BASE_RE = re.compile(r"^base_iter(\d{4,})\.npz$")
+_ROW_RE = re.compile(r"^iter\d{4,}_contrib\d{3,}\.npz$")
 
 
 def _not_ported(what: str) -> NotImplementedError:
@@ -163,8 +182,6 @@ class Repository:
             raise ValueError(f"flat engine does not cover fusion_op={fusion_op!r}")
         if mesh is not None or mesh_axes is not None:
             raise _not_ported("Repository(mesh=) (the multi-device slice)")
-        if spill_workers:
-            raise _not_ported("Repository(spill_workers>0)")
         if spill and not root:
             raise ValueError("spill=True requires an on-disk root")
         if spill and not use_flat:
@@ -187,6 +204,20 @@ class Repository:
         self._buffers = BufferPair()
         self._inflight: Optional[PendingFusion] = None
         self._persisted_iteration = -1
+        # the spill executor (spill_workers > 0): row and publish writes
+        # leave the upload path; _row_futures lets a fuse wait on exactly
+        # the rows it reads
+        self._spill_pool = (ThreadPoolExecutor(max_workers=spill_workers,
+                                               thread_name_prefix="repo-spill")
+                            if spill and spill_workers > 0 else None)
+        self._spill_futures: List[Future] = []
+        self._row_futures: Dict[str, Future] = {}
+        # guards the staging sides' manifests (workers append to them) and
+        # the manifest file; the publish lock orders base + repository.json
+        self._manifest_lock = threading.Lock()
+        self._publish_lock = threading.Lock()
+        # fn(iteration, base, flat) after every base movement
+        self._publish_listeners: List[Any] = []
         # the novelty screen's state; None until enable_cohort_sketch
         self.cohort_sketch: Optional[CohortSketch] = None
         # opaque repository.json keys (a family manifest) carried verbatim
@@ -213,7 +244,8 @@ class Repository:
     def staged_spill_files(self) -> set:
         """Root-relative names of every manifest-tracked staged row, front
         and in flight: exactly what a crash right now would recover."""
-        return {e["file"] for e in self._buffers.manifest_entries()}
+        with self._manifest_lock:
+            return {e["file"] for e in self._buffers.manifest_entries()}
 
     def _staging_iteration(self) -> int:
         """The iteration newly staged rows fuse into (one ahead while a fuse
@@ -229,27 +261,65 @@ class Repository:
         return os.path.join(self.root, MANIFEST)
 
     def _write_manifest(self) -> None:
-        """Persist the staged-but-unfused rows (back + front).  Called with
-        the row file already on disk, so a crash in between loses at most
-        the newest row, never records a row that does not exist."""
+        """Persist the staged-but-unfused rows (back + front); the caller
+        holds the manifest lock.  Called with the row file already on disk,
+        so a crash in between loses at most the newest row, never records a
+        row that does not exist."""
         ckpt.save_json_atomic(self._manifest_path(), {
             "version": 1, "entries": self._buffers.manifest_entries()})
 
     def _spill_row(self, row: torch.Tensor, idx: int, weight) -> str:
+        """Write one staged row to the root, then append it to the manifest:
+        at once, or on the spill executor with ``spill_workers > 0``."""
         path = self._contrib_path(idx)
-        ckpt.save_flat(path, row, self._spec)
-        self._buffers.front.manifest.append({
+        side = self._buffers.front
+        spec = self._spec
+        entry = {
             "file": os.path.basename(path),
             "idx": idx,
             # the publish this row fuses into; see _recover_staged
             "staged_at": self._staging_iteration(),
             "weight": None if weight is None else float(weight),
-            "dtype": self._spec.dtype,
-            "size": self._spec.size,
+            "dtype": spec.dtype,
+            "size": spec.size,
             "sharded": False,
-        })
-        self._write_manifest()
+        }
+        host = row.detach().cpu()  # on this thread: no worker reads a device tensor
+
+        def write():
+            ckpt.save_flat(path, host, spec)
+            with self._manifest_lock:
+                side.manifest.append(entry)
+                self._write_manifest()
+
+        if self._spill_pool is None:
+            write()
+        else:
+            fut = self._spill_pool.submit(write)
+            self._spill_futures.append(fut)
+            self._row_futures[path] = fut
         return path
+
+    def _await_row(self, p) -> None:
+        """Wait for (and surface the error of) the spill write of staged
+        entry ``p``; a no-op for rows written synchronously."""
+        fut = self._row_futures.pop(p, None) if isinstance(p, str) else None
+        if fut is not None:
+            fut.result()
+
+    def _drain_spill(self) -> None:
+        """Wait for every queued row and publish write; raise the first
+        failure again, so a lost row is never fused over in silence."""
+        futures, self._spill_futures = self._spill_futures, []
+        self._row_futures.clear()
+        first = None
+        for f in futures:
+            try:
+                f.result()
+            except Exception as err:  # every write settles before the raise
+                first = first if first is not None else err
+        if first is not None:
+            raise first
 
     # -- contributor-facing API -----------------------------------------
     def download(self):
@@ -333,8 +403,9 @@ class Repository:
         side.rows.append(path)
         side.fishers.append(None)
         side.weights.append(weight)
-        side.manifest.append(entry)
-        self._write_manifest()
+        with self._manifest_lock:
+            side.manifest.append(entry)
+            self._write_manifest()
         return idx
 
     # -- novelty admission sketch ----------------------------------------
@@ -428,18 +499,158 @@ class Repository:
         storage dtype."""
         return self._base_flat.cpu()
 
-    # -- not ported yet ----------------------------------------------------
-    def rollback(self, to_iteration: int, *, keep_staged: bool = False):
-        raise _not_ported("Repository.rollback")
+    def flat_base(self) -> torch.Tensor:
+        """The current (published) base as its ``[N]`` row on the
+        repository's device; read-only by contract, like ``download()``."""
+        return self._base_flat
 
-    def compact(self, *, keep_bases: int = 2):
-        raise _not_ported("Repository.compact")
-
-    def contribute_async(self, params, *, alpha: Optional[float] = None):
-        raise _not_ported("Repository.contribute_async")
-
+    # -- publish subscription ----------------------------------------------
     def add_publish_listener(self, fn) -> None:
-        raise _not_ported("Repository.add_publish_listener")
+        """Register ``fn(iteration, base, flat)`` to run after every base
+        movement: a cohort publish (either engine), ``contribute_async`` and
+        ``rollback`` (where ``iteration`` moves backwards).  It runs on the
+        thread that published, after the iteration bump, with the published
+        tree and its flat row.  The port always keeps the flat row, so
+        ``flat`` is never None (the reference passes None after a rollback).
+        Listeners must be cheap and must not raise."""
+        self._publish_listeners.append(fn)
+
+    def _notify_publish(self) -> None:
+        for fn in list(self._publish_listeners):
+            fn(self.iteration, self._base, self._base_flat)
+
+    # -- the lifecycle (paper §8) ----------------------------------------------
+    def contribute_async(self, params, *, alpha: Optional[float] = None) -> FusionRecord:
+        """Merge ONE finetuned model into the base at once, without a
+        cohort: θ ← θ + α·(θ_c − θ), α = 1/(1 + iteration) unless given.
+        The flat engine makes one ``cold_fuse`` pass over a ``[1, N]``
+        stage, which yields the merged row and the screen's norm; a rejected
+        contribution raises and leaves every bit of state as it was."""
+        self.flush()  # quiesce: this publish must not race queued writes
+        if tree_device(params) != self.device:
+            raise ValueError(f"contribution on {tree_device(params)}; the repository lives "
+                             f"on {self.device}")
+        a = alpha if alpha is not None else 1.0 / (1.0 + self.iteration)
+        t0 = time.time()
+        if self.use_flat:
+            stage = self._spec.flatten(params)[None]
+            fused, sq = self._fuse_flat(
+                stage, torch.ones((1,), dtype=torch.float32, device=self.device), a)
+            if self.screen:
+                report = screen_norms(norms_from_sq(sq), mad_threshold=self.mad_threshold)
+                if not report.accepted:
+                    raise RuntimeError(f"async contribution rejected: {report.reasons}")
+            _sync(fused)
+        else:
+            if self.screen:
+                report = screen_contributions(self._base, [params],
+                                              mad_threshold=self.mad_threshold)
+                if not report.accepted:
+                    raise RuntimeError(f"async contribution rejected: {report.reasons}")
+            fused = self._spec.flatten(fusion.damped(self._base, [params], alpha=a))
+        rec = FusionRecord(iteration=self.iteration, n_contributions=1, n_accepted=1,
+                           op=f"async-damped({a:.3f})", diff_norms=[],
+                           wall_time=time.time() - t0)
+        self.history.append(rec)
+        self._publish(fused)
+        self.iteration += 1
+        self._refresh_front_staging()
+        if self.root:
+            self._persist_base()
+            if self.spill or os.path.exists(self._manifest_path()):
+                with self._manifest_lock:
+                    self._write_manifest()
+        self._refresh_base_sketch()
+        self._notify_publish()
+        return rec
+
+    def rollback(self, to_iteration: int, *, keep_staged: bool = False) -> None:
+        """Back out harmful publishes (paper §8): restore the base of
+        ``to_iteration`` from the in-memory ``keep_history`` snapshot, else
+        from its retained ``base_iterNNNN.npz``; missing both raises with
+        no state touched.  ``keep_staged=True`` keeps the staged front
+        cohort (re-stamped to the rolled-back staging iteration), otherwise
+        it is dropped.  On disk, the ``repository.json`` rewrite is the
+        commit point; the ``repo.mid_rollback`` seam follows it."""
+        self.flush()  # quiesce: queued manifest and publish writes settle
+        if not (0 <= to_iteration <= self.iteration):
+            raise ValueError(f"cannot roll back to iteration {to_iteration} from "
+                             f"{self.iteration}")
+        if self.keep_history and to_iteration < len(self._snapshots):
+            base = self._snapshots[to_iteration]
+        elif self.root is not None:
+            path = os.path.join(self.root, f"base_iter{to_iteration:04d}.npz")
+            if not os.path.exists(path):
+                raise ValueError(
+                    f"no snapshot for iteration {to_iteration}: not in memory "
+                    f"(keep_history={self.keep_history}) and {os.path.basename(path)} is "
+                    "not on disk — was it compacted away? (compact keep_bases must cover "
+                    "the rollback depth)")
+            base = ckpt.load(path, device=self.device)
+            rspec = FlatSpec.from_tree(base)
+            if rspec.dtype != self._spec.dtype or rspec.size != self._spec.size:
+                raise ValueError(
+                    f"{os.path.basename(path)} loads as FlatSpec(dtype={rspec.dtype}, "
+                    f"N={rspec.size}) but the repository base is (dtype={self._spec.dtype}, "
+                    f"N={self._spec.size}) — refusing to roll back onto a mismatched base")
+        elif not self.keep_history:
+            raise RuntimeError("rollback requires keep_history=True or an on-disk root")
+        else:
+            raise ValueError(f"no snapshot for iteration {to_iteration}")
+        self._base_flat = self._spec.flatten(base)
+        self._base = self._spec.unflatten(self._base_flat)
+        self._snapshots = self._snapshots[:to_iteration]
+        self.history = self.history[:to_iteration]
+        self.iteration = to_iteration
+        # the publish guard follows the regression, or later (smaller-
+        # iteration) publishes would be skipped as stale
+        self._persisted_iteration = min(self._persisted_iteration, to_iteration)
+        if keep_staged:
+            self._refresh_front_staging()
+        else:
+            with self._manifest_lock:
+                self._buffers = BufferPair()
+        if self.root:
+            self._persist_base()  # the commit point
+            faults.crash_point("repo.mid_rollback")
+            if self.spill:
+                with self._manifest_lock:
+                    self._write_manifest()
+        self._refresh_base_sketch()
+        self._notify_publish()
+
+    def compact(self, *, keep_bases: int = 2) -> Dict[str, int]:
+        """Reclaim the root: delete ``base_iterNNNN.npz`` beyond the newest
+        ``keep_bases`` (the persisted current base is always kept) and the
+        archived ``iterNNNN_contribMMM.npz`` rows no manifest entry
+        references.  Only unreferenced files are deleted, so a crash at any
+        point leaves a root that opens.  ``queue/`` and ``quarantine/`` are
+        never touched.  Quiesces first; returns the deletion counts."""
+        if not self.root:
+            raise ValueError("compact requires an on-disk root")
+        if keep_bases < 1:
+            raise ValueError(f"keep_bases must be >= 1, got {keep_bases}")
+        self.flush()
+        with self._manifest_lock:
+            referenced = {os.path.normpath(e["file"])
+                          for e in self._buffers.manifest_entries()}
+        bases, rows = [], []
+        for name in os.listdir(self.root):
+            m = _BASE_RE.match(name)
+            if m:
+                bases.append((int(m.group(1)), name))
+            elif _ROW_RE.match(name) and os.path.normpath(name) not in referenced:
+                rows.append(name)
+        keep = {it for it, _ in sorted(bases)[-keep_bases:]}
+        keep.add(self._persisted_iteration)  # open() loads exactly this one
+        n_bases = 0
+        for it, name in bases:
+            if it not in keep:
+                os.remove(os.path.join(self.root, name))
+                n_bases += 1
+        for name in rows:
+            os.remove(os.path.join(self.root, name))
+        return {"bases_removed": n_bases, "rows_removed": len(rows)}
 
     # -- fuse -----------------------------------------------------------
     def fuse_pending(self, buffer=None, *, wait: bool = True
@@ -456,7 +667,8 @@ class Repository:
         if not self._buffers.front.rows:
             raise RuntimeError("no contributions to fuse")
         t0 = time.time()
-        back = self._buffers.swap()
+        with self._manifest_lock:  # workers append to both sides' manifests
+            back = self._buffers.swap()
         if not self.use_flat:
             self._mark_back_fusing()
             try:
@@ -464,7 +676,7 @@ class Repository:
             except Exception:
                 self._restore_back()
                 raise
-            self._buffers.retire_back()
+            self._retire_back()
             self._after_publish(rec)
             return rec
         try:
@@ -478,9 +690,12 @@ class Repository:
         return pf
 
     def flush(self) -> Optional[FusionRecord]:
-        """Quiesce: finalize the in-flight fuse, if any.  Returns its record
-        (None when nothing was in flight)."""
-        return self._finalize_inflight()
+        """Quiesce: finalize the in-flight fuse, if any, and drain every
+        queued spill and publish write (raising the first write error).
+        Returns the finalized record (None when nothing was in flight)."""
+        rec = self._finalize_inflight()
+        self._drain_spill()
+        return rec
 
     def snapshot(self, iteration: int):
         """The base published before fuse ``iteration`` (``keep_history``)."""
@@ -496,9 +711,15 @@ class Repository:
             # not published: the cohort returns to the front, to be retried
             self._restore_back()
             raise
-        self._buffers.retire_back()
+        self._retire_back()
         self._after_publish(rec)
         return rec
+
+    def _retire_back(self) -> None:
+        """Drop the consumed back cohort.  Its manifest entries are rewritten
+        away only after the new base is durable (``_after_publish``)."""
+        with self._manifest_lock:
+            self._buffers.retire_back()
 
     def _load_staged_row(self, p) -> torch.Tensor:
         """A staged entry as an ``[N]`` row on the repository's device:
@@ -506,6 +727,7 @@ class Repository:
         compressed file outside a fuse decodes against the current base)."""
         if isinstance(p, torch.Tensor):
             return p
+        self._await_row(p)
         meta = ckpt.flat_row_meta(p)
         if meta.get("compressed"):
             payloads, _ = ckpt.load_flat_delta(p)
@@ -529,7 +751,10 @@ class Repository:
 
     def _stage_cohort(self, back: StagingSide):
         """All-dense cohorts stack into a ``StagedBuffer``; any compressed
-        submission among the rows makes a ``MixedStage``."""
+        submission among the rows makes a ``MixedStage``.  Every spilled
+        row's write is waited on before any of its files is opened."""
+        for p in back.rows:
+            self._await_row(p)
         if any(isinstance(p, str) and ckpt.is_flat_compressed(p) for p in back.rows):
             return self._stage_mixed(back)
         return StagedBuffer.from_rows([self._load_staged_row(p) for p in back.rows])
@@ -697,26 +922,28 @@ class Repository:
         back = self._buffers.back
         if back is None or not back.manifest:
             return
-        for e in back.manifest:
-            e["fusing"] = True
-        if self.root and (self.spill or os.path.exists(self._manifest_path())):
-            self._write_manifest()
+        with self._manifest_lock:
+            for e in back.manifest:
+                e["fusing"] = True
+            if self.root and (self.spill or os.path.exists(self._manifest_path())):
+                self._write_manifest()
 
     def _restore_back(self) -> None:
         """Un-swap after a failed fuse: the back cohort returns to the head
         of the front buffer, its in-flight marks dropped."""
-        back = self._buffers.back
-        if back is None:
-            return
-        for e in back.manifest:
-            e.pop("fusing", None)
-        front = self._buffers.front
-        back.rows.extend(front.rows)
-        back.fishers.extend(front.fishers)
-        back.weights.extend(front.weights)
-        back.manifest.extend(front.manifest)
-        self._buffers.front = back
-        self._buffers.back = None
+        with self._manifest_lock:
+            back = self._buffers.back
+            if back is None:
+                return
+            for e in back.manifest:
+                e.pop("fusing", None)
+            front = self._buffers.front
+            back.rows.extend(front.rows)
+            back.fishers.extend(front.fishers)
+            back.weights.extend(front.weights)
+            back.manifest.extend(front.manifest)
+            self._buffers.front = back
+            self._buffers.back = None
 
     def _refresh_front_staging(self) -> None:
         """Front rows survive publishes they took no part in: re-stamp them
@@ -725,16 +952,33 @@ class Repository:
             e["staged_at"] = self._staging_iteration()
 
     def _after_publish(self, rec: FusionRecord) -> None:
+        """After a cohort publish (either engine), in the reference's order:
+        persist the base, the seam, rewrite the manifest, refresh the base
+        sketch, notify the listeners.  With the spill executor the first
+        three run as one queued task on host copies taken here."""
         self.history.append(rec)
         self.iteration += 1
         self._refresh_front_staging()
-        if self.root:
+        if self.root and self._spill_pool is not None:
+            it, meta = self.iteration, self._render_meta()
+            base = self._spec.unflatten(self._base_flat.cpu())
+
+            def task():
+                self._persist_base(it, base, meta)
+                faults.crash_point("repo.post_publish_pre_manifest")
+                with self._manifest_lock:
+                    self._write_manifest()
+
+            self._spill_futures.append(self._spill_pool.submit(task))
+        elif self.root:
             self._persist_base()
             faults.crash_point("repo.post_publish_pre_manifest")
             if self.spill or os.path.exists(self._manifest_path()):
-                self._write_manifest()
+                with self._manifest_lock:
+                    self._write_manifest()
         # after the durability-critical writes: the sketch is advisory
         self._refresh_base_sketch()
+        self._notify_publish()
 
     def _cohort_weights(self, K: int, staged) -> torch.Tensor:
         """Per-contributor weights (average/damped)."""
@@ -759,16 +1003,22 @@ class Repository:
         return 1.0
 
     # -- persistence -------------------------------------------------------
-    def _persist_base(self) -> None:
-        """Write the current base and repository.json (atomically; the base
-        npz lands before the JSON names it)."""
-        it = self.iteration
-        if it < self._persisted_iteration:
-            return
-        ckpt.save(os.path.join(self.root, f"base_iter{it:04d}.npz"), self._base)
-        ckpt.save_json_atomic(os.path.join(self.root, "repository.json"),
-                              self._render_meta(), default=_json_default)
-        self._persisted_iteration = it
+    def _persist_base(self, iteration: Optional[int] = None, base=None,
+                      meta: Optional[Dict[str, Any]] = None) -> None:
+        """Write the current (or a captured) base and repository.json,
+        atomically, the base npz before the JSON names it.  Serialised under
+        the publish lock with a monotonic guard: an older publish task that
+        runs late never lands after a newer one."""
+        it = self.iteration if iteration is None else iteration
+        base = self._base if base is None else base
+        meta = self._render_meta() if meta is None else meta
+        with self._publish_lock:
+            if it < self._persisted_iteration:
+                return
+            ckpt.save(os.path.join(self.root, f"base_iter{it:04d}.npz"), base)
+            ckpt.save_json_atomic(os.path.join(self.root, "repository.json"),
+                                  {**meta, **self.extra_meta}, default=_json_default)
+            self._persisted_iteration = it
 
     def _render_meta(self) -> Dict[str, Any]:
         meta = {
@@ -838,7 +1088,8 @@ class Repository:
             side.weights.append(e.get("weight"))
             recovered += 1
         if self.root:
-            self._write_manifest()
+            with self._manifest_lock:
+                self._write_manifest()
         return recovered
 
     @classmethod
@@ -867,6 +1118,7 @@ class Repository:
         kw.setdefault("screen", meta.get("screen", True))
         kw.setdefault("mad_threshold", meta.get("mad_threshold", 5.0))
         spill = bool(kw.pop("spill", meta.get("spill", False)))
+        spill_workers = int(kw.pop("spill_workers", 0))
         # root=None so __init__ does not re-persist; root/spill set below
         repo = cls(base, root=None, **kw)
         repo.iteration = it
@@ -876,6 +1128,9 @@ class Repository:
                           "engine — staged rows will NOT be spilled or crash-recoverable "
                           "until reopened on the flat engine")
         repo.spill = spill and repo.use_flat
+        if repo.spill and spill_workers > 0:
+            repo._spill_pool = ThreadPoolExecutor(max_workers=spill_workers,
+                                                  thread_name_prefix="repo-spill")
         repo._persisted_iteration = it
         if "families" in meta:
             repo.extra_meta["families"] = meta["families"]

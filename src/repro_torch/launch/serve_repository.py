@@ -14,9 +14,13 @@ or ``--idle-timeout`` seconds without progress.
   PYTHONPATH=src python -m repro_torch.launch.serve_repository --root repo/ \\
       --init-npz base.npz --min-cohort 2 --max-iterations 3
 
-The reference's ``--mesh``, ``--max-bases`` above 1, ``--gate`` and the
-``--serve-*`` flags are accepted by the parser only to be refused: their
-paths are not ported yet.
+  # gate every publish, keep two bases on disk, write rows on two threads
+  PYTHONPATH=src python -m repro_torch.launch.serve_repository --root repo/ \\
+      --gate --compact-keep 2 --spill-workers 2
+
+The reference's ``--mesh``, ``--max-bases`` above 1, ``--cross-fuse-every``
+and the ``--serve-*`` flags are accepted by the parser only to be refused:
+their paths are not ported yet.
 """
 from __future__ import annotations
 
@@ -28,17 +32,15 @@ import sys
 from repro_torch.checkpoint import io as ckpt
 from repro_torch.core.repository import Repository
 from repro_torch.serve.cold_service import AdmissionPolicy, ColdService
+from repro_torch.serve.probes import ProbeSuite, RegressionGate
 from repro_torch.utils.device import resolve_device
 
 # flags of the reference whose paths are not ported yet: dest -> what
 _NOT_PORTED = {
     "mesh": "--mesh (the multi-device slice)",
-    "gate": "--gate (the regression gate)",
     "serve_arch": "--serve-arch (the serving slice)",
     "serve_workers": "--serve-workers (the serving slice)",
     "serve_batch": "--serve-batch (the serving slice)",
-    "compact_keep": "--compact-keep (Repository.compact)",
-    "spill_workers": "--spill-workers",
     "cross_fuse_every": "--cross-fuse-every (routing)",
 }
 
@@ -52,6 +54,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--fusion-op", default="average")
     p.add_argument("--no-screen", action="store_true",
                    help="disable the §9 MAD screen (new repositories only)")
+    p.add_argument("--spill-workers", type=int, default=0,
+                   help="threads that write staged rows and published bases")
     p.add_argument("--min-cohort", type=int, default=1)
     p.add_argument("--max-cohort", type=int, default=64)
     p.add_argument("--max-wait", type=float, default=0.0,
@@ -65,10 +69,24 @@ def build_parser() -> argparse.ArgumentParser:
                         "distance of a recent admission (default off)")
     p.add_argument("--sketch-window", type=int, default=32,
                    help="recent admissions the novelty screen remembers")
+    p.add_argument("--compact-keep", type=int, default=None, metavar="M",
+                   help="compact after each publish, keeping M bases")
     p.add_argument("--max-bases", type=int, default=1, metavar="B",
                    help="base family size; only 1 (the single-base loop) is ported")
     p.add_argument("--split-threshold", type=float, default=0.8, metavar="D",
                    help="routing split distance (with --max-bases > 1, not ported)")
+    p.add_argument("--gate", action="store_true",
+                   help="arm the forgetting regression gate: probe every publish against "
+                        "the last known-good base; on a regression, quarantine the cohort "
+                        "and roll the base back")
+    p.add_argument("--probe-tasks", type=int, default=4,
+                   help="synthetic tasks in the gate's probe suite")
+    p.add_argument("--probe-examples", type=int, default=32,
+                   help="eval examples per probe task")
+    p.add_argument("--probe-tolerance", type=float, default=0.5, metavar="T",
+                   help="per-task probe-loss increase that counts as a regression")
+    p.add_argument("--probe-seed", type=int, default=0,
+                   help="seed fixing the probe batches and readouts")
     p.add_argument("--poll", type=float, default=0.02, metavar="S",
                    help="idle poll interval (seconds)")
     p.add_argument("--max-iterations", type=int, default=None,
@@ -77,12 +95,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="stop after this many seconds without progress")
     # refused below: kept so a reference command line fails with a reason
     p.add_argument("--mesh", type=int, default=0, help=argparse.SUPPRESS)
-    p.add_argument("--gate", action="store_true", help=argparse.SUPPRESS)
     p.add_argument("--serve-arch", default=None, help=argparse.SUPPRESS)
     p.add_argument("--serve-workers", type=int, default=0, help=argparse.SUPPRESS)
     p.add_argument("--serve-batch", action="store_true", help=argparse.SUPPRESS)
-    p.add_argument("--compact-keep", type=int, default=None, help=argparse.SUPPRESS)
-    p.add_argument("--spill-workers", type=int, default=0, help=argparse.SUPPRESS)
     p.add_argument("--cross-fuse-every", type=int, default=0, help=argparse.SUPPRESS)
     return p
 
@@ -100,14 +115,15 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 def build_service(args) -> ColdService:
     device = resolve_device(args.device)
+    kw = dict(spill=True, spill_workers=args.spill_workers)
     if os.path.exists(os.path.join(args.root, "repository.json")):
-        repo = Repository.open(args.root, device=device, spill=True)
+        repo = Repository.open(args.root, device=device, **kw)
     else:
         if not args.init_npz:
             raise SystemExit(f"{args.root} holds no repository.json — pass --init-npz to "
                              "initialise a new repository")
         repo = Repository(ckpt.load(args.init_npz, device=device), root=args.root,
-                          screen=not args.no_screen, fusion_op=args.fusion_op, spill=True)
+                          screen=not args.no_screen, fusion_op=args.fusion_op, **kw)
     policy = AdmissionPolicy(
         min_cohort=args.min_cohort,
         max_cohort=args.max_cohort,
@@ -116,8 +132,15 @@ def build_service(args) -> ColdService:
         verify_checksums=args.verify_checksums,
         novelty_threshold=args.novelty_threshold,
         sketch_window=args.sketch_window,
+        compact_keep_bases=args.compact_keep,
     )
-    return ColdService(repo, policy=policy)
+    gate = None
+    if args.gate:
+        gate = RegressionGate(
+            ProbeSuite(repo.flat_base().numel(), n_tasks=args.probe_tasks,
+                       n_examples=args.probe_examples, seed=args.probe_seed),
+            tolerance=args.probe_tolerance)
+    return ColdService(repo, policy=policy, gate=gate)
 
 
 def main(argv=None) -> int:
@@ -135,7 +158,8 @@ def main(argv=None) -> int:
                            idle_timeout=args.idle_timeout)
     print(f"[cold-service] stopped at iteration {st['iteration']}: {st['fuses']} fuses, "
           f"{st['fused_contributions']} contributions fused, {st['rejected_total']} rejected "
-          f"({st['novelty_rejected_total']} near-duplicates)", flush=True)
+          f"({st['novelty_rejected_total']} near-duplicates), {st['quarantined_total']} "
+          f"quarantined, {st['rollbacks_total']} rollbacks", flush=True)
     return 0
 
 

@@ -24,10 +24,22 @@ the reference's names.  Every file (queue npz, queue manifest, status,
 metrics) is the reference's format, so either package's daemon can drain a
 queue the other's clients wrote.
 
+The forgetting regression gate: with ``gate=`` (a
+``repro_torch.serve.probes.RegressionGate``) every fuse runs synchronously
+and each publish is probed against the durable baseline of the last
+known-good base (``gate_state.json``).  A clean publish moves the baseline;
+a tripped gate moves the consumed cohort's queue files into
+``<root>/quarantine/`` (counted, never re-fused) and rolls the repository
+back to the baseline iteration, the next cohort's staged rows kept.
+Quarantine strictly precedes the rollback, so a daemon killed anywhere in
+probe → quarantine → rollback replays the verdict on restart.
+``AdmissionPolicy(compact_keep_bases=M)`` compacts the root after each
+publish while no fuse is in flight (at least 2 under a gate, so the
+baseline's base stays on disk).
+
 Not ported yet (each raises): ``family=`` (similarity routing,
-``max_bases > 1``, ``cross_fuse_every``), ``gate=`` (the regression gate),
-``compact_keep_bases``, per-shard submissions (``sspec=``) and the
-serving-state files (``status()["serving"]`` is None).
+``max_bases > 1``, ``cross_fuse_every``), per-shard submissions
+(``sspec=``) and the serving-state files (``status()["serving"]`` is None).
 """
 from __future__ import annotations
 
@@ -43,6 +55,7 @@ import numpy as np
 
 from repro_torch.checkpoint import io as ckpt
 from repro_torch.core.repository import Repository
+from repro_torch.serve.probes import ProbeReport, RegressionGate
 from repro_torch.utils import faults
 from repro_torch.utils.device import resolve_device
 from repro_torch.utils.flat import (LANE, FlatSpec, delta_checksum, delta_encode,
@@ -51,6 +64,8 @@ from repro_torch.utils.flat import (LANE, FlatSpec, delta_checksum, delta_encode
 QUEUE_DIR = "queue"
 QUEUE_MANIFEST = "queue_manifest.json"
 STATUS_FILE = "service_status.json"
+QUARANTINE_DIR = "quarantine"
+GATE_STATE_FILE = "gate_state.json"
 METRICS_FILE = "metrics.jsonl"
 # the daemon rotates the active metrics file to metrics.jsonl.1 at this size
 METRICS_ROTATE_BYTES = 4 * 1024 * 1024
@@ -212,7 +227,7 @@ class ContributorClient:
 @dataclass
 class AdmissionPolicy:
     """Cohort formation and screening at the queue boundary (the reference's
-    fields; the routing and compaction knobs are not ported yet).
+    fields; the routing knobs are not ported yet).
 
     * ``min_cohort`` — dispatch once this many rows are staged;
     * ``max_wait_s`` — ...or once the oldest staged row waited this long;
@@ -222,7 +237,9 @@ class AdmissionPolicy:
     * ``verify_checksums`` — re-read each row and verify its CRC;
     * ``novelty_threshold`` — reject a row whose sketch lies within this
       relative distance of one of the last ``sketch_window`` admissions
-      (None disables the screen)."""
+      (None disables the screen);
+    * ``compact_keep_bases`` — compact the root after each publish, keeping
+      this many bases (None: never)."""
 
     min_cohort: int = 1
     max_wait_s: float = 0.0
@@ -238,15 +255,15 @@ class AdmissionPolicy:
 
 
 class ColdService:
-    """The polling fusion daemon over a spill-enabled Repository.  Single
-    owner: one service per repository root."""
+    """The polling fusion daemon over a spill-enabled Repository, the
+    reference's single ``main`` lane.  Single owner: one service per
+    repository root.  ``gate=`` arms the forgetting regression gate."""
 
     def __init__(self, repo: Optional[Repository] = None, *, family=None,
-                 policy: Optional[AdmissionPolicy] = None, gate=None):
+                 policy: Optional[AdmissionPolicy] = None,
+                 gate: Optional[RegressionGate] = None):
         if family is not None:
             raise _not_ported("ColdService(family=) (similarity routing)")
-        if gate is not None:
-            raise _not_ported("ColdService(gate=) (the regression gate)")
         if repo is None:
             raise ValueError("ColdService needs repo=")
         if not repo.root:
@@ -256,12 +273,13 @@ class ColdService:
                              "rides the crash-recoverable staging manifest")
         self.policy = policy or AdmissionPolicy()
         p = self.policy
-        if p.compact_keep_bases is not None:
-            raise _not_ported("AdmissionPolicy(compact_keep_bases=)")
         if p.max_bases > 1 or p.cross_fuse_every:
             raise _not_ported("AdmissionPolicy(max_bases>1, cross_fuse_every) (routing)")
         self.repo = repo
+        self.gate = gate
         self.queue_dir = _queue_dir(repo.root)
+        self.quarantine_dir = os.path.join(repo.root, QUARANTINE_DIR)
+        self._gate_path = os.path.join(repo.root, GATE_STATE_FILE)
         os.makedirs(self.queue_dir, exist_ok=True)
         # the cohort clock, and the size of a cohort whose fuse just failed
         # (not retried until new rows arrive); the reference keeps these per
@@ -276,11 +294,18 @@ class ColdService:
         self._fused_ids = 0          # queue submissions retired as fused
         self._rejected = 0
         self._novelty_rejected = 0   # subset of _rejected: near-duplicates
-        # counters of the reference's unported features, carried verbatim
-        # through the queue manifest so a root keeps them across packages
+        self._quarantined = 0        # queue submissions banished by the gate
+        self._rollbacks = 0          # gate trips that backed out a publish
+        # counters of the reference's unported features (routing), carried
+        # verbatim through the queue manifest so a root keeps them
         self._carried: Dict[str, int] = {}
         self._recent_errors: List[Dict[str, Any]] = []
         self._last_error: Optional[str] = None
+        # the gate's durable baseline: probe scores of the last known-good
+        # base and its iteration (gate_state.json)
+        self._gate_baseline: Optional[Dict[str, float]] = None
+        self._gate_iteration: Optional[int] = None
+        self._last_gate: Optional[Dict[str, Any]] = None
         self._cycle = 0
         self._metrics_mark: Optional[tuple] = None
         self._stop = False
@@ -288,7 +313,16 @@ class ColdService:
         if torn:
             warnings.warn(f"metrics.jsonl: truncated a torn {torn}-byte tail left by a "
                           "crashed daemon")
+        if gate is not None and p.compact_keep_bases is not None and p.compact_keep_bases < 2:
+            warnings.warn("regression gate needs the baseline base retained on disk — "
+                          "raising compact_keep_bases to 2")
+            p.compact_keep_bases = 2
         self._load_queue_manifest()
+        if gate is not None:
+            # before _recover(): a publish whose verdict a crash swallowed is
+            # replayed first, or _recover would retire (as fused) the very
+            # cohort the replayed verdict must quarantine
+            self._init_gate()
         self._recover()
         if p.novelty_threshold is not None:
             # adopt (or create) the persisted window before the first admission
@@ -300,8 +334,7 @@ class ColdService:
             self._cohort_since = time.time()
 
     # -- queue manifest -------------------------------------------------
-    _CARRIED = ("quarantined_total", "rollbacks_total", "families_spawned_total",
-                "cross_fuses_total", "cross_counter")
+    _CARRIED = ("families_spawned_total", "cross_fuses_total", "cross_counter")
 
     def _load_queue_manifest(self) -> None:
         try:
@@ -314,6 +347,8 @@ class ColdService:
         self._fused_ids = int(data.get("fused_total", 0))
         self._rejected = int(data.get("rejected_total", 0))
         self._novelty_rejected = int(data.get("novelty_rejected_total", 0))
+        self._quarantined = int(data.get("quarantined_total", 0))
+        self._rollbacks = int(data.get("rollbacks_total", 0))
         self._carried = {k: int(data.get(k, 0)) for k in self._CARRIED}
         self._recent_errors = list(data.get("recent_errors", []))[-ERROR_RING:]
 
@@ -323,6 +358,8 @@ class ColdService:
             "fused_total": self._fused_ids,
             "rejected_total": self._rejected,
             "novelty_rejected_total": self._novelty_rejected,
+            "quarantined_total": self._quarantined,
+            "rollbacks_total": self._rollbacks,
             **{k: self._carried.get(k, 0) for k in self._CARRIED},
             "recent_errors": list(self._recent_errors),
             "entries": list(self._entries.values()),
@@ -354,6 +391,105 @@ class ColdService:
 
     def _gc_consumed(self) -> None:
         self._retire_consumed(seam=True)
+
+    # -- the forgetting regression gate ---------------------------------
+    def _init_gate(self) -> None:
+        """Adopt, replay or establish the durable gate baseline: state at
+        the repository's iteration is adopted; state behind it means a
+        publish landed whose verdict a crash swallowed, so the current base
+        is probed and the verdict applied now (the probes are
+        deterministic, so it is the verdict that was lost); no state, or
+        state ahead of the repository, re-baselines on the current base."""
+        state = None
+        try:
+            state = ckpt.load_json(self._gate_path)
+        except FileNotFoundError:
+            pass
+        if state is not None:
+            try:
+                it = int(state["iteration"])
+                scores = {k: float(v) for k, v in state["scores"].items()}
+            except (KeyError, TypeError, ValueError, AttributeError):
+                warnings.warn("gate_state.json unreadable — re-baselining on the current base")
+                state = None
+        repo = self.repo
+        if state is not None and it == repo.iteration:
+            self._gate_baseline, self._gate_iteration = scores, it
+            return
+        if state is not None and it < repo.iteration:
+            self._gate_baseline, self._gate_iteration = scores, it
+            self._apply_gate_verdict(self.gate.check(scores, repo.flat_base()))
+            return
+        if state is not None:
+            warnings.warn(f"gate_state.json names iteration {it} but the repository is at "
+                          f"{repo.iteration} — re-baselining")
+        self._rebaseline_gate()
+
+    def _rebaseline_gate(self) -> None:
+        """Score the current base as the new known-good baseline and
+        persist it atomically."""
+        self._gate_baseline = self.gate.probes.score(self.repo.flat_base())
+        self._gate_iteration = self.repo.iteration
+        ckpt.save_json_atomic(self._gate_path, {
+            "version": 1, "iteration": self._gate_iteration, "scores": self._gate_baseline})
+
+    def _apply_gate_verdict(self, report: ProbeReport) -> Dict[str, Any]:
+        """Act on the probe comparison of the just-published base.  Clean:
+        the baseline advances (durably).  Tripped: the consumed cohort is
+        quarantined, then the repository rolls back to the baseline
+        iteration with the staged next cohort kept.  While the bad base is
+        current its iteration is ahead of ``gate_state.json``, which is what
+        makes a restarted daemon replay this verdict.  Returns the gate
+        event for the metrics series."""
+        faults.crash_point("service.post_probe")
+        self._last_gate = report.to_json()
+        repo = self.repo
+        if report.ok:
+            self._rebaseline_gate()
+            return {"event": "probe", "ok": True, "family": "main",
+                    "iteration": repo.iteration, "probe": self._last_gate}
+        bad_iteration = repo.iteration
+        moved = self._quarantine_consumed()
+        self._emit_metrics({
+            "event": "quarantine", "iteration": bad_iteration, "family": "main",
+            "quarantined": moved, "quarantined_total": self._quarantined,
+            "regressed": report.regressed, "worst_delta": report.worst,
+        })
+        faults.crash_point("service.post_quarantine")
+        repo.rollback(self._gate_iteration, keep_staged=True)
+        self._failed_cohort_size = None  # the staged cohort is unrelated
+        self._emit_metrics({
+            "event": "rollback", "from_iteration": bad_iteration, "family": "main",
+            "to_iteration": self._gate_iteration, "rollbacks_total": self._rollbacks,
+            "probe": self._last_gate,
+        })
+        return {"event": "rollback", "ok": False, "family": "main",
+                "from_iteration": bad_iteration, "to_iteration": self._gate_iteration,
+                "quarantined": moved, "probe": self._last_gate}
+
+    def _quarantine_consumed(self) -> int:
+        """Move the consumed cohort's queue files into ``<root>/quarantine/``
+        (``os.replace``, file before entry, as GC orders it: a crash leaves
+        an orphan entry the replayed verdict finishes, never an orphan queue
+        file that could fuse again).  The counters ride the same queue
+        manifest write as the entry drops, so they stay exact across a
+        crash; one trip is one rollback."""
+        staged = self.repo.staged_spill_files()
+        moved = 0
+        for sub_id, e in list(self._entries.items()):
+            if f"{QUEUE_DIR}/{e['file']}" in staged:
+                continue  # the next cohort, still staged
+            src = os.path.join(self.queue_dir, e["file"])
+            if os.path.exists(src):
+                os.makedirs(self.quarantine_dir, exist_ok=True)
+                os.replace(src, os.path.join(self.quarantine_dir, e["file"]))
+            del self._entries[sub_id]
+            self._quarantined += 1
+            moved += 1
+        if moved:
+            self._rollbacks += 1
+            self._write_queue_manifest()
+        return moved
 
     # -- admission ------------------------------------------------------
     def _scan_new(self) -> List[str]:
@@ -607,17 +743,24 @@ class ColdService:
     # -- the poll cycle -------------------------------------------------
     def run_once(self) -> Dict[str, Any]:
         """One cycle: admit arrivals, dispatch (or finalize) per the cohort
-        policy, GC consumed submissions, publish status, append metrics.
-        Returns the status it published."""
+        policy, gate the publish when armed, GC consumed submissions,
+        compact on policy, publish status, append metrics.  Returns the
+        status it published."""
         self._cycle += 1
         adm = self._admit()
         repo = self.repo
         it_before = repo.iteration
+        gate_event = None
         if self._should_fuse():
             try:
-                # finalizes any in-flight fuse, then launches the staged
-                # cohort: the card fuses while the next cycles drain the queue
-                repo.fuse_pending(wait=False)
+                if self.gate is not None:
+                    # gated: synchronous, so no second cohort dispatches
+                    # against a base the gate may roll back
+                    repo.fuse_pending(wait=True)
+                else:
+                    # finalizes any in-flight fuse, then launches the staged
+                    # cohort: the card fuses while the next cycles drain
+                    repo.fuse_pending(wait=False)
                 self._cohort_since = None
                 self._last_error = None
                 faults.crash_point("service.post_dispatch")
@@ -632,10 +775,18 @@ class ColdService:
                 self._note_error(err)
         if repo.iteration != it_before:
             faults.crash_point("service.post_publish")
+            if self.gate is not None:
+                gate_event = self._apply_gate_verdict(
+                    self.gate.check(self._gate_baseline, repo.flat_base()))
             self._gc_consumed()
+            if self.policy.compact_keep_bases is not None and not repo.inflight:
+                # only while quiescent: compact's flush would otherwise
+                # finalize the fuse just dispatched; a deferred compaction
+                # runs on the cycle that publishes it
+                repo.compact(keep_bases=self.policy.compact_keep_bases)
         st = self.status(admitted=adm["admitted"], queue_depth=adm["queue_depth"])
         ckpt.save_json_atomic(self._status_path, st)
-        self._emit_cycle_metrics(st)
+        self._emit_cycle_metrics(st, gate_event)
         return st
 
     # -- metrics time series --------------------------------------------
@@ -645,13 +796,14 @@ class ColdService:
         ckpt.append_jsonl(self._metrics_path, {"t": time.time(), **record},
                           rotate_bytes=METRICS_ROTATE_BYTES)
 
-    def _emit_cycle_metrics(self, st: Dict[str, Any]) -> None:
-        """The per-cycle record, for every cycle that changed anything plus
-        the first; idle polls are skipped."""
+    def _emit_cycle_metrics(self, st: Dict[str, Any],
+                            gate_event: Optional[Dict[str, Any]] = None) -> None:
+        """The per-cycle record, for every cycle that changed anything (a
+        gate event included) plus the first; idle polls are skipped."""
         mark = (st["iteration"], st["staged"], st["admitted"],
                 st["fused_queue_submissions"], st["rejected_total"],
                 st["quarantined_total"], st["rollbacks_total"], st["last_error"])
-        if mark == self._metrics_mark:
+        if mark == self._metrics_mark and gate_event is None:
             return
         self._metrics_mark = mark
         last = st["last_fuse"]
@@ -670,7 +822,7 @@ class ColdService:
             "novelty_rejected_total": st["novelty_rejected_total"],
             "quarantined_total": st["quarantined_total"],
             "rollbacks_total": st["rollbacks_total"],
-            "probe": None,
+            "probe": None if gate_event is None else gate_event.get("probe"),
             "last_error": st["last_error"],
         })
 
@@ -731,7 +883,7 @@ class ColdService:
     def status(self, *, admitted: int = 0, queue_depth: Optional[int] = None) -> Dict[str, Any]:
         """The fields contributors and operators poll, persisted atomically
         to ``<root>/service_status.json`` every cycle (the reference's
-        keys; the unported features report their idle values)."""
+        keys; routing and serving report their idle values)."""
         repo = self.repo
         last = repo.history[-1] if repo.history else None
         return {
@@ -750,10 +902,10 @@ class ColdService:
             "sketch_entries": (None if repo.cohort_sketch is None
                                else len(repo.cohort_sketch)),
             "recent_rejects": list(self._rejects),
-            "gate": False,
-            "quarantined_total": self._carried.get("quarantined_total", 0),
-            "rollbacks_total": self._carried.get("rollbacks_total", 0),
-            "last_gate": None,
+            "gate": self.gate is not None,
+            "quarantined_total": self._quarantined,
+            "rollbacks_total": self._rollbacks,
+            "last_gate": self._last_gate,
             "routing": False,
             "fuse_latency_s": last.wall_time if last else None,
             "last_fuse": None if last is None else {

@@ -14,8 +14,9 @@ per call.
 
 Seams in the port: ``client.mid_submit``, ``service.post_ingest``,
 ``service.post_sketch``, ``service.post_dispatch``,
-``service.post_publish``, ``service.mid_gc`` and
-``repo.post_publish_pre_manifest``.
+``service.post_publish``, ``service.post_probe``,
+``service.post_quarantine``, ``service.mid_gc``,
+``repo.post_publish_pre_manifest`` and ``repo.mid_rollback``.
 """
 from __future__ import annotations
 

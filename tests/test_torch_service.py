@@ -23,6 +23,7 @@ from repro.utils import flat as jflat
 from repro_torch.checkpoint import io as tio
 from repro_torch.core.repository import Repository as TRepository
 from repro_torch.serve import cold_service as tcs
+from repro_torch.serve.probes import ProbeSuite, RegressionGate
 from repro_torch.utils import flat as tflat
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -283,27 +284,73 @@ def test_launcher_drains_a_queue_on_the_cpu(tmp_path):
     assert refused.returncode == 2 and "--mesh" in refused.stderr and "not ported" in refused.stderr
 
 
+def test_launcher_runs_gated_compacting_with_spill_workers(tmp_path):
+    """The daemon with --gate --compact-keep 2 --spill-workers 2: two honest
+    cohorts publish through the gate, and compaction leaves two bases."""
+    root = str(tmp_path / "R")
+    base = _ttree(_base())
+    tio.save(str(tmp_path / "base.npz"), base)
+    spec = tflat.FlatSpec.from_tree(base)
+    b0 = spec.flatten(base)
+    rows = [b0 + 0.01 * (i + 1) for i in range(4)]
+    for i in range(2):
+        tcs.ContributorClient(root, f"c{i}").submit(row=rows[i], spec=spec, base_iteration=0)
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve_repository", "--device", "cpu",
+           "--root", root, "--min-cohort", "2", "--max-iterations", "1", "--poll", "0.01",
+           "--gate", "--compact-keep", "2", "--spill-workers", "2"]
+    proc = subprocess.run(cmd + ["--init-npz", str(tmp_path / "base.npz")], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    for i in (2, 3):
+        tcs.ContributorClient(root, f"c{i}").submit(row=rows[i], spec=spec, base_iteration=1)
+    cmd[cmd.index("--max-iterations") + 1] = "2"
+    proc = subprocess.run(cmd, env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert "stopped at iteration 2: 2 fuses, 4 contributions fused" in proc.stdout
+    assert "0 quarantined, 0 rollbacks" in proc.stdout
+    assert sorted(f for f in os.listdir(root) if f.startswith("base_iter")) == [
+        "base_iter0001.npz", "base_iter0002.npz"]
+    assert tio.load_json(os.path.join(root, "gate_state.json"))["iteration"] == 2
+    got = TRepository.open(root, device="cpu").flat_base_host().numpy()
+    want = (b0 + 0.035).numpy()  # the mean of rows 2 and 3
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+
+
 def test_unported_paths_raise(tmp_path):
     base = _ttree(_base())
     with pytest.raises(NotImplementedError, match="mesh"):
         TRepository(base, mesh=object())
-    with pytest.raises(NotImplementedError, match="spill_workers"):
-        TRepository(base, root=str(tmp_path / "R0"), spill=True, spill_workers=2)
     repo = TRepository(base, root=str(tmp_path / "R"), spill=True)
-    for call in (lambda: repo.rollback(0), lambda: repo.compact(),
-                 lambda: repo.contribute_async(base)):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            call()
-    with pytest.raises(NotImplementedError, match="gate"):
-        tcs.ColdService(repo, gate=object())
     with pytest.raises(NotImplementedError, match="family"):
         tcs.ColdService(repo, family=object())
-    with pytest.raises(NotImplementedError, match="compact_keep_bases"):
-        tcs.ColdService(repo, policy=tcs.AdmissionPolicy(compact_keep_bases=2))
     with pytest.raises(NotImplementedError, match="routing"):
         tcs.ColdService(repo, policy=tcs.AdmissionPolicy(max_bases=2))
     with pytest.raises(ValueError, match="spill=True"):
         tcs.ColdService(TRepository(base, root=str(tmp_path / "R2")))
+
+
+def test_lifecycle_paths_run_where_they_raised(tmp_path):
+    """What the port refused before the lifecycle slice now runs:
+    spill_workers, rollback, compact, contribute_async, publish listeners,
+    gate= and compact_keep_bases (their parity is in
+    tests/test_torch_lifecycle.py)."""
+    base = _ttree(_base())
+    repo = TRepository(base, root=str(tmp_path / "R"), spill=True, spill_workers=2)
+    seen = []
+    repo.add_publish_listener(lambda it, tree, flat: seen.append(it))
+    rec = repo.contribute_async(_ttree(_shifted(_base(), 0.5)))
+    assert rec.op == "async-damped(1.000)" and repo.iteration == 1
+    repo.rollback(0)
+    torch.testing.assert_close(repo.flat_base_host(), tflat.FlatSpec.from_tree(base).flatten(base),
+                               rtol=0, atol=0)
+    assert repo.compact() == {"bases_removed": 0, "rows_removed": 0}
+    assert seen == [1, 0]
+    gate = RegressionGate(ProbeSuite(repo.flat_base().numel(), seed=0))
+    svc = tcs.ColdService(repo, policy=tcs.AdmissionPolicy(compact_keep_bases=2), gate=gate)
+    st = svc.status()
+    assert st["gate"] and st["last_gate"] is None and st["rollbacks_total"] == 0
+    assert tio.load_json(os.path.join(str(tmp_path / "R"), "gate_state.json"))["iteration"] == 0
 
 
 def test_admission_rejects_bad_compressed_rows_and_checksums(tmp_path):
