@@ -107,10 +107,35 @@ Phases (any failed check raises, so the script exits non-zero):
    path's tokens once more and once with the kernels' plain versions, and
    the logits and greedy tokens are compared.
 
-Before each of phases 6, 7 and 8, and before each model of phase 9, every
+10. similarity routing over a base family (slice 6), at the same width in
+   its own temporary root, after phase 9: ``RepositoryFamily.create`` on the
+   card from phase 7's seed-0 body behind ``ColdService(family=)`` (min
+   cohort 2, ``max_bases`` 3, ``split_threshold`` 0.8, ``cross_fuse_every``
+   4, the novelty screen, compaction to 2 bases).  Round 0: two task streams
+   (``tests/test_routing.py``'s tile-constant direction, 2 contributors each,
+   base + 0.01 (c + 1) pat) declare ``main``; the family must end with
+   exactly two members on the card, each the fuse of its own stream (1 bf16
+   ulp, +1 f32 ulp of the operands where the result cancels).  Round 1:
+   every contributor finds its member (``route_of``, ``wait_for_family``,
+   ``download_base(family=)``), one row per stream compressed (64 of every
+   1024 elements at 16x, so the codec keeps it whole) fuses in its member
+   through ``decode_accum``; a compressed row of the other stream's
+   direction declaring ``main`` is rejected stale.  Every route's distance
+   is printed and held (same stream < 0.6, across streams >= 1.0) before the
+   decisions are checked.  After 4 member publishes the quiescent family
+   cross-fuses once: both members on the mean of the pre-cross bases.
+   Launches are exact (``cold_fuse`` 4, ``decode_accum`` 2, ``row_sketch``
+   8); the route decisions, ``spawn``, ``cross_fuse`` and each round's submit
+   and serve are timed; the status ``families`` map and the routes ring are
+   printed.  Then four real finetunes (2 contributors x tasks 8 and 9, 3
+   steps from one base) are scored by ``FamilyRouter`` against each other
+   and printed beside ``split_threshold``, not asserted.
+
+Before each of phases 6, 7, 8 and 10, and before each model of phase 9, every
 kernel's launch counter is set to 0; it is read just after.  The last lines
 are the kernels' JSON record (launches from phase 7 for the three fuse
-kernels, from phase 9 for the other two), ``nvidia-smi``'s line and
+kernels, with phase 10's as ``launches_routed``, from phase 9 for the other
+two), ``nvidia-smi``'s line and
 ``{"ok": true, "device": {...}}``.  Without a card (or without the rest of
 the repository beside it) the script exits non-zero and prints no result.
 """
@@ -136,7 +161,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src
 
 from repro_torch.configs import CONFIG, TINY, get_config, reduce_config  # noqa: E402
 from repro_torch.core import (Contributor, EvalTask, Repository,  # noqa: E402
-                              evaluate_base_model, fusion, run_cold_fusion)
+                              RepositoryFamily, evaluate_base_model, fusion, run_cold_fusion)
 from repro_torch.data.synthetic import SyntheticSuite  # noqa: E402
 from repro_torch.checkpoint import io as ckpt  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
@@ -162,8 +187,8 @@ from repro_torch.serve.cold_service import (AdmissionPolicy, ColdService,  # noq
                                             ContributorClient)
 from repro_torch.serve.probes import MultitaskEvals, ProbeSuite, RegressionGate  # noqa: E402
 from repro_torch.core.validation import screen_norms  # noqa: E402
-from repro_torch.utils.flat import (LANE, CohortSketch, FlatSpec, delta_decode,  # noqa: E402
-                                    delta_encode)
+from repro_torch.utils.flat import (LANE, CohortSketch, FamilyRouter, FlatSpec,  # noqa: E402
+                                    delta_decode, delta_encode)
 from repro_torch.utils.pytree import tree_leaves, tree_leaves_with_path, tree_map  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
@@ -207,6 +232,11 @@ NOVELTY = 0.01
 # distinct scales keep the norms within the MAD screen's cutoff
 HARM_NOISE = 10.0
 HARM_SCALES = tuple(HARM_NOISE * (1 + i / 4) for i in range(4))
+# the routed phase: each stream's row is base + ROUTE_S * (c + 1) * its task
+# direction (round 1 twice that), about 100 bf16 ulps of the body's typical
+# element (N(0, 0.02) init); the router's default split distance
+ROUTE_S = 0.01
+ROUTE_SPLIT = 0.8
 GEMMA = get_config("gemma3-1b")
 RWKV = get_config("rwkv6-7b")
 GEMMA_WINDOW = GEMMA.pattern[0].window  # the local layers' 512
@@ -1479,6 +1509,300 @@ def phase_lifecycle(workdir, card, service_split):
 
 
 # ---------------------------------------------------------------------------
+# slice 6: similarity routing over a base family (phase 10)
+# ---------------------------------------------------------------------------
+
+
+def task_pattern(t: int, n: int) -> torch.Tensor:
+    """``tests/test_routing.py``'s task direction at full width, on the card:
+    constant per 1024-element tile, -1 where (tile + t) is odd.  32 buckets
+    is even, so each bucket sees one sign and two tasks' projections are
+    exact opposites."""
+    tiles = -(-n // LANE)
+    sign = 1.0 - 2.0 * ((torch.arange(tiles, device="cuda") + t) % 2).float()
+    return sign.repeat_interleave(LANE)[:n]
+
+
+def sparse_pattern(t: int, n: int) -> torch.Tensor:
+    """The same direction as the codec keeps it whole: the first ``CODEC_KB``
+    of every ``CODEC_BLOCK`` elements at ``CODEC_BLOCK / CODEC_KB`` times the
+    size, zero elsewhere, so its tile sums (the sketch's projections) equal
+    the dense pattern's."""
+    keep = (torch.arange(n, device="cuda") % CODEC_BLOCK) < CODEC_KB
+    return torch.where(keep, task_pattern(t, n) * (CODEC_BLOCK // CODEC_KB), 0.0)
+
+
+def hold_fuse(got, base, rows, alpha, what):
+    """``got`` against ``base + alpha * (mean(rows) - base)`` (unit weights):
+    within 1 bf16 ulp of the exactly rounded value, and of
+    ``cold_fuse_plain``'s except where the result cancels, there within 1 f32
+    ulp of the operands (phase 8's rule).  Returns the two max|d| and the
+    count beyond 1 bf16 ulp of the plain version."""
+    a32 = float(np.float32(alpha))
+    b = base.double()
+    mean = sum(r.double() for r in rows) / len(rows)
+    exact = (b + a32 * (mean - b)).float().to(got.dtype)
+    err = fused_error(got, exact)
+    plain, _ = cold_fuse_plain(base.float(), torch.stack([r.float() for r in rows]),
+                               torch.ones(len(rows), device="cuda"), alpha)
+    g, p = got.float(), plain.to(got.dtype).float()
+    d = (g - p).abs()
+    beyond = d > bf16_ulp(torch.maximum(g.abs(), p.abs()))
+    operands = torch.maximum(b.abs(), (a32 * (mean - b)).abs()).float()
+    f32_ulp = torch.exp2(torch.floor(torch.log2(operands.clamp_min(2.0 ** -126))) - 23)
+    check(bool((d[beyond] <= f32_ulp[beyond]).all()),
+          f"{what}: differs from cold_fuse_plain by more than 1 bf16 ulp and the f32 rounding "
+          "of the operands")
+    return err, d.max().item(), int(beyond.sum())
+
+
+def delta_term(sk: CohortSketch, d, de) -> float:
+    """The router's delta-to-delta distance (``FamilyRouter.route``)."""
+    dn = FamilyRouter._delta_norm(d, sk.seg_elems)
+    den = max(dn, FamilyRouter._delta_norm(de, sk.seg_elems), CohortSketch.EPS)
+    return float(np.sqrt(np.sum((np.asarray(d) - np.asarray(de)) ** 2) / sk.seg_elems)) / den
+
+
+class Timed:
+    """Wraps a callable, recording the host seconds of each call (the card
+    synchronised before the clock stops)."""
+
+    def __init__(self, fn):
+        self.fn, self.seconds = fn, []
+
+    def __call__(self, *args, **kw):
+        t = time.perf_counter()
+        out = self.fn(*args, **kw)
+        torch.cuda.synchronize()
+        self.seconds.append(time.perf_counter() - t)
+        return out
+
+
+def phase_routing(workdir, card):
+    """Similarity routing over a RepositoryFamily at RoBERTa-base width
+    (phase 10): two task streams split into two members, a round at home
+    with compressed rows, a stale cross-family row, one cross-fuse."""
+    root = os.path.join(workdir, "routing")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    body = init_encoder_body(CONFIG, gen, device="cuda")
+    t = time.perf_counter()
+    fam = RepositoryFamily.create(body, root=root, spill=True)  # device defaults to cuda
+    del body
+    svc = ColdService(family=fam, policy=AdmissionPolicy(
+        min_cohort=2, max_bases=3, split_threshold=ROUTE_SPLIT, cross_fuse_every=4,
+        novelty_threshold=NOVELTY, compact_keep_bases=2))
+    setup_s = time.perf_counter() - t
+    main = fam.members["main"]
+    spec = FlatSpec.from_tree(main.download())
+    N = spec.size
+    check(N == N_ROBERTA and spec.dtype == "bfloat16" and main.device.type == "cuda",
+          f"family main is {N} {spec.dtype} on {main.device}")
+    route_t = Timed(svc._router.route)
+    svc._router.route = route_t
+    spawn_t = Timed(fam.spawn)
+    fam.spawn = spawn_t
+    cross_t = Timed(fam.cross_fuse)
+    fam.cross_fuse = cross_t
+    pats = [task_pattern(t, N) for t in range(2)]
+    clients = {(t, c): ContributorClient(root, f"t{t}c{c}") for t in range(2) for c in range(2)}
+    split = {"submit": [], "serve": []}
+
+    # round 0: both streams declare main at iteration 0
+    b0 = main.flat_base()
+    rows0, sid0 = {}, {}
+    t = time.perf_counter()
+    for (ti, c), cl in clients.items():
+        rows0[(ti, c)] = (b0.float() + ROUTE_S * (c + 1) * pats[ti]).to(torch.bfloat16)
+        sid0[(ti, c)] = cl.submit(row=rows0[(ti, c)], spec=spec, base_iteration=0,
+                                  family="main")
+    split["submit"].append(time.perf_counter() - t)
+    t = time.perf_counter()
+    st = serve_until(svc, lambda st: len(st["families"]) >= 2
+                     and all(f["iteration"] >= 1 for f in st["families"].values()))
+    split["serve"].append(time.perf_counter() - t)
+    client = ContributorClient(root, "observer")
+    home = {ti: client.route_of(sid0[(ti, 0)])["family"] for ti in range(2)}
+    # a publish installs a fresh row, so these stay each member's iteration 1
+    round0 = {n: m.flat_base() for n, m in fam.members.items()}
+
+    # every member listens: its round-1 publish is the cross-fuse's input
+    published = {}
+    for name, m in fam.members.items():
+        m.add_publish_listener(lambda it, tree, flat, name=name:
+                               published.__setitem__((name, it), flat))
+
+    # round 1: every contributor at its home, one row per stream compressed
+    # (kept whole by the codec); a row of stream 1's direction encoded
+    # against main and declaring main must be rejected stale
+    rows1, decoded = {}, {}
+    t = time.perf_counter()
+    for (ti, c), cl in clients.items():
+        h = cl.route_of(sid0[(ti, c)])["family"]
+        cl.wait_for_family(h, 1, timeout=60)
+        h_row = spec.flatten(cl.download_base(family=h))
+        check(h_row.device.type == "cuda", f"download_base(family={h}) on {h_row.device}")
+        step = ROUTE_S * (c + 1) * 2
+        if c == 0:
+            rows1[(ti, c)] = (h_row.float() + step * pats[ti]).to(torch.bfloat16)
+            cl.submit(row=rows1[(ti, c)], spec=spec, base_iteration=1, family=h)
+        else:
+            row = (h_row.float() + step * sparse_pattern(ti, N)).to(torch.bfloat16)
+            sid = cl.submit(row=row, spec=spec, base_iteration=1, family=h, compress=True,
+                            base=h_row, k_per_block=CODEC_KB, codec_block=CODEC_BLOCK)
+            (payload,), _ = ckpt.load_flat_delta(os.path.join(root, "queue", sid + ".npz"))
+            decoded[ti] = torch.from_numpy(delta_decode(payload, h_row.cpu())).cuda()
+            del row
+    m_row = spec.flatten(client.download_base(family="main"))
+    stray = 1 if home[0] == "main" else 0
+    forged = (m_row.float() + 3 * ROUTE_S * sparse_pattern(stray, N)).to(torch.bfloat16)
+    forger = ContributorClient(root, "forger").submit(
+        row=forged, spec=spec, base_iteration=1, family="main", compress=True, base=m_row,
+        k_per_block=CODEC_KB, codec_block=CODEC_BLOCK)
+    del forged
+    split["submit"].append(time.perf_counter() - t)
+    t = time.perf_counter()
+    st = serve_until(svc, lambda st: st["cross_fuses_total"] >= 1)
+    split["serve"].append(time.perf_counter() - t)
+    svc.close()
+
+    # the router's evidence first, so that a wrong split names its cause
+    for r in st["routes"]:
+        d = "none" if r["distance"] is None else f"{r['distance']:.4f}"
+        print(f"[route] {r['id']} -> {r['family']} (distance {d}, spawned {r['spawned']}): "
+              f"{r['reason']}")
+    for r in st["routes"]:
+        own = r["id"].split("-")[0]
+        ti = int(own[1])
+        if r["spawned"]:
+            check(r["distance"] >= 1.0, f"spawn route {r} scores below 1.0")
+        elif r["distance"] is not None:
+            check(r["distance"] < 0.6, f"same-stream route {r} scores 0.6 or more")
+        check(r["family"] == home[ti], f"{r['id']} of stream {ti} routed to {r['family']}, "
+              f"its stream's member is {home[ti]}")
+    sks = {n: m.cohort_sketch for n, m in fam.members.items()}
+    cross = []
+    for n, sk in sks.items():
+        for other, osk in sks.items():
+            if other == n:
+                continue
+            for e in sk.entries:
+                cross.append(min(delta_term(sk, e[3], oe[3]) for oe in osk.entries))
+    check(min(cross) >= 1.0, f"a cross-stream delta distance is below 1.0: {sorted(cross)[:4]}")
+    print(f"[routing] distances: same-stream routes "
+          f"{[round(r['distance'], 4) for r in st['routes'] if r['distance'] is not None and not r['spawned']]} "
+          f"(bound < 0.6), spawn {[round(r['distance'], 4) for r in st['routes'] if r['spawned']]} "
+          f"(bound >= 1.0), every windowed delta against the other member's nearest "
+          f"{min(cross):.4f}-{max(cross):.4f} (bound >= 1.0)")
+
+    # the routing decisions and what each member published
+    fams = st["families"]
+    check(sorted(fams) == ["f1", "main"] and st["families_spawned_total"] == 1,
+          f"expected exactly two members, got {sorted(fams)}")
+    check(home[0] != home[1], f"both streams routed to {home[0]}")
+    for n, m in fam.members.items():
+        check(m.flat_base().device.type == "cuda", f"member {n} lives on {m.device}")
+    errs = []
+    for ti in range(2):
+        h = home[ti]
+        errs.append(hold_fuse(round0[h], b0, [rows0[(ti, 0)], rows0[(ti, 1)]], 1.0,
+                              f"round 0 member {h}"))
+    rej = [r for r in st["recent_rejects"] if r["file"] == forger + ".npz"]
+    check(len(rej) == 1 and rej[0]["reason"].startswith(
+        f"stale: delta encoded against family 'main' but routed to member '{home[stray]}'"),
+        f"the cross-family compressed row must be rejected stale: {st['recent_rejects']}")
+    check(st["rejected_total"] == 1, f"rejected {st['rejected_total']}, expected 1")
+    pre = {}
+    for ti in range(2):
+        h = home[ti]
+        pre[h] = published[(h, 2)]
+        errs.append(hold_fuse(pre[h], round0[h], [rows1[(ti, 0)], decoded[ti]], 1.0,
+                              f"round 1 member {h}"))
+    check(st["cross_fuses_total"] == 1 and all(f["iteration"] == 3 for f in fams.values()),
+          f"cross-fuse: {st['cross_fuses_total']} rounds, iterations "
+          f"{ {n: f['iteration'] for n, f in fams.items()} }")
+    events = [r for r in ckpt.read_jsonl(os.path.join(root, "metrics.jsonl"))
+              if r["event"] in ("family_spawn", "cross_fuse")]
+    check([e["event"] for e in events] == ["family_spawn", "cross_fuse"],
+          f"metrics events {events}")
+    for n, m in fam.members.items():
+        errs.append(hold_fuse(m.flat_base(), pre[n], [pre[o] for o in pre if o != n], 0.5,
+                              f"cross-fuse member {n}"))
+        mean_err = fused_error(m.flat_base(), ((pre["main"].double() + pre["f1"].double()) / 2)
+                               .float().to(torch.bfloat16))
+        errs.append((mean_err, 0.0, 0))
+    print(f"[routing] round 0: 4 dense rows declared against main split into "
+          f"{sorted(fams)} (stream 0 -> {home[0]}, stream 1 -> {home[1]}); each member's "
+          f"base vs its own stream's fuse: max|d| {errs[0][0]:.3g} / {errs[1][0]:.3g} vs the "
+          f"exactly rounded value, {errs[0][1]:.3g} / {errs[1][1]:.3g} vs cold_fuse_plain "
+          f"(bound 1 bf16 ulp, +1 f32 ulp of the operands where the result cancels: "
+          f"{errs[0][2]} / {errs[1][2]} elements)")
+    print(f"[routing] round 1: each member fused 1 dense + 1 compressed row at home "
+          f"(decode_accum), vs its fuse over the dense and host-decoded rows max|d| "
+          f"{errs[2][0]:.3g} / {errs[3][0]:.3g}; the cross-family compressed row rejected: "
+          f"{rej[0]['reason']}")
+    print(f"[routing] cross-fuse after 4 member publishes, family quiescent: both members vs "
+          f"the mean of the two pre-cross bases max|d| {errs[5][0]:.3g} / {errs[7][0]:.3g} "
+          f"(bound 1 bf16 ulp); vs cold_fuse_plain at alpha 0.5 {errs[4][1]:.3g} / "
+          f"{errs[6][1]:.3g}")
+    print(f"[routing] status families: {json.dumps(fams)}")
+    print(f"[routing] routes ring: {json.dumps(st['routes'])}")
+    print(f"[time] routing on {card}: family create + service start {setup_s:.2f} s; route "
+          f"decision per submission (FamilyRouter.route) "
+          f"{[round(1e3 * x, 3) for x in route_t.seconds]} ms; spawn "
+          f"{[round(x, 2) for x in spawn_t.seconds]} s; cross_fuse "
+          f"{[round(x, 2) for x in cross_t.seconds]} s; per round, submit "
+          f"{[round(x, 2) for x in split['submit']]} s (round 1 with 3 compressed rows), serve "
+          f"(route, admit, stage, fuse, publish, compact; round 1 with the cross-fuse) "
+          f"{[round(x, 2) for x in split['serve']]} s")
+    del published, pre, round0, rows0, rows1, decoded, pats
+    return b0, spec
+
+
+def real_finetune_scores(b0, spec, card):
+    """What the router makes of real finetunes at full width (printed, not
+    asserted): 2 contributors x 2 synthetic tasks, 3 steps each from one
+    base, as phase 7 makes them; each row scored against every other row's
+    delta evidence, as ``FamilyRouter.route`` scores a rider against a
+    member holding that one entry."""
+    seq, batch = 128, 32
+    suite = SyntheticSuite(vocab_size=CONFIG.vocab_size, num_tasks=16, seed=0)
+    base = spec.unflatten(b0)
+    rows = {}
+    t = time.perf_counter()
+    for tid in (8, 9):
+        d = suite.dataset(tid, 128, 32, seq)
+        for c in range(2):
+            con = Contributor(CONFIG, tid, suite.tasks[tid].num_classes, d["x_train"],
+                              d["y_train"], steps=3, batch_size=batch, seed=100 * tid + c)
+            rows[(tid, c)] = spec.flatten(con.contribute(base))
+    torch.cuda.synchronize()
+    ft_s = time.perf_counter() - t
+    sk_base = kops.row_sketch(b0).double().cpu().numpy()
+    sketches = {k: kops.row_sketch(r).double().cpu().numpy() for k, r in rows.items()}
+    router = FamilyRouter(split_threshold=ROUTE_SPLIT, max_bases=2)
+    same, crossed = [], []
+    lines = []
+    for a in rows:
+        for b in rows:
+            if a == b:
+                continue
+            sk = CohortSketch(spec.size)
+            sk.set_base(sk_base, iteration=0)
+            sk.add("e", sketches[b], delta=sketches[b][0] - sk_base[0])
+            dec = router.route(sketches[a], {"main": sk}, declared="main", base_iteration=0)
+            score = dec.scores["main"]
+            (same if a[0] == b[0] else crossed).append(score)
+            lines.append(f"t{a[0]}c{a[1]} vs t{b[0]}c{b[1]} {score:.4f}")
+    print(f"[routing] real finetunes (RoBERTa-base, 2 contributors x tasks 8 and 9, 3 steps "
+          f"each from one base, {ft_s:.1f} s on {card}): router scores same-task "
+          f"{[round(x, 4) for x in same]}, cross-task {[round(x, 4) for x in crossed]} against "
+          f"split_threshold {ROUTE_SPLIT} (a score above it would split); "
+          f"{'separated' if min(crossed) > ROUTE_SPLIT >= max(same) else 'NOT separated'} at "
+          "this threshold (printed, not asserted)")
+    print("[routing] real-finetune pairs: " + "; ".join(lines))
+
+
+# ---------------------------------------------------------------------------
 # slice 3: the serving path (flash_attention, rwkv6_scan)
 # ---------------------------------------------------------------------------
 
@@ -2209,6 +2533,29 @@ def main() -> int:
         "rwkv6-7b", RWKV, RWKV_PROMPT, SERVE_NEW, RWKV_MAX_LEN, "rwkv6_scan",
         RWKV.num_layers * SERVE_NEW, smi,
         routes_least={"scan": RWKV.num_layers, "step": RWKV.num_layers * (SERVE_NEW - 1)})
+
+    # the routed service (slice 6), counts reset just before it
+    with tempfile.TemporaryDirectory(prefix="chip_smoke-") as workdir:
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t_route = time.perf_counter()
+        b0, spec = phase_routing(workdir, smi)
+        routed = launches()
+        print(f"[routing] launches on the routed path: {routed}; "
+              f"{time.perf_counter() - t_route:.1f} s")
+        print(f"[routing] torch.cuda.max_memory_allocated: "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    # worked out from the code (PERF.md): cold_fuse for each member's
+    # round-0 dense cohort and each member's cross-fuse; decode_accum for each
+    # member's mixed round-1 cohort; row_sketch for main's first base sketch,
+    # the spawned member's, and each of the 6 publishes (2 per round, 2 of
+    # the cross-fuse)
+    for kernel, want in (("cold_fuse", 4), ("decode_accum", 2), ("row_sketch", 8)):
+        check(routed[kernel] == want, f"{kernel} launched {routed[kernel]} times on the "
+              f"routed path, expected {want}")
+    real_finetune_scores(b0, spec, smi)
+    del b0
+    torch.cuda.empty_cache()
     print(f"[done] {time.perf_counter() - t0:.1f} s after the card check")
 
     def record(name, replaces, err, timing, source=None):
@@ -2231,13 +2578,15 @@ def main() -> int:
     rwkv["launches_by_route"] = rw_routes
     rwkv["routes"] = rw_lines
 
-    print(json.dumps({"kernels": [
+    fuse_kernels = [
         record("cold_fuse", "src/repro/kernels/cold_fuse.py:61", max_err,
                (ms, plain_ms, bound_ms, bound_by)),
         dict(record("decode_accum", "src/repro/kernels/cold_fuse.py:170", dec_err, dec),
              **dec_extra),
-        record("row_sketch", "src/repro/kernels/cold_fuse.py:253", sk_err, sk),
-        flash, rwkv]}))
+        record("row_sketch", "src/repro/kernels/cold_fuse.py:253", sk_err, sk)]
+    for rec in fuse_kernels:  # "launches" is phase 7's; the routed phase's beside it
+        rec["launches_routed"] = routed[rec["name"]]
+    print(json.dumps({"kernels": fuse_kernels + [flash, rwkv]}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}))
     return 0

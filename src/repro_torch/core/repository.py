@@ -50,12 +50,19 @@ from the in-memory snapshots or from its retained ``base_iterNNNN.npz``;
 ``compact`` deletes superseded bases and unreferenced archived rows;
 ``add_publish_listener`` subscribes to every base movement.
 
+``fuse_pending(buffer=)`` fuses an explicit ``[K, N]`` operand the caller
+owns (never written to), with ``alpha=``/``screen=``/``op=`` overrides.
+``RepositoryFamily`` keeps named members under one root (``main`` is the
+root itself, the others ``families/<name>/``): ``spawn`` seeds a member
+from another's base, ``cross_fuse`` moves every member toward the mean of
+the pre-cross bases through that explicit-operand fuse.
+
 The published base (``download()``) is a tree of views into the fused row,
 which is also the ``base`` operand of the next fuse: callers must not update
 it in place (``train.finetune`` clones what it trains).
 
-Not ported yet (each raises where the reference takes it): ``mesh=``,
-``fuse_pending(buffer=)``, ``RepositoryFamily`` and sharded files.
+Not ported yet (each raises where the reference takes it): ``mesh=`` and
+sharded files.
 """
 from __future__ import annotations
 
@@ -82,7 +89,7 @@ from repro_torch.utils.device import resolve_device
 from repro_torch.utils.flat import (SKETCH_BUCKETS, BufferPair, CohortSketch, FlatSpec,
                                     StagedBuffer, StagingSide, delta_decode, delta_entries,
                                     sketch_apply_delta)
-from repro_torch.utils.pytree import tree_device
+from repro_torch.utils.pytree import tree_device, tree_map
 
 # operators the flat engine covers; the others (fisher, ties) fuse per leaf
 FLAT_OPS = ("average", "damped", "task_arithmetic")
@@ -121,6 +128,11 @@ class PendingFusion:
     k: int
     t0: float
     record: Optional[FusionRecord] = None
+    # overrides of fuse_pending(buffer=, alpha=, screen=, op=); None defers
+    # to the repository's configuration
+    alpha: Optional[float] = None
+    use_screen: Optional[bool] = None
+    op: Optional[str] = None
 
     @property
     def done(self) -> bool:
@@ -222,6 +234,8 @@ class Repository:
         self.cohort_sketch: Optional[CohortSketch] = None
         # opaque repository.json keys (a family manifest) carried verbatim
         self.extra_meta: Dict[str, Any] = {}
+        # the member name under a RepositoryFamily (None outside one)
+        self.family_name: Optional[str] = None
         if root:
             os.makedirs(root, exist_ok=True)
             self._persist_base()
@@ -397,9 +411,19 @@ class Repository:
             # decoded only at dispatch, against the vintage declared here
             entry["compressed"] = True
             entry["codec"] = meta.get("delta_spec")
-            bi = (meta.get("extra") or {}).get("base_iteration")
+            extra = meta.get("extra") or {}
+            bi = extra.get("base_iteration")
             if bi is not None:
                 entry["base_iteration"] = int(bi)
+            # the family-vintage backstop: a delta decodes only against the
+            # member it was encoded from, for direct callers too
+            if self.family_name is not None:
+                declared = str(extra.get("family") or "main")
+                if declared != self.family_name:
+                    raise ValueError(
+                        f"stale: delta encoded against family {declared!r}, but this member "
+                        f"is {self.family_name!r} — refusing to decode against the wrong base")
+                entry["family"] = declared
         side.rows.append(path)
         side.fishers.append(None)
         side.weights.append(weight)
@@ -653,17 +677,27 @@ class Repository:
         return {"bases_removed": n_bases, "rows_removed": len(rows)}
 
     # -- fuse -----------------------------------------------------------
-    def fuse_pending(self, buffer=None, *, wait: bool = True
+    def fuse_pending(self, buffer=None, *, wait: bool = True, alpha: Optional[float] = None,
+                     screen: Optional[bool] = None, op: Optional[str] = None
                      ) -> Union[FusionRecord, PendingFusion]:
         """Screen + fuse the staged cohort into the new base (Fig. 1,
         step 4).  Finalizes any in-flight fuse, swaps the front staging
         buffer to the back and launches the fuse.  ``wait=False`` returns a
         ``PendingFusion`` at once; ``flush()`` (or the next
         ``fuse_pending``/``download``) screens and publishes it.  On the
-        per-leaf engine ``wait`` is ignored (the fuse is synchronous)."""
-        if buffer is not None:
-            raise _not_ported("fuse_pending(buffer=)")
+        per-leaf engine ``wait`` is ignored (the fuse is synchronous).
+
+        ``buffer=`` fuses an explicit ``[K, N]`` operand instead (a
+        ``StagedBuffer`` or a tensor of the base's dtype and device), leaving
+        the staging buffers alone; ``alpha=`` overrides the step size,
+        ``screen=`` the §9 screen and ``op=`` the record's label (the
+        family cross-fuse uses all three).  The overrides need
+        ``buffer=``."""
         self._finalize_inflight()
+        if buffer is not None:
+            return self._fuse_buffer(buffer, wait=wait, alpha=alpha, screen=screen, op=op)
+        if alpha is not None or screen is not None or op is not None:
+            raise ValueError("alpha=/screen=/op= overrides require buffer=")
         if not self._buffers.front.rows:
             raise RuntimeError("no contributions to fuse")
         t0 = time.time()
@@ -688,6 +722,37 @@ class Repository:
         if wait:
             return self._finalize_inflight()
         return pf
+
+    def _fuse_buffer(self, buffer, *, wait: bool, alpha: Optional[float],
+                     screen: Optional[bool], op: Optional[str]
+                     ) -> Union[FusionRecord, PendingFusion]:
+        """Fuse an explicit operand (``fuse_pending(buffer=...)``).  The
+        operand belongs to the caller: the kernel reads it and writes only
+        a fresh output row."""
+        if not self.use_flat:
+            raise ValueError("fuse_pending(buffer=...) requires the flat engine")
+        if not isinstance(buffer, StagedBuffer):
+            buffer = StagedBuffer(torch.as_tensor(buffer))
+        data = buffer.data
+        if data.dim() != 2 or data.shape[1] != self._spec.size:
+            raise ValueError(f"staged buffer shape {tuple(data.shape)} does not match the "
+                             f"flat layout [K, {self._spec.size}]")
+        t0 = time.time()
+        K = buffer.k
+        w = self._cohort_weights(K, [])
+        use_screen = self.screen if screen is None else bool(screen)
+        a = self._flat_alpha(K) if alpha is None else float(alpha)
+        fused, sq = self._fuse_flat(buffer, w, a)
+        pf = PendingFusion(stage=buffer if use_screen else None, fused=fused, sq=sq,
+                           weights=w, k=K, t0=t0,
+                           alpha=None if alpha is None else float(alpha),
+                           use_screen=None if screen is None else use_screen, op=op)
+        if not wait:
+            self._inflight = pf
+            return pf
+        rec = self._finalize_flat(pf)
+        self._after_publish(rec)
+        return rec
 
     def flush(self) -> Optional[FusionRecord]:
         """Quiesce: finalize the in-flight fuse, if any, and drain every
@@ -853,7 +918,8 @@ class Repository:
         fused = pf.fused
         report: Optional[ScreenReport] = None
         n_accepted = pf.k
-        if self.screen:
+        use_screen = self.screen if pf.use_screen is None else pf.use_screen
+        if use_screen:
             report = screen_norms(norms_from_sq(pf.sq), mad_threshold=self.mad_threshold)
             n_accepted = len(report.accepted)
             if not report.accepted:
@@ -861,13 +927,14 @@ class Repository:
             if report.rejected:
                 w2 = pf.weights.clone()
                 w2[report.rejected] = 0.0
-                fused, _ = self._fuse_flat(pf.stage, w2, self._flat_alpha(n_accepted))
+                alpha = self._flat_alpha(n_accepted) if pf.alpha is None else pf.alpha
+                fused, _ = self._fuse_flat(pf.stage, w2, alpha)
         _sync(fused)
         rec = FusionRecord(
             iteration=self.iteration,
             n_contributions=pf.k,
             n_accepted=n_accepted,
-            op=self.fusion_op,
+            op=pf.op or self.fusion_op,
             diff_norms=report.diff_norms if report else [],
             wall_time=time.time() - pf.t0,
         )
@@ -1158,3 +1225,180 @@ class Repository:
                     warnings.warn(f"cohort sketch was built for N={sk.size} rows but the "
                                   f"base is N={spec.size} — ignoring it")
         return repo
+
+
+# ---------------------------------------------------------------------------
+# RepositoryFamily — named bases under one root
+# ---------------------------------------------------------------------------
+
+FAMILY_DIR = "families"
+
+
+def family_member_root(root: str, name: str) -> str:
+    """Filesystem root of a family member: ``main`` IS the top-level root
+    (a single-base repository and a one-member family share one layout);
+    every other member owns a whole repository layout (queue, staging
+    manifest, sketch, gate state, bases) under ``<root>/families/<name>/``."""
+    return root if name == "main" else os.path.join(root, FAMILY_DIR, name)
+
+
+class RepositoryFamily:
+    """A named family of Repository members sharing one on-disk root (port
+    of ``repro.core.repository.RepositoryFamily``; the same files).
+
+    The family manifest is the ``"families"`` key of the top-level
+    ``repository.json`` (main's meta): member name → ``{root, seeded_from,
+    seed_iteration, created_at}``.  ``open`` on a single-base root migrates
+    it in place by writing ``{"main": {"root": "."}}``; no file moves.
+
+    Every member lives on the family's device (``member_kw["device"]``),
+    spawned ones included.  ``spawn`` persists the member's directory
+    before its manifest entry: a crash between the two (the
+    ``repo.post_family_spawn`` seam) leaves a directory the next spawn of
+    the same name adopts.  ``cross_fuse`` fuses every member toward the
+    OTHER members' pre-cross bases with step ``alpha·(M−1)/M``, so at
+    ``alpha=1`` each lands on the mean of all pre-cross bases."""
+
+    def __init__(self, main: Repository, *, member_kw: Optional[Dict[str, Any]] = None):
+        if not main.root:
+            raise ValueError("RepositoryFamily requires an on-disk root")
+        self.root = main.root
+        self.member_kw = dict(member_kw or {})
+        self.member_kw.setdefault("device", main.device)
+        main.family_name = "main"
+        self.members: Dict[str, Repository] = {"main": main}
+        self._meta: Dict[str, Dict[str, Any]] = {"main": {"root": "."}}
+
+    @classmethod
+    def create(cls, base_params, *, root: str, device="cuda", **kw) -> "RepositoryFamily":
+        """Initialise a NEW family on ``device``: a main member at ``root``
+        (``base_params`` moved there) plus the manifest.  ``kw`` goes to
+        the Repository constructor and is remembered for spawned members."""
+        dev = resolve_device(device)
+        main = Repository(tree_map(lambda x: x.to(dev), base_params), root=root, **kw)
+        fam = cls(main, member_kw=dict(kw, device=dev))
+        fam._write_family_manifest()
+        return fam
+
+    @classmethod
+    def open(cls, root: str, *, device="cuda", **kw) -> "RepositoryFamily":
+        """Open an on-disk family written by either package (or migrate a
+        single-base root in place) on ``device``.  ``kw`` goes to every
+        member's ``Repository.open`` and is remembered for spawns."""
+        dev = resolve_device(device)
+        main = Repository.open(root, device=dev, **kw)
+        fam = cls(main, member_kw=dict(kw, device=dev))
+        meta = main.extra_meta.get("families")
+        if meta is None:
+            fam._write_family_manifest()
+            return fam
+        fam._meta = {str(n): dict(e) for n, e in meta.items()}
+        fam._meta.setdefault("main", {"root": "."})
+        for name in sorted(fam._meta):
+            if name == "main":
+                continue
+            member = Repository.open(os.path.join(root, fam._meta[name]["root"]),
+                                     **fam.member_kw)
+            member.family_name = name
+            fam.members[name] = member
+        fam._install_manifest()
+        return fam
+
+    def __len__(self) -> int:
+        return len(self.members)
+
+    def member_root(self, name: str) -> str:
+        return family_member_root(self.root, name)
+
+    def _install_manifest(self) -> None:
+        """Give main's ``extra_meta`` a copy of the manifest that is never
+        mutated afterwards: a publish task on a spill worker renders and
+        writes it while the family may be spawning."""
+        self.members["main"].extra_meta["families"] = {
+            n: dict(e) for n, e in self._meta.items()}
+
+    def _write_family_manifest(self) -> None:
+        """Persist the manifest into the top-level repository.json under
+        main's publish lock, where every publish writes the same file.
+        Only the ``families`` key of the file on disk changes, so the
+        recorded iteration never names a base still queued for writing;
+        ``_persist_base`` re-merges the live ``extra_meta``, so an older
+        publish never clobbers a newer manifest."""
+        main = self.members["main"]
+        path = os.path.join(self.root, "repository.json")
+        with main._publish_lock:
+            self._install_manifest()
+            meta = ckpt.load_json(path)
+            meta["families"] = main.extra_meta["families"]
+            ckpt.save_json_atomic(path, meta, default=_json_default)
+
+    def spawn(self, *, seed_family: str = "main", seed_iteration: Optional[int] = None,
+              name: Optional[str] = None) -> str:
+        """Create (or crash-adopt) a member seeded from ``seed_family``'s
+        base at ``seed_iteration`` (its current base when None, or when that
+        vintage's npz is gone).  Names are deterministic (``f1``, ``f2``,
+        … smallest free), so a spawn replayed after a crash lands on the
+        same member.  The member lives on the family's device."""
+        src = self.members[seed_family]
+        if name is None:
+            k = 1
+            while f"f{k}" in self._meta or f"f{k}" in self.members:
+                k += 1
+            name = f"f{k}"
+        if name in self.members:
+            raise ValueError(f"family member {name!r} already exists")
+        mroot = self.member_root(name)
+        it = src.iteration if seed_iteration is None else int(seed_iteration)
+        if os.path.exists(os.path.join(mroot, "repository.json")):
+            # persisted by a spawn that crashed before its manifest entry
+            member = Repository.open(mroot, **self.member_kw)
+        else:
+            seed_path = os.path.join(src.root, f"base_iter{it:04d}.npz")
+            if not os.path.exists(seed_path):
+                # the declared vintage was compacted away (or is not yet
+                # durable): seed from the source's current base
+                src.flush()
+                it = src.iteration
+                src._persist_base()
+                seed_path = os.path.join(src.root, f"base_iter{it:04d}.npz")
+            kw = dict(fusion_op=src.fusion_op, fusion_kwargs=src.fusion_kwargs,
+                      screen=src.screen, mad_threshold=src.mad_threshold)
+            kw.update(self.member_kw)
+            dev = kw.pop("device")
+            member = Repository(ckpt.load(seed_path, device=dev), root=mroot, **kw)
+        member.family_name = name
+        self.members[name] = member
+        faults.crash_point("repo.post_family_spawn")
+        self._meta[name] = {
+            "root": f"{FAMILY_DIR}/{name}",
+            "seeded_from": seed_family,
+            "seed_iteration": it,
+            "created_at": time.time(),
+        }
+        self._write_family_manifest()
+        return name
+
+    def cross_fuse(self, *, alpha: float = 1.0) -> Dict[str, FusionRecord]:
+        """Fuse every member toward the mean of the OTHER members' bases
+        (``fuse_pending(buffer=)``, the §9 screen off, step
+        ``alpha·(M−1)/M``).  Every pre-cross base is taken before the first
+        member moves, and each member's operand is a fresh stack of them,
+        so the update is simultaneous: at ``alpha=1`` every member lands on
+        the mean of all pre-cross bases.  Each publish runs the whole
+        pipeline (record, iteration, persist, sketch, listeners).  A family
+        of one returns ``{}``."""
+        names = sorted(self.members)
+        if len(names) < 2:
+            return {}
+        for n in names:
+            self.members[n].flush()
+        # a publish installs a fresh row and never writes into the old one
+        bases = {n: self.members[n].flat_base() for n in names}
+        ak = float(alpha) * (len(names) - 1) / len(names)
+        recs: Dict[str, FusionRecord] = {}
+        for n in names:
+            stage = StagedBuffer.from_rows([bases[o] for o in names if o != n])
+            recs[n] = self.members[n].fuse_pending(
+                buffer=stage, wait=True, alpha=ak, screen=False,
+                op=f"cross_fuse(alpha={alpha:g})")
+        return recs

@@ -1,11 +1,14 @@
 """Launch the queue-driven fusion daemon over an on-disk repository (port of
-``repro.launch.serve_repository``, single base, single device).
+``repro.launch.serve_repository``, single device).
 
 Opens (or initialises) a spill-enabled Repository at ``--root`` on
 ``--device`` (default ``cuda``; the daemon raises without a card unless
 ``--device cpu`` is given), wraps it in a ``ColdService`` and polls the
 contribution queue until SIGINT/SIGTERM (clean quiesce), ``--max-iterations``
-or ``--idle-timeout`` seconds without progress.
+(every family member) or ``--idle-timeout`` seconds without progress.
+``--max-bases B`` above 1 opens (or creates, or migrates in place) a
+``RepositoryFamily`` instead and routes each submission to its nearest
+member by sketch distance, spawning one beyond ``--split-threshold``.
 
   # serve an existing repository (written by either package)
   PYTHONPATH=src python -m repro_torch.launch.serve_repository --root repo/
@@ -18,9 +21,12 @@ or ``--idle-timeout`` seconds without progress.
   PYTHONPATH=src python -m repro_torch.launch.serve_repository --root repo/ \\
       --gate --compact-keep 2 --spill-workers 2
 
-The reference's ``--mesh``, ``--max-bases`` above 1, ``--cross-fuse-every``
-and the ``--serve-*`` flags are accepted by the parser only to be refused:
-their paths are not ported yet.
+  # route over a family of up to 3 bases, cross-fuse after every 4 publishes
+  PYTHONPATH=src python -m repro_torch.launch.serve_repository --root repo/ \\
+      --max-bases 3 --split-threshold 0.8 --cross-fuse-every 4
+
+The reference's ``--mesh`` and ``--serve-*`` flags are accepted by the parser
+only to be refused: their paths are not ported yet.
 """
 from __future__ import annotations
 
@@ -30,7 +36,7 @@ import signal
 import sys
 
 from repro_torch.checkpoint import io as ckpt
-from repro_torch.core.repository import Repository
+from repro_torch.core.repository import Repository, RepositoryFamily
 from repro_torch.serve.cold_service import AdmissionPolicy, ColdService
 from repro_torch.serve.probes import ProbeSuite, RegressionGate
 from repro_torch.utils.device import resolve_device
@@ -41,7 +47,6 @@ _NOT_PORTED = {
     "serve_arch": "--serve-arch (the serving slice)",
     "serve_workers": "--serve-workers (the serving slice)",
     "serve_batch": "--serve-batch (the serving slice)",
-    "cross_fuse_every": "--cross-fuse-every (routing)",
 }
 
 
@@ -72,9 +77,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--compact-keep", type=int, default=None, metavar="M",
                    help="compact after each publish, keeping M bases")
     p.add_argument("--max-bases", type=int, default=1, metavar="B",
-                   help="base family size; only 1 (the single-base loop) is ported")
+                   help="serve a base family of up to B members, routing each submission "
+                        "to its nearest base by sketch distance (default 1: one base)")
     p.add_argument("--split-threshold", type=float, default=0.8, metavar="D",
-                   help="routing split distance (with --max-bases > 1, not ported)")
+                   help="relative sketch distance beyond which a submission founds a new "
+                        "family member (--max-bases > 1)")
+    p.add_argument("--cross-fuse-every", type=int, default=0, metavar="K",
+                   help="after every K member publishes, fuse the family members into "
+                        "each other (0: never)")
     p.add_argument("--gate", action="store_true",
                    help="arm the forgetting regression gate: probe every publish against "
                         "the last known-good base; on a regression, quarantine the cohort "
@@ -98,7 +108,6 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--serve-arch", default=None, help=argparse.SUPPRESS)
     p.add_argument("--serve-workers", type=int, default=0, help=argparse.SUPPRESS)
     p.add_argument("--serve-batch", action="store_true", help=argparse.SUPPRESS)
-    p.add_argument("--cross-fuse-every", type=int, default=0, help=argparse.SUPPRESS)
     return p
 
 
@@ -108,22 +117,31 @@ def parse_args(argv=None) -> argparse.Namespace:
     for dest, what in _NOT_PORTED.items():
         if getattr(args, dest):
             p.error(f"{what} is not ported yet")
-    if args.max_bases > 1:
-        p.error("--max-bases > 1 (similarity routing) is not ported yet")
     return args
 
 
 def build_service(args) -> ColdService:
     device = resolve_device(args.device)
     kw = dict(spill=True, spill_workers=args.spill_workers)
+    routed = args.max_bases > 1
+    family = None
     if os.path.exists(os.path.join(args.root, "repository.json")):
-        repo = Repository.open(args.root, device=device, **kw)
+        if routed:
+            family = RepositoryFamily.open(args.root, device=device, **kw)
+            repo = family.members["main"]
+        else:
+            repo = Repository.open(args.root, device=device, **kw)
     else:
         if not args.init_npz:
             raise SystemExit(f"{args.root} holds no repository.json — pass --init-npz to "
                              "initialise a new repository")
-        repo = Repository(ckpt.load(args.init_npz, device=device), root=args.root,
-                          screen=not args.no_screen, fusion_op=args.fusion_op, **kw)
+        base = ckpt.load(args.init_npz, device=device)
+        init = dict(screen=not args.no_screen, fusion_op=args.fusion_op, **kw)
+        if routed:
+            family = RepositoryFamily.create(base, root=args.root, device=device, **init)
+            repo = family.members["main"]
+        else:
+            repo = Repository(base, root=args.root, **init)
     policy = AdmissionPolicy(
         min_cohort=args.min_cohort,
         max_cohort=args.max_cohort,
@@ -133,6 +151,9 @@ def build_service(args) -> ColdService:
         novelty_threshold=args.novelty_threshold,
         sketch_window=args.sketch_window,
         compact_keep_bases=args.compact_keep,
+        max_bases=args.max_bases,
+        split_threshold=args.split_threshold,
+        cross_fuse_every=args.cross_fuse_every,
     )
     gate = None
     if args.gate:
@@ -140,6 +161,8 @@ def build_service(args) -> ColdService:
             ProbeSuite(repo.flat_base().numel(), n_tasks=args.probe_tasks,
                        n_examples=args.probe_examples, seed=args.probe_seed),
             tolerance=args.probe_tolerance)
+    if routed:
+        return ColdService(family=family, policy=policy, gate=gate)
     return ColdService(repo, policy=policy, gate=gate)
 
 
@@ -156,6 +179,11 @@ def main(argv=None) -> int:
           f"{svc.repo.iteration} (min_cohort={svc.policy.min_cohort})", flush=True)
     st = svc.serve_forever(poll_interval=args.poll, max_iterations=args.max_iterations,
                            idle_timeout=args.idle_timeout)
+    fams = st.get("families")
+    if fams:
+        detail = ", ".join(f"{n}@it{f['iteration']}" for n, f in sorted(fams.items()))
+        print(f"[cold-service] family: {detail} ({st['families_spawned_total']} spawned, "
+              f"{st['cross_fuses_total']} cross-fuses)", flush=True)
     print(f"[cold-service] stopped at iteration {st['iteration']}: {st['fuses']} fuses, "
           f"{st['fused_contributions']} contributions fused, {st['rejected_total']} rejected "
           f"({st['novelty_rejected_total']} near-duplicates), {st['quarantined_total']} "

@@ -37,9 +37,20 @@ probe → quarantine → rollback replays the verdict on restart.
 publish while no fuse is in flight (at least 2 under a gate, so the
 baseline's base stays on disk).
 
-Not ported yet (each raises): ``family=`` (similarity routing,
-``max_bases > 1``, ``cross_fuse_every``), per-shard submissions
-(``sspec=``) and the serving-state files (``status()["serving"]`` is None).
+Similarity routing: with ``family=`` (a ``RepositoryFamily``) every fresh
+submission is scored against each member's base sketch and windowed delta
+evidence (``utils.flat.FamilyRouter``), moved atomically into its member's
+queue namespace (``<root>/families/<name>/queue/``; the move is the durable
+decision) and fused there.  A submission near no member spawns one (up to
+``AdmissionPolicy.max_bases``; at the cap it routes to the nearest), a
+compressed one is rejected as stale unless it routes to the member it
+declared, and every ``cross_fuse_every`` member publishes a quiescent family
+is cross-fused toward its mean.  Each member is a ``_Lane`` with its own
+cohort clock, gate baseline, quarantine verdicts and compaction; the
+single-base service is exactly one ``main`` lane.
+
+Not ported yet (each raises): per-shard submissions (``sspec=``) and the
+serving-state files (``status()["serving"]`` is None).
 """
 from __future__ import annotations
 
@@ -54,12 +65,12 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 
 from repro_torch.checkpoint import io as ckpt
-from repro_torch.core.repository import Repository
+from repro_torch.core.repository import Repository, RepositoryFamily, family_member_root
 from repro_torch.serve.probes import ProbeReport, RegressionGate
 from repro_torch.utils import faults
 from repro_torch.utils.device import resolve_device
-from repro_torch.utils.flat import (LANE, FlatSpec, delta_checksum, delta_encode,
-                                    row_checksum, row_sketch_host)
+from repro_torch.utils.flat import (LANE, FamilyRouter, FlatSpec, delta_checksum,
+                                    delta_encode, row_checksum, row_sketch_host)
 
 QUEUE_DIR = "queue"
 QUEUE_MANIFEST = "queue_manifest.json"
@@ -70,6 +81,7 @@ METRICS_FILE = "metrics.jsonl"
 # the daemon rotates the active metrics file to metrics.jsonl.1 at this size
 METRICS_ROTATE_BYTES = 4 * 1024 * 1024
 ERROR_RING = 16  # recent_errors entries kept (and persisted)
+ROUTE_RING = 64  # recent routing decisions in the status endpoint
 
 
 def _queue_dir(root: str) -> str:
@@ -208,15 +220,55 @@ class ContributorClient:
             time.sleep(min(remaining, random.uniform(delay / 2, delay)))
             delay = min(delay * 2, max_interval)
 
-    def download_base(self, device="cuda"):
-        """Pull the latest published base tree (Fig. 1, step 1) onto
-        ``device`` (the card unless the caller asks for the CPU).  The base
-        npz is durable before repository.json names it, so the load never
-        races a publish into a missing file."""
+    def download_base(self, family: Optional[str] = None, device="cuda"):
+        """Pull the latest published base tree (Fig. 1, step 1) of the named
+        family member (the main base by default) onto ``device`` (the card
+        unless the caller asks for the CPU).  The base npz is durable before
+        repository.json names it, so the load never races a publish into a
+        missing file."""
         device = resolve_device(device)
-        meta = ckpt.load_json(os.path.join(self.root, "repository.json"))
+        root = self.root if family is None else family_member_root(self.root, family)
+        meta = ckpt.load_json(os.path.join(root, "repository.json"))
         it = int(meta["iteration"])
-        return ckpt.load(os.path.join(self.root, f"base_iter{it:04d}.npz"), device=device)
+        return ckpt.load(os.path.join(root, f"base_iter{it:04d}.npz"), device=device)
+
+    def family_iteration(self, family: str) -> int:
+        """The named member's published iteration (0 before any fuse, and
+        0 while the member does not exist yet: a member is born at 0)."""
+        fams = (self.status() or {}).get("families") or {}
+        if family in fams:
+            return int(fams[family]["iteration"])
+        try:
+            meta = ckpt.load_json(os.path.join(family_member_root(self.root, family),
+                                               "repository.json"))
+            return int(meta["iteration"])
+        except FileNotFoundError:
+            return 0
+
+    def wait_for_family(self, family: str, target: int, *, timeout: float = 60.0,
+                        interval: float = 0.02, max_interval: float = 1.0) -> Dict[str, Any]:
+        """Bounded poll until the named member's published iteration reaches
+        ``target``, with ``wait_for_iteration``'s jittered backoff."""
+        deadline = time.monotonic() + timeout
+        delay = interval
+        while True:
+            st = self.status()
+            if self.family_iteration(family) >= target:
+                return st or {}
+            remaining = deadline - time.monotonic()
+            if remaining <= 0:
+                raise TimeoutError(f"family {family!r} iteration {target} not published "
+                                   f"within {timeout}s (last status: {st})")
+            time.sleep(min(remaining, random.uniform(delay / 2, delay)))
+            delay = min(delay * 2, max_interval)
+
+    def route_of(self, sub_id: str) -> Optional[Dict[str, Any]]:
+        """The routing record of one submission from the status endpoint's
+        routes ring (None before it is routed or once it aged out)."""
+        for rec in (self.status() or {}).get("routes") or []:
+            if rec.get("id") == sub_id:
+                return rec
+        return None
 
 
 # ---------------------------------------------------------------------------
@@ -227,7 +279,7 @@ class ContributorClient:
 @dataclass
 class AdmissionPolicy:
     """Cohort formation and screening at the queue boundary (the reference's
-    fields; the routing knobs are not ported yet).
+    fields).
 
     * ``min_cohort`` — dispatch once this many rows are staged;
     * ``max_wait_s`` — ...or once the oldest staged row waited this long;
@@ -239,7 +291,12 @@ class AdmissionPolicy:
       relative distance of one of the last ``sketch_window`` admissions
       (None disables the screen);
     * ``compact_keep_bases`` — compact the root after each publish, keeping
-      this many bases (None: never)."""
+      this many bases (None: never);
+    * ``max_bases``, ``split_threshold``, ``cross_fuse_every`` — the
+      router's knobs, live only over a ``RepositoryFamily``: a submission
+      further than ``split_threshold`` from every member spawns one (up to
+      ``max_bases``), and every ``cross_fuse_every`` member publishes the
+      family cross-fuses toward its mean (0: never)."""
 
     min_cohort: int = 1
     max_wait_s: float = 0.0
@@ -254,38 +311,58 @@ class AdmissionPolicy:
     cross_fuse_every: int = 0
 
 
-class ColdService:
-    """The polling fusion daemon over a spill-enabled Repository, the
-    reference's single ``main`` lane.  Single owner: one service per
-    repository root.  ``gate=`` arms the forgetting regression gate."""
+@dataclass
+class _Lane:
+    """One family member's service state: its Repository, queue namespace,
+    cohort clock and gate baseline.  A single-base service is exactly one
+    ``main`` lane, so the lane machinery is the single-base path itself."""
 
-    def __init__(self, repo: Optional[Repository] = None, *, family=None,
+    name: str
+    repo: Repository
+    queue_dir: str
+    gate_path: str
+    cohort_since: Optional[float] = None
+    # the size of a cohort whose fuse just failed (not retried until new
+    # rows arrive)
+    failed_cohort_size: Optional[int] = None
+    gate_baseline: Optional[Dict[str, float]] = None
+    gate_iteration: Optional[int] = None
+    last_gate: Optional[Dict[str, Any]] = None
+
+
+class ColdService:
+    """The polling fusion daemon over a spill-enabled Repository (``repo=``,
+    one ``main`` lane) or a ``RepositoryFamily`` (``family=``, one lane per
+    member, similarity routing armed).  Single owner: one service per root.
+    ``gate=`` arms the forgetting regression gate, per member."""
+
+    def __init__(self, repo: Optional[Repository] = None, *,
+                 family: Optional[RepositoryFamily] = None,
                  policy: Optional[AdmissionPolicy] = None,
                  gate: Optional[RegressionGate] = None):
+        if (repo is None) == (family is None):
+            raise ValueError("ColdService takes exactly one of repo= (single base) or family= "
+                             "(similarity-routed RepositoryFamily)")
         if family is not None:
-            raise _not_ported("ColdService(family=) (similarity routing)")
-        if repo is None:
-            raise ValueError("ColdService needs repo=")
+            # spawned members inherit the queue-ingest spill contract
+            family.member_kw.setdefault("spill", True)
+            repo = family.members["main"]
         if not repo.root:
             raise ValueError("ColdService requires an on-disk repository")
-        if not repo.spill:
-            raise ValueError("ColdService requires Repository(spill=True) — queue ingest "
-                             "rides the crash-recoverable staging manifest")
+        self.repo = repo
+        self.family = family
+        self._routing = family is not None
         self.policy = policy or AdmissionPolicy()
         p = self.policy
-        if p.max_bases > 1 or p.cross_fuse_every:
-            raise _not_ported("AdmissionPolicy(max_bases>1, cross_fuse_every) (routing)")
-        self.repo = repo
         self.gate = gate
         self.queue_dir = _queue_dir(repo.root)
         self.quarantine_dir = os.path.join(repo.root, QUARANTINE_DIR)
-        self._gate_path = os.path.join(repo.root, GATE_STATE_FILE)
-        os.makedirs(self.queue_dir, exist_ok=True)
-        # the cohort clock, and the size of a cohort whose fuse just failed
-        # (not retried until new rows arrive); the reference keeps these per
-        # family member, the single-base service has one
-        self._cohort_since: Optional[float] = None
-        self._failed_cohort_size: Optional[int] = None
+        self._router = (FamilyRouter(split_threshold=p.split_threshold, max_bases=p.max_bases)
+                        if self._routing else None)
+        members = family.members if family is not None else {"main": repo}
+        self._lanes: Dict[str, _Lane] = {name: self._make_lane(name, member)
+                                         for name, member in members.items()}
+        self._main = self._lanes["main"]
         self._qman_path = os.path.join(self.queue_dir, QUEUE_MANIFEST)
         self._status_path = os.path.join(repo.root, STATUS_FILE)
         self._metrics_path = os.path.join(repo.root, METRICS_FILE)
@@ -296,15 +373,13 @@ class ColdService:
         self._novelty_rejected = 0   # subset of _rejected: near-duplicates
         self._quarantined = 0        # queue submissions banished by the gate
         self._rollbacks = 0          # gate trips that backed out a publish
-        # counters of the reference's unported features (routing), carried
-        # verbatim through the queue manifest so a root keeps them
-        self._carried: Dict[str, int] = {}
+        self._spawned = 0            # family members minted by the router
+        self._cross_fuses = 0        # cross-fuse rounds taken
+        self._cross_counter = 0      # member publishes since the last one
+        self._routes: List[Dict[str, Any]] = []
+        self._last_pub = "main"      # lane of the most recent publish
         self._recent_errors: List[Dict[str, Any]] = []
         self._last_error: Optional[str] = None
-        # the gate's durable baseline: probe scores of the last known-good
-        # base and its iteration (gate_state.json)
-        self._gate_baseline: Optional[Dict[str, float]] = None
-        self._gate_iteration: Optional[int] = None
         self._last_gate: Optional[Dict[str, Any]] = None
         self._cycle = 0
         self._metrics_mark: Optional[tuple] = None
@@ -322,34 +397,49 @@ class ColdService:
             # before _recover(): a publish whose verdict a crash swallowed is
             # replayed first, or _recover would retire (as fused) the very
             # cohort the replayed verdict must quarantine
-            self._init_gate()
+            for lane in list(self._lanes.values()):
+                self._init_gate(lane)
         self._recover()
-        if p.novelty_threshold is not None:
-            # adopt (or create) the persisted window before the first admission
-            repo.enable_cohort_sketch(window=p.sketch_window)
+        if p.novelty_threshold is not None or self._routing:
+            # adopt (or create) each persisted window before the first
+            # admission; the router needs every member's sketch even with
+            # the novelty screen off (base sketches and deltas are its
+            # evidence)
+            for lane in self._lanes.values():
+                lane.repo.enable_cohort_sketch(window=p.sketch_window)
         # contributors read the policy (whether to stamp sketches) from here
         ckpt.save_json_atomic(self._status_path, self.status())
-        if repo.n_staged:
-            # recovered rows start the cohort clock too
-            self._cohort_since = time.time()
+        for lane in self._lanes.values():
+            if lane.repo.n_staged:
+                # recovered rows start the cohort clock too
+                lane.cohort_since = time.time()
+
+    def _make_lane(self, name: str, member: Repository) -> _Lane:
+        if not member.root:
+            raise ValueError("ColdService requires an on-disk repository")
+        if not member.spill:
+            raise ValueError("ColdService requires Repository(spill=True) — queue ingest "
+                             f"rides the crash-recoverable staging manifest (member {name!r})")
+        lane = _Lane(name=name, repo=member, queue_dir=os.path.join(member.root, QUEUE_DIR),
+                     gate_path=os.path.join(member.root, GATE_STATE_FILE))
+        os.makedirs(lane.queue_dir, exist_ok=True)
+        return lane
 
     # -- queue manifest -------------------------------------------------
-    _CARRIED = ("families_spawned_total", "cross_fuses_total", "cross_counter")
-
     def _load_queue_manifest(self) -> None:
         try:
             data = ckpt.load_json(self._qman_path)
         except FileNotFoundError:
             return
         self._entries = {e["id"]: e for e in data.get("entries", [])}
-        if any((e.get("family") or "main") != "main" for e in self._entries.values()):
-            raise _not_ported("serving a queue with family-routed entries (routing)")
         self._fused_ids = int(data.get("fused_total", 0))
         self._rejected = int(data.get("rejected_total", 0))
         self._novelty_rejected = int(data.get("novelty_rejected_total", 0))
         self._quarantined = int(data.get("quarantined_total", 0))
         self._rollbacks = int(data.get("rollbacks_total", 0))
-        self._carried = {k: int(data.get(k, 0)) for k in self._CARRIED}
+        self._spawned = int(data.get("families_spawned_total", 0))
+        self._cross_fuses = int(data.get("cross_fuses_total", 0))
+        self._cross_counter = int(data.get("cross_counter", 0))
         self._recent_errors = list(data.get("recent_errors", []))[-ERROR_RING:]
 
     def _write_queue_manifest(self) -> None:
@@ -360,20 +450,32 @@ class ColdService:
             "novelty_rejected_total": self._novelty_rejected,
             "quarantined_total": self._quarantined,
             "rollbacks_total": self._rollbacks,
-            **{k: self._carried.get(k, 0) for k in self._CARRIED},
+            "families_spawned_total": self._spawned,
+            "cross_fuses_total": self._cross_fuses,
+            "cross_counter": self._cross_counter,
             "recent_errors": list(self._recent_errors),
             "entries": list(self._entries.values()),
         })
 
+    @staticmethod
+    def _family_of(e: Dict[str, Any]) -> str:
+        """An entry's member: ``main`` for entries without a ``family`` key
+        (written by a single-base daemon)."""
+        return e.get("family") or "main"
+
+    def _entry_lane(self, e: Dict[str, Any]) -> _Lane:
+        return self._lanes.get(self._family_of(e)) or self._main
+
     def _retire_consumed(self, *, seam: bool) -> None:
-        """Drop queue entries whose rows left the staging manifest (their
-        cohort's publish is durable): file deleted before the entry."""
-        staged = self.repo.staged_spill_files()
+        """Drop queue entries whose rows left their member's staging manifest
+        (their cohort's publish is durable): file deleted before the entry."""
+        staged = {n: lane.repo.staged_spill_files() for n, lane in self._lanes.items()}
         changed = False
         for sub_id, e in list(self._entries.items()):
-            if f"{QUEUE_DIR}/{e['file']}" in staged:
+            lane = self._entry_lane(e)
+            if f"{QUEUE_DIR}/{e['file']}" in staged[lane.name]:
                 continue
-            path = os.path.join(self.queue_dir, e["file"])
+            path = os.path.join(lane.queue_dir, e["file"])
             if os.path.exists(path):
                 os.remove(path)
             if seam:
@@ -385,24 +487,25 @@ class ColdService:
             self._write_queue_manifest()
 
     def _recover(self) -> None:
-        """An admitted entry no longer in the staging manifest was consumed
-        by a publish that landed (or skipped by recovery as consumed)."""
+        """An admitted entry no longer in its member's staging manifest was
+        consumed by a publish that landed (or skipped by recovery as
+        consumed)."""
         self._retire_consumed(seam=False)
 
     def _gc_consumed(self) -> None:
         self._retire_consumed(seam=True)
 
     # -- the forgetting regression gate ---------------------------------
-    def _init_gate(self) -> None:
-        """Adopt, replay or establish the durable gate baseline: state at
-        the repository's iteration is adopted; state behind it means a
+    def _init_gate(self, lane: _Lane) -> None:
+        """Adopt, replay or establish a member's durable gate baseline:
+        state at the member's iteration is adopted; state behind it means a
         publish landed whose verdict a crash swallowed, so the current base
         is probed and the verdict applied now (the probes are
         deterministic, so it is the verdict that was lost); no state, or
-        state ahead of the repository, re-baselines on the current base."""
+        state ahead of the member, re-baselines on the current base."""
         state = None
         try:
-            state = ckpt.load_json(self._gate_path)
+            state = ckpt.load_json(lane.gate_path)
         except FileNotFoundError:
             pass
         if state is not None:
@@ -412,74 +515,78 @@ class ColdService:
             except (KeyError, TypeError, ValueError, AttributeError):
                 warnings.warn("gate_state.json unreadable — re-baselining on the current base")
                 state = None
-        repo = self.repo
+        repo = lane.repo
         if state is not None and it == repo.iteration:
-            self._gate_baseline, self._gate_iteration = scores, it
+            lane.gate_baseline, lane.gate_iteration = scores, it
             return
         if state is not None and it < repo.iteration:
-            self._gate_baseline, self._gate_iteration = scores, it
-            self._apply_gate_verdict(self.gate.check(scores, repo.flat_base()))
+            lane.gate_baseline, lane.gate_iteration = scores, it
+            self._apply_gate_verdict(self.gate.check(scores, repo.flat_base()), lane)
             return
         if state is not None:
             warnings.warn(f"gate_state.json names iteration {it} but the repository is at "
                           f"{repo.iteration} — re-baselining")
-        self._rebaseline_gate()
+        self._rebaseline_gate(lane)
 
-    def _rebaseline_gate(self) -> None:
-        """Score the current base as the new known-good baseline and
-        persist it atomically."""
-        self._gate_baseline = self.gate.probes.score(self.repo.flat_base())
-        self._gate_iteration = self.repo.iteration
-        ckpt.save_json_atomic(self._gate_path, {
-            "version": 1, "iteration": self._gate_iteration, "scores": self._gate_baseline})
+    def _rebaseline_gate(self, lane: _Lane) -> None:
+        """Score the member's current base as its new known-good baseline
+        and persist it atomically."""
+        lane.gate_baseline = self.gate.probes.score(lane.repo.flat_base())
+        lane.gate_iteration = lane.repo.iteration
+        ckpt.save_json_atomic(lane.gate_path, {
+            "version": 1, "iteration": lane.gate_iteration, "scores": lane.gate_baseline})
 
-    def _apply_gate_verdict(self, report: ProbeReport) -> Dict[str, Any]:
-        """Act on the probe comparison of the just-published base.  Clean:
-        the baseline advances (durably).  Tripped: the consumed cohort is
-        quarantined, then the repository rolls back to the baseline
-        iteration with the staged next cohort kept.  While the bad base is
-        current its iteration is ahead of ``gate_state.json``, which is what
-        makes a restarted daemon replay this verdict.  Returns the gate
-        event for the metrics series."""
+    def _apply_gate_verdict(self, report: ProbeReport, lane: _Lane) -> Dict[str, Any]:
+        """Act on the probe comparison of the member's just-published base.
+        Clean: the baseline advances (durably).  Tripped: the member's
+        consumed cohort is quarantined, then the member rolls back to its
+        baseline iteration with the staged next cohort kept; the other
+        members are untouched.  While the bad base is current its iteration
+        is ahead of ``gate_state.json``, which is what makes a restarted
+        daemon replay this verdict.  Returns the gate event for the metrics
+        series."""
         faults.crash_point("service.post_probe")
-        self._last_gate = report.to_json()
-        repo = self.repo
+        lane.last_gate = self._last_gate = report.to_json()
+        repo = lane.repo
         if report.ok:
-            self._rebaseline_gate()
-            return {"event": "probe", "ok": True, "family": "main",
+            self._rebaseline_gate(lane)
+            return {"event": "probe", "ok": True, "family": lane.name,
                     "iteration": repo.iteration, "probe": self._last_gate}
         bad_iteration = repo.iteration
-        moved = self._quarantine_consumed()
+        moved = self._quarantine_consumed(lane)
         self._emit_metrics({
-            "event": "quarantine", "iteration": bad_iteration, "family": "main",
+            "event": "quarantine", "iteration": bad_iteration, "family": lane.name,
             "quarantined": moved, "quarantined_total": self._quarantined,
             "regressed": report.regressed, "worst_delta": report.worst,
         })
         faults.crash_point("service.post_quarantine")
-        repo.rollback(self._gate_iteration, keep_staged=True)
-        self._failed_cohort_size = None  # the staged cohort is unrelated
+        repo.rollback(lane.gate_iteration, keep_staged=True)
+        lane.failed_cohort_size = None  # the staged cohort is unrelated
         self._emit_metrics({
-            "event": "rollback", "from_iteration": bad_iteration, "family": "main",
-            "to_iteration": self._gate_iteration, "rollbacks_total": self._rollbacks,
+            "event": "rollback", "from_iteration": bad_iteration, "family": lane.name,
+            "to_iteration": lane.gate_iteration, "rollbacks_total": self._rollbacks,
             "probe": self._last_gate,
         })
-        return {"event": "rollback", "ok": False, "family": "main",
-                "from_iteration": bad_iteration, "to_iteration": self._gate_iteration,
+        return {"event": "rollback", "ok": False, "family": lane.name,
+                "from_iteration": bad_iteration, "to_iteration": lane.gate_iteration,
                 "quarantined": moved, "probe": self._last_gate}
 
-    def _quarantine_consumed(self) -> int:
-        """Move the consumed cohort's queue files into ``<root>/quarantine/``
-        (``os.replace``, file before entry, as GC orders it: a crash leaves
-        an orphan entry the replayed verdict finishes, never an orphan queue
-        file that could fuse again).  The counters ride the same queue
-        manifest write as the entry drops, so they stay exact across a
+    def _quarantine_consumed(self, lane: _Lane) -> int:
+        """Move the member's consumed cohort's queue files into
+        ``<root>/quarantine/`` (``os.replace``, file before entry, as GC
+        orders it: a crash leaves an orphan entry the replayed verdict
+        finishes, never an orphan queue file that could fuse again).  Only
+        this member's entries are candidates.  The counters ride the same
+        queue manifest write as the entry drops, so they stay exact across a
         crash; one trip is one rollback."""
-        staged = self.repo.staged_spill_files()
+        staged = lane.repo.staged_spill_files()
         moved = 0
         for sub_id, e in list(self._entries.items()):
+            if self._family_of(e) != lane.name:
+                continue  # another member's cohort
             if f"{QUEUE_DIR}/{e['file']}" in staged:
                 continue  # the next cohort, still staged
-            src = os.path.join(self.queue_dir, e["file"])
+            src = os.path.join(lane.queue_dir, e["file"])
             if os.path.exists(src):
                 os.makedirs(self.quarantine_dir, exist_ok=True)
                 os.replace(src, os.path.join(self.quarantine_dir, e["file"]))
@@ -492,19 +599,35 @@ class ColdService:
         return moved
 
     # -- admission ------------------------------------------------------
-    def _scan_new(self) -> List[str]:
-        """Queue files not yet tracked, in submission order; in-flight
-        atomic writes (``*.tmp-*``) are invisible."""
-        known = {e["file"] for e in self._entries.values()}
-        return [fn for fn in sorted(os.listdir(self.queue_dir))
-                if fn.endswith(".npz") and ".tmp-" not in fn and fn not in known]
+    def _scan_new(self) -> List[Tuple[str, Optional[_Lane]]]:
+        """Queue files not yet tracked, in submission order, as ``(file,
+        lane)``; in-flight atomic writes (``*.tmp-*``) are invisible.  Fresh
+        submissions land in the top-level queue and scan unrouted (lane
+        None).  A file already in another member's queue namespace but not
+        in the queue manifest was moved there by a routing decision that a
+        crash interrupted: it scans forced to that lane, so the restart
+        finishes its admission without routing it again."""
+        known = {(self._family_of(e), e["file"]) for e in self._entries.values()}
 
-    def _reject(self, fn: str, reason: str, *, novelty: bool = False) -> None:
+        def fresh(lane_name, qdir):
+            return [fn for fn in sorted(os.listdir(qdir))
+                    if fn.endswith(".npz") and ".tmp-" not in fn
+                    and (lane_name, fn) not in known]
+
+        out: List[Tuple[str, Optional[_Lane]]] = [
+            (fn, None) for fn in fresh("main", self.queue_dir)]
+        for name, lane in self._lanes.items():
+            if name != "main":
+                out.extend((fn, lane) for fn in fresh(name, lane.queue_dir))
+        return out
+
+    def _reject(self, fn: str, reason: str, *, novelty: bool = False,
+                lane: Optional[_Lane] = None) -> None:
         self._rejected += 1
         if novelty:
             self._novelty_rejected += 1
         self._rejects = (self._rejects + [{"file": fn, "reason": reason}])[-8:]
-        path = os.path.join(self.queue_dir, fn)
+        path = os.path.join((lane or self._main).queue_dir, fn)
         if os.path.exists(path):
             os.remove(path)
 
@@ -544,13 +667,14 @@ class ColdService:
         row, _ = ckpt.load_flat(path)
         return row_checksum(row) == want, row
 
-    def _compressed_screen(self, extra: Dict[str, Any], path: str) -> Optional[str]:
+    def _compressed_screen(self, extra: Dict[str, Any], path: str,
+                           lane: _Lane) -> Optional[str]:
         """None (admit), ``"defer"`` (leave queued) or a rejection reason
-        for a compressed submission: its vintage must be the current
-        iteration exactly, it waits while a fuse is in flight (the publish
-        is about to move the base it decodes against), and its scales must
-        be finite."""
-        repo = self.repo
+        for a compressed submission in ``lane``: its vintage must be the
+        member's current iteration exactly, it waits while a fuse is in
+        flight (the publish is about to move the base it decodes against),
+        and its scales must be finite."""
+        repo = lane.repo
         bi = extra.get("base_iteration")
         if bi is None:
             return ("malformed rider: compressed submission without base_iteration — a "
@@ -571,23 +695,26 @@ class ColdService:
                 return "malformed rider: non-finite quantization scale in delta payload"
         return None
 
-    def _staleness(self, extra: Dict[str, Any]) -> Optional[str]:
+    def _staleness(self, extra: Dict[str, Any], lane: _Lane) -> Optional[str]:
         lim = self.policy.max_staleness
         base_it = extra.get("base_iteration")
         if lim is None or base_it is None:
             return None
-        lag = self.repo.iteration - int(base_it)
+        lag = lane.repo.iteration - int(base_it)
         if lag > lim:
             return (f"stale: finetuned from iteration {int(base_it)}, current "
-                    f"{self.repo.iteration} (max_staleness={lim})")
+                    f"{lane.repo.iteration} (max_staleness={lim})")
         return None
 
-    def _obtain_sketch(self, fn: str, path: str, meta: Dict[str, Any],
+    def _obtain_sketch(self, fn: str, path: str, meta: Dict[str, Any], *, lane: _Lane,
+                       at: Optional[_Lane] = None,
                        row=None) -> Tuple[Optional[np.ndarray], bool]:
         """(sketch, rejected): the rider's sketch when present and trusted,
         else from the row the checksum pass read, else from the file in one
-        read (``Repository.sketch_row_file``, the kernel on the card)."""
-        sk = self.repo.cohort_sketch
+        read (``Repository.sketch_row_file`` of ``lane``'s member, the
+        kernel on the card).  An unreadable file is rejected from ``at``'s
+        queue namespace (the lane whose directory holds it)."""
+        sk = lane.repo.cohort_sketch
         sketch = None
         rider = (meta.get("extra") or {}).get("sketch")
         if rider is not None and not self.policy.verify_checksums:
@@ -601,193 +728,360 @@ class ColdService:
             sketch = row_sketch_host(row, sk.n_buckets)
         if sketch is None:
             try:
-                sketch = self.repo.sketch_row_file(path, meta=meta)
+                sketch = lane.repo.sketch_row_file(path, meta=meta)
             except Exception as err:  # torn / vanished / sharded since the peek
-                self._reject(fn, f"unreadable ({type(err).__name__}: {err})")
+                self._reject(fn, f"unreadable ({type(err).__name__}: {err})", lane=at or lane)
                 return None, True
         return sketch, False
 
     def _novelty_check(self, fn: str, path: str, meta: Dict[str, Any], sub_id: str,
-                       threshold: float, row=None) -> bool:
+                       threshold: Optional[float], *, lane: _Lane, row=None,
+                       sketch: Optional[np.ndarray] = None,
+                       delta: Optional[np.ndarray] = None) -> bool:
         """Reject the file (True) if its sketch lies within ``threshold`` of
-        a windowed admission; otherwise make its sketch durable before the
-        row stages."""
-        sk = self.repo.cohort_sketch
-        sketch, rejected = self._obtain_sketch(fn, path, meta, row=row)
-        if rejected:
-            return True
-        # the self-match exemption needs the id AND the file: only this queue
-        # file's own pre-crash entry is skipped
-        hit = sk.match(sketch, threshold, skip_id=sub_id, skip_file=fn)
-        if hit is not None:
-            self._reject(fn, f"near-duplicate of {hit[0]} (sketch distance {hit[1]:.4f} "
-                             f"<= novelty_threshold {threshold:g})", novelty=True)
-            return True
-        sk.add(sub_id, sketch, file=fn)
-        self.repo.save_cohort_sketch()
+        one of the member's windowed admissions; otherwise make its sketch
+        (and its routing ``delta``) durable before the row stages.
+        ``threshold=None`` (routing with the screen off) only records."""
+        sk = lane.repo.cohort_sketch
+        if sketch is None:
+            sketch, rejected = self._obtain_sketch(fn, path, meta, lane=lane, row=row)
+            if rejected:
+                return True
+        if threshold is not None:
+            # the self-match exemption needs the id AND the file: only this
+            # queue file's own pre-crash entry is skipped
+            hit = sk.match(sketch, threshold, skip_id=sub_id, skip_file=fn)
+            if hit is not None:
+                self._reject(fn, f"near-duplicate of {hit[0]} (sketch distance {hit[1]:.4f} "
+                                 f"<= novelty_threshold {threshold:g})", novelty=True,
+                             lane=lane)
+                return True
+        sk.add(sub_id, sketch, file=fn, delta=delta)
+        lane.repo.save_cohort_sketch()
         faults.crash_point("service.post_sketch")
         return False
 
     def _admit(self) -> Dict[str, int]:
-        """Stage new queue arrivals up to the cohort budget; unreadable,
-        malformed, mismatched, stale and near-duplicate files are rejected
-        here and never reach the fuse.  A file already staged by a pre-crash
-        admit whose queue-manifest write was lost is re-marked, outside the
-        budget.  Returns ``{"admitted": n, "queue_depth": left queued}``."""
+        """Stage new queue arrivals into their member, up to its cohort
+        budget; unreadable, malformed, mismatched, stale and near-duplicate
+        files are rejected here and never reach the fuse.  Under routing a
+        fresh submission is first routed and moved into its member's queue
+        namespace (``_route_admit``), and every later screen runs against
+        that member.  A file already staged by a pre-crash admit whose
+        queue-manifest write was lost is re-marked, outside the budget,
+        keyed by (member, file).  Returns ``{"admitted": n, "queue_depth":
+        left queued}``."""
         new = self._scan_new()
         if not new:
             return {"admitted": 0, "queue_depth": 0}
-        staged = self.repo.staged_spill_files()
+        staged = {n: lane.repo.staged_spill_files() for n, lane in self._lanes.items()}
         threshold = self.policy.novelty_threshold
         admitted = leftover = 0
         rejected0 = self._rejected
-        for fn in new:
-            path = os.path.join(self.queue_dir, fn)
+        for fn, forced in new:
+            lane = forced if forced is not None else self._main
+            path = os.path.join(lane.queue_dir, fn)
             sub_id = fn[: -len(".npz")]
-            if f"{QUEUE_DIR}/{fn}" in staged:
+            if f"{QUEUE_DIR}/{fn}" in staged[lane.name]:
                 # re-mark only; bookkeeping from the entry already tracking it
-                prev = next((s for s, e in self._entries.items() if e["file"] == fn), None)
+                prev = next((s for s, e in self._entries.items()
+                             if e["file"] == fn and self._family_of(e) == lane.name), None)
                 extra: Dict[str, Any] = {}
                 if prev is not None:
                     sub_id = prev
                     extra = {k: self._entries[prev].get(k) for k in ("weight", "contributor")}
                 weight = extra.get("weight")
             else:
-                if self.policy.max_cohort - self.repo.n_staged <= 0:
+                # a routed file's budget is checked before its move
+                if ((forced is not None or not self._routing)
+                        and self.policy.max_cohort - lane.repo.n_staged <= 0):
                     leftover += 1
                     continue
                 try:
                     meta = ckpt.flat_row_meta(path)
                 except Exception as err:  # torn / garbage enqueue
-                    self._reject(fn, f"unreadable ({type(err).__name__}: {err})")
+                    self._reject(fn, f"unreadable ({type(err).__name__}: {err})", lane=lane)
                     continue
                 extra = meta.get("extra") or {}
                 rider_err = self._rider_error(extra)
                 if rider_err is not None:
-                    self._reject(fn, rider_err)
+                    self._reject(fn, rider_err, lane=lane)
                     continue
                 sub_id = extra.get("id") or sub_id
+                sketch = delta = None
+                if self._routing:
+                    if forced is None:
+                        routed = self._route_admit(fn, path, meta, extra, sub_id)
+                        if routed is None:
+                            continue
+                        if routed == "defer":
+                            leftover += 1
+                            continue
+                        lane, path, sketch, delta = routed
+                    else:
+                        sketch, bad = self._obtain_sketch(fn, path, meta, lane=lane)
+                        if bad:
+                            continue
+                        delta = self._delta_of(sketch, extra)
                 if meta.get("compressed"):
-                    verdict = self._compressed_screen(extra, path)
+                    verdict = self._compressed_screen(extra, path, lane)
                     if verdict == "defer":
                         leftover += 1
                         continue
                     if verdict is not None:
-                        self._reject(fn, verdict)
+                        self._reject(fn, verdict, lane=lane)
                         continue
                 else:
-                    stale = self._staleness(extra)
+                    stale = self._staleness(extra, lane)
                     if stale is not None:
-                        self._reject(fn, stale)
+                        self._reject(fn, stale, lane=lane)
                         continue
                 row = None
                 if self.policy.verify_checksums and extra.get("checksum"):
                     try:
                         ok, row = self._checksum_ok(path, meta, extra["checksum"])
                     except Exception as err:  # torn between the peek and the read
-                        self._reject(fn, f"unreadable ({type(err).__name__}: {err})")
+                        self._reject(fn, f"unreadable ({type(err).__name__}: {err})",
+                                     lane=lane)
                         continue
                     if not ok:
-                        self._reject(fn, "checksum mismatch")
+                        self._reject(fn, "checksum mismatch", lane=lane)
                         continue
-                if threshold is not None and self._novelty_check(
-                        fn, path, meta, sub_id, threshold, row=row):
+                if (threshold is not None or self._routing) and self._novelty_check(
+                        fn, path, meta, sub_id, threshold, lane=lane, row=row,
+                        sketch=sketch, delta=delta):
                     continue
                 w = extra.get("weight")
                 weight = None if w is None else float(w)
                 try:
-                    self.repo.ingest_spilled(path, weight=weight, meta=meta)
+                    lane.repo.ingest_spilled(path, weight=weight, meta=meta)
                 except ValueError as err:  # FlatSpec mismatch, sharded file
-                    if threshold is not None:
+                    if threshold is not None or self._routing:
                         # a row that never staged must not stay in the window
-                        self.repo.cohort_sketch.discard(sub_id)
-                        self.repo.save_cohort_sketch()
-                    self._reject(fn, str(err))
+                        lane.repo.cohort_sketch.discard(sub_id)
+                        lane.repo.save_cohort_sketch()
+                    self._reject(fn, str(err), lane=lane)
                     continue
                 faults.crash_point("service.post_ingest")
             for other in [s for s, e in self._entries.items()
-                          if e["file"] == fn and s != sub_id]:
+                          if e["file"] == fn and s != sub_id
+                          and self._family_of(e) == lane.name]:
                 del self._entries[other]
-            self._entries[sub_id] = {
+            entry = {
                 "id": sub_id, "file": fn, "state": "admitted",
                 "weight": weight,
                 "contributor": extra.get("contributor"),
                 "admitted_at": time.time(),
-                "staged_iteration": self.repo.iteration,
+                "staged_iteration": lane.repo.iteration,
             }
+            if self._routing:
+                entry["family"] = lane.name
+            self._entries[sub_id] = entry
             admitted += 1
-            self._failed_cohort_size = None  # new blood: retry a stuck cohort
-            if self._cohort_since is None:
-                self._cohort_since = time.time()
+            lane.failed_cohort_size = None  # new blood: retry a stuck cohort
+            if lane.cohort_since is None:
+                lane.cohort_since = time.time()
         if admitted or self._rejected != rejected0:
             self._write_queue_manifest()
         return {"admitted": admitted, "queue_depth": leftover}
 
+    # -- routing --------------------------------------------------------
+    def _route_admit(self, fn: str, path: str, meta: Dict[str, Any], extra: Dict[str, Any],
+                     sub_id: str):
+        """Route one fresh top-level submission.  Returns None (rejected),
+        ``"defer"`` (left queued) or ``(lane, path, sketch, delta)`` with
+        ``path`` the file's place in the routed member's queue namespace.
+        The atomic move there is the durable decision: a crash after it
+        (the ``service.post_route`` seam) is finished by ``_scan_new``'s
+        forced-lane pass without routing again."""
+        declared = str(extra.get("family") or "main")
+        dl = self._lanes.get(declared)
+        if dl is None:
+            self._reject(fn, f"malformed rider: unknown family {declared!r}")
+            return None
+        bi = extra.get("base_iteration")
+        bi = None if bi is None else int(bi)
+        sketch, bad = self._obtain_sketch(fn, path, meta, lane=dl, at=self._main)
+        if bad:
+            return None
+        decision = self._router.route(
+            sketch, {n: lane.repo.cohort_sketch for n, lane in self._lanes.items()},
+            declared=declared, base_iteration=bi)
+        spawned = False
+        if decision.spawn:
+            if meta.get("compressed"):
+                # never mint a member for a submission that cannot fuse there
+                self._reject(fn, self._family_pin_reason(declared, None))
+                return None
+            lane = self._unclaimed_lane()
+            if lane is None:
+                lane = self._spawn_lane(declared, bi)
+                spawned = True
+        else:
+            lane = self._lanes[decision.family]
+            if meta.get("compressed") and lane.name != declared:
+                self._reject(fn, self._family_pin_reason(declared, lane.name))
+                return None
+        if self.policy.max_cohort - lane.repo.n_staged <= 0:
+            return "defer"
+        if lane.name != "main":
+            dst = os.path.join(lane.queue_dir, fn)
+            ckpt.move_atomic(path, dst)
+            path = dst
+        faults.crash_point("service.post_route")
+        self._routes = (self._routes + [{
+            "id": sub_id, "family": lane.name, "distance": decision.distance,
+            "spawned": spawned, "reason": decision.reason}])[-ROUTE_RING:]
+        return lane, path, sketch, decision.delta
+
+    @staticmethod
+    def _family_pin_reason(declared: str, routed: Optional[str]) -> str:
+        dst = "a new family member" if routed is None else f"member {routed!r}"
+        return (f"stale: delta encoded against family {declared!r} but routed to {dst} — "
+                "a compressed submission is pinned to its declared member's base")
+
+    def _unclaimed_lane(self) -> Optional[_Lane]:
+        """A spawned member without any evidence: its spawning submission
+        crashed away (or failed ingest) before leaving a trace, so the next
+        spawn-worthy submission claims it instead of minting another."""
+        for name in sorted(self._lanes):
+            lane = self._lanes[name]
+            if (name != "main" and not lane.repo.history and not lane.repo.n_staged
+                    and not lane.repo.inflight and lane.repo.cohort_sketch is not None
+                    and not lane.repo.cohort_sketch.entries):
+                return lane
+        return None
+
+    def _spawn_lane(self, declared: str, seed_iteration: Optional[int]) -> _Lane:
+        """Mint a member seeded from the declared member's base vintage,
+        wire its lane (sketch window, gate baseline) and persist the spawn
+        counter."""
+        name = self.family.spawn(seed_family=declared, seed_iteration=seed_iteration)
+        member = self.family.members[name]
+        lane = self._make_lane(name, member)
+        self._lanes[name] = lane
+        member.enable_cohort_sketch(window=self.policy.sketch_window)
+        if self.gate is not None:
+            self._rebaseline_gate(lane)
+        self._spawned += 1
+        self._write_queue_manifest()
+        self._emit_metrics({
+            "event": "family_spawn", "family": name, "seeded_from": declared,
+            "families": len(self._lanes), "families_spawned_total": self._spawned,
+        })
+        return lane
+
+    def _delta_of(self, sketch, extra: Dict[str, Any]) -> Optional[np.ndarray]:
+        """A forced-lane file's routing delta (its projections minus its
+        declared vintage's), for the routed member's evidence window: the
+        post-route crash path skips the router, which would supply it."""
+        dl = self._lanes.get(str(extra.get("family") or "main"))
+        if dl is None or dl.repo.cohort_sketch is None:
+            return None
+        bi = extra.get("base_iteration")
+        b0 = dl.repo.cohort_sketch.base_at(None if bi is None else int(bi))
+        if b0 is None:
+            return None
+        return np.asarray(sketch, np.float64)[0] - np.asarray(b0, np.float64)[0]
+
     # -- fuse policy ----------------------------------------------------
-    def _should_fuse(self) -> bool:
-        n = self.repo.n_staged
-        if n == 0 or self._failed_cohort_size == n:
+    def _should_fuse(self, lane: _Lane) -> bool:
+        n = lane.repo.n_staged
+        if n == 0 or lane.failed_cohort_size == n:
             return False
         if n >= self.policy.min_cohort:
             return True
-        return (self.policy.max_wait_s > 0 and self._cohort_since is not None
-                and time.time() - self._cohort_since >= self.policy.max_wait_s)
+        return (self.policy.max_wait_s > 0 and lane.cohort_since is not None
+                and time.time() - lane.cohort_since >= self.policy.max_wait_s)
 
-    def _note_error(self, err: Exception) -> None:
+    def _note_error(self, err: Exception, lane: _Lane) -> None:
         self._last_error = f"{type(err).__name__}: {err}"
-        self._failed_cohort_size = self.repo.n_staged
+        lane.failed_cohort_size = lane.repo.n_staged
         self._recent_errors = (self._recent_errors + [
             {"t": time.time(), "error": self._last_error}])[-ERROR_RING:]
         self._write_queue_manifest()
 
     # -- the poll cycle -------------------------------------------------
     def run_once(self) -> Dict[str, Any]:
-        """One cycle: admit arrivals, dispatch (or finalize) per the cohort
-        policy, gate the publish when armed, GC consumed submissions,
-        compact on policy, publish status, append metrics.  Returns the
+        """One cycle: admit (and route) arrivals; in every lane dispatch
+        (or finalize) per the cohort policy and gate the publish when armed;
+        GC consumed submissions, compact on policy, cross-fuse a quiescent
+        family on schedule, publish status, append metrics.  Returns the
         status it published."""
         self._cycle += 1
         adm = self._admit()
-        repo = self.repo
-        it_before = repo.iteration
         gate_event = None
-        if self._should_fuse():
-            try:
+        published = []
+        for lane in list(self._lanes.values()):
+            repo = lane.repo
+            it_before = repo.iteration
+            if self._should_fuse(lane):
+                try:
+                    if self.gate is not None:
+                        # gated: synchronous, so no second cohort dispatches
+                        # against a base the gate may roll back
+                        repo.fuse_pending(wait=True)
+                    else:
+                        # finalizes any in-flight fuse, then launches the
+                        # staged cohort: the card fuses while the next
+                        # cycles drain
+                        repo.fuse_pending(wait=False)
+                    lane.cohort_since = None
+                    self._last_error = None
+                    faults.crash_point("service.post_dispatch")
+                except RuntimeError as err:  # e.g. all rows rejected
+                    self._note_error(err, lane)
+            elif repo.inflight:
+                # queue drained: publish the in-flight fuse now
+                try:
+                    repo.flush()
+                    self._last_error = None
+                except RuntimeError as err:
+                    self._note_error(err, lane)
+            if repo.iteration != it_before:
+                published.append(lane)
+                self._last_pub = lane.name
+                self._cross_counter += 1
+                faults.crash_point("service.post_publish")
                 if self.gate is not None:
-                    # gated: synchronous, so no second cohort dispatches
-                    # against a base the gate may roll back
-                    repo.fuse_pending(wait=True)
-                else:
-                    # finalizes any in-flight fuse, then launches the staged
-                    # cohort: the card fuses while the next cycles drain
-                    repo.fuse_pending(wait=False)
-                self._cohort_since = None
-                self._last_error = None
-                faults.crash_point("service.post_dispatch")
-            except RuntimeError as err:  # e.g. all rows rejected
-                self._note_error(err)
-        elif repo.inflight:
-            # queue drained: publish the in-flight fuse now
-            try:
-                repo.flush()
-                self._last_error = None
-            except RuntimeError as err:
-                self._note_error(err)
-        if repo.iteration != it_before:
-            faults.crash_point("service.post_publish")
-            if self.gate is not None:
-                gate_event = self._apply_gate_verdict(
-                    self.gate.check(self._gate_baseline, repo.flat_base()))
+                    gate_event = self._apply_gate_verdict(
+                        self.gate.check(lane.gate_baseline, repo.flat_base()), lane)
+        if published:
             self._gc_consumed()
-            if self.policy.compact_keep_bases is not None and not repo.inflight:
-                # only while quiescent: compact's flush would otherwise
-                # finalize the fuse just dispatched; a deferred compaction
-                # runs on the cycle that publishes it
-                repo.compact(keep_bases=self.policy.compact_keep_bases)
+            for lane in published:
+                if self.policy.compact_keep_bases is not None and not lane.repo.inflight:
+                    # only while quiescent: compact's flush would otherwise
+                    # finalize the fuse just dispatched; a deferred
+                    # compaction runs on the cycle that publishes it
+                    lane.repo.compact(keep_bases=self.policy.compact_keep_bases)
+        if (self._routing and self.policy.cross_fuse_every > 0
+                and self._cross_counter >= self.policy.cross_fuse_every
+                and len(self._lanes) >= 2
+                and not any(lane.repo.inflight or lane.repo.n_staged
+                            for lane in self._lanes.values())):
+            self._cross_fuse()
         st = self.status(admitted=adm["admitted"], queue_depth=adm["queue_depth"])
         ckpt.save_json_atomic(self._status_path, st)
         self._emit_cycle_metrics(st, gate_event)
         return st
+
+    def _cross_fuse(self) -> None:
+        """One cross-fuse round (``RepositoryFamily.cross_fuse``) and its
+        bookkeeping: the counters persist (so a restarted daemon neither
+        skips nor repeats the round), every member's gate re-baselines on
+        its moved base, and the event lands in the metrics series."""
+        self.family.cross_fuse()
+        self._cross_fuses += 1
+        self._cross_counter = 0
+        self._write_queue_manifest()
+        if self.gate is not None:
+            for lane in self._lanes.values():
+                self._rebaseline_gate(lane)
+        self._emit_metrics({
+            "event": "cross_fuse",
+            "families": {n: lane.repo.iteration for n, lane in self._lanes.items()},
+            "cross_fuses_total": self._cross_fuses,
+        })
 
     # -- metrics time series --------------------------------------------
     def _emit_metrics(self, record: Dict[str, Any]) -> None:
@@ -830,26 +1124,27 @@ class ColdService:
                       max_iterations: Optional[int] = None,
                       idle_timeout: Optional[float] = None,
                       max_poll_interval: Optional[float] = None) -> Dict[str, Any]:
-        """Run poll cycles until ``request_stop()``, until the published
-        iteration reaches ``max_iterations`` (once quiescent), or until
-        ``idle_timeout`` seconds pass without progress.  No-progress sleeps
-        back off with jitter up to ``max_poll_interval`` (default the larger
-        of ``poll_interval`` and 0.25 s); an in-flight fuse pins the sleep
-        at ``poll_interval``.  Returns the final status."""
+        """Run poll cycles until ``request_stop()``, until every member's
+        published iteration reaches ``max_iterations`` (once quiescent), or
+        until ``idle_timeout`` seconds pass without progress.  No-progress
+        sleeps back off with jitter up to ``max_poll_interval`` (default the
+        larger of ``poll_interval`` and 0.25 s); an in-flight fuse pins the
+        sleep at ``poll_interval``.  Returns the final status."""
         cap = (max(poll_interval, 0.25) if max_poll_interval is None
                else max(poll_interval, max_poll_interval))
         delay = poll_interval
         last_progress = time.monotonic()
-        last_it = self.repo.iteration
+        last_its = {n: lane.repo.iteration for n, lane in self._lanes.items()}
         while not self._stop:
             st = self.run_once()
-            progress = st["admitted_this_cycle"] or self.repo.iteration != last_it
-            last_it = self.repo.iteration
+            its = {n: lane.repo.iteration for n, lane in self._lanes.items()}
+            progress = st["admitted_this_cycle"] or its != last_its
+            last_its = its
             if progress:
                 last_progress = time.monotonic()
                 delay = poll_interval
             idle = st["queue_depth"] == 0 and st["staged"] == 0 and not st["inflight"]
-            if max_iterations is not None and idle and last_it >= max_iterations:
+            if max_iterations is not None and idle and min(its.values()) >= max_iterations:
                 break
             if (idle_timeout is not None and st["queue_depth"] == 0 and not st["inflight"]
                     and time.monotonic() - last_progress >= idle_timeout):
@@ -866,13 +1161,15 @@ class ColdService:
         self._stop = True
 
     def close(self) -> Dict[str, Any]:
-        """Quiesce: finalize any in-flight fuse, GC, publish a final status
-        with ``running=False``.  Staged rows stay in the durable manifest."""
+        """Quiesce: finalize every member's in-flight fuse, GC, publish a
+        final status with ``running=False``.  Staged rows stay in the
+        durable manifests."""
         self._stop = True
-        try:
-            self.repo.flush()
-        except RuntimeError as err:
-            self._note_error(err)
+        for lane in list(self._lanes.values()):
+            try:
+                lane.repo.flush()
+            except RuntimeError as err:
+                self._note_error(err, lane)
         self._gc_consumed()
         st = self.status()
         st["running"] = False
@@ -883,30 +1180,35 @@ class ColdService:
     def status(self, *, admitted: int = 0, queue_depth: Optional[int] = None) -> Dict[str, Any]:
         """The fields contributors and operators poll, persisted atomically
         to ``<root>/service_status.json`` every cycle (the reference's
-        keys; routing and serving report their idle values)."""
-        repo = self.repo
-        last = repo.history[-1] if repo.history else None
-        return {
-            "iteration": repo.iteration,
+        keys; serving reports None).  ``staged``, ``inflight``, ``fuses``
+        and ``fused_contributions`` cover the whole family, ``iteration``
+        is main's; under routing ``families`` holds each member's view,
+        with the ``routes`` ring and the spawn and cross-fuse totals."""
+        lanes = self._lanes.values()
+        lh = (self._lanes.get(self._last_pub) or self._main).repo.history
+        last = lh[-1] if lh else None
+        st = {
+            "iteration": self.repo.iteration,
             "queue_depth": len(self._scan_new()) if queue_depth is None else queue_depth,
-            "staged": repo.n_staged,
-            "inflight": repo.inflight,
+            "staged": sum(lane.repo.n_staged for lane in lanes),
+            "inflight": any(lane.repo.inflight for lane in lanes),
             "admitted": len(self._entries),
             "admitted_this_cycle": admitted,
-            "fuses": len(repo.history),
-            "fused_contributions": sum(r.n_contributions for r in repo.history),
+            "fuses": sum(len(lane.repo.history) for lane in lanes),
+            "fused_contributions": sum(r.n_contributions for lane in lanes
+                                       for r in lane.repo.history),
             "fused_queue_submissions": self._fused_ids,
             "rejected_total": self._rejected,
             "novelty_rejected_total": self._novelty_rejected,
             "novelty_screen": self.policy.novelty_threshold is not None,
-            "sketch_entries": (None if repo.cohort_sketch is None
-                               else len(repo.cohort_sketch)),
+            "sketch_entries": (None if self.repo.cohort_sketch is None
+                               else len(self.repo.cohort_sketch)),
             "recent_rejects": list(self._rejects),
             "gate": self.gate is not None,
             "quarantined_total": self._quarantined,
             "rollbacks_total": self._rollbacks,
             "last_gate": self._last_gate,
-            "routing": False,
+            "routing": self._routing,
             "fuse_latency_s": last.wall_time if last else None,
             "last_fuse": None if last is None else {
                 "iteration": last.iteration,
@@ -922,3 +1224,18 @@ class ColdService:
             "running": not self._stop,
             "updated_at": time.time(),
         }
+        if self._routing:
+            st["families"] = {
+                name: {
+                    "iteration": lane.repo.iteration,
+                    "staged": lane.repo.n_staged,
+                    "inflight": lane.repo.inflight,
+                    "fuses": len(lane.repo.history),
+                    "fused_contributions": sum(r.n_contributions for r in lane.repo.history),
+                    "gate_iteration": lane.gate_iteration,
+                    "last_gate": lane.last_gate,
+                } for name, lane in self._lanes.items()}
+            st["routes"] = list(self._routes)
+            st["families_spawned_total"] = self._spawned
+            st["cross_fuses_total"] = self._cross_fuses
+        return st

@@ -12,11 +12,12 @@ The armed name is read once at import: children receive the variable
 before the interpreter starts, and a hot-path hook must not pay a getenv
 per call.
 
-Seams in the port: ``client.mid_submit``, ``service.post_ingest``,
-``service.post_sketch``, ``service.post_dispatch``,
-``service.post_publish``, ``service.post_probe``,
-``service.post_quarantine``, ``service.mid_gc``,
-``repo.post_publish_pre_manifest`` and ``repo.mid_rollback``.
+Seams in the port: ``client.mid_submit``, ``service.post_route``,
+``service.post_ingest``, ``service.post_sketch``,
+``service.post_dispatch``, ``service.post_publish``,
+``service.post_probe``, ``service.post_quarantine``, ``service.mid_gc``,
+``repo.post_publish_pre_manifest``, ``repo.mid_rollback`` and
+``repo.post_family_spawn``.
 """
 from __future__ import annotations
 

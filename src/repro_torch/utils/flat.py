@@ -17,7 +17,8 @@ leaf already has the storage dtype: callers that update a published tree in
 place write into the row itself, so they must clone first.
 
 The service loop adds the novelty screen's host half (``row_sketch_host``,
-``CohortSketch``), the delta codec of compressed submissions
+``CohortSketch``), the similarity router over a base family
+(``FamilyRouter``, ``RouteDecision``), the delta codec of compressed submissions
 (``DeltaPayload``, ``delta_encode``/``decode``/``entries``/``checksum``,
 ``sketch_apply_delta``; host numpy, byte-identical to the JAX package's)
 and the double-buffered staging primitives (``StagingSide``,
@@ -344,6 +345,101 @@ class CohortSketch:
         for e in meta.get("entries", []):
             sk.add(e["id"], e["sketch"], file=e.get("file"), delta=e.get("delta"))
         return sk
+
+
+# ---------------------------------------------------------------------------
+# FamilyRouter — sketch-distance routing over a family of bases
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class RouteDecision:
+    """Outcome of routing one submission against the base family.
+    ``family`` is the member to fuse into (None when ``spawn``);
+    ``distance`` the winning relative distance (None for a bootstrap
+    fallback); ``scores`` every scored member's distance; ``delta`` the
+    rider's base-relative projection delta, the evidence the routed
+    member's sketch window records."""
+
+    family: Optional[str]
+    spawn: bool
+    distance: Optional[float]
+    scores: Dict[str, float]
+    delta: Optional[np.ndarray]
+    reason: str
+
+
+class FamilyRouter:
+    """Route submissions to their nearest family member by sketch distance
+    (port of ``repro.utils.flat.FamilyRouter``: the same float64 numpy
+    arithmetic, so decisions and distances agree bit for bit).
+
+    The unit of comparison is the delta projection ``rider[0] − base[0]``,
+    the sketch of the contributor's finetune delta.  A rider scores against
+    member ``m`` the minimum of ``lb(rider, base_m) / ‖δ‖`` and, over
+    ``m``'s windowed deltas ``δ_e``, ``lb_p(δ − δ_e) / max(‖δ‖, ‖δ_e‖)``:
+    colinear same-stream deltas of magnitudes ``m1 ≤ m2`` score
+    ``1 − m1/m2``.  Rules: no delta evidence anywhere, or a rider on its
+    declared base → the declared member; nearest ≤ ``split_threshold`` →
+    the argmin (ties prefer the declared member); otherwise spawn below
+    ``max_bases``, else the argmin anyway."""
+
+    def __init__(self, *, split_threshold: float = 0.8, max_bases: int = 4):
+        if split_threshold <= 0:
+            raise ValueError(f"split_threshold must be > 0, got {split_threshold}")
+        self.split_threshold = float(split_threshold)
+        self.max_bases = int(max_bases)
+
+    @staticmethod
+    def _delta_norm(delta: np.ndarray, seg_elems: int) -> float:
+        return float(np.sqrt(np.sum(np.asarray(delta, np.float64) ** 2) / seg_elems))
+
+    def route(self, sketch, sketches: Dict[str, CohortSketch], *, declared: str = "main",
+              base_iteration: Optional[int] = None) -> RouteDecision:
+        """Score ``sketch`` against every member's ``CohortSketch`` (base
+        sketch plus windowed delta evidence) and decide; ``declared`` and
+        ``base_iteration`` name the vintage the rider finetuned from."""
+        if declared not in sketches:
+            raise KeyError(f"unknown declared family {declared!r}")
+        ref = sketches[declared]
+        arr = ref._check(sketch)
+        b0 = ref.base_at(base_iteration)
+        if b0 is None:
+            return RouteDecision(declared, False, None, {}, None,
+                                 "declared member holds no base sketch yet")
+        delta = arr[0] - np.asarray(b0, np.float64)[0]
+        dn = self._delta_norm(delta, ref.seg_elems)
+        if dn <= CohortSketch.EPS:
+            return RouteDecision(declared, False, 0.0, {}, delta,
+                                 "rider sits on its declared base")
+        if not any(e[3] is not None for sk in sketches.values() for e in sk.entries):
+            return RouteDecision(declared, False, None, {}, delta,
+                                 "bootstrap: no routing evidence yet")
+        scores: Dict[str, float] = {}
+        for name, sk in sketches.items():
+            terms: List[float] = []
+            if sk.base is not None:
+                terms.append(ref._lb(arr, np.asarray(sk.base, np.float64)) / dn)
+            for e in sk.entries:
+                de = e[3]
+                if de is None:
+                    continue
+                den = max(dn, self._delta_norm(de, ref.seg_elems), CohortSketch.EPS)
+                terms.append(float(np.sqrt(np.sum((delta - de) ** 2) / ref.seg_elems)) / den)
+            if terms:
+                scores[name] = min(terms)
+        nearest = min(scores, key=lambda n: (scores[n], n != declared, n))
+        best = scores[nearest]
+        if best > self.split_threshold and len(sketches) < self.max_bases:
+            return RouteDecision(None, True, best, scores, delta,
+                                 f"nearest member {nearest} at {best:.3f} > "
+                                 f"split_threshold {self.split_threshold:g}")
+        if best > self.split_threshold:
+            reason = (f"at max_bases={self.max_bases}: routed to nearest "
+                      f"{nearest} despite {best:.3f} > split_threshold")
+        else:
+            reason = f"nearest member {nearest} at {best:.3f}"
+        return RouteDecision(nearest, False, best, scores, delta, reason)
 
 
 # ---------------------------------------------------------------------------

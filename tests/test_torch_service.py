@@ -22,6 +22,7 @@ from repro.serve import cold_service as jcs
 from repro.utils import flat as jflat
 from repro_torch.checkpoint import io as tio
 from repro_torch.core.repository import Repository as TRepository
+from repro_torch.core.repository import RepositoryFamily as TRepositoryFamily
 from repro_torch.serve import cold_service as tcs
 from repro_torch.serve.probes import ProbeSuite, RegressionGate
 from repro_torch.utils import flat as tflat
@@ -318,14 +319,23 @@ def test_launcher_runs_gated_compacting_with_spill_workers(tmp_path):
 
 
 def test_unported_paths_raise(tmp_path):
+    """mesh= still raises and spill=False is still refused; family= and
+    max_bases > 1, which raised before the routing slice, now construct a
+    routed service (their parity is in tests/test_torch_routing.py)."""
     base = _ttree(_base())
     with pytest.raises(NotImplementedError, match="mesh"):
         TRepository(base, mesh=object())
     repo = TRepository(base, root=str(tmp_path / "R"), spill=True)
-    with pytest.raises(NotImplementedError, match="family"):
+    with pytest.raises(ValueError, match="exactly one of repo= .* or family="):
         tcs.ColdService(repo, family=object())
-    with pytest.raises(NotImplementedError, match="routing"):
-        tcs.ColdService(repo, policy=tcs.AdmissionPolicy(max_bases=2))
+    fam = TRepositoryFamily.create(base, root=str(tmp_path / "F"), device="cpu", spill=True)
+    svc = tcs.ColdService(family=fam, policy=tcs.AdmissionPolicy(max_bases=2,
+                                                                 cross_fuse_every=2))
+    st = svc.status()
+    assert st["routing"] and list(st["families"]) == ["main"] and st["routes"] == []
+    assert st["families_spawned_total"] == 0 and st["cross_fuses_total"] == 0
+    single = tcs.ColdService(repo, policy=tcs.AdmissionPolicy(max_bases=2))
+    assert not single.status()["routing"]
     with pytest.raises(ValueError, match="spill=True"):
         tcs.ColdService(TRepository(base, root=str(tmp_path / "R2")))
 
