@@ -131,11 +131,41 @@ Phases (any failed check raises, so the script exits non-zero):
    steps from one base) are scored by ``FamilyRouter`` against each other
    and printed beside ``split_threshold``, not asserted.
 
-Before each of phases 6, 7, 8 and 10, and before each model of phase 9, every
-kernel's launch counter is set to 0; it is read just after.  The last lines
-are the kernels' JSON record (launches from phase 7 for the three fuse
+11. the fuse-to-serve stack (slice 7), gemma3-1b at full width (999,812,736
+   bf16 parameters in 74 leaves, a 2.00 GB row) in its own temporary root,
+   after phase 10: ``Repository(spill=True)`` with the MAD screen on behind
+   ``ColdService(min_cohort=3)``, and an in-process ``ServingWorker`` with the
+   scheduler (batches up to 4) following it.  The initial adoption must copy
+   nothing (every served leaf a view of the published row).  A 4 x 1024 ->
+   32 request captures iteration 0 and is held in the engine while three
+   contributors submit the base plus 0.01 N(0, 1) per leaf and the daemon
+   fuses and publishes iteration 1; the follower flips, and the released
+   request must return iteration 0 with the tokens of an iteration-0 oracle
+   computed before.  A new request must serve iteration 1 with a fresh
+   ``Engine``'s tokens; the published base is held against
+   ``cold_fuse_plain`` chunk by chunk (phase 8's rule); 8 concurrent
+   single-row requests must coalesce into 2 batches of 4, each row equal to
+   a re-run of its batch as the scheduler built it (and 2 solo calls are
+   timed); ``rollback(0)`` must swap the follower back to the oracle's
+   tokens; a cross-process worker must load ``base_iter0000.npz`` onto the
+   card and serve the same tokens, with ``serving_state.json`` and
+   ``status()["serving"]`` at iteration 0.  Then a ``WorkerPool`` of two
+   children (``reduce_config(gemma3-1b)``, the real engine on the card,
+   ``--batch``) over a small root behind a ``Router``: both converge on a
+   publish, every response equals the parent's ``Engine`` on the published
+   npz at its batch size, and a ``kill -9`` of one child under traffic is
+   re-routed once per request with none failed.  Launches are exact
+   (``SERVE_STACK_LAUNCHES``, worked out from the code): ``cold_fuse`` 2,
+   ``flash_attention`` 10,128 (12 generates of 26 layers x 32 tokens, 3 pool
+   oracles of 6 layers x 8); swap latencies, request latencies, tokens per
+   second, peak memory and the phase's seconds are printed.
+
+Before each of phases 6, 7, 8, 10 and 11, and before each model of phase 9,
+every kernel's launch counter is set to 0; it is read just after.  The last
+lines are the kernels' JSON record (launches from phase 7 for the three fuse
 kernels, with phase 10's as ``launches_routed``, from phase 9 for the other
-two), ``nvidia-smi``'s line and
+two, and phase 11's as ``launches_serve_stack`` for all five),
+``nvidia-smi``'s line and
 ``{"ok": true, "device": {...}}``.  Without a card (or without the rest of
 the repository beside it) the script exits non-zero and prints no result.
 """
@@ -186,6 +216,9 @@ from repro_torch.train.step import make_serve_step  # noqa: E402
 from repro_torch.serve.cold_service import (AdmissionPolicy, ColdService,  # noqa: E402
                                             ContributorClient)
 from repro_torch.serve.probes import MultitaskEvals, ProbeSuite, RegressionGate  # noqa: E402
+from repro_torch.serve.hot_swap import ServingWorker  # noqa: E402
+from repro_torch.serve.scheduler import batch_bucket  # noqa: E402
+from repro_torch.serve.worker_pool import WorkerPool  # noqa: E402
 from repro_torch.core.validation import screen_norms  # noqa: E402
 from repro_torch.utils.flat import (LANE, CohortSketch, FamilyRouter, FlatSpec,  # noqa: E402
                                     delta_decode, delta_encode)
@@ -253,6 +286,31 @@ RWKV_PROMPT, RWKV_MAX_LEN = 256, 256 + SERVE_NEW
 FLASH_PREFILL = (4, GEMMA_PROMPT, GEMMA_MAX_LEN, GEMMA.num_heads, GEMMA.num_kv_heads,
                  GEMMA.head_dim)
 RWKV_PREFILL = (4, RWKV_PROMPT, RWKV.d_model // RWKV.ssm.head_dim, RWKV.ssm.head_dim)
+# the fuse-to-serve stack (phase 11) on gemma3-1b at full width: K_SWAP
+# contributors submit the base plus SWAP_NOISE x N(0, 1) per leaf; SCHED_N
+# concurrent single-row requests meet a scheduler of batches up to
+# SCHED_BATCH that waits up to SCHED_WAIT s for a batch to fill; the pool's
+# children serve reduce_config(gemma3-1b) on the card, POOL_PROMPT tokens ->
+# POOL_NEW
+N_GEMMA = 999_812_736       # elements of the gemma3-1b tree (FlatSpec.size)
+K_SWAP = 3
+SWAP_NOISE = 0.01
+SCHED_N, SCHED_BATCH, SCHED_WAIT = 8, 4, 0.5
+POOL_CFG = reduce_config(GEMMA)
+POOL_PROMPT, POOL_NEW, POOL_MAX_LEN = 16, 8, 64
+POOL_BUCKETS = (1, 2, 4)    # the scheduler's buckets up to SCHED_BATCH
+# worked out from the code before the first card run (PERF.md):
+# Engine.generate calls in this process, each one flash_attention launch per
+# layer and token: the iteration-0 oracle, the held request, the iteration-1
+# request and its fresh-Engine oracle, the scheduler's SCHED_N / SCHED_BATCH
+# batches and as many re-runs, 2 solo calls, the request after the rollback
+# and the cross-process worker's request; then one oracle per pool bucket on
+# the reduced model.  cold_fuse: the gemma3 cohort and the pool's publish.
+SERVE_STACK_LAUNCHES = {
+    "flash_attention": ((4 + 2 * (SCHED_N // SCHED_BATCH) + 2 + 2) * GEMMA.num_layers * SERVE_NEW
+                        + len(POOL_BUCKETS) * POOL_CFG.num_layers * POOL_NEW),
+    "cold_fuse": 2,
+}
 
 
 def check(ok, msg):
@@ -286,6 +344,10 @@ def ptxas_summary(log: str):
 
 def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
     return torch.exp2(torch.floor(torch.log2(x.abs().clamp_min(2.0 ** -126))) - 7)
+
+
+def f32_ulp(x: torch.Tensor) -> torch.Tensor:
+    return torch.exp2(torch.floor(torch.log2(x.float().abs().clamp_min(2.0 ** -126))) - 23)
 
 
 def fused_error(got, want) -> float:
@@ -1459,8 +1521,7 @@ def phase_lifecycle(workdir, card, service_split):
     d = (got - pf).abs()
     beyond = d > bf16_ulp(torch.maximum(got.abs(), pf.abs()))
     operands = torch.maximum(b_row.float().abs(), (a32 * (c_row.float() - b_row.float())).abs())
-    f32_ulp = torch.exp2(torch.floor(torch.log2(operands.clamp_min(2.0 ** -126))) - 23)
-    check(bool((d[beyond] <= f32_ulp[beyond]).all()), "contribute_async differs from "
+    check(bool((d[beyond] <= f32_ulp(operands[beyond])).all()), "contribute_async differs from "
           "cold_fuse_plain by more than 1 bf16 ulp and the f32 rounding of the operands")
     n_beyond = int(beyond.sum())
     row3 = repo.flat_base_host()
@@ -1532,28 +1593,39 @@ def sparse_pattern(t: int, n: int) -> torch.Tensor:
     return torch.where(keep, task_pattern(t, n) * (CODEC_BLOCK // CODEC_KB), 0.0)
 
 
-def hold_fuse(got, base, rows, alpha, what):
-    """``got`` against ``base + alpha * (mean(rows) - base)`` (unit weights):
-    within 1 bf16 ulp of the exactly rounded value, and of
-    ``cold_fuse_plain``'s except where the result cancels, there within 1 f32
-    ulp of the operands (phase 8's rule).  Returns the two max|d| and the
-    count beyond 1 bf16 ulp of the plain version."""
+def hold_fuse(got, base, rows, alpha, what, chunk=1 << 26):
+    """``got`` (bf16) against ``base + alpha * (mean(rows) - base)`` (unit
+    weights), chunk by chunk so a 1 G-element row fits beside the model
+    (phase 8's rule): within 1 bf16 ulp of the exactly rounded value and of
+    ``cold_fuse_plain``'s, except where the result cancels, and there within
+    1 f32 ulp of the operands, the largest |x| of the base and the rows.  The
+    kernel sums ``w_k / sum(w) * x_k`` in f32, so where the rows sum to
+    (nearly) zero its result carries the rounding of those products, as the
+    plain version's does (ROADMAP C.14).  Returns max|d| against the exact
+    and the plain value, and the counts beyond 1 bf16 ulp of the plain and
+    the exact value."""
     a32 = float(np.float32(alpha))
-    b = base.double()
-    mean = sum(r.double() for r in rows) / len(rows)
-    exact = (b + a32 * (mean - b)).float().to(got.dtype)
-    err = fused_error(got, exact)
-    plain, _ = cold_fuse_plain(base.float(), torch.stack([r.float() for r in rows]),
-                               torch.ones(len(rows), device="cuda"), alpha)
-    g, p = got.float(), plain.to(got.dtype).float()
-    d = (g - p).abs()
-    beyond = d > bf16_ulp(torch.maximum(g.abs(), p.abs()))
-    operands = torch.maximum(b.abs(), (a32 * (mean - b)).abs()).float()
-    f32_ulp = torch.exp2(torch.floor(torch.log2(operands.clamp_min(2.0 ** -126))) - 23)
-    check(bool((d[beyond] <= f32_ulp[beyond]).all()),
-          f"{what}: differs from cold_fuse_plain by more than 1 bf16 ulp and the f32 rounding "
-          "of the operands")
-    return err, d.max().item(), int(beyond.sum())
+    ones = torch.ones(len(rows), device=base.device)
+    worst, beyond = {"exact": 0.0, "plain": 0.0}, {"exact": 0, "plain": 0}
+    for s in range(0, got.numel(), chunk):
+        g, b = got[s:s + chunk].float(), base[s:s + chunk]
+        rs = [r[s:s + chunk] for r in rows]
+        bd = b.double()
+        mean = sum(r.double() for r in rs) / len(rs)
+        want = {"exact": (bd + a32 * (mean - bd)).float().to(got.dtype).float(),
+                "plain": cold_fuse_plain(b.float(), torch.stack([r.float() for r in rs]), ones,
+                                         alpha)[0].to(got.dtype).float()}
+        check(bool(torch.isfinite(g).all()), f"{what}: the fused row is not finite")
+        ops = torch.stack([b.float().abs()] + [r.float().abs() for r in rs]).amax(0)
+        for key, w in want.items():
+            d = (g - w).abs()
+            out = d > bf16_ulp(torch.maximum(g.abs(), w.abs()))
+            check(bool((d[out] <= f32_ulp(ops[out])).all()),
+                  f"{what}: differs from the {key} value by more than 1 bf16 ulp and 1 f32 ulp "
+                  f"of the operands (max|d| {d.max().item():.3g})")
+            worst[key] = max(worst[key], d.max().item())
+            beyond[key] += int(out.sum())
+    return worst["exact"], worst["plain"], beyond["plain"], beyond["exact"]
 
 
 def delta_term(sk: CohortSketch, d, de) -> float:
@@ -1729,7 +1801,7 @@ def phase_routing(workdir, card):
                               f"cross-fuse member {n}"))
         mean_err = fused_error(m.flat_base(), ((pre["main"].double() + pre["f1"].double()) / 2)
                                .float().to(torch.bfloat16))
-        errs.append((mean_err, 0.0, 0))
+        errs.append((mean_err, 0.0, 0, 0))
     print(f"[routing] round 0: 4 dense rows declared against main split into "
           f"{sorted(fams)} (stream 0 -> {home[0]}, stream 1 -> {home[1]}); each member's "
           f"base vs its own stream's fuse: max|d| {errs[0][0]:.3g} / {errs[1][0]:.3g} vs the "
@@ -2427,6 +2499,382 @@ def phase_small_lm():
               "(bound 1e-4)")
 
 
+# ---------------------------------------------------------------------------
+# slice 7: the fuse-to-serve stack (phase 11)
+# ---------------------------------------------------------------------------
+
+
+def poll_until(pred, what: str, timeout: float = 300.0, interval: float = 0.01) -> float:
+    """Poll ``pred`` until it holds; the seconds it took (a failed check at
+    the deadline)."""
+    t0 = time.perf_counter()
+    while not pred():
+        check(time.perf_counter() - t0 < timeout, f"{what} not reached in {timeout} s")
+        time.sleep(interval)
+    return time.perf_counter() - t0
+
+
+class HeldEngine:
+    """The worker's engine factory: the real ``Engine``, every call recorded
+    as (prompts, params, tokens); with ``hold`` set, the next call signals
+    ``started`` and waits for ``release`` before the real generate runs."""
+
+    def __init__(self):
+        self.engine, self.hold, self.calls = None, None, []
+        self.lock = threading.Lock()
+
+    def __call__(self, cfg, params, max_len):
+        self.engine = Engine(cfg, params, max_len=max_len)
+        return self
+
+    def generate(self, prompts, *, max_new_tokens, params=None):
+        hold, self.hold = self.hold, None
+        if hold is not None:
+            hold["started"].set()
+            check(hold["release"].wait(900.0), "the held request was never released")
+        res = self.engine.generate(prompts, max_new_tokens=max_new_tokens, params=params)
+        with self.lock:
+            self.calls.append((np.array(prompts), params, res.tokens))
+        return res
+
+
+def in_thread(fn):
+    """Run ``fn()`` on a thread; the returned ``join()`` gives its result or
+    raises its error."""
+    box = {}
+
+    def run():
+        try:
+            box["out"] = fn()
+        except BaseException as err:  # noqa: BLE001 - re-raised by join
+            box["err"] = err
+
+    th = threading.Thread(target=run, daemon=True)
+    th.start()
+
+    def join(timeout: float = 900.0):
+        th.join(timeout)
+        check(not th.is_alive(), f"a request thread did not finish in {timeout} s")
+        if "err" in box:
+            raise box["err"]
+        return box["out"]
+
+    return join
+
+
+def perturbed_row(spec, base, seed):
+    """The base plus SWAP_NOISE x N(0, 1) drawn per leaf from ``seed``, as
+    one flat row in the base's dtype."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    tree = tree_map(lambda x: (x.float() + SWAP_NOISE * torch.randn(
+        x.shape, generator=g, device="cuda")).to(x.dtype), base)
+    return spec.flatten(tree)
+
+
+def by_reference(params, row) -> bool:
+    """Every leaf is a view inside ``row``'s storage and together they
+    cover it: adopted without a copy."""
+    ptr, leaves = row.untyped_storage().data_ptr(), tree_leaves(params)
+    return (all(x.untyped_storage().data_ptr() == ptr for x in leaves)
+            and sum(x.numel() for x in leaves) == row.numel())
+
+
+def timed_generate(eng, prompts, **kw):
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    res = eng.generate(prompts, max_new_tokens=SERVE_NEW, **kw)
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t
+
+
+def phase_serve_stack(workdir):
+    """The fuse-to-serve stack (phase 11) on gemma3-1b: a Repository behind
+    the daemon, a hot-swap ServingWorker with the scheduler following it in
+    process, a cross-process worker, and a pool of two children behind a
+    Router.  Returns what the phase measured."""
+    cfg, prompt_len, new, max_len = GEMMA, GEMMA_PROMPT, SERVE_NEW, GEMMA_MAX_LEN
+    res = {}
+    t_phase = time.perf_counter()
+    root = os.path.join(workdir, "serve_stack")
+    rng = np.random.default_rng(11)
+
+    # setup: the model on the card, the repository, the daemon, the worker
+    theta = init_lm(cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    spec = FlatSpec.from_tree(theta)
+    t = time.perf_counter()
+    repo = Repository(theta, root=root, spill=True)  # the MAD screen on
+    del theta
+    svc = ColdService(repo, policy=AdmissionPolicy(min_cohort=K_SWAP))
+    init_s = time.perf_counter() - t
+    st = svc.status()
+    check(not st["novelty_screen"] and st["serving"] is None, f"daemon status {st}")
+    print(f"[serve-stack] {cfg.name}: {len(spec.leaves)} leaves, N = {spec.size:,} "
+          f"{spec.dtype} ({spec.size * 2 / 1e9:.2f} GB row) on {repo.device}; "
+          f"Repository + base_iter0000.npz + ColdService {init_s:.2f} s")
+    held = HeldEngine()
+    w = ServingWorker(cfg, root, repo=repo, max_len=max_len, batch_requests=True,
+                      max_batch=SCHED_BATCH, batch_wait_s=SCHED_WAIT, engine_factory=held)
+    w.start(interval=0.02)
+    poll_until(lambda: w.current_iteration == 0, "the initial adoption")
+
+    # 1. adoption by reference
+    row0 = repo.flat_base()
+    check(by_reference(w.current().params, row0),
+          "the initial adoption copied: a served leaf lies outside the published row")
+    res["adopt_s"] = w.last_swap_latency_s
+    print(f"[serve-stack] initial adoption in process, by reference (every leaf a view of the "
+          f"published row): swap latency {res['adopt_s'] * 1e3:.3f} ms")
+
+    # 2. a request pinned to iteration 0 while iteration 1 is fused and published
+    prompts = rng.integers(3, cfg.vocab_size, (4, prompt_len))
+    oracle0, _ = timed_generate(Engine(cfg, repo.download(), max_len=max_len), prompts)
+    stage = torch.empty((K_SWAP, spec.size), dtype=row0.dtype, device="cuda")
+    for c in range(K_SWAP):
+        stage[c] = perturbed_row(spec, repo.download(), 1100 + c)
+    rows = list(stage)
+    hold = {"started": threading.Event(), "release": threading.Event()}
+    held.hold = hold
+    join = in_thread(lambda: w.generate(prompts, max_new_tokens=new))
+    check(hold["started"].wait(600.0), "the pinned request never reached the engine")
+    t = time.perf_counter()
+    for c, row in enumerate(rows):
+        ContributorClient(root, f"c{c}").submit(row=row, spec=spec, base_iteration=0)
+    res["submit_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    serve_until(svc, lambda st: st["iteration"] >= 1, timeout=600)
+    res["serve_s"] = time.perf_counter() - t
+    rec = repo.history[-1]
+    check((rec.n_accepted, rec.n_contributions) == (K_SWAP, K_SWAP),
+          f"cohort fused {rec.n_accepted}/{rec.n_contributions}")
+    poll_until(lambda: w.current_iteration == 1, "the swap to iteration 1")
+    swap1 = dict(w.last_swap)
+    check(swap1["from_iteration"] == 0 and swap1["to_iteration"] == 1, f"swap {swap1}")
+    check(by_reference(w.current().params, repo.flat_base()), "iteration 1 adopted by copy")
+    check(repo.flat_base().untyped_storage().data_ptr() != row0.untyped_storage().data_ptr(),
+          "the publish wrote into the superseded row")
+    hold["release"].set()
+    got = join()
+    check(got.iteration == 0, f"the pinned request served iteration {got.iteration}")
+    check(np.array_equal(got.tokens, oracle0.tokens),
+          "the pinned request's tokens differ from the iteration-0 oracle's")
+    check(w.requests_pinned_across_swaps == 1,
+          f"requests_pinned_across_swaps {w.requests_pinned_across_swaps}")
+    print(f"[serve-stack] {K_SWAP} dense submissions ({spec.size * 2 / 1e9:.2f} "
+          f"GB npz each) {res['submit_s']:.2f} s; the daemon fused {rec.n_accepted}/"
+          f"{rec.n_contributions} and published iteration 1 in {res['serve_s']:.2f} s (fuse "
+          f"{rec.wall_time:.3f} s); swap 0 -> 1 in process {swap1['swap_latency_s'] * 1e3:.3f} "
+          f"ms; the request held across it served iteration 0, tokens equal to the iteration-0 "
+          f"oracle ({prompts.shape[0]} x {prompt_len} -> {new}); pinned across swaps: 1")
+
+    # 3. a new request serves iteration 1, as a fresh Engine on the base does
+    got1, lat1 = timed_generate(w, prompts)
+    fresh, lat_fresh = timed_generate(Engine(cfg, repo.download(), max_len=max_len),
+                                      prompts)
+    check(got1.iteration == 1, f"a new request served iteration {got1.iteration}")
+    check(np.array_equal(got1.tokens, fresh.tokens),
+          "iteration 1's tokens differ from a fresh Engine on repo.download()")
+    moved = int((got1.tokens[:, prompt_len:] != oracle0.tokens[:, prompt_len:]).sum())
+    print(f"[serve-stack] iteration 1 served, tokens equal to a fresh Engine's; "
+          f"{moved}/{got1.tokens[:, prompt_len:].size} generated tokens differ from iteration "
+          f"0's; 4-row request {lat1:.3f} s through the worker, {lat_fresh:.3f} s on the fresh "
+          "Engine")
+
+    # 4. the fused base against cold_fuse_plain, chunk by chunk
+    t = time.perf_counter()
+    err_exact, err_plain, n_plain, n_exact = hold_fuse(repo.flat_base(), row0, rows, 1.0,
+                                                       "the published base")
+    print(f"[check] published base ({spec.size:,} elements) vs the exactly rounded mean of "
+          f"{K_SWAP} rows: max|d| {err_exact:.3g}, {n_exact} elements beyond 1 bf16 ulp; vs "
+          f"cold_fuse_plain: max|d| {err_plain:.3g}, {n_plain} beyond; every one of them "
+          f"within 1 f32 ulp of the operands "
+          f"({time.perf_counter() - t:.1f} s)")
+    res["fuse_inputs"] = (row0, stage)  # timed after the launches are read
+    del rows
+
+    # 5. the scheduler: SCHED_N concurrent single-row requests
+    sched_prompts = rng.integers(3, cfg.vocab_size, (SCHED_N, prompt_len))
+    n0 = len(held.calls)
+    gate = threading.Barrier(SCHED_N)
+
+    def client(i):
+        return lambda: (gate.wait(), w.generate(sched_prompts[i:i + 1], max_new_tokens=new))[1]
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    joins = [in_thread(client(i)) for i in range(SCHED_N)]
+    served = [j() for j in joins]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    calls = held.calls[n0:]
+    sizes = [c[0].shape[0] for c in calls]
+    check(all(r.iteration == 1 for r in served), "a batched request left iteration 1")
+    check(any(r.batch_size > 1 for r in served), f"nothing coalesced: batches {sizes}")
+    check(sizes == [SCHED_BATCH] * (SCHED_N // SCHED_BATCH),
+          f"batches {sizes}, expected {SCHED_N // SCHED_BATCH} of {SCHED_BATCH}")
+    for prompts_b, params_b, _ in calls:
+        # the batch's requests in row order (a padding row repeats the last)
+        idx = list(dict.fromkeys(
+            next(i for i in range(SCHED_N) if np.array_equal(sched_prompts[i], row))
+            for row in prompts_b))
+        rebuilt = np.stack([sched_prompts[i] for i in idx])
+        pad = batch_bucket(len(idx)) - len(idx)
+        rebuilt = np.concatenate([rebuilt, np.repeat(rebuilt[-1:], pad, axis=0)])
+        check(np.array_equal(rebuilt, prompts_b), "a batch is not its requests, padded as "
+              "the scheduler pads")
+        again = held.engine.generate(rebuilt, max_new_tokens=new, params=params_b).tokens
+        for j, i in enumerate(idx):
+            check(np.array_equal(served[i].tokens[0], again[j]),
+                  f"request {i}'s tokens differ from its batch's re-run")
+    solo = []
+    for i in range(2):
+        _, s = timed_generate(held.engine, sched_prompts[i:i + 1],
+                              params=w.current().params)
+        solo.append(s)
+    lats = sorted(r.latency_s for r in served)
+    res["sched"] = {"batches": sizes, "latency_s": lats, "wall_s": wall, "solo_s": solo,
+                    "tokens_per_s": SCHED_N * new / wall, "solo_tokens_per_s": new / min(solo)}
+    print(f"[serve-stack] scheduler: {SCHED_N} concurrent 1 x {prompt_len} -> {new} requests "
+          f"in batches {sizes}, each row's tokens equal to a re-run of its batch; per-request "
+          f"latency {lats[0]:.3f} / {lats[len(lats) // 2]:.3f} / {lats[-1]:.3f} s (min / "
+          f"median / max), {wall:.3f} s wall, {res['sched']['tokens_per_s']:.1f} generated "
+          f"tokens/s; solo (one row, straight to the engine) {solo[0]:.3f} / {solo[1]:.3f} s, "
+          f"{res['sched']['solo_tokens_per_s']:.1f} tokens/s")
+
+    # 6. rollback: the follower swaps backwards
+    t = time.perf_counter()
+    repo.rollback(0)
+    res["rollback_s"] = time.perf_counter() - t
+    poll_until(lambda: w.current_iteration == 0, "the swap back to iteration 0")
+    back = dict(w.last_swap)
+    check(back["from_iteration"] == 1 and back["to_iteration"] == 0, f"rollback swap {back}")
+    got_rb = w.generate(prompts, max_new_tokens=new)
+    check(got_rb.iteration == 0 and np.array_equal(got_rb.tokens, oracle0.tokens),
+          "after the rollback the worker does not serve the iteration-0 oracle's tokens")
+    print(f"[serve-stack] rollback(0) {res['rollback_s']:.2f} s; swap 1 -> 0 "
+          f"{back['swap_latency_s'] * 1e3:.3f} ms; tokens equal to the iteration-0 oracle's")
+
+    # 7. a cross-process worker loads the published npz onto the card
+    x = ServingWorker(cfg, root, device="cuda", max_len=max_len, worker_id="xproc", name="xproc")
+    check(x.poll_once() and x.current_iteration == 0, "the cross-process worker adopted nothing")
+    res["xproc_swap_s"] = x.last_swap_latency_s
+    check(all(leaf.device == repo.device for leaf in tree_leaves(x.current().params)),
+          "the cross-process worker's base is not on the card")
+    got_x = x.generate(prompts, max_new_tokens=new)
+    check(got_x.iteration == 0 and np.array_equal(got_x.tokens, got_rb.tokens),
+          "the cross-process worker's tokens differ from the in-process worker's")
+    w._persist_state()
+    solo_state = ckpt.load_json(os.path.join(root, "serving_state.json"))
+    serving = svc.status()["serving"]
+    check(solo_state["iteration"] == 0 and serving["iteration"] == 0
+          and serving["n_workers"] == 2 and serving["versions_served"] == [0, 1],
+          f"serving state {solo_state['iteration']} / {serving}")
+    print(f"[serve-stack] cross-process worker: base_iter0000.npz loaded onto the card, swap "
+          f"latency {res['xproc_swap_s']:.3f} s; tokens equal to the in-process worker's; "
+          f"serving_state.json iteration {solo_state['iteration']}, status()['serving'] "
+          f"iteration {serving['iteration']} over {serving['n_workers']} workers, "
+          f"versions {serving['versions_served']}")
+    x.stop()
+    w.stop()
+    svc.close()
+    del x, w, held, repo, svc, row0, stage, oracle0, got, got1, fresh
+    torch.cuda.empty_cache()
+
+    # 8. a pool of two children (reduced gemma3-1b, real engine, batched) behind a Router
+    res["pool"] = pool_run(os.path.join(workdir, "pool"), rng)
+    res["seconds"] = time.perf_counter() - t_phase
+    return res
+
+
+def time_cohort_fuse(base, stage, card):
+    """``cold_fuse`` at phase 11's cohort shape, beside its bound and the
+    plain version (CUDA events, five windows, the median)."""
+    K, N = stage.shape
+    w = torch.ones(K, device=stage.device)
+    s = stage.element_size()
+    bound, by = bound_of((K + 2) * N * s + 2 * K * 4, 4 * K * N + 3 * N)
+    ms, runs = median_windows(lambda: cold_fuse(base, stage, w, 1.0), iters=5)
+    plain, plain_runs = median_windows(lambda: cold_fuse_plain(base, stage, w, 1.0), iters=1,
+                                       warmup=1)
+    print(f"[time] cold_fuse K={K} N={N:,} {str(stage.dtype)[6:]} (phase 11's cohort) on "
+          f"{card}: kernel_ms {ms:.4f} (windows {[round(r, 4) for r in runs]}), bound_ms "
+          f"{bound:.4f} ({(K + 2) * N * s / 1e9:.2f} GB at 3.35 TB/s, by {by}), kernel/bound "
+          f"{ms / bound:.2f}x; plain_ms {plain:.2f} (windows "
+          f"{[round(r, 2) for r in plain_runs]})")
+    return {"K": K, "N": N, "ms": ms, "bound_ms": bound, "bound_by": by, "plain_ms": plain}
+
+
+def pool_run(root, rng):
+    """Phase 11's pool: two children over a small root, converging on a
+    publish, served tokens against the parent's Engine, one kill -9."""
+    params = init_lm(POOL_CFG, torch.Generator(device="cuda").manual_seed(3), device="cuda")
+    repo = Repository(params, root=root, spill=True, screen=False)
+    pool = WorkerPool(root, 2, arch="gemma3-1b", device="cuda", max_len=POOL_MAX_LEN,
+                      poll=0.02, batch=True, max_batch=SCHED_BATCH,
+                      warm=(POOL_PROMPT, POOL_NEW))
+    out = {}
+    try:
+        t = time.perf_counter()
+        pool.start(timeout=600.0)
+        pool.wait_ready(iteration=0, timeout=600.0)
+        out["start_s"] = time.perf_counter() - t
+        router = pool.router()
+        g = torch.Generator(device="cuda").manual_seed(4)
+        repo.upload(tree_map(lambda x: x + 0.05 * torch.randn(x.shape, generator=g,
+                                                               device="cuda"), params))
+        repo.fuse_pending()
+        repo.flush()
+        t = time.perf_counter()
+        pool.wait_ready(iteration=1, timeout=300.0)
+        out["converge_s"] = time.perf_counter() - t
+        check(sorted(pool.alive()) == ["w0", "w1"]
+              and {s["iteration"] for s in pool.states().values()} == {1},
+              f"the pool did not converge on iteration 1: {pool.states()}")
+        base = ckpt.load(os.path.join(root, "base_iter0001.npz"), device="cuda")
+        eng = Engine(POOL_CFG, base, max_len=POOL_MAX_LEN)
+        prompt = rng.integers(3, POOL_CFG.vocab_size, POOL_PROMPT)
+        oracle = {b: eng.generate(np.repeat(prompt[None], b, axis=0),
+                                  max_new_tokens=POOL_NEW).tokens[0] for b in POOL_BUCKETS}
+        results, stop = [], threading.Event()
+
+        def client():
+            got = []
+            while not stop.is_set():
+                got.append(router.route(prompt, max_new_tokens=POOL_NEW))
+            return got
+
+        joins = [in_thread(client) for _ in range(6)]
+        time.sleep(0.5)
+        pool.kill("w0")
+        time.sleep(1.0)
+        stop.set()
+        for j in joins:
+            results += j()
+        after = [router.route(prompt, max_new_tokens=POOL_NEW) for _ in range(4)]
+        results += after
+        for r in results:
+            check(r.iteration == 1 and np.array_equal(r.tokens, oracle[r.batch_size]),
+                  f"a pool response (iteration {r.iteration}, batch {r.batch_size}, "
+                  f"{r.worker_id}) differs from the parent's Engine on base_iter0001.npz")
+        check(all(r.worker_id == "w1" for r in after), "a request reached the killed child")
+        st = router.stats()
+        n_rerouted = sum(r.rerouted for r in results)
+        check(st["failed_total"] == 0 and st["reroutes_total"] == n_rerouted >= 1,
+              f"router after the kill: {st}, {n_rerouted} responses marked rerouted")
+        out.update(requests=len(results), rerouted=n_rerouted, per_worker=st["per_worker"],
+                   batches=sorted({r.batch_size for r in results}))
+    finally:
+        codes = pool.stop()
+    check(codes == {"w0": -9, "w1": 0}, f"pool exit codes {codes}")
+    print(f"[serve-stack] pool of 2 children ({POOL_CFG.name}, {POOL_CFG.num_layers} layers, "
+          f"f32, real engine on the card, batched): started and adopted iteration 0 in "
+          f"{out['start_s']:.1f} s, converged on iteration 1 in {out['converge_s']:.2f} s; "
+          f"{out['requests']} routed requests (batch sizes {out['batches']}, per worker "
+          f"{out['per_worker']}), every one iteration 1 with the parent's Engine tokens; kill -9 "
+          f"of w0 under traffic: {out['rerouted']} requests re-routed once each, 0 failed; "
+          f"exit codes {codes}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card", file=sys.stderr)
@@ -2556,6 +3004,24 @@ def main() -> int:
     real_finetune_scores(b0, spec, smi)
     del b0
     torch.cuda.empty_cache()
+
+    # the fuse-to-serve stack (slice 7), counts reset just before it
+    with tempfile.TemporaryDirectory(prefix="chip_smoke-") as workdir:
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        stack = phase_serve_stack(workdir)
+        served = launches()
+        stack_routes = dict(flash_attention.launches_by_route)
+        print(f"[serve-stack] launches on the serve-stack path: {served}; flash_attention by "
+              f"route {stack_routes}; {stack['seconds']:.1f} s on {smi}")
+        print(f"[serve-stack] torch.cuda.max_memory_allocated: "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB (the worker's Engine keeps "
+              "iteration 0's 2.00 GB row for its life, as the reference's does)")
+    fuse_at_gemma = time_cohort_fuse(*stack.pop("fuse_inputs"), smi)
+    for kernel, want in SERVE_STACK_LAUNCHES.items():
+        check(served[kernel] == want, f"{kernel} launched {served[kernel]} times on the "
+              f"serve-stack path, expected {want}")
+    torch.cuda.empty_cache()
     print(f"[done] {time.perf_counter() - t0:.1f} s after the card check")
 
     def record(name, replaces, err, timing, source=None):
@@ -2586,6 +3052,9 @@ def main() -> int:
         record("row_sketch", "src/repro/kernels/cold_fuse.py:253", sk_err, sk)]
     for rec in fuse_kernels:  # "launches" is phase 7's; the routed phase's beside it
         rec["launches_routed"] = routed[rec["name"]]
+    for rec in fuse_kernels + [flash, rwkv]:  # and phase 11's
+        rec["launches_serve_stack"] = served[rec["name"]]
+    fuse_kernels[0]["at_gemma3_1b"] = fuse_at_gemma
     print(json.dumps({"kernels": fuse_kernels + [flash, rwkv]}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}))

@@ -1,9 +1,15 @@
 """Launch a built kernel on the current stream of a tensor's card."""
 from __future__ import annotations
 
+import threading
 from typing import Callable
 
 import torch
+
+# the wrappers bump their ``launches`` counters under this lock: a serving
+# worker's request, scheduler and follower threads and the daemon launch
+# kernels concurrently, and ``x += 1`` on a function attribute is not atomic
+COUNT_LOCK = threading.Lock()
 
 
 def launch_on(t: torch.Tensor, fn: Callable[..., int], *args) -> int:

@@ -24,7 +24,7 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._launch import launch_on
+from repro_torch.kernels._launch import COUNT_LOCK, launch_on
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 BLOCKS_PER_SM = 4
@@ -98,7 +98,8 @@ def _launch(base, contribs, weights, alpha):
     if err != 0:
         raise RuntimeError(f"cold_fuse launch failed: CUDA error {err} "
                            f"({lib.cold_fuse_error_string(err).decode()})")
-    cold_fuse.launches += 1
+    with COUNT_LOCK:
+        cold_fuse.launches += 1
     return fused, sq
 
 

@@ -33,7 +33,7 @@ from typing import Dict, List, Tuple
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._launch import launch_on
+from repro_torch.kernels._launch import COUNT_LOCK, launch_on
 from repro_torch.utils.flat import LANE, MAX_DELTA_BLOCK
 
 
@@ -163,7 +163,8 @@ def _launch(indices, values, scales, weights, size, block):
                         values.data_ptr(), scales.data_ptr(), w.data_ptr(), acc.data_ptr(),
                         sq.data_ptr(), part.data_ptr(), ticket.data_ptr(), size, nb, kb, C,
                         block, vec, groups, warps, grid, per), "launch")
-    decode_accum.launches += 1
+    with COUNT_LOCK:
+        decode_accum.launches += 1
     return acc, sq
 
 

@@ -44,7 +44,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._launch import launch_on
+from repro_torch.kernels._launch import COUNT_LOCK, launch_on
 
 HEAD_DIMS = (32, 64, 128, 256)
 ROUTES = ("decode", "prefill_tc", "prefill_fma")
@@ -197,10 +197,11 @@ def _launch(q, k, v, causal, window, q_offset):
     if err != 0:
         msg = getattr(lib, f"{source}_error_string")(err).decode()
         raise RuntimeError(f"flash_attention {which} launch failed: CUDA error {err} ({msg})")
-    flash_attention.launches += 1
-    flash_attention.launches_by_route[which] += 1
-    if which == "decode":
-        flash_attention.launches_by_route["decode_combine"] += 1
+    with COUNT_LOCK:
+        flash_attention.launches += 1
+        flash_attention.launches_by_route[which] += 1
+        if which == "decode":
+            flash_attention.launches_by_route["decode_combine"] += 1
     return out
 
 

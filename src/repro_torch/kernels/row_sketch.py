@@ -19,7 +19,7 @@ import functools
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._launch import launch_on
+from repro_torch.kernels._launch import COUNT_LOCK, launch_on
 from repro_torch.utils.flat import LANE
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -73,7 +73,8 @@ def _launch(row: torch.Tensor, n_buckets: int) -> torch.Tensor:
     if err != 0:
         raise RuntimeError(f"row_sketch launch failed: CUDA error {err} "
                            f"({lib.row_sketch_error_string(err).decode()})")
-    row_sketch.launches += 1
+    with COUNT_LOCK:
+        row_sketch.launches += 1
     return out
 
 

@@ -44,7 +44,7 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._launch import launch_on
+from repro_torch.kernels._launch import COUNT_LOCK, launch_on
 
 HEAD_DIMS = (32, 64)
 ROUTES = ("scan", "step")
@@ -147,8 +147,9 @@ def _launch(r, k, v, logw, u, s0, which=None):
     if err != 0:
         msg = getattr(lib, f"{source}_error_string")(err).decode()
         raise RuntimeError(f"rwkv6_scan {which} launch failed: CUDA error {err} ({msg})")
-    rwkv6_scan.launches += 1
-    rwkv6_scan.launches_by_route[which] += 1
+    with COUNT_LOCK:
+        rwkv6_scan.launches += 1
+        rwkv6_scan.launches_by_route[which] += 1
     return y, s_final
 
 

@@ -25,8 +25,24 @@ member by sketch distance, spawning one beyond ``--split-threshold``.
   PYTHONPATH=src python -m repro_torch.launch.serve_repository --root repo/ \\
       --max-bases 3 --split-threshold 0.8 --cross-fuse-every 4
 
-The reference's ``--mesh`` and ``--serve-*`` flags are accepted by the parser
-only to be refused: their paths are not ported yet.
+``--serve-arch NAME`` also serves the evolving base in this process: a
+hot-swap ``ServingWorker`` subscribed to the repository's publishes keeps an
+``Engine`` (NAME's reduced config; the repository's base must be that
+config's parameter tree) on the latest published base, on the repository's
+device, and writes ``serving_state.json`` and swap records beside the
+daemon's status.  ``--serve-workers N`` serves from N worker processes
+instead (``serve/worker_pool.py``, each on ``--device`` with its own
+``serving_state-<id>.json``, following the root cross-process);
+``--serve-batch`` gives each of them a ``BatchScheduler`` and
+``--serve-queue-depth`` bounds its queue.  ``status()`` aggregates every
+worker's state file.
+
+  # fuse and serve on the CPU (the root holds a reduced gemma3-1b tree)
+  PYTHONPATH=src python -m repro_torch.launch.serve_repository --root repo/ \
+      --device cpu --serve-arch gemma3-1b --serve-workers 2 --serve-batch
+
+The reference's ``--mesh`` is accepted by the parser only to be refused: the
+multi-device path is not ported yet.
 """
 from __future__ import annotations
 
@@ -44,9 +60,6 @@ from repro_torch.utils.device import resolve_device
 # flags of the reference whose paths are not ported yet: dest -> what
 _NOT_PORTED = {
     "mesh": "--mesh (the multi-device slice)",
-    "serve_arch": "--serve-arch (the serving slice)",
-    "serve_workers": "--serve-workers (the serving slice)",
-    "serve_batch": "--serve-batch (the serving slice)",
 }
 
 
@@ -103,11 +116,23 @@ def build_parser() -> argparse.ArgumentParser:
                    help="stop once this base iteration is published")
     p.add_argument("--idle-timeout", type=float, default=None,
                    help="stop after this many seconds without progress")
+    p.add_argument("--serve-arch", default=None, metavar="NAME",
+                   help="also serve the evolving base: run a hot-swap ServingWorker for this "
+                        "arch (reduced config; the repository base must be that arch's "
+                        "parameter tree)")
+    p.add_argument("--serve-max-len", type=int, default=64,
+                   help="serving engine KV-cache length (--serve-arch)")
+    p.add_argument("--serve-workers", type=int, default=0, metavar="N",
+                   help="serve from N worker processes behind their own state files "
+                        "(requires --serve-arch; 0: one in-process worker)")
+    p.add_argument("--serve-batch", action="store_true",
+                   help="coalesce compatible requests per worker with the BatchScheduler "
+                        "(--serve-workers)")
+    p.add_argument("--serve-queue-depth", type=int, default=64,
+                   help="bounded per-worker request queue; overflow is shed as "
+                        "rejected:queue_full (--serve-workers)")
     # refused below: kept so a reference command line fails with a reason
     p.add_argument("--mesh", type=int, default=0, help=argparse.SUPPRESS)
-    p.add_argument("--serve-arch", default=None, help=argparse.SUPPRESS)
-    p.add_argument("--serve-workers", type=int, default=0, help=argparse.SUPPRESS)
-    p.add_argument("--serve-batch", action="store_true", help=argparse.SUPPRESS)
     return p
 
 
@@ -117,6 +142,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     for dest, what in _NOT_PORTED.items():
         if getattr(args, dest):
             p.error(f"{what} is not ported yet")
+    if args.serve_workers and not args.serve_arch:
+        p.error("--serve-workers requires --serve-arch")
     return args
 
 
@@ -173,12 +200,46 @@ def main(argv=None) -> int:
     def _stop(signum, frame):
         svc.request_stop()
 
+    worker = pool = None
+    if args.serve_workers:
+        from repro_torch.serve.worker_pool import WorkerPool
+        pool = WorkerPool(svc.repo.root, args.serve_workers, arch=args.serve_arch,
+                          device=args.device, max_len=args.serve_max_len, poll=args.poll,
+                          batch=args.serve_batch, queue_depth=args.serve_queue_depth)
+        pool.start()
+        print(f"[cold-service] {args.serve_workers} pool workers serving {args.serve_arch} on "
+              f"{args.device} (max_len={args.serve_max_len}, batch={args.serve_batch}, "
+              f"queue_depth={args.serve_queue_depth})", flush=True)
+    elif args.serve_arch:
+        from repro_torch.configs import get_config, reduce_config
+        from repro_torch.serve.hot_swap import ServingWorker
+        worker = ServingWorker(reduce_config(get_config(args.serve_arch)), svc.repo.root,
+                               repo=svc.repo, max_len=args.serve_max_len)
+        worker.start(interval=args.poll)
+        print(f"[cold-service] hot-swap worker serving {args.serve_arch} on {worker.device} "
+              f"(max_len={args.serve_max_len})", flush=True)
+
     signal.signal(signal.SIGTERM, _stop)
     signal.signal(signal.SIGINT, _stop)
     print(f"[cold-service] serving {args.root} on {svc.repo.device} from iteration "
           f"{svc.repo.iteration} (min_cohort={svc.policy.min_cohort})", flush=True)
-    st = svc.serve_forever(poll_interval=args.poll, max_iterations=args.max_iterations,
-                           idle_timeout=args.idle_timeout)
+    try:
+        st = svc.serve_forever(poll_interval=args.poll, max_iterations=args.max_iterations,
+                               idle_timeout=args.idle_timeout)
+    finally:
+        if worker is not None:
+            ws = worker.stop()
+            print(f"[cold-service] worker stopped at iteration {ws['iteration']}: "
+                  f"{ws['swaps_total']} swaps ({ws['live_swaps']} live), "
+                  f"{ws['requests_total']} requests ({ws['requests_pinned_across_swaps']} "
+                  "pinned across swaps)", flush=True)
+        if pool is not None:
+            states = pool.states()
+            codes = pool.stop()
+            detail = ", ".join(f"{wid}@it{(s or {}).get('iteration')}"
+                               f"({(s or {}).get('requests_total', 0)} req)"
+                               for wid, s in sorted(states.items()))
+            print(f"[cold-service] pool stopped (exit={codes}): {detail}", flush=True)
     fams = st.get("families")
     if fams:
         detail = ", ".join(f"{n}@it{f['iteration']}" for n, f in sorted(fams.items()))

@@ -49,8 +49,12 @@ is cross-fused toward its mean.  Each member is a ``_Lane`` with its own
 cohort clock, gate baseline, quarantine verdicts and compaction; the
 single-base service is exactly one ``main`` lane.
 
-Not ported yet (each raises): per-shard submissions (``sspec=``) and the
-serving-state files (``status()["serving"]`` is None).
+Serving state: a hot-swap worker (``serve/hot_swap.ServingWorker``) owns its
+own state file, ``serving_state.json`` when solo or ``serving_state-<id>.json``
+as a pool member, and ``status()["serving"]`` embeds them read-only (one
+file passes through, several become an aggregate).
+
+Not ported yet (raises): per-shard submissions (``sspec=``).
 """
 from __future__ import annotations
 
@@ -80,8 +84,24 @@ GATE_STATE_FILE = "gate_state.json"
 METRICS_FILE = "metrics.jsonl"
 # the daemon rotates the active metrics file to metrics.jsonl.1 at this size
 METRICS_ROTATE_BYTES = 4 * 1024 * 1024
+# owned by the ServingWorker, not the daemon: two processes rewriting one
+# file would clobber each other, so each worker persists its own and
+# status() embeds them read-only
+SERVING_STATE_FILE = "serving_state.json"
 ERROR_RING = 16  # recent_errors entries kept (and persisted)
 ROUTE_RING = 64  # recent routing decisions in the status endpoint
+
+
+def serving_state_filename(worker_id: Optional[str] = None) -> str:
+    """The serving-state file of one worker: ``serving_state.json`` for the
+    solo worker, ``serving_state-<id>.json`` for a pool member, so N workers
+    under one root never clobber each other."""
+    if worker_id is None:
+        return SERVING_STATE_FILE
+    wid = str(worker_id)
+    if not wid or any(c in wid for c in "/\\."):
+        raise ValueError(f"invalid worker_id for state file: {worker_id!r}")
+    return f"serving_state-{wid}.json"
 
 
 def _queue_dir(root: str) -> str:
@@ -1180,7 +1200,7 @@ class ColdService:
     def status(self, *, admitted: int = 0, queue_depth: Optional[int] = None) -> Dict[str, Any]:
         """The fields contributors and operators poll, persisted atomically
         to ``<root>/service_status.json`` every cycle (the reference's
-        keys; serving reports None).  ``staged``, ``inflight``, ``fuses``
+        keys, ``serving`` from the workers' state files).  ``staged``, ``inflight``, ``fuses``
         and ``fused_contributions`` cover the whole family, ``iteration``
         is main's; under routing ``families`` holds each member's view,
         with the ``routes`` ring and the spawn and cross-fuse totals."""
@@ -1219,7 +1239,7 @@ class ColdService:
             },
             "last_error": self._last_error,
             "recent_errors": list(self._recent_errors),
-            "serving": None,
+            "serving": self._serving_state(),
             "pid": os.getpid(),
             "running": not self._stop,
             "updated_at": time.time(),
@@ -1239,3 +1259,46 @@ class ColdService:
             st["families_spawned_total"] = self._spawned
             st["cross_fuses_total"] = self._cross_fuses
         return st
+
+    def _serving_state(self) -> Optional[Dict[str, Any]]:
+        """The hot-swap workers' state files, embedded read-only (None when
+        no worker ever served this root).  A solo ``serving_state.json``
+        passes through unchanged.  With pool files (``serving_state-<id>.json``)
+        the block is an aggregate: the per-worker map, summed request, swap
+        and inflight counters, ``iteration`` only when every worker agrees
+        (None mid-divergence) and the union of ``versions_served``."""
+        root = self.repo.root
+        workers: Dict[str, Dict[str, Any]] = {}
+        try:
+            names = sorted(os.listdir(root))
+        except FileNotFoundError:
+            names = []
+        for fn in names:
+            if fn.startswith("serving_state-") and fn.endswith(".json"):
+                try:
+                    workers[fn[len("serving_state-"):-len(".json")]] = \
+                        ckpt.load_json(os.path.join(root, fn))
+                except (FileNotFoundError, ValueError):
+                    continue  # mid-replace or torn: skip, not fatal
+        solo = None
+        try:
+            solo = ckpt.load_json(os.path.join(root, SERVING_STATE_FILE))
+        except (FileNotFoundError, ValueError):
+            pass
+        if not workers:
+            return solo
+        if solo is not None:
+            workers.setdefault(solo.get("worker", "solo"), solo)
+        iters = {w.get("iteration") for w in workers.values()}
+        agg: Dict[str, Any] = {
+            "workers": workers,
+            "n_workers": len(workers),
+            "iteration": iters.pop() if len(iters) == 1 else None,
+            "swapping": any(w.get("swapping") for w in workers.values()),
+        }
+        for key in ("swaps_total", "live_swaps", "requests_total",
+                    "requests_pinned_across_swaps", "requests_batched", "inflight"):
+            agg[key] = sum(int(w.get(key) or 0) for w in workers.values())
+        agg["versions_served"] = sorted({v for w in workers.values()
+                                         for v in (w.get("versions_served") or [])})
+        return agg

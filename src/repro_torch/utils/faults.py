@@ -16,8 +16,11 @@ Seams in the port: ``client.mid_submit``, ``service.post_route``,
 ``service.post_ingest``, ``service.post_sketch``,
 ``service.post_dispatch``, ``service.post_publish``,
 ``service.post_probe``, ``service.post_quarantine``, ``service.mid_gc``,
-``repo.post_publish_pre_manifest``, ``repo.mid_rollback`` and
-``repo.post_family_spawn``.
+``repo.post_publish_pre_manifest``, ``repo.mid_rollback``,
+``repo.post_family_spawn``, and the hot-swap worker's three:
+``worker.pre_transfer`` (before the next base is loaded),
+``worker.post_transfer_pre_flip`` (resident, the pointer not yet flipped)
+and ``worker.post_flip`` (flipped, the serving state not yet persisted).
 """
 from __future__ import annotations
 
