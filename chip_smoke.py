@@ -160,11 +160,31 @@ Phases (any failed check raises, so the script exits non-zero):
    oracles of 6 layers x 8); swap latencies, request latencies, tokens per
    second, peak memory and the phase's seconds are printed.
 
-Before each of phases 6, 7, 8, 10 and 11, and before each model of phase 9,
-every kernel's launch counter is set to 0; it is read just after.  The last
-lines are the kernels' JSON record (launches from phase 7 for the three fuse
-kernels, with phase 10's as ``launches_routed``, from phase 9 for the other
-two, and phase 11's as ``launches_serve_stack`` for all five),
+12. LM training (slice 8): ``launch.train.main`` trains gemma3-1b at full
+   width in f32 (999,812,736 parameters, AdamW) for 30 steps of 8 x 64
+   tokens at the launcher's defaults and saves the params; every loss and
+   grad_norm must be finite and the mean loss of the last 5 steps below
+   that of the first 5; one more step at 2 microbatches must equal the same
+   step at 1 (``MB_RTOL``, ``MB_ATOL``).  The saved npz is loaded back
+   (equal to the trained tree), the eval step and an ``Engine`` (4 x 64 ->
+   8) run over it, with ``flash_attention``'s launches exact by route (the
+   eval step: ``prefill_fma`` 26; generate: ``prefill_fma`` 26, ``decode``
+   26 x 7), and the kernel path's prefill logits are held against the
+   differentiable forward's (``LOGIT_RTOL``).  The same for reduced
+   rwkv6-7b (the full model's f32 params and AdamW state, about 121 GB,
+   exceed the card), with ``rwkv6_scan`` exact by route (``scan`` 2, ``step``
+   2 x 7).  Step times and peak memory are printed.  Then the five example
+   twins (``TWINS``: the service demo plain and ``--compress``) run on the
+   card as processes started together; each must exit 0 and print its
+   healthy lines.
+
+Before each of phases 6, 7, 8, 10 and 11, before each model of phase 9 and
+around phase 12's eval steps and generates, every kernel's launch counter is
+set to 0; it is read just after.  The last lines are the kernels' JSON record
+(launches from phase 7 for the three fuse kernels, with phase 10's as
+``launches_routed``, from phase 9 for the other two, phase 11's as
+``launches_serve_stack`` and phase 12's as ``launches_lm_train`` for all
+five),
 ``nvidia-smi``'s line and
 ``{"ok": true, "device": {...}}``.  Without a card (or without the rest of
 the repository beside it) the script exits non-zero and prints no result.
@@ -205,6 +225,7 @@ from repro_torch.kernels.row_sketch import row_sketch, row_sketch_plain  # noqa:
 from repro_torch.kernels import rwkv6_scan as rs_mod  # noqa: E402
 from repro_torch.kernels.rwkv6_scan import rwkv6_scan, rwkv6_scan_plain  # noqa: E402
 from repro_torch.launch.serve import main as serve_main  # noqa: E402
+from repro_torch.launch import train as train_launcher  # noqa: E402
 from repro_torch.models import rwkv as rwkv_mod  # noqa: E402
 from repro_torch.models.encoder import init_encoder_body  # noqa: E402
 from repro_torch.models.transformer import forward_lm, init_cache, init_lm  # noqa: E402
@@ -212,7 +233,9 @@ from repro_torch.serve.engine import Engine  # noqa: E402
 from repro_torch.train import finetune as FT  # noqa: E402
 from repro_torch.train import pretrain as pretrain_mod  # noqa: E402
 from repro_torch.train import pretrain_mlm, train_multitask  # noqa: E402
-from repro_torch.train.step import make_serve_step  # noqa: E402
+from repro_torch.optim import make_optimizer, warmup_cosine_lr  # noqa: E402
+from repro_torch.train.losses import lm_loss  # noqa: E402
+from repro_torch.train.step import make_eval_step, make_serve_step, make_train_step  # noqa: E402
 from repro_torch.serve.cold_service import (AdmissionPolicy, ColdService,  # noqa: E402
                                             ContributorClient)
 from repro_torch.serve.probes import MultitaskEvals, ProbeSuite, RegressionGate  # noqa: E402
@@ -311,6 +334,31 @@ SERVE_STACK_LAUNCHES = {
                         + len(POOL_BUCKETS) * POOL_CFG.num_layers * POOL_NEW),
     "cold_fuse": 2,
 }
+
+# LM training (phase 12): the launcher's defaults (batch 8 x 64 tokens, lr
+# 3e-4, 20 warmup steps) for TRAIN_STEPS steps, f32 as the launcher sets it;
+# the trained params then serve TRAIN_PROMPTS prompts of TRAIN_SEQ tokens ->
+# TRAIN_NEW new ones.  Tolerances: a step at 2 microbatches against the same
+# step at 1 (f32, TF32 off) within MB_RTOL on loss and grad_norm and MB_ATOL
+# on every parameter (the lr at that step is 3e-5; the two gradients differ
+# by summation order only); the Engine's prefill logits against the
+# differentiable forward's within LOGIT_RTOL x max(1, max |logit|)
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 30, 8, 64, 3e-4
+TRAIN_PROMPTS, TRAIN_NEW = 4, 8
+MB_RTOL, MB_ATOL, LOGIT_RTOL = 1e-5, 1e-6, 2e-4
+# the example twins (phase 12), each a process on the card, run together:
+# (script, arguments, lines its healthy output holds)
+TWINS = (
+    ("quickstart_torch.py", [], ["[cold] iter 3/3: fused 4/4 contributions",
+                                 "ColD Fusion improved the base model"]),
+    ("federated_single_dataset_torch.py", ["--dry-run"], ["round 1: fused 2/2"]),
+    ("serve_lm_torch.py", [], ["generated 4x16 tokens"]),
+    ("train_lm_e2e_torch.py", [], ["  step  200: loss=", "[train] done in"]),
+    ("cold_service_demo_torch.py", [], ["-> iteration 3, 6 contributions fused",
+                                        "(expected 0.9000) -> OK"]),
+    ("cold_service_demo_torch.py", ["--compress"], ["-> iteration 3, 6 contributions fused",
+                                                    "(expected 0.9000) -> OK"]),
+)
 
 
 def check(ok, msg):
@@ -2875,6 +2923,192 @@ def pool_run(root, rng):
     return out
 
 
+# ---------------------------------------------------------------------------
+# slice 8: LM training, serving what it trained, the example twins (phase 12)
+# ---------------------------------------------------------------------------
+
+
+def train_via_launcher(argv, card):
+    """``launch.train.main(argv)`` on the card: its result, with the median
+    step time and the peak memory printed."""
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = train_launcher.main(argv + ["--device", "cuda"])
+    seconds = time.perf_counter() - t0
+    cfg, losses, norms = out["cfg"], out["loss"], out["grad_norm"]
+    check(all(math.isfinite(x) for x in losses + norms), f"{cfg.name}: a loss or grad_norm "
+          "is not finite")
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    print(f"[train] {cfg.name}: {len(losses)} steps, loss {losses[0]:.4f} -> {losses[-1]:.4f} "
+          f"(mean of the first 5 {first:.4f}, of the last 5 {last:.4f}); grad_norm "
+          f"{norms[0]:.3f} -> {norms[-1]:.3f}; step {median_ms(out['step_s'][1:])} after the "
+          f"first ({1e3 * out['step_s'][0]:.1f} ms); peak "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; the launcher "
+          f"{seconds:.1f} s with init and save; on {card}")
+    return out, first, last
+
+
+def check_microbatches(out, card):
+    """One more step from the trained state at 2 microbatches against the
+    same step at 1: loss, grad_norm and every parameter."""
+    cfg, state = out["cfg"], out["state"]
+    opt = make_optimizer(cfg.optimizer, warmup_cosine_lr(TRAIN_LR, 20, TRAIN_STEPS))
+    batch = {"tokens": train_launcher.token_stream(cfg, steps=1, batch=TRAIN_BATCH,
+                                                   seq=TRAIN_SEQ, seed=1)}
+    one, m1 = make_train_step(cfg, opt)(state, batch)
+    two, m2 = make_train_step(cfg, opt, microbatches=2)(state, batch)
+    worst = 0.0
+    want = dict(tree_leaves_with_path(one["params"]))
+    for key, b in tree_leaves_with_path(two["params"]):
+        worst = max(worst, (b - want[key]).abs().max().item())
+    del one, two, want
+    d_loss = abs(float(m2["loss"]) / float(m1["loss"]) - 1)
+    d_norm = abs(float(m2["grad_norm"]) / float(m1["grad_norm"]) - 1)
+    print(f"[train] {cfg.name}: a step at 2 microbatches vs 1: loss {float(m1['loss']):.6f} "
+          f"rel d {d_loss:.2e}, grad_norm {float(m1['grad_norm']):.6f} rel d {d_norm:.2e} "
+          f"(bound {MB_RTOL:g}); params max|d| {worst:.3e} (bound {MB_ATOL:g}); on {card}")
+    check(d_loss <= MB_RTOL and d_norm <= MB_RTOL, "microbatched loss or grad_norm differs")
+    check(worst <= MB_ATOL, f"microbatched step's params differ by {worst:.3e}")
+
+
+def serve_trained(cfg, npz, trained, kernel, card):
+    """Load the saved params, run the eval step, then an Engine over them
+    (launches counted around ``generate`` and checked by route); then hold
+    the kernel path's prefill logits against the differentiable forward's.
+    Returns the launches of the eval step and the generate."""
+    dev = torch.device("cuda")
+    params = ckpt.load(npz, device=dev)
+    saved = dict(tree_leaves_with_path(params))
+    check(all(torch.equal(saved[k], v) for k, v in tree_leaves_with_path(trained)),
+          f"{cfg.name}: the saved npz does not load back to the trained params")
+    stream = train_launcher.token_stream(cfg, steps=2, batch=TRAIN_BATCH, seq=TRAIN_SEQ, seed=2)
+    routes = {"flash_attention": flash_attention, "rwkv6_scan": rwkv6_scan}[kernel]
+    reset_launches()
+    loss = float(make_eval_step(cfg)(params, {"tokens": stream[:TRAIN_BATCH]}))
+    evals = launches()
+    eval_routes = dict(routes.launches_by_route)
+    prompts = stream[TRAIN_BATCH:TRAIN_BATCH + TRAIN_PROMPTS]
+    eng = Engine(cfg, params, max_len=TRAIN_SEQ + TRAIN_NEW)
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = eng.generate(prompts, max_new_tokens=TRAIN_NEW)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    gens = launches()
+    by_route = dict(routes.launches_by_route)
+    # one prefill launch per layer (f32: the FMA route), one decode launch
+    # per layer and new token after the first (plus flash_attention's
+    # combine kernel beside each)
+    n, steps = cfg.num_layers, cfg.num_layers * (TRAIN_NEW - 1)
+    want_eval = dict.fromkeys(by_route, 0)
+    if kernel == "flash_attention":
+        want_eval["prefill_fma"] = n
+        want_gen = dict(want_eval, decode=steps, decode_combine=steps)
+    else:
+        want_eval["scan"] = n
+        want_gen = dict(want_eval, step=steps)
+    check(eval_routes == want_eval, f"{cfg.name} eval step: {kernel} launched {eval_routes} by "
+          f"route, expected {want_eval}")
+    check(by_route == want_gen, f"{cfg.name} generate: {kernel} launched {by_route} by route, "
+          f"expected {want_gen}")
+    check(math.isfinite(loss) and res.tokens.shape == (TRAIN_PROMPTS, TRAIN_SEQ + TRAIN_NEW),
+          f"{cfg.name}: eval loss {loss} or generate shape {res.tokens.shape}")
+    with torch.inference_mode():
+        toks = torch.as_tensor(prompts, dtype=torch.long, device=dev)
+        kern, _, _ = forward_lm(cfg, params, toks, cache=init_cache(cfg, TRAIN_PROMPTS,
+                                                                    TRAIN_SEQ + TRAIN_NEW,
+                                                                    device=dev), cache_index=0)
+        diff, _, _ = forward_lm(cfg, params, toks, differentiable=True)
+        d = (kern - diff).abs().max().item()
+        scale = max(1.0, diff.abs().max().item())
+        d_loss = abs(float(lm_loss(diff, toks)) - float(lm_loss(kern, toks)))
+    del kern, diff
+    check(d <= LOGIT_RTOL * scale, f"{cfg.name}: the Engine's prefill logits differ from the "
+          f"differentiable forward's by {d:.3g} > {LOGIT_RTOL:g} x {scale:.3g}")
+    print(f"[train] {cfg.name} served from the saved npz: eval loss {loss:.4f}; Engine "
+          f"{TRAIN_PROMPTS} x {TRAIN_SEQ} -> {TRAIN_NEW} in {gen_s:.3f} s; {kernel} by route "
+          f"in the eval step {eval_routes}, in generate {by_route} (expected {want_gen}); "
+          f"prefill logits, kernels vs the differentiable forward: max|d| {d:.3g} (bound "
+          f"{LOGIT_RTOL:g} x max(1, max|logit|) = {LOGIT_RTOL * scale:.3g}), loss |d| "
+          f"{d_loss:.3g}; first tokens {res.tokens[0, TRAIN_SEQ:].tolist()}; on {card}")
+    del params, eng
+    return evals, gens
+
+
+def run_twins(card):
+    """Every example twin on the card, all started together: each must exit
+    0 and print its healthy lines."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    # the processes share the host's few cores: one CPU thread each
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    t0 = time.perf_counter()
+    procs = []
+    with tempfile.TemporaryDirectory(prefix="chip_smoke-twins-") as tmp:
+        for i, (script, args, _) in enumerate(TWINS):
+            log = open(os.path.join(tmp, f"{i}.log"), "w+")
+            cmd = [sys.executable, os.path.join(here, "examples", script), *args]
+            if script.startswith("cold_service"):
+                cmd += ["--root", os.path.join(tmp, f"root{i}")]
+            procs.append((cmd, log, subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT,
+                                                     cwd=here, env=env)))
+        failed = []
+        for (cmd, log, proc), (script, args, healthy) in zip(procs, TWINS):
+            try:
+                rc = proc.wait(timeout=max(1.0, 400 - (time.perf_counter() - t0)))
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                rc = proc.wait()
+            log.seek(0)
+            text = log.read()
+            log.close()
+            missing = [h for h in healthy if h not in text]
+            tail = [ln for ln in text.splitlines() if ln.strip()][-2:]
+            print(f"[twins] {script} {' '.join(args)}: rc {rc}, "
+                  f"{'healthy' if not missing else f'missing {missing}'}; {' | '.join(tail)}")
+            if rc != 0 or missing:
+                failed.append(script)
+                print(text[-4000:])
+    print(f"[twins] {len(TWINS)} runs of the 5 twins on the card together: "
+          f"{time.perf_counter() - t0:.1f} s on {card}")
+    check(not failed, f"example twins failed on the card: {failed}")
+
+
+def phase_lm_train(workdir, card):
+    """Phase 12: gemma3-1b trained at full width through the launcher, a
+    microbatched step held against the plain one, the saved params served;
+    reduced rwkv6-7b trained and served; the five example twins.  Returns
+    the launches of the eval steps and the generates, summed."""
+    t0 = time.perf_counter()
+    npz = os.path.join(workdir, "gemma3-1b-trained.npz")
+    out, first, last = train_via_launcher(
+        ["--arch", "gemma3-1b", "--steps", str(TRAIN_STEPS), "--log-every", "10",
+         "--save", npz], card)
+    check(last < first, f"gemma3-1b: the loss did not fall ({first:.4f} -> {last:.4f})")
+    check_microbatches(out, card)
+    cfg, trained = out["cfg"], out["state"]["params"]
+    del out
+    torch.cuda.empty_cache()
+    total = dict.fromkeys(launches(), 0)
+    for counts in serve_trained(cfg, npz, trained, "flash_attention", card):
+        total = {k: total[k] + counts[k] for k in total}
+    del trained
+    torch.cuda.empty_cache()
+
+    npz = os.path.join(workdir, "rwkv6-7b-trained.npz")
+    out, _, _ = train_via_launcher(
+        ["--arch", "rwkv6-7b", "--reduced", "--steps", str(TRAIN_STEPS), "--log-every", "10",
+         "--save", npz], card)
+    for counts in serve_trained(out["cfg"], npz, out["state"]["params"], "rwkv6_scan", card):
+        total = {k: total[k] + counts[k] for k in total}
+    del out
+    torch.cuda.empty_cache()
+    print(f"[train] launches of the eval steps and generates: {total}; phase "
+          f"{time.perf_counter() - t0:.1f} s before the twins, on {card}")
+    run_twins(card)
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card", file=sys.stderr)
@@ -3022,6 +3256,12 @@ def main() -> int:
         check(served[kernel] == want, f"{kernel} launched {served[kernel]} times on the "
               f"serve-stack path, expected {want}")
     torch.cuda.empty_cache()
+
+    # LM training and serving what it trained (slice 8), counts reset around
+    # the eval steps and generates inside
+    with tempfile.TemporaryDirectory(prefix="chip_smoke-") as workdir:
+        lm_train = phase_lm_train(workdir, smi)
+    torch.cuda.empty_cache()
     print(f"[done] {time.perf_counter() - t0:.1f} s after the card check")
 
     def record(name, replaces, err, timing, source=None):
@@ -3052,8 +3292,9 @@ def main() -> int:
         record("row_sketch", "src/repro/kernels/cold_fuse.py:253", sk_err, sk)]
     for rec in fuse_kernels:  # "launches" is phase 7's; the routed phase's beside it
         rec["launches_routed"] = routed[rec["name"]]
-    for rec in fuse_kernels + [flash, rwkv]:  # and phase 11's
+    for rec in fuse_kernels + [flash, rwkv]:  # and phase 11's and 12's
         rec["launches_serve_stack"] = served[rec["name"]]
+        rec["launches_lm_train"] = lm_train[rec["name"]]
     fuse_kernels[0]["at_gemma3_1b"] = fuse_at_gemma
     print(json.dumps({"kernels": fuse_kernels + [flash, rwkv]}))
     print(nvidia_smi())

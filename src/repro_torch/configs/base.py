@@ -73,8 +73,9 @@ class ArchConfig:
 
     param_dtype: str = "bfloat16"
     compute_dtype: str = "bfloat16"
+    optimizer: str = "adamw"  # adamw | adafactor | sgd
     # Rematerialise each period in the reference's training scan; the
-    # port's decoder runs inference only and carries the field unread.
+    # port's train step keeps every activation and carries the field unread.
     remat: bool = True
 
     def __post_init__(self):
@@ -90,3 +91,41 @@ class ArchConfig:
     @property
     def period(self) -> int:
         return len(self.pattern)
+
+    def param_count(self) -> int:
+        """Analytic total parameter count (embeddings included), the
+        reference's formula for the mixers and FFNs the port runs."""
+        if self.is_encoder_decoder:
+            raise NotImplementedError("encoder-decoder archs (whisper) are not ported yet "
+                                      "(ROADMAP.md lists what is left)")
+        d, f, v = self.d_model, self.d_ff, self.vocab_size
+        hd = self.head_dim
+        n_q = self.num_heads * hd
+        n_kv = self.num_kv_heads * hd
+        total = v * d  # embed
+        if not self.tie_embeddings:
+            total += v * d
+        for b in self.blocks:
+            if b.mixer == "attn":
+                total += d * n_q + 2 * d * n_kv + n_q * d
+            elif b.mixer == "rwkv":
+                # r,k,v,g,o projections + low-rank decay/mix
+                total += 5 * d * d + 2 * self.ssm.decay_lora * d * 6
+            else:
+                raise NotImplementedError(f"mixer {b.mixer!r} is not ported yet")
+            if b.ffn == "glu":
+                total += 3 * d * f
+            elif b.ffn == "mlp":
+                total += 2 * d * f
+            elif b.ffn == "rwkv_cm":
+                total += 2 * d * f + d * d
+            else:
+                raise NotImplementedError(f"ffn {b.ffn!r} is not ported yet")
+            total += 2 * d  # two norms
+        return total + d  # final norm
+
+    def active_param_count(self) -> int:
+        """Parameters touched per token.  Only MoE archs touch fewer than
+        all of them, and the port has none yet, so this is
+        ``param_count()``."""
+        return self.param_count()

@@ -53,4 +53,5 @@ def reduce_config(cfg: ArchConfig, *, d_model: int = 128, vocab: int = 512) -> A
         param_dtype="float32",
         compute_dtype="float32",
         remat=False,
+        optimizer="adamw",
     )

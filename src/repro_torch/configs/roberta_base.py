@@ -20,6 +20,7 @@ CONFIG = ArchConfig(
     norm="layernorm",
     act="gelu",
     tie_embeddings=True,
+    optimizer="adamw",
 )
 
 TINY = dataclasses.replace(

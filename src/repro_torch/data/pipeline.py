@@ -1,6 +1,8 @@
 """Deterministic batching: shuffled epochs of fixed-size numpy batches (a
-copy of ``repro.data.pipeline.batches``; batches stay on the host and the
-model moves them to its device)."""
+copy of ``repro.data.pipeline.batches`` and ``num_steps``; batches stay on
+the host and the model moves them to its device).  The reference's
+``shard_batch`` places a batch on a device mesh and waits for the
+multi-device slice (ROADMAP.md A6)."""
 from __future__ import annotations
 
 from typing import Dict, Iterator, Optional
@@ -29,3 +31,9 @@ def batches(
             if y is not None:
                 out["labels"] = y[sel]
             yield out
+
+
+def num_steps(n: int, batch_size: int, epochs: int) -> int:
+    """Optimizer steps in ``epochs`` passes over ``n`` examples, the last
+    partial batch of each dropped."""
+    return (n // batch_size) * epochs

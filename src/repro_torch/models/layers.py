@@ -9,14 +9,18 @@ Numerics follow the reference:
 * ``gelu`` is the tanh approximation (``jax.nn.gelu``'s default);
 * RoPE is rotate-half, with ``cos``/``sin`` cast to x's dtype before the
   products;
-* the encoder's bidirectional, uncached attention scales q by 1/sqrt(hd)
-  in f32, softmaxes in f32, and casts the probabilities to v's dtype
-  before the second product — written with ``einsum``/``softmax`` as the
-  reference writes it, so it trains through autograd;
-* causal or cached attention (the decoder) goes through
+* ``_sdpa`` is a copy of the reference's attention: q scaled by 1/sqrt(hd)
+  in f32, masked scores at -1e30, a softmax in f32, the probabilities cast
+  to v's dtype before the second product, blocked over 512-query chunks
+  from 2048 queries on (``_sdpa_chunked``).  It is written with
+  ``einsum``/``softmax`` as the reference writes it, so it trains through
+  autograd.  The encoder's bidirectional attention runs it, and so does
+  the decoder's when the caller asks for ``differentiable=True`` (the LM
+  train step: the kernels have no backward, as the reference's have none);
+* otherwise causal or cached attention (the decoder) goes through
   ``kernels.ops.attention``: the hand-written kernel on the card, its plain
   version on the CPU.  It keeps the probabilities in f32, so at bf16 it
-  differs from the reference's ``_sdpa`` by that rounding only.
+  differs from ``_sdpa`` by that rounding only.
 """
 from __future__ import annotations
 
@@ -102,28 +106,73 @@ def apply_rope(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
 
 
-def _sdpa_bidirectional(q, k, v):
-    """The encoder's attention: no mask, no cache, differentiable."""
+# Query lengths from this one on are blocked over CHUNK_Q-query chunks, so
+# an [Sq, Sk] score matrix is never held whole (the reference's rule).
+CHUNKED_THRESHOLD = 2048
+CHUNK_Q = 512
+
+
+def _mask(Sq: int, Sk: int, causal: bool, window: Optional[int], q_offset: int, device):
+    """[Sq, Sk] visibility: query i sits at position q_offset + i."""
+    q_pos = q_offset + torch.arange(Sq, device=device)[:, None]
+    k_pos = torch.arange(Sk, device=device)[None, :]
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=device)
+    if causal:
+        mask &= k_pos <= q_pos
+    if window is not None:
+        mask &= k_pos > q_pos - window
+    return mask
+
+
+def _sdpa_chunked(q, k, v, *, causal: bool, window: Optional[int], q_offset: int,
+                  chunk: int = CHUNK_Q):
+    """``_sdpa`` one chunk of queries at a time; a query that sees no key
+    gets zeros, as in the reference's blocked path."""
+    Sq, Sk, hd = q.shape[1], k.shape[1], q.shape[3]
+    rep = q.shape[2] // k.shape[2]
+    kf = torch.repeat_interleave(k, rep, dim=2).float()
+    vf = torch.repeat_interleave(v, rep, dim=2)
+    outs = []
+    for q0 in range(0, Sq, chunk):
+        qf = q[:, q0:q0 + chunk].float() * (hd ** -0.5)
+        scores = torch.einsum("bqhd,bkhd->bhqk", qf, kf)
+        mask = _mask(qf.shape[1], Sk, causal, window, q_offset + q0, q.device)
+        probs = torch.softmax(torch.where(mask, scores, -1e30), dim=-1)
+        probs = torch.where(torch.isnan(probs), 0.0, probs)
+        outs.append(torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype), vf))
+    return torch.cat(outs, dim=1)
+
+
+def _sdpa(q, k, v, *, causal: bool, window: Optional[int] = None, q_offset: int = 0):
+    """Attention with GQA broadcast, differentiable.  q [B, Sq, Hq, hd],
+    k/v [B, Sk, Hkv, hd]; ``q_offset`` is the position of q[0], so a
+    shorter q masks correctly against a longer key cache."""
+    Sq = q.shape[1]
+    if Sq >= CHUNKED_THRESHOLD and Sq % CHUNK_Q == 0:
+        return _sdpa_chunked(q, k, v, causal=causal, window=window, q_offset=q_offset)
     hd = q.shape[-1]
     rep = q.shape[2] // k.shape[2]
     qf = q.float() / math.sqrt(hd)
     kf = torch.repeat_interleave(k.float(), rep, dim=2)
     vf = torch.repeat_interleave(v, rep, dim=2)
     scores = torch.einsum("bqhd,bkhd->bhqk", qf, kf)
-    probs = torch.softmax(scores, dim=-1)
+    mask = _mask(Sq, k.shape[1], causal, window, q_offset, q.device)
+    probs = torch.softmax(torch.where(mask, scores, -1e30), dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype), vf)
 
 
 def attention_fwd(cfg: ArchConfig, p, x: torch.Tensor, *, angles=None, causal: bool = True,
                   window: Optional[int] = None, q_offset: int = 0, kv_cache=None,
-                  cache_index: Optional[int] = None):
+                  cache_index: Optional[int] = None, differentiable: bool = False):
     """Self-attention: x [B, Sq, D] -> (out [B, Sq, D], cache).
 
     ``kv_cache``: optional dict {"k": [B, S_cache, Hkv, hd], "v": ...}; with
     ``cache_index`` (an int) the new k/v are written into it IN PLACE at
     that offset and attention runs over the whole cache (the decode path);
     the same dict is returned.  The reference's ring-buffer cache is not
-    ported.  Without a cache the returned cache is None."""
+    ported.  Without a cache the returned cache is None.
+    ``differentiable=True`` computes causal attention with ``_sdpa`` (which
+    autograd can differentiate) instead of the kernel."""
     B, Sq, _ = x.shape
     hd, nq, nkv = cfg.head_dim, cfg.num_heads, cfg.num_kv_heads
     q = (x @ p["wq"]).reshape(B, Sq, nq, hd)
@@ -142,10 +191,10 @@ def attention_fwd(cfg: ArchConfig, p, x: torch.Tensor, *, angles=None, causal: b
             ck[:, i:i + Sq] = k.to(ck.dtype)
             cv[:, i:i + Sq] = v.to(cv.dtype)
         k, v = ck, cv
-    if causal or kv_cache is not None or window is not None:
-        out = ops.attention(q, k, v, causal=causal, window=window, q_offset=q_offset)
+    if differentiable or not (causal or kv_cache is not None or window is not None):
+        out = _sdpa(q, k, v, causal=causal, window=window, q_offset=q_offset)
     else:
-        out = _sdpa_bidirectional(q, k, v)
+        out = ops.attention(q, k, v, causal=causal, window=window, q_offset=q_offset)
     out = out.reshape(B, Sq, nq * hd) @ p["wo"]
     return out.to(x.dtype), kv_cache
 

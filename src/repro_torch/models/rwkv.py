@@ -11,7 +11,10 @@ with per-token per-channel decay w_t = exp(-exp(w0 + LoRA_w(x̄_t))).  The
 recurrence goes straight to the ``rwkv6_scan`` wrapper (the hand-written
 kernel on the card, its plain version on the CPU) with
 ``logw = -exp(w0 + LoRA_w(x̄_t))``, unclamped as in the reference model
-(``kernels.ops.rwkv6_mix`` clamps, so the model does not call it).
+(``kernels.ops.rwkv6_mix`` clamps, so the model does not call it).  With
+``differentiable=True`` (the LM train step; the kernel has no backward, as
+the reference's has none) it runs ``_recurrence`` instead, a copy of the
+reference's scan step that autograd can differentiate.
 """
 from __future__ import annotations
 
@@ -69,10 +72,24 @@ def _ddlerp(p, x, xx):
     return [xx + (x - xx) * (p["mu"][i].to(x.dtype) + delta) for i in range(5)]  # w,k,v,r,g
 
 
-def time_mix_fwd(cfg: ArchConfig, p, x, *, state=None, return_state=False):
+def _recurrence(r, k, v, w, u, s0):
+    """The reference's ``lax.scan`` step over T in f32, under autograd:
+    r, k, v, w [B, T, H, hd], u [H, hd], s0 [B, H, hd, hd] ->
+    (y [B, T, H, hd], the final state)."""
+    S, ys = s0, []
+    for t in range(r.shape[1]):
+        kv = k[:, t, :, :, None] * v[:, t, :, None, :]  # [B,H,hd,hd]
+        ys.append(torch.einsum("bhi,bhij->bhj", r[:, t], u[None, :, :, None] * kv + S))
+        S = w[:, t, :, :, None] * S + kv
+    return torch.stack(ys, dim=1), S
+
+
+def time_mix_fwd(cfg: ArchConfig, p, x, *, state=None, return_state=False,
+                 differentiable: bool = False):
     """x: [B,S,D] -> (y [B,S,D], new_state).  state={"S":[B,H,hd,hd] f32,
     "shift":[B,1,D]}; new_state is a fresh dict (None unless
-    ``return_state``)."""
+    ``return_state``).  ``differentiable=True`` runs the recurrence as
+    ``_recurrence`` instead of the kernel."""
     B, S, D = x.shape
     H, hd = num_heads(cfg), cfg.ssm.head_dim
     last = state["shift"] if state is not None else None
@@ -91,8 +108,11 @@ def time_mix_fwd(cfg: ArchConfig, p, x, *, state=None, return_state=False):
         s0 = state["S"]
     else:
         s0 = torch.zeros((B, H, hd, hd), dtype=torch.float32, device=x.device)
-    y, s_final = rwkv6_scan(r.contiguous(), k.contiguous(), v.contiguous(), logw.contiguous(),
-                            p["u"], s0)
+    if differentiable:
+        y, s_final = _recurrence(r, k, v, torch.exp(logw), p["u"], s0)
+    else:
+        y, s_final = rwkv6_scan(r.contiguous(), k.contiguous(), v.contiguous(),
+                                logw.contiguous(), p["u"], s0)
 
     # per-head group norm (biased variance, eps 64e-5)
     mu = torch.mean(y, dim=-1, keepdim=True)

@@ -166,15 +166,17 @@ def _rope_angles(cfg: ArchConfig, positions, seq: int, batch: int, device):
 
 
 def _apply_block(cfg: ArchConfig, blk: BlockCfg, p, x, angles, *, cache=None,
-                 cache_index=None, q_offset: int):
+                 cache_index=None, q_offset: int, differentiable: bool):
     """One block; writes its decode state into ``cache`` in place."""
     h = L.norm_fwd(cfg, p["norm1"], x)
     if blk.mixer == "attn":
         ang = None if angles is None else angles[blk.rope_theta or cfg.rope.theta]
         out, _ = L.attention_fwd(cfg, p["attn"], h, angles=ang, causal=True, window=blk.window,
-                                 q_offset=q_offset, kv_cache=cache, cache_index=cache_index)
+                                 q_offset=q_offset, kv_cache=cache, cache_index=cache_index,
+                                 differentiable=differentiable)
     elif blk.mixer == "rwkv":
-        out, st = R.time_mix_fwd(cfg, p["rwkv"], h, state=cache, return_state=cache is not None)
+        out, st = R.time_mix_fwd(cfg, p["rwkv"], h, state=cache, return_state=cache is not None,
+                                 differentiable=differentiable)
         if cache is not None:
             cache["S"].copy_(st["S"])
             cache["shift"].copy_(st["shift"])
@@ -214,14 +216,20 @@ def _layers(cfg: ArchConfig, tree):
 
 def forward_lm(cfg: ArchConfig, params, tokens: torch.Tensor, *,
                positions: Optional[torch.Tensor] = None, extra_embeds=None,
-               cache: Optional[Dict[str, Any]] = None, cache_index: Optional[int] = None):
+               cache: Optional[Dict[str, Any]] = None, cache_index: Optional[int] = None,
+               differentiable: bool = False):
     """Run the LM: tokens [B, S] -> (logits [B, S, V], aux_loss 0-d f32,
     cache | None).
 
     With ``cache`` the step is incremental: attention attends over the
     cache and RWKV mixers resume their state; ``cache_index`` (an int) is
     the write offset (the number of positions already in the cache).  The
-    cache is updated IN PLACE and returned."""
+    cache is updated IN PLACE and returned.
+
+    ``differentiable=True`` (the train step's choice) computes attention
+    and the RWKV recurrence as plain PyTorch that autograd can
+    differentiate, as the reference's train step does; by default every
+    block runs the kernels, which have no backward."""
     if extra_embeds is not None:
         raise NotImplementedError(f"extra_embeds {_NOT_PORTED}")
     B, S = tokens.shape
@@ -235,7 +243,8 @@ def forward_lm(cfg: ArchConfig, params, tokens: torch.Tensor, *,
     caches = None if cache is None else {li: c for li, _, c in _layers(cfg, cache)}
     for li, blk, p in _layers(cfg, params):
         x = _apply_block(cfg, blk, p, x, angles, cache=None if caches is None else caches[li],
-                         cache_index=cache_index, q_offset=q_offset)
+                         cache_index=cache_index, q_offset=q_offset,
+                         differentiable=differentiable)
 
     x = L.norm_fwd(cfg, params["final_norm"], x)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]

@@ -1,12 +1,15 @@
-"""AdamW and learning-rate schedules as plain functions over dict trees
-(port of ``repro.optim.optimizers``; not ``torch.optim``, so the update is
-the reference's to the operation).
+"""Optimizers and learning-rate schedules as plain functions over dict trees
+(port of ``repro.optim.optimizers``; not ``torch.optim``, so each update is
+the reference's to the operation): SGD (with momentum), AdamW and
+Adafactor.
 
-``opt = adamw(schedule)`` has ``init(params) -> state`` and
+``opt = make_optimizer(name, schedule)`` has ``init(params) -> state`` and
 ``update(grads, state, params) -> (updates, state)``; updates are added to
 the params by the caller.  The learning rate is ``schedule(step)`` read
-before the step count advances; weight decay applies to every leaf inside
-the update; the update is cast to the parameter dtype.
+before the step count advances; AdamW's weight decay applies to every leaf
+inside the update; every update is cast to the parameter dtype.  Scalars
+the reference computes in f32 (bias corrections, Adafactor's decay) are
+computed in f32 here too.
 """
 from __future__ import annotations
 
@@ -75,6 +78,25 @@ class Optimizer:
     name: str = ""
 
 
+def sgd(schedule: Schedule, momentum: float = 0.0) -> Optimizer:
+    def init(params):
+        state = {"step": 0}
+        if momentum:
+            state["mom"] = tree_map(lambda x: torch.zeros_like(x, dtype=torch.float32), params)
+        return state
+
+    def update(grads, state, params):
+        lr = schedule(state["step"])
+        if momentum:
+            mom = tree_map(lambda m, g: momentum * m + g.float(), state["mom"], grads)
+            upd = tree_map(lambda m, p: (-lr * m).to(p.dtype), mom, params)
+            return upd, {"step": state["step"] + 1, "mom": mom}
+        upd = tree_map(lambda g, p: (-lr * g.float()).to(p.dtype), grads, params)
+        return upd, {"step": state["step"] + 1}
+
+    return Optimizer(init, update, "sgd")
+
+
 def adamw(schedule: Schedule, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
           weight_decay: float = 0.01) -> Optimizer:
     def init(params):
@@ -97,3 +119,73 @@ def adamw(schedule: Schedule, b1: float = 0.9, b2: float = 0.999, eps: float = 1
         return tree_map(upd, m, v, params), {"step": step, "m": m, "v": v}
 
     return Optimizer(init, update, "adamw")
+
+
+def adafactor(schedule: Schedule, decay: float = 0.8, eps: float = 1e-30,
+              clip_threshold: float = 1.0) -> Optimizer:
+    """Factored second-moment estimator (Shazeer & Stern 2018), no momentum.
+    A leaf of rank >= 2 keeps row and column means of g² (``vr`` over the
+    last axis, ``vc`` over the one before) instead of the whole ``v``; each
+    leaf's update is clipped to RMS ``clip_threshold``."""
+
+    def factored(x):
+        return x.ndim >= 2
+
+    def init(params):
+        def leaf_state(x):
+            if factored(x):
+                return {"vr": torch.zeros(x.shape[:-1], dtype=torch.float32, device=x.device),
+                        "vc": torch.zeros(x.shape[:-2] + x.shape[-1:], dtype=torch.float32,
+                                          device=x.device)}
+            return {"v": torch.zeros_like(x, dtype=torch.float32)}
+
+        return {"step": 0, "v": tree_map(leaf_state, params)}
+
+    def update(grads, state, params):
+        step = state["step"] + 1
+        lr = schedule(state["step"])
+        f32 = np.float32
+        beta = f32(1) - (f32(step) + f32(1)) ** f32(-decay)
+        keep, mix = float(beta), float(f32(1) - beta)
+
+        def upd(g, s, p):
+            gf = g.float()
+            g2 = torch.square(gf) + eps
+            if factored(g):
+                vr = keep * s["vr"] + mix * torch.mean(g2, dim=-1)
+                vc = keep * s["vc"] + mix * torch.mean(g2, dim=-2)
+                rfac = torch.rsqrt(vr / torch.mean(vr, dim=-1, keepdim=True) + eps)
+                cfac = torch.rsqrt(vc + eps)
+                u = gf * rfac[..., None] * cfac[..., None, :]
+                new_s = {"vr": vr, "vc": vc}
+            else:
+                v = keep * s["v"] + mix * g2
+                u = gf * torch.rsqrt(v + eps)
+                new_s = {"v": v}
+            rms = torch.sqrt(torch.mean(torch.square(u)) + eps)
+            u = u / torch.clamp(rms / clip_threshold, min=1.0)
+            return (-lr * u).to(p.dtype), new_s
+
+        def walk(g, s, p):
+            """(updates, new state) over one subtree; a tensor of the grads
+            is a leaf, whose state is a dict of its own."""
+            if not isinstance(g, dict):
+                return upd(g, s, p)
+            pairs = {k: walk(g[k], s[k], p[k]) for k in g}
+            return ({k: u for k, (u, _) in pairs.items()},
+                    {k: ns for k, (_, ns) in pairs.items()})
+
+        updates, new_v = walk(grads, state["v"], params)
+        return updates, {"step": step, "v": new_v}
+
+    return Optimizer(init, update, "adafactor")
+
+
+def make_optimizer(name: str, schedule: Schedule, **kw) -> Optimizer:
+    if name == "sgd":
+        return sgd(schedule, **kw)
+    if name == "adamw":
+        return adamw(schedule, **kw)
+    if name == "adafactor":
+        return adafactor(schedule, **kw)
+    raise ValueError(f"unknown optimizer {name!r}")

@@ -19,6 +19,14 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor, mask=None,
     return torch.mean(nll)
 
 
+def lm_loss(logits: torch.Tensor, tokens: torch.Tensor, mask=None) -> torch.Tensor:
+    """Next-token prediction: logits [B, S, V] against tokens [B, S], each
+    position scored on the token after it; ``mask`` [B, S] weights the
+    targets."""
+    shift_mask = None if mask is None else mask[:, 1:]
+    return softmax_xent(logits[:, :-1], tokens[:, 1:], shift_mask)
+
+
 def cls_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return softmax_xent(logits, labels)
 

@@ -47,6 +47,19 @@ def tree_from_paths(items) -> Tree:
     return out
 
 
+def tree_unflatten(like, leaves) -> Tree:
+    """A tree shaped like ``like`` (empty subtrees kept) whose leaves, in
+    ``tree_leaves`` order, are ``leaves``."""
+    it = iter(leaves)
+
+    def build(node):
+        if isinstance(node, dict):
+            return {k: build(node[k]) for k in sorted(node)}
+        return next(it)
+
+    return build(like)
+
+
 def tree_sub(a, b):
     return tree_map(torch.subtract, a, b)
 

@@ -9,6 +9,7 @@ iteration, whose finetune steps carry the encoder's ~1e-6 differences
 through Adam (see test_torch_encoder)."""
 import ast
 import dataclasses
+import glob
 import os
 import subprocess
 import sys
@@ -346,8 +347,9 @@ def _imported_modules(path):
 
 
 def test_port_imports_neither_jax_nor_repro():
-    files = [os.path.join(ROOT, "chip_smoke.py"),
-             os.path.join(ROOT, "examples", "cold_fusion_multitask_torch.py")]
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    files += glob.glob(os.path.join(ROOT, "examples", "*_torch.py"))
+    assert len(files) >= 7
     for dirpath, _, names in os.walk(os.path.join(ROOT, "src", "repro_torch")):
         files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
     assert len(files) > 20
