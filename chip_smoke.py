@@ -25,8 +25,11 @@ Phases (any failed check raises, so the script exits non-zero):
    bf16 body with 32 buckets, of 1,000,003 f32 with 7 and of 100 elements;
    ``flash_attention`` at gemma3-1b's prefill shape (B=4, Sq=1024,
    Sk=1280, 4 query heads on 1 kv head, hd 256, bf16, window 512 and
-   none), at decode (Sq=1, q_offset 1100, bf16 and f32), in f32 at hd
-   32-256 with ragged lengths, bf16 prefill at hd 64 and 128, and with
+   none), at decode (Sq=1, q_offset 1100, bf16 and f32), at stablelm-12b's
+   head_dim 160 (B=4, Sq=256, Sk=272, 32 query heads on 8 kv heads: bf16
+   prefill on the tensor-core route, f32 prefill on the FMA route, decode at
+   q_offset 256 in both), in f32 and bf16 at hd 32-256 with ragged lengths
+   (hd 160 among them), and with
    rows that see no key, each call checked to take its route; ``rwkv6_scan`` at
    rwkv6-7b's prefill shape (B=4, T=256, H=64, hd=64, f32, logw down to
    -20), with the state chained across two calls, at the decode shape
@@ -34,7 +37,8 @@ Phases (any failed check raises, so the script exits non-zero):
    bf16 inputs and at hd 32, each call checked to take its route;
 4. kernel and plain-version times (CUDA events, five windows after a
    warm-up, the median printed) beside each kernel's bound, and for
-   ``flash_attention`` the route and the time of
+   ``flash_attention`` (gemma3-1b's shapes, then stablelm-12b's hd 160 in
+   bf16 and f32) the route and the time of
    ``scaled_dot_product_attention`` on the same inputs and mask; both
    again replayed from a CUDA graph, which leaves out the host's work per
    call (the device time); ``rwkv6_scan`` likewise per route, with its
@@ -165,7 +169,8 @@ Phases (any failed check raises, so the script exits non-zero):
    tokens at the launcher's defaults and saves the params; every loss and
    grad_norm must be finite and the mean loss of the last 5 steps below
    that of the first 5; one more step at 2 microbatches must equal the same
-   step at 1 (``MB_RTOL``, ``MB_ATOL``).  The saved npz is loaded back
+   step at 1 (``MB_RTOL``, ``MB_ATOL``), and one more runs under
+   ``torch.profiler`` (``profile_train_step``).  The saved npz is loaded back
    (equal to the trained tree), the eval step and an ``Engine`` (4 x 64 ->
    8) run over it, with ``flash_attention``'s launches exact by route (the
    eval step: ``prefill_fma`` 26; generate: ``prefill_fma`` 26, ``decode``
@@ -178,13 +183,38 @@ Phases (any failed check raises, so the script exits non-zero):
    card as processes started together; each must exit 0 and print its
    healthy lines.
 
-Before each of phases 6, 7, 8, 10 and 11, before each model of phase 9 and
-around phase 12's eval steps and generates, every kernel's launch counter is
-set to 0; it is read just after.  The last lines are the kernels' JSON record
-(launches from phase 7 for the three fuse kernels, with phase 10's as
-``launches_routed``, from phase 9 for the other two, phase 11's as
-``launches_serve_stack`` and phase 12's as ``launches_lm_train`` for all
-five),
+13. the MoE family and the dense archs (slice 9), one model at a time with
+   memory freed between them: granite-moe-1b-a400m (24 layers, d 1024, 32
+   experts top-8 of d_ff 512, 1,334,628,352 parameters) at full width in
+   bf16 through phase 9's sequence (``launch.serve.main`` and
+   ``Engine.generate``, 4 x 1024 -> 32, cache 1056), with
+   ``flash_attention``'s launches exact by route (``serve_routes``:
+   ``prefill_tc`` 48, ``decode`` 1,488), the profile, the MoE FFN alone timed
+   per layer at prefill and decode, and the teacher-forced comparison with
+   the plain versions, whose rule holds at the positions where no MoE
+   routing decision differs from the plain run (``serve_agreement``; the
+   differing decisions are counted per layer and printed).  Then
+   granite-moe trained at full width in f32 through ``launch.train.main``
+   (30 steps of 8 x 64, every loss, aux and grad_norm finite, the loss
+   falling), a step at 2 microbatches against 1 at capacity E / k with the
+   aux weight at 0 (``train_and_serve`` says why), one more step profiled
+   beside the MoE's forward and backward alone, and the saved npz served
+   with exact launches (eval ``prefill_fma`` 24; generate ``prefill_fma`` 24,
+   ``decode`` 168); the same for reduced mixtral-8x7b (46.7 B parameters,
+   93 GB in bf16, exceed the card); then mistral-nemo-12b, stablelm-12b (hd
+   160) and granite-20b (48 query heads on one kv head, so its decode steps
+   take ``prefill_tc``) at full width in bf16, 4 x 256 -> 16, through phase
+   9's sequence with exact launches, peak memory printed per model.  The arch
+   table (parameters, head_dim, GiB, routes, times, peak) is printed as a
+   JSON line.
+
+Before each of phases 6, 7, 8, 10 and 11, before each model of phases 9 and
+13 and around phases 12's and 13's eval steps and generates, every kernel's
+launch counter is set to 0; it is read just after.  The last lines are the
+kernels' JSON record (launches from phase 7 for the three fuse kernels, with
+phase 10's as ``launches_routed``, from phase 9 for the other two, phase
+11's as ``launches_serve_stack``, phase 12's as ``launches_lm_train`` and
+phase 13's as ``launches_archs`` for all five),
 ``nvidia-smi``'s line and
 ``{"ok": true, "device": {...}}``.  Without a card (or without the rest of
 the repository beside it) the script exits non-zero and prints no result.
@@ -226,6 +256,7 @@ from repro_torch.kernels import rwkv6_scan as rs_mod  # noqa: E402
 from repro_torch.kernels.rwkv6_scan import rwkv6_scan, rwkv6_scan_plain  # noqa: E402
 from repro_torch.launch.serve import main as serve_main  # noqa: E402
 from repro_torch.launch import train as train_launcher  # noqa: E402
+from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models import rwkv as rwkv_mod  # noqa: E402
 from repro_torch.models.encoder import init_encoder_body  # noqa: E402
 from repro_torch.models.transformer import forward_lm, init_cache, init_lm  # noqa: E402
@@ -308,6 +339,12 @@ GEMMA_PROMPT, GEMMA_MAX_LEN = 1024, 1280
 RWKV_PROMPT, RWKV_MAX_LEN = 256, 256 + SERVE_NEW
 FLASH_PREFILL = (4, GEMMA_PROMPT, GEMMA_MAX_LEN, GEMMA.num_heads, GEMMA.num_kv_heads,
                  GEMMA.head_dim)
+# head_dim 160 in phases 3 and 4, at stablelm-12b's serving shape in phase 13
+# (4 prompts of DENSE_PROMPT tokens -> DENSE_NEW, a cache of their sum)
+DENSE_PROMPT, DENSE_NEW = 256, 16
+STABLELM = get_config("stablelm-12b")
+FLASH_HD160 = (4, DENSE_PROMPT, DENSE_PROMPT + DENSE_NEW, STABLELM.num_heads,
+               STABLELM.num_kv_heads, STABLELM.head_dim)
 RWKV_PREFILL = (4, RWKV_PROMPT, RWKV.d_model // RWKV.ssm.head_dim, RWKV.ssm.head_dim)
 # the fuse-to-serve stack (phase 11) on gemma3-1b at full width: K_SWAP
 # contributors submit the base plus SWAP_NOISE x N(0, 1) per leaf; SCHED_N
@@ -1976,7 +2013,8 @@ def flash_routed(want_route, q, k, v, **kw):
 def phase_flash_checks(gen):
     """flash_attention against flash_attention_plain on the card, each
     call through the route it must take.  Returns gemma3-1b's
-    prefill-shaped bf16 inputs and the largest error there."""
+    prefill-shaped bf16 inputs, stablelm-12b's (hd 160) in bf16 and f32 by
+    dtype, and the largest error."""
     B, Sq, Sk, Hq, Hkv, hd = FLASH_PREFILL
     q, k, v = qkv_on_card(B, Sq, Sk, Hq, Hkv, hd, torch.bfloat16, gen)
     worst = 0.0
@@ -2004,8 +2042,31 @@ def phase_flash_checks(gen):
                                             q_offset=1100), f"flash f32 decode window={window}")
         print(f"[check] flash_attention vs plain, decode Sq=1 q_offset=1100 Sk={Sk} f32 "
               f"window={window}, route decode: max|d| {e:.3g} (bound 2e-5 x max(1, max|o|))")
+    B, Sq, Sk, Hq, Hkv, hd = FLASH_HD160
+    q16, k16, v16 = qkv_on_card(B, Sq, Sk, Hq, Hkv, hd, torch.bfloat16, gen)
+    hd160 = {}
+    for dtype, rt in ((torch.bfloat16, "prefill_tc"), (torch.float32, "prefill_fma")):
+        qq, kk, vv = q16.to(dtype), k16.to(dtype), v16.to(dtype)
+        close = bf16_close if dtype == torch.bfloat16 else f32_close
+        bound = ("1 bf16 ulp + 2e-5 x max(1, max|o|)" if dtype == torch.bfloat16
+                 else "2e-5 x max(1, max|o|)")
+        e = close(flash_routed(rt, qq, kk, vv, causal=True),
+                  flash_attention_plain(qq, kk, vv, causal=True), f"flash hd160 {rt}")
+        worst = max(worst, e)
+        print(f"[check] flash_attention vs plain, stablelm-12b prefill B={B} Sq={Sq} Sk={Sk} "
+              f"Hq={Hq} Hkv={Hkv} hd={hd} {str(dtype)[6:]}, route {rt}: max|d| {e:.3g} "
+              f"(bound {bound})")
+        qd = qq[:, :1].contiguous()
+        e = close(flash_routed("decode", qd, kk, vv, causal=True, q_offset=Sq),
+                  flash_attention_plain(qd, kk, vv, causal=True, q_offset=Sq),
+                  f"flash hd160 decode {dtype}")
+        worst = max(worst, e)
+        print(f"[check] flash_attention vs plain, stablelm-12b decode Sq=1 q_offset={Sq} "
+              f"Sk={Sk} hd={hd} {str(dtype)[6:]}, route decode: max|d| {e:.3g} (bound {bound})")
+        hd160[dtype] = (qq, kk, vv)
     for (b, sq, sk, hq, hkv, d, causal, window, off) in (
             (2, 96, 160, 4, 1, 256, True, 64, 0), (2, 77, 133, 8, 2, 64, True, None, 56),
+            (2, 70, 111, 8, 2, 160, True, 33, 41),
             (3, 45, 45, 4, 4, 128, False, None, 0),
             (2, 70, 101, 4, 1, 128, True, 17, 31), (1, 33, 40, 4, 2, 32, True, 8, 7)):
         qs, ks, vs = qkv_on_card(b, sq, sk, hq, hkv, d, torch.float32, gen)
@@ -2037,7 +2098,7 @@ def phase_flash_checks(gen):
     print("[check] flash_attention fully masked rows (q_offset 66, window 8, Sk 64: rows 6.. "
           "see no key): exactly 0 in f32 and bf16, rows 0..4 match the plain version; "
           "decode at q_offset 100: exactly 0")
-    return (q, k, v), worst
+    return (q, k, v), hd160, worst
 
 
 def visible_entries(Sq, Sk, causal, window, q_offset):
@@ -2055,33 +2116,39 @@ def visible_keys(Sq, Sk, causal, window, q_offset):
     return max(0, hi - lo)
 
 
-def phase_flash_timing(inputs, card):
+def phase_flash_timing(inputs, hd160, card):
     """Kernel, plain version and SDPA at gemma3-1b's prefill shape (both
-    layer kinds) and at decode.  Returns the global-layer prefill numbers
-    and, per line, its route and numbers."""
+    layer kinds) and at decode, then at stablelm-12b's (hd 160) prefill and
+    decode in bf16 and f32.  Returns the global-layer prefill numbers and,
+    per line, its route and numbers."""
     q, k, v = inputs
-    B, Sq, Hq, hd = q.shape
-    Sk, Hkv = k.shape[1], k.shape[2]
+    cases = [("prefill global", q, k, v, None, 0), ("prefill local", q, k, v, GEMMA_WINDOW, 0),
+             ("decode global", q[:, :1].contiguous(), k, v, None, 1100),
+             ("decode local", q[:, :1].contiguous(), k, v, GEMMA_WINDOW, 1100)]
+    for dtype, (q16, k16, v16) in hd160.items():
+        name = str(dtype)[6:]
+        cases += [(f"stablelm-12b prefill {name}", q16, k16, v16, None, 0),
+                  (f"stablelm-12b decode {name}", q16[:, :1].contiguous(), k16, v16, None,
+                   q16.shape[1])]
     out, lines = None, []
-    for label, qq, window, off in (("prefill global", q, None, 0),
-                                   ("prefill local", q, GEMMA_WINDOW, 0),
-                                   ("decode global", q[:, :1].contiguous(), None, 1100),
-                                   ("decode local", q[:, :1].contiguous(), GEMMA_WINDOW, 1100)):
-        sq = qq.shape[1]
+    for label, qq, k, v, window, off in cases:
+        B, sq, Hq, hd = qq.shape
+        Sk, Hkv = k.shape[1], k.shape[2]
         rt = fa_mod.route(qq.dtype, sq, Hq, Hkv)
         # q read and o written once; each visible K and V row read once
         nbytes = (2 * qq.numel() * qq.element_size()
                   + 2 * B * Hkv * hd * k.element_size() * visible_keys(sq, Sk, True, window, off))
         flops = 4 * hd * B * Hq * visible_entries(sq, Sk, True, window, off)
-        bound, bound_by = bound_of(nbytes, flops, BF16_FLOPS)
+        peak = BF16_FLOPS if qq.dtype == torch.bfloat16 else F32_FLOPS
+        bound, bound_by = bound_of(nbytes, flops, peak)
         iters = 20 if sq > 1 else 200
         ms, runs = median_windows(lambda: flash_attention(qq, k, v, causal=True, window=window,
                                                           q_offset=off), iters=iters)
         plain, plain_runs = median_windows(lambda: flash_attention_plain(
             qq, k, v, causal=True, window=window, q_offset=off), iters=5, warmup=1)
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (qq, k, v))
-        qp = torch.arange(sq, device=q.device)[:, None] + off
-        kp = torch.arange(Sk, device=q.device)[None, :]
+        qp = torch.arange(sq, device=qq.device)[:, None] + off
+        kp = torch.arange(Sk, device=qq.device)[None, :]
         mask = kp <= qp
         if window is not None:
             mask &= kp > qp - window
@@ -2092,10 +2159,11 @@ def phase_flash_timing(inputs, card):
         g_lib, g_lib_runs = graph_windows(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=mask, enable_gqa=True), iters)
         print(f"[time] flash_attention {label} B={B} Sq={sq} Sk={Sk} Hq={Hq} Hkv={Hkv} hd={hd} "
-              f"bf16 on {card}: route {rt} ({FLASH_SOURCE[rt]}.cu), kernel_ms {ms:.4f} "
-              f"(windows {[round(r, 4) for r in runs]}), "
+              f"{str(qq.dtype)[6:]} on {card}: route {rt} ({FLASH_SOURCE[rt]}.cu), kernel_ms "
+              f"{ms:.4f} (windows {[round(r, 4) for r in runs]}), "
               f"bound_ms {bound:.4f} ({bound_by}: {nbytes / 1e6:.1f} MB at 3.35 TB/s, "
-              f"{flops / 1e9:.2f} GFLOP at 989 TFLOP/s), kernel/bound {ms / bound:.2f}x, "
+              f"{flops / 1e9:.2f} GFLOP at {peak / 1e12:.0f} TFLOP/s), kernel/bound "
+              f"{ms / bound:.2f}x, "
               f"plain_ms {plain:.4f} (windows {[round(r, 3) for r in plain_runs]}), "
               f"library_ms {lib:.4f} (scaled_dot_product_attention, same mask, windows "
               f"{[round(r, 4) for r in lib_runs]})")
@@ -2331,36 +2399,11 @@ def teacher_forced(cfg, params, prompts, gen_tokens, max_len):
     return logits, torch.stack(dec, 1)
 
 
-def logit_diff(a, b):
-    """(max |a - b|, mean |a - b|) over bf16 logits, in f32, row by row."""
-    mx, tot, n = 0.0, 0.0, 0
-    for i in range(a.shape[0]):
-        d = (a[i].float() - b[i].float()).abs()
-        mx, tot, n = max(mx, d.max().item()), tot + d.sum().item(), n + d.numel()
-        del d
-    return mx, tot / n
-
-
-def logits_agreement(kern, plain, floor, what):
-    """Kernel-path logits against the plain path's: max and mean |d| must
-    stay within 4x those between the plain path and its nudged run
-    (``floor``), the spread that rounding the same f32 values to bf16 at a
-    different last bit produces through the whole model."""
-    check(bool(torch.isfinite(kern).all()), f"{what}: logits not finite")
-    mx, mean = logit_diff(kern, plain)
-    check(mx <= 4 * floor[0], f"{what}: max|d| {mx:.3g} > 4 x the nudged plain run's "
-          f"{floor[0]:.3g}")
-    check(mean <= 4 * floor[1], f"{what}: mean|d| {mean:.3g} > 4 x the nudged plain run's "
-          f"{floor[1]:.3g}")
-    return mx, mean
-
-
-def phase_serve(arch, cfg, prompt_len, new_tokens, max_len, kernel, least, card,
-                routes_least):
+def phase_serve(arch, cfg, prompt_len, new_tokens, max_len, kernel, card, routes):
     """One model at full width through ``launch.serve.main`` and then
     ``Engine.generate``, with the launches of ``kernel`` counted over both,
-    and per route, each at least its entry of ``routes_least``; then the
-    same prompts through the plain versions, compared."""
+    by route exactly ``routes``; then the same prompts through the plain
+    versions, compared (``serve_agreement``)."""
     dev = torch.device("cuda")
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
@@ -2388,21 +2431,18 @@ def phase_serve(arch, cfg, prompt_len, new_tokens, max_len, kernel, least, card,
     torch.cuda.synchronize()
     gen_s = time.perf_counter() - t0
     counts = launches()
-    check(counts[kernel] >= least, f"{kernel} launched {counts[kernel]} times serving {arch}, "
-          f"expected >= {least}")
     by_route = dict({"flash_attention": flash_attention,
                      "rwkv6_scan": rwkv6_scan}[kernel].launches_by_route)
-    for rt, n in routes_least.items():
-        check(by_route[rt] >= n, f"{kernel}'s {rt} route launched {by_route[rt]} times "
-              f"serving {arch}, expected >= {n}")
+    check(by_route == routes, f"{kernel} launched {by_route} by route serving {arch}, expected "
+          f"exactly {routes}")
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     print(f"[serve] {arch} ({cfg.num_layers} layers, d {cfg.d_model}, vocab {cfg.vocab_size}, "
           f"{n_params / 1e9:.3f} B params bf16, init {init_s:.2f} s): launcher 4 x {prompt_len} "
           f"-> {new_tokens} in {cli_s:.1f} s (with its own init); Engine.generate 4 x "
           f"{prompt_len} -> {new_tokens} (max_len {max_len}) {gen_s:.3f} s; launches "
           f"{counts}; peak {peak:.2f} GiB")
-    print(f"[serve] {arch} {kernel} launches by route: {by_route}, total {counts[kernel]} (each "
-          f"route at least {routes_least})")
+    print(f"[serve] {arch} {kernel} launches by route: {by_route}, total {counts[kernel]} "
+          "(exactly as worked out from the code)")
 
     # timing split (after the counted run): prefill alone, then whole generates
     with torch.inference_mode():
@@ -2442,29 +2482,145 @@ def phase_serve(arch, cfg, prompt_len, new_tokens, max_len, kernel, least, card,
         print_split(arch, f"prefill 4 x {prompt_len}", pre_ms, device_split(prefill))
         print_split(arch, "8 decode steps", 8 * dec_ms, device_split(decode8))
         del cache, logits
+        moe_layers = sum(b.ffn == "moe" for b in cfg.blocks)
+        if moe_layers:
+            moe_timing(arch, cfg, params, prompt_len, pre_ms, dec_ms, moe_layers, card)
 
-    # agreement with the plain versions, teacher-forced on the kernel path's tokens
-    gen_k = res.tokens[:, prompt_len:]
-    pre_k, dec_k = teacher_forced(cfg, params, prompts, gen_k, max_len)
+    serve_agreement(arch, cfg, params, prompts, res.tokens[:, prompt_len:], max_len)
+    del params, eng
+    torch.cuda.empty_cache()
+    return counts[kernel], by_route, {"prefill_ms": pre_ms, "decode_ms": dec_ms,
+                                      "tokens_per_s": 4 * new_tokens / gen_ms * 1e3,
+                                      "params": n_params, "peak_gib": peak}
+
+
+def moe_timing(arch, cfg, params, prompt_len, pre_ms, dec_ms, n_layers, card):
+    """The MoE FFN alone (router, dispatch, experts, combine: plain PyTorch,
+    as the reference leaves it to XLA) at the prefill and decode shapes,
+    timed with CUDA events on the first MoE layer's weights and a unit-scale
+    input (what the norm before it gives), beside the step times."""
+    dev = torch.device("cuda")
+    p0 = tree_map(lambda x: x[0], params["scan"]["pos0"]["moe"])
+    g = torch.Generator(device=dev).manual_seed(3)
+    h = torch.randn((4, prompt_len, cfg.d_model), generator=g, device=dev).to(p0["router"].dtype)
+    hd = h[:, :1].contiguous()
+    with torch.inference_mode():
+        t_pre, runs_pre = median_windows(lambda: moe_mod.moe_fwd(cfg, p0, h), iters=3, warmup=1)
+        t_dec, runs_dec = median_windows(lambda: moe_mod.moe_fwd(cfg, p0, hd), iters=20)
+    E, K = cfg.moe.num_experts, cfg.moe.experts_per_token
+    T = 4 * prompt_len
+    cap = max(int(cfg.moe.capacity_factor * T * K / E), K)
+    # the experts' products at capacity, and gshard's dispatch and combine products
+    expert_gflop = 2 * 3 * E * cap * cfg.d_model * cfg.d_ff / 1e9
+    onehot_gflop = 2 * 2 * T * E * cap * cfg.d_model / 1e9
+    print(f"[profile] {arch} MoE FFN alone ({cfg.moe.routing}, {E} experts top-{K}, capacity "
+          f"{cap} at 4 x {prompt_len}; CUDA events on {card}): one layer at prefill {t_pre:.3f} "
+          f"ms (windows {[round(r, 3) for r in runs_pre]}; {expert_gflop:.1f} GFLOP in the "
+          f"experts, {onehot_gflop:.1f} GFLOP in the one-hot dispatch and combine products), x "
+          f"{n_layers} layers = {t_pre * n_layers:.2f} ms of the {pre_ms:.2f} ms prefill; at a "
+          f"decode step (4 tokens) {t_dec:.4f} ms, x {n_layers} = {t_dec * n_layers:.2f} ms of "
+          f"the {dec_ms:.2f} ms step")
+
+
+class route_log:
+    """Inside the block every MoE router call's top-k experts (as a sorted
+    set per token) are kept in call order."""
+
+    def __enter__(self):
+        self.saved, self.calls = moe_mod._router, []
+
+        def rec(cfg, p, x):
+            out = self.saved(cfg, p, x)
+            self.calls.append(torch.sort(out[1], dim=-1).values)
+            return out
+
+        moe_mod._router = rec
+        return self
+
+    def __exit__(self, *exc):
+        moe_mod._router = self.saved
+
+
+def routing_flips(a, b, n_layers, B, P):
+    """Positions where a routing decision differs between two teacher-forced
+    runs: ([B, P] over the prompt, [B, n - 1] over the decode steps), and the
+    count of differing (token, layer) decisions per layer."""
+    diff = [(x != y).any(-1) for x, y in zip(a.calls, b.calls)]
+    pre = torch.stack(diff[:n_layers]).reshape(n_layers, B, P)
+    dec = torch.stack(diff[n_layers:]).reshape(-1, n_layers, B)
+    return pre.any(0), dec.any(1).T, (pre.sum((1, 2)) + dec.sum((0, 2))).tolist()
+
+
+def masked_diff(a, b, keep):
+    """(max |a - b|, mean |a - b|) over the logits of the positions where
+    ``keep`` [B, S] holds, row by row in f32."""
+    mx, tot, n = 0.0, 0.0, 0
+    for i in range(a.shape[0]):
+        d = (a[i].float() - b[i].float()).abs()[keep[i]]
+        if d.numel():
+            mx, tot, n = max(mx, d.max().item()), tot + d.sum().item(), n + d.numel()
+        del d
+    return mx, tot / max(n, 1)
+
+
+def serve_agreement(arch, cfg, params, prompts, gen_k, max_len):
+    """The model teacher-forced on the kernel path's tokens, once more and
+    with the kernels' plain versions: logits within 4x those between the
+    plain path and its nudged run, and greedy tokens equal wherever the
+    plain path's top-2 margin exceeds twice the logit difference.  In a
+    model with MoE layers a last-bit difference in attention can flip a
+    near-tied top-k choice and move that token's output by O(1): the rule
+    then holds at the positions where no routing decision differs from the
+    plain run (the floor at those where the nudged run's do not), and a
+    flipped position is held to finite logits only."""
+    B, P = prompts.shape
+    moe = any(b.ffn == "moe" for b in cfg.blocks)
+    with route_log() as log_k:
+        pre_k, dec_k = teacher_forced(cfg, params, prompts, gen_k, max_len)
     check(np.array_equal(torch.argmax(torch.cat([pre_k[:, -1:], dec_k], 1), -1).cpu().numpy(),
                          gen_k), "teacher-forced kernel path must repeat Engine.generate")
-    with plain_kernels():
+    with plain_kernels(), route_log() as log_p:
         pre_p, dec_p = teacher_forced(cfg, params, prompts, gen_k, max_len)
-    with plain_kernels(nudge=NUDGE):
+    with plain_kernels(nudge=NUDGE), route_log() as log_n:
         pre_n, dec_n = teacher_forced(cfg, params, prompts, gen_k, max_len)
-    floor_pre, floor_dec = logit_diff(pre_n, pre_p), logit_diff(dec_n, dec_p)
+    dev = pre_k.device
+    keep_pre = torch.ones((B, P), dtype=torch.bool, device=dev)
+    keep_dec = torch.ones(dec_k.shape[:2], dtype=torch.bool, device=dev)
+    floor_keep = (keep_pre, keep_dec)
+    flips = ""
+    if moe:
+        L = cfg.num_layers
+        f_pre, f_dec, per_layer = routing_flips(log_k, log_p, L, B, P)
+        n_pre, n_dec, n_layer = routing_flips(log_n, log_p, L, B, P)
+        keep_pre, keep_dec, floor_keep = ~f_pre, ~f_dec, (~n_pre, ~n_dec)
+        decisions = len(log_k.calls[0]) + (len(log_k.calls) - L) * B // L
+        flips = (f"; MoE routing decisions that differ from the plain run, per layer "
+                 f"{per_layer} ({sum(per_layer)} of {decisions * L}), flipped positions "
+                 f"{int(f_pre.sum())}/{f_pre.numel()} (prefill) and {int(f_dec.sum())}/"
+                 f"{f_dec.numel()} (decode), held to finite logits only; the nudged run flips "
+                 f"{int(n_pre.sum())} and {int(n_dec.sum())} (per layer {n_layer}), left out of "
+                 "its floor")
+    floor_pre = masked_diff(pre_n, pre_p, floor_keep[0])
+    floor_dec = masked_diff(dec_n, dec_p, floor_keep[1])
     del pre_n, dec_n
-    a_pre = logits_agreement(pre_k, pre_p, floor_pre, f"{arch} prefill logits")
-    a_dec = logits_agreement(dec_k, dec_p, floor_dec, f"{arch} decode logits")
+    check(bool(torch.isfinite(pre_k).all()) and bool(torch.isfinite(dec_k).all()),
+          f"{arch}: logits not finite")
+    a_pre = masked_diff(pre_k, pre_p, keep_pre)
+    a_dec = masked_diff(dec_k, dec_p, keep_dec)
+    for what, a, floor in (("prefill", a_pre, floor_pre), ("decode", a_dec, floor_dec)):
+        check(a[0] <= 4 * floor[0], f"{arch} {what} logits: max|d| {a[0]:.3g} > 4 x the nudged "
+              f"plain run's {floor[0]:.3g}")
+        check(a[1] <= 4 * floor[1], f"{arch} {what} logits: mean|d| {a[1]:.3g} > 4 x the "
+              f"nudged plain run's {floor[1]:.3g}")
     mean_logit = pre_p[:, -1].float().abs().mean().item()
     steps_k = torch.cat([pre_k[:, -1:], dec_k], 1).float()
     steps_p = torch.cat([pre_p[:, -1:], dec_p], 1).float()
+    keep_step = torch.cat([keep_pre[:, -1:], keep_dec], 1).cpu().numpy()
     d_step = (steps_k - steps_p).abs().amax(-1)            # [B, n]
     top2 = torch.topk(steps_p, 2, dim=-1)
     margin = top2.values[..., 0] - top2.values[..., 1]
-    decided = margin > 2 * d_step
+    dec_np = (margin > 2 * d_step).cpu().numpy() & keep_step
     agree = top2.indices[..., 0].cpu().numpy() == gen_k
-    dec_np = decided.cpu().numpy()
     check(bool(agree[dec_np].all()), f"{arch}: greedy tokens differ from the plain path where "
           "its top-2 margin exceeds twice the logit difference")
     print(f"[serve] {arch} kernel vs plain (teacher-forced): prefill logits max|d| {a_pre[0]:.4g} "
@@ -2473,11 +2629,7 @@ def phase_serve(arch, cfg, prompt_len, new_tokens, max_len, kernel, least, card,
           f"max {floor_pre[0]:.4g} / mean {floor_pre[1]:.3g} (prefill) and max "
           f"{floor_dec[0]:.4g} / mean {floor_dec[1]:.3g} (decode), bound 4x; tokens: "
           f"{int(dec_np.sum())}/{dec_np.size} decided by a margin > 2 x max|d| and all agree; "
-          f"{int(agree.sum())}/{agree.size} agree overall")
-    del pre_k, dec_k, pre_p, dec_p, params, eng
-    torch.cuda.empty_cache()
-    return counts[kernel], by_route, {"prefill_ms": pre_ms, "decode_ms": dec_ms,
-                                      "tokens_per_s": 4 * new_tokens / gen_ms * 1e3}
+          f"{int(agree.sum())}/{agree.size} agree overall" + flips)
 
 
 def device_split(fn):
@@ -2935,28 +3087,30 @@ def train_via_launcher(argv, card):
     t0 = time.perf_counter()
     out = train_launcher.main(argv + ["--device", "cuda"])
     seconds = time.perf_counter() - t0
-    cfg, losses, norms = out["cfg"], out["loss"], out["grad_norm"]
-    check(all(math.isfinite(x) for x in losses + norms), f"{cfg.name}: a loss or grad_norm "
-          "is not finite")
+    cfg, losses, norms, aux = out["cfg"], out["loss"], out["grad_norm"], out["aux"]
+    check(all(math.isfinite(x) for x in losses + norms + aux), f"{cfg.name}: a loss, aux or "
+          "grad_norm is not finite")
     first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
     print(f"[train] {cfg.name}: {len(losses)} steps, loss {losses[0]:.4f} -> {losses[-1]:.4f} "
           f"(mean of the first 5 {first:.4f}, of the last 5 {last:.4f}); grad_norm "
-          f"{norms[0]:.3f} -> {norms[-1]:.3f}; step {median_ms(out['step_s'][1:])} after the "
+          f"{norms[0]:.3f} -> {norms[-1]:.3f}; aux {aux[0]:.4f} -> {aux[-1]:.4f}; step "
+          f"{median_ms(out['step_s'][1:])} after the "
           f"first ({1e3 * out['step_s'][0]:.1f} ms); peak "
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; the launcher "
           f"{seconds:.1f} s with init and save; on {card}")
     return out, first, last
 
 
-def check_microbatches(out, card):
+def check_microbatches(out, card, cfg=None, aux_weight=None):
     """One more step from the trained state at 2 microbatches against the
-    same step at 1: loss, grad_norm and every parameter."""
-    cfg, state = out["cfg"], out["state"]
+    same step at 1: loss, grad_norm and every parameter (under ``cfg``,
+    the trained config unless given, and ``aux_weight``)."""
+    cfg, state = cfg or out["cfg"], out["state"]
     opt = make_optimizer(cfg.optimizer, warmup_cosine_lr(TRAIN_LR, 20, TRAIN_STEPS))
     batch = {"tokens": train_launcher.token_stream(cfg, steps=1, batch=TRAIN_BATCH,
                                                    seq=TRAIN_SEQ, seed=1)}
-    one, m1 = make_train_step(cfg, opt)(state, batch)
-    two, m2 = make_train_step(cfg, opt, microbatches=2)(state, batch)
+    one, m1 = make_train_step(cfg, opt, aux_weight=aux_weight)(state, batch)
+    two, m2 = make_train_step(cfg, opt, microbatches=2, aux_weight=aux_weight)(state, batch)
     worst = 0.0
     want = dict(tree_leaves_with_path(one["params"]))
     for key, b in tree_leaves_with_path(two["params"]):
@@ -3080,20 +3234,7 @@ def phase_lm_train(workdir, card):
     reduced rwkv6-7b trained and served; the five example twins.  Returns
     the launches of the eval steps and the generates, summed."""
     t0 = time.perf_counter()
-    npz = os.path.join(workdir, "gemma3-1b-trained.npz")
-    out, first, last = train_via_launcher(
-        ["--arch", "gemma3-1b", "--steps", str(TRAIN_STEPS), "--log-every", "10",
-         "--save", npz], card)
-    check(last < first, f"gemma3-1b: the loss did not fall ({first:.4f} -> {last:.4f})")
-    check_microbatches(out, card)
-    cfg, trained = out["cfg"], out["state"]["params"]
-    del out
-    torch.cuda.empty_cache()
-    total = dict.fromkeys(launches(), 0)
-    for counts in serve_trained(cfg, npz, trained, "flash_attention", card):
-        total = {k: total[k] + counts[k] for k in total}
-    del trained
-    torch.cuda.empty_cache()
+    total = train_and_serve("gemma3-1b", workdir, card)
 
     npz = os.path.join(workdir, "rwkv6-7b-trained.npz")
     out, _, _ = train_via_launcher(
@@ -3107,6 +3248,142 @@ def phase_lm_train(workdir, card):
           f"{time.perf_counter() - t0:.1f} s before the twins, on {card}")
     run_twins(card)
     return total
+
+
+# ---------------------------------------------------------------------------
+# slice 9: the MoE family and the dense archs (phase 13)
+# ---------------------------------------------------------------------------
+
+MOE_ARCH = "granite-moe-1b-a400m"
+GRANITE_MOE = get_config(MOE_ARCH)
+MOE_MAX_LEN = GEMMA_PROMPT + SERVE_NEW
+DENSE_ARCHS = ("mistral-nemo-12b", "stablelm-12b", "granite-20b")
+
+
+def serve_routes(cfg, prompt_len, new_tokens):
+    """flash_attention's launches by route over ``launch.serve.main`` and
+    ``Engine.generate`` (two bf16 generates), worked out from the code: one
+    launch per layer for the prefill, one per layer and new token after the
+    first, each on the route ``flash_attention.route`` names for its shape
+    (with the decode route's combine beside it)."""
+    n, steps = cfg.num_layers, cfg.num_layers * (new_tokens - 1)
+    want = dict.fromkeys(fa_mod.ROUTES + ("decode_combine",), 0)
+    want[fa_mod.route(torch.bfloat16, prompt_len, cfg.num_heads, cfg.num_kv_heads)] += 2 * n
+    dec = fa_mod.route(torch.bfloat16, 1, cfg.num_heads, cfg.num_kv_heads)
+    want[dec] += 2 * steps
+    if dec == "decode":
+        want["decode_combine"] += 2 * steps
+    return want
+
+
+def serve_arch(arch, cfg, prompt_len, new_tokens, max_len, card, table):
+    """``phase_serve`` with launches exact by route; the arch's row of the
+    table.  Returns its launches."""
+    n, routes, res = phase_serve(arch, cfg, prompt_len, new_tokens, max_len, "flash_attention",
+                                 card, serve_routes(cfg, prompt_len, new_tokens))
+    table.append({"arch": arch, "params": res["params"], "head_dim": cfg.head_dim,
+                  "gib_bf16": round(res["params"] * 2 / 2 ** 30, 2),
+                  "routes": sorted(r for r in fa_mod.ROUTES if routes[r]),
+                  "prompt": f"4 x {prompt_len} -> {new_tokens}",
+                  "prefill_ms": round(res["prefill_ms"], 3),
+                  "decode_ms": round(res["decode_ms"], 3),
+                  "peak_gib": round(res["peak_gib"], 2)})
+    return n
+
+
+def profile_train_step(out, card):
+    """One more train step from the trained state under ``torch.profiler``
+    (the kernels' device time against the launcher's median step), and in
+    a model with MoE layers one layer's MoE forward and backward alone
+    (CUDA events, at the step's 8 x 64 tokens in f32, on the first MoE
+    layer's trained weights and a unit-scale input)."""
+    cfg, state = out["cfg"], out["state"]
+    opt = make_optimizer(cfg.optimizer, warmup_cosine_lr(TRAIN_LR, 20, TRAIN_STEPS))
+    step = make_train_step(cfg, opt)
+    batch = {"tokens": train_launcher.token_stream(cfg, steps=1, batch=TRAIN_BATCH,
+                                                   seq=TRAIN_SEQ, seed=3)}
+    wall = float(np.median(out["step_s"][1:])) * 1e3
+    print_split(cfg.name, f"a train step ({TRAIN_BATCH} x {TRAIN_SEQ}, f32)", wall,
+                device_split(lambda: step(state, batch)))
+    n_moe = sum(b.ffn == "moe" for b in cfg.blocks)
+    if not n_moe:
+        return
+    dev = torch.device("cuda")
+    p0 = {k: v[0].detach().clone().requires_grad_(True)
+          for k, v in state["params"]["scan"]["pos0"]["moe"].items()}
+    g = torch.Generator(device=dev).manual_seed(4)
+    h = torch.randn((TRAIN_BATCH, TRAIN_SEQ, cfg.d_model), generator=g,
+                    device=dev).requires_grad_(True)
+
+    def fwd_bwd():
+        with torch.enable_grad():
+            y, aux = moe_mod.moe_fwd(cfg, p0, h)
+            torch.autograd.grad(y.sum() + aux, [h, *p0.values()])
+
+    t, runs = median_windows(fwd_bwd, iters=3, warmup=1)
+    print(f"[profile] {cfg.name} MoE FFN forward and backward alone ({TRAIN_BATCH} x "
+          f"{TRAIN_SEQ} tokens, f32; CUDA events on {card}): one layer {t:.3f} ms (windows "
+          f"{[round(r, 3) for r in runs]}), x {n_moe} layers = {t * n_moe:.1f} ms of the "
+          f"{wall:.1f} ms step")
+
+
+def train_and_serve(arch, workdir, card, extra=()):
+    """``launch.train.main`` for TRAIN_STEPS steps (f32, AdamW), a step at 2
+    microbatches against 1, one more step profiled (``profile_train_step``),
+    then the saved npz served (``serve_trained``).
+    Returns the launches of the eval step and the generate, summed.
+
+    In a model with MoE layers the microbatch check holds the gradient
+    accumulation at capacity_factor E / k, where no token drops in either
+    step, and with the aux weight at 0.  By the reference's design both
+    differ otherwise: at granite-moe's
+    1.25, 512 tokens share 160 slots per expert and each half of them 80;
+    and the load-balance loss is a product of two batch means (f_e, p_e),
+    so its mean over two halves is not the whole batch's (a 3e-3 relative
+    grad_norm difference on an H100)."""
+    npz = os.path.join(workdir, f"{arch}-trained.npz")
+    out, first, last = train_via_launcher(
+        ["--arch", arch, *extra, "--steps", str(TRAIN_STEPS), "--log-every", "10",
+         "--save", npz], card)
+    check(last < first, f"{arch}: the loss did not fall ({first:.4f} -> {last:.4f})")
+    cfg = out["cfg"]
+    if cfg.moe.num_experts:
+        no_drop = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=cfg.moe.num_experts / cfg.moe.experts_per_token))
+        check_microbatches(out, card, cfg=no_drop, aux_weight=0.0)
+    else:
+        check_microbatches(out, card)
+    profile_train_step(out, card)
+    trained = out["state"]["params"]
+    del out
+    torch.cuda.empty_cache()
+    total = dict.fromkeys(launches(), 0)
+    for counts in serve_trained(cfg, npz, trained, "flash_attention", card):
+        total = {k: total[k] + counts[k] for k in total}
+    del trained
+    torch.cuda.empty_cache()
+    return total
+
+
+def phase_archs(workdir, card):
+    """Phase 13: granite-moe-1b-a400m served (4 x 1024 -> 32) and trained
+    (30 steps, f32) at full width, reduced mixtral-8x7b trained and served,
+    and mistral-nemo-12b, stablelm-12b and granite-20b served at full width
+    (4 x 256 -> 16), one at a time.  Returns every kernel's launches over
+    the phase and the arch table."""
+    t0 = time.perf_counter()
+    total = dict.fromkeys(launches(), 0)
+    table = []
+    total["flash_attention"] += serve_arch(MOE_ARCH, GRANITE_MOE, GEMMA_PROMPT, SERVE_NEW,
+                                           MOE_MAX_LEN, card, table)
+    for arch, extra in ((MOE_ARCH, ()), ("mixtral-8x7b", ("--reduced",))):
+        counts = train_and_serve(arch, workdir, card, extra)
+        total = {k: total[k] + counts[k] for k in total}
+    for arch in DENSE_ARCHS:
+        total["flash_attention"] += serve_arch(arch, get_config(arch), DENSE_PROMPT, DENSE_NEW,
+                                               DENSE_PROMPT + DENSE_NEW, card, table)
+    print(f"[archs] launches over the phase: {total}; {time.perf_counter() - t0:.1f} s on {card}")
+    return total, table
 
 
 def main() -> int:
@@ -3144,9 +3421,9 @@ def main() -> int:
     sk = phase_sketch_timing(sk_row, smi)
     del sk_row
     torch.cuda.empty_cache()
-    fl_inputs, fl_err = phase_flash_checks(gen)
-    fl, fl_lines = phase_flash_timing(fl_inputs, smi)
-    del fl_inputs
+    fl_inputs, fl_hd160, fl_err = phase_flash_checks(gen)
+    fl, fl_lines = phase_flash_timing(fl_inputs, fl_hd160, smi)
+    del fl_inputs, fl_hd160
     rw_inputs, rw_err = phase_rwkv_checks(gen)
     rw, rw_lines = phase_rwkv_timing(rw_inputs, smi)
     del rw_inputs
@@ -3207,14 +3484,12 @@ def main() -> int:
     # the serving path (slice 3), one model at a time, counts reset before each
     # prefill: one launch per layer and generate; decode: one per layer and step
     counts["flash_attention"], fl_routes, _ = phase_serve(
-        "gemma3-1b", GEMMA, GEMMA_PROMPT, SERVE_NEW, GEMMA_MAX_LEN, "flash_attention",
-        GEMMA.num_layers * SERVE_NEW, smi,
-        routes_least={"prefill_tc": GEMMA.num_layers,
-                      "decode": GEMMA.num_layers * (SERVE_NEW - 1)})
+        "gemma3-1b", GEMMA, GEMMA_PROMPT, SERVE_NEW, GEMMA_MAX_LEN, "flash_attention", smi,
+        serve_routes(GEMMA, GEMMA_PROMPT, SERVE_NEW))
+    # two generates: a scan launch per layer each, a step launch per layer and token after
     counts["rwkv6_scan"], rw_routes, _ = phase_serve(
-        "rwkv6-7b", RWKV, RWKV_PROMPT, SERVE_NEW, RWKV_MAX_LEN, "rwkv6_scan",
-        RWKV.num_layers * SERVE_NEW, smi,
-        routes_least={"scan": RWKV.num_layers, "step": RWKV.num_layers * (SERVE_NEW - 1)})
+        "rwkv6-7b", RWKV, RWKV_PROMPT, SERVE_NEW, RWKV_MAX_LEN, "rwkv6_scan", smi,
+        {"scan": 2 * RWKV.num_layers, "step": 2 * RWKV.num_layers * (SERVE_NEW - 1)})
 
     # the routed service (slice 6), counts reset just before it
     with tempfile.TemporaryDirectory(prefix="chip_smoke-") as workdir:
@@ -3262,6 +3537,11 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke-") as workdir:
         lm_train = phase_lm_train(workdir, smi)
     torch.cuda.empty_cache()
+
+    # the MoE family and the dense archs (slice 9), counts reset around each run
+    with tempfile.TemporaryDirectory(prefix="chip_smoke-") as workdir:
+        archs, arch_table = phase_archs(workdir, smi)
+    torch.cuda.empty_cache()
     print(f"[done] {time.perf_counter() - t0:.1f} s after the card check")
 
     def record(name, replaces, err, timing, source=None):
@@ -3292,9 +3572,11 @@ def main() -> int:
         record("row_sketch", "src/repro/kernels/cold_fuse.py:253", sk_err, sk)]
     for rec in fuse_kernels:  # "launches" is phase 7's; the routed phase's beside it
         rec["launches_routed"] = routed[rec["name"]]
-    for rec in fuse_kernels + [flash, rwkv]:  # and phase 11's and 12's
+    for rec in fuse_kernels + [flash, rwkv]:  # and phase 11's, 12's and 13's
         rec["launches_serve_stack"] = served[rec["name"]]
         rec["launches_lm_train"] = lm_train[rec["name"]]
+        rec["launches_archs"] = archs[rec["name"]]
+    print(json.dumps({"archs": arch_table}))
     fuse_kernels[0]["at_gemma3_1b"] = fuse_at_gemma
     print(json.dumps({"kernels": fuse_kernels + [flash, rwkv]}))
     print(nvidia_smi())

@@ -1,13 +1,17 @@
 """Architecture configuration for the PyTorch port.
 
-A copy of ``repro.configs.base`` cut down to what the port's models read:
-the RoBERTa-style encoder and the decoder LM of the serving path (attention
-and RWKV6 mixers; GLU, MLP and RWKV channel-mix FFNs).  The port imports
-nothing from the JAX package.  Field names and defaults are the
-reference's, so a config means the same thing in both.
+A copy of ``repro.configs.base``: every reference arch is described by an
+:class:`ArchConfig`, and the decoder stack is driven by the per-layer
+``BlockCfg`` pattern.  The port imports nothing from the JAX package.
+Field names, defaults and the parameter-count formulas are the
+reference's, so a config means the same thing in both.  The port's models
+run the attention and RWKV6 mixers and the GLU, MLP, MoE and RWKV
+channel-mix FFNs; Mamba mixers, M-RoPE and the encoder-decoder stack are
+described here but not run yet (ROADMAP.md).
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
 from typing import Optional, Tuple
 
@@ -16,19 +20,39 @@ from typing import Optional, Tuple
 class BlockCfg:
     """One block of the layer pattern (mixer + FFN)."""
 
-    mixer: str = "attn"  # "attn" | "rwkv" ("mamba" is not ported)
+    mixer: str = "attn"  # "attn" | "mamba" | "rwkv"
     # Sliding-window size for local attention; None => full (causal) attention.
     window: Optional[int] = None
-    ffn: str = "glu"  # "glu" | "mlp" | "rwkv_cm" ("moe" is not ported)
+    # FFN flavour: "glu" (SwiGLU/GeGLU), "mlp" (plain 2-layer), "moe",
+    # "rwkv_cm" (RWKV channel mix).
+    ffn: str = "glu"
     # Per-layer RoPE theta override (gemma3: 10k local / 1M global); None =>
     # ArchConfig.rope.theta.
     rope_theta: Optional[float] = None
 
 
 @dataclass(frozen=True)
-class SSMCfg:
-    """RWKV6 hyper-parameters (the reference's Mamba fields are not ported)."""
+class MoECfg:
+    num_experts: int = 0
+    experts_per_token: int = 0
+    capacity_factor: float = 1.25
+    # Weight of the auxiliary load-balance loss (Switch/GShard style).
+    aux_loss_weight: float = 0.01
+    # Routing implementation: "gshard" (one-hot dispatch einsum, default) or
+    # "dense" (all experts on all tokens; only for tiny smoke configs).
+    routing: str = "gshard"
 
+
+@dataclass(frozen=True)
+class SSMCfg:
+    """State-space / RWKV hyper-parameters."""
+
+    # Mamba
+    d_state: int = 16
+    d_conv: int = 4
+    expand: int = 2
+    dt_rank: int = 0  # 0 => ceil(d_model / 16)
+    # RWKV6
     head_dim: int = 64
     decay_lora: int = 64  # low-rank size of the data-dependent decay MLP
 
@@ -36,7 +60,9 @@ class SSMCfg:
 @dataclass(frozen=True)
 class RopeCfg:
     theta: float = 10_000.0
-    kind: str = "default"  # "default" | "none" (learned absolute positions)
+    kind: str = "default"  # "default" | "mrope" | "none"
+    # M-RoPE (Qwen2-VL): head_dim is split into (t, h, w) sections.
+    mrope_sections: Tuple[int, ...] = ()
     # Linear position scaling factor.
     scaling: float = 1.0
 
@@ -44,8 +70,8 @@ class RopeCfg:
 @dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str
-    source: str
+    family: str  # dense | moe | vlm | ssm | audio | hybrid | encoder
+    source: str  # citation / model card
 
     num_layers: int = 0
     d_model: int = 0
@@ -59,6 +85,8 @@ class ArchConfig:
     # Per-layer pattern, applied cyclically: layer i uses
     # pattern[i % len(pattern)].
     pattern: Tuple[BlockCfg, ...] = (BlockCfg(),)
+
+    moe: MoECfg = field(default_factory=MoECfg)
     ssm: SSMCfg = field(default_factory=SSMCfg)
     rope: RopeCfg = field(default_factory=RopeCfg)
 
@@ -69,18 +97,34 @@ class ArchConfig:
     logit_softcap: float = 0.0
     # Scale token embeddings by sqrt(d_model) (gemma family).
     scale_embed: bool = False
-    is_encoder_decoder: bool = False
 
+    # --- encoder / encoder-decoder extras -------------------------------
+    is_encoder_decoder: bool = False
+    encoder_layers: int = 0
+    encoder_seq: int = 0  # fixed encoder context (whisper: 1500)
+    # Number of stub modality-embedding tokens prepended for vlm/audio.
+    num_frontend_tokens: int = 0
+
+    # --- numerics / distribution policy ---------------------------------
     param_dtype: str = "bfloat16"
     compute_dtype: str = "bfloat16"
     optimizer: str = "adamw"  # adamw | adafactor | sgd
     # Rematerialise each period in the reference's training scan; the
     # port's train step keeps every activation and carries the field unread.
     remat: bool = True
+    # Microbatches of the reference's train step (0 => from the shape
+    # table) and its FSDP sharding: read by the reference's launchers and
+    # mesh, carried unread by the port (one device; ROADMAP.md A6).
+    microbatches: int = 0
+    fsdp: bool = False
 
     def __post_init__(self):
         if self.head_dim == 0 and self.num_heads:
             object.__setattr__(self, "head_dim", self.d_model // self.num_heads)
+        if self.ssm.dt_rank == 0 and self.d_model:
+            object.__setattr__(
+                self, "ssm", dataclasses.replace(self.ssm, dt_rank=max(1, -(-self.d_model // 16)))
+            )
 
     @property
     def blocks(self) -> Tuple[BlockCfg, ...]:
@@ -92,12 +136,19 @@ class ArchConfig:
     def period(self) -> int:
         return len(self.pattern)
 
+    @property
+    def is_subquadratic(self) -> bool:
+        """True if every layer is windowed attention or an SSM mixer."""
+        return all(b.mixer != "attn" or b.window is not None for b in self.pattern)
+
+    @property
+    def has_decoder(self) -> bool:
+        return True  # every reference arch has a decode path (whisper is enc-dec)
+
     def param_count(self) -> int:
-        """Analytic total parameter count (embeddings included), the
-        reference's formula for the mixers and FFNs the port runs."""
-        if self.is_encoder_decoder:
-            raise NotImplementedError("encoder-decoder archs (whisper) are not ported yet "
-                                      "(ROADMAP.md lists what is left)")
+        """Analytic total parameter count (embeddings included): the
+        reference's formula for every mixer, FFN and the encoder-decoder
+        term."""
         d, f, v = self.d_model, self.d_ff, self.vocab_size
         hd = self.head_dim
         n_q = self.num_heads * hd
@@ -108,24 +159,52 @@ class ArchConfig:
         for b in self.blocks:
             if b.mixer == "attn":
                 total += d * n_q + 2 * d * n_kv + n_q * d
+            elif b.mixer == "mamba":
+                di = self.ssm.expand * d
+                dtr = self.ssm.dt_rank
+                total += d * 2 * di + di * self.ssm.d_conv
+                total += di * (dtr + 2 * self.ssm.d_state) + dtr * di
+                total += di * self.ssm.d_state + di  # A_log, D
+                total += di * d
             elif b.mixer == "rwkv":
                 # r,k,v,g,o projections + low-rank decay/mix
                 total += 5 * d * d + 2 * self.ssm.decay_lora * d * 6
-            else:
-                raise NotImplementedError(f"mixer {b.mixer!r} is not ported yet")
             if b.ffn == "glu":
                 total += 3 * d * f
             elif b.ffn == "mlp":
                 total += 2 * d * f
+            elif b.ffn == "moe":
+                total += self.moe.num_experts * 3 * d * f + d * self.moe.num_experts
             elif b.ffn == "rwkv_cm":
                 total += 2 * d * f + d * d
-            else:
-                raise NotImplementedError(f"ffn {b.ffn!r} is not ported yet")
             total += 2 * d  # two norms
-        return total + d  # final norm
+        total += d  # final norm
+        if self.is_encoder_decoder:
+            # encoder blocks + decoder cross-attention, rough analytic count
+            total += self.encoder_layers * (4 * d * d + 2 * d * f + 2 * d)
+            total += self.num_layers * (4 * d * d + 2 * d)
+        return total
 
     def active_param_count(self) -> int:
-        """Parameters touched per token.  Only MoE archs touch fewer than
-        all of them, and the port has none yet, so this is
-        ``param_count()``."""
-        return self.param_count()
+        """Parameters touched per token (MoE: only top-k experts)."""
+        if self.moe.num_experts == 0:
+            return self.param_count()
+        d, f = self.d_model, self.d_ff
+        dense_total = self.param_count()
+        n_moe_layers = sum(1 for b in self.blocks if b.ffn == "moe")
+        inactive = (self.moe.num_experts - self.moe.experts_per_token) * 3 * d * f
+        return dense_total - n_moe_layers * inactive
+
+
+@dataclass(frozen=True)
+class InputShape:
+    """One entry of the reference's input-shape table."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+    @property
+    def is_decode(self) -> bool:
+        return self.kind == "decode"

@@ -1,7 +1,6 @@
 """RWKV6 "Finch" 7B — attention-free, data-dependent decay time-mix +
 channel-mix FFN.  [arXiv:2404.05892]  Same values as
-``repro.configs.rwkv6_7b`` (its ``fsdp`` field, read only by the
-reference's mesh, is left out)."""
+``repro.configs.rwkv6_7b``."""
 from .base import ArchConfig, BlockCfg, RopeCfg, SSMCfg
 
 CONFIG = ArchConfig(
@@ -22,4 +21,5 @@ CONFIG = ArchConfig(
     norm="layernorm",
     act="relu",
     optimizer="adamw",
+    fsdp=True,
 )

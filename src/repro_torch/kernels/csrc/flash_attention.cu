@@ -39,8 +39,8 @@
 // * Q, K, V tiles are read with 16-byte loads (every load of a thread in
 //   flight at once) and staged in shared memory as f32 (rows padded by one
 //   float so the 4 lanes of a row read different banks): 103 KB at
-//   hd = 256, past the 48 KB default, so the launch raises the dynamic
-//   shared memory limit first.
+//   hd = 256 (66 KB at hd = 160, 40 columns a lane), past the 48 KB
+//   default, so the launch raises the dynamic shared memory limit first.
 // * QK^T and PV are plain FMA loops in the kernel (no library calls).
 
 #include <cuda_runtime.h>
@@ -244,6 +244,9 @@ cudaError_t dispatch(int hd, const void* q, const void* k, const void* v, void* 
     case 128:
       return launch<128, T>(q, k, v, o, B, Sq, Sk, Hq, Hkv, causal, window, q_offset, scale,
                             stream);
+    case 160:
+      return launch<160, T>(q, k, v, o, B, Sq, Sk, Hq, Hkv, causal, window, q_offset, scale,
+                            stream);
     case 256:
       return launch<256, T>(q, k, v, o, B, Sq, Sk, Hq, Hkv, causal, window, q_offset, scale,
                             stream);
@@ -257,7 +260,7 @@ cudaError_t dispatch(int hd, const void* q, const void* k, const void* v, void* 
 extern "C" {
 
 // q [B, Sq, Hq, hd], k/v [B, Sk, Hkv, hd], o like q; all f32, contiguous,
-// 16-byte aligned.  hd in {32, 64, 128, 256}, Hq a multiple of Hkv, B, Sq,
+// 16-byte aligned.  hd in {32, 64, 128, 160, 256}, Hq a multiple of Hkv, B, Sq,
 // Hq >= 1 and Sk >= 0 (the caller checked).  window <= 0 means no window.
 // Returns the first CUDA error of the attribute call or the launch (0 on
 // success).

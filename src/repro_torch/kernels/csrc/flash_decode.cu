@@ -30,18 +30,25 @@
 //   sit in one block, so each K/V byte is read once.  Every lane works on
 //   keys: a key row is read by G lanes, 16 bytes each (G = 32 at hd 256
 //   bf16), 128 / G keys at a time per block, U keys per group in flight.
+//   At hd 160 (= 32 x 5) a row is 16 lanes x 5 loads of 2 elements
+//   (vec_elems): G has to be a power of two for the dot product's
+//   butterfly, and 16-byte loads would leave 4 lanes and 32 key groups,
+//   whose merge buffer overflows static shared memory.
 // * Each group of G lanes runs the online softmax over its keys in f32
 //   registers (m, l, acc per row); the block merges its groups through
 //   shared memory and writes one f32 partial (m, l, acc) per row.
 // * A second small kernel merges the splits of each row by log-sum-exp and
 //   writes o in q's dtype, its loads spread over 1024 threads and issued
-//   before the split weights are known, so that they are in flight together.  A row that sees no key has l = 0 in every
-//   split and writes 0.
+//   before the split weights are known, so that they are in flight
+//   together.  A row that sees no key has l = 0 in every split and writes
+//   0.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -57,41 +64,61 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
-// 16 bytes of T widened to floats
-template <typename T>
-struct Vec16;
+template <int BYTES>
+struct Raw;
 template <>
-struct Vec16<float> {
-  static constexpr int N = 4;
-  __device__ __forceinline__ static void widen(const uint4& x, float* out) {
-    out[0] = __uint_as_float(x.x);
-    out[1] = __uint_as_float(x.y);
-    out[2] = __uint_as_float(x.z);
-    out[3] = __uint_as_float(x.w);
-  }
-};
+struct Raw<16> { using type = uint4; };
 template <>
-struct Vec16<__nv_bfloat16> {
-  static constexpr int N = 8;
-  __device__ __forceinline__ static void widen(const uint4& x, float* out) {
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&x);
+struct Raw<8> { using type = uint2; };
+template <>
+struct Raw<4> { using type = uint32_t; };
+
+// E elements of T in one aligned load (4, 8 or 16 bytes), widened to floats
+template <typename T, int E>
+struct Vec {
+  using raw = typename Raw<E * static_cast<int>(sizeof(T))>::type;
+  __device__ __forceinline__ static void widen(const raw& x, float* out) {
+    if constexpr (std::is_same<T, float>::value) {
+      const float* f = reinterpret_cast<const float*>(&x);
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float2 f = __bfloat1622float2(h[e]);
-      out[2 * e] = f.x;
-      out[2 * e + 1] = f.y;
+      for (int e = 0; e < E; ++e) out[e] = f[e];
+    } else {
+      const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&x);
+#pragma unroll
+      for (int e = 0; e < E / 2; ++e) {
+        const float2 f = __bfloat1622float2(h[e]);
+        out[2 * e] = f.x;
+        out[2 * e + 1] = f.y;
+      }
     }
   }
 };
 
+constexpr int pow2_factor(int n) { return n & -n; }  // the largest power of two dividing n
+
+// Elements per vector load: 16 bytes where a key row is a power-of-two
+// number of them (hd 32-256); 2 elements at hd 160 (= 32 x 5), so that a
+// row spans 16 lanes x 5 vectors and the block's merge buffer (KG x R x HD
+// floats) stays within static shared memory.
+template <int HD, typename T>
+constexpr int vec_elems() {
+  constexpr int e16 = 16 / static_cast<int>(sizeof(T));
+  return (HD / e16) == pow2_factor(HD / e16) ? e16 : 2;
+}
+
 template <int HD, typename T, int R>
 struct DecodeCfg {
-  static constexpr int E = Vec16<T>::N;                  // elements per 16-byte vector
-  static constexpr int G = HD / E < 32 ? HD / E : 32;    // lanes per key row
+  static constexpr int E = vec_elems<HD, T>();           // elements per vector
+  // lanes per key row: a power of two (the dot product's butterfly runs
+  // within them) that divides the row's vectors, at most a warp
+  static constexpr int G = pow2_factor(HD / E) < 32 ? pow2_factor(HD / E) : 32;
   static constexpr int NV = HD / (G * E);                // vectors per lane and row
   static constexpr int W = NV * E;                       // elements per lane and row
   static constexpr int KG = kThreads / G;                // key groups per block
   static constexpr int U = R * W <= 32 ? 4 : 2;          // keys per group in flight
+  static_assert(G * NV * E == HD, "a key row must split evenly over G lanes");
+  static_assert(KG * R * (HD + 2) * 4 <= 48 * 1024,
+                "the merge buffer must fit static shared memory");
 };
 
 template <int HD, typename T, int R>
@@ -102,6 +129,8 @@ flash_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
                           int causal, int window, int q_offset, float scale_log2, int k_lo,
                           int k_hi, int chunk) {
   using C = DecodeCfg<HD, T, R>;
+  using V = Vec<T, C::E>;
+  using raw = typename V::raw;
   constexpr int G = C::G, NV = C::NV, W = C::W, E = C::E, KG = C::KG, U = C::U;
   __shared__ float sm_m[KG][R], sm_l[KG][R];
   __shared__ float sm_acc[KG][R][HD];
@@ -120,7 +149,7 @@ flash_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const T* qr = q + ((static_cast<int64_t>(b) * Sq + r / rep) * Hq + hk * rep + r % rep) * HD;
 #pragma unroll
       for (int i = 0; i < NV; ++i)
-        Vec16<T>::widen(*reinterpret_cast<const uint4*>(qr + (i * G + sub) * E), qv[r] + i * E);
+        V::widen(*reinterpret_cast<const raw*>(qr + (i * G + sub) * E), qv[r] + i * E);
     } else {
 #pragma unroll
       for (int e = 0; e < W; ++e) qv[r][e] = 0.f;
@@ -143,17 +172,17 @@ flash_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // the trip count is the same for every lane, so the shuffles below always
   // run on the whole warp
   for (int base = k_start; base < k_stop; base += KG * U) {
-    uint4 kx[U][NV], vx[U][NV];
+    raw kx[U][NV], vx[U][NV];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       const int j = base + u * KG + grp;
 #pragma unroll
       for (int i = 0; i < NV; ++i) {
         if (j < k_stop) {
-          kx[u][i] = *reinterpret_cast<const uint4*>(kb + j * row_stride + i * G * E);
-          vx[u][i] = *reinterpret_cast<const uint4*>(vb + j * row_stride + i * G * E);
+          kx[u][i] = *reinterpret_cast<const raw*>(kb + j * row_stride + i * G * E);
+          vx[u][i] = *reinterpret_cast<const raw*>(vb + j * row_stride + i * G * E);
         } else {
-          kx[u][i] = vx[u][i] = make_uint4(0u, 0u, 0u, 0u);
+          kx[u][i] = vx[u][i] = raw{};
         }
       }
     }
@@ -163,8 +192,8 @@ flash_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
       float kf[W], vf[W];
 #pragma unroll
       for (int i = 0; i < NV; ++i) {
-        Vec16<T>::widen(kx[u][i], kf + i * E);
-        Vec16<T>::widen(vx[u][i], vf + i * E);
+        V::widen(kx[u][i], kf + i * E);
+        V::widen(vx[u][i], vf + i * E);
       }
 #pragma unroll
       for (int r = 0; r < R; ++r) {
@@ -244,7 +273,9 @@ __device__ __forceinline__ float block_reduce(float x, float* red) {
 // g = tid / hd sums w_s * acc_s for column d = tid % hd over the splits
 // s = g, g + groups, ...  Its first kPrefetch acc values are loaded before
 // the weights w_s = exp2(m_s - M) are known, so every load of the block is
-// in flight at once; then the groups' sums are added.
+// in flight at once; then the groups' sums are added.  Where hd does not
+// divide kCombineThreads (hd 160: 6 groups), the threads past the last
+// whole group only join the block's reductions.
 constexpr int kCombineThreads = 1024;
 constexpr int kPrefetch = 16;
 constexpr int kMaxSplits = 2048;
@@ -260,13 +291,14 @@ flash_decode_combine_kernel(const float* __restrict__ part_ml,
   const int r = blockIdx.x, hk = blockIdx.y, b = blockIdx.z, tid = threadIdx.x;
   const int rep = Hq / Hkv, rows = Sq * rep;
   const int groups = kCombineThreads / hd, g = tid / hd, d = tid % hd;
+  const int mine = g < groups ? n_splits : 0;  // splits this thread's group may read
   const int64_t row0 = (static_cast<int64_t>(b) * Hkv + hk) * n_splits * rows + r;
 
   float pre[kPrefetch];
 #pragma unroll
   for (int i = 0; i < kPrefetch; ++i) {
     const int s = g + i * groups;
-    pre[i] = s < n_splits ? part_acc[(row0 + static_cast<int64_t>(s) * rows) * hd + d] : 0.f;
+    pre[i] = s < mine ? part_acc[(row0 + static_cast<int64_t>(s) * rows) * hd + d] : 0.f;
   }
   float M = kNegInit;
   for (int s = tid; s < n_splits; s += kCombineThreads) {
@@ -288,9 +320,9 @@ flash_decode_combine_kernel(const float* __restrict__ part_ml,
 #pragma unroll
   for (int i = 0; i < kPrefetch; ++i) {
     const int s = g + i * groups;
-    if (s < n_splits) a = fmaf(sm_w[s], pre[i], a);
+    if (s < mine) a = fmaf(sm_w[s], pre[i], a);
   }
-  for (int s = g + kPrefetch * groups; s < n_splits; s += groups)
+  for (int s = g + kPrefetch * groups; s < mine; s += groups)
     a = fmaf(sm_w[s], part_acc[(row0 + static_cast<int64_t>(s) * rows) * hd + d], a);
   sm_sum[tid] = a;
   __syncthreads();
@@ -346,6 +378,7 @@ cudaError_t by_hd(int hd, int rows, const void* q, const void* k, const void* v,
     FLASH_DECODE_HD(32)
     FLASH_DECODE_HD(64)
     FLASH_DECODE_HD(128)
+    FLASH_DECODE_HD(160)
     FLASH_DECODE_HD(256)
     default:
       return cudaErrorInvalidValue;
@@ -359,7 +392,7 @@ extern "C" {
 
 // q [B, Sq, Hq, hd], k/v [B, Sk, Hkv, hd], o like q; all contiguous, 16-byte
 // aligned, of one dtype (is_bf16: bf16, else f32).  hd in {32, 64, 128,
-// 256}, Hq a multiple of Hkv, 1 <= Sq * Hq / Hkv <= 8.  part_ml
+// 160, 256}, Hq a multiple of Hkv, 1 <= Sq * Hq / Hkv <= 8.  part_ml
 // [B, Hkv, n_splits, Sq * Hq / Hkv, 2] and part_acc [..., hd] are f32
 // scratch.  Split s covers keys [k_lo + s * chunk, min(k_lo + (s + 1) *
 // chunk, k_hi)) with k_hi <= Sk.  window <= 0 means no window; scale_log2

@@ -29,11 +29,13 @@
 //   products.  The 1-D grid issues the late (heaviest) q-tiles first.
 // * Q, K and V tiles stay bf16 in shared memory, in 128-byte rows of 64
 //   elements with the 128-byte swizzle that wgmma's descriptors name
-//   (chunk c of row r at chunk c ^ (r % 8)); hd 32 is padded to 64 with
-//   zeros.  K and V tiles (64 keys, 32 at hd 256) arrive by cp.async into
-//   a ring of two stages: tile t + 1 is in flight while tile t is used.
+//   (chunk c of row r at chunk c ^ (r % 8)); hd 32 is padded to 64 and
+//   hd 160 to 192 with zeros.  K and V tiles (64 keys, 32 at hd 160 and
+//   256) arrive by cp.async into a ring of two stages: tile t + 1 is in
+//   flight while tile t is used.  At hd 160 a block holds 74 KB (Q 24 KB,
+//   the K/V ring 48 KB), so two blocks still fit an SM.
 // * S = Q K^T is wgmma m64nBKk16 with both operands K-major in shared
-//   memory; O += P V is wgmma m64n(hd)k16 with P in registers (the S
+//   memory; O += P V is wgmma m64n(padded hd)k16 with P in registers (the S
 //   accumulator's layout is wgmma's A-fragment layout) and V read
 //   transposed (N-major) from the same tiles.  O (64 x hd f32, hd/2
 //   registers a thread) stays in registers for the whole key loop.
@@ -62,8 +64,8 @@ constexpr float kNegInit = -1e30f;
 
 template <int HD>
 struct Cfg {
-  static constexpr int HDP = HD < 64 ? 64 : HD;        // columns held in shared memory
-  static constexpr int BK = HDP == 256 ? 32 : 64;      // keys per tile
+  static constexpr int HDP = (HD + 63) / 64 * 64;      // columns held in shared memory
+  static constexpr int BK = HDP >= 192 ? 32 : 64;      // keys per tile
   static constexpr int Q_BYTES = kBQ * HDP * 2;
   static constexpr int KV_BYTES = BK * HDP * 2;
   // 1024 bytes of slack to align the swizzled tiles to 1024 bytes
@@ -206,6 +208,38 @@ struct Wgmma<128> {
 };
 
 template <>
+struct Wgmma<192> {
+  // D[64 x 192] += A[64 x 16] B[16 x 192], A in registers, B N-major (transposed)
+  // in shared memory (hd 160 padded to 192 columns)
+  static __device__ __forceinline__ void rs(float* d, const uint32_t* a, uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %101, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+        " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+        " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+        " %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+        " %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95}, "
+        "{%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+          "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+          "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+          "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+          "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  }
+};
+
+template <>
 struct Wgmma<256> {
   // D[64 x 256] += A[64 x 16] B[16 x 256], A in registers, B N-major (transposed)
   // in shared memory
@@ -328,7 +362,7 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
     fence_regs(s);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < HDP / 16; ++kk) {
+    for (int kk = 0; kk < (HD + 15) / 16; ++kk) {  // the zero-padded columns add nothing
       const uint32_t col = (kk >> 2), within = (kk & 3) * 32;
       Wgmma<BK>::ss(s, desc_sw128(sQ + col * (kBQ * 128) + within, 16, 1024),
                     desc_sw128(kT + col * (BK * 128) + within, 16, 1024), kk > 0);
@@ -448,7 +482,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, 
 extern "C" {
 
 // q [B, Sq, Hq, hd], k/v [B, Sk, Hkv, hd], o like q; all bf16, contiguous,
-// 16-byte aligned.  hd in {32, 64, 128, 256}, Hq a multiple of Hkv, B, Sq,
+// 16-byte aligned.  hd in {32, 64, 128, 160, 256}, Hq a multiple of Hkv, B, Sq,
 // Hq >= 1 and Sk >= 0 (the caller checked).  window <= 0 means no window;
 // scale_log2 is hd^-0.5 * log2(e).  Returns the first CUDA error of the
 // attribute call or the launch (0 on success).
@@ -467,6 +501,9 @@ int flash_prefill_launch(const void* q, const void* k, const void* v, void* o, i
                         stream);
     case 128:
       return launch<128>(q, k, v, o, B, Sq, Sk, Hq, Hkv, causal, window, q_offset, scale_log2,
+                         stream);
+    case 160:
+      return launch<160>(q, k, v, o, B, Sq, Sk, Hq, Hkv, causal, window, q_offset, scale_log2,
                          stream);
     case 256:
       return launch<256>(q, k, v, o, B, Sq, Sk, Hq, Hkv, causal, window, q_offset, scale_log2,

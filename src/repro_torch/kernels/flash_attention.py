@@ -46,7 +46,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels._launch import COUNT_LOCK, launch_on
 
-HEAD_DIMS = (32, 64, 128, 256)
+HEAD_DIMS = (32, 64, 128, 160, 256)   # 160: stablelm-12b (5120 / 32 heads)
 ROUTES = ("decode", "prefill_tc", "prefill_fma")
 # the decode route takes at most this many query rows per kv head (Sq * Hq / Hkv):
 # they share one block, each lane holding every row's share of q in registers

@@ -6,7 +6,10 @@ without a card it raises unless ``--device cpu`` is given).
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-1b --reduced \\
       --batch 4 --prompt-len 12 --new-tokens 16 --device cpu
 
-``--load`` reads a parameter tree ``.npz`` as either package writes it.
+``--arch`` takes every reference arch; one that needs a block the port
+does not run yet (Mamba, M-RoPE, the encoder-decoder stack) raises
+``NotImplementedError`` naming ROADMAP.md.  ``--load`` reads a parameter
+tree ``.npz`` as either package writes it.
 Random weights and prompts are drawn from ``--seed`` (a torch generator on
 the device for the weights, numpy for the prompts), so they are not the
 reference launcher's draws.
@@ -22,7 +25,7 @@ import torch
 
 from repro_torch.checkpoint import io as ckpt
 from repro_torch.configs import ARCH_IDS, get_config, reduce_config
-from repro_torch.models.transformer import init_lm
+from repro_torch.models.transformer import check_ported, init_lm
 from repro_torch.serve.engine import Engine, GenerationResult
 from repro_torch.utils.device import resolve_device
 
@@ -45,8 +48,7 @@ def main(argv: Optional[Sequence[str]] = None) -> GenerationResult:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduce_config(cfg)
-    if cfg.is_encoder_decoder:
-        raise SystemExit("encoder-decoder archs are not served by this launcher")
+    check_ported(cfg)  # an arch with a block the port lacks raises, naming ROADMAP.md
     device = resolve_device(args.device)
     if args.load:
         params = ckpt.load(args.load, device=device)

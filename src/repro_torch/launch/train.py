@@ -1,9 +1,9 @@
 """End-to-end LM training driver (port of ``repro.launch.train``, one
 device).
 
-Trains an architecture the port runs (full or ``--reduced``) on the
-synthetic token stream with the real train step (microbatching, the
-optimizer from the config, the reference's warmup-cosine schedule) on
+Trains an architecture (full or ``--reduced``) on the synthetic token
+stream with the real train step (microbatching, the optimizer from the
+config, the reference's warmup-cosine schedule) on
 ``--device`` (default ``cuda``; without a card it raises unless
 ``--device cpu`` is given).  Parameters and compute are f32 and ``remat``
 is off, as in the reference's driver.  Weights are drawn from ``--seed`` by
@@ -14,8 +14,10 @@ draws; the token stream is the same.
       --steps 200 --batch 8 --seq 64 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train --arch gemma3-1b --steps 30   # on the card
 
-``--save`` writes the trained parameters as an ``.npz`` that both
-packages' ``checkpoint.io.load`` read.
+``--arch`` takes every reference arch; one that needs a block the port
+does not run yet (Mamba, M-RoPE, the encoder-decoder stack) raises
+``NotImplementedError`` naming ROADMAP.md.  ``--save`` writes the trained
+parameters as an ``.npz`` that both packages' ``checkpoint.io.load`` read.
 """
 from __future__ import annotations
 
@@ -30,7 +32,7 @@ import torch
 from repro_torch.checkpoint import io as ckpt
 from repro_torch.configs import ARCH_IDS, get_config, reduce_config
 from repro_torch.data.synthetic import SyntheticSuite
-from repro_torch.models.transformer import init_lm
+from repro_torch.models.transformer import check_ported, init_lm
 from repro_torch.optim.optimizers import make_optimizer, warmup_cosine_lr
 from repro_torch.train.step import make_train_state, make_train_step
 from repro_torch.utils.device import resolve_device
@@ -75,10 +77,12 @@ def token_stream(cfg, *, steps: int, batch: int, seq: int, seed: int) -> np.ndar
 
 def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     """Train; returns the config, the final state and every step's
-    ``loss``, ``grad_norm`` and wall seconds (each step ends in a read of
-    its loss, so the seconds include the device's work)."""
+    ``loss``, ``aux`` (the MoE load-balance loss), ``grad_norm`` and wall
+    seconds (each step ends in a read of its loss, so the seconds include
+    the device's work)."""
     args = build_parser().parse_args(argv)
     cfg = train_config(args.arch, reduced=args.reduced, seq=args.seq)
+    check_ported(cfg)
     device = resolve_device(args.device)
     print(f"[train] {cfg.name}: ~{cfg.param_count()/1e6:.1f}M params, "
           f"{args.steps} steps x batch {args.batch} x seq {args.seq}")
@@ -88,12 +92,13 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     step = make_train_step(cfg, opt, microbatches=args.microbatches)
     stream = token_stream(cfg, steps=args.steps, batch=args.batch, seq=args.seq, seed=args.seed)
 
-    history: Dict[str, list] = {"loss": [], "grad_norm": [], "step_s": []}
+    history: Dict[str, list] = {"loss": [], "aux": [], "grad_norm": [], "step_s": []}
     t0 = time.time()
     for i in range(args.steps):
         ts = time.perf_counter()
         state, m = step(state, {"tokens": stream[i * args.batch:(i + 1) * args.batch]})
         history["loss"].append(float(m["loss"]))
+        history["aux"].append(float(m["aux"]))
         history["grad_norm"].append(float(m["grad_norm"]))
         history["step_s"].append(time.perf_counter() - ts)
         if (i + 1) % args.log_every == 0 or i == 0:

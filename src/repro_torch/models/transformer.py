@@ -1,8 +1,9 @@
-"""Composable decoder LM (port of ``repro.models.transformer``) for the
-archs the port serves: attention (GQA, optional sliding window, per-layer
-RoPE theta) and RWKV6 mixers; GLU, MLP and RWKV channel-mix FFNs.  The
-reference's ``mamba`` and ``moe`` blocks and its ``extra_embeds`` input are
-not ported yet (ROADMAP.md) and raise ``NotImplementedError``.
+"""Composable decoder LM (port of ``repro.models.transformer``):
+attention (GQA, optional sliding window, per-layer RoPE theta) and RWKV6
+mixers; GLU, MLP, MoE and RWKV channel-mix FFNs.  The reference's
+``mamba`` mixer, M-RoPE, its ``extra_embeds`` input and the
+encoder-decoder stack (whisper) are not ported yet (ROADMAP.md) and raise
+``NotImplementedError`` (``check_ported``).
 
 The parameter tree is the reference's: the full periods of the layer
 pattern are stacked, ``scan/pos{i}`` leaves of shape ``[n_full, ...]``,
@@ -20,12 +21,24 @@ import torch
 
 from repro_torch.configs.base import ArchConfig, BlockCfg
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 from repro_torch.models import rwkv as R
 from repro_torch.utils.device import resolve_device
 from repro_torch.utils.flat import dtype_of
 from repro_torch.utils.pytree import tree_map
 
 _NOT_PORTED = "is not ported yet (ROADMAP.md lists what is left)"
+
+
+def check_ported(cfg: ArchConfig) -> None:
+    """Raise ``NotImplementedError`` naming ROADMAP.md when ``cfg`` needs a
+    block the port does not run yet."""
+    if cfg.is_encoder_decoder:
+        raise NotImplementedError(f"the encoder-decoder stack ({cfg.name}) {_NOT_PORTED}")
+    if cfg.rope.kind == "mrope":
+        raise NotImplementedError(f"rope kind 'mrope' ({cfg.name}) {_NOT_PORTED}")
+    if any(blk.mixer == "mamba" for blk in cfg.pattern):
+        raise NotImplementedError(f"mixer 'mamba' ({cfg.name}) {_NOT_PORTED}")
 
 
 def _init_block(cfg: ArchConfig, blk: BlockCfg, gen, dtype, device) -> Dict[str, Any]:
@@ -47,7 +60,7 @@ def _init_block(cfg: ArchConfig, blk: BlockCfg, gen, dtype, device) -> Dict[str,
     elif blk.ffn == "rwkv_cm":
         p["rwkv_cm"] = R.init_channel_mix(cfg, gen, dtype, device)
     elif blk.ffn == "moe":
-        raise NotImplementedError(f"ffn 'moe' {_NOT_PORTED}")
+        p["moe"] = MOE.init_moe(cfg, gen, dtype, device)
     else:
         raise ValueError(f"unknown ffn {blk.ffn!r}")
     return p
@@ -73,6 +86,7 @@ def init_lm(cfg: ArchConfig, gen: torch.Generator, *, device="cuda") -> Dict[str
     """Random LM drawn from ``gen`` (on the generator's device, then placed
     on ``device``).  Draw order: embed, lm_head (untied only), then the
     layers in order 0..num_layers-1."""
+    check_ported(cfg)
     device = resolve_device(device)
     dtype = dtype_of(cfg.param_dtype)
     n_full, n_tail = split_layers(cfg)
@@ -119,6 +133,7 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=None, *,
     """Zeroed decode state for ``batch`` sequences of up to ``max_len``
     positions, stacked like the parameters.  ``forward_lm`` updates it in
     place."""
+    check_ported(cfg)
     device = resolve_device(device)
     dtype = dtype or dtype_of(cfg.compute_dtype)
     n_full, n_tail = split_layers(cfg)
@@ -167,7 +182,8 @@ def _rope_angles(cfg: ArchConfig, positions, seq: int, batch: int, device):
 
 def _apply_block(cfg: ArchConfig, blk: BlockCfg, p, x, angles, *, cache=None,
                  cache_index=None, q_offset: int, differentiable: bool):
-    """One block; writes its decode state into ``cache`` in place."""
+    """One block: (x, aux loss 0-d f32 or None).  Writes its decode state
+    into ``cache`` in place."""
     h = L.norm_fwd(cfg, p["norm1"], x)
     if blk.mixer == "attn":
         ang = None if angles is None else angles[blk.rope_theta or cfg.rope.theta]
@@ -184,10 +200,13 @@ def _apply_block(cfg: ArchConfig, blk: BlockCfg, p, x, angles, *, cache=None,
         raise NotImplementedError(f"mixer {blk.mixer!r} {_NOT_PORTED}")
     x = x + out
     h2 = L.norm_fwd(cfg, p["norm2"], x)
+    aux = None
     if blk.ffn == "glu":
         f = L.glu_fwd(cfg, p["glu"], h2)
     elif blk.ffn == "mlp":
         f = L.mlp_fwd(cfg, p["mlp"], h2)
+    elif blk.ffn == "moe":
+        f, aux = MOE.moe_fwd(cfg, p["moe"], h2)
     elif blk.ffn == "rwkv_cm":
         last = None if cache is None else cache["cm_shift"]
         f, cm = R.channel_mix_fwd(cfg, p["rwkv_cm"], h2, last=last,
@@ -196,7 +215,7 @@ def _apply_block(cfg: ArchConfig, blk: BlockCfg, p, x, angles, *, cache=None,
             cache["cm_shift"].copy_(cm)
     else:
         raise NotImplementedError(f"ffn {blk.ffn!r} {_NOT_PORTED}")
-    return x + f
+    return x + f, aux
 
 
 def _layers(cfg: ArchConfig, tree):
@@ -219,7 +238,8 @@ def forward_lm(cfg: ArchConfig, params, tokens: torch.Tensor, *,
                cache: Optional[Dict[str, Any]] = None, cache_index: Optional[int] = None,
                differentiable: bool = False):
     """Run the LM: tokens [B, S] -> (logits [B, S, V], aux_loss 0-d f32,
-    cache | None).
+    cache | None).  ``aux_loss`` is the MoE layers' load-balance losses
+    summed (0 without MoE layers).
 
     With ``cache`` the step is incremental: attention attends over the
     cache and RWKV mixers resume their state; ``cache_index`` (an int) is
@@ -241,14 +261,18 @@ def forward_lm(cfg: ArchConfig, params, tokens: torch.Tensor, *,
     q_offset = 0 if cache_index is None else int(cache_index)
 
     caches = None if cache is None else {li: c for li, _, c in _layers(cfg, cache)}
+    aux_total = torch.zeros((), dtype=torch.float32, device=dev)
     for li, blk, p in _layers(cfg, params):
-        x = _apply_block(cfg, blk, p, x, angles, cache=None if caches is None else caches[li],
-                         cache_index=cache_index, q_offset=q_offset,
-                         differentiable=differentiable)
+        x, aux = _apply_block(cfg, blk, p, x, angles,
+                              cache=None if caches is None else caches[li],
+                              cache_index=cache_index, q_offset=q_offset,
+                              differentiable=differentiable)
+        if aux is not None:
+            aux_total = aux_total + aux
 
     x = L.norm_fwd(cfg, params["final_norm"], x)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     logits = x @ head.to(x.dtype)
     if cfg.logit_softcap > 0:
         logits = torch.tanh(logits / cfg.logit_softcap) * cfg.logit_softcap
-    return logits, torch.zeros((), dtype=torch.float32, device=dev), cache
+    return logits, aux_total, cache

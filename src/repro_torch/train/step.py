@@ -6,7 +6,9 @@ function like the reference's: the new parameters and optimizer state are
 new tensors and the old ones are left as they were.  The batch splits into
 ``microbatches`` equal slices of axis 0 whose gradients are summed in f32
 and averaged (what the reference's ``lax.scan`` over microbatches
-computes).  The forward pass of the train step runs with
+computes).  The MoE load-balance loss enters the objective at
+``cfg.moe.aux_loss_weight`` (the reference's default weight) and is reported
+as the metric ``aux``.  The forward pass of the train step runs with
 ``differentiable=True``: the kernels have no backward (the reference has
 none either and trains through XLA), so attention and the RWKV recurrence
 are the plain PyTorch copies of the reference's.  Every inference step
@@ -19,20 +21,10 @@ from typing import Any, Callable, Dict, Optional
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.transformer import forward_lm
+from repro_torch.models.transformer import check_ported, forward_lm
 from repro_torch.optim.optimizers import Optimizer, clip_by_global_norm
 from repro_torch.train.losses import lm_loss
 from repro_torch.utils.pytree import tree_device, tree_leaves, tree_map, tree_unflatten
-
-# The reference's default ``cfg.moe.aux_loss_weight``: it weights the MoE
-# load-balance loss, which is 0 for every arch the port runs (it has no MoE).
-AUX_LOSS_WEIGHT = 0.01
-
-
-def _decoder_only(cfg: ArchConfig) -> None:
-    if cfg.is_encoder_decoder:
-        raise NotImplementedError("encoder-decoder archs (whisper) are not ported yet "
-                                  "(ROADMAP.md lists what is left)")
 
 
 def make_train_state(params, optimizer: Optimizer) -> Dict[str, Any]:
@@ -51,7 +43,7 @@ def _lm_loss_fn(cfg: ArchConfig, params, batch, aux_weight: float, *, differenti
                                 extra_embeds=batch.get("extra_embeds"),
                                 differentiable=differentiable)
     loss = lm_loss(logits, batch["tokens"], batch.get("mask"))
-    return loss + aux_weight * aux, loss
+    return loss + aux_weight * aux, loss, aux
 
 
 def make_train_step(cfg: ArchConfig, optimizer: Optimizer, *, microbatches: int = 1,
@@ -59,29 +51,32 @@ def make_train_step(cfg: ArchConfig, optimizer: Optimizer, *, microbatches: int 
                     grad_sync: Optional[Callable] = None, grad_shardings=None) -> Callable:
     """Build the train step: the gradient of ``lm_loss`` (accumulated over
     ``microbatches``), ``grad_sync``, ``clip_by_global_norm(clip_norm)``,
-    then ``optimizer.update``; metrics ``loss`` and ``grad_norm`` (the norm
-    before clipping), 0-d f32 tensors.
+    then ``optimizer.update``; metrics ``loss``, ``aux`` (the MoE
+    load-balance loss, 0 without MoE layers; weighted by ``aux_weight``,
+    default ``cfg.moe.aux_loss_weight``, in the objective) and
+    ``grad_norm`` (the norm before clipping), 0-d f32 tensors; ``loss`` and
+    ``aux`` are means over the microbatches.
 
     ``grad_sync(grads) -> grads``: the hook a distribution strategy uses to
     reduce gradients across devices; identity by default.
     ``grad_shardings`` pins the reference's gradient accumulator to a mesh
     layout and waits for the multi-device slice (ROADMAP.md A6)."""
-    _decoder_only(cfg)
+    check_ported(cfg)
     if grad_shardings is not None:
         raise NotImplementedError("make_train_step(grad_shardings=) needs a device mesh, which "
                                   "is not ported yet (ROADMAP.md A6)")
     if microbatches < 1:
         raise ValueError(f"microbatches must be >= 1; got {microbatches}")
-    aux_w = AUX_LOSS_WEIGHT if aux_weight is None else aux_weight
+    aux_w = cfg.moe.aux_loss_weight if aux_weight is None else aux_weight
 
     def grads_of(params, leaves, batch):
-        """(loss, gradient per leaf) on one (micro)batch."""
+        """(loss, aux, gradient per leaf) on one (micro)batch."""
         with torch.enable_grad():
             live = [x.detach().requires_grad_(True) for x in leaves]
-            total, loss = _lm_loss_fn(cfg, tree_unflatten(params, live), batch, aux_w,
-                                      differentiable=True)
+            total, loss, aux = _lm_loss_fn(cfg, tree_unflatten(params, live), batch, aux_w,
+                                           differentiable=True)
             grads = torch.autograd.grad(total, live)
-        return loss.detach(), grads
+        return loss.detach(), aux.detach(), grads
 
     @torch.no_grad()
     def train_step(state, batch):
@@ -96,23 +91,26 @@ def make_train_step(cfg: ArchConfig, optimizer: Optimizer, *, microbatches: int 
             mb = B // microbatches
             gacc = [torch.zeros_like(x, dtype=torch.float32) for x in leaves]
             loss_sum = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
+            aux_sum = torch.zeros_like(loss_sum)
             for i in range(microbatches):
-                loss, grads = grads_of(params, leaves,
-                                       {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()})
+                loss, aux, grads = grads_of(params, leaves,
+                                            {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()})
                 for acc, g in zip(gacc, grads):
                     acc.add_(g)
                 loss_sum += loss
+                aux_sum += aux
             grads = [g / microbatches for g in gacc]
-            loss = loss_sum / microbatches
+            loss, aux = loss_sum / microbatches, aux_sum / microbatches
         else:
-            loss, grads = grads_of(params, leaves, batch)
+            loss, aux, grads = grads_of(params, leaves, batch)
         grads = tree_unflatten(params, grads)
         if grad_sync is not None:
             grads = grad_sync(grads)
         grads, gnorm = clip_by_global_norm(grads, clip_norm)
         updates, new_opt = optimizer.update(grads, state["opt"], params)
         new_params = tree_map(torch.add, params, updates)
-        return {"params": new_params, "opt": new_opt}, {"loss": loss, "grad_norm": gnorm}
+        return {"params": new_params, "opt": new_opt}, {"loss": loss, "aux": aux,
+                                                        "grad_norm": gnorm}
 
     return train_step
 
@@ -120,11 +118,11 @@ def make_train_step(cfg: ArchConfig, optimizer: Optimizer, *, microbatches: int 
 def make_eval_step(cfg: ArchConfig) -> Callable:
     """``(params, batch) -> loss``: ``lm_loss`` of the batch (plus the aux
     loss at weight 0), computed on the kernels without gradients."""
-    _decoder_only(cfg)
+    check_ported(cfg)
 
     @torch.no_grad()
     def eval_step(params, batch):
-        total, _ = _lm_loss_fn(cfg, params, _on_device(batch, tree_device(params)), 0.0,
+        total, _, _ = _lm_loss_fn(cfg, params, _on_device(batch, tree_device(params)), 0.0,
                                differentiable=False)
         return total
 
@@ -134,7 +132,7 @@ def make_eval_step(cfg: ArchConfig) -> Callable:
 def make_prefill_step(cfg: ArchConfig) -> Callable:
     """Forward pass of the full prompt, no cache: ``(params, batch) ->
     last-position logits [B, V]`` (the next-token distribution)."""
-    _decoder_only(cfg)
+    check_ported(cfg)
 
     def prefill_step(params, batch):
         logits, _, _ = forward_lm(cfg, params, batch["tokens"], positions=batch.get("positions"),
@@ -148,7 +146,7 @@ def make_serve_step(cfg: ArchConfig) -> Callable:
     """One decode step against a KV/state cache: ``(params, cache, tokens
     [B, 1], cache_index) -> (logits [B, V], cache)``; the cache is updated
     in place and returned."""
-    _decoder_only(cfg)
+    check_ported(cfg)
 
     def serve_step(params, cache, tokens, cache_index):
         logits, _, cache = forward_lm(cfg, params, tokens, cache=cache, cache_index=cache_index)

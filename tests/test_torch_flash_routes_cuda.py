@@ -121,3 +121,37 @@ def test_decode_combine_is_counted_on_its_own():
     assert tfa.flash_attention.launches == 1
     assert tfa.flash_attention.launches_by_route == {"decode": 1, "prefill_tc": 0,
                                                      "prefill_fma": 0, "decode_combine": 1}
+
+
+# head_dim 160 (stablelm-12b): prefill_tc pads it to 192 columns in shared
+# memory, decode reads a key row as 16 lanes x 5 loads of 2 elements
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,causal,window,q_offset", [
+    (4, 256, 272, 32, 8, True, None, 0),      # stablelm-12b's prefill shape
+    (2, 77, 133, 8, 2, True, None, 56),       # ragged, GQA 4
+    (1, 90, 130, 4, 1, True, 17, 30),         # windowed, q_offset
+    (2, 65, 65, 4, 4, False, None, 0),        # bidirectional
+    (1, 40, 64, 4, 1, True, 8, 66),           # rows 6.. see no key
+])
+@pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "prefill_tc"),
+                                         (torch.float32, "prefill_fma")])
+def test_hd160_prefill_matches_plain(B, Sq, Sk, Hq, Hkv, causal, window, q_offset, dtype,
+                                     route):
+    got = _run(B, Sq, Sk, Hq, Hkv, 160, dtype, causal, window, q_offset, route)
+    if q_offset == 66:
+        assert bool((got[:, 6:] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,window,q_offset", [
+    (4, 1, 272, 32, 8, None, 256),            # stablelm-12b's decode step
+    (2, 1, 700, 8, 1, None, 650),             # 8 rows on one kv head
+    (1, 2, 90, 4, 1, 16, 80),                 # 2 tokens x 4 rows
+    (1, 1, 1000, 2, 2, 333, 998),             # split edges off any tile
+    (2, 1, 64, 4, 1, 8, 100),                 # sees no key
+])
+def test_hd160_decode_matches_plain(B, Sq, Sk, Hq, Hkv, window, q_offset, dtype):
+    got = _run(B, Sq, Sk, Hq, Hkv, 160, dtype, True, window, q_offset, "decode")
+    if q_offset == 100:
+        assert bool((got == 0).all())

@@ -144,7 +144,7 @@ def test_config_fields_match_jax():
         from repro_torch.configs import roberta_base as trb
         jc, tc = getattr(jrb, name), getattr(trb, name)
         for f in dataclasses.fields(tbase.ArchConfig):
-            if f.name in ("pattern", "rope", "ssm"):
+            if f.name in ("pattern", "rope", "ssm", "moe"):  # each package's own classes
                 continue
             assert getattr(tc, f.name) == getattr(jc, f.name), (name, f.name)
         assert [dataclasses.astuple(b) for b in tc.pattern] == \
@@ -152,6 +152,8 @@ def test_config_fields_match_jax():
         assert (tc.rope.kind, tc.rope.theta, tc.rope.scaling) == \
             (jc.rope.kind, jc.rope.theta, jc.rope.scaling)
         assert (tc.ssm.head_dim, tc.ssm.decay_lora) == (jc.ssm.head_dim, jc.ssm.decay_lora)
+        assert dataclasses.asdict(tc.ssm) == dataclasses.asdict(jc.ssm)
+        assert dataclasses.asdict(tc.moe) == dataclasses.asdict(jc.moe)
     assert TINY.param_dtype == "float32"
 
 
