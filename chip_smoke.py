@@ -28,7 +28,9 @@ Phases (any failed check raises, so the script exits non-zero):
    none), at decode (Sq=1, q_offset 1100, bf16 and f32), at stablelm-12b's
    head_dim 160 (B=4, Sq=256, Sk=272, 32 query heads on 8 kv heads: bf16
    prefill on the tensor-core route, f32 prefill on the FMA route, decode at
-   q_offset 256 in both), in f32 and bf16 at hd 32-256 with ragged lengths
+   q_offset 256 in both), at granite-moe-1b-a400m's (B=4, Sq=1024, Sk=1056,
+   16 query heads on 8 kv heads, hd 64, bf16: prefill, and decode at
+   q_offset 1024 and 1055), in f32 and bf16 at hd 32-256 with ragged lengths
    (hd 160 among them), and with
    rows that see no key, each call checked to take its route; ``rwkv6_scan`` at
    rwkv6-7b's prefill shape (B=4, T=256, H=64, hd=64, f32, logw down to
@@ -169,8 +171,7 @@ Phases (any failed check raises, so the script exits non-zero):
    tokens at the launcher's defaults and saves the params; every loss and
    grad_norm must be finite and the mean loss of the last 5 steps below
    that of the first 5; one more step at 2 microbatches must equal the same
-   step at 1 (``MB_RTOL``, ``MB_ATOL``), and one more runs under
-   ``torch.profiler`` (``profile_train_step``).  The saved npz is loaded back
+   step at 1 (``MB_RTOL``, ``MB_ATOL``).  The saved npz is loaded back
    (equal to the trained tree), the eval step and an ``Engine`` (4 x 64 ->
    8) run over it, with ``flash_attention``'s launches exact by route (the
    eval step: ``prefill_fma`` 26; generate: ``prefill_fma`` 26, ``decode``
@@ -190,15 +191,19 @@ Phases (any failed check raises, so the script exits non-zero):
    ``Engine.generate``, 4 x 1024 -> 32, cache 1056), with
    ``flash_attention``'s launches exact by route (``serve_routes``:
    ``prefill_tc`` 48, ``decode`` 1,488), the profile, the MoE FFN alone timed
-   per layer at prefill and decode, and the teacher-forced comparison with
-   the plain versions, whose rule holds at the positions where no MoE
-   routing decision differs from the plain run (``serve_agreement``; the
-   differing decisions are counted per layer and printed).  Then
+   per layer at prefill and decode in its gshard routing and in the sort
+   routing (held to 4 bf16 ulps of gshard's output), and the teacher-forced
+   comparison with the plain versions, whose runs replay the kernel run's
+   routing so that phase 9's rule holds at every position
+   (``serve_agreement``; the decisions they would have taken otherwise
+   are counted per layer and printed).  Then
    granite-moe trained at full width in f32 through ``launch.train.main``
    (30 steps of 8 x 64, every loss, aux and grad_norm finite, the loss
    falling), a step at 2 microbatches against 1 at capacity E / k with the
    aux weight at 0 (``train_and_serve`` says why), one more step profiled
-   beside the MoE's forward and backward alone, and the saved npz served
+   and split by CUDA events into the gradient and the update
+   (``profile_train_step``) beside the MoE's forward and backward alone,
+   and the saved npz served
    with exact launches (eval ``prefill_fma`` 24; generate ``prefill_fma`` 24,
    ``decode`` 168); the same for reduced mixtral-8x7b (46.7 B parameters,
    93 GB in bf16, exceed the card); then mistral-nemo-12b, stablelm-12b (hd
@@ -345,6 +350,14 @@ DENSE_PROMPT, DENSE_NEW = 256, 16
 STABLELM = get_config("stablelm-12b")
 FLASH_HD160 = (4, DENSE_PROMPT, DENSE_PROMPT + DENSE_NEW, STABLELM.num_heads,
                STABLELM.num_kv_heads, STABLELM.head_dim)
+# granite-moe-1b-a400m served in phase 13 as gemma3-1b is in phase 9 (hd 64,
+# 16 query heads on 8 kv heads: two decode rows per kv head); its prefill
+# and decode shapes are held in phase 3 too
+MOE_ARCH = "granite-moe-1b-a400m"
+GRANITE_MOE = get_config(MOE_ARCH)
+MOE_MAX_LEN = GEMMA_PROMPT + SERVE_NEW
+FLASH_MOE = (4, GEMMA_PROMPT, MOE_MAX_LEN, GRANITE_MOE.num_heads, GRANITE_MOE.num_kv_heads,
+             GRANITE_MOE.head_dim)
 RWKV_PREFILL = (4, RWKV_PROMPT, RWKV.d_model // RWKV.ssm.head_dim, RWKV.ssm.head_dim)
 # the fuse-to-serve stack (phase 11) on gemma3-1b at full width: K_SWAP
 # contributors submit the base plus SWAP_NOISE x N(0, 1) per leaf; SCHED_N
@@ -2064,6 +2077,24 @@ def phase_flash_checks(gen):
         print(f"[check] flash_attention vs plain, stablelm-12b decode Sq=1 q_offset={Sq} "
               f"Sk={Sk} hd={hd} {str(dtype)[6:]}, route decode: max|d| {e:.3g} (bound {bound})")
         hd160[dtype] = (qq, kk, vv)
+    B, Sq, Sk, Hq, Hkv, hd = FLASH_MOE
+    qm, km, vm = qkv_on_card(B, Sq, Sk, Hq, Hkv, hd, torch.bfloat16, gen)
+    bound = "1 bf16 ulp + 2e-5 x max(1, max|o|)"
+    e = bf16_close(flash_routed("prefill_tc", qm, km, vm, causal=True),
+                   flash_attention_plain(qm, km, vm, causal=True), "flash granite-moe prefill")
+    worst = max(worst, e)
+    print(f"[check] flash_attention vs plain, granite-moe prefill B={B} Sq={Sq} Sk={Sk} Hq={Hq} "
+          f"Hkv={Hkv} hd={hd} bf16, route prefill_tc: max|d| {e:.3g} (bound {bound})")
+    for off in (Sq, Sk - 1):
+        qd = qm[:, :1].contiguous()
+        e = bf16_close(flash_routed("decode", qd, km, vm, causal=True, q_offset=off),
+                       flash_attention_plain(qd, km, vm, causal=True, q_offset=off),
+                       f"flash granite-moe decode q_offset={off}")
+        worst = max(worst, e)
+        print(f"[check] flash_attention vs plain, granite-moe decode Sq=1 q_offset={off} "
+              f"Sk={Sk} Hq={Hq} Hkv={Hkv} hd={hd} bf16, route decode: max|d| {e:.3g} "
+              f"(bound {bound})")
+    del qm, km, vm
     for (b, sq, sk, hq, hkv, d, causal, window, off) in (
             (2, 96, 160, 4, 1, 256, True, 64, 0), (2, 77, 133, 8, 2, 64, True, None, 56),
             (2, 70, 111, 8, 2, 160, True, 33, 41),
@@ -2504,9 +2535,24 @@ def moe_timing(arch, cfg, params, prompt_len, pre_ms, dec_ms, n_layers, card):
     g = torch.Generator(device=dev).manual_seed(3)
     h = torch.randn((4, prompt_len, cfg.d_model), generator=g, device=dev).to(p0["router"].dtype)
     hd = h[:, :1].contiguous()
+    srt = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, routing="sort"))
     with torch.inference_mode():
         t_pre, runs_pre = median_windows(lambda: moe_mod.moe_fwd(cfg, p0, h), iters=3, warmup=1)
         t_dec, runs_dec = median_windows(lambda: moe_mod.moe_fwd(cfg, p0, hd), iters=20)
+        s_pre, s_runs = median_windows(lambda: moe_mod.moe_fwd(srt, p0, h), iters=3, warmup=1)
+        s_dec, _ = median_windows(lambda: moe_mod.moe_fwd(srt, p0, hd), iters=20)
+        # the same semantics (capacity, drops) by gathers; gshard's combine
+        # product may reduce split-K partials in bf16 (PyTorch's default for
+        # bf16 GEMMs), so within 4 bf16 ulps of the larger side
+        got = moe_mod.moe_fwd(srt, p0, h)[0].float()
+        want = moe_mod.moe_fwd(cfg, p0, h)[0].float()
+        err = (got - want).abs()
+        e = err.max().item()
+        check(bool(torch.isfinite(got).all()) and bool(
+            (err <= 4 * bf16_ulp(torch.maximum(got.abs(), want.abs()))
+             + 2e-5 * max(1.0, want.abs().max().item())).all()),
+            f"{arch} MoE sort routing vs {cfg.moe.routing}: max|d| {e:.3g} over 4 bf16 ulps")
+        del got, want, err
     E, K = cfg.moe.num_experts, cfg.moe.experts_per_token
     T = 4 * prompt_len
     cap = max(int(cfg.moe.capacity_factor * T * K / E), K)
@@ -2520,47 +2566,75 @@ def moe_timing(arch, cfg, params, prompt_len, pre_ms, dec_ms, n_layers, card):
           f"{n_layers} layers = {t_pre * n_layers:.2f} ms of the {pre_ms:.2f} ms prefill; at a "
           f"decode step (4 tokens) {t_dec:.4f} ms, x {n_layers} = {t_dec * n_layers:.2f} ms of "
           f"the {dec_ms:.2f} ms step")
+    print(f"[profile] {arch} MoE FFN alone, the sort routing (REPRO_OPT_MOE_SORT's gathers in "
+          f"place of the one-hot products; CUDA events on {card}): one layer at prefill "
+          f"{s_pre:.3f} ms (windows {[round(r, 3) for r in s_runs]}), at a decode step "
+          f"{s_dec:.4f} ms; its output vs {cfg.moe.routing}'s max|d| {e:.3g} (bound 4 bf16 ulps "
+          "+ 2e-5 x max(1, max|o|))")
 
 
-class route_log:
-    """Inside the block every MoE router call's top-k experts (as a sorted
-    set per token) are kept in call order."""
+class route_replay:
+    """Inside the block every MoE router call goes through here, in call
+    order.  Without ``fixed`` each call's top-k experts are recorded
+    (``calls``); with the list of an earlier run each call routes to that
+    run's experts instead of its own top-k, weighted by its own
+    probabilities renormalized over them, and the calls where its own
+    choice (as a set) differs are counted (``flips``).  So two runs route
+    the same way and their outputs differ only by the arithmetic."""
+
+    def __init__(self, fixed=None):
+        self.fixed, self.calls, self.flips = fixed, [], []
 
     def __enter__(self):
-        self.saved, self.calls = moe_mod._router, []
+        self.saved = moe_mod._router
 
-        def rec(cfg, p, x):
-            out = self.saved(cfg, p, x)
-            self.calls.append(torch.sort(out[1], dim=-1).values)
-            return out
+        def route(cfg, p, x):
+            probs, idx, w = self.saved(cfg, p, x)
+            if self.fixed is None:
+                self.calls.append(idx)
+                return probs, idx, w
+            want = self.fixed[len(self.flips)]
+            self.flips.append((torch.sort(idx, -1).values
+                               != torch.sort(want, -1).values).any(-1).sum())
+            w = probs.gather(1, want)
+            return probs, want, w / w.sum(-1, keepdim=True)
 
-        moe_mod._router = rec
+        moe_mod._router = route
         return self
 
     def __exit__(self, *exc):
         moe_mod._router = self.saved
+        if self.fixed is not None and exc[0] is None:
+            check(len(self.flips) == len(self.fixed), f"route replay: {len(self.flips)} router "
+                  f"calls, {len(self.fixed)} recorded")
+
+    def per_layer(self, n_layers):
+        """Differing decisions summed per layer (calls cycle through the layers)."""
+        return torch.stack(self.flips).reshape(-1, n_layers).sum(0).tolist()
 
 
-def routing_flips(a, b, n_layers, B, P):
-    """Positions where a routing decision differs between two teacher-forced
-    runs: ([B, P] over the prompt, [B, n - 1] over the decode steps), and the
-    count of differing (token, layer) decisions per layer."""
-    diff = [(x != y).any(-1) for x, y in zip(a.calls, b.calls)]
-    pre = torch.stack(diff[:n_layers]).reshape(n_layers, B, P)
-    dec = torch.stack(diff[n_layers:]).reshape(-1, n_layers, B)
-    return pre.any(0), dec.any(1).T, (pre.sum((1, 2)) + dec.sum((0, 2))).tolist()
-
-
-def masked_diff(a, b, keep):
-    """(max |a - b|, mean |a - b|) over the logits of the positions where
-    ``keep`` [B, S] holds, row by row in f32."""
+def logit_diff(a, b):
+    """(max |a - b|, mean |a - b|) over bf16 logits, in f32, row by row."""
     mx, tot, n = 0.0, 0.0, 0
     for i in range(a.shape[0]):
-        d = (a[i].float() - b[i].float()).abs()[keep[i]]
-        if d.numel():
-            mx, tot, n = max(mx, d.max().item()), tot + d.sum().item(), n + d.numel()
+        d = (a[i].float() - b[i].float()).abs()
+        mx, tot, n = max(mx, d.max().item()), tot + d.sum().item(), n + d.numel()
         del d
-    return mx, tot / max(n, 1)
+    return mx, tot / n
+
+
+def logits_agreement(kern, plain, floor, what):
+    """Kernel-path logits against the plain path's: max and mean |d| must
+    stay within 4x those between the plain path and its nudged run
+    (``floor``), the spread that rounding the same f32 values to bf16 at a
+    different last bit produces through the whole model."""
+    check(bool(torch.isfinite(kern).all()), f"{what}: logits not finite")
+    mx, mean = logit_diff(kern, plain)
+    check(mx <= 4 * floor[0], f"{what}: max|d| {mx:.3g} > 4 x the nudged plain run's "
+          f"{floor[0]:.3g}")
+    check(mean <= 4 * floor[1], f"{what}: mean|d| {mean:.3g} > 4 x the nudged plain run's "
+          f"{floor[1]:.3g}")
+    return mx, mean
 
 
 def serve_agreement(arch, cfg, params, prompts, gen_k, max_len):
@@ -2569,60 +2643,40 @@ def serve_agreement(arch, cfg, params, prompts, gen_k, max_len):
     plain path and its nudged run, and greedy tokens equal wherever the
     plain path's top-2 margin exceeds twice the logit difference.  In a
     model with MoE layers a last-bit difference in attention can flip a
-    near-tied top-k choice and move that token's output by O(1): the rule
-    then holds at the positions where no routing decision differs from the
-    plain run (the floor at those where the nudged run's do not), and a
-    flipped position is held to finite logits only."""
-    B, P = prompts.shape
-    moe = any(b.ffn == "moe" for b in cfg.blocks)
-    with route_log() as log_k:
+    near-tied top-k choice and move that token's output by O(1), so the
+    plain and nudged runs replay the kernel run's routing
+    (``route_replay``) and the rule holds at every position; the decisions
+    each would have taken otherwise are counted per layer and printed."""
+    with route_replay() as rec:
         pre_k, dec_k = teacher_forced(cfg, params, prompts, gen_k, max_len)
     check(np.array_equal(torch.argmax(torch.cat([pre_k[:, -1:], dec_k], 1), -1).cpu().numpy(),
                          gen_k), "teacher-forced kernel path must repeat Engine.generate")
-    with plain_kernels(), route_log() as log_p:
+    with plain_kernels(), route_replay(rec.calls) as rep_p:
         pre_p, dec_p = teacher_forced(cfg, params, prompts, gen_k, max_len)
-    with plain_kernels(nudge=NUDGE), route_log() as log_n:
+    with plain_kernels(nudge=NUDGE), route_replay(rec.calls) as rep_n:
         pre_n, dec_n = teacher_forced(cfg, params, prompts, gen_k, max_len)
-    dev = pre_k.device
-    keep_pre = torch.ones((B, P), dtype=torch.bool, device=dev)
-    keep_dec = torch.ones(dec_k.shape[:2], dtype=torch.bool, device=dev)
-    floor_keep = (keep_pre, keep_dec)
-    flips = ""
-    if moe:
-        L = cfg.num_layers
-        f_pre, f_dec, per_layer = routing_flips(log_k, log_p, L, B, P)
-        n_pre, n_dec, n_layer = routing_flips(log_n, log_p, L, B, P)
-        keep_pre, keep_dec, floor_keep = ~f_pre, ~f_dec, (~n_pre, ~n_dec)
-        decisions = len(log_k.calls[0]) + (len(log_k.calls) - L) * B // L
-        flips = (f"; MoE routing decisions that differ from the plain run, per layer "
-                 f"{per_layer} ({sum(per_layer)} of {decisions * L}), flipped positions "
-                 f"{int(f_pre.sum())}/{f_pre.numel()} (prefill) and {int(f_dec.sum())}/"
-                 f"{f_dec.numel()} (decode), held to finite logits only; the nudged run flips "
-                 f"{int(n_pre.sum())} and {int(n_dec.sum())} (per layer {n_layer}), left out of "
-                 "its floor")
-    floor_pre = masked_diff(pre_n, pre_p, floor_keep[0])
-    floor_dec = masked_diff(dec_n, dec_p, floor_keep[1])
+    floor_pre, floor_dec = logit_diff(pre_n, pre_p), logit_diff(dec_n, dec_p)
     del pre_n, dec_n
-    check(bool(torch.isfinite(pre_k).all()) and bool(torch.isfinite(dec_k).all()),
-          f"{arch}: logits not finite")
-    a_pre = masked_diff(pre_k, pre_p, keep_pre)
-    a_dec = masked_diff(dec_k, dec_p, keep_dec)
-    for what, a, floor in (("prefill", a_pre, floor_pre), ("decode", a_dec, floor_dec)):
-        check(a[0] <= 4 * floor[0], f"{arch} {what} logits: max|d| {a[0]:.3g} > 4 x the nudged "
-              f"plain run's {floor[0]:.3g}")
-        check(a[1] <= 4 * floor[1], f"{arch} {what} logits: mean|d| {a[1]:.3g} > 4 x the "
-              f"nudged plain run's {floor[1]:.3g}")
+    a_pre = logits_agreement(pre_k, pre_p, floor_pre, f"{arch} prefill logits")
+    a_dec = logits_agreement(dec_k, dec_p, floor_dec, f"{arch} decode logits")
     mean_logit = pre_p[:, -1].float().abs().mean().item()
     steps_k = torch.cat([pre_k[:, -1:], dec_k], 1).float()
     steps_p = torch.cat([pre_p[:, -1:], dec_p], 1).float()
-    keep_step = torch.cat([keep_pre[:, -1:], keep_dec], 1).cpu().numpy()
     d_step = (steps_k - steps_p).abs().amax(-1)            # [B, n]
     top2 = torch.topk(steps_p, 2, dim=-1)
     margin = top2.values[..., 0] - top2.values[..., 1]
-    dec_np = (margin > 2 * d_step).cpu().numpy() & keep_step
+    dec_np = (margin > 2 * d_step).cpu().numpy()
     agree = top2.indices[..., 0].cpu().numpy() == gen_k
     check(bool(agree[dec_np].all()), f"{arch}: greedy tokens differ from the plain path where "
           "its top-2 margin exceeds twice the logit difference")
+    flips = ""
+    if rec.calls:
+        L = cfg.num_layers
+        per_layer, nudged = rep_p.per_layer(L), rep_n.per_layer(L)
+        decisions = sum(c.shape[0] for c in rec.calls)
+        flips = (f"; the plain and nudged runs replay the kernel run's MoE routing: their own "
+                 f"top-k would differ at {sum(per_layer)} and {sum(nudged)} of {decisions} "
+                 f"(token, layer) decisions, per layer {per_layer} (plain)")
     print(f"[serve] {arch} kernel vs plain (teacher-forced): prefill logits max|d| {a_pre[0]:.4g} "
           f"mean|d| {a_pre[1]:.3g}, decode logits max|d| {a_dec[0]:.4g} mean|d| {a_dec[1]:.3g} "
           f"(mean |logit| {mean_logit:.3g}); the plain path nudged by {NUDGE:g} moves them by "
@@ -3254,9 +3308,6 @@ def phase_lm_train(workdir, card):
 # slice 9: the MoE family and the dense archs (phase 13)
 # ---------------------------------------------------------------------------
 
-MOE_ARCH = "granite-moe-1b-a400m"
-GRANITE_MOE = get_config(MOE_ARCH)
-MOE_MAX_LEN = GEMMA_PROMPT + SERVE_NEW
 DENSE_ARCHS = ("mistral-nemo-12b", "stablelm-12b", "granite-20b")
 
 
@@ -3292,11 +3343,13 @@ def serve_arch(arch, cfg, prompt_len, new_tokens, max_len, card, table):
 
 
 def profile_train_step(out, card):
-    """One more train step from the trained state under ``torch.profiler``
-    (the kernels' device time against the launcher's median step), and in
-    a model with MoE layers one layer's MoE forward and backward alone
-    (CUDA events, at the step's 8 x 64 tokens in f32, on the first MoE
-    layer's trained weights and a unit-scale input)."""
+    """For a model with MoE layers: one more train step from the trained
+    state under ``torch.profiler`` (the kernels' device time against the
+    launcher's median step); the step split by CUDA events at
+    ``grad_sync`` into the gradient (forward and backward) and what
+    follows it (clipping, the optimizer's update, the add); and one
+    layer's MoE forward and backward alone (at the step's 8 x 64 tokens in
+    f32, on the first MoE layer's trained weights and a unit-scale input)."""
     cfg, state = out["cfg"], out["state"]
     opt = make_optimizer(cfg.optimizer, warmup_cosine_lr(TRAIN_LR, 20, TRAIN_STEPS))
     step = make_train_step(cfg, opt)
@@ -3305,9 +3358,27 @@ def profile_train_step(out, card):
     wall = float(np.median(out["step_s"][1:])) * 1e3
     print_split(cfg.name, f"a train step ({TRAIN_BATCH} x {TRAIN_SEQ}, f32)", wall,
                 device_split(lambda: step(state, batch)))
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+
+    def mark(grads):
+        ev[1].record()
+        return grads
+
+    marked = make_train_step(cfg, opt, grad_sync=mark)
+    split = []
+    for _ in range(4):
+        ev[0].record()
+        marked(state, batch)
+        ev[2].record()
+        torch.cuda.synchronize()
+        split.append((ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])))
+    g_ms = float(np.median([a for a, _ in split[1:]]))
+    u_ms = float(np.median([b for _, b in split[1:]]))
+    print(f"[profile] {cfg.name} train step split at grad_sync (CUDA events, median of 3 after "
+          f"a warm-up, on {card}): gradient (forward and backward) {g_ms:.1f} ms, then clip, "
+          f"{cfg.optimizer} update and add {u_ms:.1f} ms (runs "
+          f"{[(round(a, 1), round(b, 1)) for a, b in split]})")
     n_moe = sum(b.ffn == "moe" for b in cfg.blocks)
-    if not n_moe:
-        return
     dev = torch.device("cuda")
     p0 = {k: v[0].detach().clone().requires_grad_(True)
           for k, v in state["params"]["scan"]["pos0"]["moe"].items()}
@@ -3329,8 +3400,9 @@ def profile_train_step(out, card):
 
 def train_and_serve(arch, workdir, card, extra=()):
     """``launch.train.main`` for TRAIN_STEPS steps (f32, AdamW), a step at 2
-    microbatches against 1, one more step profiled (``profile_train_step``),
-    then the saved npz served (``serve_trained``).
+    microbatches against 1, in a model with MoE layers one more step
+    profiled (``profile_train_step``), then the saved npz served
+    (``serve_trained``).
     Returns the launches of the eval step and the generate, summed.
 
     In a model with MoE layers the microbatch check holds the gradient
@@ -3351,9 +3423,9 @@ def train_and_serve(arch, workdir, card, extra=()):
         no_drop = dataclasses.replace(cfg, moe=dataclasses.replace(
             cfg.moe, capacity_factor=cfg.moe.num_experts / cfg.moe.experts_per_token))
         check_microbatches(out, card, cfg=no_drop, aux_weight=0.0)
+        profile_train_step(out, card)
     else:
         check_microbatches(out, card)
-    profile_train_step(out, card)
     trained = out["state"]["params"]
     del out
     torch.cuda.empty_cache()

@@ -257,6 +257,35 @@ def test_adamw_train_step_matches_reference(arch):
     _assert_tree_close(ts2["opt"]["m"], js2["opt"]["m"], rtol=1e-5, atol=1e-9)
 
 
+def test_microbatched_moe_step_with_drops_matches_reference():
+    """Reduced granite-moe at the full config's capacity_factor 1.25 (tokens
+    drop) and its aux weight, 2 microbatches: each microbatch routes with
+    its own capacity and its own aux loss, in both packages.  Loss and
+    grad_norm against the reference's; the parameters after an SGD step at
+    lr 1 (the clipped, accumulated gradient itself; Adam's first step would
+    amplify last-bit differences near its eps)."""
+    jcfg, tcfg = (dataclasses.replace(c, moe=dataclasses.replace(c.moe, capacity_factor=1.25))
+                  for c in _cfgs("granite-moe-1b-a400m"))
+    assert tcfg.moe.aux_loss_weight == jcfg.moe.aux_loss_weight == 0.01
+    jp, tp = _params("granite-moe-1b-a400m")
+    toks = _tokens(tcfg, 8, 16, seed=6)
+    jopt, topt = JO.make_optimizer("sgd", lambda step: 1.0), make_optimizer("sgd", lambda step: 1.0)
+    js = JS.make_train_state(jax.tree.map(jnp.asarray, jp), jopt)
+    ts = make_train_state(tp, topt)
+    js2, jm = JS.make_train_step(jcfg, jopt, microbatches=2)(js, {"tokens": jnp.asarray(toks)})
+    ts2, tm = make_train_step(tcfg, topt, microbatches=2)(ts, {"tokens": toks})
+    assert float(tm["loss"]) == pytest.approx(float(jm["loss"]), rel=1e-5)
+    assert float(tm["grad_norm"]) == pytest.approx(float(jm["grad_norm"]), rel=1e-5)
+    _assert_tree_close(ts2["params"], js2["params"], rtol=1e-5, atol=1e-7)
+    # not vacuous: tokens drop at 1.25 (the loss differs from E / k's), and
+    # the microbatches route otherwise than the whole batch does
+    _, tm_nodrop = make_train_step(_cfgs("granite-moe-1b-a400m")[1], topt, microbatches=2)(
+        ts, {"tokens": toks})
+    _, tm_one = make_train_step(tcfg, topt)(ts, {"tokens": toks})
+    assert abs(float(tm_nodrop["loss"]) - float(tm["loss"])) > 1e-4
+    assert abs(float(tm_one["grad_norm"]) / float(tm["grad_norm"]) - 1) > 1e-4
+
+
 def test_aux_weight_reads_the_config():
     """The objective is loss + cfg.moe.aux_loss_weight * aux unless
     ``aux_weight=`` is given: with the weight at 0 the router learns from the
