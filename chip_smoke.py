@@ -30,7 +30,13 @@ Phases (any failed check raises, so the script exits non-zero):
    prefill on the tensor-core route, f32 prefill on the FMA route, decode at
    q_offset 256 in both), at granite-moe-1b-a400m's (B=4, Sq=1024, Sk=1056,
    16 query heads on 8 kv heads, hd 64, bf16: prefill, and decode at
-   q_offset 1024 and 1055), in f32 and bf16 at hd 32-256 with ragged lengths
+   q_offset 1024 and 1055), at whisper-tiny's (B=4, Sq=Sk=1500, 6 heads on 6,
+   hd 64, bidirectional, bf16 and f32; cross-attention of 4 rows and of 1
+   against the 1500 frames on the decode route), at qwen2-vl's (B=4, Sq=512,
+   Sk=529, 64 query heads on 8 kv heads, hd 128: prefill, and decode at
+   q_offset 512), the ring form of a gemma3-1b local layer's decode step
+   (a 512-slot ring in write order at positions 200 and 700, against the
+   visible keys in position order), in f32 and bf16 at hd 32-256 with ragged lengths
    (hd 160 among them), and with
    rows that see no key, each call checked to take its route; ``rwkv6_scan`` at
    rwkv6-7b's prefill shape (B=4, T=256, H=64, hd=64, f32, logw down to
@@ -40,7 +46,8 @@ Phases (any failed check raises, so the script exits non-zero):
 4. kernel and plain-version times (CUDA events, five windows after a
    warm-up, the median printed) beside each kernel's bound, and for
    ``flash_attention`` (gemma3-1b's shapes, then stablelm-12b's hd 160 in
-   bf16 and f32) the route and the time of
+   bf16 and f32, whisper-tiny's bidirectional encoder and cross-attention,
+   qwen2-vl's prefill and decode) the route and the time of
    ``scaled_dot_product_attention`` on the same inputs and mask; both
    again replayed from a CUDA graph, which leaves out the host's work per
    call (the device time); ``rwkv6_scan`` likewise per route, with its
@@ -213,13 +220,44 @@ Phases (any failed check raises, so the script exits non-zero):
    table (parameters, head_dim, GiB, routes, times, peak) is printed as a
    JSON line.
 
-Before each of phases 6, 7, 8, 10 and 11, before each model of phases 9 and
-13 and around phases 12's and 13's eval steps and generates, every kernel's
-launch counter is set to 0; it is read just after.  The last lines are the
-kernels' JSON record (launches from phase 7 for the three fuse kernels, with
-phase 10's as ``launches_routed``, from phase 9 for the other two, phase
-11's as ``launches_serve_stack``, phase 12's as ``launches_lm_train`` and
-phase 13's as ``launches_archs`` for all five),
+14. the last three archs and the ring cache (slice 10), one model at a time:
+   whisper-tiny whole in bf16 (4 encoder and 4 decoder layers, d 384, 6
+   heads of 64, vocab 51,865): 4 x 1500 seeded frame embeddings through
+   ``whisper_encode`` and ``prime_cross_cache``, a 4-token prompt and 32 new
+   tokens greedily through ``make_serve_step``, ``flash_attention``'s
+   launches exact by route (``whisper_routes``: the encoder on
+   ``prefill_tc``, self- and cross-attention on ``decode``), times, one
+   profile and the teacher-forced comparison with the plain versions
+   (phase 9's rule); trained at full size in f32 through
+   ``launch.train.main`` (30 steps of 8 x 64, zero frames; the loss must
+   fall) and its npz served with exact f32 launches.  qwen2-vl-72b at full
+   width cut to its first 8 of 80 layers (9,512,820,736 parameters bf16):
+   4 prompts of 256 seeded patch embeddings on a 16 x 16 M-RoPE grid and
+   256 text tokens through ``forward_lm(cache=, cache_index=0, positions=,
+   extra_embeds=)``, 16 greedy serve steps, launches exact, the comparison
+   with the plain versions, and a text-only prefill whose logits equal the
+   same model's under ordinary RoPE bit for bit; then reduced qwen2-vl
+   trained.  jamba-1.5-large-398b at full width cut to layers 0-4 of 72
+   (Mamba 0-3, attention 4, MoE 1 and 3; 24,045,576,192 parameters by
+   ``param_count``) through phase 9's sequence (``launch.serve.main
+   --num-layers 5``, ``Engine.generate``, 4 x 256 -> 16), launches exact by
+   route, the comparison replaying the kernel run's MoE routing; one Mamba
+   layer at full width giving a 272-token forward's output from 256 + 16
+   one-token steps (``MAMBA_ULPS``); reduced jamba trained.  gemma3-1b's
+   ring cache: 4 x 384 -> 256 through ``Engine.generate`` with
+   ``RING_CACHE`` on and off (the 512-slot rings wrap after decode step
+   128), launches exact, both caches' bytes, and the ring's teacher-forced
+   logits against the full cache's under phase 9's rule.  The arch table is
+   printed as a JSON line.
+
+Before each of phases 6, 7, 8, 10 and 11, before each model of phases 9, 13
+and 14 and around phases 12's, 13's and 14's eval steps and generates, every
+kernel's launch counter is set to 0; it is read just after.  The last lines
+are the kernels' JSON record (launches from phase 7 for the three fuse
+kernels, with phase 10's as ``launches_routed``, from phase 9 for the other
+two, phase 11's as ``launches_serve_stack``, phase 12's as
+``launches_lm_train``, phase 13's as ``launches_archs`` and phase 14's as
+``launches_archs2`` for all five),
 ``nvidia-smi``'s line and
 ``{"ok": true, "device": {...}}``.  Without a card (or without the rest of
 the repository beside it) the script exits non-zero and prints no result.
@@ -261,9 +299,12 @@ from repro_torch.kernels import rwkv6_scan as rs_mod  # noqa: E402
 from repro_torch.kernels.rwkv6_scan import rwkv6_scan, rwkv6_scan_plain  # noqa: E402
 from repro_torch.launch.serve import main as serve_main  # noqa: E402
 from repro_torch.launch import train as train_launcher  # noqa: E402
+from repro_torch.models import mamba as mamba_mod  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models import rwkv as rwkv_mod  # noqa: E402
 from repro_torch.models.encoder import init_encoder_body  # noqa: E402
+from repro_torch.models import transformer as tt_mod  # noqa: E402
+from repro_torch.models import whisper as whisper_mod  # noqa: E402
 from repro_torch.models.transformer import forward_lm, init_cache, init_lm  # noqa: E402
 from repro_torch.serve.engine import Engine  # noqa: E402
 from repro_torch.train import finetune as FT  # noqa: E402
@@ -409,6 +450,32 @@ TWINS = (
     ("cold_service_demo_torch.py", ["--compress"], ["-> iteration 3, 6 contributions fused",
                                                     "(expected 0.9000) -> OK"]),
 )
+
+# the last three archs (phase 14), one model at a time: whisper-tiny whole
+# (WHISPER_BATCH x 1500 seeded frame embeddings, a WHISPER_PROMPT-token prompt,
+# WHISPER_NEW new tokens), qwen2-vl-72b at full width cut to its first
+# QWEN_LAYERS of 80 layers (a vision prefill of QWEN_PATCHES patch embeddings
+# on a 16 x 16 grid and QWEN_TEXT text tokens, then QWEN_STEPS serve steps),
+# jamba-1.5-large-398b at full width cut to its layers 0-4 of 72 (Mamba 0-3,
+# attention 4, MoE 1 and 3; 4 x DENSE_PROMPT -> DENSE_NEW), and gemma3-1b
+# with and without the ring cache (4 x RING_PROMPT -> RING_NEW: the local
+# layers' 512-slot rings wrap after decode step 128)
+WHISPER = get_config("whisper-tiny")
+WHISPER_BATCH, WHISPER_PROMPT, WHISPER_NEW = 4, 4, 32
+QWEN_LAYERS, QWEN_PATCHES, QWEN_TEXT, QWEN_STEPS = 8, 256, 256, 16
+QWEN = dataclasses.replace(get_config("qwen2-vl-72b"), num_layers=QWEN_LAYERS)
+QWEN_LEN = QWEN_PATCHES + QWEN_TEXT
+JAMBA_ARCH = "jamba-1.5-large-398b"
+JAMBA = dataclasses.replace(get_config(JAMBA_ARCH), num_layers=5)
+RING_PROMPT, RING_NEW = 384, 256
+# one Mamba layer at full width, a 272-token forward against 256 + 16
+# one-token steps: the same arithmetic, but bf16 GEMMs of other shapes may
+# round a last bit otherwise, so within MAMBA_ULPS bf16 ulps of max |y|
+MAMBA_ULPS = 4
+FLASH_WHISPER = (WHISPER_BATCH, WHISPER.encoder_seq, WHISPER.encoder_seq, WHISPER.num_heads,
+                 WHISPER.num_kv_heads, WHISPER.head_dim)
+FLASH_QWEN = (4, QWEN_LEN, QWEN_LEN + QWEN_STEPS + 1, QWEN.num_heads, QWEN.num_kv_heads,
+              QWEN.head_dim)
 
 
 def check(ok, msg):
@@ -2095,6 +2162,8 @@ def phase_flash_checks(gen):
               f"Sk={Sk} Hq={Hq} Hkv={Hkv} hd={hd} bf16, route decode: max|d| {e:.3g} "
               f"(bound {bound})")
     del qm, km, vm
+    extra, e = phase_flash_checks_archs2(gen)
+    worst = max(worst, e)
     for (b, sq, sk, hq, hkv, d, causal, window, off) in (
             (2, 96, 160, 4, 1, 256, True, 64, 0), (2, 77, 133, 8, 2, 64, True, None, 56),
             (2, 70, 111, 8, 2, 160, True, 33, 41),
@@ -2129,7 +2198,75 @@ def phase_flash_checks(gen):
     print("[check] flash_attention fully masked rows (q_offset 66, window 8, Sk 64: rows 6.. "
           "see no key): exactly 0 in f32 and bf16, rows 0..4 match the plain version; "
           "decode at q_offset 100: exactly 0")
-    return (q, k, v), hd160, worst
+    return (q, k, v), hd160, extra, worst
+
+
+def phase_flash_checks_archs2(gen):
+    """Phase 3 at phase 14's shapes: whisper-tiny's bidirectional encoder
+    (Sq = Sk = 1500, hd 64, 6 heads on 6) and its cross-attention of the
+    prompt and of one token against the 1500 frames on the decode route, in
+    bf16 and f32; qwen2-vl's hd 128 on 64 query heads over 8 kv heads
+    (prefill and decode); and the ring form of a sliding-window decode step
+    (``causal=True, q_offset=min(i, W - 1)`` over a ring of W = 512 slots in
+    write order) against the keys in position order, before and after the
+    wrap.  Returns the inputs phase 4 times and the largest error."""
+    out, worst = {}, 0.0
+    bf_bound, f_bound = "1 bf16 ulp + 2e-5 x max(1, max|o|)", "2e-5 x max(1, max|o|)"
+    B, Sq, Sk, Hq, Hkv, hd = FLASH_WHISPER
+    qw, kw, vw = qkv_on_card(B, Sq, Sk, Hq, Hkv, hd, torch.bfloat16, gen)
+    for dtype, rt in ((torch.bfloat16, "prefill_tc"), (torch.float32, "prefill_fma")):
+        qq, kk, vv = qw.to(dtype), kw.to(dtype), vw.to(dtype)
+        close, bound = ((bf16_close, bf_bound) if dtype == torch.bfloat16 else
+                        (f32_close, f_bound))
+        name = str(dtype)[6:]
+        e = close(flash_routed(rt, qq, kk, vv, causal=False),
+                  flash_attention_plain(qq, kk, vv, causal=False), f"flash whisper {rt}")
+        worst = max(worst, e)
+        print(f"[check] flash_attention vs plain, whisper-tiny encoder B={B} Sq={Sq} Sk={Sk} "
+              f"Hq={Hq} Hkv={Hkv} hd={hd} {name} bidirectional, route {rt}: max|d| {e:.3g} "
+              f"(bound {bound})")
+        for sq in (WHISPER_PROMPT, 1):
+            qd = qq[:, :sq].contiguous()
+            e = close(flash_routed("decode", qd, kk, vv, causal=False),
+                      flash_attention_plain(qd, kk, vv, causal=False),
+                      f"flash whisper cross Sq={sq} {name}")
+            worst = max(worst, e)
+            print(f"[check] flash_attention vs plain, whisper-tiny cross-attention Sq={sq} "
+                  f"Sk={Sk} {name} bidirectional, route decode: max|d| {e:.3g} (bound {bound})")
+        if dtype == torch.bfloat16:
+            out["whisper"] = (qq, kk, vv)
+    B, Sq, Sk, Hq, Hkv, hd = FLASH_QWEN
+    qq, kk, vv = qkv_on_card(B, Sq, Sk, Hq, Hkv, hd, torch.bfloat16, gen)
+    e = bf16_close(flash_routed("prefill_tc", qq, kk, vv, causal=True),
+                   flash_attention_plain(qq, kk, vv, causal=True), "flash qwen2-vl prefill")
+    worst = max(worst, e)
+    print(f"[check] flash_attention vs plain, qwen2-vl prefill B={B} Sq={Sq} Sk={Sk} Hq={Hq} "
+          f"Hkv={Hkv} hd={hd} bf16, route prefill_tc: max|d| {e:.3g} (bound {bf_bound})")
+    qd = qq[:, :1].contiguous()
+    e = bf16_close(flash_routed("decode", qd, kk, vv, causal=True, q_offset=Sq),
+                   flash_attention_plain(qd, kk, vv, causal=True, q_offset=Sq),
+                   "flash qwen2-vl decode")
+    worst = max(worst, e)
+    print(f"[check] flash_attention vs plain, qwen2-vl decode Sq=1 q_offset={Sq} Sk={Sk} "
+          f"Hq={Hq} Hkv={Hkv} hd={hd} bf16, route decode: max|d| {e:.3g} (bound {bf_bound})")
+    out["qwen2-vl"] = (qq, kk, vv)
+    B, _, _, Hq, Hkv, hd = FLASH_PREFILL
+    W = GEMMA_WINDOW
+    qr, kr, vr = qkv_on_card(B, 1, W, Hq, Hkv, hd, torch.bfloat16, gen)
+    for i in (200, 700):
+        # slot s holds position i - ((i - s) mod W); the slots of positions
+        # max(0, i - W + 1)..i in position order
+        order = torch.tensor([p % W for p in range(max(0, i - W + 1), i + 1)], device=qr.device)
+        got = flash_routed("decode", qr, kr, vr, causal=True, q_offset=min(i, W - 1))
+        want = flash_attention_plain(qr, kr[:, order].contiguous(), vr[:, order].contiguous(),
+                                     causal=True, q_offset=len(order) - 1)
+        e = bf16_close(got, want, f"flash ring i={i}")
+        worst = max(worst, e)
+        print(f"[check] flash_attention ring form, gemma3-1b local layer decode at position {i} "
+              f"over a ring of {W} slots (q_offset {min(i, W - 1)}), against the plain version "
+              f"over the {len(order)} visible keys in position order: max|d| {e:.3g} (bound "
+              f"{bf_bound})")
+    return out, worst
 
 
 def visible_entries(Sq, Sk, causal, window, q_offset):
@@ -2147,56 +2284,70 @@ def visible_keys(Sq, Sk, causal, window, q_offset):
     return max(0, hi - lo)
 
 
-def phase_flash_timing(inputs, hd160, card):
+def phase_flash_timing(inputs, hd160, archs2, card):
     """Kernel, plain version and SDPA at gemma3-1b's prefill shape (both
     layer kinds) and at decode, then at stablelm-12b's (hd 160) prefill and
-    decode in bf16 and f32.  Returns the global-layer prefill numbers and,
-    per line, its route and numbers."""
+    decode in bf16 and f32, then at whisper-tiny's bidirectional encoder and
+    cross-attention (bf16) and qwen2-vl's hd 128 on 64:8 heads (prefill and
+    decode).  Returns the global-layer prefill numbers and, per line, its
+    route and numbers."""
     q, k, v = inputs
-    cases = [("prefill global", q, k, v, None, 0), ("prefill local", q, k, v, GEMMA_WINDOW, 0),
-             ("decode global", q[:, :1].contiguous(), k, v, None, 1100),
-             ("decode local", q[:, :1].contiguous(), k, v, GEMMA_WINDOW, 1100)]
+    cases = [("prefill global", q, k, v, None, 0, True),
+             ("prefill local", q, k, v, GEMMA_WINDOW, 0, True),
+             ("decode global", q[:, :1].contiguous(), k, v, None, 1100, True),
+             ("decode local", q[:, :1].contiguous(), k, v, GEMMA_WINDOW, 1100, True)]
     for dtype, (q16, k16, v16) in hd160.items():
         name = str(dtype)[6:]
-        cases += [(f"stablelm-12b prefill {name}", q16, k16, v16, None, 0),
+        cases += [(f"stablelm-12b prefill {name}", q16, k16, v16, None, 0, True),
                   (f"stablelm-12b decode {name}", q16[:, :1].contiguous(), k16, v16, None,
-                   q16.shape[1])]
+                   q16.shape[1], True)]
+    qw, kw, vw = archs2["whisper"]
+    qq, kq, vq = archs2["qwen2-vl"]
+    cases += [("whisper-tiny encoder bidirectional", qw, kw, vw, None, 0, False),
+              ("whisper-tiny cross-attention decode", qw[:, :1].contiguous(), kw, vw, None, 0,
+               False),
+              ("qwen2-vl prefill", qq, kq, vq, None, 0, True),
+              ("qwen2-vl decode", qq[:, :1].contiguous(), kq, vq, None, qq.shape[1], True)]
     out, lines = None, []
-    for label, qq, k, v, window, off in cases:
+    for label, qq, k, v, window, off, causal in cases:
         B, sq, Hq, hd = qq.shape
         Sk, Hkv = k.shape[1], k.shape[2]
         rt = fa_mod.route(qq.dtype, sq, Hq, Hkv)
         # q read and o written once; each visible K and V row read once
         nbytes = (2 * qq.numel() * qq.element_size()
-                  + 2 * B * Hkv * hd * k.element_size() * visible_keys(sq, Sk, True, window, off))
-        flops = 4 * hd * B * Hq * visible_entries(sq, Sk, True, window, off)
+                  + 2 * B * Hkv * hd * k.element_size() * visible_keys(sq, Sk, causal, window,
+                                                                       off))
+        flops = 4 * hd * B * Hq * visible_entries(sq, Sk, causal, window, off)
         peak = BF16_FLOPS if qq.dtype == torch.bfloat16 else F32_FLOPS
         bound, bound_by = bound_of(nbytes, flops, peak)
         iters = 20 if sq > 1 else 200
-        ms, runs = median_windows(lambda: flash_attention(qq, k, v, causal=True, window=window,
+        ms, runs = median_windows(lambda: flash_attention(qq, k, v, causal=causal, window=window,
                                                           q_offset=off), iters=iters)
         plain, plain_runs = median_windows(lambda: flash_attention_plain(
-            qq, k, v, causal=True, window=window, q_offset=off), iters=5, warmup=1)
+            qq, k, v, causal=causal, window=window, q_offset=off), iters=5, warmup=1)
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (qq, k, v))
         qp = torch.arange(sq, device=qq.device)[:, None] + off
         kp = torch.arange(Sk, device=qq.device)[None, :]
         mask = kp <= qp
         if window is not None:
             mask &= kp > qp - window
+        if not causal:  # every key visible: SDPA takes no mask (and may pick its flash kernel)
+            mask = None
         lib, lib_runs = median_windows(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=mask, enable_gqa=True), iters=iters)
-        g_ms, g_runs = graph_windows(lambda: flash_attention(qq, k, v, causal=True, window=window,
-                                                             q_offset=off), iters)
+        g_ms, g_runs = graph_windows(lambda: flash_attention(qq, k, v, causal=causal,
+                                                             window=window, q_offset=off), iters)
         g_lib, g_lib_runs = graph_windows(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=mask, enable_gqa=True), iters)
+        mode = "" if causal else " bidirectional"
         print(f"[time] flash_attention {label} B={B} Sq={sq} Sk={Sk} Hq={Hq} Hkv={Hkv} hd={hd} "
-              f"{str(qq.dtype)[6:]} on {card}: route {rt} ({FLASH_SOURCE[rt]}.cu), kernel_ms "
+              f"{str(qq.dtype)[6:]}{mode} on {card}: route {rt} ({FLASH_SOURCE[rt]}.cu), kernel_ms "
               f"{ms:.4f} (windows {[round(r, 4) for r in runs]}), "
               f"bound_ms {bound:.4f} ({bound_by}: {nbytes / 1e6:.1f} MB at 3.35 TB/s, "
               f"{flops / 1e9:.2f} GFLOP at {peak / 1e12:.0f} TFLOP/s), kernel/bound "
               f"{ms / bound:.2f}x, "
               f"plain_ms {plain:.4f} (windows {[round(r, 3) for r in plain_runs]}), "
-              f"library_ms {lib:.4f} (scaled_dot_product_attention, same mask, windows "
+              f"library_ms {lib:.4f} (scaled_dot_product_attention, the same mask, windows "
               f"{[round(r, 4) for r in lib_runs]})")
         print(f"[time] flash_attention {label} replayed from a CUDA graph of {iters} calls "
               f"(device time, no host work per call): kernel {g_ms:.4f} ms (windows "
@@ -2413,14 +2564,15 @@ class plain_kernels:
 
 
 @torch.inference_mode()
-def teacher_forced(cfg, params, prompts, gen_tokens, max_len):
+def teacher_forced(cfg, params, prompts, gen_tokens, max_len, **prefill_kw):
     """(prefill logits [B, P, V], decode logits [B, n-1, V]) with the
-    decode steps fed the given generated tokens."""
+    decode steps fed the given generated tokens; ``prefill_kw``
+    (``positions``, ``extra_embeds``) go to the prefill."""
     dev = torch.device("cuda")
     B, P = prompts.shape
     cache = init_cache(cfg, B, max_len, device=dev)
     logits, _, cache = forward_lm(cfg, params, torch.as_tensor(prompts, device=dev),
-                                  cache=cache, cache_index=0)
+                                  cache=cache, cache_index=0, **prefill_kw)
     serve = make_serve_step(cfg)
     gen = torch.as_tensor(gen_tokens, device=dev)
     dec = []
@@ -2430,11 +2582,12 @@ def teacher_forced(cfg, params, prompts, gen_tokens, max_len):
     return logits, torch.stack(dec, 1)
 
 
-def phase_serve(arch, cfg, prompt_len, new_tokens, max_len, kernel, card, routes):
-    """One model at full width through ``launch.serve.main`` and then
-    ``Engine.generate``, with the launches of ``kernel`` counted over both,
-    by route exactly ``routes``; then the same prompts through the plain
-    versions, compared (``serve_agreement``)."""
+def phase_serve(arch, cfg, prompt_len, new_tokens, max_len, kernel, card, routes, cli=()):
+    """One model at full width through ``launch.serve.main`` (with the extra
+    arguments ``cli``) and then ``Engine.generate``, with the launches of
+    ``kernel`` counted over both, by route exactly ``routes``; then the
+    same prompts through the plain versions, compared
+    (``serve_agreement``)."""
     dev = torch.device("cuda")
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
@@ -2443,7 +2596,7 @@ def phase_serve(arch, cfg, prompt_len, new_tokens, max_len, kernel, card, routes
     with contextlib.redirect_stdout(out):  # it prints every prompt: keep its summary line
         res_cli = serve_main(["--arch", arch, "--batch", "4", "--prompt-len", str(prompt_len),
                               "--new-tokens", str(new_tokens), "--seed", "0",
-                              "--device", "cuda"])
+                              "--device", "cuda", *cli])
     torch.cuda.synchronize()
     cli_s = time.perf_counter() - t0
     print(out.getvalue().splitlines()[0])
@@ -2517,7 +2670,9 @@ def phase_serve(arch, cfg, prompt_len, new_tokens, max_len, kernel, card, routes
         if moe_layers:
             moe_timing(arch, cfg, params, prompt_len, pre_ms, dec_ms, moe_layers, card)
 
-    serve_agreement(arch, cfg, params, prompts, res.tokens[:, prompt_len:], max_len)
+    gen_k = res.tokens[:, prompt_len:]
+    serve_agreement(arch, cfg, lambda: teacher_forced(cfg, params, prompts, gen_k, max_len),
+                    gen_k)
     del params, eng
     torch.cuda.empty_cache()
     return counts[kernel], by_route, {"prefill_ms": pre_ms, "decode_ms": dec_ms,
@@ -2531,7 +2686,7 @@ def moe_timing(arch, cfg, params, prompt_len, pre_ms, dec_ms, n_layers, card):
     timed with CUDA events on the first MoE layer's weights and a unit-scale
     input (what the norm before it gives), beside the step times."""
     dev = torch.device("cuda")
-    p0 = tree_map(lambda x: x[0], params["scan"]["pos0"]["moe"])
+    p0 = next(p["moe"] for _, blk, p in tt_mod._layers(cfg, params) if blk.ffn == "moe")
     g = torch.Generator(device=dev).manual_seed(3)
     h = torch.randn((4, prompt_len, cfg.d_model), generator=g, device=dev).to(p0["router"].dtype)
     hd = h[:, :1].contiguous()
@@ -2637,9 +2792,10 @@ def logits_agreement(kern, plain, floor, what):
     return mx, mean
 
 
-def serve_agreement(arch, cfg, params, prompts, gen_k, max_len):
-    """The model teacher-forced on the kernel path's tokens, once more and
-    with the kernels' plain versions: logits within 4x those between the
+def serve_agreement(arch, cfg, run, gen_k):
+    """The model teacher-forced on the kernel path's tokens (``run()`` gives
+    the prefill and decode logits), once more and with the kernels' plain
+    versions: logits within 4x those between the
     plain path and its nudged run, and greedy tokens equal wherever the
     plain path's top-2 margin exceeds twice the logit difference.  In a
     model with MoE layers a last-bit difference in attention can flip a
@@ -2648,13 +2804,13 @@ def serve_agreement(arch, cfg, params, prompts, gen_k, max_len):
     (``route_replay``) and the rule holds at every position; the decisions
     each would have taken otherwise are counted per layer and printed."""
     with route_replay() as rec:
-        pre_k, dec_k = teacher_forced(cfg, params, prompts, gen_k, max_len)
+        pre_k, dec_k = run()
     check(np.array_equal(torch.argmax(torch.cat([pre_k[:, -1:], dec_k], 1), -1).cpu().numpy(),
-                         gen_k), "teacher-forced kernel path must repeat Engine.generate")
+                         gen_k), "teacher-forced kernel path must repeat the generate")
     with plain_kernels(), route_replay(rec.calls) as rep_p:
-        pre_p, dec_p = teacher_forced(cfg, params, prompts, gen_k, max_len)
+        pre_p, dec_p = run()
     with plain_kernels(nudge=NUDGE), route_replay(rec.calls) as rep_n:
-        pre_n, dec_n = teacher_forced(cfg, params, prompts, gen_k, max_len)
+        pre_n, dec_n = run()
     floor_pre, floor_dec = logit_diff(pre_n, pre_p), logit_diff(dec_n, dec_p)
     del pre_n, dec_n
     a_pre = logits_agreement(pre_k, pre_p, floor_pre, f"{arch} prefill logits")
@@ -2671,12 +2827,12 @@ def serve_agreement(arch, cfg, params, prompts, gen_k, max_len):
           "its top-2 margin exceeds twice the logit difference")
     flips = ""
     if rec.calls:
-        L = cfg.num_layers
-        per_layer, nudged = rep_p.per_layer(L), rep_n.per_layer(L)
+        n_moe = sum(b.ffn == "moe" for b in cfg.blocks)
+        per_layer, nudged = rep_p.per_layer(n_moe), rep_n.per_layer(n_moe)
         decisions = sum(c.shape[0] for c in rec.calls)
         flips = (f"; the plain and nudged runs replay the kernel run's MoE routing: their own "
                  f"top-k would differ at {sum(per_layer)} and {sum(nudged)} of {decisions} "
-                 f"(token, layer) decisions, per layer {per_layer} (plain)")
+                 f"(token, layer) decisions, per MoE layer {per_layer} (plain)")
     print(f"[serve] {arch} kernel vs plain (teacher-forced): prefill logits max|d| {a_pre[0]:.4g} "
           f"mean|d| {a_pre[1]:.3g}, decode logits max|d| {a_dec[0]:.4g} mean|d| {a_dec[1]:.3g} "
           f"(mean |logit| {mean_logit:.3g}); the plain path nudged by {NUDGE:g} moves them by "
@@ -3314,10 +3470,11 @@ DENSE_ARCHS = ("mistral-nemo-12b", "stablelm-12b", "granite-20b")
 def serve_routes(cfg, prompt_len, new_tokens):
     """flash_attention's launches by route over ``launch.serve.main`` and
     ``Engine.generate`` (two bf16 generates), worked out from the code: one
-    launch per layer for the prefill, one per layer and new token after the
-    first, each on the route ``flash_attention.route`` names for its shape
-    (with the decode route's combine beside it)."""
-    n, steps = cfg.num_layers, cfg.num_layers * (new_tokens - 1)
+    launch per attention layer for the prefill, one per attention layer and
+    new token after the first, each on the route ``flash_attention.route``
+    names for its shape (with the decode route's combine beside it)."""
+    n = sum(b.mixer == "attn" for b in cfg.blocks)
+    steps = n * (new_tokens - 1)
     want = dict.fromkeys(fa_mod.ROUTES + ("decode_combine",), 0)
     want[fa_mod.route(torch.bfloat16, prompt_len, cfg.num_heads, cfg.num_kv_heads)] += 2 * n
     dec = fa_mod.route(torch.bfloat16, 1, cfg.num_heads, cfg.num_kv_heads)
@@ -3327,18 +3484,13 @@ def serve_routes(cfg, prompt_len, new_tokens):
     return want
 
 
-def serve_arch(arch, cfg, prompt_len, new_tokens, max_len, card, table):
+def serve_arch(arch, cfg, prompt_len, new_tokens, max_len, card, table, cli=()):
     """``phase_serve`` with launches exact by route; the arch's row of the
     table.  Returns its launches."""
     n, routes, res = phase_serve(arch, cfg, prompt_len, new_tokens, max_len, "flash_attention",
-                                 card, serve_routes(cfg, prompt_len, new_tokens))
-    table.append({"arch": arch, "params": res["params"], "head_dim": cfg.head_dim,
-                  "gib_bf16": round(res["params"] * 2 / 2 ** 30, 2),
-                  "routes": sorted(r for r in fa_mod.ROUTES if routes[r]),
-                  "prompt": f"4 x {prompt_len} -> {new_tokens}",
-                  "prefill_ms": round(res["prefill_ms"], 3),
-                  "decode_ms": round(res["decode_ms"], 3),
-                  "peak_gib": round(res["peak_gib"], 2)})
+                                 card, serve_routes(cfg, prompt_len, new_tokens), cli)
+    table.append(arch_row(arch, cfg, res["params"], routes, f"4 x {prompt_len} -> {new_tokens}",
+                          res["prefill_ms"], res["decode_ms"], res["peak_gib"]))
     return n
 
 
@@ -3458,6 +3610,438 @@ def phase_archs(workdir, card):
     return total, table
 
 
+# ---------------------------------------------------------------------------
+# slice 10: the last three archs and the ring cache (phase 14)
+# ---------------------------------------------------------------------------
+
+
+def whisper_routes(cfg, dtype, prompt_len, new_tokens, n_frames):
+    """flash_attention's launches by route over one whisper generate,
+    worked out from the code: one encoder launch per encoder layer (Sq =
+    Sk = n_frames, bidirectional), then per decoder layer and decoder call
+    (the prompt, then one token a step) a self-attention and a
+    cross-attention launch, each on the route its shape takes."""
+    want = dict.fromkeys(fa_mod.ROUTES + ("decode_combine",), 0)
+    want[fa_mod.route(dtype, n_frames, cfg.num_heads, cfg.num_kv_heads)] += cfg.encoder_layers
+    for sq in [prompt_len] + [1] * (new_tokens - 1):
+        want[fa_mod.route(dtype, sq, cfg.num_heads, cfg.num_kv_heads)] += 2 * cfg.num_layers
+    want["decode_combine"] = want["decode"]
+    return want
+
+
+def whisper_primed(cfg, params, frames, batch, max_len):
+    """``whisper_encode`` and ``prime_cross_cache`` into a fresh cache."""
+    cache = whisper_mod.init_whisper_cache(cfg, batch, max_len, device=frames.device)
+    return whisper_mod.prime_cross_cache(cfg, params, cache,
+                                         whisper_mod.whisper_encode(cfg, params, frames))
+
+
+@torch.inference_mode()
+def whisper_generate(cfg, params, frames, prompts, new_tokens, max_len):
+    """Greedy whisper decoding as a user drives it: encode, prime, the
+    prompt through ``make_serve_step`` at 0, then one serve step a token.
+    Returns the new tokens [B, new_tokens]."""
+    B, P = prompts.shape
+    cache = whisper_primed(cfg, params, frames, B, max_len)
+    serve = make_serve_step(cfg)
+    lg, cache = serve(params, cache, torch.as_tensor(prompts, dtype=torch.long,
+                                                     device=frames.device), 0)
+    out = [torch.argmax(lg, dim=-1)]
+    for t in range(1, new_tokens):
+        lg, cache = serve(params, cache, out[-1][:, None], P + t - 1)
+        out.append(torch.argmax(lg, dim=-1))
+    return torch.stack(out, 1).cpu().numpy()
+
+
+@torch.inference_mode()
+def whisper_teacher_forced(cfg, params, frames, prompts, gen_tokens, max_len):
+    """(prompt logits [B, P, V] from ``whisper_decode``, decode logits
+    [B, n-1, V]) with the serve steps fed the given generated tokens."""
+    dev = frames.device
+    B, P = prompts.shape
+    cache = whisper_primed(cfg, params, frames, B, max_len)
+    toks = torch.as_tensor(prompts, dtype=torch.long, device=dev)
+    pre, _, cache = whisper_mod.whisper_decode(cfg, params, toks, cache=cache, cache_index=0)
+    serve = make_serve_step(cfg)
+    gen = torch.as_tensor(gen_tokens, dtype=torch.long, device=dev)
+    dec = [serve(params, cache, gen[:, t - 1:t], P + t - 1)[0] for t in range(1, gen.shape[1])]
+    return pre, torch.stack(dec, 1)
+
+
+def timed_ms(fn, runs: int = 3):
+    """(median, all) wall ms of ``runs`` synchronised calls of ``fn``."""
+    times = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times)), times
+
+
+def arch_row(arch, cfg, n_params, routes, prompt, pre_ms, dec_ms, peak):
+    """One row of an arch table (bf16 GiB of the parameters, the routes
+    flash_attention took)."""
+    return {"arch": arch, "layers": cfg.num_layers, "params": n_params,
+            "param_count": cfg.param_count(), "head_dim": cfg.head_dim,
+            "gib_bf16": round(n_params * 2 / 2 ** 30, 2),
+            "routes": sorted(r for r in fa_mod.ROUTES if routes[r]), "prompt": prompt,
+            "prefill_ms": round(pre_ms, 3), "decode_ms": round(dec_ms, 3),
+            "peak_gib": round(peak, 2)}
+
+
+def serve_whisper(card, table):
+    """whisper-tiny whole in bf16: seeded frame embeddings, a prompt and
+    greedy decoding through the serve step, launches exact by route, the
+    times, one profile, and the teacher-forced comparison with the plain
+    versions.  Returns the launches."""
+    dev = torch.device("cuda")
+    cfg, arch = WHISPER, WHISPER.name
+    B, P, new = WHISPER_BATCH, WHISPER_PROMPT, WHISPER_NEW
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = whisper_mod.init_whisper(cfg, gen, device=dev)
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    frames = torch.randn((B, cfg.encoder_seq, cfg.d_model), generator=gen,
+                         device=dev).to(torch.bfloat16)
+    prompts = np.random.default_rng(1).integers(3, cfg.vocab_size, (B, P))
+    max_len = P + new
+    want = whisper_routes(cfg, torch.bfloat16, P, new, cfg.encoder_seq)
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gen_k = whisper_generate(cfg, params, frames, prompts, new, max_len)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    counts = launches()
+    by_route = dict(flash_attention.launches_by_route)
+    check(by_route == want, f"{arch}: flash_attention launched {by_route} by route, expected "
+          f"exactly {want}")
+    check(gen_k.shape == (B, new), f"{arch}: generated {gen_k.shape}")
+
+    def prefill():  # encode, prime and the prompt's serve step
+        whisper_generate(cfg, params, frames, prompts, 1, max_len)
+
+    pre_ms, pre_runs = timed_ms(prefill)
+    gen_ms, gen_runs = timed_ms(lambda: whisper_generate(cfg, params, frames, prompts, new,
+                                                         max_len))
+    dec_ms = (gen_ms - pre_ms) / (new - 1)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"[archs2] {arch} (encoder {cfg.encoder_layers} + decoder {cfg.num_layers} layers, d "
+          f"{cfg.d_model}, {cfg.num_heads} heads of {cfg.head_dim}, {cfg.encoder_seq} frames, "
+          f"vocab {cfg.vocab_size}; {n_params:,} parameters in the tree, {cfg.param_count():,} "
+          f"by param_count) bf16: {B} x {cfg.encoder_seq} frames, {B} x {P} prompt -> {new} "
+          f"tokens, first run {first_s:.2f} s; flash_attention by route {by_route} (exactly as "
+          f"worked out from the code); encode + prime + prompt {pre_ms:.2f} ms (runs "
+          f"{[round(x, 2) for x in pre_runs]}), generate {gen_ms:.1f} ms (runs "
+          f"{[round(x, 1) for x in gen_runs]}), decode {dec_ms:.2f} ms a step; peak {peak:.2f} "
+          f"GiB; on {card}")
+    print_split(arch, f"a whole generate ({B} x {cfg.encoder_seq} frames, {P} -> {new})", gen_ms,
+                device_split(lambda: whisper_generate(cfg, params, frames, prompts, new,
+                                                      max_len)))
+    serve_agreement(arch, cfg, lambda: whisper_teacher_forced(cfg, params, frames, prompts,
+                                                              gen_k, max_len), gen_k)
+    table.append(arch_row(arch, cfg, n_params, by_route, f"{B} x {cfg.encoder_seq} frames, "
+                          f"{P} -> {new}", pre_ms, dec_ms, peak))
+    del params, frames
+    torch.cuda.empty_cache()
+    return counts
+
+
+def train_whisper(workdir, card):
+    """whisper-tiny trained at full size in f32 through the launcher (zero
+    frames, as the reference's launcher feeds them), then its npz served:
+    the eval step and a generate with launches exact by route.  Returns
+    their launches, summed."""
+    dev = torch.device("cuda")
+    npz = os.path.join(workdir, "whisper-trained.npz")
+    out, first, last = train_via_launcher(["--arch", WHISPER.name, "--steps", str(TRAIN_STEPS),
+                                           "--log-every", "10", "--save", npz], card)
+    check(last < first, f"whisper-tiny: the loss did not fall ({first:.4f} -> {last:.4f})")
+    cfg = out["cfg"]
+    params = ckpt.load(npz, device=dev)
+    saved = dict(tree_leaves_with_path(params))
+    check(all(torch.equal(saved[k], v) for k, v in tree_leaves_with_path(out["state"]["params"])),
+          "whisper-tiny: the saved npz does not load back to the trained params")
+    del out
+    torch.cuda.empty_cache()
+    stream = train_launcher.token_stream(cfg, steps=1, batch=TRAIN_BATCH, seq=TRAIN_SEQ, seed=2)
+    reset_launches()
+    loss = float(make_eval_step(cfg)(params, train_launcher.train_batch(cfg, stream)))
+    evals = launches()
+    eval_routes = dict(flash_attention.launches_by_route)
+    want_eval = whisper_routes(cfg, torch.float32, TRAIN_SEQ, 1, cfg.encoder_seq)
+    check(eval_routes == want_eval, f"whisper-tiny eval step: flash_attention launched "
+          f"{eval_routes} by route, expected {want_eval}")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    frames = torch.randn((TRAIN_PROMPTS, cfg.encoder_seq, cfg.d_model), generator=gen, device=dev)
+    prompts = stream[:TRAIN_PROMPTS, :WHISPER_PROMPT]
+    reset_launches()
+    toks = whisper_generate(cfg, params, frames, prompts, TRAIN_NEW, WHISPER_PROMPT + TRAIN_NEW)
+    gens = launches()
+    by_route = dict(flash_attention.launches_by_route)
+    want = whisper_routes(cfg, torch.float32, WHISPER_PROMPT, TRAIN_NEW, cfg.encoder_seq)
+    check(by_route == want, f"whisper-tiny generate (f32): flash_attention launched {by_route} "
+          f"by route, expected {want}")
+    check(math.isfinite(loss), f"whisper-tiny eval loss {loss}")
+    print(f"[archs2] whisper-tiny served from the saved npz (f32): eval loss {loss:.4f} (8 x 64 "
+          f"tokens, zero frames), flash_attention by route in the eval step {eval_routes}; "
+          f"generate {TRAIN_PROMPTS} x {WHISPER_PROMPT} -> {TRAIN_NEW} {by_route} (expected "
+          f"{want}); first tokens {toks[0].tolist()}; on {card}")
+    del params
+    torch.cuda.empty_cache()
+    return {k: evals[k] + gens[k] for k in evals}
+
+
+def qwen_vision_inputs(cfg, gen):
+    """4 prompts: QWEN_PATCHES seeded patch embeddings (N(0, 0.02^2), the
+    token embeddings' scale) on a 16 x 16 grid at t = 0, h = row, w = col,
+    then QWEN_TEXT text tokens at positions 16.. on all three streams.
+    Returns (tokens [4, S], positions [3, 4, S], extra_embeds)."""
+    dev = torch.device("cuda")
+    side = int(round(QWEN_PATCHES ** 0.5))
+    pos = torch.zeros((3, 4, QWEN_LEN), dtype=torch.long, device=dev)
+    grid = torch.arange(QWEN_PATCHES, device=dev)
+    pos[1, :, :QWEN_PATCHES] = grid // side
+    pos[2, :, :QWEN_PATCHES] = grid % side
+    pos[:, :, QWEN_PATCHES:] = side + torch.arange(QWEN_TEXT, device=dev)
+    extra = (0.02 * torch.randn((4, QWEN_PATCHES, cfg.d_model), generator=gen,
+                                device=dev)).to(torch.bfloat16)
+    tokens = torch.as_tensor(np.random.default_rng(2).integers(3, cfg.vocab_size, (4, QWEN_LEN)),
+                             device=dev)
+    return tokens, pos, extra
+
+
+def serve_qwen(card, table):
+    """qwen2-vl-72b at full width, its first QWEN_LAYERS layers, bf16: the
+    vision prefill through ``forward_lm(cache=, cache_index=0, positions=,
+    extra_embeds=)`` and QWEN_STEPS greedy serve steps (positions following
+    cache_index, as in the reference), launches exact by route, the times,
+    the teacher-forced comparison with the plain versions, and a text-only
+    prefill equal to the same model's under ordinary RoPE.  Returns the
+    launches."""
+    dev = torch.device("cuda")
+    cfg, arch = QWEN, QWEN.name
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    t0 = time.perf_counter()
+    params = init_lm(cfg, gen, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    check(n_params == cfg.param_count(), f"{arch}: {n_params} parameters, param_count says "
+          f"{cfg.param_count()}")
+    tokens, pos, extra = qwen_vision_inputs(cfg, gen)
+    max_len = QWEN_LEN + QWEN_STEPS + 1
+    serve = make_serve_step(cfg)
+
+    @torch.inference_mode()
+    def vision_generate(steps):
+        cache = init_cache(cfg, 4, max_len, device=dev)
+        lg, _, cache = forward_lm(cfg, params, tokens, cache=cache, cache_index=0, positions=pos,
+                                  extra_embeds=extra)
+        out = [torch.argmax(lg[:, -1], dim=-1)]
+        for t in range(steps):
+            lg, cache = serve(params, cache, out[-1][:, None], QWEN_LEN + t)
+            out.append(torch.argmax(lg, dim=-1))
+        return torch.stack(out, 1).cpu().numpy()
+
+    reset_launches()
+    gen_k = vision_generate(QWEN_STEPS)
+    counts = launches()
+    by_route = dict(flash_attention.launches_by_route)
+    want = dict.fromkeys(by_route, 0)
+    want[fa_mod.route(torch.bfloat16, QWEN_LEN, cfg.num_heads, cfg.num_kv_heads)] += \
+        cfg.num_layers
+    want["decode"] = want["decode_combine"] = cfg.num_layers * QWEN_STEPS
+    check(by_route == want, f"{arch}: flash_attention launched {by_route} by route, expected "
+          f"exactly {want}")
+    pre_ms, pre_runs = timed_ms(lambda: vision_generate(0))
+    gen_ms, gen_runs = timed_ms(lambda: vision_generate(QWEN_STEPS))
+    dec_ms = (gen_ms - pre_ms) / QWEN_STEPS
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"[archs2] {arch} cut to {cfg.num_layers} of 80 layers (d {cfg.d_model}, "
+          f"{cfg.num_heads} query heads on {cfg.num_kv_heads} kv heads of {cfg.head_dim}, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab_size}, M-RoPE sections {cfg.rope.mrope_sections}; "
+          f"{n_params:,} parameters bf16, init {init_s:.2f} s): vision prefill 4 x "
+          f"({QWEN_PATCHES} patches + {QWEN_TEXT} text) {pre_ms:.2f} ms (runs "
+          f"{[round(x, 2) for x in pre_runs]}), {QWEN_STEPS} serve steps, generate {gen_ms:.1f} "
+          f"ms (runs {[round(x, 1) for x in gen_runs]}), decode {dec_ms:.2f} ms a step; "
+          f"flash_attention by route {by_route} (exactly as worked out from the code); peak "
+          f"{peak:.2f} GiB; on {card}")
+    print_split(arch, f"the vision prefill 4 x {QWEN_LEN}", pre_ms,
+                device_split(lambda: vision_generate(0)))
+    serve_agreement(arch, cfg, lambda: teacher_forced(cfg, params, tokens, gen_k, max_len,
+                                                      positions=pos, extra_embeds=extra), gen_k)
+    rope = dataclasses.replace(cfg, rope=dataclasses.replace(cfg.rope, kind="default"))
+    with torch.inference_mode():
+        text = tokens[:, QWEN_PATCHES:]
+        a = forward_lm(cfg, params, text)[0]
+        b = forward_lm(rope, params, text)[0]
+        same = bool(torch.equal(a, b))
+        d = (a.float() - b.float()).abs().max().item()
+    del a, b
+    check(same, f"{arch}: text-only M-RoPE logits differ from ordinary RoPE's by {d:.3g}")
+    print(f"[archs2] {arch} text-only prefill (4 x {QWEN_TEXT}, t = h = w): logits equal to the "
+          f"same model's under rope kind 'default' bit for bit")
+    table.append(arch_row(arch, cfg, n_params, by_route, f"4 x ({QWEN_PATCHES} patches + "
+                          f"{QWEN_TEXT} text) -> {QWEN_STEPS + 1}", pre_ms, dec_ms, peak))
+    del params
+    torch.cuda.empty_cache()
+    return counts
+
+
+def mamba_layer_check(card):
+    """One Mamba layer at jamba's full width (d 8192, d_inner 16,384,
+    d_state 16, dt_rank 512) in bf16: a 272-token forward against 256
+    positions and 16 one-token steps carrying the state."""
+    dev = torch.device("cuda")
+    cfg = JAMBA
+    gen = torch.Generator(device=dev).manual_seed(6)
+    p = mamba_mod.init_mamba(cfg, gen, torch.bfloat16, dev)
+    n = DENSE_PROMPT + DENSE_NEW
+    x = torch.randn((4, n, cfg.d_model), generator=gen, device=dev).to(torch.bfloat16)
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        whole, _ = mamba_mod.mamba_fwd(cfg, p, x)
+        torch.cuda.synchronize()
+        whole_ms = (time.perf_counter() - t0) * 1e3
+        state = mamba_mod.init_mamba_state(cfg, 4, torch.bfloat16, dev)
+        parts = []
+        y, state = mamba_mod.mamba_fwd(cfg, p, x[:, :DENSE_PROMPT], state=state,
+                                       return_state=True)
+        parts.append(y)
+        for t in range(DENSE_PROMPT, n):
+            y, state = mamba_mod.mamba_fwd(cfg, p, x[:, t:t + 1], state=state, return_state=True)
+            parts.append(y)
+        steps = torch.cat(parts, 1).float()
+    ref = whole.float()
+    err = (steps - ref).abs()
+    top = ref.abs().max()
+    tol = MAMBA_ULPS * bf16_ulp(top).item()
+    check(bool(torch.isfinite(steps).all()) and err.max().item() <= tol,
+          f"Mamba layer: incremental vs one forward max|d| {err.max().item():.3g} > {tol:.3g}")
+    print(f"[archs2] one Mamba layer at full width (d {cfg.d_model}, d_inner "
+          f"{mamba_mod.d_inner(cfg)}, d_state {cfg.ssm.d_state}, dt_rank {cfg.ssm.dt_rank}) bf16, "
+          f"4 x {n}: one forward ({whole_ms:.1f} ms) vs {DENSE_PROMPT} + {DENSE_NEW} one-token "
+          f"steps: max|d| {err.max().item():.3g}, mean|d| {err.mean().item():.3g} (bound "
+          f"{MAMBA_ULPS} bf16 ulps of max|y| {top.item():.3g} = {tol:.3g}); on {card}")
+    del p, x, whole, steps, ref, err
+    torch.cuda.empty_cache()
+
+
+def ring_agreement(cfg, params, prompts, gen_full, max_len):
+    """Teacher-forced on the full-cache run's tokens: the ring cache's
+    logits against the full cache's (both on the kernel), within 4x those
+    between the plain path and its nudged run (phase 9's rule)."""
+    def run():
+        return teacher_forced(cfg, params, prompts, gen_full, max_len)
+
+    saved = tt_mod.RING_CACHE
+    try:
+        tt_mod.RING_CACHE = True
+        pre_r, dec_r = run()
+        tt_mod.RING_CACHE = False
+        pre_f, dec_f = run()
+        with plain_kernels():
+            pre_p, dec_p = run()
+        with plain_kernels(nudge=NUDGE):
+            pre_n, dec_n = run()
+    finally:
+        tt_mod.RING_CACHE = saved
+    floor_pre, floor_dec = logit_diff(pre_n, pre_p), logit_diff(dec_n, dec_p)
+    del pre_n, dec_n, pre_p, dec_p
+    a_pre = logits_agreement(pre_r, pre_f, floor_pre, "ring vs full cache prefill logits")
+    a_dec = logits_agreement(dec_r, dec_f, floor_dec, "ring vs full cache decode logits")
+    d_wrap = logit_diff(dec_r[:, 128:], dec_f[:, 128:])
+    return a_pre, a_dec, floor_pre, floor_dec, d_wrap
+
+
+def ring_cache(card):
+    """gemma3-1b at full width, 4 x RING_PROMPT -> RING_NEW through
+    ``Engine.generate`` with ``RING_CACHE`` on, then off: launches exact
+    by route over both, tokens, both caches' bytes, and the teacher-forced
+    logits of the two under phase 9's rule.  Returns the launches."""
+    dev = torch.device("cuda")
+    cfg = GEMMA
+    params = init_lm(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    prompts = np.random.default_rng(4).integers(3, cfg.vocab_size, (4, RING_PROMPT))
+    max_len = RING_PROMPT + RING_NEW
+    saved = tt_mod.RING_CACHE
+    res, secs, nbytes = {}, {}, {}
+    reset_launches()
+    try:
+        for ring in (True, False):
+            tt_mod.RING_CACHE = ring
+            nbytes[ring] = sum(x.numel() * x.element_size()
+                               for x in tree_leaves(init_cache(cfg, 4, max_len, device=dev)))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res[ring] = Engine(cfg, params, max_len=max_len).generate(prompts,
+                                                                      max_new_tokens=RING_NEW)
+            torch.cuda.synchronize()
+            secs[ring] = time.perf_counter() - t0
+    finally:
+        tt_mod.RING_CACHE = saved
+    counts = launches()
+    by_route = dict(flash_attention.launches_by_route)
+    want = serve_routes(cfg, RING_PROMPT, RING_NEW)  # two generates, as phase 9's
+    check(by_route == want, f"ring cache: flash_attention launched {by_route} by route, "
+          f"expected exactly {want}")
+    gen_full = res[False].tokens[:, RING_PROMPT:]
+    same = int((res[True].tokens == res[False].tokens).all(axis=0)[RING_PROMPT:].sum())
+    a_pre, a_dec, f_pre, f_dec, d_wrap = ring_agreement(cfg, params, prompts, gen_full, max_len)
+    print(f"[archs2] gemma3-1b ring cache (local layers' window {GEMMA_WINDOW}), 4 x "
+          f"{RING_PROMPT} -> {RING_NEW} (the rings wrap after decode step "
+          f"{GEMMA_WINDOW - RING_PROMPT}): cache {nbytes[True] / 2 ** 20:.1f} MiB with the ring, "
+          f"{nbytes[False] / 2 ** 20:.1f} MiB without; generate {secs[True]:.2f} s / "
+          f"{secs[False]:.2f} s; flash_attention by route over both {by_route} (exactly as worked "
+          f"out from the code); tokens equal at {same} of {RING_NEW} positions in all 4 rows; "
+          f"teacher-forced ring vs full: prefill max|d| {a_pre[0]:.4g} mean|d| {a_pre[1]:.3g}, "
+          f"decode max|d| {a_dec[0]:.4g} mean|d| {a_dec[1]:.3g}, after the wrap max|d| "
+          f"{d_wrap[0]:.4g}; the plain path nudged by {NUDGE:g} moves them by max "
+          f"{f_pre[0]:.4g} / {f_dec[0]:.4g}, mean {f_pre[1]:.3g} / {f_dec[1]:.3g}, bound 4x; on "
+          f"{card}")
+    del params
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_archs2(workdir, card):
+    """Phase 14: whisper-tiny served whole and trained at full size,
+    qwen2-vl-72b and jamba-1.5-large-398b served at full width (cut in
+    depth) and trained reduced, one Mamba layer's incremental form at full
+    width, and gemma3-1b's ring cache.  Returns every kernel's launches
+    over the phase and the arch table."""
+    t0 = time.perf_counter()
+    total = dict.fromkeys(launches(), 0)
+    table = []
+
+    def add(counts):
+        for k in total:
+            total[k] += counts[k]
+
+    add(serve_whisper(card, table))
+    add(train_whisper(workdir, card))
+    add(serve_qwen(card, table))
+    _, first, last = train_via_launcher(["--arch", QWEN.name, "--reduced", "--steps",
+                                         str(TRAIN_STEPS), "--log-every", "10"], card)
+    check(last < first, f"reduced qwen2-vl: the loss did not fall ({first:.4f} -> {last:.4f})")
+    total["flash_attention"] += serve_arch(JAMBA_ARCH, JAMBA, DENSE_PROMPT, DENSE_NEW,
+                                           DENSE_PROMPT + DENSE_NEW, card, table,
+                                           cli=("--num-layers", str(JAMBA.num_layers)))
+    mamba_layer_check(card)
+    _, first, last = train_via_launcher(["--arch", JAMBA_ARCH, "--reduced", "--steps",
+                                         str(TRAIN_STEPS), "--log-every", "10"], card)
+    check(last < first, f"reduced jamba: the loss did not fall ({first:.4f} -> {last:.4f})")
+    torch.cuda.empty_cache()
+    add(ring_cache(card))
+    print(f"[archs2] launches over the phase: {total}; {time.perf_counter() - t0:.1f} s on {card}")
+    return total, table
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card", file=sys.stderr)
@@ -3493,9 +4077,9 @@ def main() -> int:
     sk = phase_sketch_timing(sk_row, smi)
     del sk_row
     torch.cuda.empty_cache()
-    fl_inputs, fl_hd160, fl_err = phase_flash_checks(gen)
-    fl, fl_lines = phase_flash_timing(fl_inputs, fl_hd160, smi)
-    del fl_inputs, fl_hd160
+    fl_inputs, fl_hd160, fl_archs2, fl_err = phase_flash_checks(gen)
+    fl, fl_lines = phase_flash_timing(fl_inputs, fl_hd160, fl_archs2, smi)
+    del fl_inputs, fl_hd160, fl_archs2
     rw_inputs, rw_err = phase_rwkv_checks(gen)
     rw, rw_lines = phase_rwkv_timing(rw_inputs, smi)
     del rw_inputs
@@ -3614,6 +4198,11 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke-") as workdir:
         archs, arch_table = phase_archs(workdir, smi)
     torch.cuda.empty_cache()
+
+    # the last three archs and the ring cache (slice 10), counts reset around each run
+    with tempfile.TemporaryDirectory(prefix="chip_smoke-") as workdir:
+        archs2, arch2_table = phase_archs2(workdir, smi)
+    torch.cuda.empty_cache()
     print(f"[done] {time.perf_counter() - t0:.1f} s after the card check")
 
     def record(name, replaces, err, timing, source=None):
@@ -3644,11 +4233,13 @@ def main() -> int:
         record("row_sketch", "src/repro/kernels/cold_fuse.py:253", sk_err, sk)]
     for rec in fuse_kernels:  # "launches" is phase 7's; the routed phase's beside it
         rec["launches_routed"] = routed[rec["name"]]
-    for rec in fuse_kernels + [flash, rwkv]:  # and phase 11's, 12's and 13's
+    for rec in fuse_kernels + [flash, rwkv]:  # and phase 11's, 12's, 13's and 14's
         rec["launches_serve_stack"] = served[rec["name"]]
         rec["launches_lm_train"] = lm_train[rec["name"]]
         rec["launches_archs"] = archs[rec["name"]]
+        rec["launches_archs2"] = archs2[rec["name"]]
     print(json.dumps({"archs": arch_table}))
+    print(json.dumps({"archs2": arch2_table}))
     fuse_kernels[0]["at_gemma3_1b"] = fuse_at_gemma
     print(json.dumps({"kernels": fuse_kernels + [flash, rwkv]}))
     print(nvidia_smi())

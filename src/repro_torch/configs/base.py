@@ -5,9 +5,8 @@ A copy of ``repro.configs.base``: every reference arch is described by an
 ``BlockCfg`` pattern.  The port imports nothing from the JAX package.
 Field names, defaults and the parameter-count formulas are the
 reference's, so a config means the same thing in both.  The port's models
-run the attention and RWKV6 mixers and the GLU, MLP, MoE and RWKV
-channel-mix FFNs; Mamba mixers, M-RoPE and the encoder-decoder stack are
-described here but not run yet (ROADMAP.md).
+run every mixer (attention, Mamba, RWKV6), FFN (GLU, MLP, MoE, RWKV
+channel-mix), RoPE kind and the encoder-decoder stack described here.
 """
 from __future__ import annotations
 

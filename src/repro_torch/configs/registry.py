@@ -1,7 +1,6 @@
 """Architecture registry: ``--arch <id>`` resolution + reduced smoke
 variants (port of ``repro.configs.registry``).  Every reference arch
-resolves; building a block the port does not run yet (Mamba, M-RoPE, the
-encoder-decoder stack) raises ``NotImplementedError`` naming ROADMAP.md."""
+resolves, and the port runs every one of them."""
 from __future__ import annotations
 
 import dataclasses

@@ -6,10 +6,11 @@ without a card it raises unless ``--device cpu`` is given).
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-1b --reduced \\
       --batch 4 --prompt-len 12 --new-tokens 16 --device cpu
 
-``--arch`` takes every reference arch; one that needs a block the port
-does not run yet (Mamba, M-RoPE, the encoder-decoder stack) raises
-``NotImplementedError`` naming ROADMAP.md.  ``--load`` reads a parameter
-tree ``.npz`` as either package writes it.
+``--arch`` takes every reference arch; an encoder-decoder arch (whisper)
+exits as the reference's launcher does (``models.whisper`` drives it).
+``--num-layers N`` keeps the config's first N layers (a depth cut at full
+width, for a model that does not fit the card whole).  ``--load`` reads a
+parameter tree ``.npz`` as either package writes it.
 Random weights and prompts are drawn from ``--seed`` (a torch generator on
 the device for the weights, numpy for the prompts), so they are not the
 reference launcher's draws.
@@ -17,6 +18,7 @@ reference launcher's draws.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 from typing import Optional, Sequence
 
@@ -25,7 +27,7 @@ import torch
 
 from repro_torch.checkpoint import io as ckpt
 from repro_torch.configs import ARCH_IDS, get_config, reduce_config
-from repro_torch.models.transformer import check_ported, init_lm
+from repro_torch.models.transformer import init_lm
 from repro_torch.serve.engine import Engine, GenerationResult
 from repro_torch.utils.device import resolve_device
 
@@ -39,6 +41,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--prompt-len", type=int, default=12)
     p.add_argument("--new-tokens", type=int, default=16)
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--num-layers", type=int, default=None,
+                   help="serve only the config's first N layers (default: all)")
     p.add_argument("--device", default="cuda", help="where the model runs (cuda, cpu)")
     return p
 
@@ -48,7 +52,12 @@ def main(argv: Optional[Sequence[str]] = None) -> GenerationResult:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduce_config(cfg)
-    check_ported(cfg)  # an arch with a block the port lacks raises, naming ROADMAP.md
+    if cfg.is_encoder_decoder:
+        raise SystemExit("use whisper_decode directly for enc-dec archs")
+    if args.num_layers is not None:
+        if not 1 <= args.num_layers <= cfg.num_layers:
+            raise SystemExit(f"--num-layers must be in 1..{cfg.num_layers}; got {args.num_layers}")
+        cfg = dataclasses.replace(cfg, num_layers=args.num_layers)
     device = resolve_device(args.device)
     if args.load:
         params = ckpt.load(args.load, device=device)

@@ -14,10 +14,12 @@ draws; the token stream is the same.
       --steps 200 --batch 8 --seq 64 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train --arch gemma3-1b --steps 30   # on the card
 
-``--arch`` takes every reference arch; one that needs a block the port
-does not run yet (Mamba, M-RoPE, the encoder-decoder stack) raises
-``NotImplementedError`` naming ROADMAP.md.  ``--save`` writes the trained
-parameters as an ``.npz`` that both packages' ``checkpoint.io.load`` read.
+``--arch`` takes every reference arch.  As in the reference's driver, an
+M-RoPE arch gets ``positions`` 0..seq-1 on all three streams, a vlm arch
+zero ``extra_embeds`` for its frontend tokens, and an encoder-decoder arch
+(whisper, built by ``init_whisper``) zero ``frames``.  ``--save`` writes
+the trained parameters as an ``.npz`` that both packages'
+``checkpoint.io.load`` read.
 """
 from __future__ import annotations
 
@@ -32,7 +34,8 @@ import torch
 from repro_torch.checkpoint import io as ckpt
 from repro_torch.configs import ARCH_IDS, get_config, reduce_config
 from repro_torch.data.synthetic import SyntheticSuite
-from repro_torch.models.transformer import check_ported, init_lm
+from repro_torch.models import whisper as W
+from repro_torch.models.transformer import init_lm
 from repro_torch.optim.optimizers import make_optimizer, warmup_cosine_lr
 from repro_torch.train.step import make_train_state, make_train_step
 from repro_torch.utils.device import resolve_device
@@ -67,6 +70,27 @@ def train_config(arch: str, *, reduced: bool, seq: int):
                                remat=False, max_seq_len=max(cfg.max_seq_len, seq))
 
 
+def build_params(cfg, gen: torch.Generator, device):
+    if cfg.is_encoder_decoder:
+        return W.init_whisper(cfg, gen, max_target_len=cfg.max_seq_len, device=device)
+    return init_lm(cfg, gen, device=device)
+
+
+def train_batch(cfg, tokens: np.ndarray) -> Dict[str, np.ndarray]:
+    """The reference driver's batch for ``tokens`` [B, S]: M-RoPE positions
+    [3, B, S], a vlm's zero frontend embeddings, an encoder-decoder's zero
+    frames."""
+    B, S = tokens.shape
+    batch = {"tokens": tokens}
+    if cfg.rope.kind == "mrope":
+        batch["positions"] = np.broadcast_to(np.arange(S)[None, None], (3, B, S)).copy()
+    if cfg.family == "vlm" and cfg.num_frontend_tokens:
+        batch["extra_embeds"] = np.zeros((B, cfg.num_frontend_tokens, cfg.d_model), np.float32)
+    if cfg.is_encoder_decoder:
+        batch["frames"] = np.zeros((B, cfg.encoder_seq, cfg.d_model), np.float32)
+    return batch
+
+
 def token_stream(cfg, *, steps: int, batch: int, seq: int, seed: int) -> np.ndarray:
     """``steps * batch`` sequences of the synthetic suite's LM stream over
     ``min(vocab, 512)`` tokens."""
@@ -82,11 +106,10 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     the device's work)."""
     args = build_parser().parse_args(argv)
     cfg = train_config(args.arch, reduced=args.reduced, seq=args.seq)
-    check_ported(cfg)
     device = resolve_device(args.device)
     print(f"[train] {cfg.name}: ~{cfg.param_count()/1e6:.1f}M params, "
           f"{args.steps} steps x batch {args.batch} x seq {args.seq}")
-    params = init_lm(cfg, torch.Generator(device=device).manual_seed(args.seed), device=device)
+    params = build_params(cfg, torch.Generator(device=device).manual_seed(args.seed), device)
     opt = make_optimizer(cfg.optimizer, warmup_cosine_lr(args.lr, warmup=20, total=args.steps))
     state = make_train_state(params, opt)
     step = make_train_step(cfg, opt, microbatches=args.microbatches)
@@ -96,7 +119,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     t0 = time.time()
     for i in range(args.steps):
         ts = time.perf_counter()
-        state, m = step(state, {"tokens": stream[i * args.batch:(i + 1) * args.batch]})
+        state, m = step(state, train_batch(cfg, stream[i * args.batch:(i + 1) * args.batch]))
         history["loss"].append(float(m["loss"]))
         history["aux"].append(float(m["aux"]))
         history["grad_norm"].append(float(m["grad_norm"]))

@@ -4,7 +4,9 @@ family the paper runs ColD Fusion on (§4.2).  Port of
 flat row means the same thing in both packages.
 
 ColD Fusion averages the shared body; each contributor keeps a private
-per-dataset head.  Pre-LayerNorm, as in the reference.
+per-dataset head.  Pre-LayerNorm, as in the reference.  The encoder always
+trains, so its attention is ``_sdpa`` (``differentiable=True``): the
+reference computes it in plain XLA too.
 """
 from __future__ import annotations
 
@@ -48,7 +50,8 @@ def encode(cfg: ArchConfig, body, tokens: torch.Tensor) -> torch.Tensor:
     x = body["embed"][tokens].to(cdt) + body["pos"][None, :S].to(cdt)
     for i in range(cfg.num_layers):
         p = body["layers"][f"layer{i}"]
-        out, _ = L.attention_fwd(cfg, p["attn"], L.norm_fwd(cfg, p["norm1"], x), causal=False)
+        out, _ = L.attention_fwd(cfg, p["attn"], L.norm_fwd(cfg, p["norm1"], x), causal=False,
+                                 differentiable=True)
         x = x + out
         x = x + L.mlp_fwd(cfg, p["mlp"], L.norm_fwd(cfg, p["norm2"], x))
     return L.norm_fwd(cfg, body["final_norm"], x)

@@ -1,7 +1,8 @@
 """Layers of the port's models (port of ``repro.models.layers``): norms,
-activations, RoPE, GQA attention with an optional KV cache, dense FFNs.
-Functional, like the reference: ``init_*`` returns a dict of tensors,
-``*_fwd`` applies it.
+activations, RoPE and M-RoPE, GQA attention with an optional KV cache (a
+ring buffer for sliding-window layers) or a cross-attention source, dense
+FFNs.  Functional, like the reference: ``init_*`` returns a dict of
+tensors, ``*_fwd`` applies it.
 
 Numerics follow the reference:
 * the norm runs in f32 with the biased variance and ``cfg.norm_eps`` and
@@ -12,19 +13,25 @@ Numerics follow the reference:
 * ``_sdpa`` is a copy of the reference's attention: q scaled by 1/sqrt(hd)
   in f32, masked scores at -1e30, a softmax in f32, the probabilities cast
   to v's dtype before the second product, blocked over 512-query chunks
-  from 2048 queries on (``_sdpa_chunked``).  It is written with
-  ``einsum``/``softmax`` as the reference writes it, so it trains through
-  autograd.  The encoder's bidirectional attention runs it, and so does
-  the decoder's when the caller asks for ``differentiable=True`` (the LM
-  train step: the kernels have no backward, as the reference's have none);
-* otherwise causal or cached attention (the decoder) goes through
-  ``kernels.ops.attention``: the hand-written kernel on the card, its plain
-  version on the CPU.  It keeps the probabilities in f32, so at bf16 it
-  differs from ``_sdpa`` by that rounding only.
+  from 2048 queries on (``_sdpa_chunked``, which scores only the keys a
+  sliding window can see when ``OPT_WINDOW_SLICING`` is on).  It is
+  written with ``einsum``/``softmax`` as the reference writes it, so it
+  trains through autograd.  ``attention_fwd`` runs it when the caller asks
+  for ``differentiable=True`` (the LM train step, and the RoBERTa encoder,
+  which always trains: the kernels have no backward, as the reference's
+  have none);
+* otherwise attention goes through ``kernels.ops.attention``: the
+  hand-written kernel on the card, its plain version on the CPU.  It keeps
+  the probabilities in f32, so at bf16 it differs from ``_sdpa`` by that
+  rounding only.  A ring-buffer decode step runs it over the ring with
+  ``q_offset = min(i, W - 1)``: the reference's reconstructed positions
+  keep exactly slots ``0..min(i, W - 1)`` visible, and the keys' order
+  does not change a softmax.
 """
 from __future__ import annotations
 
 import math
+import os
 from typing import Optional
 
 import torch
@@ -96,6 +103,23 @@ def rope_angles(rope: RopeCfg, positions: torch.Tensor, head_dim: int) -> torch.
     return pos[..., None] * inv
 
 
+def mrope_merge_angles(rope: RopeCfg, positions_3d: torch.Tensor, head_dim: int) -> torch.Tensor:
+    """Qwen2-VL M-RoPE: positions_3d [3, B, S] (temporal, height, width
+    ids) -> angles [B, S, head_dim//2].  The head_dim/2 frequency slots
+    split into ``rope.mrope_sections`` (t, h, w) chunks, each driven by its
+    own position stream; identical t/h/w ids give ordinary RoPE."""
+    sections = rope.mrope_sections
+    if sum(sections) != head_dim // 2:
+        raise ValueError(f"mrope_sections {sections} must sum to head_dim // 2 = {head_dim // 2}")
+    inv = rope_freqs(rope, head_dim, positions_3d.device)
+    ang_all = (positions_3d.float() / rope.scaling)[..., None] * inv  # [3, B, S, half]
+    chunks, start = [], 0
+    for axis, sec in enumerate(sections):
+        chunks.append(ang_all[axis, ..., start:start + sec])
+        start += sec
+    return torch.cat(chunks, dim=-1)
+
+
 def apply_rope(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
     """x: [B, S, H, hd]; angles: [B, S, hd//2].  Rotate-half convention
     (HF Llama/Mistral/Gemma); cos and sin are cast to x's dtype first."""
@@ -111,12 +135,16 @@ def apply_rope(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
 CHUNKED_THRESHOLD = 2048
 CHUNK_Q = 512
 
+# The reference's lever REPRO_OPT_WINDOW, read at import as there: the
+# blocked path scores a sliding-window layer's chunk of queries only
+# against the window + chunk keys it can see (same outputs, less work).
+OPT_WINDOW_SLICING = os.environ.get("REPRO_OPT_WINDOW", "0") == "1"
 
-def _mask(Sq: int, Sk: int, causal: bool, window: Optional[int], q_offset: int, device):
-    """[Sq, Sk] visibility: query i sits at position q_offset + i."""
-    q_pos = q_offset + torch.arange(Sq, device=device)[:, None]
-    k_pos = torch.arange(Sk, device=device)[None, :]
-    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=device)
+
+def _mask(q_pos: torch.Tensor, k_pos: torch.Tensor, causal: bool, window: Optional[int]):
+    """[Sq, Sk] visibility from the queries' positions [Sq, 1] and the
+    keys' [1, Sk]."""
+    mask = torch.ones((q_pos.shape[0], k_pos.shape[1]), dtype=torch.bool, device=q_pos.device)
     if causal:
         mask &= k_pos <= q_pos
     if window is not None:
@@ -124,31 +152,48 @@ def _mask(Sq: int, Sk: int, causal: bool, window: Optional[int], q_offset: int, 
     return mask
 
 
+def _positions(n: int, start: int, device) -> torch.Tensor:
+    return start + torch.arange(n, device=device)
+
+
 def _sdpa_chunked(q, k, v, *, causal: bool, window: Optional[int], q_offset: int,
                   chunk: int = CHUNK_Q):
     """``_sdpa`` one chunk of queries at a time; a query that sees no key
-    gets zeros, as in the reference's blocked path."""
+    gets zeros, as in the reference's blocked path.  With
+    ``OPT_WINDOW_SLICING`` a causal windowed chunk starting at position q0
+    scores only keys ``[start, start + W)``, W = min(Sk, window + chunk),
+    start = clip(q0 - window + 1, 0, Sk - W)."""
     Sq, Sk, hd = q.shape[1], k.shape[1], q.shape[3]
     rep = q.shape[2] // k.shape[2]
     kf = torch.repeat_interleave(k, rep, dim=2).float()
     vf = torch.repeat_interleave(v, rep, dim=2)
+    W = Sk
+    if OPT_WINDOW_SLICING and window is not None and causal:
+        W = min(Sk, window + chunk)
     outs = []
-    for q0 in range(0, Sq, chunk):
-        qf = q[:, q0:q0 + chunk].float() * (hd ** -0.5)
-        scores = torch.einsum("bqhd,bkhd->bhqk", qf, kf)
-        mask = _mask(qf.shape[1], Sk, causal, window, q_offset + q0, q.device)
+    for c0 in range(0, Sq, chunk):
+        q0 = q_offset + c0
+        qf = q[:, c0:c0 + chunk].float() * (hd ** -0.5)
+        start = min(max(q0 - window + 1, 0), Sk - W) if W < Sk else 0
+        kw, vw = kf[:, start:start + W], vf[:, start:start + W]
+        scores = torch.einsum("bqhd,bkhd->bhqk", qf, kw)
+        mask = _mask(_positions(qf.shape[1], q0, q.device)[:, None],
+                     _positions(W, start, q.device)[None, :], causal, window)
         probs = torch.softmax(torch.where(mask, scores, -1e30), dim=-1)
         probs = torch.where(torch.isnan(probs), 0.0, probs)
-        outs.append(torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype), vf))
+        outs.append(torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype), vw))
     return torch.cat(outs, dim=1)
 
 
-def _sdpa(q, k, v, *, causal: bool, window: Optional[int] = None, q_offset: int = 0):
+def _sdpa(q, k, v, *, causal: bool, window: Optional[int] = None, q_offset: int = 0,
+          k_positions: Optional[torch.Tensor] = None):
     """Attention with GQA broadcast, differentiable.  q [B, Sq, Hq, hd],
     k/v [B, Sk, Hkv, hd]; ``q_offset`` is the position of q[0], so a
-    shorter q masks correctly against a longer key cache."""
-    Sq = q.shape[1]
-    if Sq >= CHUNKED_THRESHOLD and Sq % CHUNK_Q == 0:
+    shorter q masks correctly against a longer key cache.  ``k_positions``
+    [Sk] overrides each key slot's position (a ring buffer; slots at a
+    position < 0 are never visible)."""
+    Sq, Sk = q.shape[1], k.shape[1]
+    if Sq >= CHUNKED_THRESHOLD and Sq % CHUNK_Q == 0 and k_positions is None:
         return _sdpa_chunked(q, k, v, causal=causal, window=window, q_offset=q_offset)
     hd = q.shape[-1]
     rep = q.shape[2] // k.shape[2]
@@ -156,42 +201,63 @@ def _sdpa(q, k, v, *, causal: bool, window: Optional[int] = None, q_offset: int 
     kf = torch.repeat_interleave(k.float(), rep, dim=2)
     vf = torch.repeat_interleave(v, rep, dim=2)
     scores = torch.einsum("bqhd,bkhd->bhqk", qf, kf)
-    mask = _mask(Sq, k.shape[1], causal, window, q_offset, q.device)
+    k_pos = _positions(Sk, 0, q.device) if k_positions is None else k_positions
+    mask = _mask(_positions(Sq, q_offset, q.device)[:, None], k_pos[None, :], causal, window)
+    if k_positions is not None:
+        mask &= k_pos[None, :] >= 0
     probs = torch.softmax(torch.where(mask, scores, -1e30), dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype), vf)
 
 
 def attention_fwd(cfg: ArchConfig, p, x: torch.Tensor, *, angles=None, causal: bool = True,
                   window: Optional[int] = None, q_offset: int = 0, kv_cache=None,
-                  cache_index: Optional[int] = None, differentiable: bool = False):
-    """Self-attention: x [B, Sq, D] -> (out [B, Sq, D], cache).
+                  cache_index: Optional[int] = None, kv_source: Optional[torch.Tensor] = None,
+                  differentiable: bool = False):
+    """Self- (or cross-) attention: x [B, Sq, D] -> (out [B, Sq, D], cache).
 
     ``kv_cache``: optional dict {"k": [B, S_cache, Hkv, hd], "v": ...}; with
     ``cache_index`` (an int) the new k/v are written into it IN PLACE at
     that offset and attention runs over the whole cache (the decode path);
-    the same dict is returned.  The reference's ring-buffer cache is not
-    ported.  Without a cache the returned cache is None.
-    ``differentiable=True`` computes causal attention with ``_sdpa`` (which
+    the same dict is returned.  A cache of exactly ``window`` slots at a
+    one-token step is the reference's RING buffer: the write goes to slot
+    ``cache_index % window``.  Without a cache the returned cache is None.
+    ``kv_source`` [B, Skv, D]: keys and values are projected from it
+    (cross-attention), k is not rotated, and no query is masked.
+    ``differentiable=True`` computes attention with ``_sdpa`` (which
     autograd can differentiate) instead of the kernel."""
     B, Sq, _ = x.shape
     hd, nq, nkv = cfg.head_dim, cfg.num_heads, cfg.num_kv_heads
     q = (x @ p["wq"]).reshape(B, Sq, nq, hd)
-    k = (x @ p["wk"]).reshape(B, Sq, nkv, hd)
-    v = (x @ p["wv"]).reshape(B, Sq, nkv, hd)
+    src = x if kv_source is None else kv_source
+    k = (src @ p["wk"]).reshape(B, src.shape[1], nkv, hd)
+    v = (src @ p["wv"]).reshape(B, src.shape[1], nkv, hd)
     if angles is not None:
         q = apply_rope(q, angles)
-        k = apply_rope(k, angles)
+        if kv_source is None:
+            k = apply_rope(k, angles)
+    causal = causal and kv_source is None
+    ring = None
     if kv_cache is not None:
         ck, cv = kv_cache["k"], kv_cache["v"]
         if cache_index is not None:
             i = int(cache_index)
-            if not 0 <= i <= ck.shape[1] - Sq:
+            if window is not None and ck.shape[1] == window and Sq == 1:
+                ring = i
+                i %= window
+            elif not 0 <= i <= ck.shape[1] - Sq:
                 raise ValueError(f"cache_index {i} + {Sq} new positions overrun a cache of "
                                  f"{ck.shape[1]}")
             ck[:, i:i + Sq] = k.to(ck.dtype)
             cv[:, i:i + Sq] = v.to(cv.dtype)
         k, v = ck, cv
-    if differentiable or not (causal or kv_cache is not None or window is not None):
+    if ring is not None and differentiable:
+        # the reference's positions p(s) = i - ((i - s) mod W); unwritten slots < 0
+        s_idx = _positions(window, 0, q.device)
+        out = _sdpa(q, k, v, causal=causal, window=window, q_offset=q_offset,
+                    k_positions=ring - torch.remainder(ring - s_idx, window))
+    elif ring is not None:
+        out = ops.attention(q, k, v, causal=True, window=None, q_offset=min(ring, window - 1))
+    elif differentiable:
         out = _sdpa(q, k, v, causal=causal, window=window, q_offset=q_offset)
     else:
         out = ops.attention(q, k, v, causal=causal, window=window, q_offset=q_offset)

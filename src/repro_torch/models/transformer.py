@@ -1,44 +1,38 @@
 """Composable decoder LM (port of ``repro.models.transformer``):
-attention (GQA, optional sliding window, per-layer RoPE theta) and RWKV6
-mixers; GLU, MLP, MoE and RWKV channel-mix FFNs.  The reference's
-``mamba`` mixer, M-RoPE, its ``extra_embeds`` input and the
-encoder-decoder stack (whisper) are not ported yet (ROADMAP.md) and raise
-``NotImplementedError`` (``check_ported``).
+attention (GQA, optional sliding window, per-layer RoPE theta or M-RoPE),
+Mamba and RWKV6 mixers; GLU, MLP, MoE and RWKV channel-mix FFNs; the
+reference's ``extra_embeds`` input (a stub modality frontend's embeddings
+in place of the first positions' token embeddings).  The encoder-decoder
+stack (whisper) is ``models/whisper.py``.
 
 The parameter tree is the reference's: the full periods of the layer
 pattern are stacked, ``scan/pos{i}`` leaves of shape ``[n_full, ...]``,
 and the remainder layers sit under ``tail/layer{li}``, so ``FlatSpec``
 gives the same spec in both packages.  The reference scans over the
 stacked periods; here a Python loop walks views of them.  Decode state
-(KV caches, RWKV states) is stacked the same way and updated IN PLACE.
+(KV caches, Mamba and RWKV states) is stacked the same way and updated IN
+PLACE.  ``RING_CACHE`` (the reference's lever ``REPRO_OPT_RING_CACHE``,
+read at import as there) gives sliding-window layers a ring buffer of
+``window`` slots instead of a cache of ``max_len``.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Any, Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import ArchConfig, BlockCfg
 from repro_torch.models import layers as L
+from repro_torch.models import mamba as M
 from repro_torch.models import moe as MOE
 from repro_torch.models import rwkv as R
 from repro_torch.utils.device import resolve_device
 from repro_torch.utils.flat import dtype_of
 from repro_torch.utils.pytree import tree_map
 
-_NOT_PORTED = "is not ported yet (ROADMAP.md lists what is left)"
-
-
-def check_ported(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` naming ROADMAP.md when ``cfg`` needs a
-    block the port does not run yet."""
-    if cfg.is_encoder_decoder:
-        raise NotImplementedError(f"the encoder-decoder stack ({cfg.name}) {_NOT_PORTED}")
-    if cfg.rope.kind == "mrope":
-        raise NotImplementedError(f"rope kind 'mrope' ({cfg.name}) {_NOT_PORTED}")
-    if any(blk.mixer == "mamba" for blk in cfg.pattern):
-        raise NotImplementedError(f"mixer 'mamba' ({cfg.name}) {_NOT_PORTED}")
+RING_CACHE = os.environ.get("REPRO_OPT_RING_CACHE", "0") == "1"
 
 
 def _init_block(cfg: ArchConfig, blk: BlockCfg, gen, dtype, device) -> Dict[str, Any]:
@@ -50,7 +44,7 @@ def _init_block(cfg: ArchConfig, blk: BlockCfg, gen, dtype, device) -> Dict[str,
     elif blk.mixer == "rwkv":
         p["rwkv"] = R.init_time_mix(cfg, gen, dtype, device)
     elif blk.mixer == "mamba":
-        raise NotImplementedError(f"mixer 'mamba' {_NOT_PORTED}")
+        p["mamba"] = M.init_mamba(cfg, gen, dtype, device)
     else:
         raise ValueError(f"unknown mixer {blk.mixer!r}")
     if blk.ffn == "glu":
@@ -86,7 +80,6 @@ def init_lm(cfg: ArchConfig, gen: torch.Generator, *, device="cuda") -> Dict[str
     """Random LM drawn from ``gen`` (on the generator's device, then placed
     on ``device``).  Draw order: embed, lm_head (untied only), then the
     layers in order 0..num_layers-1."""
-    check_ported(cfg)
     device = resolve_device(device)
     dtype = dtype_of(cfg.param_dtype)
     n_full, n_tail = split_layers(cfg)
@@ -117,23 +110,27 @@ def init_lm(cfg: ArchConfig, gen: torch.Generator, *, device="cuda") -> Dict[str
 def _init_block_cache(cfg: ArchConfig, blk: BlockCfg, batch: int, max_len: int, dtype,
                       device, lead=()):
     if blk.mixer == "attn":
-        shape = tuple(lead) + (batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+        length = max_len
+        if RING_CACHE and blk.window is not None:
+            length = min(max_len, blk.window)
+        shape = tuple(lead) + (batch, length, cfg.num_kv_heads, cfg.head_dim)
         return {"k": torch.zeros(shape, dtype=dtype, device=device),
                 "v": torch.zeros(shape, dtype=dtype, device=device)}
     if blk.mixer == "rwkv":
         one = R.init_rwkv_state(cfg, batch, dtype, device)
-        return tree_map(lambda x: x.expand(tuple(lead) + tuple(x.shape)).contiguous(), one)
-    if blk.mixer == "mamba":
-        raise NotImplementedError(f"mixer 'mamba' {_NOT_PORTED}")
-    raise ValueError(blk.mixer)
+    elif blk.mixer == "mamba":
+        one = M.init_mamba_state(cfg, batch, dtype, device)
+    else:
+        raise ValueError(blk.mixer)
+    return tree_map(lambda x: x.expand(tuple(lead) + tuple(x.shape)).contiguous(), one)
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=None, *,
                device="cuda") -> Dict[str, Any]:
     """Zeroed decode state for ``batch`` sequences of up to ``max_len``
     positions, stacked like the parameters.  ``forward_lm`` updates it in
-    place."""
-    check_ported(cfg)
+    place; a sliding-window layer's cache is a ring of ``window`` slots
+    when ``RING_CACHE`` is on."""
     device = resolve_device(device)
     dtype = dtype or dtype_of(cfg.compute_dtype)
     n_full, n_tail = split_layers(cfg)
@@ -167,13 +164,17 @@ def embed_tokens(cfg: ArchConfig, params, tokens: torch.Tensor) -> torch.Tensor:
 
 def _rope_angles(cfg: ArchConfig, positions, seq: int, batch: int, device):
     """Rotation angles for every distinct theta in the pattern:
-    {theta: [B, S, head_dim//2]}, or None for rope-free models."""
+    {theta: [B, S, head_dim//2]}, or None for rope-free models.  M-RoPE
+    takes positions [3, B, S]; 2-D positions (plain text) drive all three
+    streams (t = h = w)."""
     if cfg.rope.kind == "none":
         return None
-    if cfg.rope.kind != "default":
-        raise NotImplementedError(f"rope kind {cfg.rope.kind!r} {_NOT_PORTED}")
     if positions is None:
         positions = torch.arange(seq, device=device)[None].expand(batch, seq)
+    if cfg.rope.kind == "mrope":
+        if positions.ndim == 2:
+            positions = positions[None].expand((3,) + tuple(positions.shape))
+        return {cfg.rope.theta: L.mrope_merge_angles(cfg.rope, positions, cfg.head_dim)}
     out = {}
     for th in {blk.rope_theta or cfg.rope.theta for blk in cfg.pattern}:
         out[th] = L.rope_angles(dataclasses.replace(cfg.rope, theta=th), positions, cfg.head_dim)
@@ -196,8 +197,13 @@ def _apply_block(cfg: ArchConfig, blk: BlockCfg, p, x, angles, *, cache=None,
         if cache is not None:
             cache["S"].copy_(st["S"])
             cache["shift"].copy_(st["shift"])
+    elif blk.mixer == "mamba":
+        out, st = M.mamba_fwd(cfg, p["mamba"], h, state=cache, return_state=cache is not None)
+        if cache is not None:
+            cache["h"].copy_(st["h"])
+            cache["conv"].copy_(st["conv"])
     else:
-        raise NotImplementedError(f"mixer {blk.mixer!r} {_NOT_PORTED}")
+        raise ValueError(f"unknown mixer {blk.mixer!r}")
     x = x + out
     h2 = L.norm_fwd(cfg, p["norm2"], x)
     aux = None
@@ -214,7 +220,7 @@ def _apply_block(cfg: ArchConfig, blk: BlockCfg, p, x, angles, *, cache=None,
         if cache is not None:
             cache["cm_shift"].copy_(cm)
     else:
-        raise NotImplementedError(f"ffn {blk.ffn!r} {_NOT_PORTED}")
+        raise ValueError(f"unknown ffn {blk.ffn!r}")
     return x + f, aux
 
 
@@ -241,20 +247,26 @@ def forward_lm(cfg: ArchConfig, params, tokens: torch.Tensor, *,
     cache | None).  ``aux_loss`` is the MoE layers' load-balance losses
     summed (0 without MoE layers).
 
+    ``positions``: [B, S] (or [3, B, S] for M-RoPE) position ids; by
+    default 0..S-1, offset by ``cache_index`` with a cache.
+    ``extra_embeds`` [B, N, D] (the stub modality frontend's output)
+    replaces the embeddings of the first N positions.
+
     With ``cache`` the step is incremental: attention attends over the
-    cache and RWKV mixers resume their state; ``cache_index`` (an int) is
-    the write offset (the number of positions already in the cache).  The
-    cache is updated IN PLACE and returned.
+    cache and Mamba and RWKV mixers resume their state; ``cache_index``
+    (an int) is the write offset (the number of positions already in the
+    cache).  The cache is updated IN PLACE and returned.
 
     ``differentiable=True`` (the train step's choice) computes attention
     and the RWKV recurrence as plain PyTorch that autograd can
     differentiate, as the reference's train step does; by default every
     block runs the kernels, which have no backward."""
-    if extra_embeds is not None:
-        raise NotImplementedError(f"extra_embeds {_NOT_PORTED}")
     B, S = tokens.shape
     dev = tokens.device
     x = embed_tokens(cfg, params, tokens)
+    if extra_embeds is not None:
+        n = extra_embeds.shape[1]
+        x = torch.cat([extra_embeds.to(x.dtype), x[:, n:]], dim=1)
     if positions is None and cache_index is not None:
         positions = (torch.arange(S, device=dev)[None] + int(cache_index)).expand(B, S)
     angles = _rope_angles(cfg, positions, S, B, dev)

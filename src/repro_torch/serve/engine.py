@@ -27,7 +27,7 @@ class Engine:
 
     def __init__(self, cfg: ArchConfig, params, *, max_len: int = 256):
         if cfg.is_encoder_decoder:
-            raise ValueError("Engine drives decoder-only archs")
+            raise ValueError("Engine drives decoder-only archs; use whisper_decode directly")
         self.cfg = cfg
         self.params = params
         self.max_len = max_len

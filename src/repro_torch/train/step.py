@@ -4,15 +4,18 @@
 ``make_train_step`` returns ``(state, batch) -> (state, metrics)``, a pure
 function like the reference's: the new parameters and optimizer state are
 new tensors and the old ones are left as they were.  The batch splits into
-``microbatches`` equal slices of axis 0 whose gradients are summed in f32
-and averaged (what the reference's ``lax.scan`` over microbatches
-computes).  The MoE load-balance loss enters the objective at
-``cfg.moe.aux_loss_weight`` (the reference's default weight) and is reported
-as the metric ``aux``.  The forward pass of the train step runs with
-``differentiable=True``: the kernels have no backward (the reference has
-none either and trains through XLA), so attention and the RWKV recurrence
-are the plain PyTorch copies of the reference's.  Every inference step
-(eval, prefill, serve) runs on the kernels.
+``microbatches`` equal slices of the batch axis (axis 0; axis 1 of M-RoPE
+positions [3, B, S]) whose gradients are summed in f32 and averaged (what
+the reference's ``lax.scan`` over microbatches computes).  The MoE
+load-balance loss enters the objective at ``cfg.moe.aux_loss_weight`` (the
+reference's default weight) and is reported as the metric ``aux``.  The
+forward pass of the train step runs with ``differentiable=True``: the
+kernels have no backward (the reference has none either and trains through
+XLA), so attention and the RWKV recurrence are the plain PyTorch copies of
+the reference's.  Every inference step
+(eval, prefill, serve) runs on the kernels.  An encoder-decoder config
+(whisper) runs ``models.whisper``: the batch's ``frames`` through the
+encoder, its ``tokens`` through the decoder.
 """
 from __future__ import annotations
 
@@ -21,7 +24,8 @@ from typing import Any, Callable, Dict, Optional
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.transformer import check_ported, forward_lm
+from repro_torch.models import whisper as W
+from repro_torch.models.transformer import forward_lm
 from repro_torch.optim.optimizers import Optimizer, clip_by_global_norm
 from repro_torch.train.losses import lm_loss
 from repro_torch.utils.pytree import tree_device, tree_leaves, tree_map, tree_unflatten
@@ -38,10 +42,34 @@ def _on_device(batch, device) -> Dict[str, torch.Tensor]:
     return out
 
 
-def _lm_loss_fn(cfg: ArchConfig, params, batch, aux_weight: float, *, differentiable: bool):
+def _logits(cfg: ArchConfig, params, batch, *, differentiable: bool):
+    """(logits [B, S, V], aux loss) of the batch, no cache."""
+    if cfg.is_encoder_decoder:
+        enc_out = W.whisper_encode(cfg, params, batch["frames"], differentiable=differentiable)
+        logits, aux, _ = W.whisper_decode(cfg, params, batch["tokens"], enc_out,
+                                          differentiable=differentiable)
+        return logits, aux
     logits, aux, _ = forward_lm(cfg, params, batch["tokens"], positions=batch.get("positions"),
                                 extra_embeds=batch.get("extra_embeds"),
                                 differentiable=differentiable)
+    return logits, aux
+
+
+def _microbatch(batch, i: int, n: int):
+    """Slice ``i`` of ``n`` along the batch axis: axis 1 of M-RoPE positions
+    [3, B, S], axis 0 of everything else.  (The reference picks the axis by
+    comparing a leaf's first dim with the batch size, which takes the wrong
+    axis for positions at a global batch of 3.)"""
+    out = {}
+    for key, v in batch.items():
+        axis = 1 if key == "positions" and v.ndim == 3 else 0
+        mb = v.shape[axis] // n
+        out[key] = v.narrow(axis, i * mb, mb)
+    return out
+
+
+def _lm_loss_fn(cfg: ArchConfig, params, batch, aux_weight: float, *, differentiable: bool):
+    logits, aux = _logits(cfg, params, batch, differentiable=differentiable)
     loss = lm_loss(logits, batch["tokens"], batch.get("mask"))
     return loss + aux_weight * aux, loss, aux
 
@@ -61,7 +89,6 @@ def make_train_step(cfg: ArchConfig, optimizer: Optimizer, *, microbatches: int 
     reduce gradients across devices; identity by default.
     ``grad_shardings`` pins the reference's gradient accumulator to a mesh
     layout and waits for the multi-device slice (ROADMAP.md A6)."""
-    check_ported(cfg)
     if grad_shardings is not None:
         raise NotImplementedError("make_train_step(grad_shardings=) needs a device mesh, which "
                                   "is not ported yet (ROADMAP.md A6)")
@@ -88,13 +115,11 @@ def make_train_step(cfg: ArchConfig, optimizer: Optimizer, *, microbatches: int 
             if B % microbatches:
                 raise ValueError(f"a batch of {B} does not split into {microbatches} equal "
                                  "microbatches")
-            mb = B // microbatches
             gacc = [torch.zeros_like(x, dtype=torch.float32) for x in leaves]
             loss_sum = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
             aux_sum = torch.zeros_like(loss_sum)
             for i in range(microbatches):
-                loss, aux, grads = grads_of(params, leaves,
-                                            {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()})
+                loss, aux, grads = grads_of(params, leaves, _microbatch(batch, i, microbatches))
                 for acc, g in zip(gacc, grads):
                     acc.add_(g)
                 loss_sum += loss
@@ -118,7 +143,6 @@ def make_train_step(cfg: ArchConfig, optimizer: Optimizer, *, microbatches: int 
 def make_eval_step(cfg: ArchConfig) -> Callable:
     """``(params, batch) -> loss``: ``lm_loss`` of the batch (plus the aux
     loss at weight 0), computed on the kernels without gradients."""
-    check_ported(cfg)
 
     @torch.no_grad()
     def eval_step(params, batch):
@@ -132,12 +156,9 @@ def make_eval_step(cfg: ArchConfig) -> Callable:
 def make_prefill_step(cfg: ArchConfig) -> Callable:
     """Forward pass of the full prompt, no cache: ``(params, batch) ->
     last-position logits [B, V]`` (the next-token distribution)."""
-    check_ported(cfg)
 
     def prefill_step(params, batch):
-        logits, _, _ = forward_lm(cfg, params, batch["tokens"], positions=batch.get("positions"),
-                                  extra_embeds=batch.get("extra_embeds"))
-        return logits[:, -1]
+        return _logits(cfg, params, batch, differentiable=False)[0][:, -1]
 
     return prefill_step
 
@@ -145,11 +166,16 @@ def make_prefill_step(cfg: ArchConfig) -> Callable:
 def make_serve_step(cfg: ArchConfig) -> Callable:
     """One decode step against a KV/state cache: ``(params, cache, tokens
     [B, 1], cache_index) -> (logits [B, V], cache)``; the cache is updated
-    in place and returned."""
-    check_ported(cfg)
+    in place and returned.  For an encoder-decoder config the cache is
+    ``whisper.init_whisper_cache``'s, primed by ``prime_cross_cache``."""
 
     def serve_step(params, cache, tokens, cache_index):
-        logits, _, cache = forward_lm(cfg, params, tokens, cache=cache, cache_index=cache_index)
+        if cfg.is_encoder_decoder:
+            logits, _, cache = W.whisper_decode(cfg, params, tokens, cache=cache,
+                                                cache_index=cache_index)
+        else:
+            logits, _, cache = forward_lm(cfg, params, tokens, cache=cache,
+                                          cache_index=cache_index)
         return logits[:, -1], cache
 
     return serve_step

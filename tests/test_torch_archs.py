@@ -1,6 +1,7 @@
-"""Every reference arch config in the port, and the archs this slice runs
-(granite-moe-1b-a400m, mixtral-8x7b, mistral-nemo-12b, stablelm-12b,
-granite-20b) reduced, against the JAX package on the CPU; plus
+"""Every reference arch config in the port, and the archs the MoE and hybrid
+slices run (granite-moe-1b-a400m, mixtral-8x7b, mistral-nemo-12b,
+stablelm-12b, granite-20b, jamba-1.5-large-398b, qwen2-vl-72b) reduced,
+against the JAX package on the CPU; every arch through both launchers; plus
 ``flash_attention``'s plain version at head_dim 160 (stablelm-12b's)
 against the reference's oracle and its Pallas kernel in interpret mode.
 
@@ -52,8 +53,7 @@ from repro_torch.utils.pytree import tree_leaves_with_path
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 ARCHS = ("granite-moe-1b-a400m", "mixtral-8x7b", "mistral-nemo-12b", "stablelm-12b",
-         "granite-20b")
-UNPORTED = ("jamba-1.5-large-398b", "qwen2-vl-72b", "whisper-tiny")
+         "granite-20b", "jamba-1.5-large-398b", "qwen2-vl-72b")
 
 
 @pytest.fixture(autouse=True)
@@ -162,8 +162,10 @@ def test_init_lm_tree_has_the_reference_spec(arch, dtype):
     tparams = TT.init_lm(tcfg, torch.Generator().manual_seed(0), device="cpu")
     assert TFlatSpec.from_tree(tparams).to_json() == jspec.to_json()
     n = sum(x.numel() for _, x in tree_leaves_with_path(tparams))
-    # the analytic count leaves out the LayerNorms' biases, as the reference's does
+    # the analytic count leaves out the LayerNorms' biases and each Mamba
+    # mixer's conv_b and dt_bias, as the reference's does
     biases = (2 * tcfg.num_layers + 1) * tcfg.d_model if tcfg.norm == "layernorm" else 0
+    biases += sum(b.mixer == "mamba" for b in tcfg.blocks) * 2 * tcfg.ssm.expand * tcfg.d_model
     assert n == tcfg.param_count() + biases
 
 
@@ -332,14 +334,35 @@ def test_train_launcher_trains_reduced_granite_moe(tmp_path):
     assert back.tokens.shape == (1, 6)
 
 
-@pytest.mark.parametrize("arch", UNPORTED)
-def test_unported_archs_raise_naming_the_roadmap(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tserve.main(["--arch", arch, "--reduced", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tlaunch.main(["--arch", arch, "--reduced", "--device", "cpu", "--steps", "1"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TT.init_lm(reduce_config(get_config(arch)), torch.Generator(), device="cpu")
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_every_arch_runs_through_both_launchers(arch, tmp_path, capsys):
+    """Every reference arch, reduced, trains through the launcher and serves
+    what it trained, jamba (Mamba), qwen2-vl (M-RoPE, extra_embeds) and
+    whisper (the encoder-decoder stack) among them; whisper's serve
+    launcher exits as the reference's does."""
+    npz = str(tmp_path / "trained.npz")
+    out = tlaunch.main(["--arch", arch, "--reduced", "--device", "cpu", "--steps", "2",
+                        "--batch", "4", "--seq", "16", "--log-every", "1", "--save", npz])
+    assert len(out["loss"]) == 2 and all(np.isfinite(out["loss"] + out["grad_norm"]))
+    argv = ["--arch", arch, "--reduced", "--device", "cpu", "--load", npz, "--batch", "2",
+            "--prompt-len", "6", "--new-tokens", "3"]
+    if arch == "whisper-tiny":
+        with pytest.raises(SystemExit, match="use whisper_decode directly"):
+            tserve.main(argv)
+        return
+    res = tserve.main(argv)
+    assert res.tokens.shape == (2, 9)
+    assert f"[serve] {arch}-smoke on cpu: 2 requests x 3 tokens" in capsys.readouterr().out
+
+
+def test_serve_launcher_cuts_depth():
+    res = tserve.main(["--arch", "jamba-1.5-large-398b", "--reduced", "--device", "cpu",
+                       "--num-layers", "5", "--batch", "1", "--prompt-len", "4",
+                       "--new-tokens", "2"])
+    assert res.tokens.shape == (1, 6)
+    with pytest.raises(SystemExit, match="--num-layers must be in 1..8"):
+        tserve.main(["--arch", "jamba-1.5-large-398b", "--reduced", "--device", "cpu",
+                     "--num-layers", "9"])
 
 
 # -- flash_attention's plain version at head_dim 160 ----------------------------------

@@ -225,28 +225,45 @@ def test_rope_casts_cos_sin_to_the_input_dtype():
                                atol=2 ** -6, rtol=2 ** -7)
 
 
-def test_unported_blocks_raise_naming_the_roadmap():
-    """Mamba mixers, M-RoPE and ``extra_embeds`` are not ported yet (the MoE
-    FFN is: ``tests/test_torch_moe.py``)."""
-    cfg = reduce_config(get_config("gemma3-1b"))
-    gen = torch.Generator().manual_seed(0)
-    mrope = dataclasses.replace(cfg.rope, kind="mrope", mrope_sections=(4, 6, 6))
-    for bad in (dataclasses.replace(cfg, pattern=(dataclasses.replace(cfg.pattern[0],
-                                                                      mixer="mamba"),)),
-                dataclasses.replace(cfg, rope=mrope)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TT.init_lm(bad, gen, device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TT.init_cache(bad, 1, 8, device="cpu")
-    _, tp = _params("gemma3-1b")
-    _, tcfg = _cfgs("gemma3-1b")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TT.forward_lm(tcfg, tp, torch.zeros((1, 4), dtype=torch.long),
-                      extra_embeds=torch.zeros((1, 1, tcfg.d_model)))
-    cache = TT.init_cache(tcfg, 1, 8, device="cpu")
+@pytest.mark.parametrize("variant", ["mamba", "mrope"])
+def test_mamba_block_and_mrope_on_reduced_gemma3_match_the_reference(variant):
+    """Reduced gemma3 (window 8, 8 layers) with its first pattern slot a
+    Mamba mixer, or with M-RoPE sections (4, 6, 6) on 2-D positions: a prefill into the
+    cache and one serve step, logits and caches against the reference's;
+    the cache refuses a write past its end."""
+
+    def variant_of(cfg):
+        if variant == "mamba":
+            return dataclasses.replace(cfg, pattern=(dataclasses.replace(
+                cfg.pattern[0], mixer="mamba"),) + cfg.pattern[1:])
+        # M-RoPE drives every layer at the config's theta (gemma's local layers
+        # carry a theta of their own, which the reference's M-RoPE has no angles for)
+        return dataclasses.replace(
+            cfg, rope=dataclasses.replace(cfg.rope, kind="mrope", mrope_sections=(4, 6, 6)),
+            pattern=tuple(dataclasses.replace(b, rope_theta=None) for b in cfg.pattern))
+
+    jcfg, tcfg = (variant_of(c) for c in _cfgs("gemma3-1b"))
+    jp = jax.tree.map(np.asarray, JT.init_lm(jcfg, jax.random.PRNGKey(0)))
+    tp = convert.from_jax_params(jp, "cpu")
+    B, P, L = 2, 10, 16
+    toks = _tokens(tcfg, B, P + 1, seed=8)
+    jcache, tcache = JT.init_cache(jcfg, B, L), TT.init_cache(tcfg, B, L, device="cpu")
+    jl, _, jcache = JT.forward_lm(jcfg, jp, jnp.asarray(toks[:, :P]), cache=jcache,
+                                  cache_index=jnp.asarray(0, jnp.int32))
+    tl, _, tcache = TT.forward_lm(tcfg, tp, torch.from_numpy(toks[:, :P]).long(), cache=tcache,
+                                  cache_index=0)
+    _close(tl, jl)
+    _assert_tree_close(tcache, jcache)
+    jl, jcache = jstep.make_serve_step(jcfg)(jp, jcache, jnp.asarray(toks[:, P:]),
+                                             jnp.asarray(P, jnp.int32))
+    tl, tcache = tstep.make_serve_step(tcfg)(tp, tcache, torch.from_numpy(toks[:, P:]).long(), P)
+    _close(tl, jl)
+    _assert_tree_close(tcache, jcache)
+    if variant == "mamba":
+        assert sorted(tcache["scan"]["pos0"]) == ["conv", "h"]
     with pytest.raises(ValueError, match="overrun"):
-        TT.forward_lm(tcfg, tp, torch.zeros((1, 4), dtype=torch.long), cache=cache,
-                      cache_index=6)
+        TT.forward_lm(tcfg, tp, torch.zeros((1, 4), dtype=torch.long),
+                      cache=TT.init_cache(tcfg, 1, 8, device="cpu"), cache_index=6)
 
 
 def test_serving_entry_points_default_to_the_card(tmp_path):

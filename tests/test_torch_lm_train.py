@@ -400,8 +400,11 @@ def test_launcher_save_reads_back_in_the_reference(tmp_path, capsys):
         "/".join(str(p.key) for p in path): s
         for path, s in jax.tree_util.tree_flatten_with_path(
             want, is_leaf=lambda x: isinstance(x, tuple))[0]}
-    # every reference arch resolves; one with a block the port lacks raises naming ROADMAP.md
+    # every reference arch resolves and trains: one step of reduced jamba
+    # (Mamba, MoE and attention layers) through the same launcher
     assert tlaunch.train_config("mixtral-8x7b", reduced=True, seq=64).moe.num_experts == 4
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tlaunch.main(["--device", "cpu", "--arch", "jamba-1.5-large-398b", "--reduced",
-                      "--steps", "1"])
+    jamba = tlaunch.main(["--device", "cpu", "--arch", "jamba-1.5-large-398b", "--reduced",
+                          "--steps", "1", "--batch", "2", "--seq", "16"])
+    assert jamba["cfg"].name == "jamba-1.5-large-398b-smoke"
+    assert np.isfinite(jamba["loss"][0]) and jamba["aux"][0] > 0
+    assert "mamba" in jamba["state"]["params"]["scan"]["pos0"]
