@@ -250,14 +250,43 @@ Phases (any failed check raises, so the script exits non-zero):
    logits against the full cache's under phase 9's rule.  The arch table is
    printed as a JSON line.
 
+15. the mesh-sharded Repository engine (slice 11) on an 8-shard mesh of the
+   card (``launch.mesh.make_mesh``: every shard on ``cuda:0`` when there is
+   one card).  The sharded ops at full width against the unsharded kernels:
+   ``fuse_flat_sharded`` at K=5 x N=123,969,792 bf16 (block 65,536, G 237,
+   shard_len 15,532,032, 286,464 elements of padding; a NaN row of weight
+   0, alpha 1.0 and 0.3) and at K=3 x N=999,812,736 (G 1,907) must give the
+   unsharded ``cold_fuse``'s fused row bit for bit and ``sq_diff`` within
+   rtol 1e-5; ``fuse_flat_compressed_sharded`` at C=4 RoBERTa-base payloads
+   (the codec's top-k offsets, moved whole into their shards) the unsharded
+   accumulator and fused row bit for bit; ``row_sketch_sharded`` of the body
+   phase 3's sketch bounds; ``row_sketch_shard`` (the entry for a clamped
+   block) against ``row_sketch_shard_plain`` on every shard of 200,000 f32.
+   Each sharded call: 8 launches, one all-reduce, no gather; each is timed
+   beside the unsharded kernel.  Then the service loop through
+   ``launch.serve_repository.main(["--mesh", "8", ...])`` at TINY f32 on the
+   card and on the CPU (the same decisions, bases within 1e-5, every sharded
+   sketch on ``row_sketch_shard``), and at RoBERTa-base width (``MESH_CALLS``):
+   round 1 five dense submissions, whole-row and per-shard (``sspec=``), the
+   runaway screened out (4/5); round 2 three compressed, whole-row and
+   per-shard, and a byte-identical replay rejected (3/3); round 3 two rows
+   staged and the daemon stopped.  Every round's decisions and published
+   row must equal those of the unsharded daemon over the same queue (the
+   compressed files in the other layout, so both do the same arithmetic)
+   bit for bit, and the stopped root reopened under 8 shards, 4 and none
+   must recover the staged rows into the same base bit for bit.  Launches
+   exact (``MESH_LAUNCHES``: ``cold_fuse`` 16, ``decode_accum`` 8,
+   ``row_sketch`` 49), the collectives, peak memory and seconds printed.
+
 Before each of phases 6, 7, 8, 10 and 11, before each model of phases 9, 13
-and 14 and around phases 12's, 13's and 14's eval steps and generates, every
-kernel's launch counter is set to 0; it is read just after.  The last lines
-are the kernels' JSON record (launches from phase 7 for the three fuse
-kernels, with phase 10's as ``launches_routed``, from phase 9 for the other
-two, phase 11's as ``launches_serve_stack``, phase 12's as
-``launches_lm_train``, phase 13's as ``launches_archs`` and phase 14's as
-``launches_archs2`` for all five),
+and 14, around phases 12's, 13's and 14's eval steps and generates and
+around each run of phase 15's mesh daemon, every kernel's launch counter is
+set to 0; it is read just after.  The last lines are the kernels' JSON
+record (launches from phase 7 for the three fuse kernels, with phase 10's
+as ``launches_routed``, from phase 9 for the other two, phase 11's as
+``launches_serve_stack``, phase 12's as ``launches_lm_train``, phase 13's as
+``launches_archs``, phase 14's as ``launches_archs2`` and phase 15's as
+``launches_mesh`` for all five; phase 15's times under ``mesh``),
 ``nvidia-smi``'s line and
 ``{"ok": true, "device": {...}}``.  Without a card (or without the rest of
 the repository beside it) the script exits non-zero and prints no result.
@@ -294,10 +323,14 @@ from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.kernels.decode_accum import decode_accum, decode_accum_plain  # noqa: E402
 from repro_torch.kernels.flash_attention import (flash_attention,  # noqa: E402
                                                  flash_attention_plain)
-from repro_torch.kernels.row_sketch import row_sketch, row_sketch_plain  # noqa: E402
+from repro_torch.kernels.row_sketch import (row_sketch, row_sketch_plain,  # noqa: E402
+                                            row_sketch_shard, row_sketch_shard_plain)
 from repro_torch.kernels import rwkv6_scan as rs_mod  # noqa: E402
 from repro_torch.kernels.rwkv6_scan import rwkv6_scan, rwkv6_scan_plain  # noqa: E402
+from repro_torch.launch import mesh as mesh_mod  # noqa: E402
+from repro_torch.launch.mesh import make_mesh  # noqa: E402
 from repro_torch.launch.serve import main as serve_main  # noqa: E402
+from repro_torch.launch.serve_repository import main as serve_repo_main  # noqa: E402
 from repro_torch.launch import train as train_launcher  # noqa: E402
 from repro_torch.models import mamba as mamba_mod  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
@@ -320,8 +353,9 @@ from repro_torch.serve.hot_swap import ServingWorker  # noqa: E402
 from repro_torch.serve.scheduler import batch_bucket  # noqa: E402
 from repro_torch.serve.worker_pool import WorkerPool  # noqa: E402
 from repro_torch.core.validation import screen_norms  # noqa: E402
-from repro_torch.utils.flat import (LANE, CohortSketch, FamilyRouter, FlatSpec,  # noqa: E402
-                                    delta_decode, delta_encode)
+from repro_torch.utils.flat import (LANE, CohortSketch, DeltaPayload,  # noqa: E402
+                                    FamilyRouter, FlatSpec, ShardedFlatSpec, delta_checksum,
+                                    delta_decode, delta_encode, delta_encode_sharded)
 from repro_torch.utils.pytree import tree_leaves, tree_leaves_with_path, tree_map  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
@@ -551,7 +585,7 @@ def fuse_inputs(K, N, dtype, gen, nan_row=None):
 
 
 def reset_launches():
-    for fn in (cold_fuse, decode_accum, row_sketch):
+    for fn in (cold_fuse, decode_accum, row_sketch, row_sketch_shard):
         fn.launches = 0
     fa_mod.reset_launches()
     rs_mod.reset_launches()
@@ -4042,6 +4076,548 @@ def phase_archs2(workdir, card):
     return total, table
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the mesh-sharded Repository engine (slice 11)
+# ---------------------------------------------------------------------------
+
+MESH_S = 8                      # shards of the phase's mesh
+MESH_AXES = ("model",)
+# RoBERTa-base over 8 shards of the default 64 Ki block: G, shard_len, padding
+MESH_ROBERTA = (65_536, 237, 15_532_032, 286_464)
+MESH_GEMMA = (65_536, 1_907, 124_977_152)
+MESH_CLAMPED_N = 200_000        # a clamped block (25,600: 25 tiles) for row_sketch_shard
+# the service loop's queue: honest rows are the base plus MESH_NOISE x N(0, 1)
+# and a tile-constant +-MESH_NOISE pattern of their own (so the novelty
+# screen tells them apart at full width); the runaway adds MESH_RUNAWAY x N(0, 1)
+MESH_NOISE, MESH_RUNAWAY = 1e-3, 10.0
+# worked out from the code before the first card run (PERF.md): per round of
+# the service loop, the sharded calls the daemon makes.  Round 1 (5 dense,
+# the runaway screened out): the sketch of the base when the service starts,
+# of one per-shard file without a rider sketch, of the published base; a
+# fuse and its screen's re-pass; one whole-row file sketched unsharded.
+# Round 2 (3 compressed, a replay): the starting and the published
+# base's sketches; one compressed fuse.  Round 3 (2 rows staged): the
+# starting base's sketch.
+MESH_CALLS = {"row_sketch_sharded": 3 + 2 + 1, "row_sketch": 1, "fuse_flat_sharded": 2,
+              "fuse_flat_compressed_sharded": 1}
+MESH_LAUNCHES = {"cold_fuse": MESH_S * MESH_CALLS["fuse_flat_sharded"],
+                 "decode_accum": MESH_S * MESH_CALLS["fuse_flat_compressed_sharded"],
+                 "row_sketch": MESH_S * MESH_CALLS["row_sketch_sharded"] + MESH_CALLS["row_sketch"]}
+
+
+def shard_rows(ss, rows):
+    """``[K, N]`` -> S contiguous ``[K, shard_len]`` stacks (the staged
+    cohort of a mesh repository), through one padded copy."""
+    K = rows.shape[0]
+    padded = rows.new_zeros((K, ss.padded_size))
+    padded[:, : ss.size] = rows
+    grid = padded.view(K, ss.n_super, ss.n_shards, ss.block)
+    out = [grid[:, :, s, :].reshape(K, ss.shard_len) for s in range(ss.n_shards)]
+    del padded, grid
+    return out
+
+
+def shard_payloads(ss, idx, val, scl, block):
+    """Whole-row ``[C, nb, kb]`` codec arrays -> S per-shard ones, as
+    ``delta_encode_sharded`` lays them out: codec blocks never straddle a
+    shard block, so each is moved whole; padding blocks hold zeros."""
+    C, nb, kb = idx.shape
+    per = ss.block // block
+    nbp = ss.padded_size // block
+
+    def pad(a):
+        out = a.new_zeros((C, nbp) + tuple(a.shape[2:]))
+        out[:, :nb] = a
+        return out.view((C, ss.n_super, ss.n_shards, per) + tuple(a.shape[2:]))
+
+    gi, gv, gs = pad(idx), pad(val), pad(scl)
+    return ([gi[:, :, s].reshape(C, ss.n_super * per, kb) for s in range(ss.n_shards)],
+            [gv[:, :, s].reshape(C, ss.n_super * per, kb) for s in range(ss.n_shards)],
+            [gs[:, :, s].reshape(C, ss.n_super * per) for s in range(ss.n_shards)])
+
+
+@contextlib.contextmanager
+def mesh_calls():
+    """Record every sharded op call of the Repository engine with the
+    launches and collectives it made (``ops.*`` wrapped for the block; a
+    check and a timing call outside it do not count).  Yields the list of
+    (name, deltas)."""
+    names = ("fuse_flat_sharded", "fuse_flat_compressed_sharded", "row_sketch_sharded",
+             "row_sketch")
+    saved = {n: getattr(kops, n) for n in names}
+    calls = []
+
+    def snap():
+        return {"cold_fuse": cold_fuse.launches, "decode_accum": decode_accum.launches,
+                "row_sketch": row_sketch.launches, "row_sketch_shard": row_sketch_shard.launches,
+                **mesh_mod.collectives}
+
+    def wrap(name, fn):
+        def wrapper(*args, **kwargs):
+            before = snap()
+            out = fn(*args, **kwargs)
+            after = snap()
+            calls.append((name, {k: after[k] - before[k] for k in after}))
+            return out
+        return wrapper
+
+    for n in names:
+        setattr(kops, n, wrap(n, saved[n]))
+    try:
+        yield calls
+    finally:
+        for n in names:
+            setattr(kops, n, saved[n])
+
+
+def check_mesh_calls(calls, S):
+    """Every sharded fuse launches its kernel once a shard (``S`` a call; 0
+    on the CPU, which runs the plain versions) and makes ONE all-reduce and
+    no gather; every sharded sketch likewise."""
+    for name, d in calls:
+        if name == "row_sketch":
+            check(d["row_sketch"] == min(S, 1) and d["all_reduce"] == 0 and d["all_gather"] == 0,
+                  f"an unsharded sketch made {d}")
+            continue
+        kernel = {"fuse_flat_sharded": ("cold_fuse",), "fuse_flat_compressed_sharded":
+                  ("decode_accum",), "row_sketch_sharded": ("row_sketch", "row_sketch_shard")}[name]
+        check(sum(d[k] for k in kernel) == S, f"{name} launched {d}, expected {S} of {kernel}")
+        check(d["all_reduce"] == 1 and d["all_gather"] == 0,
+              f"{name} made {d['all_reduce']} all-reduces and {d['all_gather']} gathers, "
+              "expected 1 and 0")
+
+
+def phase_mesh_ops(gen, card):
+    """Phase 15, part 1: the three sharded ops at full width against the
+    unsharded kernels on the same inputs; returns the timing records."""
+    mesh = make_mesh((MESH_S,), MESH_AXES)
+    rec = {}
+    # cold_fuse at RoBERTa-base width, K=5, a NaN row of weight 0
+    base, contribs, w = fuse_inputs(K_MAIN, N_ROBERTA, torch.bfloat16, gen, nan_row=3)
+    ss = ShardedFlatSpec.for_size(N_ROBERTA, MESH_S)
+    check((ss.block, ss.n_super, ss.shard_len, ss.padded_size - N_ROBERTA) == MESH_ROBERTA,
+          f"RoBERTa-base layout {ss}")
+    base_s, stage_s = ss.shard_slices(base), shard_rows(ss, contribs)
+    for alpha in (1.0, 0.3):
+        fk, sk = cold_fuse(base, contribs, w, alpha)
+        before = cold_fuse.launches
+        mesh_mod.reset_collectives()
+        fs, sq = kops.fuse_flat_sharded(base_s, stage_s, w, alpha, mesh=mesh, axes=MESH_AXES)
+        check(cold_fuse.launches - before == MESH_S and mesh_mod.collectives ==
+              {"all_reduce": 1, "all_gather": 0}, f"sharded fuse made {mesh_mod.collectives}")
+        got = ss.unshard(torch.stack(fs))
+        check(torch.equal(got, fk), f"sharded fused row differs from cold_fuse's (alpha {alpha})")
+        r = sq_error(sq, sk)
+        check(r <= 1e-5, f"sharded sq_diff rel err {r:.3g} > 1e-5")
+        print(f"[mesh] fuse_flat_sharded K={K_MAIN} N={N_ROBERTA:,} bf16 over {MESH_S} shards "
+              f"(block 65,536, G {ss.n_super}, shard_len {ss.shard_len:,}, padding "
+              f"{ss.padded_size - N_ROBERTA:,}), alpha {alpha}: fused row equal to cold_fuse's "
+              f"bit for bit, sq max rel err {r:.3g} (bound 1e-5), sq[3]={sq[3].item()}")
+        del fk, sk, fs, sq, got
+    nbytes = (K_MAIN + 2) * N_ROBERTA * 2 + 2 * K_MAIN * 4
+    bound, by = bound_of(nbytes, 4 * K_MAIN * N_ROBERTA + 3 * N_ROBERTA)
+    ms, runs = median_windows(lambda: kops.fuse_flat_sharded(base_s, stage_s, w, 1.0, mesh=mesh,
+                                                             axes=MESH_AXES), iters=20)
+    whole, _ = median_windows(lambda: cold_fuse(base, contribs, w, 1.0), iters=20)
+    print(f"[time] fuse_flat_sharded K={K_MAIN} N={N_ROBERTA:,} bf16, {MESH_S} shards on one "
+          f"card ({card}): {ms:.4f} ms (windows {[round(x, 4) for x in runs]}) against "
+          f"cold_fuse unsharded {whole:.4f}, bound_ms {bound:.4f} ({by})")
+    rec["cold_fuse"] = {"K": K_MAIN, "N": N_ROBERTA, "shards": MESH_S, "ms": ms,
+                        "unsharded_ms": whole, "bound_ms": bound, "bound_by": by}
+    del base, contribs, base_s, stage_s
+    torch.cuda.empty_cache()
+
+    # cold_fuse at gemma3-1b width, K=3
+    base, contribs, w = fuse_inputs(K_SWAP, N_GEMMA, torch.bfloat16, gen)
+    ss = ShardedFlatSpec.for_size(N_GEMMA, MESH_S)
+    check((ss.block, ss.n_super, ss.shard_len) == MESH_GEMMA, f"gemma3-1b layout {ss}")
+    base_s, stage_s = ss.shard_slices(base), shard_rows(ss, contribs)
+    fk, sk = cold_fuse(base, contribs, w, 1.0)
+    fs, sq = kops.fuse_flat_sharded(base_s, stage_s, w, 1.0, mesh=mesh, axes=MESH_AXES)
+    check(torch.equal(ss.unshard(torch.stack(fs)), fk),
+          "sharded fused row differs from cold_fuse's at gemma3-1b width")
+    r = sq_error(sq, sk)
+    check(r <= 1e-5, f"sharded sq_diff rel err {r:.3g} > 1e-5 at gemma3-1b width")
+    del fk, sk, fs, sq
+    bound, by = bound_of((K_SWAP + 2) * N_GEMMA * 2 + 2 * K_SWAP * 4,
+                         4 * K_SWAP * N_GEMMA + 3 * N_GEMMA)
+    ms, runs = median_windows(lambda: kops.fuse_flat_sharded(base_s, stage_s, w, 1.0, mesh=mesh,
+                                                             axes=MESH_AXES), iters=5)
+    whole, _ = median_windows(lambda: cold_fuse(base, contribs, w, 1.0), iters=5)
+    print(f"[mesh] fuse_flat_sharded K={K_SWAP} N={N_GEMMA:,} bf16 (G {ss.n_super}, shard_len "
+          f"{ss.shard_len:,}): fused row equal to cold_fuse's bit for bit, sq max rel err "
+          f"{r:.3g}")
+    print(f"[time] fuse_flat_sharded K={K_SWAP} N={N_GEMMA:,} bf16, {MESH_S} shards ({card}): "
+          f"{ms:.4f} ms (windows {[round(x, 4) for x in runs]}) against cold_fuse unsharded "
+          f"{whole:.4f}, bound_ms {bound:.4f} ({by})")
+    rec["cold_fuse_gemma3_1b"] = {"K": K_SWAP, "N": N_GEMMA, "shards": MESH_S, "ms": ms,
+                                  "unsharded_ms": whole, "bound_ms": bound, "bound_by": by}
+    del base, contribs, base_s, stage_s
+    torch.cuda.empty_cache()
+
+    # decode_accum: C=4 compressed RoBERTa-base deltas, per shard
+    ss = ShardedFlatSpec.for_size(N_ROBERTA, MESH_S)
+    base = (0.05 * torch.randn(N_ROBERTA, generator=gen, device="cuda")).to(torch.bfloat16)
+    idx, val, scl, wc = payloads_on_card(C_SERVICE, N_ROBERTA, CODEC_BLOCK, CODEC_KB, gen,
+                                         topk=True)
+    tail = N_ROBERTA - (idx.shape[1] - 1) * CODEC_BLOCK  # the last codec block's real elements
+    val[:, -1][idx[:, -1].long() >= tail] = 0
+    pi, pv, ps = shard_payloads(ss, idx, val, scl, CODEC_BLOCK)
+    acc, sq_c = decode_accum(idx, val, scl, wc, size=N_ROBERTA, block=CODEC_BLOCK)
+    parts = [decode_accum(a, b, c, wc, size=ss.shard_len, block=CODEC_BLOCK)
+             for a, b, c in zip(pi, pv, ps)]
+    check(torch.equal(ss.unshard(torch.stack([p[0] for p in parts])), acc),
+          "per-shard decode_accum accumulators differ from the whole row's")
+    del parts
+    fk, sk = kops.fuse_flat_compressed(base, idx, val, scl, wc, 0.5, block=CODEC_BLOCK)
+    base_s = ss.shard_slices(base)
+    before = decode_accum.launches
+    mesh_mod.reset_collectives()
+    fs, sq = kops.fuse_flat_compressed_sharded(base_s, pi, pv, ps, wc, 0.5, mesh=mesh,
+                                               axes=MESH_AXES, block=CODEC_BLOCK)
+    check(decode_accum.launches - before == MESH_S and mesh_mod.collectives ==
+          {"all_reduce": 1, "all_gather": 0}, f"sharded compressed fuse made {mesh_mod.collectives}")
+    check(torch.equal(ss.unshard(torch.stack(fs)), fk),
+          "sharded compressed fused row differs from fuse_flat_compressed's")
+    r = sq_error(sq, sk)
+    check(r <= 1e-5, f"sharded compressed sq rel err {r:.3g} > 1e-5")
+    print(f"[mesh] fuse_flat_compressed_sharded C={C_SERVICE} N={N_ROBERTA:,} (codec block "
+          f"{CODEC_BLOCK}, kb {CODEC_KB}, the codec's top-k offsets): accumulator and fused row "
+          f"equal to the unsharded path's bit for bit, sq max rel err {r:.3g}")
+    ms, runs = median_windows(lambda: kops.fuse_flat_compressed_sharded(
+        base_s, pi, pv, ps, wc, 0.5, mesh=mesh, axes=MESH_AXES, block=CODEC_BLOCK), iters=10)
+    whole, _ = median_windows(lambda: kops.fuse_flat_compressed(
+        base, idx, val, scl, wc, 0.5, block=CODEC_BLOCK), iters=10)
+    dk, _ = median_windows(lambda: [decode_accum(a, b, c, wc, size=ss.shard_len,
+                                                 block=CODEC_BLOCK)
+                                    for a, b, c in zip(pi, pv, ps)], iters=10)
+    dw, _ = median_windows(lambda: decode_accum(idx, val, scl, wc, size=N_ROBERTA,
+                                                block=CODEC_BLOCK), iters=10)
+    print(f"[time] fuse_flat_compressed_sharded C={C_SERVICE} N={N_ROBERTA:,}, {MESH_S} shards "
+          f"({card}): {ms:.4f} ms (windows {[round(x, 4) for x in runs]}) against the unsharded "
+          f"fuse_flat_compressed {whole:.4f}; its {MESH_S} decode_accum launches {dk:.4f} against "
+          f"one over the row {dw:.4f}")
+    rec["decode_accum"] = {"C": C_SERVICE, "N": N_ROBERTA, "shards": MESH_S,
+                           "decode_ms": dk, "unsharded_decode_ms": dw, "fuse_ms": ms,
+                           "unsharded_fuse_ms": whole}
+    del idx, val, scl, pi, pv, ps, acc, fk, fs, base_s
+    torch.cuda.empty_cache()
+
+    # row_sketch of the body, per shard, one all-reduce
+    x = (0.05 * torch.randn(N_ROBERTA, generator=gen, device="cuda") + 0.01).to(torch.bfloat16)
+    xs = ss.shard_slices(x)
+    before = row_sketch.launches
+    mesh_mod.reset_collectives()
+    got = kops.row_sketch_sharded(xs, mesh=mesh, axes=MESH_AXES, block=ss.block)
+    check(row_sketch.launches - before == MESH_S and mesh_mod.collectives ==
+          {"all_reduce": 1, "all_gather": 0}, f"sharded sketch made {mesh_mod.collectives}")
+    e, r = sketch_error(got, row_sketch(x, 32), x)
+    print(f"[mesh] row_sketch_sharded N={N_ROBERTA:,} bf16 (64 tiles a block: row_sketch on each "
+          f"slice): max|d| {e:.3g} against the unsharded kernel, sq-sums rel {r:.3g} (phase 3's "
+          "bounds)")
+    ms, runs = median_windows(lambda: kops.row_sketch_sharded(xs, mesh=mesh, axes=MESH_AXES,
+                                                              block=ss.block), iters=20)
+    whole, _ = median_windows(lambda: row_sketch(x, 32), iters=20)
+    print(f"[time] row_sketch_sharded N={N_ROBERTA:,} bf16, {MESH_S} shards ({card}): {ms:.4f} ms "
+          f"(windows {[round(v, 4) for v in runs]}) against row_sketch unsharded {whole:.4f}")
+    rec["row_sketch"] = {"N": N_ROBERTA, "shards": MESH_S, "ms": ms, "unsharded_ms": whole}
+    del x, xs
+
+    # the new entry at a clamped layout: row_sketch_shard against its plain version
+    ss = ShardedFlatSpec.for_size(MESH_CLAMPED_N, MESH_S)
+    x = (0.05 * torch.randn(MESH_CLAMPED_N, generator=gen, device="cuda") + 0.01)
+    worst = 0.0
+    for s, sl in enumerate(ss.shard_slices(x)):
+        before = row_sketch_shard.launches
+        k = row_sketch_shard(sl, s, MESH_S, ss.block)
+        check(row_sketch_shard.launches - before == 1, "row_sketch_shard did not launch")
+        p = row_sketch_shard_plain(sl, s, MESH_S, ss.block)
+        t = sl.float().view(-1, LANE)
+        mag = torch.stack([t.abs().sum(), (t * t).sum()])[:, None]
+        d = (k - p).abs()
+        check(bool((d <= 1e-5 * mag).all()), f"row_sketch_shard shard {s} differs from its plain "
+              f"version by {d.max().item():.3g}")
+        worst = max(worst, d.max().item())
+    e, r = sketch_error(kops.row_sketch_sharded(ss.shard_slices(x), mesh=mesh, axes=MESH_AXES,
+                                                block=ss.block), row_sketch(x, 32), x)
+    sl = ss.shard_slices(x)[3]
+    bound, by = bound_of(sl.numel() * 4 + 2 * 32 * 4, 3 * sl.numel())
+    ms, runs = median_windows(lambda: row_sketch_shard(sl, 3, MESH_S, ss.block), iters=20)
+    plain, _ = median_windows(lambda: row_sketch_shard_plain(sl, 3, MESH_S, ss.block), iters=5)
+    print(f"[mesh] row_sketch_shard N={MESH_CLAMPED_N:,} f32 over {MESH_S} shards (clamped block "
+          f"{ss.block:,}, {ss.block // LANE} tiles): every shard's partial within "
+          f"{worst:.3g} of row_sketch_shard_plain (bound 1e-5 x its sum|x|); summed, max|d| "
+          f"{e:.3g} against the unsharded kernel")
+    print(f"[time] row_sketch_shard one shard ({sl.numel():,} f32, {card}): {ms:.4f} ms (windows "
+          f"{[round(v, 4) for v in runs]}), plain {plain:.4f}, bound_ms {bound:.4f} ({by})")
+    rec["row_sketch_shard"] = {"N": int(sl.numel()), "ms": ms, "plain_ms": plain,
+                               "bound_ms": bound, "bound_by": by, "max_abs_err": worst}
+    return rec
+
+
+def mesh_row(b0, seed, scale=MESH_NOISE, *, host=False):
+    """An honest row: the base plus scale x N(0, 1) and a tile-constant
+    +-scale pattern of its own seed, in the base's dtype; drawn on the
+    base's device, or on the host (``host``: the card and the CPU then
+    get the same rows)."""
+    dev = torch.device("cpu") if host else b0.device
+    g = torch.Generator(device=dev).manual_seed(1000 + seed)
+    n = b0.shape[0]
+    tiles = -(-n // LANE)
+    sign = (torch.randint(0, 2, (tiles,), generator=g, device=dev) * 2 - 1).float()
+    pat = sign.repeat_interleave(LANE)[:n]
+    noise = torch.randn(n, generator=g, device=dev)
+    return (b0.float() + scale * (noise + pat).to(b0.device)).to(b0.dtype)
+
+
+def payload_to_shards(p, ss):
+    """A whole-row payload -> the S per-shard payloads ``delta_encode_sharded``
+    writes for the same row: codec blocks never straddle a shard block, so
+    each moves whole, and a block of the grid's padding holds what the codec
+    writes for zeros (offsets 0..kb-1, values and scale 0)."""
+    per, nbp, kb = ss.block // p.block, ss.padded_size // p.block, p.k_per_block
+    idx = np.tile(np.arange(kb, dtype=np.int16), (nbp, 1))
+    val = np.zeros((nbp, kb), np.int8)
+    scl = np.zeros((nbp,), np.float32)
+    idx[: p.n_blocks], val[: p.n_blocks], scl[: p.n_blocks] = p.indices, p.values, p.scales
+    grid = [a.reshape((ss.n_super, ss.n_shards, per) + a.shape[1:]) for a in (idx, val, scl)]
+    return [DeltaPayload(*(np.ascontiguousarray(g[:, s].reshape((-1,) + g.shape[3:]))
+                           for g in grid), ss.shard_len, p.block)
+            for s in range(ss.n_shards)]
+
+
+def shards_to_payload(ps, ss):
+    """The inverse: S per-shard payloads -> the whole-row payload."""
+    block, kb = ps[0].block, ps[0].k_per_block
+    per, nb = ss.block // block, -(-ss.size // block)
+    arrays = [np.stack([getattr(q, f).reshape((ss.n_super, per) + getattr(q, f).shape[1:])
+                        for q in ps], axis=1) for f in ("indices", "values", "scales")]
+    return DeltaPayload(*(np.ascontiguousarray(a.reshape((-1,) + a.shape[3:])[:nb])
+                          for a in arrays), ss.size, block)
+
+
+def mesh_base(root, it, spec, device):
+    return spec.flatten(ckpt.load(os.path.join(root, f"base_iter{it:04d}.npz"), device=device))
+
+
+def mesh_view(root):
+    st = ckpt.load_json(os.path.join(root, "service_status.json"))
+    return {"iteration": st["iteration"], "fused": st["fused_contributions"],
+            "rejected": st["rejected_total"], "near_duplicates": st["novelty_rejected_total"],
+            "accepted": (st["last_fuse"]["n_accepted"], st["last_fuse"]["n_contributions"]),
+            "rejects": [(r["file"], r["reason"]) for r in st["recent_rejects"]]}
+
+
+def mesh_service(workdir, card, device="cuda", body=None, small=False):
+    """Phase 15, part 2: the service loop through ``serve_repository.main``
+    with ``--mesh 8`` in a temporary root, three rounds (5 dense with the
+    runaway; 3 compressed and a replay; 2 rows staged and the
+    daemon stopped), the same queue drained by the unsharded daemon in a
+    second root, then the stopped root reopened under 8 shards, 4 and none.
+    ``small`` draws the rows on the host (the card and the CPU get the same
+    ones) and holds each compressed file's other layout against a fresh
+    ``delta_encode``.  Returns the launch counts, the collectives, seconds,
+    peak GiB, the recovered base and the two rounds' decisions."""
+    t0 = time.perf_counter()
+    roots = {"mesh": os.path.join(workdir, "mesh"), "flat": os.path.join(workdir, "flat")}
+    if body is None:
+        body = init_encoder_body(CONFIG, torch.Generator(device=device).manual_seed(0),
+                                 device=device)
+    spec = FlatSpec.from_tree(body)
+    b0 = spec.flatten(body)
+    npz = os.path.join(workdir, "mesh-base.npz")
+    ckpt.save(npz, body)
+    ss = ShardedFlatSpec.from_spec(spec, MESH_S)
+    common = ["--device", device, "--novelty-threshold", str(NOVELTY), "--poll", "0.01",
+              "--compact-keep", "1"]
+
+    def row(base, seed, scale=MESH_NOISE):
+        return mesh_row(base, seed, scale, host=small)
+
+    def submit(name, r, it, *, sharded, compress=False, sketch=True, base=None):
+        sid = ContributorClient(roots["mesh"], name).submit(
+            row=r, spec=spec, sspec=ss if sharded else None, base_iteration=it,
+            compress=compress, base=base, sketch=sketch)
+        if compress:
+            # the unsharded daemon gets the same payload bytes in the other
+            # layout, under the same rider: each daemon then decodes the same
+            # rows in decode_accum (its own layout) and the same ones dense
+            # on the host (the other), and the two fuses do the same
+            # arithmetic
+            pl, meta = ckpt.load_flat_delta(os.path.join(roots["mesh"], "queue", sid + ".npz"))
+            other = shards_to_payload(pl, ss) if sharded else payload_to_shards(pl[0], ss)
+            if small:
+                fresh = (delta_encode(r, base, k_per_block=64) if sharded else
+                         delta_encode_sharded(r, base, ss, k_per_block=64))
+                check(delta_checksum(other) == delta_checksum(fresh),
+                      f"{name}: the rearranged payload differs from a fresh encode")
+            ckpt.save_flat_delta(os.path.join(roots["flat"], "queue", sid + ".npz"), other, spec,
+                                 sspec=None if sharded else ss, extra=meta["extra"])
+        return sid
+
+    def replay(sid):
+        for root in roots.values():
+            copy_into_queue(os.path.join(root, "queue", sid + ".npz"), "replay-000000.npz")
+
+    def drain(*argv):
+        t = time.perf_counter()
+        split["submit"].append(t - split.pop("since", t0))
+        # every other file reaches the unsharded daemon's queue byte for
+        # byte, before the mesh daemon consumes it
+        src, dst = os.path.join(roots["mesh"], "queue"), os.path.join(roots["flat"], "queue")
+        os.makedirs(dst, exist_ok=True)
+        for fn in sorted(os.listdir(src)):
+            if fn.endswith(".npz") and not os.path.exists(os.path.join(dst, fn)):
+                shutil.copyfile(os.path.join(src, fn), os.path.join(dst, fn))
+        for name, root in roots.items():
+            mesh = ["--mesh", str(MESH_S)] if name == "mesh" else []
+            t = time.perf_counter()
+            reset_launches()
+            mesh_mod.reset_collectives()
+            with contextlib.redirect_stdout(io.StringIO()) as out, mesh_calls() as made:
+                check(serve_repo_main(["--root", root, *common, *mesh, *argv]) == 0,
+                      f"the {name} daemon failed")
+            split[name].append(time.perf_counter() - t)
+            for line in out.getvalue().splitlines():
+                print(f"  [{name}] {line}")
+            if name == "mesh":  # the unsharded daemon's launches are not the mesh path's
+                calls.extend(made)
+                for k, v in launches().items():
+                    total["launches"][k] += v
+                for k, v in mesh_mod.collectives.items():
+                    total["collectives"][k] += v
+                total["row_sketch_shard"] += row_sketch_shard.launches
+        split["since"] = time.perf_counter()
+
+    split = {"submit": [], "mesh": [], "flat": []}  # seconds a round
+    calls = []
+    total = {"launches": dict.fromkeys(launches(), 0), "row_sketch_shard": 0,
+             "collectives": dict.fromkeys(mesh_mod.collectives, 0)}
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    # round 1: dense, whole-row and per-shard, two without a rider
+    # sketch, and the runaway
+    submit("d0", row(b0, 0), 0, sharded=False)
+    submit("d1", row(b0, 1), 0, sharded=True, sketch=False)
+    submit("d2", row(b0, 2), 0, sharded=False, sketch=False)
+    submit("d3", row(b0, 3), 0, sharded=True)
+    submit("x0", row(b0, 4, MESH_RUNAWAY), 0, sharded=True)
+    drain("--init-npz", npz, "--min-cohort", "5", "--max-iterations", "1")
+    v1 = {n: mesh_view(r) for n, r in roots.items()}
+    check(v1["mesh"] == v1["flat"], f"round 1 decisions differ: {v1}")
+    check(v1["mesh"]["accepted"] == (4, 5), f"round 1 fused {v1['mesh']['accepted']}, "
+          "expected 4/5 (the runaway screened out)")
+    b1 = mesh_base(roots["mesh"], 1, spec, device)
+    check(torch.equal(b1, mesh_base(roots["flat"], 1, spec, device)),
+          "round 1: the mesh daemon's base differs from the unsharded one's")
+    # round 2: compressed, one whole-row (on a mesh it decodes dense) and
+    # two per-shard (decoded per shard in decode_accum), rider sketches
+    # off (the daemon corrects the base's sketch from each delta), and a
+    # byte-identical replay of a per-shard one.  A dense row among them
+    # would be screened out: a top-k delta keeps a fraction of the norm
+    submit("k0", row(b1, 5), 1, sharded=False, compress=True, sketch=False, base=b1)
+    k1 = submit("k1", row(b1, 6), 1, sharded=True, compress=True, sketch=False, base=b1)
+    replay(k1)
+    submit("k2", row(b1, 7), 1, sharded=True, compress=True, sketch=False, base=b1)
+    drain("--min-cohort", "3", "--max-iterations", "2")
+    v2 = {n: mesh_view(r) for n, r in roots.items()}
+    check(v2["mesh"] == v2["flat"], f"round 2 decisions differ: {v2}")
+    check(v2["mesh"]["accepted"] == (3, 3) and v2["mesh"]["near_duplicates"] == 1 and
+          v2["mesh"]["rejects"][-1][0] == "replay-000000.npz",
+          f"round 2: {v2['mesh']}, expected 3/3 with the replay rejected")
+    b2 = mesh_base(roots["mesh"], 2, spec, device)
+    check(torch.equal(b2, mesh_base(roots["flat"], 2, spec, device)),
+          "round 2: the mesh daemon's base differs from the unsharded one's")
+    # round 3: two rows staged below --min-cohort, then the daemon stops
+    submit("d5", row(b2, 8), 2, sharded=False)
+    submit("d6", row(b2, 9), 2, sharded=True)
+    drain("--min-cohort", "5", "--idle-timeout", "2")
+    counts, collectives = total["launches"], total["collectives"]
+    shard_launches = total["row_sketch_shard"]
+    peak = torch.cuda.max_memory_allocated() / 2**30 if device == "cuda" else 0.0
+    check_mesh_calls(calls, MESH_S if device == "cuda" else 0)
+    made = {n: sum(1 for c, _ in calls if c == n) for n in MESH_CALLS}
+    print(f"[mesh] service loop (--mesh {MESH_S}, {device}): rounds fused "
+          f"{v1['mesh']['accepted']}, {v2['mesh']['accepted']}, then 2 rows staged; decisions "
+          f"and published rows equal to the unsharded daemon's bit for bit; sharded calls "
+          f"{made}; launches {counts}; collectives {collectives}; "
+          f"{time.perf_counter() - t0:.1f} s; seconds a round: submit "
+          f"{[round(x, 1) for x in split['submit']]}, the mesh daemon "
+          f"{[round(x, 1) for x in split['mesh']]}, the unsharded one "
+          f"{[round(x, 1) for x in split['flat']]}")
+    check(made == MESH_CALLS, f"sharded calls {made}, expected {MESH_CALLS}")
+
+    # the stopped root reopened under 8 shards, 4 and none (and the unsharded
+    # daemon's root): every one recovers the two staged rows into the same base
+    got = {}
+    for name, kw in (("8", {"mesh": make_mesh((MESH_S,), MESH_AXES, device=device)}),
+                     ("4", {"mesh": make_mesh((4,), MESH_AXES, device=device)}),
+                     ("none", {}), ("flat root", {})):
+        src = roots["flat" if name == "flat root" else "mesh"]
+        dst = os.path.join(workdir, f"reopen-{name.replace(' ', '-')}")
+        shutil.copytree(src, dst)
+        repo = Repository.open(dst, device=device, **kw)
+        check(repo.n_staged == 2, f"reopened under {name}: {repo.n_staged} staged, expected 2")
+        rec = repo.fuse_pending()
+        check(rec.n_accepted == 2, f"reopened under {name}: fused {rec.n_accepted}/2")
+        got[name] = repo.flat_base_host()
+        del repo
+    same = all(torch.equal(got["8"], g) for g in got.values())
+    check(same, "the staged rows recovered to different bases under 8 shards, 4 and none")
+    print(f"[mesh] the stopped root reopened under {MESH_S} shards, 4 and none, and the unsharded "
+          "daemon's root: each recovered the 2 staged rows into the same base, bit for bit")
+    if device == "cuda":
+        print(f"[mesh] torch.cuda.max_memory_allocated over the service loop: {peak:.2f} GiB")
+    return {"counts": counts, "row_sketch_shard": shard_launches, "collectives": collectives,
+            "seconds": time.perf_counter() - t0, "peak_gib": peak, "base": got["8"],
+            "views": (v1["mesh"], v2["mesh"])}
+
+
+def phase_mesh(workdir, card):
+    """Phase 15: the mesh-sharded Repository engine on an 8-shard mesh of
+    the card.  Returns (the service loop's launches, the timing records)."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    rec = phase_mesh_ops(gen, card)
+    torch.cuda.empty_cache()
+    # the same loop at TINY f32 on the card and on the CPU (whose path the
+    # CPU tests hold against the JAX package): the same decisions and bases.
+    # Its rows are small, so every sharded sketch takes row_sketch_shard
+    tiny = dataclasses.replace(TINY, param_dtype="float32", compute_dtype="float32")
+    body = init_encoder_body(tiny, torch.Generator().manual_seed(5), device="cpu")
+    small = {}
+    for dev in ("cpu", "cuda"):
+        os.makedirs(os.path.join(workdir, f"small-{dev}"))
+        with contextlib.redirect_stdout(io.StringIO()):
+            small[dev] = mesh_service(os.path.join(workdir, f"small-{dev}"), card, device=dev,
+                                      body=tree_map(lambda x: x.to(dev), body), small=True)
+    d = (small["cpu"]["base"].float() - small["cuda"]["base"].float()).abs().max().item()
+    check(small["cpu"]["views"] == small["cuda"]["views"],
+          f"small mesh loop: decisions differ, CPU {small['cpu']['views']}, card "
+          f"{small['cuda']['views']}")
+    check(d <= 1e-5, f"small mesh loop: card and CPU bases differ by {d:.3g} > 1e-5")
+    want = dict(MESH_LAUNCHES, row_sketch=MESH_CALLS["row_sketch"],
+                row_sketch_shard=MESH_S * MESH_CALLS["row_sketch_sharded"])
+    got = dict(small["cuda"]["counts"], row_sketch_shard=small["cuda"]["row_sketch_shard"])
+    for kernel, n in want.items():
+        check(got[kernel] == n, f"{kernel} launched {got[kernel]} times on the small mesh "
+              f"loop, expected {n}")
+    print(f"[small] TINY f32 mesh service loop ({MESH_S} shards of a clamped block) on the card "
+          f"and the CPU: the same decisions each round, the recovered bases within {d:.3g} "
+          f"(bound 1e-5); launches on the card {got}")
+    del body, small
+    run = mesh_service(workdir, card)
+    counts = run["counts"]
+    for kernel, want in MESH_LAUNCHES.items():
+        check(counts[kernel] == want, f"{kernel} launched {counts[kernel]} times on the mesh "
+              f"path, expected {want}")
+    check(counts["flash_attention"] == counts["rwkv6_scan"] == 0,
+          f"the mesh path launched {counts}")
+    rec["service"] = {k: run[k] for k in ("seconds", "peak_gib", "collectives")}
+    print(f"[mesh] phase {time.perf_counter() - t0:.1f} s on {card}")
+    return counts, rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card", file=sys.stderr)
@@ -4203,6 +4779,12 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke-") as workdir:
         archs2, arch2_table = phase_archs2(workdir, smi)
     torch.cuda.empty_cache()
+
+    # the mesh-sharded Repository engine (slice 11), counts reset just
+    # before its full-width service loop
+    with tempfile.TemporaryDirectory(prefix="chip_smoke-") as workdir:
+        mesh_counts, mesh_rec = phase_mesh(workdir, smi)
+    torch.cuda.empty_cache()
     print(f"[done] {time.perf_counter() - t0:.1f} s after the card check")
 
     def record(name, replaces, err, timing, source=None):
@@ -4233,11 +4815,20 @@ def main() -> int:
         record("row_sketch", "src/repro/kernels/cold_fuse.py:253", sk_err, sk)]
     for rec in fuse_kernels:  # "launches" is phase 7's; the routed phase's beside it
         rec["launches_routed"] = routed[rec["name"]]
-    for rec in fuse_kernels + [flash, rwkv]:  # and phase 11's, 12's, 13's and 14's
+    for rec in fuse_kernels + [flash, rwkv]:  # and phase 11's, 12's, 13's, 14's and 15's
         rec["launches_serve_stack"] = served[rec["name"]]
         rec["launches_lm_train"] = lm_train[rec["name"]]
         rec["launches_archs"] = archs[rec["name"]]
         rec["launches_archs2"] = archs2[rec["name"]]
+        rec["launches_mesh"] = mesh_counts[rec["name"]]
+    # phase 15's times beside the unsharded kernels'; row_sketch_shard is an
+    # entry of row_sketch.cu, held at a clamped layout
+    fuse_kernels[0]["mesh"] = {"roberta": mesh_rec["cold_fuse"],
+                               "gemma3_1b": mesh_rec["cold_fuse_gemma3_1b"]}
+    fuse_kernels[1]["mesh"] = mesh_rec["decode_accum"]
+    fuse_kernels[2]["mesh"] = dict(mesh_rec["row_sketch"],
+                                   row_sketch_shard=mesh_rec["row_sketch_shard"])
+    print(json.dumps({"mesh_service": mesh_rec["service"]}))
     print(json.dumps({"archs": arch_table}))
     print(json.dumps({"archs2": arch2_table}))
     fuse_kernels[0]["at_gemma3_1b"] = fuse_at_gemma

@@ -12,13 +12,18 @@ checkable: the coordinator verifies the final base against the closed-form
 expectation and reports queue throughput.
 
   PYTHONPATH=src python examples/cold_service_demo_torch.py [--device cpu]
+  PYTHONPATH=src python examples/cold_service_demo_torch.py --mesh 8   # sharded daemon
   PYTHONPATH=src python examples/cold_service_demo_torch.py --duplicates 1  # novelty screen
   PYTHONPATH=src python examples/cold_service_demo_torch.py --compress  # delta codec
 
 ``--device`` defaults to ``cuda``: the daemon fuses on the card and every
 contributor downloads its base there (each raises without a card unless
-``--device cpu``).  The reference's ``--mesh`` is refused, as the port's
-launcher refuses it: the multi-device path is not ported yet.
+``--device cpu``).
+
+With ``--mesh N`` the daemon opens the repository on an N-shard mesh of
+``--device`` (the launcher's ``--mesh``; on the CPU every shard is the
+CPU, on one card every shard shares it); the contributors are unchanged —
+the queue format is engine-agnostic.
 
 With ``--compress`` every contributor enqueues its round as a
 delta-compressed submission (top-k int8 payload against the base it just
@@ -306,6 +311,8 @@ def driver_main(args) -> int:
     else:
         daemon_cmd += ["--max-iterations", str(args.rounds),
                        "--idle-timeout", "30"]
+    if args.mesh:
+        daemon_cmd += ["--mesh", str(args.mesh)]
     if routed:
         max_bases = (args.max_bases if args.max_bases is not None
                      else args.tasks + 1)
@@ -460,8 +467,8 @@ def main(argv=None) -> int:
     p.add_argument("--rounds", type=int, default=3)
     p.add_argument("--device", default="cuda",
                    help="where the daemon and the contributors run (cuda, cpu)")
-    # refused below, as the port's launcher refuses it
-    p.add_argument("--mesh", type=int, default=0, help=argparse.SUPPRESS)
+    p.add_argument("--mesh", type=int, default=0,
+                   help="run the daemon on an N-shard mesh of --device")
     p.add_argument("--duplicates", type=int, default=0,
                    help="launch this many replaying shadow contributors and "
                         "arm the daemon's novelty screen against them")
@@ -490,7 +497,8 @@ def main(argv=None) -> int:
                         "the benign rounds finish")
     args = p.parse_args(argv)
     if args.mesh:
-        p.error("--mesh (the multi-device slice) is not ported yet")
+        from repro_torch.launch.mesh import make_mesh
+        make_mesh((args.mesh,), ("model",), device=args.device)  # no card: raises here
     if args.tasks > 1 and (args.duplicates or args.regress or args.compress):
         p.error("--tasks > 1 does not combine with "
                 "--duplicates/--regress/--compress")

@@ -1,4 +1,4 @@
-"""Checkpoint files (port of the unsharded part of ``repro.checkpoint.io``).
+"""Checkpoint files (port of ``repro.checkpoint.io``).
 
 Every file here reads the same in both packages: the queue and the
 repository root are the interchange contract between contributors, the
@@ -13,13 +13,15 @@ Formats, all written atomically (a ``.tmp-<pid>`` sibling, then
   in sorted-key order, bf16 leaves suffixed ``__bf16__``;
 * **flat** (``save_flat``/``load_flat``) — one contiguous row plus its
   ``FlatSpec`` JSON, with an optional free-form JSON rider (``extra``);
+* **flat shards** (``save_flat_shards``/``FlatShardReader``) — one row as
+  its S block-cyclic slices (``ShardedFlatSpec.shard_slices``), one entry a
+  shard, plus both specs: a mesh repository reloads it shard by shard;
 * **flat delta** (``save_flat_delta``/``load_flat_delta``) — a compressed
-  contribution: the ``DeltaPayload`` arrays plus the same spec entries.
+  contribution: the ``DeltaPayload`` arrays (stacked over the shards for a
+  per-shard file) plus the same spec entries.
 
-Sharded files (``__flat_shard_spec__``) are reported by ``flat_row_meta``
-as ``sharded: True`` but not read or written here: sharded layouts are the
-multi-device slice.  ``save_json_atomic`` and the append-only JSONL helpers
-carry the same crash discipline to the manifests and the metrics series.
+``save_json_atomic`` and the append-only JSONL helpers carry the same crash
+discipline to the manifests and the metrics series.
 """
 from __future__ import annotations
 
@@ -27,12 +29,12 @@ import json
 import os
 import threading
 import warnings
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.utils.flat import DeltaPayload, FlatSpec
+from repro_torch.utils.flat import DeltaPayload, FlatSpec, ShardedFlatSpec
 from repro_torch.utils.pytree import tree_from_paths, tree_leaves_with_path
 
 _SEP = "::"
@@ -41,6 +43,7 @@ _FLAT_BUF = "__flat_buffer__"
 _FLAT_SPEC = "__flat_spec__"
 _FLAT_SSPEC = "__flat_shard_spec__"
 _FLAT_EXTRA = "__flat_extra__"  # free-form JSON rider (queue submissions)
+_SHARD_FMT = "__flat_shard_{:04d}__"  # one entry per shard of a sharded row
 _DELTA_SPEC = "__delta_spec__"      # codec geometry (compressed submissions)
 _DELTA_IDX = "__delta_indices__"    # int16 [nb, kb]
 _DELTA_VAL = "__delta_values__"     # int8  [nb, kb]
@@ -153,6 +156,57 @@ def is_flat_compressed(path: str) -> bool:
         return _DELTA_SPEC in data.files
 
 
+def save_flat_shards(path: str, slices: Sequence[Any], spec: FlatSpec,
+                     sspec: ShardedFlatSpec, *, extra: Optional[Dict[str, Any]] = None) -> None:
+    """Persist one flat row as its S block-cyclic slices, one npz entry a
+    shard, plus both layout specs (and the optional rider)."""
+    if len(slices) != sspec.n_shards:
+        raise ValueError(f"{len(slices)} slices != n_shards {sspec.n_shards}")
+    arrays = {_FLAT_SPEC: _json_entry(spec.to_json()),
+              _FLAT_SSPEC: _json_entry(sspec.to_json())}
+    if extra is not None:
+        arrays[_FLAT_EXTRA] = _json_entry(extra)
+    for i, part in enumerate(slices):
+        arrays[_SHARD_FMT.format(i)], _ = _host_array(part)
+    _atomic_savez(path, arrays)
+
+
+class FlatShardReader:
+    """Lazy per-shard reader of a ``save_flat_shards`` file (written by
+    either package): ``shard(i)`` reads that shard's entry alone, so the
+    sharded reload never holds the whole ``[N]`` row on the host.  bf16
+    entries are stored as uint16 bits and come back as bf16 tensors.  Use
+    it as a context manager (the zip file stays open between reads)."""
+
+    def __init__(self, path: str):
+        self.path = path
+        self._data = np.load(path)
+        if _FLAT_SSPEC not in self._data.files:
+            self._data.close()
+            raise ValueError(f"{path} is not a sharded flat checkpoint")
+        self.spec = FlatSpec.from_json(_read_json_entry(self._data, _FLAT_SPEC))
+        self.sspec = ShardedFlatSpec.from_json(_read_json_entry(self._data, _FLAT_SSPEC))
+
+    def shard(self, i: int) -> torch.Tensor:
+        """Shard ``i``'s ``[shard_len]`` slice, on the host."""
+        buf = self._data[_SHARD_FMT.format(i)]
+        return _bf16_tensor(buf) if self.spec.dtype == "bfloat16" else torch.from_numpy(buf)
+
+    def full_row(self) -> torch.Tensor:
+        """The ``[N]`` row put back together on the host (where the file's
+        layout does not match the mesh it is staged on)."""
+        return self.sspec.unshard_slices([self.shard(i) for i in range(self.sspec.n_shards)])
+
+    def close(self) -> None:
+        self._data.close()
+
+    def __enter__(self) -> "FlatShardReader":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+
 def flat_row_meta(path: str) -> Dict[str, Any]:
     """Peek a flat file's layout without reading its buffers: the
     ``FlatSpec`` JSON plus ``sharded`` (and ``shard_spec``), ``compressed``
@@ -175,50 +229,78 @@ def flat_row_meta(path: str) -> Dict[str, Any]:
 # -- delta-compressed flat format --------------------------------------------
 
 
-def save_flat_delta(path: str, payload: DeltaPayload, spec: FlatSpec, *,
-                    sspec=None, extra: Optional[Dict[str, Any]] = None) -> None:
-    """Persist a whole-row compressed contribution (per-shard payload lists
-    with their ``sspec`` are the multi-device slice's)."""
-    if sspec is not None or not isinstance(payload, DeltaPayload):
-        raise NotImplementedError(
-            "save_flat_delta takes one whole-row DeltaPayload; per-shard "
-            "payloads are not ported yet (multi-device slice)")
-    dspec = {"version": 1, "size": payload.size, "block": payload.block,
-             "k_per_block": payload.k_per_block, "sharded": False}
+def save_flat_delta(path: str, payloads, spec: FlatSpec, *,
+                    sspec: Optional[ShardedFlatSpec] = None,
+                    extra: Optional[Dict[str, Any]] = None) -> None:
+    """Persist a compressed contribution: one whole-row ``DeltaPayload``,
+    or S per-shard payloads with their ``sspec``, stacked along a leading
+    axis (one entry per array, not per shard)."""
+    if isinstance(payloads, DeltaPayload):
+        if sspec is not None:
+            raise ValueError("whole-row payload with a shard spec")
+        plist = [payloads]
+    else:
+        plist = list(payloads)
+        if sspec is None:
+            raise ValueError("a payload list requires its ShardedFlatSpec")
+        if len(plist) != sspec.n_shards:
+            raise ValueError(f"{len(plist)} payloads != n_shards {sspec.n_shards}")
+    p0 = plist[0]
+    for p in plist:
+        if (p.size, p.block, p.indices.shape) != (p0.size, p0.block, p0.indices.shape):
+            raise ValueError("per-shard payload geometries differ")
+    dspec = {"version": 1, "size": p0.size, "block": p0.block,
+             "k_per_block": p0.k_per_block, "sharded": sspec is not None}
     arrays = {
         _FLAT_SPEC: _json_entry(spec.to_json()),
         _DELTA_SPEC: _json_entry(dspec),
-        _DELTA_IDX: payload.indices,
-        _DELTA_VAL: payload.values,
-        _DELTA_SCL: payload.scales,
+        _DELTA_IDX: np.stack([p.indices for p in plist]),
+        _DELTA_VAL: np.stack([p.values for p in plist]),
+        _DELTA_SCL: np.stack([p.scales for p in plist]),
     }
+    if sspec is None:
+        for k in (_DELTA_IDX, _DELTA_VAL, _DELTA_SCL):
+            arrays[k] = arrays[k][0]
+    else:
+        arrays[_FLAT_SSPEC] = _json_entry(sspec.to_json())
     if extra is not None:
         arrays[_FLAT_EXTRA] = _json_entry(extra)
     _atomic_savez(path, arrays)
 
 
-def load_flat_delta(path: str) -> Tuple[list, Dict[str, Any]]:
-    """(payloads, meta) of a ``save_flat_delta`` file: ``payloads`` is a
-    one-element list, as the JAX package returns for a whole-row file.  A
-    geometry mismatch or a torn entry raises; a sharded file raises
-    ``ValueError`` (sharded payloads are the multi-device slice's)."""
+def load_flat_delta(path: str) -> Tuple[List[DeltaPayload], Dict[str, Any]]:
+    """(payloads, meta) of a ``save_flat_delta`` file: one payload for a
+    whole-row file, S for a per-shard one.  A geometry mismatch or a torn
+    entry raises."""
     meta = flat_row_meta(path)
     if not meta.get("compressed"):
         raise ValueError(f"{path} is not a compressed flat checkpoint")
     dspec = meta["delta_spec"]
-    if bool(dspec.get("sharded")):
-        raise ValueError(f"{path} holds per-shard delta payloads: sharded "
-                         "layouts are not ported yet (multi-device slice)")
     size, block, kb = int(dspec["size"]), int(dspec["block"]), int(dspec["k_per_block"])
+    sharded = bool(dspec.get("sharded"))
     with np.load(path) as data:
         for k in (_DELTA_IDX, _DELTA_VAL, _DELTA_SCL):
             if k not in data.files:
                 raise ValueError(f"{path}: missing delta entry {k}")
         idx, val, scl = data[_DELTA_IDX], data[_DELTA_VAL], data[_DELTA_SCL]
-    p = DeltaPayload(idx, val, scl, size, block)
-    if p.k_per_block != kb:
-        raise ValueError(f"{path}: k_per_block {p.k_per_block} != declared {kb}")
-    return [p], meta
+    if not sharded:
+        idx, val, scl = idx[None], val[None], scl[None]
+    n = idx.shape[0]
+    if sharded:
+        ss = ShardedFlatSpec.from_json(meta["shard_spec"])
+        if n != ss.n_shards:
+            raise ValueError(f"{path}: {n} payloads != n_shards {ss.n_shards}")
+        if size != ss.shard_len:
+            raise ValueError(f"{path}: payload size {size} != shard_len {ss.shard_len}")
+    if val.shape[0] != n or scl.shape[0] != n:
+        raise ValueError(f"{path}: delta entry leading dims disagree")
+    payloads = []
+    for i in range(n):
+        p = DeltaPayload(idx[i], val[i], scl[i], size, block)
+        if p.k_per_block != kb:
+            raise ValueError(f"{path}: k_per_block {p.k_per_block} != declared {kb}")
+        payloads.append(p)
+    return payloads, meta
 
 
 # -- atomic JSON and moves ---------------------------------------------------

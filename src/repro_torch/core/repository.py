@@ -61,8 +61,22 @@ The published base (``download()``) is a tree of views into the fused row,
 which is also the ``base`` operand of the next fuse: callers must not update
 it in place (``train.finetune`` clones what it trains).
 
-Not ported yet (each raises where the reference takes it): ``mesh=`` and
-sharded files.
+``mesh=`` (a ``launch.mesh.Mesh``) with optional ``mesh_axes=`` (default
+every axis) distributes the flat engine over one process's devices, as the
+reference's ``Repository(mesh=)`` does under JAX's single-controller mesh.
+The base and every staged row are laid out block-cyclically
+(``ShardedFlatSpec``) as S ``[shard_len]`` slices, slice ``s`` on its
+shard's device (``launch.sharding.flat_row_sharding``); a staged cohort is
+one contiguous ``[K, shard_len]`` stack per shard, so no device holds more
+than ``K · shard_len`` staged elements.  A fuse runs ``cold_fuse`` (or
+``decode_accum`` for the compressed rows) on every shard and completes the
+``sq_diff`` partials with one all-reduce; the sketch does the same with
+``row_sketch``.  The published row is gathered to ``[N]`` on the mesh's
+first device (``self.device``), where ``download()``, ``flat_base()``, the
+publish listeners and the files read it.  With ``spill=True`` each row is
+spilled as its per-shard slices (``save_flat_shards``) and reloads shard by
+shard; a root reopened under another mesh, or none, reassembles the row on
+the host.  A mesh needs the flat engine, as in the reference.
 """
 from __future__ import annotations
 
@@ -84,11 +98,13 @@ from repro_torch.core import fusion
 from repro_torch.core.validation import (ScreenReport, norms_from_sq, screen_contributions,
                                          screen_norms)
 from repro_torch.kernels import ops
+from repro_torch.launch import mesh as M
+from repro_torch.launch import sharding as SH
 from repro_torch.utils import faults
 from repro_torch.utils.device import resolve_device
 from repro_torch.utils.flat import (SKETCH_BUCKETS, BufferPair, CohortSketch, FlatSpec,
-                                    StagedBuffer, StagingSide, delta_decode, delta_entries,
-                                    sketch_apply_delta)
+                                    ShardedFlatSpec, StagedBuffer, StagingSide, delta_decode,
+                                    delta_decode_sharded, delta_entries, sketch_apply_delta)
 from repro_torch.utils.pytree import tree_device, tree_map
 
 # operators the flat engine covers; the others (fisher, ties) fuse per leaf
@@ -100,10 +116,6 @@ SKETCH_FILE = "cohort_sketch.json"
 # on-disk artifact names in the root (``compact`` walks these)
 _BASE_RE = re.compile(r"^base_iter(\d{4,})\.npz$")
 _ROW_RE = re.compile(r"^iter\d{4,}_contrib\d{3,}\.npz$")
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet")
 
 
 @dataclass
@@ -122,7 +134,7 @@ class PendingFusion:
     published.  ``record`` is set once the publish happened."""
 
     stage: Optional[Any]          # StagedBuffer or MixedStage, kept for a re-pass
-    fused: torch.Tensor
+    fused: Any                    # [N], or S per-shard slices on a mesh
     sq: torch.Tensor
     weights: torch.Tensor
     k: int
@@ -143,12 +155,13 @@ class PendingFusion:
 class MixedStage:
     """Fuse operand of a cohort that mixes dense rows (cohort positions
     ``dense_pos``) with compressed submissions (``comp_pos``), which ride
-    as their stacked codec arrays and are decoded inside the fuse."""
+    as their stacked codec arrays and are decoded inside the fuse.  On a
+    mesh each codec array is a list of S per-shard stacks, one a device."""
 
     dense: Optional[StagedBuffer]
-    indices: torch.Tensor   # [C, nb, kb] int16
-    values: torch.Tensor    # [C, nb, kb] int8
-    scales: torch.Tensor    # [C, nb] f32
+    indices: Any            # [C, nb, kb] int16 (S of them on a mesh)
+    values: Any             # [C, nb, kb] int8
+    scales: Any             # [C, nb] f32
     block: int
     dense_pos: np.ndarray
     comp_pos: np.ndarray
@@ -166,9 +179,11 @@ def _json_default(o):
     return str(o)
 
 
-def _sync(t: torch.Tensor) -> None:
-    if t.is_cuda:
-        torch.cuda.current_stream(t.device).synchronize()
+def _sync(t) -> None:
+    """Wait for the work writing ``t`` (a tensor, or per-shard slices)."""
+    for x in (t if isinstance(t, (list, tuple)) else [t]):
+        if x.is_cuda:
+            torch.cuda.current_stream(x.device).synchronize()
 
 
 class Repository:
@@ -192,8 +207,20 @@ class Repository:
             use_flat = fusion_op in FLAT_OPS
         elif use_flat and fusion_op not in FLAT_OPS:
             raise ValueError(f"flat engine does not cover fusion_op={fusion_op!r}")
-        if mesh is not None or mesh_axes is not None:
-            raise _not_ported("Repository(mesh=) (the multi-device slice)")
+        if mesh is not None and not use_flat:
+            raise ValueError("mesh= requires the flat engine "
+                             f"(fusion_op={fusion_op!r}, use_flat={use_flat})")
+        self.mesh = mesh
+        if mesh is not None:
+            axes = SH.norm_axes(mesh.axis_names if mesh_axes is None else mesh_axes)
+            missing = [a for a in axes if a not in mesh.axis_names]
+            if missing:
+                raise ValueError(f"mesh_axes {missing} not in mesh {mesh.axis_names}")
+            self.mesh_axes = axes
+            self._n_shards = SH.axes_extent(mesh, axes)
+        else:
+            self.mesh_axes = ()
+            self._n_shards = 1
         if spill and not root:
             raise ValueError("spill=True requires an on-disk root")
         if spill and not use_flat:
@@ -211,8 +238,15 @@ class Repository:
         self.history: List[FusionRecord] = []
         self._snapshots: List[Any] = []
         self._spec = FlatSpec.from_tree(base_params)
-        self._base_flat = self._spec.flatten(base_params)
-        self._base = self._spec.unflatten(self._base_flat)
+        self._sspec = (ShardedFlatSpec.from_spec(self._spec, self._n_shards)
+                       if mesh is not None else None)
+        # on a mesh the base's per-shard slices (the fuse operand) beside
+        # its [N] row on the mesh's first device; None otherwise
+        self._base_shards: Optional[List[torch.Tensor]] = None
+        row = self._spec.flatten(base_params)
+        if mesh is not None:
+            row = row.to(SH.flat_row_sharding(mesh, self.mesh_axes)[0])
+        self._install_row(row)
         self._buffers = BufferPair()
         self._inflight: Optional[PendingFusion] = None
         self._persisted_iteration = -1
@@ -242,7 +276,30 @@ class Repository:
 
     @property
     def device(self) -> torch.device:
+        """Where the published ``[N]`` row lives (the mesh's first device)."""
         return self._base_flat.device
+
+    # -- the mesh layout ---------------------------------------------------
+    def _stage_row(self, row: torch.Tensor) -> List[torch.Tensor]:
+        """An ``[N]`` row -> its block-cyclic slices, each on its shard's
+        device."""
+        return SH.place_shards(self._sspec.shard_slices(row), self.mesh, self.mesh_axes)
+
+    def _restage(self, row: torch.Tensor):
+        """A loaded ``[N]`` row in the repository's staged form."""
+        return self._stage_row(row) if self.mesh is not None else row
+
+    def _install_row(self, row: torch.Tensor) -> None:
+        """Make ``row`` (``[N]``, on ``self.device``) the base: its tree of
+        views and, on a mesh, its per-shard slices."""
+        self._base_flat = row
+        self._base = self._spec.unflatten(row)
+        if self.mesh is not None:
+            self._base_shards = self._stage_row(row)
+
+    def _staged_base(self):
+        """The base in the fuse's operand form."""
+        return self._base_shards if self.mesh is not None else self._base_flat
 
     # -- staging introspection (service loop) --------------------------
     @property
@@ -296,12 +353,18 @@ class Repository:
             "weight": None if weight is None else float(weight),
             "dtype": spec.dtype,
             "size": spec.size,
-            "sharded": False,
+            "sharded": self.mesh is not None,
         }
+        sspec = self._sspec
+        if sspec is not None:
+            entry["shard_spec"] = sspec.to_json()
         host = row.detach().cpu()  # on this thread: no worker reads a device tensor
 
         def write():
-            ckpt.save_flat(path, host, spec)
+            if sspec is not None:
+                ckpt.save_flat_shards(path, sspec.shard_slices(host), spec, sspec)
+            else:
+                ckpt.save_flat(path, host, spec)
             with self._manifest_lock:
                 side.manifest.append(entry)
                 self._write_manifest()
@@ -364,9 +427,9 @@ class Repository:
             side.rows.append(self._spill_row(self._spec.flatten(params), idx, weight))
         else:
             row = self._spec.flatten(params)
-            if self.root:
+            if self.root:  # the archived row stays the portable [N] form
                 ckpt.save_flat(self._contrib_path(idx), row, self._spec)
-            side.rows.append(row)
+            side.rows.append(self._restage(row))
         side.fishers.append(fisher)
         side.weights.append(weight)
         return idx
@@ -376,8 +439,9 @@ class Repository:
         """Stage an on-disk flat row (a queue submission) by reference: its
         root-relative path enters the staging manifest atomically, with the
         same exactly-once recovery as a spilled ``upload``.  The recorded
-        FlatSpec must match the base; torn, mismatched or sharded files
-        raise ``ValueError`` without touching the manifest."""
+        FlatSpec must match the base; torn or mismatched files raise
+        ``ValueError`` without touching the manifest.  A per-shard file of
+        any layout stages (its layout is checked where it loads)."""
         if not self.spill:
             raise ValueError("ingest_spilled requires spill=True — the staging "
                              "manifest is what makes queue ingest crash-safe")
@@ -393,9 +457,6 @@ class Repository:
                 f"row {os.path.basename(path)} has FlatSpec(dtype={meta['dtype']}, "
                 f"N={meta['size']}) but the repository base is (dtype={self._spec.dtype}, "
                 f"N={self._spec.size}) — refusing to ingest a mismatched row")
-        if meta.get("sharded") or (meta.get("delta_spec") or {}).get("sharded"):
-            raise ValueError(f"row {os.path.basename(path)} is sharded: sharded layouts "
-                             "are not ported yet (multi-device slice)")
         side = self._buffers.front
         idx = len(side.rows)
         entry = {
@@ -405,8 +466,10 @@ class Repository:
             "weight": None if weight is None else float(weight),
             "dtype": self._spec.dtype,
             "size": self._spec.size,
-            "sharded": False,
+            "sharded": bool(meta["sharded"]),
         }
+        if meta.get("shard_spec"):
+            entry["shard_spec"] = meta["shard_spec"]
         if meta.get("compressed"):
             # decoded only at dispatch, against the vintage declared here
             entry["compressed"] = True
@@ -470,9 +533,16 @@ class Repository:
             ckpt.save_json_atomic(self._sketch_path(), self.cohort_sketch.to_json(),
                                   indent=None)
 
-    def _sketch_of_staged(self, row: torch.Tensor) -> np.ndarray:
-        """Sketch a staged ``[N]`` row (the kernel on the card) to host f32."""
-        return ops.row_sketch(row, self._n_buckets()).cpu().numpy()
+    def _sketch_of_staged(self, row) -> np.ndarray:
+        """Sketch a staged row to host f32: an ``[N]`` row in one
+        ``row_sketch``, per-shard slices shard by shard with one
+        all-reduce (the kernels on the card)."""
+        if isinstance(row, (list, tuple)):
+            out = ops.row_sketch_sharded(row, mesh=self.mesh, axes=self.mesh_axes,
+                                         block=self._sspec.block, n_buckets=self._n_buckets())
+        else:
+            out = ops.row_sketch(row, self._n_buckets())
+        return out.cpu().numpy()
 
     def _refresh_base_sketch(self) -> None:
         """Recompute the base's sketch (the screen's distance normalizer)
@@ -481,22 +551,23 @@ class Repository:
         per-leaf engine (a recovered sketch stays as it was)."""
         if self.cohort_sketch is None or not self.use_flat:
             return
-        self.cohort_sketch.set_base(self._sketch_of_staged(self._base_flat),
+        self.cohort_sketch.set_base(self._sketch_of_staged(self._staged_base()),
                                     iteration=self.iteration)
         self.save_cohort_sketch()
 
     def sketch_row_file(self, path: str, *, meta: Optional[Dict[str, Any]] = None
                         ) -> np.ndarray:
         """Content sketch of an on-disk flat row (a queue submission) in one
-        read, on the repository's device.  Raises on torn, unreadable or
-        sharded files; callers reject like any other unreadable file."""
+        read: a per-shard file of the mesh's layout shard by shard with one
+        all-reduce (its ``[N]`` row never forms), anything else as an
+        ``[N]`` row on the repository's device.  Raises on torn or
+        unreadable files; callers reject like any other unreadable file."""
         if meta is None:
             meta = ckpt.flat_row_meta(path)
         if meta.get("compressed"):
             return self.sketch_delta_file(path)
         if meta.get("sharded"):
-            raise ValueError(f"{os.path.basename(path)} is sharded: sharded layouts are "
-                             "not ported yet (multi-device slice)")
+            return self._sketch_of_staged(self._load_staged_row(path))
         row, _ = ckpt.load_flat(path)
         return self._sketch_of_staged(row.to(self.device))
 
@@ -507,12 +578,23 @@ class Repository:
         (``sketch_apply_delta``), reading base values only at the delta's
         own positions."""
         del meta  # the payload load re-reads the header regardless
-        payloads, _ = ckpt.load_flat_delta(path)
+        payloads, dmeta = ckpt.load_flat_delta(path)
         if self.cohort_sketch is not None and self.cohort_sketch.base is not None:
             base_sk = np.asarray(self.cohort_sketch.base, np.float64)
         else:
-            base_sk = self._sketch_of_staged(self._base_flat).astype(np.float64)
-        gi, dv = delta_entries(payloads[0])
+            base_sk = self._sketch_of_staged(self._staged_base()).astype(np.float64)
+        if dmeta["delta_spec"].get("sharded"):
+            ss = ShardedFlatSpec.from_json(dmeta["shard_spec"])
+            gis, dvs = [], []
+            for s, p in enumerate(payloads):
+                li, d = delta_entries(p)
+                g = ss.global_of(s, li)
+                keep = g < self._spec.size  # drop the block grid's padding
+                gis.append(g[keep])
+                dvs.append(d[keep])
+            gi, dv = np.concatenate(gis), np.concatenate(dvs)
+        else:
+            gi, dv = delta_entries(payloads[0])
         at = torch.from_numpy(gi).to(self.device)
         base_at = self._base_flat[at].float().cpu().numpy()
         sk = sketch_apply_delta(base_sk, gi, dv, base_at, n_buckets=self._n_buckets())
@@ -557,7 +639,9 @@ class Repository:
         a = alpha if alpha is not None else 1.0 / (1.0 + self.iteration)
         t0 = time.time()
         if self.use_flat:
-            stage = self._spec.flatten(params)[None]
+            row = self._spec.flatten(params)
+            stage = ([r[None] for r in self._stage_row(row)] if self.mesh is not None
+                     else row[None])
             fused, sq = self._fuse_flat(
                 stage, torch.ones((1,), dtype=torch.float32, device=self.device), a)
             if self.screen:
@@ -621,8 +705,7 @@ class Repository:
             raise RuntimeError("rollback requires keep_history=True or an on-disk root")
         else:
             raise ValueError(f"no snapshot for iteration {to_iteration}")
-        self._base_flat = self._spec.flatten(base)
-        self._base = self._spec.unflatten(self._base_flat)
+        self._install_row(self._spec.flatten(base))
         self._snapshots = self._snapshots[:to_iteration]
         self.history = self.history[:to_iteration]
         self.iteration = to_iteration
@@ -688,8 +771,10 @@ class Repository:
         per-leaf engine ``wait`` is ignored (the fuse is synchronous).
 
         ``buffer=`` fuses an explicit ``[K, N]`` operand instead (a
-        ``StagedBuffer`` or a tensor of the base's dtype and device), leaving
-        the staging buffers alone; ``alpha=`` overrides the step size,
+        ``StagedBuffer`` or a tensor of the base's dtype and device; on a
+        mesh S per-shard ``[K, shard_len]`` stacks or a ``[K, S,
+        shard_len]`` tensor, split by shard), leaving the staging buffers
+        alone; ``alpha=`` overrides the step size,
         ``screen=`` the §9 screen and ``op=`` the record's label (the
         family cross-fuse uses all three).  The overrides need
         ``buffer=``."""
@@ -732,9 +817,18 @@ class Repository:
         if not self.use_flat:
             raise ValueError("fuse_pending(buffer=...) requires the flat engine")
         if not isinstance(buffer, StagedBuffer):
-            buffer = StagedBuffer(torch.as_tensor(buffer))
+            buffer = StagedBuffer(buffer if isinstance(buffer, (list, tuple))
+                                  else torch.as_tensor(buffer))
         data = buffer.data
-        if data.dim() != 2 or data.shape[1] != self._spec.size:
+        if self.mesh is not None:
+            S, L = self._sspec.n_shards, self._sspec.shard_len
+            shapes = ([tuple(d.shape[1:]) for d in data] if isinstance(data, (list, tuple))
+                      else [tuple(data.shape[1:])])
+            if shapes not in ([(S, L)], [(L,)] * S):
+                raise ValueError(f"staged buffer shapes {shapes} do not match the sharded "
+                                 f"layout [K, {S}, {L}] (or {S} x [K, {L}])")
+            buffer = StagedBuffer(tuple(SH.place_shards(data, self.mesh, self.mesh_axes, 1)))
+        elif data.dim() != 2 or data.shape[1] != self._spec.size:
             raise ValueError(f"staged buffer shape {tuple(data.shape)} does not match the "
                              f"flat layout [K, {self._spec.size}]")
         t0 = time.time()
@@ -786,22 +880,32 @@ class Repository:
         with self._manifest_lock:
             self._buffers.retire_back()
 
-    def _load_staged_row(self, p) -> torch.Tensor:
-        """A staged entry as an ``[N]`` row on the repository's device:
-        in-memory rows pass through, spilled ones load from disk (a
-        compressed file outside a fuse decodes against the current base)."""
-        if isinstance(p, torch.Tensor):
+    def _load_staged_row(self, p):
+        """A staged entry in the staged form (an ``[N]`` row on the
+        repository's device, or per-shard slices on a mesh): in-memory rows
+        pass through, spilled ones load from disk.  A per-shard file of the
+        mesh's layout loads shard by shard onto the shards' devices; any
+        other layout is put back together on the host (counted as an
+        all-gather) and restaged.  A compressed file outside a fuse decodes
+        against the current base."""
+        if not isinstance(p, str):
             return p
         self._await_row(p)
         meta = ckpt.flat_row_meta(p)
         if meta.get("compressed"):
-            payloads, _ = ckpt.load_flat_delta(p)
-            return self._decode_compressed_dense(payloads[0])
+            payloads, meta = ckpt.load_flat_delta(p)
+            return self._restage(self._decode_compressed_dense(payloads, meta))
         if meta.get("sharded"):
-            raise ValueError(f"{os.path.basename(p)} is sharded: sharded layouts are not "
-                             "ported yet (multi-device slice)")
+            with ckpt.FlatShardReader(p) as r:
+                if self.mesh is not None and r.sspec == self._sspec:
+                    return SH.stage_row_from_shards(self.mesh, self.mesh_axes,
+                                                    r.sspec.n_shards, r.sspec.shard_len,
+                                                    r.shard)
+                row = r.full_row()
+            M.count_collective("all_gather")
+            return self._restage(row.to(self.device))
         row, _ = ckpt.load_flat(p)
-        return row.to(self.device)
+        return self._restage(row.to(self.device))
 
     def _dispatch_flat(self, back: StagingSide, t0: float) -> PendingFusion:
         """Launch pass 1 (fused + sq_diff in one read of the stage) without
@@ -831,9 +935,9 @@ class Repository:
         cohort's; otherwise it decodes dense against the right base."""
         entries = {e.get("file"): e for e in back.manifest}
         root = os.path.abspath(self.root) if self.root else None
-        dense_rows: List[torch.Tensor] = []
+        dense_rows: List[Any] = []
         dense_pos: List[int] = []
-        payloads = []
+        payload_sets: List[list] = []
         comp_pos: List[int] = []
         geom = None
         for i, p in enumerate(back.rows):
@@ -841,45 +945,69 @@ class Repository:
                 dense_rows.append(self._load_staged_row(p))
                 dense_pos.append(i)
                 continue
-            (pl,), meta = ckpt.load_flat_delta(p)
+            payloads, meta = ckpt.load_flat_delta(p)
             rel = os.path.relpath(p, root).replace(os.sep, "/") if root else None
             declared = entries.get(rel, {}).get(
                 "base_iteration", (meta.get("extra") or {}).get("base_iteration"))
             if declared is not None and int(declared) != self.iteration:
-                dense_rows.append(self._decode_vs_declared(pl, int(declared)))
+                dense_rows.append(self._restage(
+                    self._decode_vs_declared(payloads, meta, int(declared))))
                 dense_pos.append(i)
                 continue
-            this = (pl.block, pl.k_per_block, pl.n_blocks)
-            if geom is None:
+            # sparse only in the repository's own layout: per-shard payloads
+            # of the mesh's layout on a mesh, whole-row payloads off one
+            sharded = bool(meta["delta_spec"].get("sharded"))
+            if self.mesh is not None:
+                fast = (sharded and meta.get("shard_spec") is not None
+                        and ShardedFlatSpec.from_json(meta["shard_spec"]) == self._sspec)
+            else:
+                fast = not sharded
+            p0 = payloads[0]
+            this = (len(payloads), p0.block, p0.k_per_block, p0.n_blocks)
+            if fast and geom is None:
                 geom = this
-            if this == geom:
-                payloads.append(pl)
+            elif this != geom:
+                fast = False
+            if fast:
+                payload_sets.append(payloads)
                 comp_pos.append(i)
             else:
-                dense_rows.append(self._decode_compressed_dense(pl))
+                dense_rows.append(self._restage(self._decode_compressed_dense(payloads, meta)))
                 dense_pos.append(i)
         if not comp_pos:
             return StagedBuffer.from_rows(dense_rows)
-        dev = self.device
+
+        def stack(field: str, s: int, dev) -> torch.Tensor:
+            return torch.from_numpy(np.stack([getattr(pl[s], field)
+                                              for pl in payload_sets])).to(dev)
+
+        if self.mesh is not None:
+            devices = SH.flat_row_sharding(self.mesh, self.mesh_axes)
+            idx, val, scl = ([stack(f, s, d) for s, d in enumerate(devices)]
+                             for f in ("indices", "values", "scales"))
+        else:
+            idx, val, scl = (stack(f, 0, self.device) for f in ("indices", "values", "scales"))
         return MixedStage(
             dense=StagedBuffer.from_rows(dense_rows) if dense_rows else None,
-            indices=torch.from_numpy(np.stack([q.indices for q in payloads])).to(dev),
-            values=torch.from_numpy(np.stack([q.values for q in payloads])).to(dev),
-            scales=torch.from_numpy(np.stack([q.scales for q in payloads])).to(dev),
-            block=geom[0],
+            indices=idx, values=val, scales=scl, block=geom[1],
             dense_pos=np.asarray(dense_pos, np.int64),
             comp_pos=np.asarray(comp_pos, np.int64))
 
-    def _decode_compressed_dense(self, payload, *, base=None) -> torch.Tensor:
-        """Host decode of a compressed submission to a dense row on the
-        device (the fallbacks only): Δ scattered dense, plus ``base``
-        (default: the current base), in the storage dtype."""
+    def _decode_compressed_dense(self, payloads, meta, *, base=None) -> torch.Tensor:
+        """Host decode of a compressed submission (whole-row or per-shard
+        payloads) to a dense ``[N]`` row on the repository's device (the
+        fallbacks only): Δ scattered dense, plus ``base`` (default: the
+        current base), in the storage dtype."""
         if base is None:
             base = self._base_flat
-        row = torch.from_numpy(delta_decode(payload, base))
-        return row.to(device=self.device, dtype=self._base_flat.dtype)
+        if meta.get("sharded") and meta.get("shard_spec"):
+            ss = ShardedFlatSpec.from_json(meta["shard_spec"])
+            host = delta_decode_sharded(payloads, ss, base)
+        else:
+            host = delta_decode(payloads[0], base)
+        return torch.from_numpy(host).to(device=self.device, dtype=self._base_flat.dtype)
 
-    def _decode_vs_declared(self, payload, declared: int) -> torch.Tensor:
+    def _decode_vs_declared(self, payloads, meta, declared: int) -> torch.Tensor:
         """Decode against the base the rider declared, from its retained
         ``base_iterNNNN.npz``: a delta is never decoded against a base it
         was not computed from."""
@@ -890,11 +1018,15 @@ class Repository:
                 f"compressed row declares base_iteration={declared} but the repository is "
                 f"at iteration {self.iteration} and base_iter{declared:04d}.npz is not on "
                 "disk — cannot decode")
-        return self._decode_compressed_dense(payload, base=self._spec.flatten(ckpt.load(path)))
+        return self._decode_compressed_dense(payloads, meta,
+                                             base=self._spec.flatten(ckpt.load(path)))
 
     def _fuse_flat(self, stage, weights: torch.Tensor, alpha: float):
         if isinstance(stage, MixedStage):
             return self._fuse_mixed(stage, weights, alpha)
+        if self.mesh is not None:
+            return ops.fuse_flat_sharded(self._base_shards, stage, weights, alpha,
+                                         mesh=self.mesh, axes=self.mesh_axes)
         return ops.fuse_flat(self._base_flat, stage, weights, alpha)
 
     def _fuse_mixed(self, ms: MixedStage, weights: torch.Tensor, alpha: float):
@@ -904,9 +1036,15 @@ class Repository:
         cpos = torch.from_numpy(ms.comp_pos).to(weights.device)
         dense = ms.dense if len(ms.dense_pos) else None
         wd = weights[dpos] if len(ms.dense_pos) else None
-        fused, sq_split = ops.fuse_flat_compressed(
-            self._base_flat, ms.indices, ms.values, ms.scales, weights[cpos], alpha,
-            block=ms.block, dense=dense, dense_weights=wd)
+        if self.mesh is not None:
+            fused, sq_split = ops.fuse_flat_compressed_sharded(
+                self._base_shards, ms.indices, ms.values, ms.scales, weights[cpos], alpha,
+                mesh=self.mesh, axes=self.mesh_axes, block=ms.block, dense=dense,
+                dense_weights=wd)
+        else:
+            fused, sq_split = ops.fuse_flat_compressed(
+                self._base_flat, ms.indices, ms.values, ms.scales, weights[cpos], alpha,
+                block=ms.block, dense=dense, dense_weights=wd)
         sq = torch.zeros((ms.k,), dtype=torch.float32, device=sq_split.device)
         sq[torch.cat([dpos, cpos])] = sq_split
         return fused, sq
@@ -942,11 +1080,15 @@ class Repository:
         pf.record = rec
         return rec
 
-    def _publish(self, fused: torch.Tensor) -> None:
-        """Install a fused ``[N]`` row as the base (the old one goes to the
-        snapshots with ``keep_history``)."""
+    def _publish(self, fused) -> None:
+        """Install a fused row as the base (the old one goes to the
+        snapshots with ``keep_history``).  On a mesh the fused slices stay
+        the base's shards and are gathered once into its ``[N]`` row."""
         if self.keep_history:
             self._snapshots.append(self._base)
+        if self.mesh is not None:
+            self._base_shards = list(fused)
+            fused = self._sspec.unshard(M.all_gather(fused, self.mesh))
         self._base_flat = fused
         self._base = self._spec.unflatten(fused)
 
@@ -1112,7 +1254,8 @@ class Repository:
         marked in flight whose ``staged_at`` is behind the repository were
         consumed by a publish that landed (skipped); missing or unreadable
         rows are skipped with a warning; a compressed row of another vintage
-        is skipped; a FlatSpec mismatch or a sharded row raises.  The
+        is skipped; a FlatSpec mismatch raises.  Per-shard files recover
+        under any mesh, or none (``_load_staged_row`` restages them).  The
         per-leaf engine stages each recovered row as a tree."""
         spec = self._spec
         side = self._buffers.front
@@ -1139,9 +1282,6 @@ class Repository:
                     f"staged row {e['file']} was spilled with FlatSpec(dtype={meta['dtype']}, "
                     f"N={meta['size']}) but the repository base is (dtype={spec.dtype}, "
                     f"N={spec.size}) — refusing to recover mismatched rows")
-            if meta.get("sharded"):
-                raise ValueError(f"staged row {e['file']} is sharded: sharded layouts are "
-                                 "not ported yet (multi-device slice)")
             if self.spill:
                 side.rows.append(path)
             elif self.use_flat:
@@ -1393,7 +1533,7 @@ class RepositoryFamily:
         for n in names:
             self.members[n].flush()
         # a publish installs a fresh row and never writes into the old one
-        bases = {n: self.members[n].flat_base() for n in names}
+        bases = {n: self.members[n]._staged_base() for n in names}
         ak = float(alpha) * (len(names) - 1) / len(names)
         recs: Dict[str, FusionRecord] = {}
         for n in names:

@@ -2,7 +2,7 @@
 copy of ``repro.data.pipeline.batches`` and ``num_steps``; batches stay on
 the host and the model moves them to its device).  The reference's
 ``shard_batch`` places a batch on a device mesh and waits for the
-multi-device slice (ROADMAP.md A6)."""
+model-side mesh (ROADMAP.md A6)."""
 from __future__ import annotations
 
 from typing import Dict, Iterator, Optional

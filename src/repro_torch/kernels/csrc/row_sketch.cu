@@ -30,6 +30,16 @@
 //   are in double, so the long sums lose nothing to f32 rounding.
 // * A second one-block kernel adds the G partials of each bucket in block
 //   order.  No atomics: the result is the same on every run.
+//
+// row_sketch_shard_launch is the partial of ONE shard of a row laid out
+// block-cyclically over n_shards shards (blocks of tpb tiles): the slice's
+// tile t is the row's tile g = ((t / tpb) * n_shards + shard) * tpb + t % tpb
+// and feeds bucket g % n_buckets (repro.kernels.ref.row_sketch_shard).  When
+// tpb % n_buckets == 0, g and t fall in the same bucket and row_sketch_launch
+// over the slice already gives the partial; this entry is for the other
+// layouts (a block clamped for a small row).  It is simple, not fast: one
+// kernel writes each tile's sum and sum of squares in double, a second adds
+// each bucket's tiles in tile order (the same bits on every run).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -146,6 +156,61 @@ __global__ void row_sketch_finish(const double* __restrict__ partial, int grid, 
   }
 }
 
+// tile_stats[2t], tile_stats[2t+1] = tile t's sum and sum of squares.
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(kThreads)
+row_sketch_tiles(const T* __restrict__ row, int64_t n, int64_t n_tiles,
+                 double* __restrict__ tile_stats) {
+  __shared__ double s_red[2][kWarps];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int64_t t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+    float a[kPer];
+    load_tile<T, VEC>(row, n, t, a);
+    double s = 0.0, q = 0.0;
+    add_tile(a, s, q);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      s += __shfl_down_sync(0xffffffffu, s, off);
+      q += __shfl_down_sync(0xffffffffu, q, off);
+    }
+    if (lane == 0) {
+      s_red[0][warp] = s;
+      s_red[1][warp] = q;
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      double ss = 0.0, qq = 0.0;
+#pragma unroll
+      for (int i = 0; i < kWarps; ++i) {
+        ss += s_red[0][i];
+        qq += s_red[1][i];
+      }
+      tile_stats[2 * t] = ss;
+      tile_stats[2 * t + 1] = qq;
+    }
+    __syncthreads();  // s_red is reused by the next tile
+  }
+}
+
+// out[0, j], out[1, j] = the stats of the slice's tiles whose row tile falls
+// in bucket j, added in tile order.
+__global__ void row_sketch_shard_finish(const double* __restrict__ tile_stats, int64_t n_tiles,
+                                        int64_t shard, int64_t n_shards, int64_t tpb,
+                                        int n_buckets, float* __restrict__ out) {
+  for (int j = threadIdx.x; j < n_buckets; j += blockDim.x) {
+    double s = 0.0, q = 0.0;
+    for (int64_t t = 0; t < n_tiles; ++t) {
+      const int64_t g = ((t / tpb) * n_shards + shard) * tpb + t % tpb;
+      if (g % n_buckets == j) {
+        s += tile_stats[2 * t];
+        q += tile_stats[2 * t + 1];
+      }
+    }
+    out[j] = (float)s;
+    out[n_buckets + j] = (float)q;
+  }
+}
+
 template <typename T>
 void launch(const void* row, int64_t n, int vec, int grid, void* partial, cudaStream_t stream) {
   const int64_t n_tiles = (n + kLane - 1) / kLane;
@@ -176,6 +241,39 @@ int row_sketch_launch(const void* row, long long n, int dtype, int vec, int n_bu
   if (err != cudaSuccess) return (int)err;
   row_sketch_finish<<<1, 256, 0, stream>>>(static_cast<const double*>(partial), grid, n_buckets,
                                            static_cast<float*>(out));
+  return (int)cudaGetLastError();
+}
+
+// One shard's partial: row is the shard's [n] slice (n a multiple of 1024),
+// tile_stats holds 2 * n / 1024 doubles, out is [2, n_buckets] f32; grid is
+// the first kernel's block count.  Returns cudaGetLastError() after both
+// launches (0 on success).
+int row_sketch_shard_launch(const void* row, long long n, int dtype, int vec, long long shard,
+                            long long n_shards, long long tpb, int n_buckets, int grid,
+                            void* tile_stats, void* out, void* stream_ptr) {
+  if (n < 0 || n % kLane != 0 || n_buckets < 1 || grid < 1 || dtype < 0 || dtype > 1 ||
+      n_shards < 1 || shard < 0 || shard >= n_shards || tpb < 1)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  const int64_t n_tiles = n / kLane;
+  double* stats = static_cast<double*>(tile_stats);
+  if (n_tiles > 0) {
+    if (dtype == 0) {
+      if (vec) row_sketch_tiles<float, true><<<grid, kThreads, 0, stream>>>(
+          static_cast<const float*>(row), n, n_tiles, stats);
+      else row_sketch_tiles<float, false><<<grid, kThreads, 0, stream>>>(
+          static_cast<const float*>(row), n, n_tiles, stats);
+    } else {
+      if (vec) row_sketch_tiles<__nv_bfloat16, true><<<grid, kThreads, 0, stream>>>(
+          static_cast<const __nv_bfloat16*>(row), n, n_tiles, stats);
+      else row_sketch_tiles<__nv_bfloat16, false><<<grid, kThreads, 0, stream>>>(
+          static_cast<const __nv_bfloat16*>(row), n, n_tiles, stats);
+    }
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  row_sketch_shard_finish<<<1, 256, 0, stream>>>(stats, n_tiles, shard, n_shards, tpb, n_buckets,
+                                                 static_cast<float*>(out));
   return (int)cudaGetLastError();
 }
 

@@ -10,6 +10,18 @@ the hand-written kernel ``csrc/row_sketch.cu`` (which replaces the Pallas
 kernel built by ``repro/kernels/cold_fuse.py:_make_sketch_kernel``), a CPU
 tensor through ``row_sketch_plain``.  No fallback: a failed build or launch
 raises.  ``row_sketch.launches`` counts kernel launches.
+
+``row_sketch_shard`` is one shard's partial of the sketch of a row laid out
+block-cyclically (``utils.flat.ShardedFlatSpec``; blocks of ``block``
+elements over ``n_shards`` shards): the slice's tile ``t`` is the row's tile
+``g = ((t // tpb)·n_shards + shard)·tpb + t % tpb``, ``tpb = block / LANE``,
+and feeds bucket ``g % n_buckets`` (``repro.kernels.ref.row_sketch_shard``).
+A CUDA slice launches the entry ``row_sketch_shard_launch`` of the same
+source, a CPU slice takes ``row_sketch_shard_plain``;
+``row_sketch_shard.launches`` counts its launches.  (Where ``tpb`` is a
+multiple of ``n_buckets``, ``g`` and ``t`` share a bucket and
+``row_sketch`` of the slice is the partial: ``ops.row_sketch_sharded``
+takes that path.)
 """
 from __future__ import annotations
 
@@ -41,13 +53,35 @@ def row_sketch_plain(row: torch.Tensor, n_buckets: int = 32) -> torch.Tensor:
     return out
 
 
+def row_sketch_shard_plain(slab: torch.Tensor, shard_index: int, n_shards: int, block: int,
+                           n_buckets: int = 32) -> torch.Tensor:
+    """Plain PyTorch version of one shard's partial: per-tile f32 sums, each
+    added to the bucket of its row tile."""
+    x = slab.float()
+    if x.shape[0] % LANE:
+        raise ValueError(f"a shard slice is whole tiles; got {x.shape[0]} elements")
+    tiles = x.view(-1, LANE)
+    ts, tq = tiles.sum(dim=1), (tiles * tiles).sum(dim=1)
+    tpb = block // LANE
+    t = torch.arange(ts.shape[0], device=slab.device)
+    g = ((t // tpb) * n_shards + shard_index) * tpb + t % tpb
+    out = torch.zeros((2, n_buckets), dtype=torch.float32, device=slab.device)
+    out[0].index_add_(0, g % n_buckets, ts)
+    out[1].index_add_(0, g % n_buckets, tq)
+    return out
+
+
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = _build.load("row_sketch")
     p = ctypes.c_void_p
-    lib.row_sketch_launch.argtypes = [p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+    ll = ctypes.c_longlong
+    lib.row_sketch_launch.argtypes = [p, ll, ctypes.c_int, ctypes.c_int,
                                       ctypes.c_int, ctypes.c_int, p, p, p]
     lib.row_sketch_launch.restype = ctypes.c_int
+    lib.row_sketch_shard_launch.argtypes = [p, ll, ctypes.c_int, ctypes.c_int, ll, ll, ll,
+                                            ctypes.c_int, ctypes.c_int, p, p, p]
+    lib.row_sketch_shard_launch.restype = ctypes.c_int
     lib.row_sketch_error_string.argtypes = [ctypes.c_int]
     lib.row_sketch_error_string.restype = ctypes.c_char_p
     return lib
@@ -95,3 +129,51 @@ def row_sketch(row: torch.Tensor, n_buckets: int = 32) -> torch.Tensor:
 
 
 row_sketch.launches = 0
+
+
+def _launch_shard(slab: torch.Tensor, shard_index: int, n_shards: int, block: int,
+                  n_buckets: int) -> torch.Tensor:
+    if not slab.is_contiguous():
+        raise ValueError("row_sketch_shard kernel takes a contiguous slice")
+    lib = _lib()
+    dev = slab.device
+    n_tiles = slab.shape[0] // LANE
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    grid = max(1, min(n_tiles, sms * BLOCKS_PER_SM))
+    stats = torch.empty((2 * max(n_tiles, 1),), dtype=torch.float64, device=dev)
+    out = torch.empty((2, n_buckets), dtype=torch.float32, device=dev)
+    err = launch_on(slab, lib.row_sketch_shard_launch, slab.data_ptr(), slab.shape[0],
+                    _DTYPE_CODE[slab.dtype], int(slab.data_ptr() % 16 == 0), int(shard_index),
+                    int(n_shards), block // LANE, n_buckets, grid, stats.data_ptr(),
+                    out.data_ptr())
+    if err != 0:
+        raise RuntimeError(f"row_sketch_shard launch failed: CUDA error {err} "
+                           f"({lib.row_sketch_error_string(err).decode()})")
+    with COUNT_LOCK:
+        row_sketch_shard.launches += 1
+    return out
+
+
+def row_sketch_shard(slab: torch.Tensor, shard_index: int, n_shards: int, block: int,
+                     n_buckets: int = 32) -> torch.Tensor:
+    """``[2, n_buckets]`` f32 partial of shard ``shard_index``'s
+    ``[shard_len]`` slice (bf16/f32, whole tiles).  A CUDA slice launches
+    the kernel; a CPU slice takes ``row_sketch_shard_plain``."""
+    if slab.dim() != 1 or slab.shape[0] % LANE:
+        raise ValueError(f"row_sketch_shard takes a [shard_len] slice of whole tiles; got "
+                         f"{tuple(slab.shape)}")
+    if slab.dtype not in _DTYPE_CODE:
+        raise TypeError(f"row_sketch_shard takes a bf16 or f32 slice; got {slab.dtype}")
+    if block % LANE or block < LANE:
+        raise ValueError(f"block {block} is not a positive multiple of {LANE}")
+    if not (0 <= int(shard_index) < int(n_shards)) or int(n_buckets) < 1:
+        raise ValueError(f"shard {shard_index} of {n_shards}, n_buckets {n_buckets}")
+    if slab.device.type == "cpu":
+        return row_sketch_shard_plain(slab, int(shard_index), int(n_shards), int(block),
+                                      int(n_buckets))
+    if slab.device.type != "cuda":
+        raise ValueError(f"row_sketch_shard runs on the CPU or a CUDA card; got {slab.device}")
+    return _launch_shard(slab, int(shard_index), int(n_shards), int(block), int(n_buckets))
+
+
+row_sketch_shard.launches = 0

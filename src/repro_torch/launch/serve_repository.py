@@ -1,5 +1,5 @@
 """Launch the queue-driven fusion daemon over an on-disk repository (port of
-``repro.launch.serve_repository``, single device).
+``repro.launch.serve_repository``).
 
 Opens (or initialises) a spill-enabled Repository at ``--root`` on
 ``--device`` (default ``cuda``; the daemon raises without a card unless
@@ -41,8 +41,20 @@ worker's state file.
   PYTHONPATH=src python -m repro_torch.launch.serve_repository --root repo/ \
       --device cpu --serve-arch gemma3-1b --serve-workers 2 --serve-batch
 
-The reference's ``--mesh`` is accepted by the parser only to be refused: the
-multi-device path is not ported yet.
+``--mesh N`` opens the repository on an N-shard ``("model",)`` mesh of
+``--device`` (``launch.mesh.make_mesh``): the sharded fuse, sketch and
+per-shard spill files.  Shard ``i`` sits on card ``i % cards``, so with
+fewer cards than shards several shards share a card; ``--device cpu`` puts
+every shard on the CPU, as the reference's fake CPU devices do.
+
+  # the sharded daemon on the CPU, as the reference's CI runs it
+  PYTHONPATH=src python -m repro_torch.launch.serve_repository --root repo/ \
+      --device cpu --mesh 8 --min-cohort 2
+
+``REPRO_HOST_TUNING=1`` applies the opt-in host tuning
+(``launch/host_tuning.py``): the tcmalloc preload where it is installed
+(the daemon re-executes itself once to pick it up) and the same environment
+for the pool children.
 """
 from __future__ import annotations
 
@@ -53,15 +65,11 @@ import sys
 
 from repro_torch.checkpoint import io as ckpt
 from repro_torch.core.repository import Repository, RepositoryFamily
+from repro_torch.launch import host_tuning
+from repro_torch.launch.mesh import make_mesh
 from repro_torch.serve.cold_service import AdmissionPolicy, ColdService
 from repro_torch.serve.probes import ProbeSuite, RegressionGate
 from repro_torch.utils.device import resolve_device
-
-# flags of the reference whose paths are not ported yet: dest -> what
-_NOT_PORTED = {
-    "mesh": "--mesh (the multi-device slice)",
-}
-
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="queue-driven ColD Fusion daemon (PyTorch port)")
@@ -70,6 +78,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="base checkpoint to initialise a NEW repository from")
     p.add_argument("--device", default="cuda", help="where the repository lives (cuda, cpu)")
     p.add_argument("--fusion-op", default="average")
+    p.add_argument("--mesh", type=int, default=0, metavar="N",
+                   help="open on an N-shard mesh of --device (sharded fuse; shards share "
+                        "a card where there are fewer cards)")
     p.add_argument("--no-screen", action="store_true",
                    help="disable the §9 MAD screen (new repositories only)")
     p.add_argument("--spill-workers", type=int, default=0,
@@ -131,17 +142,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--serve-queue-depth", type=int, default=64,
                    help="bounded per-worker request queue; overflow is shed as "
                         "rejected:queue_full (--serve-workers)")
-    # refused below: kept so a reference command line fails with a reason
-    p.add_argument("--mesh", type=int, default=0, help=argparse.SUPPRESS)
     return p
 
 
 def parse_args(argv=None) -> argparse.Namespace:
     p = build_parser()
     args = p.parse_args(argv)
-    for dest, what in _NOT_PORTED.items():
-        if getattr(args, dest):
-            p.error(f"{what} is not ported yet")
+    if args.mesh < 0:
+        p.error(f"--mesh must be >= 0, got {args.mesh}")
     if args.serve_workers and not args.serve_arch:
         p.error("--serve-workers requires --serve-arch")
     return args
@@ -150,6 +158,8 @@ def parse_args(argv=None) -> argparse.Namespace:
 def build_service(args) -> ColdService:
     device = resolve_device(args.device)
     kw = dict(spill=True, spill_workers=args.spill_workers)
+    if args.mesh:
+        kw["mesh"] = make_mesh((args.mesh,), ("model",), device=device)
     routed = args.max_bases > 1
     family = None
     if os.path.exists(os.path.join(args.root, "repository.json")):
@@ -205,7 +215,8 @@ def main(argv=None) -> int:
         from repro_torch.serve.worker_pool import WorkerPool
         pool = WorkerPool(svc.repo.root, args.serve_workers, arch=args.serve_arch,
                           device=args.device, max_len=args.serve_max_len, poll=args.poll,
-                          batch=args.serve_batch, queue_depth=args.serve_queue_depth)
+                          batch=args.serve_batch, queue_depth=args.serve_queue_depth,
+                          env=host_tuning.host_tuning_env() if host_tuning.enabled() else {})
         pool.start()
         print(f"[cold-service] {args.serve_workers} pool workers serving {args.serve_arch} on "
               f"{args.device} (max_len={args.serve_max_len}, batch={args.serve_batch}, "
@@ -221,7 +232,8 @@ def main(argv=None) -> int:
 
     signal.signal(signal.SIGTERM, _stop)
     signal.signal(signal.SIGINT, _stop)
-    print(f"[cold-service] serving {args.root} on {svc.repo.device} from iteration "
+    where = svc.repo.mesh if svc.repo.mesh is not None else svc.repo.device
+    print(f"[cold-service] serving {args.root} on {where} from iteration "
           f"{svc.repo.iteration} (min_cohort={svc.policy.min_cohort})", flush=True)
     try:
         st = svc.serve_forever(poll_interval=args.poll, max_iterations=args.max_iterations,
@@ -253,4 +265,5 @@ def main(argv=None) -> int:
 
 
 if __name__ == "__main__":
+    host_tuning.maybe_reexec()  # LD_PRELOAD acts only at process start
     sys.exit(main())

@@ -53,8 +53,6 @@ Serving state: a hot-swap worker (``serve/hot_swap.ServingWorker``) owns its
 own state file, ``serving_state.json`` when solo or ``serving_state-<id>.json``
 as a pool member, and ``status()["serving"]`` embeds them read-only (one
 file passes through, several become an aggregate).
-
-Not ported yet (raises): per-shard submissions (``sspec=``).
 """
 from __future__ import annotations
 
@@ -73,8 +71,9 @@ from repro_torch.core.repository import Repository, RepositoryFamily, family_mem
 from repro_torch.serve.probes import ProbeReport, RegressionGate
 from repro_torch.utils import faults
 from repro_torch.utils.device import resolve_device
-from repro_torch.utils.flat import (LANE, FamilyRouter, FlatSpec, delta_checksum,
-                                    delta_encode, row_checksum, row_sketch_host)
+from repro_torch.utils.flat import (LANE, FamilyRouter, FlatSpec, ShardedFlatSpec,
+                                    delta_checksum, delta_encode, delta_encode_sharded,
+                                    row_checksum, row_sketch_host)
 
 QUEUE_DIR = "queue"
 QUEUE_MANIFEST = "queue_manifest.json"
@@ -108,10 +107,6 @@ def _queue_dir(root: str) -> str:
     return os.path.join(root, QUEUE_DIR)
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet")
-
-
 # ---------------------------------------------------------------------------
 # contributor side
 # ---------------------------------------------------------------------------
@@ -130,7 +125,7 @@ class ContributorClient:
         self._spec: Optional[FlatSpec] = None
 
     def submit(self, params=None, *, row=None, spec: Optional[FlatSpec] = None,
-               sspec=None, weight: Optional[float] = None,
+               sspec: Optional[ShardedFlatSpec] = None, weight: Optional[float] = None,
                base_iteration: Optional[int] = None, seq: Optional[int] = None,
                checksum: bool = False, sketch: Optional[bool] = None,
                compress: bool = False, base=None, family: Optional[str] = None,
@@ -139,19 +134,20 @@ class ContributorClient:
         durably in the queue.
 
         Pass a ``params`` tree (flattened here, on its device) or a flat
-        ``row`` with its ``spec``.  ``base_iteration`` is the iteration of
-        the base it was finetuned from (the staleness screen).
+        ``row`` with its ``spec``.  With ``sspec`` the row is written as its
+        per-shard block-cyclic slices (``save_flat_shards``), the layout a
+        mesh repository stages shard by shard.  ``base_iteration`` is the
+        iteration of the base it was finetuned from (the staleness screen).
         ``checksum=True`` stamps a CRC (of the row, or of the encoded
         payload bytes when compressed).  ``sketch`` stamps the row's content
         sketch into the rider (default: iff the service's status says the
         novelty screen is armed, or no status exists yet).
         ``compress=True`` enqueues ``row − base`` as per-block top-
-        ``k_per_block`` int8 values with f32 scales (``delta_encode``);
-        it needs ``base`` (the pulled base tree or row) and
+        ``k_per_block`` int8 values with f32 scales (``delta_encode``, per
+        shard under ``sspec``); it needs ``base`` (the pulled base tree or
+        row) and
         ``base_iteration``, since the service admits a delta only against
         its exact declared vintage."""
-        if sspec is not None:
-            raise _not_ported("submit(sspec=) (per-shard submissions)")
         if row is None:
             if params is None:
                 raise ValueError("submit needs params= or row=")
@@ -176,8 +172,12 @@ class ContributorClient:
                 raise ValueError("compress=True needs base_iteration= — the service admits "
                                  "a compressed delta only against its declared base vintage")
             base_row = base if getattr(base, "ndim", None) == 1 else spec.flatten(base)
-            payload = delta_encode(host_row, base_row, k_per_block=k_per_block,
-                                   block=codec_block)
+            if sspec is not None:
+                payload = delta_encode_sharded(host_row, base_row, sspec,
+                                               k_per_block=k_per_block, block=codec_block)
+            else:
+                payload = delta_encode(host_row, base_row, k_per_block=k_per_block,
+                                       block=codec_block)
         extra = {
             "id": sub_id,
             "contributor": self.name,
@@ -199,7 +199,10 @@ class ContributorClient:
         # nothing durable yet: a death here enqueues nothing
         faults.crash_point("client.mid_submit")
         if compress:
-            ckpt.save_flat_delta(path, payload, spec, extra=extra)
+            ckpt.save_flat_delta(path, payload, spec, sspec=sspec, extra=extra)
+        elif sspec is not None:
+            ckpt.save_flat_shards(path, sspec.shard_slices(host_row), spec, sspec,
+                                  extra=extra)
         else:
             ckpt.save_flat(path, host_row, spec, extra=extra)
         return sub_id
@@ -683,8 +686,10 @@ class ColdService:
             payloads, _ = ckpt.load_flat_delta(path)
             return delta_checksum(payloads) == want, None
         if meta["sharded"]:
-            raise ValueError("sharded rows are not ported yet (multi-device slice)")
-        row, _ = ckpt.load_flat(path)
+            with ckpt.FlatShardReader(path) as r:
+                row = r.full_row()
+        else:
+            row, _ = ckpt.load_flat(path)
         return row_checksum(row) == want, row
 
     def _compressed_screen(self, extra: Dict[str, Any], path: str,
@@ -708,7 +713,7 @@ class ColdService:
                     "vintage exactly")
         try:
             payloads, _ = ckpt.load_flat_delta(path)
-        except Exception as err:  # torn / garbage / sharded payload entries
+        except Exception as err:  # torn / garbage payload entries
             return f"unreadable ({type(err).__name__}: {err})"
         for p in payloads:
             if not np.isfinite(p.scales).all():
@@ -749,7 +754,7 @@ class ColdService:
         if sketch is None:
             try:
                 sketch = lane.repo.sketch_row_file(path, meta=meta)
-            except Exception as err:  # torn / vanished / sharded since the peek
+            except Exception as err:  # torn / vanished since the peek
                 self._reject(fn, f"unreadable ({type(err).__name__}: {err})", lane=at or lane)
                 return None, True
         return sketch, False
@@ -875,7 +880,7 @@ class ColdService:
                 weight = None if w is None else float(w)
                 try:
                     lane.repo.ingest_spilled(path, weight=weight, meta=meta)
-                except ValueError as err:  # FlatSpec mismatch, sharded file
+                except ValueError as err:  # FlatSpec mismatch
                     if threshold is not None or self._routing:
                         # a row that never staged must not stay in the window
                         lane.repo.cohort_sketch.discard(sub_id)

@@ -88,10 +88,11 @@ def make_train_step(cfg: ArchConfig, optimizer: Optimizer, *, microbatches: int 
     ``grad_sync(grads) -> grads``: the hook a distribution strategy uses to
     reduce gradients across devices; identity by default.
     ``grad_shardings`` pins the reference's gradient accumulator to a mesh
-    layout and waits for the multi-device slice (ROADMAP.md A6)."""
+    layout and waits for the model-side mesh (ROADMAP.md A6)."""
     if grad_shardings is not None:
-        raise NotImplementedError("make_train_step(grad_shardings=) needs a device mesh, which "
-                                  "is not ported yet (ROADMAP.md A6)")
+        raise NotImplementedError("make_train_step(grad_shardings=) needs the model-side mesh "
+                                  "(parameter and gradient shardings), which is not ported yet "
+                                  "(ROADMAP.md A6)")
     if microbatches < 1:
         raise ValueError(f"microbatches must be >= 1; got {microbatches}")
     aux_w = cfg.moe.aux_loss_weight if aux_weight is None else aux_weight

@@ -23,6 +23,10 @@ The service loop adds the novelty screen's host half (``row_sketch_host``,
 ``sketch_apply_delta``; host numpy, byte-identical to the JAX package's)
 and the double-buffered staging primitives (``StagingSide``,
 ``BufferPair``).
+
+The mesh slice adds ``ShardedFlatSpec``, the block-cyclic layout of a row
+over S shards (the same geometry and JSON as the JAX package's), and the
+per-shard codec (``delta_encode_sharded``/``delta_decode_sharded``).
 """
 from __future__ import annotations
 
@@ -42,6 +46,10 @@ LANE = 1024
 # buckets per row-sketch statistic: a sketch is a few hundred bytes of
 # JSON, yet distinct finetunes land distinct bucket profiles
 SKETCH_BUCKETS = 32
+
+# elements per block of the block-cyclic shard layout (64 tiles); clamped
+# down for rows too small to give every shard one whole block
+DEFAULT_SHARD_BLOCK = 64 * 1024
 
 
 def dtype_name(dtype: torch.dtype) -> str:
@@ -154,18 +162,32 @@ def row_checksum(buf) -> str:
 
 @dataclass(frozen=True)
 class StagedBuffer:
-    """Explicit handle to one stacked ``[K, N]`` cohort operand."""
+    """Explicit handle to one stacked cohort operand: a ``[K, N]`` tensor
+    (one device), or, on a mesh, a tuple of S contiguous ``[K, shard_len]``
+    tensors, shard ``s`` on its own device (``sharded`` True).  A
+    ``[K, S, shard_len]`` tensor, the JAX package's sharded layout, is
+    accepted too and split by shard where it is fused."""
 
-    data: torch.Tensor
+    data: Any
+
+    @property
+    def sharded(self) -> bool:
+        return isinstance(self.data, (tuple, list)) or self.data.dim() == 3
 
     @property
     def k(self) -> int:
-        return self.data.shape[0]
+        first = self.data[0] if isinstance(self.data, (tuple, list)) else self.data
+        return first.shape[0]
 
     @classmethod
-    def from_rows(cls, rows: Sequence[torch.Tensor]) -> "StagedBuffer":
+    def from_rows(cls, rows: Sequence[Any]) -> "StagedBuffer":
+        """Stack K staged rows: ``[N]`` tensors, or per-shard row lists
+        (stacked shard by shard, each on its own device)."""
         if not rows:
             raise ValueError("cannot stage an empty cohort")
+        if isinstance(rows[0], (tuple, list)):
+            return cls(tuple(torch.stack([r[s] for r in rows])
+                             for s in range(len(rows[0]))))
         return cls(torch.stack(list(rows)))
 
 
@@ -443,6 +465,133 @@ class FamilyRouter:
 
 
 # ---------------------------------------------------------------------------
+# ShardedFlatSpec — block-cyclic layout of a flat row over S shards
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class ShardedFlatSpec:
+    """Block-cyclic layout of a flat ``[N]`` row over ``n_shards`` shards
+    (port of ``repro.utils.flat.ShardedFlatSpec``; the same geometry and
+    JSON).
+
+    The zero-padded row is a ``(G, S, B)`` grid of blocks of ``B``
+    elements: block ``j`` lives on shard ``j % S`` at slot ``j // S``.  A
+    shard's slice is the ``G·B = shard_len`` elements of its blocks in slot
+    order, so every shard holds the same count and whole LANE tiles.
+    Padding is zero in the base and in every contribution: it adds nothing
+    to a fused element or to ``sq_diff``, so per-shard partials sum without
+    a mask."""
+
+    size: int      # N, unpadded
+    n_shards: int  # S
+    block: int     # B, a multiple of LANE
+
+    @classmethod
+    def for_size(cls, size: int, n_shards: int,
+                 block: Optional[int] = None) -> "ShardedFlatSpec":
+        """The layout of an ``[N]`` row over ``n_shards`` shards: ``block``
+        defaults to ``DEFAULT_SHARD_BLOCK``, clamped (LANE-aligned) to one
+        round of the cycle when the row is smaller than S blocks."""
+        if n_shards < 1:
+            raise ValueError(f"n_shards must be >= 1, got {n_shards}")
+        if block is None:
+            per_shard = -(-max(size, 1) // n_shards)
+            aligned = -(-per_shard // LANE) * LANE
+            block = min(DEFAULT_SHARD_BLOCK, aligned)
+        if block % LANE:
+            raise ValueError(f"block {block} is not a multiple of LANE={LANE}")
+        return cls(size, n_shards, block)
+
+    @classmethod
+    def from_spec(cls, spec: FlatSpec, n_shards: int,
+                  block: Optional[int] = None) -> "ShardedFlatSpec":
+        return cls.for_size(spec.size, n_shards, block)
+
+    @property
+    def n_super(self) -> int:
+        """G, the rounds of the block cycle."""
+        return -(-max(self.size, 1) // (self.n_shards * self.block))
+
+    @property
+    def padded_size(self) -> int:
+        return self.n_super * self.n_shards * self.block
+
+    @property
+    def shard_len(self) -> int:
+        return self.n_super * self.block
+
+    def shard_of(self, i: int) -> Tuple[int, int]:
+        """(shard, offset within the shard) of flat element ``i``."""
+        if not (0 <= i < self.size):
+            raise ValueError(f"element {i} out of range [0, {self.size})")
+        j, r = divmod(i, self.block)
+        return j % self.n_shards, (j // self.n_shards) * self.block + r
+
+    def global_of(self, shard: int, offsets) -> np.ndarray:
+        """Flat indices of ``offsets`` within shard ``shard`` (vectorized
+        inverse of ``shard_of``); padding offsets map past ``size``."""
+        off = np.asarray(offsets, np.int64)
+        slot, r = np.divmod(off, self.block)
+        return (slot * self.n_shards + int(shard)) * self.block + r
+
+    def shard(self, buf: torch.Tensor) -> torch.Tensor:
+        """``[..., N]`` -> ``[..., S, shard_len]``, zero-padded."""
+        if buf.shape[-1] != self.size:
+            raise ValueError(f"buffer last dim {buf.shape[-1]} != size {self.size}")
+        lead = tuple(buf.shape[:-1])
+        pad = self.padded_size - self.size
+        if pad:
+            buf = torch.cat([buf, buf.new_zeros(lead + (pad,))], dim=-1)
+        grid = buf.reshape(lead + (self.n_super, self.n_shards, self.block))
+        return grid.transpose(-3, -2).reshape(lead + (self.n_shards, self.shard_len))
+
+    def unshard(self, arr: torch.Tensor) -> torch.Tensor:
+        """``[..., S, shard_len]`` -> ``[..., N]`` (padding dropped)."""
+        want = (self.n_shards, self.shard_len)
+        if tuple(arr.shape[-2:]) != want:
+            raise ValueError(f"sharded shape {tuple(arr.shape[-2:])} != {want}")
+        lead = tuple(arr.shape[:-2])
+        grid = arr.reshape(lead + (self.n_shards, self.n_super, self.block))
+        flat = grid.transpose(-3, -2).reshape(lead + (self.padded_size,))
+        return flat[..., : self.size]
+
+    def shard_slices(self, row) -> List[Any]:
+        """An ``[N]`` host row (numpy, or a tensor) -> its S contiguous
+        ``[shard_len]`` slices, of the same kind: the per-shard file layout.
+        Slice ``s`` is what ``shard(row)[s]`` holds."""
+        if tuple(row.shape) != (self.size,):
+            raise ValueError(f"row shape {tuple(row.shape)} != ({self.size},)")
+        if isinstance(row, torch.Tensor):
+            return [s.contiguous() for s in self.shard(row).unbind(0)]
+        row = np.asarray(row)
+        pad = self.padded_size - self.size
+        if pad:
+            row = np.concatenate([row, np.zeros((pad,), row.dtype)])
+        grid = row.reshape(self.n_super, self.n_shards, self.block)
+        return [np.ascontiguousarray(grid[:, s, :].reshape(self.shard_len))
+                for s in range(self.n_shards)]
+
+    def unshard_slices(self, slices: Sequence[Any]) -> Any:
+        """S ``[shard_len]`` slices (numpy, or tensors on one device) -> the
+        ``[N]`` row, of the same kind."""
+        if len(slices) != self.n_shards:
+            raise ValueError(f"{len(slices)} slices != n_shards {self.n_shards}")
+        if isinstance(slices[0], torch.Tensor):
+            return self.unshard(torch.stack(list(slices)))
+        grid = np.stack([np.asarray(s).reshape(self.n_super, self.block)
+                         for s in slices], axis=1)
+        return grid.reshape(self.padded_size)[: self.size]
+
+    def to_json(self) -> Dict[str, Any]:
+        return {"size": self.size, "n_shards": self.n_shards, "block": self.block}
+
+    @classmethod
+    def from_json(cls, meta: Dict[str, Any]) -> "ShardedFlatSpec":
+        return cls(int(meta["size"]), int(meta["n_shards"]), int(meta["block"]))
+
+
+# ---------------------------------------------------------------------------
 # Delta codec — top-k sparse / int8 compressed contributions
 # ---------------------------------------------------------------------------
 
@@ -566,6 +715,30 @@ def delta_entries(payload: DeltaPayload) -> Tuple[np.ndarray, np.ndarray]:
     dv = (payload.values.astype(np.float32) * payload.scales[:, None]).reshape(-1)
     keep = (gi < payload.size) & (dv != 0.0)
     return gi[keep], dv[keep]
+
+
+def delta_encode_sharded(row, base, sspec: ShardedFlatSpec, *, k_per_block: int,
+                         block: int = LANE) -> List[DeltaPayload]:
+    """Encode each shard's slice of ``row`` against the same slice of
+    ``base``: S payloads of ``shard_len`` elements.  ``sspec.block`` must
+    be a multiple of the codec block, so no codec block straddles shards."""
+    if sspec.block % block:
+        raise ValueError(f"shard block {sspec.block} not a multiple of codec block {block}")
+    row_s = sspec.shard_slices(host_f32(row, "row"))
+    base_s = sspec.shard_slices(host_f32(base, "base"))
+    return [delta_encode(r, b, k_per_block=k_per_block, block=block)
+            for r, b in zip(row_s, base_s)]
+
+
+def delta_decode_sharded(payloads: Sequence[DeltaPayload], sspec: ShardedFlatSpec,
+                         base=None) -> np.ndarray:
+    """S per-shard payloads -> the dense ``[N]`` delta (or ``base + delta``)."""
+    if len(payloads) != sspec.n_shards:
+        raise ValueError(f"{len(payloads)} payloads != n_shards {sspec.n_shards}")
+    delta = sspec.unshard_slices([delta_decode(p) for p in payloads])
+    if base is None:
+        return delta
+    return host_f32(base, "base") + delta
 
 
 def delta_checksum(payloads) -> str:

@@ -9,6 +9,8 @@ arithmetic, same bits).  ``row_sketch_plain`` rtol 1e-5 (its f32 tile sums
 fold over buckets in another order than the reference's one-hot product).
 ``decode_accum_plain`` and ``fuse_flat_compressed`` atol 1e-6 (f32 sums of
 the same products, in another order)."""
+import json
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -248,6 +250,11 @@ def test_flat_and_delta_files_read_across_packages(tmp_path, dtype):
 
 
 def test_sharded_files_are_reported_and_refused(tmp_path):
+    """Per-shard files the reference writes are reported as it reports them
+    and now read in the port (the full parity is in tests/test_torch_mesh.py);
+    what is still refused is a malformed one: a per-shard delta file whose
+    payload count is not its shard count, and a whole-row file opened as
+    per-shard."""
     spec = jflat.FlatSpec.from_tree({"w": jnp.zeros((3000,), jnp.float32)})
     sspec = jflat.ShardedFlatSpec.from_spec(spec, 2, block=1024)
     row = np.arange(3000, dtype=np.float32)
@@ -256,11 +263,28 @@ def test_sharded_files_are_reported_and_refused(tmp_path):
     meta = tio.flat_row_meta(path)
     assert meta["sharded"] and meta == jio.flat_row_meta(path)
     assert tio.is_flat_sharded(path)
+    with tio.FlatShardReader(path) as r:
+        np.testing.assert_array_equal(r.full_row().numpy(), row)
     dpath = str(tmp_path / "sd.npz")
     payloads = jflat.delta_encode_sharded(row + 1, row, sspec, k_per_block=4)
     jio.save_flat_delta(dpath, payloads, spec, sspec=sspec)
-    with pytest.raises(ValueError, match="not ported yet"):
-        tio.load_flat_delta(dpath)
+    got, _ = tio.load_flat_delta(dpath)
+    assert [_payload_bytes(p) for p in got] == [_payload_bytes(p) for p in payloads]
+    bad = str(tmp_path / "bad.npz")
+    three = jflat.ShardedFlatSpec.from_spec(spec, 3, block=1024)
+    jio.save_flat_delta(bad, payloads, spec, sspec=sspec)
+    with np.load(bad) as data:  # the same payloads under a 3-shard spec
+        arrays = dict(data)
+    arrays["__flat_shard_spec__"] = np.frombuffer(
+        json.dumps(three.to_json()).encode(), dtype=np.uint8)
+    np.savez(bad, **arrays)
+    with pytest.raises(ValueError, match="payloads != n_shards 3"):
+        tio.load_flat_delta(bad)
+    whole = str(tmp_path / "w.npz")
+    tio.save_flat(whole, torch.from_numpy(row), tflat.FlatSpec.from_tree(
+        {"w": torch.zeros(3000)}))
+    with pytest.raises(ValueError, match="not a sharded flat checkpoint"):
+        tio.FlatShardReader(whole)
 
 
 def test_jsonl_series_tolerates_a_torn_tail(tmp_path):

@@ -68,21 +68,47 @@ def test_train_lm_e2e(capfd):
     assert "  step   20: loss=" in out and "[train] done in" in out
 
 
-@pytest.mark.parametrize("mode", [[], ["--compress"]], ids=["dense", "compress"])
+# the reference's CI runs the demo's four service stages with the daemon on
+# --mesh 8 (scripts/ci.sh); the port's daemon takes the same flag, every
+# shard on the CPU here
+MESH_MODES = {
+    "mesh8-duplicates": ["--mesh", "8", "--duplicates", "1"],
+    "mesh8-compress": ["--mesh", "8", "--compress"],
+    "mesh8-tasks": ["--mesh", "8", "--tasks", "2", "--max-bases", "3"],
+    "mesh8-regress": ["--mesh", "8", "--regress", "1"],
+}
+
+
+@pytest.mark.parametrize("mode", [[], ["--compress"], *MESH_MODES.values()],
+                         ids=["dense", "compress", *MESH_MODES])
 def test_cold_service_demo(mode, tmp_path, capfd):
     demo = _example("cold_service_demo")
     rc = demo.main(["--device", "cpu", "--contributors", "2", "--rounds", "2",
                     "--root", str(tmp_path / "root"), "--timeout", "120", *mode])
     out = capfd.readouterr().out
     assert rc == 0, out
+    if "--mesh" in mode:
+        assert "on Mesh(model=8; cpu) from iteration 0" in out
+    if "--tasks" in mode:
+        assert "members ['f1', 'main'] (1 spawned)" in out
+        assert "[demo] separation + cross-fuse -> OK" in out
+        return
     assert "-> iteration 2, 4 contributions fused" in out
     assert "final base w=0.4500 (expected 0.4500) -> OK" in out
-    if mode:
+    if "--compress" in mode:
         assert out.count("COMPRESSED") == 4
+    if "--duplicates" in mode:
+        assert "2 near-duplicates rejected" in out
+    if "--regress" in mode:
+        assert "[demo] gate: 1 rollbacks, " in out
 
 
 def test_cold_service_demo_refuses_the_mesh():
-    with pytest.raises(SystemExit):
+    """``--mesh`` places its shards on the card unless ``--device cpu``:
+    with no card the demo refuses the mesh before it starts anything."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card: the mesh would be made on it")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         _example("cold_service_demo").main(["--mesh", "8"])
 
 

@@ -23,6 +23,7 @@ from repro.utils import flat as jflat
 from repro_torch.checkpoint import io as tio
 from repro_torch.core.repository import Repository as TRepository
 from repro_torch.core.repository import RepositoryFamily as TRepositoryFamily
+from repro_torch.launch.mesh import make_mesh
 from repro_torch.serve import cold_service as tcs
 from repro_torch.serve.probes import ProbeSuite, RegressionGate
 from repro_torch.utils import flat as tflat
@@ -280,9 +281,12 @@ def test_launcher_drains_a_queue_on_the_cpu(tmp_path):
     want = (b0.float() + 0.015).numpy()
     got = TRepository.open(root, device="cpu").flat_base_host().numpy()
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
-    refused = subprocess.run(cmd[:3] + ["--root", root, "--mesh", "2"], env=env,
-                             capture_output=True, text=True, timeout=120)
-    assert refused.returncode == 2 and "--mesh" in refused.stderr and "not ported" in refused.stderr
+    # --mesh places its shards on --device, the card by default: with no
+    # card the launcher refuses the mesh before it opens the root
+    if not torch.cuda.is_available():
+        refused = subprocess.run(cmd[:3] + ["--root", root, "--mesh", "2"], env=env,
+                                 capture_output=True, text=True, timeout=120)
+        assert refused.returncode != 0 and "no CUDA device" in refused.stderr
 
 
 def test_launcher_runs_gated_compacting_with_spill_workers(tmp_path):
@@ -319,12 +323,18 @@ def test_launcher_runs_gated_compacting_with_spill_workers(tmp_path):
 
 
 def test_unported_paths_raise(tmp_path):
-    """mesh= still raises and spill=False is still refused; family= and
-    max_bases > 1, which raised before the routing slice, now construct a
-    routed service (their parity is in tests/test_torch_routing.py)."""
+    """mesh= constructs the sharded engine now (its parity is in
+    tests/test_torch_mesh_repo.py) and raises only where the reference
+    does: on the per-leaf engine and for axes the mesh lacks.  spill=False
+    is still refused; family= and max_bases > 1 construct a routed
+    service (their parity is in tests/test_torch_routing.py)."""
     base = _ttree(_base())
-    with pytest.raises(NotImplementedError, match="mesh"):
-        TRepository(base, mesh=object())
+    mesh = make_mesh((2,), ("model",), device="cpu")
+    assert TRepository(base, mesh=mesh).mesh is mesh
+    with pytest.raises(ValueError, match="mesh= requires the flat engine"):
+        TRepository(base, mesh=mesh, fusion_op="fisher")
+    with pytest.raises(ValueError, match=r"mesh_axes \['data'\] not in mesh"):
+        TRepository(base, mesh=mesh, mesh_axes="data")
     repo = TRepository(base, root=str(tmp_path / "R"), spill=True)
     with pytest.raises(ValueError, match="exactly one of repo= .* or family="):
         tcs.ColdService(repo, family=object())
