@@ -278,15 +278,38 @@ Phases (any failed check raises, so the script exits non-zero):
    exact (``MESH_LAUNCHES``: ``cold_fuse`` 16, ``decode_accum`` 8,
    ``row_sketch`` 49), the collectives, peak memory and seconds printed.
 
-Before each of phases 6, 7, 8, 10 and 11, before each model of phases 9, 13
-and 14, around phases 12's, 13's and 14's eval steps and generates and
-around each run of phase 15's mesh daemon, every kernel's launch counter is
-set to 0; it is read just after.  The last lines are the kernels' JSON
+16. the model-side ColD mesh (slice 12) at gemma3-1b's full width in f32
+   with AdamW (``phase_cold_mesh``): ``make_cold_mesh(contributors=2,
+   replicas=2, model=2)`` on the card, the train state stacked for 2
+   contributors from seed 0 and placed by ``cold_shardings``
+   (``launch.sharding.device_put``: each slab whole on its contributor
+   slot's device, the step counter one [2] tensor with slab 0), each slab
+   its own seeded token stream of 8 x 64.  3 cold steps
+   (``make_cold_train_step``; 0 collectives; the slabs must diverge; run
+   alone on a machine of several cards, the two slabs sit on two), each
+   slab then equal bit for bit to ``make_train_step`` run alone on it;
+   ``make_fuse_step(flat=True)`` at alpha 1 (exactly 1 all-reduce, the
+   slabs equal bit for bit, the per-leaf path within 1 f32 ulp of the
+   operands); 2 more cold steps and a fuse at alpha 0.5 (1 all-reduce, the
+   per-leaf path likewise, the slabs' spread halved within 3 f32 ulps).
+   Slab 0 of the fused base, cast to bf16, is served 4 x 1024 -> 32
+   through ``Engine.generate`` with ``flash_attention``'s launches exact by
+   route, and phase 9's rule against the plain path.  Local step ms per
+   slab, fuse ms, peak memory and the bytes across the contributor axis
+   (``launch.mesh.collective_bytes``) against sync-DP's gradient bytes are
+   printed.
+
+Before each of phases 6, 7, 8, 10, 11 and 16 (and again before phase 16's
+serve), before each model of phases 9, 13 and 14, around phases 12's, 13's
+and 14's eval steps and generates and around each run of phase 15's mesh
+daemon, every kernel's launch counter is set to 0; it is read just after.  The last lines are the kernels' JSON
 record (launches from phase 7 for the three fuse kernels, with phase 10's
 as ``launches_routed``, from phase 9 for the other two, phase 11's as
 ``launches_serve_stack``, phase 12's as ``launches_lm_train``, phase 13's as
-``launches_archs``, phase 14's as ``launches_archs2`` and phase 15's as
-``launches_mesh`` for all five; phase 15's times under ``mesh``),
+``launches_archs``, phase 14's as ``launches_archs2``, phase 15's as
+``launches_mesh`` and phase 16's serve as ``launches_cold_mesh`` for all
+five; phase 15's times under ``mesh``), phase 16's record as a
+``{"cold_mesh": ...}`` line,
 ``nvidia-smi``'s line and
 ``{"ok": true, "device": {...}}``.  Without a card (or without the rest of
 the repository beside it) the script exits non-zero and prints no result.
@@ -312,8 +335,12 @@ import torch.nn.functional as F
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
 
 from repro_torch.configs import CONFIG, TINY, get_config, reduce_config  # noqa: E402
-from repro_torch.core import (Contributor, EvalTask, Repository,  # noqa: E402
-                              RepositoryFamily, evaluate_base_model, fusion, run_cold_fusion)
+from repro_torch.core import (ColdSchedule, Contributor, EvalTask, Repository,  # noqa: E402
+                              RepositoryFamily, cold_shardings, evaluate_base_model, fusion,
+                              make_cold_train_step, make_fuse_step, run_cold_fusion,
+                              stack_for_contributors)
+from repro_torch.core.distributed import slab  # noqa: E402
+from repro_torch.data.pipeline import shard_batch  # noqa: E402
 from repro_torch.data.synthetic import SyntheticSuite  # noqa: E402
 from repro_torch.checkpoint import io as ckpt  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
@@ -329,6 +356,7 @@ from repro_torch.kernels import rwkv6_scan as rs_mod  # noqa: E402
 from repro_torch.kernels.rwkv6_scan import rwkv6_scan, rwkv6_scan_plain  # noqa: E402
 from repro_torch.launch import mesh as mesh_mod  # noqa: E402
 from repro_torch.launch.mesh import make_mesh  # noqa: E402
+from repro_torch.launch.sharding import device_put  # noqa: E402
 from repro_torch.launch.serve import main as serve_main  # noqa: E402
 from repro_torch.launch.serve_repository import main as serve_repo_main  # noqa: E402
 from repro_torch.launch import train as train_launcher  # noqa: E402
@@ -343,9 +371,10 @@ from repro_torch.serve.engine import Engine  # noqa: E402
 from repro_torch.train import finetune as FT  # noqa: E402
 from repro_torch.train import pretrain as pretrain_mod  # noqa: E402
 from repro_torch.train import pretrain_mlm, train_multitask  # noqa: E402
-from repro_torch.optim import make_optimizer, warmup_cosine_lr  # noqa: E402
+from repro_torch.optim import constant_lr, make_optimizer, warmup_cosine_lr  # noqa: E402
 from repro_torch.train.losses import lm_loss  # noqa: E402
-from repro_torch.train.step import make_eval_step, make_serve_step, make_train_step  # noqa: E402
+from repro_torch.train.step import (make_eval_step, make_serve_step,  # noqa: E402
+                                    make_train_state, make_train_step)
 from repro_torch.serve.cold_service import (AdmissionPolicy, ColdService,  # noqa: E402
                                             ContributorClient)
 from repro_torch.serve.probes import MultitaskEvals, ProbeSuite, RegressionGate  # noqa: E402
@@ -4617,6 +4646,230 @@ def phase_mesh(workdir, card):
     print(f"[mesh] phase {time.perf_counter() - t0:.1f} s on {card}")
     return counts, rec
 
+# ---------------------------------------------------------------------------
+# slice 12: the model-side ColD mesh (phase 16)
+# ---------------------------------------------------------------------------
+
+# gemma3-1b at full width in f32 with AdamW (the launcher's lr, held), C
+# slabs from seed 0 on a (C, 2, 2) contrib/replica/model mesh of the card;
+# COLD_H local steps, a fuse at each of COLD_ALPHAS, each slab its own
+# seeded token stream of TRAIN_BATCH x TRAIN_SEQ; then slab 0 of the fused
+# base, cast to bf16, served 4 x GEMMA_PROMPT -> SERVE_NEW (phase 9's shape)
+COLD_C, COLD_H, COLD_ALPHAS = 2, (3, 2), (1.0, 0.5)
+COLD_MESH = dict(contributors=COLD_C, replicas=2, model=2)
+PR21_STEP_MS = 189.8        # phase 12's gemma3-1b f32 step (PR 21, PERF.md)
+
+
+# The phase runs as it is on more than one card too (phase 16 alone, to see
+# the two slabs on two cards): it waits for, and reads the peak of, every card.
+def sync_cards():
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def reset_cards_peak():
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.reset_peak_memory_stats(i)
+
+
+def cards_peak_gib() -> float:
+    """The largest peak allocation of any card since the last reset."""
+    return max(torch.cuda.max_memory_allocated(i)
+               for i in range(torch.cuda.device_count())) / 2 ** 30
+
+
+def cold_batches(cfg, steps: int):
+    """Each slab's own token stream: ``steps`` batches of TRAIN_BATCH x
+    TRAIN_SEQ, slab ``c`` from seed 16 + c; stacked ``[steps, C, B, S]``."""
+    streams = [train_launcher.token_stream(cfg, steps=steps, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                                           seed=16 + c) for c in range(COLD_C)]
+    return np.stack([s.reshape(steps, TRAIN_BATCH, TRAIN_SEQ) for s in streams], 1)
+
+
+def cold_local_steps(step, run, batches, batch_sh, card, what):
+    """``len(batches)`` cold steps on ``run["state"]`` (held only there, so
+    each step's input is freed when its output replaces it), timed; no
+    collective may run.  Returns the per-slab step times (ms)."""
+    mesh_mod.reset_collectives()
+    per_slab = []
+    for toks in batches:
+        sync_cards()
+        t0 = time.perf_counter()
+        run["state"], m = step(run["state"], shard_batch({"tokens": toks}, batch_sh["tokens"]))
+        losses = m["loss"].tolist()
+        sync_cards()
+        per_slab.append((time.perf_counter() - t0) * 1e3 / COLD_C)
+        check(all(math.isfinite(x) for x in losses), f"{what}: a loss is not finite: {losses}")
+    check(mesh_mod.collectives == {"all_reduce": 0, "all_gather": 0},
+          f"{what}: local steps ran collectives {mesh_mod.collectives}")
+    emb = run["state"]["params"]["embed"]
+    div = (emb[0] - emb[1].to(emb[0].device)).abs().max().item()
+    check(div > 0, f"{what}: the slabs did not diverge")
+    print(f"[cold-mesh] {what}: {len(batches)} cold steps of {COLD_C} slabs, per slab "
+          f"{[round(x, 1) for x in per_slab]} ms (PR 21's plain step {PR21_STEP_MS} ms), losses "
+          f"{[round(x, 4) for x in losses]}; 0 collectives; the slabs' embed differs by max "
+          f"{div:.4g}; peak so far {cards_peak_gib():.2f} GiB; on "
+          f"{card}")
+    return per_slab
+
+
+def cold_fuse_checked(cfg, mesh, state, alpha, h, card):
+    """``make_fuse_step(flat=True)`` timed, with exactly one all-reduce;
+    against the per-leaf path (1 f32 ulp of the operands) and, at alpha 1,
+    the slabs equal bit for bit, else the spread (1 - alpha) times the old
+    one (3 f32 ulps: two roundings in the fuse, two in the check).  ``h``
+    local steps came before it.  Returns the fused params and a record."""
+    sched = ColdSchedule(alpha=alpha)
+    params = state["params"]
+    mesh_mod.reset_collectives()
+    sync_cards()
+    t0 = time.perf_counter()
+    fused = make_fuse_step(cfg, mesh, sched, flat=True)(params)
+    sync_cards()
+    flat_ms = (time.perf_counter() - t0) * 1e3
+    cols, nbytes = dict(mesh_mod.collectives), dict(mesh_mod.collective_bytes)
+    check(cols["all_reduce"] == 1, f"flat fuse (alpha {alpha}): {cols}, expected 1 all-reduce")
+    mesh_mod.reset_collectives()
+    sync_cards()
+    t0 = time.perf_counter()
+    per_leaf = make_fuse_step(cfg, mesh, sched, flat=False)(params)
+    sync_cards()
+    leaf_ms = (time.perf_counter() - t0) * 1e3
+    leaf_cols = dict(mesh_mod.collectives)
+    worst, unequal, spread_worst, slab_diff = 0.0, 0, 0.0, 0.0
+    flat_leaves = dict(tree_leaves_with_path(fused))
+    leaf_leaves = dict(tree_leaves_with_path(per_leaf))
+    for name, xs in tree_leaves_with_path(params):
+        # compared on slab 0's card, each leaf's slabs brought there
+        dev = xs[0].device
+        xs = [x.to(dev) for x in xs]
+        got, want = [x.to(dev) for x in flat_leaves[name]], [x.to(dev) for x in leaf_leaves[name]]
+        ops_mag = torch.maximum(xs[0].abs(), xs[1].abs())
+        for g, w in zip(got, want):
+            d = (g - w).abs()
+            unequal += int((d > 0).sum())
+            worst = max(worst, (d / f32_ulp(ops_mag)).max().item())
+        if alpha == 1.0:
+            slab_diff = max(slab_diff, (got[0] - got[1]).abs().max().item())
+        else:
+            err = ((got[0] - got[1]) - (xs[0] - xs[1]) * (1 - alpha)).abs()
+            spread_worst = max(spread_worst, (err / f32_ulp(ops_mag)).max().item())
+    check(worst <= 1, f"flat fuse (alpha {alpha}) differs from the per-leaf path by {worst:.3g} "
+          "f32 ulps of the operands")
+    if alpha == 1.0:
+        check(slab_diff == 0, f"after the alpha 1 fuse the slabs differ by {slab_diff:.3g}")
+        agree = "the slabs equal bit for bit"
+    else:
+        check(spread_worst <= 3, f"after the alpha {alpha} fuse the spread is off by "
+              f"{spread_worst:.3g} f32 ulps")
+        agree = (f"slab 0 - slab 1 = {1 - alpha:g} x the old spread within {spread_worst:.3g} "
+                 "f32 ulps of the operands (bound 3)")
+    del per_leaf, leaf_leaves
+    P = sum(x[0].numel() for _, x in tree_leaves_with_path(params))
+    sync_dp = 2 * (COLD_C - 1) * P * 4
+    print(f"[cold-mesh] fuse alpha {alpha}: flat {flat_ms:.1f} ms, collectives {cols} carrying "
+          f"{nbytes} bytes; per-leaf {leaf_ms:.1f} ms, {leaf_cols['all_reduce']} all-reduces; flat "
+          f"vs per-leaf max {worst:.3g} f32 ulps of the operands ({unequal} elements not equal); "
+          f"{agree}; bytes across the contributor axis {nbytes['all_reduce']:,} a fuse = "
+          f"{nbytes['all_reduce'] / sync_dp:.6f} x sync-DP's 2(C-1)P*4 = {sync_dp:,} a step, "
+          f"{nbytes['all_reduce'] / h / sync_dp:.6f} x a step over the {h} local steps; on "
+          f"{card}")
+    return fused, {"alpha": alpha, "flat_ms": flat_ms, "per_leaf_ms": leaf_ms,
+                   "collectives": cols, "bytes": nbytes, "per_leaf_all_reduces":
+                   leaf_cols["all_reduce"], "flat_vs_per_leaf_ulps": worst,
+                   "sync_dp_bytes_per_step": sync_dp}
+
+
+def phase_cold_mesh(card):
+    """Phase 16: the model-side ColD mesh at gemma3-1b's full width.
+    Returns (the serve's launches, the phase's record)."""
+    t_phase = time.perf_counter()
+    reset_cards_peak()
+    reset_launches()
+    mesh = mesh_mod.make_cold_mesh(device="cuda", **COLD_MESH)
+    cfg = train_launcher.train_config("gemma3-1b", reduced=False, seq=TRAIN_SEQ)
+    opt = make_optimizer(cfg.optimizer, constant_lr(TRAIN_LR))
+    batches = cold_batches(cfg, sum(COLD_H))
+
+    def init_state():
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        return make_train_state(init_lm(cfg, gen, device="cuda"), opt)
+
+    stacked = stack_for_contributors(init_state(), COLD_C)
+    state_sh, batch_sh = cold_shardings(mesh, cfg, stacked, {"tokens": batches[0]})
+    run = {"state": device_put(stacked, state_sh)}
+    del stacked
+    emb = run["state"]["params"]["embed"]
+    check(isinstance(emb, list) and tuple(state_sh["opt"]["step"].spec) == (),
+          "the cold state's placement")
+    slab_devs = [str(x.device) for x in emb]
+    print(f"[cold-mesh] {mesh!r}: the {COLD_C} slabs on {slab_devs}, "
+          f"{torch.cuda.device_count()} card(s)")
+    del emb
+    cold = make_cold_train_step(cfg, opt)
+    records = {"mesh": repr(mesh), "slab_devices": slab_devs, "local_ms": []}
+    records["local_ms"] += cold_local_steps(cold, run, batches[:COLD_H[0]], batch_sh, card,
+                                            "round 1")
+    # each slab against the plain step run alone on the same slab and batches
+    plain = make_train_step(cfg, opt)
+    for c in range(COLD_C):
+        alone = init_state()
+        for toks in batches[:COLD_H[0], c]:
+            alone, _ = plain(alone, {"tokens": toks})
+        mine = dict(tree_leaves_with_path(slab(run["state"], c)))
+        same = [k for k, v in tree_leaves_with_path(alone)
+                if (torch.equal(v.to(mine[k].device), mine[k]) if isinstance(v, torch.Tensor)
+                    else v == mine[k])]
+        check(len(same) == len(mine), f"slab {c} differs from the plain step run alone in "
+              f"{len(mine) - len(same)} of {len(mine)} leaves")
+        del alone, mine
+    print(f"[cold-mesh] each of the {COLD_C} slabs equals make_train_step run alone on it "
+          f"({COLD_H[0]} steps), params, m, v and step bit for bit")
+    fused, rec1 = cold_fuse_checked(cfg, mesh, run["state"], COLD_ALPHAS[0], COLD_H[0], card)
+    run["state"] = {"params": fused, "opt": run["state"]["opt"]}
+    del fused
+    records["local_ms"] += cold_local_steps(cold, run, batches[COLD_H[0]:], batch_sh, card,
+                                            "round 2")
+    fused, rec2 = cold_fuse_checked(cfg, mesh, run.pop("state"), COLD_ALPHAS[1], COLD_H[1], card)
+    records["fuses"] = [rec1, rec2]
+    serve_params = tree_map(lambda x: x.to(torch.bfloat16), slab(fused, 0))
+    del fused
+    sync_cards()
+    records["peak_gib_train_fuse"] = cards_peak_gib()
+    torch.cuda.empty_cache()
+    counts = launches()
+    check(all(n == 0 for n in counts.values()), f"the cold steps and fuses launched {counts}")
+
+    # the fused base served on the kernel path: exact launches by route
+    prompts = np.random.default_rng(1).integers(3, GEMMA.vocab_size, (4, GEMMA_PROMPT))
+    eng = Engine(GEMMA, serve_params, max_len=GEMMA_MAX_LEN)
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = eng.generate(prompts, max_new_tokens=SERVE_NEW)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    served = launches()
+    by_route = dict(flash_attention.launches_by_route)
+    want = {k: v // 2 for k, v in serve_routes(GEMMA, GEMMA_PROMPT, SERVE_NEW).items()}
+    check(by_route == want, f"the fused base's generate launched flash_attention {by_route} by "
+          f"route, expected {want}")
+    check(res.tokens.shape == (4, GEMMA_PROMPT + SERVE_NEW), "fused base: generate shape")
+    gen_k = res.tokens[:, GEMMA_PROMPT:]
+    serve_agreement("gemma3-1b (fused base)", GEMMA,
+                    lambda: teacher_forced(GEMMA, serve_params, prompts, gen_k, GEMMA_MAX_LEN),
+                    gen_k)
+    del eng, serve_params
+    records.update(serve_s=gen_s, flash_routes=by_route,
+                   peak_gib=cards_peak_gib(),
+                   seconds=time.perf_counter() - t_phase)
+    print(f"[cold-mesh] the fused base (slab 0, bf16) served 4 x {GEMMA_PROMPT} -> {SERVE_NEW} "
+          f"in {gen_s:.3f} s, flash_attention by route {by_route} (exactly as worked out); peak "
+          f"{records['peak_gib_train_fuse']:.2f} GiB over the steps and fuses, "
+          f"{records['peak_gib']:.2f} GiB with the serve; phase {records['seconds']:.1f} s on "
+          f"{card}")
+    return served, records
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -4785,6 +5038,11 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke-") as workdir:
         mesh_counts, mesh_rec = phase_mesh(workdir, smi)
     torch.cuda.empty_cache()
+
+    # the model-side ColD mesh (slice 12), counts reset at its start (the
+    # steps and fuses launch no kernel) and again just before its serve
+    cold_counts, cold_rec = phase_cold_mesh(smi)
+    torch.cuda.empty_cache()
     print(f"[done] {time.perf_counter() - t0:.1f} s after the card check")
 
     def record(name, replaces, err, timing, source=None):
@@ -4815,12 +5073,13 @@ def main() -> int:
         record("row_sketch", "src/repro/kernels/cold_fuse.py:253", sk_err, sk)]
     for rec in fuse_kernels:  # "launches" is phase 7's; the routed phase's beside it
         rec["launches_routed"] = routed[rec["name"]]
-    for rec in fuse_kernels + [flash, rwkv]:  # and phase 11's, 12's, 13's, 14's and 15's
+    for rec in fuse_kernels + [flash, rwkv]:  # and phase 11's to 16's
         rec["launches_serve_stack"] = served[rec["name"]]
         rec["launches_lm_train"] = lm_train[rec["name"]]
         rec["launches_archs"] = archs[rec["name"]]
         rec["launches_archs2"] = archs2[rec["name"]]
         rec["launches_mesh"] = mesh_counts[rec["name"]]
+        rec["launches_cold_mesh"] = cold_counts[rec["name"]]
     # phase 15's times beside the unsharded kernels'; row_sketch_shard is an
     # entry of row_sketch.cu, held at a clamped layout
     fuse_kernels[0]["mesh"] = {"roberta": mesh_rec["cold_fuse"],
@@ -4829,6 +5088,7 @@ def main() -> int:
     fuse_kernels[2]["mesh"] = dict(mesh_rec["row_sketch"],
                                    row_sketch_shard=mesh_rec["row_sketch_shard"])
     print(json.dumps({"mesh_service": mesh_rec["service"]}))
+    print(json.dumps({"cold_mesh": cold_rec}))
     print(json.dumps({"archs": arch_table}))
     print(json.dumps({"archs2": arch2_table}))
     fuse_kernels[0]["at_gemma3_1b"] = fuse_at_gemma

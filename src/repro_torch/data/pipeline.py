@@ -1,13 +1,15 @@
 """Deterministic batching: shuffled epochs of fixed-size numpy batches (a
 copy of ``repro.data.pipeline.batches`` and ``num_steps``; batches stay on
-the host and the model moves them to its device).  The reference's
-``shard_batch`` places a batch on a device mesh and waits for the
-model-side mesh (ROADMAP.md A6)."""
+the host and the model moves them to its device), and ``shard_batch``,
+which places a host batch on a device mesh."""
 from __future__ import annotations
 
 from typing import Dict, Iterator, Optional
 
 import numpy as np
+import torch
+
+from repro_torch.launch.sharding import NamedSharding
 
 
 def batches(
@@ -37,3 +39,12 @@ def num_steps(n: int, batch_size: int, epochs: int) -> int:
     """Optimizer steps in ``epochs`` passes over ``n`` examples, the last
     partial batch of each dropped."""
     return (n // batch_size) * epochs
+
+
+def shard_batch(batch: Dict[str, np.ndarray], sharding: NamedSharding) -> Dict[str, object]:
+    """Place a host batch on a mesh with one ``NamedSharding``
+    (``launch.sharding.NamedSharding.place``): a leading dim over the
+    contributor axes splits into the list of its slabs, each on its
+    contributor slot's device; any other leaf goes whole to the mesh's
+    first device."""
+    return {k: sharding.place(torch.as_tensor(v)) for k, v in batch.items()}

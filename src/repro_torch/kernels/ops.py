@@ -9,7 +9,11 @@ single-device contract on each block-cyclic shard, on the shard's device,
 and complete the per-shard partials with exactly one
 ``launch.mesh.all_reduce_sum``; no row is gathered.  A sharded operand is
 the list of its S per-shard tensors (a ``[S, L]`` / ``[K, S, L]`` tensor,
-the JAX package's layout, is split by shard and placed)."""
+the JAX package's layout, is split by shard and placed).
+``cohort_fuse_sharded``, the mesh-level cohort fuse, completes its
+per-device partials with one ``launch.mesh.all_reduce_over`` across the
+contributor axes; the reference computes it in plain XLA under
+``shard_map``, so it is plain PyTorch here too."""
 from __future__ import annotations
 
 from typing import List, Optional, Tuple
@@ -22,8 +26,8 @@ from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.row_sketch import row_sketch as _row_sketch
 from repro_torch.kernels.row_sketch import row_sketch_shard
 from repro_torch.kernels.rwkv6_scan import rwkv6_scan
-from repro_torch.launch.mesh import Mesh, all_reduce_sum
-from repro_torch.launch.sharding import place_shards
+from repro_torch.launch.mesh import Mesh, all_reduce_sum, mean_over_groups
+from repro_torch.launch.sharding import axes_extent, flat_row_sharding, norm_axes, place_shards
 from repro_torch.utils.flat import LANE, SKETCH_BUCKETS, FlatSpec, StagedBuffer
 
 RWKV_LOGW_FLOOR = -4.0  # the TPU kernel's contract (see repro.kernels.rwkv6_scan)
@@ -198,6 +202,45 @@ def row_sketch_sharded(row, *, mesh: Mesh, axes, block: int,
               else row_sketch_shard(r, s, S, int(block), n_buckets))
              for s, r in enumerate(parts_in)]
     return all_reduce_sum(parts, mesh)
+
+
+def cohort_fuse_sharded(stage, *, mesh: Mesh, contrib_axes, shard_axes=(),
+                        alpha: float = 1.0) -> List[List[torch.Tensor]]:
+    """θ_c ← θ_c + α·(mean_c θ_c − θ_c) over a block-cyclic ``[C, S, L]``
+    stage, C over the contributor axes (G slots, C/G slabs each) and S over
+    the shard axes (``ShardedFlatSpec`` rows; S = 1 without shard axes).
+    ``stage`` is a ``[C, S, L]`` tensor, a ``StagedBuffer`` of one, or C
+    slabs each a ``[S, L]`` tensor or S ``[L]`` tensors.  Block ``(c, s)``
+    is placed on the device of contributor slot ``c // (C/G)`` and shard
+    ``s``; each device's partial is ``sum(its slabs) / C`` in f32 (the
+    reference's ``sum / (C_local · G)``), and one ``all_reduce_over`` the
+    contributor axes, adding the G partials in slot order, completes the
+    mean on every device.  Returns C lists of S fused ``[L]`` blocks in the
+    stage's dtype, where their inputs were placed."""
+    contrib, shards = norm_axes(contrib_axes), norm_axes(shard_axes)
+    data = stage.data if isinstance(stage, StagedBuffer) else stage
+    slabs = [list(x.unbind(0)) if isinstance(x, torch.Tensor) else list(x) for x in data]
+    G = axes_extent(mesh, contrib)
+    S = axes_extent(mesh, shards) if shards else 1
+    C = len(slabs)
+    if not contrib or C % G or any(len(x) != S for x in slabs):
+        raise ValueError(f"a stage of {C} slabs x {[len(x) for x in slabs][:1]} shards does "
+                         f"not fit {G} contributor slots x {S} shards")
+    per = C // G
+    devices = flat_row_sharding(mesh, contrib + shards)  # block (g, s) at g * S + s
+    blocks = [[slabs[c][s].to(devices[(c // per) * S + s]) for s in range(S)]
+              for c in range(C)]
+    means = mean_over_groups(blocks, G)
+    return [[relax(x, mean, alpha) for x, mean in zip(blocks[c], means[c // per])]
+            for c in range(C)]
+
+
+def relax(x: torch.Tensor, mean: torch.Tensor, alpha: float) -> torch.Tensor:
+    """``x + alpha · (mean - x)`` in f32, as ``x·(1 - alpha) + mean·alpha``,
+    in ``x``'s dtype; at alpha 1 a copy of the mean."""
+    if alpha != 1.0:
+        return (x.float() * (1.0 - alpha) + mean * alpha).to(x.dtype)
+    return mean.to(x.dtype, copy=True)
 
 
 def attention(q, k, v, *, causal: bool = True, window: Optional[int] = None, q_offset: int = 0,

@@ -9,28 +9,40 @@ over the cards there are, so with fewer cards than shards several shards
 share a card (``--mesh 8`` on one H100 puts all eight on ``cuda:0``, as
 the reference's eight fake CPU devices share one CPU).
 
-The collectives of the sharded Repository engine are explicit calls here,
-each counted in ``collectives`` (the port has no HLO to count them in):
+The collectives of the sharded engines are explicit calls here, each
+counted in ``collectives`` and the bytes it carries between mesh slots in
+``collective_bytes`` (the port has no HLO to count them in; a transfer
+between two slots counts whether or not they share a card):
 
-* ``all_reduce_sum`` — the one all-reduce of a sharded fuse or sketch:
-  the S per-shard partials are brought to the mesh's first device and
-  added in shard order, so the result repeats bit for bit;
+* ``all_reduce_sum`` — the one all-reduce of a sharded Repository fuse or
+  sketch: the S per-shard partials are brought to the mesh's first device
+  and added in shard order, so the result repeats bit for bit
+  ((S - 1) partials' bytes);
+* ``all_reduce_over`` — the one all-reduce of the mesh-level cohort fuse
+  (``ops.cohort_fuse_sharded``) over the contributor axes: for each shard,
+  the G contributor groups' partials are added in group order and the sum
+  is copied back to every group (2 (G - 1) partials' bytes a shard);
+  ``mean_over_groups`` makes the partials of a contributor mean and calls
+  it, for the flat and the per-leaf fuse alike;
 * ``all_gather`` — a sharded row reassembled into ``[N]`` on the first
-  device (at publish, and where a file's layout does not match the mesh).
+  device (at publish, and where a file's layout does not match the mesh)
+  ((S - 1) slices' bytes).
 """
 from __future__ import annotations
 
 import threading
 from collections import OrderedDict
-from typing import Dict, Sequence, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.utils.device import resolve_device
 
-# collective name -> calls since the last reset_collectives()
+# collective name -> calls, and bytes carried between mesh slots, since the
+# last reset_collectives()
 collectives: Dict[str, int] = {"all_reduce": 0, "all_gather": 0}
+collective_bytes: Dict[str, int] = {"all_reduce": 0, "all_gather": 0}
 _COUNT_LOCK = threading.Lock()
 
 
@@ -38,13 +50,20 @@ def reset_collectives() -> None:
     with _COUNT_LOCK:
         for k in collectives:
             collectives[k] = 0
+            collective_bytes[k] = 0
 
 
-def count_collective(name: str) -> None:
-    """Count one collective that happened outside this module (a sharded
-    file put back together on the host counts as an ``all_gather``)."""
+def count_collective(name: str, nbytes: int = 0) -> None:
+    """Count one collective that carried ``nbytes`` between mesh slots (a
+    sharded file put back together on the host counts as an
+    ``all_gather``)."""
     with _COUNT_LOCK:
         collectives[name] += 1
+        collective_bytes[name] += int(nbytes)
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
 
 
 class Mesh:
@@ -125,14 +144,61 @@ def all_reduce_sum(parts: Sequence[torch.Tensor], mesh: Mesh) -> torch.Tensor:
     out = parts[0].to(dev, copy=True)
     for p in parts[1:]:
         out += p.to(dev)
-    count_collective("all_reduce")
+    count_collective("all_reduce", sum(_nbytes(p) for p in parts[1:]))
     return out
 
 
-def all_gather(parts: Sequence[torch.Tensor], mesh: Mesh) -> torch.Tensor:
-    """The S per-shard slices stacked ``[S, ...]`` on ``mesh.devices.flat[0]``
-    (counted as one ``all_gather``)."""
-    dev = mesh.devices.flat[0]
+def all_reduce_over(parts: Sequence[Sequence[torch.Tensor]]) -> List[List[torch.Tensor]]:
+    """The all-reduce over one set of mesh axes (the reference's ``psum``):
+    ``parts[g][s]`` is group ``g``'s partial for shard ``s``, on that
+    group's device for the shard.  For each shard the G partials are added
+    in group order on group 0's device, and the sum is copied back to each
+    group's device (where two groups share a device they share the sum).
+    Counted as one ``all_reduce`` whatever the shard count."""
+    if not parts or not parts[0]:
+        raise ValueError("all_reduce_over of no partials")
+    if any(len(p) != len(parts[0]) for p in parts):
+        raise ValueError("every group needs a partial for every shard")
+    out: List[List[torch.Tensor]] = [[] for _ in parts]
+    nbytes = 0
+    for s in range(len(parts[0])):
+        total = parts[0][s].clone()
+        for g in range(1, len(parts)):
+            total += parts[g][s].to(total.device)
+        for g, row in enumerate(out):
+            row.append(total.to(parts[g][s].device))
+        nbytes += 2 * (len(parts) - 1) * _nbytes(total)
+    count_collective("all_reduce", nbytes)
+    return out
+
+
+def mean_over_groups(blocks: Sequence[Sequence[torch.Tensor]], groups: int
+                     ) -> List[List[torch.Tensor]]:
+    """The f32 mean over C slabs held by ``groups`` contributor groups of
+    C / G consecutive slabs: ``blocks[c][s]`` is slab ``c``'s block for
+    shard ``s``, on its group's device.  Each group's partial is
+    ``sum(its slabs) / C``, added in slab order, and one ``all_reduce_over``
+    the groups completes the mean.  Returns G lists of S means, group
+    ``g``'s on its devices."""
+    C = len(blocks)
+    per = C // groups
+    parts = []
+    for g in range(groups):
+        row = []
+        for s in range(len(blocks[0])):
+            acc = blocks[g * per][s].float()
+            for c in range(g * per + 1, (g + 1) * per):
+                acc = acc + blocks[c][s].float()
+            row.append(acc / C)
+        parts.append(row)
+    return all_reduce_over(parts)
+
+
+def all_gather(parts: Sequence[torch.Tensor], mesh: Mesh, device=None) -> torch.Tensor:
+    """The S per-shard slices stacked ``[S, ...]`` on ``device``, the device
+    of slice 0's slot (the mesh's first device by default), counted as one
+    ``all_gather`` of the other S - 1 slices."""
+    dev = torch.device(device) if device is not None else mesh.devices.flat[0]
     out = torch.stack([p.to(dev) for p in parts])
-    count_collective("all_gather")
+    count_collective("all_gather", sum(_nbytes(p) for p in parts[1:]))
     return out

@@ -1,27 +1,365 @@
-"""Placement of the Repository's block-cyclic flat rows on a mesh (port of
-the flat-row half of ``repro.launch.sharding``).
+"""Sharding rules and placement on a mesh (port of
+``repro.launch.sharding``).
 
-A row laid out by ``utils.flat.ShardedFlatSpec`` over the mesh axes
-``axes`` has S = ``axes_extent(mesh, axes)`` shards; shard ``s`` lives on
-one device, the mesh slot whose linear index over ``axes`` (first axis
-most significant, as the reference's ``shard_map`` numbers shards) is
-``s`` and whose index on every other axis is 0.  In the port a staged row
-is the list of its S ``[shard_len]`` slices, each on its shard's device,
-and a staged cohort the list of S ``[K, shard_len]`` stacks.
+**The model-side half** maps every parameter, optimizer-state, batch and
+cache leaf to a ``PartitionSpec`` on a mesh, by the reference's rules and
+name for name (``param_spec``, ``params_shardings``,
+``opt_state_shardings``, ``batch_shardings``, ``cache_shardings``): pure
+functions of leaf names, shapes and ``mesh.shape``.  A leaf may be a
+tensor, a shape tuple, a Python number (shape ``()``) or a placed stacked
+leaf (the list of its slabs).  ``device_put`` is the counterpart of
+``jax.device_put(tree, shardings)`` in a one-process mesh: a stacked
+``[C, ...]`` leaf whose spec puts its leading dim over the contributor
+axes (``pod``, ``contrib``) becomes the list of its C slabs, slab ``c`` on
+the device of its contributor slot ``g = c // (C / G)`` of the G
+(``contrib_slot_devices``), and every other leaf stays whole on the mesh's
+first device, where slab 0 lives.  Partitions over ``data``, ``replica``
+and ``model`` are recorded in the spec and not split: a slab is whole on
+one device of its contributor slot's sub-grid.
+
+**The flat-row half** places the Repository's block-cyclic flat rows.  A
+row laid out by ``utils.flat.ShardedFlatSpec`` over the mesh axes ``axes``
+has S = ``axes_extent(mesh, axes)`` shards; shard ``s`` lives on one
+device, the mesh slot whose linear index over ``axes`` (first axis most
+significant, as the reference's ``shard_map`` numbers shards) is ``s`` and
+whose index on every other axis is 0.  In the port a staged row is the
+list of its S ``[shard_len]`` slices, each on its shard's device, and a
+staged cohort the list of S ``[K, shard_len]`` stacks.
 """
 from __future__ import annotations
 
-from typing import Callable, List, Tuple
+import os
+import re
+from dataclasses import dataclass
+from typing import Any, Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.configs.base import ArchConfig
 from repro_torch.launch.mesh import Mesh
+from repro_torch.utils.pytree import tree_leaves_with_path, tree_map, tree_map_with_name
+
+Axis = Optional[object]  # str | tuple[str, ...] | None
+
+# the reference's perf lever, read from its environment variable at import
+OPT_MOE_SHARD = os.environ.get("REPRO_OPT_MOE_SHARD", "0") == "1"
+
+CONTRIB_AXES = ("pod", "contrib")  # the mesh axes a ColD stacked leaf's C dim runs over
+
+
+class PartitionSpec(tuple):
+    """One entry per dim: an axis name, a tuple of names, or ``None``.
+    Entries are normalised as JAX's ``PartitionSpec`` normalises them (a
+    one-name tuple is the name, an empty one ``None``), so a spec compares
+    equal to the reference's entry by entry."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, (_entry(e) for e in entries))
+
+    def __repr__(self) -> str:
+        return f"PartitionSpec{tuple.__repr__(self)}"
+
+
+P = PartitionSpec
+
+
+def _entry(e):
+    if isinstance(e, (tuple, list)):
+        e = tuple(e)
+        return None if not e else (e[0] if len(e) == 1 else e)
+    return e
+
+
+def _shape(leaf) -> Tuple[int, ...]:
+    """A leaf's shape: a tensor's or array's, a shape tuple itself, ``()``
+    for a Python number, ``(C,) + slab shape`` for a placed stacked leaf."""
+    if isinstance(leaf, list):
+        return (len(leaf),) + _shape(leaf[0])
+    if isinstance(leaf, tuple):
+        return tuple(int(n) for n in leaf)
+    if isinstance(leaf, (int, float)):
+        return ()
+    return tuple(leaf.shape)
+
+
+@dataclass(frozen=True, eq=False)
+class NamedSharding:
+    """A ``PartitionSpec`` over a ``Mesh`` (the reference's
+    ``jax.sharding.NamedSharding``).  ``place`` puts one leaf where the
+    spec says (see the module docstring)."""
+
+    mesh: Mesh
+    spec: PartitionSpec
+
+    @property
+    def contrib_axes(self) -> Tuple[str, ...]:
+        """The contributor axes the leaf's leading dim is split over (none
+        for a leaf placed whole)."""
+        lead = norm_axes(self.spec[0]) if self.spec and self.spec[0] is not None else ()
+        return tuple(a for a in lead if a in CONTRIB_AXES)
+
+    @property
+    def home(self) -> torch.device:
+        """The device of a leaf placed whole (slab 0's)."""
+        return self.mesh.devices.flat[0]
+
+    def slab_devices(self, n: int) -> List[torch.device]:
+        """The device of each of the ``n`` slabs of a stacked leaf."""
+        slots = contrib_slot_devices(self.mesh, self.contrib_axes)
+        if n % len(slots):
+            raise ValueError(f"{n} slabs do not split over {len(slots)} contributor slots")
+        per = n // len(slots)
+        return [slots[c // per] for c in range(n)]
+
+    def place(self, x):
+        """One leaf placed: the list of its slabs, or the whole leaf on
+        ``home`` (a Python number stays as it is)."""
+        for e in self.spec[1:]:
+            if e is not None and set(norm_axes(e)) & set(CONTRIB_AXES):
+                raise ValueError(f"{self.spec}: a contributor axis on a dim other than the "
+                                 "leading one")
+        if isinstance(x, (int, float)):
+            return x
+        if not self.contrib_axes:
+            return torch.as_tensor(x).to(self.home)
+        slabs = list(x) if isinstance(x, list) else [torch.as_tensor(x)[c]
+                                                      for c in range(len(x))]
+        return [s.to(d) for s, d in zip(slabs, self.slab_devices(len(slabs)))]
+
+
+def replicated(mesh: Mesh) -> NamedSharding:
+    return NamedSharding(mesh, P())
+
+
+def device_put(tree, shardings):
+    """``tree`` placed by ``shardings``, a tree of ``NamedSharding``s with
+    the same structure, as ``jax.device_put(tree, shardings)``."""
+    names = [k for k, _ in tree_leaves_with_path(tree)]
+    want = [k for k, _ in tree_leaves_with_path(shardings)]
+    if names != want:
+        raise ValueError(f"sharding tree does not match the tree: {sorted(set(names) ^ set(want))}")
+    return tree_map(lambda x, sh: sh.place(x), tree, shardings)
+
+
+def _axis_size(mesh: Mesh, axis: Axis) -> int:
+    if axis is None:
+        return 1
+    if isinstance(axis, (tuple, list)):
+        n = 1
+        for a in axis:
+            n *= mesh.shape[a]
+        return n
+    return mesh.shape[axis]
+
+
+def _fit(mesh: Mesh, shape: Tuple[int, ...], want: Sequence[Axis]) -> PartitionSpec:
+    """Drop any axis whose size doesn't divide the corresponding dim."""
+    spec = []
+    for dim, axis in zip(shape, want):
+        if axis is not None and dim % _axis_size(mesh, axis) == 0 and dim > 0:
+            spec.append(axis)
+        else:
+            spec.append(None)
+    return P(*spec)
+
+
+# -- parameters -------------------------------------------------------------------------
+
+# (regex over the leaf path, wanted axes for the *trailing* dims of the leaf)
+_PARAM_RULES = [
+    ("embed$", ("model", "fsdp")),          # [V, D]
+    ("lm_head$", ("fsdp", "model")),        # [D, V]
+    (r"(^|/)pos$", (None, None)),           # learned positions: replicate
+    ("attn/wo", ("model", "fsdp")),
+    ("xattn/wo", ("model", "fsdp")),
+    ("attn/w", ("fsdp", "model")),          # wq/wk/wv
+    ("xattn/w", ("fsdp", "model")),
+    ("glu/w_down", ("model", "fsdp")),
+    ("glu/w", ("fsdp", "model")),
+    ("mlp/w_down", ("model", "fsdp")),
+    ("mlp/w_up", ("fsdp", "model")),
+    ("moe/router", ("fsdp", None)),
+    ("moe/w_down", ("model", None, "fsdp")),  # [E, F, D]
+    ("moe/w", ("model", "fsdp", None)),       # [E, D, F]
+    ("mamba/in_proj", ("fsdp", "model")),
+    ("mamba/conv_w", (None, "model")),
+    ("mamba/conv_b", ("model",)),
+    ("mamba/x_proj", ("model", None)),
+    ("mamba/dt_proj", (None, "model")),
+    ("mamba/dt_bias", ("model",)),
+    ("mamba/A_log", ("model", None)),
+    ("mamba/D", ("model",)),
+    ("mamba/out_proj", ("model", "fsdp")),
+    ("rwkv/wo", ("model", "fsdp")),
+    ("rwkv/w", ("fsdp", "model")),          # wr/wk/wv/wg
+    ("rwkv/lora_w/a", ("fsdp", None)),
+    ("rwkv/lora_w/b", (None, "model")),
+    ("rwkv/u", ("model", None)),            # [H, hd]
+    ("rwkv/w0", ("model",)),
+    ("rwkv/ln_", ("model",)),
+    ("head/dense", ("fsdp", "model")),
+    ("head/out", ("model", None)),
+]
+
+
+def _sub_axes(axis_map, want: Sequence[Axis]) -> Tuple[Axis, ...]:
+    return tuple(axis_map.get(a, None) if isinstance(a, str) else a for a in want)
+
+
+def param_spec(mesh: Mesh, name: str, leaf, *, data_axis: Axis = "data",
+               model_axis: Axis = "model", fsdp: bool = False,
+               prefix: Tuple[Axis, ...] = ()) -> PartitionSpec:
+    """PartitionSpec for one named parameter leaf: the first rule whose
+    pattern matches the name and whose rank matches the body's, fitted to
+    the mesh.  ``prefix`` covers leading stacking dims (scan period repeats
+    get None; the ColD contributor dim gets the contributor axes)."""
+    axis_map = {"model": model_axis, "fsdp": data_axis if fsdp else None}
+    shape = _shape(leaf)
+    body_shape = shape[len(prefix):]
+    want: Optional[Sequence[Axis]] = None
+    for pat, axes in _PARAM_RULES:
+        if re.search(pat, name) and len(axes) == len(body_shape):
+            want = _sub_axes(axis_map, axes)
+            break
+    if want is None:
+        want = (None,) * len(body_shape)
+    # the lever (REPRO_OPT_MOE_SHARD=1): when num_experts doesn't divide the
+    # model axis, shard the per-expert FFN dim on it instead of replicating
+    if (OPT_MOE_SHARD and "moe/w" in name and len(body_shape) == 3
+            and want and want[0] is not None
+            and body_shape[0] % _axis_size(mesh, want[0]) != 0):
+        fsdp_ax = _sub_axes(axis_map, ("fsdp",))[0]
+        if "w_down" in name:  # [E, F, D]: F on model, D on fsdp
+            want = (None, want[0], fsdp_ax)
+        else:  # w_gate/w_up [E, D, F]: D on fsdp, F on model
+            want = (None, fsdp_ax, want[0])
+    body = list(_fit(mesh, body_shape, want))
+    lead = [(a if a is not None and shape[i] % _axis_size(mesh, a) == 0 else None)
+            for i, a in enumerate(prefix)]
+    return P(*(lead + body))
+
+
+def params_shardings(mesh: Mesh, params, cfg: ArchConfig, *, data_axis: Axis = "data",
+                     model_axis: Axis = "model", contrib_axes: Tuple[Axis, ...] = ()):
+    """``NamedSharding`` tree for a params tree.  Leaves under ``scan/``
+    carry a leading period-stack dim (None); ``contrib_axes`` (ColD)
+    prepends the contributor dim before that."""
+
+    def spec(name: str, leaf):
+        prefix: Tuple[Axis, ...] = tuple(contrib_axes)
+        if "scan/" in name or name.startswith("scan"):
+            prefix = prefix + (None,)
+        return NamedSharding(mesh, param_spec(mesh, name, leaf, data_axis=data_axis,
+                                              model_axis=model_axis, fsdp=cfg.fsdp,
+                                              prefix=prefix))
+
+    return tree_map_with_name(spec, params)
+
+
+# -- optimizer state: m/v/momentum mirror the params; the rest replicates ----------------
+
+
+def opt_state_shardings(mesh: Mesh, opt_state, params_sh):
+    """``m/``, ``v/`` and ``mom/`` leaves take their parameter's sharding
+    where the ranks agree; the step, adafactor's factored statistics and
+    anything else replicate (``P()``)."""
+    flat_params = dict(tree_leaves_with_path(params_sh))
+
+    def spec(name: str, leaf):
+        for prefix in ("m/", "v/", "mom/"):
+            if name.startswith(prefix):
+                sh = flat_params.get(name[len(prefix):])
+                if sh is not None and len(sh.spec) == len(_shape(leaf)):
+                    return sh
+        return NamedSharding(mesh, P())
+
+    return tree_map_with_name(spec, opt_state)
+
+
+# -- activations, batches, caches ---------------------------------------------------------
+
+
+def batch_shardings(mesh: Mesh, batch, *, data_axis: Axis = "data", model_axis: Axis = "model",
+                    contrib_axes: Tuple[Axis, ...] = ()):
+    """tokens/labels [B, S]: the batch over the data axes, or the sequence
+    if the batch doesn't divide (long context, batch 1); M-RoPE positions
+    [3, B, S] and frames/extra_embeds [B, N, D] likewise."""
+
+    def spec(name: str, leaf):
+        lead = tuple(contrib_axes)
+        body = _shape(leaf)[len(lead):]
+        if name.endswith("positions") and len(body) == 3:
+            want = (None, data_axis, None)
+        elif len(body) == 3:  # frames / extra_embeds [B, N, D]
+            want = (data_axis, None, None)
+        elif len(body) == 2:
+            B, _ = body
+            want = (data_axis, None) if B % _axis_size(mesh, data_axis) == 0 else (None, data_axis)
+        elif len(body) == 1:
+            want = (data_axis,)
+        else:
+            want = (None,) * len(body)
+        return NamedSharding(mesh, P(*(list(lead) + list(_fit(mesh, body, want)))))
+
+    return tree_map_with_name(spec, batch)
+
+
+def cache_shardings(mesh: Mesh, cache, cfg: ArchConfig, *, data_axis: Axis = "data",
+                    model_axis: Axis = "model", contrib_axes: Tuple[Axis, ...] = ()):
+    """Decode-state sharding.  KV k/v [B, S, Hkv, hd]: batch on data, heads
+    on model (else head_dim on model; the sequence on data when the batch
+    doesn't divide).  Mamba h [B, di, ds] and conv [B, dc-1, di]: channels
+    on model.  RWKV S [B, H, hd, hd]: heads on model; shifts [B, 1, D]: D
+    on model."""
+
+    def spec(name: str, leaf):
+        lead: Tuple[Axis, ...] = tuple(contrib_axes)
+        if "scan/" in name or name.startswith("scan"):
+            lead = lead + (None,)
+        shape = _shape(leaf)[len(lead):]
+        dsz = _axis_size(mesh, data_axis)
+        msz = _axis_size(mesh, model_axis)
+        want: Sequence[Axis]
+        leafname = name.rsplit("/", 1)[-1]
+        if leafname in ("k", "v", "xk", "xv") and len(shape) == 4:
+            B, S, H, hd = shape
+            b_ax = data_axis if B % dsz == 0 else None
+            s_ax = None if b_ax else data_axis
+            if H % msz == 0:
+                want = (b_ax, s_ax, model_axis, None)
+            elif hd % msz == 0:
+                want = (b_ax, s_ax, None, model_axis)
+            else:
+                want = (b_ax, s_ax, None, None)
+        elif leafname == "h" and len(shape) == 3:  # mamba [B, di, ds]
+            want = (data_axis if shape[0] % dsz == 0 else None, model_axis, None)
+        elif leafname == "conv" and len(shape) == 3:  # [B, dc-1, di]
+            want = (data_axis if shape[0] % dsz == 0 else None, None, model_axis)
+        elif leafname == "S" and len(shape) == 4:  # rwkv [B, H, hd, hd]
+            want = (data_axis if shape[0] % dsz == 0 else None, model_axis, None, None)
+        elif leafname in ("shift", "cm_shift") and len(shape) == 3:
+            want = (data_axis if shape[0] % dsz == 0 else None, None, model_axis)
+        else:
+            want = (None,) * len(shape)
+        return NamedSharding(mesh, P(*(list(lead) + list(_fit(mesh, shape, want)))))
+
+    return tree_map_with_name(spec, cache)
+
+
+# -- the Repository's block-cyclic flat rows ----------------------------------------------
 
 
 def norm_axes(axes) -> Tuple[str, ...]:
     """A bare axis name or a sequence of names -> a tuple of names."""
     return (axes,) if isinstance(axes, str) else tuple(axes)
+
+
+def axes_entry(axes):
+    """The ``PartitionSpec`` entry for one dim sharded over ``axes`` (a
+    single name collapses out of its tuple, as in JAX's specs)."""
+    axes = norm_axes(axes)
+    return axes if len(axes) > 1 else axes[0]
 
 
 def axes_extent(mesh: Mesh, axes) -> int:
@@ -40,6 +378,21 @@ def flat_row_sharding(mesh: Mesh, axes) -> Tuple[torch.device, ...]:
     grid = np.transpose(mesh.devices, order + rest)
     grid = grid[(Ellipsis,) + (0,) * len(rest)] if rest else grid
     return tuple(grid.reshape(-1))
+
+
+def contrib_slot_devices(mesh: Mesh, axes) -> Tuple[torch.device, ...]:
+    """The device that holds contributor slot ``g``'s slabs, for each slot
+    over ``axes`` in order: of the R slots of ``g``'s sub-grid over the
+    other axes (row-major), the one at index ``g % R``.  On ``make_mesh``'s
+    round-robin grid that spreads the contributor slots over the cards
+    first: a (2, 2, 2) mesh of 4 cards puts slot 0 on ``cuda:0`` and slot 1
+    on ``cuda:1``, where slot 1's first device would be ``cuda:0`` again."""
+    axes = norm_axes(axes)
+    order = [mesh.axis_names.index(a) for a in axes]
+    rest = [i for i in range(len(mesh.axis_names)) if i not in order]
+    G = axes_extent(mesh, axes)
+    grid = np.transpose(mesh.devices, order + rest).reshape(G, -1)
+    return tuple(grid[g, g % grid.shape[1]] for g in range(G))
 
 
 def place_shards(x, mesh: Mesh, axes, dim: int = 0) -> List[torch.Tensor]:

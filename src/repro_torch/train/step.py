@@ -28,7 +28,8 @@ from repro_torch.models import whisper as W
 from repro_torch.models.transformer import forward_lm
 from repro_torch.optim.optimizers import Optimizer, clip_by_global_norm
 from repro_torch.train.losses import lm_loss
-from repro_torch.utils.pytree import tree_device, tree_leaves, tree_map, tree_unflatten
+from repro_torch.utils.pytree import (tree_device, tree_leaves, tree_leaves_with_path,
+                                      tree_map, tree_unflatten)
 
 
 def make_train_state(params, optimizer: Optimizer) -> Dict[str, Any]:
@@ -87,12 +88,16 @@ def make_train_step(cfg: ArchConfig, optimizer: Optimizer, *, microbatches: int 
 
     ``grad_sync(grads) -> grads``: the hook a distribution strategy uses to
     reduce gradients across devices; identity by default.
-    ``grad_shardings`` pins the reference's gradient accumulator to a mesh
-    layout and waits for the model-side mesh (ROADMAP.md A6)."""
-    if grad_shardings is not None:
-        raise NotImplementedError("make_train_step(grad_shardings=) needs the model-side mesh "
-                                  "(parameter and gradient shardings), which is not ported yet "
-                                  "(ROADMAP.md A6)")
+    ``grad_shardings``: a tree of ``launch.sharding.NamedSharding`` matching
+    the params (``params_shardings``).  The reference pins its f32
+    gradient accumulator to the parameter layout with it; in the port's
+    one-process mesh a leaf is whole on one device, so every gradient and
+    accumulator lives on its parameter's device, and the tree is checked
+    against the params at each call: another structure, a spec longer than
+    its gradient's rank or a parameter away from the device its sharding
+    places it on raises ``ValueError``.  A shorter spec is padded with
+    ``None``, as JAX pads it (``replicated(mesh)``'s ``P()`` fits any
+    rank)."""
     if microbatches < 1:
         raise ValueError(f"microbatches must be >= 1; got {microbatches}")
     aux_w = cfg.moe.aux_loss_weight if aux_weight is None else aux_weight
@@ -106,9 +111,26 @@ def make_train_step(cfg: ArchConfig, optimizer: Optimizer, *, microbatches: int 
             grads = torch.autograd.grad(total, live)
         return loss.detach(), aux.detach(), grads
 
+    def check_shardings(params):
+        names = [k for k, _ in tree_leaves_with_path(params)]
+        shardings = dict(tree_leaves_with_path(grad_shardings))
+        if set(shardings) != set(names):
+            raise ValueError("grad_shardings does not match the params: "
+                             f"{sorted(set(names) ^ set(shardings))[:8]}")
+        for name, x in tree_leaves_with_path(params):
+            sh = shardings[name]
+            if len(sh.spec) > x.dim():
+                raise ValueError(f"grad_shardings[{name!r}]: spec {sh.spec} for a gradient of "
+                                 f"rank {x.dim()}")
+            if x.device != sh.home:
+                raise ValueError(f"grad_shardings[{name!r}] places its gradient on "
+                                 f"{sh.spec}/{sh.home}, its parameter lives on {x.device}")
+
     @torch.no_grad()
     def train_step(state, batch):
         params = state["params"]
+        if grad_shardings is not None:
+            check_shardings(params)
         leaves = tree_leaves(params)
         batch = _on_device(batch, tree_device(params))
         if microbatches > 1:

@@ -27,6 +27,15 @@ def tree_leaves(tree) -> List[torch.Tensor]:
     return [leaf for _, leaf in tree_leaves_with_path(tree)]
 
 
+def tree_map_with_name(fn: Callable[[str, Any], Any], tree, prefix: str = ""):
+    """Map ``fn(name, leaf)`` over a tree, ``name`` the ``/``-joined path
+    (``repro.utils.pytree.tree_map_with_name``'s names for dict trees)."""
+    if isinstance(tree, dict):
+        return {k: tree_map_with_name(fn, v, f"{prefix}/{k}" if prefix else str(k))
+                for k, v in tree.items()}
+    return fn(prefix, tree)
+
+
 def tree_map(fn: Callable, tree, *rest):
     """Apply ``fn`` leafwise over trees of the same structure."""
     if isinstance(tree, dict):

@@ -353,6 +353,9 @@ def test_port_imports_neither_jax_nor_repro():
     for dirpath, _, names in os.walk(os.path.join(ROOT, "src", "repro_torch")):
         files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
     assert len(files) > 20
+    for mod in ("core/distributed.py", "launch/sharding.py", "kernels/ops.py",
+                "data/pipeline.py", "train/step.py"):  # the model-side mesh among them
+        assert os.path.join(ROOT, "src", "repro_torch", mod) in files
     for path in files:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]

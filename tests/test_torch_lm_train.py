@@ -372,11 +372,13 @@ def test_eval_step_matches_reference_and_the_train_loss(arch):
 def test_train_step_refusals():
     _, tcfg, _ = _model("gemma3-1b")
     opt = make_optimizer("sgd", lambda step: 0.1)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A6"):
-        make_train_step(tcfg, opt, grad_shardings={})
-    step = make_train_step(tcfg, opt, microbatches=3)
     state = make_train_state(TT.init_lm(tcfg, torch.Generator().manual_seed(0), device="cpu"),
                              opt)
+    # grad_shardings is accepted; a tree that does not match the params raises
+    mismatched = make_train_step(tcfg, opt, grad_shardings={})
+    with pytest.raises(ValueError, match="grad_shardings does not match the params"):
+        mismatched(state, {"tokens": _batches(tcfg, 1)[0]})
+    step = make_train_step(tcfg, opt, microbatches=3)
     with pytest.raises(ValueError, match="does not split into 3"):
         step(state, {"tokens": _batches(tcfg, 1)[0]})
 
