@@ -299,17 +299,37 @@ Phases (any failed check raises, so the script exits non-zero):
    (``launch.mesh.collective_bytes``) against sync-DP's gradient bytes are
    printed.
 
+17. the dry-run tooling (slice 13, ``phase_dryrun``, under two minutes):
+   (a) ``python -m repro_torch.launch.dryrun`` as a user runs it, three
+   processes started together with no card visible (``DRYRUN_RUNS``: every
+   arch at decode_32k and gemma3-1b at every shape on pod1 and pod2, and
+   gemma3-1b's ColD step on cold8x2; the rest of ``--all --mesh both`` is
+   left to the CLI, ``DRYRUN_LEFT``), one line per artifact: the three
+   roofline terms, the bottleneck and the peak a chip; (b) phase 9's
+   gemma3-1b bf16 prefill (4 x 1024, cache 1280) and one decode step,
+   counted by ``utils.op_counts.OpCounter`` on the meta device and on the
+   card: equal FLOPs, and the kernels' calls by route equal to the card's
+   launches (``prefill_tc`` 26; ``decode`` 26 and ``decode_combine`` 26); (c)
+   phase 12's gemma3-1b f32 AdamW step at 8 x 64: its counted FLOPs within
+   2 % of 6·N·D plus the full S x S attention of every layer and equal on
+   the meta device and the card, the predicted peak beside
+   ``torch.cuda.max_memory_allocated``, and the roofline step time beside
+   the measured median (``mfu = model_flops / peak / measured``).  Its
+   record is a ``{"dryrun": ...}`` line.
+
 Before each of phases 6, 7, 8, 10, 11 and 16 (and again before phase 16's
 serve), before each model of phases 9, 13 and 14, around phases 12's, 13's
-and 14's eval steps and generates and around each run of phase 15's mesh
-daemon, every kernel's launch counter is set to 0; it is read just after.  The last lines are the kernels' JSON
+and 14's eval steps and generates, around each run of phase 15's mesh
+daemon and around phase 17's counted prefill and decode step, every
+kernel's launch counter is set to 0; it is read just after.  The last lines are the kernels' JSON
 record (launches from phase 7 for the three fuse kernels, with phase 10's
 as ``launches_routed``, from phase 9 for the other two, phase 11's as
 ``launches_serve_stack``, phase 12's as ``launches_lm_train``, phase 13's as
 ``launches_archs``, phase 14's as ``launches_archs2``, phase 15's as
-``launches_mesh`` and phase 16's serve as ``launches_cold_mesh`` for all
-five; phase 15's times under ``mesh``), phase 16's record as a
-``{"cold_mesh": ...}`` line,
+``launches_mesh``, phase 16's serve as ``launches_cold_mesh`` and phase
+17's serving step as ``launches_dryrun`` for all five; phase 15's times
+under ``mesh``; each kernel's ``cost_formula``), phase 16's record as a
+``{"cold_mesh": ...}`` line, phase 17's as a ``{"dryrun": ...}`` line,
 ``nvidia-smi``'s line and
 ``{"ok": true, "device": {...}}``.  Without a card (or without the rest of
 the repository beside it) the script exits non-zero and prints no result.
@@ -344,7 +364,10 @@ from repro_torch.data.pipeline import shard_batch  # noqa: E402
 from repro_torch.data.synthetic import SyntheticSuite  # noqa: E402
 from repro_torch.checkpoint import io as ckpt  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels import cold_fuse as cf_mod  # noqa: E402
+from repro_torch.kernels import decode_accum as da_mod  # noqa: E402
 from repro_torch.kernels import flash_attention as fa_mod  # noqa: E402
+from repro_torch.kernels import row_sketch as sk_mod  # noqa: E402
 from repro_torch.kernels.cold_fuse import cold_fuse, cold_fuse_plain  # noqa: E402
 from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.kernels.decode_accum import decode_accum, decode_accum_plain  # noqa: E402
@@ -386,10 +409,12 @@ from repro_torch.utils.flat import (LANE, CohortSketch, DeltaPayload,  # noqa: E
                                     FamilyRouter, FlatSpec, ShardedFlatSpec, delta_checksum,
                                     delta_decode, delta_encode, delta_encode_sharded)
 from repro_torch.utils.pytree import tree_leaves, tree_leaves_with_path, tree_map  # noqa: E402
+from repro_torch.launch.dryrun import tree_bytes  # noqa: E402
+from repro_torch.launch.specs import abstract_params  # noqa: E402
+from repro_torch.utils.op_counts import OpCounter  # noqa: E402
+from repro_torch.utils.roofline import (Roofline, bound_of, model_flops_per_step,  # noqa: E402
+                                        peak_flops)
 
-HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
-F32_FLOPS = 67e12           # H100 SXM float32 outside the tensor cores
-BF16_FLOPS = 989e12         # H100 SXM bf16 tensor cores, dense
 N_ROBERTA = 123_969_792     # elements of the RoBERTa-base body (FlatSpec.size)
 K_MAIN = 5
 # the training path at full width (phase 6): batch x sequence of every step
@@ -667,11 +692,8 @@ def phase_kernel_checks(gen):
 def phase_timing(inputs, card):
     base, contribs, w = inputs
     K, N = contribs.shape
-    s = base.element_size()
-    nbytes = (K + 1) * N * s + N * s + 2 * K * 4
-    flops = 4 * K * N + 3 * N  # per row and element: sub, fma (sq), select, fma (avg)
-    bound_bytes, bound_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
-    bound = max(bound_bytes, bound_ops)
+    flops, nbytes = cf_mod.cost(base, contribs, w, 1.0)
+    bound, bound_by = bound_of(nbytes, flops)
     # five timing windows each; the median is reported, all are printed
     runs = [time_ms(lambda: cold_fuse(base, contribs, w, 1.0), iters=20) for _ in range(5)]
     plain_runs = [time_ms(lambda: cold_fuse_plain(base, contribs, w, 1.0), iters=3, warmup=1)
@@ -682,7 +704,7 @@ def phase_timing(inputs, card):
           f"({nbytes / 1e9:.3f} GB at 3.35 TB/s), kernel/bound {ms / bound:.2f}x, "
           f"plain_ms {plain:.4f} (windows {[round(r, 3) for r in plain_runs]})")
     print("[time] library_ms: none — no single PyTorch call computes both fused and sq_diff")
-    return ms, plain, bound, "bytes" if bound_bytes >= bound_ops else "operations"
+    return ms, plain, bound, bound_by
 
 
 def phase_small_agreement():
@@ -997,13 +1019,6 @@ def median_windows(fn, iters: int, warmup: int = 2):
     return sorted(runs)[2], runs
 
 
-def bound_of(nbytes: float, flops: float, peak: float = F32_FLOPS):
-    """(bound_ms, bound_by): the larger of bytes at 3.35 TB/s and the
-    operations at ``peak`` (f32 67 TFLOP/s unless given)."""
-    b, o = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
-    return max(b, o), "bytes" if b >= o else "operations"
-
-
 def payloads_on_card(C, size, block, kb, gen, nan_row=None, topk=False):
     """Random codec arrays on the card: offsets drawn at random with slot 1
     repeating slot 0 or, with ``topk``, as ``delta_encode`` writes them: a
@@ -1111,14 +1126,6 @@ def phase_decode_checks(gen):
     return inputs, err
 
 
-def decode_bound(C, nb, kb):
-    """decode_accum's bound at the service size: the payloads read once, the
-    f32 accumulator and sq written once."""
-    nbytes = C * nb * kb * 3 + C * nb * 4 + C * 4 + N_ROBERTA * 4 + C * 4
-    flops = 4 * C * nb * kb  # per entry: dequantise, square-add (2), weight, add
-    return bound_of(nbytes, flops) + (nbytes,)
-
-
 def decode_floor(card):
     """The write floor: ``torch.zeros`` of the f32 accumulator (ms)."""
     floor, runs = median_windows(
@@ -1133,7 +1140,8 @@ def decode_time(args, kind, card):
     size, beside its bound: {"ms", "graph_ms", "bound_ms", "bound_by"}."""
     C, nb, kb = args[0].shape
     call = lambda: decode_accum(*args, size=N_ROBERTA, block=CODEC_BLOCK)  # noqa: E731
-    bound, bound_by, nbytes = decode_bound(C, nb, kb)
+    flops, nbytes = da_mod.cost(*args, size=N_ROBERTA, block=CODEC_BLOCK)
+    bound, bound_by = bound_of(nbytes, flops)
     iters = 20 if C <= C_SERVICE else 5
     ms, runs = median_windows(call, iters=iters)
     g_ms, g_runs = graph_windows(call, iters)
@@ -1211,8 +1219,8 @@ def phase_sketch_checks(gen):
 
 def phase_sketch_timing(x, card):
     N = x.shape[0]
-    nbytes = N * x.element_size() + 2 * 32 * 4
-    bound, bound_by = bound_of(nbytes, 3 * N)  # per element: add, fma (2)
+    flops, nbytes = sk_mod.cost(x, 32)
+    bound, bound_by = bound_of(nbytes, flops)
     ms, runs = median_windows(lambda: row_sketch(x, 32), iters=20)
     plain, plain_runs = median_windows(lambda: row_sketch_plain(x, 32), iters=3, warmup=1)
     print(f"[time] row_sketch N={N} bf16 32 buckets on {card}: kernel_ms {ms:.4f} "
@@ -2332,21 +2340,6 @@ def phase_flash_checks_archs2(gen):
     return out, worst
 
 
-def visible_entries(Sq, Sk, causal, window, q_offset):
-    """Score entries the masks leave visible, summed over the query rows."""
-    qp = torch.arange(Sq, dtype=torch.int64) + q_offset
-    hi = torch.clamp(qp + 1, max=Sk) if causal else torch.full_like(qp, Sk)
-    lo = torch.clamp(qp - window + 1, min=0) if window is not None else torch.zeros_like(qp)
-    return int(torch.clamp(hi - lo, min=0).sum())
-
-
-def visible_keys(Sq, Sk, causal, window, q_offset):
-    """Keys that some query row sees: the K and V rows a call must read."""
-    lo = max(0, q_offset - window + 1) if window is not None else 0
-    hi = min(Sk, q_offset + Sq) if causal else Sk
-    return max(0, hi - lo)
-
-
 def phase_flash_timing(inputs, hd160, archs2, card):
     """Kernel, plain version and SDPA at gemma3-1b's prefill shape (both
     layer kinds) and at decode, then at stablelm-12b's (hd 160) prefill and
@@ -2376,12 +2369,8 @@ def phase_flash_timing(inputs, hd160, archs2, card):
         B, sq, Hq, hd = qq.shape
         Sk, Hkv = k.shape[1], k.shape[2]
         rt = fa_mod.route(qq.dtype, sq, Hq, Hkv)
-        # q read and o written once; each visible K and V row read once
-        nbytes = (2 * qq.numel() * qq.element_size()
-                  + 2 * B * Hkv * hd * k.element_size() * visible_keys(sq, Sk, causal, window,
-                                                                       off))
-        flops = 4 * hd * B * Hq * visible_entries(sq, Sk, causal, window, off)
-        peak = BF16_FLOPS if qq.dtype == torch.bfloat16 else F32_FLOPS
+        flops, nbytes = fa_mod.cost(qq, k, v, causal=causal, window=window, q_offset=off)
+        peak = peak_flops(qq.dtype)
         bound, bound_by = bound_of(nbytes, flops, peak)
         iters = 20 if sq > 1 else 200
         ms, runs = median_windows(lambda: flash_attention(qq, k, v, causal=causal, window=window,
@@ -2540,9 +2529,7 @@ def phase_rwkv_timing(args, card):
         a = [t[:, sl].contiguous() for t in (r, k, v, logw)] + [u, s0]
         t_steps = a[0].shape[1]
         rt = rs_mod.route(t_steps)
-        # r, k, v, logw read and y written once; u read; the state read and written
-        nb = 5 * a[0].numel() * 4 + u.numel() * 4 + 2 * s0.numel() * 4
-        flops = 5 * B * t_steps * H * hd * hd  # per state element and step: y 2, k v, S 2
+        flops, nb = rs_mod.cost(*a)
         bd, bd_by = bound_of(nb, flops)
         iters = 20 if t_steps > 1 else 200
         ms, runs = median_windows(lambda: rwkv6_scan(*a), iters=iters)
@@ -3264,7 +3251,8 @@ def time_cohort_fuse(base, stage, card):
     K, N = stage.shape
     w = torch.ones(K, device=stage.device)
     s = stage.element_size()
-    bound, by = bound_of((K + 2) * N * s + 2 * K * 4, 4 * K * N + 3 * N)
+    flops, nbytes = cf_mod.cost(base, stage, w)
+    bound, by = bound_of(nbytes, flops)
     ms, runs = median_windows(lambda: cold_fuse(base, stage, w, 1.0), iters=5)
     plain, plain_runs = median_windows(lambda: cold_fuse_plain(base, stage, w, 1.0), iters=1,
                                        warmup=1)
@@ -4243,8 +4231,8 @@ def phase_mesh_ops(gen, card):
               f"{ss.padded_size - N_ROBERTA:,}), alpha {alpha}: fused row equal to cold_fuse's "
               f"bit for bit, sq max rel err {r:.3g} (bound 1e-5), sq[3]={sq[3].item()}")
         del fk, sk, fs, sq, got
-    nbytes = (K_MAIN + 2) * N_ROBERTA * 2 + 2 * K_MAIN * 4
-    bound, by = bound_of(nbytes, 4 * K_MAIN * N_ROBERTA + 3 * N_ROBERTA)
+    flops, nbytes = cf_mod.cost(base, contribs, w)
+    bound, by = bound_of(nbytes, flops)
     ms, runs = median_windows(lambda: kops.fuse_flat_sharded(base_s, stage_s, w, 1.0, mesh=mesh,
                                                              axes=MESH_AXES), iters=20)
     whole, _ = median_windows(lambda: cold_fuse(base, contribs, w, 1.0), iters=20)
@@ -4268,8 +4256,8 @@ def phase_mesh_ops(gen, card):
     r = sq_error(sq, sk)
     check(r <= 1e-5, f"sharded sq_diff rel err {r:.3g} > 1e-5 at gemma3-1b width")
     del fk, sk, fs, sq
-    bound, by = bound_of((K_SWAP + 2) * N_GEMMA * 2 + 2 * K_SWAP * 4,
-                         4 * K_SWAP * N_GEMMA + 3 * N_GEMMA)
+    flops, nbytes = cf_mod.cost(base, contribs, w)
+    bound, by = bound_of(nbytes, flops)
     ms, runs = median_windows(lambda: kops.fuse_flat_sharded(base_s, stage_s, w, 1.0, mesh=mesh,
                                                              axes=MESH_AXES), iters=5)
     whole, _ = median_windows(lambda: cold_fuse(base, contribs, w, 1.0), iters=5)
@@ -4370,7 +4358,8 @@ def phase_mesh_ops(gen, card):
     e, r = sketch_error(kops.row_sketch_sharded(ss.shard_slices(x), mesh=mesh, axes=MESH_AXES,
                                                 block=ss.block), row_sketch(x, 32), x)
     sl = ss.shard_slices(x)[3]
-    bound, by = bound_of(sl.numel() * 4 + 2 * 32 * 4, 3 * sl.numel())
+    flops, nbytes = sk_mod.shard_cost(sl, 3, MESH_S, ss.block)
+    bound, by = bound_of(nbytes, flops)
     ms, runs = median_windows(lambda: row_sketch_shard(sl, 3, MESH_S, ss.block), iters=20)
     plain, _ = median_windows(lambda: row_sketch_shard_plain(sl, 3, MESH_S, ss.block), iters=5)
     print(f"[mesh] row_sketch_shard N={MESH_CLAMPED_N:,} f32 over {MESH_S} shards (clamped block "
@@ -4871,6 +4860,252 @@ def phase_cold_mesh(card):
     return served, records
 
 
+# ---------------------------------------------------------------------------
+# slice 13: the dry-run tooling (phase 17)
+# ---------------------------------------------------------------------------
+
+# phase 17 (a): three runs of the dry-run CLI, started together on the host
+# with no card visible.  The whole --all --mesh both sweep takes about three
+# minutes of one core, over the phase's two-minute budget, so it runs every
+# arch at decode_32k, gemma3-1b at every shape and gemma3-1b's ColD step, and
+# leaves the rest (DRYRUN_LEFT) to the CLI
+DRYRUN_RUNS = (["--all", "--shape", "decode_32k", "--mesh", "both"],
+               ["--all", "--arch", "gemma3-1b", "--mesh", "both"],
+               ["--arch", "gemma3-1b", "--shape", "train_4k", "--strategy", "cold",
+                "--cold-mesh", "8x2"])
+DRYRUN_LEFT = ("train_4k, prefill_32k and long_500k of the other nine archs on pod1 and pod2: "
+               "python -m repro_torch.launch.dryrun --all --mesh both")
+# (b): phase 9's gemma3-1b bf16 prefill, then one decode step at cache
+# GEMMA_MAX_LEN; each layer one flash_attention call on the route the card takes
+DRYRUN_PREFILL_ROUTES = {"prefill_tc": GEMMA.num_layers}
+DRYRUN_DECODE_ROUTES = {"decode": GEMMA.num_layers, "decode_combine": GEMMA.num_layers}
+# (c): phase 12's f32 AdamW step at TRAIN_BATCH x TRAIN_SEQ; its counted FLOPs
+# within TRAIN_FLOPS_RTOL of the analytic count; the predicted peak printed
+# beside the card's with the tolerance PERF.md states before the run
+TRAIN_FLOPS_RTOL = 0.02
+PEAK_RTOL = 0.10
+
+
+def dryrun_sweep(workdir):
+    """Phase 17 (a): the CLI runs of ``DRYRUN_RUNS`` as processes, every
+    artifact printed as a line (the three roofline terms, the bottleneck,
+    the peak a chip).  Returns the rows."""
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=os.pathsep.join(filter(None, [src, os.environ.get("PYTHONPATH")])))
+    out = os.path.join(workdir, "dryrun_torch")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, "-m", "repro_torch.launch.dryrun", *argv, "--out",
+                               out, "--force"], env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for argv in DRYRUN_RUNS]
+    try:
+        logs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    seconds = time.perf_counter() - t0
+    for argv, p, log in zip(DRYRUN_RUNS, procs, logs):
+        check(p.returncode == 0, f"dryrun {' '.join(argv)} exited {p.returncode}:\n{log[-3000:]}")
+    rows = []
+    for name in sorted(os.listdir(out)):
+        res = json.load(open(os.path.join(out, name)))
+        if res.get("skipped"):
+            print(f"[dryrun] {res['arch']} {res['shape']} {res['mesh']}: skipped ({res['reason']})")
+            continue
+        check(res["ok"] and res["partitioned"] is False, f"dryrun artifact {name}: {res}")
+        r, mem = res["roofline"], res["memory_analysis"]
+        row = {"arch": res["arch"], "shape": res["shape"], "mesh": res["mesh"],
+               "strategy": res["strategy"], "compute_ms": r["compute_s"] * 1e3,
+               "memory_ms": r["memory_s"] * 1e3, "collective_ms": r["collective_s"] * 1e3,
+               "bottleneck": r["bottleneck"],
+               "peak_gib": mem["peak_memory_in_bytes"] / 2**30,
+               "traced_peak_gib": mem["traced_peak_bytes"] / 2**30,
+               "trace_s": res["trace_wall_s"]}
+        rows.append(row)
+        print(f"[dryrun] {row['arch']} {row['shape']} {row['mesh']} ({row['strategy']}): "
+              f"compute {row['compute_ms']:.2f} ms, memory {row['memory_ms']:.2f} ms, "
+              f"collective {row['collective_ms']:.2f} ms -> {row['bottleneck']}; peak "
+              f"{row['peak_gib']:.2f} GiB a chip (partitioned), {row['traced_peak_gib']:.2f} GiB "
+              f"unpartitioned; traced in {row['trace_s']:.1f} s")
+        if "fuse" in res:
+            fc = res["fuse"]["collectives"]
+            print(f"[dryrun]   its fuse: all-reduce {fc['count_by_kind'].get('all-reduce', 0)} "
+                  f"x {fc['bytes_by_kind'].get('all-reduce', 0):,.0f} bytes, all-gather "
+                  f"{fc['count_by_kind'].get('all-gather', 0)}")
+    print(f"[dryrun] sweep: {len(DRYRUN_RUNS)} CLI processes (no card visible), "
+          f"{len(rows)} artifacts in {seconds:.1f} s; left to the CLI: {DRYRUN_LEFT}")
+    return rows, seconds
+
+
+def roofline_line(what, oc, model_flops, dtype, measured_ms):
+    """Print a counted step's roofline beside its measured time; returns
+    the record."""
+    roof = Roofline(flops=oc.flops, hbm_bytes=oc.hbm_bytes, collective_bytes=0.0,
+                    model_flops=model_flops, chips=1, dtype=dtype)
+    mfu = model_flops / roof.peak / (measured_ms / 1e3)
+    share = roof.step_time_s * 1e3 / measured_ms
+    print(f"[dryrun] {what}: {oc.flops / 1e9:.2f} GFLOP counted ({model_flops / 1e9:.2f} model), "
+          f"{oc.hbm_bytes / 1e9:.2f} GB eager op bytes; roofline compute "
+          f"{roof.compute_s * 1e3:.3f} ms, memory {roof.memory_s * 1e3:.3f} ms -> "
+          f"{roof.bottleneck}, step {roof.step_time_s * 1e3:.3f} ms; measured {measured_ms:.3f} "
+          f"ms (the roofline step {share:.4f} of it); mfu = model_flops / peak / measured = "
+          f"{mfu:.4f} (the roofline's {roof.mfu:.4f})")
+    return {"flops": oc.flops, "hbm_bytes": oc.hbm_bytes, "model_flops": model_flops,
+            "roofline_step_ms": roof.step_time_s * 1e3, "bottleneck": roof.bottleneck,
+            "measured_ms": measured_ms, "roofline_share": share, "mfu": mfu,
+            "roofline_mfu": roof.mfu}
+
+
+def dryrun_serve(card):
+    """Phase 17 (b): gemma3-1b's bf16 prefill (4 x GEMMA_PROMPT, cache
+    GEMMA_MAX_LEN) and one decode step counted on the meta device and on
+    the card: equal FLOPs, the counter's kernel calls by route equal to the
+    card's launches by route."""
+    B, P, L = 4, GEMMA_PROMPT, GEMMA_MAX_LEN
+    serve = make_serve_step(GEMMA)
+
+    def counted(params, tokens, device):
+        cache = init_cache(GEMMA, B, L, device=device)
+        reset_launches()
+        with OpCounter() as pre:
+            logits = forward_lm(GEMMA, params, tokens, cache=cache, cache_index=0)[0][:, -1]
+        pre_launch, total = dict(fa_mod.flash_attention.launches_by_route), launches()
+        nxt = torch.argmax(logits, dim=-1)[:, None]
+        reset_launches()
+        with OpCounter() as dec:
+            serve(params, cache, nxt, P)
+        total = {k: n + launches()[k] for k, n in total.items()}
+        return pre, dec, pre_launch, dict(fa_mod.flash_attention.launches_by_route), total
+
+    with torch.no_grad():
+        meta = counted(abstract_params(GEMMA), torch.empty((B, P), dtype=torch.int64,
+                                                           device="meta"), "meta")
+        check(meta[2] == meta[3] == dict.fromkeys(meta[2], 0), "the meta trace launched")
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        params = init_lm(GEMMA, gen, device="cuda")
+        tokens = torch.randint(0, GEMMA.vocab_size, (B, P), generator=gen, device="cuda")
+        card_run = counted(params, tokens, "cuda")
+    out = {}
+    for i, (what, want) in enumerate((("prefill", DRYRUN_PREFILL_ROUTES),
+                                      ("decode step", DRYRUN_DECODE_ROUTES))):
+        m, c, launched = meta[i], card_run[i], card_run[2 + i]
+        launched = {r: n for r, n in launched.items() if n}
+        print(f"[dryrun] gemma3-1b {what}: FLOPs meta {m.flops:,.0f}, card {c.flops:,.0f}; "
+              f"flash_attention by route: meta {m.calls('flash_attention')}, card counter "
+              f"{c.calls('flash_attention')}, card launches {launched}")
+        check(m.flops == c.flops, f"gemma3-1b {what}: meta FLOPs {m.flops} != card {c.flops}")
+        check(m.calls("flash_attention") == c.calls("flash_attention") == launched == want,
+              f"gemma3-1b {what}: kernel calls by route differ from the launches {want}")
+        out[what] = (m, c)
+    torch.cuda.synchronize()
+
+    def prefill_once():
+        cache = init_cache(GEMMA, B, L, device="cuda")
+        forward_lm(GEMMA, params, tokens, cache=cache, cache_index=0)
+        return cache
+
+    with torch.no_grad():
+        pre_ms, _ = timed_ms(lambda: prefill_once(), runs=5)
+        cache = prefill_once()
+        nxt = tokens[:, -1:]
+        dec_ms, _ = timed_ms(lambda: serve(params, cache, nxt, P), runs=20)
+    n = GEMMA.active_param_count()
+    rec = {"prefill": roofline_line(f"gemma3-1b prefill 4 x {P} bf16 on {card}", out["prefill"][1],
+                                    model_flops_per_step(n, B * P, training=False), "bfloat16",
+                                    pre_ms),
+           "decode": roofline_line(f"gemma3-1b decode step at cache {L} bf16 on {card}",
+                                   out["decode step"][1],
+                                   model_flops_per_step(n, B, training=False), "bfloat16",
+                                   dec_ms)}
+    del params, cache
+    torch.cuda.empty_cache()
+    return rec, card_run[4]
+
+
+def dryrun_train(card):
+    """Phase 17 (c): phase 12's gemma3-1b f32 AdamW step counted on the meta
+    device (FLOPs against 6·N·D plus the full S x S attention of every
+    layer, the predicted peak) and on the card (equal FLOPs, the measured
+    peak and median step time)."""
+    cfg = train_launcher.train_config("gemma3-1b", reduced=False, seq=TRAIN_SEQ)
+    opt = make_optimizer(cfg.optimizer, warmup_cosine_lr(TRAIN_LR, warmup=20, total=TRAIN_STEPS))
+    step = make_train_step(cfg, opt)
+    B, S = TRAIN_BATCH, TRAIN_SEQ
+    mstate = make_train_state(abstract_params(cfg), opt)
+    mbatch = {"tokens": torch.empty((B, S), dtype=torch.int64, device="meta")}
+    with OpCounter() as meta:
+        step(mstate, mbatch)
+    predicted = tree_bytes(mstate) + tree_bytes(mbatch) + meta.peak_live_bytes
+    d, f, v, L = cfg.d_model, cfg.d_ff, cfg.vocab_size, cfg.num_layers
+    hd, nq, nkv = cfg.head_dim, cfg.num_heads, cfg.num_kv_heads
+    n_mat = L * (d * nq * hd + 2 * d * nkv * hd + nq * hd * d + 3 * d * f) + d * v
+    analytic = 6 * n_mat * B * S + 3 * L * 2 * B * S * S * nq * hd * 2
+    ratio = meta.flops / analytic
+    print(f"[dryrun] gemma3-1b f32 train step {B} x {S}: counted {meta.flops:,.0f} FLOPs, "
+          f"6·N·D + attention {analytic:,} (ratio {ratio:.6f}, bound {TRAIN_FLOPS_RTOL:g}); "
+          f"predicted peak {predicted / 2**30:.2f} GiB (the state {tree_bytes(mstate) / 2**30:.2f} "
+          f"held, then {meta.peak_live_bytes / 2**30:.2f} at most allocated by the step)")
+    check(abs(ratio - 1) <= TRAIN_FLOPS_RTOL, f"train step FLOPs {ratio:.4f} of the analytic")
+    del mstate
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    m0 = torch.cuda.memory_allocated()
+    params = train_launcher.build_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                                         "cuda")
+    state = make_train_state(params, opt)
+    del params
+    batch = {"tokens": train_launcher.token_stream(cfg, steps=1, batch=B, seq=S, seed=0)}
+    torch.cuda.reset_peak_memory_stats()
+    with OpCounter() as card_oc:
+        new, m = step(state, batch)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - m0
+    check(math.isfinite(float(m["loss"])), "the counted train step's loss is not finite")
+    del new, m
+    print(f"[dryrun] gemma3-1b f32 train step on {card}: FLOPs meta {meta.flops:,.0f}, card "
+          f"{card_oc.flops:,.0f}; peak above what was allocated before {peak / 2**30:.2f} GiB "
+          f"(torch.cuda.max_memory_allocated) against the predicted {predicted / 2**30:.2f} GiB: "
+          f"{peak / predicted - 1:+.2%} (tolerance {PEAK_RTOL:.0%}: "
+          f"{'within' if abs(peak / predicted - 1) <= PEAK_RTOL else 'outside'})")
+    check(card_oc.flops == meta.flops, "train step FLOPs differ between the meta device and the card")
+    times = []
+    for _ in range(6):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out, m = step(state, batch)
+        float(m["loss"])
+        times.append((time.perf_counter() - t) * 1e3)
+        del out, m
+    measured = float(np.median(times[1:]))
+    print(f"[dryrun] gemma3-1b f32 train step on {card}: {[round(x, 1) for x in times]} ms, "
+          f"median after the first {measured:.1f}")
+    rec = roofline_line(f"gemma3-1b f32 train step {B} x {S} on {card}", meta,
+                        model_flops_per_step(cfg.active_param_count(), B * S, training=True),
+                        "float32", measured)
+    rec.update(analytic_flops=analytic, ratio=ratio, predicted_peak_gib=predicted / 2**30,
+               measured_peak_gib=peak / 2**30, step_ms=times)
+    del state
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_dryrun(card):
+    """Phase 17: the dry-run tooling.  Returns the launches of (b)'s counted
+    prefill and decode step on the card, and the phase's record."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke-") as workdir:
+        rows, sweep_s = dryrun_sweep(workdir)
+    serve, counts = dryrun_serve(card)
+    train = dryrun_train(card)
+    seconds = time.perf_counter() - t0
+    print(f"[dryrun] phase 17: {seconds:.1f} s on {card}")
+    return counts, {"sweep": rows, "sweep_s": sweep_s, "left_to_cli": DRYRUN_LEFT,
+                    "serve": serve, "train": train, "seconds": seconds}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card", file=sys.stderr)
@@ -5043,15 +5278,26 @@ def main() -> int:
     # steps and fuses launch no kernel) and again just before its serve
     cold_counts, cold_rec = phase_cold_mesh(smi)
     torch.cuda.empty_cache()
+
+    # the dry-run tooling (slice 13): the sweep on the host, then the serving
+    # and training steps counted on the meta device and on the card, counts
+    # reset around the serving step's prefill and decode
+    dry_counts, dry_rec = phase_dryrun(smi)
+    torch.cuda.empty_cache()
     print(f"[done] {time.perf_counter() - t0:.1f} s after the card check")
+
+    cost_of = {"cold_fuse": cf_mod.cost, "decode_accum": da_mod.cost, "row_sketch": sk_mod.cost,
+               "flash_attention": fa_mod.cost, "rwkv6_scan": rs_mod.cost}
 
     def record(name, replaces, err, timing, source=None):
         k_ms, k_plain, k_bound, k_by = timing[:4]
+        cost = cost_of[name]
         return {"name": name, "route": "cuda",
                 "source": f"src/repro_torch/kernels/csrc/{source or name}.cu",
                 "replaces": replaces, "launches": counts[name], "max_abs_err": err,
                 "ms": k_ms, "plain_ms": k_plain, "bound_ms": k_bound, "bound_by": k_by,
-                "library_ms": timing[4] if len(timing) > 4 else None}
+                "library_ms": timing[4] if len(timing) > 4 else None,
+                "cost_formula": f"{cost.__module__}.cost: " + " ".join(cost.__doc__.split())}
 
     # flash_attention's numbers are those of its first [time] line (prefill,
     # global layer); "routes" holds every [time] line and the serving
@@ -5073,7 +5319,8 @@ def main() -> int:
         record("row_sketch", "src/repro/kernels/cold_fuse.py:253", sk_err, sk)]
     for rec in fuse_kernels:  # "launches" is phase 7's; the routed phase's beside it
         rec["launches_routed"] = routed[rec["name"]]
-    for rec in fuse_kernels + [flash, rwkv]:  # and phase 11's to 16's
+    for rec in fuse_kernels + [flash, rwkv]:  # and phase 11's to 17's
+        rec["launches_dryrun"] = dry_counts[rec["name"]]
         rec["launches_serve_stack"] = served[rec["name"]]
         rec["launches_lm_train"] = lm_train[rec["name"]]
         rec["launches_archs"] = archs[rec["name"]]
@@ -5089,6 +5336,7 @@ def main() -> int:
                                    row_sketch_shard=mesh_rec["row_sketch_shard"])
     print(json.dumps({"mesh_service": mesh_rec["service"]}))
     print(json.dumps({"cold_mesh": cold_rec}))
+    print(json.dumps({"dryrun": dry_rec}))
     print(json.dumps({"archs": arch_table}))
     print(json.dumps({"archs2": arch2_table}))
     fuse_kernels[0]["at_gemma3_1b"] = fuse_at_gemma

@@ -12,8 +12,12 @@ Zero-weight rows are masked out of the sum by a select (a NaN row of weight
 the hand-written kernel ``csrc/cold_fuse.cu`` (which replaces the Pallas
 kernel ``repro/kernels/cold_fuse.py:_kernel``), a CPU tensor through
 ``cold_fuse_plain``, the same arithmetic in plain PyTorch.  There is no
-fallback from one to the other: a failed build or launch raises.
-``cold_fuse.launches`` counts kernel launches (CPU calls do not count).
+fallback from one to the other: a failed build or launch raises.  A meta
+tensor (a dry run: ``launch.dryrun``) gets empty outputs of the right
+shapes and nothing is launched.  ``cold_fuse.launches`` counts kernel
+launches (CPU and meta calls do not count); ``cost`` is one call's work,
+which the card's and the meta branch add to an active
+``utils.op_counts.OpCounter``.
 """
 from __future__ import annotations
 
@@ -25,6 +29,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels._launch import COUNT_LOCK, launch_on
+from repro_torch.utils import op_counts as _oc
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 BLOCKS_PER_SM = 4
@@ -42,6 +47,17 @@ def cold_fuse_plain(base: torch.Tensor, contribs: torch.Tensor, weights: torch.T
     fused = (bf + alpha * (avg - bf)).to(base.dtype)
     sq = torch.sum(torch.square(cf - bf[None, :]), dim=1)
     return fused, sq
+
+
+def cost(base: torch.Tensor, contribs: torch.Tensor, weights: torch.Tensor,
+         alpha: float = 1.0) -> Tuple[int, int]:
+    """``(flops, bytes)`` of one call: 4·K·N + 3·N operations (per row and
+    element a subtract, a square-add (2), the weighted add of the select;
+    per element the damped mix), at f32's peak; the K rows and the base
+    read once, the fused row written once, the weights and ``sq_diff`` in
+    f32 once: (K + 2)·N·itemsize + 8·K bytes."""
+    K, N = contribs.shape
+    return 4 * K * N + 3 * N, (K + 2) * N * base.element_size() + 2 * K * 4
 
 
 @functools.lru_cache(maxsize=None)
@@ -100,17 +116,24 @@ def _launch(base, contribs, weights, alpha):
                            f"({lib.cold_fuse_error_string(err).decode()})")
     with COUNT_LOCK:
         cold_fuse.launches += 1
+    if _oc.ACTIVE is not None:
+        _oc.add("cold_fuse", "cold_fuse", *cost(base, contribs, weights, alpha))
     return fused, sq
 
 
 def cold_fuse(base: torch.Tensor, contribs: torch.Tensor, weights: torch.Tensor,
               alpha: float = 1.0) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns ``(fused [N], sq_diff [K])``.  CUDA tensors launch the kernel
-    (K ≤ 64 per launch); CPU tensors take ``cold_fuse_plain``."""
+    (K ≤ 64 per launch); CPU tensors take ``cold_fuse_plain``; meta tensors
+    get empty outputs."""
     _check(base, contribs, weights)
     devices = {base.device.type, contribs.device.type}
     if devices == {"cpu"}:
         return cold_fuse_plain(base, contribs, weights, alpha)
+    if devices == {"meta"}:
+        _oc.add("cold_fuse", "cold_fuse", *cost(base, contribs, weights, alpha))
+        return (torch.empty_like(base),
+                torch.empty((contribs.shape[0],), dtype=torch.float32, device="meta"))
     if devices != {"cuda"} or base.device != contribs.device:
         raise ValueError(f"cold_fuse wants base and contribs on one device; got "
                          f"{base.device} and {contribs.device}")

@@ -15,8 +15,11 @@ Duplicate offsets add up; ``acc`` is cut to ``size``.  This is the ops-level
 the hand-written kernel ``csrc/decode_accum.cu`` (which replaces the Pallas
 kernel ``repro/kernels/cold_fuse.py:_decode_kernel`` and reads the codec
 arrays as stored, so the dequantised ``[C, nb, kb]`` f32 array never
-exists), CPU tensors through ``decode_accum_plain``.  No fallback: a failed
-build or launch raises.  ``decode_accum.launches`` counts kernel launches.
+exists), CPU tensors through ``decode_accum_plain``, meta tensors (a dry
+run) to empty outputs.  No fallback: a failed build or launch raises.
+``decode_accum.launches`` counts kernel launches; ``cost`` is one call's
+work, which the card's and the meta branch add to an active
+``utils.op_counts.OpCounter``.
 
 The kernel is one launch of about one wave of persistent blocks:
 ``partition`` splits the nb codec blocks into one contiguous range per
@@ -34,6 +37,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels._launch import COUNT_LOCK, launch_on
+from repro_torch.utils import op_counts as _oc
 from repro_torch.utils.flat import LANE, MAX_DELTA_BLOCK
 
 
@@ -52,6 +56,17 @@ def decode_accum_plain(indices: torch.Tensor, values: torch.Tensor, scales: torc
         acc.index_add_(0, gi.reshape(-1), wdv.reshape(-1))
     sq = torch.sum(dv * dv, dim=(1, 2))
     return acc[:size].clone(), sq
+
+
+def cost(indices: torch.Tensor, values: torch.Tensor, scales: torch.Tensor,
+         weights: torch.Tensor, *, size: int, block: int) -> Tuple[int, int]:
+    """``(flops, bytes)`` of one call: 4·C·nb·kb operations (per entry
+    dequantise, square-add (2), weight and add), at f32's peak; the payloads
+    (offsets, values, scales) and the f32 weights read once, the f32
+    accumulator and ``sq`` written once."""
+    C, nb, kb = indices.shape
+    payload = C * nb * kb * (indices.element_size() + values.element_size())
+    return 4 * C * nb * kb, payload + C * nb * 4 + C * 4 + int(size) * 4 + C * 4
 
 
 def layout(kb: int, idx_ptr: int, val_ptr: int) -> Tuple[int, int]:
@@ -165,6 +180,9 @@ def _launch(indices, values, scales, weights, size, block):
                         block, vec, groups, warps, grid, per), "launch")
     with COUNT_LOCK:
         decode_accum.launches += 1
+    if _oc.ACTIVE is not None:
+        _oc.add("decode_accum", "decode_accum",
+                *cost(indices, values, scales, weights, size=size, block=block))
     return acc, sq
 
 
@@ -172,8 +190,8 @@ def decode_accum(indices: torch.Tensor, values: torch.Tensor, scales: torch.Tens
                  weights: torch.Tensor, *, size: int,
                  block: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns ``(acc [size] f32, sq [C] f32)``.  C = 0 or kb = 0 gives
-    zeros without a launch; otherwise CUDA tensors launch the kernel and CPU
-    tensors take ``decode_accum_plain``."""
+    zeros without a launch; otherwise CUDA tensors launch the kernel, CPU
+    tensors take ``decode_accum_plain`` and meta tensors get empty outputs."""
     size, block = int(size), int(block)
     _check(indices, values, scales, weights, size, block)
     C, _, kb = indices.shape
@@ -186,8 +204,14 @@ def decode_accum(indices: torch.Tensor, values: torch.Tensor, scales: torch.Tens
                 torch.zeros((C,), dtype=torch.float32, device=dev))
     if dev.type == "cpu":
         return decode_accum_plain(indices, values, scales, weights, size=size, block=block)
+    if dev.type == "meta":
+        _oc.add("decode_accum", "decode_accum",
+                *cost(indices, values, scales, weights, size=size, block=block))
+        return (torch.empty((size,), dtype=torch.float32, device=dev),
+                torch.empty((C,), dtype=torch.float32, device=dev))
     if dev.type != "cuda":
-        raise ValueError(f"decode_accum runs on the CPU or a CUDA card; got {dev}")
+        raise ValueError(f"decode_accum runs on the CPU, a CUDA card or the meta device; "
+                         f"got {dev}")
     return _launch(indices, values, scales, weights, size, block)
 
 

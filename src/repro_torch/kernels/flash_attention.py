@@ -29,22 +29,28 @@ pure function of dtype and shapes (``route``):
   product would give up the f32 parity that the port's tests hold.
 
 ``flash_attention`` dispatches on the tensors' device: CUDA tensors launch
-a kernel, CPU tensors take ``flash_attention_plain``.  No fallback: a
-failed build or launch raises.  The kernels have no backward, so an input
-that requires grad is refused.  ``flash_attention.launches`` counts wrapper
-calls that launched; ``flash_attention.launches_by_route`` counts them by
-route, and the decode route's combine kernel on its own.
+a kernel, CPU tensors take ``flash_attention_plain``, meta tensors (a dry
+run) get an empty output.  No fallback: a failed build or launch raises.
+The kernels have no backward, so an input that requires grad is refused.
+``flash_attention.launches`` counts wrapper calls that launched;
+``flash_attention.launches_by_route`` counts them by route, and the decode
+route's combine kernel on its own.  ``cost`` is one call's work (the
+visible keys only), which the card's and the meta branch add to an active
+``utils.op_counts.OpCounter`` under the route (the decode route's whole
+cost on ``decode``, its combine as a call of no cost).
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels._launch import COUNT_LOCK, launch_on
+from repro_torch.utils import op_counts as _oc
 
 HEAD_DIMS = (32, 64, 128, 160, 256)   # 160: stablelm-12b (5120 / 32 heads)
 ROUTES = ("decode", "prefill_tc", "prefill_fma")
@@ -90,6 +96,40 @@ def decode_plan(B: int, Sq: int, Sk: int, Hkv: int, *, causal: bool = True,
     per = -(-DECODE_TARGET_BLOCKS // (B * Hkv))
     chunk = max(DECODE_MIN_CHUNK, -(-n // per))
     return DecodePlan(lo, hi, chunk, -(-n // chunk))
+
+
+def visible(Sq: int, Sk: int, causal: bool, window: Optional[int],
+            q_offset: int) -> Tuple[int, int]:
+    """``(entries, keys)``: the score entries the masks leave visible, summed
+    over the query rows, and the keys some query row sees (the K and V rows
+    a call must read)."""
+    qp = np.arange(Sq, dtype=np.int64) + q_offset
+    hi = np.minimum(qp + 1, Sk) if causal else np.full(Sq, Sk, dtype=np.int64)
+    lo = np.maximum(qp - window + 1, 0) if window is not None else np.zeros(Sq, dtype=np.int64)
+    entries = int(np.clip(hi - lo, 0, None).sum())
+    k_lo = max(0, q_offset - window + 1) if window is not None else 0
+    k_hi = min(Sk, q_offset + Sq) if causal else Sk
+    return entries, max(0, k_hi - k_lo)
+
+
+def cost(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
+         window: Optional[int] = None, q_offset: int = 0) -> Tuple[int, int]:
+    """``(flops, bytes)`` of one call over the visible keys only: 4·hd
+    operations a visible score entry and query head (q·k and p·v), at the
+    peak of q's dtype (bf16 on the tensor cores); q read and o written once,
+    each visible K and V row read once."""
+    B, Sq, Hq, hd = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    entries, keys = visible(Sq, Sk, causal, window, q_offset)
+    nbytes = 2 * q.numel() * q.element_size() + 2 * B * Hkv * hd * k.element_size() * keys
+    return 4 * hd * B * Hq * entries, nbytes
+
+
+def _count(q, k, v, causal, window, q_offset, which) -> None:
+    _oc.add("flash_attention", which, *cost(q, k, v, causal=causal, window=window,
+                                            q_offset=q_offset))
+    if which == "decode":
+        _oc.add("flash_attention", "decode_combine", 0, 0)
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -156,9 +196,10 @@ def _check(q, k, v, window):
                          f"{dev}, {k.device}, {v.device}")
 
 
-def _launch(q, k, v, causal, window, q_offset):
-    B, Sq, Hq, hd = q.shape
-    Sk, Hkv = k.shape[1], k.shape[2]
+def _check_kernel(q, k, v):
+    """What the kernels take beyond ``_check`` (the meta branch holds a
+    dry run's calls to it too)."""
+    hd = q.shape[3]
     if hd not in HEAD_DIMS:
         raise ValueError(f"flash_attention kernel takes head_dim in {HEAD_DIMS}; got {hd}")
     if q.dtype not in (torch.bfloat16, torch.float32) or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -166,6 +207,12 @@ def _launch(q, k, v, causal, window, q_offset):
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention kernel takes contiguous q, k, v")
+
+
+def _launch(q, k, v, causal, window, q_offset):
+    B, Sq, Hq, hd = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    _check_kernel(q, k, v)
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr())
     if (ptrs[0] | ptrs[1] | ptrs[2]) % 16:
         raise ValueError("flash_attention kernel takes q, k, v starting on 16-byte boundaries")
@@ -202,6 +249,8 @@ def _launch(q, k, v, causal, window, q_offset):
         flash_attention.launches_by_route[which] += 1
         if which == "decode":
             flash_attention.launches_by_route["decode_combine"] += 1
+    if _oc.ACTIVE is not None:
+        _count(q, k, v, causal, window, q_offset, which)
     return out
 
 
@@ -214,16 +263,24 @@ def reset_launches() -> None:
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
                     window: Optional[int] = None, q_offset: int = 0) -> torch.Tensor:
     """Returns ``o [B, Sq, Hq, hd]`` in q's dtype.  An empty q gives an
-    empty output without a launch; otherwise CUDA tensors launch the kernel
-    and CPU tensors take ``flash_attention_plain``."""
+    empty output without a launch; otherwise CUDA tensors launch the kernel,
+    CPU tensors take ``flash_attention_plain`` and meta tensors get an empty
+    output."""
     _check(q, k, v, window)
     dev = q.device
     if q.numel() == 0:
         return torch.empty_like(q)
     if dev.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window, q_offset=q_offset)
+    if dev.type == "meta":
+        _check_kernel(q, k, v)
+        if _oc.ACTIVE is not None:
+            _count(q, k, v, causal, window, q_offset, route(q.dtype, q.shape[1], q.shape[2],
+                                                            k.shape[2]))
+        return torch.empty_like(q)
     if dev.type != "cuda":
-        raise ValueError(f"flash_attention runs on the CPU or a CUDA card; got {dev}")
+        raise ValueError(f"flash_attention runs on the CPU, a CUDA card or the meta "
+                         f"device; got {dev}")
     return _launch(q, k, v, causal, window, q_offset)
 
 

@@ -8,8 +8,11 @@ Returns ``[2, n_buckets]`` float32 (``repro.kernels.ref.row_sketch``).
 ``row_sketch`` dispatches on the row's device: a CUDA tensor goes through
 the hand-written kernel ``csrc/row_sketch.cu`` (which replaces the Pallas
 kernel built by ``repro/kernels/cold_fuse.py:_make_sketch_kernel``), a CPU
-tensor through ``row_sketch_plain``.  No fallback: a failed build or launch
-raises.  ``row_sketch.launches`` counts kernel launches.
+tensor through ``row_sketch_plain``, a meta tensor (a dry run) to an empty
+output.  No fallback: a failed build or launch raises.
+``row_sketch.launches`` counts kernel launches; ``cost`` (``shard_cost``
+for ``row_sketch_shard``) is one call's work, which the card's and the meta
+branch add to an active ``utils.op_counts.OpCounter``.
 
 ``row_sketch_shard`` is one shard's partial of the sketch of a row laid out
 block-cyclically (``utils.flat.ShardedFlatSpec``; blocks of ``block``
@@ -27,11 +30,13 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Tuple
 
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels._launch import COUNT_LOCK, launch_on
+from repro_torch.utils import op_counts as _oc
 from repro_torch.utils.flat import LANE
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -69,6 +74,21 @@ def row_sketch_shard_plain(slab: torch.Tensor, shard_index: int, n_shards: int, 
     out[0].index_add_(0, g % n_buckets, ts)
     out[1].index_add_(0, g % n_buckets, tq)
     return out
+
+
+def cost(row: torch.Tensor, n_buckets: int = 32) -> Tuple[int, int]:
+    """``(flops, bytes)`` of one call: 3·N operations (per element an add
+    and a square-add), at f32's peak; the row read once and the f32
+    ``[2, n_buckets]`` sketch written once."""
+    n = row.shape[0]
+    return 3 * n, n * row.element_size() + 2 * int(n_buckets) * 4
+
+
+def shard_cost(slab: torch.Tensor, shard_index: int, n_shards: int, block: int,
+               n_buckets: int = 32) -> Tuple[int, int]:
+    """``(flops, bytes)`` of one ``row_sketch_shard`` call: ``cost`` of the
+    slice."""
+    return cost(slab, n_buckets)
 
 
 @functools.lru_cache(maxsize=None)
@@ -109,12 +129,15 @@ def _launch(row: torch.Tensor, n_buckets: int) -> torch.Tensor:
                            f"({lib.row_sketch_error_string(err).decode()})")
     with COUNT_LOCK:
         row_sketch.launches += 1
+    if _oc.ACTIVE is not None:
+        _oc.add("row_sketch", "row_sketch", *cost(row, n_buckets))
     return out
 
 
 def row_sketch(row: torch.Tensor, n_buckets: int = 32) -> torch.Tensor:
     """``[2, n_buckets]`` f32 sketch of a ``[N]`` bf16/f32 row.  A CUDA row
-    launches the kernel; a CPU row takes ``row_sketch_plain``."""
+    launches the kernel; a CPU row takes ``row_sketch_plain``; a meta row
+    gets an empty sketch."""
     if row.dim() != 1:
         raise ValueError(f"row_sketch takes a [N] row; got {tuple(row.shape)}")
     if row.dtype not in _DTYPE_CODE:
@@ -123,8 +146,12 @@ def row_sketch(row: torch.Tensor, n_buckets: int = 32) -> torch.Tensor:
         raise ValueError(f"n_buckets must be >= 1; got {n_buckets}")
     if row.device.type == "cpu":
         return row_sketch_plain(row, int(n_buckets))
+    if row.device.type == "meta":
+        _oc.add("row_sketch", "row_sketch", *cost(row, n_buckets))
+        return torch.empty((2, int(n_buckets)), dtype=torch.float32, device="meta")
     if row.device.type != "cuda":
-        raise ValueError(f"row_sketch runs on the CPU or a CUDA card; got {row.device}")
+        raise ValueError(f"row_sketch runs on the CPU, a CUDA card or the meta "
+                         f"device; got {row.device}")
     return _launch(row, int(n_buckets))
 
 
@@ -151,6 +178,9 @@ def _launch_shard(slab: torch.Tensor, shard_index: int, n_shards: int, block: in
                            f"({lib.row_sketch_error_string(err).decode()})")
     with COUNT_LOCK:
         row_sketch_shard.launches += 1
+    if _oc.ACTIVE is not None:
+        _oc.add("row_sketch_shard", "row_sketch_shard",
+                *shard_cost(slab, shard_index, n_shards, block, n_buckets))
     return out
 
 
@@ -158,7 +188,8 @@ def row_sketch_shard(slab: torch.Tensor, shard_index: int, n_shards: int, block:
                      n_buckets: int = 32) -> torch.Tensor:
     """``[2, n_buckets]`` f32 partial of shard ``shard_index``'s
     ``[shard_len]`` slice (bf16/f32, whole tiles).  A CUDA slice launches
-    the kernel; a CPU slice takes ``row_sketch_shard_plain``."""
+    the kernel; a CPU slice takes ``row_sketch_shard_plain``; a meta slice
+    gets an empty partial."""
     if slab.dim() != 1 or slab.shape[0] % LANE:
         raise ValueError(f"row_sketch_shard takes a [shard_len] slice of whole tiles; got "
                          f"{tuple(slab.shape)}")
@@ -171,8 +202,13 @@ def row_sketch_shard(slab: torch.Tensor, shard_index: int, n_shards: int, block:
     if slab.device.type == "cpu":
         return row_sketch_shard_plain(slab, int(shard_index), int(n_shards), int(block),
                                       int(n_buckets))
+    if slab.device.type == "meta":
+        _oc.add("row_sketch_shard", "row_sketch_shard",
+                *shard_cost(slab, shard_index, n_shards, block, n_buckets))
+        return torch.empty((2, int(n_buckets)), dtype=torch.float32, device="meta")
     if slab.device.type != "cuda":
-        raise ValueError(f"row_sketch_shard runs on the CPU or a CUDA card; got {slab.device}")
+        raise ValueError(f"row_sketch_shard runs on the CPU, a CUDA card or the meta "
+                         f"device; got {slab.device}")
     return _launch_shard(slab, int(shard_index), int(n_shards), int(block), int(n_buckets))
 
 

@@ -30,10 +30,12 @@ Both hoist the bonus term: ``y_t[j] = v_t[j] · Σ_i r_t[i] u[i] k_t[i] +
 Σ_i r_t[i] S[i][j]``.
 
 ``rwkv6_scan`` dispatches on the tensors' device: CUDA tensors launch a
-kernel, CPU tensors take ``rwkv6_scan_plain``.  No fallback: a failed build
-or launch raises.  The kernels have no backward, so an input that requires
-grad is refused.  ``rwkv6_scan.launches`` counts launches and
-``rwkv6_scan.launches_by_route`` counts them by route.
+kernel, CPU tensors take ``rwkv6_scan_plain``, meta tensors (a dry run) get
+empty outputs.  No fallback: a failed build or launch raises.  The kernels
+have no backward, so an input that requires grad is refused.
+``rwkv6_scan.launches`` counts launches and ``rwkv6_scan.launches_by_route``
+counts them by route.  ``cost`` is one call's work, which the card's and the
+meta branch add to an active ``utils.op_counts.OpCounter`` under the route.
 """
 from __future__ import annotations
 
@@ -45,6 +47,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels._launch import COUNT_LOCK, launch_on
+from repro_torch.utils import op_counts as _oc
 
 HEAD_DIMS = (32, 64)
 ROUTES = ("scan", "step")
@@ -69,6 +72,17 @@ def rwkv6_scan_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, logw: to
         ys.append(torch.einsum("bhi,bhij->bhj", rf[:, t], uf * kv + S))
         S = wf[:, t, :, :, None] * S + kv
     return torch.stack(ys, dim=1).to(r.dtype), S
+
+
+def cost(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, logw: torch.Tensor,
+         u: torch.Tensor, s0: torch.Tensor) -> Tuple[int, int]:
+    """``(flops, bytes)`` of one call: 5·B·T·H·hd² operations (per state
+    element and step: y's product-add (2), k·v, the decay's multiply-add
+    (2)), at f32's peak; r, k, v, logw read and y written once, u read, the
+    f32 state read and written once."""
+    B, T, H, hd = r.shape
+    nbytes = 5 * r.numel() * r.element_size() + u.numel() * 4 + 2 * s0.numel() * 4
+    return 5 * B * T * H * hd * hd, nbytes
 
 
 @functools.lru_cache(maxsize=None)
@@ -107,9 +121,10 @@ def _check(r, k, v, logw, u, s0):
                          f"{[str(t.device) for t in (r, k, v, logw, u, s0)]}")
 
 
-def _launch(r, k, v, logw, u, s0, which=None):
-    """Launch the kernel of ``which`` (default ``route(T)``)."""
-    B, T, H, hd = r.shape
+def _check_kernel(r, k, v, logw, u, s0):
+    """What the kernels take beyond ``_check`` (the meta branch holds a
+    dry run's calls to it too)."""
+    hd = r.shape[3]
     if hd not in HEAD_DIMS:
         raise ValueError(f"rwkv6_scan kernel takes head_dim in {HEAD_DIMS}; got {hd}")
     dt = r.dtype
@@ -122,6 +137,12 @@ def _launch(r, k, v, logw, u, s0, which=None):
     if not (r.is_contiguous() and k.is_contiguous() and v.is_contiguous()
             and logw.is_contiguous() and u.is_contiguous() and s0.is_contiguous()):
         raise ValueError("rwkv6_scan kernel takes contiguous inputs")
+
+
+def _launch(r, k, v, logw, u, s0, which=None):
+    """Launch the kernel of ``which`` (default ``route(T)``)."""
+    B, T, H, hd = r.shape
+    _check_kernel(r, k, v, logw, u, s0)
     ptrs = (r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(), u.data_ptr(),
             s0.data_ptr())
     if (ptrs[0] | ptrs[1] | ptrs[2] | ptrs[3] | ptrs[4] | ptrs[5]) % 16:
@@ -131,7 +152,7 @@ def _launch(r, k, v, logw, u, s0, which=None):
         raise ValueError(f"rwkv6_scan's step route takes T = 1; got T = {T}")
     y = torch.empty_like(r)
     s_final = torch.empty_like(s0)
-    bf16 = int(dt == torch.bfloat16)
+    bf16 = int(r.dtype == torch.bfloat16)
     if which == "step":
         source = "rwkv6_step"
         lib = _lib(source)
@@ -150,6 +171,8 @@ def _launch(r, k, v, logw, u, s0, which=None):
     with COUNT_LOCK:
         rwkv6_scan.launches += 1
         rwkv6_scan.launches_by_route[which] += 1
+    if _oc.ACTIVE is not None:
+        _oc.add("rwkv6_scan", which, *cost(r, k, v, logw, u, s0))
     return y, s_final
 
 
@@ -162,16 +185,21 @@ def reset_launches() -> None:
 def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, logw: torch.Tensor,
                u: torch.Tensor, s0: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns ``(y, s_final)``.  T = 0 gives an empty ``y`` and a copy of
-    ``s0`` without a launch; otherwise CUDA tensors launch a kernel and CPU
-    tensors take ``rwkv6_scan_plain``."""
+    ``s0`` without a launch; otherwise CUDA tensors launch a kernel, CPU
+    tensors take ``rwkv6_scan_plain`` and meta tensors get empty outputs."""
     _check(r, k, v, logw, u, s0)
     dev = r.device
     if r.numel() == 0:
         return torch.empty_like(r), s0.float().clone()
     if dev.type == "cpu":
         return rwkv6_scan_plain(r, k, v, logw, u, s0)
+    if dev.type == "meta":
+        _check_kernel(r, k, v, logw, u, s0)
+        _oc.add("rwkv6_scan", route(r.shape[1]), *cost(r, k, v, logw, u, s0))
+        return torch.empty_like(r), torch.empty_like(s0, dtype=torch.float32)
     if dev.type != "cuda":
-        raise ValueError(f"rwkv6_scan runs on the CPU or a CUDA card; got {dev}")
+        raise ValueError(f"rwkv6_scan runs on the CPU, a CUDA card or the meta device; "
+                         f"got {dev}")
     return _launch(r, k, v, logw, u, s0)
 
 

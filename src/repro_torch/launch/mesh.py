@@ -27,6 +27,8 @@ between two slots counts whether or not they share a card):
 * ``all_gather`` — a sharded row reassembled into ``[N]`` on the first
   device (at publish, and where a file's layout does not match the mesh)
   ((S - 1) slices' bytes).
+
+An active ``utils.op_counts.OpCounter`` sees each counted collective too.
 """
 from __future__ import annotations
 
@@ -37,6 +39,7 @@ from typing import Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.utils import op_counts
 from repro_torch.utils.device import resolve_device
 
 # collective name -> calls, and bytes carried between mesh slots, since the
@@ -60,6 +63,7 @@ def count_collective(name: str, nbytes: int = 0) -> None:
     with _COUNT_LOCK:
         collectives[name] += 1
         collective_bytes[name] += int(nbytes)
+    op_counts.count_collective(name, int(nbytes))
 
 
 def _nbytes(t: torch.Tensor) -> int:
@@ -94,7 +98,8 @@ class Mesh:
 def make_mesh(shape: Sequence[int], axes: Sequence[str], *, device="cuda") -> Mesh:
     """A mesh of ``prod(shape)`` slots: slot ``i`` (row-major) is
     ``cuda:(i % torch.cuda.device_count())`` on ``device="cuda"`` (which
-    raises without a card), or the CPU on ``device="cpu"``."""
+    raises without a card), the CPU on ``device="cpu"``, or the meta device
+    on ``device="meta"`` (a dry run: shapes only)."""
     shape = tuple(int(n) for n in shape)
     if len(shape) != len(tuple(axes)) or any(n < 1 for n in shape):
         raise ValueError(f"mesh shape {shape} does not fit axes {tuple(axes)}")
@@ -103,10 +108,10 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str], *, device="cuda") -> Me
     if dev.type == "cuda":
         cards = torch.cuda.device_count()
         slots = [torch.device("cuda", i % cards) for i in range(n)]
-    elif dev.type == "cpu":
-        slots = [torch.device("cpu")] * n
+    elif dev.type in ("cpu", "meta"):
+        slots = [torch.device(dev.type)] * n
     else:
-        raise ValueError(f"a mesh is made of CUDA cards or the CPU; got {dev}")
+        raise ValueError(f"a mesh is made of CUDA cards, the CPU or the meta device; got {dev}")
     grid = np.empty(n, dtype=object)
     grid[:] = slots
     return Mesh(grid.reshape(shape), axes)

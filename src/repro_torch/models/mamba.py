@@ -11,8 +11,10 @@ SSM inputs are f32; ``y`` is cast back to x's dtype before the ``silu(z)``
 gate.  The reference scans the sequence with ``lax.scan`` and has no
 kernel for it, so the port runs the selective scan as plain PyTorch on
 every device, a Python loop over the sequence (it trains through
-autograd).  Decode keeps an O(1) state: ``h`` [B, d_inner, d_state] f32
-and the conv window ``conv`` [B, d_conv - 1, d_inner].
+autograd).  On the meta device (a dry run) the loop is skipped: its output
+shapes and its cost by formula (``_meta_scan``).  Decode keeps an O(1)
+state: ``h`` [B, d_inner, d_state] f32 and the conv window ``conv``
+[B, d_conv - 1, d_inner].
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.layers import dense_init, normal_init
+from repro_torch.utils import op_counts as _oc
 
 
 def d_inner(cfg: ArchConfig) -> int:
@@ -72,6 +75,22 @@ def _conv(cfg: ArchConfig, p, x: torch.Tensor, prepend=None) -> torch.Tensor:
     return F.silu(out + p["conv_b"])
 
 
+def _meta_scan(dA, dBx, Cmat, h):
+    """The selective scan on the meta device (a dry run): ``(ys [B, S, di],
+    h [B, di, ds])`` without the loop over S, its cost booked as
+    ``mamba_scan`` (``utils.op_counts.meta_recurrence``): the FLOPs the
+    loop's ``C`` contraction counts, 2·B·S·di·ds forward and twice that
+    backward, and the bytes a counter sees the loop's ops move forward,
+    S·(7X + 4·B·(ds + di)) + 8·B·S·di with X = 4·B·di·ds (the backward's
+    taken as four times that)."""
+    B, S, di, ds = dA.shape
+    flops = 2 * B * S * di * ds
+    nbytes = S * (7 * 4 * B * di * ds + 4 * B * (ds + di)) + 8 * B * S * di
+    return _oc.meta_recurrence("mamba_scan", (dA, dBx, Cmat, h),
+                               (((B, S, di), torch.float32), ((B, di, ds), torch.float32)),
+                               (flops, nbytes), (2 * flops, 4 * nbytes))
+
+
 def mamba_fwd(cfg: ArchConfig, p, x: torch.Tensor, *, state=None, return_state: bool = False):
     """x [B, S, D] -> (y [B, S, D], new state or None).
 
@@ -86,11 +105,15 @@ def mamba_fwd(cfg: ArchConfig, p, x: torch.Tensor, *, state=None, return_state: 
     dA, dBx, Cmat = _ssm_inputs(cfg, p, xc)
     h = state["h"] if state is not None else torch.zeros((B, di, ds), dtype=torch.float32,
                                                           device=x.device)
-    ys = []
-    for t in range(S):
-        h = dA[:, t] * h + dBx[:, t]
-        ys.append(torch.einsum("bns,bs->bn", h, Cmat[:, t]))
-    y = torch.stack(ys, dim=1) + xc.float() * p["D"]
+    if x.is_meta:
+        ys, h = _meta_scan(dA, dBx, Cmat, h)
+    else:
+        steps = []
+        for t in range(S):
+            h = dA[:, t] * h + dBx[:, t]
+            steps.append(torch.einsum("bns,bs->bn", h, Cmat[:, t]))
+        ys = torch.stack(steps, dim=1)
+    y = ys + xc.float() * p["D"]
     out = (y.to(x.dtype) * F.silu(z)) @ p["out_proj"]
     new_state = None
     if return_state:

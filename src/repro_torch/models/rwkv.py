@@ -14,7 +14,8 @@ kernel on the card, its plain version on the CPU) with
 (``kernels.ops.rwkv6_mix`` clamps, so the model does not call it).  With
 ``differentiable=True`` (the LM train step; the kernel has no backward, as
 the reference's has none) it runs ``_recurrence`` instead, a copy of the
-reference's scan step that autograd can differentiate.
+reference's scan step that autograd can differentiate (on the meta device,
+a dry run, its output shapes and its cost by formula).
 """
 from __future__ import annotations
 
@@ -24,6 +25,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.rwkv6_scan import rwkv6_scan
 from repro_torch.models.layers import dense_init, normal_init
+from repro_torch.utils import op_counts as _oc
 
 
 def num_heads(cfg: ArchConfig) -> int:
@@ -76,12 +78,30 @@ def _recurrence(r, k, v, w, u, s0):
     """The reference's ``lax.scan`` step over T in f32, under autograd:
     r, k, v, w [B, T, H, hd], u [H, hd], s0 [B, H, hd, hd] ->
     (y [B, T, H, hd], the final state)."""
+    if r.is_meta:
+        return _meta_recurrence(r, k, v, w, u, s0)
     S, ys = s0, []
     for t in range(r.shape[1]):
         kv = k[:, t, :, :, None] * v[:, t, :, None, :]  # [B,H,hd,hd]
         ys.append(torch.einsum("bhi,bhij->bhj", r[:, t], u[None, :, :, None] * kv + S))
         S = w[:, t, :, :, None] * S + kv
     return torch.stack(ys, dim=1), S
+
+
+def _meta_recurrence(r, k, v, w, u, s0):
+    """``_recurrence`` on the meta device (a dry run of the train step):
+    ``(y, S)`` without the loop over T, its cost booked as
+    ``rwkv_recurrence`` (``utils.op_counts.meta_recurrence``): the FLOPs the
+    loop's ``einsum`` counts, 2·B·T·H·hd² forward and twice that backward,
+    and the bytes a counter sees the loop's ops move forward,
+    T·(12X + 9Y + 4·H·hd) with X = 4·B·H·hd² and Y = 4·B·H·hd (the
+    backward's taken as four times that)."""
+    B, T, H, hd = r.shape
+    flops = 2 * B * T * H * hd * hd
+    nbytes = T * (12 * 4 * B * H * hd * hd + 9 * 4 * B * H * hd + 4 * H * hd)
+    return _oc.meta_recurrence("rwkv_recurrence", (r, k, v, w, u, s0),
+                               (((B, T, H, hd), torch.float32), ((B, H, hd, hd), torch.float32)),
+                               (flops, nbytes), (2 * flops, 4 * nbytes))
 
 
 def time_mix_fwd(cfg: ArchConfig, p, x, *, state=None, return_state=False,

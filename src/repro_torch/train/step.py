@@ -6,7 +6,9 @@ function like the reference's: the new parameters and optimizer state are
 new tensors and the old ones are left as they were.  The batch splits into
 ``microbatches`` equal slices of the batch axis (axis 0; axis 1 of M-RoPE
 positions [3, B, S]) whose gradients are summed in f32 and averaged (what
-the reference's ``lax.scan`` over microbatches computes).  The MoE
+the reference's ``lax.scan`` over microbatches computes; on the meta
+device, a dry run, one microbatch is traced and counted as all of them,
+``utils.op_counts.trips``).  The MoE
 load-balance loss enters the objective at ``cfg.moe.aux_loss_weight`` (the
 reference's default weight) and is reported as the metric ``aux``.  The
 forward pass of the train step runs with ``differentiable=True``: the
@@ -28,6 +30,7 @@ from repro_torch.models import whisper as W
 from repro_torch.models.transformer import forward_lm
 from repro_torch.optim.optimizers import Optimizer, clip_by_global_norm
 from repro_torch.train.losses import lm_loss
+from repro_torch.utils import op_counts as _oc
 from repro_torch.utils.pytree import (tree_device, tree_leaves, tree_leaves_with_path,
                                       tree_map, tree_unflatten)
 
@@ -141,12 +144,17 @@ def make_train_step(cfg: ArchConfig, optimizer: Optimizer, *, microbatches: int 
             gacc = [torch.zeros_like(x, dtype=torch.float32) for x in leaves]
             loss_sum = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
             aux_sum = torch.zeros_like(loss_sum)
-            for i in range(microbatches):
-                loss, aux, grads = grads_of(params, leaves, _microbatch(batch, i, microbatches))
-                for acc, g in zip(gacc, grads):
-                    acc.add_(g)
-                loss_sum += loss
-                aux_sum += aux
+            # on the meta device (a dry run) every microbatch dispatches the same
+            # ops: trace one, counted as run ``microbatches`` times
+            runs = 1 if leaves[0].is_meta else microbatches
+            with _oc.trips(microbatches // runs):
+                for i in range(runs):
+                    loss, aux, grads = grads_of(params, leaves,
+                                                _microbatch(batch, i, microbatches))
+                    for acc, g in zip(gacc, grads):
+                        acc.add_(g)
+                    loss_sum += loss
+                    aux_sum += aux
             grads = [g / microbatches for g in gacc]
             loss, aux = loss_sum / microbatches, aux_sum / microbatches
         else:
