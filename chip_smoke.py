@@ -278,23 +278,33 @@ Phases (any failed check raises, so the script exits non-zero):
    exact (``MESH_LAUNCHES``: ``cold_fuse`` 16, ``decode_accum`` 8,
    ``row_sketch`` 49), the collectives, peak memory and seconds printed.
 
-16. the model-side ColD mesh (slice 12) at gemma3-1b's full width in f32
-   with AdamW (``phase_cold_mesh``): ``make_cold_mesh(contributors=2,
-   replicas=2, model=2)`` on the card, the train state stacked for 2
+16. the model-side ColD mesh (slices 12 and 14) at gemma3-1b's full width
+   in f32 (``phase_cold_mesh``), the train state stacked for 2
    contributors from seed 0 and placed by ``cold_shardings``
-   (``launch.sharding.device_put``: each slab whole on its contributor
-   slot's device, the step counter one [2] tensor with slab 0), each slab
-   its own seeded token stream of 8 x 64.  3 cold steps
-   (``make_cold_train_step``; 0 collectives; the slabs must diverge; run
-   alone on a machine of several cards, the two slabs sit on two), each
+   (``launch.sharding.device_put``), each slab its own seeded token stream
+   of 8 x 64.  (a) Whole slabs, on ``make_cold_mesh(contributors=2,
+   replicas=1, model=1)`` (each slab whole on its contributor slot's
+   device, the step counter one [2] tensor with slab 0), AdamW: 3 cold
+   steps (``make_cold_train_step``; 0 collectives; the slabs must diverge;
+   run alone on a machine of several cards, the two slabs sit on two), each
    slab then equal bit for bit to ``make_train_step`` run alone on it;
    ``make_fuse_step(flat=True)`` at alpha 1 (exactly 1 all-reduce, the
    slabs equal bit for bit, the per-leaf path within 1 f32 ulp of the
    operands); 2 more cold steps and a fuse at alpha 0.5 (1 all-reduce, the
    per-leaf path likewise, the slabs' spread halved within 3 f32 ulps).
-   Slab 0 of the fused base, cast to bf16, is served 4 x 1024 -> 32
-   through ``Engine.generate`` with ``flash_attention``'s launches exact by
-   route, and phase 9's rule against the plain path.  Local step ms per
+   (b) Partitioned, on ``make_cold_mesh(contributors=2, replicas=2,
+   model=2)``: each slab split into blocks over its replica x model slots
+   (every slot's placed bytes equal ``dryrun.slot_bytes``); one SGD cold
+   step whose gathered gradients (through ``grad_sync``), loss, grad_norm
+   and new params hold against ``make_train_step`` on the whole slab
+   (``PARTITIONED_RTOL``); then AdamW from seed 0, 3 + 2 cold steps
+   (finite, the slabs diverge, the collectives of each local step equal
+   ``partitioned_collectives``, the formula PERF.md states, none over
+   ``contrib``; one more under ``torch.profiler``, its device-busy time
+   printed) and both fuses at alpha 1 and 0.5 with (a)'s checks.  Slab
+   0 of (b)'s fused base, gathered and cast to bf16, is served 4 x 1024 ->
+   32 through ``Engine.generate`` with ``flash_attention``'s launches exact
+   by route, and phase 9's rule against the plain path.  Local step ms per
    slab, fuse ms, peak memory and the bytes across the contributor axis
    (``launch.mesh.collective_bytes``) against sync-DP's gradient bytes are
    printed.
@@ -317,6 +327,21 @@ Phases (any failed check raises, so the script exits non-zero):
    the measured median (``mfu = model_flops / peak / measured``).  Its
    record is a ``{"dryrun": ...}`` line.
 
+18. the partitioned train step with FSDP (slice 14, ``phase_partitioned``,
+   under two minutes): mistral-nemo-12b at full width (d 5120, 32:8 heads
+   of 128, F 14336, vocab 131072, untied, ``fsdp=True`` as its config has
+   it) cut to ``NEMO_LAYERS`` of its 40 layers (``num_layers`` only, the
+   cut printed), f32, SGD at 4 x 64.  First one step of the whole model
+   (``make_train_step`` on tensors): its loss, grad_norm and the gradients
+   and new values of ``NEMO_KEEP`` are kept and the rest freed; then the
+   same state placed on ``make_mesh((2, 2), ("replica", "model"))`` (every
+   slot's bytes equal ``dryrun.slot_bytes``) and the same step partitioned:
+   loss, grad_norm and the kept leaves within ``PARTITIONED_RTOL``, the
+   collectives equal ``partitioned_collectives``, the step's peak
+   allocation within ``NEMO_PEAK_RTOL`` of ``nemo_peak_bytes``; a second
+   step of each timed, and a third partitioned one under
+   ``torch.profiler``.  Its record is a ``{"partitioned": ...}`` line.
+
 Before each of phases 6, 7, 8, 10, 11 and 16 (and again before phase 16's
 serve), before each model of phases 9, 13 and 14, around phases 12's, 13's
 and 14's eval steps and generates, around each run of phase 15's mesh
@@ -330,6 +355,7 @@ as ``launches_routed``, from phase 9 for the other two, phase 11's as
 17's serving step as ``launches_dryrun`` for all five; phase 15's times
 under ``mesh``; each kernel's ``cost_formula``), phase 16's record as a
 ``{"cold_mesh": ...}`` line, phase 17's as a ``{"dryrun": ...}`` line,
+phase 18's as a ``{"partitioned": ...}`` line (its steps launch no kernel),
 ``nvidia-smi``'s line and
 ``{"ok": true, "device": {...}}``.  Without a card (or without the rest of
 the repository beside it) the script exits non-zero and prints no result.
@@ -360,6 +386,9 @@ from repro_torch.core import (ColdSchedule, Contributor, EvalTask, Repository,  
                               make_cold_train_step, make_fuse_step, run_cold_fusion,
                               stack_for_contributors)
 from repro_torch.core.distributed import slab  # noqa: E402
+from repro_torch.launch import dryrun as dryrun_mod  # noqa: E402
+from repro_torch.launch import sharding as sharding_mod  # noqa: E402
+from repro_torch.utils.placed import Placed  # noqa: E402
 from repro_torch.data.pipeline import shard_batch  # noqa: E402
 from repro_torch.data.synthetic import SyntheticSuite  # noqa: E402
 from repro_torch.checkpoint import io as ckpt  # noqa: E402
@@ -4221,7 +4250,8 @@ def phase_mesh_ops(gen, card):
         mesh_mod.reset_collectives()
         fs, sq = kops.fuse_flat_sharded(base_s, stage_s, w, alpha, mesh=mesh, axes=MESH_AXES)
         check(cold_fuse.launches - before == MESH_S and mesh_mod.collectives ==
-              {"all_reduce": 1, "all_gather": 0}, f"sharded fuse made {mesh_mod.collectives}")
+              {"all_reduce": 1, "all_gather": 0, "reduce_scatter": 0},
+          f"sharded fuse made {mesh_mod.collectives}")
         got = ss.unshard(torch.stack(fs))
         check(torch.equal(got, fk), f"sharded fused row differs from cold_fuse's (alpha {alpha})")
         r = sq_error(sq, sk)
@@ -4293,7 +4323,8 @@ def phase_mesh_ops(gen, card):
     fs, sq = kops.fuse_flat_compressed_sharded(base_s, pi, pv, ps, wc, 0.5, mesh=mesh,
                                                axes=MESH_AXES, block=CODEC_BLOCK)
     check(decode_accum.launches - before == MESH_S and mesh_mod.collectives ==
-          {"all_reduce": 1, "all_gather": 0}, f"sharded compressed fuse made {mesh_mod.collectives}")
+          {"all_reduce": 1, "all_gather": 0, "reduce_scatter": 0},
+          f"sharded compressed fuse made {mesh_mod.collectives}")
     check(torch.equal(ss.unshard(torch.stack(fs)), fk),
           "sharded compressed fused row differs from fuse_flat_compressed's")
     r = sq_error(sq, sk)
@@ -4327,7 +4358,8 @@ def phase_mesh_ops(gen, card):
     mesh_mod.reset_collectives()
     got = kops.row_sketch_sharded(xs, mesh=mesh, axes=MESH_AXES, block=ss.block)
     check(row_sketch.launches - before == MESH_S and mesh_mod.collectives ==
-          {"all_reduce": 1, "all_gather": 0}, f"sharded sketch made {mesh_mod.collectives}")
+          {"all_reduce": 1, "all_gather": 0, "reduce_scatter": 0},
+          f"sharded sketch made {mesh_mod.collectives}")
     e, r = sketch_error(got, row_sketch(x, 32), x)
     print(f"[mesh] row_sketch_sharded N={N_ROBERTA:,} bf16 (64 tiles a block: row_sketch on each "
           f"slice): max|d| {e:.3g} against the unsharded kernel, sq-sums rel {r:.3g} (phase 3's "
@@ -4645,8 +4677,60 @@ def phase_mesh(workdir, card):
 # seeded token stream of TRAIN_BATCH x TRAIN_SEQ; then slab 0 of the fused
 # base, cast to bf16, served 4 x GEMMA_PROMPT -> SERVE_NEW (phase 9's shape)
 COLD_C, COLD_H, COLD_ALPHAS = 2, (3, 2), (1.0, 0.5)
-COLD_MESH = dict(contributors=COLD_C, replicas=2, model=2)
+COLD_WHOLE_MESH = dict(contributors=COLD_C, replicas=1, model=1)   # (a): slabs whole
+COLD_MESH = dict(contributors=COLD_C, replicas=2, model=2)         # (b): partitioned
 PR21_STEP_MS = 189.8        # phase 12's gemma3-1b f32 step (PR 21, PERF.md)
+# the partitioned SGD steps against the whole step: tests/test_torch_partitioned.py's
+# f32 tolerance (rtol and atol 1e-5 on params and gradients, rtol 1e-5 on loss
+# and grad_norm); the sums run in another order over the slots
+PARTITIONED_RTOL = PARTITIONED_ATOL = 1e-5
+PARTITIONED_SGD_LR = 0.05
+NO_COLLECTIVES = {"all_reduce": 0, "all_gather": 0, "reduce_scatter": 0}
+
+
+def partitioned_collectives(cfg, psh, R: int, M: int, microbatches: int = 1):
+    """The collectives of one partitioned step of a dense decoder on a
+    (replica R, model M) grid, the formula PERF.md §5 states (the same as
+    ``tests/test_torch_partitioned.py``'s).  Per microbatch, over ``model``:
+    the embedding's all-reduce where the vocabulary splits, per layer two
+    output all-reduces and two backward input all-reduces for attention and
+    the FFN, the logits' backward input all-reduce and the loss's three; KV
+    weights all-gathered (reduce-scattered back) where Hkv does not split
+    but their spec does, their gradient all-reduced where the spec keeps
+    them whole.  Over ``replica``: each use of a leaf FSDP splits, one
+    all-gather and one reduce-scatter.  Per step: one all-reduce over
+    ``replica`` per leaf not split over it and the loss metric's, and the
+    global norm's."""
+    L, hd = cfg.num_layers, cfg.head_dim
+    ar = ag = 0
+    if M > 1:
+        vocab = cfg.vocab_size % M == 0
+        attn = (cfg.num_heads * hd) % M == 0
+        ffn = cfg.d_ff % M == 0
+        ar += vocab + L * (2 * attn + 2 * ffn) + vocab + 3 * vocab
+        if attn and cfg.num_kv_heads % M:
+            if (cfg.num_kv_heads * hd) % M == 0:
+                ag += 2 * L
+            else:
+                ar += 2 * L
+    fsdp_uses = per_step = 0
+    if R > 1:
+        n_full, _ = tt_mod.split_layers(cfg)
+        for name, sh in tree_leaves_with_path(psh):
+            if "replica" in sh.spec:
+                fsdp_uses += n_full if name.startswith("scan/") else 1
+            else:
+                per_step += 1
+        per_step += 1
+    per_step += 1 if R * M > 1 else 0
+    return {"all_reduce": microbatches * ar + per_step,
+            "all_gather": microbatches * (ag + fsdp_uses),
+            "reduce_scatter": microbatches * (ag + fsdp_uses)}
+
+
+def blocks_of(x):
+    """A slab leaf's stored tensors: a placed leaf's blocks, else the leaf."""
+    return x.blocks if isinstance(x, Placed) else [x]
 
 
 # The phase runs as it is on more than one card too (phase 16 alone, to see
@@ -4675,30 +4759,34 @@ def cold_batches(cfg, steps: int):
     return np.stack([s.reshape(steps, TRAIN_BATCH, TRAIN_SEQ) for s in streams], 1)
 
 
-def cold_local_steps(step, run, batches, batch_sh, card, what):
+def cold_local_steps(step, run, batches, batch_sh, card, what, want=None):
     """``len(batches)`` cold steps on ``run["state"]`` (held only there, so
-    each step's input is freed when its output replaces it), timed; no
-    collective may run.  Returns the per-slab step times (ms)."""
-    mesh_mod.reset_collectives()
+    each step's input is freed when its output replaces it), timed; each
+    step's collectives must equal ``want`` (none by default), none over the
+    contributor axis.  Returns the per-slab step times (ms)."""
+    want = want or NO_COLLECTIVES
     per_slab = []
     for toks in batches:
+        mesh_mod.reset_collectives()
         sync_cards()
         t0 = time.perf_counter()
         run["state"], m = step(run["state"], shard_batch({"tokens": toks}, batch_sh["tokens"]))
         losses = m["loss"].tolist()
         sync_cards()
         per_slab.append((time.perf_counter() - t0) * 1e3 / COLD_C)
-        check(all(math.isfinite(x) for x in losses), f"{what}: a loss is not finite: {losses}")
-    check(mesh_mod.collectives == {"all_reduce": 0, "all_gather": 0},
-          f"{what}: local steps ran collectives {mesh_mod.collectives}")
-    emb = run["state"]["params"]["embed"]
+        check(all(math.isfinite(x) for x in losses + m["grad_norm"].tolist()),
+              f"{what}: a loss or grad_norm is not finite: {losses}")
+        check(mesh_mod.collectives == want and "contrib" not in mesh_mod.collectives_by_axis,
+              f"{what}: a local step ran collectives {mesh_mod.collectives} "
+              f"{mesh_mod.collectives_by_axis}, expected {want}, none over contrib")
+    emb = [blocks_of(x)[0] for x in run["state"]["params"]["embed"]]
     div = (emb[0] - emb[1].to(emb[0].device)).abs().max().item()
     check(div > 0, f"{what}: the slabs did not diverge")
     print(f"[cold-mesh] {what}: {len(batches)} cold steps of {COLD_C} slabs, per slab "
           f"{[round(x, 1) for x in per_slab]} ms (PR 21's plain step {PR21_STEP_MS} ms), losses "
-          f"{[round(x, 4) for x in losses]}; 0 collectives; the slabs' embed differs by max "
-          f"{div:.4g}; peak so far {cards_peak_gib():.2f} GiB; on "
-          f"{card}")
+          f"{[round(x, 4) for x in losses]}; collectives a local step {want} "
+          f"({dict(mesh_mod.collectives_by_axis)} by axis, none over contrib); the slabs' "
+          f"embed differs by max {div:.4g}; peak so far {cards_peak_gib():.2f} GiB; on {card}")
     return per_slab
 
 
@@ -4728,21 +4816,23 @@ def cold_fuse_checked(cfg, mesh, state, alpha, h, card):
     worst, unequal, spread_worst, slab_diff = 0.0, 0, 0.0, 0.0
     flat_leaves = dict(tree_leaves_with_path(fused))
     leaf_leaves = dict(tree_leaves_with_path(per_leaf))
-    for name, xs in tree_leaves_with_path(params):
-        # compared on slab 0's card, each leaf's slabs brought there
-        dev = xs[0].device
-        xs = [x.to(dev) for x in xs]
-        got, want = [x.to(dev) for x in flat_leaves[name]], [x.to(dev) for x in leaf_leaves[name]]
-        ops_mag = torch.maximum(xs[0].abs(), xs[1].abs())
-        for g, w in zip(got, want):
-            d = (g - w).abs()
-            unequal += int((d > 0).sum())
-            worst = max(worst, (d / f32_ulp(ops_mag)).max().item())
-        if alpha == 1.0:
-            slab_diff = max(slab_diff, (got[0] - got[1]).abs().max().item())
-        else:
-            err = ((got[0] - got[1]) - (xs[0] - xs[1]) * (1 - alpha)).abs()
-            spread_worst = max(spread_worst, (err / f32_ulp(ops_mag)).max().item())
+    for name, slabs in tree_leaves_with_path(params):
+        # compared block by stored block on slab 0's card, each slab's brought there
+        for i, b0 in enumerate(blocks_of(slabs[0])):
+            dev = b0.device
+            xs = [blocks_of(x)[i].to(dev) for x in slabs]
+            got = [blocks_of(x)[i].to(dev) for x in flat_leaves[name]]
+            want = [blocks_of(x)[i].to(dev) for x in leaf_leaves[name]]
+            ops_mag = torch.maximum(xs[0].abs(), xs[1].abs())
+            for g, w in zip(got, want):
+                d = (g - w).abs()
+                unequal += int((d > 0).sum())
+                worst = max(worst, (d / f32_ulp(ops_mag)).max().item())
+            if alpha == 1.0:
+                slab_diff = max(slab_diff, (got[0] - got[1]).abs().max().item())
+            else:
+                err = ((got[0] - got[1]) - (xs[0] - xs[1]) * (1 - alpha)).abs()
+                spread_worst = max(spread_worst, (err / f32_ulp(ops_mag)).max().item())
     check(worst <= 1, f"flat fuse (alpha {alpha}) differs from the per-leaf path by {worst:.3g} "
           "f32 ulps of the operands")
     if alpha == 1.0:
@@ -4769,40 +4859,47 @@ def cold_fuse_checked(cfg, mesh, state, alpha, h, card):
                    "sync_dp_bytes_per_step": sync_dp}
 
 
-def phase_cold_mesh(card):
-    """Phase 16: the model-side ColD mesh at gemma3-1b's full width.
-    Returns (the serve's launches, the phase's record)."""
-    t_phase = time.perf_counter()
-    reset_cards_peak()
-    reset_launches()
-    mesh = mesh_mod.make_cold_mesh(device="cuda", **COLD_MESH)
-    cfg = train_launcher.train_config("gemma3-1b", reduced=False, seq=TRAIN_SEQ)
-    opt = make_optimizer(cfg.optimizer, constant_lr(TRAIN_LR))
-    batches = cold_batches(cfg, sum(COLD_H))
-
-    def init_state():
-        gen = torch.Generator(device="cuda").manual_seed(0)
-        return make_train_state(init_lm(cfg, gen, device="cuda"), opt)
-
-    stacked = stack_for_contributors(init_state(), COLD_C)
+def cold_state(cfg, opt, mesh, batches):
+    """The train state from seed 0 stacked for COLD_C contributors and
+    placed on ``mesh`` by ``cold_shardings``; every slot's placed bytes
+    must equal ``dryrun.slot_bytes`` of the same state and specs.  Returns
+    (the placed state, state shardings, batch shardings)."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    stacked = stack_for_contributors(make_train_state(init_lm(cfg, gen, device="cuda"), opt),
+                                     COLD_C)
     state_sh, batch_sh = cold_shardings(mesh, cfg, stacked, {"tokens": batches[0]})
-    run = {"state": device_put(stacked, state_sh)}
+    want = dryrun_mod.slot_bytes(stacked, state_sh, mesh)
+    state = device_put(stacked, state_sh)
     del stacked
+    got = sharding_mod.placed_slot_bytes(state, mesh)
+    check(got == [want] * mesh.devices.size, f"placed bytes a slot {got}, dryrun.slot_bytes "
+          f"{want:,}")
+    return state, state_sh, batch_sh
+
+
+def cold_whole(cfg, opt, batches, card, records):
+    """Phase 16 (a): the slabs whole on a (2, 1, 1) mesh, each equal bit for
+    bit to the plain step run alone on it, then both fuses."""
+    mesh = mesh_mod.make_cold_mesh(device="cuda", **COLD_WHOLE_MESH)
+    state, state_sh, batch_sh = cold_state(cfg, opt, mesh, batches)
+    run = {"state": state}
+    del state
     emb = run["state"]["params"]["embed"]
-    check(isinstance(emb, list) and tuple(state_sh["opt"]["step"].spec) == (),
-          "the cold state's placement")
+    check(isinstance(emb, list) and isinstance(emb[0], torch.Tensor)
+          and tuple(state_sh["opt"]["step"].spec) == (), "the cold state's placement")
     slab_devs = [str(x.device) for x in emb]
-    print(f"[cold-mesh] {mesh!r}: the {COLD_C} slabs on {slab_devs}, "
+    print(f"[cold-mesh] (a) {mesh!r}: the {COLD_C} slabs whole on {slab_devs}, "
           f"{torch.cuda.device_count()} card(s)")
     del emb
     cold = make_cold_train_step(cfg, opt)
-    records = {"mesh": repr(mesh), "slab_devices": slab_devs, "local_ms": []}
+    records.update(whole_mesh=repr(mesh), slab_devices=slab_devs, local_ms=[])
     records["local_ms"] += cold_local_steps(cold, run, batches[:COLD_H[0]], batch_sh, card,
-                                            "round 1")
+                                            "(a) round 1")
     # each slab against the plain step run alone on the same slab and batches
     plain = make_train_step(cfg, opt)
     for c in range(COLD_C):
-        alone = init_state()
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        alone = make_train_state(init_lm(cfg, gen, device="cuda"), opt)
         for toks in batches[:COLD_H[0], c]:
             alone, _ = plain(alone, {"tokens": toks})
         mine = dict(tree_leaves_with_path(slab(run["state"], c)))
@@ -4812,19 +4909,127 @@ def phase_cold_mesh(card):
         check(len(same) == len(mine), f"slab {c} differs from the plain step run alone in "
               f"{len(mine) - len(same)} of {len(mine)} leaves")
         del alone, mine
-    print(f"[cold-mesh] each of the {COLD_C} slabs equals make_train_step run alone on it "
+    print(f"[cold-mesh] (a) each of the {COLD_C} slabs equals make_train_step run alone on it "
           f"({COLD_H[0]} steps), params, m, v and step bit for bit")
     fused, rec1 = cold_fuse_checked(cfg, mesh, run["state"], COLD_ALPHAS[0], COLD_H[0], card)
     run["state"] = {"params": fused, "opt": run["state"]["opt"]}
     del fused
     records["local_ms"] += cold_local_steps(cold, run, batches[COLD_H[0]:], batch_sh, card,
-                                            "round 2")
-    fused, rec2 = cold_fuse_checked(cfg, mesh, run.pop("state"), COLD_ALPHAS[1], COLD_H[1], card)
+                                            "(a) round 2")
+    _, rec2 = cold_fuse_checked(cfg, mesh, run.pop("state"), COLD_ALPHAS[1], COLD_H[1], card)
     records["fuses"] = [rec1, rec2]
-    serve_params = tree_map(lambda x: x.to(torch.bfloat16), slab(fused, 0))
+
+
+def cold_partitioned_sgd(cfg, mesh, batches, card):
+    """Phase 16 (b), first: one SGD cold step partitioned over each slab's
+    (2, 2) sub-grid against ``make_train_step`` on the whole slab: the
+    gathered gradients (``grad_sync`` sees them reduced), loss, grad_norm
+    and new params within PARTITIONED_RTOL / ATOL.  Returns a record."""
+    opt = make_optimizer("sgd", constant_lr(PARTITIONED_SGD_LR))
+    state, _, batch_sh = cold_state(cfg, opt, mesh, batches)
+    batch = shard_batch({"tokens": batches[0]}, batch_sh["tokens"])
+    grads = []
+    local = make_train_step(cfg, opt, grad_sync=lambda g: grads.append(g) or g)
+    mesh_mod.reset_collectives()
+    sync_cards()
+    t0 = time.perf_counter()
+    outs = [local(slab(state, c), slab(batch, c)) for c in range(COLD_C)]
+    sync_cards()
+    step_ms = (time.perf_counter() - t0) * 1e3 / COLD_C
+    cols = dict(mesh_mod.collectives)
+    del state
+    worst = {"grads": 0.0, "params": 0.0, "loss": 0.0, "grad_norm": 0.0}
+
+    def held(what, got, want):
+        err = ((got - want).abs() - PARTITIONED_ATOL - PARTITIONED_RTOL * want.abs()).max()
+        check(err.item() <= 0, f"partitioned SGD step: {what} off by more than rtol/atol "
+              f"{PARTITIONED_RTOL:g}/{PARTITIONED_ATOL:g}")
+        rel = ((got - want).abs().max() / want.abs().max().clamp(min=1e-30)).item()
+        return rel
+
+    whole = make_train_step(cfg, opt, grad_sync=lambda g: grads.append(g) or g)
+    for c in range(COLD_C):
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        new, m = whole(make_train_state(init_lm(cfg, gen, device="cuda"), opt),
+                       {"tokens": batches[0, c]})
+        mine_g = dict(tree_leaves_with_path(sharding_mod.gather(grads[c])))
+        mine_p = dict(tree_leaves_with_path(sharding_mod.gather(outs[c][0]["params"])))
+        for k, v in tree_leaves_with_path(grads.pop()):
+            worst["grads"] = max(worst["grads"], held(f"slab {c} grad {k}", mine_g[k], v))
+        for k, v in tree_leaves_with_path(new["params"]):
+            worst["params"] = max(worst["params"], held(f"slab {c} param {k}", mine_p[k], v))
+        for key in ("loss", "grad_norm"):
+            got, want = outs[c][1][key].float(), m[key].float().to(outs[c][1][key].device)
+            rel = ((got - want).abs() / want.abs()).item()
+            check(rel <= PARTITIONED_RTOL, f"slab {c} {key} {got.item()} vs {want.item()}")
+            worst[key] = max(worst[key], rel)
+        del new, m, mine_g, mine_p
+        grads[c] = None
+    print(f"[cold-mesh] (b) one SGD cold step partitioned over each slab's (replica 2, model 2) "
+          f"slots: {step_ms:.1f} ms a slab, collectives {cols}; against make_train_step on the "
+          f"whole slab: largest difference over a leaf's largest value, gradients "
+          f"{worst['grads']:.3g}, new params {worst['params']:.3g}; loss {worst['loss']:.3g} "
+          f"and grad_norm {worst['grad_norm']:.3g} relative (bounds rtol/atol "
+          f"{PARTITIONED_RTOL:g}); on {card}")
+    return {"sgd_step_ms_per_slab": step_ms, "collectives": cols, "worst": worst}
+
+
+def phase_cold_mesh(card):
+    """Phase 16: the model-side ColD mesh at gemma3-1b's full width, (a)
+    slabs whole, (b) partitioned.  Returns (the serve's launches, the
+    phase's record)."""
+    t_phase = time.perf_counter()
+    reset_cards_peak()
+    reset_launches()
+    cfg = train_launcher.train_config("gemma3-1b", reduced=False, seq=TRAIN_SEQ)
+    opt = make_optimizer(cfg.optimizer, constant_lr(TRAIN_LR))
+    batches = cold_batches(cfg, sum(COLD_H))
+    records = {}
+    cold_whole(cfg, opt, batches, card, records)
+    sync_cards()
+    records["peak_gib_whole"] = cards_peak_gib()
+    torch.cuda.empty_cache()
+    reset_cards_peak()
+
+    # (b) partitioned over each slab's replica x model slots
+    mesh = mesh_mod.make_cold_mesh(device="cuda", **COLD_MESH)
+    records["partitioned"] = part = {"mesh": repr(mesh)}
+    part["sgd"] = cold_partitioned_sgd(cfg, mesh, batches, card)
+    torch.cuda.empty_cache()
+    state, state_sh, batch_sh = cold_state(cfg, opt, mesh, batches)
+    run = {"state": state}
+    del state
+    emb = run["state"]["params"]["embed"]
+    check(all(isinstance(x, Placed) for x in emb), "(b): the slabs are not placed in blocks")
+    slab_devs = [sorted({str(d) for d in x.layout.mesh.devices.flat}) for x in emb]
+    psh = sharding_mod.params_shardings(sharding_mod.sub_mesh(mesh, 0), slab(
+        run["state"]["params"], 0), cfg, data_axis="replica", model_axis="model")
+    per_slab = partitioned_collectives(cfg, psh, COLD_MESH["replicas"], COLD_MESH["model"])
+    want = {k: COLD_C * v for k, v in per_slab.items()}
+    print(f"[cold-mesh] (b) {mesh!r}: each slab split over its 4 slots, on {slab_devs}; "
+          f"{len(emb[0].blocks)} stored blocks of embed {tuple(emb[0].shape)} a slab")
+    del emb
+    cold = make_cold_train_step(cfg, opt)
+    part["local_ms"] = cold_local_steps(cold, run, batches[:COLD_H[0]], batch_sh, card,
+                                        "(b) round 1", want)
+    fused, rec1 = cold_fuse_checked(cfg, mesh, run["state"], COLD_ALPHAS[0], COLD_H[0], card)
+    run["state"] = {"params": fused, "opt": run["state"]["opt"]}
+    del fused
+    part["local_ms"] += cold_local_steps(cold, run, batches[COLD_H[0]:], batch_sh, card,
+                                         "(b) round 2", want)
+    # one more local step under torch.profiler (its result dropped): where the time goes
+    split = device_split(lambda: cold(run["state"], shard_batch({"tokens": batches[-1]},
+                                                                 batch_sh["tokens"])))
+    print_split("gemma3-1b", "partitioned cold step (2 slabs)",
+                COLD_C * part["local_ms"][-1], split)
+    part["device_busy_ms"] = None if split is None else split[0]
+    fused, rec2 = cold_fuse_checked(cfg, mesh, run.pop("state"), COLD_ALPHAS[1], COLD_H[1], card)
+    part.update(fuses=[rec1, rec2], collectives_per_local_step=want)
+    serve_params = tree_map(lambda x: x.to(torch.bfloat16),
+                            sharding_mod.gather(slab(fused, 0)))
     del fused
     sync_cards()
-    records["peak_gib_train_fuse"] = cards_peak_gib()
+    part["peak_gib_train_fuse"] = cards_peak_gib()
     torch.cuda.empty_cache()
     counts = launches()
     check(all(n == 0 for n in counts.values()), f"the cold steps and fuses launched {counts}")
@@ -4840,21 +5045,21 @@ def phase_cold_mesh(card):
     gen_s = time.perf_counter() - t0
     served = launches()
     by_route = dict(flash_attention.launches_by_route)
-    want = {k: v // 2 for k, v in serve_routes(GEMMA, GEMMA_PROMPT, SERVE_NEW).items()}
-    check(by_route == want, f"the fused base's generate launched flash_attention {by_route} by "
-          f"route, expected {want}")
+    want_routes = {k: v // 2 for k, v in serve_routes(GEMMA, GEMMA_PROMPT, SERVE_NEW).items()}
+    check(by_route == want_routes, f"the fused base's generate launched flash_attention "
+          f"{by_route} by route, expected {want_routes}")
     check(res.tokens.shape == (4, GEMMA_PROMPT + SERVE_NEW), "fused base: generate shape")
     gen_k = res.tokens[:, GEMMA_PROMPT:]
     serve_agreement("gemma3-1b (fused base)", GEMMA,
                     lambda: teacher_forced(GEMMA, serve_params, prompts, gen_k, GEMMA_MAX_LEN),
                     gen_k)
     del eng, serve_params
-    records.update(serve_s=gen_s, flash_routes=by_route,
-                   peak_gib=cards_peak_gib(),
+    records.update(serve_s=gen_s, flash_routes=by_route, peak_gib=cards_peak_gib(),
                    seconds=time.perf_counter() - t_phase)
-    print(f"[cold-mesh] the fused base (slab 0, bf16) served 4 x {GEMMA_PROMPT} -> {SERVE_NEW} "
-          f"in {gen_s:.3f} s, flash_attention by route {by_route} (exactly as worked out); peak "
-          f"{records['peak_gib_train_fuse']:.2f} GiB over the steps and fuses, "
+    print(f"[cold-mesh] the fused base (slab 0 of (b), gathered, bf16) served 4 x "
+          f"{GEMMA_PROMPT} -> {SERVE_NEW} in {gen_s:.3f} s, flash_attention by route {by_route} "
+          f"(exactly as worked out); peak {records['peak_gib_whole']:.2f} GiB over (a)'s steps "
+          f"and fuses, {part['peak_gib_train_fuse']:.2f} GiB over (b)'s, "
           f"{records['peak_gib']:.2f} GiB with the serve; phase {records['seconds']:.1f} s on "
           f"{card}")
     return served, records
@@ -5106,6 +5311,179 @@ def phase_dryrun(card):
                     "serve": serve, "train": train, "seconds": seconds}
 
 
+# ---------------------------------------------------------------------------
+# slice 14: the partitioned train step with FSDP (phase 18)
+# ---------------------------------------------------------------------------
+
+# mistral-nemo-12b at full width, cut to NEMO_LAYERS of its 40 layers (depth
+# only), f32, SGD at NEMO_BATCH x NEMO_SEQ on a (replica 2, model 2) grid
+NEMO_LAYERS, NEMO_BATCH, NEMO_SEQ, NEMO_GRID = 4, 4, 64, (2, 2)
+NEMO_KEEP = ("final_norm/scale", "scan/pos0/norm2/scale", "scan/pos0/attn/wk",
+             "scan/pos0/attn/wo")
+NEMO_PEAK_RTOL = 0.10   # the step's peak allocation against nemo_peak_bytes (PERF.md §5)
+
+
+def nemo_peak_bytes(cfg, P: int) -> int:
+    """The partitioned SGD step's reckoned peak allocation (PERF.md §5): the
+    larger of (1) the update, where the placed params, the clipped
+    gradients, SGD's updates and the new params are held at once (4 P; the
+    unclipped gradients are freed when clipping returns), and (2) the start
+    of the backward: the params, the FSDP all-gathers autograd keeps for the
+    backward (each slot's copy of its model block gathered over ``replica``:
+    R times every layer's weights and the untied lm_head; the embedding's
+    gather is freed after the lookup), then the lm_head's gathered gradient
+    (R times it again) and its reduce-scattered blocks."""
+    R = NEMO_GRID[0]
+    d, f, hd = cfg.d_model, cfg.d_ff, cfg.head_dim
+    layer = 4 * (d * cfg.num_heads * hd * 2 + d * cfg.num_kv_heads * hd * 2 + 3 * d * f)
+    head = 4 * d * cfg.vocab_size
+    backward = P + R * cfg.num_layers * layer + R * head + R * head + head
+    return max(4 * P, backward)
+
+
+def phase_partitioned(card):
+    """Phase 18: mistral-nemo-12b (``NEMO_LAYERS`` layers, f32, FSDP) one SGD
+    step whole, then the same step partitioned over (replica 2, model 2).
+    Returns the phase's record."""
+    t_phase = time.perf_counter()
+    reset_launches()
+    base = get_config("mistral-nemo-12b")
+    cfg = dataclasses.replace(base, num_layers=NEMO_LAYERS, param_dtype="float32",
+                              compute_dtype="float32")
+    n_params = cfg.param_count()
+    P = 4 * n_params
+    print(f"[partitioned] {base.name} at full width (d {cfg.d_model}, {cfg.num_heads}:"
+          f"{cfg.num_kv_heads} heads of {cfg.head_dim}, F {cfg.d_ff}, vocab {cfg.vocab_size}, "
+          f"untied {not cfg.tie_embeddings}, fsdp {cfg.fsdp}), cut to {cfg.num_layers} of its "
+          f"{base.num_layers} layers (num_layers only): {n_params:,} parameters, {P:,} bytes "
+          f"in f32; SGD at {NEMO_BATCH} x {NEMO_SEQ}")
+    check(cfg.fsdp, "mistral-nemo-12b's config sets fsdp")
+    opt = make_optimizer("sgd", constant_lr(PARTITIONED_SGD_LR))
+    toks = np.random.default_rng(18).integers(3, cfg.vocab_size, (2, NEMO_BATCH, NEMO_SEQ))
+
+    def fresh_state():
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        return make_train_state(init_lm(cfg, gen, device="cuda"), opt)
+
+    # the whole step first: keep its loss, grad_norm and NEMO_KEEP's
+    # gradients and new values, free the rest
+    kept = {}
+
+    def keep(grads):
+        kept.update({k: v for k, v in tree_leaves_with_path(grads) if k in NEMO_KEEP})
+        return grads
+
+    state = fresh_state()
+    torch.cuda.synchronize()
+    reset_cards_peak()
+    t0 = time.perf_counter()
+    new, m = make_train_step(cfg, opt, grad_sync=keep)(state, {"tokens": toks[0]})
+    torch.cuda.synchronize()
+    whole_ms = (time.perf_counter() - t0) * 1e3
+    whole_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    want = {"loss": m["loss"].float(), "grad_norm": m["grad_norm"].float(),
+            "grads": dict(kept),
+            "params": {k: v for k, v in tree_leaves_with_path(new["params"]) if k in NEMO_KEEP}}
+    del state, m
+    kept.clear()
+    t0 = time.perf_counter()  # a second whole step, timed as the partitioned one is
+    new, _ = make_train_step(cfg, opt)(new, {"tokens": toks[1]})
+    torch.cuda.synchronize()
+    whole_second_ms = (time.perf_counter() - t0) * 1e3
+    del new, _
+    torch.cuda.empty_cache()
+    whole_left = torch.cuda.memory_allocated() / 2 ** 30
+
+    # the same state placed on the grid, the same step partitioned
+    mesh = make_mesh(NEMO_GRID, ("replica", "model"))
+    state = fresh_state()
+    psh = sharding_mod.params_shardings(mesh, state["params"], cfg, data_axis="replica",
+                                        model_axis="model")
+    sh = {"params": psh, "opt": sharding_mod.opt_state_shardings(mesh, state["opt"], psh)}
+    slot_want = dryrun_mod.slot_bytes(state, sh, mesh)
+    placed = device_put(state, sh)
+    del state
+    torch.cuda.empty_cache()
+    slot_got = sharding_mod.placed_slot_bytes(placed, mesh)
+    check(slot_got == [slot_want] * mesh.devices.size,
+          f"placed bytes a slot {slot_got}, dryrun.slot_bytes {slot_want:,}")
+    specs = {k: tuple(sh.spec) for k, sh in tree_leaves_with_path(psh)
+             if k in ("embed", "lm_head", "scan/pos0/attn/wq")}
+    step = make_train_step(cfg, opt, grad_sync=keep)
+    cols_want = partitioned_collectives(cfg, psh, *NEMO_GRID)
+    reckoned = nemo_peak_bytes(cfg, P)
+    torch.cuda.synchronize()
+    reset_cards_peak()
+    held_before = torch.cuda.memory_allocated()
+    mesh_mod.reset_collectives()
+    t0 = time.perf_counter()
+    placed, pm = step(placed, {"tokens": toks[0]})
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    cols, nbytes = dict(mesh_mod.collectives), dict(mesh_mod.collective_bytes)
+    by_axis = dict(mesh_mod.collectives_by_axis)
+    got_grads = {k: sharding_mod.gather(v) for k, v in kept.items()}
+    got_params = {k: sharding_mod.gather(v) for k, v in tree_leaves_with_path(placed["params"])
+                  if k in NEMO_KEEP}
+    kept.clear()
+    worst, failed = {}, []
+    for key in ("loss", "grad_norm"):
+        got = pm[key].float()
+        worst[key] = ((got - want[key].to(got.device)).abs() / want[key].abs()).item()
+        if worst[key] > PARTITIONED_RTOL:
+            failed.append(f"{key} {got.item()} vs {want[key].item()}")
+    for part, got_tree in (("grads", got_grads), ("params", got_params)):
+        for k, w in want[part].items():
+            g = got_tree[k]
+            if ((g - w).abs() - PARTITIONED_ATOL - PARTITIONED_RTOL * w.abs()).max().item() > 0:
+                failed.append(f"{part} {k}")
+            worst[f"{part}/{k}"] = ((g - w).abs().max() / w.abs().max()).item()
+    del got_grads, got_params, want
+    # a second step, timed (the first paid the card's first calls of each shape)
+    mesh_mod.reset_collectives()
+    t0 = time.perf_counter()
+    placed, pm2 = step(placed, {"tokens": toks[1]})
+    torch.cuda.synchronize()
+    second_ms = (time.perf_counter() - t0) * 1e3
+    second_cols = dict(mesh_mod.collectives)
+    # a third, under torch.profiler: where the partitioned step's time goes
+    split = device_split(lambda: step(placed, {"tokens": toks[1]}))
+    print_split(base.name, f"partitioned step ({NEMO_LAYERS} layers, FSDP on "
+                f"{NEMO_GRID[0]} x {NEMO_GRID[1]})", second_ms, split)
+    del placed, pm
+    torch.cuda.empty_cache()
+    counts = launches()
+    seconds = time.perf_counter() - t_phase
+    print(f"[partitioned] specs {specs}; whole step {whole_ms:.1f} ms, second "
+          f"{whole_second_ms:.1f} ms, peak {whole_peak:.2f} GiB "
+          f"({whole_left:.2f} GiB still allocated after it); "
+          f"partitioned over {mesh!r}: first step {first_ms:.1f} ms, second {second_ms:.1f} ms; "
+          f"collectives {cols} ({by_axis} by axis; the formula's {cols_want}), carrying "
+          f"{nbytes} bytes; against the whole step, largest difference over the largest value: "
+          f"{ {k: float(f'{v:.3g}') for k, v in worst.items()} } (bounds rtol/atol "
+          f"{PARTITIONED_RTOL:g}); peak {peak / 2 ** 30:.2f} GiB against the reckoned "
+          f"{reckoned / 2 ** 30:.2f} (held before the step {held_before / 2 ** 30:.2f}); "
+          f"{slot_want:,} bytes a slot; phase {seconds:.1f} s on {card}")
+    check(cols == cols_want == second_cols, f"the partitioned steps ran collectives {cols} and "
+          f"{second_cols}, expected {cols_want}")
+    check(not failed, f"phase 18 against the whole step, beyond rtol/atol "
+          f"{PARTITIONED_RTOL:g}/{PARTITIONED_ATOL:g}: {failed}")
+    check(math.isfinite(pm2["loss"].item()), f"the second step's loss {pm2['loss'].item()}")
+    check(abs(peak - reckoned) <= NEMO_PEAK_RTOL * reckoned,
+          f"the partitioned step's peak {peak / 2 ** 30:.2f} GiB is not within "
+          f"{NEMO_PEAK_RTOL:.0%} of the reckoned {reckoned / 2 ** 30:.2f} GiB")
+    check(all(n == 0 for n in counts.values()), f"the train steps launched {counts}")
+    return {"arch": base.name, "layers": cfg.num_layers, "of_layers": base.num_layers,
+            "params": n_params, "bytes": P, "grid": list(NEMO_GRID), "slot_bytes": slot_want,
+            "whole_ms": whole_ms, "whole_second_ms": whole_second_ms,
+            "whole_peak_gib": whole_peak, "first_ms": first_ms,
+            "second_ms": second_ms, "collectives": cols, "collective_bytes": nbytes,
+            "collectives_by_axis": by_axis, "worst": worst, "peak_gib": peak / 2 ** 30,
+            "device_busy_ms": None if split is None else split[0],
+            "reckoned_peak_gib": reckoned / 2 ** 30, "seconds": seconds}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card", file=sys.stderr)
@@ -5284,6 +5662,10 @@ def main() -> int:
     # reset around the serving step's prefill and decode
     dry_counts, dry_rec = phase_dryrun(smi)
     torch.cuda.empty_cache()
+
+    # the partitioned train step with FSDP (slice 14); its steps launch no kernel
+    part_rec = phase_partitioned(smi)
+    torch.cuda.empty_cache()
     print(f"[done] {time.perf_counter() - t0:.1f} s after the card check")
 
     cost_of = {"cold_fuse": cf_mod.cost, "decode_accum": da_mod.cost, "row_sketch": sk_mod.cost,
@@ -5337,6 +5719,7 @@ def main() -> int:
     print(json.dumps({"mesh_service": mesh_rec["service"]}))
     print(json.dumps({"cold_mesh": cold_rec}))
     print(json.dumps({"dryrun": dry_rec}))
+    print(json.dumps({"partitioned": part_rec}))
     print(json.dumps({"archs": arch_table}))
     print(json.dumps({"archs2": arch2_table}))
     fuse_kernels[0]["at_gemma3_1b"] = fuse_at_gemma

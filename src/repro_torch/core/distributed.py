@@ -5,12 +5,16 @@ The mesh is ("pod"?, "contrib", "replica", "model"), one process's grid of
 devices (``launch.mesh``).  Every leaf of the training state gains a
 leading contributor dim C (``stack_for_contributors``); placed by
 ``cold_shardings`` (``launch.sharding.device_put``), a stacked leaf is the
-list of its C slabs, slab ``c`` whole on the device of its contributor
-slot, and the step counter stays one ``[C]`` tensor where slab 0 lives.
+list of its C slabs, slab ``c`` on its contributor slot's replica x model
+sub-grid: split into blocks over it (a ``utils.placed.Placed`` leaf) where
+the sub-grid has several slots, whole on its one device where it has one;
+the step counter stays one ``[C]`` tensor where slab 0 lives.
 
 * ``make_cold_train_step``: the reference's ``jax.vmap`` of the ordinary
   train step becomes ``train.step.make_train_step`` applied to each slab
-  on that slab's device — the same numbers per slab, and no collective
+  — partitioned over its sub-grid (tensor parallel over ``model``, data
+  parallel and FSDP over ``replica``) where it is placed in blocks, on its
+  device where it is whole — the same numbers per slab, and no collective
   across contributors;
 * ``make_fuse_step``: θ_c ← θ_c + α·(mean_c θ_c − θ_c) over the
   contributor dim, the only traffic that crosses the contributor axes:
@@ -19,7 +23,9 @@ slot, and the step counter stays one ``[C]`` tensor where slab 0 lives.
   leaf on the default per-leaf path) every H local steps, against a
   gradient all-reduce every step for synchronous data parallelism —
   2·P/H bytes a step against 2·P (``launch.mesh.collective_bytes`` counts
-  them).
+  them; ``collectives_by_axis`` counts the fuse's all-reduces under the
+  contributor axes and every collective of a partitioned local step under
+  ``replica`` or ``model``).
 
 Every function also takes an unplaced stacked state (``[C, ...]`` tensors
 on one device), as the reference's functions run without shardings.
@@ -40,6 +46,7 @@ from repro_torch.launch.mesh import Mesh
 from repro_torch.optim.optimizers import Optimizer
 from repro_torch.train.step import make_train_step
 from repro_torch.utils.flat import ShardedFlatSpec
+from repro_torch.utils.placed import Placed
 from repro_torch.utils.pytree import tree_leaves, tree_leaves_with_path, tree_map, \
     tree_map_with_name
 
@@ -127,10 +134,13 @@ def make_cold_train_step(cfg: ArchConfig, optimizer: Optimizer, *,
                          microbatches: int = 1) -> Callable:
     """The local step over the leading contributor dim: ``(state, batch)
     -> (state, metrics)`` with ``batch = {"tokens": [C, B_local, S], ...}``.
-    Slab ``c`` takes ``make_train_step``'s step on its own device with its
-    own batch; the state comes back in the form it came in (placed or
-    stacked) and each metric as a ``[C]`` tensor on slab 0's device.  No
-    collective: a contributor's gradients never leave its slot."""
+    Slab ``c`` takes ``make_train_step``'s step with its own batch: on its
+    device where it is whole, partitioned over its contributor slot's
+    replica x model sub-grid where it is placed in blocks (the collectives
+    of that step run within the sub-grid).  The state comes back in the
+    form it came in (placed or stacked) and each metric as a ``[C]`` tensor
+    on slab 0's device.  No collective crosses the contributor axes: a
+    contributor's gradients never leave its slot."""
     local = make_train_step(cfg, optimizer, microbatches=microbatches)
 
     def cold_step(state, batch):
@@ -153,17 +163,21 @@ def make_fuse_step(cfg: ArchConfig, mesh: Mesh, schedule: ColdSchedule, *,
     θ_c ← θ_c + α·(mean_c θ_c − θ_c) for every slab ``c``.
 
     ``flat=True``, on a mesh with a contributor axis, fuses ONE flat f32
-    buffer: each slab's leaves are flattened on its device, laid out
-    block-cyclically over the replica x model axes (``ShardedFlatSpec``),
-    fused by ``ops.cohort_fuse_sharded`` with one all-reduce over the
-    contributor axes, then each slab's fused blocks are gathered back to
-    its slot (one ``all_gather`` a slab, within its replica x model slots)
-    and split into leaves of their own dtypes.
+    buffer: each slab's leaves are flattened on its device (a slab placed
+    in blocks is first gathered to its slot 0's device: one ``all_gather``
+    a slab, within its replica x model slots), laid out block-cyclically
+    over the replica x model axes (``ShardedFlatSpec``), fused by
+    ``ops.cohort_fuse_sharded`` with one all-reduce over the contributor
+    axes, then each slab's fused blocks are gathered back to its slot (one
+    ``all_gather`` a slab) and split into leaves of their own dtypes, a
+    placed slab's into its blocks again.
 
     ``flat=False`` (the default), and any mesh without a contributor axis,
     takes the per-leaf path: each leaf's mean over the contributor dim in
     f32 (one all-reduce a leaf when the slabs are placed over the
-    contributor axes; none for a stacked tensor on one device).  The
+    contributor axes, its shards the leaf's stored blocks, so a block
+    replicated over a card's slots is fused once; none for a stacked
+    tensor on one device).  The
     reference defaults to the flat path; here its copies (stage, layout,
     gather, unshard) cost more than the per-leaf path's leaf-by-leaf
     traffic, at gemma3-1b's width 2-4x on one card and 2-9x with the slabs
@@ -176,7 +190,15 @@ def make_fuse_step(cfg: ArchConfig, mesh: Mesh, schedule: ColdSchedule, *,
     def leaf_fuse(x):
         if isinstance(x, list):
             G = num_contributors(mesh)
-            means = M.mean_over_groups([[xc] for xc in x], G)
+            if isinstance(x[0], Placed):
+                keys = {xc.layout.slot_key for xc in x}
+                if len(keys) != 1:
+                    raise ValueError("slabs whose blocks share devices differently")
+                means = M.mean_over_groups([xc.blocks for xc in x], G, contrib)
+                return [xc.with_blocks([ops.relax(b, mu, alpha) for b, mu in
+                                        zip(xc.blocks, means[c // (len(x) // G)])])
+                        for c, xc in enumerate(x)]
+            means = M.mean_over_groups([[xc] for xc in x], G, contrib)
             return [ops.relax(xc, means[c // (len(x) // G)][0], alpha)
                     for c, xc in enumerate(x)]
         mean = x.float().sum(0, keepdim=True) / x.shape[0]
@@ -194,15 +216,21 @@ def make_fuse_step(cfg: ArchConfig, mesh: Mesh, schedule: ColdSchedule, *,
 
     def fuse_flat(params):
         leaves = tree_leaves(params)
+        names = [k for k, _ in tree_leaves_with_path(params)]
         C = _n_slabs(params)
         firsts = [_slab_leaf(x, 0) for x in leaves]
-        shapes = [x.shape for x in firsts]
+        shapes = [tuple(x.shape) for x in firsts]
         dtypes = [x.dtype for x in firsts]
         sizes = [x.numel() for x in firsts]
         sspec = ShardedFlatSpec.for_size(sum(sizes), n_shards)
         stage, homes = [], []
         for c in range(C):
             parts = [_slab_leaf(x, c) for x in leaves]
+            placed = [p for p in parts if isinstance(p, Placed)]
+            if placed:  # the slab's blocks gathered to its slot 0's device first
+                M.count_collective("all_gather", sum(SH.gather_bytes(p) for p in placed),
+                                   shard_axes)
+                parts = [p.whole() if isinstance(p, Placed) else p for p in parts]
             homes.append(parts[0].device)
             row = torch.cat([p.reshape(-1).float() for p in parts])
             stage.append(sspec.shard(row))
@@ -214,11 +242,15 @@ def make_fuse_step(cfg: ArchConfig, mesh: Mesh, schedule: ColdSchedule, *,
         for c in range(C):
             row = sspec.unshard(M.all_gather(fused[c], mesh, device=homes[c]))
             fused[c] = None
-            outs, off = [], 0
-            for shape, dtype, n in zip(shapes, dtypes, sizes):
-                outs.append(row[off:off + n].view(shape).to(dtype))
+            outs, off = {}, 0
+            for name, x, shape, dtype, n in zip(names, leaves, shapes, dtypes, sizes):
+                v = row[off:off + n].view(shape).to(dtype)
+                like = _slab_leaf(x, c)
+                outs[name] = (Placed.split(v, like.layout.spec, like.layout.mesh)
+                              if isinstance(like, Placed) else v)
                 off += n
-            slabs.append(dict(zip([k for k, _ in tree_leaves_with_path(params)], outs)))
+            del row
+            slabs.append(outs)
         return _restack(params, slabs)
 
     return fuse_flat

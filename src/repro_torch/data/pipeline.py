@@ -44,7 +44,9 @@ def num_steps(n: int, batch_size: int, epochs: int) -> int:
 def shard_batch(batch: Dict[str, np.ndarray], sharding: NamedSharding) -> Dict[str, object]:
     """Place a host batch on a mesh with one ``NamedSharding``
     (``launch.sharding.NamedSharding.place``): a leading dim over the
-    contributor axes splits into the list of its slabs, each on its
-    contributor slot's device; any other leaf goes whole to the mesh's
-    first device."""
+    contributor axes splits into the list of its slabs, one a contributor
+    slot; the rows split over ``replica`` (or ``data``) into blocks on a
+    slot's sub-grid of several devices (a ``utils.placed.Placed`` leaf the
+    partitioned train step reads a replica's rows from); a batch the spec
+    does not split goes whole to its slot's device."""
     return {k: sharding.place(torch.as_tensor(v)) for k, v in batch.items()}

@@ -230,7 +230,7 @@ def cohort_fuse_sharded(stage, *, mesh: Mesh, contrib_axes, shard_axes=(),
     devices = flat_row_sharding(mesh, contrib + shards)  # block (g, s) at g * S + s
     blocks = [[slabs[c][s].to(devices[(c // per) * S + s]) for s in range(S)]
               for c in range(C)]
-    means = mean_over_groups(blocks, G)
+    means = mean_over_groups(blocks, G, contrib)
     return [[relax(x, mean, alpha) for x, mean in zip(blocks[c], means[c // per])]
             for c in range(C)]
 

@@ -22,12 +22,13 @@ tensors (``launch.specs``: shapes only, no memory) under a
 What differs from the reference, and every artifact says so
 (``"partitioned": false`` and ``traced``):
 
-* the port executes no split over ``model`` (ROADMAP A6c), so the step is
-  traced for the batch one slot holds, the global batch over the slots the
-  batch is split over (a batch that does not divide is traced whole), with
-  every weight whole: FLOPs, bytes and activations a chip are that trace's.
-  The tensor-parallel and data-parallel collectives of the reference's
-  partitioned program have no counterpart;
+* the dry run does not trace the partitioned step (``models.partitioned``,
+  which the port runs on placed params; tracing it is ROADMAP A6c, what is
+  left), so the step is traced for the batch one slot holds, the global
+  batch over the slots the batch is split over (a batch that does not
+  divide is traced whole), with every weight whole: FLOPs, bytes and
+  activations a chip are that trace's.  The tensor-parallel and
+  data-parallel collectives of a partitioned step are not in it;
 * the microbatch loop and the time loops (Mamba, the RWKV recurrence of
   the train step) are Python: one microbatch is traced under
   ``op_counts.trips(microbatches)`` and the loops book their cost by
@@ -191,7 +192,7 @@ def _analyze(oc: OpCounter, mesh: Mesh, cfg: ArchConfig, shape: InputShape, *,
             "microbatches_traced": 1,
             "trips": microbatches,
             "note": ("per chip: the batch of one slot over the batch-split slots, every "
-                     "weight whole (no model-axis split executed, ROADMAP A6c); one "
+                     "weight whole (the partitioned step not traced, ROADMAP A6c); one "
                      "microbatch traced and counted as all of them; Python time loops "
                      "counted by formula; no tensor- or data-parallel collective"),
         },

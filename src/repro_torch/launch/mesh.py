@@ -28,13 +28,40 @@ between two slots counts whether or not they share a card):
   device (at publish, and where a file's layout does not match the mesh)
   ((S - 1) slices' bytes).
 
+**Collectives over one named axis** run the partitioned train step
+(``models.partitioned``).  Their operand is a list of per-slot tensors,
+slot ``s`` on ``mesh.devices.flat[s]``; the axis splits the slots into
+groups (one for each index of the other axes), and each call acts on every
+group at once, as one ``psum`` over a named axis is one collective in the
+reference's program.  Each is counted once a call, under its name and in
+``collectives_by_axis`` under its axis; the bytes are what a ring moves
+between the k slots of a group, summed over the groups.  Sums are taken in
+slot order on the group's first device, so a result repeats bit for bit.
+Each is a ``torch.autograd.Function`` whose forward and backward are both
+counted (Megatron's pairs):
+
+* ``axis_all_reduce`` — the sum over the group on every slot (2 (k - 1)
+  operands' bytes); its backward is the identity (a row-parallel output);
+* ``axis_sum_grads`` — the identity, whose backward is that all-reduce
+  (a column-parallel input);
+* ``axis_all_gather`` — the group's blocks concatenated along ``dim`` on
+  every slot (k (k - 1) blocks' bytes); its backward is a reduce-scatter;
+* ``axis_reduce_scatter`` — the group's sum split along ``dim``, block
+  ``i`` to the group's slot ``i`` ((k - 1) operands' bytes); its backward
+  is an all-gather;
+* ``axis_all_reduce_max`` — the maximum over the group, no gradient.
+
+Outside autograd (a gradient reduced after the backward), slots of one
+group that share a device share the result tensor.  An axis of extent 1
+is no collective: the operand comes back as it is, uncounted.
+
 An active ``utils.op_counts.OpCounter`` sees each counted collective too.
 """
 from __future__ import annotations
 
 import threading
 from collections import OrderedDict
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -44,8 +71,10 @@ from repro_torch.utils.device import resolve_device
 
 # collective name -> calls, and bytes carried between mesh slots, since the
 # last reset_collectives()
-collectives: Dict[str, int] = {"all_reduce": 0, "all_gather": 0}
-collective_bytes: Dict[str, int] = {"all_reduce": 0, "all_gather": 0}
+collectives: Dict[str, int] = {"all_reduce": 0, "all_gather": 0, "reduce_scatter": 0}
+collective_bytes: Dict[str, int] = {"all_reduce": 0, "all_gather": 0, "reduce_scatter": 0}
+# mesh axis -> calls over it (a call over several axes counts under each)
+collectives_by_axis: Dict[str, int] = {}
 _COUNT_LOCK = threading.Lock()
 
 
@@ -54,15 +83,18 @@ def reset_collectives() -> None:
         for k in collectives:
             collectives[k] = 0
             collective_bytes[k] = 0
+        collectives_by_axis.clear()
 
 
-def count_collective(name: str, nbytes: int = 0) -> None:
+def count_collective(name: str, nbytes: int = 0, axes: Sequence[str] = ()) -> None:
     """Count one collective that carried ``nbytes`` between mesh slots (a
     sharded file put back together on the host counts as an
-    ``all_gather``)."""
+    ``all_gather``), over the mesh axes ``axes`` where they are known."""
     with _COUNT_LOCK:
         collectives[name] += 1
         collective_bytes[name] += int(nbytes)
+        for a in axes:
+            collectives_by_axis[a] = collectives_by_axis.get(a, 0) + 1
     op_counts.count_collective(name, int(nbytes))
 
 
@@ -88,6 +120,23 @@ class Mesh:
     @property
     def shape(self) -> "OrderedDict[str, int]":
         return OrderedDict(zip(self.axis_names, self.devices.shape))
+
+    def extent(self, axis: Optional[str]) -> int:
+        """An axis's extent; 1 for ``None`` or an axis the mesh lacks."""
+        return self.shape.get(axis, 1) if axis is not None else 1
+
+    def coord(self, s: int, axis: Optional[str]) -> int:
+        """Slot ``s``'s index on ``axis`` (0 for ``None`` or an absent axis)."""
+        if axis is None or axis not in self.axis_names:
+            return 0
+        return int(np.unravel_index(s, self.devices.shape)[self.axis_names.index(axis)])
+
+    def groups(self, axis: str) -> List[List[int]]:
+        """The slots of each group of ``axis``: for each index of the other
+        axes (row-major), the flat slots along ``axis`` in order."""
+        i = self.axis_names.index(axis)
+        ids = np.moveaxis(np.arange(self.devices.size).reshape(self.devices.shape), i, -1)
+        return [[int(s) for s in row] for row in ids.reshape(-1, self.devices.shape[i])]
 
     def __repr__(self) -> str:
         dims = ", ".join(f"{a}={n}" for a, n in self.shape.items())
@@ -153,7 +202,8 @@ def all_reduce_sum(parts: Sequence[torch.Tensor], mesh: Mesh) -> torch.Tensor:
     return out
 
 
-def all_reduce_over(parts: Sequence[Sequence[torch.Tensor]]) -> List[List[torch.Tensor]]:
+def all_reduce_over(parts: Sequence[Sequence[torch.Tensor]], axes: Sequence[str] = ()
+                    ) -> List[List[torch.Tensor]]:
     """The all-reduce over one set of mesh axes (the reference's ``psum``):
     ``parts[g][s]`` is group ``g``'s partial for shard ``s``, on that
     group's device for the shard.  For each shard the G partials are added
@@ -173,12 +223,12 @@ def all_reduce_over(parts: Sequence[Sequence[torch.Tensor]]) -> List[List[torch.
         for g, row in enumerate(out):
             row.append(total.to(parts[g][s].device))
         nbytes += 2 * (len(parts) - 1) * _nbytes(total)
-    count_collective("all_reduce", nbytes)
+    count_collective("all_reduce", nbytes, axes)
     return out
 
 
-def mean_over_groups(blocks: Sequence[Sequence[torch.Tensor]], groups: int
-                     ) -> List[List[torch.Tensor]]:
+def mean_over_groups(blocks: Sequence[Sequence[torch.Tensor]], groups: int,
+                     axes: Sequence[str] = ()) -> List[List[torch.Tensor]]:
     """The f32 mean over C slabs held by ``groups`` contributor groups of
     C / G consecutive slabs: ``blocks[c][s]`` is slab ``c``'s block for
     shard ``s``, on its group's device.  Each group's partial is
@@ -196,7 +246,7 @@ def mean_over_groups(blocks: Sequence[Sequence[torch.Tensor]], groups: int
                 acc = acc + blocks[c][s].float()
             row.append(acc / C)
         parts.append(row)
-    return all_reduce_over(parts)
+    return all_reduce_over(parts, axes)
 
 
 def all_gather(parts: Sequence[torch.Tensor], mesh: Mesh, device=None) -> torch.Tensor:
@@ -206,4 +256,192 @@ def all_gather(parts: Sequence[torch.Tensor], mesh: Mesh, device=None) -> torch.
     dev = torch.device(device) if device is not None else mesh.devices.flat[0]
     out = torch.stack([p.to(dev) for p in parts])
     count_collective("all_gather", sum(_nbytes(p) for p in parts[1:]))
+    return out
+
+
+# -- collectives over one named axis (the partitioned train step) ------------------------
+
+
+def _group_sum(parts, group) -> torch.Tensor:
+    """The group's operands added in slot order on its first slot's device
+    (a missing gradient counts as zeros)."""
+    live = [parts[s] for s in group if parts[s] is not None]
+    total = live[0].clone()
+    for p in live[1:]:
+        total += p.to(total.device)
+    return total
+
+
+def _spread(total: torch.Tensor, group, devices, out, share: bool) -> None:
+    """``total`` copied to each slot of ``group``; with ``share`` the slots
+    on one device share one copy."""
+    copies, kept = {}, False
+    for s in group:
+        dev = devices[s]
+        if share and dev in copies:
+            out[s] = copies[dev]
+            continue
+        if dev == total.device and not kept:
+            t, kept = total, True
+        else:
+            t = total.to(dev, copy=True)
+        copies[dev] = out[s] = t
+
+
+def _reduce(parts, mesh: Mesh, axis: str, share: bool, *, count: bool = True):
+    devices = list(mesh.devices.flat)
+    out = [None] * len(parts)
+    nbytes = 0
+    for group in mesh.groups(axis):
+        if all(parts[s] is None for s in group):
+            continue
+        total = _group_sum(parts, group)
+        nbytes += 2 * (len(group) - 1) * _nbytes(total)
+        _spread(total, group, devices, out, share)
+    if count:
+        count_collective("all_reduce", nbytes, (axis,))
+    return out
+
+
+def _gather(parts, mesh: Mesh, axis: str, dim: int):
+    devices = list(mesh.devices.flat)
+    out = [None] * len(parts)
+    nbytes = 0
+    for group in mesh.groups(axis):
+        for s in group:
+            out[s] = torch.cat([parts[g].to(devices[s]) for g in group], dim)
+        nbytes += len(group) * (len(group) - 1) * _nbytes(parts[group[0]])
+    count_collective("all_gather", nbytes, (axis,))
+    return out
+
+
+def _scatter(parts, mesh: Mesh, axis: str, dim: int):
+    devices = list(mesh.devices.flat)
+    out = [None] * len(parts)
+    nbytes = 0
+    for group in mesh.groups(axis):
+        if all(parts[s] is None for s in group):
+            continue
+        total = _group_sum(parts, group)
+        nbytes += (len(group) - 1) * _nbytes(total)
+        for s, block in zip(group, total.chunk(len(group), dim)):
+            out[s] = block.to(devices[s], copy=True).contiguous()
+    count_collective("reduce_scatter", nbytes, (axis,))
+    return out
+
+
+class _AllReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, mesh, axis, *parts):
+        return tuple(_reduce(parts, mesh, axis, share=False))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None, None) + grads
+
+
+class _SumGrads(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, mesh, axis, *parts):
+        ctx.mesh, ctx.axis = mesh, axis
+        return tuple(p.view_as(p) for p in parts)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None, None) + tuple(_reduce(grads, ctx.mesh, ctx.axis, share=False))
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, mesh, axis, dim, *parts):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        return tuple(_gather(parts, mesh, axis, dim))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None, None, None) + tuple(_scatter(grads, ctx.mesh, ctx.axis, ctx.dim))
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, mesh, axis, dim, *parts):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        out = _scatter(parts, mesh, axis, dim)
+        ctx.like = [(o.shape, o.dtype, o.device) for o in out]
+        return tuple(out)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        grads = [g if g is not None else torch.zeros(shape, dtype=dtype, device=dev)
+                 for g, (shape, dtype, dev) in zip(grads, ctx.like)]
+        return (None, None, None) + tuple(_gather(grads, ctx.mesh, ctx.axis, ctx.dim))
+
+
+def _trivial(mesh: Mesh, axis: Optional[str]) -> bool:
+    return mesh.extent(axis) == 1
+
+
+def _tracked(parts) -> bool:
+    return torch.is_grad_enabled() and any(p is not None and p.requires_grad for p in parts)
+
+
+def axis_all_reduce(parts: Sequence[torch.Tensor], mesh: Mesh, axis: Optional[str]
+                    ) -> List[torch.Tensor]:
+    """Each slot's operand replaced by the sum over its group of ``axis``
+    (see the module docstring); the backward passes each slot its own
+    gradient."""
+    if _trivial(mesh, axis):
+        return list(parts)
+    if _tracked(parts):
+        return list(_AllReduce.apply(mesh, axis, *parts))
+    return _reduce(list(parts), mesh, axis, share=True)
+
+
+def axis_sum_grads(parts: Sequence[torch.Tensor], mesh: Mesh, axis: Optional[str]
+                   ) -> List[torch.Tensor]:
+    """The identity, whose backward all-reduces the slots' gradients over
+    ``axis``: what a replicated input of a column-parallel product needs."""
+    if _trivial(mesh, axis) or not _tracked(parts):
+        return list(parts)
+    return list(_SumGrads.apply(mesh, axis, *parts))
+
+
+def axis_all_gather(parts: Sequence[torch.Tensor], mesh: Mesh, axis: Optional[str],
+                    dim: int) -> List[torch.Tensor]:
+    """Each slot gets its group's blocks concatenated along ``dim`` in slot
+    order; the backward reduce-scatters the gradient back to the blocks."""
+    if _trivial(mesh, axis):
+        return list(parts)
+    if _tracked(parts):
+        return list(_AllGather.apply(mesh, axis, dim, *parts))
+    return _gather(list(parts), mesh, axis, dim)
+
+
+def axis_reduce_scatter(parts: Sequence[torch.Tensor], mesh: Mesh, axis: Optional[str],
+                        dim: int) -> List[torch.Tensor]:
+    """The group's sum over ``axis`` split along ``dim``: slot ``i`` of
+    each group keeps block ``i``; the backward all-gathers."""
+    if _trivial(mesh, axis):
+        return list(parts)
+    if _tracked(parts):
+        return list(_ReduceScatter.apply(mesh, axis, dim, *parts))
+    return _scatter(list(parts), mesh, axis, dim)
+
+
+def axis_all_reduce_max(parts: Sequence[torch.Tensor], mesh: Mesh, axis: Optional[str]
+                        ) -> List[torch.Tensor]:
+    """The elementwise maximum over each group of ``axis`` on every slot,
+    detached (a softmax's shift carries no gradient)."""
+    if _trivial(mesh, axis):
+        return [p.detach() for p in parts]
+    devices = list(mesh.devices.flat)
+    out = [None] * len(parts)
+    nbytes = 0
+    for group in mesh.groups(axis):
+        total = parts[group[0]].detach().clone()
+        for s in group[1:]:
+            total = torch.maximum(total, parts[s].detach().to(total.device))
+        nbytes += 2 * (len(group) - 1) * _nbytes(total)
+        _spread(total, group, devices, out, share=True)
+    count_collective("all_reduce", nbytes, (axis,))
     return out

@@ -8,14 +8,28 @@ name for name (``param_spec``, ``params_shardings``,
 functions of leaf names, shapes and ``mesh.shape``.  A leaf may be a
 tensor, a shape tuple, a Python number (shape ``()``) or a placed stacked
 leaf (the list of its slabs).  ``device_put`` is the counterpart of
-``jax.device_put(tree, shardings)`` in a one-process mesh: a stacked
-``[C, ...]`` leaf whose spec puts its leading dim over the contributor
-axes (``pod``, ``contrib``) becomes the list of its C slabs, slab ``c`` on
-the device of its contributor slot ``g = c // (C / G)`` of the G
-(``contrib_slot_devices``), and every other leaf stays whole on the mesh's
-first device, where slab 0 lives.  Partitions over ``data``, ``replica``
-and ``model`` are recorded in the spec and not split: a slab is whole on
-one device of its contributor slot's sub-grid.
+``jax.device_put(tree, shardings)`` in a one-process mesh, and places by
+the whole spec:
+
+* a stacked ``[C, ...]`` leaf whose spec puts its leading dim over the
+  contributor axes (``pod``, ``contrib``) becomes the list of its C slabs,
+  slab ``c`` on contributor slot ``g = c // (C / G)`` of the G; every
+  other leaf goes to contributor slot 0;
+* on a slot whose sub-grid over the other axes (``data``, ``replica``,
+  ``model``: ``sub_mesh``) has more than one device, a slab becomes a
+  ``utils.placed.Placed`` leaf: every dim its spec puts over those axes is
+  split into blocks, slot ``s`` of the sub-grid holding its block, and a
+  block that several slots on one device hold (a leaf replicated over an
+  axis) is one tensor there.  ``models.partitioned`` runs the train step
+  on such leaves: tensor parallel over ``model``, data parallel and FSDP
+  over ``replica`` (or ``data``);
+* on a sub-grid of one device, and for an integer leaf the spec does not
+  split (the optimizer's step counter), the slab stays whole on its
+  slot's device (``contrib_slot_devices``; the mesh's first device where
+  there is no contributor axis).
+
+``gather`` reads placed leaves whole (counted as ``all_gather``s) and
+``placed_slot_bytes`` counts what each mesh slot holds.
 
 **The flat-row half** places the Repository's block-cyclic flat rows.  A
 row laid out by ``utils.flat.ShardedFlatSpec`` over the mesh axes ``axes``
@@ -37,7 +51,9 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.launch import mesh as M
 from repro_torch.launch.mesh import Mesh
+from repro_torch.utils.placed import Layout, Placed
 from repro_torch.utils.pytree import tree_leaves_with_path, tree_map, tree_map_with_name
 
 Axis = Optional[object]  # str | tuple[str, ...] | None
@@ -72,8 +88,9 @@ def _entry(e):
 
 
 def _shape(leaf) -> Tuple[int, ...]:
-    """A leaf's shape: a tensor's or array's, a shape tuple itself, ``()``
-    for a Python number, ``(C,) + slab shape`` for a placed stacked leaf."""
+    """A leaf's shape: a tensor's, an array's or a placed leaf's (global),
+    a shape tuple itself, ``()`` for a Python number, ``(C,) + slab
+    shape`` for a placed stacked leaf."""
     if isinstance(leaf, list):
         return (len(leaf),) + _shape(leaf[0])
     if isinstance(leaf, tuple):
@@ -105,7 +122,8 @@ class NamedSharding:
         return self.mesh.devices.flat[0]
 
     def slab_devices(self, n: int) -> List[torch.device]:
-        """The device of each of the ``n`` slabs of a stacked leaf."""
+        """The device of each of the ``n`` slabs of a stacked leaf, where a
+        slab stays whole."""
         slots = contrib_slot_devices(self.mesh, self.contrib_axes)
         if n % len(slots):
             raise ValueError(f"{n} slabs do not split over {len(slots)} contributor slots")
@@ -113,8 +131,9 @@ class NamedSharding:
         return [slots[c // per] for c in range(n)]
 
     def place(self, x):
-        """One leaf placed: the list of its slabs, or the whole leaf on
-        ``home`` (a Python number stays as it is)."""
+        """One leaf placed: the list of its slabs, a ``Placed`` leaf, or
+        the whole leaf on its slot's device (a Python number stays as it
+        is)."""
         for e in self.spec[1:]:
             if e is not None and set(norm_axes(e)) & set(CONTRIB_AXES):
                 raise ValueError(f"{self.spec}: a contributor axis on a dim other than the "
@@ -122,10 +141,51 @@ class NamedSharding:
         if isinstance(x, (int, float)):
             return x
         if not self.contrib_axes:
-            return torch.as_tensor(x).to(self.home)
+            return _place_slab(x, tuple(self.spec), self.mesh, 0, self.home)
         slabs = list(x) if isinstance(x, list) else [torch.as_tensor(x)[c]
                                                       for c in range(len(x))]
-        return [s.to(d) for s, d in zip(slabs, self.slab_devices(len(slabs)))]
+        devs = self.slab_devices(len(slabs))
+        per = len(slabs) // axes_extent(self.mesh, self.contrib_axes)
+        return [_place_slab(sl, tuple(self.spec[1:]), self.mesh, c // per, d)
+                for c, (sl, d) in enumerate(zip(slabs, devs))]
+
+
+def sub_mesh(mesh: Mesh, g: int = 0) -> Mesh:
+    """Contributor slot ``g``'s grid over the mesh's other axes (the whole
+    mesh where it has no contributor axis)."""
+    contrib = [a for a in mesh.axis_names if a in CONTRIB_AXES]
+    if not contrib:
+        return mesh
+    order = [mesh.axis_names.index(a) for a in contrib]
+    rest = [i for i in range(len(mesh.axis_names)) if i not in order]
+    G = axes_extent(mesh, contrib)
+    grid = np.transpose(mesh.devices, order + rest)
+    grid = grid.reshape((G,) + grid.shape[len(order):])[g]
+    return Mesh(grid, [mesh.axis_names[i] for i in rest])
+
+
+def _slot_ids(mesh: Mesh, g: int) -> List[int]:
+    """The flat mesh slots of contributor slot ``g``'s sub-grid, in its order."""
+    tagged = Mesh(np.arange(mesh.devices.size, dtype=object).reshape(mesh.devices.shape),
+                  mesh.axis_names)
+    return [int(s) for s in sub_mesh(tagged, g).devices.flat]
+
+
+def _place_slab(x, spec: Tuple, mesh: Mesh, g: int, whole_on: torch.device):
+    """One slab (or unstacked leaf) on contributor slot ``g``'s sub-grid: a
+    ``Placed`` leaf, or whole on ``whole_on`` (see the module docstring).
+    A leaf placed already stays as it is where its layout is the one asked
+    for, else it is gathered (counted) and placed again."""
+    grid = sub_mesh(mesh, g)
+    if isinstance(x, Placed):
+        if grid.devices.size > 1 and x.layout == Layout(x.shape, spec, grid):
+            return x
+        x = _gather_leaf(x, None)
+    x = torch.as_tensor(x)
+    splits = any(e is not None for e in spec)
+    if grid.devices.size == 1 or not (splits or x.is_floating_point()):
+        return x.to(whole_on)
+    return Placed.split(x, spec, grid)
 
 
 def replicated(mesh: Mesh) -> NamedSharding:
@@ -140,6 +200,67 @@ def device_put(tree, shardings):
     if names != want:
         raise ValueError(f"sharding tree does not match the tree: {sorted(set(names) ^ set(want))}")
     return tree_map(lambda x, sh: sh.place(x), tree, shardings)
+
+
+def gather_bytes(x: Placed) -> int:
+    """What reading a placed leaf whole carries: every logical block but one."""
+    n_blocks = len(x.layout.logical_blocks())
+    return (n_blocks - 1) * int(np.prod(x.layout.block_shape, dtype=np.int64)) * x.element_size()
+
+
+def _gather_leaf(x: Placed, device) -> torch.Tensor:
+    M.count_collective("all_gather", gather_bytes(x), x.layout.mesh.axis_names)
+    return x.whole(device)
+
+
+def gather(tree, device=None):
+    """``tree`` with every placed leaf read whole (the counterpart of
+    reading a sharded array whole): each on ``device``, or on the device
+    of its slot 0, counted as one ``all_gather`` a leaf of every logical
+    block but one; a list of slabs gathered slab by slab; any other leaf
+    as it is."""
+    def leaf(x):
+        if isinstance(x, list):
+            return [leaf(v) for v in x]
+        return _gather_leaf(x, device) if isinstance(x, Placed) else x
+
+    return tree_map_with_name(lambda _, x: leaf(x), tree)
+
+
+def placed_slot_bytes(tree, mesh: Mesh) -> List[int]:
+    """The bytes each slot of ``mesh`` (flat, row-major) holds of a placed
+    tree by its specs: a slab's block (or the slab, placed whole) on each
+    slot of its contributor slot's sub-grid; a leaf without a contributor
+    dim on every contributor slot, as its spec replicates it there (the
+    port keeps its one copy with contributor slot 0); a Python int as the
+    reference's int32 scalar.  With the specs that placed the tree it
+    equals ``launch.dryrun.slot_bytes`` on every slot."""
+    n = mesh.devices.size
+    out = [0] * n
+    G = axes_extent(mesh, [a for a in mesh.axis_names if a in CONTRIB_AXES])
+
+    def add(x, g):
+        ids = _slot_ids(mesh, g) if g is not None else range(n)
+        if isinstance(x, Placed):
+            nb = int(np.prod(x.layout.block_shape, dtype=np.int64)) * x.element_size()
+        elif isinstance(x, (int, float)):
+            nb = 4
+        else:
+            nb = x.numel() * x.element_size()
+        for s in ids:
+            out[s] += nb
+
+    for _, x in tree_leaves_with_path(tree):
+        if isinstance(x, list):
+            per = len(x) // G
+            for c, v in enumerate(x):
+                add(v, c // per)
+        elif isinstance(x, Placed):
+            for g in range(G):
+                add(x, g)
+        else:
+            add(x, None)
+    return out
 
 
 def _axis_size(mesh: Mesh, axis: Axis) -> int:

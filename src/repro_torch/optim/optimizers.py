@@ -1,7 +1,8 @@
 """Optimizers and learning-rate schedules as plain functions over dict trees
 (port of ``repro.optim.optimizers``; not ``torch.optim``, so each update is
 the reference's to the operation): SGD (with momentum), AdamW and
-Adafactor.
+Adafactor.  SGD and AdamW also update a partitioned step's placed leaves
+(``utils.placed.Placed``), block by block.
 
 ``opt = make_optimizer(name, schedule)`` has ``init(params) -> state`` and
 ``update(grads, state, params) -> (updates, state)``; updates are added to
@@ -20,6 +21,8 @@ from typing import Callable
 import numpy as np
 import torch
 
+from repro_torch.launch import mesh as M
+from repro_torch.utils.placed import Placed
 from repro_torch.utils.pytree import (tree_from_paths, tree_leaves, tree_leaves_with_path,
                                       tree_map)
 
@@ -46,15 +49,34 @@ def warmup_cosine_lr(lr: float, warmup: int, total: int, min_frac: float = 0.1) 
 
 
 def global_norm(tree) -> torch.Tensor:
-    """sqrt(Σ_leaves Σ x²) in f32, summed leaf by leaf in tree order."""
-    return torch.sqrt(sum(torch.sum(torch.square(x.float())) for x in tree_leaves(tree)))
+    """sqrt(Σ_leaves Σ x²) in f32, summed leaf by leaf in tree order.  A
+    placed leaf (``utils.placed.Placed``) adds each logical block once, in
+    block order, whatever the slots and devices that hold it; the partial
+    sums meet on the first leaf's device, one all-reduce over the grid
+    (``launch.mesh``) for the whole tree."""
+    leaves = tree_leaves(tree)
+    placed = [x for x in leaves if isinstance(x, Placed)]
+    if not placed:
+        return torch.sqrt(sum(torch.sum(torch.square(x.float())) for x in leaves))
+    dev = leaves[0].device
+    total = None
+    for x in leaves:
+        parts = ([x.blocks[u] for u in x.layout.logical_blocks()] if isinstance(x, Placed)
+                 else [x])
+        for p in parts:
+            sq = torch.sum(torch.square(p.float())).to(dev)
+            total = sq if total is None else total + sq
+    grid = placed[0].layout.mesh
+    M.count_collective("all_reduce", 2 * (grid.devices.size - 1) * 4, grid.axis_names)
+    return torch.sqrt(total)
 
 
 def clip_by_global_norm(tree, max_norm: float):
-    """Scale the whole tree by min(1, max_norm / (‖tree‖ + 1e-9))."""
+    """Scale the whole tree by min(1, max_norm / (‖tree‖ + 1e-9)) (a placed
+    tree block by block, the scale copied to each block's device)."""
     g = global_norm(tree)
     scale = torch.clamp(max_norm / (g + 1e-9), max=1.0)
-    return tree_map(lambda x: x * scale.to(x.dtype), tree), g
+    return tree_map(lambda x: x * scale.to(device=x.device, dtype=x.dtype), tree), g
 
 
 @torch.no_grad()
@@ -131,7 +153,15 @@ def adafactor(schedule: Schedule, decay: float = 0.8, eps: float = 1e-30,
     def factored(x):
         return x.ndim >= 2
 
+    def whole_only(tree):
+        if any(isinstance(x, Placed) for x in tree_leaves(tree)):
+            raise NotImplementedError("adafactor's statistics are means over whole rows and "
+                                      "columns: the partitioned step takes sgd and adamw "
+                                      "(ROADMAP.md A6c)")
+
     def init(params):
+        whole_only(params)
+
         def leaf_state(x):
             if factored(x):
                 return {"vr": torch.zeros(x.shape[:-1], dtype=torch.float32, device=x.device),
@@ -142,6 +172,7 @@ def adafactor(schedule: Schedule, decay: float = 0.8, eps: float = 1e-30,
         return {"step": 0, "v": tree_map(leaf_state, params)}
 
     def update(grads, state, params):
+        whole_only(grads)
         step = state["step"] + 1
         lr = schedule(state["step"])
         f32 = np.float32

@@ -18,6 +18,11 @@ the reference's.  Every inference step
 (eval, prefill, serve) runs on the kernels.  An encoder-decoder config
 (whisper) runs ``models.whisper``: the batch's ``frames`` through the
 encoder, its ``tokens`` through the decoder.
+
+Params placed by ``launch.sharding.device_put`` on a grid of several
+slots (``utils.placed.Placed`` leaves) take the partitioned step: the
+reference's ``jax.jit(step, in_shardings=...)`` over its
+``params_shardings``.  See ``make_train_step``.
 """
 from __future__ import annotations
 
@@ -26,11 +31,14 @@ from typing import Any, Callable, Dict, Optional
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.launch import mesh as M
+from repro_torch.models import partitioned as PT
 from repro_torch.models import whisper as W
 from repro_torch.models.transformer import forward_lm
 from repro_torch.optim.optimizers import Optimizer, clip_by_global_norm
 from repro_torch.train.losses import lm_loss
 from repro_torch.utils import op_counts as _oc
+from repro_torch.utils.placed import Placed, spec_axes
 from repro_torch.utils.pytree import (tree_device, tree_leaves, tree_leaves_with_path,
                                       tree_map, tree_unflatten)
 
@@ -90,17 +98,39 @@ def make_train_step(cfg: ArchConfig, optimizer: Optimizer, *, microbatches: int 
     ``aux`` are means over the microbatches.
 
     ``grad_sync(grads) -> grads``: the hook a distribution strategy uses to
-    reduce gradients across devices; identity by default.
+    reduce gradients across devices; identity by default (it sees the
+    partitioned step's gradients after their reduction over the batch
+    axis).
+
+    **Placed params** (every leaf a ``Placed`` leaf on one grid: a
+    ``(replica, model)`` or ``(data, model)`` mesh, or one contributor's
+    sub-grid of a ColD mesh) run the partitioned step.  Slot ``(r, m)``
+    takes replica ``r``'s rows of the batch (a batch placed over the batch
+    axis, or any batch split here), in ``microbatches`` equal slices;
+    ``models.partitioned.partitioned_loss`` gives each slot its loss (tensor
+    parallel over ``model``, FSDP over the batch axis) and autograd each
+    slot's gradient of each of its blocks.  Microbatch ``i``'s loss is the
+    mean over the union of the replicas' slices ``i`` (Σ nll over their
+    count, which a mask's count makes one all-reduce).  Gradients are
+    summed over the microbatches per slot (in f32 from two microbatches
+    on), then over the batch axis: an FSDP block's by the reduce-scatter of
+    its gather's backward, each microbatch; any other leaf's by one
+    all-reduce a leaf, after the microbatches; then divided by
+    ``microbatches`` and stored once per block and device, placed as the
+    parameter.  ``clip_by_global_norm`` counts each logical block once and
+    the update runs block by block.  ``loss`` sums the replicas' shares
+    (one all-reduce), ``aux`` is 0 (dense archs only).
+
     ``grad_shardings``: a tree of ``launch.sharding.NamedSharding`` matching
     the params (``params_shardings``).  The reference pins its f32
-    gradient accumulator to the parameter layout with it; in the port's
-    one-process mesh a leaf is whole on one device, so every gradient and
-    accumulator lives on its parameter's device, and the tree is checked
-    against the params at each call: another structure, a spec longer than
-    its gradient's rank or a parameter away from the device its sharding
-    places it on raises ``ValueError``.  A shorter spec is padded with
-    ``None``, as JAX pads it (``replicated(mesh)``'s ``P()`` fits any
-    rank)."""
+    gradient accumulator to the parameter layout with it.  The port's
+    accumulators always sit where their parameter's blocks do, so the tree
+    is checked against the params at each call: another structure or a
+    spec longer than its gradient's rank raises ``ValueError``, as does a
+    leaf placed whole away from the device its sharding places it on, or a
+    placed leaf whose sharding names another spec or grid.  A shorter spec
+    is padded with ``None``, as JAX pads it (``replicated(mesh)``'s ``P()``
+    fits any rank)."""
     if microbatches < 1:
         raise ValueError(f"microbatches must be >= 1; got {microbatches}")
     aux_w = cfg.moe.aux_loss_weight if aux_weight is None else aux_weight
@@ -125,13 +155,100 @@ def make_train_step(cfg: ArchConfig, optimizer: Optimizer, *, microbatches: int 
             if len(sh.spec) > x.dim():
                 raise ValueError(f"grad_shardings[{name!r}]: spec {sh.spec} for a gradient of "
                                  f"rank {x.dim()}")
-            if x.device != sh.home:
+            if isinstance(x, Placed):
+                spec = tuple(spec_axes(e) for e in sh.spec) + ((),) * (x.dim() - len(sh.spec))
+                grid = x.layout.mesh
+                if (spec != x.layout.spec or sh.mesh.axis_names != grid.axis_names
+                        or list(sh.mesh.devices.flat) != list(grid.devices.flat)):
+                    raise ValueError(f"grad_shardings[{name!r}] places its gradient as "
+                                     f"{sh.spec} on {sh.mesh!r}, its parameter is placed as "
+                                     f"{x.layout.spec} on {grid!r}")
+            elif x.device != sh.home:
                 raise ValueError(f"grad_shardings[{name!r}] places its gradient on "
                                  f"{sh.spec}/{sh.home}, its parameter lives on {x.device}")
+
+    def partitioned_step(state, batch):
+        params = state["params"]
+        named = tree_leaves_with_path(params)
+        if not all(isinstance(x, Placed) for _, x in named):
+            whole = [k for k, x in named if not isinstance(x, Placed)][:4]
+            raise ValueError(f"placed params with leaves placed whole: {whole}")
+        mesh = named[0][1].layout.mesh
+        devices = list(mesh.devices.flat)
+        for k, x in named:
+            grid = x.layout.mesh
+            if grid.axis_names != mesh.axis_names or list(grid.devices.flat) != devices:
+                raise ValueError(f"{k} is placed on {grid!r}, the params on {mesh!r}")
+        PT.check_partitionable(cfg, list(batch))
+        if grad_shardings is not None:
+            check_shardings(params)
+        dp, _ = PT.grid_axes(mesh)
+        R, n = mesh.extent(dp), mesh.devices.size
+        rows = _slot_rows(batch, mesh, dp)
+        Br = rows["tokens"][0].shape[0]
+        if Br % microbatches:
+            raise ValueError(f"a replica's {Br} rows do not split into {microbatches} equal "
+                             "microbatches")
+        mb, S = Br // microbatches, rows["tokens"][0].shape[1]
+        layouts = {k: x.layout for k, x in named}
+        acc: Dict[str, list] = {}
+        loss_sum = None
+        for i in range(microbatches):
+            part = {key: [v.narrow(0, i * mb, mb) for v in vs] for key, vs in rows.items()}
+            if "mask" in part:  # the microbatch's count over every replica's slice
+                counts = M.axis_all_reduce([m[:, 1:].float().sum() for m in part["mask"]],
+                                           mesh, dp)
+                denominator = max(float(counts[0]), 1.0)
+            else:
+                denominator = float(R * mb * (S - 1))
+            with torch.enable_grad():
+                live = {k: [b.detach().requires_grad_(True) for b in x.slot_blocks()]
+                        for k, x in named}
+                losses = PT.partitioned_loss(cfg, mesh, live, layouts, part["tokens"],
+                                             part.get("mask"), denominator)
+                flat = [t for k, _ in named for t in live[k]]
+                grads = torch.autograd.grad(losses, flat, [torch.ones_like(x) for x in losses],
+                                            allow_unused=True)
+            del live
+            for j, (k, _) in enumerate(named):
+                got = [g if g is not None else torch.zeros_like(t) for t, g in
+                       zip(flat[j * n:(j + 1) * n], grads[j * n:(j + 1) * n])]
+                if microbatches == 1:
+                    acc[k] = got
+                elif k not in acc:
+                    acc[k] = [g.float() for g in got]
+                else:
+                    for a, g in zip(acc[k], got):
+                        a.add_(g)
+            del flat, grads, got  # the slots' gradients live on in acc alone
+            step_loss = [x.detach() for x in losses]
+            loss_sum = (step_loss if loss_sum is None
+                        else [a + b for a, b in zip(loss_sum, step_loss)])
+        reduced = []
+        for k, x in named:
+            g = acc.pop(k)
+            if not x.layout.splits_over(dp):
+                g = M.axis_all_reduce(g, mesh, dp)
+            blocks = [g[s] for s in x.layout.first_slot]
+            del g
+            reduced.append(x.with_blocks([b / microbatches for b in blocks]
+                                         if microbatches > 1 else blocks))
+        grads = tree_unflatten(params, reduced)
+        del reduced
+        loss = M.axis_all_reduce(loss_sum, mesh, dp)[0] / microbatches
+        if grad_sync is not None:
+            grads = grad_sync(grads)
+        grads, gnorm = clip_by_global_norm(grads, clip_norm)
+        updates, new_opt = optimizer.update(grads, state["opt"], params)
+        new_params = tree_map(torch.add, params, updates)
+        metrics = {"loss": loss, "aux": torch.zeros_like(loss), "grad_norm": gnorm}
+        return {"params": new_params, "opt": new_opt}, metrics
 
     @torch.no_grad()
     def train_step(state, batch):
         params = state["params"]
+        if any(isinstance(x, Placed) for x in tree_leaves(params)):
+            return partitioned_step(state, batch)
         if grad_shardings is not None:
             check_shardings(params)
         leaves = tree_leaves(params)
@@ -169,6 +286,32 @@ def make_train_step(cfg: ArchConfig, optimizer: Optimizer, *, microbatches: int 
                                                         "grad_norm": gnorm}
 
     return train_step
+
+
+def _slot_rows(batch, mesh: M.Mesh, dp) -> Dict[str, list]:
+    """Each slot's rows of each batch array: replica ``r``'s share of the
+    batch axis on slot ``(r, m)``'s device.  A leaf placed over the batch
+    axis (``shard_batch``) gives its blocks; any other is split here.
+    Token ids as int64."""
+    R, n = mesh.extent(dp), mesh.devices.size
+    devices = list(mesh.devices.flat)
+    out = {}
+    for key, v in batch.items():
+        if (isinstance(v, Placed) and v.layout.mesh.axis_names == mesh.axis_names
+                and list(v.layout.mesh.devices.flat) == devices
+                and (v.layout.spec[0] == (dp,) or (R == 1 and not v.layout.spec[0]))
+                and not any(v.layout.spec[1:])):
+            parts = v.slot_blocks()
+        else:
+            whole = v.whole() if isinstance(v, Placed) else torch.as_tensor(v)
+            if whole.shape[0] % R:
+                raise ValueError(f"batch[{key!r}]: {whole.shape[0]} rows do not split over "
+                                 f"{R} replicas")
+            share = whole.shape[0] // R
+            parts = [whole[mesh.coord(s, dp) * share:(mesh.coord(s, dp) + 1) * share]
+                     .to(devices[s]) for s in range(n)]
+        out[key] = [p.long() for p in parts] if key == "tokens" else parts
+    return out
 
 
 def make_eval_step(cfg: ArchConfig) -> Callable:

@@ -2,13 +2,18 @@
 
 Leaves are visited in the order ``jax.tree_util`` flattens a dict — keys
 sorted at every level — so a leaf list (and the flat row built from it)
-means the same thing in the port and in the JAX package.
+means the same thing in the port and in the JAX package.  A placed leaf
+(``utils.placed.Placed``, a tensor stored as blocks on a grid's slots) is
+one leaf; ``tree_map`` maps it block by block where every tree's leaf at
+that place is placed alike.
 """
 from __future__ import annotations
 
 from typing import Any, Callable, Dict, List, Tuple
 
 import torch
+
+from repro_torch.utils.placed import Placed
 
 Tree = Dict[str, Any]
 
@@ -37,9 +42,15 @@ def tree_map_with_name(fn: Callable[[str, Any], Any], tree, prefix: str = ""):
 
 
 def tree_map(fn: Callable, tree, *rest):
-    """Apply ``fn`` leafwise over trees of the same structure."""
+    """Apply ``fn`` leafwise over trees of the same structure.  Where the
+    leaf of every tree is a ``Placed`` leaf of one layout, ``fn`` runs once
+    on each stored block (``Placed.map``); any other leaves are passed as
+    they are."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, tree[k], *(r[k] for r in rest)) for k in tree}
+    if isinstance(tree, Placed) and all(isinstance(r, Placed) and r.layout == tree.layout
+                                        for r in rest):
+        return tree.map(fn, *rest)
     return fn(tree, *rest)
 
 
@@ -59,14 +70,16 @@ def tree_from_paths(items) -> Tree:
 def tree_unflatten(like, leaves) -> Tree:
     """A tree shaped like ``like`` (empty subtrees kept) whose leaves, in
     ``tree_leaves`` order, are ``leaves``."""
-    it = iter(leaves)
+    return _unflatten(like, iter(leaves))
 
-    def build(node):
-        if isinstance(node, dict):
-            return {k: build(node[k]) for k in sorted(node)}
-        return next(it)
 
-    return build(like)
+def _unflatten(node, it):
+    # a module-level helper, not a closure over ``it``: a nested function that
+    # calls itself is a reference cycle that would hold ``leaves`` (a step's
+    # gradients) until the garbage collector runs
+    if isinstance(node, dict):
+        return {k: _unflatten(node[k], it) for k in sorted(node)}
+    return next(it)
 
 
 def tree_sub(a, b):

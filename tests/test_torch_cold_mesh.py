@@ -6,7 +6,11 @@ side), ``make_cold_train_step`` against the
 reference's ``jax.jit(jax.vmap(local))``, ``cohort_fuse_sharded`` and
 ``make_fuse_step`` against the reference's ``cohort_fuse_sharded`` and its
 per-leaf path, then ``shard_batch``, ``device_put`` and
-``make_train_step(grad_shardings=)``.
+``make_train_step(grad_shardings=)``.  Each claim about slabs placed whole
+runs on a (2, 1, 1) mesh, where a slab's sub-grid has one slot; on the
+(2, 2, 2) mesh the slabs are partitioned (``tests/test_torch_partitioned.py``
+holds that step against the reference's partitioned jit) and the same
+calls run beside them.
 
 Every reference case runs in one subprocess on 8 forced CPU devices (jax
 starts once).  The reference's sharded jit of the cold step and its
@@ -47,6 +51,7 @@ from repro_torch.models import whisper as TW
 from repro_torch.optim import constant_lr, make_optimizer
 from repro_torch.train import make_train_state, make_train_step
 from repro_torch.utils import flat as tflat
+from repro_torch.utils.placed import Placed
 from repro_torch.utils.pytree import tree_from_paths, tree_leaves_with_path, tree_map
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -243,6 +248,7 @@ def _tree(arrays, prefix):
 
 def _meshes():
     return {"cold": tmesh.make_cold_mesh(contributors=2, replicas=2, model=2, device="cpu"),
+            "whole": tmesh.make_cold_mesh(contributors=2, replicas=1, model=1, device="cpu"),
             "model8": tmesh.make_mesh((8,), ("model",), device="cpu"),
             "contrib8": tmesh.make_mesh((8,), ("contrib",), device="cpu"),
             "data_model": tmesh.make_mesh((2, 4), ("data", "model"), device="cpu"),
@@ -345,7 +351,7 @@ def test_partition_spec_and_placement():
                                                              ("replica", "model"), None)
     assert P("a") != P("a", None) and P() == () and tsh.axes_entry(("x",)) == "x"
     assert tsh.axes_entry(("x", "y")) == ("x", "y") and tsh.replicated(_meshes()["cold"]).spec == ()
-    mesh = _meshes()["cold"]
+    mesh = _meshes()["whole"]  # a slab's sub-grid of one slot: slabs stay whole
     sh = tsh.NamedSharding(mesh, P("contrib", "model", None))
     x = torch.arange(24.0).reshape(2, 3, 4)
     placed = sh.place(x)
@@ -354,6 +360,19 @@ def test_partition_spec_and_placement():
     assert sh.slab_devices(4) == [torch.device("cpu")] * 4 and sh.contrib_axes == ("contrib",)
     whole = tsh.NamedSharding(mesh, P(None, "model")).place(x)
     assert isinstance(whole, torch.Tensor) and torch.equal(whole, x)
+    # on (2, 2, 2) each slab splits into blocks over its replica x model slots
+    mesh = _meshes()["cold"]
+    x = torch.arange(32.0).reshape(2, 4, 4)
+    placed = tsh.NamedSharding(mesh, P("contrib", "model", None)).place(x)
+    assert all(isinstance(p, Placed) for p in placed)
+    assert [tuple(b.shape) for b in placed[1].slot_blocks()] == [(2, 4)] * 4
+    assert torch.equal(placed[1].block(3), x[1, 2:]) and len(placed[1].blocks) == 2
+    assert torch.equal(tsh.gather(placed)[1], x[1])
+    blocks = tsh.NamedSharding(mesh, P(None, "model")).place(x[0])
+    assert isinstance(blocks, Placed) and torch.equal(blocks.block(1), x[0][:, 2:])
+    with pytest.raises(ValueError, match="does not split"):
+        tsh.NamedSharding(mesh, P("contrib", "model", None)).place(
+            torch.arange(24.0).reshape(2, 3, 4))
     with pytest.raises(ValueError, match="do not split"):
         sh.slab_devices(3)
     with pytest.raises(ValueError, match="leading one"):
@@ -398,10 +417,10 @@ def test_fuse_step_default_path_is_per_leaf(ref):
     tmesh.reset_collectives()
     got = D.make_fuse_step(cfg, mesh, D.ColdSchedule(alpha=0.3))(params)
     n_leaves = len(tree_leaves_with_path(params))
-    assert tmesh.collectives == {"all_reduce": n_leaves, "all_gather": 0}
-    want = dict(tree_leaves_with_path(
-        D.make_fuse_step(cfg, mesh, D.ColdSchedule(alpha=0.3), flat=False)(params)))
-    for k, v in tree_leaves_with_path(got):
+    assert tmesh.collectives == {"all_reduce": n_leaves, "all_gather": 0, "reduce_scatter": 0}
+    want = dict(tree_leaves_with_path(tsh.gather(
+        D.make_fuse_step(cfg, mesh, D.ColdSchedule(alpha=0.3), flat=False)(params))))
+    for k, v in tree_leaves_with_path(tsh.gather(got)):
         assert all(torch.equal(a, b) for a, b in zip(v, want[k])), k
 
 
@@ -420,11 +439,14 @@ def _close(got, want, rtol, atol):
                                    atol=atol, err_msg=k)
 
 
-@pytest.mark.parametrize("placed", [False, True], ids=["stacked", "placed"])
+@pytest.mark.parametrize("placed", [False, True, "partitioned"],
+                         ids=["stacked", "placed", "partitioned"])
 def test_cold_step_matches_the_reference_vmap(ref, placed):
+    """Stacked, placed whole on a (2, 1, 1) mesh (no collective), and
+    partitioned on (2, 2, 2) (no collective over ``contrib``)."""
     _, arrays, inputs = ref
     cfg, opt = _cfg(), _sgd()
-    mesh = _meshes()["cold"]
+    mesh = _meshes()["cold" if placed == "partitioned" else "whole"]
     state = D.stack_for_contributors(make_train_state(_tree(arrays, "init"), opt), C)
     assert state["opt"]["step"].dtype == torch.int32 and state["opt"]["step"].shape == (C,)
     step = D.make_cold_train_step(cfg, opt)
@@ -439,8 +461,11 @@ def test_cold_step_matches_the_reference_vmap(ref, placed):
         state, m = step(state, batch)
         np.testing.assert_allclose(m["loss"].numpy(), arrays[f"loss/{i}"], rtol=1e-5)
         np.testing.assert_allclose(m["grad_norm"].numpy(), arrays[f"grad_norm/{i}"], rtol=1e-5)
-    assert tmesh.collectives == {"all_reduce": 0, "all_gather": 0}
-    restack = (lambda t: tree_map(torch.stack, t)) if placed else (lambda t: t)
+    if placed == "partitioned":
+        assert tmesh.collectives["all_reduce"] > 0 and "contrib" not in tmesh.collectives_by_axis
+    else:
+        assert tmesh.collectives == {"all_reduce": 0, "all_gather": 0, "reduce_scatter": 0}
+    restack = (lambda t: tree_map(torch.stack, tsh.gather(t))) if placed else (lambda t: t)
     _close(restack(state["params"]), _tree(arrays, "params"), 1e-5, 1e-5)
     _close(restack(state["opt"]["mom"]), _tree(arrays, "mom"), 1e-4, 1e-5)
     assert state["opt"]["step"].tolist() == arrays["step"].tolist() == [STEPS] * C
@@ -455,7 +480,7 @@ def test_cold_step_equals_the_plain_step_per_slab(microbatches):
     opt = make_optimizer("adamw", constant_lr(3e-3))
     params = TT.init_lm(cfg, torch.Generator().manual_seed(0), device="cpu")
     toks = np.random.default_rng(3).integers(3, cfg.vocab_size, (STEPS, C, B, S))
-    mesh = _meshes()["cold"]
+    mesh = _meshes()["whole"]
     state = D.stack_for_contributors(make_train_state(params, opt), C)
     state_sh, batch_sh = D.cold_shardings(mesh, cfg, state, {"tokens": toks[0]})
     state = tsh.device_put(state, state_sh)
@@ -478,6 +503,39 @@ def test_cold_step_equals_the_plain_step_per_slab(microbatches):
     assert (e[0] - e[1]).abs().max() > 0
 
 
+@pytest.mark.parametrize("microbatches", [1, 2])
+def test_cold_step_partitioned_adamw_per_slab(microbatches):
+    """The same AdamW cold step with each slab partitioned over (2, 2): the
+    first step's losses equal the plain step's on the same slab within
+    1e-5 relative (its params are the same), every step stays finite, the
+    slabs diverge and no collective crosses ``contrib``.  AdamW's later
+    steps are not compared: g / (|g| + eps) amplifies a last-bit gradient
+    difference near eps (ROADMAP.md §C); SGD steps are held against the
+    reference in ``tests/test_torch_partitioned.py``."""
+    cfg = _cfg()
+    opt = make_optimizer("adamw", constant_lr(3e-3))
+    params = TT.init_lm(cfg, torch.Generator().manual_seed(0), device="cpu")
+    toks = np.random.default_rng(3).integers(3, cfg.vocab_size, (STEPS, C, B, S))
+    mesh = _meshes()["cold"]
+    state = D.stack_for_contributors(make_train_state(params, opt), C)
+    state_sh, batch_sh = D.cold_shardings(mesh, cfg, state, {"tokens": toks[0]})
+    state = tsh.device_put(state, state_sh)
+    cold = D.make_cold_train_step(cfg, opt, microbatches=microbatches)
+    plain = make_train_step(cfg, opt, microbatches=microbatches)
+    tmesh.reset_collectives()
+    for i in range(STEPS):
+        state, m = cold(state, tpipe.shard_batch({"tokens": toks[i]}, batch_sh["tokens"]))
+        assert torch.isfinite(m["loss"]).all() and torch.isfinite(m["grad_norm"]).all()
+        if i == 0:
+            for c in range(C):
+                _, pm = plain(make_train_state(params, opt), {"tokens": toks[0, c]})
+                np.testing.assert_allclose(float(m["loss"][c]), float(pm["loss"]), rtol=1e-5)
+    assert "contrib" not in tmesh.collectives_by_axis
+    assert state["opt"]["step"].tolist() == [STEPS] * C
+    e = tsh.gather(state["params"]["embed"])
+    assert (e[0] - e[1]).abs().max() > 0
+
+
 # -- the fuse ---------------------------------------------------------------------------
 
 
@@ -493,7 +551,7 @@ def test_cohort_fuse_sharded_matches_the_reference(ref, case, alpha):
     tmesh.reset_collectives()
     got = tops.cohort_fuse_sharded(tflat.StagedBuffer(stage), mesh=mesh, contrib_axes=contrib,
                                    shard_axes=shard, alpha=alpha)
-    assert tmesh.collectives == {"all_reduce": 1, "all_gather": 0}
+    assert tmesh.collectives == {"all_reduce": 1, "all_gather": 0, "reduce_scatter": 0}
     G = tsh.axes_extent(mesh, contrib)
     L = sp.shard_len
     assert tmesh.collective_bytes["all_reduce"] == 2 * (G - 1) * n_shards * L * 4
@@ -531,10 +589,13 @@ def _trained(arrays):
 
 @pytest.mark.parametrize("alpha", ALPHAS)
 @pytest.mark.parametrize("flat", [True, False], ids=["flat", "per_leaf"])
-@pytest.mark.parametrize("placed", [False, True], ids=["stacked", "placed"])
+@pytest.mark.parametrize("placed", [False, True, "partitioned"],
+                         ids=["stacked", "placed", "partitioned"])
 def test_fuse_step_matches_the_reference_per_leaf_path(ref, placed, flat, alpha):
+    """Stacked, placed whole on a (2, 1, 1) mesh, and partitioned on
+    (2, 2, 2), where the flat path gathers each slab to its home first."""
     _, arrays, _ = ref
-    cfg, mesh = _cfg(), _meshes()["cold"]
+    cfg, mesh = _cfg(), _meshes()["cold" if placed == "partitioned" else "whole"]
     params = _trained(arrays)
     assert (params["embed"][0] - params["embed"][1]).abs().max() > 0
     if placed:
@@ -544,12 +605,15 @@ def test_fuse_step_matches_the_reference_per_leaf_path(ref, placed, flat, alpha)
     tmesh.reset_collectives()
     fused = D.make_fuse_step(cfg, mesh, D.ColdSchedule(alpha=alpha), flat=flat)(params)
     n_leaves = len(tree_leaves_with_path(params))
+    gathers = 2 * C if placed == "partitioned" else C
     if flat:  # one all-reduce over the contributor axis; each slab gathered to its slot
-        assert tmesh.collectives == {"all_reduce": 1, "all_gather": C}
+        assert tmesh.collectives == {"all_reduce": 1, "all_gather": gathers, "reduce_scatter": 0}
     else:  # one all-reduce a leaf across placed slabs, none within one tensor
-        assert tmesh.collectives == {"all_reduce": n_leaves if placed else 0, "all_gather": 0}
-    assert isinstance(fused["embed"], list) == placed
-    stacked = tree_map(torch.stack, fused) if placed else fused
+        assert tmesh.collectives == {"all_reduce": n_leaves if placed else 0, "all_gather": 0,
+                                     "reduce_scatter": 0}
+    assert isinstance(fused["embed"], list) == bool(placed)
+    assert isinstance(fused["embed"][0], Placed) == (placed == "partitioned")
+    stacked = tree_map(torch.stack, tsh.gather(fused)) if placed else fused
     _close(stacked, _tree(arrays, f"fused/cold/{alpha}"), 1e-6, 1e-7)
     # every path and form gives the same bits at C = 2
     other = D.make_fuse_step(cfg, mesh, D.ColdSchedule(alpha=alpha), flat=not flat)(
@@ -573,7 +637,7 @@ def test_fuse_step_without_a_contributor_axis(ref):
         fused = D.make_fuse_step(_cfg(), mesh, D.ColdSchedule(alpha=alpha), flat=True)(
             _trained(arrays))
         _close(fused, _tree(arrays, f"fused/data_model/{alpha}"), 1e-6, 1e-7)
-    assert tmesh.collectives == {"all_reduce": 0, "all_gather": 0}
+    assert tmesh.collectives == {"all_reduce": 0, "all_gather": 0, "reduce_scatter": 0}
     assert D.contrib_axes_of(mesh) == () and D.num_contributors(mesh) == 1
     cold = _meshes()["cold"]
     assert D.contrib_axes_of(cold) == ("contrib",) and D.shard_axes_of(cold) == ("replica", "model")
@@ -584,12 +648,20 @@ def test_fuse_step_without_a_contributor_axis(ref):
 
 
 def test_shard_batch_places_contributor_slabs():
-    mesh = _meshes()["cold"]
+    mesh = _meshes()["whole"]
     toks = np.arange(2 * 4 * 3, dtype=np.int32).reshape(2, 4, 3)
     batch = {"tokens": toks, "mask": np.ones((2, 4, 3), np.float32)}
     _, bsh = D.cold_shardings(mesh, _cfg(), {"params": {}, "opt": {}}, batch)
     assert tuple(bsh["tokens"].spec) == ("contrib", "replica", None)
     out = tpipe.shard_batch(batch, bsh["tokens"])
+    cold = tpipe.shard_batch(batch, D.cold_shardings(_meshes()["cold"], _cfg(),
+                                                     {"params": {}, "opt": {}}, batch)[1]["tokens"])
+    for k, v in cold.items():  # on (2, 2, 2): each slab's rows split over replica
+        for c in range(2):
+            assert isinstance(v[c], Placed)
+            for s in range(4):
+                r = s // 2
+                np.testing.assert_array_equal(v[c].block(s).numpy(), batch[k][c][2 * r:2 * r + 2])
     assert sorted(out) == ["mask", "tokens"]
     for k, v in out.items():
         assert isinstance(v, list) and len(v) == 2
@@ -606,11 +678,12 @@ def test_collective_byte_counts():
     tmesh.reset_collectives()
     tmesh.all_reduce_sum(parts, mesh)
     tmesh.all_gather(parts, mesh)
-    assert tmesh.collective_bytes == {"all_reduce": 3 * 20, "all_gather": 3 * 20}
+    assert tmesh.collective_bytes == {"all_reduce": 3 * 20, "all_gather": 3 * 20,
+                                      "reduce_scatter": 0}
     tmesh.reset_collectives()
     groups = [[torch.full((5,), float(g + s)) for s in range(3)] for g in range(2)]
     out = tmesh.all_reduce_over(groups)
-    assert tmesh.collectives == {"all_reduce": 1, "all_gather": 0}
+    assert tmesh.collectives == {"all_reduce": 1, "all_gather": 0, "reduce_scatter": 0}
     assert tmesh.collective_bytes["all_reduce"] == 3 * 2 * 1 * 20
     assert [[x.tolist() for x in row] for row in out] == [[[2.0 * s + 1] * 5 for s in range(3)]] * 2
     with pytest.raises(ValueError):
@@ -623,7 +696,7 @@ def test_grad_shardings_pin_nothing_and_check_the_tree():
     structure, a spec longer than its rank or another device raises."""
     cfg = _cfg()
     opt = _sgd()
-    mesh = _meshes()["data_model"]
+    mesh = tmesh.make_mesh((1, 1), ("data", "model"), device="cpu")  # leaves stay whole
     params = TT.init_lm(cfg, torch.Generator().manual_seed(1), device="cpu")
     psh = tsh.params_shardings(mesh, params, cfg)
     toks = np.random.default_rng(4).integers(3, cfg.vocab_size, (B, S))
@@ -643,6 +716,35 @@ def test_grad_shardings_pin_nothing_and_check_the_tree():
         assert torch.equal(again["params"]["embed"], want["params"]["embed"])
     too_long = dict(psh, embed=tsh.NamedSharding(mesh, tsh.P("model", None, None)))
     for bad in ({}, {**psh, "extra": tsh.replicated(mesh)}, too_long):
+        step = make_train_step(cfg, opt, grad_shardings=bad)
+        with pytest.raises(ValueError, match="grad_shardings"):
+            step(state, {"tokens": toks})
+
+
+def test_grad_shardings_check_placed_leaves():
+    """On a (2, 4) ("data", "model") mesh the params are placed in blocks:
+    the partitioned step with ``grad_shardings`` equals the step without it
+    bit for bit, a short spec is padded; a sharding that names another
+    spec than a leaf's placement (``replicated(mesh)`` for a split leaf),
+    a spec longer than its rank or another tree raises."""
+    cfg, opt = _cfg(), _sgd()
+    mesh = _meshes()["data_model"]
+    params = TT.init_lm(cfg, torch.Generator().manual_seed(1), device="cpu")
+    psh = tsh.params_shardings(mesh, params, cfg)
+    toks = np.random.default_rng(4).integers(3, cfg.vocab_size, (B, S))
+    state = make_train_state(tsh.device_put(params, psh), opt)
+    assert isinstance(state["params"]["embed"], Placed)
+    want, wm = make_train_step(cfg, opt, microbatches=2)(state, {"tokens": toks})
+    short = dict(psh, embed=tsh.NamedSharding(mesh, tsh.P("model")))
+    for ok in (psh, short):
+        got, gm = make_train_step(cfg, opt, microbatches=2, grad_shardings=ok)(
+            state, {"tokens": toks})
+        assert float(gm["loss"]) == float(wm["loss"])
+        w = dict(tree_leaves_with_path(tsh.gather(want["params"])))
+        for k, v in tree_leaves_with_path(tsh.gather(got["params"])):
+            assert torch.equal(v, w[k]), k
+    too_long = dict(psh, embed=tsh.NamedSharding(mesh, tsh.P("model", None, None)))
+    for bad in (tree_map(lambda _: tsh.replicated(mesh), psh), {}, too_long):
         step = make_train_step(cfg, opt, grad_shardings=bad)
         with pytest.raises(ValueError, match="grad_shardings"):
             step(state, {"tokens": toks})

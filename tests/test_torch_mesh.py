@@ -197,7 +197,7 @@ def test_mesh_and_placement():
     tmesh.reset_collectives()
     assert tmesh.all_reduce_sum(parts, m).tolist() == [6.0] * 3
     assert tuple(tmesh.all_gather(parts, m).shape) == (4, 3)
-    assert tmesh.collectives == {"all_reduce": 1, "all_gather": 1}
+    assert tmesh.collectives == {"all_reduce": 1, "all_gather": 1, "reduce_scatter": 0}
 
 
 # -- host tuning --------------------------------------------------------------------
@@ -371,7 +371,7 @@ def test_sharded_fuse_matches_the_reference(reference_ops, case):
             base, torch.from_numpy(g["idx"]), torch.from_numpy(g["val"]),
             torch.from_numpy(g["scl"]), torch.from_numpy(g["wc"]), g["alpha"], mesh=mesh,
             axes="model", block=g["block"], **kw)
-    assert tmesh.collectives == {"all_reduce": 1, "all_gather": 0}
+    assert tmesh.collectives == {"all_reduce": 1, "all_gather": 0, "reduce_scatter": 0}
     assert len(fused) == S and all(f.shape == (ss.shard_len,) for f in fused)
     got = torch.stack(fused).float().numpy()
     want = out[case + "/fused"]
@@ -392,7 +392,7 @@ def test_sharded_sketch_matches_the_reference(reference_ops, case):
     tmesh.reset_collectives()
     got = tops.row_sketch_sharded(ss.shard_slices(x), mesh=mesh, axes=("model",),
                                   block=ss.block).numpy()
-    assert tmesh.collectives == {"all_reduce": 1, "all_gather": 0}
+    assert tmesh.collectives == {"all_reduce": 1, "all_gather": 0, "reduce_scatter": 0}
     want = out[case + "/sketch"]
     xf = x.float().numpy()
     pad = (-xf.shape[0]) % 1024

@@ -50,7 +50,7 @@ def test_fuse_flat_sharded_on_the_card(N, dtype):
         fg, sqg = ops.fuse_flat_sharded(ss.shard_slices(base.to(dev)), ss.shard(stage.to(dev)),
                                         w, alpha, mesh=gpu, axes="model")
         assert tcf.cold_fuse.launches - before == 8
-        assert tmesh.collectives == {"all_reduce": 1, "all_gather": 0}
+        assert tmesh.collectives == {"all_reduce": 1, "all_gather": 0, "reduce_scatter": 0}
         fc, sqc = ops.fuse_flat_sharded(ss.shard_slices(base), ss.shard(stage), w, alpha,
                                         mesh=cpu, axes="model")
         whole, sqw = tcf.cold_fuse(base.to(dev), stage.to(dev), w.to(dev), alpha)
@@ -86,7 +86,7 @@ def test_fuse_flat_compressed_sharded_on_the_card():
             ss.shard_slices(torch.from_numpy(base).to(dev)), stack["indices"], stack["values"],
             stack["scales"], wc, 0.5, mesh=gpu, axes="model", block=1024, **kw)
         assert tda.decode_accum.launches - before == 8
-        assert tmesh.collectives == {"all_reduce": 1, "all_gather": 0}
+        assert tmesh.collectives == {"all_reduce": 1, "all_gather": 0, "reduce_scatter": 0}
         fc, sqc = ops.fuse_flat_compressed_sharded(
             ss.shard_slices(torch.from_numpy(base)), stack["indices"], stack["values"],
             stack["scales"], wc, 0.5, mesh=cpu, axes="model", block=1024, **kw)

@@ -102,7 +102,8 @@ def test_mesh_repository_publishes_the_unsharded_base(dtype):
         assert (trec.n_accepted, trec.n_contributions) == (jrec.n_accepted, jrec.n_contributions)
         assert trec.n_accepted == 3
         # the screen's second pass is a second fuse: a second all-reduce
-        assert tmesh.collectives == {"all_reduce": 2 if adversarial else 1, "all_gather": 1}
+        assert tmesh.collectives == {"all_reduce": 2 if adversarial else 1, "all_gather": 1,
+                                     "reduce_scatter": 0}
         np.testing.assert_allclose(trec.diff_norms, jrec.diff_norms, rtol=1e-4)
         _rows_close(_trow(trepo), _jrow(jrepo), bf16=dtype == "bfloat16")
         assert trepo.iteration == jrepo.iteration == it
@@ -168,7 +169,7 @@ def test_mesh_cohort_sketch_and_sharded_queue_files(tmp_path):
     trepo = TRepository.open(A, device="cpu", mesh=_mesh())
     tmesh.reset_collectives()
     tsk = trepo.enable_cohort_sketch()
-    assert tmesh.collectives == {"all_reduce": 1, "all_gather": 0}
+    assert tmesh.collectives == {"all_reduce": 1, "all_gather": 0, "reduce_scatter": 0}
     jsk = jrepo.enable_cohort_sketch()
     row = _trow(trepo)
     pad = (-row.shape[0]) % 1024
@@ -187,7 +188,7 @@ def test_mesh_cohort_sketch_and_sharded_queue_files(tmp_path):
     tio.save_flat(whole, flat, spec)
     tmesh.reset_collectives()
     s1 = trepo.sketch_row_file(sharded)
-    assert tmesh.collectives == {"all_reduce": 1, "all_gather": 0}
+    assert tmesh.collectives == {"all_reduce": 1, "all_gather": 0, "reduce_scatter": 0}
     s2 = trepo.sketch_row_file(whole)
     assert np.all(np.abs(s1 - s2) <= 1e-5 * mag)
     assert np.all(np.abs(s1 - jrepo.sketch_row_file(sharded)) <= 1e-5 * mag)
@@ -213,7 +214,7 @@ def test_mesh_lifecycle_matches_the_reference(tmp_path):
     jrec = jrepo.contribute_async(jax.tree.map(jnp.asarray, one))
     tmesh.reset_collectives()
     trec = trepo.contribute_async(convert.from_jax_params(one, "cpu"))
-    assert tmesh.collectives == {"all_reduce": 1, "all_gather": 1}
+    assert tmesh.collectives == {"all_reduce": 1, "all_gather": 1, "reduce_scatter": 0}
     assert trec.op == jrec.op and trepo.iteration == jrepo.iteration == 2
     _rows_close(_trow(trepo), _jrow(jrepo))
     # fuse_pending(buffer=) with the reference's [K, S, L] layout
