@@ -244,7 +244,7 @@ Phases (any failed check raises, so the script exits non-zero):
    route, the comparison replaying the kernel run's MoE routing; one Mamba
    layer at full width giving a 272-token forward's output from 256 + 16
    one-token steps (``MAMBA_ULPS``); reduced jamba trained.  gemma3-1b's
-   ring cache: 4 x 384 -> 256 through ``Engine.generate`` with
+   ring cache: 4 x 384 -> 144 through ``Engine.generate`` with
    ``RING_CACHE`` on and off (the 512-slot rings wrap after decode step
    128), launches exact, both caches' bytes, and the ring's teacher-forced
    logits against the full cache's under phase 9's rule.  The arch table is
@@ -304,14 +304,18 @@ Phases (any failed check raises, so the script exits non-zero):
    printed) and both fuses at alpha 1 and 0.5 with (a)'s checks.  Slab
    0 of (b)'s fused base, gathered and cast to bf16, is served 4 x 1024 ->
    32 through ``Engine.generate`` with ``flash_attention``'s launches exact
-   by route, and phase 9's rule against the plain path.  Local step ms per
-   slab, fuse ms, peak memory and the bytes across the contributor axis
+   by route, and phase 9's rule against the plain path; then the same
+   slab cast to bf16 in its blocks is served partitioned on its own
+   (replica 2, model 2) grid (phase 19's path, launches exact by route)
+   and held against the gathered serve by phase 19's rule.  Local step ms
+   per slab, fuse ms, peak memory and the bytes across the contributor axis
    (``launch.mesh.collective_bytes``) against sync-DP's gradient bytes are
    printed.
 
 17. the dry-run tooling (slice 13, ``phase_dryrun``, under two minutes):
    (a) ``python -m repro_torch.launch.dryrun`` as a user runs it, three
-   processes started together with no card visible (``DRYRUN_RUNS``: every
+   processes with no card visible, started together before phase 6 and run
+   beside the card's phases until phase 17 collects them (``DRYRUN_RUNS``: every
    arch at decode_32k and gemma3-1b at every shape on pod1 and pod2, and
    gemma3-1b's ColD step on cold8x2; the rest of ``--all --mesh both`` is
    left to the CLI, ``DRYRUN_LEFT``), one line per artifact: the three
@@ -342,24 +346,58 @@ Phases (any failed check raises, so the script exits non-zero):
    step of each timed, and a third partitioned one under
    ``torch.profiler``.  Its record is a ``{"partitioned": ...}`` line.
 
-Before each of phases 6, 7, 8, 10, 11 and 16 (and again before phase 16's
-serve), before each model of phases 9, 13 and 14, around phases 12's, 13's
-and 14's eval steps and generates, around each run of phase 15's mesh
-daemon and around phase 17's counted prefill and decode step, every
-kernel's launch counter is set to 0; it is read just after.  The last lines are the kernels' JSON
-record (launches from phase 7 for the three fuse kernels, with phase 10's
+19. partitioned serving (slice 15, ``phase_partitioned_serve``, under three
+   minutes): first ``flash_attention`` and ``rwkv6_scan`` against their
+   plain versions at the per-slot shapes (``phase_pserve_kernel_checks``:
+   mistral-nemo-12b's 16 query heads on 4 kv heads of 128 and gemma3-1b's
+   2 query heads on its one kv head of 256, B = 2, bf16 prefill, decode
+   and the ring decode; rwkv6-7b's 32 heads, f32, both routes).  Then each
+   of ``PSERVE_MODELS`` at full width in bf16 from seed 0, one at a time
+   with memory freed between them: rwkv6-7b 4 x 256 -> 32,
+   mistral-nemo-12b (all 40 layers, ``fsdp=True`` as configured) 4 x 256
+   -> 16, gemma3-1b 4 x 1024 -> 32 (cache 1280: the hd-split cache, the
+   window masks) and gemma3-1b with the ring cache 4 x 500 -> 16 (its
+   512-slot rings wrap after decode step 12).  Whole first: the Engine's
+   tokens, the logits teacher-forced on them (timed: the whole model's
+   prefill and decode ms) and the same with the kernels' outputs nudged by
+   ``TP_NUDGE`` (the yardstick); then the same params placed by ``params_shardings`` on
+   ``make_mesh((2, 2), ("data", "model"))`` (the whole tree freed): every
+   slot's bytes of params and cache equal ``dryrun.slot_bytes`` and each
+   cache block has the shape ``cache_shardings`` gives; one partitioned
+   ``Engine.generate`` with the launches exact by route
+   (``pserve_routes``) and the collectives equal to ``new_tokens`` times
+   ``serve_collectives`` (by kind and by axis), timed; a prefill timed
+   with its collective bytes (a decode step's are the generate's rest),
+   one prefill and 2 steps under ``torch.profiler`` (the device's activity
+   alone); the partitioned model teacher-forced on the whole
+   model's tokens against the whole model's logits (``tp_agreement``:
+   within 4x the yardstick, tokens equal wherever the margin decides, the
+   low-margin ones counted).  Its record is a ``{"partitioned_serve":
+   ...}`` line.
+
+Before each of phases 6, 7, 8, 10, 11 and 16 (and again before each of
+phase 16's serves), before each model of phases 9, 13 and 14, around
+phases 12's, 13's and 14's eval steps and generates, around each run of
+phase 15's mesh daemon, around phase 17's counted prefill and decode step
+and around each of phase 19's partitioned generates, every kernel's launch
+counter is set to 0; it is read just after.  The last lines are the
+kernels' JSON record (launches from phase 7 for the three fuse kernels, with phase 10's
 as ``launches_routed``, from phase 9 for the other two, phase 11's as
 ``launches_serve_stack``, phase 12's as ``launches_lm_train``, phase 13's as
 ``launches_archs``, phase 14's as ``launches_archs2``, phase 15's as
-``launches_mesh``, phase 16's serve as ``launches_cold_mesh`` and phase
-17's serving step as ``launches_dryrun`` for all five; phase 15's times
-under ``mesh``; each kernel's ``cost_formula``), phase 16's record as a
-``{"cold_mesh": ...}`` line, phase 17's as a ``{"dryrun": ...}`` line,
-phase 18's as a ``{"partitioned": ...}`` line (its steps launch no kernel),
-``nvidia-smi``'s line and
+``launches_mesh``, phase 16's serves as ``launches_cold_mesh`` and
+``launches_cold_mesh_partitioned``, phase 17's serving step as
+``launches_dryrun`` and phase 19's partitioned generates summed as
+``launches_partitioned_serve`` for all five; phase 15's times under
+``mesh``; phase 19's per-slot checks as ``per_slot_max_abs_err``; each
+kernel's ``cost_formula``), phase 16's record as a ``{"cold_mesh": ...}``
+line, phase 17's as a ``{"dryrun": ...}`` line, phase 18's as a
+``{"partitioned": ...}`` line (its steps launch no kernel), phase 19's as a
+``{"partitioned_serve": ...}`` line, ``nvidia-smi``'s line and
 ``{"ok": true, "device": {...}}``.  Without a card (or without the rest of
 the repository beside it) the script exits non-zero and prints no result.
 """
+import atexit
 import contextlib
 import dataclasses
 import io
@@ -499,6 +537,9 @@ NUDGE = 1e-6
 # hd) with Sk the Engine's max_len, rwkv6_scan's (B, T, H, hd)
 SERVE_NEW = 32
 GEMMA_PROMPT, GEMMA_MAX_LEN = 1024, 1280
+# generates timed after the counted one (phases 9 and 13); the script's
+# 1200 s budget holds one
+SERVE_TIMED_GENERATES = 1
 RWKV_PROMPT, RWKV_MAX_LEN = 256, 256 + SERVE_NEW
 FLASH_PREFILL = (4, GEMMA_PROMPT, GEMMA_MAX_LEN, GEMMA.num_heads, GEMMA.num_kv_heads,
                  GEMMA.head_dim)
@@ -576,7 +617,7 @@ TWINS = (
 # jamba-1.5-large-398b at full width cut to its layers 0-4 of 72 (Mamba 0-3,
 # attention 4, MoE 1 and 3; 4 x DENSE_PROMPT -> DENSE_NEW), and gemma3-1b
 # with and without the ring cache (4 x RING_PROMPT -> RING_NEW: the local
-# layers' 512-slot rings wrap after decode step 128)
+# layers' 512-slot rings wrap after decode step 128, and 15 steps follow)
 WHISPER = get_config("whisper-tiny")
 WHISPER_BATCH, WHISPER_PROMPT, WHISPER_NEW = 4, 4, 32
 QWEN_LAYERS, QWEN_PATCHES, QWEN_TEXT, QWEN_STEPS = 8, 256, 256, 16
@@ -584,7 +625,7 @@ QWEN = dataclasses.replace(get_config("qwen2-vl-72b"), num_layers=QWEN_LAYERS)
 QWEN_LEN = QWEN_PATCHES + QWEN_TEXT
 JAMBA_ARCH = "jamba-1.5-large-398b"
 JAMBA = dataclasses.replace(get_config(JAMBA_ARCH), num_layers=5)
-RING_PROMPT, RING_NEW = 384, 256
+RING_PROMPT, RING_NEW = 384, 144
 # one Mamba layer at full width, a 272-token forward against 256 + 16
 # one-token steps: the same arithmetic, but bf16 GEMMs of other shapes may
 # round a last bit otherwise, so within MAMBA_ULPS bf16 ulps of max |y|
@@ -2714,15 +2755,15 @@ def phase_serve(arch, cfg, prompt_len, new_tokens, max_len, kernel, card, routes
         def prefill():
             eng._prefill(params, toks, init_cache(cfg, 4, max_len, device=dev))
 
-        pre_ms, pre_runs = median_windows(prefill, iters=3, warmup=1)
+        pre_ms, pre_runs = median_windows(prefill, iters=1, warmup=1)
     gen_runs = []
-    for _ in range(3):
+    for _ in range(SERVE_TIMED_GENERATES):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         eng.generate(prompts, max_new_tokens=new_tokens)
         torch.cuda.synchronize()
         gen_runs.append((time.perf_counter() - t0) * 1e3)
-    gen_ms = sorted(gen_runs)[1]
+    gen_ms = sorted(gen_runs)[len(gen_runs) // 2]
     dec_ms = (gen_ms - pre_ms) / (new_tokens - 1)
     print(f"[serve] {arch} on {card}: prefill 4 x {prompt_len} {pre_ms:.2f} ms (windows "
           f"{[round(x, 2) for x in pre_runs]}); generate {gen_ms:.1f} ms (runs "
@@ -2925,11 +2966,14 @@ def device_split(fn):
     """One call of ``fn`` under ``torch.profiler``: (device-busy ms, top 6
     kernels and the port's own kernels, each as (name, ms, count)), or None
     when the profiler recorded no device event.  Busy is the sum of the
-    kernels' device intervals (one stream, so they do not overlap)."""
+    kernels' device intervals (one stream, so they do not overlap).  Only
+    the device's activity is recorded: nothing here reads the host's ops,
+    and a run of tens of thousands of them takes the profiler tens of
+    seconds to take apart."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     by_name = {}
@@ -5027,6 +5071,7 @@ def phase_cold_mesh(card):
     part.update(fuses=[rec1, rec2], collectives_per_local_step=want)
     serve_params = tree_map(lambda x: x.to(torch.bfloat16),
                             sharding_mod.gather(slab(fused, 0)))
+    placed_params = tree_map(lambda x: x.to(torch.bfloat16), slab(fused, 0))
     del fused
     sync_cards()
     part["peak_gib_train_fuse"] = cards_peak_gib()
@@ -5053,16 +5098,41 @@ def phase_cold_mesh(card):
     serve_agreement("gemma3-1b (fused base)", GEMMA,
                     lambda: teacher_forced(GEMMA, serve_params, prompts, gen_k, GEMMA_MAX_LEN),
                     gen_k)
-    del eng, serve_params
+    del eng
+
+    # the same base served partitioned on the slab's own grid (phase 19's
+    # path), held against the gathered serve by phase 19's rule
+    grid = placed_params["embed"].layout.mesh
+    ref = whole_reference(GEMMA, serve_params, prompts, GEMMA_MAX_LEN, SERVE_NEW, tokens=gen_k)
+    del serve_params
+    eng = Engine(GEMMA, placed_params, max_len=GEMMA_MAX_LEN)
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = eng.generate(prompts, max_new_tokens=SERVE_NEW)
+    torch.cuda.synchronize()
+    part_s = time.perf_counter() - t0
+    served_part = launches()
+    part_routes = check_pserve_launches("the fused base partitioned", GEMMA, GEMMA_PROMPT,
+                                        SERVE_NEW, grid)[0]
+    same = int((res.tokens[:, GEMMA_PROMPT:] == gen_k).sum())
+    agreement = tp_agreement("gemma3-1b (fused base, partitioned on its slab's grid)",
+                             stepped(GEMMA, placed_params, prompts, GEMMA_MAX_LEN, gen_k), ref)
+    del eng, placed_params, ref
     records.update(serve_s=gen_s, flash_routes=by_route, peak_gib=cards_peak_gib(),
+                   partitioned_serve={"grid": repr(grid), "serve_s": part_s,
+                                      "flash_routes": part_routes, "tokens_equal": same,
+                                      "agreement": agreement},
                    seconds=time.perf_counter() - t_phase)
     print(f"[cold-mesh] the fused base (slab 0 of (b), gathered, bf16) served 4 x "
           f"{GEMMA_PROMPT} -> {SERVE_NEW} in {gen_s:.3f} s, flash_attention by route {by_route} "
-          f"(exactly as worked out); peak {records['peak_gib_whole']:.2f} GiB over (a)'s steps "
+          f"(exactly as worked out); partitioned on {grid!r} in {part_s:.3f} s, by route "
+          f"{part_routes} (exactly), its tokens equal the gathered serve's at "
+          f"{same}/{gen_k.size}; peak {records['peak_gib_whole']:.2f} GiB over (a)'s steps "
           f"and fuses, {part['peak_gib_train_fuse']:.2f} GiB over (b)'s, "
-          f"{records['peak_gib']:.2f} GiB with the serve; phase {records['seconds']:.1f} s on "
+          f"{records['peak_gib']:.2f} GiB with the serves; phase {records['seconds']:.1f} s on "
           f"{card}")
-    return served, records
+    return served, served_part, records
 
 
 # ---------------------------------------------------------------------------
@@ -5091,18 +5161,35 @@ TRAIN_FLOPS_RTOL = 0.02
 PEAK_RTOL = 0.10
 
 
-def dryrun_sweep(workdir):
-    """Phase 17 (a): the CLI runs of ``DRYRUN_RUNS`` as processes, every
-    artifact printed as a line (the three roofline terms, the bottleneck,
-    the peak a chip).  Returns the rows."""
+def dryrun_sweep_start():
+    """Phase 17 (a)'s CLI runs of ``DRYRUN_RUNS``, started as processes with
+    no card visible, one thread each: they trace on the meta device beside
+    the card's phases until ``dryrun_sweep`` collects them (the script's
+    1200 s budget cannot hold them in line).  ``stop_sweep`` ends them."""
     src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
-    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1",
                PYTHONPATH=os.pathsep.join(filter(None, [src, os.environ.get("PYTHONPATH")])))
+    workdir = tempfile.mkdtemp(prefix="chip_smoke-dryrun-")
     out = os.path.join(workdir, "dryrun_torch")
-    t0 = time.perf_counter()
     procs = [subprocess.Popen([sys.executable, "-m", "repro_torch.launch.dryrun", *argv, "--out",
                                out, "--force"], env=env, stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True) for argv in DRYRUN_RUNS]
+    return {"workdir": workdir, "out": out, "procs": procs, "t0": time.perf_counter()}
+
+
+def stop_sweep(sweep):
+    for p in sweep["procs"]:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+    shutil.rmtree(sweep["workdir"], ignore_errors=True)
+
+
+def dryrun_sweep(sweep):
+    """Phase 17 (a): the started CLI runs collected, every artifact printed
+    as a line (the three roofline terms, the bottleneck, the peak a chip).
+    Returns the rows and the sum of the artifacts' trace seconds."""
+    out, procs = sweep["out"], sweep["procs"]
     try:
         logs = [p.communicate(timeout=300)[0] for p in procs]
     finally:
@@ -5110,7 +5197,6 @@ def dryrun_sweep(workdir):
             if p.poll() is None:
                 p.kill()
                 p.wait()
-    seconds = time.perf_counter() - t0
     for argv, p, log in zip(DRYRUN_RUNS, procs, logs):
         check(p.returncode == 0, f"dryrun {' '.join(argv)} exited {p.returncode}:\n{log[-3000:]}")
     rows = []
@@ -5139,8 +5225,11 @@ def dryrun_sweep(workdir):
             print(f"[dryrun]   its fuse: all-reduce {fc['count_by_kind'].get('all-reduce', 0)} "
                   f"x {fc['bytes_by_kind'].get('all-reduce', 0):,.0f} bytes, all-gather "
                   f"{fc['count_by_kind'].get('all-gather', 0)}")
-    print(f"[dryrun] sweep: {len(DRYRUN_RUNS)} CLI processes (no card visible), "
-          f"{len(rows)} artifacts in {seconds:.1f} s; left to the CLI: {DRYRUN_LEFT}")
+    seconds = sum(row["trace_s"] for row in rows)
+    print(f"[dryrun] sweep: {len(DRYRUN_RUNS)} CLI processes (no card visible, started "
+          f"{time.perf_counter() - sweep['t0']:.1f} s before and run beside the card's phases), "
+          f"{len(rows)} artifacts traced in {seconds:.1f} s summed; left to the CLI: "
+          f"{DRYRUN_LEFT}")
     return rows, seconds
 
 
@@ -5297,17 +5386,22 @@ def dryrun_train(card):
     return rec
 
 
-def phase_dryrun(card):
-    """Phase 17: the dry-run tooling.  Returns the launches of (b)'s counted
-    prefill and decode step on the card, and the phase's record."""
+def phase_dryrun(card, sweep=None):
+    """Phase 17: the dry-run tooling, its CLI runs started by
+    ``dryrun_sweep_start`` (here, unless ``sweep`` was started earlier).
+    Returns the launches of (b)'s counted prefill and decode step on the
+    card, and the phase's record."""
     t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory(prefix="chip_smoke-") as workdir:
-        rows, sweep_s = dryrun_sweep(workdir)
+    sweep = sweep or dryrun_sweep_start()
+    try:
+        rows, sweep_s = dryrun_sweep(sweep)
+    finally:
+        stop_sweep(sweep)
     serve, counts = dryrun_serve(card)
     train = dryrun_train(card)
     seconds = time.perf_counter() - t0
     print(f"[dryrun] phase 17: {seconds:.1f} s on {card}")
-    return counts, {"sweep": rows, "sweep_s": sweep_s, "left_to_cli": DRYRUN_LEFT,
+    return counts, {"sweep": rows, "sweep_trace_s": sweep_s, "left_to_cli": DRYRUN_LEFT,
                     "serve": serve, "train": train, "seconds": seconds}
 
 
@@ -5484,6 +5578,432 @@ def phase_partitioned(card):
             "reckoned_peak_gib": reckoned / 2 ** 30, "seconds": seconds}
 
 
+# ---------------------------------------------------------------------------
+# slice 15: partitioned serving (phase 19)
+# ---------------------------------------------------------------------------
+
+# each model at full width in bf16 on a (data 2, model 2) grid of the visible
+# cards: (arch, prompt tokens, new tokens, cache length, the ring cache on);
+# gemma3-1b's ring run takes 4 x RING_PSERVE_PROMPT (a prefill fits its
+# 512-slot rings), which wrap after decode step 512 - RING_PSERVE_PROMPT
+PSERVE_GRID = (2, 2)
+RING_PSERVE_PROMPT, RING_PSERVE_NEW = 500, 16
+PSERVE_MODELS = (("rwkv6-7b", RWKV_PROMPT, SERVE_NEW, RWKV_MAX_LEN, False),
+                 ("mistral-nemo-12b", DENSE_PROMPT, DENSE_NEW, DENSE_PROMPT + DENSE_NEW, False),
+                 ("gemma3-1b", GEMMA_PROMPT, SERVE_NEW, GEMMA_MAX_LEN, False),
+                 ("gemma3-1b", RING_PSERVE_PROMPT, RING_PSERVE_NEW,
+                  RING_PSERVE_PROMPT + RING_PSERVE_NEW, True))
+# the yardstick of a partitioned run against the whole model: each slot's
+# row-parallel partial product is rounded to bf16 before the M partials are
+# summed (one more bf16 rounding of every element of the layer's output than
+# the whole product has), so the whole model's kernel outputs are nudged by
+# one bf16 ulp (2^-8), not by an f32 summation-order difference
+TP_NUDGE = 2.0 ** -8
+PSERVE_DECODE_PROFILED = 2  # decode steps profiled (the profiler's work grows with them)
+
+
+def serve_collectives(cfg, psh, R: int, M: int, *, cached: bool = True, data_axis="data"):
+    """The collectives of one partitioned forward (a prefill or one decode
+    step) of a dense or RWKV decoder on a (data R, model M) grid, the
+    formula PERF.md §5 states (the same as
+    ``tests/test_torch_partitioned_serve.py``'s), as ``({kind: count},
+    {axis: count})``.  Over ``model``: the embedding's all-reduce where the
+    vocabulary splits; an all-reduce a row-parallel output (attention's
+    ``wo``, the GLU/MLP, the RWKV time mix's ``wo``); ``wk``/``wv``
+    all-gathered where the KV heads do not split but their spec does; with a
+    cache, its k and v all-gathered where its spec splits ``head_dim``, and
+    an RWKV layer's two token-shift states; the last logits all-gathered
+    where they come out per vocabulary block.  Over the batch axis: each use
+    of a leaf FSDP splits, one all-gather, and the last logits'."""
+    n_attn = sum(b.mixer == "attn" for b in cfg.blocks)
+    n_rwkv = sum(b.mixer == "rwkv" for b in cfg.blocks)
+    n_dense = sum(b.ffn in ("glu", "mlp") for b in cfg.blocks)
+    ar = ag_m = ag_d = 0
+    if M > 1:
+        vocab = cfg.vocab_size % M == 0
+        hd, Hkv = cfg.head_dim, cfg.num_kv_heads
+        attn = (cfg.num_heads * hd) % M == 0
+        ar += vocab + n_attn * attn + n_dense * (cfg.d_ff % M == 0)
+        ar += n_rwkv * (cfg.d_model % M == 0)
+        if attn and Hkv % M and (Hkv * hd) % M == 0:
+            ag_m += 2 * n_attn
+        if cached:
+            if Hkv % M and hd % M == 0:
+                ag_m += 2 * n_attn
+            ag_m += 2 * n_rwkv * (cfg.d_model % M == 0)
+        ag_m += vocab
+    if R > 1:
+        n_full, _ = tt_mod.split_layers(cfg)
+        for name, sh in tree_leaves_with_path(psh):
+            if data_axis in sh.spec:
+                ag_d += n_full if name.startswith("scan/") else 1
+        ag_d += 1
+    kinds = {"all_reduce": ar, "all_gather": ag_m + ag_d, "reduce_scatter": 0}
+    return kinds, {a: n for a, n in (("model", ar + ag_m), (data_axis, ag_d)) if n}
+
+
+def pserve_routes(cfg, prompt_len, new_tokens, n_slots: int, M: int):
+    """The kernels' launches by route over one partitioned
+    ``Engine.generate``, worked out from the code: each slot launches once a
+    layer for the prefill and once a layer and new token after the first,
+    on the route its own heads take (attention: ``Hq / M`` query heads on
+    the KV heads they read)."""
+    n_attn = sum(b.mixer == "attn" for b in cfg.blocks)
+    n_rwkv = sum(b.mixer == "rwkv" for b in cfg.blocks)
+    steps = new_tokens - 1
+    flash = dict.fromkeys(fa_mod.ROUTES + ("decode_combine",), 0)
+    if n_attn:
+        hq, rep = cfg.num_heads // M, cfg.num_heads // cfg.num_kv_heads
+        group = rep if (cfg.num_kv_heads % M == 0 or hq % rep == 0) else (
+            hq if rep % hq == 0 else 1)      # query heads a slot's kv head serves
+        flash[fa_mod.route(torch.bfloat16, prompt_len, group, 1)] += n_slots * n_attn
+        dec = fa_mod.route(torch.bfloat16, 1, group, 1)
+        flash[dec] += n_slots * n_attn * steps
+        if dec == "decode":
+            flash["decode_combine"] += n_slots * n_attn * steps
+    rwkv = {"scan": n_slots * n_rwkv, "step": n_slots * n_rwkv * steps}
+    return flash, rwkv
+
+
+def stepped(cfg, params, prompts, max_len, feed):
+    """The last-position logits [B, n, V] after the Engine's prefill and
+    each of its n - 1 decode steps (placed params or whole), fed the tokens
+    ``feed`` [B, n] (teacher-forced)."""
+    eng = Engine(cfg, params, max_len=max_len)
+    P = prompts.shape[1]
+    with torch.inference_mode():
+        toks, cache = eng._start(params, prompts)
+        lg, cache = eng._prefill(params, toks, cache)
+        out = [lg]
+        for t in range(1, feed.shape[1]):
+            lg, cache = eng._serve(params, cache, torch.as_tensor(feed[:, t - 1:t],
+                                                                  device=lg.device), P + t - 1)
+            out.append(lg)
+        del cache
+    return torch.stack(out, 1)
+
+
+class nudged_kernels:
+    """Inside the block each output of the two kernels the model calls is
+    scaled by (1 + nudge) and rounded to its dtype again: the yardstick of
+    a comparison between two runs on the kernels."""
+
+    def __init__(self, nudge: float):
+        self.f = 1.0 + nudge
+
+    def __enter__(self):
+        self.saved = (kops.flash_attention, rwkv_mod.rwkv6_scan)
+        flash, scan, f = self.saved[0], self.saved[1], self.f
+
+        def nudged_flash(q, k, v, **kw):
+            return (flash(q, k, v, **kw).float() * f).to(q.dtype)
+
+        def nudged_scan(*args):
+            y, st = scan(*args)
+            return (y.float() * f).to(y.dtype), st
+
+        kops.flash_attention, rwkv_mod.rwkv6_scan = nudged_flash, nudged_scan
+        return self
+
+    def __exit__(self, *exc):
+        kops.flash_attention, rwkv_mod.rwkv6_scan = self.saved
+
+
+def whole_reference(cfg, params, prompts, max_len, n, tokens=None):
+    """The whole model's side of a partitioned comparison: its Engine's
+    greedy tokens (``tokens``, if already generated), its logits
+    teacher-forced on them, the yardstick (the same run with the kernels'
+    outputs nudged by ``TP_NUDGE``, ``logit_diff``), and its prefill ms
+    and decode ms a step (the teacher-forced run timed, and a prefill
+    alone)."""
+    eng = Engine(cfg, params, max_len=max_len)
+    if tokens is None:
+        tokens = eng.generate(prompts, max_new_tokens=n).tokens[:, prompts.shape[1]:]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lw = stepped(cfg, params, prompts, max_len, tokens)
+    torch.cuda.synchronize()
+    run_ms = (time.perf_counter() - t0) * 1e3
+    with torch.inference_mode():
+        toks, cache = eng._start(params, prompts)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng._prefill(params, toks, cache)
+        torch.cuda.synchronize()
+        pre_ms = (time.perf_counter() - t0) * 1e3
+        del cache
+    check(np.array_equal(torch.argmax(lw, -1).cpu().numpy(), tokens),
+          "teacher-forced whole model must repeat its generate")
+    with nudged_kernels(TP_NUDGE):
+        ln = stepped(cfg, params, prompts, max_len, tokens)
+    floor = logit_diff(ln, lw)
+    del ln
+    return tokens, lw, floor, pre_ms, (run_ms - pre_ms) / (n - 1)
+
+
+def tp_agreement(what, logits_p, ref):
+    """A partitioned run's logits, teacher-forced on the whole model's
+    tokens, against the whole model's (``whole_reference``): max and mean
+    |d| within 4x the yardstick's, and greedy tokens equal wherever the
+    whole model's top-2 margin exceeds twice the logit difference (phase
+    9's rule); the low-margin positions are counted.  Returns the record."""
+    tokens, lw, floor = ref[:3]
+    mx, mean = logits_agreement(logits_p, lw, floor, what)
+    d_step = (logits_p.float() - lw.float()).abs().amax(-1)
+    top2 = torch.topk(lw.float(), 2, dim=-1)
+    decided = ((top2.values[..., 0] - top2.values[..., 1]) > 2 * d_step).cpu().numpy()
+    agree = torch.argmax(logits_p, -1).cpu().numpy() == tokens
+    check(bool(agree[decided].all()), f"{what}: greedy tokens differ from the whole model's "
+          "where its top-2 margin exceeds twice the logit difference")
+    print(f"[pserve] {what} vs the whole model (teacher-forced on its tokens): logits max|d| "
+          f"{mx:.4g} mean|d| {mean:.3g}; the whole model's kernels nudged by 2^-8 move them by max "
+          f"{floor[0]:.4g} / mean {floor[1]:.3g}, bound 4x; tokens: "
+          f"{int(decided.sum())}/{decided.size} decided by a margin > 2 x max|d| and all agree, "
+          f"{decided.size - int(decided.sum())} low-margin; {int(agree.sum())}/{agree.size} "
+          "agree overall")
+    return {"max_abs": mx, "mean_abs": mean, "yardstick": list(floor),
+            "decided": int(decided.sum()), "low_margin": int(decided.size - decided.sum()),
+            "agree": int(agree.sum()), "positions": int(agree.size)}
+
+
+def check_pserve_launches(what, cfg, prompt_len, new_tokens, mesh):
+    """The kernels' launches of one partitioned generate, exact by route."""
+    M = mesh.extent("model")
+    flash, rwkv = pserve_routes(cfg, prompt_len, new_tokens, mesh.devices.size, M)
+    got_f = dict(flash_attention.launches_by_route)
+    got_r = dict(rwkv6_scan.launches_by_route)
+    check(got_f == flash and got_r == rwkv, f"{what}: launched flash_attention {got_f} and "
+          f"rwkv6_scan {got_r} by route, expected {flash} and {rwkv}")
+    return got_f, got_r
+
+
+def check_placement(cfg, placed, psh, cache, mesh, max_len):
+    """Each slot holds what ``placed_slot_bytes`` counts of the placed params
+    and cache, equal to ``dryrun.slot_bytes`` by their specs, and each cache
+    block has the shape ``cache_shardings`` gives.  Returns the bytes a
+    slot and the bytes stored on the cards (each stored block once)."""
+    with torch.device("meta"):
+        shapes = init_cache(cfg, 4, max_len, device="meta")
+    csh = sharding_mod.cache_shardings(mesh, shapes, cfg)
+    want = dryrun_mod.slot_bytes({"params": placed, "cache": shapes},
+                                 {"params": psh, "cache": csh}, mesh)
+    got = sharding_mod.placed_slot_bytes({"params": placed, "cache": cache}, mesh)
+    check(got == [want] * mesh.devices.size, f"placed bytes a slot {got}, "
+          f"dryrun.slot_bytes {want:,}")
+    extent = dict(zip(mesh.axis_names, mesh.devices.shape))
+    specs = dict(tree_leaves_with_path(csh))
+    for name, x in tree_leaves_with_path(cache):
+        block = tuple(n // int(np.prod([extent[a] for a in sharding_mod.norm_axes(e)]))
+                      if e is not None else n for n, e in zip(x.shape, specs[name].spec))
+        block += tuple(x.shape[len(block):])
+        check(all(tuple(x.block(s).shape) == block for s in range(mesh.devices.size)),
+              f"cache leaf {name}: blocks {[tuple(x.block(s).shape) for s in range(4)]}, "
+              f"cache_shardings gives {block}")
+    stored = sum(b.numel() * b.element_size() for _, x in tree_leaves_with_path(placed)
+                 for b in x.blocks)
+    return want, stored
+
+
+def pserve_model(arch, prompt_len, new_tokens, max_len, ring, card):
+    """One model whole, then partitioned on PSERVE_GRID (the phase 19
+    docstring): the record of the comparison, times and counts."""
+    t_model = time.perf_counter()
+    cfg = get_config(arch)
+    name = arch + (" (ring cache)" if ring else "")
+    saved_ring = tt_mod.RING_CACHE
+    tt_mod.RING_CACHE = ring
+    try:
+        dev = torch.device("cuda")
+        sync_cards()
+        reset_cards_peak()
+        params = init_lm(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+        prompts = np.random.default_rng(1).integers(3, cfg.vocab_size, (4, prompt_len))
+        marks = [("init", time.perf_counter())]
+        # the whole model: its tokens, logits and yardstick; its times
+        ref = whole_reference(cfg, params, prompts, max_len, new_tokens)
+        w_pre, w_dec = ref[3:]
+        whole_peak = cards_peak_gib()
+        marks.append(("whole reference", time.perf_counter()))
+
+        # placed on the grid, the whole tree freed
+        mesh = make_mesh(PSERVE_GRID, ("data", "model"))
+        psh = sharding_mod.params_shardings(mesh, params, cfg)
+        placed = device_put(params, psh)
+        del params
+        sync_cards()
+        torch.cuda.empty_cache()
+        reset_cards_peak()
+        held = torch.cuda.memory_allocated()
+        eng = Engine(cfg, placed, max_len=max_len)
+        with torch.inference_mode():
+            toks, cache = eng._start(placed, prompts)
+        slot_bytes, stored = check_placement(cfg, placed, psh, cache, mesh, max_len)
+        del cache
+        marks.append(("placement", time.perf_counter()))
+
+        # one partitioned generate, its launches exact by route and its
+        # collectives a step the formula's
+        per_step, per_axis = serve_collectives(cfg, psh, *PSERVE_GRID)
+        reset_launches()
+        mesh_mod.reset_collectives()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = eng.generate(prompts, max_new_tokens=new_tokens)
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
+        counts = launches()
+        routes = check_pserve_launches(name, cfg, prompt_len, new_tokens, mesh)
+        cols, by_axis = dict(mesh_mod.collectives), dict(mesh_mod.collectives_by_axis)
+        check(cols == {k: new_tokens * v for k, v in per_step.items()}
+              and by_axis == {k: new_tokens * v for k, v in per_axis.items()},
+              f"{name}: the generate's collectives {cols} ({by_axis} by axis), expected "
+              f"{new_tokens} x {per_step} ({per_axis})")
+        gen_p = res.tokens[:, prompt_len:]
+        same = int((gen_p == ref[0]).sum())
+        marks.append(("partitioned generate", time.perf_counter()))
+
+        gen_bytes = dict(mesh_mod.collective_bytes)
+        # times: the generate's, and a prefill alone (its collective bytes
+        # too; a decode step's are the rest over new_tokens - 1); then one
+        # prefill and PSERVE_DECODE_PROFILED steps under torch.profiler
+        with torch.inference_mode():
+            _, cache = eng._start(placed, prompts)
+            mesh_mod.reset_collectives()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lg, cache = eng._prefill(placed, toks, cache)
+            torch.cuda.synchronize()
+            p_pre = (time.perf_counter() - t0) * 1e3
+            pre_bytes = dict(mesh_mod.collective_bytes)
+            p_dec = (gen_s * 1e3 - p_pre) / (new_tokens - 1)
+            dec_bytes = {k: (gen_bytes[k] - pre_bytes[k]) // (new_tokens - 1) for k in gen_bytes}
+            nxt = torch.argmax(lg, -1)[:, None]
+
+            def decode_profiled():
+                for t in range(PSERVE_DECODE_PROFILED):
+                    eng._serve(placed, cache, nxt, prompt_len + t)
+
+            split_dec = device_split(decode_profiled)
+            _, cache = eng._start(placed, prompts)
+            split_pre = device_split(lambda: eng._prefill(placed, toks, cache))
+            del cache, lg
+        marks.append(("profile", time.perf_counter()))
+        print_split(name, f"partitioned prefill 4 x {prompt_len}", p_pre, split_pre)
+        print_split(name, f"{PSERVE_DECODE_PROFILED} partitioned decode steps",
+                    PSERVE_DECODE_PROFILED * p_dec, split_dec)
+        peak = cards_peak_gib()
+
+        # the partitioned model teacher-forced on the whole model's tokens
+        lp = stepped(cfg, placed, prompts, max_len, ref[0])
+        agreement = tp_agreement(name, lp, ref)
+        del lp, placed, eng, ref
+        torch.cuda.empty_cache()
+        marks.append(("partitioned teacher-forced", time.perf_counter()))
+        split_s = {k: round(t - marks[i][1], 2) for i, (k, t) in enumerate(marks[1:])}
+        busy = {k: None if s is None else s[0] for k, s in (("prefill", split_pre),
+                                                            ("decode", split_dec))}
+        rec = {"arch": arch, "ring": ring, "prompt": prompt_len, "new": new_tokens,
+               "max_len": max_len, "grid": list(PSERVE_GRID), "mesh": repr(mesh),
+               "slot_bytes": slot_bytes, "stored_bytes": stored, "held_gib": held / 2 ** 30,
+               "whole_prefill_ms": w_pre, "whole_decode_ms": w_dec,
+               "whole_peak_gib": whole_peak, "prefill_ms": p_pre, "decode_ms": p_dec,
+               "generate_s": gen_s, "device_busy_ms": busy, "peak_gib": peak,
+               "launches": counts, "flash_routes": routes[0], "rwkv_routes": routes[1],
+               "collectives_per_step": per_step, "collectives_by_axis_per_step": per_axis,
+               "collective_bytes_prefill": pre_bytes, "collective_bytes_decode_step": dec_bytes,
+               "generate_tokens_equal": same, "agreement": agreement,
+               "seconds": time.perf_counter() - t_model, "seconds_by_part": split_s}
+        print(f"[pserve] {name} on {mesh!r}: {slot_bytes:,} bytes a slot of params and cache "
+              f"(= dryrun.slot_bytes), {stored:,} bytes of params stored on the card(s); whole "
+              f"model prefill {w_pre:.2f} ms, decode {w_dec:.2f} ms a step, peak "
+              f"{whole_peak:.2f} GiB; partitioned prefill {p_pre:.2f} ms, decode {p_dec:.2f} ms "
+              f"a step, generate 4 x {prompt_len} -> {new_tokens} {gen_s:.2f} s, peak "
+              f"{peak:.2f} GiB (held {held / 2 ** 30:.2f}); launches by route {routes} (exactly "
+              f"as worked out); collectives a step {per_step} ({per_axis} by axis; the "
+              f"formula's), bytes a prefill {pre_bytes}, a decode step {dec_bytes}; the "
+              f"generate's tokens equal the whole model's at {same}/{gen_p.size}; "
+              f"{rec['seconds']:.1f} s ({split_s}, init {marks[0][1] - t_model:.1f} s) on {card}")
+        return counts, rec
+    finally:
+        tt_mod.RING_CACHE = saved_ring
+
+
+def phase_pserve_kernel_checks(gen):
+    """flash_attention and rwkv6_scan against their plain versions on the
+    card at phase 19's per-slot shapes (B = 2 rows a data slot, the heads a
+    model slot holds), each call through the route it must take.  Returns
+    the largest error of each."""
+    worst = {"flash_attention": 0.0, "rwkv6_scan": 0.0}
+    nemo = get_config("mistral-nemo-12b")
+    Sk = DENSE_PROMPT + DENSE_NEW
+    q, k, v = qkv_on_card(2, DENSE_PROMPT, Sk, nemo.num_heads // 2, nemo.num_kv_heads // 2,
+                          nemo.head_dim, torch.bfloat16, gen)
+    e1 = bf16_close(flash_routed("prefill_tc", q, k, v), flash_attention_plain(q, k, v),
+                    "flash per slot nemo prefill")
+    q1 = q[:, :1].contiguous()
+    e2 = bf16_close(flash_routed("decode", q1, k, v, q_offset=Sk - 1),
+                    flash_attention_plain(q1, k, v, q_offset=Sk - 1), "flash per slot nemo decode")
+    print(f"[check] flash_attention per slot, mistral-nemo-12b on model 2: q [2, {DENSE_PROMPT}, "
+          f"16, 128] on 4 kv heads, Sk {Sk}, bf16: prefill_tc max|d| {e1:.3g}, decode (q_offset "
+          f"{Sk - 1}) {e2:.3g}")
+    worst["flash_attention"] = max(e1, e2)
+    q, k, v = qkv_on_card(2, GEMMA_PROMPT, GEMMA_MAX_LEN, GEMMA.num_heads // 2, 1,
+                          GEMMA.head_dim, torch.bfloat16, gen)
+    errs = []
+    for window in (GEMMA_WINDOW, None):
+        errs.append(bf16_close(flash_routed("prefill_tc", q, k, v, window=window),
+                               flash_attention_plain(q, k, v, window=window),
+                               f"flash per slot gemma prefill window {window}"))
+        q1 = q[:, :1].contiguous()
+        errs.append(bf16_close(flash_routed("decode", q1, k, v, window=window, q_offset=1100),
+                               flash_attention_plain(q1, k, v, window=window, q_offset=1100),
+                               f"flash per slot gemma decode window {window}"))
+    # a local layer's 512-slot ring at positions 200 (filling) and 700 (wrapped)
+    ring_k, ring_v = k[:, :GEMMA_WINDOW].contiguous(), v[:, :GEMMA_WINDOW].contiguous()
+    for pos in (200, 700):
+        q1 = q[:, :1].contiguous()
+        got = flash_routed("decode", q1, ring_k, ring_v, window=None,
+                           q_offset=min(pos, GEMMA_WINDOW - 1))
+        errs.append(bf16_close(got, flash_attention_plain(q1, ring_k, ring_v, window=None,
+                                                          q_offset=min(pos, GEMMA_WINDOW - 1)),
+                               f"flash per slot gemma ring at {pos}"))
+    print(f"[check] flash_attention per slot, gemma3-1b on model 2: q [2, {GEMMA_PROMPT}, 2, "
+          f"256] on 1 kv head, Sk {GEMMA_MAX_LEN}, bf16, window 512 and none: prefill_tc, "
+          f"decode (q_offset 1100) and the ring decode at 200 and 700: max|d| "
+          f"{max(errs):.3g} (bound 1 bf16 ulp + 2e-5 x max(1, max|plain|))")
+    worst["flash_attention"] = max(worst["flash_attention"], *errs)
+    B, T, H, hd = RWKV_PREFILL
+    args = rwkv_on_card(2, T, H // 2, hd, torch.float32, gen)
+    (y, s), (yp, sp) = rwkv_routed("scan", *args), rwkv6_scan_plain(*args)
+    e = max(f32_close(y, yp, "rwkv per slot y"), f32_close(s, sp, "rwkv per slot state"))
+    one = [t[:, :1].contiguous() for t in args[:4]] + list(args[4:])
+    (y, s), (yp, sp) = rwkv_routed("step", *one), rwkv6_scan_plain(*one)
+    e1 = max(f32_close(y, yp, "rwkv per slot step y"), f32_close(s, sp, "rwkv per slot step s"))
+    print(f"[check] rwkv6_scan per slot, rwkv6-7b on model 2: [2, {T}, {H // 2}, {hd}] f32, "
+          f"route scan max|d| {e:.3g}; T=1 route step {e1:.3g} (bound 2e-5 x max(1, max|plain|))")
+    worst["rwkv6_scan"] = max(e, e1)
+    return worst
+
+
+def phase_partitioned_serve(card, gen):
+    """Phase 19: the per-slot kernel checks, then each of PSERVE_MODELS whole
+    and partitioned.  Returns (launches summed over the partitioned
+    generates, the phase's record)."""
+    t_phase = time.perf_counter()
+    worst = phase_pserve_kernel_checks(gen)
+    total = dict.fromkeys(launches(), 0)
+    models = []
+    for arch, prompt_len, new_tokens, max_len, ring in PSERVE_MODELS:
+        counts, rec = pserve_model(arch, prompt_len, new_tokens, max_len, ring, card)
+        total = {k: total[k] + counts[k] for k in total}
+        models.append(rec)
+        torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t_phase
+    print(f"[pserve] phase 19: {seconds:.1f} s on {card}; launches over the partitioned "
+          f"generates {total}")
+    return total, {"models": models, "per_slot_max_abs_err": worst, "seconds": seconds}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card", file=sys.stderr)
@@ -5527,6 +6047,8 @@ def main() -> int:
     del rw_inputs
     torch.cuda.empty_cache()
 
+    sweep = dryrun_sweep_start()
+    atexit.register(stop_sweep, sweep)   # ended whatever phase fails
     with tempfile.TemporaryDirectory(prefix="chip_smoke-") as workdir:
         phase_small_agreement()
         phase_small_per_leaf()
@@ -5654,17 +6176,22 @@ def main() -> int:
 
     # the model-side ColD mesh (slice 12), counts reset at its start (the
     # steps and fuses launch no kernel) and again just before its serve
-    cold_counts, cold_rec = phase_cold_mesh(smi)
+    cold_counts, cold_part_counts, cold_rec = phase_cold_mesh(smi)
     torch.cuda.empty_cache()
 
     # the dry-run tooling (slice 13): the sweep on the host, then the serving
     # and training steps counted on the meta device and on the card, counts
     # reset around the serving step's prefill and decode
-    dry_counts, dry_rec = phase_dryrun(smi)
+    dry_counts, dry_rec = phase_dryrun(smi, sweep)
     torch.cuda.empty_cache()
 
     # the partitioned train step with FSDP (slice 14); its steps launch no kernel
     part_rec = phase_partitioned(smi)
+    torch.cuda.empty_cache()
+
+    # partitioned serving (slice 15), counts reset just before each
+    # partitioned generate and summed
+    pserve_counts, pserve_rec = phase_partitioned_serve(smi, gen)
     torch.cuda.empty_cache()
     print(f"[done] {time.perf_counter() - t0:.1f} s after the card check")
 
@@ -5709,6 +6236,10 @@ def main() -> int:
         rec["launches_archs2"] = archs2[rec["name"]]
         rec["launches_mesh"] = mesh_counts[rec["name"]]
         rec["launches_cold_mesh"] = cold_counts[rec["name"]]
+        rec["launches_cold_mesh_partitioned"] = cold_part_counts[rec["name"]]
+        rec["launches_partitioned_serve"] = pserve_counts[rec["name"]]
+    for rec in (flash, rwkv):
+        rec["per_slot_max_abs_err"] = pserve_rec["per_slot_max_abs_err"][rec["name"]]
     # phase 15's times beside the unsharded kernels'; row_sketch_shard is an
     # entry of row_sketch.cu, held at a clamped layout
     fuse_kernels[0]["mesh"] = {"roberta": mesh_rec["cold_fuse"],
@@ -5720,6 +6251,7 @@ def main() -> int:
     print(json.dumps({"cold_mesh": cold_rec}))
     print(json.dumps({"dryrun": dry_rec}))
     print(json.dumps({"partitioned": part_rec}))
+    print(json.dumps({"partitioned_serve": pserve_rec}))
     print(json.dumps({"archs": arch_table}))
     print(json.dumps({"archs2": arch2_table}))
     fuse_kernels[0]["at_gemma3_1b"] = fuse_at_gemma

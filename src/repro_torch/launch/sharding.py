@@ -22,7 +22,9 @@ the whole spec:
   block that several slots on one device hold (a leaf replicated over an
   axis) is one tensor there.  ``models.partitioned`` runs the train step
   on such leaves: tensor parallel over ``model``, data parallel and FSDP
-  over ``replica`` (or ``data``);
+  over ``replica`` (or ``data``); and the serving steps, on a cache placed
+  by ``cache_shardings`` and a token batch placed by ``batch_shardings`` on
+  the params' grid (each slot's block of the cache written in place);
 * on a sub-grid of one device, and for an integer leaf the spec does not
   split (the optimizer's step counter), the slab stays whole on its
   slot's device (``contrib_slot_devices``; the mesh's first device where
@@ -229,7 +231,9 @@ def gather(tree, device=None):
 
 def placed_slot_bytes(tree, mesh: Mesh) -> List[int]:
     """The bytes each slot of ``mesh`` (flat, row-major) holds of a placed
-    tree by its specs: a slab's block (or the slab, placed whole) on each
+    tree (params, optimizer state, a cache placed by ``cache_shardings``,
+    or a tree of them) by its specs: a slab's block (or the slab, placed
+    whole) on each
     slot of its contributor slot's sub-grid; a leaf without a contributor
     dim on every contributor slot, as its spec replicates it there (the
     port keeps its one copy with contributor slot 0); a Python int as the

@@ -240,13 +240,7 @@ def attention_fwd(cfg: ArchConfig, p, x: torch.Tensor, *, angles=None, causal: b
     if kv_cache is not None:
         ck, cv = kv_cache["k"], kv_cache["v"]
         if cache_index is not None:
-            i = int(cache_index)
-            if window is not None and ck.shape[1] == window and Sq == 1:
-                ring = i
-                i %= window
-            elif not 0 <= i <= ck.shape[1] - Sq:
-                raise ValueError(f"cache_index {i} + {Sq} new positions overrun a cache of "
-                                 f"{ck.shape[1]}")
+            i, ring = cache_slot(ck.shape[1], cache_index, Sq, window)
             ck[:, i:i + Sq] = k.to(ck.dtype)
             cv[:, i:i + Sq] = v.to(cv.dtype)
         k, v = ck, cv
@@ -255,14 +249,38 @@ def attention_fwd(cfg: ArchConfig, p, x: torch.Tensor, *, angles=None, causal: b
         s_idx = _positions(window, 0, q.device)
         out = _sdpa(q, k, v, causal=causal, window=window, q_offset=q_offset,
                     k_positions=ring - torch.remainder(ring - s_idx, window))
-    elif ring is not None:
-        out = ops.attention(q, k, v, causal=True, window=None, q_offset=min(ring, window - 1))
     elif differentiable:
         out = _sdpa(q, k, v, causal=causal, window=window, q_offset=q_offset)
     else:
-        out = ops.attention(q, k, v, causal=causal, window=window, q_offset=q_offset)
+        out = kernel_attention(q, k, v, causal=causal, window=window, q_offset=q_offset, ring=ring)
     out = out.reshape(B, Sq, nq * hd) @ p["wo"]
     return out.to(x.dtype), kv_cache
+
+
+def cache_slot(length: int, cache_index, Sq: int, window: Optional[int]):
+    """``(write offset, ring position or None)`` of ``Sq`` new positions at
+    ``cache_index`` in a cache of ``length`` slots: a cache of exactly
+    ``window`` slots at a one-token step is the reference's ring buffer
+    (the write goes to slot ``cache_index % window``; the ring position is
+    ``cache_index``); otherwise the positions must fit."""
+    i = int(cache_index)
+    if window is not None and length == window and Sq == 1:
+        return i % window, i
+    if not 0 <= i <= length - Sq:
+        raise ValueError(f"cache_index {i} + {Sq} new positions overrun a cache of {length}")
+    return i, None
+
+
+def kernel_attention(q, k, v, *, causal: bool, window: Optional[int], q_offset: int,
+                     ring: Optional[int] = None) -> torch.Tensor:
+    """``kernels.ops.attention`` over the keys ``k``, ``v`` (a cache, or
+    the sequence's own); over a ring buffer (``ring`` = the step's
+    position) with ``q_offset = min(ring, W - 1)`` and no mask beyond
+    causality (see the module docstring)."""
+    if ring is not None:
+        return ops.attention(q, k, v, causal=True, window=None,
+                             q_offset=min(ring, k.shape[1] - 1))
+    return ops.attention(q, k, v, causal=causal, window=window, q_offset=q_offset)
 
 
 def init_glu(cfg: ArchConfig, gen: torch.Generator, dtype, device):

@@ -1,14 +1,15 @@
-"""The partitioned forward of the dense decoder: one slab's train-step loss
-computed over the slots of its grid (``launch.sharding.sub_mesh``), on the
-blocks ``launch.sharding.device_put`` placed there.
+"""The partitioned forward of a decoder LM: one slab's train-step loss, or
+its prefill and decode steps against a placed cache, computed over the
+slots of its grid (``launch.sharding.sub_mesh``), on the blocks
+``launch.sharding.device_put`` placed there.
 
 The grid has a ``model`` axis (M slots) and a batch axis, ``replica`` or
 ``data`` (R slots).  Every activation is a list of per-slot tensors and
 every slot runs its part of each layer in turn, in one process, so a
 collective sees all its slots at once (``launch.mesh``'s ``axis_*``
-functions, which autograd differentiates; the counts below are for one
-forward and its backward).  Slot ``(r, m)`` takes replica ``r``'s rows of
-the batch.
+functions, which autograd differentiates; the train step's counts are for
+one forward and its backward).  Slot ``(r, m)`` takes replica ``r``'s rows
+of the batch.
 
 * Weights split over the batch axis (FSDP) are all-gathered over it where
   a layer uses them, one layer's slice at a time; the gather's backward
@@ -17,7 +18,8 @@ the batch.
   ``model``: each slot looks up the tokens in its block (zeros elsewhere)
   and one all-reduce sums the rows.  The logits ``x @ embedᵀ`` (or
   ``x @ lm_head``) come out per vocabulary block, scored by
-  ``train.losses.lm_loss_vocab_parallel`` (three all-reduces).
+  ``train.losses.lm_loss_vocab_parallel`` (three all-reduces) in the train
+  step; the serving steps all-gather the last position's (``gather_last``).
 * Attention: the query heads are column-parallel (``Hq % M == 0``); the
   KV heads are split where ``Hkv % M == 0``, else the ``wk``/``wv`` blocks
   are all-gathered over ``model`` (or, where the spec keeps them whole,
@@ -30,10 +32,41 @@ the batch.
   on every slot.
 
 So each slot's gradient of a leaf it holds whole over ``model`` is the
-whole gradient, as in Megatron; the train step sums the batch axis.
-Attention is ``layers._sdpa`` (the train path's differentiable copy).
-Only attention + GLU/MLP decoders are partitioned: any other block, the
-encoder-decoder, M-RoPE and the encoder raise ``NotImplementedError``.
+whole gradient, as in Megatron; the train step sums the batch axis.  The
+train step's attention is ``layers._sdpa`` (the differentiable copy).
+
+**Serving** (``differentiable=False``: ``train.step.make_prefill_step``,
+``make_serve_step`` and ``serve.engine.Engine`` on placed params) runs the
+kernels on each slot's own heads, against a cache placed by
+``launch.sharding.cache_shardings`` (each slot holds its block and writes
+it in place):
+
+* attention: ``kernels.ops.attention`` on the slot's ``Hq / M`` query
+  heads and the KV heads they read (``Hkv / M`` of the cache where the
+  heads split; else the one or few of the whole ``Hkv``), with the ring
+  rule of ``layers.cache_slot`` for a ``window``-slot cache.  Where the
+  cache's spec splits ``head_dim`` over ``model`` (the KV heads do not
+  split), each slot writes its ``head_dim`` slice of the new k/v into its
+  block, and the layer's whole-``head_dim`` cache is all-gathered over
+  ``model`` for the call (one counted gather for k, one for v) and
+  dropped after it: no slot keeps it between steps;
+* the RWKV time mix is head-parallel by the reference's rules:
+  ``wr/wk/wv/wg`` column-parallel, ``lora_w/b``, ``w0``, ``u`` and the
+  group norm's ``ln_*`` split over ``model`` (the group norm is local to
+  a head), ``mu`` and ``lora_mix`` whole, ``wo`` row-parallel with one
+  all-reduce; each slot runs ``rwkv6_scan`` on its ``H / M`` heads and
+  its block of the state ``S``.  The channel mix matches no rule, so it
+  runs whole on every slot.  The token-shift states ``shift`` and
+  ``cm_shift`` [B, 1, D] are split over D on ``model``: each is gathered
+  (counted) where the shift reads it, and each slot stores its slice of
+  the new one.
+
+Attention + GLU/MLP decoders are partitioned for training; the serving
+steps take the RWKV block too.  Any other block (MoE, Mamba), the
+encoder-decoder, M-RoPE (``extra_embeds``, ``positions``) and the encoder
+raise ``NotImplementedError`` (``check_partitionable``), as does a serving
+batch that the batch axis does not divide (the reference then splits the
+cache's sequence over it: a context-parallel decode).
 """
 from __future__ import annotations
 
@@ -44,6 +77,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.launch import mesh as M
 from repro_torch.models import layers as L
+from repro_torch.models import rwkv as R
 from repro_torch.models import transformer as T
 from repro_torch.train.losses import lm_loss_vocab_parallel
 from repro_torch.utils.flat import dtype_of
@@ -51,33 +85,42 @@ from repro_torch.utils.placed import Layout
 
 BATCH_AXES = ("replica", "data")
 MODEL_AXIS = "model"
+PATHS = {False: ("train step", "train"), True: ("serving steps", "serve")}
 
 
-def refuse(cfg: ArchConfig, part: str):
+def refuse(cfg: ArchConfig, part: str, *, serving: bool = False):
+    what, verb = PATHS[serving]
     raise NotImplementedError(
-        f"the partitioned train step does not run {cfg.name}'s {part} (ROADMAP.md A6c); "
-        "place its state on a grid of one slot (replica = model = 1) to train it whole")
+        f"the partitioned {what} does not run {cfg.name}'s {part} (ROADMAP.md A6c); "
+        f"place its state on a grid of one slot (replica = model = 1) to {verb} it whole")
 
 
-def check_partitionable(cfg: ArchConfig, batch_keys: Sequence[str] = ()) -> None:
+def check_partitionable(cfg: ArchConfig, batch_keys: Sequence[str] = (), *,
+                        serving: bool = False, batch: Optional[int] = None,
+                        replicas: int = 1) -> None:
     """Raise ``NotImplementedError`` naming the arch and the part the
-    partitioned step lacks."""
+    partitioned train step (or, with ``serving``, the partitioned prefill
+    and decode steps) lacks; a serving ``batch`` must split over the
+    ``replicas`` slots of the batch axis."""
     if cfg.is_encoder_decoder:
-        refuse(cfg, "encoder-decoder (whisper)")
+        refuse(cfg, "encoder-decoder (whisper)", serving=serving)
     if cfg.family == "encoder":
-        refuse(cfg, "encoder (RoBERTa)")
+        refuse(cfg, "encoder (RoBERTa)", serving=serving)
     for blk in cfg.blocks:
-        if blk.mixer != "attn":
+        if blk.mixer != "attn" and not (serving and blk.mixer == "rwkv"):
             refuse(cfg, {"mamba": "Mamba mixer", "rwkv": "RWKV time mix"}.get(
-                blk.mixer, f"{blk.mixer} mixer"))
-        if blk.ffn not in ("glu", "mlp"):
+                blk.mixer, f"{blk.mixer} mixer"), serving=serving)
+        if blk.ffn not in ("glu", "mlp") and not (serving and blk.ffn == "rwkv_cm"):
             refuse(cfg, {"moe": "MoE FFN", "rwkv_cm": "RWKV channel mix"}.get(
-                blk.ffn, f"{blk.ffn} FFN"))
+                blk.ffn, f"{blk.ffn} FFN"), serving=serving)
     if cfg.rope.kind == "mrope":
-        refuse(cfg, "M-RoPE")
+        refuse(cfg, "M-RoPE", serving=serving)
     for key in ("extra_embeds", "positions", "frames"):
         if key in batch_keys:
-            refuse(cfg, f"batch input {key!r} (M-RoPE, extra_embeds, frames)")
+            refuse(cfg, f"batch input {key!r} (M-RoPE, extra_embeds, frames)", serving=serving)
+    if batch is not None and batch % replicas:
+        refuse(cfg, f"batch of {batch} over {replicas} batch slots (the reference splits the "
+               "cache's sequence then: a context-parallel decode)", serving=serving)
 
 
 def grid_axes(mesh: M.Mesh):
@@ -125,8 +168,38 @@ class _Slab:
         ws = {k: self.weight(f"{prefix}/{k}", rep) for k in keys}
         return [L.norm_fwd(self.cfg, {k: ws[k][s] for k in keys}, x[s]) for s in range(self.n)]
 
+    def whole_over_model(self, blocks: List[torch.Tensor], dim: int, full: int):
+        """Each slot's state ``blocks`` whole along ``dim`` (``full`` long):
+        all-gathered over ``model`` (counted) where the cache's spec splits
+        that dim, else as they are."""
+        if blocks[0].shape[dim] == full:
+            return blocks
+        return M.axis_all_gather(blocks, self.mesh, self.mp, dim)
 
-def _attention(sl: _Slab, pre: str, rep, blk, h, angles):
+    def model_slice(self, s: int, x: torch.Tensor, dim: int, block: int) -> torch.Tensor:
+        """Slot ``s``'s block of ``x`` along ``dim`` (``block`` long) where
+        the cache splits it over ``model``; all of ``x`` otherwise."""
+        if x.shape[dim] == block:
+            return x
+        m = self.mesh.coord(s, self.mp)
+        return x.narrow(dim, m * block, block)
+
+
+def _kv_heads(sl: _Slab, s: int, hq: int, k: torch.Tensor, v: torch.Tensor):
+    """Slot ``s``'s KV heads for its ``hq`` query heads from all ``Hkv``
+    (query head h reads kv head h // (Hq / Hkv)): the few its heads read
+    where they form whole groups or share one, else one a query head."""
+    rep_q = sl.cfg.num_heads // sl.cfg.num_kv_heads
+    first = sl.mesh.coord(s, sl.mp) * hq
+    if hq % rep_q == 0 or rep_q % hq == 0:
+        lo, n = first // rep_q, max(1, hq // rep_q)
+        return k[:, :, lo:lo + n].contiguous(), v[:, :, lo:lo + n].contiguous()
+    idx = torch.tensor([(first + j) // rep_q for j in range(hq)], device=k.device)
+    return k.index_select(2, idx), v.index_select(2, idx)
+
+
+def _attention(sl: _Slab, pre: str, rep, blk, h, angles, *, cache=None, cache_index=None,
+               differentiable: bool = True):
     cfg, mesh, mp = sl.cfg, sl.mesh, sl.mp
     hd, Hq, Hkv = cfg.head_dim, cfg.num_heads, cfg.num_kv_heads
     stacked = rep is not None
@@ -134,9 +207,11 @@ def _attention(sl: _Slab, pre: str, rep, blk, h, angles):
     if not split:
         for k in ("wk", "wv", "wo"):
             if sl.split_over_model(f"{pre}/{k}", -1 if k != "wo" else 0, stacked):
-                refuse(cfg, f"attention with {k} split over model and wq whole")
+                refuse(cfg, f"attention with {k} split over model and wq whole",
+                       serving=not differentiable)
     elif Hq % sl.M:
-        refuse(cfg, f"attention: {Hq} query heads do not split over model = {sl.M}")
+        refuse(cfg, f"attention: {Hq} query heads do not split over model = {sl.M}",
+               serving=not differentiable)
     hq = Hq // sl.M if split else Hq
     kv_split = split and Hkv % sl.M == 0
     wq, wo = sl.weight(f"{pre}/wq", rep), sl.weight(f"{pre}/wo", rep)
@@ -152,8 +227,7 @@ def _attention(sl: _Slab, pre: str, rep, blk, h, angles):
     if split:
         h = M.axis_sum_grads(h, mesh, mp)
     hkv = Hkv // sl.M if kv_split else Hkv
-    rep_q = Hq // Hkv
-    outs = []
+    qs, ks, vs = [], [], []
     for s in range(sl.n):
         x = h[s]
         B, S, _ = x.shape
@@ -163,23 +237,47 @@ def _attention(sl: _Slab, pre: str, rep, blk, h, angles):
         v = (x @ kv["wv"][s]).reshape(B, S, hkv, hd)
         if ang is not None:
             q, k = L.apply_rope(q, ang), L.apply_rope(k, ang)
-        if split and not kv_split:  # each local query head's kv head, picked from all
-            first = mesh.coord(s, mp) * hq
-            idx = torch.tensor([(first + j) // rep_q for j in range(hq)], device=x.device)
-            k, v = k.index_select(2, idx), v.index_select(2, idx)
-        out = L._sdpa(q, k, v, causal=True, window=blk.window)
+        qs.append(q)
+        ks.append(k)
+        vs.append(v)
+    ring = None
+    if cache is not None:  # each slot's part of the new k/v into its block, in place
+        ck, cv = cache["k"], cache["v"]
+        S = qs[0].shape[1]
+        i, ring = L.cache_slot(ck[0].shape[1], cache_index, S, blk.window)
+        for s in range(sl.n):
+            for blocks, new in ((ck, ks[s]), (cv, vs[s])):
+                part = sl.model_slice(s, new, 2, blocks[s].shape[2])
+                blocks[s][:, i:i + S] = sl.model_slice(s, part, 3, blocks[s].shape[3]).to(
+                    blocks[s].dtype)
+        # the keys each slot attends over: its block, made whole over model
+        # where the cache's spec splits the heads or head_dim off the slot's
+        ks = sl.whole_over_model(sl.whole_over_model(ck, 3, hd), 2, hkv)
+        vs = sl.whole_over_model(sl.whole_over_model(cv, 3, hd), 2, hkv)
+    outs = []
+    for s in range(sl.n):
+        q, k, v = qs[s], ks[s], vs[s]
+        B, S = q.shape[:2]
+        if split and not kv_split:
+            k, v = _kv_heads(sl, s, hq, k, v)
+        if differentiable:
+            out = L._sdpa(q, k, v, causal=True, window=blk.window)
+        else:
+            out = L.kernel_attention(q, k, v, causal=True, window=blk.window,
+                                     q_offset=0 if cache_index is None else int(cache_index),
+                                     ring=ring)
         outs.append(out.reshape(B, S, hq * hd) @ wo[s])
     if split:
         outs = M.axis_all_reduce(outs, mesh, mp)
     return [o.to(x.dtype) for o, x in zip(outs, h)]
 
 
-def _ffn(sl: _Slab, pre: str, rep, kind: str, h):
+def _ffn(sl: _Slab, pre: str, rep, kind: str, h, *, serving: bool = False):
     cfg, mesh, mp = sl.cfg, sl.mesh, sl.mp
     stacked = rep is not None
     split = sl.split_over_model(f"{pre}/w_up", -1, stacked)
     if split != sl.split_over_model(f"{pre}/w_down", 0, stacked):
-        refuse(cfg, f"{kind} with w_up and w_down split differently over model")
+        refuse(cfg, f"{kind} with w_up and w_down split differently over model", serving=serving)
     act = L.activation(cfg.act)
     up, down = sl.weight(f"{pre}/w_up", rep), sl.weight(f"{pre}/w_down", rep)
     gate = sl.weight(f"{pre}/w_gate", rep) if kind == "glu" else None
@@ -194,6 +292,77 @@ def _ffn(sl: _Slab, pre: str, rep, kind: str, h):
     return M.axis_all_reduce(outs, mesh, mp) if split else outs
 
 
+# the time mix's leaves by the dim the reference's rules split over model:
+# the head-parallel ones; ``mu`` and ``lora_mix`` stay whole
+_TIME_MIX_SPLIT = {"wr": -1, "wk": -1, "wv": -1, "wg": -1, "lora_w/b": -1, "w0": 0, "u": 0,
+                   "ln_scale": 0, "ln_bias": 0, "wo": 0}
+_TIME_MIX_WHOLE = ("mu", "lora_mix/a", "lora_mix/b", "lora_w/a")
+
+
+def _shift_state(sl: _Slab, blocks, D: int):
+    """Each slot's token-shift state [B, 1, D] whole: gathered over model
+    (counted) where the cache splits D."""
+    return None if blocks is None else sl.whole_over_model(blocks, 2, D)
+
+
+def _store_shift(sl: _Slab, blocks, h):
+    """Each slot's slice of its last position ``h[s][:, -1:]`` into its
+    shift block, in place."""
+    for s in range(sl.n):
+        blocks[s].copy_(sl.model_slice(s, h[s][:, -1:], 2, blocks[s].shape[2]))
+
+
+def _time_mix(sl: _Slab, pre: str, rep, h, *, cache=None, differentiable: bool = False):
+    """The head-parallel RWKV6 time mix (the module docstring): each slot
+    ``rwkv.time_mix_heads`` on its heads' blocks, ``wo`` row-parallel."""
+    cfg, mesh, mp = sl.cfg, sl.mesh, sl.mp
+    stacked = rep is not None
+    split = sl.split_over_model(f"{pre}/wr", -1, stacked)
+    if any(sl.split_over_model(f"{pre}/{k}", d, stacked) != split
+           for k, d in _TIME_MIX_SPLIT.items()) or any(
+            sl.split_over_model(f"{pre}/{k}", d, stacked) for k in _TIME_MIX_WHOLE
+            for d in range(len(sl.spec(f"{pre}/{k}", stacked)))):
+        refuse(cfg, "RWKV time mix with its leaves split otherwise than by heads",
+               serving=not differentiable)
+    ws = {k: sl.weight(f"{pre}/{k}", rep) for k in tuple(_TIME_MIX_SPLIT) + _TIME_MIX_WHOLE}
+    last = _shift_state(sl, None if cache is None else cache["shift"], cfg.d_model)
+    if split:
+        h = M.axis_sum_grads(h, mesh, mp)
+    outs = []
+    for s in range(sl.n):
+        p = {k: ws[k][s] for k in ("mu", "w0", "u", "wr", "wk", "wv", "wg", "ln_scale",
+                                   "ln_bias")}
+        p["lora_mix"] = {"a": ws["lora_mix/a"][s], "b": ws["lora_mix/b"][s]}
+        p["lora_w"] = {"a": ws["lora_w/a"][s], "b": ws["lora_w/b"][s]}
+        xx = R._token_shift(h[s], None if last is None else last[s])
+        yg, s_final = R.time_mix_heads(cfg, p, h[s], xx,
+                                       s0=None if cache is None else cache["S"][s],
+                                       differentiable=differentiable)
+        if cache is not None:
+            cache["S"][s].copy_(s_final)
+        outs.append(yg @ ws["wo"][s])
+    if cache is not None:
+        _store_shift(sl, cache["shift"], h)
+    return M.axis_all_reduce(outs, mesh, mp) if split else outs
+
+
+def _channel_mix(sl: _Slab, pre: str, rep, h, *, cache=None):
+    """The RWKV channel mix, whole on every slot (no rule splits it)."""
+    stacked = rep is not None
+    names = ("mu_k", "mu_r", "wk", "wv", "wr")
+    if any(sl.split_over_model(f"{pre}/{k}", d, stacked) for k in names
+           for d in range(len(sl.spec(f"{pre}/{k}", stacked)))):
+        refuse(sl.cfg, "RWKV channel mix split over model", serving=True)
+    ws = {k: sl.weight(f"{pre}/{k}", rep) for k in names}
+    last = _shift_state(sl, None if cache is None else cache["cm_shift"], sl.cfg.d_model)
+    outs = [R.channel_mix_fwd(sl.cfg, {k: ws[k][s] for k in names}, h[s],
+                              last=None if last is None else last[s])[0]
+            for s in range(sl.n)]
+    if cache is not None:
+        _store_shift(sl, cache["cm_shift"], h)
+    return outs
+
+
 def _layer_names(cfg: ArchConfig):
     n_full, n_tail = T.split_layers(cfg)
     out = []
@@ -206,16 +375,34 @@ def _layer_names(cfg: ArchConfig):
     return out
 
 
-def partitioned_loss(cfg: ArchConfig, mesh: M.Mesh, live: Dict[str, List[torch.Tensor]],
-                     layouts: Dict[str, Layout], tokens: List[torch.Tensor], mask=None,
-                     denominator: Optional[float] = None) -> List[torch.Tensor]:
-    """Each slot's loss of its replica's rows: ``tokens[s]`` [B_r, S] (and
-    ``mask[s]``) through the partitioned decoder (the module docstring),
-    scored by ``lm_loss_vocab_parallel`` as Σ nll · mask over
-    ``denominator``.  ``live[name][s]`` is slot ``s``'s tensor of leaf
-    ``name``, ``layouts[name]`` its layout.  The loss is the same on every
-    slot of a replica."""
-    check_partitionable(cfg)
+def vocab_axis(cfg: ArchConfig, mesh: M.Mesh, layouts: Dict[str, Layout]) -> Optional[str]:
+    """``model`` where the logits come out per vocabulary block (the
+    embedding's or the untied head's spec splits the vocabulary over it),
+    else None."""
+    sl = _Slab(cfg, mesh, {}, layouts)
+    split = (sl.split_over_model("embed", 0) if cfg.tie_embeddings
+             else sl.split_over_model("lm_head", -1))
+    return sl.mp if split else None
+
+
+def partitioned_forward(cfg: ArchConfig, mesh: M.Mesh, live: Dict[str, List[torch.Tensor]],
+                        layouts: Dict[str, Layout], tokens: List[torch.Tensor], *,
+                        cache: Optional[Dict[str, List[torch.Tensor]]] = None,
+                        cache_index: Optional[int] = None, differentiable: bool):
+    """``tokens[s]`` [B_r, S], replica ``r``'s rows on slot ``s``, through
+    the partitioned decoder (the module docstring): ``(logits, cache)``,
+    ``logits[s]`` [B_r, S, V / M] slot ``s``'s vocabulary block where
+    ``vocab_axis`` is ``model`` (else [B_r, S, V]).  ``live[name][s]`` is
+    slot ``s``'s tensor of leaf ``name``, ``layouts[name]`` its layout.
+
+    ``differentiable=True`` is the train step's forward (``_sdpa``; no
+    cache).  Otherwise attention and the RWKV recurrence run the kernels,
+    and with ``cache`` (``cache[name][s]`` slot ``s``'s block of the cache
+    leaf ``name``, placed by ``cache_shardings``) the step is incremental
+    at the write offset ``cache_index``: the blocks are updated in place
+    and returned."""
+    if cache is not None and differentiable:
+        raise ValueError("the partitioned train forward takes no cache")
     sl = _Slab(cfg, mesh, live, layouts)
     n, mp = sl.n, sl.mp
     cdt = dtype_of(cfg.compute_dtype)
@@ -241,16 +428,30 @@ def partitioned_loss(cfg: ArchConfig, mesh: M.Mesh, live: Dict[str, List[torch.T
         dev = x[s].device
         if dev not in angles:
             B, S = tokens[s].shape
-            angles[dev] = T._rope_angles(cfg, None, S, B, dev)
+            pos = None
+            if cache_index is not None:
+                pos = (torch.arange(S, device=dev)[None] + int(cache_index)).expand(B, S)
+            angles[dev] = T._rope_angles(cfg, pos, S, B, dev)
     if all(a is None for a in angles.values()):
         angles = None
 
     for pre, rep, blk in _layer_names(cfg):
+        lc = None
+        if cache is not None:
+            lc = {k[len(pre) + 1:]: v if rep is None else [b[rep] for b in v]
+                  for k, v in cache.items() if k.startswith(pre + "/")}
         h = sl.norm(f"{pre}/norm1", rep, x)
-        a = _attention(sl, f"{pre}/attn", rep, blk, h, angles)
+        if blk.mixer == "rwkv":
+            a = _time_mix(sl, f"{pre}/rwkv", rep, h, cache=lc, differentiable=differentiable)
+        else:
+            a = _attention(sl, f"{pre}/attn", rep, blk, h, angles, cache=lc,
+                           cache_index=cache_index, differentiable=differentiable)
         x = [xi + ai for xi, ai in zip(x, a)]
         h2 = sl.norm(f"{pre}/norm2", rep, x)
-        f = _ffn(sl, f"{pre}/{blk.ffn}", rep, blk.ffn, h2)
+        if blk.ffn == "rwkv_cm":
+            f = _channel_mix(sl, f"{pre}/rwkv_cm", rep, h2, cache=lc)
+        else:
+            f = _ffn(sl, f"{pre}/{blk.ffn}", rep, blk.ffn, h2, serving=not differentiable)
         x = [xi + fi for xi, fi in zip(x, f)]
 
     x = sl.norm("final_norm", None, x)
@@ -263,5 +464,29 @@ def partitioned_loss(cfg: ArchConfig, mesh: M.Mesh, live: Dict[str, List[torch.T
     logits = [x[s] @ heads[s].to(x[s].dtype) for s in range(n)]
     if cfg.logit_softcap > 0:
         logits = [torch.tanh(lg / cfg.logit_softcap) * cfg.logit_softcap for lg in logits]
-    return lm_loss_vocab_parallel(logits, tokens, mesh, mp if head_split else None, mask,
+    return logits, cache
+
+
+def gather_last(logits: List[torch.Tensor], mesh: M.Mesh, vocab: Optional[str]) -> torch.Tensor:
+    """The serving steps' output: each slot's last-position logits
+    [B_r, V / M] all-gathered over ``vocab`` (``model``, where they come out
+    per vocabulary block) and then over the batch axis, each counted:
+    [B, V] on slot 0's device (the reference's ``out_shardings=None``)."""
+    dp, _ = grid_axes(mesh)
+    last = [lg[:, -1] for lg in logits]
+    if vocab is not None:
+        last = M.axis_all_gather(last, mesh, vocab, 1)
+    return M.axis_all_gather(last, mesh, dp, 0)[0]
+
+
+def partitioned_loss(cfg: ArchConfig, mesh: M.Mesh, live: Dict[str, List[torch.Tensor]],
+                     layouts: Dict[str, Layout], tokens: List[torch.Tensor], mask=None,
+                     denominator: Optional[float] = None) -> List[torch.Tensor]:
+    """Each slot's loss of its replica's rows: ``tokens[s]`` [B_r, S] (and
+    ``mask[s]``) through ``partitioned_forward(differentiable=True)``,
+    scored by ``lm_loss_vocab_parallel`` as Σ nll · mask over
+    ``denominator``.  The loss is the same on every slot of a replica."""
+    check_partitionable(cfg)
+    logits, _ = partitioned_forward(cfg, mesh, live, layouts, tokens, differentiable=True)
+    return lm_loss_vocab_parallel(logits, tokens, mesh, vocab_axis(cfg, mesh, layouts), mask,
                                   denominator)

@@ -110,10 +110,25 @@ def time_mix_fwd(cfg: ArchConfig, p, x, *, state=None, return_state=False,
     "shift":[B,1,D]}; new_state is a fresh dict (None unless
     ``return_state``).  ``differentiable=True`` runs the recurrence as
     ``_recurrence`` instead of the kernel."""
-    B, S, D = x.shape
-    H, hd = num_heads(cfg), cfg.ssm.head_dim
-    last = state["shift"] if state is not None else None
-    xx = _token_shift(x, last)
+    xx = _token_shift(x, state["shift"] if state is not None else None)
+    yg, s_final = time_mix_heads(cfg, p, x, xx, s0=None if state is None else state["S"],
+                                 differentiable=differentiable)
+    out = yg @ p["wo"]
+    new_state = {"S": s_final, "shift": x[:, -1:]} if return_state else None
+    return out, new_state
+
+
+def time_mix_heads(cfg: ArchConfig, p, x, xx, *, s0=None, differentiable: bool = False):
+    """The time mix up to its output product, over the heads whose leaves
+    ``p`` holds: x and its token shift xx [B,S,D] -> (y·g [B,S,H·hd] in x's
+    dtype, the final state [B,H,hd,hd] f32), H = ``p["u"].shape[0]``.
+    ``mu`` and ``lora_mix`` act on all D channels; ``wr/wk/wv/wg``, the
+    decay's ``lora_w/b`` and ``w0``, ``u`` and the group norm's
+    ``ln_scale``/``ln_bias`` may be a slot's block of H heads (the
+    head-parallel time mix of ``models.partitioned``), whose group norm is
+    then local.  ``s0`` (default zeros) is those heads' state."""
+    B, S, _ = x.shape
+    H, hd = p["u"].shape
     xw, xk, xv, xr, xg = _ddlerp(p, x, xx)
 
     # the reference casts r, k, v to f32 for the recurrence (rwkv.py:102)
@@ -124,9 +139,7 @@ def time_mix_fwd(cfg: ArchConfig, p, x, *, state=None, return_state=False,
     # data-dependent log-decay, <= 0: w = exp(logw) is in (0, 1]
     logw = -torch.exp(p["w0"] + _lora(p["lora_w"], xw).float()).reshape(B, S, H, hd)
 
-    if state is not None:
-        s0 = state["S"]
-    else:
+    if s0 is None:
         s0 = torch.zeros((B, H, hd, hd), dtype=torch.float32, device=x.device)
     if differentiable:
         y, s_final = _recurrence(r, k, v, torch.exp(logw), p["u"], s0)
@@ -138,11 +151,8 @@ def time_mix_fwd(cfg: ArchConfig, p, x, *, state=None, return_state=False,
     mu = torch.mean(y, dim=-1, keepdim=True)
     var = torch.var(y, dim=-1, keepdim=True, unbiased=False)
     yh = (y - mu) * torch.rsqrt(var + 64e-5)
-    y = yh.reshape(B, S, D) * p["ln_scale"].float() + p["ln_bias"].float()
-
-    out = (y.to(x.dtype) * g) @ p["wo"]
-    new_state = {"S": s_final, "shift": x[:, -1:]} if return_state else None
-    return out, new_state
+    y = yh.reshape(B, S, H * hd) * p["ln_scale"].float() + p["ln_bias"].float()
+    return y.to(x.dtype) * g, s_final
 
 
 def init_channel_mix(cfg: ArchConfig, gen: torch.Generator, dtype, device):

@@ -1,7 +1,13 @@
 """Minimal batched serving engine (port of ``repro.serve.engine``): prefill
 the prompt into a KV/state cache, then greedy-decode one token per step via
 ``serve_step``.  The cache lives on the parameters' device and is updated
-in place; the host sees only the token ids."""
+in place; the host sees only the token ids.
+
+Params placed by ``launch.sharding.device_put`` on a grid of several slots
+serve partitioned (``train.step.make_serve_step``'s placed branch): the
+engine places the prompt by ``batch_shardings`` and the cache by
+``cache_shardings`` on the params' grid, and takes the argmax of the
+logits gathered on slot 0's device."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -10,9 +16,11 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.transformer import forward_lm, init_cache
-from repro_torch.train.step import make_serve_step
-from repro_torch.utils.pytree import tree_device
+from repro_torch.launch import sharding as SH
+from repro_torch.models.partitioned import grid_axes
+from repro_torch.models.transformer import init_cache
+from repro_torch.train.step import is_placed, make_serve_step
+from repro_torch.utils.pytree import tree_device, tree_leaves
 
 
 @dataclass
@@ -34,8 +42,24 @@ class Engine:
         self._serve = make_serve_step(cfg)
 
     def _prefill(self, params, tokens, cache):
-        logits, _, cache = forward_lm(self.cfg, params, tokens, cache=cache, cache_index=0)
-        return logits[:, -1], cache
+        return self._serve(params, cache, tokens, 0)
+
+    def _start(self, params, prompts: np.ndarray):
+        """(prompt tokens, a zeroed cache), where ``params`` live: on their
+        device, or placed on their grid."""
+        B = prompts.shape[0]
+        if not is_placed(params):
+            dev = tree_device(params)
+            return (torch.as_tensor(prompts, dtype=torch.long, device=dev),
+                    init_cache(self.cfg, B, self.max_len, device=dev))
+        mesh = tree_leaves(params)[0].layout.mesh
+        dp, mp = grid_axes(mesh)
+        cache = init_cache(self.cfg, B, self.max_len, device=mesh.devices.flat[0])
+        cache = SH.device_put(cache, SH.cache_shardings(mesh, cache, self.cfg, data_axis=dp,
+                                                        model_axis=mp))
+        tokens = {"tokens": torch.as_tensor(prompts, dtype=torch.long)}
+        return SH.device_put(tokens, SH.batch_shardings(mesh, tokens, data_axis=dp,
+                                                        model_axis=mp))["tokens"], cache
 
     @torch.inference_mode()
     def generate(self, prompts: np.ndarray, *, max_new_tokens: int = 16,
@@ -43,7 +67,8 @@ class Engine:
         """prompts: [B, P] int (fixed-length, packed by the caller).
 
         ``params=`` serves this one request against a different (same-
-        shaped) parameter tree; the engine's default tree stays."""
+        shaped) parameter tree, placed or not; the engine's default tree
+        stays."""
         params = self.params if params is None else params
         prompts = np.asarray(prompts)
         B, P = prompts.shape
@@ -52,9 +77,7 @@ class Engine:
                 f"prompt_len={P} + max_new_tokens={max_new_tokens} exceeds "
                 f"max_len={self.max_len}; re-build the Engine with a larger "
                 "max_len or shorten the request")
-        dev = tree_device(params)
-        cache = init_cache(self.cfg, B, self.max_len, device=dev)
-        tokens = torch.as_tensor(prompts, dtype=torch.long, device=dev)
+        tokens, cache = self._start(params, prompts)
         logits, cache = self._prefill(params, tokens, cache)
         out = [torch.argmax(logits, dim=-1)]
         for t in range(1, max_new_tokens):

@@ -32,6 +32,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.launch import mesh as M
+from repro_torch.launch import sharding as SH
 from repro_torch.models import partitioned as PT
 from repro_torch.models import whisper as W
 from repro_torch.models.transformer import forward_lm
@@ -169,16 +170,7 @@ def make_train_step(cfg: ArchConfig, optimizer: Optimizer, *, microbatches: int 
 
     def partitioned_step(state, batch):
         params = state["params"]
-        named = tree_leaves_with_path(params)
-        if not all(isinstance(x, Placed) for _, x in named):
-            whole = [k for k, x in named if not isinstance(x, Placed)][:4]
-            raise ValueError(f"placed params with leaves placed whole: {whole}")
-        mesh = named[0][1].layout.mesh
-        devices = list(mesh.devices.flat)
-        for k, x in named:
-            grid = x.layout.mesh
-            if grid.axis_names != mesh.axis_names or list(grid.devices.flat) != devices:
-                raise ValueError(f"{k} is placed on {grid!r}, the params on {mesh!r}")
+        named, mesh = _placed_grid(params, "params")
         PT.check_partitionable(cfg, list(batch))
         if grad_shardings is not None:
             check_shardings(params)
@@ -288,6 +280,64 @@ def make_train_step(cfg: ArchConfig, optimizer: Optimizer, *, microbatches: int 
     return train_step
 
 
+def is_placed(params) -> bool:
+    """Whether a parameter tree is placed in blocks on a grid of several
+    slots (``utils.placed.Placed`` leaves): the partitioned steps' input."""
+    return any(isinstance(x, Placed) for x in tree_leaves(params))
+
+
+def _placed_grid(tree, what: str):
+    """``(named leaves, grid)`` of a tree whose every leaf is placed on one
+    grid; ``ValueError`` otherwise."""
+    named = tree_leaves_with_path(tree)
+    if not all(isinstance(x, Placed) for _, x in named):
+        whole = [k for k, x in named if not isinstance(x, Placed)][:4]
+        raise ValueError(f"placed {what} with leaves placed whole: {whole}")
+    mesh = named[0][1].layout.mesh
+    devices = list(mesh.devices.flat)
+    for k, x in named:
+        grid = x.layout.mesh
+        if grid.axis_names != mesh.axis_names or list(grid.devices.flat) != devices:
+            raise ValueError(f"{k} is placed on {grid!r}, the {what} on {mesh!r}")
+    return named, mesh
+
+
+@torch.no_grad()
+def _partitioned_last_logits(cfg: ArchConfig, params, tokens, cache=None,
+                             cache_index=None) -> torch.Tensor:
+    """The serving steps on placed params: ``tokens`` [B, S] (a tensor,
+    an array, or placed by ``batch_shardings`` on the params' grid) through
+    ``models.partitioned.partitioned_forward`` on the kernels, against
+    ``cache`` (placed on the same grid by ``cache_shardings``, updated in
+    place) at ``cache_index``; the last position's logits [B, V] gathered
+    on slot 0's device."""
+    named, mesh = _placed_grid(params, "params")
+    dp, mp = PT.grid_axes(mesh)
+    B = tokens.shape[0]
+    PT.check_partitionable(cfg, serving=True, batch=B, replicas=mesh.extent(dp))
+    blocks = None
+    if cache is not None:
+        placed, grid = _placed_grid(cache, "cache")
+        if grid.axis_names != mesh.axis_names or list(grid.devices.flat) != list(
+                mesh.devices.flat):
+            raise ValueError(f"the cache is placed on {grid!r}, the params on {mesh!r}")
+        want = dict(tree_leaves_with_path(SH.cache_shardings(mesh, cache, cfg, data_axis=dp,
+                                                             model_axis=mp)))
+        for k, x in placed:
+            spec = tuple(spec_axes(e) for e in want[k].spec)
+            spec += ((),) * (x.dim() - len(spec))
+            if x.layout.spec != spec:
+                raise ValueError(f"cache leaf {k} is placed as {x.layout.spec}; "
+                                 f"cache_shardings places it as {want[k].spec}")
+        blocks = {k: x.slot_blocks() for k, x in placed}
+    layouts = {k: x.layout for k, x in named}
+    rows = _slot_rows({"tokens": tokens}, mesh, dp)["tokens"]
+    logits, _ = PT.partitioned_forward(cfg, mesh, {k: x.slot_blocks() for k, x in named},
+                                       layouts, rows, cache=blocks, cache_index=cache_index,
+                                       differentiable=False)
+    return PT.gather_last(logits, mesh, PT.vocab_axis(cfg, mesh, layouts))
+
+
 def _slot_rows(batch, mesh: M.Mesh, dp) -> Dict[str, list]:
     """Each slot's rows of each batch array: replica ``r``'s share of the
     batch axis on slot ``(r, m)``'s device.  A leaf placed over the batch
@@ -329,21 +379,41 @@ def make_eval_step(cfg: ArchConfig) -> Callable:
 
 def make_prefill_step(cfg: ArchConfig) -> Callable:
     """Forward pass of the full prompt, no cache: ``(params, batch) ->
-    last-position logits [B, V]`` (the next-token distribution)."""
+    last-position logits [B, V]`` (the next-token distribution).
+
+    Placed params (a grid of several slots, as ``make_train_step``'s) run
+    ``models.partitioned`` on the kernels, each slot on its own heads; the
+    batch's tokens are split over the batch axis (or come placed by
+    ``batch_shardings``) and the logits come back whole, on slot 0's
+    device (the reference's ``jax.jit(prefill_step, in_shardings=(params_sh,
+    batch_sh), out_shardings=None)``)."""
 
     def prefill_step(params, batch):
+        if is_placed(params):
+            PT.check_partitionable(cfg, list(batch), serving=True)
+            return _partitioned_last_logits(cfg, params, batch["tokens"])
         return _logits(cfg, params, batch, differentiable=False)[0][:, -1]
 
     return prefill_step
 
 
 def make_serve_step(cfg: ArchConfig) -> Callable:
-    """One decode step against a KV/state cache: ``(params, cache, tokens
-    [B, 1], cache_index) -> (logits [B, V], cache)``; the cache is updated
-    in place and returned.  For an encoder-decoder config the cache is
-    ``whisper.init_whisper_cache``'s, primed by ``prime_cross_cache``."""
+    """One step against a KV/state cache: ``(params, cache, tokens [B, S],
+    cache_index) -> (logits [B, V], cache)``, the last position's logits;
+    the cache is updated in place and returned.  S = 1 is a decode step;
+    the prompt at ``cache_index`` 0 is the engine's prefill.  For an
+    encoder-decoder config the cache is ``whisper.init_whisper_cache``'s,
+    primed by ``prime_cross_cache``.
+
+    Placed params take the partitioned step (``make_prefill_step``'s) with
+    a cache placed on their grid by ``launch.sharding.cache_shardings``
+    (the reference's ``in_shardings=(params_sh, cache_sh, tokens_sh, rep),
+    out_shardings=(None, cache_sh)``): each slot writes its block in place,
+    and the logits come back whole on slot 0's device."""
 
     def serve_step(params, cache, tokens, cache_index):
+        if is_placed(params):
+            return _partitioned_last_logits(cfg, params, tokens, cache, cache_index), cache
         if cfg.is_encoder_decoder:
             logits, _, cache = W.whisper_decode(cfg, params, tokens, cache=cache,
                                                 cache_index=cache_index)
