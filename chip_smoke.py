@@ -353,7 +353,7 @@ Phases (any failed check raises, so the script exits non-zero):
    2 query heads on its one kv head of 256, B = 2, bf16 prefill, decode
    and the ring decode; rwkv6-7b's 32 heads, f32, both routes).  Then each
    of ``PSERVE_MODELS`` at full width in bf16 from seed 0, one at a time
-   with memory freed between them: rwkv6-7b 4 x 256 -> 32,
+   with memory freed between them: rwkv6-7b 4 x 256 -> 16,
    mistral-nemo-12b (all 40 layers, ``fsdp=True`` as configured) 4 x 256
    -> 16, gemma3-1b 4 x 1024 -> 32 (cache 1280: the hd-split cache, the
    window masks) and gemma3-1b with the ring cache 4 x 500 -> 16 (its
@@ -368,18 +368,52 @@ Phases (any failed check raises, so the script exits non-zero):
    (``pserve_routes``) and the collectives equal to ``new_tokens`` times
    ``serve_collectives`` (by kind and by axis), timed; a prefill timed
    with its collective bytes (a decode step's are the generate's rest),
-   one prefill and 2 steps under ``torch.profiler`` (the device's activity
+   one prefill and 1 step under ``torch.profiler`` (the device's activity
    alone); the partitioned model teacher-forced on the whole
    model's tokens against the whole model's logits (``tp_agreement``:
    within 4x the yardstick, tokens equal wherever the margin decides, the
    low-margin ones counted).  Its record is a ``{"partitioned_serve":
    ...}`` line.
 
+20. the partitioned MoE FFN and M-RoPE (slice 16,
+   ``phase_partitioned_moe``, under two and a half minutes): first
+   ``flash_attention`` against its plain version at the per-slot shapes
+   (``phase_pmoe_kernel_checks``: granite-moe's 8 query heads on 4 kv heads
+   of 64, mixtral's 16 on 4 of 128 with its 4096 window, qwen2-vl's 32 on 4
+   of 128; B = 2, bf16 prefill and decode).  Then each of ``PMOE_SERVE``
+   at full width in bf16 from seed 0, one at a time with memory freed
+   between them: granite-moe-1b-a400m (24 layers, 16 experts a slot) 4 x
+   1024 -> 32, mixtral-8x7b cut to 4 of its 32 layers (4 experts a slot,
+   ``fsdp=True`` as configured) 4 x 256 -> 16, qwen2-vl-72b cut to 8 of 80
+   layers, phase 14's vision prefill of 4 x (256 patches + 256 text) into
+   a placed cache and 16 serve steps.  The whole model's side is phase 13's
+   (granite-moe) and phase 14's (qwen2-vl) run of the same tree and prompts
+   where those phases ran (``WHOLE_RUNS``), else run here: its tokens, its
+   logits teacher-forced on them with its MoE routing recorded, its times;
+   the yardstick is the same run with the kernels nudged by ``TP_NUDGE``
+   and the routing replayed.  Then the params placed on
+   ``make_mesh((2, 2), ("data", "model"))``: bytes a slot equal
+   ``dryrun.slot_bytes``; one partitioned generate (``Engine.generate``; the
+   vision prompt through the placed prefill) with the launches exact by
+   route and the collectives ``new_tokens`` times ``serve_collectives``;
+   a prefill timed with its collective bytes, a prefill and a decode step under
+   ``torch.profiler``; the partitioned model teacher-forced on the whole
+   model's tokens with the whole run's routing replayed slot by slot
+   (``slot_replay``, the decisions it would have taken otherwise counted)
+   against the whole model's logits (``tp_agreement``).  Then
+   ``PMOE_TRAIN``: one f32 step whole and on ``(replica 2, model 2)``,
+   granite-moe (AdamW, 4 x 128) and mixtral cut to 2 layers (SGD, 4 x 64),
+   the whole step's routing replayed: loss, aux, grad_norm and the kept
+   gradients within ``PARTITIONED_RTOL`` / ``ATOL``, the collectives equal
+   ``partitioned_collectives``, bytes a slot ``dryrun.slot_bytes``.  Its
+   record is a ``{"partitioned_moe": ...}`` line.
+
 Before each of phases 6, 7, 8, 10, 11 and 16 (and again before each of
 phase 16's serves), before each model of phases 9, 13 and 14, around
 phases 12's, 13's and 14's eval steps and generates, around each run of
 phase 15's mesh daemon, around phase 17's counted prefill and decode step
-and around each of phase 19's partitioned generates, every kernel's launch
+and around each of phase 19's and phase 20's partitioned generates, every
+kernel's launch
 counter is set to 0; it is read just after.  The last lines are the
 kernels' JSON record (launches from phase 7 for the three fuse kernels, with phase 10's
 as ``launches_routed``, from phase 9 for the other two, phase 11's as
@@ -387,13 +421,15 @@ as ``launches_routed``, from phase 9 for the other two, phase 11's as
 ``launches_archs``, phase 14's as ``launches_archs2``, phase 15's as
 ``launches_mesh``, phase 16's serves as ``launches_cold_mesh`` and
 ``launches_cold_mesh_partitioned``, phase 17's serving step as
-``launches_dryrun`` and phase 19's partitioned generates summed as
-``launches_partitioned_serve`` for all five; phase 15's times under
-``mesh``; phase 19's per-slot checks as ``per_slot_max_abs_err``; each
+``launches_dryrun``, phase 19's partitioned generates summed as
+``launches_partitioned_serve`` and phase 20's as
+``launches_partitioned_moe`` for all five; phase 15's times under
+``mesh``; phases 19's and 20's per-slot checks as ``per_slot_max_abs_err``; each
 kernel's ``cost_formula``), phase 16's record as a ``{"cold_mesh": ...}``
 line, phase 17's as a ``{"dryrun": ...}`` line, phase 18's as a
 ``{"partitioned": ...}`` line (its steps launch no kernel), phase 19's as a
-``{"partitioned_serve": ...}`` line, ``nvidia-smi``'s line and
+``{"partitioned_serve": ...}`` line, phase 20's as a ``{"partitioned_moe":
+...}`` line, ``nvidia-smi``'s line and
 ``{"ok": true, "device": {...}}``.  Without a card (or without the rest of
 the repository beside it) the script exits non-zero and prints no result.
 """
@@ -463,6 +499,7 @@ from repro_torch.train import pretrain as pretrain_mod  # noqa: E402
 from repro_torch.train import pretrain_mlm, train_multitask  # noqa: E402
 from repro_torch.optim import constant_lr, make_optimizer, warmup_cosine_lr  # noqa: E402
 from repro_torch.train.losses import lm_loss  # noqa: E402
+from repro_torch.train import step as step_mod  # noqa: E402
 from repro_torch.train.step import (make_eval_step, make_serve_step,  # noqa: E402
                                     make_train_state, make_train_step)
 from repro_torch.serve.cold_service import (AdmissionPolicy, ColdService,  # noqa: E402
@@ -2791,9 +2828,12 @@ def phase_serve(arch, cfg, prompt_len, new_tokens, max_len, kernel, card, routes
             moe_timing(arch, cfg, params, prompt_len, pre_ms, dec_ms, moe_layers, card)
 
     gen_k = res.tokens[:, prompt_len:]
-    serve_agreement(arch, cfg, lambda: teacher_forced(cfg, params, prompts, gen_k, max_len),
-                    gen_k)
-    del params, eng
+    whole = serve_agreement(arch, cfg, lambda: teacher_forced(cfg, params, prompts, gen_k,
+                                                              max_len), gen_k)
+    if arch in PMOE_REUSED:  # phase 20's whole run of the same tree and prompts
+        WHOLE_RUNS[arch] = dict(whole, prefill_ms=pre_ms, decode_ms=dec_ms, max_len=max_len,
+                                n_layers=cfg.num_layers)
+    del params, eng, whole
     torch.cuda.empty_cache()
     return counts[kernel], by_route, {"prefill_ms": pre_ms, "decode_ms": dec_ms,
                                       "tokens_per_s": 4 * new_tokens / gen_ms * 1e3,
@@ -2960,6 +3000,9 @@ def serve_agreement(arch, cfg, run, gen_k):
           f"{floor_dec[0]:.4g} / mean {floor_dec[1]:.3g} (decode), bound 4x; tokens: "
           f"{int(dec_np.sum())}/{dec_np.size} decided by a margin > 2 x max|d| and all agree; "
           f"{int(agree.sum())}/{agree.size} agree overall" + flips)
+    # the kernel run as phase 20 compares a partitioned run with it
+    return {"tokens": gen_k, "logits": torch.cat([pre_k[:, -1:], dec_k], 1).clone(),
+            "calls": rec.calls}
 
 
 def device_split(fn):
@@ -3996,8 +4039,11 @@ def serve_qwen(card, table):
           f"{peak:.2f} GiB; on {card}")
     print_split(arch, f"the vision prefill 4 x {QWEN_LEN}", pre_ms,
                 device_split(lambda: vision_generate(0)))
-    serve_agreement(arch, cfg, lambda: teacher_forced(cfg, params, tokens, gen_k, max_len,
-                                                      positions=pos, extra_embeds=extra), gen_k)
+    whole = serve_agreement(arch, cfg, lambda: teacher_forced(
+        cfg, params, tokens, gen_k, max_len, positions=pos, extra_embeds=extra), gen_k)
+    WHOLE_RUNS[arch] = dict(whole, prefill_ms=pre_ms, decode_ms=dec_ms, max_len=max_len,
+                            n_layers=cfg.num_layers)
+    del whole
     rope = dataclasses.replace(cfg, rope=dataclasses.replace(cfg.rope, kind="default"))
     with torch.inference_mode():
         text = tokens[:, QWEN_PATCHES:]
@@ -4744,14 +4790,23 @@ def partitioned_collectives(cfg, psh, R: int, M: int, microbatches: int = 1):
     them whole.  Over ``replica``: each use of a leaf FSDP splits, one
     all-gather and one reduce-scatter.  Per step: one all-reduce over
     ``replica`` per leaf not split over it and the loss metric's, and the
-    global norm's."""
-    L, hd = cfg.num_layers, cfg.head_dim
-    ar = ag = 0
+    global norm's.  A MoE layer (``tests/test_torch_partitioned_moe.py``
+    holds it) makes, per microbatch, three all-reduces over ``model`` where
+    its experts (or, with the lever, its F) split: the combine's and the
+    backward's of the router's top-k weights and of the experts' input;
+    and over ``replica`` the aux loss's all-reduce and the expert counts'
+    all-gather."""
+    hd = cfg.head_dim
+    L = sum(b.mixer == "attn" for b in cfg.blocks)
+    n_dense = sum(b.ffn in ("glu", "mlp") for b in cfg.blocks)
+    n_moe = sum(b.ffn == "moe" for b in cfg.blocks)
+    ar = ag = counts = 0
     if M > 1:
         vocab = cfg.vocab_size % M == 0
         attn = (cfg.num_heads * hd) % M == 0
         ffn = cfg.d_ff % M == 0
-        ar += vocab + L * (2 * attn + 2 * ffn) + vocab + 3 * vocab
+        ar += vocab + 2 * L * attn + 2 * n_dense * ffn + vocab + 3 * vocab
+        ar += 3 * moe_layers_split(cfg, psh, "model")
         if attn and cfg.num_kv_heads % M:
             if (cfg.num_kv_heads * hd) % M == 0:
                 ag += 2 * L
@@ -4766,10 +4821,20 @@ def partitioned_collectives(cfg, psh, R: int, M: int, microbatches: int = 1):
             else:
                 per_step += 1
         per_step += 1
+        ar += n_moe
+        counts = n_moe * (cfg.moe.routing != "dense")
     per_step += 1 if R * M > 1 else 0
     return {"all_reduce": microbatches * ar + per_step,
-            "all_gather": microbatches * (ag + fsdp_uses),
+            "all_gather": microbatches * (ag + counts + fsdp_uses),
             "reduce_scatter": microbatches * (ag + fsdp_uses)}
+
+
+def moe_layers_split(cfg, psh, axis):
+    """The MoE layers whose expert stacks the specs split over ``axis``."""
+    n_full, _ = tt_mod.split_layers(cfg)
+    return sum((n_full if name.startswith("scan/") else 1)
+               for name, sh in tree_leaves_with_path(psh)
+               if name.endswith("moe/w_gate") and axis in sh.spec)
 
 
 def blocks_of(x):
@@ -5117,7 +5182,7 @@ def phase_cold_mesh(card):
                                         SERVE_NEW, grid)[0]
     same = int((res.tokens[:, GEMMA_PROMPT:] == gen_k).sum())
     agreement = tp_agreement("gemma3-1b (fused base, partitioned on its slab's grid)",
-                             stepped(GEMMA, placed_params, prompts, GEMMA_MAX_LEN, gen_k), ref)
+                             stepped(GEMMA, placed_params, prompts, GEMMA_MAX_LEN, gen_k)[1], ref)
     del eng, placed_params, ref
     records.update(serve_s=gen_s, flash_routes=by_route, peak_gib=cards_peak_gib(),
                    partitioned_serve={"grid": repr(grid), "serve_s": part_s,
@@ -5585,10 +5650,13 @@ def phase_partitioned(card):
 # each model at full width in bf16 on a (data 2, model 2) grid of the visible
 # cards: (arch, prompt tokens, new tokens, cache length, the ring cache on);
 # gemma3-1b's ring run takes 4 x RING_PSERVE_PROMPT (a prefill fits its
-# 512-slot rings), which wrap after decode step 512 - RING_PSERVE_PROMPT
+# 512-slot rings), which wrap after decode step 512 - RING_PSERVE_PROMPT;
+# rwkv6-7b generates RWKV_PSERVE_NEW tokens
 PSERVE_GRID = (2, 2)
 RING_PSERVE_PROMPT, RING_PSERVE_NEW = 500, 16
-PSERVE_MODELS = (("rwkv6-7b", RWKV_PROMPT, SERVE_NEW, RWKV_MAX_LEN, False),
+RWKV_PSERVE_NEW = 16
+PSERVE_MODELS = (("rwkv6-7b", RWKV_PROMPT, RWKV_PSERVE_NEW, RWKV_PROMPT + RWKV_PSERVE_NEW,
+                  False),
                  ("mistral-nemo-12b", DENSE_PROMPT, DENSE_NEW, DENSE_PROMPT + DENSE_NEW, False),
                  ("gemma3-1b", GEMMA_PROMPT, SERVE_NEW, GEMMA_MAX_LEN, False),
                  ("gemma3-1b", RING_PSERVE_PROMPT, RING_PSERVE_NEW,
@@ -5599,7 +5667,7 @@ PSERVE_MODELS = (("rwkv6-7b", RWKV_PROMPT, SERVE_NEW, RWKV_MAX_LEN, False),
 # the whole product has), so the whole model's kernel outputs are nudged by
 # one bf16 ulp (2^-8), not by an f32 summation-order difference
 TP_NUDGE = 2.0 ** -8
-PSERVE_DECODE_PROFILED = 2  # decode steps profiled (the profiler's work grows with them)
+PSERVE_DECODE_PROFILED = 1  # decode steps profiled (the profiler's work grows with them)
 
 
 def serve_collectives(cfg, psh, R: int, M: int, *, cached: bool = True, data_axis="data"):
@@ -5614,16 +5682,21 @@ def serve_collectives(cfg, psh, R: int, M: int, *, cached: bool = True, data_axi
     cache, its k and v all-gathered where its spec splits ``head_dim``, and
     an RWKV layer's two token-shift states; the last logits all-gathered
     where they come out per vocabulary block.  Over the batch axis: each use
-    of a leaf FSDP splits, one all-gather, and the last logits'."""
+    of a leaf FSDP splits, one all-gather, and the last logits'.  A MoE
+    layer: the combine's all-reduce over ``model`` where its experts
+    (or F) split, and one all-gather of the expert counts over the batch
+    axis."""
     n_attn = sum(b.mixer == "attn" for b in cfg.blocks)
     n_rwkv = sum(b.mixer == "rwkv" for b in cfg.blocks)
     n_dense = sum(b.ffn in ("glu", "mlp") for b in cfg.blocks)
+    n_moe = sum(b.ffn == "moe" for b in cfg.blocks)
     ar = ag_m = ag_d = 0
     if M > 1:
         vocab = cfg.vocab_size % M == 0
         hd, Hkv = cfg.head_dim, cfg.num_kv_heads
         attn = (cfg.num_heads * hd) % M == 0
         ar += vocab + n_attn * attn + n_dense * (cfg.d_ff % M == 0)
+        ar += moe_layers_split(cfg, psh, "model")
         ar += n_rwkv * (cfg.d_model % M == 0)
         if attn and Hkv % M and (Hkv * hd) % M == 0:
             ag_m += 2 * n_attn
@@ -5637,7 +5710,7 @@ def serve_collectives(cfg, psh, R: int, M: int, *, cached: bool = True, data_axi
         for name, sh in tree_leaves_with_path(psh):
             if data_axis in sh.spec:
                 ag_d += n_full if name.startswith("scan/") else 1
-        ag_d += 1
+        ag_d += 1 + n_moe * (cfg.moe.routing != "dense")
     kinds = {"all_reduce": ar, "all_gather": ag_m + ag_d, "reduce_scatter": 0}
     return kinds, {a: n for a, n in (("model", ar + ag_m), (data_axis, ag_d)) if n}
 
@@ -5665,22 +5738,37 @@ def pserve_routes(cfg, prompt_len, new_tokens, n_slots: int, M: int):
     return flash, rwkv
 
 
-def stepped(cfg, params, prompts, max_len, feed):
-    """The last-position logits [B, n, V] after the Engine's prefill and
-    each of its n - 1 decode steps (placed params or whole), fed the tokens
-    ``feed`` [B, n] (teacher-forced)."""
+def stepped(cfg, params, prompts, max_len, feed=None, n=None, **vision):
+    """The tokens [B, n] and last-position logits [B, n, V] of a prefill of
+    ``prompts`` into a cache and n - 1 decode steps (placed params or
+    whole), fed the tokens ``feed`` [B, n] (teacher-forced) or greedy.
+    ``vision`` (``positions``, ``extra_embeds``) makes the prefill a
+    vision prompt's: ``forward_lm(cache=, cache_index=0, positions=,
+    extra_embeds=)`` whole, its placed twin on placed params."""
     eng = Engine(cfg, params, max_len=max_len)
-    P = prompts.shape[1]
+    P, n = prompts.shape[1], feed.shape[1] if n is None else n
     with torch.inference_mode():
         toks, cache = eng._start(params, prompts)
-        lg, cache = eng._prefill(params, toks, cache)
-        out = [lg]
-        for t in range(1, feed.shape[1]):
-            lg, cache = eng._serve(params, cache, torch.as_tensor(feed[:, t - 1:t],
-                                                                  device=lg.device), P + t - 1)
+        lg = serve_prefill(cfg, params, eng, toks, cache, vision)
+        tokens, out = [torch.argmax(lg, -1)], [lg]
+        for t in range(1, n):
+            nxt = tokens[-1] if feed is None else torch.as_tensor(feed[:, t - 1], device=lg.device)
+            lg, cache = eng._serve(params, cache, nxt[:, None], P + t - 1)
+            tokens.append(torch.argmax(lg, -1))
             out.append(lg)
         del cache
-    return torch.stack(out, 1)
+    return torch.stack(tokens, 1).cpu().numpy(), torch.stack(out, 1)
+
+
+def serve_prefill(cfg, params, eng, toks, cache, vision):
+    """The last-position logits of a prefill into ``cache``: a text
+    prompt's through the Engine, a vision prompt's through ``forward_lm``
+    whole or its placed twin."""
+    if not vision:
+        return eng._prefill(params, toks, cache)[0]
+    if step_mod.is_placed(params):
+        return step_mod._partitioned_last_logits(cfg, params, toks, cache, 0, **vision)
+    return forward_lm(cfg, params, toks, cache=cache, cache_index=0, **vision)[0][:, -1]
 
 
 class nudged_kernels:
@@ -5721,7 +5809,7 @@ def whole_reference(cfg, params, prompts, max_len, n, tokens=None):
         tokens = eng.generate(prompts, max_new_tokens=n).tokens[:, prompts.shape[1]:]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    lw = stepped(cfg, params, prompts, max_len, tokens)
+    lw = stepped(cfg, params, prompts, max_len, tokens)[1]
     torch.cuda.synchronize()
     run_ms = (time.perf_counter() - t0) * 1e3
     with torch.inference_mode():
@@ -5735,7 +5823,7 @@ def whole_reference(cfg, params, prompts, max_len, n, tokens=None):
     check(np.array_equal(torch.argmax(lw, -1).cpu().numpy(), tokens),
           "teacher-forced whole model must repeat its generate")
     with nudged_kernels(TP_NUDGE):
-        ln = stepped(cfg, params, prompts, max_len, tokens)
+        ln = stepped(cfg, params, prompts, max_len, tokens)[1]
     floor = logit_diff(ln, lw)
     del ln
     return tokens, lw, floor, pre_ms, (run_ms - pre_ms) / (n - 1)
@@ -5894,7 +5982,7 @@ def pserve_model(arch, prompt_len, new_tokens, max_len, ring, card):
         peak = cards_peak_gib()
 
         # the partitioned model teacher-forced on the whole model's tokens
-        lp = stepped(cfg, placed, prompts, max_len, ref[0])
+        lp = stepped(cfg, placed, prompts, max_len, ref[0])[1]
         agreement = tp_agreement(name, lp, ref)
         del lp, placed, eng, ref
         torch.cuda.empty_cache()
@@ -6002,6 +6090,378 @@ def phase_partitioned_serve(card, gen):
     print(f"[pserve] phase 19: {seconds:.1f} s on {card}; launches over the partitioned "
           f"generates {total}")
     return total, {"models": models, "per_slot_max_abs_err": worst, "seconds": seconds}
+
+
+# ---------------------------------------------------------------------------
+# slice 16: the partitioned MoE FFN and M-RoPE (phase 20)
+# ---------------------------------------------------------------------------
+
+# each model whole, then on a (data 2, model 2) grid of the visible cards, bf16
+# at full width with seed-0 weights: granite-moe-1b-a400m (24 layers, 16
+# experts a slot) served 4 x 1024 -> 32 as in phase 13; mixtral-8x7b cut to 4
+# of its 32 layers (E = 8, 4 a slot; FSDP as configured) served 4 x 256 -> 16;
+# qwen2-vl-72b cut to 8 of 80 layers, phase 14's vision prefill 4 x (256
+# patches + 256 text) into a placed cache and QWEN_STEPS serve steps.  Then one
+# f32 train step whole and on (replica 2, model 2): granite-moe with AdamW at
+# 4 x 128, mixtral cut to 2 layers (so that the whole step fits beside the
+# placed copy) with SGD at 4 x 64; gradients held at PARTITIONED_RTOL/ATOL.
+PMOE_GRID = (2, 2)
+MIXTRAL = get_config("mixtral-8x7b")
+PMOE_SERVE = (("granite-moe-1b-a400m", GRANITE_MOE, GEMMA_PROMPT, SERVE_NEW, MOE_MAX_LEN),
+              ("mixtral-8x7b", dataclasses.replace(MIXTRAL, num_layers=4), DENSE_PROMPT,
+               DENSE_NEW, DENSE_PROMPT + DENSE_NEW),
+              ("qwen2-vl-72b", QWEN, QWEN_LEN, QWEN_STEPS + 1, QWEN_LEN + QWEN_STEPS + 1))
+PMOE_TRAIN = (("granite-moe-1b-a400m", GRANITE_MOE, "adamw", 3e-4, 4, 128,
+               ("final_norm/scale", "embed", "scan/pos0/attn/wk", "scan/pos0/moe/router",
+                "scan/pos0/moe/w_down")),
+              ("mixtral-8x7b", dataclasses.replace(MIXTRAL, num_layers=2), "sgd",
+               PARTITIONED_SGD_LR, 4, 64,
+               ("final_norm/scale", "scan/pos0/attn/wk", "scan/pos0/moe/router",
+                "scan/pos0/moe/w_down")))
+# the whole runs phases 13 and 14 leave for phase 20 (the same trees and
+# prompts): their tokens, teacher-forced logits, routing and times
+PMOE_REUSED = ("granite-moe-1b-a400m",)
+WHOLE_RUNS = {}
+PMOE_DECODE_PROFILED = 1  # decode steps profiled (the profiler's work grows with them)
+
+
+class slot_replay:
+    """``route_replay``'s replay on the partitioned path: every slot routes
+    its replica's rows, so router call ``c`` (the layers in turn, the slots
+    in order within a layer) takes the whole run's call ``c // slots``,
+    replica ``r``'s share of its rows, and routes to those experts weighted
+    by its own renormalized probabilities.  The decisions it would have
+    taken otherwise are counted for each of the whole run's calls, once a
+    replica (``flips``)."""
+
+    def __init__(self, fixed, R: int, M: int):
+        self.fixed, self.R, self.M, self.n, self.flips = fixed, R, M, 0, []
+
+    def __enter__(self):
+        self.saved = moe_mod._router
+
+        def route(cfg, p, x):
+            probs, idx, w = self.saved(cfg, p, x)
+            c, slots = self.n, self.R * self.M
+            self.n += 1
+            want = self.fixed[c // slots].chunk(self.R)[(c % slots) // self.M].to(idx.device)
+            if c % slots == 0:
+                self.flips.append(0)
+            if c % self.M == 0:  # one slot a replica: the decisions of the whole call
+                self.flips[-1] += int((torch.sort(idx, -1).values
+                                       != torch.sort(want, -1).values).any(-1).sum())
+            w = probs.gather(1, want)
+            return probs, want, w / w.sum(-1, keepdim=True)
+
+        moe_mod._router = route
+        return self
+
+    def __exit__(self, *exc):
+        moe_mod._router = self.saved
+        if exc[0] is None:
+            check(self.n == len(self.fixed) * self.R * self.M, f"slot replay: {self.n} router "
+                  f"calls, {len(self.fixed)} recorded x {self.R * self.M} slots")
+
+
+def pmoe_inputs(cfg, gen, prompt_len):
+    """(prompts, vision): phase 13's seeded text (rng 1), or for qwen2-vl
+    phase 14's vision prompt (drawn from ``gen`` after the weights, as
+    there) with its positions and extra_embeds."""
+    if cfg.rope.kind == "mrope":
+        tokens, pos, extra = qwen_vision_inputs(cfg, gen)
+        return tokens, {"positions": pos, "extra_embeds": extra}
+    prompts = np.random.default_rng(1).integers(3, cfg.vocab_size, (4, prompt_len))
+    return torch.as_tensor(prompts, device="cuda"), {}
+
+
+def timed_run(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def pmoe_serve(arch, cfg, prompt_len, new_tokens, max_len, card):
+    """One model whole (or phase 13's / 14's whole run of it), then
+    partitioned on PMOE_GRID: placement, launches exact by route,
+    collectives the formula's, times, and the run teacher-forced on the
+    whole model's tokens with its routing replayed, held by phase 9's rule.
+    Returns (launches, the record)."""
+    t_model = time.perf_counter()
+    dev = torch.device("cuda")
+    sync_cards()
+    reset_cards_peak()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = init_lm(cfg, gen, device=dev)
+    prompts, vision = pmoe_inputs(cfg, gen, prompt_len)
+    whole = WHOLE_RUNS.pop(arch, None)
+    reused = whole is not None and whole["max_len"] == max_len and \
+        whole["n_layers"] == cfg.num_layers
+    if reused:
+        tokens, lw, calls = whole["tokens"], whole["logits"], whole["calls"]
+        w_pre, w_dec = whole["prefill_ms"], whole["decode_ms"]
+    else:
+        (tokens, _), gen_ms = timed_run(lambda: stepped(cfg, params, prompts, max_len,
+                                                        n=new_tokens, **vision))
+        _, w_pre = timed_run(lambda: stepped(cfg, params, prompts, max_len, n=1, **vision))
+        w_dec = (gen_ms - w_pre) / (new_tokens - 1)
+        with route_replay() as rec:
+            _, lw = stepped(cfg, params, prompts, max_len, tokens, **vision)
+        calls = rec.calls
+    del whole
+    # the yardstick: the whole model's kernels nudged by 2^-8, its routing replayed
+    with nudged_kernels(TP_NUDGE), route_replay(calls):
+        _, ln = stepped(cfg, params, prompts, max_len, tokens, **vision)
+    floor = logit_diff(ln, lw)
+    del ln
+    whole_peak = cards_peak_gib()
+    marks = [("whole", time.perf_counter())]
+
+    mesh = make_mesh(PMOE_GRID, ("data", "model"))
+    psh = sharding_mod.params_shardings(mesh, params, cfg)
+    placed = device_put(params, psh)
+    del params
+    sync_cards()
+    torch.cuda.empty_cache()
+    reset_cards_peak()
+    held = torch.cuda.memory_allocated()
+    with torch.inference_mode():
+        _, cache = Engine(cfg, placed, max_len=max_len)._start(placed, prompts)
+    slot_bytes, stored = check_placement(cfg, placed, psh, cache, mesh, max_len)
+    del cache
+    specs = {k: tuple(sh.spec) for k, sh in tree_leaves_with_path(psh)
+             if k.startswith("scan/pos0/moe/")}
+    marks.append(("placement", time.perf_counter()))
+
+    # the user's call (Engine.generate; a vision prompt through the placed
+    # prefill), counted: launches by route, collectives a step
+    per_step, per_axis = serve_collectives(cfg, psh, *PMOE_GRID)
+    reset_launches()
+    mesh_mod.reset_collectives()
+    if vision:
+        (gen_p, _), gen_ms = timed_run(lambda: stepped(cfg, placed, prompts, max_len,
+                                                       n=new_tokens, **vision))
+    else:
+        eng = Engine(cfg, placed, max_len=max_len)
+        res, gen_ms = timed_run(lambda: eng.generate(prompts.cpu().numpy(),
+                                                     max_new_tokens=new_tokens))
+        gen_p = res.tokens[:, prompt_len:]
+    counts = launches()
+    routes = check_pserve_launches(arch, cfg, prompt_len, new_tokens, mesh)
+    cols, by_axis = dict(mesh_mod.collectives), dict(mesh_mod.collectives_by_axis)
+    check(cols == {k: new_tokens * v for k, v in per_step.items()}
+          and by_axis == {k: new_tokens * v for k, v in per_axis.items()},
+          f"{arch}: the generate's collectives {cols} ({by_axis} by axis), expected "
+          f"{new_tokens} x {per_step} ({per_axis})")
+    gen_bytes = dict(mesh_mod.collective_bytes)
+    mesh_mod.reset_collectives()
+    _, p_pre = timed_run(lambda: stepped(cfg, placed, prompts, max_len, n=1, **vision))
+    pre_bytes = dict(mesh_mod.collective_bytes)
+    p_dec = (gen_ms - p_pre) / (new_tokens - 1)
+    dec_bytes = {k: (gen_bytes[k] - pre_bytes[k]) // (new_tokens - 1) for k in gen_bytes}
+    # under torch.profiler (the device alone): a prefill, then decode steps
+    # fed the whole model's tokens
+    with torch.inference_mode():
+        eng = Engine(cfg, placed, max_len=max_len)
+        toks, cache = eng._start(placed, prompts)
+        split_pre = device_split(lambda: serve_prefill(cfg, placed, eng, toks, cache, vision))
+
+        def decode_profiled():
+            for t in range(PMOE_DECODE_PROFILED):
+                eng._serve(placed, cache, torch.as_tensor(tokens[:, t:t + 1], device=dev),
+                           prompt_len + t)
+
+        split_dec = device_split(decode_profiled)
+        del cache
+    print_split(arch, f"partitioned prefill 4 x {prompt_len}", p_pre, split_pre)
+    print_split(arch, f"{PMOE_DECODE_PROFILED} partitioned decode step(s)",
+                PMOE_DECODE_PROFILED * p_dec, split_dec)
+    peak = cards_peak_gib()
+    marks.append(("partitioned generate", time.perf_counter()))
+
+    # teacher-forced on the whole model's tokens, its routing replayed
+    with slot_replay(calls, *PMOE_GRID) as rep:
+        _, lp = stepped(cfg, placed, prompts, max_len, tokens, **vision)
+    agreement = tp_agreement(arch, lp, (tokens, lw, floor))
+    n_moe = sum(b.ffn == "moe" for b in cfg.blocks)
+    flips = (np.asarray(rep.flips).reshape(-1, n_moe).sum(0).tolist() if n_moe else [])
+    decisions = sum(int(c.shape[0]) for c in calls)
+    del lp, lw, placed
+    torch.cuda.empty_cache()
+    marks.append(("partitioned teacher-forced", time.perf_counter()))
+    split_s = {k: round(t - (marks[i - 1][1] if i else t_model), 2)
+               for i, (k, t) in enumerate(marks)}
+    same = int((gen_p == tokens).sum())
+    rec = {"arch": arch, "layers": cfg.num_layers, "prompt": prompt_len, "new": new_tokens,
+           "max_len": max_len, "grid": list(PMOE_GRID), "expert_specs": specs,
+           "slot_bytes": slot_bytes, "stored_bytes": stored, "held_gib": held / 2 ** 30,
+           "whole_reused": reused, "whole_prefill_ms": w_pre, "whole_decode_ms": w_dec,
+           "whole_peak_gib": whole_peak, "prefill_ms": p_pre, "decode_ms": p_dec,
+           "generate_ms": gen_ms,
+           "device_busy_ms": {"prefill": None if split_pre is None else split_pre[0],
+                              "decode": None if split_dec is None else split_dec[0]},
+           "peak_gib": peak, "launches": counts, "flash_routes": routes[0],
+           "collectives_per_step": per_step, "collectives_by_axis_per_step": per_axis,
+           "collective_bytes_prefill": pre_bytes, "collective_bytes_decode_step": dec_bytes,
+           "generate_tokens_equal": same, "agreement": agreement,
+           "routing_flips_per_layer": flips, "routing_decisions": decisions,
+           "seconds": time.perf_counter() - t_model, "seconds_by_part": split_s}
+    print(f"[pmoe] {arch} ({cfg.num_layers} layers) on {mesh!r}: expert specs {specs}; "
+          f"{slot_bytes:,} bytes a slot of params and cache (= dryrun.slot_bytes), {stored:,} "
+          f"bytes of params stored; whole prefill {w_pre:.2f} ms, decode {w_dec:.2f} ms a step "
+          f"({'phase 13/14' if reused else 'this phase'}'s run); partitioned prefill "
+          f"{p_pre:.2f} ms, decode {p_dec:.2f} ms a step, peak {peak:.2f} GiB (held "
+          f"{held / 2 ** 30:.2f}); launches by route {routes} (exactly as worked out); "
+          f"collectives a step {per_step} ({per_axis} by axis; the formula's), bytes a prefill "
+          f"{pre_bytes}, a decode step {dec_bytes}; the generate's tokens equal the whole "
+          f"model's at {same}/{gen_p.size}; with the whole run's routing replayed, the "
+          f"partitioned run's own top-k would differ at {sum(flips)} of {decisions} (token, "
+          f"layer) decisions, per MoE layer {flips}; {rec['seconds']:.1f} s ({split_s}) on "
+          f"{card}")
+    return counts, rec
+
+
+def pmoe_train(arch, cfg, opt_name, lr, batch, seq, keep_names, card):
+    """One f32 train step whole, then partitioned on (replica 2, model 2),
+    the whole step's routing replayed: loss, aux and grad_norm at rtol
+    PARTITIONED_RTOL, the ``keep_names`` gradients within PARTITIONED_RTOL
+    / ATOL; the collectives the formula's; bytes a slot
+    ``dryrun.slot_bytes``.  Returns the record."""
+    t0_model = time.perf_counter()
+    cfg = dataclasses.replace(cfg, param_dtype="float32", compute_dtype="float32")
+    opt = make_optimizer(opt_name, constant_lr(lr))
+    toks = np.random.default_rng(20).integers(3, cfg.vocab_size, (batch, seq))
+    kept = {}
+
+    def keep(grads):
+        kept.update({k: v for k, v in tree_leaves_with_path(grads) if k in keep_names})
+        return grads
+
+    def fresh_state():
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        return make_train_state(init_lm(cfg, gen, device="cuda"), opt)
+
+    reset_cards_peak()
+    state = fresh_state()
+    with route_replay() as rec:
+        (new, wm), whole_ms = timed_run(lambda: make_train_step(cfg, opt, grad_sync=keep)(
+            state, {"tokens": toks}))
+    whole_peak = cards_peak_gib()
+    want = {k: wm[k].float() for k in ("loss", "aux", "grad_norm")}
+    want_grads = dict(kept)
+    kept.clear()
+    del state, new
+    torch.cuda.empty_cache()
+
+    mesh = make_mesh(PMOE_GRID, ("replica", "model"))
+    state = fresh_state()
+    psh = sharding_mod.params_shardings(mesh, state["params"], cfg, data_axis="replica",
+                                        model_axis="model")
+    sh = {"params": psh, "opt": sharding_mod.opt_state_shardings(mesh, state["opt"], psh)}
+    slot_want = dryrun_mod.slot_bytes(state, sh, mesh)
+    placed = device_put(state, sh)
+    del state
+    torch.cuda.empty_cache()
+    slot_got = sharding_mod.placed_slot_bytes(placed, mesh)
+    check(slot_got == [slot_want] * mesh.devices.size,
+          f"{arch}: placed bytes a slot {slot_got}, dryrun.slot_bytes {slot_want:,}")
+    cols_want = partitioned_collectives(cfg, psh, *PMOE_GRID)
+    step = make_train_step(cfg, opt, grad_sync=keep)
+    reset_cards_peak()
+    mesh_mod.reset_collectives()
+    with slot_replay(rec.calls, *PMOE_GRID) as rep:
+        (placed, pm), step_ms = timed_run(lambda: step(placed, {"tokens": toks}))
+    peak = cards_peak_gib()
+    cols, nbytes = dict(mesh_mod.collectives), dict(mesh_mod.collective_bytes)
+    worst, failed = {}, []
+    for key in ("loss", "aux", "grad_norm"):
+        got = pm[key].float()
+        worst[key] = ((got - want[key].to(got.device)).abs() / want[key].abs()).item()
+        if worst[key] > PARTITIONED_RTOL:
+            failed.append(f"{key} {got.item()} vs {want[key].item()}")
+    for k, w in want_grads.items():
+        g = sharding_mod.gather(kept[k])
+        if ((g - w).abs() - PARTITIONED_ATOL - PARTITIONED_RTOL * w.abs()).max().item() > 0:
+            failed.append(f"grads {k}")
+        worst[f"grads/{k}"] = ((g - w).abs().max() / w.abs().max()).item()
+        del g
+    kept.clear()
+    del want_grads, placed, pm
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t0_model
+    print(f"[pmoe] {arch} train step at full width ({cfg.num_layers} layers, f32, {opt_name}, "
+          f"{batch} x {seq}) on {mesh!r}: whole step {whole_ms:.1f} ms, partitioned "
+          f"{step_ms:.1f} ms, peak {peak:.2f} GiB (whole {whole_peak:.2f}); collectives {cols} "
+          f"(the formula's {cols_want}), carrying {nbytes} bytes; the whole step's routing replayed (the partitioned "
+          f"step's own top-k would differ at {sum(rep.flips)} decisions); against the whole "
+          f"step, largest difference over the largest value "
+          f"{ {k: float(f'{v:.3g}') for k, v in worst.items()} } (bounds rtol/atol "
+          f"{PARTITIONED_RTOL:g}); {slot_want:,} bytes a slot; {seconds:.1f} s on {card}")
+    check(cols == cols_want, f"{arch}: the partitioned step ran collectives {cols}, expected "
+          f"{cols_want}")
+    check(not failed, f"{arch}: the partitioned step against the whole step, beyond rtol/atol "
+          f"{PARTITIONED_RTOL:g}/{PARTITIONED_ATOL:g}: {failed}")
+    return {"arch": arch, "layers": cfg.num_layers, "optimizer": opt_name, "batch": [batch, seq],
+            "whole_ms": whole_ms, "step_ms": step_ms, "peak_gib": peak,
+            "whole_peak_gib": whole_peak,
+            "collectives": cols, "collective_bytes": nbytes, "worst": worst,
+            "slot_bytes": slot_want, "routing_flips": sum(rep.flips), "seconds": seconds}
+
+
+def phase_pmoe_kernel_checks(gen):
+    """flash_attention against its plain version at phase 20's per-slot
+    shapes (B = 2 rows a data slot, the heads a model slot holds), each call
+    through the route it must take.  Returns the largest error."""
+    errs = []
+    for arch, cfg, Sq, Sk, window in (
+            ("granite-moe-1b-a400m", GRANITE_MOE, GEMMA_PROMPT, MOE_MAX_LEN, None),
+            ("mixtral-8x7b", MIXTRAL, DENSE_PROMPT, DENSE_PROMPT + DENSE_NEW,
+             MIXTRAL.pattern[0].window),
+            ("qwen2-vl-72b", QWEN, QWEN_LEN, QWEN_LEN + QWEN_STEPS + 1, None)):
+        q, k, v = qkv_on_card(2, Sq, Sk, cfg.num_heads // 2, cfg.num_kv_heads // 2,
+                              cfg.head_dim, torch.bfloat16, gen)
+        e1 = bf16_close(flash_routed("prefill_tc", q, k, v, window=window),
+                        flash_attention_plain(q, k, v, window=window),
+                        f"flash per slot {arch} prefill")
+        q1 = q[:, :1].contiguous()
+        e2 = bf16_close(flash_routed("decode", q1, k, v, window=window, q_offset=Sk - 1),
+                        flash_attention_plain(q1, k, v, window=window, q_offset=Sk - 1),
+                        f"flash per slot {arch} decode")
+        print(f"[check] flash_attention per slot, {arch} on model 2: q [2, {Sq}, "
+              f"{cfg.num_heads // 2}, {cfg.head_dim}] on {cfg.num_kv_heads // 2} kv heads, Sk "
+              f"{Sk}, window {window}, bf16: prefill_tc max|d| {e1:.3g}, decode (q_offset "
+              f"{Sk - 1}) {e2:.3g} (bound 1 bf16 ulp + 2e-5 x max(1, max|plain|))")
+        errs += [e1, e2]
+        del q, k, v, q1
+    return max(errs)
+
+
+def phase_partitioned_moe(card, gen):
+    """Phase 20: the per-slot kernel checks, each of PMOE_SERVE whole and
+    partitioned, then each of PMOE_TRAIN's steps.  Returns (launches summed
+    over the partitioned runs, the phase's record)."""
+    t_phase = time.perf_counter()
+    err = phase_pmoe_kernel_checks(gen)
+    total = dict.fromkeys(launches(), 0)
+    served, trained = [], []
+    for arch, cfg, prompt_len, new_tokens, max_len in PMOE_SERVE:
+        counts, rec = pmoe_serve(arch, cfg, prompt_len, new_tokens, max_len, card)
+        total = {k: total[k] + counts[k] for k in total}
+        served.append(rec)
+        torch.cuda.empty_cache()
+    reset_launches()
+    for args in PMOE_TRAIN:
+        trained.append(pmoe_train(*args, card))
+        torch.cuda.empty_cache()
+    counts = launches()
+    check(all(n == 0 for n in counts.values()), f"the train steps launched {counts}")
+    WHOLE_RUNS.clear()
+    seconds = time.perf_counter() - t_phase
+    print(f"[pmoe] phase 20: {seconds:.1f} s on {card}; launches over the partitioned runs "
+          f"{total}")
+    return total, {"serve": served, "train": trained, "per_slot_max_abs_err": err,
+                   "seconds": seconds}
 
 
 def main() -> int:
@@ -6193,6 +6653,11 @@ def main() -> int:
     # partitioned generate and summed
     pserve_counts, pserve_rec = phase_partitioned_serve(smi, gen)
     torch.cuda.empty_cache()
+
+    # the partitioned MoE FFN and M-RoPE (slice 16), counts reset just before
+    # each partitioned generate and summed; its train steps launch no kernel
+    pmoe_counts, pmoe_rec = phase_partitioned_moe(smi, gen)
+    torch.cuda.empty_cache()
     print(f"[done] {time.perf_counter() - t0:.1f} s after the card check")
 
     cost_of = {"cold_fuse": cf_mod.cost, "decode_accum": da_mod.cost, "row_sketch": sk_mod.cost,
@@ -6238,8 +6703,11 @@ def main() -> int:
         rec["launches_cold_mesh"] = cold_counts[rec["name"]]
         rec["launches_cold_mesh_partitioned"] = cold_part_counts[rec["name"]]
         rec["launches_partitioned_serve"] = pserve_counts[rec["name"]]
+        rec["launches_partitioned_moe"] = pmoe_counts[rec["name"]]
     for rec in (flash, rwkv):
         rec["per_slot_max_abs_err"] = pserve_rec["per_slot_max_abs_err"][rec["name"]]
+    flash["per_slot_max_abs_err"] = max(flash["per_slot_max_abs_err"],
+                                        pmoe_rec["per_slot_max_abs_err"])
     # phase 15's times beside the unsharded kernels'; row_sketch_shard is an
     # entry of row_sketch.cu, held at a clamped layout
     fuse_kernels[0]["mesh"] = {"roberta": mesh_rec["cold_fuse"],
@@ -6252,6 +6720,7 @@ def main() -> int:
     print(json.dumps({"dryrun": dry_rec}))
     print(json.dumps({"partitioned": part_rec}))
     print(json.dumps({"partitioned_serve": pserve_rec}))
+    print(json.dumps({"partitioned_moe": pmoe_rec}))
     print(json.dumps({"archs": arch_table}))
     print(json.dumps({"archs2": arch2_table}))
     fuse_kernels[0]["at_gemma3_1b"] = fuse_at_gemma

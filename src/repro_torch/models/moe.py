@@ -27,10 +27,18 @@ index and ``torch.topk`` does not (a zero router makes every probability
 tie).  Everything is differentiable: the router's gradient flows through
 the top-k weights (combine) and through p_e (aux), not through the
 one-hot dispatch.
+
+``moe_fwd`` is three steps that the partitioned FFN
+(``models.partitioned``) also calls apart: ``_router`` selects (the one
+place a routing replay patches), ``plan`` gives a block of rows its
+capacity and queues (the whole batch's, given the batch's token count and
+the pairs queued ahead of the block), ``experts`` runs a subset of the
+experts, or a slice of every expert's F, on the block's kept pairs.
 """
 from __future__ import annotations
 
 import os
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -90,61 +98,116 @@ def _slots(topk_idx: torch.Tensor, E: int):
     return (count * flat - 1).reshape(T, K, E)
 
 
-def moe_fwd(cfg: ArchConfig, p, x: torch.Tensor):
-    """x: [B, S, D] -> (out [B, S, D], aux_loss 0-d f32)."""
-    B, S, D = x.shape
-    E, K = cfg.moe.num_experts, cfg.moe.experts_per_token
-    xt = x.reshape(B * S, D)
-    probs, topk_idx, topk_w = _router(cfg, p, xt)
-    T = B * S
-    dev = x.device
+class Plan(NamedTuple):
+    """The routing of a block of rows: the router's ``probs`` [T, E] f32,
+    ``topk_idx`` [T, K] and ``topk_w`` [T, K] f32; for the capacity
+    routings each pair's position in its expert's queue within the block
+    (``slot`` [T, K], clamped to ``width`` - 1), whether it is kept
+    (``keep`` [T, K]) and the queue length the dispatch holds (``width``:
+    the capacity, or for a block of a larger batch the most of it the
+    block can fill)."""
+    probs: torch.Tensor
+    topk_idx: torch.Tensor
+    topk_w: torch.Tensor
+    slot: Optional[torch.Tensor] = None
+    keep: Optional[torch.Tensor] = None
+    width: int = 0
 
-    # Switch-style load-balance aux loss (top-1 assignment fractions)
-    f_e = F.one_hot(topk_idx[:, 0], E).float().mean(dim=0)
-    aux = E * torch.sum(f_e * probs.mean(dim=0))
 
-    routing = cfg.moe.routing
-    if OPT_MOE_SORT and routing == "gshard":
-        routing = "sort"
+def pair_counts(topk_idx: torch.Tensor, E: int) -> torch.Tensor:
+    """[E]: the (token, k) pairs a block queues on each expert."""
+    return torch.bincount(topk_idx.reshape(-1), minlength=E)
 
+
+def plan(cfg: ArchConfig, probs, topk_idx, topk_w, *, tokens: Optional[int] = None,
+         ahead: Optional[torch.Tensor] = None) -> Plan:
+    """The capacity and queues of ``_router``'s choice for a block of T
+    rows.  By default the block is the whole batch.  A block of a batch of
+    ``tokens`` rows in all takes the batch's capacity, ``max(int(cf *
+    tokens * K / E), K)``, and ``ahead`` [E], the pairs of the rows before
+    the block queued on each expert: a pair is kept where its place in the
+    whole batch's queue, ``ahead[e]`` plus its place in the block's, is
+    under the capacity (the reference's cumsum over the global token
+    order)."""
+    routing = _routing(cfg)
     if routing == "dense":
-        ye = _expert_ffn(cfg, p, xt.expand(E, T, D))  # [E, T, D]
-        combine = torch.zeros((T, E), dtype=xt.dtype, device=dev).scatter(
-            1, topk_idx, topk_w.to(xt.dtype))
-        out = torch.einsum("te,etd->td", combine, ye)
-        return out.reshape(B, S, D), aux
+        return Plan(probs, topk_idx, topk_w)
+    E, K = cfg.moe.num_experts, cfg.moe.experts_per_token
+    T = topk_idx.shape[0]
+    capacity = max(int(cfg.moe.capacity_factor * (T if tokens is None else tokens) * K / E), K)
+    slot = _slots(topk_idx, E).gather(-1, topk_idx[..., None])[..., 0]  # [T, K]
+    queued = slot if ahead is None else slot + ahead[topk_idx]
+    keep = (queued >= 0) & (queued < capacity)
+    # a block's kept pairs sit in its first capacity - ahead[e] places, and
+    # it queues at most T pairs on an expert
+    width = capacity if ahead is None else min(capacity, T)
+    return Plan(probs, topk_idx, topk_w, slot.clamp(0, width - 1), keep, width)
 
-    capacity = max(int(cfg.moe.capacity_factor * T * K / E), K)
-    pos = _slots(topk_idx, E)
-    tok = torch.arange(T, device=dev)[:, None].expand(T, K)
+
+def experts(cfg: ArchConfig, p, xt: torch.Tensor, pl: Plan, lo: int = 0,
+            hi: Optional[int] = None) -> torch.Tensor:
+    """xt [T, D] -> [T, D]: the outputs of experts ``lo``..``hi`` (all by
+    default) for ``pl``'s kept pairs, combined by the router weights.
+    ``p``'s expert stacks hold exactly those experts (a model slot's
+    E / M), or every expert's slice of F, whose outputs are partial sums
+    over the slices."""
+    T, D = xt.shape
+    E = cfg.moe.num_experts
+    hi = E if hi is None else hi
+    n = hi - lo
+    dev, topk_idx = xt.device, pl.topk_idx
+    routing = _routing(cfg)
+    if routing == "dense":
+        ye = _expert_ffn(cfg, p, xt.expand(n, T, D))  # [n, T, D]
+        combine = torch.zeros((T, E), dtype=xt.dtype, device=dev).scatter(
+            1, topk_idx, pl.topk_w.to(xt.dtype))[:, lo:hi]
+        return torch.einsum("te,etd->td", combine, ye)
+
+    W = pl.width
+    tok = torch.arange(T, device=dev)[:, None].expand(T, topk_idx.shape[1])
+    keep = pl.keep if (lo, hi) == (0, E) else pl.keep & (topk_idx >= lo) & (topk_idx < hi)
+    local = topk_idx if lo == 0 else topk_idx - lo
+    local = local.clamp(0, n - 1) if n < E else local   # a pair off the range is not kept
 
     if routing == "sort":
         # gather/scatter dispatch: x[idx] in, the experts' rows back out
-        slot = pos.gather(-1, topk_idx[..., None])[..., 0]  # [T, K]
-        keep = (slot >= 0) & (slot < capacity)
-        col = torch.where(keep, slot.clamp(0, capacity - 1), capacity)
+        col = torch.where(keep, pl.slot, W)
         # token per (expert, slot); T is the sentinel of an empty slot (a
         # zero row); dropped pairs write the spare last column, discarded
-        idx = torch.full((E, capacity + 1), T, dtype=torch.long, device=dev)
-        idx[topk_idx, col] = tok
+        idx = torch.full((n, W + 1), T, dtype=torch.long, device=dev)
+        idx[local, col] = tok
         x_pad = torch.cat([xt, xt.new_zeros((1, D))], dim=0)
-        ye = _expert_ffn(cfg, p, x_pad[idx[:, :capacity]])  # [E, C, D]
-        ye_pad = torch.cat([ye, ye.new_zeros((E, 1, D))], dim=1)
-        out = torch.einsum("tk,tkd->td", topk_w.to(xt.dtype), ye_pad[topk_idx, col])
-        return out.reshape(B, S, D), aux
+        ye = _expert_ffn(cfg, p, x_pad[idx[:, :W]])  # [n, W, D]
+        ye_pad = torch.cat([ye, ye.new_zeros((n, 1, D))], dim=1)
+        return torch.einsum("tk,tkd->td", pl.topk_w.to(xt.dtype), ye_pad[local, col])
 
     # --- GShard capacity routing ---------------------------------------
-    within_cap = (pos >= 0) & (pos < capacity)
-    slot = pos.gather(-1, topk_idx[..., None])[..., 0].clamp(0, capacity - 1)
-    keep = within_cap.any(dim=-1) & within_cap.gather(-1, topk_idx[..., None])[..., 0]
-    dispatch = torch.zeros((T, E, capacity), dtype=x.dtype, device=dev)
-    dispatch.index_put_((tok, topk_idx, slot), keep.to(x.dtype), accumulate=True)
+    dispatch = torch.zeros((T, n, W), dtype=xt.dtype, device=dev)
+    dispatch.index_put_((tok, local, pl.slot), keep.to(xt.dtype), accumulate=True)
     # combine weights: the dispatch's sparsity, scaled by the router weight
-    w_full = torch.zeros((T, E), dtype=torch.float32, device=dev).index_put(
-        (tok, topk_idx), torch.where(keep, topk_w, 0.0), accumulate=True)
-    combine = dispatch * w_full[..., None].to(x.dtype)  # [T, E, C]
+    w_full = torch.zeros((T, n), dtype=torch.float32, device=dev).index_put(
+        (tok, local), torch.where(keep, pl.topk_w, 0.0), accumulate=True)
+    combine = dispatch * w_full[..., None].to(xt.dtype)  # [T, n, W]
 
-    xe = torch.einsum("td,tec->ecd", xt, dispatch)  # [E, C, D]
+    xe = torch.einsum("td,tec->ecd", xt, dispatch)  # [n, W, D]
     ye = _expert_ffn(cfg, p, xe)
-    out = torch.einsum("tec,ecd->td", combine, ye)
+    return torch.einsum("tec,ecd->td", combine, ye)
+
+
+def _routing(cfg: ArchConfig) -> str:
+    if OPT_MOE_SORT and cfg.moe.routing == "gshard":
+        return "sort"
+    return cfg.moe.routing
+
+
+def moe_fwd(cfg: ArchConfig, p, x: torch.Tensor):
+    """x: [B, S, D] -> (out [B, S, D], aux_loss 0-d f32)."""
+    B, S, D = x.shape
+    xt = x.reshape(B * S, D)
+    probs, topk_idx, topk_w = _router(cfg, p, xt)
+    # Switch-style load-balance aux loss (top-1 assignment fractions)
+    E = cfg.moe.num_experts
+    f_e = F.one_hot(topk_idx[:, 0], E).float().mean(dim=0)
+    aux = E * torch.sum(f_e * probs.mean(dim=0))
+    out = experts(cfg, p, xt, plan(cfg, probs, topk_idx, topk_w))
     return out.reshape(B, S, D), aux

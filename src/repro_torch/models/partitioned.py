@@ -61,22 +61,63 @@ it in place):
   (counted) where the shift reads it, and each slot stores its slice of
   the new one.
 
-Attention + GLU/MLP decoders are partitioned for training; the serving
-steps take the RWKV block too.  Any other block (MoE, Mamba), the
-encoder-decoder, M-RoPE (``extra_embeds``, ``positions``) and the encoder
-raise ``NotImplementedError`` (``check_partitionable``), as does a serving
-batch that the batch axis does not divide (the reference then splits the
-cache's sequence over it: a context-parallel decode).
+**The MoE FFN** is expert parallel, by the reference's rules
+(``moe/w_gate``/``w_up`` [E, D, F] and ``w_down`` [E, F, D] split E over
+``model``, the router [D, E] whole over it), and computes what GSPMD makes
+of the reference's ``moe_fwd``: its routing is global over the batch axis.
+
+* Each slot routes its replica's rows with the whole router (gathered
+  over the batch axis where FSDP splits D): ``moe._router``'s top-k, the
+  capacity of the whole batch, ``max(int(cf * T * K / E), K)`` with T
+  counting every replica's rows.
+* The queues: each replica's count of pairs on each expert is
+  all-gathered over the batch axis (one counted gather a layer), and
+  replica ``r``'s pairs queue behind those of replicas ``< r`` (the
+  reference's cumsum over the global token order), so a pair is kept or
+  dropped as it is in the whole batch.
+* Each slot runs its E / M experts on its replica's kept pairs (the FFN is
+  row-wise: no token moves), and its partial combine is all-reduced over
+  ``model``.  Where M does not divide E the experts stay whole on every
+  slot (no all-reduce), or, with the lever ``REPRO_OPT_MOE_SHARD=1``,
+  ``w_gate``/``w_up`` are column-parallel and ``w_down`` row-parallel over
+  F, with one all-reduce.
+* The train step's load-balance loss takes the global ``f_e`` and ``p_e``:
+  each replica's sums, one counted all-reduce over the batch axis a
+  layer.  Every slot adds the whole aux to its objective (the all-reduce's
+  backward is the identity, so each replica's router gets its own rows'
+  share of the gradient); the metric counts it once.
+* Under the Megatron rule the router's top-k weights pass
+  ``axis_sum_grads`` over ``model`` after the branch to the aux loss (a
+  slot's weights feed only its experts), and so does the experts' input,
+  not the router's.
+
+**M-RoPE and ``extra_embeds``**: each slot takes its replica's
+``positions`` [3, B_r, S] (or [B_r, S]) and ``extra_embeds`` [B_r, N, D];
+the latter replace the first N embeddings after the vocab-parallel
+lookup's all-reduce.  The rotary angles are computed once per replica and
+device (the replicas' positions differ).  A decode step takes its
+positions from ``cache_index``, as the reference's serve step does.
+
+Attention + GLU/MLP/MoE decoders with RoPE or M-RoPE are partitioned for
+training and serving; the serving steps take the RWKV block too.  The
+Mamba mixer, the RWKV block in training, the encoder-decoder (and its
+``frames``) and the encoder raise ``NotImplementedError``
+(``check_partitionable``), as does a serving batch that the batch axis
+does not divide (the reference then splits the cache's sequence over it:
+a context-parallel decode).  The train step refuses adafactor, whose
+statistics are means over whole rows and columns.
 """
 from __future__ import annotations
 
 from typing import Dict, List, Optional, Sequence
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.launch import mesh as M
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 from repro_torch.models import rwkv as R
 from repro_torch.models import transformer as T
 from repro_torch.train.losses import lm_loss_vocab_parallel
@@ -110,14 +151,11 @@ def check_partitionable(cfg: ArchConfig, batch_keys: Sequence[str] = (), *,
         if blk.mixer != "attn" and not (serving and blk.mixer == "rwkv"):
             refuse(cfg, {"mamba": "Mamba mixer", "rwkv": "RWKV time mix"}.get(
                 blk.mixer, f"{blk.mixer} mixer"), serving=serving)
-        if blk.ffn not in ("glu", "mlp") and not (serving and blk.ffn == "rwkv_cm"):
-            refuse(cfg, {"moe": "MoE FFN", "rwkv_cm": "RWKV channel mix"}.get(
-                blk.ffn, f"{blk.ffn} FFN"), serving=serving)
-    if cfg.rope.kind == "mrope":
-        refuse(cfg, "M-RoPE", serving=serving)
-    for key in ("extra_embeds", "positions", "frames"):
-        if key in batch_keys:
-            refuse(cfg, f"batch input {key!r} (M-RoPE, extra_embeds, frames)", serving=serving)
+        if blk.ffn not in ("glu", "mlp", "moe") and not (serving and blk.ffn == "rwkv_cm"):
+            refuse(cfg, {"rwkv_cm": "RWKV channel mix"}.get(blk.ffn, f"{blk.ffn} FFN"),
+                   serving=serving)
+    if "frames" in batch_keys:
+        refuse(cfg, "batch input 'frames' (the encoder-decoder's)", serving=serving)
     if batch is not None and batch % replicas:
         refuse(cfg, f"batch of {batch} over {replicas} batch slots (the reference splits the "
                "cache's sequence then: a context-parallel decode)", serving=serving)
@@ -231,7 +269,7 @@ def _attention(sl: _Slab, pre: str, rep, blk, h, angles, *, cache=None, cache_in
     for s in range(sl.n):
         x = h[s]
         B, S, _ = x.shape
-        ang = None if angles is None else angles[x.device][blk.rope_theta or cfg.rope.theta]
+        ang = None if angles[s] is None else angles[s][blk.rope_theta or cfg.rope.theta]
         q = (x @ wq[s]).reshape(B, S, hq, hd)
         k = (x @ kv["wk"][s]).reshape(B, S, hkv, hd)
         v = (x @ kv["wv"][s]).reshape(B, S, hkv, hd)
@@ -290,6 +328,55 @@ def _ffn(sl: _Slab, pre: str, rep, kind: str, h, *, serving: bool = False):
         else:
             outs.append(act(h[s] @ up[s]) @ down[s])
     return M.axis_all_reduce(outs, mesh, mp) if split else outs
+
+
+def _moe(sl: _Slab, pre: str, rep, h, *, differentiable: bool):
+    """The expert-parallel MoE FFN with the reference's global routing (the
+    module docstring): each slot's output and, in the train step, each
+    slot's aux loss of the whole batch (None when serving)."""
+    cfg, mesh, mp, dp = sl.cfg, sl.mesh, sl.mp, sl.dp
+    stacked = rep is not None
+    E, D = cfg.moe.num_experts, cfg.d_model
+    ep = sl.split_over_model(f"{pre}/w_gate", 0, stacked)   # experts over model
+    fp = sl.split_over_model(f"{pre}/w_gate", 2, stacked)   # F over model (the lever)
+    if (ep and fp) or any(sl.split_over_model(f"{pre}/{k}", 0, stacked) != ep
+                          or sl.split_over_model(f"{pre}/{k}", f_dim, stacked) != fp
+                          for k, f_dim in (("w_up", 2), ("w_down", 1))) or any(
+            sl.split_over_model(f"{pre}/router", d, stacked) for d in (0, 1)):
+        refuse(cfg, "MoE FFN with its leaves split otherwise than by experts or by F",
+               serving=not differentiable)
+    router = sl.weight(f"{pre}/router", rep)
+    ws = {k: sl.weight(f"{pre}/{k}", rep) for k in ("w_gate", "w_up", "w_down")}
+    R, n = mesh.extent(dp), sl.n
+    xt = [x.reshape(-1, D) for x in h]
+    tokens = R * xt[0].shape[0]
+    sel = [MOE._router(cfg, {"router": router[s]}, xt[s]) for s in range(n)]
+    ahead = [None] * n
+    if R > 1 and MOE._routing(cfg) != "dense":
+        # each replica's pairs on each expert, gathered: replica r queues behind r' < r
+        counts = M.axis_all_gather([MOE.pair_counts(idx, E)[None] for _, idx, _ in sel],
+                                   mesh, dp, 0)
+        ahead = [c[:mesh.coord(s, dp)].sum(0) for s, c in enumerate(counts)]
+    plans = [MOE.plan(cfg, *sel[s], tokens=tokens if R > 1 else None, ahead=ahead[s])
+             for s in range(n)]
+    aux = None
+    if differentiable:  # the global f_e and p_e: one all-reduce of each replica's sums
+        sums = M.axis_all_reduce([torch.cat([F.one_hot(pl.topk_idx[:, 0], E).float().sum(0),
+                                             pl.probs.sum(0)]) for pl in plans], mesh, dp)
+        aux = [E * torch.sum((t[:E] / tokens) * (t[E:] / tokens)) for t in sums]
+    split = ep or fp
+    xin = xt
+    if split:  # a slot's experts see only its share: sum their gradients over model
+        weights = M.axis_sum_grads([pl.topk_w for pl in plans], mesh, mp)
+        plans = [pl._replace(topk_w=w) for pl, w in zip(plans, weights)]
+        xin = M.axis_sum_grads(xt, mesh, mp)
+    per = E // sl.M if ep else E
+    outs = []
+    for s in range(n):
+        lo = mesh.coord(s, mp) * per if ep else 0
+        out = MOE.experts(cfg, {k: w[s] for k, w in ws.items()}, xin[s], plans[s], lo, lo + per)
+        outs.append(out.reshape(h[s].shape))
+    return (M.axis_all_reduce(outs, mesh, mp) if split else outs), aux
 
 
 # the time mix's leaves by the dim the reference's rules split over model:
@@ -385,15 +472,38 @@ def vocab_axis(cfg: ArchConfig, mesh: M.Mesh, layouts: Dict[str, Layout]) -> Opt
     return sl.mp if split else None
 
 
+def _slot_angles(sl: _Slab, tokens, positions, cache_index):
+    """Each slot's rotary angles (None for a rope-free model) from its
+    replica's ``positions`` (by default 0..S-1, offset by ``cache_index``),
+    computed once per replica and device."""
+    done, out = {}, []
+    for s in range(sl.n):
+        B, S = tokens[s].shape
+        dev = tokens[s].device
+        key = (sl.mesh.coord(s, sl.dp), dev)
+        if key not in done:
+            pos = None if positions is None else positions[s]
+            if pos is None and cache_index is not None:
+                pos = (torch.arange(S, device=dev)[None] + int(cache_index)).expand(B, S)
+            done[key] = T._rope_angles(sl.cfg, pos, S, B, dev)
+        out.append(done[key])
+    return out
+
+
 def partitioned_forward(cfg: ArchConfig, mesh: M.Mesh, live: Dict[str, List[torch.Tensor]],
                         layouts: Dict[str, Layout], tokens: List[torch.Tensor], *,
+                        positions: Optional[List[torch.Tensor]] = None,
+                        extra_embeds: Optional[List[torch.Tensor]] = None,
                         cache: Optional[Dict[str, List[torch.Tensor]]] = None,
                         cache_index: Optional[int] = None, differentiable: bool):
     """``tokens[s]`` [B_r, S], replica ``r``'s rows on slot ``s``, through
-    the partitioned decoder (the module docstring): ``(logits, cache)``,
-    ``logits[s]`` [B_r, S, V / M] slot ``s``'s vocabulary block where
-    ``vocab_axis`` is ``model`` (else [B_r, S, V]).  ``live[name][s]`` is
-    slot ``s``'s tensor of leaf ``name``, ``layouts[name]`` its layout.
+    the partitioned decoder (the module docstring): ``(logits, aux,
+    cache)``, ``logits[s]`` [B_r, S, V / M] slot ``s``'s vocabulary block
+    where ``vocab_axis`` is ``model`` (else [B_r, S, V]), ``aux[s]`` the MoE
+    layers' load-balance losses of the whole batch summed (0 without MoE
+    layers, and when serving).  ``live[name][s]`` is slot ``s``'s tensor of
+    leaf ``name``, ``layouts[name]`` its layout; ``positions[s]`` and
+    ``extra_embeds[s]``, where given, the replica's rows of those inputs.
 
     ``differentiable=True`` is the train step's forward (``_sdpa``; no
     cache).  Otherwise attention and the RWKV recurrence run the kernels,
@@ -423,18 +533,12 @@ def partitioned_forward(cfg: ArchConfig, mesh: M.Mesh, live: Dict[str, List[torc
     x = [xi.to(cdt) for xi in x]
     if cfg.scale_embed:
         x = [xi * torch.tensor(cfg.d_model ** 0.5, dtype=cdt, device=xi.device) for xi in x]
-    angles = {}
-    for s in range(n):
-        dev = x[s].device
-        if dev not in angles:
-            B, S = tokens[s].shape
-            pos = None
-            if cache_index is not None:
-                pos = (torch.arange(S, device=dev)[None] + int(cache_index)).expand(B, S)
-            angles[dev] = T._rope_angles(cfg, pos, S, B, dev)
-    if all(a is None for a in angles.values()):
-        angles = None
+    if extra_embeds is not None:  # the frontend's embeddings in place of the first N
+        x = [torch.cat([e.to(xi.dtype), xi[:, e.shape[1]:]], dim=1)
+             for xi, e in zip(x, extra_embeds)]
+    angles = _slot_angles(sl, tokens, positions, cache_index)
 
+    aux = [torch.zeros((), dtype=torch.float32, device=xi.device) for xi in x]
     for pre, rep, blk in _layer_names(cfg):
         lc = None
         if cache is not None:
@@ -450,6 +554,10 @@ def partitioned_forward(cfg: ArchConfig, mesh: M.Mesh, live: Dict[str, List[torc
         h2 = sl.norm(f"{pre}/norm2", rep, x)
         if blk.ffn == "rwkv_cm":
             f = _channel_mix(sl, f"{pre}/rwkv_cm", rep, h2, cache=lc)
+        elif blk.ffn == "moe":
+            f, layer_aux = _moe(sl, f"{pre}/moe", rep, h2, differentiable=differentiable)
+            if layer_aux is not None:
+                aux = [t + u for t, u in zip(aux, layer_aux)]
         else:
             f = _ffn(sl, f"{pre}/{blk.ffn}", rep, blk.ffn, h2, serving=not differentiable)
         x = [xi + fi for xi, fi in zip(x, f)]
@@ -464,7 +572,7 @@ def partitioned_forward(cfg: ArchConfig, mesh: M.Mesh, live: Dict[str, List[torc
     logits = [x[s] @ heads[s].to(x[s].dtype) for s in range(n)]
     if cfg.logit_softcap > 0:
         logits = [torch.tanh(lg / cfg.logit_softcap) * cfg.logit_softcap for lg in logits]
-    return logits, cache
+    return logits, aux, cache
 
 
 def gather_last(logits: List[torch.Tensor], mesh: M.Mesh, vocab: Optional[str]) -> torch.Tensor:
@@ -481,12 +589,16 @@ def gather_last(logits: List[torch.Tensor], mesh: M.Mesh, vocab: Optional[str]) 
 
 def partitioned_loss(cfg: ArchConfig, mesh: M.Mesh, live: Dict[str, List[torch.Tensor]],
                      layouts: Dict[str, Layout], tokens: List[torch.Tensor], mask=None,
-                     denominator: Optional[float] = None) -> List[torch.Tensor]:
-    """Each slot's loss of its replica's rows: ``tokens[s]`` [B_r, S] (and
-    ``mask[s]``) through ``partitioned_forward(differentiable=True)``,
-    scored by ``lm_loss_vocab_parallel`` as Σ nll · mask over
-    ``denominator``.  The loss is the same on every slot of a replica."""
+                     denominator: Optional[float] = None, *, positions=None,
+                     extra_embeds=None):
+    """Each slot's loss of its replica's rows and its aux loss: ``tokens[s]``
+    [B_r, S] (and ``mask[s]``, ``positions[s]``, ``extra_embeds[s]``)
+    through ``partitioned_forward(differentiable=True)``, scored by
+    ``lm_loss_vocab_parallel`` as Σ nll · mask over ``denominator``.  The
+    loss is the same on every slot of a replica, the aux (the whole
+    batch's) on every slot."""
     check_partitionable(cfg)
-    logits, _ = partitioned_forward(cfg, mesh, live, layouts, tokens, differentiable=True)
+    logits, aux, _ = partitioned_forward(cfg, mesh, live, layouts, tokens, positions=positions,
+                                         extra_embeds=extra_embeds, differentiable=True)
     return lm_loss_vocab_parallel(logits, tokens, mesh, vocab_axis(cfg, mesh, layouts), mask,
-                                  denominator)
+                                  denominator), aux

@@ -68,14 +68,19 @@ def _logits(cfg: ArchConfig, params, batch, *, differentiable: bool):
     return logits, aux
 
 
-def _microbatch(batch, i: int, n: int):
-    """Slice ``i`` of ``n`` along the batch axis: axis 1 of M-RoPE positions
+def _batch_axis(key: str, v) -> int:
+    """The batch axis of a batch array: axis 1 of M-RoPE positions
     [3, B, S], axis 0 of everything else.  (The reference picks the axis by
     comparing a leaf's first dim with the batch size, which takes the wrong
     axis for positions at a global batch of 3.)"""
+    return 1 if key == "positions" and v.ndim == 3 else 0
+
+
+def _microbatch(batch, i: int, n: int):
+    """Slice ``i`` of ``n`` along each array's batch axis."""
     out = {}
     for key, v in batch.items():
-        axis = 1 if key == "positions" and v.ndim == 3 else 0
+        axis = _batch_axis(key, v)
         mb = v.shape[axis] // n
         out[key] = v.narrow(axis, i * mb, mb)
     return out
@@ -120,7 +125,18 @@ def make_train_step(cfg: ArchConfig, optimizer: Optimizer, *, microbatches: int 
     ``microbatches`` and stored once per block and device, placed as the
     parameter.  ``clip_by_global_norm`` counts each logical block once and
     the update runs block by block.  ``loss`` sums the replicas' shares
-    (one all-reduce), ``aux`` is 0 (dense archs only).
+    (one all-reduce); every slot's objective adds ``aux_weight`` times the
+    MoE aux loss of the whole microbatch (global ``f_e`` and ``p_e``, see
+    ``models.partitioned``), and ``aux`` reports it once.  M-RoPE
+    ``positions`` and ``extra_embeds`` split over the batch axis like the
+    tokens.  Microbatch ``i`` is the reference's, rows ``[i B / n, (i + 1)
+    B / n)`` of the global batch split over the replicas (the MoE routing
+    is global over a microbatch, so its rows must be the reference's): a
+    replica's share of it comes from the replica block that holds those
+    rows, copied to the slot's device where that block is another
+    replica's (an input's placement, not counted as a collective; at one
+    microbatch no row moves).  adafactor is refused: its statistics are
+    means over whole rows and columns.
 
     ``grad_shardings``: a tree of ``launch.sharding.NamedSharding`` matching
     the params (``params_shardings``).  The reference pins its f32
@@ -172,6 +188,9 @@ def make_train_step(cfg: ArchConfig, optimizer: Optimizer, *, microbatches: int 
         params = state["params"]
         named, mesh = _placed_grid(params, "params")
         PT.check_partitionable(cfg, list(batch))
+        if optimizer.name == "adafactor":
+            PT.refuse(cfg, "optimizer adafactor over blocks (its statistics are means over "
+                      "whole rows and columns)")
         if grad_shardings is not None:
             check_shardings(params)
         dp, _ = PT.grid_axes(mesh)
@@ -184,9 +203,9 @@ def make_train_step(cfg: ArchConfig, optimizer: Optimizer, *, microbatches: int 
         mb, S = Br // microbatches, rows["tokens"][0].shape[1]
         layouts = {k: x.layout for k, x in named}
         acc: Dict[str, list] = {}
-        loss_sum = None
+        loss_sum = aux_sum = None
         for i in range(microbatches):
-            part = {key: [v.narrow(0, i * mb, mb) for v in vs] for key, vs in rows.items()}
+            part = _microbatch_rows(rows, mesh, dp, i, microbatches)
             if "mask" in part:  # the microbatch's count over every replica's slice
                 counts = M.axis_all_reduce([m[:, 1:].float().sum() for m in part["mask"]],
                                            mesh, dp)
@@ -196,10 +215,13 @@ def make_train_step(cfg: ArchConfig, optimizer: Optimizer, *, microbatches: int 
             with torch.enable_grad():
                 live = {k: [b.detach().requires_grad_(True) for b in x.slot_blocks()]
                         for k, x in named}
-                losses = PT.partitioned_loss(cfg, mesh, live, layouts, part["tokens"],
-                                             part.get("mask"), denominator)
+                losses, auxes = PT.partitioned_loss(
+                    cfg, mesh, live, layouts, part["tokens"], part.get("mask"), denominator,
+                    positions=part.get("positions"), extra_embeds=part.get("extra_embeds"))
+                objective = [l + aux_w * a for l, a in zip(losses, auxes)]
                 flat = [t for k, _ in named for t in live[k]]
-                grads = torch.autograd.grad(losses, flat, [torch.ones_like(x) for x in losses],
+                grads = torch.autograd.grad(objective, flat,
+                                            [torch.ones_like(x) for x in objective],
                                             allow_unused=True)
             del live
             for j, (k, _) in enumerate(named):
@@ -212,10 +234,11 @@ def make_train_step(cfg: ArchConfig, optimizer: Optimizer, *, microbatches: int 
                 else:
                     for a, g in zip(acc[k], got):
                         a.add_(g)
-            del flat, grads, got  # the slots' gradients live on in acc alone
+            del flat, grads, got, objective  # the slots' gradients live on in acc alone
             step_loss = [x.detach() for x in losses]
             loss_sum = (step_loss if loss_sum is None
                         else [a + b for a, b in zip(loss_sum, step_loss)])
+            aux_sum = auxes[0].detach() if aux_sum is None else aux_sum + auxes[0].detach()
         reduced = []
         for k, x in named:
             g = acc.pop(k)
@@ -228,12 +251,13 @@ def make_train_step(cfg: ArchConfig, optimizer: Optimizer, *, microbatches: int 
         grads = tree_unflatten(params, reduced)
         del reduced
         loss = M.axis_all_reduce(loss_sum, mesh, dp)[0] / microbatches
+        aux = (aux_sum / microbatches).to(loss.device)
         if grad_sync is not None:
             grads = grad_sync(grads)
         grads, gnorm = clip_by_global_norm(grads, clip_norm)
         updates, new_opt = optimizer.update(grads, state["opt"], params)
         new_params = tree_map(torch.add, params, updates)
-        metrics = {"loss": loss, "aux": torch.zeros_like(loss), "grad_norm": gnorm}
+        metrics = {"loss": loss, "aux": aux, "grad_norm": gnorm}
         return {"params": new_params, "opt": new_opt}, metrics
 
     @torch.no_grad()
@@ -304,13 +328,18 @@ def _placed_grid(tree, what: str):
 
 @torch.no_grad()
 def _partitioned_last_logits(cfg: ArchConfig, params, tokens, cache=None,
-                             cache_index=None) -> torch.Tensor:
+                             cache_index=None, *, positions=None,
+                             extra_embeds=None) -> torch.Tensor:
     """The serving steps on placed params: ``tokens`` [B, S] (a tensor,
     an array, or placed by ``batch_shardings`` on the params' grid) through
     ``models.partitioned.partitioned_forward`` on the kernels, against
     ``cache`` (placed on the same grid by ``cache_shardings``, updated in
     place) at ``cache_index``; the last position's logits [B, V] gathered
-    on slot 0's device."""
+    on slot 0's device.  M-RoPE ``positions`` [3, B, S] and
+    ``extra_embeds`` [B, N, D] (whole, or placed by ``batch_shardings``)
+    split over the batch axis as the tokens do: the prefill step's, and a
+    vision prompt's prefill into the cache (``forward_lm(cache=,
+    cache_index=0, positions=, extra_embeds=)`` on whole params)."""
     named, mesh = _placed_grid(params, "params")
     dp, mp = PT.grid_axes(mesh)
     B = tokens.shape[0]
@@ -331,36 +360,64 @@ def _partitioned_last_logits(cfg: ArchConfig, params, tokens, cache=None,
                                  f"cache_shardings places it as {want[k].spec}")
         blocks = {k: x.slot_blocks() for k, x in placed}
     layouts = {k: x.layout for k, x in named}
-    rows = _slot_rows({"tokens": tokens}, mesh, dp)["tokens"]
-    logits, _ = PT.partitioned_forward(cfg, mesh, {k: x.slot_blocks() for k, x in named},
-                                       layouts, rows, cache=blocks, cache_index=cache_index,
-                                       differentiable=False)
+    batch = {k: v for k, v in (("tokens", tokens), ("positions", positions),
+                               ("extra_embeds", extra_embeds)) if v is not None}
+    rows = _slot_rows(batch, mesh, dp)
+    logits, _, _ = PT.partitioned_forward(cfg, mesh, {k: x.slot_blocks() for k, x in named},
+                                          layouts, rows["tokens"],
+                                          positions=rows.get("positions"),
+                                          extra_embeds=rows.get("extra_embeds"), cache=blocks,
+                                          cache_index=cache_index, differentiable=False)
     return PT.gather_last(logits, mesh, PT.vocab_axis(cfg, mesh, layouts))
 
 
 def _slot_rows(batch, mesh: M.Mesh, dp) -> Dict[str, list]:
     """Each slot's rows of each batch array: replica ``r``'s share of the
-    batch axis on slot ``(r, m)``'s device.  A leaf placed over the batch
-    axis (``shard_batch``) gives its blocks; any other is split here.
-    Token ids as int64."""
+    batch axis (``_batch_axis``) on slot ``(r, m)``'s device.  A leaf placed
+    over the batch axis (``shard_batch``, ``batch_shardings``) gives its
+    blocks; any other is split here.  Token ids as int64."""
     R, n = mesh.extent(dp), mesh.devices.size
     devices = list(mesh.devices.flat)
     out = {}
     for key, v in batch.items():
+        axis = _batch_axis(key, v)
         if (isinstance(v, Placed) and v.layout.mesh.axis_names == mesh.axis_names
                 and list(v.layout.mesh.devices.flat) == devices
-                and (v.layout.spec[0] == (dp,) or (R == 1 and not v.layout.spec[0]))
-                and not any(v.layout.spec[1:])):
+                and (v.layout.spec[axis] == (dp,) or (R == 1 and not v.layout.spec[axis]))
+                and not any(e for d, e in enumerate(v.layout.spec) if d != axis)):
             parts = v.slot_blocks()
         else:
             whole = v.whole() if isinstance(v, Placed) else torch.as_tensor(v)
-            if whole.shape[0] % R:
-                raise ValueError(f"batch[{key!r}]: {whole.shape[0]} rows do not split over "
+            if whole.shape[axis] % R:
+                raise ValueError(f"batch[{key!r}]: {whole.shape[axis]} rows do not split over "
                                  f"{R} replicas")
-            share = whole.shape[0] // R
-            parts = [whole[mesh.coord(s, dp) * share:(mesh.coord(s, dp) + 1) * share]
-                     .to(devices[s]) for s in range(n)]
+            share = whole.shape[axis] // R
+            parts = [whole.narrow(axis, mesh.coord(s, dp) * share, share).to(devices[s])
+                     for s in range(n)]
         out[key] = [p.long() for p in parts] if key == "tokens" else parts
+    return out
+
+
+def _microbatch_rows(rows: Dict[str, list], mesh: M.Mesh, dp, i: int, n: int
+                     ) -> Dict[str, list]:
+    """Microbatch ``i`` of ``n`` of each slot, as the reference slices the
+    global batch (``make_train_step``): rows ``[(i R + r) mb, (i R + r + 1)
+    mb)`` of it on slot ``(r, m)``, mb a replica's share of a microbatch,
+    from the block of replica ``(i R + r) // n`` (``rows`` as
+    ``_slot_rows`` gives them), copied to the slot's device where that is
+    another replica's."""
+    R, devices = mesh.extent(dp), list(mesh.devices.flat)
+    along = {t: g for g in mesh.groups(dp) for t in g} if dp is not None else {}
+    out = {}
+    for key, parts in rows.items():
+        axis = _batch_axis(key, parts[0])
+        mb = parts[0].shape[axis] // n
+        got = []
+        for s in range(len(parts)):
+            j = i * R + mesh.coord(s, dp)
+            src = along[s][j // n] if dp is not None else s
+            got.append(parts[src].narrow(axis, (j % n) * mb, mb).to(devices[s]))
+        out[key] = got
     return out
 
 
@@ -383,15 +440,18 @@ def make_prefill_step(cfg: ArchConfig) -> Callable:
 
     Placed params (a grid of several slots, as ``make_train_step``'s) run
     ``models.partitioned`` on the kernels, each slot on its own heads; the
-    batch's tokens are split over the batch axis (or come placed by
-    ``batch_shardings``) and the logits come back whole, on slot 0's
+    batch's tokens, M-RoPE ``positions`` and ``extra_embeds`` are split over
+    the batch axis (or come placed by ``batch_shardings``) and the logits
+    come back whole, on slot 0's
     device (the reference's ``jax.jit(prefill_step, in_shardings=(params_sh,
     batch_sh), out_shardings=None)``)."""
 
     def prefill_step(params, batch):
         if is_placed(params):
             PT.check_partitionable(cfg, list(batch), serving=True)
-            return _partitioned_last_logits(cfg, params, batch["tokens"])
+            return _partitioned_last_logits(cfg, params, batch["tokens"],
+                                            positions=batch.get("positions"),
+                                            extra_embeds=batch.get("extra_embeds"))
         return _logits(cfg, params, batch, differentiable=False)[0][:, -1]
 
     return prefill_step

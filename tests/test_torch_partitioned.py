@@ -23,7 +23,8 @@ on the slab's (2, 2) sub-mesh, and both fuses of the trained slabs against
 the reference's per-leaf fuse (rtol 1e-6 / atol 1e-7).  The collective
 counts are held against ``expected_collectives``, the formula PERF.md
 states.  Stablelm-12b and granite-20b (reduced) are held against the
-port's own whole step; MoE and RWKV archs are refused."""
+port's own whole step; the Mamba mixer, the RWKV block and adafactor
+are refused (``tests/test_torch_partitioned_moe.py`` holds the MoE archs)."""
 import dataclasses
 import json
 import os
@@ -504,15 +505,18 @@ def test_other_dense_archs_match_the_whole_step(arch):
     _close(tsh.gather(got["params"]), want["params"], 1e-5, 1e-5)
 
 
-@pytest.mark.parametrize("arch, part", [("granite-moe-1b-a400m", "MoE FFN"),
-                                        ("rwkv6-7b", "RWKV time mix")])
+@pytest.mark.parametrize("arch, part", [("jamba-1.5-large-398b", "Mamba mixer"),
+                                        ("rwkv6-7b", "RWKV time mix"),
+                                        ("qwen2-vl-72b", "optimizer adafactor over blocks")])
 def test_other_archs_are_refused(arch, part):
     cfg = reduce_config(get_config(arch))
-    opt = _sgd()
+    opt = (make_optimizer("adafactor", constant_lr(LR)) if "adafactor" in part else _sgd())
     params = TT.init_lm(cfg, torch.Generator().manual_seed(0), device="cpu")
     mesh = tmesh.make_mesh((2, 2), ("replica", "model"), device="cpu")
     psh = tsh.params_shardings(mesh, params, cfg, data_axis="replica", model_axis="model")
-    state = make_train_state(tsh.device_put(params, psh), opt)
+    state = make_train_state(params, opt)  # placed whole: adafactor's init takes no blocks
+    state = tsh.device_put(state, {"params": psh,
+                                   "opt": tsh.opt_state_shardings(mesh, state["opt"], psh)})
     toks = np.random.default_rng(0).integers(3, cfg.vocab_size, (B, S))
     with pytest.raises(NotImplementedError, match=f"{cfg.name}'s {part}"):
         make_train_step(cfg, opt)(state, {"tokens": toks})

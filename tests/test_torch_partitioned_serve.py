@@ -369,10 +369,10 @@ def _placed_any(params, cfg, mesh):
 
 
 @pytest.mark.parametrize("arch, part, entry", [
-    ("granite-moe-1b-a400m", "MoE FFN", "generate"),
+    ("jamba-1.5-large-398b", "Mamba mixer", "prefill"),
     ("jamba-1.5-large-398b", "Mamba mixer", "generate"),
-    ("qwen2-vl-72b", "M-RoPE", "generate"),
-    ("gemma3-1b", "batch input 'extra_embeds'", "prefill"),
+    ("whisper-tiny", "encoder-decoder (whisper)", "prefill"),
+    ("gemma3-1b", "batch input 'frames'", "prefill"),
     ("whisper-tiny", "encoder-decoder (whisper)", "serve"),
     ("roberta-base", "encoder (RoBERTa)", "prefill"),
     ("gemma3-1b", "batch of 3 over 2 batch slots", "generate"),
@@ -403,8 +403,8 @@ def test_partitioned_serving_refusals(arch, part, entry):
             Engine(cfg, params, max_len=16).generate(toks, max_new_tokens=2)
         elif entry == "prefill":
             batch = {"tokens": toks}
-            if "extra_embeds" in part:
-                batch["extra_embeds"] = np.zeros((rows, 2, cfg.d_model), np.float32)
+            if "frames" in part:
+                batch["frames"] = np.zeros((rows, 8, cfg.d_model), np.float32)
             make_prefill_step(cfg)(params, batch)
         else:
             make_serve_step(cfg)(params, None, toks[:, :1], 0)
