@@ -244,9 +244,9 @@ Phases (any failed check raises, so the script exits non-zero):
    route, the comparison replaying the kernel run's MoE routing; one Mamba
    layer at full width giving a 272-token forward's output from 256 + 16
    one-token steps (``MAMBA_ULPS``); reduced jamba trained.  gemma3-1b's
-   ring cache: 4 x 384 -> 144 through ``Engine.generate`` with
+   ring cache: 4 x 480 -> 48 through ``Engine.generate`` with
    ``RING_CACHE`` on and off (the 512-slot rings wrap after decode step
-   128), launches exact, both caches' bytes, and the ring's teacher-forced
+   32), launches exact, both caches' bytes, and the ring's teacher-forced
    logits against the full cache's under phase 9's rule.  The arch table is
    printed as a JSON line.
 
@@ -408,11 +408,32 @@ Phases (any failed check raises, so the script exits non-zero):
    ``partitioned_collectives``, bytes a slot ``dryrun.slot_bytes``.  Its
    record is a ``{"partitioned_moe": ...}`` line.
 
+21. the partitioned Mamba mixer, the RWKV train step and adafactor over
+   blocks (slice 17, ``phase_partitioned_ssm``): first ``flash_attention``
+   against its plain version at jamba's per-slot shape
+   (``phase_pssm_kernel_checks``: 32 query heads on 4 kv heads of 128, no
+   window, B = 2, bf16 prefill and decode).  Then jamba-1.5-large-398b at
+   layers 0-4 of 72 (Mamba 0-3, attention 4, MoE 1 and 3; 24.0 B
+   parameters, 48 GB bf16, FSDP as configured) as phase 20 serves its
+   models, 4 x 256 -> 16: the whole side phase 14's run (``WHOLE_RUNS``)
+   where it ran, the yardstick nudging the Mamba scan's output too
+   (``nudged_kernels``), the placed tree built from the same seeded init
+   leaf by leaf, each whole leaf dropped once placed (``place_leafwise``:
+   the peak held against the whole tree and its largest leaf), launches
+   exact by route (``flash_attention`` ``prefill_tc`` 4, ``decode`` 60,
+   each with its combine), collectives the formula's (a Mamba layer's
+   in_proj gather and two all-reduces).  Then ``PSSM_TRAIN``: one f32
+   step whole and on ``(replica 2, model 2)`` of jamba at its layer 0
+   with adafactor and of rwkv6-7b at 2 of 32 layers with AdamW, 4 x 64,
+   as phase 20's, and the updated parameters held against the whole
+   optimizer's update of the same gradients.  Its record is a
+   ``{"partitioned_ssm": ...}`` line.
+
 Before each of phases 6, 7, 8, 10, 11 and 16 (and again before each of
 phase 16's serves), before each model of phases 9, 13 and 14, around
 phases 12's, 13's and 14's eval steps and generates, around each run of
 phase 15's mesh daemon, around phase 17's counted prefill and decode step
-and around each of phase 19's and phase 20's partitioned generates, every
+and around each of phase 19's, 20's and 21's partitioned generates, every
 kernel's launch
 counter is set to 0; it is read just after.  The last lines are the
 kernels' JSON record (launches from phase 7 for the three fuse kernels, with phase 10's
@@ -422,14 +443,16 @@ as ``launches_routed``, from phase 9 for the other two, phase 11's as
 ``launches_mesh``, phase 16's serves as ``launches_cold_mesh`` and
 ``launches_cold_mesh_partitioned``, phase 17's serving step as
 ``launches_dryrun``, phase 19's partitioned generates summed as
-``launches_partitioned_serve`` and phase 20's as
-``launches_partitioned_moe`` for all five; phase 15's times under
-``mesh``; phases 19's and 20's per-slot checks as ``per_slot_max_abs_err``; each
+``launches_partitioned_serve``, phase 20's as
+``launches_partitioned_moe`` and phase 21's as ``launches_partitioned_ssm``
+for all five; phase 15's times under ``mesh``; phases 19's to 21's per-slot
+checks as ``per_slot_max_abs_err``; each
 kernel's ``cost_formula``), phase 16's record as a ``{"cold_mesh": ...}``
 line, phase 17's as a ``{"dryrun": ...}`` line, phase 18's as a
 ``{"partitioned": ...}`` line (its steps launch no kernel), phase 19's as a
 ``{"partitioned_serve": ...}`` line, phase 20's as a ``{"partitioned_moe":
-...}`` line, ``nvidia-smi``'s line and
+...}`` line, phase 21's as a ``{"partitioned_ssm": ...}`` line,
+``nvidia-smi``'s line and
 ``{"ok": true, "device": {...}}``.  Without a card (or without the rest of
 the repository beside it) the script exits non-zero and prints no result.
 """
@@ -512,7 +535,8 @@ from repro_torch.core.validation import screen_norms  # noqa: E402
 from repro_torch.utils.flat import (LANE, CohortSketch, DeltaPayload,  # noqa: E402
                                     FamilyRouter, FlatSpec, ShardedFlatSpec, delta_checksum,
                                     delta_decode, delta_encode, delta_encode_sharded)
-from repro_torch.utils.pytree import tree_leaves, tree_leaves_with_path, tree_map  # noqa: E402
+from repro_torch.utils.pytree import (tree_from_paths, tree_leaves,  # noqa: E402
+                                      tree_leaves_with_path, tree_map)
 from repro_torch.launch.dryrun import tree_bytes  # noqa: E402
 from repro_torch.launch.specs import abstract_params  # noqa: E402
 from repro_torch.utils.op_counts import OpCounter  # noqa: E402
@@ -654,7 +678,7 @@ TWINS = (
 # jamba-1.5-large-398b at full width cut to its layers 0-4 of 72 (Mamba 0-3,
 # attention 4, MoE 1 and 3; 4 x DENSE_PROMPT -> DENSE_NEW), and gemma3-1b
 # with and without the ring cache (4 x RING_PROMPT -> RING_NEW: the local
-# layers' 512-slot rings wrap after decode step 128, and 15 steps follow)
+# layers' 512-slot rings wrap after decode step 32, and 15 steps follow)
 WHISPER = get_config("whisper-tiny")
 WHISPER_BATCH, WHISPER_PROMPT, WHISPER_NEW = 4, 4, 32
 QWEN_LAYERS, QWEN_PATCHES, QWEN_TEXT, QWEN_STEPS = 8, 256, 256, 16
@@ -662,7 +686,7 @@ QWEN = dataclasses.replace(get_config("qwen2-vl-72b"), num_layers=QWEN_LAYERS)
 QWEN_LEN = QWEN_PATCHES + QWEN_TEXT
 JAMBA_ARCH = "jamba-1.5-large-398b"
 JAMBA = dataclasses.replace(get_config(JAMBA_ARCH), num_layers=5)
-RING_PROMPT, RING_NEW = 384, 144
+RING_PROMPT, RING_NEW = 480, 48
 # one Mamba layer at full width, a 272-token forward against 256 + 16
 # one-token steps: the same arithmetic, but bf16 GEMMs of other shapes may
 # round a last bit otherwise, so within MAMBA_ULPS bf16 ulps of max |y|
@@ -2830,7 +2854,7 @@ def phase_serve(arch, cfg, prompt_len, new_tokens, max_len, kernel, card, routes
     gen_k = res.tokens[:, prompt_len:]
     whole = serve_agreement(arch, cfg, lambda: teacher_forced(cfg, params, prompts, gen_k,
                                                               max_len), gen_k)
-    if arch in PMOE_REUSED:  # phase 20's whole run of the same tree and prompts
+    if arch in PMOE_REUSED + PSSM_REUSED:  # phase 20's / 21's whole run of the tree and prompts
         WHOLE_RUNS[arch] = dict(whole, prefill_ms=pre_ms, decode_ms=dec_ms, max_len=max_len,
                                 n_layers=cfg.num_layers)
     del params, eng, whole
@@ -4125,7 +4149,8 @@ def ring_agreement(cfg, params, prompts, gen_full, max_len):
     del pre_n, dec_n, pre_p, dec_p
     a_pre = logits_agreement(pre_r, pre_f, floor_pre, "ring vs full cache prefill logits")
     a_dec = logits_agreement(dec_r, dec_f, floor_dec, "ring vs full cache decode logits")
-    d_wrap = logit_diff(dec_r[:, 128:], dec_f[:, 128:])
+    wrap = GEMMA_WINDOW - RING_PROMPT  # the first decode step past the ring's end
+    d_wrap = logit_diff(dec_r[:, wrap:], dec_f[:, wrap:])
     return a_pre, a_dec, floor_pre, floor_dec, d_wrap
 
 
@@ -4778,38 +4803,52 @@ PARTITIONED_SGD_LR = 0.05
 NO_COLLECTIVES = {"all_reduce": 0, "all_gather": 0, "reduce_scatter": 0}
 
 
-def partitioned_collectives(cfg, psh, R: int, M: int, microbatches: int = 1):
-    """The collectives of one partitioned step of a dense decoder on a
-    (replica R, model M) grid, the formula PERF.md §5 states (the same as
-    ``tests/test_torch_partitioned.py``'s).  Per microbatch, over ``model``:
-    the embedding's all-reduce where the vocabulary splits, per layer two
-    output all-reduces and two backward input all-reduces for attention and
-    the FFN, the logits' backward input all-reduce and the loss's three; KV
-    weights all-gathered (reduce-scattered back) where Hkv does not split
-    but their spec does, their gradient all-reduced where the spec keeps
-    them whole.  Over ``replica``: each use of a leaf FSDP splits, one
+def partitioned_collectives(cfg, psh, R: int, M: int, microbatches: int = 1, opt_name="sgd",
+                            mesh=None):
+    """The collectives of one partitioned train step on a (replica R, model
+    M) grid, the formula PERF.md §5 states (the same as
+    ``tests/test_torch_partitioned.py``'s and, with the MoE, Mamba and RWKV
+    blocks and adafactor, ``tests/test_torch_partitioned_ssm.py``'s).  Per
+    microbatch, over ``model``: the embedding's all-reduce where the
+    vocabulary splits, per layer two output all-reduces and two backward
+    input all-reduces for attention and the FFN, the logits' backward input
+    all-reduce and the loss's three; KV weights all-gathered
+    (reduce-scattered back) where Hkv does not split but their spec does,
+    their gradient all-reduced where the spec keeps them whole.  A MoE
+    layer makes three all-reduces over ``model`` where its experts (or,
+    with the lever, its F) split: the combine's and the backward's of the
+    router's top-k weights and of the experts' input; and over ``replica``
+    the aux loss's all-reduce and the expert counts' all-gather.  A Mamba
+    layer whose channels split: the in_proj product's all-gather
+    (reduce-scattered back), the x_proj partials' and out_proj's
+    all-reduces and the backward all-reduces of its input and of the x_proj
+    output (4).  An RWKV layer whose heads split: ``wo``'s all-reduce and
+    the backward all-reduces of its input and of its four leaves held
+    whole (6).  Over ``replica``: each use of a leaf FSDP splits, one
     all-gather and one reduce-scatter.  Per step: one all-reduce over
     ``replica`` per leaf not split over it and the loss metric's, and the
-    global norm's.  A MoE layer (``tests/test_torch_partitioned_moe.py``
-    holds it) makes, per microbatch, three all-reduces over ``model`` where
-    its experts (or, with the lever, its F) split: the combine's and the
-    backward's of the router's top-k weights and of the experts' input;
-    and over ``replica`` the aux loss's all-reduce and the expert counts'
-    all-gather."""
+    global norm's; adafactor adds, for each leaf split over an axis of
+    extent > 1, three all-reduces (row sums, column sums, the RMS) where it
+    is factored, else one all-gather of its g² and the RMS's all-reduce."""
     hd = cfg.head_dim
     L = sum(b.mixer == "attn" for b in cfg.blocks)
     n_dense = sum(b.ffn in ("glu", "mlp") for b in cfg.blocks)
     n_moe = sum(b.ffn == "moe" for b in cfg.blocks)
-    ar = ag = counts = 0
+    ar = ag = rs = counts = 0
     if M > 1:
         vocab = cfg.vocab_size % M == 0
         attn = (cfg.num_heads * hd) % M == 0
         ffn = cfg.d_ff % M == 0
         ar += vocab + 2 * L * attn + 2 * n_dense * ffn + vocab + 3 * vocab
-        ar += 3 * moe_layers_split(cfg, psh, "model")
-        if attn and cfg.num_kv_heads % M:
+        ar += 3 * layers_split(cfg, psh, "moe/w_gate", "model")
+        mamba = layers_split(cfg, psh, "mamba/in_proj", "model")
+        ar += 4 * mamba + 6 * layers_split(cfg, psh, "rwkv/wr", "model")
+        ag += mamba
+        rs += mamba
+        if L and attn and cfg.num_kv_heads % M:
             if (cfg.num_kv_heads * hd) % M == 0:
                 ag += 2 * L
+                rs += 2 * L
             else:
                 ar += 2 * L
     fsdp_uses = per_step = 0
@@ -4824,17 +4863,25 @@ def partitioned_collectives(cfg, psh, R: int, M: int, microbatches: int = 1):
         ar += n_moe
         counts = n_moe * (cfg.moe.routing != "dense")
     per_step += 1 if R * M > 1 else 0
-    return {"all_reduce": microbatches * ar + per_step,
-            "all_gather": microbatches * (ag + counts + fsdp_uses),
-            "reduce_scatter": microbatches * (ag + fsdp_uses)}
+    opt_ar = opt_ag = 0
+    if opt_name == "adafactor":
+        for _, sh in tree_leaves_with_path(psh):
+            if any(mesh.extent(a) > 1 for e in sh.spec if e is not None
+                   for a in sharding_mod.norm_axes(e)):
+                opt_ar += 3 if len(sh.spec) >= 2 else 1
+                opt_ag += 0 if len(sh.spec) >= 2 else 1
+    return {"all_reduce": microbatches * ar + per_step + opt_ar,
+            "all_gather": microbatches * (ag + counts + fsdp_uses) + opt_ag,
+            "reduce_scatter": microbatches * (rs + fsdp_uses)}
 
 
-def moe_layers_split(cfg, psh, axis):
-    """The MoE layers whose expert stacks the specs split over ``axis``."""
+def layers_split(cfg, psh, suffix, axis):
+    """The layers whose leaf ``suffix`` the specs split over ``axis`` (each
+    stacked layer once)."""
     n_full, _ = tt_mod.split_layers(cfg)
     return sum((n_full if name.startswith("scan/") else 1)
                for name, sh in tree_leaves_with_path(psh)
-               if name.endswith("moe/w_gate") and axis in sh.spec)
+               if name.endswith(suffix) and axis in sh.spec)
 
 
 def blocks_of(x):
@@ -5672,22 +5719,22 @@ PSERVE_DECODE_PROFILED = 1  # decode steps profiled (the profiler's work grows w
 
 def serve_collectives(cfg, psh, R: int, M: int, *, cached: bool = True, data_axis="data"):
     """The collectives of one partitioned forward (a prefill or one decode
-    step) of a dense or RWKV decoder on a (data R, model M) grid, the
-    formula PERF.md §5 states (the same as
-    ``tests/test_torch_partitioned_serve.py``'s), as ``({kind: count},
-    {axis: count})``.  Over ``model``: the embedding's all-reduce where the
-    vocabulary splits; an all-reduce a row-parallel output (attention's
-    ``wo``, the GLU/MLP, the RWKV time mix's ``wo``); ``wk``/``wv``
-    all-gathered where the KV heads do not split but their spec does; with a
-    cache, its k and v all-gathered where its spec splits ``head_dim``, and
-    an RWKV layer's two token-shift states; the last logits all-gathered
-    where they come out per vocabulary block.  Over the batch axis: each use
-    of a leaf FSDP splits, one all-gather, and the last logits'.  A MoE
-    layer: the combine's all-reduce over ``model`` where its experts
-    (or F) split, and one all-gather of the expert counts over the batch
-    axis."""
+    step) on a (data R, model M) grid, the formula PERF.md §5 states (the
+    same as ``tests/test_torch_partitioned_serve.py``'s and, with the MoE,
+    Mamba and RWKV mixers, ``tests/test_torch_partitioned_ssm.py``'s), as
+    ``({kind: count}, {axis: count})``.  Over ``model``: the embedding's
+    all-reduce where the vocabulary splits; an all-reduce a row-parallel
+    output (attention's ``wo``, the GLU/MLP, the RWKV time mix's ``wo``,
+    a MoE layer's combine where its experts or F split); ``wk``/``wv``
+    all-gathered where the KV heads do not split but their spec does; a
+    Mamba layer whose channels split, its in_proj product all-gathered and
+    its x_proj partials and out_proj all-reduced (1 + 2); with a cache, its
+    k and v all-gathered where its spec splits ``head_dim``, and an RWKV
+    layer's two token-shift states; the last logits all-gathered where they
+    come out per vocabulary block.  Over the batch axis: each use of a leaf
+    FSDP splits, one all-gather, the last logits', and a MoE layer's expert
+    counts."""
     n_attn = sum(b.mixer == "attn" for b in cfg.blocks)
-    n_rwkv = sum(b.mixer == "rwkv" for b in cfg.blocks)
     n_dense = sum(b.ffn in ("glu", "mlp") for b in cfg.blocks)
     n_moe = sum(b.ffn == "moe" for b in cfg.blocks)
     ar = ag_m = ag_d = 0
@@ -5696,14 +5743,17 @@ def serve_collectives(cfg, psh, R: int, M: int, *, cached: bool = True, data_axi
         hd, Hkv = cfg.head_dim, cfg.num_kv_heads
         attn = (cfg.num_heads * hd) % M == 0
         ar += vocab + n_attn * attn + n_dense * (cfg.d_ff % M == 0)
-        ar += moe_layers_split(cfg, psh, "model")
-        ar += n_rwkv * (cfg.d_model % M == 0)
-        if attn and Hkv % M and (Hkv * hd) % M == 0:
+        ar += layers_split(cfg, psh, "moe/w_gate", "model")
+        mamba = layers_split(cfg, psh, "mamba/in_proj", "model")
+        rwkv = layers_split(cfg, psh, "rwkv/wr", "model")
+        ar += 2 * mamba + rwkv
+        ag_m += mamba
+        if n_attn and attn and Hkv % M and (Hkv * hd) % M == 0:
             ag_m += 2 * n_attn
         if cached:
-            if Hkv % M and hd % M == 0:
+            if n_attn and Hkv % M and hd % M == 0:
                 ag_m += 2 * n_attn
-            ag_m += 2 * n_rwkv * (cfg.d_model % M == 0)
+            ag_m += 2 * rwkv
         ag_m += vocab
     if R > 1:
         n_full, _ = tt_mod.split_layers(cfg)
@@ -5772,16 +5822,19 @@ def serve_prefill(cfg, params, eng, toks, cache, vision):
 
 
 class nudged_kernels:
-    """Inside the block each output of the two kernels the model calls is
-    scaled by (1 + nudge) and rounded to its dtype again: the yardstick of
-    a comparison between two runs on the kernels."""
+    """Inside the block each output of the two kernels the model calls, and
+    of the Mamba mixer's selective scan (the recurrence the reference runs
+    as ``lax.scan``, plain PyTorch here as ``rwkv6_scan``'s plain twin is),
+    is scaled by (1 + nudge) and rounded to its dtype again: the yardstick
+    of a comparison between two runs on the kernels."""
 
     def __init__(self, nudge: float):
         self.f = 1.0 + nudge
 
     def __enter__(self):
-        self.saved = (kops.flash_attention, rwkv_mod.rwkv6_scan)
-        flash, scan, f = self.saved[0], self.saved[1], self.f
+        self.saved = (kops.flash_attention, rwkv_mod.rwkv6_scan, mamba_mod.selective_scan)
+        flash, scan, mscan = self.saved
+        f = self.f
 
         def nudged_flash(q, k, v, **kw):
             return (flash(q, k, v, **kw).float() * f).to(q.dtype)
@@ -5790,11 +5843,16 @@ class nudged_kernels:
             y, st = scan(*args)
             return (y.float() * f).to(y.dtype), st
 
+        def nudged_mamba_scan(*args):
+            ys, h = mscan(*args)
+            return (ys.float() * f).to(ys.dtype), h
+
         kops.flash_attention, rwkv_mod.rwkv6_scan = nudged_flash, nudged_scan
+        mamba_mod.selective_scan = nudged_mamba_scan
         return self
 
     def __exit__(self, *exc):
-        kops.flash_attention, rwkv_mod.rwkv6_scan = self.saved
+        kops.flash_attention, rwkv_mod.rwkv6_scan, mamba_mod.selective_scan = self.saved
 
 
 def whole_reference(cfg, params, prompts, max_len, n, tokens=None):
@@ -6182,12 +6240,34 @@ def timed_run(fn):
     return out, (time.perf_counter() - t0) * 1e3
 
 
-def pmoe_serve(arch, cfg, prompt_len, new_tokens, max_len, card):
+def place_leafwise(params, psh):
+    """``params`` placed by ``psh`` one leaf at a time, each whole leaf
+    dropped from ``params`` once its blocks are made: the peak is the whole
+    tree and one leaf's copies, not two trees.  Returns (the placed tree,
+    the reckoned rise of the peak above what was allocated before, the
+    whole tree among it: its largest leaf, copied)."""
+    reckoned = max(x.numel() * x.element_size() for x in tree_leaves(params))
+    placed = []
+    for name, sh in tree_leaves_with_path(psh):
+        *up, last = name.split("/")
+        node = params
+        for k in up:
+            node = node[k]
+        placed.append((name, sh.place(node.pop(last))))
+    return tree_from_paths(placed), reckoned
+
+
+def pmoe_serve(arch, cfg, prompt_len, new_tokens, max_len, card, tag="pmoe", leafwise=False,
+               shown=("scan/pos0/moe/",)):
     """One model whole (or phase 13's / 14's whole run of it), then
     partitioned on PMOE_GRID: placement, launches exact by route,
     collectives the formula's, times, and the run teacher-forced on the
     whole model's tokens with its routing replayed, held by phase 9's rule.
-    Returns (launches, the record)."""
+    ``leafwise`` places the tree one leaf at a time (``place_leafwise``:
+    a model whose whole and placed copies do not fit on the card together)
+    and holds the peak against the reckoned one.  The specs of the leaves
+    under the prefixes ``shown`` are printed.  Returns (launches, the
+    record)."""
     t_model = time.perf_counter()
     dev = torch.device("cuda")
     sync_cards()
@@ -6220,7 +6300,21 @@ def pmoe_serve(arch, cfg, prompt_len, new_tokens, max_len, card):
 
     mesh = make_mesh(PMOE_GRID, ("data", "model"))
     psh = sharding_mod.params_shardings(mesh, params, cfg)
-    placed = device_put(params, psh)
+    placement = None
+    if leafwise:
+        sync_cards()
+        before = torch.cuda.memory_allocated()
+        reset_cards_peak()
+        placed, rise = place_leafwise(params, psh)
+        sync_cards()
+        peak_bytes, reckoned = torch.cuda.max_memory_allocated(), before + rise
+        placement = {"peak_gib": peak_bytes / 2 ** 30, "reckoned_gib": reckoned / 2 ** 30,
+                     "held_before_gib": before / 2 ** 30}
+        check(peak_bytes <= (1 + NEMO_PEAK_RTOL) * reckoned, f"{arch}: placing leaf by leaf "
+              f"peaked at {peak_bytes / 2 ** 30:.2f} GiB, reckoned {reckoned / 2 ** 30:.2f} "
+              "(what was held, the whole tree among it, and its largest leaf copied)")
+    else:
+        placed = device_put(params, psh)
     del params
     sync_cards()
     torch.cuda.empty_cache()
@@ -6231,7 +6325,7 @@ def pmoe_serve(arch, cfg, prompt_len, new_tokens, max_len, card):
     slot_bytes, stored = check_placement(cfg, placed, psh, cache, mesh, max_len)
     del cache
     specs = {k: tuple(sh.spec) for k, sh in tree_leaves_with_path(psh)
-             if k.startswith("scan/pos0/moe/")}
+             if k.startswith(shown)}
     marks.append(("placement", time.perf_counter()))
 
     # the user's call (Engine.generate; a vision prompt through the placed
@@ -6294,7 +6388,7 @@ def pmoe_serve(arch, cfg, prompt_len, new_tokens, max_len, card):
                for i, (k, t) in enumerate(marks)}
     same = int((gen_p == tokens).sum())
     rec = {"arch": arch, "layers": cfg.num_layers, "prompt": prompt_len, "new": new_tokens,
-           "max_len": max_len, "grid": list(PMOE_GRID), "expert_specs": specs,
+           "max_len": max_len, "grid": list(PMOE_GRID), "specs": specs,
            "slot_bytes": slot_bytes, "stored_bytes": stored, "held_gib": held / 2 ** 30,
            "whole_reused": reused, "whole_prefill_ms": w_pre, "whole_decode_ms": w_dec,
            "whole_peak_gib": whole_peak, "prefill_ms": p_pre, "decode_ms": p_dec,
@@ -6306,8 +6400,14 @@ def pmoe_serve(arch, cfg, prompt_len, new_tokens, max_len, card):
            "collective_bytes_prefill": pre_bytes, "collective_bytes_decode_step": dec_bytes,
            "generate_tokens_equal": same, "agreement": agreement,
            "routing_flips_per_layer": flips, "routing_decisions": decisions,
+           "leafwise_placement": placement,
            "seconds": time.perf_counter() - t_model, "seconds_by_part": split_s}
-    print(f"[pmoe] {arch} ({cfg.num_layers} layers) on {mesh!r}: expert specs {specs}; "
+    if placement is not None:
+        print(f"[{tag}] {arch}: placed leaf by leaf, each whole leaf dropped once placed: peak "
+              f"{placement['peak_gib']:.2f} GiB against {placement['reckoned_gib']:.2f} reckoned "
+              f"({placement['held_before_gib']:.2f} held before, the whole tree among it, and "
+              "its largest leaf copied)")
+    print(f"[{tag}] {arch} ({cfg.num_layers} layers) on {mesh!r}: specs {specs}; "
           f"{slot_bytes:,} bytes a slot of params and cache (= dryrun.slot_bytes), {stored:,} "
           f"bytes of params stored; whole prefill {w_pre:.2f} ms, decode {w_dec:.2f} ms a step "
           f"({'phase 13/14' if reused else 'this phase'}'s run); partitioned prefill "
@@ -6322,12 +6422,21 @@ def pmoe_serve(arch, cfg, prompt_len, new_tokens, max_len, card):
     return counts, rec
 
 
-def pmoe_train(arch, cfg, opt_name, lr, batch, seq, keep_names, card):
+def pmoe_train(arch, cfg, opt_name, lr, batch, seq, keep_names, card, tag="pmoe",
+               check_update=False):
     """One f32 train step whole, then partitioned on (replica 2, model 2),
     the whole step's routing replayed: loss, aux and grad_norm at rtol
     PARTITIONED_RTOL, the ``keep_names`` gradients within PARTITIONED_RTOL
     / ATOL; the collectives the formula's; bytes a slot
-    ``dryrun.slot_bytes``.  Returns the record."""
+    ``dryrun.slot_bytes``.  With ``check_update`` the ``keep_names``
+    parameters the partitioned step updated are held, within the same
+    bounds, against the whole optimizer's update of the same gradients
+    (gathered, clipped by the step's grad_norm): the update over blocks is
+    the whole one.  Against the whole step's updated parameters the
+    difference is printed: where an update is about ``lr · sign(g)``
+    (AdamW's first step, adafactor's rank-1 leaves) a gradient near zero
+    that rounds the other way moves it by up to 2 · lr.  Returns the
+    record."""
     t0_model = time.perf_counter()
     cfg = dataclasses.replace(cfg, param_dtype="float32", compute_dtype="float32")
     opt = make_optimizer(opt_name, constant_lr(lr))
@@ -6344,12 +6453,14 @@ def pmoe_train(arch, cfg, opt_name, lr, batch, seq, keep_names, card):
 
     reset_cards_peak()
     state = fresh_state()
+    init = {k: v.clone() for k, v in tree_leaves_with_path(state["params"]) if k in keep_names}
     with route_replay() as rec:
         (new, wm), whole_ms = timed_run(lambda: make_train_step(cfg, opt, grad_sync=keep)(
             state, {"tokens": toks}))
     whole_peak = cards_peak_gib()
     want = {k: wm[k].float() for k in ("loss", "aux", "grad_norm")}
     want_grads = dict(kept)
+    want_new = {k: v for k, v in tree_leaves_with_path(new["params"]) if k in keep_names}
     kept.clear()
     del state, new
     torch.cuda.empty_cache()
@@ -6366,7 +6477,7 @@ def pmoe_train(arch, cfg, opt_name, lr, batch, seq, keep_names, card):
     slot_got = sharding_mod.placed_slot_bytes(placed, mesh)
     check(slot_got == [slot_want] * mesh.devices.size,
           f"{arch}: placed bytes a slot {slot_got}, dryrun.slot_bytes {slot_want:,}")
-    cols_want = partitioned_collectives(cfg, psh, *PMOE_GRID)
+    cols_want = partitioned_collectives(cfg, psh, *PMOE_GRID, opt_name=opt_name, mesh=mesh)
     step = make_train_step(cfg, opt, grad_sync=keep)
     reset_cards_peak()
     mesh_mod.reset_collectives()
@@ -6375,29 +6486,50 @@ def pmoe_train(arch, cfg, opt_name, lr, batch, seq, keep_names, card):
     peak = cards_peak_gib()
     cols, nbytes = dict(mesh_mod.collectives), dict(mesh_mod.collective_bytes)
     worst, failed = {}, []
+
+    def held(got, w, what):
+        if ((got - w).abs() - PARTITIONED_ATOL - PARTITIONED_RTOL * w.abs()).max().item() > 0:
+            failed.append(what)
+        worst[what] = ((got - w).abs().max() / w.abs().max().clamp(min=1e-30)).item()
+
     for key in ("loss", "aux", "grad_norm"):
         got = pm[key].float()
-        worst[key] = ((got - want[key].to(got.device)).abs() / want[key].abs()).item()
+        worst[key] = ((got - want[key].to(got.device)).abs()
+                      / want[key].abs().clamp(min=1e-30)).item()
         if worst[key] > PARTITIONED_RTOL:
             failed.append(f"{key} {got.item()} vs {want[key].item()}")
+    grads = {k: sharding_mod.gather(kept[k]) for k in want_grads}
     for k, w in want_grads.items():
-        g = sharding_mod.gather(kept[k])
-        if ((g - w).abs() - PARTITIONED_ATOL - PARTITIONED_RTOL * w.abs()).max().item() > 0:
-            failed.append(f"grads {k}")
-        worst[f"grads/{k}"] = ((g - w).abs().max() / w.abs().max()).item()
-        del g
+        held(grads[k], w, f"grads/{k}")
+    vs_whole = {}
+    if check_update:
+        # the whole optimizer on the partitioned step's gradients, clipped as the step clips
+        scale = torch.clamp(1.0 / (pm["grad_norm"].float() + 1e-9), max=1.0)
+        sub = tree_from_paths(list(init.items()))
+        clipped = tree_from_paths([(k, g * scale.to(g.device, g.dtype)) for k, g in grads.items()])
+        upd, _ = opt.update(clipped, opt.init(sub), sub)
+        for k, u in tree_leaves_with_path(upd):
+            got = sharding_mod.gather(dict(tree_leaves_with_path(placed["params"]))[k])
+            held(got, init[k] + u, f"params/{k}")
+            vs_whole[k] = ((got - want_new[k]).abs().max() / lr).item()
+            del got
+        del sub, clipped, upd
     kept.clear()
-    del want_grads, placed, pm
+    del want_grads, grads, placed, pm, init, want_new
     torch.cuda.empty_cache()
     seconds = time.perf_counter() - t0_model
-    print(f"[pmoe] {arch} train step at full width ({cfg.num_layers} layers, f32, {opt_name}, "
+    print(f"[{tag}] {arch} train step at full width ({cfg.num_layers} layers, f32, {opt_name}, "
           f"{batch} x {seq}) on {mesh!r}: whole step {whole_ms:.1f} ms, partitioned "
           f"{step_ms:.1f} ms, peak {peak:.2f} GiB (whole {whole_peak:.2f}); collectives {cols} "
           f"(the formula's {cols_want}), carrying {nbytes} bytes; the whole step's routing replayed (the partitioned "
           f"step's own top-k would differ at {sum(rep.flips)} decisions); against the whole "
           f"step, largest difference over the largest value "
           f"{ {k: float(f'{v:.3g}') for k, v in worst.items()} } (bounds rtol/atol "
-          f"{PARTITIONED_RTOL:g}); {slot_want:,} bytes a slot; {seconds:.1f} s on {card}")
+          f"{PARTITIONED_RTOL:g}; params/ against the whole optimizer's update of the same "
+          f"gradients); {slot_want:,} bytes a slot; {seconds:.1f} s on {card}")
+    if vs_whole:
+        print(f"[{tag}] {arch}: updated params against the whole step's, largest |d| in units of "
+              f"lr {lr:g}: { {k: float(f'{v:.3g}') for k, v in vs_whole.items()} }")
     check(cols == cols_want, f"{arch}: the partitioned step ran collectives {cols}, expected "
           f"{cols_want}")
     check(not failed, f"{arch}: the partitioned step against the whole step, beyond rtol/atol "
@@ -6406,6 +6538,7 @@ def pmoe_train(arch, cfg, opt_name, lr, batch, seq, keep_names, card):
             "whole_ms": whole_ms, "step_ms": step_ms, "peak_gib": peak,
             "whole_peak_gib": whole_peak,
             "collectives": cols, "collective_bytes": nbytes, "worst": worst,
+            "updated_vs_whole_in_lr": vs_whole,
             "slot_bytes": slot_want, "routing_flips": sum(rep.flips), "seconds": seconds}
 
 
@@ -6456,12 +6589,85 @@ def phase_partitioned_moe(card, gen):
         torch.cuda.empty_cache()
     counts = launches()
     check(all(n == 0 for n in counts.values()), f"the train steps launched {counts}")
-    WHOLE_RUNS.clear()
+    for arch in [a for a in WHOLE_RUNS if a not in PSSM_REUSED]:  # phase 21 takes jamba's
+        del WHOLE_RUNS[arch]
     seconds = time.perf_counter() - t_phase
     print(f"[pmoe] phase 20: {seconds:.1f} s on {card}; launches over the partitioned runs "
           f"{total}")
     return total, {"serve": served, "train": trained, "per_slot_max_abs_err": err,
                    "seconds": seconds}
+
+
+# ---------------------------------------------------------------------------
+# phase 21: the partitioned Mamba mixer, the RWKV train step and adafactor
+# over blocks (slice 17)
+# ---------------------------------------------------------------------------
+
+# jamba-1.5-large-398b at layers 0-4 of 72 (JAMBA: Mamba at 0-3, attention at
+# 4, MoE at 1 and 3; 24.0 B parameters, 48 GB bf16) served 4 x 256 -> 16 on
+# (data 2, model 2) with FSDP as configured, its whole run phase 14's
+# (WHOLE_RUNS), its placed tree built leaf by leaf from the same seeded init;
+# then one f32 train step whole and on (replica 2, model 2): jamba at its
+# layer 0 (Mamba + GLU, 2.1 B parameters) with adafactor, rwkv6-7b at 2 of 32
+# layers with AdamW, each its configured optimizer, 4 x 64.
+PSSM_REUSED = (JAMBA_ARCH,)
+PSSM_TRAIN = ((JAMBA_ARCH, dataclasses.replace(get_config(JAMBA_ARCH), num_layers=1),
+               "adafactor", 1e-3, 4, 64,
+               ("embed", "final_norm/scale", "tail/layer0/norm1/scale",
+                "tail/layer0/mamba/in_proj", "tail/layer0/mamba/conv_w",
+                "tail/layer0/mamba/x_proj", "tail/layer0/mamba/dt_proj",
+                "tail/layer0/mamba/dt_bias", "tail/layer0/mamba/A_log", "tail/layer0/mamba/D",
+                "tail/layer0/mamba/out_proj", "tail/layer0/glu/w_down")),
+              ("rwkv6-7b", dataclasses.replace(RWKV, num_layers=2), "adamw", 3e-4, 4, 64,
+               ("final_norm/scale", "scan/pos0/rwkv/mu", "scan/pos0/rwkv/lora_mix/a",
+                "scan/pos0/rwkv/lora_mix/b", "scan/pos0/rwkv/lora_w/a", "scan/pos0/rwkv/wr",
+                "scan/pos0/rwkv/u", "scan/pos0/rwkv/wo", "scan/pos0/rwkv_cm/wk")))
+
+
+def phase_pssm_kernel_checks(gen):
+    """flash_attention against its plain version at jamba's per-slot shape
+    on (data 2, model 2): 2 rows, 32 of its 64 query heads on 4 of its 8 KV
+    heads of 128, no rope and no window, each call through the route it
+    must take.  Returns the largest error."""
+    cfg, Sq, Sk = JAMBA, DENSE_PROMPT, DENSE_PROMPT + DENSE_NEW
+    q, k, v = qkv_on_card(2, Sq, Sk, cfg.num_heads // 2, cfg.num_kv_heads // 2, cfg.head_dim,
+                          torch.bfloat16, gen)
+    e1 = bf16_close(flash_routed("prefill_tc", q, k, v), flash_attention_plain(q, k, v),
+                    "flash per slot jamba prefill")
+    q1 = q[:, :1].contiguous()
+    e2 = bf16_close(flash_routed("decode", q1, k, v, q_offset=Sk - 1),
+                    flash_attention_plain(q1, k, v, q_offset=Sk - 1),
+                    "flash per slot jamba decode")
+    print(f"[check] flash_attention per slot, {JAMBA_ARCH} on model 2: q [2, {Sq}, "
+          f"{cfg.num_heads // 2}, {cfg.head_dim}] on {cfg.num_kv_heads // 2} kv heads, Sk {Sk}, "
+          f"no window, bf16: prefill_tc max|d| {e1:.3g}, decode (q_offset {Sk - 1}) {e2:.3g} "
+          "(bound 1 bf16 ulp + 2e-5 x max(1, max|plain|))")
+    return max(e1, e2)
+
+
+def phase_partitioned_ssm(card, gen):
+    """Phase 21: the per-slot kernel check, jamba whole (phase 14's run) and
+    partitioned, then each of PSSM_TRAIN's steps.  Returns (launches over
+    the partitioned generate, the phase's record)."""
+    t_phase = time.perf_counter()
+    err = phase_pssm_kernel_checks(gen)
+    counts, served = pmoe_serve(JAMBA_ARCH, JAMBA, DENSE_PROMPT, DENSE_NEW,
+                                DENSE_PROMPT + DENSE_NEW, card, tag="pssm", leafwise=True,
+                                shown=("tail/layer0/mamba/", "tail/layer1/moe/"))
+    WHOLE_RUNS.clear()
+    torch.cuda.empty_cache()
+    reset_launches()
+    trained = []
+    for args in PSSM_TRAIN:
+        trained.append(pmoe_train(*args, card, tag="pssm", check_update=True))
+        torch.cuda.empty_cache()
+    after = launches()
+    check(all(n == 0 for n in after.values()), f"the train steps launched {after}")
+    seconds = time.perf_counter() - t_phase
+    print(f"[pssm] phase 21: {seconds:.1f} s on {card}; launches over the partitioned generate "
+          f"{counts}")
+    return counts, {"serve": served, "train": trained, "per_slot_max_abs_err": err,
+                    "seconds": seconds}
 
 
 def main() -> int:
@@ -6658,6 +6864,12 @@ def main() -> int:
     # each partitioned generate and summed; its train steps launch no kernel
     pmoe_counts, pmoe_rec = phase_partitioned_moe(smi, gen)
     torch.cuda.empty_cache()
+
+    # the partitioned Mamba mixer, the RWKV train step and adafactor over
+    # blocks (slice 17), counts reset just before the partitioned generate;
+    # its train steps launch no kernel
+    pssm_counts, pssm_rec = phase_partitioned_ssm(smi, gen)
+    torch.cuda.empty_cache()
     print(f"[done] {time.perf_counter() - t0:.1f} s after the card check")
 
     cost_of = {"cold_fuse": cf_mod.cost, "decode_accum": da_mod.cost, "row_sketch": sk_mod.cost,
@@ -6704,10 +6916,12 @@ def main() -> int:
         rec["launches_cold_mesh_partitioned"] = cold_part_counts[rec["name"]]
         rec["launches_partitioned_serve"] = pserve_counts[rec["name"]]
         rec["launches_partitioned_moe"] = pmoe_counts[rec["name"]]
+        rec["launches_partitioned_ssm"] = pssm_counts[rec["name"]]
     for rec in (flash, rwkv):
         rec["per_slot_max_abs_err"] = pserve_rec["per_slot_max_abs_err"][rec["name"]]
     flash["per_slot_max_abs_err"] = max(flash["per_slot_max_abs_err"],
-                                        pmoe_rec["per_slot_max_abs_err"])
+                                        pmoe_rec["per_slot_max_abs_err"],
+                                        pssm_rec["per_slot_max_abs_err"])
     # phase 15's times beside the unsharded kernels'; row_sketch_shard is an
     # entry of row_sketch.cu, held at a clamped layout
     fuse_kernels[0]["mesh"] = {"roberta": mesh_rec["cold_fuse"],
@@ -6721,6 +6935,7 @@ def main() -> int:
     print(json.dumps({"partitioned": part_rec}))
     print(json.dumps({"partitioned_serve": pserve_rec}))
     print(json.dumps({"partitioned_moe": pmoe_rec}))
+    print(json.dumps({"partitioned_ssm": pssm_rec}))
     print(json.dumps({"archs": arch_table}))
     print(json.dumps({"archs2": arch2_table}))
     fuse_kernels[0]["at_gemma3_1b"] = fuse_at_gemma

@@ -303,13 +303,19 @@ def _reduce(parts, mesh: Mesh, axis: str, share: bool, *, count: bool = True):
     return out
 
 
-def _gather(parts, mesh: Mesh, axis: str, dim: int):
+def _gather(parts, mesh: Mesh, axis: str, dim: int, share: bool = False):
+    """With ``share`` the slots of a group on one device share one copy."""
     devices = list(mesh.devices.flat)
     out = [None] * len(parts)
     nbytes = 0
     for group in mesh.groups(axis):
+        copies = {}
         for s in group:
-            out[s] = torch.cat([parts[g].to(devices[s]) for g in group], dim)
+            if share and devices[s] in copies:
+                out[s] = copies[devices[s]]
+                continue
+            out[s] = copies[devices[s]] = torch.cat([parts[g].to(devices[s]) for g in group],
+                                                    dim)
         nbytes += len(group) * (len(group) - 1) * _nbytes(parts[group[0]])
     count_collective("all_gather", nbytes, (axis,))
     return out
@@ -409,12 +415,14 @@ def axis_sum_grads(parts: Sequence[torch.Tensor], mesh: Mesh, axis: Optional[str
 def axis_all_gather(parts: Sequence[torch.Tensor], mesh: Mesh, axis: Optional[str],
                     dim: int) -> List[torch.Tensor]:
     """Each slot gets its group's blocks concatenated along ``dim`` in slot
-    order; the backward reduce-scatters the gradient back to the blocks."""
+    order; the backward reduce-scatters the gradient back to the blocks.
+    Untracked (serving), the slots of a group on one device share one
+    copy: read it, never write it."""
     if _trivial(mesh, axis):
         return list(parts)
     if _tracked(parts):
         return list(_AllGather.apply(mesh, axis, dim, *parts))
-    return _gather(list(parts), mesh, axis, dim)
+    return _gather(list(parts), mesh, axis, dim, share=True)
 
 
 def axis_reduce_scatter(parts: Sequence[torch.Tensor], mesh: Mesh, axis: Optional[str],

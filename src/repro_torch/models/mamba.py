@@ -48,12 +48,23 @@ def init_mamba(cfg: ArchConfig, gen: torch.Generator, dtype, device):
     return p
 
 
-def _ssm_inputs(cfg: ArchConfig, p, xc: torch.Tensor):
+def x_proj(p, xc: torch.Tensor) -> torch.Tensor:
+    """The ``x_proj`` product of the post-conv activations xc [B, S, di] in
+    the compute dtype: [B, S, dtr + 2 ds] (a slot's partial sum over its
+    channels on the partitioned path)."""
+    return xc @ p["x_proj"]
+
+
+def _ssm_inputs(cfg: ArchConfig, p, xc: torch.Tensor, proj=None):
     """xc [B, S, di] post-conv activations -> (dA, dBx [B, S, di, ds], C
-    [B, S, ds]), all f32."""
+    [B, S, ds]), all f32.  ``proj`` is ``x_proj(p, xc)`` (computed here by
+    default); from it on every step is local to a channel, so ``p``'s
+    ``dt_proj``, ``dt_bias``, ``A_log`` and xc may be a block of the di
+    channels."""
     ds, dtr = cfg.ssm.d_state, cfg.ssm.dt_rank
-    proj = (xc @ p["x_proj"]).float()  # [B, S, dtr + 2 ds]
-    dt_low, Bmat, Cmat = torch.split(proj, [dtr, ds, ds], dim=-1)
+    if proj is None:
+        proj = x_proj(p, xc)
+    dt_low, Bmat, Cmat = torch.split(proj.float(), [dtr, ds, ds], dim=-1)
     dt = F.softplus(dt_low @ p["dt_proj"].float() + p["dt_bias"].float())
     A = -torch.exp(p["A_log"])  # [di, ds]
     dA = torch.exp(dt[..., None] * A)
@@ -91,35 +102,54 @@ def _meta_scan(dA, dBx, Cmat, h):
                                (flops, nbytes), (2 * flops, 4 * nbytes))
 
 
+def selective_scan(dA, dBx, Cmat, h=None):
+    """The scan over S: ``(ys [B, S, di] f32, the final h [B, di, ds])``
+    from ``h`` (zeros by default), channel by channel."""
+    B, _, di, ds = dA.shape
+    if h is None:
+        h = torch.zeros((B, di, ds), dtype=torch.float32, device=dA.device)
+    if dA.is_meta:
+        return _meta_scan(dA, dBx, Cmat, h)
+    steps = []
+    for t in range(dA.shape[1]):
+        h = dA[:, t] * h + dBx[:, t]
+        steps.append(torch.einsum("bns,bs->bn", h, Cmat[:, t]))
+    return torch.stack(steps, dim=1), h
+
+
+def gated(p, ys, xc, z):
+    """``(ys + xc·D)`` cast to z's dtype, times ``silu(z)``: the input of
+    ``out_proj`` [B, S, di]."""
+    return (ys + xc.float() * p["D"]).to(z.dtype) * F.silu(z)
+
+
+def conv_window(cfg: ArchConfig, prepend, xi: torch.Tensor) -> torch.Tensor:
+    """The conv's new state: the last dc - 1 positions of ``prepend`` (zeros
+    when None) followed by xi [B, S, di]."""
+    if prepend is None:
+        B, _, di = xi.shape
+        prepend = torch.zeros((B, cfg.ssm.d_conv - 1, di), dtype=xi.dtype, device=xi.device)
+    return torch.cat([prepend, xi], dim=1)[:, -(cfg.ssm.d_conv - 1):]
+
+
 def mamba_fwd(cfg: ArchConfig, p, x: torch.Tensor, *, state=None, return_state: bool = False):
     """x [B, S, D] -> (y [B, S, D], new state or None).
 
     ``state``: optional dict {"h": [B, di, ds] f32, "conv": [B, dc-1, di]}
     to resume from (S may be 1).  The new state is returned as new tensors;
-    the caller decides where it lives."""
-    B, S, _ = x.shape
-    di, ds, dc = d_inner(cfg), cfg.ssm.d_state, cfg.ssm.d_conv
+    the caller decides where it lives.  The steps after ``in_proj`` are
+    the channel-local parts ``models.partitioned`` runs on a slot's block
+    of channels: ``_conv``, ``x_proj``, ``_ssm_inputs``,
+    ``selective_scan``, ``gated``."""
     xi, z = torch.chunk(x @ p["in_proj"], 2, dim=-1)  # [B, S, di] each
     prepend = None if state is None else state["conv"]
     xc = _conv(cfg, p, xi, prepend=prepend)
     dA, dBx, Cmat = _ssm_inputs(cfg, p, xc)
-    h = state["h"] if state is not None else torch.zeros((B, di, ds), dtype=torch.float32,
-                                                          device=x.device)
-    if x.is_meta:
-        ys, h = _meta_scan(dA, dBx, Cmat, h)
-    else:
-        steps = []
-        for t in range(S):
-            h = dA[:, t] * h + dBx[:, t]
-            steps.append(torch.einsum("bns,bs->bn", h, Cmat[:, t]))
-        ys = torch.stack(steps, dim=1)
-    y = ys + xc.float() * p["D"]
-    out = (y.to(x.dtype) * F.silu(z)) @ p["out_proj"]
+    ys, h = selective_scan(dA, dBx, Cmat, None if state is None else state["h"])
+    out = gated(p, ys, xc, z) @ p["out_proj"]
     new_state = None
     if return_state:
-        if prepend is None:
-            prepend = torch.zeros((B, dc - 1, di), dtype=x.dtype, device=x.device)
-        new_state = {"h": h, "conv": torch.cat([prepend, xi], dim=1)[:, -(dc - 1):]}
+        new_state = {"h": h, "conv": conv_window(cfg, prepend, xi)}
     return out, new_state
 
 

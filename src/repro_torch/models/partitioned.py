@@ -61,6 +61,36 @@ it in place):
   (counted) where the shift reads it, and each slot stores its slice of
   the new one.
 
+**The RWKV block in the train step** is the same split, on the plain
+recurrence (``rwkv._recurrence``: the reference's ``rwkv6_scan`` has no
+backward either).  The leaves held whole over ``model`` but used by each
+slot's heads alone (``mu``, ``lora_mix/a``, ``lora_mix/b``, ``lora_w/a``)
+pass ``axis_sum_grads`` over it, as the whole ``wk``/``wv`` of attention
+do: each slot's gradient is then the whole one.
+
+**The Mamba mixer** is channel-parallel by the reference's rules: every
+leaf splits its d_inner channels over ``model`` (``in_proj`` [D, 2·di] on
+its 2·di columns as one dim, ``conv_*``, ``x_proj`` [di, dtr + 2·ds] on
+its rows, ``dt_proj`` on its columns, ``dt_bias``, ``A_log``, ``D``;
+``out_proj`` [di, D] on its rows, FSDP on its columns), and slot ``m``
+runs channels ``[m·di/M, (m+1)·di/M)``:
+
+* ``in_proj``'s blocks are not a slot's channels of both halves (at M = 2
+  slot 0 holds all of ``xi``, slot 1 all of ``z``): each slot multiplies
+  its block, the [B, S, 2·di] product is all-gathered over ``model`` (one
+  counted gather of activations, whose backward reduce-scatters), and
+  each slot slices its channels of ``xi`` and ``z``;
+* the conv, the SSM inputs from ``dt_low``/``B``/``C`` on, the scan, the
+  ``+ xc·D`` and the ``silu(z)`` gate are local to a channel
+  (``mamba``'s parts); ``x_proj`` is row-parallel, its partial products
+  all-reduced over ``model`` (one a layer), and since every slot's
+  channels read the whole ``dt_low``, ``B`` and ``C`` that output passes
+  ``axis_sum_grads``;
+* ``out_proj`` is row-parallel with one all-reduce;
+* serving: each slot resumes from and writes in place its blocks of the
+  state, ``h`` [B, di, ds] split (data, model, None) and ``conv``
+  [B, dc-1, di] split (data, None, model) by ``cache_shardings``.
+
 **The MoE FFN** is expert parallel, by the reference's rules
 (``moe/w_gate``/``w_up`` [E, D, F] and ``w_down`` [E, F, D] split E over
 ``model``, the router [D, E] whole over it), and computes what GSPMD makes
@@ -98,14 +128,12 @@ lookup's all-reduce.  The rotary angles are computed once per replica and
 device (the replicas' positions differ).  A decode step takes its
 positions from ``cache_index``, as the reference's serve step does.
 
-Attention + GLU/MLP/MoE decoders with RoPE or M-RoPE are partitioned for
-training and serving; the serving steps take the RWKV block too.  The
-Mamba mixer, the RWKV block in training, the encoder-decoder (and its
-``frames``) and the encoder raise ``NotImplementedError``
-(``check_partitionable``), as does a serving batch that the batch axis
-does not divide (the reference then splits the cache's sequence over it:
-a context-parallel decode).  The train step refuses adafactor, whose
-statistics are means over whole rows and columns.
+Every decoder (attention, Mamba and RWKV mixers; GLU, MLP, MoE and RWKV
+channel-mix FFNs; RoPE or M-RoPE) is partitioned for training and
+serving.  The encoder-decoder (and its ``frames``) and the encoder raise
+``NotImplementedError`` (``check_partitionable``), as does a serving
+batch that the batch axis does not divide (the reference then splits the
+cache's sequence over it: a context-parallel decode).
 """
 from __future__ import annotations
 
@@ -117,6 +145,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig
 from repro_torch.launch import mesh as M
 from repro_torch.models import layers as L
+from repro_torch.models import mamba as MB
 from repro_torch.models import moe as MOE
 from repro_torch.models import rwkv as R
 from repro_torch.models import transformer as T
@@ -136,6 +165,10 @@ def refuse(cfg: ArchConfig, part: str, *, serving: bool = False):
         f"place its state on a grid of one slot (replica = model = 1) to {verb} it whole")
 
 
+MIXERS = ("attn", "rwkv", "mamba")
+FFNS = ("glu", "mlp", "moe", "rwkv_cm")
+
+
 def check_partitionable(cfg: ArchConfig, batch_keys: Sequence[str] = (), *,
                         serving: bool = False, batch: Optional[int] = None,
                         replicas: int = 1) -> None:
@@ -148,12 +181,10 @@ def check_partitionable(cfg: ArchConfig, batch_keys: Sequence[str] = (), *,
     if cfg.family == "encoder":
         refuse(cfg, "encoder (RoBERTa)", serving=serving)
     for blk in cfg.blocks:
-        if blk.mixer != "attn" and not (serving and blk.mixer == "rwkv"):
-            refuse(cfg, {"mamba": "Mamba mixer", "rwkv": "RWKV time mix"}.get(
-                blk.mixer, f"{blk.mixer} mixer"), serving=serving)
-        if blk.ffn not in ("glu", "mlp", "moe") and not (serving and blk.ffn == "rwkv_cm"):
-            refuse(cfg, {"rwkv_cm": "RWKV channel mix"}.get(blk.ffn, f"{blk.ffn} FFN"),
-                   serving=serving)
+        if blk.mixer not in MIXERS:
+            refuse(cfg, f"{blk.mixer} mixer", serving=serving)
+        if blk.ffn not in FFNS:
+            refuse(cfg, f"{blk.ffn} FFN", serving=serving)
     if "frames" in batch_keys:
         refuse(cfg, "batch input 'frames' (the encoder-decoder's)", serving=serving)
     if batch is not None and batch % replicas:
@@ -401,7 +432,8 @@ def _store_shift(sl: _Slab, blocks, h):
 
 def _time_mix(sl: _Slab, pre: str, rep, h, *, cache=None, differentiable: bool = False):
     """The head-parallel RWKV6 time mix (the module docstring): each slot
-    ``rwkv.time_mix_heads`` on its heads' blocks, ``wo`` row-parallel."""
+    ``rwkv.time_mix_heads`` on its heads' blocks (the plain recurrence when
+    ``differentiable``, else ``rwkv6_scan``), ``wo`` row-parallel."""
     cfg, mesh, mp = sl.cfg, sl.mesh, sl.mp
     stacked = rep is not None
     split = sl.split_over_model(f"{pre}/wr", -1, stacked)
@@ -412,6 +444,9 @@ def _time_mix(sl: _Slab, pre: str, rep, h, *, cache=None, differentiable: bool =
         refuse(cfg, "RWKV time mix with its leaves split otherwise than by heads",
                serving=not differentiable)
     ws = {k: sl.weight(f"{pre}/{k}", rep) for k in tuple(_TIME_MIX_SPLIT) + _TIME_MIX_WHOLE}
+    if split:  # whole on every slot, each using its heads' share: sum their gradients
+        for k in _TIME_MIX_WHOLE:
+            ws[k] = M.axis_sum_grads(ws[k], mesh, mp)
     last = _shift_state(sl, None if cache is None else cache["shift"], cfg.d_model)
     if split:
         h = M.axis_sum_grads(h, mesh, mp)
@@ -433,13 +468,13 @@ def _time_mix(sl: _Slab, pre: str, rep, h, *, cache=None, differentiable: bool =
     return M.axis_all_reduce(outs, mesh, mp) if split else outs
 
 
-def _channel_mix(sl: _Slab, pre: str, rep, h, *, cache=None):
+def _channel_mix(sl: _Slab, pre: str, rep, h, *, cache=None, serving: bool = True):
     """The RWKV channel mix, whole on every slot (no rule splits it)."""
     stacked = rep is not None
     names = ("mu_k", "mu_r", "wk", "wv", "wr")
     if any(sl.split_over_model(f"{pre}/{k}", d, stacked) for k in names
            for d in range(len(sl.spec(f"{pre}/{k}", stacked)))):
-        refuse(sl.cfg, "RWKV channel mix split over model", serving=True)
+        refuse(sl.cfg, "RWKV channel mix split over model", serving=serving)
     ws = {k: sl.weight(f"{pre}/{k}", rep) for k in names}
     last = _shift_state(sl, None if cache is None else cache["cm_shift"], sl.cfg.d_model)
     outs = [R.channel_mix_fwd(sl.cfg, {k: ws[k][s] for k in names}, h[s],
@@ -448,6 +483,56 @@ def _channel_mix(sl: _Slab, pre: str, rep, h, *, cache=None):
     if cache is not None:
         _store_shift(sl, cache["cm_shift"], h)
     return outs
+
+
+# the Mamba mixer's leaves by the dim the reference's rules split over model:
+# every one by its d_inner channels (in_proj's 2·di columns as one dim)
+_MAMBA_SPLIT = {"in_proj": -1, "conv_w": -1, "conv_b": 0, "x_proj": 0, "dt_proj": -1,
+                "dt_bias": 0, "A_log": 0, "D": 0, "out_proj": 0}
+
+
+def _mamba(sl: _Slab, pre: str, rep, h, *, cache=None, differentiable: bool = False):
+    """The channel-parallel Mamba mixer (the module docstring): each slot
+    runs ``mamba``'s channel-local parts on its block of the d_inner
+    channels, against its blocks of the state ``h`` and ``conv``."""
+    cfg, mesh, mp = sl.cfg, sl.mesh, sl.mp
+    stacked = rep is not None
+    split = sl.split_over_model(f"{pre}/in_proj", -1, stacked)
+    if any(sl.split_over_model(f"{pre}/{k}", d, stacked) != split
+           for k, d in _MAMBA_SPLIT.items()):
+        refuse(cfg, "Mamba mixer with its leaves split otherwise than by channels",
+               serving=not differentiable)
+    ws = {k: sl.weight(f"{pre}/{k}", rep) for k in _MAMBA_SPLIT}
+    di = MB.d_inner(cfg)
+    c = di // sl.M if split else di
+    if split:
+        h = M.axis_sum_grads(h, mesh, mp)
+    xz = [h[s] @ ws["in_proj"][s] for s in range(sl.n)]
+    if split:  # slot m's columns of [xi | z] are neither's channels m: gather the product
+        xz = M.axis_all_gather(xz, mesh, mp, xz[0].dim() - 1)
+    ps = [{k: ws[k][s] for k in _MAMBA_SPLIT} for s in range(sl.n)]
+    xis, zs, xcs, partial = [], [], [], []
+    for s in range(sl.n):
+        lo = mesh.coord(s, mp) * c if split else 0
+        xi, z = xz[s][..., lo:lo + c], xz[s][..., di + lo:di + lo + c]
+        xc = MB._conv(cfg, ps[s], xi, prepend=None if cache is None else cache["conv"][s])
+        xis.append(xi)
+        zs.append(z)
+        xcs.append(xc)
+        partial.append(MB.x_proj(ps[s], xc))
+    if split:  # row-parallel x_proj; every channel reads the whole dt_low, B and C
+        proj = M.axis_sum_grads(M.axis_all_reduce(partial, mesh, mp), mesh, mp)
+    else:
+        proj = partial
+    outs = []
+    for s in range(sl.n):
+        dA, dBx, Cmat = MB._ssm_inputs(cfg, ps[s], xcs[s], proj=proj[s])
+        ys, h_new = MB.selective_scan(dA, dBx, Cmat, None if cache is None else cache["h"][s])
+        if cache is not None:  # the slot's blocks of the state, in place
+            cache["conv"][s].copy_(MB.conv_window(cfg, cache["conv"][s], xis[s]))
+            cache["h"][s].copy_(h_new)
+        outs.append(MB.gated(ps[s], ys, xcs[s], zs[s]) @ ws["out_proj"][s])
+    return M.axis_all_reduce(outs, mesh, mp) if split else outs
 
 
 def _layer_names(cfg: ArchConfig):
@@ -547,13 +632,16 @@ def partitioned_forward(cfg: ArchConfig, mesh: M.Mesh, live: Dict[str, List[torc
         h = sl.norm(f"{pre}/norm1", rep, x)
         if blk.mixer == "rwkv":
             a = _time_mix(sl, f"{pre}/rwkv", rep, h, cache=lc, differentiable=differentiable)
+        elif blk.mixer == "mamba":
+            a = _mamba(sl, f"{pre}/mamba", rep, h, cache=lc, differentiable=differentiable)
         else:
             a = _attention(sl, f"{pre}/attn", rep, blk, h, angles, cache=lc,
                            cache_index=cache_index, differentiable=differentiable)
         x = [xi + ai for xi, ai in zip(x, a)]
         h2 = sl.norm(f"{pre}/norm2", rep, x)
         if blk.ffn == "rwkv_cm":
-            f = _channel_mix(sl, f"{pre}/rwkv_cm", rep, h2, cache=lc)
+            f = _channel_mix(sl, f"{pre}/rwkv_cm", rep, h2, cache=lc,
+                             serving=not differentiable)
         elif blk.ffn == "moe":
             f, layer_aux = _moe(sl, f"{pre}/moe", rep, h2, differentiable=differentiable)
             if layer_aux is not None:

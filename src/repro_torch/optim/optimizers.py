@@ -1,8 +1,9 @@
 """Optimizers and learning-rate schedules as plain functions over dict trees
 (port of ``repro.optim.optimizers``; not ``torch.optim``, so each update is
 the reference's to the operation): SGD (with momentum), AdamW and
-Adafactor.  SGD and AdamW also update a partitioned step's placed leaves
-(``utils.placed.Placed``), block by block.
+Adafactor.  Each also updates a partitioned step's placed leaves
+(``utils.placed.Placed``): SGD and AdamW block by block, Adafactor with
+whole replicated statistics (``adafactor``).
 
 ``opt = make_optimizer(name, schedule)`` has ``init(params) -> state`` and
 ``update(grads, state, params) -> (updates, state)``; updates are added to
@@ -22,7 +23,7 @@ import numpy as np
 import torch
 
 from repro_torch.launch import mesh as M
-from repro_torch.utils.placed import Placed
+from repro_torch.utils.placed import Layout, Placed
 from repro_torch.utils.pytree import (tree_from_paths, tree_leaves, tree_leaves_with_path,
                                       tree_map)
 
@@ -143,41 +144,88 @@ def adamw(schedule: Schedule, b1: float = 0.9, b2: float = 0.999, eps: float = 1
     return Optimizer(init, update, "adamw")
 
 
+def _replicated_zeros(x: Placed, shape) -> Placed:
+    """f32 zeros of ``shape`` replicated on ``x``'s grid (the spec ``P()``:
+    one block a device)."""
+    lay = Layout(shape, (), x.layout.mesh)
+    return Placed(lay, [torch.zeros(shape, dtype=torch.float32, device=dev)
+                        for dev in lay.devices])
+
+
+def _stat(s) -> torch.Tensor:
+    """A statistic's whole value: a tensor, or a replicated placed leaf's
+    first block (every block holds the same)."""
+    return s.blocks[0] if isinstance(s, Placed) else s
+
+
+def _with_stat(s, value: torch.Tensor):
+    """``value`` stored as ``s`` is: in place of a tensor, or copied to
+    each device of a replicated placed leaf (once a device)."""
+    if not isinstance(s, Placed):
+        return value
+    return s.with_blocks([value if dev == value.device else value.to(dev, copy=True)
+                          for dev in s.layout.devices])
+
+
+def _count_over(x: Placed, name: str, stat_bytes: int):
+    """Count one ``name`` collective of a statistic over the axes that split
+    placed leaf ``x`` (each group of slots those axes span), where any do."""
+    lay = x.layout
+    axes = tuple(a for a in lay.mesh.axis_names if lay.splits_over(a) and lay.mesh.extent(a) > 1)
+    if not axes:
+        return
+    k = int(np.prod([lay.mesh.extent(a) for a in axes]))
+    groups = lay.n_slots // k
+    per = 2 * (k - 1) * stat_bytes if name == "all_reduce" else (k - 1) * stat_bytes
+    M.count_collective(name, groups * per, axes)
+
+
 def adafactor(schedule: Schedule, decay: float = 0.8, eps: float = 1e-30,
               clip_threshold: float = 1.0) -> Optimizer:
     """Factored second-moment estimator (Shazeer & Stern 2018), no momentum.
     A leaf of rank >= 2 keeps row and column means of g² (``vr`` over the
     last axis, ``vc`` over the one before) instead of the whole ``v``; each
-    leaf's update is clipped to RMS ``clip_threshold``."""
+    leaf's update is clipped to RMS ``clip_threshold``.
+
+    Over a placed leaf (``utils.placed.Placed``) the statistics are whole
+    and replicated, as the reference's ``opt_state_shardings`` places them
+    (``P()``: no parameter matches ``v/<path>/vr``), one block a device.
+    Each logical block of the gradient adds its partial row sums and
+    column sums of g² into the whole ``vr``/``vc`` (one counted all-reduce
+    each over the axes that split the leaf); a rank-1 leaf's g² is
+    all-gathered whole (counted).  The statistics are blended once a leaf,
+    not once a slot, and copied to each device; ``rfac``/``cfac`` are
+    sliced to each block's rows and columns; the RMS clip sums u² over each
+    logical block once, one counted all-reduce."""
 
     def factored(x):
         return x.ndim >= 2
 
-    def whole_only(tree):
-        if any(isinstance(x, Placed) for x in tree_leaves(tree)):
-            raise NotImplementedError("adafactor's statistics are means over whole rows and "
-                                      "columns: the partitioned step takes sgd and adamw "
-                                      "(ROADMAP.md A6c)")
-
     def init(params):
-        whole_only(params)
-
         def leaf_state(x):
             if factored(x):
-                return {"vr": torch.zeros(x.shape[:-1], dtype=torch.float32, device=x.device),
-                        "vc": torch.zeros(x.shape[:-2] + x.shape[-1:], dtype=torch.float32,
-                                          device=x.device)}
-            return {"v": torch.zeros_like(x, dtype=torch.float32)}
+                shapes = {"vr": x.shape[:-1], "vc": x.shape[:-2] + x.shape[-1:]}
+            else:
+                shapes = {"v": x.shape}
+            if isinstance(x, Placed):
+                return {k: _replicated_zeros(x, shape) for k, shape in shapes.items()}
+            return {k: torch.zeros(shape, dtype=torch.float32, device=x.device)
+                    for k, shape in shapes.items()}
 
-        return {"step": 0, "v": tree_map(leaf_state, params)}
+        def walk(x):  # a placed leaf's state is whole, not mapped block by block
+            return {k: walk(v) for k, v in x.items()} if isinstance(x, dict) else leaf_state(x)
+
+        return {"step": 0, "v": walk(params)}
 
     def update(grads, state, params):
-        whole_only(grads)
         step = state["step"] + 1
         lr = schedule(state["step"])
         f32 = np.float32
         beta = f32(1) - (f32(step) + f32(1)) ** f32(-decay)
         keep, mix = float(beta), float(f32(1) - beta)
+
+        def clip(u, rms):
+            return u / torch.clamp(rms / clip_threshold, min=1.0)
 
         def upd(g, s, p):
             gf = g.float()
@@ -194,14 +242,58 @@ def adafactor(schedule: Schedule, decay: float = 0.8, eps: float = 1e-30,
                 u = gf * torch.rsqrt(v + eps)
                 new_s = {"v": v}
             rms = torch.sqrt(torch.mean(torch.square(u)) + eps)
-            u = u / torch.clamp(rms / clip_threshold, min=1.0)
-            return (-lr * u).to(p.dtype), new_s
+            return (-lr * clip(u, rms)).to(p.dtype), new_s
+
+        def upd_placed(g: Placed, s, p: Placed):
+            lay, shape = g.layout, tuple(g.shape)
+            logical = lay.logical_blocks()
+            dev = _stat(next(iter(s.values()))).device
+            parts = {lay.block_index[u]: (lay.slices(lay.block_index[u]), g.blocks[u].float())
+                     for u in logical}
+            if factored(g):
+                row, col = (torch.zeros(shape[:-1], device=dev),
+                            torch.zeros(shape[:-2] + shape[-1:], device=dev))
+                for sl, gf in parts.values():
+                    g2 = torch.square(gf) + eps
+                    row[sl[:-1]] += g2.sum(-1).to(dev)
+                    col[sl[:-2] + sl[-1:]] += g2.sum(-2).to(dev)
+                _count_over(g, "all_reduce", row.numel() * 4)
+                _count_over(g, "all_reduce", col.numel() * 4)
+                vr = keep * _stat(s["vr"]) + mix * (row / shape[-1])
+                vc = keep * _stat(s["vc"]) + mix * (col / shape[-2])
+                rfac = torch.rsqrt(vr / torch.mean(vr, dim=-1, keepdim=True) + eps)
+                cfac = torch.rsqrt(vc + eps)
+                new_s = {"vr": _with_stat(s["vr"], vr), "vc": _with_stat(s["vc"], vc)}
+
+                def u_of(sl, gf):
+                    return (gf * rfac[sl[:-1]][..., None].to(gf.device)
+                            * cfac[sl[:-2] + sl[-1:]][..., None, :].to(gf.device))
+            else:
+                whole = torch.empty(shape, device=dev)
+                for sl, gf in parts.values():
+                    whole[sl] = (torch.square(gf) + eps).to(dev)
+                _count_over(g, "all_gather", whole.numel() * 4)
+                v = keep * _stat(s["v"]) + mix * whole
+                new_s = {"v": _with_stat(s["v"], v)}
+
+                def u_of(sl, gf):
+                    return gf * torch.rsqrt(v[sl] + eps).to(gf.device)
+
+            us = {idx: u_of(sl, gf) for idx, (sl, gf) in parts.items()}
+            sq = sum(torch.sum(torch.square(u)).to(dev) for u in us.values())
+            _count_over(g, "all_reduce", 4)
+            rms = torch.sqrt(sq / g.numel() + eps)
+            blocks = []
+            for u, b in enumerate(p.blocks):
+                x = us[lay.block_index[u]].to(b.device)
+                blocks.append((-lr * clip(x, rms.to(b.device))).to(b.dtype))
+            return p.with_blocks(blocks), new_s
 
         def walk(g, s, p):
             """(updates, new state) over one subtree; a tensor of the grads
             is a leaf, whose state is a dict of its own."""
             if not isinstance(g, dict):
-                return upd(g, s, p)
+                return upd_placed(g, s, p) if isinstance(g, Placed) else upd(g, s, p)
             pairs = {k: walk(g[k], s[k], p[k]) for k in g}
             return ({k: u for k, (u, _) in pairs.items()},
                     {k: ns for k, (_, ns) in pairs.items()})

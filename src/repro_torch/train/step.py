@@ -135,8 +135,10 @@ def make_train_step(cfg: ArchConfig, optimizer: Optimizer, *, microbatches: int 
     replica's share of it comes from the replica block that holds those
     rows, copied to the slot's device where that block is another
     replica's (an input's placement, not counted as a collective; at one
-    microbatch no row moves).  adafactor is refused: its statistics are
-    means over whole rows and columns.
+    microbatch no row moves).  Every optimizer takes placed leaves;
+    adafactor keeps its statistics whole and replicated, as the
+    reference's ``opt_state_shardings`` places them
+    (``optim.optimizers.adafactor``).
 
     ``grad_shardings``: a tree of ``launch.sharding.NamedSharding`` matching
     the params (``params_shardings``).  The reference pins its f32
@@ -188,9 +190,6 @@ def make_train_step(cfg: ArchConfig, optimizer: Optimizer, *, microbatches: int 
         params = state["params"]
         named, mesh = _placed_grid(params, "params")
         PT.check_partitionable(cfg, list(batch))
-        if optimizer.name == "adafactor":
-            PT.refuse(cfg, "optimizer adafactor over blocks (its statistics are means over "
-                      "whole rows and columns)")
         if grad_shardings is not None:
             check_shardings(params)
         dp, _ = PT.grid_axes(mesh)

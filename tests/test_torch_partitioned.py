@@ -505,18 +505,37 @@ def test_other_dense_archs_match_the_whole_step(arch):
     _close(tsh.gather(got["params"]), want["params"], 1e-5, 1e-5)
 
 
-@pytest.mark.parametrize("arch, part", [("jamba-1.5-large-398b", "Mamba mixer"),
-                                        ("rwkv6-7b", "RWKV time mix"),
-                                        ("qwen2-vl-72b", "optimizer adafactor over blocks")])
+@pytest.mark.parametrize("arch, part", [("whisper-tiny", "encoder-decoder (whisper)"),
+                                        ("roberta-base", "encoder (RoBERTa)"),
+                                        ("gemma3-1b", "batch input 'frames'")])
 def test_other_archs_are_refused(arch, part):
-    cfg = reduce_config(get_config(arch))
-    opt = (make_optimizer("adafactor", constant_lr(LR)) if "adafactor" in part else _sgd())
-    params = TT.init_lm(cfg, torch.Generator().manual_seed(0), device="cpu")
+    """What the partitioned train step does not run raises
+    ``NotImplementedError`` naming the arch and the part (the Mamba mixer,
+    the RWKV block and adafactor train partitioned since
+    ``tests/test_torch_partitioned_ssm.py``): the encoder-decoder, the
+    encoder, and a batch with the encoder-decoder's ``frames``."""
+    gen = torch.Generator().manual_seed(0)
+    if arch == "roberta-base":
+        from repro_torch.configs import TINY
+        from repro_torch.models.encoder import init_encoder_body
+        cfg = TINY
+        params = init_encoder_body(cfg, gen, device="cpu")
+    elif arch == "whisper-tiny":
+        from repro_torch.models.whisper import init_whisper
+        cfg = reduce_config(get_config(arch))
+        params = init_whisper(cfg, gen, device="cpu")
+    else:
+        cfg = reduce_config(get_config(arch))
+        params = TT.init_lm(cfg, gen, device="cpu")
+    opt = _sgd()
     mesh = tmesh.make_mesh((2, 2), ("replica", "model"), device="cpu")
     psh = tsh.params_shardings(mesh, params, cfg, data_axis="replica", model_axis="model")
-    state = make_train_state(params, opt)  # placed whole: adafactor's init takes no blocks
+    state = make_train_state(params, opt)
     state = tsh.device_put(state, {"params": psh,
                                    "opt": tsh.opt_state_shardings(mesh, state["opt"], psh)})
-    toks = np.random.default_rng(0).integers(3, cfg.vocab_size, (B, S))
-    with pytest.raises(NotImplementedError, match=f"{cfg.name}'s {part}"):
-        make_train_step(cfg, opt)(state, {"tokens": toks})
+    batch = {"tokens": np.random.default_rng(0).integers(3, cfg.vocab_size, (B, S))}
+    if arch != "gemma3-1b" or "frames" in part:
+        batch["frames"] = np.zeros((B, 8, cfg.d_model), np.float32)
+    match = f"{cfg.name}'s " + part.replace("(", r"\(").replace(")", r"\)")
+    with pytest.raises(NotImplementedError, match=match):
+        make_train_step(cfg, opt)(state, batch)

@@ -369,8 +369,8 @@ def _placed_any(params, cfg, mesh):
 
 
 @pytest.mark.parametrize("arch, part, entry", [
-    ("jamba-1.5-large-398b", "Mamba mixer", "prefill"),
-    ("jamba-1.5-large-398b", "Mamba mixer", "generate"),
+    ("whisper-tiny", "encoder-decoder (whisper)", "generate"),
+    ("gemma3-1b", "batch of 3 over 2 batch slots", "prefill"),
     ("whisper-tiny", "encoder-decoder (whisper)", "prefill"),
     ("gemma3-1b", "batch input 'frames'", "prefill"),
     ("whisper-tiny", "encoder-decoder (whisper)", "serve"),
@@ -381,7 +381,8 @@ def test_partitioned_serving_refusals(arch, part, entry):
     """What the partitioned serving steps do not run raises
     ``NotImplementedError`` naming the arch and the part, in the train
     step's message format (``tests/test_torch_partitioned.py``'s
-    ``test_other_archs_are_refused`` reads the same rule)."""
+    ``test_other_archs_are_refused`` reads the same rule); jamba's Mamba
+    mixer serves partitioned since ``tests/test_torch_partitioned_ssm.py``."""
     mesh = tmesh.make_mesh((2, 2), ("data", "model"), device="cpu")
     gen = torch.Generator().manual_seed(0)
     if arch == "roberta-base":
@@ -399,7 +400,15 @@ def test_partitioned_serving_refusals(arch, part, entry):
     match = (f"partitioned serving steps does not run {cfg.name}'s "
              + part.replace("(", r"\(").replace(")", r"\)"))
     with pytest.raises(NotImplementedError, match=match):
-        if entry == "generate":
+        if entry == "generate" and cfg.is_encoder_decoder:
+            # whisper's greedy generate (``Engine`` drives decoder-only archs):
+            # the prompt into its cache through the serve step, then a token a step
+            from repro_torch.models.whisper import init_whisper_cache
+            step = make_serve_step(cfg)
+            logits, cache = step(params, init_whisper_cache(cfg, rows, 16, device="cpu"), toks,
+                                 0)
+            step(params, cache, torch.argmax(logits, -1)[:, None], toks.shape[1])
+        elif entry == "generate":
             Engine(cfg, params, max_len=16).generate(toks, max_new_tokens=2)
         elif entry == "prefill":
             batch = {"tokens": toks}
