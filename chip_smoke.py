@@ -428,12 +428,33 @@ Phases (any failed check raises, so the script exits non-zero):
    as phase 20's, and the updated parameters held against the whole
    optimizer's update of the same gradients.  Its record is a
    ``{"partitioned_ssm": ...}`` line.
+22. **Context-parallel serving** (slice 18, ``phase_context_parallel``):
+   one request (B = 1) on ``(data 2, model 2)``, where the batch axis does
+   not divide the batch.  First ``flash_decode.cu``'s two new entries,
+   ``flash_attention_partials`` over each block of a cache split in two
+   and ``merge_partials`` over both blocks' partials, against their plain
+   versions at the per-slot decode shapes (gemma3-1b's q [1, 1, 2, 256]
+   over 16,384-key blocks, a global layer and a local one whose block 0
+   holds no visible key; granite-moe's q [1, 1, 8, 64] on 4 kv heads), bf16
+   and f32, and the merged output against ``flash_attention_plain`` over
+   the whole cache; then both entries timed against their plain versions
+   and SDPA over the whole cache (``[time] flash_attention
+   decode_partial`` / ``decode_merge`` lines).  Then ``CP_MODELS`` whole
+   and context-parallel: gemma3-1b 1 x 32,752 -> 16 (26 layers, linear
+   caches of 32,768), rwkv6-7b 1 x 4,096 -> 16 (FSDP), granite-moe 1 x
+   2,048 -> 16: the prompt split into two chunks over ``data``, the
+   caches' sequence over ``data``; launches exact by route
+   (``cp_routes``), collectives a prefill and a decode step the formula's
+   (``serve_collectives(step=)``), bytes a slot = ``dryrun.slot_bytes``,
+   profiler busy time and peak, and the logits teacher-forced on the whole
+   model's tokens within 4x its nudge yardstick (``tp_agreement``).  Its
+   record is a ``{"context_parallel": ...}`` line.
 
 Before each of phases 6, 7, 8, 10, 11 and 16 (and again before each of
 phase 16's serves), before each model of phases 9, 13 and 14, around
 phases 12's, 13's and 14's eval steps and generates, around each run of
 phase 15's mesh daemon, around phase 17's counted prefill and decode step
-and around each of phase 19's, 20's and 21's partitioned generates, every
+and around each of phase 19's, 20's, 21's and 22's partitioned generates, every
 kernel's launch
 counter is set to 0; it is read just after.  The last lines are the
 kernels' JSON record (launches from phase 7 for the three fuse kernels, with phase 10's
@@ -444,15 +465,19 @@ as ``launches_routed``, from phase 9 for the other two, phase 11's as
 ``launches_cold_mesh_partitioned``, phase 17's serving step as
 ``launches_dryrun``, phase 19's partitioned generates summed as
 ``launches_partitioned_serve``, phase 20's as
-``launches_partitioned_moe`` and phase 21's as ``launches_partitioned_ssm``
-for all five; phase 15's times under ``mesh``; phases 19's to 21's per-slot
-checks as ``per_slot_max_abs_err``; each
-kernel's ``cost_formula``), phase 16's record as a ``{"cold_mesh": ...}``
+``launches_partitioned_moe``, phase 21's as ``launches_partitioned_ssm`` and
+phase 22's as ``launches_context_parallel`` for all five; phase 15's times
+under ``mesh``; phases 19's to 22's per-slot checks as
+``per_slot_max_abs_err``; each kernel's ``cost_formula``; phase 22's
+``[time]`` lines among ``flash_attention``'s ``routes`` and its launches by
+route as ``launches_by_route_context_parallel``, and one record each for the
+two new entries, ``flash_attention.decode_partial`` and
+``flash_attention.decode_merge``), phase 16's record as a ``{"cold_mesh": ...}``
 line, phase 17's as a ``{"dryrun": ...}`` line, phase 18's as a
 ``{"partitioned": ...}`` line (its steps launch no kernel), phase 19's as a
 ``{"partitioned_serve": ...}`` line, phase 20's as a ``{"partitioned_moe":
-...}`` line, phase 21's as a ``{"partitioned_ssm": ...}`` line,
-``nvidia-smi``'s line and
+...}`` line, phase 21's as a ``{"partitioned_ssm": ...}`` line, phase
+22's as a ``{"context_parallel": ...}`` line, ``nvidia-smi``'s line and
 ``{"ok": true, "device": {...}}``.  Without a card (or without the rest of
 the repository beside it) the script exits non-zero and prints no result.
 """
@@ -498,7 +523,10 @@ from repro_torch.kernels.cold_fuse import cold_fuse, cold_fuse_plain  # noqa: E4
 from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.kernels.decode_accum import decode_accum, decode_accum_plain  # noqa: E402
 from repro_torch.kernels.flash_attention import (flash_attention,  # noqa: E402
-                                                 flash_attention_plain)
+                                                 flash_attention_partials,
+                                                 flash_attention_partials_plain,
+                                                 flash_attention_plain, merge_partials,
+                                                 merge_partials_plain)
 from repro_torch.kernels.row_sketch import (row_sketch, row_sketch_plain,  # noqa: E402
                                             row_sketch_shard, row_sketch_shard_plain)
 from repro_torch.kernels import rwkv6_scan as rs_mod  # noqa: E402
@@ -509,6 +537,7 @@ from repro_torch.launch.sharding import device_put  # noqa: E402
 from repro_torch.launch.serve import main as serve_main  # noqa: E402
 from repro_torch.launch.serve_repository import main as serve_repo_main  # noqa: E402
 from repro_torch.launch import train as train_launcher  # noqa: E402
+from repro_torch.models import layers as layers_mod  # noqa: E402
 from repro_torch.models import mamba as mamba_mod  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models import rwkv as rwkv_mod  # noqa: E402
@@ -3666,7 +3695,7 @@ def serve_routes(cfg, prompt_len, new_tokens):
     names for its shape (with the decode route's combine beside it)."""
     n = sum(b.mixer == "attn" for b in cfg.blocks)
     steps = n * (new_tokens - 1)
-    want = dict.fromkeys(fa_mod.ROUTES + ("decode_combine",), 0)
+    want = dict.fromkeys(fa_mod.COUNTED, 0)
     want[fa_mod.route(torch.bfloat16, prompt_len, cfg.num_heads, cfg.num_kv_heads)] += 2 * n
     dec = fa_mod.route(torch.bfloat16, 1, cfg.num_heads, cfg.num_kv_heads)
     want[dec] += 2 * steps
@@ -3812,7 +3841,7 @@ def whisper_routes(cfg, dtype, prompt_len, new_tokens, n_frames):
     Sk = n_frames, bidirectional), then per decoder layer and decoder call
     (the prompt, then one token a step) a self-attention and a
     cross-attention launch, each on the route its shape takes."""
-    want = dict.fromkeys(fa_mod.ROUTES + ("decode_combine",), 0)
+    want = dict.fromkeys(fa_mod.COUNTED, 0)
     want[fa_mod.route(dtype, n_frames, cfg.num_heads, cfg.num_kv_heads)] += cfg.encoder_layers
     for sq in [prompt_len] + [1] * (new_tokens - 1):
         want[fa_mod.route(dtype, sq, cfg.num_heads, cfg.num_kv_heads)] += 2 * cfg.num_layers
@@ -5717,7 +5746,8 @@ TP_NUDGE = 2.0 ** -8
 PSERVE_DECODE_PROFILED = 1  # decode steps profiled (the profiler's work grows with them)
 
 
-def serve_collectives(cfg, psh, R: int, M: int, *, cached: bool = True, data_axis="data"):
+def serve_collectives(cfg, psh, R: int, M: int, *, cached: bool = True, data_axis="data",
+                      step=None):
     """The collectives of one partitioned forward (a prefill or one decode
     step) on a (data R, model M) grid, the formula PERF.md §5 states (the
     same as ``tests/test_torch_partitioned_serve.py``'s and, with the MoE,
@@ -5733,11 +5763,28 @@ def serve_collectives(cfg, psh, R: int, M: int, *, cached: bool = True, data_axi
     layer's two token-shift states; the last logits all-gathered where they
     come out per vocabulary block.  Over the batch axis: each use of a leaf
     FSDP splits, one all-gather, the last logits', and a MoE layer's expert
-    counts."""
+    counts.
+
+    ``step`` names a forward at a batch the batch axis does not divide
+    (``tests/test_torch_context_parallel.py``'s ``cp_collectives``):
+    ``"chunks"`` (a prompt split into R chunks), ``"whole"`` (a prompt every
+    slot holds whole) or ``"decode"`` (one token against a cache whose
+    sequence is split over the batch axis).  Over ``model`` the same, but a
+    cache's head_dim gathers come at a decode step only (a prompt attends
+    over its own new keys).  Over the batch axis: the FSDP gathers; for a
+    chunked prompt each attention layer's new k and v gathered, each MoE
+    layer's counts by row and expert, the chunk ends gathered (two a RWKV
+    layer, the conv halo a Mamba layer), each recurrent layer's state
+    handed from chunk to chunk (R - 1 ``permute``s) and, with a cache,
+    broadcast from the last chunk (one), and the last logits broadcast from
+    the last chunk; at a decode step each attention layer's partials
+    gathered."""
     n_attn = sum(b.mixer == "attn" for b in cfg.blocks)
     n_dense = sum(b.ffn in ("glu", "mlp") for b in cfg.blocks)
     n_moe = sum(b.ffn == "moe" for b in cfg.blocks)
-    ar = ag_m = ag_d = 0
+    n_rwkv = sum(b.mixer == "rwkv" for b in cfg.blocks)
+    n_mamba = sum(b.mixer == "mamba" for b in cfg.blocks)
+    ar = ag_m = ag_d = perm = bcast = 0
     if M > 1:
         vocab = cfg.vocab_size % M == 0
         hd, Hkv = cfg.head_dim, cfg.num_kv_heads
@@ -5751,7 +5798,7 @@ def serve_collectives(cfg, psh, R: int, M: int, *, cached: bool = True, data_axi
         if n_attn and attn and Hkv % M and (Hkv * hd) % M == 0:
             ag_m += 2 * n_attn
         if cached:
-            if n_attn and Hkv % M and hd % M == 0:
+            if n_attn and Hkv % M and hd % M == 0 and step in (None, "decode"):
                 ag_m += 2 * n_attn
             ag_m += 2 * rwkv
         ag_m += vocab
@@ -5760,9 +5807,18 @@ def serve_collectives(cfg, psh, R: int, M: int, *, cached: bool = True, data_axi
         for name, sh in tree_leaves_with_path(psh):
             if data_axis in sh.spec:
                 ag_d += n_full if name.startswith("scan/") else 1
-        ag_d += 1 + n_moe * (cfg.moe.routing != "dense")
+        if step is None:
+            ag_d += 1 + n_moe * (cfg.moe.routing != "dense")
+        elif step == "chunks":
+            ag_d += 2 * n_attn + n_moe * (cfg.moe.routing != "dense") + 2 * n_rwkv + n_mamba
+            perm += (R - 1) * (n_rwkv + n_mamba)
+            bcast += 1 + (n_rwkv + n_mamba) * cached
+        elif step == "decode":
+            ag_d += n_attn
     kinds = {"all_reduce": ar, "all_gather": ag_m + ag_d, "reduce_scatter": 0}
-    return kinds, {a: n for a, n in (("model", ar + ag_m), (data_axis, ag_d)) if n}
+    kinds.update({k: n for k, n in (("permute", perm), ("broadcast", bcast)) if n})
+    return kinds, {a: n for a, n in (("model", ar + ag_m), (data_axis, ag_d + perm + bcast))
+                   if n}
 
 
 def pserve_routes(cfg, prompt_len, new_tokens, n_slots: int, M: int):
@@ -5774,7 +5830,7 @@ def pserve_routes(cfg, prompt_len, new_tokens, n_slots: int, M: int):
     n_attn = sum(b.mixer == "attn" for b in cfg.blocks)
     n_rwkv = sum(b.mixer == "rwkv" for b in cfg.blocks)
     steps = new_tokens - 1
-    flash = dict.fromkeys(fa_mod.ROUTES + ("decode_combine",), 0)
+    flash = dict.fromkeys(fa_mod.COUNTED, 0)
     if n_attn:
         hq, rep = cfg.num_heads // M, cfg.num_heads // cfg.num_kv_heads
         group = rep if (cfg.num_kv_heads % M == 0 or hq % rep == 0) else (
@@ -5923,13 +5979,13 @@ def check_pserve_launches(what, cfg, prompt_len, new_tokens, mesh):
     return got_f, got_r
 
 
-def check_placement(cfg, placed, psh, cache, mesh, max_len):
+def check_placement(cfg, placed, psh, cache, mesh, max_len, batch=4):
     """Each slot holds what ``placed_slot_bytes`` counts of the placed params
     and cache, equal to ``dryrun.slot_bytes`` by their specs, and each cache
     block has the shape ``cache_shardings`` gives.  Returns the bytes a
     slot and the bytes stored on the cards (each stored block once)."""
     with torch.device("meta"):
-        shapes = init_cache(cfg, 4, max_len, device="meta")
+        shapes = init_cache(cfg, batch, max_len, device="meta")
     csh = sharding_mod.cache_shardings(mesh, shapes, cfg)
     want = dryrun_mod.slot_bytes({"params": placed, "cache": shapes},
                                  {"params": psh, "cache": csh}, mesh)
@@ -6670,6 +6726,334 @@ def phase_partitioned_ssm(card, gen):
                     "seconds": seconds}
 
 
+# ---------------------------------------------------------------------------
+# phase 22: context-parallel serving (slice 18)
+# ---------------------------------------------------------------------------
+
+# one request (B = 1) served on (data 2, model 2), where the batch axis does
+# not divide the batch: the prompt split into two chunks over data, the
+# caches' sequence split over data (each data slot a block of the positions),
+# a decode step's attention the partials of each slot's block merged across
+# data (flash_decode.cu's partials and merge entries).  bf16 at full width with
+# seed-0 weights, each model whole first: gemma3-1b (26 layers, linear caches,
+# the ring cache off) 32,752 -> 16 in a 32,768-slot cache (prefill_32k's
+# sequence: both data slots' blocks hold live keys and the decode writes into
+# slot 1's); rwkv6-7b (32 layers, FSDP) 4,096 -> 16 (rwkv6_scan chained over
+# two chunks of 2,048); granite-moe-1b-a400m (24 layers) 2,048 -> 16 (the MoE's
+# global order over chunks, the replicated decode row).
+CP_GRID = (2, 2)
+CP_NEW = 16
+CP_MODELS = (("gemma3-1b", 32_752, 32_768), ("rwkv6-7b", 4_096, 4_112),
+             (MOE_ARCH, 2_048, 2_064))
+CP_DECODE_PROFILED = 1
+
+
+def cp_routes(cfg, new_tokens, n_slots: int, M: int):
+    """The kernels' launches by route over one context-parallel
+    ``Engine.generate`` at B = 1, worked out from the code: each slot
+    launches the prefill route once a layer on its chunk, and for each new
+    token after the first ``decode_partial`` once a attention layer (once a
+    group of at most 8 of its query rows a kv head) and ``decode_merge``
+    once, or ``step`` once a RWKV layer."""
+    n_attn = sum(b.mixer == "attn" for b in cfg.blocks)
+    n_rwkv = sum(b.mixer == "rwkv" for b in cfg.blocks)
+    steps = new_tokens - 1
+    flash = dict.fromkeys(fa_mod.COUNTED, 0)
+    if n_attn:
+        hq, rep = cfg.num_heads // M, cfg.num_heads // cfg.num_kv_heads
+        rows = rep if (cfg.num_kv_heads % M == 0 or hq % rep == 0) else (
+            hq if rep % hq == 0 else 1)      # query heads a slot's kv head serves
+        groups = next(g for g in range(1, rows + 1) if rows % g == 0
+                      and rows // g <= fa_mod.DECODE_ROWS)
+        flash["prefill_tc"] = n_slots * n_attn
+        flash["decode_partial"] = n_slots * n_attn * steps * groups
+        flash["decode_merge"] = n_slots * n_attn * steps
+    return flash, {"scan": n_slots * n_rwkv, "step": n_slots * n_rwkv * steps}
+
+
+def partials_close(got, want, what):
+    """Partials against the plain version's: an empty split's m exactly
+    ``EMPTY_M`` on both sides; every other m (log2 units), l and acc
+    within ``f32_close``'s 2e-5 x max(1, max |plain|), per column kind.
+    Returns the largest error."""
+    empty = want[..., 0] == fa_mod.EMPTY_M
+    check(bool(torch.equal(got[..., 0] == fa_mod.EMPTY_M, empty)),
+          f"{what}: the empty splits differ from the plain version's")
+    live = ~empty
+    errs = [f32_close(got[..., 0][live], want[..., 0][live], f"{what} m") if live.any() else 0.0,
+            f32_close(got[..., 1], want[..., 1], f"{what} l"),
+            f32_close(got[..., 2:], want[..., 2:], f"{what} acc")]
+    return max(errs)
+
+
+def cp_partial_checks(gen):
+    """The partials and merge entries against their plain versions at phase
+    22's per-slot decode shapes, bf16 and f32: gemma3-1b's q [1, 1, 2, 256]
+    on one kv head over each 16,384-position block of its 32,768-slot cache
+    at position 32,760 (a global layer: block 0 whole, block 1 partly; a
+    local layer, window 512: block 0 empty), and granite-moe's q [1, 1, 8,
+    64] on 4 kv heads over a 1,032-slot block; then the merged output of
+    both blocks against flash_attention_plain over the whole cache.
+    Returns the largest error and the gemma bf16 inputs (for timing)."""
+    worst = 0.0
+    kept = None
+    for dtype in (torch.bfloat16, torch.float32):
+        for label, (Hq, Hkv, hd, L, pos, window) in (
+                ("gemma3-1b global", (2, 1, 256, 32_768, 32_760, None)),
+                ("gemma3-1b local", (2, 1, 256, 32_768, 32_760, GEMMA_WINDOW)),
+                ("granite-moe", (8, 4, 64, 2_064, 2_060, None))):
+            q, k, v = qkv_on_card(1, 1, L, Hq, Hkv, hd, dtype, gen)
+            blk = L // CP_GRID[0]
+            parts, empty = [], 0
+            for r in range(CP_GRID[0]):
+                kb, vb = k[:, r * blk:(r + 1) * blk].contiguous(), v[:, r * blk:(r + 1) * blk]
+                vb = vb.contiguous()
+                _, q_off, win = layers_mod.cache_block(L, pos, window, r, CP_GRID[0])
+                before = dict(flash_attention.launches_by_route)
+                got = flash_attention_partials(q, kb, vb, window=win, q_offset=q_off)
+                check(flash_attention.launches_by_route["decode_partial"]
+                      == before["decode_partial"] + 1, "partials: not one decode_partial launch")
+                want = flash_attention_partials_plain(q, kb, vb, window=win, q_offset=q_off)
+                check(got.shape == want.shape, f"partials {tuple(got.shape)} vs plain "
+                      f"{tuple(want.shape)}")
+                empty += int(torch.all(want[..., 0] == fa_mod.EMPTY_M).item())
+                worst = max(worst, partials_close(got, want, f"cp partials {label} block {r}"))
+                parts.append(got)
+            part = torch.cat(parts, 2)
+            before = dict(flash_attention.launches_by_route)
+            o = merge_partials(part, 1, dtype)
+            check(flash_attention.launches_by_route["decode_merge"]
+                  == before["decode_merge"] + 1, "merge: not one decode_merge launch")
+            o_plain = merge_partials_plain(part, 1, dtype)
+            whole = flash_attention_plain(q, k, v, window=window, q_offset=pos)
+            close = bf16_close if dtype == torch.bfloat16 else f32_close
+            worst = max(worst, close(o, o_plain, f"cp merge {label}"),
+                        close(o, whole, f"cp decode {label} vs the whole cache"))
+            if label == "gemma3-1b local":
+                check(empty == 1, f"{label}: {empty} empty blocks, expected block 0 alone")
+            if dtype == torch.bfloat16 and label == "gemma3-1b global":
+                kept = (q, k, v, pos)
+            print(f"[check] context-parallel decode {label} {str(dtype)[6:]}: q [1, 1, {Hq}, "
+                  f"{hd}] on {Hkv} kv heads, {CP_GRID[0]} blocks of {blk} at position {pos} "
+                  f"(window {window}): partials and merge vs plain, and the merge vs "
+                  f"flash_attention_plain over all {L} keys, max|d| so far {worst:.3g} "
+                  "(bf16: 1 bf16 ulp + 2e-5 x max(1, max|plain|); f32 and the partials: 2e-5 x "
+                  "max(1, max|plain|))")
+    return worst, kept
+
+
+def cp_timing(inputs, card):
+    """Kernel, plain version and SDPA for the two entries at gemma3-1b's
+    per-slot decode shape (bf16): the partials over block 0 (16,384 keys,
+    all visible) and the merge of both blocks' partials; and the two
+    blocks' partials plus their merge (one data slot's share of a
+    context-parallel step, both blocks on one card) against SDPA over the
+    whole gathered cache for the same query.  Returns the lines."""
+    q, k, v, pos = inputs
+    L = k.shape[1]
+    blk = L // CP_GRID[0]
+    blocks = [(k[:, r * blk:(r + 1) * blk].contiguous(), v[:, r * blk:(r + 1) * blk].contiguous(),
+               layers_mod.cache_block(L, pos, None, r, CP_GRID[0])[1]) for r in range(CP_GRID[0])]
+    part = torch.cat([flash_attention_partials(q, kb, vb, q_offset=off) for kb, vb, off in blocks],
+                     2)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    mask = torch.arange(L, device=q.device)[None, :] <= pos
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True)
+
+    kb0, vb0, off0 = blocks[0]
+    cases = (
+        ("decode_partial", "partials over block 0",
+         lambda: flash_attention_partials(q, kb0, vb0, q_offset=off0),
+         lambda: flash_attention_partials_plain(q, kb0, vb0, q_offset=off0),
+         fa_mod.partials_cost(q, kb0, vb0, q_offset=off0), sdpa),
+        ("decode_merge", "merge of both blocks' partials", lambda: merge_partials(part, 1, q.dtype),
+         lambda: merge_partials_plain(part, 1, q.dtype), fa_mod.merge_cost(part, 1, q.dtype),
+         None),
+        ("context-parallel decode", "both blocks' partials and their merge",
+         lambda: merge_partials(torch.cat([flash_attention_partials(q, kb, vb, q_offset=off)
+                                           for kb, vb, off in blocks], 2), 1, q.dtype),
+         lambda: merge_partials_plain(torch.cat([flash_attention_partials_plain(
+             q, kb, vb, q_offset=off) for kb, vb, off in blocks], 2), 1, q.dtype),
+         fa_mod.cost(q, k, v, q_offset=pos), sdpa))
+    lines = []
+    for route, what, fn, plain_fn, (flops, nbytes), lib_fn in cases:
+        bound, bound_by = bound_of(nbytes, flops, peak_flops(q.dtype))
+        ms, runs = median_windows(fn, iters=200)
+        plain, _ = median_windows(plain_fn, iters=5, warmup=1)
+        g_ms, _ = graph_windows(fn, 200)
+        lib = g_lib = None
+        if lib_fn is not None:
+            lib, _ = median_windows(lib_fn, iters=200)
+            g_lib, _ = graph_windows(lib_fn, 200)
+        print(f"[time] flash_attention {route} ({what}) gemma3-1b q [1, 1, 2, 256] on 1 kv head, "
+              f"{blk}-key blocks of a {L}-slot cache at position {pos}, bf16, on {card}: "
+              f"kernel_ms {ms:.4f} (windows {[round(r, 4) for r in runs]}), bound_ms "
+              f"{bound:.4f} ({bound_by}: {nbytes / 1e6:.2f} MB at 3.35 TB/s, {flops / 1e9:.3f} "
+              f"GFLOP), kernel/bound {ms / bound:.2f}x, plain_ms {plain:.4f}, library_ms "
+              + ("n/a (no PyTorch call merges partials)" if lib is None else
+                 f"{lib:.4f} (scaled_dot_product_attention over all {L} keys, the same query)")
+              + f"; replayed from a CUDA graph: kernel {g_ms:.4f} ms"
+              + ("" if g_lib is None else f", SDPA {g_lib:.4f} ms"))
+        lines.append({"label": f"{route}: {what}", "route": route, "ms": ms, "plain_ms": plain,
+                      "bound_ms": bound, "bound_by": bound_by, "library_ms": lib,
+                      "graph_ms": g_ms, "library_graph_ms": g_lib,
+                      "source": "src/repro_torch/kernels/csrc/flash_decode.cu"})
+    return lines
+
+
+def cp_model(arch, prompt_len, max_len, card):
+    """One model whole, then at B = 1 on CP_GRID (the phase 22 comment): the
+    record of the comparison, times and counts."""
+    t_model = time.perf_counter()
+    cfg = get_config(arch)
+    saved_ring = tt_mod.RING_CACHE
+    tt_mod.RING_CACHE = False
+    try:
+        dev = torch.device("cuda")
+        sync_cards()
+        reset_cards_peak()
+        params = init_lm(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+        prompts = np.random.default_rng(22).integers(3, cfg.vocab_size, (1, prompt_len))
+        marks = [("init", time.perf_counter())]
+        ref = whole_reference(cfg, params, prompts, max_len, CP_NEW)
+        w_pre, w_dec = ref[3:]
+        whole_peak = cards_peak_gib()
+        marks.append(("whole reference", time.perf_counter()))
+
+        mesh = make_mesh(CP_GRID, ("data", "model"))
+        psh = sharding_mod.params_shardings(mesh, params, cfg)
+        placed = device_put(params, psh)
+        del params
+        sync_cards()
+        torch.cuda.empty_cache()
+        reset_cards_peak()
+        held = torch.cuda.memory_allocated()
+        eng = Engine(cfg, placed, max_len=max_len)
+        with torch.inference_mode():
+            toks, cache = eng._start(placed, prompts)
+        check(isinstance(toks, Placed) and toks.layout.spec == ((), ("data",)),
+              f"{arch}: the prompt is not placed by its sequence over data")
+        slot_bytes, stored = check_placement(cfg, placed, psh, cache, mesh, max_len, batch=1)
+        del cache
+        marks.append(("placement", time.perf_counter()))
+
+        R, M = CP_GRID
+        pre_c = serve_collectives(cfg, psh, R, M, step="chunks")
+        dec_c = serve_collectives(cfg, psh, R, M, step="decode")
+        reset_launches()
+        mesh_mod.reset_collectives()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = eng.generate(prompts, max_new_tokens=CP_NEW)
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
+        counts = launches()
+        flash_want, rwkv_want = cp_routes(cfg, CP_NEW, mesh.devices.size, M)
+        got_f = dict(flash_attention.launches_by_route)
+        got_r = dict(rwkv6_scan.launches_by_route)
+        check(got_f == flash_want and got_r == rwkv_want, f"{arch}: launched flash_attention "
+              f"{got_f} and rwkv6_scan {got_r} by route, expected {flash_want} and {rwkv_want}")
+        cols, by_axis = dict(mesh_mod.collectives), dict(mesh_mod.collectives_by_axis)
+        want_cols = {k: pre_c[0].get(k, 0) + (CP_NEW - 1) * dec_c[0].get(k, 0)
+                     for k in set(pre_c[0]) | set(dec_c[0])}
+        want_axes = {k: pre_c[1].get(k, 0) + (CP_NEW - 1) * dec_c[1].get(k, 0)
+                     for k in set(pre_c[1]) | set(dec_c[1])}
+        check(cols == want_cols and by_axis == want_axes,
+              f"{arch}: the generate's collectives {cols} ({by_axis} by axis), expected "
+              f"{want_cols} ({want_axes}): a prefill {pre_c}, {CP_NEW - 1} decode steps {dec_c}")
+        gen_bytes = dict(mesh_mod.collective_bytes)
+        gen_p = res.tokens[:, prompt_len:]
+        same = int((gen_p == ref[0]).sum())
+        marks.append(("partitioned generate", time.perf_counter()))
+
+        with torch.inference_mode():
+            _, cache = eng._start(placed, prompts)
+            mesh_mod.reset_collectives()
+            lg, p_pre = timed_run(lambda: eng._prefill(placed, toks, cache)[0])
+            pre_bytes = dict(mesh_mod.collective_bytes)
+            p_dec = (gen_s * 1e3 - p_pre) / (CP_NEW - 1)
+            dec_bytes = {k: (gen_bytes[k] - pre_bytes.get(k, 0)) // (CP_NEW - 1)
+                         for k in gen_bytes}
+            nxt = torch.argmax(lg, -1)[:, None]
+
+            def decode_profiled():
+                for t in range(CP_DECODE_PROFILED):
+                    eng._serve(placed, cache, nxt, prompt_len + t)
+
+            split_dec = device_split(decode_profiled)
+            _, cache = eng._start(placed, prompts)
+            split_pre = device_split(lambda: eng._prefill(placed, toks, cache))
+            del cache, lg
+        marks.append(("profile", time.perf_counter()))
+        print_split(arch, f"context-parallel prefill 1 x {prompt_len}", p_pre, split_pre)
+        print_split(arch, f"{CP_DECODE_PROFILED} context-parallel decode steps",
+                    CP_DECODE_PROFILED * p_dec, split_dec)
+        peak = cards_peak_gib()
+
+        lp = stepped(cfg, placed, prompts, max_len, ref[0])[1]
+        agreement = tp_agreement(f"{arch} B=1 context-parallel", lp, ref)
+        del lp, placed, eng, ref
+        torch.cuda.empty_cache()
+        marks.append(("partitioned teacher-forced", time.perf_counter()))
+        split_s = {k: round(t - marks[i][1], 2) for i, (k, t) in enumerate(marks[1:])}
+        busy = {k: None if v is None else v[0] for k, v in (("prefill", split_pre),
+                                                            ("decode", split_dec))}
+        idle = {k: None if b is None else max(0.0, 1 - b / w) for (k, b), w in
+                zip(busy.items(), (p_pre, CP_DECODE_PROFILED * p_dec))}
+        rec = {"arch": arch, "batch": 1, "prompt": prompt_len, "new": CP_NEW,
+               "max_len": max_len, "grid": list(CP_GRID), "mesh": repr(mesh),
+               "slot_bytes": slot_bytes, "stored_bytes": stored, "held_gib": held / 2 ** 30,
+               "whole_prefill_ms": w_pre, "whole_decode_ms": w_dec,
+               "whole_peak_gib": whole_peak, "prefill_ms": p_pre, "decode_ms": p_dec,
+               "generate_s": gen_s, "device_busy_ms": busy, "device_idle_share": idle,
+               "peak_gib": peak, "launches": counts, "flash_routes": got_f, "rwkv_routes": got_r,
+               "collectives_prefill": pre_c, "collectives_decode_step": dec_c,
+               "collective_bytes_prefill": pre_bytes, "collective_bytes_decode_step": dec_bytes,
+               "generate_tokens_equal": same, "agreement": agreement,
+               "seconds": time.perf_counter() - t_model, "seconds_by_part": split_s}
+        print(f"[cp] {arch} B=1 on {mesh!r}: {slot_bytes:,} bytes a slot of params and cache "
+              f"(= dryrun.slot_bytes), {stored:,} bytes of params stored on the card(s); whole "
+              f"model prefill {w_pre:.2f} ms, decode {w_dec:.2f} ms a step, peak "
+              f"{whole_peak:.2f} GiB; context-parallel prefill {p_pre:.2f} ms, decode "
+              f"{p_dec:.2f} ms a step, generate 1 x {prompt_len} -> {CP_NEW} {gen_s:.2f} s, peak "
+              f"{peak:.2f} GiB (held {held / 2 ** 30:.2f}); launches by route {got_f} {got_r} "
+              f"(exactly as worked out); collectives a prefill {pre_c}, a decode step {dec_c} "
+              f"(the formula's), bytes a prefill {pre_bytes}, a decode step {dec_bytes}; the "
+              f"generate's tokens equal the whole model's at {same}/{gen_p.size}; "
+              f"{rec['seconds']:.1f} s ({split_s}, init {marks[0][1] - t_model:.1f} s) on {card}")
+        return counts, rec
+    finally:
+        tt_mod.RING_CACHE = saved_ring
+
+
+def phase_context_parallel(card, gen):
+    """Phase 22: the partials and merge entries checked and timed at the
+    per-slot shapes, then each of CP_MODELS whole and at B = 1 on CP_GRID.
+    Returns (launches summed over the context-parallel generates, the
+    phase's record)."""
+    t_phase = time.perf_counter()
+    err, inputs = cp_partial_checks(gen)
+    lines = cp_timing(inputs, card)
+    del inputs
+    torch.cuda.empty_cache()
+    total = dict.fromkeys(launches(), 0)
+    routes = dict.fromkeys(fa_mod.COUNTED, 0)
+    models = []
+    for arch, prompt_len, max_len in CP_MODELS:
+        counts, rec = cp_model(arch, prompt_len, max_len, card)
+        total = {k: total[k] + counts[k] for k in total}
+        routes = {k: routes[k] + rec["flash_routes"][k] for k in routes}
+        models.append(rec)
+        torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t_phase
+    print(f"[cp] phase 22: {seconds:.1f} s on {card}; launches over the context-parallel "
+          f"generates {total}, flash_attention by route {routes}")
+    return total, {"models": models, "per_slot_max_abs_err": err, "routes": lines,
+                   "flash_routes": routes, "seconds": seconds}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card", file=sys.stderr)
@@ -6870,6 +7254,11 @@ def main() -> int:
     # its train steps launch no kernel
     pssm_counts, pssm_rec = phase_partitioned_ssm(smi, gen)
     torch.cuda.empty_cache()
+
+    # context-parallel serving at B = 1 (slice 18), counts reset just before
+    # each context-parallel generate and summed
+    cp_counts, cp_rec = phase_context_parallel(smi, gen)
+    torch.cuda.empty_cache()
     print(f"[done] {time.perf_counter() - t0:.1f} s after the card check")
 
     cost_of = {"cold_fuse": cf_mod.cost, "decode_accum": da_mod.cost, "row_sketch": sk_mod.cost,
@@ -6917,11 +7306,29 @@ def main() -> int:
         rec["launches_partitioned_serve"] = pserve_counts[rec["name"]]
         rec["launches_partitioned_moe"] = pmoe_counts[rec["name"]]
         rec["launches_partitioned_ssm"] = pssm_counts[rec["name"]]
+        rec["launches_context_parallel"] = cp_counts[rec["name"]]
     for rec in (flash, rwkv):
         rec["per_slot_max_abs_err"] = pserve_rec["per_slot_max_abs_err"][rec["name"]]
     flash["per_slot_max_abs_err"] = max(flash["per_slot_max_abs_err"],
                                         pmoe_rec["per_slot_max_abs_err"],
-                                        pssm_rec["per_slot_max_abs_err"])
+                                        pssm_rec["per_slot_max_abs_err"],
+                                        cp_rec["per_slot_max_abs_err"])
+    # the context-parallel decode's two entries of flash_decode.cu: their
+    # [time] lines, and their launches on phase 22's generates
+    flash["routes"] += cp_rec["routes"]
+    flash["launches_by_route_context_parallel"] = cp_rec["flash_routes"]
+    cp_entries = []
+    for line in cp_rec["routes"][:2]:
+        cp_entries.append({
+            "name": f"flash_attention.{line['route']}", "route": "cuda", "source": line["source"],
+            "replaces": "src/repro/kernels/flash_attention.py:28",
+            "launches": cp_rec["flash_routes"][line["route"]],
+            "max_abs_err": cp_rec["per_slot_max_abs_err"], "ms": line["ms"],
+            "plain_ms": line["plain_ms"], "bound_ms": line["bound_ms"],
+            "bound_by": line["bound_by"], "library_ms": line["library_ms"],
+            "cost_formula": {"decode_partial": "repro_torch.kernels.flash_attention."
+                             "partials_cost", "decode_merge": "repro_torch.kernels."
+                             "flash_attention.merge_cost"}[line["route"]]})
     # phase 15's times beside the unsharded kernels'; row_sketch_shard is an
     # entry of row_sketch.cu, held at a clamped layout
     fuse_kernels[0]["mesh"] = {"roberta": mesh_rec["cold_fuse"],
@@ -6936,10 +7343,11 @@ def main() -> int:
     print(json.dumps({"partitioned_serve": pserve_rec}))
     print(json.dumps({"partitioned_moe": pmoe_rec}))
     print(json.dumps({"partitioned_ssm": pssm_rec}))
+    print(json.dumps({"context_parallel": cp_rec}))
     print(json.dumps({"archs": arch_table}))
     print(json.dumps({"archs2": arch2_table}))
     fuse_kernels[0]["at_gemma3_1b"] = fuse_at_gemma
-    print(json.dumps({"kernels": fuse_kernels + [flash, rwkv]}))
+    print(json.dumps({"kernels": fuse_kernels + [flash, rwkv] + cp_entries}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}))
     return 0

@@ -42,6 +42,15 @@
 //   before the split weights are known, so that they are in flight
 //   together.  A row that sees no key has l = 0 in every split and writes
 //   0.
+//
+// Context-parallel decode (a cache whose sequence is split over several
+// slots, each holding one block of it) takes the same two kernels through
+// two more entries: flash_decode_partials_launch runs the split kernel over
+// one slot's block and leaves its f32 partials unmerged, packed one row
+// after another as (m, l, acc[hd]); flash_decode_merge_launch runs the
+// combine kernel over the partials of all the slots, concatenated along
+// the split axis.  A block that holds no visible key gives one empty split
+// (m = -1e30, l = 0, acc = 0), which carries weight 0 in the merge.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -127,7 +136,7 @@ flash_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
                           const T* __restrict__ v, float* __restrict__ part_ml,
                           float* __restrict__ part_acc, int Sq, int Sk, int Hq, int Hkv,
                           int causal, int window, int q_offset, float scale_log2, int k_lo,
-                          int k_hi, int chunk) {
+                          int k_hi, int chunk, int ml_stride, int acc_stride) {
   using C = DecodeCfg<HD, T, R>;
   using V = Vec<T, C::E>;
   using raw = typename V::raw;
@@ -243,10 +252,10 @@ flash_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
       L = fmaf(w, sm_l[g][r], L);
     }
     const int64_t row = ((static_cast<int64_t>(b) * Hkv + hk) * n_splits + split) * rows + r;
-    part_acc[row * HD + d] = a;
+    part_acc[row * acc_stride + d] = a;
     if (d == 0) {
-      part_ml[2 * row] = M;
-      part_ml[2 * row + 1] = L;
+      part_ml[row * ml_stride] = M;
+      part_ml[row * ml_stride + 1] = L;
     }
   }
 }
@@ -284,7 +293,8 @@ template <typename T>
 __global__ void __launch_bounds__(kCombineThreads)
 flash_decode_combine_kernel(const float* __restrict__ part_ml,
                             const float* __restrict__ part_acc, T* __restrict__ o, int Sq,
-                            int Hq, int Hkv, int hd, int n_splits) {
+                            int Hq, int Hkv, int hd, int n_splits, int ml_stride,
+                            int acc_stride) {
   __shared__ float sm_m[kMaxSplits], sm_w[kMaxSplits];
   __shared__ float sm_red[kCombineThreads / 32];
   __shared__ float sm_sum[kCombineThreads];
@@ -298,13 +308,14 @@ flash_decode_combine_kernel(const float* __restrict__ part_ml,
 #pragma unroll
   for (int i = 0; i < kPrefetch; ++i) {
     const int s = g + i * groups;
-    pre[i] = s < mine ? part_acc[(row0 + static_cast<int64_t>(s) * rows) * hd + d] : 0.f;
+    pre[i] = s < mine ? part_acc[(row0 + static_cast<int64_t>(s) * rows) * acc_stride + d]
+                      : 0.f;
   }
   float M = kNegInit;
   for (int s = tid; s < n_splits; s += kCombineThreads) {
     const int64_t row = row0 + static_cast<int64_t>(s) * rows;
-    sm_m[s] = part_ml[2 * row];
-    sm_w[s] = part_ml[2 * row + 1];  // l_s until it is replaced by w_s below
+    sm_m[s] = part_ml[row * ml_stride];
+    sm_w[s] = part_ml[row * ml_stride + 1];  // l_s until it is replaced by w_s below
     M = fmaxf(M, sm_m[s]);
   }
   M = block_reduce<true>(M, sm_red);
@@ -323,7 +334,7 @@ flash_decode_combine_kernel(const float* __restrict__ part_ml,
     if (s < mine) a = fmaf(sm_w[s], pre[i], a);
   }
   for (int s = g + kPrefetch * groups; s < mine; s += groups)
-    a = fmaf(sm_w[s], part_acc[(row0 + static_cast<int64_t>(s) * rows) * hd + d], a);
+    a = fmaf(sm_w[s], part_acc[(row0 + static_cast<int64_t>(s) * rows) * acc_stride + d], a);
   sm_sum[tid] = a;
   __syncthreads();
   if (g == 0) {
@@ -333,57 +344,77 @@ flash_decode_combine_kernel(const float* __restrict__ part_ml,
   }
 }
 
-template <int HD, typename T, int R>
-cudaError_t launch(const void* q, const void* k, const void* v, float* part_ml,
-                   float* part_acc, void* o, int B, int Sq, int Sk, int Hq, int Hkv, int causal,
-                   int window, int q_offset, float scale_log2, int k_lo, int k_hi, int chunk,
-                   int n_splits, cudaStream_t stream) {
-  flash_decode_split_kernel<HD, T, R><<<dim3(n_splits, Hkv, B), kThreads, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), part_ml,
-      part_acc, Sq, Sk, Hq, Hkv, causal, window, q_offset, scale_log2, k_lo, k_hi, chunk);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
+// One call's arguments.  The partials of row r of split s of (batch b, kv
+// head hk) sit at ((b * Hkv + hk) * n_splits + s) * rows + r, times
+// ml_stride floats into part_ml (m, then l) and acc_stride into part_acc.
+// o == nullptr leaves them unmerged.
+struct DecodeArgs {
+  const void* q;
+  const void* k;
+  const void* v;
+  float* part_ml;
+  float* part_acc;
+  void* o;
+  int B, Sq, Sk, Hq, Hkv, causal, window, q_offset;
+  float scale_log2;
+  int k_lo, k_hi, chunk, n_splits, ml_stride, acc_stride;
+  cudaStream_t stream;
+};
+
+template <typename T>
+cudaError_t combine(const float* part_ml, const float* part_acc, void* o, int B, int Sq, int Hq,
+                    int Hkv, int hd, int n_splits, int ml_stride, int acc_stride,
+                    cudaStream_t stream) {
   flash_decode_combine_kernel<T><<<dim3(Sq * (Hq / Hkv), Hkv, B), kCombineThreads, 0, stream>>>(
-      part_ml, part_acc, static_cast<T*>(o), Sq, Hq, Hkv, HD, n_splits);
+      part_ml, part_acc, static_cast<T*>(o), Sq, Hq, Hkv, hd, n_splits, ml_stride, acc_stride);
   return cudaGetLastError();
 }
 
+template <int HD, typename T, int R>
+cudaError_t launch(const DecodeArgs& a) {
+  flash_decode_split_kernel<HD, T, R><<<dim3(a.n_splits, a.Hkv, a.B), kThreads, 0, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+      a.part_ml, a.part_acc, a.Sq, a.Sk, a.Hq, a.Hkv, a.causal, a.window, a.q_offset,
+      a.scale_log2, a.k_lo, a.k_hi, a.chunk, a.ml_stride, a.acc_stride);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || a.o == nullptr) return err;
+  return combine<T>(a.part_ml, a.part_acc, a.o, a.B, a.Sq, a.Hq, a.Hkv, HD, a.n_splits,
+                    a.ml_stride, a.acc_stride, a.stream);
+}
+
 template <int HD, typename T>
-cudaError_t by_rows(int rows, const void* q, const void* k, const void* v, float* part_ml,
-                    float* part_acc, void* o, int B, int Sq, int Sk, int Hq, int Hkv, int causal,
-                    int window, int q_offset, float scale_log2, int k_lo, int k_hi, int chunk,
-                    int n_splits, cudaStream_t stream) {
-#define FLASH_DECODE_ROWS(R)                                                                  \
-  if (rows <= R)                                                                              \
-    return launch<HD, T, R>(q, k, v, part_ml, part_acc, o, B, Sq, Sk, Hq, Hkv, causal, window, \
-                            q_offset, scale_log2, k_lo, k_hi, chunk, n_splits, stream);
-  FLASH_DECODE_ROWS(1)
-  FLASH_DECODE_ROWS(2)
-  FLASH_DECODE_ROWS(4)
-  FLASH_DECODE_ROWS(8)
-#undef FLASH_DECODE_ROWS
+cudaError_t by_rows(int rows, const DecodeArgs& a) {
+  if (rows <= 1) return launch<HD, T, 1>(a);
+  if (rows <= 2) return launch<HD, T, 2>(a);
+  if (rows <= 4) return launch<HD, T, 4>(a);
+  if (rows <= 8) return launch<HD, T, 8>(a);
   return cudaErrorInvalidValue;
 }
 
 template <typename T>
-cudaError_t by_hd(int hd, int rows, const void* q, const void* k, const void* v, float* part_ml,
-                  float* part_acc, void* o, int B, int Sq, int Sk, int Hq, int Hkv, int causal,
-                  int window, int q_offset, float scale_log2, int k_lo, int k_hi, int chunk,
-                  int n_splits, cudaStream_t stream) {
-#define FLASH_DECODE_HD(HD)                                                                   \
-  case HD:                                                                                    \
-    return by_rows<HD, T>(rows, q, k, v, part_ml, part_acc, o, B, Sq, Sk, Hq, Hkv, causal,    \
-                          window, q_offset, scale_log2, k_lo, k_hi, chunk, n_splits, stream);
+cudaError_t by_hd(int hd, int rows, const DecodeArgs& a) {
   switch (hd) {
-    FLASH_DECODE_HD(32)
-    FLASH_DECODE_HD(64)
-    FLASH_DECODE_HD(128)
-    FLASH_DECODE_HD(160)
-    FLASH_DECODE_HD(256)
-    default:
-      return cudaErrorInvalidValue;
+    case 32: return by_rows<32, T>(rows, a);
+    case 64: return by_rows<64, T>(rows, a);
+    case 128: return by_rows<128, T>(rows, a);
+    case 160: return by_rows<160, T>(rows, a);
+    case 256: return by_rows<256, T>(rows, a);
+    default: return cudaErrorInvalidValue;
   }
-#undef FLASH_DECODE_HD
+}
+
+bool valid_shape(int B, int Sq, int Sk, int Hq, int Hkv, int hd) {
+  return B >= 1 && Sq >= 1 && Sk >= 0 && Hq >= 1 && Hkv >= 1 && Hq % Hkv == 0 &&
+         Hkv <= 65535 && B <= 65535 && (hd == 32 || hd == 64 || hd == 128 || hd == 160 ||
+                                        hd == 256);
+}
+
+int run(const DecodeArgs& a, int hd, int is_bf16) {
+  if (!valid_shape(a.B, a.Sq, a.Sk, a.Hq, a.Hkv, hd) || a.n_splits < 1 ||
+      a.n_splits > kMaxSplits || a.chunk < 1 || a.k_hi > a.Sk || a.Sq * (a.Hq / a.Hkv) > 8)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int rows = a.Sq * (a.Hq / a.Hkv);
+  return static_cast<int>(is_bf16 ? by_hd<__nv_bfloat16>(hd, rows, a) : by_hd<float>(hd, rows, a));
 }
 
 }  // namespace
@@ -402,21 +433,45 @@ int flash_decode_launch(const void* q, const void* k, const void* v, void* part_
                         void* part_acc, void* o, int B, int Sq, int Sk, int Hq, int Hkv, int hd,
                         int causal, int window, int q_offset, float scale_log2, int k_lo,
                         int k_hi, int chunk, int n_splits, int is_bf16, void* stream_ptr) {
-  if (B < 1 || Sq < 1 || Sk < 0 || Hq < 1 || Hkv < 1 || Hq % Hkv != 0 || Hkv > 65535 ||
-      B > 65535 || n_splits < 1 || n_splits > kMaxSplits || chunk < 1 || k_hi > Sk ||
-      Sq * (Hq / Hkv) > 8)
+  if (o == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const DecodeArgs a{q, k, v, static_cast<float*>(part_ml), static_cast<float*>(part_acc), o,
+                     B, Sq, Sk, Hq, Hkv, causal, window, q_offset, scale_log2, k_lo, k_hi,
+                     chunk, n_splits, 2, hd, static_cast<cudaStream_t>(stream_ptr)};
+  return run(a, hd, is_bf16);
+}
+
+// The split kernel alone, over the keys of one block of a cache (the
+// arguments as flash_decode_launch's, positions relative to the block):
+// part [B, Hkv, n_splits, Sq * Hq / Hkv, hd + 2] f32, each row (m, l,
+// acc[hd]) with m in log2 units (the largest visible score times
+// scale_log2), l = sum of exp2(score - m), acc the same weights' sum of v.
+// A row that sees no key of a split writes m = -1e30, l = 0, acc = 0.
+int flash_decode_partials_launch(const void* q, const void* k, const void* v, void* part, int B,
+                                 int Sq, int Sk, int Hq, int Hkv, int hd, int causal, int window,
+                                 int q_offset, float scale_log2, int k_lo, int k_hi, int chunk,
+                                 int n_splits, int is_bf16, void* stream_ptr) {
+  float* p = static_cast<float*>(part);
+  const DecodeArgs a{q, k, v, p, p + 2, nullptr, B, Sq, Sk, Hq, Hkv, causal, window, q_offset,
+                     scale_log2, k_lo, k_hi, chunk, n_splits, hd + 2, hd + 2,
+                     static_cast<cudaStream_t>(stream_ptr)};
+  return run(a, hd, is_bf16);
+}
+
+// The combine kernel over partials laid out as flash_decode_partials_launch
+// writes them, n_splits of them a row (the several slots' splits
+// concatenated along the split axis): o [B, Sq, Hq, hd] in bf16 (is_bf16)
+// or f32, the log-sum-exp merge of the splits, 0 where every l is 0.
+int flash_decode_merge_launch(const void* part, void* o, int B, int Sq, int Hq, int Hkv, int hd,
+                              int n_splits, int is_bf16, void* stream_ptr) {
+  if (!valid_shape(B, Sq, 0, Hq, Hkv, hd) || n_splits < 1 || n_splits > kMaxSplits ||
+      Sq * (Hq / Hkv) > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int rows = Sq * (Hq / Hkv);
+  const float* p = static_cast<const float*>(part);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  float* ml = static_cast<float*>(part_ml);
-  float* acc = static_cast<float*>(part_acc);
-  if (is_bf16)
-    return static_cast<int>(by_hd<__nv_bfloat16>(hd, rows, q, k, v, ml, acc, o, B, Sq, Sk, Hq,
-                                                  Hkv, causal, window, q_offset, scale_log2,
-                                                  k_lo, k_hi, chunk, n_splits, stream));
-  return static_cast<int>(by_hd<float>(hd, rows, q, k, v, ml, acc, o, B, Sq, Sk, Hq, Hkv,
-                                       causal, window, q_offset, scale_log2, k_lo, k_hi, chunk,
-                                       n_splits, stream));
+  return static_cast<int>(
+      is_bf16 ? combine<__nv_bfloat16>(p, p + 2, o, B, Sq, Hq, Hkv, hd, n_splits, hd + 2, hd + 2,
+                                       stream)
+              : combine<float>(p, p + 2, o, B, Sq, Hq, Hkv, hd, n_splits, hd + 2, hd + 2, stream));
 }
 
 const char* flash_decode_error_string(int err) {

@@ -28,6 +28,20 @@ pure function of dtype and shapes (``route``):
   FMA loops on the CUDA cores (bound by shared-memory loads).  A TF32
   product would give up the f32 parity that the port's tests hold.
 
+**Context-parallel decode** (a cache whose sequence is split into blocks
+over several slots, ``models.partitioned``) takes two more entries of
+``csrc/flash_decode.cu``: ``flash_attention_partials`` runs the decode
+route's split kernel over one block (``q_offset`` relative to the block's
+first key) and returns its f32 partials unmerged, ``[B, Hkv, n_splits,
+Sq * Hq / Hkv, 2 + hd]``, each row ``(m, l, acc)`` with ``m`` the largest
+visible score in log2 units (times ``hd^-0.5 * log2(e)``), ``l`` the sum
+of ``exp2(score - m)`` and ``acc`` the same weights' sum of v;
+``merge_partials`` runs the combine kernel over the partials of every
+block, concatenated along the split axis, and gives ``o``.  A block with no
+visible key contributes one empty split, ``m = -1e30`` and ``l = acc = 0``,
+whose weight in the merge is 0; a row that sees no key on any block gets 0.
+They are counted as ``decode_partial`` and ``decode_merge``.
+
 ``flash_attention`` dispatches on the tensors' device: CUDA tensors launch
 a kernel, CPU tensors take ``flash_attention_plain``, meta tensors (a dry
 run) get an empty output.  No fallback: a failed build or launch raises.
@@ -54,6 +68,9 @@ from repro_torch.utils import op_counts as _oc
 
 HEAD_DIMS = (32, 64, 128, 160, 256)   # 160: stablelm-12b (5120 / 32 heads)
 ROUTES = ("decode", "prefill_tc", "prefill_fma")
+# every count ``launches_by_route`` keeps: the three routes, the decode
+# route's combine kernel, and the context-parallel decode's two entries
+COUNTED = ROUTES + ("decode_combine", "decode_partial", "decode_merge")
 # the decode route takes at most this many query rows per kv head (Sq * Hq / Hkv):
 # they share one block, each lane holding every row's share of q in registers
 DECODE_ROWS = 8
@@ -64,6 +81,7 @@ DECODE_MIN_BLOCKS = 132
 DECODE_TARGET_BLOCKS = 2 * DECODE_MIN_BLOCKS
 DECODE_MIN_CHUNK = 8
 LOG2E = 1.4426950408889634
+EMPTY_M = -1e30   # m of a partial row that sees no key (the kernels' kNegInit)
 
 
 def route(dtype: torch.dtype, Sq: int, Hq: int, Hkv: int) -> str:
@@ -158,19 +176,25 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 @functools.lru_cache(maxsize=None)
 def _lib(source: str) -> ctypes.CDLL:
-    """The library of ``csrc/<source>.cu`` with its C entry point typed:
+    """The library of ``csrc/<source>.cu`` with its C entry points typed:
     ``flash_attention`` (the f32 FMA kernel), ``flash_prefill`` or
-    ``flash_decode``."""
+    ``flash_decode`` (and its partials and merge entries)."""
     lib = _build.load(source)
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn = {"flash_attention": "flash_attention_launch", "flash_prefill": "flash_prefill_launch",
-          "flash_decode": "flash_decode_launch"}[source]
-    getattr(lib, fn).argtypes = {
-        "flash_attention": [p, p, p, p, i, i, i, i, i, i, i, i, i, f, p],
-        "flash_prefill": [p, p, p, p, i, i, i, i, i, i, i, i, i, f, p],
-        "flash_decode": [p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, f, i, i, i, i, i, p],
+    types = {
+        "flash_attention": {"flash_attention_launch": [p, p, p, p, i, i, i, i, i, i, i, i, i, f,
+                                                       p]},
+        "flash_prefill": {"flash_prefill_launch": [p, p, p, p, i, i, i, i, i, i, i, i, i, f, p]},
+        "flash_decode": {
+            "flash_decode_launch": [p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, f, i, i, i, i,
+                                    i, p],
+            "flash_decode_partials_launch": [p, p, p, p, i, i, i, i, i, i, i, i, i, f, i, i, i,
+                                             i, i, p],
+            "flash_decode_merge_launch": [p, p, i, i, i, i, i, i, i, p]},
     }[source]
-    getattr(lib, fn).restype = ctypes.c_int
+    for fn, argtypes in types.items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = ctypes.c_int
     err = getattr(lib, f"{source}_error_string")
     err.argtypes = [ctypes.c_int]
     err.restype = ctypes.c_char_p
@@ -257,7 +281,7 @@ def _launch(q, k, v, causal, window, q_offset):
 def reset_launches() -> None:
     """Set ``launches`` and every per-route count to 0."""
     flash_attention.launches = 0
-    flash_attention.launches_by_route = dict.fromkeys(ROUTES + ("decode_combine",), 0)
+    flash_attention.launches_by_route = dict.fromkeys(COUNTED, 0)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
@@ -282,6 +306,177 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
         raise ValueError(f"flash_attention runs on the CPU, a CUDA card or the meta "
                          f"device; got {dev}")
     return _launch(q, k, v, causal, window, q_offset)
+
+
+
+# -- context-parallel decode: partials over one block of the keys, and their merge --------
+
+
+def partials_cost(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
+                  window: Optional[int] = None, q_offset: int = 0) -> Tuple[int, int]:
+    """``(flops, bytes)`` of ``flash_attention_partials``: the decode
+    route's operations over the block's visible keys; q and each visible K
+    and V row read once, the partials written once."""
+    B, Sq, Hq, hd = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    entries, keys = visible(Sq, Sk, causal, window, q_offset)
+    plan = decode_plan(B, Sq, Sk, Hkv, causal=causal, window=window, q_offset=q_offset)
+    out = 4 * B * Hkv * plan.n_splits * Sq * (Hq // Hkv) * (2 + hd)
+    nbytes = q.numel() * q.element_size() + out + 2 * B * Hkv * hd * k.element_size() * keys
+    return 4 * hd * B * Hq * entries, nbytes
+
+
+def merge_cost(part: torch.Tensor, sq: int, dtype: torch.dtype) -> Tuple[int, int]:
+    """``(flops, bytes)`` of ``merge_partials``: 2 operations an element of
+    each split's ``acc`` (its weight times it, added), the partials read
+    once and o written once."""
+    B, Hkv, N, rows, w = part.shape
+    out = B * Hkv * rows * (w - 2) * (torch.finfo(dtype).bits // 8)
+    return 2 * B * Hkv * N * rows * (w - 2), part.numel() * 4 + out
+
+
+def flash_attention_partials_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                                   causal: bool = True, window: Optional[int] = None,
+                                   q_offset: int = 0) -> torch.Tensor:
+    """Plain PyTorch version of ``flash_attention_partials``, in f32, split
+    by the same ``decode_plan`` as the kernel: row ``i * rep + j`` of kv
+    head ``h`` is query position ``i``'s head ``h * rep + j``."""
+    B, Sq, Hq, hd = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    rep = Hq // Hkv
+    rows = Sq * rep
+    plan = decode_plan(B, Sq, Sk, Hkv, causal=causal, window=window, q_offset=q_offset)
+    n, dev = plan.n_splits * plan.chunk, q.device
+    idx = plan.k_lo + torch.arange(n, device=dev)
+    live = idx < plan.k_hi
+    at = idx.clamp(0, max(Sk - 1, 0))
+    kk = k.float()[:, at] if Sk else q.new_zeros((B, n, Hkv, hd), dtype=torch.float32)
+    vv = v.float()[:, at] if Sk else torch.zeros_like(kk)
+    qr = q.float().reshape(B, Sq, Hkv, rep, hd).permute(0, 2, 1, 3, 4).reshape(B, Hkv, rows, hd)
+    s = torch.einsum("bhrd,bnhd->bhrn", qr, kk) * (hd ** -0.5 * LOG2E)
+    pos = q_offset + torch.arange(rows, device=dev) // rep
+    vis = live[None, :].expand(rows, n)
+    if causal:
+        vis = vis & (idx[None, :] <= pos[:, None])
+    if window is not None:
+        vis = vis & (idx[None, :] > pos[:, None] - window)
+    s = s.masked_fill(~vis, float("-inf")).reshape(B, Hkv, rows, plan.n_splits, plan.chunk)
+    m = s.amax(-1)
+    m = torch.where(torch.isinf(m), torch.full_like(m, EMPTY_M), m)
+    p = torch.exp2(s - m[..., None])                              # 0 where not visible
+    l = p.sum(-1)
+    acc = torch.einsum("bhrsc,bschd->bhrsd", p,
+                       vv.reshape(B, plan.n_splits, plan.chunk, Hkv, hd))
+    part = torch.cat([m[..., None], l[..., None], acc], dim=-1)   # [B, Hkv, rows, ns, 2 + hd]
+    return part.transpose(2, 3).contiguous()
+
+
+def merge_partials_plain(part: torch.Tensor, sq: int, dtype: torch.dtype) -> torch.Tensor:
+    """Plain PyTorch version of ``merge_partials``: the log-sum-exp merge
+    of the splits in f32, 0 where every split's l is 0."""
+    B, Hkv, N, rows, w = part.shape
+    m, l, acc = part[..., 0], part[..., 1], part[..., 2:]
+    wgt = torch.exp2(m - m.amax(2, keepdim=True))
+    L = (wgt * l).sum(2)
+    A = (wgt[..., None] * acc).sum(2)
+    o = torch.where(L[..., None] > 0, A / torch.where(L > 0, L, 1.0)[..., None], 0.0)
+    o = o.reshape(B, Hkv, sq, rows // sq, w - 2).permute(0, 2, 1, 3, 4)
+    return o.reshape(B, sq, Hkv * (rows // sq), w - 2).to(dtype)
+
+
+def _count_cp(which: str, flops: int, nbytes: int) -> None:
+    with COUNT_LOCK:
+        flash_attention.launches += 1
+        flash_attention.launches_by_route[which] += 1
+    if _oc.ACTIVE is not None:
+        _oc.add("flash_attention", which, flops, nbytes)
+
+
+def _raise_on(err: int, lib, which: str) -> None:
+    if err != 0:
+        msg = lib.flash_decode_error_string(err).decode()
+        raise RuntimeError(f"flash_attention {which} launch failed: CUDA error {err} ({msg})")
+
+
+def flash_attention_partials(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                             causal: bool = True, window: Optional[int] = None,
+                             q_offset: int = 0) -> torch.Tensor:
+    """The decode route's f32 partials over the keys ``k``, ``v`` (one
+    block of a cache; ``q_offset`` is q's position relative to the block's
+    first key, negative where the block lies wholly after it): ``[B, Hkv,
+    n_splits, Sq * Hq / Hkv, 2 + hd]`` (the module docstring).  At most
+    ``DECODE_ROWS`` rows a kv head.  CUDA tensors launch the split kernel
+    (counted ``decode_partial``), CPU tensors take
+    ``flash_attention_partials_plain``, meta tensors get an empty output
+    of the kernel's shape."""
+    _check(q, k, v, window)
+    B, Sq, Hq, hd = q.shape
+    Hkv = k.shape[2]
+    rows = Sq * (Hq // Hkv)
+    if rows > DECODE_ROWS:
+        raise ValueError(f"flash_attention_partials takes at most {DECODE_ROWS} query rows a kv "
+                         f"head; got {Sq} x {Hq // Hkv}")
+    dev = q.device
+    if dev.type == "cpu":
+        return flash_attention_partials_plain(q, k, v, causal=causal, window=window,
+                                              q_offset=q_offset)
+    _check_kernel(q, k, v)
+    plan = decode_plan(B, Sq, k.shape[1], Hkv, causal=causal, window=window, q_offset=q_offset)
+    part = torch.empty((B, Hkv, plan.n_splits, rows, 2 + hd), dtype=torch.float32, device=dev)
+    if dev.type == "meta":
+        if _oc.ACTIVE is not None:
+            _oc.add("flash_attention", "decode_partial",
+                    *partials_cost(q, k, v, causal=causal, window=window, q_offset=q_offset))
+        return part
+    if dev.type != "cuda":
+        raise ValueError(f"flash_attention_partials runs on the CPU, a CUDA card or the meta "
+                         f"device; got {dev}")
+    if (q.data_ptr() | k.data_ptr() | v.data_ptr()) % 16:
+        raise ValueError("flash_attention kernel takes q, k, v starting on 16-byte boundaries")
+    lib = _lib("flash_decode")
+    err = launch_on(q, lib.flash_decode_partials_launch, q.data_ptr(), k.data_ptr(),
+                    v.data_ptr(), part.data_ptr(), B, Sq, k.shape[1], Hq, Hkv, hd, int(causal),
+                    0 if window is None else int(window), int(q_offset), hd ** -0.5 * LOG2E,
+                    plan.k_lo, plan.k_hi, plan.chunk, plan.n_splits,
+                    int(q.dtype == torch.bfloat16))
+    _raise_on(err, lib, "decode_partial")
+    _count_cp("decode_partial", *partials_cost(q, k, v, causal=causal, window=window,
+                                               q_offset=q_offset))
+    return part
+
+
+def merge_partials(part: torch.Tensor, sq: int, dtype: torch.dtype) -> torch.Tensor:
+    """o ``[B, sq, Hq, hd]`` in ``dtype`` (bf16 or f32) from the partials
+    ``[B, Hkv, N, rows, 2 + hd]`` of N splits (several blocks'
+    ``flash_attention_partials`` concatenated along dim 2), Hq = Hkv *
+    rows / sq.  CUDA tensors launch the combine kernel (counted
+    ``decode_merge``), CPU tensors take ``merge_partials_plain``, meta
+    tensors get an empty output."""
+    if part.dim() != 5 or part.dtype != torch.float32 or part.shape[3] % sq:
+        raise ValueError(f"merge_partials wants f32 partials [B, Hkv, N, rows, 2 + hd] with rows "
+                         f"a multiple of sq = {sq}; got {part.dtype} {tuple(part.shape)}")
+    B, Hkv, N, rows, w = part.shape
+    dev = part.device
+    if dev.type == "cpu":
+        return merge_partials_plain(part, sq, dtype)
+    if w - 2 not in HEAD_DIMS or dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"merge_partials kernel takes head_dim in {HEAD_DIMS} and a bf16 or f32 "
+                         f"output; got {w - 2}, {dtype}")
+    o = torch.empty((B, sq, Hkv * (rows // sq), w - 2), dtype=dtype, device=dev)
+    if dev.type == "meta":
+        if _oc.ACTIVE is not None:
+            _oc.add("flash_attention", "decode_merge", *merge_cost(part, sq, dtype))
+        return o
+    if dev.type != "cuda":
+        raise ValueError(f"merge_partials runs on the CPU, a CUDA card or the meta device; "
+                         f"got {dev}")
+    part = part.contiguous()
+    lib = _lib("flash_decode")
+    err = launch_on(part, lib.flash_decode_merge_launch, part.data_ptr(), o.data_ptr(), B, sq,
+                    Hkv * (rows // sq), Hkv, w - 2, N, int(dtype == torch.bfloat16))
+    _raise_on(err, lib, "decode_merge")
+    _count_cp("decode_merge", *merge_cost(part, sq, dtype))
+    return o
 
 
 reset_launches()

@@ -22,7 +22,8 @@ import torch
 
 from repro_torch.kernels.cold_fuse import cold_fuse
 from repro_torch.kernels.decode_accum import decode_accum
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import (flash_attention, flash_attention_partials,
+                                                 merge_partials)
 from repro_torch.kernels.row_sketch import row_sketch as _row_sketch
 from repro_torch.kernels.row_sketch import row_sketch_shard
 from repro_torch.kernels.rwkv6_scan import rwkv6_scan
@@ -251,6 +252,20 @@ def attention(q, k, v, *, causal: bool = True, window: Optional[int] = None, q_o
     (``flash_attention.route``)."""
     del block_q, block_k
     return flash_attention(q, k, v, causal=causal, window=window, q_offset=q_offset)
+
+
+def attention_partials(q, k, v, *, causal: bool = True, window: Optional[int] = None,
+                       q_offset: int = 0) -> torch.Tensor:
+    """The f32 partials of ``attention`` over one block of the keys
+    (``q_offset`` relative to the block): a context-parallel decode's
+    share on one slot (``flash_attention.flash_attention_partials``)."""
+    return flash_attention_partials(q, k, v, causal=causal, window=window, q_offset=q_offset)
+
+
+def attention_merge(part: torch.Tensor, sq: int, dtype: torch.dtype) -> torch.Tensor:
+    """The attention output from the partials of every block, concatenated
+    along the split axis (``flash_attention.merge_partials``)."""
+    return merge_partials(part, sq, dtype)
 
 
 def rwkv6_mix(r, k, v, logw, u, s0, *, chunk: int = 16) -> Tuple[torch.Tensor, torch.Tensor]:

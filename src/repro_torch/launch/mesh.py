@@ -51,6 +51,16 @@ counted (Megatron's pairs):
   is an all-gather;
 * ``axis_all_reduce_max`` — the maximum over the group, no gradient.
 
+Two more carry a context-parallel forward's state along the sequence
+(serving only, no gradient), each counted under a kind of its own that
+appears in ``collectives`` from its first call on:
+
+* ``axis_send`` — each group's slot ``i`` hands its operand to slot
+  ``i + 1`` (a collective permute, ``"permute"``; one operand's bytes a
+  group);
+* ``axis_broadcast`` — each group's slot ``i`` gives its operand to every
+  slot of the group (``"broadcast"``; k - 1 operands' bytes a group).
+
 Outside autograd (a gradient reduced after the backward), slots of one
 group that share a device share the result tensor.  An axis of extent 1
 is no collective: the operand comes back as it is, uncounted.
@@ -70,9 +80,10 @@ from repro_torch.utils import op_counts
 from repro_torch.utils.device import resolve_device
 
 # collective name -> calls, and bytes carried between mesh slots, since the
-# last reset_collectives()
-collectives: Dict[str, int] = {"all_reduce": 0, "all_gather": 0, "reduce_scatter": 0}
-collective_bytes: Dict[str, int] = {"all_reduce": 0, "all_gather": 0, "reduce_scatter": 0}
+# last reset_collectives(); "permute" and "broadcast" join from their first call
+BASE_KINDS = ("all_reduce", "all_gather", "reduce_scatter")
+collectives: Dict[str, int] = dict.fromkeys(BASE_KINDS, 0)
+collective_bytes: Dict[str, int] = dict.fromkeys(BASE_KINDS, 0)
 # mesh axis -> calls over it (a call over several axes counts under each)
 collectives_by_axis: Dict[str, int] = {}
 _COUNT_LOCK = threading.Lock()
@@ -80,9 +91,9 @@ _COUNT_LOCK = threading.Lock()
 
 def reset_collectives() -> None:
     with _COUNT_LOCK:
-        for k in collectives:
-            collectives[k] = 0
-            collective_bytes[k] = 0
+        for d in (collectives, collective_bytes):
+            d.clear()
+            d.update(dict.fromkeys(BASE_KINDS, 0))
         collectives_by_axis.clear()
 
 
@@ -91,8 +102,8 @@ def count_collective(name: str, nbytes: int = 0, axes: Sequence[str] = ()) -> No
     sharded file put back together on the host counts as an
     ``all_gather``), over the mesh axes ``axes`` where they are known."""
     with _COUNT_LOCK:
-        collectives[name] += 1
-        collective_bytes[name] += int(nbytes)
+        collectives[name] = collectives.get(name, 0) + 1
+        collective_bytes[name] = collective_bytes.get(name, 0) + int(nbytes)
         for a in axes:
             collectives_by_axis[a] = collectives_by_axis.get(a, 0) + 1
     op_counts.count_collective(name, int(nbytes))
@@ -316,7 +327,7 @@ def _gather(parts, mesh: Mesh, axis: str, dim: int, share: bool = False):
                 continue
             out[s] = copies[devices[s]] = torch.cat([parts[g].to(devices[s]) for g in group],
                                                     dim)
-        nbytes += len(group) * (len(group) - 1) * _nbytes(parts[group[0]])
+        nbytes += (len(group) - 1) * sum(_nbytes(parts[g]) for g in group)
     count_collective("all_gather", nbytes, (axis,))
     return out
 
@@ -452,4 +463,39 @@ def axis_all_reduce_max(parts: Sequence[torch.Tensor], mesh: Mesh, axis: Optiona
         nbytes += 2 * (len(group) - 1) * _nbytes(total)
         _spread(total, group, devices, out, share=True)
     count_collective("all_reduce", nbytes, (axis,))
+    return out
+
+
+def axis_send(parts: Sequence[Optional[torch.Tensor]], mesh: Mesh, axis: str, src: int
+              ) -> List[Optional[torch.Tensor]]:
+    """Each group's slot ``src`` along ``axis`` hands its operand to slot
+    ``src + 1``, on that slot's device: the returned list holds it there and
+    None on every other slot.  One ``"permute"`` over ``axis``, one
+    operand's bytes a group; no gradient."""
+    devices = list(mesh.devices.flat)
+    out: List[Optional[torch.Tensor]] = [None] * len(parts)
+    nbytes = 0
+    for group in mesh.groups(axis):
+        x = parts[group[src]].detach()
+        dst = group[src + 1]
+        out[dst] = x.to(devices[dst], copy=True)
+        nbytes += _nbytes(x)
+    count_collective("permute", nbytes, (axis,))
+    return out
+
+
+def axis_broadcast(parts: Sequence[Optional[torch.Tensor]], mesh: Mesh, axis: str, src: int
+                   ) -> List[torch.Tensor]:
+    """Each group's slot ``src`` along ``axis`` gives its operand to every
+    slot of the group (the slots on one device share one copy).  One
+    ``"broadcast"`` over ``axis``, k - 1 operands' bytes a group; no
+    gradient."""
+    devices = list(mesh.devices.flat)
+    out: List[Optional[torch.Tensor]] = [None] * len(parts)
+    nbytes = 0
+    for group in mesh.groups(axis):
+        x = parts[group[src]].detach()
+        _spread(x, group, devices, out, share=True)
+        nbytes += (len(group) - 1) * _nbytes(x)
+    count_collective("broadcast", nbytes, (axis,))
     return out

@@ -271,6 +271,35 @@ def cache_slot(length: int, cache_index, Sq: int, window: Optional[int]):
     return i, None
 
 
+def cache_block(length: int, cache_index, window: Optional[int], r: int, R: int):
+    """A one-token step at ``cache_index`` in data slot ``r``'s block of a
+    cache of ``length`` slots whose sequence is split over ``R`` slots (a
+    context-parallel decode): ``(write offset in the block, or None where
+    another slot's block owns the position, the block's q_offset, the
+    window to mask with)``.  A linear cache writes position
+    ``cache_index``, and its block ``r`` sees it at ``cache_index - r L /
+    R`` under the layer's window.  A ring (``cache_slot``) writes slot
+    ``cache_index % W``, and block ``r`` sees its slots up to ``min(
+    cache_index, W - 1) - r W / R`` causally: negative where the ring has
+    not reached the block yet (no visible key), past its end once the ring
+    has wrapped (every slot visible)."""
+    i, ring = cache_slot(length, cache_index, 1, window)
+    blk = length // R
+    lo = r * blk
+    write = i - lo if lo <= i < lo + blk else None
+    if ring is not None:
+        return write, min(ring, length - 1) - lo, None
+    return write, i - lo, window
+
+
+def block_span(start: int, n: int, r: int, blk: int):
+    """Of the positions ``[start, start + n)``, those block ``r`` of
+    ``blk`` slots holds (``[r blk, (r + 1) blk)``): ``(offset among the n,
+    offset in the block, count)``, count 0 where it holds none."""
+    lo, hi = max(start, r * blk), min(start + n, (r + 1) * blk)
+    return lo - start, lo - r * blk, max(0, hi - lo)
+
+
 def kernel_attention(q, k, v, *, causal: bool, window: Optional[int], q_offset: int,
                      ring: Optional[int] = None) -> torch.Tensor:
     """``kernels.ops.attention`` over the keys ``k``, ``v`` (a cache, or

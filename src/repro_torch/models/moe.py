@@ -128,7 +128,9 @@ def plan(cfg: ArchConfig, probs, topk_idx, topk_w, *, tokens: Optional[int] = No
     the block queued on each expert: a pair is kept where its place in the
     whole batch's queue, ``ahead[e]`` plus its place in the block's, is
     under the capacity (the reference's cumsum over the global token
-    order)."""
+    order).  ``ahead`` [T, E] gives each row of the block its own count (a
+    block of sequence chunks, whose rows interleave with other blocks' in
+    the global order)."""
     routing = _routing(cfg)
     if routing == "dense":
         return Plan(probs, topk_idx, topk_w)
@@ -136,7 +138,9 @@ def plan(cfg: ArchConfig, probs, topk_idx, topk_w, *, tokens: Optional[int] = No
     T = topk_idx.shape[0]
     capacity = max(int(cfg.moe.capacity_factor * (T if tokens is None else tokens) * K / E), K)
     slot = _slots(topk_idx, E).gather(-1, topk_idx[..., None])[..., 0]  # [T, K]
-    queued = slot if ahead is None else slot + ahead[topk_idx]
+    queued = slot
+    if ahead is not None:
+        queued = slot + (ahead[topk_idx] if ahead.dim() == 1 else ahead.gather(1, topk_idx))
     keep = (queued >= 0) & (queued < capacity)
     # a block's kept pairs sit in its first capacity - ahead[e] places, and
     # it queues at most T pairs on an expert

@@ -128,12 +128,49 @@ lookup's all-reduce.  The rotary angles are computed once per replica and
 device (the replicas' positions differ).  A decode step takes its
 positions from ``cache_index``, as the reference's serve step does.
 
+**A serving batch that the batch axis does not divide** (one request of
+a long context) lies as the reference's ``batch_shardings`` and
+``cache_shardings`` place it (``seq_layout``): the prompt split into R
+chunks over the batch axis where R divides its length (``"chunks"``: slot
+``(r, m)`` holds positions ``[r S / R, (r + 1) S / R)``), else whole on
+every slot (``"whole"``), as is every decode step's token; a KV cache's
+sequence is split over the batch axis (data slot ``r`` holds positions, or
+ring slots, ``[r L / R, (r + 1) L / R)``), the RWKV and Mamba states are
+whole over it.  Each slot runs the model on its tokens:
+
+* attention: a prompt's new k/v are all-gathered over the batch axis (one
+  counted gather each), each slot runs the kernel on its query chunk at
+  ``q_offset`` = the chunk's start over every position's keys and writes
+  the positions its cache block holds; a decode step's k/v go to the block
+  that owns the position (``layers.cache_block``), each slot takes the
+  decode partials of its query rows over its own block
+  (``ops.attention_partials``, the block's ``q_offset``), and the partials
+  are all-gathered over the batch axis (one counted gather) and merged
+  (``ops.attention_merge``): no slot reads another's block;
+* the RWKV time and channel mixes' token shift reads the previous chunk's
+  last position (each chunk's last position all-gathered), and the
+  recurrence runs chunk after chunk, each chunk's final state handed to
+  the next chunk's slots (``mesh.axis_send``); every slot stores the last
+  chunk's state (``mesh.axis_broadcast``).  The Mamba mixer likewise: the
+  conv reads the d_conv - 1 inputs before its chunk (each chunk's last
+  ones all-gathered), the scan's ``h`` is handed on and broadcast;
+* the MoE FFN routes globally: the capacity counts the whole sequence, and
+  each chunk's pairs queue behind the earlier rows' and its own row's
+  earlier chunks' (the per-row expert counts all-gathered); a batch every
+  slot holds whole is routed once, with no collective;
+* the logits are the last chunk's last position, broadcast over the batch
+  axis (``gather_last``).
+
+A batch every slot holds whole writes its replicated states once all
+slots have read them (slots that share a device share those blocks).
+
 Every decoder (attention, Mamba and RWKV mixers; GLU, MLP, MoE and RWKV
 channel-mix FFNs; RoPE or M-RoPE) is partitioned for training and
 serving.  The encoder-decoder (and its ``frames``) and the encoder raise
-``NotImplementedError`` (``check_partitionable``), as does a serving
-batch that the batch axis does not divide (the reference then splits the
-cache's sequence over it: a context-parallel decode).
+``NotImplementedError`` (``check_partitionable``), as do the train step at
+a batch the batch axis does not divide (the sequence over the batch axis,
+``train.step``) and M-RoPE ``positions`` or ``extra_embeds`` when serving
+such a batch.
 """
 from __future__ import annotations
 
@@ -143,6 +180,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels import flash_attention as FA
+from repro_torch.kernels import ops
 from repro_torch.launch import mesh as M
 from repro_torch.models import layers as L
 from repro_torch.models import mamba as MB
@@ -170,12 +209,10 @@ FFNS = ("glu", "mlp", "moe", "rwkv_cm")
 
 
 def check_partitionable(cfg: ArchConfig, batch_keys: Sequence[str] = (), *,
-                        serving: bool = False, batch: Optional[int] = None,
-                        replicas: int = 1) -> None:
+                        serving: bool = False) -> None:
     """Raise ``NotImplementedError`` naming the arch and the part the
     partitioned train step (or, with ``serving``, the partitioned prefill
-    and decode steps) lacks; a serving ``batch`` must split over the
-    ``replicas`` slots of the batch axis."""
+    and decode steps) lacks."""
     if cfg.is_encoder_decoder:
         refuse(cfg, "encoder-decoder (whisper)", serving=serving)
     if cfg.family == "encoder":
@@ -187,9 +224,17 @@ def check_partitionable(cfg: ArchConfig, batch_keys: Sequence[str] = (), *,
             refuse(cfg, f"{blk.ffn} FFN", serving=serving)
     if "frames" in batch_keys:
         refuse(cfg, "batch input 'frames' (the encoder-decoder's)", serving=serving)
-    if batch is not None and batch % replicas:
-        refuse(cfg, f"batch of {batch} over {replicas} batch slots (the reference splits the "
-               "cache's sequence then: a context-parallel decode)", serving=serving)
+
+
+def seq_layout(B: int, S: int, R: int) -> Optional[str]:
+    """How a serving step's tokens [B, S] lie over the R slots of the batch
+    axis, by ``batch_shardings``' rule: None where R divides B (each
+    replica its rows), else ``"chunks"`` where R divides S (each slot a
+    chunk of the sequence, in order), else ``"whole"`` (every slot all of
+    it)."""
+    if B % R == 0:
+        return None
+    return "chunks" if S % R == 0 else "whole"
 
 
 def grid_axes(mesh: M.Mesh):
@@ -206,11 +251,17 @@ class _Slab:
     """One slab's per-slot parameter tensors and their layouts."""
 
     def __init__(self, cfg: ArchConfig, mesh: M.Mesh, live: Dict[str, List[torch.Tensor]],
-                 layouts: Dict[str, Layout]):
+                 layouts: Dict[str, Layout], seq: Optional[str] = None):
         self.cfg, self.mesh, self.live, self.layouts = cfg, mesh, live, layouts
         self.dp, self.mp = grid_axes(mesh)
         self.n = mesh.devices.size
-        self.M = mesh.extent(self.mp)
+        self.M, self.R = mesh.extent(self.mp), mesh.extent(self.dp)
+        self.seq = seq   # seq_layout's: None, "chunks" or "whole"
+
+    def by_chunk(self) -> List[List[int]]:
+        """The slots of each index of the batch axis, in order."""
+        return [[s for s in range(self.n) if self.mesh.coord(s, self.dp) == r]
+                for r in range(self.R)]
 
     def spec(self, name: str, stacked: bool):
         spec = self.layouts[name].spec
@@ -268,7 +319,7 @@ def _kv_heads(sl: _Slab, s: int, hq: int, k: torch.Tensor, v: torch.Tensor):
 
 
 def _attention(sl: _Slab, pre: str, rep, blk, h, angles, *, cache=None, cache_index=None,
-               differentiable: bool = True):
+               cache_len: Optional[int] = None, differentiable: bool = True):
     cfg, mesh, mp = sl.cfg, sl.mesh, sl.mp
     hd, Hq, Hkv = cfg.head_dim, cfg.num_heads, cfg.num_kv_heads
     stacked = rep is not None
@@ -309,16 +360,32 @@ def _attention(sl: _Slab, pre: str, rep, blk, h, angles, *, cache=None, cache_in
         qs.append(q)
         ks.append(k)
         vs.append(v)
+    if sl.seq is not None:
+        attn = _attention_cp(sl, blk, qs, ks, vs, hq, hkv, split and not kv_split, cache,
+                             cache_index, cache_len)
+    else:
+        attn = _attention_rows(sl, blk, qs, ks, vs, hq, hkv, split and not kv_split, cache,
+                               cache_index, differentiable)
+    outs = [a.reshape(a.shape[0], a.shape[1], hq * hd) @ wo[s] for s, a in enumerate(attn)]
+    if split:
+        outs = M.axis_all_reduce(outs, mesh, mp)
+    return [o.to(x.dtype) for o, x in zip(outs, h)]
+
+
+def _attention_rows(sl: _Slab, blk, qs, ks, vs, hq: int, hkv: int, select: bool, cache,
+                    cache_index, differentiable: bool):
+    """Each slot's attention output [B_r, S, hq, hd] over its replica's
+    rows: its own keys, or (serving) its block of the cache after the new
+    k/v are written into it.  ``select``: each slot picks its query heads'
+    KV heads (``_kv_heads``)."""
+    hd = sl.cfg.head_dim
     ring = None
     if cache is not None:  # each slot's part of the new k/v into its block, in place
         ck, cv = cache["k"], cache["v"]
         S = qs[0].shape[1]
         i, ring = L.cache_slot(ck[0].shape[1], cache_index, S, blk.window)
         for s in range(sl.n):
-            for blocks, new in ((ck, ks[s]), (cv, vs[s])):
-                part = sl.model_slice(s, new, 2, blocks[s].shape[2])
-                blocks[s][:, i:i + S] = sl.model_slice(s, part, 3, blocks[s].shape[3]).to(
-                    blocks[s].dtype)
+            _write_kv(sl, s, ck, cv, ks[s], vs[s], slice(i, i + S), slice(None))
         # the keys each slot attends over: its block, made whole over model
         # where the cache's spec splits the heads or head_dim off the slot's
         ks = sl.whole_over_model(sl.whole_over_model(ck, 3, hd), 2, hkv)
@@ -326,19 +393,98 @@ def _attention(sl: _Slab, pre: str, rep, blk, h, angles, *, cache=None, cache_in
     outs = []
     for s in range(sl.n):
         q, k, v = qs[s], ks[s], vs[s]
-        B, S = q.shape[:2]
-        if split and not kv_split:
+        if select:
             k, v = _kv_heads(sl, s, hq, k, v)
         if differentiable:
-            out = L._sdpa(q, k, v, causal=True, window=blk.window)
+            outs.append(L._sdpa(q, k, v, causal=True, window=blk.window))
         else:
-            out = L.kernel_attention(q, k, v, causal=True, window=blk.window,
-                                     q_offset=0 if cache_index is None else int(cache_index),
-                                     ring=ring)
-        outs.append(out.reshape(B, S, hq * hd) @ wo[s])
-    if split:
-        outs = M.axis_all_reduce(outs, mesh, mp)
-    return [o.to(x.dtype) for o, x in zip(outs, h)]
+            outs.append(L.kernel_attention(q, k, v, causal=True, window=blk.window,
+                                           q_offset=0 if cache_index is None
+                                           else int(cache_index), ring=ring))
+    return outs
+
+
+def _write_kv(sl: _Slab, s: int, ck, cv, k, v, dst: slice, src: slice) -> None:
+    """Slot ``s``'s heads and head_dim of the new ``k``/``v`` positions
+    ``src`` into its cache blocks at ``dst``, in place."""
+    for blocks, new in ((ck, k), (cv, v)):
+        part = sl.model_slice(s, new[:, src], 2, blocks[s].shape[2])
+        blocks[s][:, dst] = sl.model_slice(s, part, 3, blocks[s].shape[3]).to(blocks[s].dtype)
+
+
+def _partials(q, k, v, **kw) -> torch.Tensor:
+    """``ops.attention_partials`` of q's heads in g groups a kv head, g the
+    fewest that leave each call at most ``DECODE_ROWS`` rows a kv head:
+    [B, Hkv g, n_splits, rows / g, 2 + hd], group ``i`` of kv head ``h``
+    at index ``h g + i``, so that the merge writes the heads in their
+    order."""
+    B, Sq, Hq, hd = q.shape
+    Hkv = k.shape[2]
+    rep = Hq // Hkv
+    g = next(g for g in range(1, rep + 1) if rep % g == 0 and Sq * rep // g <= FA.DECODE_ROWS)
+    if g == 1:
+        return ops.attention_partials(q, k, v, **kw)
+    qg = q.reshape(B, Sq, Hkv, g, rep // g, hd)
+    parts = [ops.attention_partials(qg[:, :, :, i].reshape(B, Sq, Hkv * rep // g, hd)
+                                    .contiguous(), k, v, **kw) for i in range(g)]
+    return torch.stack(parts, 2).reshape((B, Hkv * g) + tuple(parts[0].shape[2:]))
+
+
+def _attention_cp(sl: _Slab, blk, qs, ks, vs, hq: int, hkv: int, select: bool, cache,
+                  cache_index, cache_len: Optional[int]):
+    """Each slot's attention output [B, S, hq, hd] at a batch the batch
+    axis does not divide (the module docstring): a prompt's chunk over the
+    gathered keys of the whole prompt, a replicated prompt over its own, a
+    decode step's partials over the slot's block of the cache merged over
+    the batch axis."""
+    cfg, mesh, dp = sl.cfg, sl.mesh, sl.dp
+    hd, R = cfg.head_dim, sl.R
+    S, start = qs[0].shape[1], int(cache_index or 0)
+    chunks = sl.seq == "chunks"
+    ck = cv = None
+    if cache is not None:
+        ck, cv = cache["k"], cache["v"]
+    seq_split = ck is not None and ck[0].shape[1] != cache_len
+    if start and (chunks or (seq_split and S > 1)):
+        refuse(cfg, f"step of {S * (R if chunks else 1)} positions at cache_index {start} at a "
+               "batch the batch axis does not divide (a chunked prefill)", serving=True)
+
+    def heads(s, k, v):
+        return _kv_heads(sl, s, hq, k, v) if select else (k, v)
+
+    if start and not seq_split:  # the cache whole over the batch axis: the rows' rule
+        return _attention_rows(sl, blk, qs, ks, vs, hq, hkv, select, cache, cache_index, False)
+    if start:  # one token against the blocks of a cache split over the batch axis
+        places = [L.cache_block(cache_len, start, blk.window, mesh.coord(s, dp), R)
+                  for s in range(sl.n)]
+        for s, (write, _, _) in enumerate(places):
+            if write is not None:
+                _write_kv(sl, s, ck, cv, ks[s], vs[s], slice(write, write + 1), slice(None))
+        kb = sl.whole_over_model(sl.whole_over_model(ck, 3, hd), 2, hkv)
+        vb = sl.whole_over_model(sl.whole_over_model(cv, 3, hd), 2, hkv)
+        parts = M.axis_all_gather(
+            [_partials(qs[s], *heads(s, kb[s], vb[s]), causal=True, window=window,
+                       q_offset=q_off) for s, (_, q_off, window) in enumerate(places)],
+            mesh, dp, 2)
+        return [ops.attention_merge(parts[s], S, qs[s].dtype) for s in range(sl.n)]
+
+    # a prompt at position 0: every position's k/v on every slot
+    if chunks:
+        ks = M.axis_all_gather(ks, mesh, dp, 1)
+        vs = M.axis_all_gather(vs, mesh, dp, 1)
+    total = ks[0].shape[1]
+    if cache is not None:  # each slot writes the positions its block holds
+        L.cache_slot(cache_len, 0, total, blk.window)   # the prompt must fit, as whole
+        blen = ck[0].shape[1]
+        for s in range(sl.n):
+            r = mesh.coord(s, dp) if seq_split else 0
+            src, dst, count = L.block_span(0, total, r, blen)
+            if count:
+                _write_kv(sl, s, ck, cv, ks[s], vs[s], slice(dst, dst + count),
+                          slice(src, src + count))
+    return [L.kernel_attention(qs[s], *heads(s, ks[s], vs[s]), causal=True, window=blk.window,
+                               q_offset=mesh.coord(s, dp) * S if chunks else 0)
+            for s in range(sl.n)]
 
 
 def _ffn(sl: _Slab, pre: str, rep, kind: str, h, *, serving: bool = False):
@@ -378,12 +524,15 @@ def _moe(sl: _Slab, pre: str, rep, h, *, differentiable: bool):
                serving=not differentiable)
     router = sl.weight(f"{pre}/router", rep)
     ws = {k: sl.weight(f"{pre}/{k}", rep) for k in ("w_gate", "w_up", "w_down")}
-    R, n = mesh.extent(dp), sl.n
+    # a batch every slot holds whole (seq_layout's "whole") is routed once
+    R, n = (1 if sl.seq == "whole" else mesh.extent(dp)), sl.n
     xt = [x.reshape(-1, D) for x in h]
     tokens = R * xt[0].shape[0]
     sel = [MOE._router(cfg, {"router": router[s]}, xt[s]) for s in range(n)]
     ahead = [None] * n
-    if R > 1 and MOE._routing(cfg) != "dense":
+    if R > 1 and MOE._routing(cfg) != "dense" and sl.seq == "chunks":
+        ahead = _chunk_queues(sl, [idx for _, idx, _ in sel], h[0].shape[0], E)
+    elif R > 1 and MOE._routing(cfg) != "dense":
         # each replica's pairs on each expert, gathered: replica r queues behind r' < r
         counts = M.axis_all_gather([MOE.pair_counts(idx, E)[None] for _, idx, _ in sel],
                                    mesh, dp, 0)
@@ -410,6 +559,27 @@ def _moe(sl: _Slab, pre: str, rep, h, *, differentiable: bool):
     return (M.axis_all_reduce(outs, mesh, mp) if split else outs), aux
 
 
+def _chunk_queues(sl: _Slab, idx: List[torch.Tensor], B: int, E: int) -> List[torch.Tensor]:
+    """Each slot's pairs queued ahead of each of its tokens' on each expert,
+    [B c, E], where the batch axis splits the sequence into chunks of c:
+    each chunk's count of each row's pairs on each expert, all-gathered
+    over the batch axis (one counted gather), places a token behind the
+    rows before its own (every chunk of them) and its own row's earlier
+    chunks, the reference's cumsum over the global token order (row by
+    row, each row's chunks in order); ``MOE.plan`` adds its place among
+    the block's own pairs, which already counts the block's rows before
+    its own."""
+    counts = M.axis_all_gather([F.one_hot(i.reshape(B, -1), E).sum(1)[None] for i in idx],
+                               sl.mesh, sl.dp, 0)               # [R, B, E] on every slot
+    out = []
+    for s, c in enumerate(counts):
+        r = sl.mesh.coord(s, sl.dp)
+        rows = c.sum(0)
+        ahead = torch.cumsum(rows, 0) - rows + c[:r].sum(0) - (torch.cumsum(c[r], 0) - c[r])
+        out.append(ahead.repeat_interleave(idx[s].shape[0] // B, 0))
+    return out
+
+
 # the time mix's leaves by the dim the reference's rules split over model:
 # the head-parallel ones; ``mu`` and ``lora_mix`` stay whole
 _TIME_MIX_SPLIT = {"wr": -1, "wk": -1, "wv": -1, "wg": -1, "lora_w/b": -1, "w0": 0, "u": 0,
@@ -428,6 +598,47 @@ def _store_shift(sl: _Slab, blocks, h):
     shift block, in place."""
     for s in range(sl.n):
         blocks[s].copy_(sl.model_slice(s, h[s][:, -1:], 2, blocks[s].shape[2]))
+
+
+def _chunk_order(sl: _Slab) -> List[List[int]]:
+    """The order a recurrence runs the slots in: chunk by chunk where the
+    batch axis splits the sequence (each chunk starts from the state the
+    one before ends in), else all at once."""
+    return sl.by_chunk() if sl.seq == "chunks" else [list(range(sl.n))]
+
+
+def _chunk_shift(sl: _Slab, h, last):
+    """``(each slot's token-shift input before its first position, the rows
+    whose last position the cache keeps)``: ``last`` (the cache's state, or
+    None) and ``h``; where the batch axis splits the sequence, each chunk's
+    last position all-gathered over it (one counted gather), chunk ``r``
+    taking chunk ``r - 1``'s (chunk 0 ``last``) and every slot keeping the
+    last chunk's."""
+    if sl.seq != "chunks":
+        return [None] * sl.n if last is None else last, h
+    tails = M.axis_all_gather([x[:, -1:] for x in h], sl.mesh, sl.dp, 1)   # [B, R, D]
+    prev = []
+    for s in range(sl.n):
+        r = sl.mesh.coord(s, sl.dp)
+        prev.append(tails[s][:, r - 1:r] if r else (None if last is None else last[s]))
+    return prev, tails
+
+
+def _chain(sl: _Slab, r: int, finals, starts) -> None:
+    """Chunk ``r``'s final states handed to chunk ``r + 1``'s slots as their
+    initial ones (one counted send over the batch axis)."""
+    if sl.seq == "chunks" and r + 1 < sl.R:
+        nxt = M.axis_send(finals, sl.mesh, sl.dp, r)
+        for t in sl.by_chunk()[r + 1]:
+            starts[t] = nxt[t]
+
+
+def _final_states(sl: _Slab, finals):
+    """The states every slot stores: its own, or where the batch axis splits
+    the sequence the last chunk's, broadcast over it (counted)."""
+    if sl.seq == "chunks":
+        return M.axis_broadcast(finals, sl.mesh, sl.dp, sl.R - 1)
+    return finals
 
 
 def _time_mix(sl: _Slab, pre: str, rep, h, *, cache=None, differentiable: bool = False):
@@ -450,21 +661,23 @@ def _time_mix(sl: _Slab, pre: str, rep, h, *, cache=None, differentiable: bool =
     last = _shift_state(sl, None if cache is None else cache["shift"], cfg.d_model)
     if split:
         h = M.axis_sum_grads(h, mesh, mp)
-    outs = []
-    for s in range(sl.n):
-        p = {k: ws[k][s] for k in ("mu", "w0", "u", "wr", "wk", "wv", "wg", "ln_scale",
-                                   "ln_bias")}
-        p["lora_mix"] = {"a": ws["lora_mix/a"][s], "b": ws["lora_mix/b"][s]}
-        p["lora_w"] = {"a": ws["lora_w/a"][s], "b": ws["lora_w/b"][s]}
-        xx = R._token_shift(h[s], None if last is None else last[s])
-        yg, s_final = R.time_mix_heads(cfg, p, h[s], xx,
-                                       s0=None if cache is None else cache["S"][s],
-                                       differentiable=differentiable)
-        if cache is not None:
-            cache["S"][s].copy_(s_final)
-        outs.append(yg @ ws["wo"][s])
-    if cache is not None:
-        _store_shift(sl, cache["shift"], h)
+    prev, tails = _chunk_shift(sl, h, last)
+    starts = [None if cache is None else cache["S"][s] for s in range(sl.n)]
+    outs, finals = [None] * sl.n, [None] * sl.n
+    for r, slots in enumerate(_chunk_order(sl)):
+        for s in slots:
+            p = {k: ws[k][s] for k in ("mu", "w0", "u", "wr", "wk", "wv", "wg", "ln_scale",
+                                       "ln_bias")}
+            p["lora_mix"] = {"a": ws["lora_mix/a"][s], "b": ws["lora_mix/b"][s]}
+            p["lora_w"] = {"a": ws["lora_w/a"][s], "b": ws["lora_w/b"][s]}
+            yg, finals[s] = R.time_mix_heads(cfg, p, h[s], R._token_shift(h[s], prev[s]),
+                                             s0=starts[s], differentiable=differentiable)
+            outs[s] = yg @ ws["wo"][s]
+        _chain(sl, r, finals, starts)
+    if cache is not None:  # after every slot has read its state: replicated blocks are shared
+        for block, final in zip(cache["S"], _final_states(sl, finals)):
+            block.copy_(final)
+        _store_shift(sl, cache["shift"], tails)
     return M.axis_all_reduce(outs, mesh, mp) if split else outs
 
 
@@ -477,11 +690,11 @@ def _channel_mix(sl: _Slab, pre: str, rep, h, *, cache=None, serving: bool = Tru
         refuse(sl.cfg, "RWKV channel mix split over model", serving=serving)
     ws = {k: sl.weight(f"{pre}/{k}", rep) for k in names}
     last = _shift_state(sl, None if cache is None else cache["cm_shift"], sl.cfg.d_model)
-    outs = [R.channel_mix_fwd(sl.cfg, {k: ws[k][s] for k in names}, h[s],
-                              last=None if last is None else last[s])[0]
+    prev, tails = _chunk_shift(sl, h, last)
+    outs = [R.channel_mix_fwd(sl.cfg, {k: ws[k][s] for k in names}, h[s], last=prev[s])[0]
             for s in range(sl.n)]
     if cache is not None:
-        _store_shift(sl, cache["cm_shift"], h)
+        _store_shift(sl, cache["cm_shift"], tails)
     return outs
 
 
@@ -511,28 +724,50 @@ def _mamba(sl: _Slab, pre: str, rep, h, *, cache=None, differentiable: bool = Fa
     if split:  # slot m's columns of [xi | z] are neither's channels m: gather the product
         xz = M.axis_all_gather(xz, mesh, mp, xz[0].dim() - 1)
     ps = [{k: ws[k][s] for k in _MAMBA_SPLIT} for s in range(sl.n)]
-    xis, zs, xcs, partial = [], [], [], []
+    xis, zs = [], []
     for s in range(sl.n):
         lo = mesh.coord(s, mp) * c if split else 0
-        xi, z = xz[s][..., lo:lo + c], xz[s][..., di + lo:di + lo + c]
-        xc = MB._conv(cfg, ps[s], xi, prepend=None if cache is None else cache["conv"][s])
-        xis.append(xi)
-        zs.append(z)
-        xcs.append(xc)
-        partial.append(MB.x_proj(ps[s], xc))
+        xis.append(xz[s][..., lo:lo + c])
+        zs.append(xz[s][..., di + lo:di + lo + c])
+    prepends, windows = _conv_halo(sl, xis, None if cache is None else cache["conv"])
+    xcs = [MB._conv(cfg, ps[s], xis[s], prepend=prepends[s]) for s in range(sl.n)]
+    partial = [MB.x_proj(ps[s], xc) for s, xc in enumerate(xcs)]
     if split:  # row-parallel x_proj; every channel reads the whole dt_low, B and C
         proj = M.axis_sum_grads(M.axis_all_reduce(partial, mesh, mp), mesh, mp)
     else:
         proj = partial
-    outs = []
-    for s in range(sl.n):
-        dA, dBx, Cmat = MB._ssm_inputs(cfg, ps[s], xcs[s], proj=proj[s])
-        ys, h_new = MB.selective_scan(dA, dBx, Cmat, None if cache is None else cache["h"][s])
-        if cache is not None:  # the slot's blocks of the state, in place
-            cache["conv"][s].copy_(MB.conv_window(cfg, cache["conv"][s], xis[s]))
-            cache["h"][s].copy_(h_new)
-        outs.append(MB.gated(ps[s], ys, xcs[s], zs[s]) @ ws["out_proj"][s])
+    starts = [None if cache is None else cache["h"][s] for s in range(sl.n)]
+    outs, finals = [None] * sl.n, [None] * sl.n
+    for r, slots in enumerate(_chunk_order(sl)):
+        for s in slots:
+            dA, dBx, Cmat = MB._ssm_inputs(cfg, ps[s], xcs[s], proj=proj[s])
+            ys, finals[s] = MB.selective_scan(dA, dBx, Cmat, starts[s])
+            outs[s] = MB.gated(ps[s], ys, xcs[s], zs[s]) @ ws["out_proj"][s]
+        _chain(sl, r, finals, starts)
+    if cache is not None:  # the slots' blocks of the state, in place, once all are read
+        for s, final in enumerate(_final_states(sl, finals)):
+            cache["conv"][s].copy_(windows[s])
+            cache["h"][s].copy_(final)
     return M.axis_all_reduce(outs, mesh, mp) if split else outs
+
+
+def _conv_halo(sl: _Slab, xis, conv):
+    """``(each slot's conv prepend, the conv state the cache keeps)``: the
+    d_conv - 1 inputs before a slot's first position (the cache's state
+    ``conv``, zeros without one), and the last d_conv - 1 after the step.
+    Where the batch axis splits the sequence, each chunk's last min(c,
+    d_conv - 1) inputs are all-gathered over it (one counted gather): chunk
+    ``r``'s prepend is the last d_conv - 1 of the cache's state and the
+    chunks before it, the state kept the last d_conv - 1 of all."""
+    cfg = sl.cfg
+    init = [None if conv is None else conv[s] for s in range(sl.n)]
+    if sl.seq != "chunks":
+        return init, [MB.conv_window(cfg, init[s], xis[s]) for s in range(sl.n)]
+    t = min(xis[0].shape[1], cfg.ssm.d_conv - 1)
+    tails = M.axis_all_gather([x[:, x.shape[1] - t:] for x in xis], sl.mesh, sl.dp, 1)
+    prepends = [MB.conv_window(cfg, init[s], tails[s][:, :sl.mesh.coord(s, sl.dp) * t])
+                for s in range(sl.n)]
+    return prepends, [MB.conv_window(cfg, init[s], tails[s]) for s in range(sl.n)]
 
 
 def _layer_names(cfg: ArchConfig):
@@ -559,17 +794,20 @@ def vocab_axis(cfg: ArchConfig, mesh: M.Mesh, layouts: Dict[str, Layout]) -> Opt
 
 def _slot_angles(sl: _Slab, tokens, positions, cache_index):
     """Each slot's rotary angles (None for a rope-free model) from its
-    replica's ``positions`` (by default 0..S-1, offset by ``cache_index``),
-    computed once per replica and device."""
+    replica's ``positions`` (by default 0..S-1, offset by ``cache_index``
+    and, where the batch axis splits the sequence, by the chunk's start),
+    computed once per replica (or chunk) and device."""
     done, out = {}, []
     for s in range(sl.n):
         B, S = tokens[s].shape
         dev = tokens[s].device
-        key = (sl.mesh.coord(s, sl.dp), dev)
+        r = 0 if sl.seq == "whole" else sl.mesh.coord(s, sl.dp)
+        key = (r, dev)
         if key not in done:
             pos = None if positions is None else positions[s]
-            if pos is None and cache_index is not None:
-                pos = (torch.arange(S, device=dev)[None] + int(cache_index)).expand(B, S)
+            start = (r * S if sl.seq == "chunks" else 0) + int(cache_index or 0)
+            if pos is None and (start or cache_index is not None):
+                pos = (torch.arange(S, device=dev)[None] + start).expand(B, S)
             done[key] = T._rope_angles(sl.cfg, pos, S, B, dev)
         out.append(done[key])
     return out
@@ -580,7 +818,10 @@ def partitioned_forward(cfg: ArchConfig, mesh: M.Mesh, live: Dict[str, List[torc
                         positions: Optional[List[torch.Tensor]] = None,
                         extra_embeds: Optional[List[torch.Tensor]] = None,
                         cache: Optional[Dict[str, List[torch.Tensor]]] = None,
-                        cache_index: Optional[int] = None, differentiable: bool):
+                        cache_index: Optional[int] = None, differentiable: bool,
+                        seq: Optional[str] = None,
+                        cache_layouts: Optional[Dict[str, Layout]] = None,
+                        last_only: bool = False):
     """``tokens[s]`` [B_r, S], replica ``r``'s rows on slot ``s``, through
     the partitioned decoder (the module docstring): ``(logits, aux,
     cache)``, ``logits[s]`` [B_r, S, V / M] slot ``s``'s vocabulary block
@@ -595,10 +836,19 @@ def partitioned_forward(cfg: ArchConfig, mesh: M.Mesh, live: Dict[str, List[torc
     and with ``cache`` (``cache[name][s]`` slot ``s``'s block of the cache
     leaf ``name``, placed by ``cache_shardings``) the step is incremental
     at the write offset ``cache_index``: the blocks are updated in place
-    and returned."""
+    and returned.
+
+    ``seq`` (serving only) is ``seq_layout``'s for a batch the batch axis
+    does not divide: ``"chunks"`` (``tokens[s]`` [B, S / R], chunk ``r``
+    of the sequence on the slots of index ``r``) or ``"whole"`` (every slot
+    all of [B, S]); ``cache_layouts`` are then the cache leaves' layouts.
+    ``last_only`` computes the logits of each slot's last position alone,
+    [B_r, 1, V / M]."""
     if cache is not None and differentiable:
         raise ValueError("the partitioned train forward takes no cache")
-    sl = _Slab(cfg, mesh, live, layouts)
+    if seq is not None and differentiable:
+        raise ValueError("the partitioned train forward takes the batch split by rows")
+    sl = _Slab(cfg, mesh, live, layouts, seq)
     n, mp = sl.n, sl.mp
     cdt = dtype_of(cfg.compute_dtype)
     # the embedding, vocab-parallel where its spec splits the vocabulary
@@ -635,8 +885,10 @@ def partitioned_forward(cfg: ArchConfig, mesh: M.Mesh, live: Dict[str, List[torc
         elif blk.mixer == "mamba":
             a = _mamba(sl, f"{pre}/mamba", rep, h, cache=lc, differentiable=differentiable)
         else:
+            length = None if cache_layouts is None else cache_layouts[f"{pre}/k"].shape[-3]
             a = _attention(sl, f"{pre}/attn", rep, blk, h, angles, cache=lc,
-                           cache_index=cache_index, differentiable=differentiable)
+                           cache_index=cache_index, cache_len=length,
+                           differentiable=differentiable)
         x = [xi + ai for xi, ai in zip(x, a)]
         h2 = sl.norm(f"{pre}/norm2", rep, x)
         if blk.ffn == "rwkv_cm":
@@ -650,6 +902,8 @@ def partitioned_forward(cfg: ArchConfig, mesh: M.Mesh, live: Dict[str, List[torc
             f = _ffn(sl, f"{pre}/{blk.ffn}", rep, blk.ffn, h2, serving=not differentiable)
         x = [xi + fi for xi, fi in zip(x, f)]
 
+    if last_only:
+        x = [xi[:, -1:] for xi in x]
     x = sl.norm("final_norm", None, x)
     if cfg.tie_embeddings:
         heads, head_split = [e.T for e in emb], vocab_split
@@ -663,15 +917,24 @@ def partitioned_forward(cfg: ArchConfig, mesh: M.Mesh, live: Dict[str, List[torc
     return logits, aux, cache
 
 
-def gather_last(logits: List[torch.Tensor], mesh: M.Mesh, vocab: Optional[str]) -> torch.Tensor:
+def gather_last(logits: List[torch.Tensor], mesh: M.Mesh, vocab: Optional[str],
+                seq: Optional[str] = None) -> torch.Tensor:
     """The serving steps' output: each slot's last-position logits
     [B_r, V / M] all-gathered over ``vocab`` (``model``, where they come out
     per vocabulary block) and then over the batch axis, each counted:
-    [B, V] on slot 0's device (the reference's ``out_shardings=None``)."""
+    [B, V] on slot 0's device (the reference's ``out_shardings=None``).
+    Where the batch axis splits the sequence (``seq`` ``"chunks"``), the
+    last position is the last chunk's, broadcast over the batch axis
+    (counted); where every slot holds the whole batch (``"whole"``), slot
+    0's own."""
     dp, _ = grid_axes(mesh)
     last = [lg[:, -1] for lg in logits]
     if vocab is not None:
         last = M.axis_all_gather(last, mesh, vocab, 1)
+    if seq == "chunks":
+        return M.axis_broadcast(last, mesh, dp, mesh.extent(dp) - 1)[0]
+    if seq == "whole":
+        return last[0]
     return M.axis_all_gather(last, mesh, dp, 0)[0]
 
 

@@ -7,7 +7,10 @@ Params placed by ``launch.sharding.device_put`` on a grid of several slots
 serve partitioned (``train.step.make_serve_step``'s placed branch): the
 engine places the prompt by ``batch_shardings`` and the cache by
 ``cache_shardings`` on the params' grid, and takes the argmax of the
-logits gathered on slot 0's device."""
+logits gathered on slot 0's device.  A batch that the grid's batch axis
+does not divide (one request, B = 1) is served context-parallel: the
+prompt's sequence and the cache's are split over the batch axis
+(``models.partitioned``)."""
 from __future__ import annotations
 
 from dataclasses import dataclass

@@ -194,6 +194,10 @@ def make_train_step(cfg: ArchConfig, optimizer: Optimizer, *, microbatches: int 
             check_shardings(params)
         dp, _ = PT.grid_axes(mesh)
         R, n = mesh.extent(dp), mesh.devices.size
+        B = batch["tokens"].shape[0]
+        if B % R:
+            PT.refuse(cfg, f"batch of {B} over {R} batch slots (the train step with the "
+                      "sequence split over the batch axis is not yet ported, ROADMAP.md A6c.2)")
         rows = _slot_rows(batch, mesh, dp)
         Br = rows["tokens"][0].shape[0]
         if Br % microbatches:
@@ -338,12 +342,25 @@ def _partitioned_last_logits(cfg: ArchConfig, params, tokens, cache=None,
     ``extra_embeds`` [B, N, D] (whole, or placed by ``batch_shardings``)
     split over the batch axis as the tokens do: the prefill step's, and a
     vision prompt's prefill into the cache (``forward_lm(cache=,
-    cache_index=0, positions=, extra_embeds=)`` on whole params)."""
+    cache_index=0, positions=, extra_embeds=)`` on whole params).
+
+    A batch the batch axis does not divide lies as ``batch_shardings``
+    places it (``models.partitioned.seq_layout``): the sequence split into
+    chunks over the batch axis where it divides the prompt, else the
+    tokens whole on every slot, against a cache whose sequence
+    ``cache_shardings`` splits over the batch axis (a context-parallel
+    prefill and decode); ``positions`` and ``extra_embeds`` are refused
+    there."""
     named, mesh = _placed_grid(params, "params")
     dp, mp = PT.grid_axes(mesh)
-    B = tokens.shape[0]
-    PT.check_partitionable(cfg, serving=True, batch=B, replicas=mesh.extent(dp))
-    blocks = None
+    PT.check_partitionable(cfg, serving=True)
+    B, S = tokens.shape
+    R = mesh.extent(dp)
+    seq = PT.seq_layout(B, S, R)
+    if seq is not None and (positions is not None or extra_embeds is not None):
+        PT.refuse(cfg, f"M-RoPE positions or extra_embeds at a batch of {B} over {R} batch "
+                  "slots", serving=True)
+    blocks = layouts_c = None
     if cache is not None:
         placed, grid = _placed_grid(cache, "cache")
         if grid.axis_names != mesh.axis_names or list(grid.devices.flat) != list(
@@ -358,16 +375,41 @@ def _partitioned_last_logits(cfg: ArchConfig, params, tokens, cache=None,
                 raise ValueError(f"cache leaf {k} is placed as {x.layout.spec}; "
                                  f"cache_shardings places it as {want[k].spec}")
         blocks = {k: x.slot_blocks() for k, x in placed}
+        layouts_c = {k: x.layout for k, x in placed}
     layouts = {k: x.layout for k, x in named}
-    batch = {k: v for k, v in (("tokens", tokens), ("positions", positions),
-                               ("extra_embeds", extra_embeds)) if v is not None}
-    rows = _slot_rows(batch, mesh, dp)
+    if seq is None:
+        batch = {k: v for k, v in (("tokens", tokens), ("positions", positions),
+                                   ("extra_embeds", extra_embeds)) if v is not None}
+        rows = _slot_rows(batch, mesh, dp)
+    else:
+        rows = {"tokens": _slot_sequence(tokens, mesh, dp, seq)}
     logits, _, _ = PT.partitioned_forward(cfg, mesh, {k: x.slot_blocks() for k, x in named},
                                           layouts, rows["tokens"],
                                           positions=rows.get("positions"),
                                           extra_embeds=rows.get("extra_embeds"), cache=blocks,
-                                          cache_index=cache_index, differentiable=False)
-    return PT.gather_last(logits, mesh, PT.vocab_axis(cfg, mesh, layouts))
+                                          cache_index=cache_index, differentiable=False,
+                                          seq=seq, cache_layouts=layouts_c, last_only=True)
+    return PT.gather_last(logits, mesh, PT.vocab_axis(cfg, mesh, layouts), seq)
+
+
+def _slot_sequence(tokens, mesh: M.Mesh, dp, seq: str) -> list:
+    """Each slot's tokens of a batch the batch axis does not divide: its
+    chunk of the sequence (``seq`` ``"chunks"``, chunk ``r`` on the slots
+    of index ``r``) or all of it (``"whole"``), on the slot's device.
+    Tokens placed so by ``batch_shardings`` give their blocks; any others
+    are split here.  Token ids as int64."""
+    R, devices = mesh.extent(dp), list(mesh.devices.flat)
+    want = ((), (dp,)) if seq == "chunks" else ((), ())
+    if (isinstance(tokens, Placed) and tokens.layout.spec == want
+            and tokens.layout.mesh.axis_names == mesh.axis_names
+            and list(tokens.layout.mesh.devices.flat) == devices):
+        return [p.long() for p in tokens.slot_blocks()]
+    whole = tokens.whole() if isinstance(tokens, Placed) else torch.as_tensor(tokens)
+    if seq == "whole":
+        return [whole.to(dev).long() for dev in devices]
+    c = whole.shape[1] // R
+    return [whole[:, mesh.coord(s, dp) * c:(mesh.coord(s, dp) + 1) * c].to(devices[s]).long()
+            for s in range(len(devices))]
 
 
 def _slot_rows(batch, mesh: M.Mesh, dp) -> Dict[str, list]:

@@ -65,8 +65,9 @@ _SCATTERS = {aten.index_put, aten.index_put_, aten.index_copy, aten.index_copy_,
              aten.scatter_add, aten.scatter_add_}
 
 # the reference's kind names (``repro.utils.hlo.COLLECTIVE_KINDS``) for the
-# two collectives the port issues (``launch.mesh.collectives``)
-_KIND_OF = {"all_reduce": "all-reduce", "all_gather": "all-gather"}
+# collectives the port issues (``launch.mesh.collectives``)
+_KIND_OF = {"all_reduce": "all-reduce", "all_gather": "all-gather",
+            "permute": "collective-permute", "broadcast": "collective-broadcast"}
 
 
 @dataclass

@@ -125,7 +125,7 @@ def test_reduced_arch_served_on_the_card_matches_the_cpu(arch):
     assert (cpu[1] - card[1]).abs().max().item() <= 1e-4
     n = sum(b.mixer == "attn" for b in cfg.blocks)
     assert card[2] == {"prefill_fma": n, "prefill_tc": 0, "decode": n * 15,
-                       "decode_combine": n * 15}
+                       "decode_combine": n * 15, "decode_partial": 0, "decode_merge": 0}
     assert cpu[2] == dict.fromkeys(card[2], 0)
 
 
@@ -161,5 +161,5 @@ def test_reduced_whisper_served_on_the_card_matches_the_cpu():
     # call a self- and a cross-attention launch on the decode route
     n = cfg.num_layers
     assert card[2] == {"prefill_fma": cfg.encoder_layers, "prefill_tc": 0, "decode": 2 * n * 8,
-                       "decode_combine": 2 * n * 8}
+                       "decode_combine": 2 * n * 8, "decode_partial": 0, "decode_merge": 0}
     assert cpu[2] == dict.fromkeys(card[2], 0)

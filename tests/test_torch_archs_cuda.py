@@ -55,5 +55,5 @@ def test_reduced_arch_engine_on_the_card_matches_the_cpu(arch, d_model):
     # f32 prefill on the FMA route, one launch per layer; decode one per layer and step
     n = cfg.num_layers
     assert out["cuda"][3] == {"prefill_fma": n, "prefill_tc": 0, "decode": n * 15,
-                              "decode_combine": n * 15}
+                              "decode_combine": n * 15, "decode_partial": 0, "decode_merge": 0}
     assert out["cpu"][3] == dict.fromkeys(out["cuda"][3], 0)

@@ -180,5 +180,7 @@ def test_reset_launches_zeroes_every_route():
     tfa.flash_attention.launches_by_route["decode"] = 3
     tfa.reset_launches()
     assert tfa.flash_attention.launches == 0
-    assert set(tfa.flash_attention.launches_by_route) == set(tfa.ROUTES) | {"decode_combine"}
+    assert set(tfa.flash_attention.launches_by_route) == set(tfa.COUNTED)
+    assert set(tfa.COUNTED) == set(tfa.ROUTES) | {"decode_combine", "decode_partial",
+                                                  "decode_merge"}
     assert not any(tfa.flash_attention.launches_by_route.values())

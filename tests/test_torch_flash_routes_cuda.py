@@ -120,7 +120,8 @@ def test_decode_combine_is_counted_on_its_own():
     tfa.flash_attention(q, k, v, q_offset=49)
     assert tfa.flash_attention.launches == 1
     assert tfa.flash_attention.launches_by_route == {"decode": 1, "prefill_tc": 0,
-                                                     "prefill_fma": 0, "decode_combine": 1}
+                                                     "prefill_fma": 0, "decode_combine": 1,
+                                                     "decode_partial": 0, "decode_merge": 0}
 
 
 # head_dim 160 (stablelm-12b): prefill_tc pads it to 192 columns in shared

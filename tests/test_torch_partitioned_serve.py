@@ -370,19 +370,23 @@ def _placed_any(params, cfg, mesh):
 
 @pytest.mark.parametrize("arch, part, entry", [
     ("whisper-tiny", "encoder-decoder (whisper)", "generate"),
-    ("gemma3-1b", "batch of 3 over 2 batch slots", "prefill"),
+    ("qwen2-vl-72b", "M-RoPE positions or extra_embeds at a batch of 3 over 2 batch slots",
+     "prefill"),
     ("whisper-tiny", "encoder-decoder (whisper)", "prefill"),
     ("gemma3-1b", "batch input 'frames'", "prefill"),
     ("whisper-tiny", "encoder-decoder (whisper)", "serve"),
     ("roberta-base", "encoder (RoBERTa)", "prefill"),
-    ("gemma3-1b", "batch of 3 over 2 batch slots", "generate"),
+    ("qwen2-vl-72b", "M-RoPE positions or extra_embeds at a batch of 3 over 2 batch slots",
+     "prefill_embeds"),
 ])
 def test_partitioned_serving_refusals(arch, part, entry):
     """What the partitioned serving steps do not run raises
     ``NotImplementedError`` naming the arch and the part, in the train
     step's message format (``tests/test_torch_partitioned.py``'s
     ``test_other_archs_are_refused`` reads the same rule); jamba's Mamba
-    mixer serves partitioned since ``tests/test_torch_partitioned_ssm.py``."""
+    mixer serves partitioned since ``tests/test_torch_partitioned_ssm.py``,
+    and a batch the data axis does not divide since
+    ``tests/test_torch_context_parallel.py`` (but not with vision inputs)."""
     mesh = tmesh.make_mesh((2, 2), ("data", "model"), device="cpu")
     gen = torch.Generator().manual_seed(0)
     if arch == "roberta-base":
@@ -410,10 +414,14 @@ def test_partitioned_serving_refusals(arch, part, entry):
             step(params, cache, torch.argmax(logits, -1)[:, None], toks.shape[1])
         elif entry == "generate":
             Engine(cfg, params, max_len=16).generate(toks, max_new_tokens=2)
-        elif entry == "prefill":
+        elif entry.startswith("prefill"):
             batch = {"tokens": toks}
             if "frames" in part:
                 batch["frames"] = np.zeros((rows, 8, cfg.d_model), np.float32)
+            if entry == "prefill_embeds":
+                batch["extra_embeds"] = np.zeros((rows, 2, cfg.d_model), np.float32)
+            elif "M-RoPE" in part:
+                batch["positions"] = np.broadcast_to(np.arange(5), (3, rows, 5)).copy()
             make_prefill_step(cfg)(params, batch)
         else:
             make_serve_step(cfg)(params, None, toks[:, :1], 0)

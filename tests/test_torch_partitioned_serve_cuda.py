@@ -91,7 +91,7 @@ def test_partitioned_generate_on_the_card_matches_the_cpu(arch, monkeypatch):
     n_rwkv = sum(b.mixer == "rwkv" for b in cfg.blocks)
     # every slot's query heads read one kv head two at a time: f32 prefill
     # rows 2 P > 8 take prefill_fma, a decode step's 2 rows the decode route
-    flash = dict.fromkeys(tfa.ROUTES + ("decode_combine",), 0)
+    flash = dict.fromkeys(tfa.COUNTED, 0)
     flash["prefill_fma"] = slots * n_attn
     flash["decode"] = flash["decode_combine"] = slots * n_attn * (NEW - 1)
     assert routes == (flash, {"scan": slots * n_rwkv, "step": slots * n_rwkv * (NEW - 1)})

@@ -218,7 +218,10 @@ def test_entry_points_default_to_the_card():
 
 def test_example_twin_rejects_both_attacks():
     path = os.path.join(ROOT, "examples", "cold_fusion_multitask_torch.py")
-    env = dict(os.environ, PYTHONPATH="")
+    # one torch thread, as tests/test_torch_examples.py runs the twins: with a
+    # thread a core the twin's small ops took 50 s to over 300 s on a loaded
+    # 8-core host, against 7 s on one thread
+    env = dict(os.environ, PYTHONPATH="", OMP_NUM_THREADS="1")
     proc = subprocess.run([sys.executable, path, "--dry-run", "--device", "cpu"],
                           capture_output=True, text=True, env=env, cwd=ROOT, timeout=300)
     assert proc.returncode == 0, proc.stderr[-2000:]
