@@ -449,13 +449,31 @@ Phases (any failed check raises, so the script exits non-zero):
    profiler busy time and peak, and the logits teacher-forced on the whole
    model's tokens within 4x its nudge yardstick (``tp_agreement``).  Its
    record is a ``{"context_parallel": ...}`` line.
+23. **Context-parallel training** (slice 19,
+   ``phase_context_parallel_train``): one training sequence (B = 1) on
+   ``(data 2, model 2)``, f32 SGD, each step whole first (its gradients and
+   updated params kept on the host, its memory freed), then partitioned:
+   ``CPT_TRAIN``'s gemma3-1b 1 x 4,096 (26 layers, the sequence in two
+   chunks over ``data``) and 1 x 4,095 (6 layers, every slot the whole
+   sequence), granite-moe 1 x 2,048 (the MoE's queue and aux over chunks),
+   rwkv6-7b (2 layers, FSDP) and jamba (layer 0, FSDP) 1 x 1,024 (the
+   states chained by a differentiable send), qwen2-vl (1 layer, plain SGD)
+   1 x 1,024 with 256 embedded positions and M-RoPE; gradients and params
+   against the whole step's, collectives the formula's
+   (``partitioned_collectives(seq=)``), second steps timed, a third
+   profiled (idle share), peak under the reckoned bound, no launch.  Then
+   qwen2-vl (8 layers, bf16) serves a 2,048-position prompt whose first
+   1,296 are ``extra_embeds`` (straddling the chunk edge) -> 16 at B = 1,
+   whole and context-parallel: launches exact (``cp_routes``), collectives
+   the formula's, logits within 4x the yardstick.  Its record is a
+   ``{"context_parallel_train": ...}`` line.
 
 Before each of phases 6, 7, 8, 10, 11 and 16 (and again before each of
 phase 16's serves), before each model of phases 9, 13 and 14, around
 phases 12's, 13's and 14's eval steps and generates, around each run of
 phase 15's mesh daemon, around phase 17's counted prefill and decode step
-and around each of phase 19's, 20's, 21's and 22's partitioned generates, every
-kernel's launch
+and around each of phase 19's, 20's, 21's and 22's partitioned generates and
+phase 23's train steps and context-parallel generate, every kernel's launch
 counter is set to 0; it is read just after.  The last lines are the
 kernels' JSON record (launches from phase 7 for the three fuse kernels, with phase 10's
 as ``launches_routed``, from phase 9 for the other two, phase 11's as
@@ -540,6 +558,7 @@ from repro_torch.launch import train as train_launcher  # noqa: E402
 from repro_torch.models import layers as layers_mod  # noqa: E402
 from repro_torch.models import mamba as mamba_mod  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
+from repro_torch.models import partitioned as pt_mod  # noqa: E402
 from repro_torch.models import rwkv as rwkv_mod  # noqa: E402
 from repro_torch.models.encoder import init_encoder_body  # noqa: E402
 from repro_torch.models import transformer as tt_mod  # noqa: E402
@@ -568,6 +587,7 @@ from repro_torch.utils.pytree import (tree_from_paths, tree_leaves,  # noqa: E40
                                       tree_leaves_with_path, tree_map)
 from repro_torch.launch.dryrun import tree_bytes  # noqa: E402
 from repro_torch.launch.specs import abstract_params  # noqa: E402
+from repro_torch.utils.flat import dtype_of  # noqa: E402
 from repro_torch.utils.op_counts import OpCounter  # noqa: E402
 from repro_torch.utils.roofline import (Roofline, bound_of, model_flops_per_step,  # noqa: E402
                                         peak_flops)
@@ -4833,7 +4853,7 @@ NO_COLLECTIVES = {"all_reduce": 0, "all_gather": 0, "reduce_scatter": 0}
 
 
 def partitioned_collectives(cfg, psh, R: int, M: int, microbatches: int = 1, opt_name="sgd",
-                            mesh=None):
+                            mesh=None, *, seq=None, masked=False):
     """The collectives of one partitioned train step on a (replica R, model
     M) grid, the formula PERF.md §5 states (the same as
     ``tests/test_torch_partitioned.py``'s and, with the MoE, Mamba and RWKV
@@ -4858,7 +4878,22 @@ def partitioned_collectives(cfg, psh, R: int, M: int, microbatches: int = 1, opt
     ``replica`` per leaf not split over it and the loss metric's, and the
     global norm's; adafactor adds, for each leaf split over an axis of
     extent > 1, three all-reduces (row sums, column sums, the RMS) where it
-    is factored, else one all-gather of its g² and the RMS's all-reduce."""
+    is factored, else one all-gather of its g² and the RMS's all-reduce.
+    ``masked``: a batch with a mask adds, per microbatch, the mask's count
+    all-reduced over ``replica``.  ``mesh`` (where given) names the batch
+    axis (``replica``, or ``data``).
+
+    At a batch the batch axis does not divide (``seq``, phase 23, and
+    ``tests/test_torch_context_parallel_train.py``), per microbatch over
+    the batch axis:
+    ``"chunks"`` (the sequence in R chunks) adds each attention layer's k
+    and v all-gathered and reduce-scattered back, each RWKV layer's two
+    token-shift rows and each Mamba layer's conv halo all-gathered and
+    reduce-scattered back, each RWKV or Mamba layer's state sent from chunk
+    to chunk (R - 1 permutes forward, R - 1 back) and the loss's chunk-edge
+    targets all-gathered (one), the MoE terms as at a divided batch;
+    ``"whole"`` (every slot the whole sequence) drops the MoE terms (each
+    slot routes the whole batch once)."""
     hd = cfg.head_dim
     L = sum(b.mixer == "attn" for b in cfg.blocks)
     n_dense = sum(b.ffn in ("glu", "mlp") for b in cfg.blocks)
@@ -4880,17 +4915,27 @@ def partitioned_collectives(cfg, psh, R: int, M: int, microbatches: int = 1, opt
                 rs += 2 * L
             else:
                 ar += 2 * L
-    fsdp_uses = per_step = 0
+    fsdp_uses = per_step = perm = 0
+    data_axis = "replica" if mesh is None else pt_mod.grid_axes(mesh)[0]
     if R > 1:
+        ar += masked
         n_full, _ = tt_mod.split_layers(cfg)
         for name, sh in tree_leaves_with_path(psh):
-            if "replica" in sh.spec:
+            if data_axis in sh.spec:
                 fsdp_uses += n_full if name.startswith("scan/") else 1
             else:
                 per_step += 1
         per_step += 1
-        ar += n_moe
-        counts = n_moe * (cfg.moe.routing != "dense")
+        if seq != "whole":
+            ar += n_moe
+            counts = n_moe * (cfg.moe.routing != "dense")
+        if seq == "chunks":
+            n_rwkv = sum(b.mixer == "rwkv" for b in cfg.blocks)
+            n_mamba = sum(b.mixer == "mamba" for b in cfg.blocks)
+            edges = 2 * L + 2 * n_rwkv + n_mamba
+            ag += edges + 1
+            rs += edges
+            perm = 2 * (R - 1) * (n_rwkv + n_mamba)
     per_step += 1 if R * M > 1 else 0
     opt_ar = opt_ag = 0
     if opt_name == "adafactor":
@@ -4899,9 +4944,12 @@ def partitioned_collectives(cfg, psh, R: int, M: int, microbatches: int = 1, opt
                    for a in sharding_mod.norm_axes(e)):
                 opt_ar += 3 if len(sh.spec) >= 2 else 1
                 opt_ag += 0 if len(sh.spec) >= 2 else 1
-    return {"all_reduce": microbatches * ar + per_step + opt_ar,
-            "all_gather": microbatches * (ag + counts + fsdp_uses) + opt_ag,
-            "reduce_scatter": microbatches * (rs + fsdp_uses)}
+    out = {"all_reduce": microbatches * ar + per_step + opt_ar,
+           "all_gather": microbatches * (ag + counts + fsdp_uses) + opt_ag,
+           "reduce_scatter": microbatches * (rs + fsdp_uses)}
+    if perm:
+        out["permute"] = microbatches * perm
+    return out
 
 
 def layers_split(cfg, psh, suffix, axis):
@@ -6786,22 +6834,27 @@ def partials_close(got, want, what):
     return max(errs)
 
 
-def cp_partial_checks(gen):
-    """The partials and merge entries against their plain versions at phase
-    22's per-slot decode shapes, bf16 and f32: gemma3-1b's q [1, 1, 2, 256]
-    on one kv head over each 16,384-position block of its 32,768-slot cache
-    at position 32,760 (a global layer: block 0 whole, block 1 partly; a
-    local layer, window 512: block 0 empty), and granite-moe's q [1, 1, 8,
-    64] on 4 kv heads over a 1,032-slot block; then the merged output of
-    both blocks against flash_attention_plain over the whole cache.
-    Returns the largest error and the gemma bf16 inputs (for timing)."""
+# phase 22's per-slot decode shapes: (label, (Hq, Hkv, hd, cache slots,
+# position, window), the count of empty blocks expected or None)
+CP_PARTIAL_CASES = (("gemma3-1b global", (2, 1, 256, 32_768, 32_760, None), None),
+                    ("gemma3-1b local", (2, 1, 256, 32_768, 32_760, GEMMA_WINDOW), 1),
+                    ("granite-moe", (8, 4, 64, 2_064, 2_060, None), None))
+
+
+def cp_partial_checks(gen, cases=CP_PARTIAL_CASES):
+    """The partials and merge entries against their plain versions at the
+    per-slot decode shapes ``cases``, bf16 and f32 (phase 22's:
+    gemma3-1b's q [1, 1, 2, 256] on one kv head over each 16,384-position
+    block of its 32,768-slot cache at position 32,760 (a global layer:
+    block 0 whole, block 1 partly; a local layer, window 512: block 0
+    empty), and granite-moe's q [1, 1, 8, 64] on 4 kv heads over a
+    1,032-slot block); then the merged output of both blocks against
+    flash_attention_plain over the whole cache.  Returns the largest error
+    and the gemma bf16 inputs (for timing) where ``cases`` hold them."""
     worst = 0.0
     kept = None
     for dtype in (torch.bfloat16, torch.float32):
-        for label, (Hq, Hkv, hd, L, pos, window) in (
-                ("gemma3-1b global", (2, 1, 256, 32_768, 32_760, None)),
-                ("gemma3-1b local", (2, 1, 256, 32_768, 32_760, GEMMA_WINDOW)),
-                ("granite-moe", (8, 4, 64, 2_064, 2_060, None))):
+        for label, (Hq, Hkv, hd, L, pos, window), want_empty in cases:
             q, k, v = qkv_on_card(1, 1, L, Hq, Hkv, hd, dtype, gen)
             blk = L // CP_GRID[0]
             parts, empty = [], 0
@@ -6829,8 +6882,9 @@ def cp_partial_checks(gen):
             close = bf16_close if dtype == torch.bfloat16 else f32_close
             worst = max(worst, close(o, o_plain, f"cp merge {label}"),
                         close(o, whole, f"cp decode {label} vs the whole cache"))
-            if label == "gemma3-1b local":
-                check(empty == 1, f"{label}: {empty} empty blocks, expected block 0 alone")
+            if want_empty is not None:
+                check(empty == want_empty, f"{label}: {empty} empty blocks, expected "
+                      f"{want_empty}")
             if dtype == torch.bfloat16 and label == "gemma3-1b global":
                 kept = (q, k, v, pos)
             print(f"[check] context-parallel decode {label} {str(dtype)[6:]}: q [1, 1, {Hq}, "
@@ -7054,6 +7108,376 @@ def phase_context_parallel(card, gen):
                    "flash_routes": routes, "seconds": seconds}
 
 
+# ---------------------------------------------------------------------------
+# phase 23: the partitioned train step at B = 1 (slice 19)
+# ---------------------------------------------------------------------------
+
+# one training sequence (B = 1) on (data 2, model 2), where the batch axis
+# does not divide the batch: the sequence split into two chunks over data
+# ("chunks"), or, at a length 2 does not divide, whole on every slot
+# ("whole").  f32 with seed-0 weights, each step held against the whole
+# step of the same batch, run first and freed.  (arch, config, momentum,
+# sequence, vision prefix, gradients and params held).
+CPT_GRID = (2, 2)
+CPT_LR = PARTITIONED_SGD_LR
+CPT_WHOLE_LAYERS = 6        # gemma3-1b at 4,095 (every slot the whole sequence): one period
+CPT_TRAIN = (
+    ("gemma3-1b", GEMMA, 0.9, 4_096, 0,
+     ("embed", "final_norm/scale", "scan/pos0/attn/wq", "scan/pos0/attn/wk",
+      "scan/pos5/attn/wo", "tail/layer25/glu/w_down")),
+    ("gemma3-1b", dataclasses.replace(GEMMA, num_layers=CPT_WHOLE_LAYERS), 0.9, 4_095, 0,
+     ("embed", "scan/pos0/attn/wk", "scan/pos5/attn/wv", "scan/pos5/glu/w_up")),
+    (MOE_ARCH, GRANITE_MOE, 0.9, 2_048, 0,
+     ("embed", "scan/pos0/moe/router", "scan/pos0/moe/w_gate", "scan/pos0/attn/wv")),
+    ("rwkv6-7b", dataclasses.replace(RWKV, num_layers=2), 0.9, 1_024, 0,
+     ("final_norm/scale", "scan/pos0/rwkv/wr", "scan/pos0/rwkv/u", "scan/pos0/rwkv/lora_w/a",
+      "scan/pos0/rwkv_cm/wk")),
+    (JAMBA_ARCH, dataclasses.replace(get_config(JAMBA_ARCH), num_layers=1), 0.9, 1_024, 0,
+     ("tail/layer0/mamba/in_proj", "tail/layer0/mamba/conv_w", "tail/layer0/mamba/x_proj",
+      "tail/layer0/mamba/A_log", "tail/layer0/mamba/out_proj")),
+    ("qwen2-vl-72b", dataclasses.replace(get_config("qwen2-vl-72b"), num_layers=1), 0.0, 1_024,
+     256, ("final_norm/scale", "scan/pos0/norm1/scale", "scan/pos0/attn/wq",
+           "scan/pos0/attn/wk")),
+)
+# qwen2-vl-72b served at B = 1: 8 of 80 layers, bf16, a 2,048-position prompt
+# whose first 1,296 positions are a 36 x 36 grid of merged patches
+# (extra_embeds, M-RoPE positions t = 0, h, w), then text; 16 new tokens.
+# The two 1,024-position chunks split the vision prefix.
+CPT_QWEN_LAYERS, CPT_QWEN_PROMPT, CPT_QWEN_PATCHES, CPT_QWEN_NEW = 8, 2_048, 1_296, 16
+_QWEN_SLOT = (QWEN.num_heads // CPT_GRID[1], QWEN.num_kv_heads // CPT_GRID[1], QWEN.head_dim)
+# its per-slot decode shapes (q [1, 1, 32, 128] on 4 kv heads over each
+# 1,032-slot block of the 2,064-slot cache): the served steps' last
+# position, and one in block 0 (block 1 empty)
+CPT_PARTIAL_CASES = tuple(
+    (f"qwen2-vl-72b at {pos}", _QWEN_SLOT + (CPT_QWEN_PROMPT + CPT_QWEN_NEW, pos, None), empty)
+    for pos, empty in ((CPT_QWEN_PROMPT + CPT_QWEN_NEW - 2, 0), (1_020, 1)))
+
+
+def cpt_slot_checks(gen):
+    """flash_attention at the per-slot shapes of the served qwen2-vl
+    (CPT_GRID): the partials and merge entries at CPT_PARTIAL_CASES, bf16
+    and f32 (``cp_partial_checks``), and each chunk's prefill, q [1, 1,024,
+    32, 128] at q_offset 0 and 1,024 over the 2,048 gathered keys on 4 kv
+    heads, bf16 through prefill_tc, against their plain versions within
+    phase 22's bounds.  Returns the largest error."""
+    worst, _ = cp_partial_checks(gen, CPT_PARTIAL_CASES)
+    Hq, Hkv, hd = _QWEN_SLOT
+    c = CPT_QWEN_PROMPT // CPT_GRID[0]
+    q, k, v = qkv_on_card(1, c, CPT_QWEN_PROMPT, Hq, Hkv, hd, torch.bfloat16, gen)
+    for r in range(CPT_GRID[0]):
+        e = bf16_close(flash_routed("prefill_tc", q, k, v, causal=True, q_offset=r * c),
+                       flash_attention_plain(q, k, v, causal=True, q_offset=r * c),
+                       f"flash per slot qwen2-vl chunk {r} prefill")
+        worst = max(worst, e)
+        print(f"[check] flash_attention per slot, qwen2-vl-72b chunk {r} of {CPT_GRID[0]}: q [1, "
+              f"{c}, {Hq}, {hd}] on {Hkv} kv heads at q_offset {r * c} over {CPT_QWEN_PROMPT} "
+              f"keys, bf16: prefill_tc max|d| {e:.3g} (bound 1 bf16 ulp + 2e-5 x max(1, "
+              "max|plain|))")
+    del q, k, v
+    return worst
+
+
+def cpt_vision(cfg, n_patches, length, gen):
+    """(positions [3, 1, length], extra_embeds [1, n_patches, D]) on the
+    card: the patches on a square grid at t = 0, h = row, w = col (N(0,
+    0.02^2) embeddings from ``gen``), the text after them on all three
+    streams from the grid's side on."""
+    dev = torch.device("cuda")
+    side = int(round(n_patches ** 0.5))
+    pos = torch.zeros((3, 1, length), dtype=torch.long, device=dev)
+    grid = torch.arange(n_patches, device=dev)
+    pos[1, :, :n_patches], pos[2, :, :n_patches] = grid // side, grid % side
+    pos[:, :, n_patches:] = side + torch.arange(length - n_patches, device=dev)
+    extra = 0.02 * torch.randn((1, n_patches, cfg.d_model), generator=gen, device=dev)
+    return pos, extra.to(dtype_of(cfg.compute_dtype))
+
+
+def cpt_peak_bound(cfg, psh, placed_params, seq_len: int, seq: str, whole_peak: int) -> int:
+    """The reckoned bound of a partitioned step's peak at 1 x ``seq_len``
+    on CPT_GRID (PERF.md §5): the whole step's peak plus what partitioning
+    adds, each term at its worst.  (R - 1) more gradients of every leaf not
+    split over data (each data index holds its own until the all-reduce);
+    (R - 1) more copies of every leaf FSDP splits, and of its gradient (each
+    data index's gathered block, kept for the backward, and the gradient of
+    it before the reduce-scatter); for each MoE layer each slot's E / M
+    experts at the whole sequence's capacity C, min(C, its T / R tokens)
+    slots an expert, (x, gate, up, act·up, out: 2 D + 3 F floats a slot)
+    against the whole's E C; where every slot holds the whole sequence,
+    (R - 1) more of the loss's four f32 [S, V] tensors."""
+    R = CPT_GRID[0]
+    shapes = dict(tree_leaves_with_path(placed_params))
+    extra = 0
+    for name, sh in tree_leaves_with_path(psh):
+        leaf = 4 * shapes[name].numel()
+        extra += (R - 1) * (2 * leaf if "data" in sh.spec else leaf)
+    moe = cfg.moe
+    n_moe = sum(b.ffn == "moe" for b in cfg.blocks)
+    if n_moe:
+        E, K = moe.num_experts, moe.experts_per_token
+        C = max(int(moe.capacity_factor * seq_len * K / E), K)
+        per_slot = min(C, seq_len // R) if seq == "chunks" else C
+        extra += n_moe * max(R * per_slot - C, 0) * E * (2 * cfg.d_model + 3 * cfg.d_ff) * 4
+    if seq == "whole":
+        extra += (R - 1) * 4 * seq_len * cfg.vocab_size * 4
+    return whole_peak + extra
+
+
+def cpt_train(arch, cfg, momentum, seq_len, n_vision, keep_names, card):
+    """One f32 SGD step (with ``momentum``) of ``cfg`` at 1 x ``seq_len``:
+    whole, its loss, aux, grad_norm, ``keep_names``' gradients and updated
+    params kept on the host and its memory freed; then the same state
+    placed on CPT_GRID and the same step partitioned, held against them
+    within PARTITIONED_RTOL / ATOL; its collectives against
+    ``partitioned_collectives(seq=)``.  Each side's second step is timed
+    (the first pays the allocator's growth), a third partitioned step runs
+    under torch.profiler (device busy ms, idle share against the second's
+    wall).  The first partitioned step's peak is held under
+    ``cpt_peak_bound``.  Returns the record."""
+    t0_run = time.perf_counter()
+    cfg = dataclasses.replace(cfg, param_dtype="float32", compute_dtype="float32")
+    opt = make_optimizer("sgd", constant_lr(CPT_LR), momentum=momentum)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = init_lm(cfg, gen, device="cuda")
+    batch = {"tokens": torch.as_tensor(np.random.default_rng(23).integers(
+        3, cfg.vocab_size, (1, seq_len)), device="cuda")}
+    if n_vision:
+        batch["positions"], batch["extra_embeds"] = cpt_vision(cfg, n_vision, seq_len, gen)
+    kept = {}
+
+    def keep(grads):
+        kept.update({k: v for k, v in tree_leaves_with_path(grads) if k in keep_names})
+        return grads
+
+    def host(tree):
+        return {k: v.float().cpu() for k, v in tree.items()}
+
+    state = make_train_state(params, opt)
+    del params
+    sync_cards()
+    whole_held = torch.cuda.memory_allocated()
+    reset_cards_peak()
+    marks = [("init", time.perf_counter())]
+    (new, wm), whole_first_ms = timed_run(lambda: make_train_step(cfg, opt, grad_sync=keep)(
+        state, batch))
+    whole_peak = torch.cuda.max_memory_allocated()
+    want = {k: wm[k].float().item() for k in ("loss", "aux", "grad_norm")}
+    want_grads = host(kept)
+    want_new = host({k: v for k, v in tree_leaves_with_path(new["params"]) if k in keep_names})
+    kept.clear()
+    del state, wm
+    _, whole_ms = timed_run(lambda: make_train_step(cfg, opt)(new, batch))
+    del new, _
+    sync_cards()
+    torch.cuda.empty_cache()
+    marks.append(("whole steps", time.perf_counter()))
+
+    mesh = make_mesh(CPT_GRID, ("data", "model"))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    state = make_train_state(init_lm(cfg, gen, device="cuda"), opt)
+    psh = sharding_mod.params_shardings(mesh, state["params"], cfg)
+    sh = {"params": psh, "opt": sharding_mod.opt_state_shardings(mesh, state["opt"], psh)}
+    placed = device_put(state, sh)
+    del state
+    sync_cards()
+    torch.cuda.empty_cache()
+    part_held = torch.cuda.memory_allocated()
+    R, M = CPT_GRID
+    seq = pt_mod.seq_layout(1, seq_len, R)
+    reckoned = cpt_peak_bound(cfg, psh, placed["params"], seq_len, seq, whole_peak)
+    marks.append(("placement", time.perf_counter()))
+    cols_want = partitioned_collectives(cfg, psh, R, M, mesh=mesh, seq=seq)
+    step = make_train_step(cfg, opt, grad_sync=keep)
+    reset_launches()
+    reset_cards_peak()
+    mesh_mod.reset_collectives()
+    (placed, pm), first_ms = timed_run(lambda: step(placed, batch))
+    peak = torch.cuda.max_memory_allocated()
+    cols, nbytes = dict(mesh_mod.collectives), dict(mesh_mod.collective_bytes)
+    by_axis = dict(mesh_mod.collectives_by_axis)
+    counts = launches()
+    marks.append(("partitioned step", time.perf_counter()))
+    worst, failed = {}, []
+    for key in ("loss", "aux", "grad_norm"):
+        got = pm[key].float().item()
+        worst[key] = abs(got - want[key]) / max(abs(want[key]), 1e-30)
+        if worst[key] > PARTITIONED_RTOL:
+            failed.append(f"{key} {got} vs {want[key]}")
+    new_leaves = dict(tree_leaves_with_path(placed["params"]))
+    for part, got_tree, want_tree in (("grads", kept, want_grads),
+                                      ("params", new_leaves, want_new)):
+        for k, w in want_tree.items():   # one leaf at a time, on the card
+            g, w = sharding_mod.gather(got_tree[k]).float(), w.to("cuda")
+            if ((g - w).abs() - PARTITIONED_ATOL - PARTITIONED_RTOL * w.abs()).max().item() > 0:
+                failed.append(f"{part} {k}")
+            worst[f"{part}/{k}"] = ((g - w).abs().max() / w.abs().max().clamp(min=1e-30)).item()
+            del g, w
+    kept.clear()
+    del new_leaves, want_grads, want_new, pm
+    marks.append(("compared", time.perf_counter()))
+    # a second step timed, a third under torch.profiler: where its time goes
+    (placed, pm), step_ms = timed_run(lambda: step(placed, batch))
+    marks.append(("second step", time.perf_counter()))
+    split = device_split(lambda: step(placed, batch))
+    kept.clear()
+    marks.append(("profiled step", time.perf_counter()))
+    busy = None if split is None else split[0]
+    idle = None if busy is None else max(0.0, 1 - busy / step_ms)
+    print_split(arch, f"partitioned step at 1 x {seq_len} ({seq})", step_ms, split)
+    del placed, pm
+    sync_cards()
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t0_run
+    split_s = {k: round(t - (marks[i - 1][1] if i else t0_run), 2)
+               for i, (k, t) in enumerate(marks)}
+    print(f"[cpt] {arch} ({cfg.num_layers} layers, f32, SGD momentum {momentum}) at 1 x {seq_len}"
+          f"{f' ({n_vision} embedded positions, M-RoPE)' if n_vision else ''}, {seq} over "
+          f"{mesh!r}: whole step {whole_ms:.1f} ms (first {whole_first_ms:.1f}), peak "
+          f"{whole_peak / 2 ** 30:.2f} GiB (held {whole_held / 2 ** 30:.2f}); partitioned "
+          f"{step_ms:.1f} ms (first {first_ms:.1f}), device busy "
+          f"{'n/a' if busy is None else f'{busy:.1f}'} ms, idle "
+          f"{'n/a' if idle is None else f'{idle:.1%}'}, peak {peak / 2 ** 30:.2f} GiB (held "
+          f"{part_held / 2 ** 30:.2f}, reckoned bound {reckoned / 2 ** 30:.2f}); collectives {cols} "
+          f"({by_axis} by axis; the formula's {cols_want}), carrying {nbytes} bytes; against "
+          f"the whole step, largest difference over the largest value "
+          f"{ {k: float(f'{v:.3g}') for k, v in worst.items()} } (bounds rtol/atol "
+          f"{PARTITIONED_RTOL:g}/{PARTITIONED_ATOL:g}); {seconds:.1f} s ({split_s}) on {card}")
+    check(cols == cols_want, f"{arch} at 1 x {seq_len}: the partitioned step ran collectives "
+          f"{cols}, expected {cols_want}")
+    check(not failed, f"{arch} at 1 x {seq_len}: the partitioned step against the whole step, "
+          f"beyond rtol/atol {PARTITIONED_RTOL:g}/{PARTITIONED_ATOL:g}: {failed}")
+    check(peak <= reckoned, f"{arch} at 1 x {seq_len}: the partitioned step's peak "
+          f"{peak / 2 ** 30:.2f} GiB is above the reckoned bound {reckoned / 2 ** 30:.2f} GiB")
+    check(all(n == 0 for n in counts.values()), f"{arch}: the train step launched {counts}")
+    return {"arch": arch, "layers": cfg.num_layers, "seq": [1, seq_len], "layout": seq,
+            "vision": n_vision, "momentum": momentum, "whole_ms": whole_ms,
+            "whole_first_ms": whole_first_ms, "step_ms": step_ms, "first_ms": first_ms,
+            "device_busy_ms": busy, "device_idle_share": idle,
+            "whole_peak_gib": whole_peak / 2 ** 30, "whole_held_gib": whole_held / 2 ** 30,
+            "peak_gib": peak / 2 ** 30, "held_gib": part_held / 2 ** 30,
+            "reckoned_peak_gib": reckoned / 2 ** 30, "collectives": cols,
+            "collectives_by_axis": by_axis, "collective_bytes": nbytes, "worst": worst,
+            "seconds": seconds, "seconds_by_part": split_s}
+
+
+def cpt_serve_qwen(card):
+    """qwen2-vl-72b (CPT_QWEN_LAYERS layers, bf16) whole, then at B = 1 on
+    CPT_GRID: a vision prompt's prefill (M-RoPE positions, extra_embeds
+    straddling the chunk edge) into a cache split over data, then
+    CPT_QWEN_NEW - 1 decode steps; launches exact by route (``cp_routes``),
+    collectives a prefill and a decode step the formula's
+    (``serve_collectives(step=)``), the logits teacher-forced on the whole
+    model's tokens within 4x its nudge yardstick (``tp_agreement``).
+    Returns (launches over the partitioned generate, the record)."""
+    t0_run = time.perf_counter()
+    arch, n, P = "qwen2-vl-72b", CPT_QWEN_NEW, CPT_QWEN_PROMPT
+    cfg = dataclasses.replace(get_config(arch), num_layers=CPT_QWEN_LAYERS)
+    max_len = P + n
+    dev = torch.device("cuda")
+    sync_cards()
+    reset_cards_peak()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = init_lm(cfg, gen, device=dev)
+    pos, extra = cpt_vision(cfg, CPT_QWEN_PATCHES, P, gen)
+    vision = {"positions": pos, "extra_embeds": extra}
+    prompts = torch.as_tensor(np.random.default_rng(23).integers(3, cfg.vocab_size, (1, P)),
+                              device=dev)
+    (tokens, _), gen_ms = timed_run(lambda: stepped(cfg, params, prompts, max_len, n=n,
+                                                    **vision))
+    _, w_pre = timed_run(lambda: stepped(cfg, params, prompts, max_len, n=1, **vision))
+    w_dec = (gen_ms - w_pre) / (n - 1)
+    _, lw = stepped(cfg, params, prompts, max_len, tokens, **vision)
+    with nudged_kernels(TP_NUDGE):
+        _, ln = stepped(cfg, params, prompts, max_len, tokens, **vision)
+    floor = logit_diff(ln, lw)
+    del ln
+    whole_peak = cards_peak_gib()
+
+    mesh = make_mesh(CPT_GRID, ("data", "model"))
+    psh = sharding_mod.params_shardings(mesh, params, cfg)
+    placed = device_put(params, psh)
+    del params
+    sync_cards()
+    torch.cuda.empty_cache()
+    reset_cards_peak()
+    R, M = CPT_GRID
+    pre_c = serve_collectives(cfg, psh, R, M, step="chunks")
+    dec_c = serve_collectives(cfg, psh, R, M, step="decode")
+    reset_launches()
+    mesh_mod.reset_collectives()
+    (gen_p, _), p_ms = timed_run(lambda: stepped(cfg, placed, prompts, max_len, n=n, **vision))
+    counts = launches()
+    flash_want, rwkv_want = cp_routes(cfg, n, mesh.devices.size, M)
+    got_f = dict(flash_attention.launches_by_route)
+    check(got_f == flash_want, f"{arch} B=1: launched flash_attention {got_f} by route, "
+          f"expected {flash_want}")
+    cols, by_axis = dict(mesh_mod.collectives), dict(mesh_mod.collectives_by_axis)
+    want_cols = {k: pre_c[0].get(k, 0) + (n - 1) * dec_c[0].get(k, 0)
+                 for k in set(pre_c[0]) | set(dec_c[0])}
+    want_axes = {k: pre_c[1].get(k, 0) + (n - 1) * dec_c[1].get(k, 0)
+                 for k in set(pre_c[1]) | set(dec_c[1])}
+    check(cols == want_cols and by_axis == want_axes, f"{arch} B=1: the generate's "
+          f"collectives {cols} ({by_axis} by axis), expected {want_cols} ({want_axes})")
+    gen_bytes = dict(mesh_mod.collective_bytes)
+    mesh_mod.reset_collectives()
+    _, p_pre = timed_run(lambda: stepped(cfg, placed, prompts, max_len, n=1, **vision))
+    pre_bytes = dict(mesh_mod.collective_bytes)
+    p_dec = (p_ms - p_pre) / (n - 1)
+    dec_bytes = {k: (gen_bytes[k] - pre_bytes.get(k, 0)) // (n - 1) for k in gen_bytes}
+    with torch.inference_mode():
+        eng = Engine(cfg, placed, max_len=max_len)
+        toks, cache = eng._start(placed, prompts)
+        split_pre = device_split(lambda: serve_prefill(cfg, placed, eng, toks, cache, vision))
+        del cache
+    print_split(arch, f"context-parallel vision prefill 1 x {P}", p_pre, split_pre)
+    peak = cards_peak_gib()
+    lp = stepped(cfg, placed, prompts, max_len, tokens, **vision)[1]
+    agreement = tp_agreement(f"{arch} B=1 vision prefill, context-parallel", lp,
+                             (tokens, lw, floor))
+    same = int((gen_p == tokens).sum())
+    del lp, lw, placed
+    torch.cuda.empty_cache()
+    busy = None if split_pre is None else split_pre[0]
+    seconds = time.perf_counter() - t0_run
+    print(f"[cpt] {arch} ({cfg.num_layers} layers, bf16) B=1 on {mesh!r}: a {P}-position prompt "
+          f"whose first {CPT_QWEN_PATCHES} are extra_embeds (M-RoPE), the chunks of "
+          f"{P // R} splitting them; whole prefill {w_pre:.2f} ms, decode {w_dec:.2f} ms a step, "
+          f"peak {whole_peak:.2f} GiB; context-parallel prefill {p_pre:.2f} ms (device busy "
+          f"{'n/a' if busy is None else f'{busy:.2f}'} ms), decode {p_dec:.2f} ms a step, peak "
+          f"{peak:.2f} GiB; launches by route {got_f} (exactly as worked out); collectives a "
+          f"prefill {pre_c}, a decode step {dec_c} (the formula's), bytes a prefill {pre_bytes}, "
+          f"a decode step {dec_bytes}; the generate's tokens equal the whole model's at "
+          f"{same}/{gen_p.size}; {seconds:.1f} s on {card}")
+    return counts, {"arch": arch, "layers": cfg.num_layers, "prompt": P,
+                    "patches": CPT_QWEN_PATCHES, "new": n, "whole_prefill_ms": w_pre,
+                    "whole_decode_ms": w_dec, "whole_peak_gib": whole_peak, "prefill_ms": p_pre,
+                    "decode_ms": p_dec, "prefill_device_busy_ms": busy, "peak_gib": peak,
+                    "launches": counts, "flash_routes": got_f,
+                    "collectives_prefill": pre_c, "collectives_decode_step": dec_c,
+                    "collective_bytes_prefill": pre_bytes,
+                    "collective_bytes_decode_step": dec_bytes, "generate_tokens_equal": same,
+                    "agreement": agreement, "seconds": seconds}
+
+
+def phase_context_parallel_train(card, gen):
+    """Phase 23: each of CPT_TRAIN whole and partitioned at B = 1, then
+    flash_attention checked at the served qwen2-vl's per-slot shapes and
+    its vision prompt served at B = 1.  Returns (launches over the
+    context-parallel generate, the phase's record)."""
+    t_phase = time.perf_counter()
+    trained = []
+    for arch, cfg, momentum, seq_len, n_vision, keep_names in CPT_TRAIN:
+        trained.append(cpt_train(arch, cfg, momentum, seq_len, n_vision, keep_names, card))
+        torch.cuda.empty_cache()
+    err = cpt_slot_checks(gen)
+    torch.cuda.empty_cache()
+    counts, served = cpt_serve_qwen(card)
+    seconds = time.perf_counter() - t_phase
+    print(f"[cpt] phase 23: {seconds:.1f} s on {card}; launches over the context-parallel "
+          f"vision generate {counts}, none on the train steps")
+    return counts, {"train": trained, "serve": served, "per_slot_max_abs_err": err,
+                    "seconds": seconds}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card", file=sys.stderr)
@@ -7259,6 +7683,12 @@ def main() -> int:
     # each context-parallel generate and summed
     cp_counts, cp_rec = phase_context_parallel(smi, gen)
     torch.cuda.empty_cache()
+
+    # the partitioned train step at B = 1 and a vision prompt served at B = 1
+    # (slice 19): its train steps launch no kernel; counts reset just before
+    # the context-parallel vision generate
+    cpt_counts, cpt_rec = phase_context_parallel_train(smi, gen)
+    torch.cuda.empty_cache()
     print(f"[done] {time.perf_counter() - t0:.1f} s after the card check")
 
     cost_of = {"cold_fuse": cf_mod.cost, "decode_accum": da_mod.cost, "row_sketch": sk_mod.cost,
@@ -7312,7 +7742,8 @@ def main() -> int:
     flash["per_slot_max_abs_err"] = max(flash["per_slot_max_abs_err"],
                                         pmoe_rec["per_slot_max_abs_err"],
                                         pssm_rec["per_slot_max_abs_err"],
-                                        cp_rec["per_slot_max_abs_err"])
+                                        cp_rec["per_slot_max_abs_err"],
+                                        cpt_rec["per_slot_max_abs_err"])
     # the context-parallel decode's two entries of flash_decode.cu: their
     # [time] lines, and their launches on phase 22's generates
     flash["routes"] += cp_rec["routes"]
@@ -7344,6 +7775,7 @@ def main() -> int:
     print(json.dumps({"partitioned_moe": pmoe_rec}))
     print(json.dumps({"partitioned_ssm": pssm_rec}))
     print(json.dumps({"context_parallel": cp_rec}))
+    print(json.dumps({"context_parallel_train": dict(cpt_rec, launches=cpt_counts)}))
     print(json.dumps({"archs": arch_table}))
     print(json.dumps({"archs2": arch2_table}))
     fuse_kernels[0]["at_gemma3_1b"] = fuse_at_gemma

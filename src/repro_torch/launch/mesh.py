@@ -51,15 +51,17 @@ counted (Megatron's pairs):
   is an all-gather;
 * ``axis_all_reduce_max`` — the maximum over the group, no gradient.
 
-Two more carry a context-parallel forward's state along the sequence
-(serving only, no gradient), each counted under a kind of its own that
-appears in ``collectives`` from its first call on:
+Two more carry a context-parallel forward's state along the sequence,
+each counted under a kind of its own that appears in ``collectives`` from
+its first call on:
 
 * ``axis_send`` — each group's slot ``i`` hands its operand to slot
   ``i + 1`` (a collective permute, ``"permute"``; one operand's bytes a
-  group);
+  group); tracked (the train step's recurrent state), its backward hands
+  the gradient back from slot ``i + 1`` to slot ``i``, one more permute;
 * ``axis_broadcast`` — each group's slot ``i`` gives its operand to every
-  slot of the group (``"broadcast"``; k - 1 operands' bytes a group).
+  slot of the group (``"broadcast"``; k - 1 operands' bytes a group; no
+  gradient: the serving steps' cache).
 
 Outside autograd (a gradient reduced after the backward), slots of one
 group that share a device share the result tensor.  An axis of extent 1
@@ -466,21 +468,43 @@ def axis_all_reduce_max(parts: Sequence[torch.Tensor], mesh: Mesh, axis: Optiona
     return out
 
 
+def _permute(xs, devices, axis: str) -> List[torch.Tensor]:
+    """Each of ``xs`` copied to its device in ``devices``: one
+    ``"permute"`` over ``axis``, of their bytes."""
+    count_collective("permute", sum(_nbytes(x) for x in xs), (axis,))
+    return [x.to(dev, copy=True) for x, dev in zip(xs, devices)]
+
+
+class _Send(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, axis, devices, *xs):
+        ctx.axis, ctx.srcs = axis, [x.device for x in xs]
+        return tuple(_permute(xs, devices, axis))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None, None) + tuple(_permute(grads, ctx.srcs, ctx.axis))
+
+
 def axis_send(parts: Sequence[Optional[torch.Tensor]], mesh: Mesh, axis: str, src: int
               ) -> List[Optional[torch.Tensor]]:
     """Each group's slot ``src`` along ``axis`` hands its operand to slot
     ``src + 1``, on that slot's device: the returned list holds it there and
     None on every other slot.  One ``"permute"`` over ``axis``, one
-    operand's bytes a group; no gradient."""
-    devices = list(mesh.devices.flat)
+    operand's bytes a group.  Where the operands are tracked (the train
+    step), the backward hands each received gradient back to slot ``src``,
+    one more permute; otherwise they are sent detached."""
+    groups = mesh.groups(axis)
+    xs = [parts[g[src]] for g in groups]
+    dsts = [g[src + 1] for g in groups]
+    devices = [mesh.devices.flat[d] for d in dsts]
+    if _tracked(xs):
+        sent = _Send.apply(axis, devices, *xs)
+    else:
+        sent = _permute([x.detach() for x in xs], devices, axis)
     out: List[Optional[torch.Tensor]] = [None] * len(parts)
-    nbytes = 0
-    for group in mesh.groups(axis):
-        x = parts[group[src]].detach()
-        dst = group[src + 1]
-        out[dst] = x.to(devices[dst], copy=True)
-        nbytes += _nbytes(x)
-    count_collective("permute", nbytes, (axis,))
+    for d, x in zip(dsts, sent):
+        out[d] = x
     return out
 
 

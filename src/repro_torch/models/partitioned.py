@@ -128,15 +128,19 @@ lookup's all-reduce.  The rotary angles are computed once per replica and
 device (the replicas' positions differ).  A decode step takes its
 positions from ``cache_index``, as the reference's serve step does.
 
-**A serving batch that the batch axis does not divide** (one request of
-a long context) lies as the reference's ``batch_shardings`` and
-``cache_shardings`` place it (``seq_layout``): the prompt split into R
-chunks over the batch axis where R divides its length (``"chunks"``: slot
-``(r, m)`` holds positions ``[r S / R, (r + 1) S / R)``), else whole on
-every slot (``"whole"``), as is every decode step's token; a KV cache's
-sequence is split over the batch axis (data slot ``r`` holds positions, or
-ring slots, ``[r L / R, (r + 1) L / R)``), the RWKV and Mamba states are
-whole over it.  Each slot runs the model on its tokens:
+**A batch that the batch axis does not divide** (one request, or one
+training sequence, of a long context) lies as the reference's
+``batch_shardings`` and ``cache_shardings`` place it (``seq_layout``):
+the tokens (and a train step's mask) split into R chunks over the batch
+axis where R divides their length (``"chunks"``: slot ``(r, m)`` holds
+positions ``[r S / R, (r + 1) S / R)``), else whole on every slot
+(``"whole"``), as is every decode step's token; M-RoPE ``positions`` and
+``extra_embeds`` whole on every slot, each chunk taking its positions'
+part (the embedded positions of a chunk: none, all, or a prefix where N
+ends inside it); a KV cache's sequence is split over the batch axis (data
+slot ``r`` holds positions, or ring slots, ``[r L / R, (r + 1) L / R)``),
+the RWKV and Mamba states are whole over it.  Each slot runs the model on
+its tokens:
 
 * attention: a prompt's new k/v are all-gathered over the batch axis (one
   counted gather each), each slot runs the kernel on its query chunk at
@@ -164,13 +168,33 @@ whole over it.  Each slot runs the model on its tokens:
 A batch every slot holds whole writes its replicated states once all
 slots have read them (slots that share a device share those blocks).
 
+**The train step at such a batch** (``differentiable=True``) runs the same
+split on the differentiable copies, with no cache:
+
+* attention: each chunk's queries through ``layers._sdpa`` at ``q_offset``
+  = the chunk's start over the keys of every position, all-gathered over
+  the batch axis (one counted gather each for k and v, whose backward
+  reduce-scatters the keys' gradient back to their chunks);
+* the RWKV and Mamba recurrences run chunk after chunk, each chunk's final
+  state handed to the next chunk's slots by ``mesh.axis_send``, whose
+  backward hands the state's gradient back (a permute each way); the token
+  shifts and the conv halo through the gathers above, whose backward
+  reduce-scatters;
+* the MoE FFN's queue as above, and its aux loss's f_e and p_e summed over
+  the whole sequence by one all-reduce over the batch axis of each chunk's
+  sums (none where every slot holds the batch whole);
+* the loss (``train.losses.lm_loss_vocab_parallel`` with ``seq_axis``)
+  scores each chunk's last position against the next chunk's first token
+  (one counted gather of each chunk's first token and mask weight); only
+  the last chunk drops its last position.  ``train.step`` divides each
+  slot's share by the whole batch's count of scored pairs, and, where every
+  slot holds the whole sequence, by R more, so that the sums over the batch
+  axis (of the gradients, the loss and the aux) count the batch once.
+
 Every decoder (attention, Mamba and RWKV mixers; GLU, MLP, MoE and RWKV
-channel-mix FFNs; RoPE or M-RoPE) is partitioned for training and
-serving.  The encoder-decoder (and its ``frames``) and the encoder raise
-``NotImplementedError`` (``check_partitionable``), as do the train step at
-a batch the batch axis does not divide (the sequence over the batch axis,
-``train.step``) and M-RoPE ``positions`` or ``extra_embeds`` when serving
-such a batch.
+channel-mix FFNs; RoPE or M-RoPE) is partitioned for training and serving
+at any batch size.  The encoder-decoder (and its ``frames``) and the
+encoder raise ``NotImplementedError`` (``check_partitionable``).
 """
 from __future__ import annotations
 
@@ -212,7 +236,8 @@ def check_partitionable(cfg: ArchConfig, batch_keys: Sequence[str] = (), *,
                         serving: bool = False) -> None:
     """Raise ``NotImplementedError`` naming the arch and the part the
     partitioned train step (or, with ``serving``, the partitioned prefill
-    and decode steps) lacks."""
+    and decode steps) lacks.  Both take a decoder at any batch size
+    (``seq_layout``); the encoder-decoder and the encoder stay refused."""
     if cfg.is_encoder_decoder:
         refuse(cfg, "encoder-decoder (whisper)", serving=serving)
     if cfg.family == "encoder":
@@ -227,11 +252,10 @@ def check_partitionable(cfg: ArchConfig, batch_keys: Sequence[str] = (), *,
 
 
 def seq_layout(B: int, S: int, R: int) -> Optional[str]:
-    """How a serving step's tokens [B, S] lie over the R slots of the batch
-    axis, by ``batch_shardings``' rule: None where R divides B (each
-    replica its rows), else ``"chunks"`` where R divides S (each slot a
-    chunk of the sequence, in order), else ``"whole"`` (every slot all of
-    it)."""
+    """How a step's tokens [B, S] lie over the R slots of the batch axis,
+    by ``batch_shardings``' rule: None where R divides B (each replica its
+    rows), else ``"chunks"`` where R divides S (each slot a chunk of the
+    sequence, in order), else ``"whole"`` (every slot all of it)."""
     if B % R == 0:
         return None
     return "chunks" if S % R == 0 else "whole"
@@ -360,7 +384,9 @@ def _attention(sl: _Slab, pre: str, rep, blk, h, angles, *, cache=None, cache_in
         qs.append(q)
         ks.append(k)
         vs.append(v)
-    if sl.seq is not None:
+    if sl.seq is not None and differentiable:
+        attn = _attention_cp_train(sl, blk, qs, ks, vs, hq, split and not kv_split)
+    elif sl.seq is not None:
         attn = _attention_cp(sl, blk, qs, ks, vs, hq, hkv, split and not kv_split, cache,
                              cache_index, cache_len)
     else:
@@ -428,6 +454,26 @@ def _partials(q, k, v, **kw) -> torch.Tensor:
     parts = [ops.attention_partials(qg[:, :, :, i].reshape(B, Sq, Hkv * rep // g, hd)
                                     .contiguous(), k, v, **kw) for i in range(g)]
     return torch.stack(parts, 2).reshape((B, Hkv * g) + tuple(parts[0].shape[2:]))
+
+
+def _attention_cp_train(sl: _Slab, blk, qs, ks, vs, hq: int, select: bool):
+    """The train step's attention at a batch the batch axis does not
+    divide: each chunk's queries through ``layers._sdpa`` at ``q_offset`` =
+    the chunk's start over the keys of every position, all-gathered over
+    the batch axis (one counted gather each for k and v, whose backward
+    reduce-scatters); a sequence every slot holds whole over its own."""
+    mesh, dp = sl.mesh, sl.dp
+    S = qs[0].shape[1]
+    chunks = sl.seq == "chunks"
+    if chunks:
+        ks = M.axis_all_gather(ks, mesh, dp, 1)
+        vs = M.axis_all_gather(vs, mesh, dp, 1)
+    outs = []
+    for s in range(sl.n):
+        k, v = _kv_heads(sl, s, hq, ks[s], vs[s]) if select else (ks[s], vs[s])
+        outs.append(L._sdpa(qs[s], k, v, causal=True, window=blk.window,
+                            q_offset=mesh.coord(s, dp) * S if chunks else 0))
+    return outs
 
 
 def _attention_cp(sl: _Slab, blk, qs, ks, vs, hq: int, hkv: int, select: bool, cache,
@@ -541,8 +587,10 @@ def _moe(sl: _Slab, pre: str, rep, h, *, differentiable: bool):
              for s in range(n)]
     aux = None
     if differentiable:  # the global f_e and p_e: one all-reduce of each replica's sums
-        sums = M.axis_all_reduce([torch.cat([F.one_hot(pl.topk_idx[:, 0], E).float().sum(0),
-                                             pl.probs.sum(0)]) for pl in plans], mesh, dp)
+        sums = [torch.cat([F.one_hot(pl.topk_idx[:, 0], E).float().sum(0), pl.probs.sum(0)])
+                for pl in plans]
+        if R > 1:
+            sums = M.axis_all_reduce(sums, mesh, dp)
         aux = [E * torch.sum((t[:E] / tokens) * (t[E:] / tokens)) for t in sums]
     split = ep or fp
     xin = xt
@@ -792,10 +840,17 @@ def vocab_axis(cfg: ArchConfig, mesh: M.Mesh, layouts: Dict[str, Layout]) -> Opt
     return sl.mp if split else None
 
 
+def _chunk_start(sl: _Slab, s: int, S: int) -> int:
+    """The position of slot ``s``'s first token: its chunk's start where
+    the batch axis splits the sequence (chunks of ``S``), else 0."""
+    return sl.mesh.coord(s, sl.dp) * S if sl.seq == "chunks" else 0
+
+
 def _slot_angles(sl: _Slab, tokens, positions, cache_index):
     """Each slot's rotary angles (None for a rope-free model) from its
     replica's ``positions`` (by default 0..S-1, offset by ``cache_index``
-    and, where the batch axis splits the sequence, by the chunk's start),
+    and, where the batch axis splits the sequence, by the chunk's start;
+    given positions, every slot's whole, are then sliced to the chunk),
     computed once per replica (or chunk) and device."""
     done, out = {}, []
     for s in range(sl.n):
@@ -804,13 +859,26 @@ def _slot_angles(sl: _Slab, tokens, positions, cache_index):
         r = 0 if sl.seq == "whole" else sl.mesh.coord(s, sl.dp)
         key = (r, dev)
         if key not in done:
+            first = _chunk_start(sl, s, S)
             pos = None if positions is None else positions[s]
-            start = (r * S if sl.seq == "chunks" else 0) + int(cache_index or 0)
+            if pos is not None and sl.seq == "chunks":
+                pos = pos[..., first:first + S]
+            start = first + int(cache_index or 0)
             if pos is None and (start or cache_index is not None):
                 pos = (torch.arange(S, device=dev)[None] + start).expand(B, S)
             done[key] = T._rope_angles(sl.cfg, pos, S, B, dev)
         out.append(done[key])
     return out
+
+
+def _splice(x: torch.Tensor, e: torch.Tensor, first: int) -> torch.Tensor:
+    """``x`` [B, S, D] (positions ``[first, first + S)``) with the
+    positions among the first N replaced by ``e`` [B, N, D]'s: none, all,
+    or a prefix where N ends inside the chunk."""
+    k = min(max(e.shape[1] - first, 0), x.shape[1])
+    if not k:
+        return x
+    return torch.cat([e[:, first:first + k].to(x.dtype), x[:, k:]], dim=1)
 
 
 def partitioned_forward(cfg: ArchConfig, mesh: M.Mesh, live: Dict[str, List[torch.Tensor]],
@@ -831,23 +899,22 @@ def partitioned_forward(cfg: ArchConfig, mesh: M.Mesh, live: Dict[str, List[torc
     leaf ``name``, ``layouts[name]`` its layout; ``positions[s]`` and
     ``extra_embeds[s]``, where given, the replica's rows of those inputs.
 
-    ``differentiable=True`` is the train step's forward (``_sdpa``; no
-    cache).  Otherwise attention and the RWKV recurrence run the kernels,
-    and with ``cache`` (``cache[name][s]`` slot ``s``'s block of the cache
-    leaf ``name``, placed by ``cache_shardings``) the step is incremental
-    at the write offset ``cache_index``: the blocks are updated in place
-    and returned.
+    ``differentiable=True`` is the train step's forward (``_sdpa`` and the
+    plain recurrences; no cache).  Otherwise attention and the RWKV
+    recurrence run the kernels, and with ``cache`` (``cache[name][s]`` slot
+    ``s``'s block of the cache leaf ``name``, placed by
+    ``cache_shardings``) the step is incremental at the write offset
+    ``cache_index``: the blocks are updated in place and returned.
 
-    ``seq`` (serving only) is ``seq_layout``'s for a batch the batch axis
-    does not divide: ``"chunks"`` (``tokens[s]`` [B, S / R], chunk ``r``
-    of the sequence on the slots of index ``r``) or ``"whole"`` (every slot
-    all of [B, S]); ``cache_layouts`` are then the cache leaves' layouts.
-    ``last_only`` computes the logits of each slot's last position alone,
-    [B_r, 1, V / M]."""
+    ``seq`` is ``seq_layout``'s for a batch the batch axis does not divide:
+    ``"chunks"`` (``tokens[s]`` [B, S / R], chunk ``r`` of the sequence on
+    the slots of index ``r``) or ``"whole"`` (every slot all of [B, S]);
+    ``positions[s]`` and ``extra_embeds[s]`` are then the whole batch's on
+    every slot, each chunk taking its positions' part, and
+    ``cache_layouts`` the cache leaves' layouts.  ``last_only`` computes
+    the logits of each slot's last position alone, [B_r, 1, V / M]."""
     if cache is not None and differentiable:
         raise ValueError("the partitioned train forward takes no cache")
-    if seq is not None and differentiable:
-        raise ValueError("the partitioned train forward takes the batch split by rows")
     sl = _Slab(cfg, mesh, live, layouts, seq)
     n, mp = sl.n, sl.mp
     cdt = dtype_of(cfg.compute_dtype)
@@ -869,8 +936,8 @@ def partitioned_forward(cfg: ArchConfig, mesh: M.Mesh, live: Dict[str, List[torc
     if cfg.scale_embed:
         x = [xi * torch.tensor(cfg.d_model ** 0.5, dtype=cdt, device=xi.device) for xi in x]
     if extra_embeds is not None:  # the frontend's embeddings in place of the first N
-        x = [torch.cat([e.to(xi.dtype), xi[:, e.shape[1]:]], dim=1)
-             for xi, e in zip(x, extra_embeds)]
+        x = [_splice(xi, e, _chunk_start(sl, s, xi.shape[1]))
+             for s, (xi, e) in enumerate(zip(x, extra_embeds))]
     angles = _slot_angles(sl, tokens, positions, cache_index)
 
     aux = [torch.zeros((), dtype=torch.float32, device=xi.device) for xi in x]
@@ -941,15 +1008,18 @@ def gather_last(logits: List[torch.Tensor], mesh: M.Mesh, vocab: Optional[str],
 def partitioned_loss(cfg: ArchConfig, mesh: M.Mesh, live: Dict[str, List[torch.Tensor]],
                      layouts: Dict[str, Layout], tokens: List[torch.Tensor], mask=None,
                      denominator: Optional[float] = None, *, positions=None,
-                     extra_embeds=None):
-    """Each slot's loss of its replica's rows and its aux loss: ``tokens[s]``
-    [B_r, S] (and ``mask[s]``, ``positions[s]``, ``extra_embeds[s]``)
-    through ``partitioned_forward(differentiable=True)``, scored by
-    ``lm_loss_vocab_parallel`` as Σ nll · mask over ``denominator``.  The
-    loss is the same on every slot of a replica, the aux (the whole
-    batch's) on every slot."""
+                     extra_embeds=None, seq: Optional[str] = None):
+    """Each slot's loss of its replica's rows (or, with ``seq``
+    ``"chunks"``, of its chunk of the sequence) and its aux loss:
+    ``tokens[s]`` (and ``mask[s]``, ``positions[s]``, ``extra_embeds[s]``)
+    through ``partitioned_forward(differentiable=True, seq=seq)``, scored
+    by ``lm_loss_vocab_parallel`` as Σ nll · mask over ``denominator``.
+    The loss is the same on every slot of a replica (or chunk), the aux
+    (the whole batch's) on every slot."""
     check_partitionable(cfg)
     logits, aux, _ = partitioned_forward(cfg, mesh, live, layouts, tokens, positions=positions,
-                                         extra_embeds=extra_embeds, differentiable=True)
+                                         extra_embeds=extra_embeds, differentiable=True,
+                                         seq=seq)
+    dp, _ = grid_axes(mesh)
     return lm_loss_vocab_parallel(logits, tokens, mesh, vocab_axis(cfg, mesh, layouts), mask,
-                                  denominator), aux
+                                  denominator, seq_axis=dp if seq == "chunks" else None), aux

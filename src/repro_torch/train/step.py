@@ -37,7 +37,7 @@ from repro_torch.models import partitioned as PT
 from repro_torch.models import whisper as W
 from repro_torch.models.transformer import forward_lm
 from repro_torch.optim.optimizers import Optimizer, clip_by_global_norm
-from repro_torch.train.losses import lm_loss
+from repro_torch.train.losses import lm_loss, lm_loss_vocab_parallel
 from repro_torch.utils import op_counts as _oc
 from repro_torch.utils.placed import Placed, spec_axes
 from repro_torch.utils.pytree import (tree_device, tree_leaves, tree_leaves_with_path,
@@ -135,7 +135,20 @@ def make_train_step(cfg: ArchConfig, optimizer: Optimizer, *, microbatches: int 
     replica's share of it comes from the replica block that holds those
     rows, copied to the slot's device where that block is another
     replica's (an input's placement, not counted as a collective; at one
-    microbatch no row moves).  Every optimizer takes placed leaves;
+    microbatch no row moves).
+
+    A batch the batch axis does not divide (``B % R != 0``: one long
+    sequence) lies as ``batch_shardings`` places it
+    (``models.partitioned.seq_layout``): the tokens and mask split into R
+    chunks of the sequence where R divides its length, else whole on every
+    slot; ``positions`` and ``extra_embeds`` whole on every slot.  A
+    microbatch is rows ``[i B / n, (i + 1) B / n)`` of every slot's part,
+    and its loss is Σ nll over the whole microbatch's count of scored pairs
+    (the mask's, all-reduced over the batch axis); each chunk's last
+    position is scored against the next chunk's first token.  Where every
+    slot holds the whole sequence, each slot's loss and aux enter its
+    objective at 1 / R, so that the batch axis's sums of the gradients and
+    the loss count the batch once.  Every optimizer takes placed leaves;
     adafactor keeps its statistics whole and replicated, as the
     reference's ``opt_state_shardings`` places them
     (``optim.optimizers.adafactor``).
@@ -194,34 +207,38 @@ def make_train_step(cfg: ArchConfig, optimizer: Optimizer, *, microbatches: int 
             check_shardings(params)
         dp, _ = PT.grid_axes(mesh)
         R, n = mesh.extent(dp), mesh.devices.size
-        B = batch["tokens"].shape[0]
-        if B % R:
-            PT.refuse(cfg, f"batch of {B} over {R} batch slots (the train step with the "
-                      "sequence split over the batch axis is not yet ported, ROADMAP.md A6c.2)")
-        rows = _slot_rows(batch, mesh, dp)
+        seq = PT.seq_layout(*batch["tokens"].shape, R)
+        if seq is None:
+            rows = _slot_rows(batch, mesh, dp)
+        else:
+            rows = _slot_sequence_batch(batch, mesh, dp, seq)
         Br = rows["tokens"][0].shape[0]
         if Br % microbatches:
-            raise ValueError(f"a replica's {Br} rows do not split into {microbatches} equal "
+            what = "a replica's" if seq is None else "the batch's"
+            raise ValueError(f"{what} {Br} rows do not split into {microbatches} equal "
                              "microbatches")
-        mb, S = Br // microbatches, rows["tokens"][0].shape[1]
+        mb = Br // microbatches
+        # a batch every slot holds whole counts R times over the batch axis:
+        # each slot's share of the loss (and aux) is 1 / R of it
+        share = 1.0 / R if seq == "whole" else 1.0
         layouts = {k: x.layout for k, x in named}
         acc: Dict[str, list] = {}
         loss_sum = aux_sum = None
         for i in range(microbatches):
-            part = _microbatch_rows(rows, mesh, dp, i, microbatches)
-            if "mask" in part:  # the microbatch's count over every replica's slice
-                counts = M.axis_all_reduce([m[:, 1:].float().sum() for m in part["mask"]],
-                                           mesh, dp)
-                denominator = max(float(counts[0]), 1.0)
+            if seq is None:
+                part = _microbatch_rows(rows, mesh, dp, i, microbatches)
             else:
-                denominator = float(R * mb * (S - 1))
+                part = {k: [p.narrow(_batch_axis(k, p), i * mb, mb) for p in parts]
+                        for k, parts in rows.items()}
+            denominator = _pairs(part, mesh, dp, seq)
             with torch.enable_grad():
                 live = {k: [b.detach().requires_grad_(True) for b in x.slot_blocks()]
                         for k, x in named}
                 losses, auxes = PT.partitioned_loss(
                     cfg, mesh, live, layouts, part["tokens"], part.get("mask"), denominator,
-                    positions=part.get("positions"), extra_embeds=part.get("extra_embeds"))
-                objective = [l + aux_w * a for l, a in zip(losses, auxes)]
+                    positions=part.get("positions"), extra_embeds=part.get("extra_embeds"),
+                    seq=seq)
+                objective = [l + aux_w * share * a for l, a in zip(losses, auxes)]
                 flat = [t for k, _ in named for t in live[k]]
                 grads = torch.autograd.grad(objective, flat,
                                             [torch.ones_like(x) for x in objective],
@@ -349,17 +366,14 @@ def _partitioned_last_logits(cfg: ArchConfig, params, tokens, cache=None,
     chunks over the batch axis where it divides the prompt, else the
     tokens whole on every slot, against a cache whose sequence
     ``cache_shardings`` splits over the batch axis (a context-parallel
-    prefill and decode); ``positions`` and ``extra_embeds`` are refused
-    there."""
+    prefill and decode); ``positions`` and ``extra_embeds`` are then whole
+    on every slot, each chunk taking its part."""
     named, mesh = _placed_grid(params, "params")
     dp, mp = PT.grid_axes(mesh)
     PT.check_partitionable(cfg, serving=True)
     B, S = tokens.shape
     R = mesh.extent(dp)
     seq = PT.seq_layout(B, S, R)
-    if seq is not None and (positions is not None or extra_embeds is not None):
-        PT.refuse(cfg, f"M-RoPE positions or extra_embeds at a batch of {B} over {R} batch "
-                  "slots", serving=True)
     blocks = layouts_c = None
     if cache is not None:
         placed, grid = _placed_grid(cache, "cache")
@@ -377,12 +391,12 @@ def _partitioned_last_logits(cfg: ArchConfig, params, tokens, cache=None,
         blocks = {k: x.slot_blocks() for k, x in placed}
         layouts_c = {k: x.layout for k, x in placed}
     layouts = {k: x.layout for k, x in named}
+    batch = {k: v for k, v in (("tokens", tokens), ("positions", positions),
+                               ("extra_embeds", extra_embeds)) if v is not None}
     if seq is None:
-        batch = {k: v for k, v in (("tokens", tokens), ("positions", positions),
-                                   ("extra_embeds", extra_embeds)) if v is not None}
         rows = _slot_rows(batch, mesh, dp)
     else:
-        rows = {"tokens": _slot_sequence(tokens, mesh, dp, seq)}
+        rows = _slot_sequence_batch(batch, mesh, dp, seq)
     logits, _, _ = PT.partitioned_forward(cfg, mesh, {k: x.slot_blocks() for k, x in named},
                                           layouts, rows["tokens"],
                                           positions=rows.get("positions"),
@@ -392,23 +406,24 @@ def _partitioned_last_logits(cfg: ArchConfig, params, tokens, cache=None,
     return PT.gather_last(logits, mesh, PT.vocab_axis(cfg, mesh, layouts), seq)
 
 
-def _slot_sequence(tokens, mesh: M.Mesh, dp, seq: str) -> list:
+def _slot_sequence(tokens, mesh: M.Mesh, dp, seq: str, long: bool = True) -> list:
     """Each slot's tokens of a batch the batch axis does not divide: its
     chunk of the sequence (``seq`` ``"chunks"``, chunk ``r`` on the slots
     of index ``r``) or all of it (``"whole"``), on the slot's device.
     Tokens placed so by ``batch_shardings`` give their blocks; any others
-    are split here.  Token ids as int64."""
+    are split here.  Token ids as int64 (``long``; a mask as it is)."""
     R, devices = mesh.extent(dp), list(mesh.devices.flat)
     want = ((), (dp,)) if seq == "chunks" else ((), ())
+    cast = (lambda t: t.long()) if long else (lambda t: t)
     if (isinstance(tokens, Placed) and tokens.layout.spec == want
             and tokens.layout.mesh.axis_names == mesh.axis_names
             and list(tokens.layout.mesh.devices.flat) == devices):
-        return [p.long() for p in tokens.slot_blocks()]
+        return [cast(p) for p in tokens.slot_blocks()]
     whole = tokens.whole() if isinstance(tokens, Placed) else torch.as_tensor(tokens)
     if seq == "whole":
-        return [whole.to(dev).long() for dev in devices]
+        return [cast(whole.to(dev)) for dev in devices]
     c = whole.shape[1] // R
-    return [whole[:, mesh.coord(s, dp) * c:(mesh.coord(s, dp) + 1) * c].to(devices[s]).long()
+    return [cast(whole[:, mesh.coord(s, dp) * c:(mesh.coord(s, dp) + 1) * c].to(devices[s]))
             for s in range(len(devices))]
 
 
@@ -462,17 +477,94 @@ def _microbatch_rows(rows: Dict[str, list], mesh: M.Mesh, dp, i: int, n: int
     return out
 
 
+def _pairs(part: Dict[str, list], mesh: M.Mesh, dp, seq: Optional[str]) -> float:
+    """The count of scored pairs of a (micro)batch whose slots hold
+    ``part``, over every slot of the batch axis: the mask's weights on the
+    targets (``_scored_count`` all-reduced over ``dp``, clamped at 1), else
+    each replica's B_r (S - 1), or the sequence's B (R c - 1) where it is
+    split into chunks of c.  Where every slot holds the whole sequence
+    (``seq`` ``"whole"``) it counts R times: each slot's share is 1 / R."""
+    R = mesh.extent(dp)
+    if "mask" in part:
+        counts = M.axis_all_reduce([_scored_count(m, mesh.coord(s, dp), seq)
+                                    for s, m in enumerate(part["mask"])], mesh, dp)
+        return max(float(counts[0]), 1.0)
+    B, S = part["tokens"][0].shape
+    return float(B * (R * S - 1)) if seq == "chunks" else float(R * B * (S - 1))
+
+
+def _scored_count(mask: torch.Tensor, r: int, seq: Optional[str]) -> torch.Tensor:
+    """A slot's count of scored pairs (Σ of the mask's weights on the
+    targets): ``mask[:, 1:]`` of its rows or its whole sequence, or of its
+    chunk ``r`` the whole chunk's less, on chunk 0, the first position
+    (every other chunk's first position is the previous chunk's target)."""
+    if seq != "chunks":
+        return mask[:, 1:].float().sum()
+    m = mask.float()
+    return m.sum() - m[:, 0].sum() if r == 0 else m.sum()
+
+
+def _slot_sequence_batch(batch, mesh: M.Mesh, dp, seq: str) -> Dict[str, list]:
+    """Each slot's part of a batch the batch axis does not divide, as
+    ``batch_shardings`` places it: ``tokens`` and ``mask`` [B, S] split
+    into chunks of the sequence (``seq`` ``"chunks"``) or whole on every
+    slot (``"whole"``, ``_slot_sequence``), M-RoPE ``positions`` and
+    ``extra_embeds`` whole on every slot (each chunk takes its part)."""
+    out = {}
+    devices = list(mesh.devices.flat)
+    for key, v in batch.items():
+        if key in ("tokens", "mask"):
+            out[key] = _slot_sequence(v, mesh, dp, seq, long=key == "tokens")
+        elif isinstance(v, Placed) and not any(v.layout.spec) and (
+                list(v.layout.mesh.devices.flat) == devices):
+            out[key] = v.slot_blocks()
+        else:
+            whole = v.whole() if isinstance(v, Placed) else torch.as_tensor(v)
+            out[key] = [whole.to(dev) for dev in devices]
+    return out
+
+
 def make_eval_step(cfg: ArchConfig) -> Callable:
     """``(params, batch) -> loss``: ``lm_loss`` of the batch (plus the aux
-    loss at weight 0), computed on the kernels without gradients."""
+    loss at weight 0), computed on the kernels without gradients.  Placed
+    params (a grid of several slots) take ``_partitioned_eval``, at any
+    batch size."""
 
     @torch.no_grad()
     def eval_step(params, batch):
+        if is_placed(params):
+            return _partitioned_eval(cfg, params, batch)
         total, _, _ = _lm_loss_fn(cfg, params, _on_device(batch, tree_device(params)), 0.0,
                                differentiable=False)
         return total
 
     return eval_step
+
+
+def _partitioned_eval(cfg: ArchConfig, params, batch) -> torch.Tensor:
+    """The eval step on placed params: the batch split as the train step
+    splits it (by rows, or by its sequence where the batch axis does not
+    divide it), ``models.partitioned.partitioned_forward`` on the kernels,
+    each slot's share of the loss by ``lm_loss_vocab_parallel`` over the
+    whole batch's count of scored pairs, summed over the batch axis (one
+    all-reduce): the loss on slot 0's device."""
+    named, mesh = _placed_grid(params, "params")
+    PT.check_partitionable(cfg, list(batch), serving=True)
+    dp, _ = PT.grid_axes(mesh)
+    seq = PT.seq_layout(*batch["tokens"].shape, mesh.extent(dp))
+    rows = (_slot_rows(batch, mesh, dp) if seq is None
+            else _slot_sequence_batch(batch, mesh, dp, seq))
+    layouts = {k: x.layout for k, x in named}
+    logits, _, _ = PT.partitioned_forward(cfg, mesh, {k: x.slot_blocks() for k, x in named},
+                                          layouts, rows["tokens"],
+                                          positions=rows.get("positions"),
+                                          extra_embeds=rows.get("extra_embeds"),
+                                          differentiable=False, seq=seq)
+    losses = lm_loss_vocab_parallel(logits, rows["tokens"], mesh,
+                                    PT.vocab_axis(cfg, mesh, layouts), rows.get("mask"),
+                                    _pairs(rows, mesh, dp, seq),
+                                    seq_axis=dp if seq == "chunks" else None)
+    return M.axis_all_reduce(losses, mesh, dp)[0]
 
 
 def make_prefill_step(cfg: ArchConfig) -> Callable:

@@ -512,35 +512,44 @@ def test_prefill_step_matches_the_reference_jit(ref, case):
 # -- what stays refused -------------------------------------------------------------------
 
 
-def test_train_step_refuses_an_undivided_batch():
-    """The partitioned train step at a batch the replica axis does not
-    divide raises, naming the sequence-over-data train step as not yet
-    ported."""
-    cfg = dataclasses.replace(reduce_config(get_config("gemma3-1b")), num_layers=2)
-    mesh = tmesh.make_mesh((2, 2), ("replica", "model"), device="cpu")
-    params = TT.init_lm(cfg, torch.Generator().manual_seed(0), device="cpu")
-    placed = tsh.device_put(params, tsh.params_shardings(mesh, params, cfg,
-                                                         data_axis="replica"))
-    opt = make_optimizer("sgd", constant_lr(0.1))
-    step = make_train_step(cfg, opt)
-    toks = np.random.default_rng(0).integers(3, cfg.vocab_size, (3, 8))
-    with pytest.raises(NotImplementedError, match="batch of 3 over 2 batch slots.*sequence "
-                       "split over the batch axis is not yet ported"):
-        step(make_train_state(placed, opt), {"tokens": toks})
-
-
-def test_vision_inputs_at_an_undivided_batch_are_refused():
-    """M-RoPE ``positions`` and ``extra_embeds`` at a batch the data axis
-    does not divide stay refused (ROADMAP.md A6c.2)."""
-    cfg = dataclasses.replace(reduce_config(get_config("qwen2-vl-72b")), num_layers=2)
+def _whisper():
+    """(reduced whisper's config, a (data 2, model 2) grid, its params,
+    their shardings there)."""
+    from repro_torch.models.whisper import init_whisper
+    cfg = reduce_config(get_config("whisper-tiny"))
     mesh = tmesh.make_mesh((2, 2), ("data", "model"), device="cpu")
-    params = TT.init_lm(cfg, torch.Generator().manual_seed(0), device="cpu")
-    placed = tsh.device_put(params, tsh.params_shardings(mesh, params, cfg))
+    params = init_whisper(cfg, torch.Generator().manual_seed(0), device="cpu")
+    return cfg, mesh, params, tsh.params_shardings(mesh, params, cfg)
+
+
+def test_whisper_train_step_at_an_undivided_batch_is_refused():
+    """The train step takes any batch of a decoder (the sequence over the
+    batch axis at B = 1, ``tests/test_torch_context_parallel_train.py``);
+    the encoder-decoder stays refused there, naming the part (ROADMAP.md
+    A6c.1)."""
+    cfg, mesh, params, psh = _whisper()
+    opt = make_optimizer("sgd", constant_lr(0.1))
+    state = make_train_state(params, opt)
+    state = tsh.device_put(state, {"params": psh,
+                                   "opt": tsh.opt_state_shardings(mesh, state["opt"], psh)})
+    batch = {"tokens": np.random.default_rng(0).integers(3, cfg.vocab_size, (1, 8)),
+             "frames": np.zeros((1, 8, cfg.d_model), np.float32)}
+    with pytest.raises(NotImplementedError, match=r"encoder-decoder \(whisper\)"):
+        make_train_step(cfg, opt)(state, batch)
+
+
+def test_whisper_serving_at_an_undivided_batch_is_refused():
+    """Serving one request of the encoder-decoder on placed params stays
+    refused, naming the part: the prefill step with its ``frames`` and the
+    serve step on its tokens alone."""
+    cfg, mesh, params, psh = _whisper()
+    placed = tsh.device_put(params, psh)
     toks = np.random.default_rng(0).integers(3, cfg.vocab_size, (1, 8))
-    pos = np.broadcast_to(np.arange(8), (3, 1, 8)).copy()
-    with pytest.raises(NotImplementedError, match="M-RoPE positions or extra_embeds at a "
-                       "batch of 1 over 2 batch slots"):
-        make_prefill_step(cfg)(placed, {"tokens": toks, "positions": pos})
+    with pytest.raises(NotImplementedError, match=r"serving steps .*encoder-decoder"):
+        make_prefill_step(cfg)(placed, {"tokens": toks,
+                                        "frames": np.zeros((1, 8, cfg.d_model), np.float32)})
+    with pytest.raises(NotImplementedError, match=r"serving steps .*encoder-decoder"):
+        make_serve_step(cfg)(placed, None, toks, 0)
 
 
 # -- phase 22's configurations at full width ----------------------------------------------

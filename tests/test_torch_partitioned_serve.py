@@ -370,14 +370,14 @@ def _placed_any(params, cfg, mesh):
 
 @pytest.mark.parametrize("arch, part, entry", [
     ("whisper-tiny", "encoder-decoder (whisper)", "generate"),
-    ("qwen2-vl-72b", "M-RoPE positions or extra_embeds at a batch of 3 over 2 batch slots",
-     "prefill"),
+    ("gemma3-1b", "step of 4 positions at cache_index 4 at a batch the batch axis does not "
+     "divide (a chunked prefill)", "serve_at"),
     ("whisper-tiny", "encoder-decoder (whisper)", "prefill"),
     ("gemma3-1b", "batch input 'frames'", "prefill"),
     ("whisper-tiny", "encoder-decoder (whisper)", "serve"),
     ("roberta-base", "encoder (RoBERTa)", "prefill"),
-    ("qwen2-vl-72b", "M-RoPE positions or extra_embeds at a batch of 3 over 2 batch slots",
-     "prefill_embeds"),
+    ("qwen2-vl-72b", "step of 3 positions at cache_index 4 at a batch the batch axis does not "
+     "divide (a chunked prefill)", "serve_at"),
 ])
 def test_partitioned_serving_refusals(arch, part, entry):
     """What the partitioned serving steps do not run raises
@@ -386,7 +386,11 @@ def test_partitioned_serving_refusals(arch, part, entry):
     ``test_other_archs_are_refused`` reads the same rule); jamba's Mamba
     mixer serves partitioned since ``tests/test_torch_partitioned_ssm.py``,
     and a batch the data axis does not divide since
-    ``tests/test_torch_context_parallel.py`` (but not with vision inputs)."""
+    ``tests/test_torch_context_parallel.py`` (with vision inputs since
+    ``tests/test_torch_context_parallel_train.py``), but not a prompt
+    after the first at such a batch: its chunks (gemma3-1b) or a
+    multi-position step every slot holds whole (qwen2-vl) against a cache
+    whose sequence is split over data."""
     mesh = tmesh.make_mesh((2, 2), ("data", "model"), device="cpu")
     gen = torch.Generator().manual_seed(0)
     if arch == "roberta-base":
@@ -399,7 +403,7 @@ def test_partitioned_serving_refusals(arch, part, entry):
             params = _placed_any(init_whisper(cfg, gen, device="cpu"), cfg, mesh)
         else:
             params = _placed_any(TT.init_lm(cfg, gen, device="cpu"), cfg, mesh)
-    rows = 3 if "batch of 3" in part else 4
+    rows = 3 if entry == "serve_at" else 4
     toks = np.random.default_rng(0).integers(3, cfg.vocab_size, (rows, 5))
     match = (f"partitioned serving steps does not run {cfg.name}'s "
              + part.replace("(", r"\(").replace(")", r"\)"))
@@ -418,10 +422,9 @@ def test_partitioned_serving_refusals(arch, part, entry):
             batch = {"tokens": toks}
             if "frames" in part:
                 batch["frames"] = np.zeros((rows, 8, cfg.d_model), np.float32)
-            if entry == "prefill_embeds":
-                batch["extra_embeds"] = np.zeros((rows, 2, cfg.d_model), np.float32)
-            elif "M-RoPE" in part:
-                batch["positions"] = np.broadcast_to(np.arange(5), (3, rows, 5)).copy()
             make_prefill_step(cfg)(params, batch)
+        elif entry == "serve_at":
+            _, cache = Engine(cfg, params, max_len=16)._start(params, toks)
+            make_serve_step(cfg)(params, cache, toks[:, :int(part.split()[2])], 4)
         else:
             make_serve_step(cfg)(params, None, toks[:, :1], 0)
