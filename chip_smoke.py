@@ -215,7 +215,8 @@ Phases (any failed check raises, so the script exits non-zero):
    ``decode`` 168); the same for reduced mixtral-8x7b (46.7 B parameters,
    93 GB in bf16, exceed the card); then mistral-nemo-12b, stablelm-12b (hd
    160) and granite-20b (48 query heads on one kv head, so its decode steps
-   take ``prefill_tc``) at full width in bf16, 4 x 256 -> 16, through phase
+   take ``prefill_tc``) at full width in bf16 cut to their first
+   ``DENSE_LAYERS`` layers (``--num-layers``), 4 x 256 -> 16, through phase
    9's sequence with exact launches, peak memory printed per model.  The arch
    table (parameters, head_dim, GiB, routes, times, peak) is printed as a
    JSON line.
@@ -353,11 +354,11 @@ Phases (any failed check raises, so the script exits non-zero):
    2 query heads on its one kv head of 256, B = 2, bf16 prefill, decode
    and the ring decode; rwkv6-7b's 32 heads, f32, both routes).  Then each
    of ``PSERVE_MODELS`` at full width in bf16 from seed 0, one at a time
-   with memory freed between them: rwkv6-7b 4 x 256 -> 16,
-   mistral-nemo-12b (all 40 layers, ``fsdp=True`` as configured) 4 x 256
-   -> 16, gemma3-1b 4 x 1024 -> 32 (cache 1280: the hd-split cache, the
-   window masks) and gemma3-1b with the ring cache 4 x 500 -> 16 (its
-   512-slot rings wrap after decode step 12).  Whole first: the Engine's
+   with memory freed between them: rwkv6-7b (8 of its 32 layers) 4 x 256
+   -> 16, mistral-nemo-12b (10 of its 40 layers, ``fsdp=True`` as
+   configured) 4 x 256 -> 16, gemma3-1b 4 x 1024 -> 16 (cache 1280: the
+   hd-split cache, the window masks) and gemma3-1b with the ring cache 4 x
+   500 -> 16 (its 512-slot rings wrap after decode step 12).  Whole first: the Engine's
    tokens, the logits teacher-forced on them (timed: the whole model's
    prefill and decode ms) and the same with the kernels' outputs nudged by
    ``TP_NUDGE`` (the yardstick); then the same params placed by ``params_shardings`` on
@@ -382,13 +383,14 @@ Phases (any failed check raises, so the script exits non-zero):
    of 64, mixtral's 16 on 4 of 128 with its 4096 window, qwen2-vl's 32 on 4
    of 128; B = 2, bf16 prefill and decode).  Then each of ``PMOE_SERVE``
    at full width in bf16 from seed 0, one at a time with memory freed
-   between them: granite-moe-1b-a400m (24 layers, 16 experts a slot) 4 x
-   1024 -> 32, mixtral-8x7b cut to 4 of its 32 layers (4 experts a slot,
+   between them: granite-moe-1b-a400m cut to 8 of its 24 layers (16
+   experts a slot) 4 x 1024 -> 32, mixtral-8x7b cut to 4 of its 32 layers
+   (4 experts a slot,
    ``fsdp=True`` as configured) 4 x 256 -> 16, qwen2-vl-72b cut to 8 of 80
    layers, phase 14's vision prefill of 4 x (256 patches + 256 text) into
-   a placed cache and 16 serve steps.  The whole model's side is phase 13's
-   (granite-moe) and phase 14's (qwen2-vl) run of the same tree and prompts
-   where those phases ran (``WHOLE_RUNS``), else run here: its tokens, its
+   a placed cache and 16 serve steps.  The whole model's side is phase
+   14's (qwen2-vl) run of the same tree and prompts where that phase ran
+   (``WHOLE_RUNS``), else run here: its tokens, its
    logits teacher-forced on them with its MoE routing recorded, its times;
    the yardstick is the same run with the kernels nudged by ``TP_NUDGE``
    and the routing replayed.  Then the params placed on
@@ -441,8 +443,9 @@ Phases (any failed check raises, so the script exits non-zero):
    and SDPA over the whole cache (``[time] flash_attention
    decode_partial`` / ``decode_merge`` lines).  Then ``CP_MODELS`` whole
    and context-parallel: gemma3-1b 1 x 32,752 -> 16 (26 layers, linear
-   caches of 32,768), rwkv6-7b 1 x 4,096 -> 16 (FSDP), granite-moe 1 x
-   2,048 -> 16: the prompt split into two chunks over ``data``, the
+   caches of 32,768), rwkv6-7b (8 of 32 layers) 1 x 4,096 -> 16 (FSDP),
+   granite-moe (8 of 24 layers) 1 x 2,048 -> 16: the prompt split into
+   two chunks over ``data``, the
    caches' sequence over ``data``; launches exact by route
    (``cp_routes``), collectives a prefill and a decode step the formula's
    (``serve_collectives(step=)``), bytes a slot = ``dryrun.slot_bytes``,
@@ -453,10 +456,10 @@ Phases (any failed check raises, so the script exits non-zero):
    ``phase_context_parallel_train``): one training sequence (B = 1) on
    ``(data 2, model 2)``, f32 SGD, each step whole first (its gradients and
    updated params kept on the host, its memory freed), then partitioned:
-   ``CPT_TRAIN``'s gemma3-1b 1 x 4,096 (26 layers, the sequence in two
+   ``CPT_TRAIN``'s gemma3-1b 1 x 2,048 (26 layers, the sequence in two
    chunks over ``data``) and 1 x 4,095 (6 layers, every slot the whole
-   sequence), granite-moe 1 x 2,048 (the MoE's queue and aux over chunks),
-   rwkv6-7b (2 layers, FSDP) and jamba (layer 0, FSDP) 1 x 1,024 (the
+   sequence), granite-moe 1 x 1,024 (the MoE's queue and aux over chunks),
+   rwkv6-7b (2 layers, FSDP) and jamba (layer 0, FSDP) 1 x 256 (the
    states chained by a differentiable send), qwen2-vl (1 layer, plain SGD)
    1 x 1,024 with 256 embedded positions and M-RoPE; gradients and params
    against the whole step's, collectives the formula's
@@ -467,13 +470,42 @@ Phases (any failed check raises, so the script exits non-zero):
    whole and context-parallel: launches exact (``cp_routes``), collectives
    the formula's, logits within 4x the yardstick.  Its record is a
    ``{"context_parallel_train": ...}`` line.
+24. **The encoder-decoder partitioned** (slice 20,
+   ``phase_partitioned_whisper``): first ``flash_attention`` against its
+   plain version at whisper-tiny's per-slot shapes on (2, 2) (B = 2 rows,
+   3 of the 6 heads of 64, bf16: the encoder's bidirectional q [2, 1500,
+   3, 64], the cross-attention of one token over the 1500 frames, the self
+   decode over the 36-slot cache), each timed beside its plain version,
+   its bound and SDPA (``[time]`` lines).  Then whisper-tiny at full width
+   and depth: one f32 AdamW step at 8 x 448 tokens with 8 x 1500 frames
+   whole, then on ``(data 2, model 2)`` and with ``fsdp=True`` on
+   ``(replica 2, model 2)``: loss, grad_norm and every gradient against the
+   whole step's, every updated parameter against the whole optimizer's
+   update of the same gradients (``PARTITIONED_RTOL`` / ``ATOL``), the
+   collectives ``partitioned_collectives``' (with the encoder-decoder's
+   terms), bytes a slot ``dryrun.slot_bytes``, a second step timed and a
+   third profiled, and the eval step on the placed params with its launches
+   exact by route.  Then bf16 serving of 4 x 1500 frames and 4-token
+   prompts -> 32 whole and on ``(data 2, model 2)`` through encode, prime
+   and the serve steps: launches exact by route (``whisper_routes`` times
+   the slots), the collectives of encode, prime and each step
+   ``whisper_collectives``', encode + prime + prompt ms and decode ms a
+   step (each profiled once), the logits teacher-forced on the whole
+   model's tokens within 4x the yardstick (``tp_agreement``), and the
+   prefill step (tokens and frames) against the whole one.  Its record is
+   a ``{"partitioned_whisper": ...}`` line.
+
+Each phase prints ``[phase] <n> <name> <seconds> s``, its wall seconds
+from start to end, before the last lines (phases 3 and 4 alternate, one
+kernel at a time: each line sums its own calls).
 
 Before each of phases 6, 7, 8, 10, 11 and 16 (and again before each of
 phase 16's serves), before each model of phases 9, 13 and 14, around
 phases 12's, 13's and 14's eval steps and generates, around each run of
 phase 15's mesh daemon, around phase 17's counted prefill and decode step
-and around each of phase 19's, 20's, 21's and 22's partitioned generates and
-phase 23's train steps and context-parallel generate, every kernel's launch
+and around each of phase 19's, 20's, 21's and 22's partitioned generates,
+phase 23's train steps and context-parallel generate and phase 24's
+partitioned greedy run, every kernel's launch
 counter is set to 0; it is read just after.  The last lines are the
 kernels' JSON record (launches from phase 7 for the three fuse kernels, with phase 10's
 as ``launches_routed``, from phase 9 for the other two, phase 11's as
@@ -483,19 +515,23 @@ as ``launches_routed``, from phase 9 for the other two, phase 11's as
 ``launches_cold_mesh_partitioned``, phase 17's serving step as
 ``launches_dryrun``, phase 19's partitioned generates summed as
 ``launches_partitioned_serve``, phase 20's as
-``launches_partitioned_moe``, phase 21's as ``launches_partitioned_ssm`` and
-phase 22's as ``launches_context_parallel`` for all five; phase 15's times
-under ``mesh``; phases 19's to 22's per-slot checks as
-``per_slot_max_abs_err``; each kernel's ``cost_formula``; phase 22's
-``[time]`` lines among ``flash_attention``'s ``routes`` and its launches by
-route as ``launches_by_route_context_parallel``, and one record each for the
+``launches_partitioned_moe``, phase 21's as ``launches_partitioned_ssm``,
+phase 22's as ``launches_context_parallel`` and phase 24's as
+``launches_partitioned_whisper`` for all five; phase 15's times under
+``mesh``; phases 19's to 24's per-slot checks as ``per_slot_max_abs_err``;
+each kernel's ``cost_formula``; phase 22's and phase 24's ``[time]`` lines
+among ``flash_attention``'s ``routes`` and their launches by route as
+``launches_by_route_context_parallel`` and
+``launches_by_route_partitioned_whisper``, and one record each for the
 two new entries, ``flash_attention.decode_partial`` and
 ``flash_attention.decode_merge``), phase 16's record as a ``{"cold_mesh": ...}``
 line, phase 17's as a ``{"dryrun": ...}`` line, phase 18's as a
 ``{"partitioned": ...}`` line (its steps launch no kernel), phase 19's as a
 ``{"partitioned_serve": ...}`` line, phase 20's as a ``{"partitioned_moe":
 ...}`` line, phase 21's as a ``{"partitioned_ssm": ...}`` line, phase
-22's as a ``{"context_parallel": ...}`` line, ``nvidia-smi``'s line and
+22's as a ``{"context_parallel": ...}`` line, phase 23's as a
+``{"context_parallel_train": ...}`` line, phase 24's as a
+``{"partitioned_whisper": ...}`` line, ``nvidia-smi``'s line and
 ``{"ok": true, "device": {...}}``.  Without a card (or without the rest of
 the repository beside it) the script exits non-zero and prints no result.
 """
@@ -571,8 +607,8 @@ from repro_torch.train import pretrain_mlm, train_multitask  # noqa: E402
 from repro_torch.optim import constant_lr, make_optimizer, warmup_cosine_lr  # noqa: E402
 from repro_torch.train.losses import lm_loss  # noqa: E402
 from repro_torch.train import step as step_mod  # noqa: E402
-from repro_torch.train.step import (make_eval_step, make_serve_step,  # noqa: E402
-                                    make_train_state, make_train_step)
+from repro_torch.train.step import (make_eval_step, make_prefill_step,  # noqa: E402
+                                    make_serve_step, make_train_state, make_train_step)
 from repro_torch.serve.cold_service import (AdmissionPolicy, ColdService,  # noqa: E402
                                             ContributorClient)
 from repro_torch.serve.probes import MultitaskEvals, ProbeSuite, RegressionGate  # noqa: E402
@@ -3705,6 +3741,7 @@ def phase_lm_train(workdir, card):
 # ---------------------------------------------------------------------------
 
 DENSE_ARCHS = ("mistral-nemo-12b", "stablelm-12b", "granite-20b")
+DENSE_LAYERS = 10   # each served at full width, cut to its first 10 layers
 
 
 def serve_routes(cfg, prompt_len, new_tokens):
@@ -3844,8 +3881,10 @@ def phase_archs(workdir, card):
         counts = train_and_serve(arch, workdir, card, extra)
         total = {k: total[k] + counts[k] for k in total}
     for arch in DENSE_ARCHS:
-        total["flash_attention"] += serve_arch(arch, get_config(arch), DENSE_PROMPT, DENSE_NEW,
-                                               DENSE_PROMPT + DENSE_NEW, card, table)
+        cfg = dataclasses.replace(get_config(arch), num_layers=DENSE_LAYERS)
+        total["flash_attention"] += serve_arch(arch, cfg, DENSE_PROMPT, DENSE_NEW,
+                                               DENSE_PROMPT + DENSE_NEW, card, table,
+                                               cli=("--num-layers", str(DENSE_LAYERS)))
     print(f"[archs] launches over the phase: {total}; {time.perf_counter() - t0:.1f} s on {card}")
     return total, table
 
@@ -3870,8 +3909,12 @@ def whisper_routes(cfg, dtype, prompt_len, new_tokens, n_frames):
 
 
 def whisper_primed(cfg, params, frames, batch, max_len):
-    """``whisper_encode`` and ``prime_cross_cache`` into a fresh cache."""
+    """``whisper_encode`` and ``prime_cross_cache`` into a fresh cache
+    (placed by ``cache_shardings`` on placed params' grid)."""
     cache = whisper_mod.init_whisper_cache(cfg, batch, max_len, device=frames.device)
+    if step_mod.is_placed(params):
+        mesh = tree_leaves(params)[0].layout.mesh
+        cache = device_put(cache, sharding_mod.cache_shardings(mesh, cache, cfg))
     return whisper_mod.prime_cross_cache(cfg, params, cache,
                                          whisper_mod.whisper_encode(cfg, params, frames))
 
@@ -3906,6 +3949,24 @@ def whisper_teacher_forced(cfg, params, frames, prompts, gen_tokens, max_len):
     gen = torch.as_tensor(gen_tokens, dtype=torch.long, device=dev)
     dec = [serve(params, cache, gen[:, t - 1:t], P + t - 1)[0] for t in range(1, gen.shape[1])]
     return pre, torch.stack(dec, 1)
+
+
+@torch.inference_mode()
+def whisper_stepped(cfg, params, frames, prompts, max_len, feed):
+    """The last-position logits [B, n, V] of the prompt through the serve
+    step at 0, then of n - 1 serve steps fed the tokens ``feed`` [B, n]
+    (teacher-forced), on whole or placed params."""
+    dev = frames.device
+    B, P = prompts.shape
+    cache = whisper_primed(cfg, params, frames, B, max_len)
+    serve = make_serve_step(cfg)
+    lg, cache = serve(params, cache, torch.as_tensor(prompts, dtype=torch.long, device=dev), 0)
+    out = [lg]
+    fed = torch.as_tensor(feed, dtype=torch.long, device=dev)
+    for t in range(1, fed.shape[1]):
+        lg, cache = serve(params, cache, fed[:, t - 1:t], P + t - 1)
+        out.append(lg)
+    return torch.stack(out, 1)
 
 
 def timed_ms(fn, runs: int = 3):
@@ -4839,8 +4900,9 @@ def phase_mesh(workdir, card):
 # slabs from seed 0 on a (C, 2, 2) contrib/replica/model mesh of the card;
 # COLD_H local steps, a fuse at each of COLD_ALPHAS, each slab its own
 # seeded token stream of TRAIN_BATCH x TRAIN_SEQ; then slab 0 of the fused
-# base, cast to bf16, served 4 x GEMMA_PROMPT -> SERVE_NEW (phase 9's shape)
+# base, cast to bf16, served 4 x GEMMA_PROMPT -> COLD_SERVE_NEW
 COLD_C, COLD_H, COLD_ALPHAS = 2, (3, 2), (1.0, 0.5)
+COLD_SERVE_NEW = 16   # the fused base's serves: 4 x GEMMA_PROMPT -> 16
 COLD_WHOLE_MESH = dict(contributors=COLD_C, replicas=1, model=1)   # (a): slabs whole
 COLD_MESH = dict(contributors=COLD_C, replicas=2, model=2)         # (b): partitioned
 PR21_STEP_MS = 189.8        # phase 12's gemma3-1b f32 step (PR 21, PERF.md)
@@ -4893,17 +4955,27 @@ def partitioned_collectives(cfg, psh, R: int, M: int, microbatches: int = 1, opt
     to chunk (R - 1 permutes forward, R - 1 back) and the loss's chunk-edge
     targets all-gathered (one), the MoE terms as at a divided batch;
     ``"whole"`` (every slot the whole sequence) drops the MoE terms (each
-    slot routes the whole batch once)."""
+    slot routes the whole batch once).
+
+    The encoder-decoder (whisper, phase 24) counts its encoder's layers and
+    each decoder layer's cross-attention as attention layers (their
+    ``wo``'s all-reduce, their input's backward all-reduce, their KV
+    weights' gathers) and its encoder's MLPs as FFNs; a cross-attention's
+    encoder states add one backward all-reduce (each slot's heads' share
+    of their gradient)."""
     hd = cfg.head_dim
     L = sum(b.mixer == "attn" for b in cfg.blocks)
     n_dense = sum(b.ffn in ("glu", "mlp") for b in cfg.blocks)
     n_moe = sum(b.ffn == "moe" for b in cfg.blocks)
+    n_cross = cfg.num_layers if cfg.is_encoder_decoder else 0
+    L += n_cross + cfg.encoder_layers
+    n_dense += cfg.encoder_layers
     ar = ag = rs = counts = 0
     if M > 1:
         vocab = cfg.vocab_size % M == 0
         attn = (cfg.num_heads * hd) % M == 0
         ffn = cfg.d_ff % M == 0
-        ar += vocab + 2 * L * attn + 2 * n_dense * ffn + vocab + 3 * vocab
+        ar += vocab + (2 * L + n_cross) * attn + 2 * n_dense * ffn + vocab + 3 * vocab
         ar += 3 * layers_split(cfg, psh, "moe/w_gate", "model")
         mamba = layers_split(cfg, psh, "mamba/in_proj", "model")
         ar += 4 * mamba + 6 * layers_split(cfg, psh, "rwkv/wr", "model")
@@ -5274,15 +5346,15 @@ def phase_cold_mesh(card):
     reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    res = eng.generate(prompts, max_new_tokens=SERVE_NEW)
+    res = eng.generate(prompts, max_new_tokens=COLD_SERVE_NEW)
     torch.cuda.synchronize()
     gen_s = time.perf_counter() - t0
     served = launches()
     by_route = dict(flash_attention.launches_by_route)
-    want_routes = {k: v // 2 for k, v in serve_routes(GEMMA, GEMMA_PROMPT, SERVE_NEW).items()}
+    want_routes = {k: v // 2 for k, v in serve_routes(GEMMA, GEMMA_PROMPT, COLD_SERVE_NEW).items()}
     check(by_route == want_routes, f"the fused base's generate launched flash_attention "
           f"{by_route} by route, expected {want_routes}")
-    check(res.tokens.shape == (4, GEMMA_PROMPT + SERVE_NEW), "fused base: generate shape")
+    check(res.tokens.shape == (4, GEMMA_PROMPT + COLD_SERVE_NEW), "fused base: generate shape")
     gen_k = res.tokens[:, GEMMA_PROMPT:]
     serve_agreement("gemma3-1b (fused base)", GEMMA,
                     lambda: teacher_forced(GEMMA, serve_params, prompts, gen_k, GEMMA_MAX_LEN),
@@ -5292,18 +5364,18 @@ def phase_cold_mesh(card):
     # the same base served partitioned on the slab's own grid (phase 19's
     # path), held against the gathered serve by phase 19's rule
     grid = placed_params["embed"].layout.mesh
-    ref = whole_reference(GEMMA, serve_params, prompts, GEMMA_MAX_LEN, SERVE_NEW, tokens=gen_k)
+    ref = whole_reference(GEMMA, serve_params, prompts, GEMMA_MAX_LEN, COLD_SERVE_NEW, tokens=gen_k)
     del serve_params
     eng = Engine(GEMMA, placed_params, max_len=GEMMA_MAX_LEN)
     reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    res = eng.generate(prompts, max_new_tokens=SERVE_NEW)
+    res = eng.generate(prompts, max_new_tokens=COLD_SERVE_NEW)
     torch.cuda.synchronize()
     part_s = time.perf_counter() - t0
     served_part = launches()
     part_routes = check_pserve_launches("the fused base partitioned", GEMMA, GEMMA_PROMPT,
-                                        SERVE_NEW, grid)[0]
+                                        COLD_SERVE_NEW, grid)[0]
     same = int((res.tokens[:, GEMMA_PROMPT:] == gen_k).sum())
     agreement = tp_agreement("gemma3-1b (fused base, partitioned on its slab's grid)",
                              stepped(GEMMA, placed_params, prompts, GEMMA_MAX_LEN, gen_k)[1], ref)
@@ -5314,7 +5386,7 @@ def phase_cold_mesh(card):
                                       "agreement": agreement},
                    seconds=time.perf_counter() - t_phase)
     print(f"[cold-mesh] the fused base (slab 0 of (b), gathered, bf16) served 4 x "
-          f"{GEMMA_PROMPT} -> {SERVE_NEW} in {gen_s:.3f} s, flash_attention by route {by_route} "
+          f"{GEMMA_PROMPT} -> {COLD_SERVE_NEW} in {gen_s:.3f} s, flash_attention by route {by_route} "
           f"(exactly as worked out); partitioned on {grid!r} in {part_s:.3f} s, by route "
           f"{part_routes} (exactly), its tokens equal the gathered serve's at "
           f"{same}/{gen_k.size}; peak {records['peak_gib_whole']:.2f} GiB over (a)'s steps "
@@ -5772,19 +5844,24 @@ def phase_partitioned(card):
 # ---------------------------------------------------------------------------
 
 # each model at full width in bf16 on a (data 2, model 2) grid of the visible
-# cards: (arch, prompt tokens, new tokens, cache length, the ring cache on);
-# gemma3-1b's ring run takes 4 x RING_PSERVE_PROMPT (a prefill fits its
-# 512-slot rings), which wrap after decode step 512 - RING_PSERVE_PROMPT;
-# rwkv6-7b generates RWKV_PSERVE_NEW tokens
+# cards: (arch, prompt tokens, new tokens, cache length, the ring cache on,
+# layers); gemma3-1b's ring run takes 4 x RING_PSERVE_PROMPT (a prefill fits
+# its 512-slot rings), which wrap after decode step 512 - RING_PSERVE_PROMPT;
+# rwkv6-7b generates RWKV_PSERVE_NEW tokens.  rwkv6-7b (8 of 32 layers) and
+# mistral-nemo-12b (10 of 40) are cut in depth, and gemma3-1b's linear run to
+# 16 new tokens, to keep the script within its time
 PSERVE_GRID = (2, 2)
 RING_PSERVE_PROMPT, RING_PSERVE_NEW = 500, 16
 RWKV_PSERVE_NEW = 16
+GEMMA_PSERVE_NEW = 16
+# (arch, prompt, new tokens, cache slots, the ring cache, layers: None for the config's)
 PSERVE_MODELS = (("rwkv6-7b", RWKV_PROMPT, RWKV_PSERVE_NEW, RWKV_PROMPT + RWKV_PSERVE_NEW,
-                  False),
-                 ("mistral-nemo-12b", DENSE_PROMPT, DENSE_NEW, DENSE_PROMPT + DENSE_NEW, False),
-                 ("gemma3-1b", GEMMA_PROMPT, SERVE_NEW, GEMMA_MAX_LEN, False),
+                  False, 8),
+                 ("mistral-nemo-12b", DENSE_PROMPT, DENSE_NEW, DENSE_PROMPT + DENSE_NEW, False,
+                  10),
+                 ("gemma3-1b", GEMMA_PROMPT, GEMMA_PSERVE_NEW, GEMMA_MAX_LEN, False, None),
                  ("gemma3-1b", RING_PSERVE_PROMPT, RING_PSERVE_NEW,
-                  RING_PSERVE_PROMPT + RING_PSERVE_NEW, True))
+                  RING_PSERVE_PROMPT + RING_PSERVE_NEW, True, None))
 # the yardstick of a partitioned run against the whole model: each slot's
 # row-parallel partial product is rounded to bf16 before the M partials are
 # summed (one more bf16 rounding of every element of the layer's output than
@@ -5826,7 +5903,14 @@ def serve_collectives(cfg, psh, R: int, M: int, *, cached: bool = True, data_axi
     handed from chunk to chunk (R - 1 ``permute``s) and, with a cache,
     broadcast from the last chunk (one), and the last logits broadcast from
     the last chunk; at a decode step each attention layer's partials
-    gathered."""
+    gathered.
+
+    The encoder-decoder takes ``whisper_collectives`` (``step`` one of its
+    forwards, by default the serve step with ``cached`` and the prefill
+    step without)."""
+    if cfg.is_encoder_decoder:
+        return whisper_collectives(cfg, psh, R, M, step or ("serve" if cached else "prefill"),
+                                   data_axis)
     n_attn = sum(b.mixer == "attn" for b in cfg.blocks)
     n_dense = sum(b.ffn in ("glu", "mlp") for b in cfg.blocks)
     n_moe = sum(b.ffn == "moe" for b in cfg.blocks)
@@ -5867,6 +5951,52 @@ def serve_collectives(cfg, psh, R: int, M: int, *, cached: bool = True, data_axi
     kinds.update({k: n for k, n in (("permute", perm), ("broadcast", bcast)) if n})
     return kinds, {a: n for a, n in (("model", ar + ag_m), (data_axis, ag_d + perm + bcast))
                    if n}
+
+
+WHISPER_FORWARDS = ("encode", "prime", "prefill", "serve")
+
+
+def whisper_collectives(cfg, psh, R: int, M: int, what: str, data_axis="data"):
+    """The collectives of one of the encoder-decoder's partitioned forwards
+    on a (data R, model M) grid, the formula PERF.md §5 states, as
+    ``({kind: count}, {axis: count})``: ``"encode"`` (``whisper_encode``),
+    ``"prime"`` (``prime_cross_cache``), ``"prefill"``
+    (``make_prefill_step``: the encoder, then the decoder's cross-attention
+    over its states) or ``"serve"`` (``make_serve_step`` against the primed
+    cache: a prompt or a token).  Over ``model``: the embedding's all-reduce
+    and the last logits' all-gather where the vocabulary splits (the
+    decoder's forwards); an all-reduce for each attention's ``wo`` (an
+    encoder layer's one, a decoder layer's two) and each MLP; ``wk``/``wv``
+    all-gathered where the KV heads do not split but their spec does, for
+    each attention that projects them (not a serve step's cross-attention,
+    which reads the primed cache); in a serve step, where the caches' spec
+    splits ``head_dim``, each layer's self and cross k and v all-gathered.
+    Over the batch axis: each use of a leaf FSDP splits (the leaves that
+    forward uses), and the decoder's last logits."""
+    if what not in WHISPER_FORWARDS:
+        raise ValueError(f"whisper_collectives: {what!r} is none of {WHISPER_FORWARDS}")
+    Le, Ld = cfg.encoder_layers, cfg.num_layers
+    hd, Hkv = cfg.head_dim, cfg.num_kv_heads
+    enc, dec = what in ("encode", "prefill"), what in ("prefill", "serve")
+    ar = ag_m = ag_d = 0
+    if M > 1:
+        vocab = dec and cfg.vocab_size % M == 0
+        attn = (cfg.num_heads * hd) % M == 0
+        kv_gathered = attn and Hkv % M and (Hkv * hd) % M == 0
+        ar += vocab + (Le * enc + 2 * Ld * dec) * attn + (Le * enc + Ld * dec) * (cfg.d_ff % M == 0)
+        projecting = Le * enc + Ld * ((what == "prefill") + dec + (what == "prime"))
+        ag_m += vocab + 2 * projecting * kv_gathered
+        if what == "serve" and Hkv % M and hd % M == 0:
+            ag_m += 4 * Ld
+    if R > 1:
+        cross_kv = re.compile(r"^dec/layers/layer\d+/xattn/w[kv]$")
+        used = {"encode": lambda n: n.startswith("enc/"), "prime": cross_kv.match,
+                "prefill": lambda n: True,
+                "serve": lambda n: n.startswith("dec/") and not cross_kv.match(n)}[what]
+        ag_d += sum(1 for name, sh in tree_leaves_with_path(psh)
+                    if data_axis in sh.spec and used(name)) + dec
+    kinds = {"all_reduce": ar, "all_gather": ag_m + ag_d, "reduce_scatter": 0}
+    return kinds, {a: n for a, n in (("model", ar + ag_m), (data_axis, ag_d)) if n}
 
 
 def pserve_routes(cfg, prompt_len, new_tokens, n_slots: int, M: int):
@@ -6054,11 +6184,14 @@ def check_placement(cfg, placed, psh, cache, mesh, max_len, batch=4):
     return want, stored
 
 
-def pserve_model(arch, prompt_len, new_tokens, max_len, ring, card):
+def pserve_model(arch, prompt_len, new_tokens, max_len, ring, layers, card):
     """One model whole, then partitioned on PSERVE_GRID (the phase 19
-    docstring): the record of the comparison, times and counts."""
+    docstring), cut to its first ``layers`` where given: the record of the
+    comparison, times and counts."""
     t_model = time.perf_counter()
     cfg = get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
     name = arch + (" (ring cache)" if ring else "")
     saved_ring = tt_mod.RING_CACHE
     tt_mod.RING_CACHE = ring
@@ -6243,8 +6376,8 @@ def phase_partitioned_serve(card, gen):
     worst = phase_pserve_kernel_checks(gen)
     total = dict.fromkeys(launches(), 0)
     models = []
-    for arch, prompt_len, new_tokens, max_len, ring in PSERVE_MODELS:
-        counts, rec = pserve_model(arch, prompt_len, new_tokens, max_len, ring, card)
+    for arch, prompt_len, new_tokens, max_len, ring, layers in PSERVE_MODELS:
+        counts, rec = pserve_model(arch, prompt_len, new_tokens, max_len, ring, layers, card)
         total = {k: total[k] + counts[k] for k in total}
         models.append(rec)
         torch.cuda.empty_cache()
@@ -6259,8 +6392,8 @@ def phase_partitioned_serve(card, gen):
 # ---------------------------------------------------------------------------
 
 # each model whole, then on a (data 2, model 2) grid of the visible cards, bf16
-# at full width with seed-0 weights: granite-moe-1b-a400m (24 layers, 16
-# experts a slot) served 4 x 1024 -> 32 as in phase 13; mixtral-8x7b cut to 4
+# at full width with seed-0 weights: granite-moe-1b-a400m cut to 8 of its 24
+# layers (16 experts a slot) served 4 x 1024 -> 32; mixtral-8x7b cut to 4
 # of its 32 layers (E = 8, 4 a slot; FSDP as configured) served 4 x 256 -> 16;
 # qwen2-vl-72b cut to 8 of 80 layers, phase 14's vision prefill 4 x (256
 # patches + 256 text) into a placed cache and QWEN_STEPS serve steps.  Then one
@@ -6269,7 +6402,8 @@ def phase_partitioned_serve(card, gen):
 # placed copy) with SGD at 4 x 64; gradients held at PARTITIONED_RTOL/ATOL.
 PMOE_GRID = (2, 2)
 MIXTRAL = get_config("mixtral-8x7b")
-PMOE_SERVE = (("granite-moe-1b-a400m", GRANITE_MOE, GEMMA_PROMPT, SERVE_NEW, MOE_MAX_LEN),
+PMOE_SERVE = (("granite-moe-1b-a400m", dataclasses.replace(GRANITE_MOE, num_layers=8),
+               GEMMA_PROMPT, SERVE_NEW, MOE_MAX_LEN),
               ("mixtral-8x7b", dataclasses.replace(MIXTRAL, num_layers=4), DENSE_PROMPT,
                DENSE_NEW, DENSE_PROMPT + DENSE_NEW),
               ("qwen2-vl-72b", QWEN, QWEN_LEN, QWEN_STEPS + 1, QWEN_LEN + QWEN_STEPS + 1))
@@ -6281,8 +6415,10 @@ PMOE_TRAIN = (("granite-moe-1b-a400m", GRANITE_MOE, "adamw", 3e-4, 4, 128,
                ("final_norm/scale", "scan/pos0/attn/wk", "scan/pos0/moe/router",
                 "scan/pos0/moe/w_down")))
 # the whole runs phases 13 and 14 leave for phase 20 (the same trees and
-# prompts): their tokens, teacher-forced logits, routing and times
-PMOE_REUSED = ("granite-moe-1b-a400m",)
+# prompts): their tokens, teacher-forced logits, routing and times.  None
+# since granite-moe runs here at 8 of its 24 layers (to keep the script
+# within its time): phase 20 runs its whole side itself
+PMOE_REUSED = ()
 WHOLE_RUNS = {}
 PMOE_DECODE_PROFILED = 1  # decode steps profiled (the profiler's work grows with them)
 
@@ -6786,13 +6922,15 @@ def phase_partitioned_ssm(card, gen):
 # seed-0 weights, each model whole first: gemma3-1b (26 layers, linear caches,
 # the ring cache off) 32,752 -> 16 in a 32,768-slot cache (prefill_32k's
 # sequence: both data slots' blocks hold live keys and the decode writes into
-# slot 1's); rwkv6-7b (32 layers, FSDP) 4,096 -> 16 (rwkv6_scan chained over
-# two chunks of 2,048); granite-moe-1b-a400m (24 layers) 2,048 -> 16 (the MoE's
-# global order over chunks, the replicated decode row).
+# slot 1's); rwkv6-7b (8 of its 32 layers, FSDP) 4,096 -> 16 (rwkv6_scan
+# chained over two chunks of 2,048); granite-moe-1b-a400m (8 of its 24 layers)
+# 2,048 -> 16 (the MoE's global order over chunks, the replicated decode row).
+# The two are cut in depth to keep the script within its time.
 CP_GRID = (2, 2)
 CP_NEW = 16
-CP_MODELS = (("gemma3-1b", 32_752, 32_768), ("rwkv6-7b", 4_096, 4_112),
-             (MOE_ARCH, 2_048, 2_064))
+# (arch, prompt, cache slots, layers: None for the config's)
+CP_MODELS = (("gemma3-1b", 32_752, 32_768, None), ("rwkv6-7b", 4_096, 4_112, 8),
+             (MOE_ARCH, 2_048, 2_064, 8))
 CP_DECODE_PROFILED = 1
 
 
@@ -6957,11 +7095,14 @@ def cp_timing(inputs, card):
     return lines
 
 
-def cp_model(arch, prompt_len, max_len, card):
-    """One model whole, then at B = 1 on CP_GRID (the phase 22 comment): the
-    record of the comparison, times and counts."""
+def cp_model(arch, prompt_len, max_len, layers, card):
+    """One model whole, then at B = 1 on CP_GRID (the phase 22 comment), cut
+    to its first ``layers`` where given: the record of the comparison,
+    times and counts."""
     t_model = time.perf_counter()
     cfg = get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
     saved_ring = tt_mod.RING_CACHE
     tt_mod.RING_CACHE = False
     try:
@@ -7095,8 +7236,8 @@ def phase_context_parallel(card, gen):
     total = dict.fromkeys(launches(), 0)
     routes = dict.fromkeys(fa_mod.COUNTED, 0)
     models = []
-    for arch, prompt_len, max_len in CP_MODELS:
-        counts, rec = cp_model(arch, prompt_len, max_len, card)
+    for arch, prompt_len, max_len, layers in CP_MODELS:
+        counts, rec = cp_model(arch, prompt_len, max_len, layers, card)
         total = {k: total[k] + counts[k] for k in total}
         routes = {k: routes[k] + rec["flash_routes"][k] for k in routes}
         models.append(rec)
@@ -7117,22 +7258,25 @@ def phase_context_parallel(card, gen):
 # ("chunks"), or, at a length 2 does not divide, whole on every slot
 # ("whole").  f32 with seed-0 weights, each step held against the whole
 # step of the same batch, run first and freed.  (arch, config, momentum,
-# sequence, vision prefix, gradients and params held).
+# sequence, vision prefix, gradients and params held).  The sequences were
+# halved (gemma3-1b, granite-moe) or quartered (rwkv6-7b and jamba, whose
+# recurrences are Python loops over it) to keep the script within its time;
+# the two chunks, their edge and every collective term stay.
 CPT_GRID = (2, 2)
 CPT_LR = PARTITIONED_SGD_LR
 CPT_WHOLE_LAYERS = 6        # gemma3-1b at 4,095 (every slot the whole sequence): one period
 CPT_TRAIN = (
-    ("gemma3-1b", GEMMA, 0.9, 4_096, 0,
+    ("gemma3-1b", GEMMA, 0.9, 2_048, 0,
      ("embed", "final_norm/scale", "scan/pos0/attn/wq", "scan/pos0/attn/wk",
       "scan/pos5/attn/wo", "tail/layer25/glu/w_down")),
     ("gemma3-1b", dataclasses.replace(GEMMA, num_layers=CPT_WHOLE_LAYERS), 0.9, 4_095, 0,
      ("embed", "scan/pos0/attn/wk", "scan/pos5/attn/wv", "scan/pos5/glu/w_up")),
-    (MOE_ARCH, GRANITE_MOE, 0.9, 2_048, 0,
+    (MOE_ARCH, GRANITE_MOE, 0.9, 1_024, 0,
      ("embed", "scan/pos0/moe/router", "scan/pos0/moe/w_gate", "scan/pos0/attn/wv")),
-    ("rwkv6-7b", dataclasses.replace(RWKV, num_layers=2), 0.9, 1_024, 0,
+    ("rwkv6-7b", dataclasses.replace(RWKV, num_layers=2), 0.9, 256, 0,
      ("final_norm/scale", "scan/pos0/rwkv/wr", "scan/pos0/rwkv/u", "scan/pos0/rwkv/lora_w/a",
       "scan/pos0/rwkv_cm/wk")),
-    (JAMBA_ARCH, dataclasses.replace(get_config(JAMBA_ARCH), num_layers=1), 0.9, 1_024, 0,
+    (JAMBA_ARCH, dataclasses.replace(get_config(JAMBA_ARCH), num_layers=1), 0.9, 256, 0,
      ("tail/layer0/mamba/in_proj", "tail/layer0/mamba/conv_w", "tail/layer0/mamba/x_proj",
       "tail/layer0/mamba/A_log", "tail/layer0/mamba/out_proj")),
     ("qwen2-vl-72b", dataclasses.replace(get_config("qwen2-vl-72b"), num_layers=1), 0.0, 1_024,
@@ -7478,92 +7622,494 @@ def phase_context_parallel_train(card, gen):
                     "seconds": seconds}
 
 
+# ---------------------------------------------------------------------------
+# slice 20: the encoder-decoder partitioned (phase 24)
+# ---------------------------------------------------------------------------
+
+# whisper-tiny at full width and depth (4 + 4 layers, d 384, 6 heads of 64,
+# 1500 frames, vocab 51,865; 3 heads a model slot): one f32 AdamW step (its
+# configured optimizer) at 8 x 448 tokens with 8 x 1500 frames whole, then
+# on (data 2, model 2) and with fsdp=True on (replica 2, model 2); then bf16
+# serving of 4 x 1500 frames and phase 14's 4-token prompts -> 32 tokens
+# whole and on (data 2, model 2), through encode, prime and the serve steps.
+PWHISPER_GRID = (2, 2)
+PWHISPER_TRAIN = (8, 448)
+PWHISPER_LR = 3e-4
+PWHISPER_SELF_LEN = WHISPER_PROMPT + WHISPER_NEW   # the self cache's slots
+
+
+def pwhisper_slot_checks(gen, card):
+    """flash_attention at phase 24's per-slot shapes (B = 2 rows a data
+    slot, 3 of the 6 heads of 64 a model slot, bf16) against its plain
+    version, each call through the route it must take, then timed beside
+    the plain version, its bound and ``scaled_dot_product_attention`` (no
+    mask: every key is visible in all three): the encoder's bidirectional
+    self-attention, q [2, 1500, 3, 64]; the cross-attention of one token
+    over the 1500 frames; the self-attention decode over the 36-slot cache
+    at its last position.  Returns (the largest error, the [time] lines)."""
+    B, H = WHISPER_BATCH // PWHISPER_GRID[0], WHISPER.num_heads // PWHISPER_GRID[1]
+    hd, N, L = WHISPER.head_dim, WHISPER.encoder_seq, PWHISPER_SELF_LEN
+    q, k, v = qkv_on_card(B, N, N, H, H, hd, torch.bfloat16, gen)
+    qs, ks, vs = qkv_on_card(B, 1, L, H, H, hd, torch.bfloat16, gen)
+    cases = (("prefill_tc", "encoder self-attention, bidirectional", (q, k, v), {"causal": False}),
+             ("decode", f"cross-attention of 1 token over the {N} frames",
+              (q[:, :1].contiguous(), k, v), {"causal": False}),
+             ("decode", f"self-attention decode over the {L}-slot cache at position {L - 1}",
+              (qs, ks, vs), {"q_offset": L - 1}))
+    errs, lines = [], []
+    for route, what, args, kw in cases:
+        errs.append(bf16_close(flash_routed(route, *args, **kw), flash_attention_plain(*args, **kw),
+                               f"flash per slot whisper {what}"))
+        flops, nbytes = fa_mod.cost(*args, **kw)
+        bound, bound_by = bound_of(nbytes, flops, peak_flops(args[0].dtype))
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in args)
+
+        def kernel(args=args, kw=kw):
+            return flash_attention(*args, **kw)
+
+        def sdpa(qt=qt, kt=kt, vt=vt):
+            return F.scaled_dot_product_attention(qt, kt, vt)
+
+        ms, runs = median_windows(kernel, iters=100)
+        plain, _ = median_windows(lambda args=args, kw=kw: flash_attention_plain(*args, **kw),
+                                  iters=5, warmup=1)
+        lib, _ = median_windows(sdpa, iters=100)
+        g_ms, _ = graph_windows(kernel, 100)
+        g_lib, _ = graph_windows(sdpa, 100)
+        shape = f"q {list(args[0].shape)} over {args[1].shape[1]} keys on {H} kv heads"
+        print(f"[time] flash_attention {route} ({what}) whisper-tiny per slot on (2, 2), {shape}, "
+              f"bf16, on {card}: kernel_ms {ms:.4f} (windows {[round(r, 4) for r in runs]}), "
+              f"bound_ms {bound:.4f} ({bound_by}: {nbytes / 1e6:.2f} MB at 3.35 TB/s, "
+              f"{flops / 1e9:.3f} GFLOP), kernel/bound {ms / bound:.2f}x, plain_ms {plain:.4f}, "
+              f"library_ms {lib:.4f} (scaled_dot_product_attention, the same inputs); replayed "
+              f"from a CUDA graph: kernel {g_ms:.4f} ms, SDPA {g_lib:.4f} ms")
+        lines.append({"label": f"whisper-tiny per slot: {what}", "route": route, "ms": ms,
+                      "plain_ms": plain, "bound_ms": bound, "bound_by": bound_by,
+                      "library_ms": lib, "graph_ms": g_ms, "library_graph_ms": g_lib,
+                      "source": f"src/repro_torch/kernels/csrc/{FLASH_SOURCE[route]}.cu"})
+    print(f"[check] flash_attention per slot, whisper-tiny on (2, 2): the three shapes above "
+          f"against flash_attention_plain: max|d| {max(errs):.3g} (bound 1 bf16 ulp + 2e-5 x "
+          "max(1, max|plain|))")
+    return max(errs), lines
+
+
+def pwhisper_train(card):
+    """Phase 24's train side: one f32 AdamW step of whisper-tiny whole (its
+    gradients kept, a second step timed), then on (data 2, model 2) and,
+    with fsdp=True, on (replica 2, model 2): loss and grad_norm within rtol
+    PARTITIONED_RTOL, every gradient within PARTITIONED_RTOL / ATOL of the
+    whole step's, every updated parameter within the same bounds of the
+    whole optimizer's update of the same gradients (AdamW's first step is
+    about lr · sign(g): a gradient near zero that rounds the other way
+    would move the whole step's by 2 lr), the collectives the formula's,
+    bytes a slot ``dryrun.slot_bytes``; a second step timed, a third under
+    ``torch.profiler``; then the eval step on the placed params, launches
+    exact by route.  Returns the record."""
+    dev = torch.device("cuda")
+    Bt, St = PWHISPER_TRAIN
+    opt = make_optimizer(WHISPER.optimizer, constant_lr(PWHISPER_LR))
+    toks = np.random.default_rng(24).integers(3, WHISPER.vocab_size, (Bt, St))
+    frames = torch.randn((Bt, WHISPER.encoder_seq, WHISPER.d_model),
+                         generator=torch.Generator(device=dev).manual_seed(24), device=dev)
+    batch = {"tokens": toks, "frames": frames}
+    kept = {}
+
+    def keep(grads):
+        kept.clear()
+        kept.update(tree_leaves_with_path(grads))
+        return grads
+
+    def fresh_state(cfg):
+        gen = torch.Generator(device=dev).manual_seed(0)
+        return make_train_state(whisper_mod.init_whisper(cfg, gen, device=dev), opt)
+
+    cfg = dataclasses.replace(WHISPER, param_dtype="float32", compute_dtype="float32")
+    reset_cards_peak()
+    state = fresh_state(cfg)
+    whole_step = make_train_step(cfg, opt, grad_sync=keep)
+    (new, wm), _ = timed_run(lambda: whole_step(state, batch))
+    want_grads = dict(kept)
+    want_new = dict(tree_leaves_with_path(new["params"]))
+    init = {k: v.clone() for k, v in tree_leaves_with_path(state["params"])}
+    _, whole_ms = timed_run(lambda: whole_step(state, batch))
+    whole_peak = cards_peak_gib()
+    whole_eval = float(make_eval_step(cfg)(state["params"], batch))
+    del state, new
+    torch.cuda.empty_cache()
+    runs = []
+    for axis, fsdp in (("data", False), ("replica", True)):
+        c = dataclasses.replace(cfg, fsdp=fsdp)
+        mesh = make_mesh(PWHISPER_GRID, (axis, "model"))
+        state = fresh_state(c)
+        psh = sharding_mod.params_shardings(mesh, state["params"], c, data_axis=axis,
+                                            model_axis="model")
+        sh = {"params": psh, "opt": sharding_mod.opt_state_shardings(mesh, state["opt"], psh)}
+        slot_want = dryrun_mod.slot_bytes(state, sh, mesh)
+        placed = device_put(state, sh)
+        del state
+        torch.cuda.empty_cache()
+        slot_got = sharding_mod.placed_slot_bytes(placed, mesh)
+        check(slot_got == [slot_want] * mesh.devices.size,
+              f"whisper-tiny: placed bytes a slot {slot_got}, dryrun.slot_bytes {slot_want:,}")
+        cols_want = partitioned_collectives(c, psh, *PWHISPER_GRID, opt_name=c.optimizer,
+                                            mesh=mesh)
+        step = make_train_step(c, opt, grad_sync=keep)
+        reset_cards_peak()
+        mesh_mod.reset_collectives()
+        (new_p, pm), first_ms = timed_run(lambda: step(placed, batch))
+        peak = cards_peak_gib()
+        cols, nbytes = dict(mesh_mod.collectives), dict(mesh_mod.collective_bytes)
+        worst, failed = {}, []
+
+        def held(got, w, what):
+            if ((got - w).abs() - PARTITIONED_ATOL - PARTITIONED_RTOL * w.abs()).max().item() > 0:
+                failed.append(what)
+            worst[what] = ((got - w).abs().max() / w.abs().max().clamp(min=1e-30)).item()
+
+        for key in ("loss", "grad_norm"):
+            got, w = pm[key].float().item(), wm[key].float().item()
+            worst[key] = abs(got - w) / abs(w)
+            if worst[key] > PARTITIONED_RTOL:
+                failed.append(f"{key} {got} vs {w}")
+        grads = {k: sharding_mod.gather(g) for k, g in kept.items()}
+        g_worst = 0.0
+        for k, w in want_grads.items():
+            held(grads[k], w, f"grads/{k}")
+            g_worst = max(g_worst, worst.pop(f"grads/{k}"))
+        # the whole optimizer on the partitioned step's gradients, clipped as the step clips
+        scale = torch.clamp(1.0 / (pm["grad_norm"].float() + 1e-9), max=1.0)
+        sub = tree_from_paths(list(init.items()))
+        clipped = tree_from_paths([(k, g * scale.to(g.device, g.dtype)) for k, g in grads.items()])
+        upd, _ = opt.update(clipped, opt.init(sub), sub)
+        p_worst, vs_whole = 0.0, 0.0
+        new_leaves = dict(tree_leaves_with_path(new_p["params"]))
+        for k, u in tree_leaves_with_path(upd):
+            got = sharding_mod.gather(new_leaves[k])
+            held(got, init[k] + u, f"params/{k}")
+            p_worst = max(p_worst, worst.pop(f"params/{k}"))
+            vs_whole = max(vs_whole, ((got - want_new[k]).abs().max() / PWHISPER_LR).item())
+        del grads, sub, clipped, upd, new_leaves, new_p
+        worst.update({"grads": g_worst, "params": p_worst})
+        _, step_ms = timed_run(lambda: step(placed, batch))
+        split = device_split(lambda: step(placed, batch))
+        print_split("whisper-tiny", f"partitioned train step on {mesh!r} (fsdp {fsdp}, f32 AdamW, "
+                    f"{Bt} x {St} tokens, {Bt} x {WHISPER.encoder_seq} frames)", step_ms, split)
+        # the eval step on the placed params, on the kernels
+        reset_launches()
+        p_eval = float(make_eval_step(c)(placed["params"], batch))
+        eval_routes = dict(flash_attention.launches_by_route)
+        want_routes = {r: mesh.devices.size * n for r, n in
+                       whisper_routes(c, torch.float32, St, 1, c.encoder_seq).items()}
+        check(eval_routes == want_routes, f"whisper-tiny partitioned eval step: flash_attention "
+              f"launched {eval_routes} by route, expected {want_routes}")
+        eval_rel = abs(p_eval - whole_eval) / abs(whole_eval)
+        check(eval_rel <= PARTITIONED_RTOL, f"whisper-tiny partitioned eval loss {p_eval} vs the "
+              f"whole model's {whole_eval}")
+        del placed, pm
+        torch.cuda.empty_cache()
+        print(f"[pwhisper] whisper-tiny train step ({c.encoder_layers} + {c.num_layers} "
+              f"layers, f32, {c.optimizer}, {Bt} x {St} tokens, {Bt} x {c.encoder_seq} frames) "
+              f"on {mesh!r} (fsdp {fsdp}): whole second "
+              f"step {whole_ms:.1f} ms, partitioned first {first_ms:.1f} ms, second "
+              f"{step_ms:.1f} ms; peak {peak:.2f} GiB (whole {whole_peak:.2f}); collectives "
+              f"{cols} (the formula's {cols_want}), carrying {nbytes} bytes; largest difference "
+              f"over the largest value {worst} (bounds rtol/atol {PARTITIONED_RTOL:g}; params "
+              f"against the whole optimizer's update of the same gradients; against the whole "
+              f"step's updated params {vs_whole:.3g} lr); eval loss {p_eval:.6f} (whole "
+              f"{whole_eval:.6f}), flash_attention by route {eval_routes} (exactly as worked "
+              f"out); {slot_want:,} bytes a slot; on {card}")
+        check(cols == cols_want, f"whisper-tiny (fsdp {fsdp}): the partitioned step ran "
+              f"collectives {cols}, expected {cols_want}")
+        check(not failed, f"whisper-tiny (fsdp {fsdp}): the partitioned step against the whole "
+              f"step, beyond rtol/atol {PARTITIONED_RTOL:g}/{PARTITIONED_ATOL:g}: {failed[:8]}")
+        runs.append({"grid": list(PWHISPER_GRID), "axes": [axis, "model"], "fsdp": fsdp,
+                     "first_ms": first_ms, "step_ms": step_ms,
+                     "device_busy_ms": None if split is None else split[0], "peak_gib": peak,
+                     "collectives": cols, "collective_bytes": nbytes, "worst": worst,
+                     "updated_vs_whole_in_lr": vs_whole, "slot_bytes": slot_want,
+                     "eval_loss": p_eval, "eval_routes": eval_routes})
+    del want_grads, want_new, init
+    kept.clear()
+    torch.cuda.empty_cache()
+    return {"whole_ms": whole_ms, "whole_peak_gib": whole_peak, "whole_eval_loss": whole_eval,
+            "loss": wm["loss"].item(), "grad_norm": wm["grad_norm"].item(), "runs": runs}
+
+
+def pwhisper_serve(card):
+    """Phase 24's serving side: whisper-tiny in bf16 (phase 14's seed-0
+    params, frames and prompts) whole, then placed on (data 2, model 2):
+    one greedy run through encode, prime and the serve steps with the
+    launches exact by route (``whisper_routes`` times the slots) and the
+    collectives the formula's (``whisper_collectives``: the encode, the
+    prime and ``new`` serve steps); the times of encode + prime + prompt
+    and of a decode step, whole and partitioned, and one of each under
+    ``torch.profiler``; the partitioned model teacher-forced on the whole
+    model's tokens against its logits (``tp_agreement``); the prefill step
+    (tokens and frames) against the whole one.  Returns (the launches of
+    the partitioned greedy run, the record)."""
+    dev = torch.device("cuda")
+    cfg = WHISPER
+    B, P, new = WHISPER_BATCH, WHISPER_PROMPT, WHISPER_NEW
+    max_len, N = PWHISPER_SELF_LEN, cfg.encoder_seq
+    reset_cards_peak()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = whisper_mod.init_whisper(cfg, gen, device=dev)
+    frames = torch.randn((B, N, cfg.d_model), generator=gen, device=dev).to(torch.bfloat16)
+    prompts = np.random.default_rng(1).integers(3, cfg.vocab_size, (B, P))
+    batch = {"tokens": torch.as_tensor(prompts, device=dev), "frames": frames}
+    # the whole model: its tokens, logits teacher-forced on them, the yardstick, its times
+    tokens = whisper_generate(cfg, params, frames, prompts, new, max_len)
+    lw = whisper_stepped(cfg, params, frames, prompts, max_len, tokens)
+    with nudged_kernels(TP_NUDGE):
+        ln = whisper_stepped(cfg, params, frames, prompts, max_len, tokens)
+    floor = logit_diff(ln, lw)
+    del ln
+    w_pre, _ = timed_ms(lambda: whisper_generate(cfg, params, frames, prompts, 1, max_len))
+    w_gen, _ = timed_ms(lambda: whisper_generate(cfg, params, frames, prompts, new, max_len))
+    w_dec = (w_gen - w_pre) / (new - 1)
+    w_prefill = make_prefill_step(cfg)(params, batch)
+    whole_peak = cards_peak_gib()
+
+    mesh = make_mesh(PWHISPER_GRID, ("data", "model"))
+    psh = sharding_mod.params_shardings(mesh, params, cfg)
+    placed = device_put(params, psh)
+    R, M = PWHISPER_GRID
+    want = {w: whisper_collectives(cfg, psh, R, M, w) for w in WHISPER_FORWARDS}
+    reset_cards_peak()
+    reset_launches()
+    mesh_mod.reset_collectives()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got_tokens = whisper_generate(cfg, placed, frames, prompts, new, max_len)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    counts = launches()
+    routes = dict(flash_attention.launches_by_route)
+    want_routes = {r: mesh.devices.size * n
+                   for r, n in whisper_routes(cfg, torch.bfloat16, P, new, N).items()}
+    check(routes == want_routes, f"whisper-tiny partitioned generate: flash_attention launched "
+          f"{routes} by route, expected {want_routes}")
+    cols, by_axis = dict(mesh_mod.collectives), dict(mesh_mod.collectives_by_axis)
+    want_cols = {k: want["encode"][0][k] + want["prime"][0][k] + new * want["serve"][0][k]
+                 for k in want["serve"][0]}
+    want_axis = {}
+    for w, n in (("encode", 1), ("prime", 1), ("serve", new)):
+        for a, c in want[w][1].items():
+            want_axis[a] = want_axis.get(a, 0) + n * c
+    check(cols == want_cols and by_axis == want_axis, f"whisper-tiny partitioned generate: "
+          f"collectives {cols} ({by_axis} by axis), expected {want_cols} ({want_axis}): encode "
+          f"+ prime + {new} serve steps")
+    gen_bytes = dict(mesh_mod.collective_bytes)
+    same = int((got_tokens == tokens).sum())
+    # one prompt step's and one decode step's collectives alone
+    with torch.inference_mode():
+        cache = whisper_primed(cfg, placed, frames, B, max_len)
+        serve = make_serve_step(cfg)
+        step_cols = []
+        for toks_t, idx in ((batch["tokens"], 0), (torch.as_tensor(tokens[:, :1], device=dev), P)):
+            mesh_mod.reset_collectives()
+            serve(placed, cache, toks_t, idx)
+            step_cols.append((dict(mesh_mod.collectives), dict(mesh_mod.collectives_by_axis)))
+        check(all(sc == want["serve"] for sc in step_cols), f"whisper-tiny: the prompt's and a "
+              f"decode step's collectives {step_cols}, expected {want['serve']} each")
+        del cache
+    p_pre, _ = timed_ms(lambda: whisper_generate(cfg, placed, frames, prompts, 1, max_len))
+    p_gen, _ = timed_ms(lambda: whisper_generate(cfg, placed, frames, prompts, new, max_len))
+    p_dec = (p_gen - p_pre) / (new - 1)
+    split_pre = device_split(lambda: whisper_generate(cfg, placed, frames, prompts, 1, max_len))
+    with torch.inference_mode():
+        cache = whisper_primed(cfg, placed, frames, B, max_len)
+        lg, cache = make_serve_step(cfg)(placed, cache, batch["tokens"], 0)
+        nxt = torch.argmax(lg, -1)[:, None]
+        split_dec = device_split(lambda: make_serve_step(cfg)(placed, cache, nxt, P))
+        del cache, lg
+    print_split("whisper-tiny", "partitioned encode + prime + prompt (4 x 1500 frames, 4 tokens)",
+                p_pre, split_pre)
+    print_split("whisper-tiny", "1 partitioned decode step", p_dec, split_dec)
+    peak = cards_peak_gib()
+    lp = whisper_stepped(cfg, placed, frames, prompts, max_len, tokens)
+    agreement = tp_agreement("whisper-tiny on (data 2, model 2)", lp, (tokens, lw, floor))
+    del lp
+    # the prefill step (tokens and frames -> last logits), on the kernels
+    reset_launches()
+    mesh_mod.reset_collectives()
+    lg = make_prefill_step(cfg)(placed, batch)
+    pre_routes = dict(flash_attention.launches_by_route)
+    want_pre = {r: mesh.devices.size * n
+                for r, n in whisper_routes(cfg, torch.bfloat16, P, 1, N).items()}
+    check(pre_routes == want_pre, f"whisper-tiny partitioned prefill step: flash_attention "
+          f"launched {pre_routes} by route, expected {want_pre}")
+    check((dict(mesh_mod.collectives), dict(mesh_mod.collectives_by_axis)) == want["prefill"],
+          f"whisper-tiny partitioned prefill step: collectives {dict(mesh_mod.collectives)}, "
+          f"expected {want['prefill']}")
+    pre_mx, pre_mean = logits_agreement(lg[:, None], w_prefill[:, None], floor,
+                                        "whisper-tiny partitioned prefill step")
+    del lg, w_prefill, placed, params, lw
+    torch.cuda.empty_cache()
+    busy = {k: None if s is None else s[0] for k, s in (("prefill", split_pre),
+                                                        ("decode", split_dec))}
+    print(f"[pwhisper] whisper-tiny served (bf16, {B} x {N} frames, {B} x {P} prompt -> {new}) on "
+          f"{mesh!r}: whole encode + prime + prompt {w_pre:.2f} ms, decode {w_dec:.2f} ms a step, "
+          f"peak {whole_peak:.2f} GiB; partitioned {p_pre:.2f} ms and {p_dec:.2f} ms a step, "
+          f"greedy run {gen_s:.2f} s, peak {peak:.2f} GiB; launches by route {routes} (exactly "
+          f"as worked out); collectives of the run {cols} ({by_axis} by axis; the formula's), "
+          f"a serve step {want['serve'][0]}, carrying {gen_bytes} bytes over the run; tokens "
+          f"equal the whole model's at {same}/{tokens.size}; the prefill step's last logits "
+          f"max|d| {pre_mx:.4g} mean {pre_mean:.3g} against the whole one's, launches "
+          f"{pre_routes}; on {card}")
+    return counts, {"whole_prefill_ms": w_pre, "whole_decode_ms": w_dec,
+                    "whole_peak_gib": whole_peak, "prefill_ms": p_pre, "decode_ms": p_dec,
+                    "generate_s": gen_s, "device_busy_ms": busy, "peak_gib": peak,
+                    "flash_routes": routes, "collectives": cols, "collectives_by_axis": by_axis,
+                    "collective_bytes": gen_bytes,
+                    "collectives_per_forward": {w: want[w][0] for w in WHISPER_FORWARDS},
+                    "tokens_equal": same, "agreement": agreement,
+                    "prefill_step": {"max_abs": pre_mx, "mean_abs": pre_mean,
+                                     "routes": pre_routes}}
+
+
+def phase_partitioned_whisper(card, gen):
+    """Phase 24: flash_attention at the per-slot shapes, then whisper-tiny's
+    train side and serving side.  Returns (launches over the partitioned
+    greedy run, the phase's record)."""
+    t_phase = time.perf_counter()
+    err, lines = pwhisper_slot_checks(gen, card)
+    torch.cuda.empty_cache()
+    trained = pwhisper_train(card)
+    counts, served = pwhisper_serve(card)
+    seconds = time.perf_counter() - t_phase
+    print(f"[pwhisper] phase 24: {seconds:.1f} s on {card}; launches over the partitioned greedy "
+          f"run {counts}, none on the train steps")
+    return counts, {"train": trained, "serve": served, "per_slot_max_abs_err": err,
+                    "routes": lines, "seconds": seconds}
+
+
+class phase_clock:
+    """Prints ``[phase] <n> <name> <seconds> s`` for each phase of the
+    script, its wall seconds from start to end.  ``with clock(n, name):``
+    times one phase; ``clock.add(n, name, fn, *args)`` adds one call's
+    seconds to a phase run in several pieces (phases 3 and 4 alternate,
+    one kernel at a time), which ``clock.flush(n)`` prints."""
+
+    def __init__(self):
+        self.pending = {}
+
+    @contextlib.contextmanager
+    def __call__(self, n: int, name: str):
+        t0 = time.perf_counter()
+        yield
+        print(f"[phase] {n} {name} {time.perf_counter() - t0:.1f} s", flush=True)
+
+    def add(self, n: int, name: str, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        total = self.pending.get(n, (name, 0.0))[1]
+        self.pending[n] = (name, total + time.perf_counter() - t0)
+        return out
+
+    def flush(self, n: int):
+        name, seconds = self.pending.pop(n)
+        print(f"[phase] {n} {name} {seconds:.1f} s", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card", file=sys.stderr)
         return 1
+    clock = phase_clock()
+    t0 = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    name, count, smi = torch.cuda.get_device_name(0), torch.cuda.device_count(), nvidia_smi()
-    print(f"[card] {name}, {count} device(s); nvidia-smi: {smi}")
-    print(f"[card] torch {torch.__version__}, CUDA {torch.version.cuda}, "
-          f"python {sys.version.split()[0]}")
+    with clock(1, "card"):
+        name, count, smi = torch.cuda.get_device_name(0), torch.cuda.device_count(), nvidia_smi()
+        print(f"[card] {name}, {count} device(s); nvidia-smi: {smi}")
+        print(f"[card] torch {torch.__version__}, CUDA {torch.version.cuda}, "
+              f"python {sys.version.split()[0]}")
 
-    t0 = time.perf_counter()
-    built = _build.build_all(SOURCES)
-    print(f"[build] {len(SOURCES)} sources, one nvcc each, started together: "
-          f"{time.perf_counter() - t0:.1f} s")
-    for source in SOURCES:
-        b = built[source]
-        took = f"nvcc {b.seconds:.1f} s" if b.seconds else "built earlier in this checkout"
-        print(f"[build] {source}.cu -> {b.path.name}: {took}")
-        for line in ptxas_summary(b.log):
-            print(f"  ptxas {line}")
+    with clock(2, "build"):
+        t_build = time.perf_counter()
+        built = _build.build_all(SOURCES)
+        print(f"[build] {len(SOURCES)} sources, one nvcc each, started together: "
+              f"{time.perf_counter() - t_build:.1f} s")
+        for source in SOURCES:
+            b = built[source]
+            took = f"nvcc {b.seconds:.1f} s" if b.seconds else "built earlier in this checkout"
+            print(f"[build] {source}.cu -> {b.path.name}: {took}")
+            for line in ptxas_summary(b.log):
+                print(f"  ptxas {line}")
 
+    # phases 3 and 4 alternate, one kernel at a time (its inputs freed before the next)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    inputs, max_err = phase_kernel_checks(gen)
-    ms, plain_ms, bound_ms, bound_by = phase_timing(inputs, smi)
+    checks, timing = (3, "kernel-checks"), (4, "kernel-timing")
+    inputs, max_err = clock.add(*checks, phase_kernel_checks, gen)
+    ms, plain_ms, bound_ms, bound_by = clock.add(*timing, phase_timing, inputs, smi)
     del inputs
     torch.cuda.empty_cache()
-    dec_inputs, dec_err = phase_decode_checks(gen)
-    dec, dec_extra = phase_decode_timing(dec_inputs, smi)
+    dec_inputs, dec_err = clock.add(*checks, phase_decode_checks, gen)
+    dec, dec_extra = clock.add(*timing, phase_decode_timing, dec_inputs, smi)
     del dec_inputs
     torch.cuda.empty_cache()
-    sk_row, sk_err = phase_sketch_checks(gen)
-    sk = phase_sketch_timing(sk_row, smi)
+    sk_row, sk_err = clock.add(*checks, phase_sketch_checks, gen)
+    sk = clock.add(*timing, phase_sketch_timing, sk_row, smi)
     del sk_row
     torch.cuda.empty_cache()
-    fl_inputs, fl_hd160, fl_archs2, fl_err = phase_flash_checks(gen)
-    fl, fl_lines = phase_flash_timing(fl_inputs, fl_hd160, fl_archs2, smi)
+    fl_inputs, fl_hd160, fl_archs2, fl_err = clock.add(*checks, phase_flash_checks, gen)
+    fl, fl_lines = clock.add(*timing, phase_flash_timing, fl_inputs, fl_hd160, fl_archs2, smi)
     del fl_inputs, fl_hd160, fl_archs2
-    rw_inputs, rw_err = phase_rwkv_checks(gen)
-    rw, rw_lines = phase_rwkv_timing(rw_inputs, smi)
+    rw_inputs, rw_err = clock.add(*checks, phase_rwkv_checks, gen)
+    rw, rw_lines = clock.add(*timing, phase_rwkv_timing, rw_inputs, smi)
     del rw_inputs
     torch.cuda.empty_cache()
+    clock.flush(3)
+    clock.flush(4)
 
     sweep = dryrun_sweep_start()
     atexit.register(stop_sweep, sweep)   # ended whatever phase fails
     with tempfile.TemporaryDirectory(prefix="chip_smoke-") as workdir:
-        phase_small_agreement()
-        phase_small_per_leaf()
-        phase_small_service(workdir)
-        phase_small_lifecycle(workdir)
-        phase_small_lm()
+        with clock(5, "small-checks"):
+            phase_small_agreement()
+            phase_small_per_leaf()
+            phase_small_service(workdir)
+            phase_small_lifecycle(workdir)
+            phase_small_lm()
 
-        torch.cuda.reset_peak_memory_stats()
-        reset_launches()
-        fisher_bodies, ties_held = phase_main_path(smi)
-        loop = launches()
-        print(f"[main] launches on the training path: {loop}")
-        check(loop["cold_fuse"] >= 4,
-              f"cold_fuse launched {loop['cold_fuse']} times on the loop, expected >= 4")
-        print(f"[main] torch.cuda.max_memory_allocated: "
-              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-        check_fisher_ones(fisher_bodies)
-        check_ties_on_cpu(*ties_held, smi)
-        del fisher_bodies, ties_held
-        torch.cuda.empty_cache()
+        with clock(6, "training-path"):
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            fisher_bodies, ties_held = phase_main_path(smi)
+            loop = launches()
+            print(f"[main] launches on the training path: {loop}")
+            check(loop["cold_fuse"] >= 4,
+                  f"cold_fuse launched {loop['cold_fuse']} times on the loop, expected >= 4")
+            print(f"[main] torch.cuda.max_memory_allocated: "
+                  f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+            check_fisher_ones(fisher_bodies)
+            check_ties_on_cpu(*ties_held, smi)
+            del fisher_bodies, ties_held
+            torch.cuda.empty_cache()
 
-        torch.cuda.reset_peak_memory_stats()
-        reset_launches()
-        t_service = time.perf_counter()
-        service_split = phase_service_path(workdir)
-        counts = launches()
-        print(f"[service] launches on the service path: {counts}; "
-              f"{time.perf_counter() - t_service:.1f} s")
-        print(f"[service] torch.cuda.max_memory_allocated: "
-              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-        torch.cuda.empty_cache()
+        with clock(7, "service-path"):
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            t_service = time.perf_counter()
+            service_split = phase_service_path(workdir)
+            counts = launches()
+            print(f"[service] launches on the service path: {counts}; "
+                  f"{time.perf_counter() - t_service:.1f} s")
+            print(f"[service] torch.cuda.max_memory_allocated: "
+                  f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+            torch.cuda.empty_cache()
 
-        torch.cuda.reset_peak_memory_stats()
-        reset_launches()
-        t_life = time.perf_counter()
-        phase_lifecycle(workdir, smi, service_split)
-        life = launches()
-        print(f"[lifecycle] launches on the lifecycle path: {life}; "
-              f"{time.perf_counter() - t_life:.1f} s")
-        print(f"[lifecycle] torch.cuda.max_memory_allocated: "
-              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        with clock(8, "lifecycle"):
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            t_life = time.perf_counter()
+            phase_lifecycle(workdir, smi, service_split)
+            life = launches()
+            print(f"[lifecycle] launches on the lifecycle path: {life}; "
+                  f"{time.perf_counter() - t_life:.1f} s")
+            print(f"[lifecycle] torch.cuda.max_memory_allocated: "
+                  f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     # worked out from the code: cold_fuse for the two dense cohorts and both
     # async passes (the rejected one launches before its screen; the mixed
     # cohort fuses through decode_accum and a plain combine); row_sketch for
@@ -7577,16 +8123,17 @@ def main() -> int:
 
     # the serving path (slice 3), one model at a time, counts reset before each
     # prefill: one launch per layer and generate; decode: one per layer and step
-    counts["flash_attention"], fl_routes, _ = phase_serve(
-        "gemma3-1b", GEMMA, GEMMA_PROMPT, SERVE_NEW, GEMMA_MAX_LEN, "flash_attention", smi,
-        serve_routes(GEMMA, GEMMA_PROMPT, SERVE_NEW))
-    # two generates: a scan launch per layer each, a step launch per layer and token after
-    counts["rwkv6_scan"], rw_routes, _ = phase_serve(
-        "rwkv6-7b", RWKV, RWKV_PROMPT, SERVE_NEW, RWKV_MAX_LEN, "rwkv6_scan", smi,
-        {"scan": 2 * RWKV.num_layers, "step": 2 * RWKV.num_layers * (SERVE_NEW - 1)})
+    with clock(9, "serving"):
+        counts["flash_attention"], fl_routes, _ = phase_serve(
+            "gemma3-1b", GEMMA, GEMMA_PROMPT, SERVE_NEW, GEMMA_MAX_LEN, "flash_attention", smi,
+            serve_routes(GEMMA, GEMMA_PROMPT, SERVE_NEW))
+        # two generates: a scan launch per layer each, a step launch per layer and token after
+        counts["rwkv6_scan"], rw_routes, _ = phase_serve(
+            "rwkv6-7b", RWKV, RWKV_PROMPT, SERVE_NEW, RWKV_MAX_LEN, "rwkv6_scan", smi,
+            {"scan": 2 * RWKV.num_layers, "step": 2 * RWKV.num_layers * (SERVE_NEW - 1)})
 
     # the routed service (slice 6), counts reset just before it
-    with tempfile.TemporaryDirectory(prefix="chip_smoke-") as workdir:
+    with clock(10, "routing"), tempfile.TemporaryDirectory(prefix="chip_smoke-") as workdir:
         torch.cuda.reset_peak_memory_stats()
         reset_launches()
         t_route = time.perf_counter()
@@ -7596,98 +8143,113 @@ def main() -> int:
               f"{time.perf_counter() - t_route:.1f} s")
         print(f"[routing] torch.cuda.max_memory_allocated: "
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    # worked out from the code (PERF.md): cold_fuse for each member's
-    # round-0 dense cohort and each member's cross-fuse; decode_accum for each
-    # member's mixed round-1 cohort; row_sketch for main's first base sketch,
-    # the spawned member's, and each of the 6 publishes (2 per round, 2 of
-    # the cross-fuse)
-    for kernel, want in (("cold_fuse", 4), ("decode_accum", 2), ("row_sketch", 8)):
-        check(routed[kernel] == want, f"{kernel} launched {routed[kernel]} times on the "
-              f"routed path, expected {want}")
-    real_finetune_scores(b0, spec, smi)
-    del b0
-    torch.cuda.empty_cache()
+        # worked out from the code (PERF.md): cold_fuse for each member's
+        # round-0 dense cohort and each member's cross-fuse; decode_accum for
+        # each member's mixed round-1 cohort; row_sketch for main's first base
+        # sketch, the spawned member's, and each of the 6 publishes (2 per
+        # round, 2 of the cross-fuse)
+        for kernel, want in (("cold_fuse", 4), ("decode_accum", 2), ("row_sketch", 8)):
+            check(routed[kernel] == want, f"{kernel} launched {routed[kernel]} times on the "
+                  f"routed path, expected {want}")
+        real_finetune_scores(b0, spec, smi)
+        del b0
+        torch.cuda.empty_cache()
 
     # the fuse-to-serve stack (slice 7), counts reset just before it
-    with tempfile.TemporaryDirectory(prefix="chip_smoke-") as workdir:
-        torch.cuda.reset_peak_memory_stats()
-        reset_launches()
-        stack = phase_serve_stack(workdir)
-        served = launches()
-        stack_routes = dict(flash_attention.launches_by_route)
-        print(f"[serve-stack] launches on the serve-stack path: {served}; flash_attention by "
-              f"route {stack_routes}; {stack['seconds']:.1f} s on {smi}")
-        print(f"[serve-stack] torch.cuda.max_memory_allocated: "
-              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB (the worker's Engine keeps "
-              "iteration 0's 2.00 GB row for its life, as the reference's does)")
-    fuse_at_gemma = time_cohort_fuse(*stack.pop("fuse_inputs"), smi)
-    for kernel, want in SERVE_STACK_LAUNCHES.items():
-        check(served[kernel] == want, f"{kernel} launched {served[kernel]} times on the "
-              f"serve-stack path, expected {want}")
-    torch.cuda.empty_cache()
+    with clock(11, "serve-stack"):
+        with tempfile.TemporaryDirectory(prefix="chip_smoke-") as workdir:
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            stack = phase_serve_stack(workdir)
+            served = launches()
+            stack_routes = dict(flash_attention.launches_by_route)
+            print(f"[serve-stack] launches on the serve-stack path: {served}; flash_attention by "
+                  f"route {stack_routes}; {stack['seconds']:.1f} s on {smi}")
+            print(f"[serve-stack] torch.cuda.max_memory_allocated: "
+                  f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB (the worker's Engine "
+                  "keeps iteration 0's 2.00 GB row for its life, as the reference's does)")
+        fuse_at_gemma = time_cohort_fuse(*stack.pop("fuse_inputs"), smi)
+        for kernel, want in SERVE_STACK_LAUNCHES.items():
+            check(served[kernel] == want, f"{kernel} launched {served[kernel]} times on the "
+                  f"serve-stack path, expected {want}")
+        torch.cuda.empty_cache()
 
     # LM training and serving what it trained (slice 8), counts reset around
     # the eval steps and generates inside
-    with tempfile.TemporaryDirectory(prefix="chip_smoke-") as workdir:
+    with clock(12, "lm-training"), tempfile.TemporaryDirectory(prefix="chip_smoke-") as workdir:
         lm_train = phase_lm_train(workdir, smi)
     torch.cuda.empty_cache()
 
     # the MoE family and the dense archs (slice 9), counts reset around each run
-    with tempfile.TemporaryDirectory(prefix="chip_smoke-") as workdir:
+    with clock(13, "archs"), tempfile.TemporaryDirectory(prefix="chip_smoke-") as workdir:
         archs, arch_table = phase_archs(workdir, smi)
     torch.cuda.empty_cache()
 
     # the last three archs and the ring cache (slice 10), counts reset around each run
-    with tempfile.TemporaryDirectory(prefix="chip_smoke-") as workdir:
+    with clock(14, "archs2"), tempfile.TemporaryDirectory(prefix="chip_smoke-") as workdir:
         archs2, arch2_table = phase_archs2(workdir, smi)
     torch.cuda.empty_cache()
 
     # the mesh-sharded Repository engine (slice 11), counts reset just
     # before its full-width service loop
-    with tempfile.TemporaryDirectory(prefix="chip_smoke-") as workdir:
+    with clock(15, "mesh"), tempfile.TemporaryDirectory(prefix="chip_smoke-") as workdir:
         mesh_counts, mesh_rec = phase_mesh(workdir, smi)
     torch.cuda.empty_cache()
 
     # the model-side ColD mesh (slice 12), counts reset at its start (the
     # steps and fuses launch no kernel) and again just before its serve
-    cold_counts, cold_part_counts, cold_rec = phase_cold_mesh(smi)
+    with clock(16, "cold-mesh"):
+        cold_counts, cold_part_counts, cold_rec = phase_cold_mesh(smi)
     torch.cuda.empty_cache()
 
     # the dry-run tooling (slice 13): the sweep on the host, then the serving
     # and training steps counted on the meta device and on the card, counts
     # reset around the serving step's prefill and decode
-    dry_counts, dry_rec = phase_dryrun(smi, sweep)
+    with clock(17, "dryrun"):
+        dry_counts, dry_rec = phase_dryrun(smi, sweep)
     torch.cuda.empty_cache()
 
     # the partitioned train step with FSDP (slice 14); its steps launch no kernel
-    part_rec = phase_partitioned(smi)
+    with clock(18, "partitioned-train"):
+        part_rec = phase_partitioned(smi)
     torch.cuda.empty_cache()
 
     # partitioned serving (slice 15), counts reset just before each
     # partitioned generate and summed
-    pserve_counts, pserve_rec = phase_partitioned_serve(smi, gen)
+    with clock(19, "partitioned-serve"):
+        pserve_counts, pserve_rec = phase_partitioned_serve(smi, gen)
     torch.cuda.empty_cache()
 
     # the partitioned MoE FFN and M-RoPE (slice 16), counts reset just before
     # each partitioned generate and summed; its train steps launch no kernel
-    pmoe_counts, pmoe_rec = phase_partitioned_moe(smi, gen)
+    with clock(20, "partitioned-moe"):
+        pmoe_counts, pmoe_rec = phase_partitioned_moe(smi, gen)
     torch.cuda.empty_cache()
 
     # the partitioned Mamba mixer, the RWKV train step and adafactor over
     # blocks (slice 17), counts reset just before the partitioned generate;
     # its train steps launch no kernel
-    pssm_counts, pssm_rec = phase_partitioned_ssm(smi, gen)
+    with clock(21, "partitioned-ssm"):
+        pssm_counts, pssm_rec = phase_partitioned_ssm(smi, gen)
     torch.cuda.empty_cache()
 
     # context-parallel serving at B = 1 (slice 18), counts reset just before
     # each context-parallel generate and summed
-    cp_counts, cp_rec = phase_context_parallel(smi, gen)
+    with clock(22, "context-parallel-serve"):
+        cp_counts, cp_rec = phase_context_parallel(smi, gen)
     torch.cuda.empty_cache()
 
     # the partitioned train step at B = 1 and a vision prompt served at B = 1
     # (slice 19): its train steps launch no kernel; counts reset just before
     # the context-parallel vision generate
-    cpt_counts, cpt_rec = phase_context_parallel_train(smi, gen)
+    with clock(23, "context-parallel-train"):
+        cpt_counts, cpt_rec = phase_context_parallel_train(smi, gen)
+    torch.cuda.empty_cache()
+
+    # the encoder-decoder partitioned (slice 20): its train steps launch no
+    # kernel; counts reset just before the partitioned greedy run
+    with clock(24, "partitioned-whisper"):
+        pw_counts, pw_rec = phase_partitioned_whisper(smi, gen)
     torch.cuda.empty_cache()
     print(f"[done] {time.perf_counter() - t0:.1f} s after the card check")
 
@@ -7737,17 +8299,20 @@ def main() -> int:
         rec["launches_partitioned_moe"] = pmoe_counts[rec["name"]]
         rec["launches_partitioned_ssm"] = pssm_counts[rec["name"]]
         rec["launches_context_parallel"] = cp_counts[rec["name"]]
+        rec["launches_partitioned_whisper"] = pw_counts[rec["name"]]
     for rec in (flash, rwkv):
         rec["per_slot_max_abs_err"] = pserve_rec["per_slot_max_abs_err"][rec["name"]]
     flash["per_slot_max_abs_err"] = max(flash["per_slot_max_abs_err"],
                                         pmoe_rec["per_slot_max_abs_err"],
                                         pssm_rec["per_slot_max_abs_err"],
                                         cp_rec["per_slot_max_abs_err"],
-                                        cpt_rec["per_slot_max_abs_err"])
+                                        cpt_rec["per_slot_max_abs_err"],
+                                        pw_rec["per_slot_max_abs_err"])
     # the context-parallel decode's two entries of flash_decode.cu: their
     # [time] lines, and their launches on phase 22's generates
-    flash["routes"] += cp_rec["routes"]
+    flash["routes"] += cp_rec["routes"] + pw_rec["routes"]
     flash["launches_by_route_context_parallel"] = cp_rec["flash_routes"]
+    flash["launches_by_route_partitioned_whisper"] = pw_rec["serve"]["flash_routes"]
     cp_entries = []
     for line in cp_rec["routes"][:2]:
         cp_entries.append({
@@ -7776,6 +8341,7 @@ def main() -> int:
     print(json.dumps({"partitioned_ssm": pssm_rec}))
     print(json.dumps({"context_parallel": cp_rec}))
     print(json.dumps({"context_parallel_train": dict(cpt_rec, launches=cpt_counts)}))
+    print(json.dumps({"partitioned_whisper": dict(pw_rec, launches=pw_counts)}))
     print(json.dumps({"archs": arch_table}))
     print(json.dumps({"archs2": arch2_table}))
     fuse_kernels[0]["at_gemma3_1b"] = fuse_at_gemma

@@ -1,7 +1,8 @@
-"""The partitioned forward of a decoder LM: one slab's train-step loss, or
-its prefill and decode steps against a placed cache, computed over the
-slots of its grid (``launch.sharding.sub_mesh``), on the blocks
-``launch.sharding.device_put`` placed there.
+"""The partitioned forward of a decoder LM (and of the encoder-decoder):
+one slab's train-step loss, or its prefill and decode steps against a
+placed cache, computed over the slots of its grid
+(``launch.sharding.sub_mesh``), on the blocks ``launch.sharding.device_put``
+placed there.
 
 The grid has a ``model`` axis (M slots) and a batch axis, ``replica`` or
 ``data`` (R slots).  Every activation is a list of per-slot tensors and
@@ -191,9 +192,27 @@ split on the differentiable copies, with no cache:
   slot holds the whole sequence, by R more, so that the sums over the batch
   axis (of the gradients, the loss and the aux) count the batch once.
 
+**The encoder-decoder (whisper)**, at a batch the batch axis divides:
+each slot takes its replica's rows of ``frames`` [B_r, N, D] and tokens.
+The encoder adds the learned positions (replicated) and runs each layer's
+bidirectional self-attention (``_attention(causal=False)``) and MLP as a
+decoder's, tensor parallel over ``model``; every slot of a replica ends
+with the same states.  Each decoder layer runs its causal self-attention,
+then its cross-attention (``_attention(source=)``): ``wq`` and the
+``wk``/``wv`` that read the encoder states column-parallel (gathered over
+``model`` where the KV heads do not split), ``wo`` row-parallel with one
+all-reduce; the states pass ``axis_sum_grads`` in the train step (each
+slot's heads give a part of their gradient).  The tied embedding is
+vocab-parallel where its spec splits the vocabulary.  Serving primes the
+cross cache once (``partitioned_prime``: each slot writes its block of
+``xk``/``xv``, its KV heads or its slice of ``head_dim``), and a serve step
+reads those blocks as they are (a cache without ``cache_index``), made
+whole over ``model`` for the call where ``head_dim`` is split.
+
 Every decoder (attention, Mamba and RWKV mixers; GLU, MLP, MoE and RWKV
 channel-mix FFNs; RoPE or M-RoPE) is partitioned for training and serving
-at any batch size.  The encoder-decoder (and its ``frames``) and the
+at any batch size, the encoder-decoder at a batch the batch axis divides.
+The encoder-decoder at another batch, ``frames`` on a decoder and the
 encoder raise ``NotImplementedError`` (``check_partitionable``).
 """
 from __future__ import annotations
@@ -233,21 +252,24 @@ FFNS = ("glu", "mlp", "moe", "rwkv_cm")
 
 
 def check_partitionable(cfg: ArchConfig, batch_keys: Sequence[str] = (), *,
-                        serving: bool = False) -> None:
+                        serving: bool = False, seq: Optional[str] = None) -> None:
     """Raise ``NotImplementedError`` naming the arch and the part the
     partitioned train step (or, with ``serving``, the partitioned prefill
     and decode steps) lacks.  Both take a decoder at any batch size
-    (``seq_layout``); the encoder-decoder and the encoder stay refused."""
-    if cfg.is_encoder_decoder:
-        refuse(cfg, "encoder-decoder (whisper)", serving=serving)
+    (``seq_layout``), and the encoder-decoder at a batch the batch axis
+    divides (``seq`` None); the encoder stays refused, as does ``frames``
+    on a decoder."""
     if cfg.family == "encoder":
         refuse(cfg, "encoder (RoBERTa)", serving=serving)
+    if cfg.is_encoder_decoder and seq is not None:
+        refuse(cfg, "encoder-decoder (whisper) at a batch the batch axis does not divide",
+               serving=serving)
     for blk in cfg.blocks:
         if blk.mixer not in MIXERS:
             refuse(cfg, f"{blk.mixer} mixer", serving=serving)
         if blk.ffn not in FFNS:
             refuse(cfg, f"{blk.ffn} FFN", serving=serving)
-    if "frames" in batch_keys:
+    if "frames" in batch_keys and not cfg.is_encoder_decoder:
         refuse(cfg, "batch input 'frames' (the encoder-decoder's)", serving=serving)
 
 
@@ -342,11 +364,28 @@ def _kv_heads(sl: _Slab, s: int, hq: int, k: torch.Tensor, v: torch.Tensor):
     return k.index_select(2, idx), v.index_select(2, idx)
 
 
-def _attention(sl: _Slab, pre: str, rep, blk, h, angles, *, cache=None, cache_index=None,
-               cache_len: Optional[int] = None, differentiable: bool = True):
-    cfg, mesh, mp = sl.cfg, sl.mesh, sl.mp
-    hd, Hq, Hkv = cfg.head_dim, cfg.num_heads, cfg.num_kv_heads
-    stacked = rep is not None
+def _kv_weights(sl: _Slab, pre: str, rep, split: bool, kv_split: bool):
+    """Each slot's ``wk`` and ``wv``: its column blocks where the KV heads
+    split over ``model``; all-gathered over ``model`` where they do not but
+    the spec splits the columns; else whole, passing ``axis_sum_grads``
+    (each slot uses its query heads' share)."""
+    kv = {}
+    for k in ("wk", "wv"):
+        w = sl.weight(f"{pre}/{k}", rep)
+        if split and not kv_split:
+            if sl.split_over_model(f"{pre}/{k}", -1, rep is not None):
+                w = M.axis_all_gather(w, sl.mesh, sl.mp, w[0].dim() - 1)
+            else:
+                w = M.axis_sum_grads(w, sl.mesh, sl.mp)
+        kv[k] = w
+    return kv
+
+
+def _heads(sl: _Slab, pre: str, rep, differentiable: bool):
+    """``(split, kv_split, hq, hkv)``: whether the query heads (and the KV
+    heads) split over ``model``, and a slot's counts of each."""
+    cfg, stacked = sl.cfg, rep is not None
+    Hq, Hkv = cfg.num_heads, cfg.num_kv_heads
     split = sl.split_over_model(f"{pre}/wq", -1, stacked)
     if not split:
         for k in ("wk", "wv", "wo"):
@@ -356,42 +395,54 @@ def _attention(sl: _Slab, pre: str, rep, blk, h, angles, *, cache=None, cache_in
     elif Hq % sl.M:
         refuse(cfg, f"attention: {Hq} query heads do not split over model = {sl.M}",
                serving=not differentiable)
-    hq = Hq // sl.M if split else Hq
     kv_split = split and Hkv % sl.M == 0
+    return split, kv_split, Hq // sl.M if split else Hq, Hkv // sl.M if kv_split else Hkv
+
+
+def _attention(sl: _Slab, pre: str, rep, blk, h, angles, *, cache=None, cache_index=None,
+               cache_len: Optional[int] = None, differentiable: bool = True,
+               causal: bool = True, source=None):
+    """Each slot's attention output [B_r, S, D] (the module docstring).
+    ``source[s]`` (the encoder's states, whole over ``model``; they pass
+    ``axis_sum_grads``) gives the keys and values in place of ``h``: a
+    cross-attention.  A ``cache`` without ``cache_index`` is a primed cross
+    cache: its blocks are the keys and values, read and never written, and
+    ``wk``/``wv`` are not used."""
+    cfg, mesh, mp = sl.cfg, sl.mesh, sl.mp
+    hd = cfg.head_dim
+    split, kv_split, hq, hkv = _heads(sl, pre, rep, differentiable)
+    primed = cache is not None and cache_index is None
     wq, wo = sl.weight(f"{pre}/wq", rep), sl.weight(f"{pre}/wo", rep)
-    kv = {}
-    for k in ("wk", "wv"):
-        w = sl.weight(f"{pre}/{k}", rep)
-        if split and not kv_split:
-            if sl.split_over_model(f"{pre}/{k}", -1, stacked):
-                w = M.axis_all_gather(w, mesh, mp, w[0].dim() - 1)
-            else:  # whole on every slot, each using its query heads' share
-                w = M.axis_sum_grads(w, mesh, mp)
-        kv[k] = w
+    kv = None if primed else _kv_weights(sl, pre, rep, split, kv_split)
     if split:
         h = M.axis_sum_grads(h, mesh, mp)
-    hkv = Hkv // sl.M if kv_split else Hkv
+        if source is not None:
+            source = M.axis_sum_grads(source, mesh, mp)
+    src = h if source is None else source
     qs, ks, vs = [], [], []
     for s in range(sl.n):
         x = h[s]
         B, S, _ = x.shape
         ang = None if angles[s] is None else angles[s][blk.rope_theta or cfg.rope.theta]
         q = (x @ wq[s]).reshape(B, S, hq, hd)
-        k = (x @ kv["wk"][s]).reshape(B, S, hkv, hd)
-        v = (x @ kv["wv"][s]).reshape(B, S, hkv, hd)
         if ang is not None:
-            q, k = L.apply_rope(q, ang), L.apply_rope(k, ang)
+            q = L.apply_rope(q, ang)
         qs.append(q)
-        ks.append(k)
-        vs.append(v)
+        if kv is not None:
+            y = src[s]
+            k = (y @ kv["wk"][s]).reshape(B, y.shape[1], hkv, hd)
+            if ang is not None and source is None:
+                k = L.apply_rope(k, ang)
+            ks.append(k)
+            vs.append((y @ kv["wv"][s]).reshape(B, y.shape[1], hkv, hd))
+    select = split and not kv_split
     if sl.seq is not None and differentiable:
-        attn = _attention_cp_train(sl, blk, qs, ks, vs, hq, split and not kv_split)
+        attn = _attention_cp_train(sl, blk, qs, ks, vs, hq, select)
     elif sl.seq is not None:
-        attn = _attention_cp(sl, blk, qs, ks, vs, hq, hkv, split and not kv_split, cache,
-                             cache_index, cache_len)
+        attn = _attention_cp(sl, blk, qs, ks, vs, hq, hkv, select, cache, cache_index, cache_len)
     else:
-        attn = _attention_rows(sl, blk, qs, ks, vs, hq, hkv, split and not kv_split, cache,
-                               cache_index, differentiable)
+        attn = _attention_rows(sl, blk, qs, ks, vs, hq, hkv, select, cache, cache_index,
+                               differentiable, causal)
     outs = [a.reshape(a.shape[0], a.shape[1], hq * hd) @ wo[s] for s, a in enumerate(attn)]
     if split:
         outs = M.axis_all_reduce(outs, mesh, mp)
@@ -399,19 +450,21 @@ def _attention(sl: _Slab, pre: str, rep, blk, h, angles, *, cache=None, cache_in
 
 
 def _attention_rows(sl: _Slab, blk, qs, ks, vs, hq: int, hkv: int, select: bool, cache,
-                    cache_index, differentiable: bool):
+                    cache_index, differentiable: bool, causal: bool = True):
     """Each slot's attention output [B_r, S, hq, hd] over its replica's
     rows: its own keys, or (serving) its block of the cache after the new
-    k/v are written into it.  ``select``: each slot picks its query heads'
-    KV heads (``_kv_heads``)."""
+    k/v are written into it at ``cache_index`` (a primed cache, without
+    one, as it is).  ``select``: each slot picks its query heads' KV heads
+    (``_kv_heads``)."""
     hd = sl.cfg.head_dim
     ring = None
-    if cache is not None:  # each slot's part of the new k/v into its block, in place
+    if cache is not None:
         ck, cv = cache["k"], cache["v"]
-        S = qs[0].shape[1]
-        i, ring = L.cache_slot(ck[0].shape[1], cache_index, S, blk.window)
-        for s in range(sl.n):
-            _write_kv(sl, s, ck, cv, ks[s], vs[s], slice(i, i + S), slice(None))
+        if cache_index is not None:  # each slot's part of the new k/v into its block, in place
+            S = qs[0].shape[1]
+            i, ring = L.cache_slot(ck[0].shape[1], cache_index, S, blk.window)
+            for s in range(sl.n):
+                _write_kv(sl, s, ck, cv, ks[s], vs[s], slice(i, i + S), slice(None))
         # the keys each slot attends over: its block, made whole over model
         # where the cache's spec splits the heads or head_dim off the slot's
         ks = sl.whole_over_model(sl.whole_over_model(ck, 3, hd), 2, hkv)
@@ -422,9 +475,9 @@ def _attention_rows(sl: _Slab, blk, qs, ks, vs, hq: int, hkv: int, select: bool,
         if select:
             k, v = _kv_heads(sl, s, hq, k, v)
         if differentiable:
-            outs.append(L._sdpa(q, k, v, causal=True, window=blk.window))
+            outs.append(L._sdpa(q, k, v, causal=causal, window=blk.window))
         else:
-            outs.append(L.kernel_attention(q, k, v, causal=True, window=blk.window,
+            outs.append(L.kernel_attention(q, k, v, causal=causal, window=blk.window,
                                            q_offset=0 if cache_index is None
                                            else int(cache_index), ring=ring))
     return outs
@@ -835,9 +888,36 @@ def vocab_axis(cfg: ArchConfig, mesh: M.Mesh, layouts: Dict[str, Layout]) -> Opt
     embedding's or the untied head's spec splits the vocabulary over it),
     else None."""
     sl = _Slab(cfg, mesh, {}, layouts)
-    split = (sl.split_over_model("embed", 0) if cfg.tie_embeddings
+    embed = "dec/embed" if cfg.is_encoder_decoder else "embed"
+    split = (sl.split_over_model(embed, 0) if cfg.tie_embeddings
              else sl.split_over_model("lm_head", -1))
     return sl.mp if split else None
+
+
+def _embed(sl: _Slab, name: str, emb: List[torch.Tensor], tokens) -> List[torch.Tensor]:
+    """Each slot's rows of the embedding ``emb`` for its tokens,
+    vocab-parallel where the spec of ``name`` splits the vocabulary over
+    ``model``: each slot looks up the tokens in its block (zeros elsewhere)
+    and one all-reduce sums the rows."""
+    if not sl.split_over_model(name, 0):
+        return [emb[s][tokens[s]] for s in range(sl.n)]
+    V = emb[0].shape[0]
+    rows = []
+    for s in range(sl.n):
+        ids = tokens[s] - sl.mesh.coord(s, sl.mp) * V
+        inside = (ids >= 0) & (ids < V)
+        r = emb[s][ids.clamp(0, V - 1)]
+        rows.append(torch.where(inside[..., None], r, torch.zeros_like(r)))
+    return M.axis_all_reduce(rows, sl.mesh, sl.mp)
+
+
+def _head_logits(sl: _Slab, heads: List[torch.Tensor], split: bool, x) -> List[torch.Tensor]:
+    """Each slot's logits ``x @ head`` (its vocabulary block where the
+    head's spec splits it over ``model``; the input then passes
+    ``axis_sum_grads``)."""
+    if split:
+        x = M.axis_sum_grads(x, sl.mesh, sl.mp)
+    return [x[s] @ heads[s].to(x[s].dtype) for s in range(sl.n)]
 
 
 def _chunk_start(sl: _Slab, s: int, S: int) -> int:
@@ -889,7 +969,8 @@ def partitioned_forward(cfg: ArchConfig, mesh: M.Mesh, live: Dict[str, List[torc
                         cache_index: Optional[int] = None, differentiable: bool,
                         seq: Optional[str] = None,
                         cache_layouts: Optional[Dict[str, Layout]] = None,
-                        last_only: bool = False):
+                        last_only: bool = False,
+                        frames: Optional[List[torch.Tensor]] = None):
     """``tokens[s]`` [B_r, S], replica ``r``'s rows on slot ``s``, through
     the partitioned decoder (the module docstring): ``(logits, aux,
     cache)``, ``logits[s]`` [B_r, S, V / M] slot ``s``'s vocabulary block
@@ -912,27 +993,21 @@ def partitioned_forward(cfg: ArchConfig, mesh: M.Mesh, live: Dict[str, List[torc
     ``positions[s]`` and ``extra_embeds[s]`` are then the whole batch's on
     every slot, each chunk taking its positions' part, and
     ``cache_layouts`` the cache leaves' layouts.  ``last_only`` computes
-    the logits of each slot's last position alone, [B_r, 1, V / M]."""
+    the logits of each slot's last position alone, [B_r, 1, V / M].
+
+    The encoder-decoder (whisper) takes ``frames[s]`` [B_r, N, D], the
+    replica's frame embeddings, through the encoder; with a ``cache``
+    (``init_whisper_cache``'s, primed by ``prime_cross_cache``) it takes no
+    frames and its decoder reads the primed cross k/v."""
     if cache is not None and differentiable:
         raise ValueError("the partitioned train forward takes no cache")
     sl = _Slab(cfg, mesh, live, layouts, seq)
-    n, mp = sl.n, sl.mp
     cdt = dtype_of(cfg.compute_dtype)
-    # the embedding, vocab-parallel where its spec splits the vocabulary
+    if cfg.is_encoder_decoder:
+        return _whisper_forward(sl, tokens, frames, cache, cache_index, differentiable,
+                                last_only)
     emb = sl.weight("embed")
-    vocab_split = sl.split_over_model("embed", 0)
-    if vocab_split:
-        V = emb[0].shape[0]
-        rows = []
-        for s in range(n):
-            ids = tokens[s] - mesh.coord(s, mp) * V
-            inside = (ids >= 0) & (ids < V)
-            r = emb[s][ids.clamp(0, V - 1)]
-            rows.append(torch.where(inside[..., None], r, torch.zeros_like(r)))
-        x = M.axis_all_reduce(rows, mesh, mp)
-    else:
-        x = [emb[s][tokens[s]] for s in range(n)]
-    x = [xi.to(cdt) for xi in x]
+    x = [xi.to(cdt) for xi in _embed(sl, "embed", emb, tokens)]
     if cfg.scale_embed:
         x = [xi * torch.tensor(cfg.d_model ** 0.5, dtype=cdt, device=xi.device) for xi in x]
     if extra_embeds is not None:  # the frontend's embeddings in place of the first N
@@ -973,15 +1048,115 @@ def partitioned_forward(cfg: ArchConfig, mesh: M.Mesh, live: Dict[str, List[torc
         x = [xi[:, -1:] for xi in x]
     x = sl.norm("final_norm", None, x)
     if cfg.tie_embeddings:
-        heads, head_split = [e.T for e in emb], vocab_split
+        logits = _head_logits(sl, [e.T for e in emb], sl.split_over_model("embed", 0), x)
     else:
-        heads, head_split = sl.weight("lm_head"), sl.split_over_model("lm_head", -1)
-    if head_split:
-        x = M.axis_sum_grads(x, mesh, mp)
-    logits = [x[s] @ heads[s].to(x[s].dtype) for s in range(n)]
+        logits = _head_logits(sl, sl.weight("lm_head"), sl.split_over_model("lm_head", -1), x)
     if cfg.logit_softcap > 0:
         logits = [torch.tanh(lg / cfg.logit_softcap) * cfg.logit_softcap for lg in logits]
     return logits, aux, cache
+
+
+def _whisper_encode(sl: _Slab, frames, differentiable: bool) -> List[torch.Tensor]:
+    """Each slot's encoder states [B_r, N, D] of its replica's ``frames``:
+    the learned positions (replicated), then each layer's bidirectional
+    self-attention and MLP as a decoder's, tensor parallel over ``model``;
+    every slot of a replica ends with the same states."""
+    cfg = sl.cfg
+    cdt = dtype_of(cfg.compute_dtype)
+    pos = sl.weight("enc/pos")
+    x = [f.to(cdt) + pos[s][None, :f.shape[1]].to(cdt) for s, f in enumerate(frames)]
+    blk, angles = cfg.blocks[0], [None] * sl.n
+    for i in range(cfg.encoder_layers):
+        pre = f"enc/layers/layer{i}"
+        a = _attention(sl, f"{pre}/attn", None, blk, sl.norm(f"{pre}/norm1", None, x), angles,
+                       differentiable=differentiable, causal=False)
+        x = [xi + ai for xi, ai in zip(x, a)]
+        f = _ffn(sl, f"{pre}/mlp", None, "mlp", sl.norm(f"{pre}/norm2", None, x),
+                 serving=not differentiable)
+        x = [xi + fi for xi, fi in zip(x, f)]
+    return sl.norm("enc/final_norm", None, x)
+
+
+def _whisper_forward(sl: _Slab, tokens, frames, cache, cache_index, differentiable: bool,
+                     last_only: bool):
+    """``partitioned_forward`` of the encoder-decoder: the frames through
+    the encoder (or, with a cache, none), the tokens through the decoder at
+    the learned positions from ``cache_index``: each layer's causal
+    self-attention (against the self cache's blocks, written in place), its
+    cross-attention over the encoder states (``wk``/``wv`` column-parallel)
+    or the primed cross cache's blocks, its MLP; the tied embedding's
+    logits, vocab-parallel where its spec splits the vocabulary."""
+    cfg = sl.cfg
+    if cache is None and frames is None:
+        raise ValueError("the partitioned whisper forward needs frames or a primed cache")
+    if cache is not None and cache_index is None:
+        raise ValueError("a whisper step against a cache takes its cache_index")
+    cdt = dtype_of(cfg.compute_dtype)
+    enc = None if cache is not None else _whisper_encode(sl, frames, differentiable)
+    S = tokens[0].shape[1]
+    offset = int(cache_index or 0)
+    pos = sl.weight("dec/pos")
+    if not 0 <= offset <= pos[0].shape[0] - S:
+        raise ValueError(f"decoder positions {offset}..{offset + S - 1} run past the "
+                         f"{pos[0].shape[0]} learned positions (max_target_len)")
+    emb = sl.weight("dec/embed")
+    x = [xi.to(cdt) + pos[s][None, offset:offset + S].to(cdt)
+         for s, xi in enumerate(_embed(sl, "dec/embed", emb, tokens))]
+    blk, angles = cfg.blocks[0], [None] * sl.n
+    for i in range(cfg.num_layers):
+        pre = f"dec/layers/layer{i}"
+        c = None if cache is None else {k: cache[f"layer{i}/{k}"] for k in ("k", "v", "xk", "xv")}
+        a = _attention(sl, f"{pre}/attn", None, blk, sl.norm(f"{pre}/norm1", None, x), angles,
+                       cache=None if c is None else {"k": c["k"], "v": c["v"]},
+                       cache_index=cache_index, differentiable=differentiable)
+        x = [xi + ai for xi, ai in zip(x, a)]
+        hx = sl.norm(f"{pre}/norm_x", None, x)
+        if c is None:
+            a = _attention(sl, f"{pre}/xattn", None, blk, hx, angles, source=enc, causal=False,
+                           differentiable=differentiable)
+        else:
+            a = _attention(sl, f"{pre}/xattn", None, blk, hx, angles, causal=False,
+                           cache={"k": c["xk"], "v": c["xv"]}, differentiable=False)
+        x = [xi + ai for xi, ai in zip(x, a)]
+        f = _ffn(sl, f"{pre}/mlp", None, "mlp", sl.norm(f"{pre}/norm2", None, x),
+                 serving=not differentiable)
+        x = [xi + fi for xi, fi in zip(x, f)]
+    if last_only:
+        x = [xi[:, -1:] for xi in x]
+    x = sl.norm("dec/final_norm", None, x)
+    logits = _head_logits(sl, [e.T for e in emb], sl.split_over_model("dec/embed", 0), x)
+    return logits, [torch.zeros((), dtype=torch.float32, device=xi.device) for xi in x], cache
+
+
+def partitioned_encode(cfg: ArchConfig, mesh: M.Mesh, live: Dict[str, List[torch.Tensor]],
+                       layouts: Dict[str, Layout], frames: List[torch.Tensor]
+                       ) -> List[torch.Tensor]:
+    """The encoder on the kernels: each slot's states [B_r, N, D] of its
+    replica's ``frames[s]`` (the same on every slot of a replica)."""
+    return _whisper_encode(_Slab(cfg, mesh, live, layouts), frames, False)
+
+
+def partitioned_prime(cfg: ArchConfig, mesh: M.Mesh, live: Dict[str, List[torch.Tensor]],
+                      layouts: Dict[str, Layout], enc: List[torch.Tensor],
+                      cache: Dict[str, List[torch.Tensor]]) -> None:
+    """Every decoder layer's cross k/v projected from each slot's encoder
+    states ``enc[s]`` and written into the slot's blocks of ``cache``
+    (``layer{i}/xk``, ``xv``, placed by ``cache_shardings``) in place: each
+    slot projects its KV heads (``wk``/``wv`` column-parallel), or, where
+    the heads do not split over ``model``, the whole gathered ``wk``/``wv``
+    and keeps its block of ``head_dim``."""
+    sl = _Slab(cfg, mesh, live, layouts)
+    hd = cfg.head_dim
+    for i in range(cfg.num_layers):
+        pre = f"dec/layers/layer{i}/xattn"
+        split, kv_split, _, hkv = _heads(sl, pre, None, False)
+        kv = _kv_weights(sl, pre, None, split, kv_split)
+        xk, xv = cache[f"layer{i}/xk"], cache[f"layer{i}/xv"]
+        for s in range(sl.n):
+            B, N, _ = enc[s].shape
+            k = (enc[s] @ kv["wk"][s]).reshape(B, N, hkv, hd)
+            v = (enc[s] @ kv["wv"][s]).reshape(B, N, hkv, hd)
+            _write_kv(sl, s, xk, xv, k, v, slice(None), slice(None))
 
 
 def gather_last(logits: List[torch.Tensor], mesh: M.Mesh, vocab: Optional[str],
@@ -1008,18 +1183,19 @@ def gather_last(logits: List[torch.Tensor], mesh: M.Mesh, vocab: Optional[str],
 def partitioned_loss(cfg: ArchConfig, mesh: M.Mesh, live: Dict[str, List[torch.Tensor]],
                      layouts: Dict[str, Layout], tokens: List[torch.Tensor], mask=None,
                      denominator: Optional[float] = None, *, positions=None,
-                     extra_embeds=None, seq: Optional[str] = None):
+                     extra_embeds=None, seq: Optional[str] = None, frames=None):
     """Each slot's loss of its replica's rows (or, with ``seq``
     ``"chunks"``, of its chunk of the sequence) and its aux loss:
-    ``tokens[s]`` (and ``mask[s]``, ``positions[s]``, ``extra_embeds[s]``)
-    through ``partitioned_forward(differentiable=True, seq=seq)``, scored
-    by ``lm_loss_vocab_parallel`` as Σ nll · mask over ``denominator``.
-    The loss is the same on every slot of a replica (or chunk), the aux
-    (the whole batch's) on every slot."""
-    check_partitionable(cfg)
+    ``tokens[s]`` (and ``mask[s]``, ``positions[s]``, ``extra_embeds[s]``,
+    the encoder-decoder's ``frames[s]``) through
+    ``partitioned_forward(differentiable=True, seq=seq)``, scored by
+    ``lm_loss_vocab_parallel`` as Σ nll · mask over ``denominator``.  The
+    loss is the same on every slot of a replica (or chunk), the aux (the
+    whole batch's) on every slot."""
+    check_partitionable(cfg, () if frames is None else ("frames",), seq=seq)
     logits, aux, _ = partitioned_forward(cfg, mesh, live, layouts, tokens, positions=positions,
                                          extra_embeds=extra_embeds, differentiable=True,
-                                         seq=seq)
+                                         seq=seq, frames=frames)
     dp, _ = grid_axes(mesh)
     return lm_loss_vocab_parallel(logits, tokens, mesh, vocab_axis(cfg, mesh, layouts), mask,
                                   denominator, seq_axis=dp if seq == "chunks" else None), aux

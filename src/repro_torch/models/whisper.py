@@ -14,6 +14,10 @@ reference computes all three in plain XLA).  ``differentiable=True`` (the
 train step) runs ``_sdpa`` instead.  With a cache, the decoder writes its
 self-attention k/v IN PLACE and the cross-attention reads the k/v that
 ``prime_cross_cache`` projected once from the encoder states.
+
+Placed params (a replica × model grid, ``launch.sharding.device_put``)
+take the partitioned encoder and priming here and the partitioned
+decoder in ``train.step``'s steps (``models.partitioned``).
 """
 from __future__ import annotations
 
@@ -26,6 +30,7 @@ from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.utils.device import resolve_device
 from repro_torch.utils.flat import dtype_of
+from repro_torch.utils.pytree import is_placed
 
 
 def _init_enc_block(cfg: ArchConfig, gen, dtype, device):
@@ -69,7 +74,13 @@ def init_whisper(cfg: ArchConfig, gen: torch.Generator, max_target_len: Optional
 def whisper_encode(cfg: ArchConfig, params, frames: torch.Tensor, *,
                    differentiable: bool = False) -> torch.Tensor:
     """frames [B, n_frames, D] (the stub frontend's embeddings) -> encoder
-    states [B, n_frames, D] in the compute dtype."""
+    states [B, n_frames, D] in the compute dtype.  On params placed on a
+    grid of several slots (``launch.sharding.device_put``) the encoder runs
+    partitioned on the kernels and its states come back placed per replica
+    (``train.step.partitioned_encode``)."""
+    if is_placed(params):
+        from repro_torch.train.step import partitioned_encode  # step imports this module
+        return partitioned_encode(cfg, params, frames)
     enc = params["enc"]
     cdt = dtype_of(cfg.compute_dtype)
     x = frames.to(cdt) + enc["pos"][None, :frames.shape[1]].to(cdt)
@@ -102,7 +113,12 @@ def init_whisper_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=None, *,
 def prime_cross_cache(cfg: ArchConfig, params, cache, enc_out: torch.Tensor):
     """Project the encoder states into every decoder layer's cross k/v (new
     tensors in the cache's dicts, as the reference replaces them); returns
-    the cache."""
+    the cache.  On placed params the cache is placed on their grid by
+    ``cache_shardings`` and each slot writes its blocks in place
+    (``train.step.partitioned_prime``)."""
+    if is_placed(params):
+        from repro_torch.train.step import partitioned_prime  # step imports this module
+        return partitioned_prime(cfg, params, cache, enc_out)
     B, Se, _ = enc_out.shape
     hd, nkv = cfg.head_dim, cfg.num_kv_heads
     for i in range(cfg.num_layers):

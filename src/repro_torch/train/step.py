@@ -22,7 +22,11 @@ encoder, its ``tokens`` through the decoder.
 Params placed by ``launch.sharding.device_put`` on a grid of several
 slots (``utils.placed.Placed`` leaves) take the partitioned step: the
 reference's ``jax.jit(step, in_shardings=...)`` over its
-``params_shardings``.  See ``make_train_step``.
+``params_shardings``.  See ``make_train_step``.  The encoder-decoder's
+``frames`` split over the batch axis like the tokens, and its encoder and
+cross-cache priming on placed params are ``partitioned_encode`` and
+``partitioned_prime`` (what ``whisper.whisper_encode`` and
+``whisper.prime_cross_cache`` call on them).
 """
 from __future__ import annotations
 
@@ -39,9 +43,9 @@ from repro_torch.models.transformer import forward_lm
 from repro_torch.optim.optimizers import Optimizer, clip_by_global_norm
 from repro_torch.train.losses import lm_loss, lm_loss_vocab_parallel
 from repro_torch.utils import op_counts as _oc
-from repro_torch.utils.placed import Placed, spec_axes
-from repro_torch.utils.pytree import (tree_device, tree_leaves, tree_leaves_with_path,
-                                      tree_map, tree_unflatten)
+from repro_torch.utils.placed import Layout, Placed, spec_axes
+from repro_torch.utils.pytree import (is_placed, tree_device, tree_leaves,
+                                      tree_leaves_with_path, tree_map, tree_unflatten)
 
 
 def make_train_state(params, optimizer: Optimizer) -> Dict[str, Any]:
@@ -202,12 +206,12 @@ def make_train_step(cfg: ArchConfig, optimizer: Optimizer, *, microbatches: int 
     def partitioned_step(state, batch):
         params = state["params"]
         named, mesh = _placed_grid(params, "params")
-        PT.check_partitionable(cfg, list(batch))
-        if grad_shardings is not None:
-            check_shardings(params)
         dp, _ = PT.grid_axes(mesh)
         R, n = mesh.extent(dp), mesh.devices.size
         seq = PT.seq_layout(*batch["tokens"].shape, R)
+        PT.check_partitionable(cfg, list(batch), seq=seq)
+        if grad_shardings is not None:
+            check_shardings(params)
         if seq is None:
             rows = _slot_rows(batch, mesh, dp)
         else:
@@ -237,7 +241,7 @@ def make_train_step(cfg: ArchConfig, optimizer: Optimizer, *, microbatches: int 
                 losses, auxes = PT.partitioned_loss(
                     cfg, mesh, live, layouts, part["tokens"], part.get("mask"), denominator,
                     positions=part.get("positions"), extra_embeds=part.get("extra_embeds"),
-                    seq=seq)
+                    seq=seq, frames=part.get("frames"))
                 objective = [l + aux_w * share * a for l, a in zip(losses, auxes)]
                 flat = [t for k, _ in named for t in live[k]]
                 grads = torch.autograd.grad(objective, flat,
@@ -324,12 +328,6 @@ def make_train_step(cfg: ArchConfig, optimizer: Optimizer, *, microbatches: int 
     return train_step
 
 
-def is_placed(params) -> bool:
-    """Whether a parameter tree is placed in blocks on a grid of several
-    slots (``utils.placed.Placed`` leaves): the partitioned steps' input."""
-    return any(isinstance(x, Placed) for x in tree_leaves(params))
-
-
 def _placed_grid(tree, what: str):
     """``(named leaves, grid)`` of a tree whose every leaf is placed on one
     grid; ``ValueError`` otherwise."""
@@ -346,20 +344,41 @@ def _placed_grid(tree, what: str):
     return named, mesh
 
 
+def _placed_cache(cfg: ArchConfig, cache, mesh: M.Mesh):
+    """``(each slot's blocks, the layouts)`` of a cache placed on the
+    params' grid ``mesh`` as ``cache_shardings`` places it, by leaf name;
+    ``ValueError`` for any other placement."""
+    dp, mp = PT.grid_axes(mesh)
+    placed, grid = _placed_grid(cache, "cache")
+    if grid.axis_names != mesh.axis_names or list(grid.devices.flat) != list(
+            mesh.devices.flat):
+        raise ValueError(f"the cache is placed on {grid!r}, the params on {mesh!r}")
+    want = dict(tree_leaves_with_path(SH.cache_shardings(mesh, cache, cfg, data_axis=dp,
+                                                         model_axis=mp)))
+    for k, x in placed:
+        spec = tuple(spec_axes(e) for e in want[k].spec)
+        spec += ((),) * (x.dim() - len(spec))
+        if x.layout.spec != spec:
+            raise ValueError(f"cache leaf {k} is placed as {x.layout.spec}; "
+                             f"cache_shardings places it as {want[k].spec}")
+    return {k: x.slot_blocks() for k, x in placed}, {k: x.layout for k, x in placed}
+
+
 @torch.no_grad()
 def _partitioned_last_logits(cfg: ArchConfig, params, tokens, cache=None,
                              cache_index=None, *, positions=None,
-                             extra_embeds=None) -> torch.Tensor:
+                             extra_embeds=None, frames=None) -> torch.Tensor:
     """The serving steps on placed params: ``tokens`` [B, S] (a tensor,
     an array, or placed by ``batch_shardings`` on the params' grid) through
     ``models.partitioned.partitioned_forward`` on the kernels, against
     ``cache`` (placed on the same grid by ``cache_shardings``, updated in
     place) at ``cache_index``; the last position's logits [B, V] gathered
-    on slot 0's device.  M-RoPE ``positions`` [3, B, S] and
-    ``extra_embeds`` [B, N, D] (whole, or placed by ``batch_shardings``)
-    split over the batch axis as the tokens do: the prefill step's, and a
-    vision prompt's prefill into the cache (``forward_lm(cache=,
-    cache_index=0, positions=, extra_embeds=)`` on whole params).
+    on slot 0's device.  M-RoPE ``positions`` [3, B, S], ``extra_embeds``
+    [B, N, D] and the encoder-decoder's ``frames`` [B, N, D] (whole, or
+    placed by ``batch_shardings``) split over the batch axis as the tokens
+    do: the prefill step's, and a vision prompt's prefill into the cache
+    (``forward_lm(cache=, cache_index=0, positions=, extra_embeds=)`` on
+    whole params).
 
     A batch the batch axis does not divide lies as ``batch_shardings``
     places it (``models.partitioned.seq_layout``): the sequence split into
@@ -369,30 +388,17 @@ def _partitioned_last_logits(cfg: ArchConfig, params, tokens, cache=None,
     prefill and decode); ``positions`` and ``extra_embeds`` are then whole
     on every slot, each chunk taking its part."""
     named, mesh = _placed_grid(params, "params")
-    dp, mp = PT.grid_axes(mesh)
-    PT.check_partitionable(cfg, serving=True)
+    dp, _ = PT.grid_axes(mesh)
     B, S = tokens.shape
-    R = mesh.extent(dp)
-    seq = PT.seq_layout(B, S, R)
+    seq = PT.seq_layout(B, S, mesh.extent(dp))
+    batch = {k: v for k, v in (("tokens", tokens), ("positions", positions),
+                               ("extra_embeds", extra_embeds), ("frames", frames))
+             if v is not None}
+    PT.check_partitionable(cfg, list(batch), serving=True, seq=seq)
     blocks = layouts_c = None
     if cache is not None:
-        placed, grid = _placed_grid(cache, "cache")
-        if grid.axis_names != mesh.axis_names or list(grid.devices.flat) != list(
-                mesh.devices.flat):
-            raise ValueError(f"the cache is placed on {grid!r}, the params on {mesh!r}")
-        want = dict(tree_leaves_with_path(SH.cache_shardings(mesh, cache, cfg, data_axis=dp,
-                                                             model_axis=mp)))
-        for k, x in placed:
-            spec = tuple(spec_axes(e) for e in want[k].spec)
-            spec += ((),) * (x.dim() - len(spec))
-            if x.layout.spec != spec:
-                raise ValueError(f"cache leaf {k} is placed as {x.layout.spec}; "
-                                 f"cache_shardings places it as {want[k].spec}")
-        blocks = {k: x.slot_blocks() for k, x in placed}
-        layouts_c = {k: x.layout for k, x in placed}
+        blocks, layouts_c = _placed_cache(cfg, cache, mesh)
     layouts = {k: x.layout for k, x in named}
-    batch = {k: v for k, v in (("tokens", tokens), ("positions", positions),
-                               ("extra_embeds", extra_embeds)) if v is not None}
     if seq is None:
         rows = _slot_rows(batch, mesh, dp)
     else:
@@ -402,8 +408,48 @@ def _partitioned_last_logits(cfg: ArchConfig, params, tokens, cache=None,
                                           positions=rows.get("positions"),
                                           extra_embeds=rows.get("extra_embeds"), cache=blocks,
                                           cache_index=cache_index, differentiable=False,
-                                          seq=seq, cache_layouts=layouts_c, last_only=True)
+                                          seq=seq, cache_layouts=layouts_c, last_only=True,
+                                          frames=rows.get("frames"))
     return PT.gather_last(logits, mesh, PT.vocab_axis(cfg, mesh, layouts), seq)
+
+
+@torch.no_grad()
+def partitioned_encode(cfg: ArchConfig, params, frames) -> Placed:
+    """``whisper.whisper_encode`` on placed params: ``frames`` [B, N, D]
+    (whole, or placed by ``batch_shardings``) split over the batch axis,
+    the encoder run on the kernels, tensor parallel over ``model``; the
+    states come back per replica, a leaf placed over the batch axis
+    (``batch_shardings``' placement of [B, N, D]) on the params' grid."""
+    named, mesh = _placed_grid(params, "params")
+    dp, _ = PT.grid_axes(mesh)
+    B = frames.shape[0]
+    PT.check_partitionable(cfg, ["frames"], serving=True,
+                           seq=PT.seq_layout(B, 1, mesh.extent(dp)))
+    rows = _slot_rows({"frames": frames}, mesh, dp)["frames"]
+    enc = PT.partitioned_encode(cfg, mesh, {k: x.slot_blocks() for k, x in named},
+                                {k: x.layout for k, x in named}, rows)
+    lay = Layout((B,) + tuple(enc[0].shape[1:]), ((dp,) if dp else (),), mesh)
+    return Placed(lay, [enc[s] for s in lay.first_slot])
+
+
+@torch.no_grad()
+def partitioned_prime(cfg: ArchConfig, params, cache, enc_out):
+    """``whisper.prime_cross_cache`` on placed params: every decoder
+    layer's cross k/v from the encoder states ``enc_out`` (``whisper_encode``'s
+    per-replica leaf, or whole [B, N, D]) written into the blocks of the
+    ``xk``/``xv`` leaves of ``cache`` (placed on the params' grid by
+    ``cache_shardings``: batch over the batch axis, heads over ``model``,
+    or ``head_dim`` where the heads do not divide), in place.  Returns the
+    cache."""
+    named, mesh = _placed_grid(params, "params")
+    dp, _ = PT.grid_axes(mesh)
+    PT.check_partitionable(cfg, ["frames"], serving=True,
+                           seq=PT.seq_layout(enc_out.shape[0], 1, mesh.extent(dp)))
+    blocks, _ = _placed_cache(cfg, cache, mesh)
+    rows = _slot_rows({"enc": enc_out}, mesh, dp)["enc"]
+    PT.partitioned_prime(cfg, mesh, {k: x.slot_blocks() for k, x in named},
+                         {k: x.layout for k, x in named}, rows, blocks)
+    return cache
 
 
 def _slot_sequence(tokens, mesh: M.Mesh, dp, seq: str, long: bool = True) -> list:
@@ -549,9 +595,9 @@ def _partitioned_eval(cfg: ArchConfig, params, batch) -> torch.Tensor:
     whole batch's count of scored pairs, summed over the batch axis (one
     all-reduce): the loss on slot 0's device."""
     named, mesh = _placed_grid(params, "params")
-    PT.check_partitionable(cfg, list(batch), serving=True)
     dp, _ = PT.grid_axes(mesh)
     seq = PT.seq_layout(*batch["tokens"].shape, mesh.extent(dp))
+    PT.check_partitionable(cfg, list(batch), serving=True, seq=seq)
     rows = (_slot_rows(batch, mesh, dp) if seq is None
             else _slot_sequence_batch(batch, mesh, dp, seq))
     layouts = {k: x.layout for k, x in named}
@@ -559,7 +605,8 @@ def _partitioned_eval(cfg: ArchConfig, params, batch) -> torch.Tensor:
                                           layouts, rows["tokens"],
                                           positions=rows.get("positions"),
                                           extra_embeds=rows.get("extra_embeds"),
-                                          differentiable=False, seq=seq)
+                                          differentiable=False, seq=seq,
+                                          frames=rows.get("frames"))
     losses = lm_loss_vocab_parallel(logits, rows["tokens"], mesh,
                                     PT.vocab_axis(cfg, mesh, layouts), rows.get("mask"),
                                     _pairs(rows, mesh, dp, seq),
@@ -581,10 +628,10 @@ def make_prefill_step(cfg: ArchConfig) -> Callable:
 
     def prefill_step(params, batch):
         if is_placed(params):
-            PT.check_partitionable(cfg, list(batch), serving=True)
             return _partitioned_last_logits(cfg, params, batch["tokens"],
                                             positions=batch.get("positions"),
-                                            extra_embeds=batch.get("extra_embeds"))
+                                            extra_embeds=batch.get("extra_embeds"),
+                                            frames=batch.get("frames"))
         return _logits(cfg, params, batch, differentiable=False)[0][:, -1]
 
     return prefill_step

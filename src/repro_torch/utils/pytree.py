@@ -32,6 +32,12 @@ def tree_leaves(tree) -> List[torch.Tensor]:
     return [leaf for _, leaf in tree_leaves_with_path(tree)]
 
 
+def is_placed(tree) -> bool:
+    """Whether a parameter tree is placed in blocks on a grid of several
+    slots (``utils.placed.Placed`` leaves): the partitioned steps' input."""
+    return any(isinstance(x, Placed) for x in tree_leaves(tree))
+
+
 def tree_map_with_name(fn: Callable[[str, Any], Any], tree, prefix: str = ""):
     """Map ``fn(name, leaf)`` over a tree, ``name`` the ``/``-joined path
     (``repro.utils.pytree.tree_map_with_name``'s names for dict trees)."""

@@ -572,7 +572,9 @@ def test_cp_collective_formula_at_full_width():
     rwkv6-7b with FSDP and granite-moe-1b-a400m, B = 1 on (data 2, model
     2)) as PERF.md §5 writes them, and the cache blocks ``cache_shardings``
     gives there: gemma3-1b's 32,768-slot caches split over data (16,384 a
-    slot) and head_dim over model; rwkv6-7b's state whole over data."""
+    slot) and head_dim over model; rwkv6-7b's state whole over data.  At
+    full depth: the phase cuts rwkv6-7b and granite-moe to 8 layers (the
+    counts scale with the layers)."""
     want = {"gemma3-1b": (32_768, "scan/pos5/k", (4, 1, 16_384, 1, 128),
                           ({"all_reduce": 53, "all_gather": 105, "reduce_scatter": 0,
                             "broadcast": 1}, {"model": 106, "data": 53}),

@@ -506,7 +506,10 @@ def test_cp_train_collective_formula_at_full_width():
     (data 2, model 2)) as PERF.md §5 writes them: gemma3-1b at 1 x 4,096
     (chunks) and its 6 layers at 1 x 4,095 (every slot the whole
     sequence), granite-moe-1b-a400m at 1 x 2,048, rwkv6-7b at 2 layers and
-    jamba at its layer 0 at 1 x 1,024 (FSDP), qwen2-vl-72b at 1 layer."""
+    jamba at its layer 0 at 1 x 1,024 (FSDP), qwen2-vl-72b at 1 layer.
+    The phase trains gemma3-1b at 1 x 2,048, granite-moe at 1 x 1,024 and
+    rwkv6-7b and jamba at 1 x 256: in two chunks, the counts do not depend
+    on the length."""
     from unittest import mock
 
     def draw(*args, **kw):

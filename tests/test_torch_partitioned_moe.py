@@ -652,7 +652,8 @@ def test_collective_formulas_at_full_width():
     granite-moe-1b-a400m (24 layers), mixtral-8x7b at 4 layers (FSDP) and
     qwen2-vl-72b at 8 layers (FSDP) on (data 2, model 2), and the train
     steps of granite-moe and of mixtral at 2 layers on (replica 2, model
-    2)."""
+    2).  The phase serves granite-moe at 8 of its 24 layers; its counts
+    scale with the layers."""
     serve = {"granite-moe-1b-a400m": (None, ({"all_reduce": 48, "all_gather": 25,
                                               "reduce_scatter": 0},
                                              {"model": 48, "data": 25})),

@@ -327,7 +327,9 @@ def test_serve_collective_formula_at_full_width():
     (gemma3-1b, mistral-nemo-12b with FSDP and rwkv6-7b with FSDP, each on
     (data 2, model 2)), as PERF.md §5 writes them, and the cache blocks
     ``cache_shardings`` gives there (gemma3-1b's head_dim split), from the
-    full-width specs built on the meta device."""
+    full-width specs built on the meta device, at full depth (the phase
+    cuts rwkv6-7b to 8 layers and mistral-nemo-12b to 10; the counts scale
+    with the layers)."""
     want = {"gemma3-1b": ({"all_reduce": 53, "all_gather": 106, "reduce_scatter": 0},
                           {"model": 158, "data": 1}, "scan/pos5/k", (4, 2, 1280, 1, 128)),
             "mistral-nemo-12b": ({"all_reduce": 81, "all_gather": 284, "reduce_scatter": 0},
@@ -369,12 +371,13 @@ def _placed_any(params, cfg, mesh):
 
 
 @pytest.mark.parametrize("arch, part, entry", [
-    ("whisper-tiny", "encoder-decoder (whisper)", "generate"),
+    ("whisper-tiny", "attention: 6 query heads do not split over model = 4", "generate"),
     ("gemma3-1b", "step of 4 positions at cache_index 4 at a batch the batch axis does not "
      "divide (a chunked prefill)", "serve_at"),
-    ("whisper-tiny", "encoder-decoder (whisper)", "prefill"),
+    ("whisper-tiny", "encoder-decoder (whisper) at a batch the batch axis does not divide",
+     "prefill"),
     ("gemma3-1b", "batch input 'frames'", "prefill"),
-    ("whisper-tiny", "encoder-decoder (whisper)", "serve"),
+    ("whisper-tiny", "attention: 6 query heads do not split over model = 4", "serve"),
     ("roberta-base", "encoder (RoBERTa)", "prefill"),
     ("qwen2-vl-72b", "step of 3 positions at cache_index 4 at a batch the batch axis does not "
      "divide (a chunked prefill)", "serve_at"),
@@ -390,41 +393,55 @@ def test_partitioned_serving_refusals(arch, part, entry):
     ``tests/test_torch_context_parallel_train.py``), but not a prompt
     after the first at such a batch: its chunks (gemma3-1b) or a
     multi-position step every slot holds whole (qwen2-vl) against a cache
-    whose sequence is split over data."""
-    mesh = tmesh.make_mesh((2, 2), ("data", "model"), device="cpu")
+    whose sequence is split over data.  The encoder-decoder serves
+    partitioned since ``tests/test_torch_partitioned_whisper.py``, but not
+    at 3 rows over 2 data slots, nor with 6 query heads on ``model`` 4
+    (reduced whisper at d 192) in its generate (the encoder first) and its
+    serve step."""
+    six = "query heads" in part
+    mesh = tmesh.make_mesh((1, 4) if six else (2, 2), ("data", "model"), device="cpu")
     gen = torch.Generator().manual_seed(0)
     if arch == "roberta-base":
         cfg = TINY
         params = _placed_any(TE.init_encoder_body(cfg, gen, device="cpu"), cfg, mesh)
     else:
-        cfg = reduce_config(get_config(arch))
+        cfg = reduce_config(get_config(arch), d_model=192 if six else 128)
         if arch == "whisper-tiny":
             from repro_torch.models.whisper import init_whisper
+            if six:
+                cfg = dataclasses.replace(cfg, num_heads=6, num_kv_heads=6, head_dim=32)
             params = _placed_any(init_whisper(cfg, gen, device="cpu"), cfg, mesh)
         else:
             params = _placed_any(TT.init_lm(cfg, gen, device="cpu"), cfg, mesh)
-    rows = 3 if entry == "serve_at" else 4
+    rows = 3 if entry == "serve_at" or "does not divide" in part else 4
     toks = np.random.default_rng(0).integers(3, cfg.vocab_size, (rows, 5))
     match = (f"partitioned serving steps does not run {cfg.name}'s "
              + part.replace("(", r"\(").replace(")", r"\)"))
     with pytest.raises(NotImplementedError, match=match):
         if entry == "generate" and cfg.is_encoder_decoder:
             # whisper's greedy generate (``Engine`` drives decoder-only archs):
-            # the prompt into its cache through the serve step, then a token a step
-            from repro_torch.models.whisper import init_whisper_cache
+            # encode and prime, the prompt through the serve step, then a token a step
+            from repro_torch.models import whisper as TW
+            cache = TW.init_whisper_cache(cfg, rows, 16, device="cpu")
+            cache = tsh.device_put(cache, tsh.cache_shardings(mesh, cache, cfg))
+            frames = torch.zeros((rows, cfg.encoder_seq, cfg.d_model))
+            cache = TW.prime_cross_cache(cfg, params, cache,
+                                         TW.whisper_encode(cfg, params, frames))
             step = make_serve_step(cfg)
-            logits, cache = step(params, init_whisper_cache(cfg, rows, 16, device="cpu"), toks,
-                                 0)
+            logits, cache = step(params, cache, toks, 0)
             step(params, cache, torch.argmax(logits, -1)[:, None], toks.shape[1])
         elif entry == "generate":
             Engine(cfg, params, max_len=16).generate(toks, max_new_tokens=2)
         elif entry.startswith("prefill"):
             batch = {"tokens": toks}
-            if "frames" in part:
+            if "frames" in part or cfg.is_encoder_decoder:
                 batch["frames"] = np.zeros((rows, 8, cfg.d_model), np.float32)
             make_prefill_step(cfg)(params, batch)
         elif entry == "serve_at":
             _, cache = Engine(cfg, params, max_len=16)._start(params, toks)
             make_serve_step(cfg)(params, cache, toks[:, :int(part.split()[2])], 4)
         else:
-            make_serve_step(cfg)(params, None, toks[:, :1], 0)
+            from repro_torch.models.whisper import init_whisper_cache
+            cache = init_whisper_cache(cfg, rows, 16, device="cpu")
+            cache = tsh.device_put(cache, tsh.cache_shardings(mesh, cache, cfg))
+            make_serve_step(cfg)(params, cache, toks[:, :1], 0)
