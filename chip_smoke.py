@@ -494,6 +494,27 @@ Phases (any failed check raises, so the script exits non-zero):
    model's tokens within 4x the yardstick (``tp_agreement``), and the
    prefill step (tokens and frames) against the whole one.  Its record is
    a ``{"partitioned_whisper": ...}`` line.
+25. **Whisper at a batch the batch axis does not divide** (slice 21,
+   ``phase_context_parallel_whisper``): one audio request on ``(data 2,
+   model 2)``, the encoder's 1,500 positions and the cross cache's in two
+   chunks of 750 over data.  First ``flash_attention`` at its per-slot
+   shapes (3 of the 6 heads of 64), bf16 and f32, against the plain
+   versions: the encoder's chunk q [1, 750, 3, 64] over the 1,500 gathered
+   keys, bidirectional; the cross-attention's non-causal ``decode_partial``
+   over each 750-key block for one token (q [1, 1, 3, 64]) and the
+   prompt's 4 rows (q [1, 4, 3, 64]); ``decode_merge`` of both blocks,
+   also against ``flash_attention_plain`` over all 1,500 keys; each timed
+   in bf16 beside its plain version, its bound and SDPA over the whole
+   1,500 keys (``[time]`` lines).  Then phase 24's train side at 1 x 448
+   tokens (in chunks) and 1 x 447 (the whole layout), each with 1 x 1,500
+   frames, on ``(data 2, model 2)`` (``pwhisper_train``: gradients and
+   updated params against the whole step, the collectives
+   ``partitioned_collectives(seq=)``', idle share and peak), and its
+   serving side at B = 1, 4 -> 32 (``pwhisper_serve(B=1)``: launches exact
+   by route, ``cpw_routes``; the collectives of encode, prime, the prompt
+   and each token ``whisper_collectives(step=)``'; the logits against the
+   whole model's).  Its record is a ``{"context_parallel_whisper": ...}``
+   line.
 
 Each phase prints ``[phase] <n> <name> <seconds> s``, its wall seconds
 from start to end, before the last lines (phases 3 and 4 alternate, one
@@ -504,8 +525,8 @@ phase 16's serves), before each model of phases 9, 13 and 14, around
 phases 12's, 13's and 14's eval steps and generates, around each run of
 phase 15's mesh daemon, around phase 17's counted prefill and decode step
 and around each of phase 19's, 20's, 21's and 22's partitioned generates,
-phase 23's train steps and context-parallel generate and phase 24's
-partitioned greedy run, every kernel's launch
+phase 23's train steps and context-parallel generate and phases 24's and
+25's partitioned greedy runs, every kernel's launch
 counter is set to 0; it is read just after.  The last lines are the
 kernels' JSON record (launches from phase 7 for the three fuse kernels, with phase 10's
 as ``launches_routed``, from phase 9 for the other two, phase 11's as
@@ -516,13 +537,15 @@ as ``launches_routed``, from phase 9 for the other two, phase 11's as
 ``launches_dryrun``, phase 19's partitioned generates summed as
 ``launches_partitioned_serve``, phase 20's as
 ``launches_partitioned_moe``, phase 21's as ``launches_partitioned_ssm``,
-phase 22's as ``launches_context_parallel`` and phase 24's as
-``launches_partitioned_whisper`` for all five; phase 15's times under
-``mesh``; phases 19's to 24's per-slot checks as ``per_slot_max_abs_err``;
-each kernel's ``cost_formula``; phase 22's and phase 24's ``[time]`` lines
+phase 22's as ``launches_context_parallel``, phase 24's as
+``launches_partitioned_whisper`` and phase 25's as
+``launches_context_parallel_whisper`` for all five; phase 15's times under
+``mesh``; phases 19's to 25's per-slot checks as ``per_slot_max_abs_err``;
+each kernel's ``cost_formula``; phases 22's, 24's and 25's ``[time]`` lines
 among ``flash_attention``'s ``routes`` and their launches by route as
-``launches_by_route_context_parallel`` and
-``launches_by_route_partitioned_whisper``, and one record each for the
+``launches_by_route_context_parallel``,
+``launches_by_route_partitioned_whisper`` and
+``launches_by_route_context_parallel_whisper``, and one record each for the
 two new entries, ``flash_attention.decode_partial`` and
 ``flash_attention.decode_merge``), phase 16's record as a ``{"cold_mesh": ...}``
 line, phase 17's as a ``{"dryrun": ...}`` line, phase 18's as a
@@ -531,7 +554,8 @@ line, phase 17's as a ``{"dryrun": ...}`` line, phase 18's as a
 ...}`` line, phase 21's as a ``{"partitioned_ssm": ...}`` line, phase
 22's as a ``{"context_parallel": ...}`` line, phase 23's as a
 ``{"context_parallel_train": ...}`` line, phase 24's as a
-``{"partitioned_whisper": ...}`` line, ``nvidia-smi``'s line and
+``{"partitioned_whisper": ...}`` line, phase 25's as a
+``{"context_parallel_whisper": ...}`` line, ``nvidia-smi``'s line and
 ``{"ok": true, "device": {...}}``.  Without a card (or without the rest of
 the repository beside it) the script exits non-zero and prints no result.
 """
@@ -4962,9 +4986,14 @@ def partitioned_collectives(cfg, psh, R: int, M: int, microbatches: int = 1, opt
     ``wo``'s all-reduce, their input's backward all-reduce, their KV
     weights' gathers) and its encoder's MLPs as FFNs; a cross-attention's
     encoder states add one backward all-reduce (each slot's heads' share
-    of their gradient)."""
+    of their gradient).  At a batch the batch axis does not divide (phase
+    25), where R divides the N frames (the encoder's positions in R
+    chunks), each encoder layer's and each cross-attention's k and v are
+    all-gathered and reduce-scattered back over the batch axis, in either
+    layout of the tokens; the decoder's self-attention counts as a
+    decoder's attention layer."""
     hd = cfg.head_dim
-    L = sum(b.mixer == "attn" for b in cfg.blocks)
+    L = n_self = sum(b.mixer == "attn" for b in cfg.blocks)
     n_dense = sum(b.ffn in ("glu", "mlp") for b in cfg.blocks)
     n_moe = sum(b.ffn == "moe" for b in cfg.blocks)
     n_cross = cfg.num_layers if cfg.is_encoder_decoder else 0
@@ -5001,10 +5030,15 @@ def partitioned_collectives(cfg, psh, R: int, M: int, microbatches: int = 1, opt
         if seq != "whole":
             ar += n_moe
             counts = n_moe * (cfg.moe.routing != "dense")
+        # the encoder's and the cross-attention's k/v over the frames' chunks
+        frames = 2 * (cfg.encoder_layers + n_cross) * (seq is not None
+                                                        and cfg.encoder_seq % R == 0)
+        ag += frames
+        rs += frames
         if seq == "chunks":
             n_rwkv = sum(b.mixer == "rwkv" for b in cfg.blocks)
             n_mamba = sum(b.mixer == "mamba" for b in cfg.blocks)
-            edges = 2 * L + 2 * n_rwkv + n_mamba
+            edges = 2 * n_self + 2 * n_rwkv + n_mamba
             ag += edges + 1
             rs += edges
             perm = 2 * (R - 1) * (n_rwkv + n_mamba)
@@ -5956,7 +5990,8 @@ def serve_collectives(cfg, psh, R: int, M: int, *, cached: bool = True, data_axi
 WHISPER_FORWARDS = ("encode", "prime", "prefill", "serve")
 
 
-def whisper_collectives(cfg, psh, R: int, M: int, what: str, data_axis="data"):
+def whisper_collectives(cfg, psh, R: int, M: int, what: str, data_axis="data", *, step=None,
+                        max_len=None):
     """The collectives of one of the encoder-decoder's partitioned forwards
     on a (data R, model M) grid, the formula PERF.md §5 states, as
     ``({kind: count}, {axis: count})``: ``"encode"`` (``whisper_encode``),
@@ -5972,13 +6007,29 @@ def whisper_collectives(cfg, psh, R: int, M: int, what: str, data_axis="data"):
     which reads the primed cache); in a serve step, where the caches' spec
     splits ``head_dim``, each layer's self and cross k and v all-gathered.
     Over the batch axis: each use of a leaf FSDP splits (the leaves that
-    forward uses), and the decoder's last logits."""
+    forward uses), and the decoder's last logits.
+
+    ``step`` names a forward at a batch the batch axis does not divide
+    (phase 25): the tokens' layout, ``"chunks"`` or ``"whole"`` (the
+    prefill step, or a prompt at ``cache_index`` 0), or ``"decode"`` (one
+    token); any of them for an encode or a prime.  Over ``model`` the same,
+    but a serve step gathers the self cache's ``head_dim`` at a decode step
+    only.  Over the batch axis, where R divides the N frames (the encoder's
+    positions and the cross cache's in R chunks): each encoder layer's k
+    and v all-gathered, and each cross-attention's (the prefill step); a
+    serve step's cross-attention gathers the partials of its blocks (one a
+    layer), after a chunked prompt's query rows (one more).  The
+    decoder's self-attention: a chunked prompt's k and v gathered (two a
+    layer), a decode step's partials (one a layer, where R divides the self
+    cache's ``max_len``, None for yes).  The last logits of a chunked
+    prompt are broadcast from the last chunk (one), a whole one's are
+    slot 0's."""
     if what not in WHISPER_FORWARDS:
         raise ValueError(f"whisper_collectives: {what!r} is none of {WHISPER_FORWARDS}")
     Le, Ld = cfg.encoder_layers, cfg.num_layers
     hd, Hkv = cfg.head_dim, cfg.num_kv_heads
     enc, dec = what in ("encode", "prefill"), what in ("prefill", "serve")
-    ar = ag_m = ag_d = 0
+    ar = ag_m = ag_d = bcast = 0
     if M > 1:
         vocab = dec and cfg.vocab_size % M == 0
         attn = (cfg.num_heads * hd) % M == 0
@@ -5987,16 +6038,30 @@ def whisper_collectives(cfg, psh, R: int, M: int, what: str, data_axis="data"):
         projecting = Le * enc + Ld * ((what == "prefill") + dec + (what == "prime"))
         ag_m += vocab + 2 * projecting * kv_gathered
         if what == "serve" and Hkv % M and hd % M == 0:
-            ag_m += 4 * Ld
+            ag_m += 4 * Ld if step in (None, "decode") else 2 * Ld
     if R > 1:
         cross_kv = re.compile(r"^dec/layers/layer\d+/xattn/w[kv]$")
         used = {"encode": lambda n: n.startswith("enc/"), "prime": cross_kv.match,
                 "prefill": lambda n: True,
                 "serve": lambda n: n.startswith("dec/") and not cross_kv.match(n)}[what]
         ag_d += sum(1 for name, sh in tree_leaves_with_path(psh)
-                    if data_axis in sh.spec and used(name)) + dec
+                    if data_axis in sh.spec and used(name))
+        if step is None:
+            ag_d += dec
+        else:
+            frames = cfg.encoder_seq % R == 0
+            ag_d += 2 * Le * enc * frames
+            if what == "prefill":
+                ag_d += 2 * Ld * (step == "chunks") + 2 * Ld * frames
+            elif what == "serve" and step == "decode":
+                ag_d += Ld * (max_len is None or max_len % R == 0) + Ld * frames
+            elif what == "serve":
+                ag_d += 2 * Ld * (step == "chunks") + Ld * frames * (1 + (step == "chunks"))
+            bcast += dec and step == "chunks"
     kinds = {"all_reduce": ar, "all_gather": ag_m + ag_d, "reduce_scatter": 0}
-    return kinds, {a: n for a, n in (("model", ar + ag_m), (data_axis, ag_d)) if n}
+    if bcast:
+        kinds["broadcast"] = bcast
+    return kinds, {a: n for a, n in (("model", ar + ag_m), (data_axis, ag_d + bcast)) if n}
 
 
 def pserve_routes(cfg, prompt_len, new_tokens, n_slots: int, M: int):
@@ -7693,20 +7758,24 @@ def pwhisper_slot_checks(gen, card):
     return max(errs), lines
 
 
-def pwhisper_train(card):
-    """Phase 24's train side: one f32 AdamW step of whisper-tiny whole (its
-    gradients kept, a second step timed), then on (data 2, model 2) and,
-    with fsdp=True, on (replica 2, model 2): loss and grad_norm within rtol
-    PARTITIONED_RTOL, every gradient within PARTITIONED_RTOL / ATOL of the
-    whole step's, every updated parameter within the same bounds of the
-    whole optimizer's update of the same gradients (AdamW's first step is
-    about lr · sign(g): a gradient near zero that rounds the other way
-    would move the whole step's by 2 lr), the collectives the formula's,
+def pwhisper_train(card, shape=PWHISPER_TRAIN, runs=(("data", False), ("replica", True)),
+                   tag="pwhisper"):
+    """Phase 24's train side (phase 25's at B = 1, ``shape`` the tokens'
+    [B, S]): one f32 AdamW step of whisper-tiny whole (its gradients kept,
+    a second step timed), then on (data 2, model 2) and, with fsdp=True, on
+    (replica 2, model 2) (``runs``: (batch axis, fsdp) each): loss and
+    grad_norm within rtol PARTITIONED_RTOL, every gradient within
+    PARTITIONED_RTOL / ATOL of the whole step's and its largest difference
+    within PARTITIONED_RTOL of its largest value, every updated parameter
+    within the same bounds of the whole optimizer's update of the same
+    gradients (AdamW's first step is about lr · sign(g): a gradient near
+    zero that rounds the other way would move the whole step's by 2 lr),
+    the collectives the formula's (``partitioned_collectives(seq=)``),
     bytes a slot ``dryrun.slot_bytes``; a second step timed, a third under
     ``torch.profiler``; then the eval step on the placed params, launches
     exact by route.  Returns the record."""
     dev = torch.device("cuda")
-    Bt, St = PWHISPER_TRAIN
+    Bt, St = shape
     opt = make_optimizer(WHISPER.optimizer, constant_lr(PWHISPER_LR))
     toks = np.random.default_rng(24).integers(3, WHISPER.vocab_size, (Bt, St))
     frames = torch.randn((Bt, WHISPER.encoder_seq, WHISPER.d_model),
@@ -7736,8 +7805,8 @@ def pwhisper_train(card):
     whole_eval = float(make_eval_step(cfg)(state["params"], batch))
     del state, new
     torch.cuda.empty_cache()
-    runs = []
-    for axis, fsdp in (("data", False), ("replica", True)):
+    records = []
+    for axis, fsdp in runs:
         c = dataclasses.replace(cfg, fsdp=fsdp)
         mesh = make_mesh(PWHISPER_GRID, (axis, "model"))
         state = fresh_state(c)
@@ -7751,8 +7820,9 @@ def pwhisper_train(card):
         slot_got = sharding_mod.placed_slot_bytes(placed, mesh)
         check(slot_got == [slot_want] * mesh.devices.size,
               f"whisper-tiny: placed bytes a slot {slot_got}, dryrun.slot_bytes {slot_want:,}")
+        seq = pt_mod.seq_layout(Bt, St, PWHISPER_GRID[0])
         cols_want = partitioned_collectives(c, psh, *PWHISPER_GRID, opt_name=c.optimizer,
-                                            mesh=mesh)
+                                            mesh=mesh, seq=seq)
         step = make_train_step(c, opt, grad_sync=keep)
         reset_cards_peak()
         mesh_mod.reset_collectives()
@@ -7790,10 +7860,13 @@ def pwhisper_train(card):
             vs_whole = max(vs_whole, ((got - want_new[k]).abs().max() / PWHISPER_LR).item())
         del grads, sub, clipped, upd, new_leaves, new_p
         worst.update({"grads": g_worst, "params": p_worst})
+        if g_worst > PARTITIONED_RTOL:
+            failed.append(f"a gradient {g_worst:.3g} of its largest value off the whole step's")
         _, step_ms = timed_run(lambda: step(placed, batch))
         split = device_split(lambda: step(placed, batch))
         print_split("whisper-tiny", f"partitioned train step on {mesh!r} (fsdp {fsdp}, f32 AdamW, "
-                    f"{Bt} x {St} tokens, {Bt} x {WHISPER.encoder_seq} frames)", step_ms, split)
+                    f"{Bt} x {St} tokens ({seq or 'rows'}), {Bt} x {WHISPER.encoder_seq} frames)",
+                    step_ms, split)
         # the eval step on the placed params, on the kernels
         reset_launches()
         p_eval = float(make_eval_step(c)(placed["params"], batch))
@@ -7807,11 +7880,13 @@ def pwhisper_train(card):
               f"whole model's {whole_eval}")
         del placed, pm
         torch.cuda.empty_cache()
-        print(f"[pwhisper] whisper-tiny train step ({c.encoder_layers} + {c.num_layers} "
-              f"layers, f32, {c.optimizer}, {Bt} x {St} tokens, {Bt} x {c.encoder_seq} frames) "
-              f"on {mesh!r} (fsdp {fsdp}): whole second "
+        print(f"[{tag}] whisper-tiny train step ({c.encoder_layers} + {c.num_layers} "
+              f"layers, f32, {c.optimizer}, {Bt} x {St} tokens ({seq or 'rows'} over {axis}), "
+              f"{Bt} x {c.encoder_seq} frames) on {mesh!r} (fsdp {fsdp}): whole second "
               f"step {whole_ms:.1f} ms, partitioned first {first_ms:.1f} ms, second "
-              f"{step_ms:.1f} ms; peak {peak:.2f} GiB (whole {whole_peak:.2f}); collectives "
+              f"{step_ms:.1f} ms, device idle "
+              + ("not measured" if split is None else f"{max(0.0, 1 - split[0] / step_ms):.1%}")
+              + f"; peak {peak:.2f} GiB (whole {whole_peak:.2f}); collectives "
               f"{cols} (the formula's {cols_want}), carrying {nbytes} bytes; largest difference "
               f"over the largest value {worst} (bounds rtol/atol {PARTITIONED_RTOL:g}; params "
               f"against the whole optimizer's update of the same gradients; against the whole "
@@ -7822,8 +7897,8 @@ def pwhisper_train(card):
               f"collectives {cols}, expected {cols_want}")
         check(not failed, f"whisper-tiny (fsdp {fsdp}): the partitioned step against the whole "
               f"step, beyond rtol/atol {PARTITIONED_RTOL:g}/{PARTITIONED_ATOL:g}: {failed[:8]}")
-        runs.append({"grid": list(PWHISPER_GRID), "axes": [axis, "model"], "fsdp": fsdp,
-                     "first_ms": first_ms, "step_ms": step_ms,
+        records.append({"grid": list(PWHISPER_GRID), "axes": [axis, "model"], "fsdp": fsdp,
+                        "tokens": [Bt, St], "seq": seq, "first_ms": first_ms, "step_ms": step_ms,
                      "device_busy_ms": None if split is None else split[0], "peak_gib": peak,
                      "collectives": cols, "collective_bytes": nbytes, "worst": worst,
                      "updated_vs_whole_in_lr": vs_whole, "slot_bytes": slot_want,
@@ -7832,24 +7907,26 @@ def pwhisper_train(card):
     kept.clear()
     torch.cuda.empty_cache()
     return {"whole_ms": whole_ms, "whole_peak_gib": whole_peak, "whole_eval_loss": whole_eval,
-            "loss": wm["loss"].item(), "grad_norm": wm["grad_norm"].item(), "runs": runs}
+            "loss": wm["loss"].item(), "grad_norm": wm["grad_norm"].item(), "runs": records}
 
 
-def pwhisper_serve(card):
-    """Phase 24's serving side: whisper-tiny in bf16 (phase 14's seed-0
-    params, frames and prompts) whole, then placed on (data 2, model 2):
-    one greedy run through encode, prime and the serve steps with the
-    launches exact by route (``whisper_routes`` times the slots) and the
-    collectives the formula's (``whisper_collectives``: the encode, the
-    prime and ``new`` serve steps); the times of encode + prime + prompt
-    and of a decode step, whole and partitioned, and one of each under
-    ``torch.profiler``; the partitioned model teacher-forced on the whole
-    model's tokens against its logits (``tp_agreement``); the prefill step
-    (tokens and frames) against the whole one.  Returns (the launches of
-    the partitioned greedy run, the record)."""
+def pwhisper_serve(card, B=WHISPER_BATCH, tag="pwhisper"):
+    """Phase 24's serving side (phase 25's at ``B`` = 1): whisper-tiny in
+    bf16 (phase 14's seed-0 params, frames and prompts) whole, then placed
+    on (data 2, model 2): one greedy run through encode, prime and the
+    serve steps with the launches exact by route (``whisper_routes`` times
+    the slots; ``cpw_routes`` at a batch the data axis does not divide) and
+    the collectives the formula's (``whisper_collectives``: the encode, the
+    prime, the prompt's serve step and ``new`` - 1 a token); the times of
+    encode + prime + prompt and of a decode step, whole and partitioned,
+    and one of each under ``torch.profiler``; the partitioned model
+    teacher-forced on the whole model's tokens against its logits
+    (``tp_agreement``); the prefill step (tokens and frames) against the
+    whole one.  Returns (the launches of the partitioned greedy run, the
+    record)."""
     dev = torch.device("cuda")
     cfg = WHISPER
-    B, P, new = WHISPER_BATCH, WHISPER_PROMPT, WHISPER_NEW
+    P, new = WHISPER_PROMPT, WHISPER_NEW
     max_len, N = PWHISPER_SELF_LEN, cfg.encoder_seq
     reset_cards_peak()
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -7874,7 +7951,11 @@ def pwhisper_serve(card):
     psh = sharding_mod.params_shardings(mesh, params, cfg)
     placed = device_put(params, psh)
     R, M = PWHISPER_GRID
-    want = {w: whisper_collectives(cfg, psh, R, M, w) for w in WHISPER_FORWARDS}
+    seq = pt_mod.seq_layout(B, P, R)   # the prompt's layout; a token's "decode"
+    want = {w: whisper_collectives(cfg, psh, R, M, w, step=seq, max_len=max_len)
+            for w in WHISPER_FORWARDS}
+    want["decode"] = whisper_collectives(cfg, psh, R, M, "serve", step=seq and "decode",
+                                         max_len=max_len)
     reset_cards_peak()
     reset_launches()
     mesh_mod.reset_collectives()
@@ -7885,17 +7966,20 @@ def pwhisper_serve(card):
     gen_s = time.perf_counter() - t0
     counts = launches()
     routes = dict(flash_attention.launches_by_route)
-    want_routes = {r: mesh.devices.size * n
-                   for r, n in whisper_routes(cfg, torch.bfloat16, P, new, N).items()}
+    if seq is None:
+        want_routes = {r: mesh.devices.size * n
+                       for r, n in whisper_routes(cfg, torch.bfloat16, P, new, N).items()}
+    else:
+        want_routes = cpw_routes(cfg, torch.bfloat16, P, new, max_len, R, M)
     check(routes == want_routes, f"whisper-tiny partitioned generate: flash_attention launched "
           f"{routes} by route, expected {want_routes}")
     cols, by_axis = dict(mesh_mod.collectives), dict(mesh_mod.collectives_by_axis)
-    want_cols = {k: want["encode"][0][k] + want["prime"][0][k] + new * want["serve"][0][k]
-                 for k in want["serve"][0]}
-    want_axis = {}
-    for w, n in (("encode", 1), ("prime", 1), ("serve", new)):
-        for a, c in want[w][1].items():
-            want_axis[a] = want_axis.get(a, 0) + n * c
+    want_cols, want_axis = {}, {}
+    for w, n in (("encode", 1), ("prime", 1), ("serve", 1), ("decode", new - 1)):
+        for total, part in ((want_cols, want[w][0]), (want_axis, want[w][1])):
+            for k, c in part.items():
+                total[k] = total.get(k, 0) + n * c
+    want_cols = {k: c for k, c in want_cols.items() if c or k in NO_COLLECTIVES}
     check(cols == want_cols and by_axis == want_axis, f"whisper-tiny partitioned generate: "
           f"collectives {cols} ({by_axis} by axis), expected {want_cols} ({want_axis}): encode "
           f"+ prime + {new} serve steps")
@@ -7910,8 +7994,9 @@ def pwhisper_serve(card):
             mesh_mod.reset_collectives()
             serve(placed, cache, toks_t, idx)
             step_cols.append((dict(mesh_mod.collectives), dict(mesh_mod.collectives_by_axis)))
-        check(all(sc == want["serve"] for sc in step_cols), f"whisper-tiny: the prompt's and a "
-              f"decode step's collectives {step_cols}, expected {want['serve']} each")
+        check(step_cols == [want["serve"], want["decode"]], f"whisper-tiny: the prompt's and a "
+              f"decode step's collectives {step_cols}, expected {want['serve']} and "
+              f"{want['decode']}")
         del cache
     p_pre, _ = timed_ms(lambda: whisper_generate(cfg, placed, frames, prompts, 1, max_len))
     p_gen, _ = timed_ms(lambda: whisper_generate(cfg, placed, frames, prompts, new, max_len))
@@ -7923,12 +8008,13 @@ def pwhisper_serve(card):
         nxt = torch.argmax(lg, -1)[:, None]
         split_dec = device_split(lambda: make_serve_step(cfg)(placed, cache, nxt, P))
         del cache, lg
-    print_split("whisper-tiny", "partitioned encode + prime + prompt (4 x 1500 frames, 4 tokens)",
-                p_pre, split_pre)
+    print_split("whisper-tiny", f"partitioned encode + prime + prompt ({B} x {N} frames, {P} "
+                "tokens)", p_pre, split_pre)
     print_split("whisper-tiny", "1 partitioned decode step", p_dec, split_dec)
     peak = cards_peak_gib()
     lp = whisper_stepped(cfg, placed, frames, prompts, max_len, tokens)
-    agreement = tp_agreement("whisper-tiny on (data 2, model 2)", lp, (tokens, lw, floor))
+    agreement = tp_agreement(f"whisper-tiny at B = {B} on (data 2, model 2)", lp,
+                             (tokens, lw, floor))
     del lp
     # the prefill step (tokens and frames -> last logits), on the kernels
     reset_launches()
@@ -7948,12 +8034,13 @@ def pwhisper_serve(card):
     torch.cuda.empty_cache()
     busy = {k: None if s is None else s[0] for k, s in (("prefill", split_pre),
                                                         ("decode", split_dec))}
-    print(f"[pwhisper] whisper-tiny served (bf16, {B} x {N} frames, {B} x {P} prompt -> {new}) on "
+    print(f"[{tag}] whisper-tiny served (bf16, {B} x {N} frames, {B} x {P} prompt -> {new}) on "
           f"{mesh!r}: whole encode + prime + prompt {w_pre:.2f} ms, decode {w_dec:.2f} ms a step, "
           f"peak {whole_peak:.2f} GiB; partitioned {p_pre:.2f} ms and {p_dec:.2f} ms a step, "
           f"greedy run {gen_s:.2f} s, peak {peak:.2f} GiB; launches by route {routes} (exactly "
           f"as worked out); collectives of the run {cols} ({by_axis} by axis; the formula's), "
-          f"a serve step {want['serve'][0]}, carrying {gen_bytes} bytes over the run; tokens "
+          f"the prompt's step {want['serve'][0]}, a token's {want['decode'][0]}, carrying "
+          f"{gen_bytes} bytes over the run; tokens "
           f"equal the whole model's at {same}/{tokens.size}; the prefill step's last logits "
           f"max|d| {pre_mx:.4g} mean {pre_mean:.3g} against the whole one's, launches "
           f"{pre_routes}; on {card}")
@@ -7962,7 +8049,7 @@ def pwhisper_serve(card):
                     "generate_s": gen_s, "device_busy_ms": busy, "peak_gib": peak,
                     "flash_routes": routes, "collectives": cols, "collectives_by_axis": by_axis,
                     "collective_bytes": gen_bytes,
-                    "collectives_per_forward": {w: want[w][0] for w in WHISPER_FORWARDS},
+                    "collectives_per_forward": {w: want[w][0] for w in want},
                     "tokens_equal": same, "agreement": agreement,
                     "prefill_step": {"max_abs": pre_mx, "mean_abs": pre_mean,
                                      "routes": pre_routes}}
@@ -7980,6 +8067,207 @@ def phase_partitioned_whisper(card, gen):
     seconds = time.perf_counter() - t_phase
     print(f"[pwhisper] phase 24: {seconds:.1f} s on {card}; launches over the partitioned greedy "
           f"run {counts}, none on the train steps")
+    return counts, {"train": trained, "serve": served, "per_slot_max_abs_err": err,
+                    "routes": lines, "seconds": seconds}
+
+
+# ---------------------------------------------------------------------------
+# phase 25: whisper at a batch the batch axis does not divide (slice 21)
+# ---------------------------------------------------------------------------
+
+# one audio request (B = 1) of whisper-tiny at full width on (data 2, model
+# 2), four slots on one card: the encoder's 1,500 positions and the cross
+# cache's in two chunks of 750 over data.  Trained f32 AdamW at 1 x 448
+# tokens (in chunks) and 1 x 447 (every slot all of them), each with 1 x
+# 1,500 frames; served bf16 with a 4-token prompt (two chunks) -> 32.
+CPW_TRAIN = ((1, 448), (1, 447))
+CPW_BATCH = 1
+
+
+def cpw_routes(cfg, dtype, prompt_len, new_tokens, max_len, R: int, M: int):
+    """flash_attention's launches by route over one greedy whisper run at a
+    batch the data axis does not divide (encode, prime, the prompt at 0,
+    then a token a step) on an (R, M) grid, worked out from the code, each
+    of the R M slots on its Hq / M query heads: the encoder's chunk of the
+    frames (all of them where R does not divide N) once an encoder layer;
+    at the prompt a decoder layer's self-attention on its chunk's rows over
+    the prompt's keys, and its cross-attention over its block of the cross
+    cache as ``decode_partial`` (once a group of at most 8 query rows a kv
+    head, every prompt row) and ``decode_merge`` once; at each token the
+    self-attention's partials and merge (where R divides the self cache's
+    ``max_len``, else the decode route with its combine) and the
+    cross-attention's (where R divides N, else the decode route)."""
+    want = dict.fromkeys(fa_mod.COUNTED, 0)
+    slots, N, P = R * M, cfg.encoder_seq, prompt_len
+    hq, rep = cfg.num_heads // M, cfg.num_heads // cfg.num_kv_heads
+    group = rep if (cfg.num_kv_heads % M == 0 or hq % rep == 0) else (
+        hq if rep % hq == 0 else 1)      # query heads a slot's kv head serves
+
+    def partials(rows):   # models.partitioned._partials' calls over ``rows`` query rows
+        g = next((g for g in range(1, group + 1)
+                  if group % g == 0 and rows * group // g <= fa_mod.DECODE_ROWS), group)
+        return g * -(-rows // max(1, fa_mod.DECODE_ROWS // (group // g)))
+
+    def attend(rows, split, layers=cfg.num_layers):
+        if split:
+            want["decode_partial"] += slots * layers * partials(rows)
+            want["decode_merge"] += slots * layers
+        else:
+            r = fa_mod.route(dtype, rows, group, 1)
+            want[r] += slots * layers
+            want["decode_combine"] += slots * layers * (r == "decode")
+
+    attend(N // R if N % R == 0 else N, False, cfg.encoder_layers)
+    chunk = P // R if P % R == 0 else P
+    attend(chunk, False)                              # the prompt's self-attention
+    attend(P if N % R == 0 else chunk, N % R == 0)    # its cross-attention
+    for _ in range(new_tokens - 1):
+        attend(1, max_len % R == 0)
+        attend(1, N % R == 0)
+    return want
+
+
+def cpw_slot_checks(gen, card):
+    """flash_attention at phase 25's per-slot shapes (B = 1, 3 of the 6
+    heads of 64 a model slot, the 1,500 frames in two chunks of 750 over
+    data), bf16 and f32, against the plain versions, each through the route
+    it must take: the encoder's chunk, q [1, 750, 3, 64] over the 1,500
+    gathered keys, bidirectional (``prefill_tc``; f32 ``prefill_fma``);
+    the cross-attention's ``decode_partial`` with no mask over each
+    750-key block of the cross cache, for one token, q [1, 1, 3, 64], and
+    for the prompt's 4 rows, q [1, 4, 3, 64] (the two chunks' rows
+    gathered: every row sees both blocks), within ``partials_close``'s
+    bounds; ``decode_merge`` of both blocks' partials against the plain
+    merge and against flash_attention_plain over all 1,500 keys.  Then, in
+    bf16, each timed beside its plain version, its bound and
+    ``scaled_dot_product_attention`` over the whole 1,500 keys for the same
+    query (no mask).  Returns (the largest error, the [time] lines)."""
+    R, M = PWHISPER_GRID
+    H, hd, N = WHISPER.num_heads // M, WHISPER.head_dim, WHISPER.encoder_seq
+    c, blk = N // R, N // R
+    worst, kept = 0.0, None
+    for dtype in (torch.bfloat16, torch.float32):
+        close = bf16_close if dtype == torch.bfloat16 else f32_close
+        q, k, v = qkv_on_card(1, c, N, H, H, hd, dtype, gen)
+        route = "prefill_tc" if dtype == torch.bfloat16 else "prefill_fma"
+        e = close(flash_routed(route, q, k, v, causal=False),
+                  flash_attention_plain(q, k, v, causal=False),
+                  f"flash per slot whisper encoder chunk {str(dtype)[6:]}")
+        worst = max(worst, e)
+        blocks = [(k[:, r * blk:(r + 1) * blk].contiguous(),
+                   v[:, r * blk:(r + 1) * blk].contiguous()) for r in range(R)]
+        for rows in (1, WHISPER_PROMPT):
+            qr = q[:, :rows].contiguous()
+            parts = []
+            for r, (kb, vb) in enumerate(blocks):
+                before = dict(flash_attention.launches_by_route)
+                got = flash_attention_partials(qr, kb, vb, causal=False)
+                check(flash_attention.launches_by_route["decode_partial"]
+                      == before["decode_partial"] + 1, "partials: not one decode_partial launch")
+                want = flash_attention_partials_plain(qr, kb, vb, causal=False)
+                check(got.shape == want.shape, f"partials {tuple(got.shape)} vs plain "
+                      f"{tuple(want.shape)}")
+                worst = max(worst, partials_close(got, want, f"whisper cross partials {rows} "
+                                                  f"rows block {r} {str(dtype)[6:]}"))
+                parts.append(got)
+            part = torch.cat(parts, 2)
+            before = dict(flash_attention.launches_by_route)
+            o = merge_partials(part, rows, dtype)
+            check(flash_attention.launches_by_route["decode_merge"]
+                  == before["decode_merge"] + 1, "merge: not one decode_merge launch")
+            worst = max(worst, close(o, merge_partials_plain(part, rows, dtype),
+                                     f"whisper cross merge {rows} rows"),
+                        close(o, flash_attention_plain(qr, k, v, causal=False),
+                              f"whisper cross {rows} rows vs all {N} keys"))
+        print(f"[check] flash_attention per slot, whisper-tiny at B = 1 on (2, 2), "
+              f"{str(dtype)[6:]}: the encoder chunk q [1, {c}, {H}, {hd}] over {N} keys "
+              f"({route}, bidirectional), the cross partials of q [1, 1, {H}, {hd}] and q [1, "
+              f"{WHISPER_PROMPT}, {H}, {hd}] over each {blk}-key block with no mask and their "
+              f"merge, against the plain versions and flash_attention_plain over all {N} keys: "
+              f"max|d| so far {worst:.3g} (bf16: 1 bf16 ulp + 2e-5 x max(1, max|plain|); f32 "
+              "and the partials: 2e-5 x max(1, max|plain|))")
+        if dtype == torch.bfloat16:
+            kept = (q, k, v, blocks)
+        else:
+            del q, k, v, blocks
+    q, k, v, blocks = kept
+    kt, vt = (t.transpose(1, 2).contiguous() for t in (k, v))
+    lines = []
+
+    def sdpa_for(qq):
+        qt = qq.transpose(1, 2).contiguous()
+        return lambda: F.scaled_dot_product_attention(qt, kt, vt)
+
+    def both(qq, plain=False):
+        fp, fm = ((flash_attention_partials_plain, merge_partials_plain) if plain
+                  else (flash_attention_partials, merge_partials))
+        return lambda: fm(torch.cat([fp(qq, kb, vb, causal=False) for kb, vb in blocks], 2),
+                          qq.shape[1], qq.dtype)
+
+    q1, q4 = q[:, :1].contiguous(), q[:, :WHISPER_PROMPT].contiguous()
+    kb0, vb0 = blocks[0]
+    part = torch.cat([flash_attention_partials(q1, kb, vb, causal=False) for kb, vb in blocks], 2)
+    cases = (
+        ("prefill_tc", f"encoder chunk q [1, {c}, {H}, {hd}] over all {N} keys",
+         lambda: flash_attention(q, k, v, causal=False),
+         lambda: flash_attention_plain(q, k, v, causal=False),
+         fa_mod.cost(q, k, v, causal=False), sdpa_for(q)),
+        ("decode_partial", f"cross partials of 1 token over the {blk}-key block 0",
+         lambda: flash_attention_partials(q1, kb0, vb0, causal=False),
+         lambda: flash_attention_partials_plain(q1, kb0, vb0, causal=False),
+         fa_mod.partials_cost(q1, kb0, vb0, causal=False), sdpa_for(q1)),
+        ("decode_partial", f"cross partials of the prompt's {WHISPER_PROMPT} rows over block 0",
+         lambda: flash_attention_partials(q4, kb0, vb0, causal=False),
+         lambda: flash_attention_partials_plain(q4, kb0, vb0, causal=False),
+         fa_mod.partials_cost(q4, kb0, vb0, causal=False), sdpa_for(q4)),
+        ("decode_merge", "merge of both blocks' partials of 1 token",
+         lambda: merge_partials(part, 1, q.dtype), lambda: merge_partials_plain(part, 1, q.dtype),
+         fa_mod.merge_cost(part, 1, q.dtype), None),
+        ("context-parallel cross decode", "both blocks' partials of 1 token and their merge",
+         both(q1), both(q1, plain=True), fa_mod.cost(q1, k, v, causal=False), sdpa_for(q1)))
+    for route, what, fn, plain_fn, (flops, nbytes), lib_fn in cases:
+        bound, bound_by = bound_of(nbytes, flops, peak_flops(q.dtype))
+        ms, runs = median_windows(fn, iters=100)
+        plain, _ = median_windows(plain_fn, iters=5, warmup=1)
+        g_ms, _ = graph_windows(fn, 100)
+        lib = g_lib = None
+        if lib_fn is not None:
+            lib, _ = median_windows(lib_fn, iters=100)
+            g_lib, _ = graph_windows(lib_fn, 100)
+        print(f"[time] flash_attention {route} ({what}) whisper-tiny per slot at B = 1 on (2, 2), "
+              f"{H} heads of {hd} on {H} kv heads, bf16, on {card}: kernel_ms {ms:.4f} (windows "
+              f"{[round(r, 4) for r in runs]}), bound_ms {bound:.4f} ({bound_by}: "
+              f"{nbytes / 1e6:.2f} MB at 3.35 TB/s, {flops / 1e9:.3f} GFLOP), kernel/bound "
+              f"{ms / bound:.2f}x, plain_ms {plain:.4f}, library_ms "
+              + ("n/a (no PyTorch call merges partials)" if lib is None else
+                 f"{lib:.4f} (scaled_dot_product_attention over all {N} keys, the same query, "
+                 "no mask)")
+              + f"; replayed from a CUDA graph: kernel {g_ms:.4f} ms"
+              + ("" if g_lib is None else f", SDPA {g_lib:.4f} ms"))
+        lines.append({"label": f"whisper-tiny at B = 1 per slot: {what}", "route": route,
+                      "ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": bound_by,
+                      "library_ms": lib, "graph_ms": g_ms, "library_graph_ms": g_lib,
+                      "source": "src/repro_torch/kernels/csrc/"
+                                + ("flash_prefill.cu" if route == "prefill_tc"
+                                   else "flash_decode.cu")})
+    del q, k, v, kt, vt, blocks, part, kept
+    return worst, lines
+
+
+def phase_context_parallel_whisper(card, gen):
+    """Phase 25: flash_attention at the per-slot shapes of one audio
+    request on (data 2, model 2), non-causal partials and merge included;
+    then whisper-tiny's train side at 1 x 448 and 1 x 447 tokens with 1 x
+    1,500 frames and its serving side at B = 1.  Returns (launches over the
+    partitioned greedy run, the phase's record)."""
+    t_phase = time.perf_counter()
+    err, lines = cpw_slot_checks(gen, card)
+    torch.cuda.empty_cache()
+    trained = [pwhisper_train(card, shape, (("data", False),), tag="cpw") for shape in CPW_TRAIN]
+    counts, served = pwhisper_serve(card, B=CPW_BATCH, tag="cpw")
+    seconds = time.perf_counter() - t_phase
+    print(f"[cpw] phase 25: {seconds:.1f} s on {card}; launches over the partitioned greedy run "
+          f"{counts}, flash_attention by route {served['flash_routes']}, none on the train steps")
     return counts, {"train": trained, "serve": served, "per_slot_max_abs_err": err,
                     "routes": lines, "seconds": seconds}
 
@@ -8251,6 +8539,12 @@ def main() -> int:
     with clock(24, "partitioned-whisper"):
         pw_counts, pw_rec = phase_partitioned_whisper(smi, gen)
     torch.cuda.empty_cache()
+
+    # whisper at a batch the batch axis does not divide (slice 21): its train
+    # steps launch no kernel; counts reset just before the partitioned greedy run
+    with clock(25, "context-parallel-whisper"):
+        cpw_counts, cpw_rec = phase_context_parallel_whisper(smi, gen)
+    torch.cuda.empty_cache()
     print(f"[done] {time.perf_counter() - t0:.1f} s after the card check")
 
     cost_of = {"cold_fuse": cf_mod.cost, "decode_accum": da_mod.cost, "row_sketch": sk_mod.cost,
@@ -8300,6 +8594,7 @@ def main() -> int:
         rec["launches_partitioned_ssm"] = pssm_counts[rec["name"]]
         rec["launches_context_parallel"] = cp_counts[rec["name"]]
         rec["launches_partitioned_whisper"] = pw_counts[rec["name"]]
+        rec["launches_context_parallel_whisper"] = cpw_counts[rec["name"]]
     for rec in (flash, rwkv):
         rec["per_slot_max_abs_err"] = pserve_rec["per_slot_max_abs_err"][rec["name"]]
     flash["per_slot_max_abs_err"] = max(flash["per_slot_max_abs_err"],
@@ -8307,18 +8602,21 @@ def main() -> int:
                                         pssm_rec["per_slot_max_abs_err"],
                                         cp_rec["per_slot_max_abs_err"],
                                         cpt_rec["per_slot_max_abs_err"],
-                                        pw_rec["per_slot_max_abs_err"])
+                                        pw_rec["per_slot_max_abs_err"],
+                                        cpw_rec["per_slot_max_abs_err"])
     # the context-parallel decode's two entries of flash_decode.cu: their
     # [time] lines, and their launches on phase 22's generates
-    flash["routes"] += cp_rec["routes"] + pw_rec["routes"]
+    flash["routes"] += cp_rec["routes"] + pw_rec["routes"] + cpw_rec["routes"]
     flash["launches_by_route_context_parallel"] = cp_rec["flash_routes"]
     flash["launches_by_route_partitioned_whisper"] = pw_rec["serve"]["flash_routes"]
+    flash["launches_by_route_context_parallel_whisper"] = cpw_rec["serve"]["flash_routes"]
     cp_entries = []
     for line in cp_rec["routes"][:2]:
         cp_entries.append({
             "name": f"flash_attention.{line['route']}", "route": "cuda", "source": line["source"],
             "replaces": "src/repro/kernels/flash_attention.py:28",
             "launches": cp_rec["flash_routes"][line["route"]],
+            "launches_context_parallel_whisper": cpw_rec["serve"]["flash_routes"][line["route"]],
             "max_abs_err": cp_rec["per_slot_max_abs_err"], "ms": line["ms"],
             "plain_ms": line["plain_ms"], "bound_ms": line["bound_ms"],
             "bound_by": line["bound_by"], "library_ms": line["library_ms"],
@@ -8342,6 +8640,7 @@ def main() -> int:
     print(json.dumps({"context_parallel": cp_rec}))
     print(json.dumps({"context_parallel_train": dict(cpt_rec, launches=cpt_counts)}))
     print(json.dumps({"partitioned_whisper": dict(pw_rec, launches=pw_counts)}))
+    print(json.dumps({"context_parallel_whisper": dict(cpw_rec, launches=cpw_counts)}))
     print(json.dumps({"archs": arch_table}))
     print(json.dumps({"archs2": arch2_table}))
     fuse_kernels[0]["at_gemma3_1b"] = fuse_at_gemma

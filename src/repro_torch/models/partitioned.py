@@ -209,11 +209,40 @@ cross cache once (``partitioned_prime``: each slot writes its block of
 reads those blocks as they are (a cache without ``cache_index``), made
 whole over ``model`` for the call where ``head_dim`` is split.
 
+**The encoder-decoder at a batch the batch axis does not divide** (one
+audio request): ``frames`` [B, N, D] lie whole on every slot, as
+``batch_shardings`` places them, the tokens as a decoder's
+(``seq_layout``), and ``cache_shardings`` splits the cross cache's N
+positions over the batch axis where R divides them.  The encoder's
+positions lie as ``seq_layout(B, N, R)`` says (``_Slab.frames``):
+
+* ``"chunks"`` (R divides N): slot ``(r, m)`` runs positions ``[r N / R,
+  (r + 1) N / R)`` with the learned positions at that offset; each layer's
+  bidirectional self-attention reads k/v all-gathered over the batch axis
+  (one counted gather each, whose backward reduce-scatters), its MLP the
+  chunk alone; every slot of index ``r`` ends with the same chunk of
+  states;
+* ``"whole"``: every slot runs the whole encoder.
+
+The cross-attention reads all N positions with no mask: in the train,
+eval and prefill steps each slot's queries over its chunk's ``wk``/``wv``
+projections all-gathered over the batch axis (two gathers; their backward
+sums each chunk's gradient over every slot's use), or over its own where
+the states are whole.  ``partitioned_prime`` writes each slot's chunk's
+projections into its block of ``xk``/``xv`` (the same positions, no
+gather).  A serve step against that primed cache (``_cross_cp``): each
+slot takes the decode partials of every query row over its own block
+(``ops.attention_partials(causal=False)``; a chunked prompt's rows first
+all-gathered over the batch axis, one counted gather), the partials are
+all-gathered over the batch axis (one) and merged (``ops.attention_merge``),
+and each slot keeps its own rows; a cross cache whole over the batch axis
+is read by the rows' rule.
+
 Every decoder (attention, Mamba and RWKV mixers; GLU, MLP, MoE and RWKV
-channel-mix FFNs; RoPE or M-RoPE) is partitioned for training and serving
-at any batch size, the encoder-decoder at a batch the batch axis divides.
-The encoder-decoder at another batch, ``frames`` on a decoder and the
-encoder raise ``NotImplementedError`` (``check_partitionable``).
+channel-mix FFNs; RoPE or M-RoPE) and the encoder-decoder are partitioned
+for training and serving at any batch size.  ``frames`` on a decoder and
+the encoder (RoBERTa) raise ``NotImplementedError``
+(``check_partitionable``).
 """
 from __future__ import annotations
 
@@ -252,18 +281,14 @@ FFNS = ("glu", "mlp", "moe", "rwkv_cm")
 
 
 def check_partitionable(cfg: ArchConfig, batch_keys: Sequence[str] = (), *,
-                        serving: bool = False, seq: Optional[str] = None) -> None:
+                        serving: bool = False) -> None:
     """Raise ``NotImplementedError`` naming the arch and the part the
     partitioned train step (or, with ``serving``, the partitioned prefill
-    and decode steps) lacks.  Both take a decoder at any batch size
-    (``seq_layout``), and the encoder-decoder at a batch the batch axis
-    divides (``seq`` None); the encoder stays refused, as does ``frames``
-    on a decoder."""
+    and decode steps) lacks.  Both take a decoder and the encoder-decoder
+    at any batch size (``seq_layout``); the encoder stays refused, as does
+    ``frames`` on a decoder."""
     if cfg.family == "encoder":
         refuse(cfg, "encoder (RoBERTa)", serving=serving)
-    if cfg.is_encoder_decoder and seq is not None:
-        refuse(cfg, "encoder-decoder (whisper) at a batch the batch axis does not divide",
-               serving=serving)
     for blk in cfg.blocks:
         if blk.mixer not in MIXERS:
             refuse(cfg, f"{blk.mixer} mixer", serving=serving)
@@ -303,6 +328,7 @@ class _Slab:
         self.n = mesh.devices.size
         self.M, self.R = mesh.extent(self.mp), mesh.extent(self.dp)
         self.seq = seq   # seq_layout's: None, "chunks" or "whole"
+        self.frames = None   # the encoder's positions: seq_layout's (B, N, R), _whisper_encode
 
     def by_chunk(self) -> List[List[int]]:
         """The slots of each index of the batch axis, in order."""
@@ -407,7 +433,8 @@ def _attention(sl: _Slab, pre: str, rep, blk, h, angles, *, cache=None, cache_in
     ``axis_sum_grads``) gives the keys and values in place of ``h``: a
     cross-attention.  A ``cache`` without ``cache_index`` is a primed cross
     cache: its blocks are the keys and values, read and never written, and
-    ``wk``/``wv`` are not used."""
+    ``wk``/``wv`` are not used.  ``cache_len`` is the cache's length (its
+    layout's), which tells a block split over the batch axis."""
     cfg, mesh, mp = sl.cfg, sl.mesh, sl.mp
     hd = cfg.head_dim
     split, kv_split, hq, hkv = _heads(sl, pre, rep, differentiable)
@@ -436,7 +463,15 @@ def _attention(sl: _Slab, pre: str, rep, blk, h, angles, *, cache=None, cache_in
             ks.append(k)
             vs.append((y @ kv["wv"][s]).reshape(B, y.shape[1], hkv, hd))
     select = split and not kv_split
-    if sl.seq is not None and differentiable:
+    if sl.seq is not None and primed:
+        attn = _cross_cp(sl, blk, qs, hq, hkv, select, cache, cache_len)
+    elif sl.seq is not None and not causal:  # the encoder's, or a cross-attention over it
+        if sl.frames == "chunks":  # every position's k/v from the chunks over the batch axis
+            ks = M.axis_all_gather(ks, mesh, sl.dp, 1)
+            vs = M.axis_all_gather(vs, mesh, sl.dp, 1)
+        attn = _attention_rows(sl, blk, qs, ks, vs, hq, hkv, select, None, None, differentiable,
+                               causal=False)
+    elif sl.seq is not None and differentiable:
         attn = _attention_cp_train(sl, blk, qs, ks, vs, hq, select)
     elif sl.seq is not None:
         attn = _attention_cp(sl, blk, qs, ks, vs, hq, hkv, select, cache, cache_index, cache_len)
@@ -491,22 +526,70 @@ def _write_kv(sl: _Slab, s: int, ck, cv, k, v, dst: slice, src: slice) -> None:
         blocks[s][:, dst] = sl.model_slice(s, part, 3, blocks[s].shape[3]).to(blocks[s].dtype)
 
 
-def _partials(q, k, v, **kw) -> torch.Tensor:
+def _partials(q, k, v, causal: bool = True, **kw) -> torch.Tensor:
     """``ops.attention_partials`` of q's heads in g groups a kv head, g the
     fewest that leave each call at most ``DECODE_ROWS`` rows a kv head:
     [B, Hkv g, n_splits, rows / g, 2 + hd], group ``i`` of kv head ``h``
     at index ``h g + i``, so that the merge writes the heads in their
-    order."""
+    order.  Without the causal mask the split plan does not depend on the
+    query rows, so more rows than one call takes (a prompt's) run a piece
+    of ``DECODE_ROWS`` rows at a time, concatenated in their order."""
     B, Sq, Hq, hd = q.shape
     Hkv = k.shape[2]
     rep = Hq // Hkv
-    g = next(g for g in range(1, rep + 1) if rep % g == 0 and Sq * rep // g <= FA.DECODE_ROWS)
+    g = next((g for g in range(1, rep + 1)
+              if rep % g == 0 and Sq * rep // g <= FA.DECODE_ROWS), None)
+    if g is None and causal:
+        raise ValueError(f"causal partials of {Sq} query rows on {rep} heads a kv head: at most "
+                         f"{FA.DECODE_ROWS} rows a kv head")
+    g = g or rep
+    per = max(1, FA.DECODE_ROWS // (rep // g))    # query positions a call
+
+    def rows(qh):
+        if Sq <= per:
+            return ops.attention_partials(qh, k, v, causal=causal, **kw)
+        return torch.cat([ops.attention_partials(qh[:, i:i + per].contiguous(), k, v,
+                                                 causal=causal, **kw)
+                          for i in range(0, Sq, per)], 3)
+
     if g == 1:
-        return ops.attention_partials(q, k, v, **kw)
+        return rows(q)
     qg = q.reshape(B, Sq, Hkv, g, rep // g, hd)
-    parts = [ops.attention_partials(qg[:, :, :, i].reshape(B, Sq, Hkv * rep // g, hd)
-                                    .contiguous(), k, v, **kw) for i in range(g)]
+    parts = [rows(qg[:, :, :, i].reshape(B, Sq, Hkv * rep // g, hd).contiguous())
+             for i in range(g)]
     return torch.stack(parts, 2).reshape((B, Hkv * g) + tuple(parts[0].shape[2:]))
+
+
+def _cross_cp(sl: _Slab, blk, qs, hq: int, hkv: int, select: bool, cache,
+              cache_len: Optional[int]):
+    """Each slot's cross-attention output [B, S, hq, hd] against the primed
+    cross cache at a batch the batch axis does not divide (the module
+    docstring): every query row sees all N positions.  Where the cache's
+    positions split over the batch axis, each slot takes the partials of
+    every row over its own block (a chunked prompt's rows all-gathered over
+    the batch axis first), the partials are all-gathered over it and
+    merged, and each slot keeps its rows; a cache whole over the batch axis
+    takes the rows' rule."""
+    mesh, dp, hd = sl.mesh, sl.dp, sl.cfg.head_dim
+    ck, cv = cache["k"], cache["v"]
+    if ck[0].shape[1] == cache_len:
+        return _attention_rows(sl, blk, qs, None, None, hq, hkv, select, cache, None, False,
+                               causal=False)
+    S = qs[0].shape[1]
+    chunks = sl.seq == "chunks"
+    rows = M.axis_all_gather(qs, mesh, dp, 1) if chunks else qs
+    kb = sl.whole_over_model(sl.whole_over_model(ck, 3, hd), 2, hkv)
+    vb = sl.whole_over_model(sl.whole_over_model(cv, 3, hd), 2, hkv)
+    parts = []
+    for s in range(sl.n):
+        k, v = _kv_heads(sl, s, hq, kb[s], vb[s]) if select else (kb[s], vb[s])
+        parts.append(_partials(rows[s], k, v, causal=False))
+    parts = M.axis_all_gather(parts, mesh, dp, 2)
+    outs = []
+    for s in range(sl.n):
+        o = ops.attention_merge(parts[s], rows[s].shape[1], qs[s].dtype)
+        outs.append(o[:, mesh.coord(s, dp) * S:(mesh.coord(s, dp) + 1) * S] if chunks else o)
+    return outs
 
 
 def _attention_cp_train(sl: _Slab, blk, qs, ks, vs, hq: int, select: bool):
@@ -996,16 +1079,17 @@ def partitioned_forward(cfg: ArchConfig, mesh: M.Mesh, live: Dict[str, List[torc
     the logits of each slot's last position alone, [B_r, 1, V / M].
 
     The encoder-decoder (whisper) takes ``frames[s]`` [B_r, N, D], the
-    replica's frame embeddings, through the encoder; with a ``cache``
-    (``init_whisper_cache``'s, primed by ``prime_cross_cache``) it takes no
-    frames and its decoder reads the primed cross k/v."""
+    replica's frame embeddings (with ``seq``, the whole [B, N, D] on every
+    slot), through the encoder; with a ``cache`` (``init_whisper_cache``'s,
+    primed by ``prime_cross_cache``) it takes no frames and its decoder
+    reads the primed cross k/v."""
     if cache is not None and differentiable:
         raise ValueError("the partitioned train forward takes no cache")
     sl = _Slab(cfg, mesh, live, layouts, seq)
     cdt = dtype_of(cfg.compute_dtype)
     if cfg.is_encoder_decoder:
         return _whisper_forward(sl, tokens, frames, cache, cache_index, differentiable,
-                                last_only)
+                                last_only, cache_layouts)
     emb = sl.weight("embed")
     x = [xi.to(cdt) for xi in _embed(sl, "embed", emb, tokens)]
     if cfg.scale_embed:
@@ -1057,14 +1141,23 @@ def partitioned_forward(cfg: ArchConfig, mesh: M.Mesh, live: Dict[str, List[torc
 
 
 def _whisper_encode(sl: _Slab, frames, differentiable: bool) -> List[torch.Tensor]:
-    """Each slot's encoder states [B_r, N, D] of its replica's ``frames``:
-    the learned positions (replicated), then each layer's bidirectional
+    """Each slot's encoder states of its ``frames``: [B_r, N, D] of its
+    replica's rows; at a batch the batch axis does not divide (every slot
+    the whole [B, N, D]) its chunk of the positions, or all of them, as
+    ``_Slab.frames`` says (the module docstring).  The learned positions
+    (replicated) at the chunk's offset, then each layer's bidirectional
     self-attention and MLP as a decoder's, tensor parallel over ``model``;
-    every slot of a replica ends with the same states."""
+    every slot of a replica (or chunk) ends with the same states."""
     cfg = sl.cfg
     cdt = dtype_of(cfg.compute_dtype)
+    B, N = frames[0].shape[:2]
+    sl.frames = None if sl.seq is None else seq_layout(B, N, sl.R)
+    c = N // sl.R if sl.frames == "chunks" else N
     pos = sl.weight("enc/pos")
-    x = [f.to(cdt) + pos[s][None, :f.shape[1]].to(cdt) for s, f in enumerate(frames)]
+    x = []
+    for s, f in enumerate(frames):
+        lo = sl.mesh.coord(s, sl.dp) * c if sl.frames == "chunks" else 0
+        x.append(f[:, lo:lo + c].to(cdt) + pos[s][None, lo:lo + c].to(cdt))
     blk, angles = cfg.blocks[0], [None] * sl.n
     for i in range(cfg.encoder_layers):
         pre = f"enc/layers/layer{i}"
@@ -1078,10 +1171,11 @@ def _whisper_encode(sl: _Slab, frames, differentiable: bool) -> List[torch.Tenso
 
 
 def _whisper_forward(sl: _Slab, tokens, frames, cache, cache_index, differentiable: bool,
-                     last_only: bool):
+                     last_only: bool, cache_layouts=None):
     """``partitioned_forward`` of the encoder-decoder: the frames through
     the encoder (or, with a cache, none), the tokens through the decoder at
-    the learned positions from ``cache_index``: each layer's causal
+    the learned positions from ``cache_index`` (and, where the batch axis
+    splits the sequence, the chunk's start): each layer's causal
     self-attention (against the self cache's blocks, written in place), its
     cross-attention over the encoder states (``wk``/``wv`` column-parallel)
     or the primed cross cache's blocks, its MLP; the tied embedding's
@@ -1094,21 +1188,29 @@ def _whisper_forward(sl: _Slab, tokens, frames, cache, cache_index, differentiab
     cdt = dtype_of(cfg.compute_dtype)
     enc = None if cache is not None else _whisper_encode(sl, frames, differentiable)
     S = tokens[0].shape[1]
+    total = S * sl.R if sl.seq == "chunks" else S
     offset = int(cache_index or 0)
     pos = sl.weight("dec/pos")
-    if not 0 <= offset <= pos[0].shape[0] - S:
-        raise ValueError(f"decoder positions {offset}..{offset + S - 1} run past the "
+    if not 0 <= offset <= pos[0].shape[0] - total:
+        raise ValueError(f"decoder positions {offset}..{offset + total - 1} run past the "
                          f"{pos[0].shape[0]} learned positions (max_target_len)")
     emb = sl.weight("dec/embed")
-    x = [xi.to(cdt) + pos[s][None, offset:offset + S].to(cdt)
-         for s, xi in enumerate(_embed(sl, "dec/embed", emb, tokens))]
+    x = []
+    for s, xi in enumerate(_embed(sl, "dec/embed", emb, tokens)):
+        first = offset + _chunk_start(sl, s, S)
+        x.append(xi.to(cdt) + pos[s][None, first:first + S].to(cdt))
     blk, angles = cfg.blocks[0], [None] * sl.n
+
+    def length(name):
+        return None if cache_layouts is None else cache_layouts[name].shape[-3]
+
     for i in range(cfg.num_layers):
         pre = f"dec/layers/layer{i}"
         c = None if cache is None else {k: cache[f"layer{i}/{k}"] for k in ("k", "v", "xk", "xv")}
         a = _attention(sl, f"{pre}/attn", None, blk, sl.norm(f"{pre}/norm1", None, x), angles,
                        cache=None if c is None else {"k": c["k"], "v": c["v"]},
-                       cache_index=cache_index, differentiable=differentiable)
+                       cache_index=cache_index, cache_len=length(f"layer{i}/k"),
+                       differentiable=differentiable)
         x = [xi + ai for xi, ai in zip(x, a)]
         hx = sl.norm(f"{pre}/norm_x", None, x)
         if c is None:
@@ -1116,7 +1218,8 @@ def _whisper_forward(sl: _Slab, tokens, frames, cache, cache_index, differentiab
                            differentiable=differentiable)
         else:
             a = _attention(sl, f"{pre}/xattn", None, blk, hx, angles, causal=False,
-                           cache={"k": c["xk"], "v": c["xv"]}, differentiable=False)
+                           cache={"k": c["xk"], "v": c["xv"]}, cache_len=length(f"layer{i}/xk"),
+                           differentiable=False)
         x = [xi + ai for xi, ai in zip(x, a)]
         f = _ffn(sl, f"{pre}/mlp", None, "mlp", sl.norm(f"{pre}/norm2", None, x),
                  serving=not differentiable)
@@ -1129,11 +1232,14 @@ def _whisper_forward(sl: _Slab, tokens, frames, cache, cache_index, differentiab
 
 
 def partitioned_encode(cfg: ArchConfig, mesh: M.Mesh, live: Dict[str, List[torch.Tensor]],
-                       layouts: Dict[str, Layout], frames: List[torch.Tensor]
-                       ) -> List[torch.Tensor]:
+                       layouts: Dict[str, Layout], frames: List[torch.Tensor],
+                       seq: Optional[str] = None) -> List[torch.Tensor]:
     """The encoder on the kernels: each slot's states [B_r, N, D] of its
-    replica's ``frames[s]`` (the same on every slot of a replica)."""
-    return _whisper_encode(_Slab(cfg, mesh, live, layouts), frames, False)
+    replica's ``frames[s]`` (the same on every slot of a replica); with
+    ``seq`` (a batch the batch axis does not divide: every slot's
+    ``frames[s]`` the whole [B, N, D]) its chunk of the positions, or all
+    of them, by ``seq_layout(B, N, R)``."""
+    return _whisper_encode(_Slab(cfg, mesh, live, layouts, seq), frames, False)
 
 
 def partitioned_prime(cfg: ArchConfig, mesh: M.Mesh, live: Dict[str, List[torch.Tensor]],
@@ -1144,7 +1250,9 @@ def partitioned_prime(cfg: ArchConfig, mesh: M.Mesh, live: Dict[str, List[torch.
     (``layer{i}/xk``, ``xv``, placed by ``cache_shardings``) in place: each
     slot projects its KV heads (``wk``/``wv`` column-parallel), or, where
     the heads do not split over ``model``, the whole gathered ``wk``/``wv``
-    and keeps its block of ``head_dim``."""
+    and keeps its block of ``head_dim``.  Where the cache's positions split
+    over the batch axis, ``enc[s]`` is the slot's chunk of the positions,
+    the ones its block holds."""
     sl = _Slab(cfg, mesh, live, layouts)
     hd = cfg.head_dim
     for i in range(cfg.num_layers):
@@ -1192,7 +1300,7 @@ def partitioned_loss(cfg: ArchConfig, mesh: M.Mesh, live: Dict[str, List[torch.T
     ``lm_loss_vocab_parallel`` as Σ nll · mask over ``denominator``.  The
     loss is the same on every slot of a replica (or chunk), the aux (the
     whole batch's) on every slot."""
-    check_partitionable(cfg, () if frames is None else ("frames",), seq=seq)
+    check_partitionable(cfg, () if frames is None else ("frames",))
     logits, aux, _ = partitioned_forward(cfg, mesh, live, layouts, tokens, positions=positions,
                                          extra_embeds=extra_embeds, differentiable=True,
                                          seq=seq, frames=frames)

@@ -23,7 +23,8 @@ Params placed by ``launch.sharding.device_put`` on a grid of several
 slots (``utils.placed.Placed`` leaves) take the partitioned step: the
 reference's ``jax.jit(step, in_shardings=...)`` over its
 ``params_shardings``.  See ``make_train_step``.  The encoder-decoder's
-``frames`` split over the batch axis like the tokens, and its encoder and
+``frames`` split over the batch axis like the tokens (at a batch the
+batch axis does not divide, whole on every slot), and its encoder and
 cross-cache priming on placed params are ``partitioned_encode`` and
 ``partitioned_prime`` (what ``whisper.whisper_encode`` and
 ``whisper.prime_cross_cache`` call on them).
@@ -145,7 +146,9 @@ def make_train_step(cfg: ArchConfig, optimizer: Optimizer, *, microbatches: int 
     sequence) lies as ``batch_shardings`` places it
     (``models.partitioned.seq_layout``): the tokens and mask split into R
     chunks of the sequence where R divides its length, else whole on every
-    slot; ``positions`` and ``extra_embeds`` whole on every slot.  A
+    slot; ``positions``, ``extra_embeds`` and ``frames`` whole on every
+    slot (the encoder's positions split over the batch axis where it
+    divides them, ``models.partitioned``).  A
     microbatch is rows ``[i B / n, (i + 1) B / n)`` of every slot's part,
     and its loss is Σ nll over the whole microbatch's count of scored pairs
     (the mask's, all-reduced over the batch axis); each chunk's last
@@ -209,7 +212,7 @@ def make_train_step(cfg: ArchConfig, optimizer: Optimizer, *, microbatches: int 
         dp, _ = PT.grid_axes(mesh)
         R, n = mesh.extent(dp), mesh.devices.size
         seq = PT.seq_layout(*batch["tokens"].shape, R)
-        PT.check_partitionable(cfg, list(batch), seq=seq)
+        PT.check_partitionable(cfg, list(batch))
         if grad_shardings is not None:
             check_shardings(params)
         if seq is None:
@@ -394,7 +397,7 @@ def _partitioned_last_logits(cfg: ArchConfig, params, tokens, cache=None,
     batch = {k: v for k, v in (("tokens", tokens), ("positions", positions),
                                ("extra_embeds", extra_embeds), ("frames", frames))
              if v is not None}
-    PT.check_partitionable(cfg, list(batch), serving=True, seq=seq)
+    PT.check_partitionable(cfg, list(batch), serving=True)
     blocks = layouts_c = None
     if cache is not None:
         blocks, layouts_c = _placed_cache(cfg, cache, mesh)
@@ -419,16 +422,23 @@ def partitioned_encode(cfg: ArchConfig, params, frames) -> Placed:
     (whole, or placed by ``batch_shardings``) split over the batch axis,
     the encoder run on the kernels, tensor parallel over ``model``; the
     states come back per replica, a leaf placed over the batch axis
-    (``batch_shardings``' placement of [B, N, D]) on the params' grid."""
+    (``batch_shardings``' placement of [B, N, D]) on the params' grid.  At
+    a batch the batch axis does not divide, the frames whole on every slot
+    (as ``batch_shardings`` places them), the states come back split by
+    their positions over the batch axis where it divides N, else whole
+    (``models.partitioned.seq_layout(B, N, R)``)."""
     named, mesh = _placed_grid(params, "params")
     dp, _ = PT.grid_axes(mesh)
-    B = frames.shape[0]
-    PT.check_partitionable(cfg, ["frames"], serving=True,
-                           seq=PT.seq_layout(B, 1, mesh.extent(dp)))
-    rows = _slot_rows({"frames": frames}, mesh, dp)["frames"]
+    B, N = frames.shape[:2]
+    PT.check_partitionable(cfg, ["frames"], serving=True)
+    seq = PT.seq_layout(B, 1, mesh.extent(dp))
+    rows = (_slot_rows({"frames": frames}, mesh, dp) if seq is None
+            else _slot_sequence_batch({"frames": frames}, mesh, dp, seq))["frames"]
     enc = PT.partitioned_encode(cfg, mesh, {k: x.slot_blocks() for k, x in named},
-                                {k: x.layout for k, x in named}, rows)
-    lay = Layout((B,) + tuple(enc[0].shape[1:]), ((dp,) if dp else (),), mesh)
+                                {k: x.layout for k, x in named}, rows, seq)
+    split = PT.seq_layout(B, N, mesh.extent(dp))
+    spec = ((dp,) if dp else (),) if split is None else ((), (dp,) if split == "chunks" else ())
+    lay = Layout((B, N) + tuple(enc[0].shape[2:]), spec, mesh)
     return Placed(lay, [enc[s] for s in lay.first_slot])
 
 
@@ -439,14 +449,18 @@ def partitioned_prime(cfg: ArchConfig, params, cache, enc_out):
     per-replica leaf, or whole [B, N, D]) written into the blocks of the
     ``xk``/``xv`` leaves of ``cache`` (placed on the params' grid by
     ``cache_shardings``: batch over the batch axis, heads over ``model``,
-    or ``head_dim`` where the heads do not divide), in place.  Returns the
-    cache."""
+    or ``head_dim`` where the heads do not divide), in place.  At a batch
+    the batch axis does not divide, ``cache_shardings`` splits the N
+    positions over the batch axis where it divides them: each slot writes
+    its block from its chunk of the states (``whisper_encode``'s leaf split
+    so, or split here), with no gather.  Returns the cache."""
     named, mesh = _placed_grid(params, "params")
     dp, _ = PT.grid_axes(mesh)
-    PT.check_partitionable(cfg, ["frames"], serving=True,
-                           seq=PT.seq_layout(enc_out.shape[0], 1, mesh.extent(dp)))
+    PT.check_partitionable(cfg, ["frames"], serving=True)
     blocks, _ = _placed_cache(cfg, cache, mesh)
-    rows = _slot_rows({"enc": enc_out}, mesh, dp)["enc"]
+    split = PT.seq_layout(*enc_out.shape[:2], mesh.extent(dp))
+    rows = (_slot_rows({"enc": enc_out}, mesh, dp)["enc"] if split is None
+            else _slot_sequence(enc_out, mesh, dp, split, long=False))
     PT.partitioned_prime(cfg, mesh, {k: x.slot_blocks() for k, x in named},
                          {k: x.layout for k, x in named}, rows, blocks)
     return cache
@@ -457,9 +471,10 @@ def _slot_sequence(tokens, mesh: M.Mesh, dp, seq: str, long: bool = True) -> lis
     chunk of the sequence (``seq`` ``"chunks"``, chunk ``r`` on the slots
     of index ``r``) or all of it (``"whole"``), on the slot's device.
     Tokens placed so by ``batch_shardings`` give their blocks; any others
-    are split here.  Token ids as int64 (``long``; a mask as it is)."""
+    are split here.  Token ids as int64 (``long``; a mask, or encoder
+    states [B, N, D] split along N, as they are)."""
     R, devices = mesh.extent(dp), list(mesh.devices.flat)
-    want = ((), (dp,)) if seq == "chunks" else ((), ())
+    want = ((), (dp,) if seq == "chunks" else ()) + ((),) * (tokens.ndim - 2)
     cast = (lambda t: t.long()) if long else (lambda t: t)
     if (isinstance(tokens, Placed) and tokens.layout.spec == want
             and tokens.layout.mesh.axis_names == mesh.axis_names
@@ -554,8 +569,10 @@ def _slot_sequence_batch(batch, mesh: M.Mesh, dp, seq: str) -> Dict[str, list]:
     """Each slot's part of a batch the batch axis does not divide, as
     ``batch_shardings`` places it: ``tokens`` and ``mask`` [B, S] split
     into chunks of the sequence (``seq`` ``"chunks"``) or whole on every
-    slot (``"whole"``, ``_slot_sequence``), M-RoPE ``positions`` and
-    ``extra_embeds`` whole on every slot (each chunk takes its part)."""
+    slot (``"whole"``, ``_slot_sequence``), M-RoPE ``positions``,
+    ``extra_embeds`` and the encoder-decoder's ``frames`` whole on every
+    slot (each chunk takes its part; the encoder splits the frames'
+    positions itself)."""
     out = {}
     devices = list(mesh.devices.flat)
     for key, v in batch.items():
@@ -597,7 +614,7 @@ def _partitioned_eval(cfg: ArchConfig, params, batch) -> torch.Tensor:
     named, mesh = _placed_grid(params, "params")
     dp, _ = PT.grid_axes(mesh)
     seq = PT.seq_layout(*batch["tokens"].shape, mesh.extent(dp))
-    PT.check_partitionable(cfg, list(batch), serving=True, seq=seq)
+    PT.check_partitionable(cfg, list(batch), serving=True)
     rows = (_slot_rows(batch, mesh, dp) if seq is None
             else _slot_sequence_batch(batch, mesh, dp, seq))
     layouts = {k: x.layout for k, x in named}

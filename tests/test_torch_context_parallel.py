@@ -61,10 +61,8 @@ from repro_torch.launch import sharding as tsh
 from repro_torch.models import layers as TL
 from repro_torch.models import transformer as TT
 from repro_torch.models.partitioned import seq_layout
-from repro_torch.optim.optimizers import constant_lr, make_optimizer
 from repro_torch.serve.engine import Engine
-from repro_torch.train.step import (make_prefill_step, make_serve_step, make_train_state,
-                                    make_train_step)
+from repro_torch.train.step import make_prefill_step, make_serve_step
 from repro_torch.utils.placed import Layout, Placed
 from repro_torch.utils.pytree import tree_from_paths, tree_leaves_with_path
 
@@ -507,49 +505,6 @@ def test_prefill_step_matches_the_reference_jit(ref, case):
         assert _step_counts() == want
         np.testing.assert_allclose(got.numpy(), arrays[f"{case}/prefill_step"],
                                    rtol=LOGIT_RTOL, atol=LOGIT_ATOL)
-
-
-# -- what stays refused -------------------------------------------------------------------
-
-
-def _whisper():
-    """(reduced whisper's config, a (data 2, model 2) grid, its params,
-    their shardings there)."""
-    from repro_torch.models.whisper import init_whisper
-    cfg = reduce_config(get_config("whisper-tiny"))
-    mesh = tmesh.make_mesh((2, 2), ("data", "model"), device="cpu")
-    params = init_whisper(cfg, torch.Generator().manual_seed(0), device="cpu")
-    return cfg, mesh, params, tsh.params_shardings(mesh, params, cfg)
-
-
-def test_whisper_train_step_at_an_undivided_batch_is_refused():
-    """The train step takes any batch of a decoder (the sequence over the
-    batch axis at B = 1, ``tests/test_torch_context_parallel_train.py``);
-    the encoder-decoder stays refused there, naming the part (ROADMAP.md
-    A6c.1)."""
-    cfg, mesh, params, psh = _whisper()
-    opt = make_optimizer("sgd", constant_lr(0.1))
-    state = make_train_state(params, opt)
-    state = tsh.device_put(state, {"params": psh,
-                                   "opt": tsh.opt_state_shardings(mesh, state["opt"], psh)})
-    batch = {"tokens": np.random.default_rng(0).integers(3, cfg.vocab_size, (1, 8)),
-             "frames": np.zeros((1, 8, cfg.d_model), np.float32)}
-    with pytest.raises(NotImplementedError, match=r"encoder-decoder \(whisper\)"):
-        make_train_step(cfg, opt)(state, batch)
-
-
-def test_whisper_serving_at_an_undivided_batch_is_refused():
-    """Serving one request of the encoder-decoder on placed params stays
-    refused, naming the part: the prefill step with its ``frames`` and the
-    serve step on its tokens alone."""
-    cfg, mesh, params, psh = _whisper()
-    placed = tsh.device_put(params, psh)
-    toks = np.random.default_rng(0).integers(3, cfg.vocab_size, (1, 8))
-    with pytest.raises(NotImplementedError, match=r"serving steps .*encoder-decoder"):
-        make_prefill_step(cfg)(placed, {"tokens": toks,
-                                        "frames": np.zeros((1, 8, cfg.d_model), np.float32)})
-    with pytest.raises(NotImplementedError, match=r"serving steps .*encoder-decoder"):
-        make_serve_step(cfg)(placed, None, toks, 0)
 
 
 # -- phase 22's configurations at full width ----------------------------------------------

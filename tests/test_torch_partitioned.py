@@ -506,7 +506,6 @@ def test_other_dense_archs_match_the_whole_step(arch):
 
 
 @pytest.mark.parametrize("arch, part", [
-    ("whisper-tiny", "encoder-decoder (whisper) at a batch the batch axis does not divide"),
     ("roberta-base", "encoder (RoBERTa)"),
     ("gemma3-1b", "batch input 'frames'")])
 def test_other_archs_are_refused(arch, part):
@@ -514,19 +513,16 @@ def test_other_archs_are_refused(arch, part):
     ``NotImplementedError`` naming the arch and the part (the Mamba mixer,
     the RWKV block and adafactor train partitioned since
     ``tests/test_torch_partitioned_ssm.py``, the encoder-decoder at a batch
-    the batch axis divides since ``tests/test_torch_partitioned_whisper.py``):
-    the encoder-decoder at 3 rows over 2 replicas, the encoder, and a
-    decoder's batch with the encoder-decoder's ``frames``."""
+    the batch axis divides since ``tests/test_torch_partitioned_whisper.py``
+    and at any other since ``tests/test_torch_context_parallel_whisper.py``):
+    the encoder, and a decoder's batch with the encoder-decoder's
+    ``frames``."""
     gen = torch.Generator().manual_seed(0)
     if arch == "roberta-base":
         from repro_torch.configs import TINY
         from repro_torch.models.encoder import init_encoder_body
         cfg = TINY
         params = init_encoder_body(cfg, gen, device="cpu")
-    elif arch == "whisper-tiny":
-        from repro_torch.models.whisper import init_whisper
-        cfg = reduce_config(get_config(arch))
-        params = init_whisper(cfg, gen, device="cpu")
     else:
         cfg = reduce_config(get_config(arch))
         params = TT.init_lm(cfg, gen, device="cpu")
@@ -536,10 +532,9 @@ def test_other_archs_are_refused(arch, part):
     state = make_train_state(params, opt)
     state = tsh.device_put(state, {"params": psh,
                                    "opt": tsh.opt_state_shardings(mesh, state["opt"], psh)})
-    rows = B - 1 if arch == "whisper-tiny" else B
-    batch = {"tokens": np.random.default_rng(0).integers(3, cfg.vocab_size, (rows, S))}
+    batch = {"tokens": np.random.default_rng(0).integers(3, cfg.vocab_size, (B, S))}
     if arch != "gemma3-1b" or "frames" in part:
-        batch["frames"] = np.zeros((rows, 8, cfg.d_model), np.float32)
+        batch["frames"] = np.zeros((B, 8, cfg.d_model), np.float32)
     match = f"{cfg.name}'s " + part.replace("(", r"\(").replace(")", r"\)")
     with pytest.raises(NotImplementedError, match=match):
         make_train_step(cfg, opt)(state, batch)

@@ -374,8 +374,6 @@ def _placed_any(params, cfg, mesh):
     ("whisper-tiny", "attention: 6 query heads do not split over model = 4", "generate"),
     ("gemma3-1b", "step of 4 positions at cache_index 4 at a batch the batch axis does not "
      "divide (a chunked prefill)", "serve_at"),
-    ("whisper-tiny", "encoder-decoder (whisper) at a batch the batch axis does not divide",
-     "prefill"),
     ("gemma3-1b", "batch input 'frames'", "prefill"),
     ("whisper-tiny", "attention: 6 query heads do not split over model = 4", "serve"),
     ("roberta-base", "encoder (RoBERTa)", "prefill"),
@@ -394,10 +392,10 @@ def test_partitioned_serving_refusals(arch, part, entry):
     after the first at such a batch: its chunks (gemma3-1b) or a
     multi-position step every slot holds whole (qwen2-vl) against a cache
     whose sequence is split over data.  The encoder-decoder serves
-    partitioned since ``tests/test_torch_partitioned_whisper.py``, but not
-    at 3 rows over 2 data slots, nor with 6 query heads on ``model`` 4
-    (reduced whisper at d 192) in its generate (the encoder first) and its
-    serve step."""
+    partitioned since ``tests/test_torch_partitioned_whisper.py`` (at any
+    batch since ``tests/test_torch_context_parallel_whisper.py``), but not
+    with 6 query heads on ``model`` 4 (reduced whisper at d 192) in its
+    generate (the encoder first) and its serve step."""
     six = "query heads" in part
     mesh = tmesh.make_mesh((1, 4) if six else (2, 2), ("data", "model"), device="cpu")
     gen = torch.Generator().manual_seed(0)
@@ -413,7 +411,7 @@ def test_partitioned_serving_refusals(arch, part, entry):
             params = _placed_any(init_whisper(cfg, gen, device="cpu"), cfg, mesh)
         else:
             params = _placed_any(TT.init_lm(cfg, gen, device="cpu"), cfg, mesh)
-    rows = 3 if entry == "serve_at" or "does not divide" in part else 4
+    rows = 3 if entry == "serve_at" else 4
     toks = np.random.default_rng(0).integers(3, cfg.vocab_size, (rows, 5))
     match = (f"partitioned serving steps does not run {cfg.name}'s "
              + part.replace("(", r"\(").replace(")", r"\)"))
@@ -434,7 +432,7 @@ def test_partitioned_serving_refusals(arch, part, entry):
             Engine(cfg, params, max_len=16).generate(toks, max_new_tokens=2)
         elif entry.startswith("prefill"):
             batch = {"tokens": toks}
-            if "frames" in part or cfg.is_encoder_decoder:
+            if "frames" in part:
                 batch["frames"] = np.zeros((rows, 8, cfg.d_model), np.float32)
             make_prefill_step(cfg)(params, batch)
         elif entry == "serve_at":
