@@ -515,6 +515,32 @@ Phases (any failed check raises, so the script exits non-zero):
    and each token ``whisper_collectives(step=)``'; the logits against the
    whole model's).  Its record is a ``{"context_parallel_whisper": ...}``
    line.
+26. **The production grids** (slice 22, ``phase_pgrid``): the steps read
+   their grid from ``data_axis``/``model_axis``, a batch axis may be a
+   tuple, and ``pod`` on ``("pod", "data", "model")`` is replicated where
+   no spec names it.  First ``flash_attention`` at the per-slot shapes of
+   the B = 1 run on grid (b): the partials over each of four 1,028-slot
+   blocks (three empty under the local window) and their four-block merge,
+   bf16 and f32, also against ``flash_attention_plain`` over all 4,112
+   keys; each of the four prompt chunks, q [1, 1,024, 4, 256] over 4,096
+   keys, on ``prefill_tc``; the merge and the four partials with it timed
+   against their bound, plain version and SDPA over the whole cache
+   (``[time]`` lines).  Then gemma3-1b (6 of 26 layers at full width, f32
+   SGD) 8 x 512 whole, on grid (a) (pod 2 x data 2 x model 2,
+   ``data_axis="data"``) and on grid (b) ((data 2, model 2),
+   ``data_axis=("data", "model")``, ``model_axis=None``) with and without
+   FSDP: every gradient and updated param within 1e-5 of the leaf's
+   largest value of the whole step's, each slot's rows B / R, the
+   collectives ``partitioned_collectives(grid=)``' and none over ``pod``,
+   the two pods' operands bit-equal (``pod_twins``), bytes a slot
+   ``dryrun.slot_bytes``, second steps timed, a third profiled.  Then bf16
+   serving, whole and on the grid through ``Engine(data_axis=,
+   model_axis=)``, -> 16: gemma3-1b 8 x 512 on (a), 4 x 512 and 1 x 4,096
+   (four chunks, four cache blocks) on (b), granite-moe (4 layers) 4 x 512
+   on (b): launches exact by route (``pserve_routes``, ``cp_routes``), the
+   collectives of each step ``serve_collectives(data_axis=)``', the logits
+   within 4x the yardstick (``tp_agreement``).  Its record is a
+   ``{"pgrid": ...}`` line.
 
 Each phase prints ``[phase] <n> <name> <seconds> s``, its wall seconds
 from start to end, before the last lines (phases 3 and 4 alternate, one
@@ -525,8 +551,9 @@ phase 16's serves), before each model of phases 9, 13 and 14, around
 phases 12's, 13's and 14's eval steps and generates, around each run of
 phase 15's mesh daemon, around phase 17's counted prefill and decode step
 and around each of phase 19's, 20's, 21's and 22's partitioned generates,
-phase 23's train steps and context-parallel generate and phases 24's and
-25's partitioned greedy runs, every kernel's launch
+phase 23's train steps and context-parallel generate, phases 24's and
+25's partitioned greedy runs and phase 26's train steps and generates,
+every kernel's launch
 counter is set to 0; it is read just after.  The last lines are the
 kernels' JSON record (launches from phase 7 for the three fuse kernels, with phase 10's
 as ``launches_routed``, from phase 9 for the other two, phase 11's as
@@ -538,14 +565,16 @@ as ``launches_routed``, from phase 9 for the other two, phase 11's as
 ``launches_partitioned_serve``, phase 20's as
 ``launches_partitioned_moe``, phase 21's as ``launches_partitioned_ssm``,
 phase 22's as ``launches_context_parallel``, phase 24's as
-``launches_partitioned_whisper`` and phase 25's as
-``launches_context_parallel_whisper`` for all five; phase 15's times under
-``mesh``; phases 19's to 25's per-slot checks as ``per_slot_max_abs_err``;
-each kernel's ``cost_formula``; phases 22's, 24's and 25's ``[time]`` lines
+``launches_partitioned_whisper``, phase 25's as
+``launches_context_parallel_whisper`` and phase 26's as ``launches_pgrid``
+for all five; phase 15's times under ``mesh``; phases 19's to 26's
+per-slot checks as ``per_slot_max_abs_err``; each kernel's
+``cost_formula``; phases 22's, 24's, 25's and 26's ``[time]`` lines
 among ``flash_attention``'s ``routes`` and their launches by route as
 ``launches_by_route_context_parallel``,
-``launches_by_route_partitioned_whisper`` and
-``launches_by_route_context_parallel_whisper``, and one record each for the
+``launches_by_route_partitioned_whisper``,
+``launches_by_route_context_parallel_whisper`` and
+``launches_by_route_pgrid``, and one record each for the
 two new entries, ``flash_attention.decode_partial`` and
 ``flash_attention.decode_merge``), phase 16's record as a ``{"cold_mesh": ...}``
 line, phase 17's as a ``{"dryrun": ...}`` line, phase 18's as a
@@ -555,7 +584,8 @@ line, phase 17's as a ``{"dryrun": ...}`` line, phase 18's as a
 22's as a ``{"context_parallel": ...}`` line, phase 23's as a
 ``{"context_parallel_train": ...}`` line, phase 24's as a
 ``{"partitioned_whisper": ...}`` line, phase 25's as a
-``{"context_parallel_whisper": ...}`` line, ``nvidia-smi``'s line and
+``{"context_parallel_whisper": ...}`` line, phase 26's as a ``{"pgrid":
+...}`` line, ``nvidia-smi``'s line and
 ``{"ok": true, "device": {...}}``.  Without a card (or without the rest of
 the repository beside it) the script exits non-zero and prints no result.
 """
@@ -4939,7 +4969,7 @@ NO_COLLECTIVES = {"all_reduce": 0, "all_gather": 0, "reduce_scatter": 0}
 
 
 def partitioned_collectives(cfg, psh, R: int, M: int, microbatches: int = 1, opt_name="sgd",
-                            mesh=None, *, seq=None, masked=False):
+                            mesh=None, *, seq=None, masked=False, grid=None):
     """The collectives of one partitioned train step on a (replica R, model
     M) grid, the formula PERF.md §5 states (the same as
     ``tests/test_torch_partitioned.py``'s and, with the MoE, Mamba and RWKV
@@ -4967,7 +4997,12 @@ def partitioned_collectives(cfg, psh, R: int, M: int, microbatches: int = 1, opt
     is factored, else one all-gather of its g² and the RMS's all-reduce.
     ``masked``: a batch with a mask adds, per microbatch, the mask's count
     all-reduced over ``replica``.  ``mesh`` (where given) names the batch
-    axis (``replica``, or ``data``).
+    axis (``replica``, or ``data``), read ``FROM_MESH``; ``grid`` (a
+    ``models.partitioned.Grid``, phase 26) names it where the step's
+    ``data_axis`` does: a tuple of axes, such as ``("data", "model")``,
+    is one batch axis of R = its product's slots, and its model axis may
+    be None (M = 1).  An axis the grid replicates (``pod`` on grid (a))
+    changes no count: each call runs over every group of its axis at once.
 
     At a batch the batch axis does not divide (``seq``, phase 23, and
     ``tests/test_torch_context_parallel_train.py``), per microbatch over
@@ -5017,7 +5052,9 @@ def partitioned_collectives(cfg, psh, R: int, M: int, microbatches: int = 1, opt
             else:
                 ar += 2 * L
     fsdp_uses = per_step = perm = 0
-    data_axis = "replica" if mesh is None else pt_mod.grid_axes(mesh)[0]
+    if grid is not None:
+        mesh = grid.mesh
+    data_axis = "replica" if mesh is None else pt_mod.as_grid(grid or mesh).dp
     if R > 1:
         ar += masked
         n_full, _ = tt_mod.split_layers(cfg)
@@ -5939,6 +5976,12 @@ def serve_collectives(cfg, psh, R: int, M: int, *, cached: bool = True, data_axi
     the last chunk; at a decode step each attention layer's partials
     gathered.
 
+    ``data_axis`` may be a tuple of axes (phase 26's grid (b),
+    ``("data", "model")``): one batch axis of R = its product's slots,
+    keyed by the tuple, with M = 1 where the grid has no model axis (the
+    ``"model"`` terms vanish).  An axis the grid replicates (``pod``)
+    changes no count.
+
     The encoder-decoder takes ``whisper_collectives`` (``step`` one of its
     forwards, by default the serve step with ``cached`` and the prefill
     step without)."""
@@ -6087,14 +6130,15 @@ def pserve_routes(cfg, prompt_len, new_tokens, n_slots: int, M: int):
     return flash, rwkv
 
 
-def stepped(cfg, params, prompts, max_len, feed=None, n=None, **vision):
+def stepped(cfg, params, prompts, max_len, feed=None, n=None, axes=None, **vision):
     """The tokens [B, n] and last-position logits [B, n, V] of a prefill of
     ``prompts`` into a cache and n - 1 decode steps (placed params or
     whole), fed the tokens ``feed`` [B, n] (teacher-forced) or greedy.
     ``vision`` (``positions``, ``extra_embeds``) makes the prefill a
     vision prompt's: ``forward_lm(cache=, cache_index=0, positions=,
-    extra_embeds=)`` whole, its placed twin on placed params."""
-    eng = Engine(cfg, params, max_len=max_len)
+    extra_embeds=)`` whole, its placed twin on placed params.  ``axes``:
+    the Engine's ``data_axis``/``model_axis`` (phase 26's grids)."""
+    eng = Engine(cfg, params, max_len=max_len, **(axes or {}))
     P, n = prompts.shape[1], feed.shape[1] if n is None else n
     with torch.inference_mode():
         toks, cache = eng._start(params, prompts)
@@ -6222,14 +6266,15 @@ def check_pserve_launches(what, cfg, prompt_len, new_tokens, mesh):
     return got_f, got_r
 
 
-def check_placement(cfg, placed, psh, cache, mesh, max_len, batch=4):
+def check_placement(cfg, placed, psh, cache, mesh, max_len, batch=4, axes=None):
     """Each slot holds what ``placed_slot_bytes`` counts of the placed params
     and cache, equal to ``dryrun.slot_bytes`` by their specs, and each cache
-    block has the shape ``cache_shardings`` gives.  Returns the bytes a
-    slot and the bytes stored on the cards (each stored block once)."""
+    block has the shape ``cache_shardings`` gives (with ``axes``, its
+    ``data_axis``/``model_axis``).  Returns the bytes a slot and the bytes
+    stored on the cards (each stored block once)."""
     with torch.device("meta"):
         shapes = init_cache(cfg, batch, max_len, device="meta")
-    csh = sharding_mod.cache_shardings(mesh, shapes, cfg)
+    csh = sharding_mod.cache_shardings(mesh, shapes, cfg, **(axes or {}))
     want = dryrun_mod.slot_bytes({"params": placed, "cache": shapes},
                                  {"params": psh, "cache": csh}, mesh)
     got = sharding_mod.placed_slot_bytes({"params": placed, "cache": cache}, mesh)
@@ -6242,7 +6287,8 @@ def check_placement(cfg, placed, psh, cache, mesh, max_len, batch=4):
                       if e is not None else n for n, e in zip(x.shape, specs[name].spec))
         block += tuple(x.shape[len(block):])
         check(all(tuple(x.block(s).shape) == block for s in range(mesh.devices.size)),
-              f"cache leaf {name}: blocks {[tuple(x.block(s).shape) for s in range(4)]}, "
+              f"cache leaf {name}: blocks "
+              f"{[tuple(x.block(s).shape) for s in range(mesh.devices.size)]}, "
               f"cache_shardings gives {block}")
     stored = sum(b.numel() * b.element_size() for _, x in tree_leaves_with_path(placed)
                  for b in x.blocks)
@@ -7044,7 +7090,7 @@ CP_PARTIAL_CASES = (("gemma3-1b global", (2, 1, 256, 32_768, 32_760, None), None
                     ("granite-moe", (8, 4, 64, 2_064, 2_060, None), None))
 
 
-def cp_partial_checks(gen, cases=CP_PARTIAL_CASES):
+def cp_partial_checks(gen, cases=CP_PARTIAL_CASES, blocks=CP_GRID[0]):
     """The partials and merge entries against their plain versions at the
     per-slot decode shapes ``cases``, bf16 and f32 (phase 22's:
     gemma3-1b's q [1, 1, 2, 256] on one kv head over each 16,384-position
@@ -7053,18 +7099,19 @@ def cp_partial_checks(gen, cases=CP_PARTIAL_CASES):
     empty), and granite-moe's q [1, 1, 8, 64] on 4 kv heads over a
     1,032-slot block); then the merged output of both blocks against
     flash_attention_plain over the whole cache.  Returns the largest error
-    and the gemma bf16 inputs (for timing) where ``cases`` hold them."""
+    and the gemma bf16 inputs (for timing) where ``cases`` hold them.
+    ``blocks``: the blocks the cache is cut into (phase 26's four)."""
     worst = 0.0
     kept = None
     for dtype in (torch.bfloat16, torch.float32):
         for label, (Hq, Hkv, hd, L, pos, window), want_empty in cases:
             q, k, v = qkv_on_card(1, 1, L, Hq, Hkv, hd, dtype, gen)
-            blk = L // CP_GRID[0]
+            blk = L // blocks
             parts, empty = [], 0
-            for r in range(CP_GRID[0]):
+            for r in range(blocks):
                 kb, vb = k[:, r * blk:(r + 1) * blk].contiguous(), v[:, r * blk:(r + 1) * blk]
                 vb = vb.contiguous()
-                _, q_off, win = layers_mod.cache_block(L, pos, window, r, CP_GRID[0])
+                _, q_off, win = layers_mod.cache_block(L, pos, window, r, blocks)
                 before = dict(flash_attention.launches_by_route)
                 got = flash_attention_partials(q, kb, vb, window=win, q_offset=q_off)
                 check(flash_attention.launches_by_route["decode_partial"]
@@ -7088,10 +7135,10 @@ def cp_partial_checks(gen, cases=CP_PARTIAL_CASES):
             if want_empty is not None:
                 check(empty == want_empty, f"{label}: {empty} empty blocks, expected "
                       f"{want_empty}")
-            if dtype == torch.bfloat16 and label == "gemma3-1b global":
+            if dtype == torch.bfloat16 and label.startswith("gemma3-1b global"):
                 kept = (q, k, v, pos)
             print(f"[check] context-parallel decode {label} {str(dtype)[6:]}: q [1, 1, {Hq}, "
-                  f"{hd}] on {Hkv} kv heads, {CP_GRID[0]} blocks of {blk} at position {pos} "
+                  f"{hd}] on {Hkv} kv heads, {blocks} blocks of {blk} at position {pos} "
                   f"(window {window}): partials and merge vs plain, and the merge vs "
                   f"flash_attention_plain over all {L} keys, max|d| so far {worst:.3g} "
                   "(bf16: 1 bf16 ulp + 2e-5 x max(1, max|plain|); f32 and the partials: 2e-5 x "
@@ -7099,18 +7146,20 @@ def cp_partial_checks(gen, cases=CP_PARTIAL_CASES):
     return worst, kept
 
 
-def cp_timing(inputs, card):
+def cp_timing(inputs, card, n_blocks=CP_GRID[0], routes=None):
     """Kernel, plain version and SDPA for the two entries at gemma3-1b's
     per-slot decode shape (bf16): the partials over block 0 (16,384 keys,
     all visible) and the merge of both blocks' partials; and the two
     blocks' partials plus their merge (one data slot's share of a
     context-parallel step, both blocks on one card) against SDPA over the
-    whole gathered cache for the same query.  Returns the lines."""
+    whole gathered cache for the same query.  ``n_blocks``: the blocks the
+    cache is cut into (phase 26's four); ``routes``: the lines to time, by
+    their first word (all three by default).  Returns the lines."""
     q, k, v, pos = inputs
     L = k.shape[1]
-    blk = L // CP_GRID[0]
+    blk = L // n_blocks
     blocks = [(k[:, r * blk:(r + 1) * blk].contiguous(), v[:, r * blk:(r + 1) * blk].contiguous(),
-               layers_mod.cache_block(L, pos, None, r, CP_GRID[0])[1]) for r in range(CP_GRID[0])]
+               layers_mod.cache_block(L, pos, None, r, n_blocks)[1]) for r in range(n_blocks)]
     part = torch.cat([flash_attention_partials(q, kb, vb, q_offset=off) for kb, vb, off in blocks],
                      2)
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
@@ -7125,10 +7174,11 @@ def cp_timing(inputs, card):
          lambda: flash_attention_partials(q, kb0, vb0, q_offset=off0),
          lambda: flash_attention_partials_plain(q, kb0, vb0, q_offset=off0),
          fa_mod.partials_cost(q, kb0, vb0, q_offset=off0), sdpa),
-        ("decode_merge", "merge of both blocks' partials", lambda: merge_partials(part, 1, q.dtype),
+        ("decode_merge", f"merge of the {n_blocks} blocks' partials",
+         lambda: merge_partials(part, 1, q.dtype),
          lambda: merge_partials_plain(part, 1, q.dtype), fa_mod.merge_cost(part, 1, q.dtype),
          None),
-        ("context-parallel decode", "both blocks' partials and their merge",
+        ("context-parallel decode", f"the {n_blocks} blocks' partials and their merge",
          lambda: merge_partials(torch.cat([flash_attention_partials(q, kb, vb, q_offset=off)
                                            for kb, vb, off in blocks], 2), 1, q.dtype),
          lambda: merge_partials_plain(torch.cat([flash_attention_partials_plain(
@@ -7136,6 +7186,8 @@ def cp_timing(inputs, card):
          fa_mod.cost(q, k, v, q_offset=pos), sdpa))
     lines = []
     for route, what, fn, plain_fn, (flops, nbytes), lib_fn in cases:
+        if routes is not None and route.split()[0] not in routes:
+            continue
         bound, bound_by = bound_of(nbytes, flops, peak_flops(q.dtype))
         ms, runs = median_windows(fn, iters=200)
         plain, _ = median_windows(plain_fn, iters=5, warmup=1)
@@ -7144,7 +7196,7 @@ def cp_timing(inputs, card):
         if lib_fn is not None:
             lib, _ = median_windows(lib_fn, iters=200)
             g_lib, _ = graph_windows(lib_fn, 200)
-        print(f"[time] flash_attention {route} ({what}) gemma3-1b q [1, 1, 2, 256] on 1 kv head, "
+        print(f"[time] flash_attention {route} ({what}) gemma3-1b q {list(q.shape)} on 1 kv head, "
               f"{blk}-key blocks of a {L}-slot cache at position {pos}, bf16, on {card}: "
               f"kernel_ms {ms:.4f} (windows {[round(r, 4) for r in runs]}), bound_ms "
               f"{bound:.4f} ({bound_by}: {nbytes / 1e6:.2f} MB at 3.35 TB/s, {flops / 1e9:.3f} "
@@ -8272,6 +8324,407 @@ def phase_context_parallel_whisper(card, gen):
                     "routes": lines, "seconds": seconds}
 
 
+# ---------------------------------------------------------------------------
+# phase 26: the partitioned steps on the reference's production grids (slice 22)
+# ---------------------------------------------------------------------------
+
+# grid -> (mesh shape, axis names, data_axis, model_axis): (a) the multi-pod
+# mesh's default, where no spec names pod (replicated: each pod runs the
+# same program on the same blocks); (b) the dry run's dp strategy, the batch
+# over both axes of (data, model) and no tensor parallelism
+PGRID_GRIDS = {"a": ((2, 2, 2), ("pod", "data", "model"), "data", "model"),
+               "b": ((2, 2), ("data", "model"), ("data", "model"), None)}
+# gemma3-1b at full width cut to its first period (5 local layers and the
+# global one) of 26; granite-moe at 4 of its 24 layers
+PGRID_LAYERS, PGRID_MOE_LAYERS = 6, 4
+PGRID_TRAIN_SHAPE = (8, 512)
+PGRID_TRAIN = (("a", False), ("b", False), ("b", True))      # (grid, fsdp): f32 SGD
+PGRID_NEW = 16
+# (arch, grid, batch, prompt, cache slots): the B = 1 run's prompt in four
+# chunks of 1,024 and its 4,112 slots in four blocks of 1,028 over (data, model)
+PGRID_SERVE = (("gemma3-1b", "a", 8, 512, 528), ("gemma3-1b", "b", 4, 512, 528),
+               ("gemma3-1b", "b", 1, 4_096, 4_112), (MOE_ARCH, "b", 4, 512, 528))
+PGRID_BLOCKS = 4
+# the B = 1 run's per-slot decode shapes: q [1, 1, 4, 256] on one kv head over
+# each 1,028-slot block at position 4,110 (a local layer: blocks 0-2 empty)
+PGRID_PARTIAL_CASES = (("gemma3-1b global, 4 blocks", (4, 1, 256, 4_112, 4_110, None), None),
+                       ("gemma3-1b local, 4 blocks", (4, 1, 256, 4_112, 4_110, GEMMA_WINDOW), 3))
+PGRID_DECODE_PROFILED = 1
+
+
+def axes_json(by_axis):
+    """A ``collectives_by_axis`` dict with a tuple of axes keyed by its
+    names joined with commas (JSON keys are strings)."""
+    return {k if isinstance(k, str) else ",".join(k): v for k, v in by_axis.items()}
+
+
+def pgrid_grid(g):
+    """(mesh, the steps' axes keywords, the ``models.partitioned.Grid``) of
+    PGRID_GRIDS' grid ``g``."""
+    shape, names, da, ma = PGRID_GRIDS[g]
+    mesh = make_mesh(shape, names)
+    return mesh, {"data_axis": da, "model_axis": ma}, pt_mod.make_grid(mesh, da, ma)
+
+
+class pod_twins:
+    """Inside the block, every ``axis_all_reduce`` and ``axis_all_gather``
+    call over all the slots of a grid whose ``pod`` axis is replicated holds
+    each slot's operand equal, bit for bit, to its twin's on the other pod
+    (the slot of the same data and model index): the two pods' losses,
+    gradients (each all-reduced over data) and logits (gathered over model
+    and data) pass through these calls.  On one card the two pods' slots
+    share each stored block of the params and the cache (one block a
+    device), written by both with these equal values.  ``calls`` and
+    ``operands`` count what was compared."""
+
+    def __init__(self, mesh):
+        self.pairs, self.n = mesh.groups("pod"), mesh.devices.size
+        self.calls = self.operands = 0
+
+    def __enter__(self):
+        self.saved = (mesh_mod.axis_all_reduce, mesh_mod.axis_all_gather)
+        mesh_mod.axis_all_reduce, mesh_mod.axis_all_gather = (self.wrap(f) for f in self.saved)
+        return self
+
+    def wrap(self, real):
+        def call(parts, *args, **kw):
+            if len(parts) == self.n:
+                self.calls += 1
+                for grp in self.pairs:
+                    a = parts[grp[0]]
+                    for s in grp[1:]:
+                        b = parts[s]
+                        check((a is None) == (b is None) and (a is None or torch.equal(a, b)),
+                              f"pods differ: slot {grp[0]} and slot {s}'s operands of a "
+                              f"{real.__name__} call")
+                        self.operands += 1
+            return real(parts, *args, **kw)
+
+        return call
+
+    def __exit__(self, *exc):
+        mesh_mod.axis_all_reduce, mesh_mod.axis_all_gather = self.saved
+
+
+def pgrid_slot_checks(gen, card):
+    """flash_attention at the per-slot shapes of phase 26's B = 1 run on
+    grid (b): the partials over each of the four 1,028-slot blocks and
+    their merge, bf16 and f32 (``cp_partial_checks(blocks=4)``, the merge
+    also against flash_attention_plain over all 4,112 keys); each chunk's
+    prefill, q [1, 1,024, 4, 256] at q_offset r x 1,024 over the 4,096
+    gathered keys on one kv head, bf16 through prefill_tc, window 512 and
+    none; then the four-block merge and the whole step's share (four
+    partials and their merge) timed against their bound, the plain version
+    and SDPA over the whole cache.  Returns (the largest error, the
+    ``[time]`` lines)."""
+    worst, inputs = cp_partial_checks(gen, PGRID_PARTIAL_CASES, blocks=PGRID_BLOCKS)
+    c = PGRID_SERVE[2][3] // PGRID_BLOCKS
+    q, k, v = qkv_on_card(1, c, PGRID_SERVE[2][3], 4, 1, 256, torch.bfloat16, gen)
+    for window in (None, GEMMA_WINDOW):
+        for r in range(PGRID_BLOCKS):
+            kw = dict(causal=True, window=window, q_offset=r * c)
+            e = bf16_close(flash_routed("prefill_tc", q, k, v, **kw),
+                           flash_attention_plain(q, k, v, **kw),
+                           f"flash per slot gemma3-1b chunk {r} prefill")
+            worst = max(worst, e)
+        print(f"[check] flash_attention per slot, gemma3-1b's {PGRID_BLOCKS} chunks on grid (b): "
+              f"q [1, {c}, 4, 256] on 1 kv head at q_offset 0..{(PGRID_BLOCKS - 1) * c} over "
+              f"{PGRID_SERVE[2][3]} keys, window {window}, bf16: prefill_tc max|d| so far "
+              f"{worst:.3g} (bound 1 bf16 ulp + 2e-5 x max(1, max|plain|))")
+    del q, k, v
+    lines = cp_timing(inputs, card, n_blocks=PGRID_BLOCKS,
+                      routes=("decode_merge", "context-parallel"))
+    del inputs
+    return worst, lines
+
+
+def pgrid_train(card):
+    """gemma3-1b (PGRID_LAYERS layers at full width, f32, SGD momentum 0.9)
+    one step at PGRID_TRAIN_SHAPE whole, every gradient and updated param
+    kept on the card, a second step timed; then for each of PGRID_TRAIN's
+    (grid, fsdp) the same state placed with the grid's axes and the same
+    step partitioned: loss, grad_norm, every gradient and every updated
+    param against the whole step's (largest difference within
+    PARTITIONED_RTOL of the leaf's largest value), each slot's rows (B / R),
+    the collectives ``partitioned_collectives(grid=)``' and over the grid's
+    axes alone, on grid (a) the two pods' operands equal bit for bit
+    (``pod_twins``), bytes a slot ``dryrun.slot_bytes``; a second step
+    timed, a third profiled (idle share), the peak.  Returns the runs'
+    records."""
+    B, S = PGRID_TRAIN_SHAPE
+    cfg = dataclasses.replace(GEMMA, num_layers=PGRID_LAYERS, param_dtype="float32",
+                              compute_dtype="float32")
+    opt = make_optimizer("sgd", constant_lr(PARTITIONED_SGD_LR), momentum=0.9)
+    batch = {"tokens": torch.as_tensor(np.random.default_rng(26).integers(
+        3, cfg.vocab_size, (B, S)), device="cuda")}
+    kept = {}
+
+    def keep(grads):
+        kept.update(tree_leaves_with_path(grads))
+        return grads
+
+    def fresh():
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        return make_train_state(init_lm(cfg, gen, device="cuda"), opt)
+
+    t0 = time.perf_counter()
+    sync_cards()
+    reset_cards_peak()
+    state = fresh()
+    (new, wm), whole_first = timed_run(lambda: make_train_step(cfg, opt, grad_sync=keep)(
+        state, batch))
+    del state
+    want = {k: wm[k].float().item() for k in ("loss", "grad_norm")}
+    want_grads, want_new = dict(kept), dict(tree_leaves_with_path(new["params"]))
+    kept.clear()
+    _, whole_ms = timed_run(lambda: make_train_step(cfg, opt)(new, batch))
+    del _, new, wm
+    whole_peak = cards_peak_gib()
+    sync_cards()
+    torch.cuda.empty_cache()
+    whole_s = time.perf_counter() - t0
+    runs = []
+    for g, fsdp in PGRID_TRAIN:
+        t_run = time.perf_counter()
+        cfg_g = dataclasses.replace(cfg, fsdp=fsdp)
+        mesh, axes, grid = pgrid_grid(g)
+        state = fresh()
+        psh = sharding_mod.params_shardings(mesh, state["params"], cfg_g, **axes)
+        sh = {"params": psh, "opt": sharding_mod.opt_state_shardings(mesh, state["opt"], psh)}
+        slot_bytes = dryrun_mod.slot_bytes(state, sh, mesh)
+        placed = device_put(state, sh)
+        del state
+        check(sharding_mod.placed_slot_bytes(placed, mesh) == [slot_bytes] * mesh.devices.size,
+              f"grid ({g}): placed bytes a slot differ from dryrun.slot_bytes {slot_bytes:,}")
+        sync_cards()
+        torch.cuda.empty_cache()
+        cols_want = partitioned_collectives(cfg_g, psh, grid.R, grid.M, grid=grid)
+        step = make_train_step(cfg_g, opt, grad_sync=keep, grad_shardings=psh, **axes)
+        rows = []
+        real_loss = pt_mod.partitioned_loss
+
+        def spy(*args, **kw):
+            rows.append([t.shape[0] for t in args[4]])
+            return real_loss(*args, **kw)
+
+        reset_launches()
+        reset_cards_peak()
+        mesh_mod.reset_collectives()
+        twins = pod_twins(mesh) if "pod" in grid.replicated else contextlib.nullcontext()
+        pt_mod.partitioned_loss = spy
+        try:
+            with twins:
+                (placed, pm), first_ms = timed_run(lambda: step(placed, batch))
+        finally:
+            pt_mod.partitioned_loss = real_loss
+        peak = cards_peak_gib()
+        cols, by_axis = dict(mesh_mod.collectives), dict(mesh_mod.collectives_by_axis)
+        nbytes = dict(mesh_mod.collective_bytes)
+        counts = launches()
+        worst = {k: abs(pm[k].float().item() - want[k]) / abs(want[k]) for k in want}
+        new_leaves = dict(tree_leaves_with_path(placed["params"]))
+        for part, got_tree, want_tree in (("grads", kept, want_grads),
+                                          ("params", new_leaves, want_new)):
+            for k, w in want_tree.items():
+                d = (sharding_mod.gather(got_tree[k]).float() - w.float()).abs().max()
+                worst[f"{part}/{k}"] = (d / w.float().abs().max().clamp(min=1e-30)).item()
+        kept.clear()
+        del new_leaves, pm
+        (placed, _), step_ms = timed_run(lambda: step(placed, batch))
+        split = device_split(lambda: step(placed, batch))
+        kept.clear()
+        busy = None if split is None else split[0]
+        idle = None if busy is None else max(0.0, 1 - busy / step_ms)
+        print_split("gemma3-1b", f"partitioned step on grid ({g}), fsdp {fsdp}", step_ms, split)
+        del placed, _
+        sync_cards()
+        torch.cuda.empty_cache()
+        over = {k: v for k, v in worst.items() if v > PARTITIONED_RTOL}
+        top = sorted(worst.items(), key=lambda kv: -kv[1])[:3]
+        twin = (f"; the pods' operands bit-equal over {twins.calls} calls "
+                f"({twins.operands} pairs)" if isinstance(twins, pod_twins) else "")
+        seconds = time.perf_counter() - t_run
+        print(f"[pgrid] gemma3-1b ({PGRID_LAYERS} layers, f32, SGD) {B} x {S} on grid ({g}) "
+              f"{mesh!r}, data_axis={axes['data_axis']!r}, model_axis={axes['model_axis']!r}, "
+              f"fsdp {fsdp}: rows a slot {rows[0]}; whole step {whole_ms:.1f} ms (first "
+              f"{whole_first:.1f}), peak {whole_peak:.2f} GiB; partitioned {step_ms:.1f} ms "
+              f"(first {first_ms:.1f}), device busy {'n/a' if busy is None else f'{busy:.1f}'} "
+              f"ms, idle {'n/a' if idle is None else f'{idle:.1%}'}, peak {peak:.2f} GiB; "
+              f"{slot_bytes:,} bytes a slot (= dryrun.slot_bytes); collectives {cols} "
+              f"({by_axis} by axis; the formula's {cols_want}), carrying {nbytes} bytes{twin}; "
+              f"largest difference over the leaf's largest value, worst three "
+              f"{[(k, float(f'{v:.3g}')) for k, v in top]} (bound {PARTITIONED_RTOL:g}); "
+              f"{seconds:.1f} s on {card}")
+        check(cols == cols_want, f"grid ({g}): collectives {cols}, expected {cols_want}")
+        check(set(by_axis) <= {grid.dp, grid.model}, f"grid ({g}): a collective crossed an "
+              f"axis the grid replicates: {by_axis}")
+        check(all(r == B // grid.R for r in rows[0]), f"grid ({g}): rows a slot {rows[0]}")
+        check(not over, f"grid ({g}): against the whole step beyond {PARTITIONED_RTOL:g}: {over}")
+        check(all(n == 0 for n in counts.values()), f"grid ({g}): the train step launched {counts}")
+        runs.append({"grid": g, "mesh": repr(mesh), "axes": {k: v for k, v in axes.items()},
+                     "fsdp": fsdp, "shape": [B, S], "rows_a_slot": rows[0],
+                     "whole_ms": whole_ms, "whole_first_ms": whole_first,
+                     "whole_peak_gib": whole_peak, "step_ms": step_ms, "first_ms": first_ms,
+                     "device_busy_ms": busy, "device_idle_share": idle, "peak_gib": peak,
+                     "slot_bytes": slot_bytes, "collectives": cols,
+                     "collectives_by_axis": axes_json(by_axis),
+                     "collective_bytes": nbytes, "pod_twins": None if not twin else
+                     [twins.calls, twins.operands], "worst": max(worst.values()),
+                     "seconds": seconds})
+    del want_grads, want_new
+    torch.cuda.empty_cache()
+    return runs, whole_s
+
+
+def pgrid_serve(arch, g, B, P, max_len, card):
+    """``arch`` (bf16 at full width, PGRID_LAYERS or PGRID_MOE_LAYERS
+    layers) whole, then placed on PGRID_GRIDS' grid ``g`` and served by
+    ``Engine(data_axis=, model_axis=)`` B x P -> PGRID_NEW: launches exact
+    by route (``pserve_routes``, or ``cp_routes`` at a batch the batch axes
+    do not divide), the collectives of the prefill and of each decode step
+    ``serve_collectives``' over the grid's axes alone, on grid (a) the two
+    pods' operands equal bit for bit, bytes a slot ``dryrun.slot_bytes``,
+    the generate's tokens against the whole model's, the logits
+    teacher-forced on its tokens within 4x the yardstick
+    (``tp_agreement``), prefill and decode ms and their device busy time.
+    Returns (the launches of the partitioned generate, the record)."""
+    t_model = time.perf_counter()
+    layers = PGRID_MOE_LAYERS if arch == MOE_ARCH else PGRID_LAYERS
+    cfg = dataclasses.replace(get_config(arch), num_layers=layers)
+    saved_ring = tt_mod.RING_CACHE
+    tt_mod.RING_CACHE = False
+    try:
+        dev = torch.device("cuda")
+        sync_cards()
+        reset_cards_peak()
+        params = init_lm(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+        prompts = np.random.default_rng(26).integers(3, cfg.vocab_size, (B, P))
+        ref = whole_reference(cfg, params, prompts, max_len, PGRID_NEW)
+        w_pre, w_dec = ref[3:]
+        whole_peak = cards_peak_gib()
+        mesh, axes, grid = pgrid_grid(g)
+        psh = sharding_mod.params_shardings(mesh, params, cfg, **axes)
+        placed = device_put(params, psh)
+        del params
+        sync_cards()
+        torch.cuda.empty_cache()
+        reset_cards_peak()
+        eng = Engine(cfg, placed, max_len=max_len, **axes)
+        with torch.inference_mode():
+            toks, cache = eng._start(placed, prompts)
+        slot_bytes, stored = check_placement(cfg, placed, psh, cache, mesh, max_len, batch=B,
+                                             axes=axes)
+        del cache
+        R, M, n = grid.R, grid.M, mesh.devices.size
+        seq = pt_mod.seq_layout(B, P, R)
+        pre_c = serve_collectives(cfg, psh, R, M, data_axis=grid.dp, step=seq)
+        dec_c = serve_collectives(cfg, psh, R, M, data_axis=grid.dp,
+                                  step=None if seq is None else "decode")
+        flash_want, rwkv_want = (pserve_routes(cfg, P, PGRID_NEW, n, M) if seq is None
+                                 else cp_routes(cfg, PGRID_NEW, n, M))
+        twins = pod_twins(mesh) if "pod" in grid.replicated else contextlib.nullcontext()
+        reset_launches()
+        mesh_mod.reset_collectives()
+        with twins:
+            res, gen_ms = timed_run(lambda: eng.generate(prompts, max_new_tokens=PGRID_NEW))
+        counts = launches()
+        got_f = dict(flash_attention.launches_by_route)
+        check(got_f == flash_want and counts["rwkv6_scan"] == 0,
+              f"{arch} on grid ({g}): launched flash_attention {got_f}, expected {flash_want}")
+        cols, by_axis = dict(mesh_mod.collectives), dict(mesh_mod.collectives_by_axis)
+        want_cols = {k: pre_c[0].get(k, 0) + (PGRID_NEW - 1) * dec_c[0].get(k, 0)
+                     for k in set(pre_c[0]) | set(dec_c[0])}
+        want_axes = {k: pre_c[1].get(k, 0) + (PGRID_NEW - 1) * dec_c[1].get(k, 0)
+                     for k in set(pre_c[1]) | set(dec_c[1])}
+        check(cols == want_cols and by_axis == want_axes,
+              f"{arch} on grid ({g}): the generate's collectives {cols} ({by_axis} by axis), "
+              f"expected {want_cols} ({want_axes})")
+        gen_bytes = dict(mesh_mod.collective_bytes)
+        same = int((res.tokens[:, P:] == ref[0]).sum())
+        with torch.inference_mode():
+            _, cache = eng._start(placed, prompts)
+            lg, p_pre = timed_run(lambda: eng._prefill(placed, toks, cache)[0])
+            p_dec = (gen_ms - p_pre) / (PGRID_NEW - 1)
+            nxt = torch.argmax(lg, -1)[:, None]
+
+            def decode_profiled():
+                for t in range(PGRID_DECODE_PROFILED):
+                    eng._serve(placed, cache, nxt, P + t)
+
+            split_dec = device_split(decode_profiled)
+            _, cache = eng._start(placed, prompts)
+            split_pre = device_split(lambda: eng._prefill(placed, toks, cache))
+            del cache, lg
+        print_split(arch, f"prefill {B} x {P} on grid ({g})", p_pre, split_pre)
+        print_split(arch, f"{PGRID_DECODE_PROFILED} decode step(s) on grid ({g})",
+                    PGRID_DECODE_PROFILED * p_dec, split_dec)
+        peak = cards_peak_gib()
+        lp = stepped(cfg, placed, prompts, max_len, ref[0], axes=axes)[1]
+        agreement = tp_agreement(f"{arch} {B} x {P} on grid ({g})", lp, ref)
+        del lp, placed, eng, ref
+        torch.cuda.empty_cache()
+        busy = {k: None if v is None else v[0] for k, v in (("prefill", split_pre),
+                                                            ("decode", split_dec))}
+        idle = {k: None if b is None else max(0.0, 1 - b / w) for (k, b), w in
+                zip(busy.items(), (p_pre, PGRID_DECODE_PROFILED * p_dec))}
+        twin = (f"; the pods' operands bit-equal over {twins.calls} calls "
+                f"({twins.operands} pairs)" if isinstance(twins, pod_twins) else "")
+        seconds = time.perf_counter() - t_model
+        rec = {"arch": arch, "layers": layers, "grid": g, "mesh": repr(mesh),
+               "axes": axes, "batch": B, "prompt": P, "new": PGRID_NEW, "max_len": max_len,
+               "layout": seq, "slot_bytes": slot_bytes, "stored_bytes": stored,
+               "whole_prefill_ms": w_pre, "whole_decode_ms": w_dec, "whole_peak_gib": whole_peak,
+               "prefill_ms": p_pre, "decode_ms": p_dec, "generate_ms": gen_ms,
+               "device_busy_ms": busy, "device_idle_share": idle, "peak_gib": peak,
+               "launches": counts, "flash_routes": got_f,
+               "collectives_prefill": [pre_c[0], axes_json(pre_c[1])],
+               "collectives_decode_step": [dec_c[0], axes_json(dec_c[1])],
+               "collective_bytes_generate": gen_bytes,
+               "generate_tokens_equal": same, "agreement": agreement,
+               "pod_twins": None if not twin else [twins.calls, twins.operands],
+               "seconds": seconds}
+        print(f"[pgrid] {arch} ({layers} layers, bf16) {B} x {P} -> {PGRID_NEW} on grid ({g}) "
+              f"{mesh!r}, data_axis={axes['data_axis']!r}, model_axis={axes['model_axis']!r}"
+              f"{'' if seq is None else f', the prompt {seq} over the batch axes'}: "
+              f"{slot_bytes:,} bytes a slot (= dryrun.slot_bytes); whole prefill {w_pre:.2f} ms, "
+              f"decode {w_dec:.2f} ms a step, peak {whole_peak:.2f} GiB; on the grid prefill "
+              f"{p_pre:.2f} ms, decode {p_dec:.2f} ms a step, generate {gen_ms:.0f} ms, device "
+              f"idle {idle}, peak {peak:.2f} GiB; launches by route {got_f} (exactly as worked "
+              f"out); collectives a prefill {pre_c}, a decode step {dec_c} (the formula's){twin}; "
+              f"the generate's tokens equal the whole model's at {same}/{res.tokens[:, P:].size}; "
+              f"{seconds:.1f} s on {card}")
+        return counts, rec
+    finally:
+        tt_mod.RING_CACHE = saved_ring
+
+
+def phase_pgrid(card, gen):
+    """Phase 26: flash_attention at the B = 1 run's per-slot shapes on grid
+    (b) (four blocks, four chunks), then gemma3-1b's train step on
+    PGRID_TRAIN's grids and PGRID_SERVE's models served on theirs, each
+    against the whole model.  Returns (launches summed over the
+    partitioned generates, the phase's record)."""
+    t_phase = time.perf_counter()
+    err, lines = pgrid_slot_checks(gen, card)
+    torch.cuda.empty_cache()
+    train, whole_s = pgrid_train(card)
+    total = dict.fromkeys(launches(), 0)
+    routes = dict.fromkeys(fa_mod.COUNTED, 0)
+    served = []
+    for arch, g, B, P, max_len in PGRID_SERVE:
+        counts, rec = pgrid_serve(arch, g, B, P, max_len, card)
+        total = {k: total[k] + counts[k] for k in total}
+        routes = {k: routes[k] + rec["flash_routes"][k] for k in routes}
+        served.append(rec)
+        torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t_phase
+    print(f"[pgrid] phase 26: {seconds:.1f} s on {card} (the whole train step {whole_s:.1f} s); "
+          f"launches over the partitioned generates {total}, flash_attention by route {routes}, "
+          "none on the train steps")
+    return total, {"train": train, "serve": served, "per_slot_max_abs_err": err,
+                   "routes": lines, "flash_routes": routes, "seconds": seconds}
+
+
 class phase_clock:
     """Prints ``[phase] <n> <name> <seconds> s`` for each phase of the
     script, its wall seconds from start to end.  ``with clock(n, name):``
@@ -8545,6 +8998,13 @@ def main() -> int:
     with clock(25, "context-parallel-whisper"):
         cpw_counts, cpw_rec = phase_context_parallel_whisper(smi, gen)
     torch.cuda.empty_cache()
+
+    # the partitioned steps on the reference's production grids (slice 22):
+    # its train steps launch no kernel; counts reset just before each
+    # partitioned generate and summed
+    with clock(26, "pgrid"):
+        pgrid_counts, pgrid_rec = phase_pgrid(smi, gen)
+    torch.cuda.empty_cache()
     print(f"[done] {time.perf_counter() - t0:.1f} s after the card check")
 
     cost_of = {"cold_fuse": cf_mod.cost, "decode_accum": da_mod.cost, "row_sketch": sk_mod.cost,
@@ -8595,6 +9055,7 @@ def main() -> int:
         rec["launches_context_parallel"] = cp_counts[rec["name"]]
         rec["launches_partitioned_whisper"] = pw_counts[rec["name"]]
         rec["launches_context_parallel_whisper"] = cpw_counts[rec["name"]]
+        rec["launches_pgrid"] = pgrid_counts[rec["name"]]
     for rec in (flash, rwkv):
         rec["per_slot_max_abs_err"] = pserve_rec["per_slot_max_abs_err"][rec["name"]]
     flash["per_slot_max_abs_err"] = max(flash["per_slot_max_abs_err"],
@@ -8603,13 +9064,16 @@ def main() -> int:
                                         cp_rec["per_slot_max_abs_err"],
                                         cpt_rec["per_slot_max_abs_err"],
                                         pw_rec["per_slot_max_abs_err"],
-                                        cpw_rec["per_slot_max_abs_err"])
+                                        cpw_rec["per_slot_max_abs_err"],
+                                        pgrid_rec["per_slot_max_abs_err"])
     # the context-parallel decode's two entries of flash_decode.cu: their
     # [time] lines, and their launches on phase 22's generates
-    flash["routes"] += cp_rec["routes"] + pw_rec["routes"] + cpw_rec["routes"]
+    flash["routes"] += (cp_rec["routes"] + pw_rec["routes"] + cpw_rec["routes"]
+                        + pgrid_rec["routes"])
     flash["launches_by_route_context_parallel"] = cp_rec["flash_routes"]
     flash["launches_by_route_partitioned_whisper"] = pw_rec["serve"]["flash_routes"]
     flash["launches_by_route_context_parallel_whisper"] = cpw_rec["serve"]["flash_routes"]
+    flash["launches_by_route_pgrid"] = pgrid_rec["flash_routes"]
     cp_entries = []
     for line in cp_rec["routes"][:2]:
         cp_entries.append({
@@ -8617,6 +9081,7 @@ def main() -> int:
             "replaces": "src/repro/kernels/flash_attention.py:28",
             "launches": cp_rec["flash_routes"][line["route"]],
             "launches_context_parallel_whisper": cpw_rec["serve"]["flash_routes"][line["route"]],
+            "launches_pgrid": pgrid_rec["flash_routes"][line["route"]],
             "max_abs_err": cp_rec["per_slot_max_abs_err"], "ms": line["ms"],
             "plain_ms": line["plain_ms"], "bound_ms": line["bound_ms"],
             "bound_by": line["bound_by"], "library_ms": line["library_ms"],
@@ -8641,6 +9106,7 @@ def main() -> int:
     print(json.dumps({"context_parallel_train": dict(cpt_rec, launches=cpt_counts)}))
     print(json.dumps({"partitioned_whisper": dict(pw_rec, launches=pw_counts)}))
     print(json.dumps({"context_parallel_whisper": dict(cpw_rec, launches=cpw_counts)}))
+    print(json.dumps({"pgrid": dict(pgrid_rec, launches=pgrid_counts)}))
     print(json.dumps({"archs": arch_table}))
     print(json.dumps({"archs2": arch2_table}))
     fuse_kernels[0]["at_gemma3_1b"] = fuse_at_gemma

@@ -27,7 +27,8 @@ PARTS = ("real_finetune_scores", "time_cohort_fuse", "pserve_model", "pmoe_serve
          "ring_cache", "mamba_layer_check", "train_and_serve", "serve_arch", "pool_run",
          "cold_whole", "cold_partitioned_sgd", "dryrun_serve", "dryrun_train", "dryrun_sweep",
          "run_twins", "serve_trained", "train_via_launcher", "pwhisper_train",
-         "pwhisper_serve", "pwhisper_slot_checks", "cpw_slot_checks")
+         "pwhisper_serve", "pwhisper_slot_checks", "cpw_slot_checks", "pgrid_slot_checks",
+         "pgrid_train", "pgrid_serve")
 
 
 def main() -> int:

@@ -28,14 +28,19 @@ between two slots counts whether or not they share a card):
   device (at publish, and where a file's layout does not match the mesh)
   ((S - 1) slices' bytes).
 
-**Collectives over one named axis** run the partitioned train step
-(``models.partitioned``).  Their operand is a list of per-slot tensors,
-slot ``s`` on ``mesh.devices.flat[s]``; the axis splits the slots into
-groups (one for each index of the other axes), and each call acts on every
-group at once, as one ``psum`` over a named axis is one collective in the
-reference's program.  Each is counted once a call, under its name and in
-``collectives_by_axis`` under its axis; the bytes are what a ring moves
-between the k slots of a group, summed over the groups.  Sums are taken in
+**Collectives over one named axis, or a tuple of axes,** run the
+partitioned steps (``models.partitioned``).  Their operand is a list of
+per-slot tensors, slot ``s`` on ``mesh.devices.flat[s]``; the axis splits
+the slots into groups (one for each index of the other axes), and each
+call acts on every group at once, as one ``psum`` over a named axis is one
+collective in the reference's program.  A tuple of axes is one group of
+their product's slots, ordered row-major over the tuple with its first name
+major (as JAX numbers the blocks of a dim a tuple ``PartitionSpec`` entry
+splits; ``Mesh.groups``, ``coord``, ``extent``).  Each call is counted
+once, under its name and in ``collectives_by_axis`` under its axis (a
+tuple under the tuple); the bytes are what a ring moves between the k
+slots of a group, summed over every group, those of an axis no spec names
+(replicated: its slots run the same program) included.  Sums are taken in
 slot order on the group's first device, so a result repeats bit for bit.
 Each is a ``torch.autograd.Function`` whose forward and backward are both
 counted (Megatron's pairs):
@@ -80,14 +85,28 @@ import torch
 
 from repro_torch.utils import op_counts
 from repro_torch.utils.device import resolve_device
+from repro_torch.utils.placed import spec_axes
+
+Axis = Optional[object]   # an axis name, a tuple of names, or None
+
+
+class _FromMesh:
+    def __repr__(self) -> str:
+        return "FROM_MESH"
+
+
+# the default of the partitioned steps' ``data_axis`` and ``model_axis``: the
+# axes read from the mesh's names (``models.partitioned.make_grid``)
+FROM_MESH = _FromMesh()
 
 # collective name -> calls, and bytes carried between mesh slots, since the
 # last reset_collectives(); "permute" and "broadcast" join from their first call
 BASE_KINDS = ("all_reduce", "all_gather", "reduce_scatter")
 collectives: Dict[str, int] = dict.fromkeys(BASE_KINDS, 0)
 collective_bytes: Dict[str, int] = dict.fromkeys(BASE_KINDS, 0)
-# mesh axis -> calls over it (a call over several axes counts under each)
-collectives_by_axis: Dict[str, int] = {}
+# mesh axis -> calls over it (a call over several axes counts under each; a call
+# over one group of a tuple of axes under the tuple)
+collectives_by_axis: Dict[object, int] = {}
 _COUNT_LOCK = threading.Lock()
 
 
@@ -99,14 +118,23 @@ def reset_collectives() -> None:
         collectives_by_axis.clear()
 
 
-def count_collective(name: str, nbytes: int = 0, axes: Sequence[str] = ()) -> None:
+def axis_key(axis):
+    """The key of ``collectives_by_axis`` for an axis: its name, a tuple of
+    names as the tuple (a one-name tuple as the name)."""
+    axes = spec_axes(axis)
+    return axes[0] if len(axes) == 1 else axes
+
+
+def count_collective(name: str, nbytes: int = 0, axes: Sequence = ()) -> None:
     """Count one collective that carried ``nbytes`` between mesh slots (a
     sharded file put back together on the host counts as an
-    ``all_gather``), over the mesh axes ``axes`` where they are known."""
+    ``all_gather``), over the mesh axes ``axes`` where they are known (an
+    entry may be a tuple of axes: one group over their product)."""
     with _COUNT_LOCK:
         collectives[name] = collectives.get(name, 0) + 1
         collective_bytes[name] = collective_bytes.get(name, 0) + int(nbytes)
         for a in axes:
+            a = axis_key(a)
             collectives_by_axis[a] = collectives_by_axis.get(a, 0) + 1
     op_counts.count_collective(name, int(nbytes))
 
@@ -134,22 +162,34 @@ class Mesh:
     def shape(self) -> "OrderedDict[str, int]":
         return OrderedDict(zip(self.axis_names, self.devices.shape))
 
-    def extent(self, axis: Optional[str]) -> int:
-        """An axis's extent; 1 for ``None`` or an axis the mesh lacks."""
-        return self.shape.get(axis, 1) if axis is not None else 1
+    def extent(self, axis) -> int:
+        """An axis's extent, the product of a tuple's; 1 for ``None`` or an
+        axis the mesh lacks."""
+        n = 1
+        for a in spec_axes(axis):
+            n *= self.shape.get(a, 1)
+        return n
 
-    def coord(self, s: int, axis: Optional[str]) -> int:
-        """Slot ``s``'s index on ``axis`` (0 for ``None`` or an absent axis)."""
-        if axis is None or axis not in self.axis_names:
-            return 0
-        return int(np.unravel_index(s, self.devices.shape)[self.axis_names.index(axis)])
+    def coord(self, s: int, axis) -> int:
+        """Slot ``s``'s index on ``axis`` (0 for ``None`` or an absent
+        axis); over a tuple of axes, row-major with the first name major."""
+        idx = np.unravel_index(s, self.devices.shape)
+        c = 0
+        for a in spec_axes(axis):
+            if a in self.axis_names:
+                i = self.axis_names.index(a)
+                c = c * self.devices.shape[i] + int(idx[i])
+        return c
 
-    def groups(self, axis: str) -> List[List[int]]:
-        """The slots of each group of ``axis``: for each index of the other
-        axes (row-major), the flat slots along ``axis`` in order."""
-        i = self.axis_names.index(axis)
-        ids = np.moveaxis(np.arange(self.devices.size).reshape(self.devices.shape), i, -1)
-        return [[int(s) for s in row] for row in ids.reshape(-1, self.devices.shape[i])]
+    def groups(self, axis) -> List[List[int]]:
+        """The slots of each group of ``axis`` (a name or a tuple of
+        names): for each index of the other axes (row-major), the flat
+        slots along ``axis`` in order (``coord``'s, row-major over a
+        tuple)."""
+        order = [self.axis_names.index(a) for a in spec_axes(axis)]
+        rest = [i for i in range(self.devices.ndim) if i not in order]
+        ids = np.transpose(np.arange(self.devices.size).reshape(self.devices.shape), rest + order)
+        return [[int(s) for s in row] for row in ids.reshape(-1, self.extent(axis))]
 
     def __repr__(self) -> str:
         dims = ", ".join(f"{a}={n}" for a, n in self.shape.items())
@@ -301,7 +341,7 @@ def _spread(total: torch.Tensor, group, devices, out, share: bool) -> None:
         copies[dev] = out[s] = t
 
 
-def _reduce(parts, mesh: Mesh, axis: str, share: bool, *, count: bool = True):
+def _reduce(parts, mesh: Mesh, axis: Axis, share: bool, *, count: bool = True):
     devices = list(mesh.devices.flat)
     out = [None] * len(parts)
     nbytes = 0
@@ -316,7 +356,7 @@ def _reduce(parts, mesh: Mesh, axis: str, share: bool, *, count: bool = True):
     return out
 
 
-def _gather(parts, mesh: Mesh, axis: str, dim: int, share: bool = False):
+def _gather(parts, mesh: Mesh, axis: Axis, dim: int, share: bool = False):
     """With ``share`` the slots of a group on one device share one copy."""
     devices = list(mesh.devices.flat)
     out = [None] * len(parts)
@@ -334,7 +374,7 @@ def _gather(parts, mesh: Mesh, axis: str, dim: int, share: bool = False):
     return out
 
 
-def _scatter(parts, mesh: Mesh, axis: str, dim: int):
+def _scatter(parts, mesh: Mesh, axis: Axis, dim: int):
     devices = list(mesh.devices.flat)
     out = [None] * len(parts)
     nbytes = 0
@@ -396,7 +436,7 @@ class _ReduceScatter(torch.autograd.Function):
         return (None, None, None) + tuple(_gather(grads, ctx.mesh, ctx.axis, ctx.dim))
 
 
-def _trivial(mesh: Mesh, axis: Optional[str]) -> bool:
+def _trivial(mesh: Mesh, axis: Axis) -> bool:
     return mesh.extent(axis) == 1
 
 
@@ -404,7 +444,7 @@ def _tracked(parts) -> bool:
     return torch.is_grad_enabled() and any(p is not None and p.requires_grad for p in parts)
 
 
-def axis_all_reduce(parts: Sequence[torch.Tensor], mesh: Mesh, axis: Optional[str]
+def axis_all_reduce(parts: Sequence[torch.Tensor], mesh: Mesh, axis: Axis
                     ) -> List[torch.Tensor]:
     """Each slot's operand replaced by the sum over its group of ``axis``
     (see the module docstring); the backward passes each slot its own
@@ -416,7 +456,7 @@ def axis_all_reduce(parts: Sequence[torch.Tensor], mesh: Mesh, axis: Optional[st
     return _reduce(list(parts), mesh, axis, share=True)
 
 
-def axis_sum_grads(parts: Sequence[torch.Tensor], mesh: Mesh, axis: Optional[str]
+def axis_sum_grads(parts: Sequence[torch.Tensor], mesh: Mesh, axis: Axis
                    ) -> List[torch.Tensor]:
     """The identity, whose backward all-reduces the slots' gradients over
     ``axis``: what a replicated input of a column-parallel product needs."""
@@ -425,7 +465,7 @@ def axis_sum_grads(parts: Sequence[torch.Tensor], mesh: Mesh, axis: Optional[str
     return list(_SumGrads.apply(mesh, axis, *parts))
 
 
-def axis_all_gather(parts: Sequence[torch.Tensor], mesh: Mesh, axis: Optional[str],
+def axis_all_gather(parts: Sequence[torch.Tensor], mesh: Mesh, axis: Axis,
                     dim: int) -> List[torch.Tensor]:
     """Each slot gets its group's blocks concatenated along ``dim`` in slot
     order; the backward reduce-scatters the gradient back to the blocks.
@@ -438,7 +478,7 @@ def axis_all_gather(parts: Sequence[torch.Tensor], mesh: Mesh, axis: Optional[st
     return _gather(list(parts), mesh, axis, dim, share=True)
 
 
-def axis_reduce_scatter(parts: Sequence[torch.Tensor], mesh: Mesh, axis: Optional[str],
+def axis_reduce_scatter(parts: Sequence[torch.Tensor], mesh: Mesh, axis: Axis,
                         dim: int) -> List[torch.Tensor]:
     """The group's sum over ``axis`` split along ``dim``: slot ``i`` of
     each group keeps block ``i``; the backward all-gathers."""
@@ -449,7 +489,7 @@ def axis_reduce_scatter(parts: Sequence[torch.Tensor], mesh: Mesh, axis: Optiona
     return _scatter(list(parts), mesh, axis, dim)
 
 
-def axis_all_reduce_max(parts: Sequence[torch.Tensor], mesh: Mesh, axis: Optional[str]
+def axis_all_reduce_max(parts: Sequence[torch.Tensor], mesh: Mesh, axis: Axis
                         ) -> List[torch.Tensor]:
     """The elementwise maximum over each group of ``axis`` on every slot,
     detached (a softmax's shift carries no gradient)."""
@@ -468,7 +508,7 @@ def axis_all_reduce_max(parts: Sequence[torch.Tensor], mesh: Mesh, axis: Optiona
     return out
 
 
-def _permute(xs, devices, axis: str) -> List[torch.Tensor]:
+def _permute(xs, devices, axis: Axis) -> List[torch.Tensor]:
     """Each of ``xs`` copied to its device in ``devices``: one
     ``"permute"`` over ``axis``, of their bytes."""
     count_collective("permute", sum(_nbytes(x) for x in xs), (axis,))
@@ -486,7 +526,7 @@ class _Send(torch.autograd.Function):
         return (None, None) + tuple(_permute(grads, ctx.srcs, ctx.axis))
 
 
-def axis_send(parts: Sequence[Optional[torch.Tensor]], mesh: Mesh, axis: str, src: int
+def axis_send(parts: Sequence[Optional[torch.Tensor]], mesh: Mesh, axis: Axis, src: int
               ) -> List[Optional[torch.Tensor]]:
     """Each group's slot ``src`` along ``axis`` hands its operand to slot
     ``src + 1``, on that slot's device: the returned list holds it there and
@@ -508,7 +548,7 @@ def axis_send(parts: Sequence[Optional[torch.Tensor]], mesh: Mesh, axis: str, sr
     return out
 
 
-def axis_broadcast(parts: Sequence[Optional[torch.Tensor]], mesh: Mesh, axis: str, src: int
+def axis_broadcast(parts: Sequence[Optional[torch.Tensor]], mesh: Mesh, axis: Axis, src: int
                    ) -> List[torch.Tensor]:
     """Each group's slot ``src`` along ``axis`` gives its operand to every
     slot of the group (the slots on one device share one copy).  One

@@ -12,19 +12,28 @@ leaf (the list of its slabs).  ``device_put`` is the counterpart of
 the whole spec:
 
 * a stacked ``[C, ...]`` leaf whose spec puts its leading dim over the
-  contributor axes (``pod``, ``contrib``) becomes the list of its C slabs,
-  slab ``c`` on contributor slot ``g = c // (C / G)`` of the G; every
-  other leaf goes to contributor slot 0;
-* on a slot whose sub-grid over the other axes (``data``, ``replica``,
-  ``model``: ``sub_mesh``) has more than one device, a slab becomes a
-  ``utils.placed.Placed`` leaf: every dim its spec puts over those axes is
-  split into blocks, slot ``s`` of the sub-grid holding its block, and a
-  block that several slots on one device hold (a leaf replicated over an
-  axis) is one tensor there.  ``models.partitioned`` runs the train step
-  on such leaves: tensor parallel over ``model``, data parallel and FSDP
-  over ``replica`` (or ``data``); and the serving steps, on a cache placed
-  by ``cache_shardings`` and a token batch placed by ``batch_shardings`` on
-  the params' grid (each slot's block of the cache written in place);
+  contributor axes becomes the list of its C slabs, slab ``c`` on
+  contributor slot ``g = c // (C / G)`` of the G.  ``contrib`` is always a
+  contributor axis; ``pod`` is one only where the reference's ColD mesh
+  makes it one (``cold_axes``): on a mesh with ``contrib`` (the ColD
+  multi-pod mesh puts ``pod`` beside it), or for a leaf whose spec puts
+  its leading dim over ``pod``.  On a ColD mesh every other leaf goes to
+  contributor slot 0;
+* on a slot whose sub-grid over the other axes (``sub_mesh``: ``data``,
+  ``replica``, ``model``, and ``pod`` where it is no contributor axis, as
+  on the production multi-pod mesh) has more than one device, a slab (or
+  an unstacked leaf) becomes a ``utils.placed.Placed`` leaf: every dim its
+  spec puts over those axes is split into blocks, slot ``s`` of the
+  sub-grid holding its block, and a block that several slots on one
+  device hold (a leaf replicated over an axis, such as ``pod`` where no
+  spec names it) is one tensor there.  ``models.partitioned`` runs the
+  train step on such leaves over the grid the step's ``data_axis`` and
+  ``model_axis`` name (``models.partitioned.Grid``): tensor parallel over
+  the model axis, data parallel and FSDP over the batch axes (one name or
+  a tuple, such as the ``dp`` strategy's ``("data", "model")``), any other
+  axis replicated; and the serving steps, on a cache placed by
+  ``cache_shardings`` and a token batch placed by ``batch_shardings`` with
+  the same axes (each slot's block of the cache written in place);
 * on a sub-grid of one device, and for an integer leaf the spec does not
   split (the optimizer's step counter), the slab stays whole on its
   slot's device (``contrib_slot_devices``; the mesh's first device where
@@ -63,7 +72,23 @@ Axis = Optional[object]  # str | tuple[str, ...] | None
 # the reference's perf lever, read from its environment variable at import
 OPT_MOE_SHARD = os.environ.get("REPRO_OPT_MOE_SHARD", "0") == "1"
 
-CONTRIB_AXES = ("pod", "contrib")  # the mesh axes a ColD stacked leaf's C dim runs over
+CONTRIB_AXES = ("pod", "contrib")  # the mesh axes a ColD stacked leaf's C dim may run over
+
+
+def cold_axes(mesh: Mesh, lead: Sequence[str] = ()) -> Tuple[str, ...]:
+    """The mesh's contributor axes for a leaf whose leading dim's spec
+    entry names ``lead``: every ``pod``/``contrib`` axis of a mesh with
+    ``contrib`` (the ColD mesh); on a mesh without it, ``pod`` only where
+    ``lead`` names contributor axes alone (a stacked leaf over the pods),
+    else none (the production multi-pod mesh, where ``pod`` is a batch
+    axis, alone or in a tuple such as ``("pod", "data")``, or
+    replicated)."""
+    present = tuple(a for a in mesh.axis_names if a in CONTRIB_AXES)
+    if "contrib" in mesh.axis_names:
+        return present
+    if not lead or set(lead) - set(CONTRIB_AXES):
+        return ()
+    return tuple(a for a in present if a in lead)
 
 
 class PartitionSpec(tuple):
@@ -112,11 +137,15 @@ class NamedSharding:
     spec: PartitionSpec
 
     @property
+    def lead(self) -> Tuple[str, ...]:
+        return norm_axes(self.spec[0]) if self.spec and self.spec[0] is not None else ()
+
+    @property
     def contrib_axes(self) -> Tuple[str, ...]:
         """The contributor axes the leaf's leading dim is split over (none
         for a leaf placed whole)."""
-        lead = norm_axes(self.spec[0]) if self.spec and self.spec[0] is not None else ()
-        return tuple(a for a in lead if a in CONTRIB_AXES)
+        cold = cold_axes(self.mesh, self.lead)
+        return tuple(a for a in self.lead if a in cold)
 
     @property
     def home(self) -> torch.device:
@@ -136,26 +165,29 @@ class NamedSharding:
         """One leaf placed: the list of its slabs, a ``Placed`` leaf, or
         the whole leaf on its slot's device (a Python number stays as it
         is)."""
+        cold = cold_axes(self.mesh, self.lead)
         for e in self.spec[1:]:
-            if e is not None and set(norm_axes(e)) & set(CONTRIB_AXES):
+            if e is not None and set(norm_axes(e)) & set(cold):
                 raise ValueError(f"{self.spec}: a contributor axis on a dim other than the "
                                  "leading one")
         if isinstance(x, (int, float)):
             return x
         if not self.contrib_axes:
-            return _place_slab(x, tuple(self.spec), self.mesh, 0, self.home)
+            return _place_slab(x, tuple(self.spec), self.mesh, 0, self.home, cold)
         slabs = list(x) if isinstance(x, list) else [torch.as_tensor(x)[c]
                                                       for c in range(len(x))]
         devs = self.slab_devices(len(slabs))
         per = len(slabs) // axes_extent(self.mesh, self.contrib_axes)
-        return [_place_slab(sl, tuple(self.spec[1:]), self.mesh, c // per, d)
+        return [_place_slab(sl, tuple(self.spec[1:]), self.mesh, c // per, d, cold)
                 for c, (sl, d) in enumerate(zip(slabs, devs))]
 
 
-def sub_mesh(mesh: Mesh, g: int = 0) -> Mesh:
-    """Contributor slot ``g``'s grid over the mesh's other axes (the whole
-    mesh where it has no contributor axis)."""
-    contrib = [a for a in mesh.axis_names if a in CONTRIB_AXES]
+def sub_mesh(mesh: Mesh, g: int = 0, axes: Optional[Sequence[str]] = None) -> Mesh:
+    """Contributor slot ``g``'s grid over the mesh's other axes, the
+    contributor axes being ``axes`` (by default ``cold_axes(mesh)``): the
+    whole mesh where there are none."""
+    axes = cold_axes(mesh) if axes is None else tuple(axes)
+    contrib = [a for a in mesh.axis_names if a in axes]
     if not contrib:
         return mesh
     order = [mesh.axis_names.index(a) for a in contrib]
@@ -166,19 +198,21 @@ def sub_mesh(mesh: Mesh, g: int = 0) -> Mesh:
     return Mesh(grid, [mesh.axis_names[i] for i in rest])
 
 
-def _slot_ids(mesh: Mesh, g: int) -> List[int]:
+def _slot_ids(mesh: Mesh, g: int, axes: Optional[Sequence[str]] = None) -> List[int]:
     """The flat mesh slots of contributor slot ``g``'s sub-grid, in its order."""
     tagged = Mesh(np.arange(mesh.devices.size, dtype=object).reshape(mesh.devices.shape),
                   mesh.axis_names)
-    return [int(s) for s in sub_mesh(tagged, g).devices.flat]
+    return [int(s) for s in sub_mesh(tagged, g, axes).devices.flat]
 
 
-def _place_slab(x, spec: Tuple, mesh: Mesh, g: int, whole_on: torch.device):
+def _place_slab(x, spec: Tuple, mesh: Mesh, g: int, whole_on: torch.device,
+                axes: Optional[Sequence[str]] = None):
     """One slab (or unstacked leaf) on contributor slot ``g``'s sub-grid: a
     ``Placed`` leaf, or whole on ``whole_on`` (see the module docstring).
     A leaf placed already stays as it is where its layout is the one asked
-    for, else it is gathered (counted) and placed again."""
-    grid = sub_mesh(mesh, g)
+    for, else it is gathered (counted) and placed again.  ``axes``: the
+    contributor axes (``sub_mesh``'s)."""
+    grid = sub_mesh(mesh, g, axes)
     if isinstance(x, Placed):
         if grid.devices.size > 1 and x.layout == Layout(x.shape, spec, grid):
             return x
@@ -233,18 +267,21 @@ def placed_slot_bytes(tree, mesh: Mesh) -> List[int]:
     """The bytes each slot of ``mesh`` (flat, row-major) holds of a placed
     tree (params, optimizer state, a cache placed by ``cache_shardings``,
     or a tree of them) by its specs: a slab's block (or the slab, placed
-    whole) on each
-    slot of its contributor slot's sub-grid; a leaf without a contributor
-    dim on every contributor slot, as its spec replicates it there (the
-    port keeps its one copy with contributor slot 0); a Python int as the
-    reference's int32 scalar.  With the specs that placed the tree it
-    equals ``launch.dryrun.slot_bytes`` on every slot."""
+    whole) on each slot of its contributor slot's sub-grid; on a ColD mesh
+    a leaf without a contributor dim on every contributor slot, as its spec
+    replicates it there (the port keeps its one copy with contributor slot
+    0); elsewhere a placed leaf's block on every slot of the mesh (an axis
+    its spec does not name replicates it, such as the production multi-pod
+    mesh's ``pod``); a Python int as the reference's int32 scalar.  With
+    the specs that placed the tree it equals ``launch.dryrun.slot_bytes``
+    on every slot."""
     n = mesh.devices.size
     out = [0] * n
-    G = axes_extent(mesh, [a for a in mesh.axis_names if a in CONTRIB_AXES])
+    stacked = cold_axes(mesh, CONTRIB_AXES)   # a list of slabs runs over these
+    cold = cold_axes(mesh)                    # and a leaf placed once over these
 
-    def add(x, g):
-        ids = _slot_ids(mesh, g) if g is not None else range(n)
+    def add(x, g, axes):
+        ids = _slot_ids(mesh, g, axes) if g is not None else range(n)
         if isinstance(x, Placed):
             nb = int(np.prod(x.layout.block_shape, dtype=np.int64)) * x.element_size()
         elif isinstance(x, (int, float)):
@@ -256,14 +293,14 @@ def placed_slot_bytes(tree, mesh: Mesh) -> List[int]:
 
     for _, x in tree_leaves_with_path(tree):
         if isinstance(x, list):
-            per = len(x) // G
+            per = len(x) // axes_extent(mesh, stacked)
             for c, v in enumerate(x):
-                add(v, c // per)
+                add(v, c // per, stacked)
         elif isinstance(x, Placed):
-            for g in range(G):
-                add(x, g)
+            for g in range(axes_extent(mesh, cold)):
+                add(x, g, cold)
         else:
-            add(x, None)
+            add(x, None, cold)
     return out
 
 

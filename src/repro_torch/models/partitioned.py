@@ -4,13 +4,22 @@ placed cache, computed over the slots of its grid
 (``launch.sharding.sub_mesh``), on the blocks ``launch.sharding.device_put``
 placed there.
 
-The grid has a ``model`` axis (M slots) and a batch axis, ``replica`` or
-``data`` (R slots).  Every activation is a list of per-slot tensors and
-every slot runs its part of each layer in turn, in one process, so a
-collective sees all its slots at once (``launch.mesh``'s ``axis_*``
-functions, which autograd differentiates; the train step's counts are for
-one forward and its backward).  Slot ``(r, m)`` takes replica ``r``'s rows
-of the batch.
+The grid (``Grid``, from the step's ``data_axis`` and ``model_axis``, as
+the reference's jit reads its ``in_shardings``) has a model axis (M slots,
+or none: M = 1) and batch axes (R slots: one axis, ``replica`` or
+``data``, or a tuple such as the ``dp`` strategy's ``("data", "model")``
+or the multi-pod mesh's ``("pod", "data")``, whose slots are ordered
+row-major with the first name major, as JAX orders a tuple
+``PartitionSpec`` entry; every "batch axis" below is that group).  Any
+other mesh axis (``pod`` where no spec names it) is replicated: its slots
+run the same program on the same blocks and no collective crosses it.
+Every activation is a list of per-slot tensors and every slot runs its
+part of each layer in turn, in one process, so a collective sees all its
+slots at once (``launch.mesh``'s ``axis_*`` functions, which autograd
+differentiates; the train step's counts are for one forward and its
+backward).  Slot ``(r, m)`` takes replica ``r``'s rows of the batch.
+Without a model axis every slot runs the whole width: no tensor
+parallelism, and the vocab-parallel loss over one slot.
 
 * Weights split over the batch axis (FSDP) are all-gathered over it where
   a layer uses them, one layer's slice at a time; the gather's backward
@@ -246,7 +255,8 @@ the encoder (RoBERTa) raise ``NotImplementedError``
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -262,10 +272,8 @@ from repro_torch.models import rwkv as R
 from repro_torch.models import transformer as T
 from repro_torch.train.losses import lm_loss_vocab_parallel
 from repro_torch.utils.flat import dtype_of
-from repro_torch.utils.placed import Layout
+from repro_torch.utils.placed import Layout, spec_axes
 
-BATCH_AXES = ("replica", "data")
-MODEL_AXIS = "model"
 PATHS = {False: ("train step", "train"), True: ("serving steps", "serve")}
 
 
@@ -308,30 +316,105 @@ def seq_layout(B: int, S: int, R: int) -> Optional[str]:
     return "chunks" if S % R == 0 else "whole"
 
 
-def grid_axes(mesh: M.Mesh):
-    """(batch axis or None, model axis or None) of a slab's grid."""
-    batch = [a for a in mesh.axis_names if a in BATCH_AXES]
-    other = [a for a in mesh.axis_names if a not in BATCH_AXES + (MODEL_AXIS,)]
-    if len(batch) > 1 or other:
-        raise NotImplementedError(f"a grid over {mesh.axis_names}: the partitioned step takes "
-                                  "one batch axis (replica or data) and model")
-    return (batch[0] if batch else None), (MODEL_AXIS if MODEL_AXIS in mesh.axis_names else None)
+BATCH_AXES = ("replica", "data")
+MODEL_AXIS = "model"
+
+
+@dataclass(frozen=True, eq=False)
+class Grid:
+    """A slab's grid as the step's shardings name it (the reference's jit
+    reads its ``in_shardings``): ``batch``, the batch axes (none, one, or
+    several, such as the ``dp`` strategy's ``("data", "model")``), whose
+    slots are ordered row-major with the first name major, as JAX orders a
+    tuple ``PartitionSpec`` entry; ``model``, the model axis or None.  Every
+    other mesh axis is ``replicated``: its slots run the same program on
+    the same blocks, and no collective crosses it."""
+
+    mesh: M.Mesh
+    batch: Tuple[str, ...]
+    model: Optional[str]
+
+    @property
+    def replicated(self) -> Tuple[str, ...]:
+        return tuple(a for a in self.mesh.axis_names
+                     if a not in self.batch and a != self.model)
+
+    @property
+    def dp(self):
+        """The batch axes as ``launch.mesh``'s collectives take them: None,
+        a name, or a tuple of names."""
+        return M.axis_key(self.batch) if self.batch else None
+
+    @property
+    def R(self) -> int:
+        return self.mesh.extent(self.batch)
+
+    @property
+    def M(self) -> int:
+        return self.mesh.extent(self.model)
+
+    def check(self, layouts: Dict[str, Layout]) -> None:
+        """``ValueError`` for a leaf placed on another grid, or split over
+        an axis that is neither a batch axis nor the model axis."""
+        names, devices = self.mesh.axis_names, list(self.mesh.devices.flat)
+        ok = set(self.batch) | {self.model}
+        for name, lay in layouts.items():
+            if lay.mesh.axis_names != names or list(lay.mesh.devices.flat) != devices:
+                raise ValueError(f"{name} is placed on {lay.mesh!r}, the grid is {self.mesh!r}")
+            for d, axes in enumerate(lay.spec):
+                if set(axes) - ok:
+                    raise ValueError(
+                        f"{name}: dim {d} is split over {axes}; the step's batch axes are "
+                        f"{self.batch} and its model axis {self.model!r}")
+
+
+def as_grid(grid) -> Grid:
+    """A ``Grid`` as it is; a ``Mesh`` read ``FROM_MESH``."""
+    return grid if isinstance(grid, Grid) else make_grid(grid)
+
+
+def make_grid(mesh: M.Mesh, data_axis=M.FROM_MESH, model_axis=M.FROM_MESH) -> Grid:
+    """The grid of ``mesh`` for a step whose shardings use ``data_axis`` (a
+    name, a tuple of names, or None) and ``model_axis`` (a name or None),
+    the reference's sharding functions' keywords.  ``FROM_MESH`` reads them
+    from the axis names: the mesh's ``replica`` or ``data`` axis, and
+    ``model`` where the mesh has it and it is not a batch axis; any other
+    axis (the multi-pod mesh's ``pod``) is replicated."""
+    if data_axis is M.FROM_MESH:
+        batch = tuple(a for a in mesh.axis_names if a in BATCH_AXES)
+        if len(batch) > 1:
+            raise ValueError(f"a grid over {mesh.axis_names}: name its batch axes (data_axis=)")
+    else:
+        batch = spec_axes(data_axis)
+    if model_axis is M.FROM_MESH:
+        model_axis = MODEL_AXIS if MODEL_AXIS in mesh.axis_names and MODEL_AXIS not in batch \
+            else None
+    for a in batch + spec_axes(model_axis):
+        if a not in mesh.axis_names:
+            raise ValueError(f"axis {a!r} is not an axis of {mesh!r}")
+    if model_axis is not None and (not isinstance(model_axis, str) or model_axis in batch):
+        raise ValueError(f"model_axis {model_axis!r}: one axis, not a batch axis ({batch})")
+    if len(set(batch)) != len(batch):
+        raise ValueError(f"repeated batch axis in {batch}")
+    return Grid(mesh, batch, model_axis)
 
 
 class _Slab:
-    """One slab's per-slot parameter tensors and their layouts."""
+    """One slab's per-slot parameter tensors and their layouts, on ``grid``."""
 
-    def __init__(self, cfg: ArchConfig, mesh: M.Mesh, live: Dict[str, List[torch.Tensor]],
+    def __init__(self, cfg: ArchConfig, grid, live: Dict[str, List[torch.Tensor]],
                  layouts: Dict[str, Layout], seq: Optional[str] = None):
-        self.cfg, self.mesh, self.live, self.layouts = cfg, mesh, live, layouts
-        self.dp, self.mp = grid_axes(mesh)
-        self.n = mesh.devices.size
-        self.M, self.R = mesh.extent(self.mp), mesh.extent(self.dp)
+        grid = as_grid(grid)
+        self.cfg, self.grid, self.live, self.layouts = cfg, grid, live, layouts
+        self.mesh = grid.mesh
+        self.dp, self.mp = grid.dp, grid.model
+        self.n = self.mesh.devices.size
+        self.M, self.R = grid.M, grid.R
         self.seq = seq   # seq_layout's: None, "chunks" or "whole"
         self.frames = None   # the encoder's positions: seq_layout's (B, N, R), _whisper_encode
 
     def by_chunk(self) -> List[List[int]]:
-        """The slots of each index of the batch axis, in order."""
+        """The slots of each index of the batch axes, in order."""
         return [[s for s in range(self.n) if self.mesh.coord(s, self.dp) == r]
                 for r in range(self.R)]
 
@@ -348,10 +431,12 @@ class _Slab:
         parts = self.live[name]
         if rep is not None:
             parts = [x[rep] for x in parts]
+        batch = self.grid.batch
         for d, axes in enumerate(self.spec(name, rep is not None)):
-            if self.dp is not None and self.dp in axes:
-                if axes != (self.dp,):
-                    raise NotImplementedError(f"{name}: dim {d} split over {axes}")
+            if set(axes) & set(batch):
+                if axes != batch:
+                    raise NotImplementedError(f"{name}: dim {d} split over {axes}, the batch "
+                                              f"axes are {batch}")
                 parts = M.axis_all_gather(parts, self.mesh, self.dp, d)
         return parts
 
@@ -966,11 +1051,11 @@ def _layer_names(cfg: ArchConfig):
     return out
 
 
-def vocab_axis(cfg: ArchConfig, mesh: M.Mesh, layouts: Dict[str, Layout]) -> Optional[str]:
+def vocab_axis(cfg: ArchConfig, grid, layouts: Dict[str, Layout]) -> Optional[str]:
     """``model`` where the logits come out per vocabulary block (the
     embedding's or the untied head's spec splits the vocabulary over it),
     else None."""
-    sl = _Slab(cfg, mesh, {}, layouts)
+    sl = _Slab(cfg, grid, {}, layouts)
     embed = "dec/embed" if cfg.is_encoder_decoder else "embed"
     split = (sl.split_over_model(embed, 0) if cfg.tie_embeddings
              else sl.split_over_model("lm_head", -1))
@@ -1044,7 +1129,7 @@ def _splice(x: torch.Tensor, e: torch.Tensor, first: int) -> torch.Tensor:
     return torch.cat([e[:, first:first + k].to(x.dtype), x[:, k:]], dim=1)
 
 
-def partitioned_forward(cfg: ArchConfig, mesh: M.Mesh, live: Dict[str, List[torch.Tensor]],
+def partitioned_forward(cfg: ArchConfig, grid, live: Dict[str, List[torch.Tensor]],
                         layouts: Dict[str, Layout], tokens: List[torch.Tensor], *,
                         positions: Optional[List[torch.Tensor]] = None,
                         extra_embeds: Optional[List[torch.Tensor]] = None,
@@ -1055,7 +1140,8 @@ def partitioned_forward(cfg: ArchConfig, mesh: M.Mesh, live: Dict[str, List[torc
                         last_only: bool = False,
                         frames: Optional[List[torch.Tensor]] = None):
     """``tokens[s]`` [B_r, S], replica ``r``'s rows on slot ``s``, through
-    the partitioned decoder (the module docstring): ``(logits, aux,
+    the partitioned decoder on ``grid`` (a ``Grid``; a ``Mesh`` is read
+    ``FROM_MESH``; the module docstring): ``(logits, aux,
     cache)``, ``logits[s]`` [B_r, S, V / M] slot ``s``'s vocabulary block
     where ``vocab_axis`` is ``model`` (else [B_r, S, V]), ``aux[s]`` the MoE
     layers' load-balance losses of the whole batch summed (0 without MoE
@@ -1085,7 +1171,7 @@ def partitioned_forward(cfg: ArchConfig, mesh: M.Mesh, live: Dict[str, List[torc
     reads the primed cross k/v."""
     if cache is not None and differentiable:
         raise ValueError("the partitioned train forward takes no cache")
-    sl = _Slab(cfg, mesh, live, layouts, seq)
+    sl = _Slab(cfg, grid, live, layouts, seq)
     cdt = dtype_of(cfg.compute_dtype)
     if cfg.is_encoder_decoder:
         return _whisper_forward(sl, tokens, frames, cache, cache_index, differentiable,
@@ -1231,7 +1317,7 @@ def _whisper_forward(sl: _Slab, tokens, frames, cache, cache_index, differentiab
     return logits, [torch.zeros((), dtype=torch.float32, device=xi.device) for xi in x], cache
 
 
-def partitioned_encode(cfg: ArchConfig, mesh: M.Mesh, live: Dict[str, List[torch.Tensor]],
+def partitioned_encode(cfg: ArchConfig, grid, live: Dict[str, List[torch.Tensor]],
                        layouts: Dict[str, Layout], frames: List[torch.Tensor],
                        seq: Optional[str] = None) -> List[torch.Tensor]:
     """The encoder on the kernels: each slot's states [B_r, N, D] of its
@@ -1239,10 +1325,10 @@ def partitioned_encode(cfg: ArchConfig, mesh: M.Mesh, live: Dict[str, List[torch
     ``seq`` (a batch the batch axis does not divide: every slot's
     ``frames[s]`` the whole [B, N, D]) its chunk of the positions, or all
     of them, by ``seq_layout(B, N, R)``."""
-    return _whisper_encode(_Slab(cfg, mesh, live, layouts, seq), frames, False)
+    return _whisper_encode(_Slab(cfg, grid, live, layouts, seq), frames, False)
 
 
-def partitioned_prime(cfg: ArchConfig, mesh: M.Mesh, live: Dict[str, List[torch.Tensor]],
+def partitioned_prime(cfg: ArchConfig, grid, live: Dict[str, List[torch.Tensor]],
                       layouts: Dict[str, Layout], enc: List[torch.Tensor],
                       cache: Dict[str, List[torch.Tensor]]) -> None:
     """Every decoder layer's cross k/v projected from each slot's encoder
@@ -1253,7 +1339,7 @@ def partitioned_prime(cfg: ArchConfig, mesh: M.Mesh, live: Dict[str, List[torch.
     and keeps its block of ``head_dim``.  Where the cache's positions split
     over the batch axis, ``enc[s]`` is the slot's chunk of the positions,
     the ones its block holds."""
-    sl = _Slab(cfg, mesh, live, layouts)
+    sl = _Slab(cfg, grid, live, layouts)
     hd = cfg.head_dim
     for i in range(cfg.num_layers):
         pre = f"dec/layers/layer{i}/xattn"
@@ -1267,28 +1353,28 @@ def partitioned_prime(cfg: ArchConfig, mesh: M.Mesh, live: Dict[str, List[torch.
             _write_kv(sl, s, xk, xv, k, v, slice(None), slice(None))
 
 
-def gather_last(logits: List[torch.Tensor], mesh: M.Mesh, vocab: Optional[str],
+def gather_last(logits: List[torch.Tensor], grid: Grid, vocab: Optional[str],
                 seq: Optional[str] = None) -> torch.Tensor:
     """The serving steps' output: each slot's last-position logits
-    [B_r, V / M] all-gathered over ``vocab`` (``model``, where they come out
-    per vocabulary block) and then over the batch axis, each counted:
-    [B, V] on slot 0's device (the reference's ``out_shardings=None``).
-    Where the batch axis splits the sequence (``seq`` ``"chunks"``), the
-    last position is the last chunk's, broadcast over the batch axis
-    (counted); where every slot holds the whole batch (``"whole"``), slot
-    0's own."""
-    dp, _ = grid_axes(mesh)
+    [B_r, V / M] all-gathered over ``vocab`` (the model axis, where they
+    come out per vocabulary block) and then over the batch axes, each
+    counted: [B, V] on slot 0's device (the reference's
+    ``out_shardings=None``).  Where the batch axes split the sequence
+    (``seq`` ``"chunks"``), the last position is the last chunk's,
+    broadcast over them (counted); where every slot holds the whole batch
+    (``"whole"``), slot 0's own."""
+    mesh, dp = grid.mesh, grid.dp
     last = [lg[:, -1] for lg in logits]
     if vocab is not None:
         last = M.axis_all_gather(last, mesh, vocab, 1)
     if seq == "chunks":
-        return M.axis_broadcast(last, mesh, dp, mesh.extent(dp) - 1)[0]
+        return M.axis_broadcast(last, mesh, dp, grid.R - 1)[0]
     if seq == "whole":
         return last[0]
     return M.axis_all_gather(last, mesh, dp, 0)[0]
 
 
-def partitioned_loss(cfg: ArchConfig, mesh: M.Mesh, live: Dict[str, List[torch.Tensor]],
+def partitioned_loss(cfg: ArchConfig, grid: Grid, live: Dict[str, List[torch.Tensor]],
                      layouts: Dict[str, Layout], tokens: List[torch.Tensor], mask=None,
                      denominator: Optional[float] = None, *, positions=None,
                      extra_embeds=None, seq: Optional[str] = None, frames=None):
@@ -1301,9 +1387,8 @@ def partitioned_loss(cfg: ArchConfig, mesh: M.Mesh, live: Dict[str, List[torch.T
     loss is the same on every slot of a replica (or chunk), the aux (the
     whole batch's) on every slot."""
     check_partitionable(cfg, () if frames is None else ("frames",))
-    logits, aux, _ = partitioned_forward(cfg, mesh, live, layouts, tokens, positions=positions,
+    logits, aux, _ = partitioned_forward(cfg, grid, live, layouts, tokens, positions=positions,
                                          extra_embeds=extra_embeds, differentiable=True,
                                          seq=seq, frames=frames)
-    dp, _ = grid_axes(mesh)
-    return lm_loss_vocab_parallel(logits, tokens, mesh, vocab_axis(cfg, mesh, layouts), mask,
-                                  denominator, seq_axis=dp if seq == "chunks" else None), aux
+    return lm_loss_vocab_parallel(logits, tokens, grid.mesh, vocab_axis(cfg, grid, layouts), mask,
+                                  denominator, seq_axis=grid.dp if seq == "chunks" else None), aux

@@ -72,15 +72,16 @@ def init_whisper(cfg: ArchConfig, gen: torch.Generator, max_target_len: Optional
 
 
 def whisper_encode(cfg: ArchConfig, params, frames: torch.Tensor, *,
-                   differentiable: bool = False) -> torch.Tensor:
+                   differentiable: bool = False, **grid_axes) -> torch.Tensor:
     """frames [B, n_frames, D] (the stub frontend's embeddings) -> encoder
     states [B, n_frames, D] in the compute dtype.  On params placed on a
     grid of several slots (``launch.sharding.device_put``) the encoder runs
     partitioned on the kernels and its states come back placed per replica
-    (``train.step.partitioned_encode``)."""
+    (``train.step.partitioned_encode``; ``grid_axes``, its ``data_axis``
+    and ``model_axis``, name the grid)."""
     if is_placed(params):
         from repro_torch.train.step import partitioned_encode  # step imports this module
-        return partitioned_encode(cfg, params, frames)
+        return partitioned_encode(cfg, params, frames, **grid_axes)
     enc = params["enc"]
     cdt = dtype_of(cfg.compute_dtype)
     x = frames.to(cdt) + enc["pos"][None, :frames.shape[1]].to(cdt)
@@ -110,15 +111,16 @@ def init_whisper_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=None, *,
             for i in range(cfg.num_layers)}
 
 
-def prime_cross_cache(cfg: ArchConfig, params, cache, enc_out: torch.Tensor):
+def prime_cross_cache(cfg: ArchConfig, params, cache, enc_out: torch.Tensor, **grid_axes):
     """Project the encoder states into every decoder layer's cross k/v (new
     tensors in the cache's dicts, as the reference replaces them); returns
     the cache.  On placed params the cache is placed on their grid by
     ``cache_shardings`` and each slot writes its blocks in place
-    (``train.step.partitioned_prime``)."""
+    (``train.step.partitioned_prime``; ``grid_axes``, its ``data_axis``
+    and ``model_axis``, name the grid)."""
     if is_placed(params):
         from repro_torch.train.step import partitioned_prime  # step imports this module
-        return partitioned_prime(cfg, params, cache, enc_out)
+        return partitioned_prime(cfg, params, cache, enc_out, **grid_axes)
     B, Se, _ = enc_out.shape
     hd, nkv = cfg.head_dim, cfg.num_kv_heads
     for i in range(cfg.num_layers):

@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Callable
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
@@ -49,12 +49,15 @@ def warmup_cosine_lr(lr: float, warmup: int, total: int, min_frac: float = 0.1) 
     return sched
 
 
-def global_norm(tree) -> torch.Tensor:
+def global_norm(tree, axes: Optional[Sequence] = None) -> torch.Tensor:
     """sqrt(Σ_leaves Σ x²) in f32, summed leaf by leaf in tree order.  A
     placed leaf (``utils.placed.Placed``) adds each logical block once, in
     block order, whatever the slots and devices that hold it; the partial
     sums meet on the first leaf's device, one all-reduce over the grid
-    (``launch.mesh``) for the whole tree."""
+    (``launch.mesh``) for the whole tree: over ``axes``, by default every
+    axis of the grid (a partitioned step names its batch axes, a name or a
+    tuple counted as one group, and its model axis, so that an axis it
+    replicates is crossed by none)."""
     leaves = tree_leaves(tree)
     placed = [x for x in leaves if isinstance(x, Placed)]
     if not placed:
@@ -68,14 +71,17 @@ def global_norm(tree) -> torch.Tensor:
             sq = torch.sum(torch.square(p.float())).to(dev)
             total = sq if total is None else total + sq
     grid = placed[0].layout.mesh
-    M.count_collective("all_reduce", 2 * (grid.devices.size - 1) * 4, grid.axis_names)
+    axes = grid.axis_names if axes is None else tuple(axes)
+    k = int(np.prod([grid.extent(a) for a in axes]))
+    M.count_collective("all_reduce", grid.devices.size // k * 2 * (k - 1) * 4, axes)
     return torch.sqrt(total)
 
 
-def clip_by_global_norm(tree, max_norm: float):
+def clip_by_global_norm(tree, max_norm: float, axes: Optional[Sequence] = None):
     """Scale the whole tree by min(1, max_norm / (‖tree‖ + 1e-9)) (a placed
-    tree block by block, the scale copied to each block's device)."""
-    g = global_norm(tree)
+    tree block by block, the scale copied to each block's device);
+    ``axes``: ``global_norm``'s."""
+    g = global_norm(tree, axes)
     scale = torch.clamp(max_norm / (g + 1e-9), max=1.0)
     return tree_map(lambda x: x * scale.to(device=x.device, dtype=x.dtype), tree), g
 

@@ -7,9 +7,13 @@ Params placed by ``launch.sharding.device_put`` on a grid of several slots
 serve partitioned (``train.step.make_serve_step``'s placed branch): the
 engine places the prompt by ``batch_shardings`` and the cache by
 ``cache_shardings`` on the params' grid, and takes the argmax of the
-logits gathered on slot 0's device.  A batch that the grid's batch axis
-does not divide (one request, B = 1) is served context-parallel: the
-prompt's sequence and the cache's are split over the batch axis
+logits gathered on slot 0's device.  ``data_axis`` and ``model_axis`` name
+the grid as the params' ``params_shardings`` did (a batch axis may be a
+tuple of names, such as the ``dp`` strategy's ``("data", "model")``, the
+model axis None; by default both are read from the mesh,
+``models.partitioned.make_grid``).  A batch that the grid's batch axes do
+not divide (one request, B = 1) is served context-parallel: the prompt's
+sequence and the cache's are split over the batch axes
 (``models.partitioned``)."""
 from __future__ import annotations
 
@@ -20,7 +24,8 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.launch import sharding as SH
-from repro_torch.models.partitioned import grid_axes
+from repro_torch.launch.mesh import FROM_MESH
+from repro_torch.models.partitioned import make_grid
 from repro_torch.models.transformer import init_cache
 from repro_torch.train.step import is_placed, make_serve_step
 from repro_torch.utils.pytree import tree_device, tree_leaves
@@ -36,13 +41,15 @@ class GenerationResult:
 class Engine:
     """Greedy batched generation for the decoder-LM families."""
 
-    def __init__(self, cfg: ArchConfig, params, *, max_len: int = 256):
+    def __init__(self, cfg: ArchConfig, params, *, max_len: int = 256, data_axis=FROM_MESH,
+                 model_axis=FROM_MESH):
         if cfg.is_encoder_decoder:
             raise ValueError("Engine drives decoder-only archs; use whisper_decode directly")
         self.cfg = cfg
         self.params = params
         self.max_len = max_len
-        self._serve = make_serve_step(cfg)
+        self.axes = dict(data_axis=data_axis, model_axis=model_axis)
+        self._serve = make_serve_step(cfg, **self.axes)
 
     def _prefill(self, params, tokens, cache):
         return self._serve(params, cache, tokens, 0)
@@ -56,7 +63,8 @@ class Engine:
             return (torch.as_tensor(prompts, dtype=torch.long, device=dev),
                     init_cache(self.cfg, B, self.max_len, device=dev))
         mesh = tree_leaves(params)[0].layout.mesh
-        dp, mp = grid_axes(mesh)
+        grid = make_grid(mesh, **self.axes)
+        dp, mp = grid.dp, grid.model
         cache = init_cache(self.cfg, B, self.max_len, device=mesh.devices.flat[0])
         cache = SH.device_put(cache, SH.cache_shardings(mesh, cache, self.cfg, data_axis=dp,
                                                         model_axis=mp))

@@ -99,7 +99,8 @@ def _lm_loss_fn(cfg: ArchConfig, params, batch, aux_weight: float, *, differenti
 
 def make_train_step(cfg: ArchConfig, optimizer: Optimizer, *, microbatches: int = 1,
                     clip_norm: float = 1.0, aux_weight: Optional[float] = None,
-                    grad_sync: Optional[Callable] = None, grad_shardings=None) -> Callable:
+                    grad_sync: Optional[Callable] = None, grad_shardings=None,
+                    data_axis=M.FROM_MESH, model_axis=M.FROM_MESH) -> Callable:
     """Build the train step: the gradient of ``lm_loss`` (accumulated over
     ``microbatches``), ``grad_sync``, ``clip_by_global_norm(clip_norm)``,
     then ``optimizer.update``; metrics ``loss``, ``aux`` (the MoE
@@ -114,8 +115,14 @@ def make_train_step(cfg: ArchConfig, optimizer: Optimizer, *, microbatches: int 
     axis).
 
     **Placed params** (every leaf a ``Placed`` leaf on one grid: a
-    ``(replica, model)`` or ``(data, model)`` mesh, or one contributor's
-    sub-grid of a ColD mesh) run the partitioned step.  Slot ``(r, m)``
+    ``(replica, model)`` or ``(data, model)`` mesh, the multi-pod
+    ``(pod, data, model)`` mesh, or one contributor's sub-grid of a ColD
+    mesh) run the partitioned step on the grid ``data_axis`` and
+    ``model_axis`` name (the keywords the params' ``params_shardings``
+    took: a batch axis may be a tuple of names, the model axis None; by
+    default both are read from the mesh, ``models.partitioned.make_grid``;
+    an axis neither names is replicated, and a leaf split over such an
+    axis raises ``ValueError``).  Slot ``(r, m)``
     takes replica ``r``'s rows of the batch (a batch placed over the batch
     axis, or any batch split here), in ``microbatches`` equal slices;
     ``models.partitioned.partitioned_loss`` gives each slot its loss (tensor
@@ -208,9 +215,9 @@ def make_train_step(cfg: ArchConfig, optimizer: Optimizer, *, microbatches: int 
 
     def partitioned_step(state, batch):
         params = state["params"]
-        named, mesh = _placed_grid(params, "params")
-        dp, _ = PT.grid_axes(mesh)
-        R, n = mesh.extent(dp), mesh.devices.size
+        named, layouts, grid = _params_grid(params, data_axis, model_axis)
+        mesh, dp, R = grid.mesh, grid.dp, grid.R
+        n = mesh.devices.size
         seq = PT.seq_layout(*batch["tokens"].shape, R)
         PT.check_partitionable(cfg, list(batch))
         if grad_shardings is not None:
@@ -228,7 +235,6 @@ def make_train_step(cfg: ArchConfig, optimizer: Optimizer, *, microbatches: int 
         # a batch every slot holds whole counts R times over the batch axis:
         # each slot's share of the loss (and aux) is 1 / R of it
         share = 1.0 / R if seq == "whole" else 1.0
-        layouts = {k: x.layout for k, x in named}
         acc: Dict[str, list] = {}
         loss_sum = aux_sum = None
         for i in range(microbatches):
@@ -242,7 +248,7 @@ def make_train_step(cfg: ArchConfig, optimizer: Optimizer, *, microbatches: int 
                 live = {k: [b.detach().requires_grad_(True) for b in x.slot_blocks()]
                         for k, x in named}
                 losses, auxes = PT.partitioned_loss(
-                    cfg, mesh, live, layouts, part["tokens"], part.get("mask"), denominator,
+                    cfg, grid, live, layouts, part["tokens"], part.get("mask"), denominator,
                     positions=part.get("positions"), extra_embeds=part.get("extra_embeds"),
                     seq=seq, frames=part.get("frames"))
                 objective = [l + aux_w * share * a for l, a in zip(losses, auxes)]
@@ -281,7 +287,8 @@ def make_train_step(cfg: ArchConfig, optimizer: Optimizer, *, microbatches: int 
         aux = (aux_sum / microbatches).to(loss.device)
         if grad_sync is not None:
             grads = grad_sync(grads)
-        grads, gnorm = clip_by_global_norm(grads, clip_norm)
+        grads, gnorm = clip_by_global_norm(grads, clip_norm,
+                                           [a for a in (grid.dp, grid.model) if a is not None])
         updates, new_opt = optimizer.update(grads, state["opt"], params)
         new_params = tree_map(torch.add, params, updates)
         metrics = {"loss": loss, "aux": aux, "grad_norm": gnorm}
@@ -347,17 +354,27 @@ def _placed_grid(tree, what: str):
     return named, mesh
 
 
-def _placed_cache(cfg: ArchConfig, cache, mesh: M.Mesh):
+def _params_grid(params, data_axis, model_axis):
+    """``(named leaves, their layouts, the Grid)`` of placed params on the
+    grid ``data_axis`` and ``model_axis`` name (``models.partitioned.
+    make_grid``), each layout checked against it (``Grid.check``)."""
+    named, mesh = _placed_grid(params, "params")
+    layouts = {k: x.layout for k, x in named}
+    grid = PT.make_grid(mesh, data_axis, model_axis)
+    grid.check(layouts)
+    return named, layouts, grid
+
+
+def _placed_cache(cfg: ArchConfig, cache, grid: PT.Grid):
     """``(each slot's blocks, the layouts)`` of a cache placed on the
-    params' grid ``mesh`` as ``cache_shardings`` places it, by leaf name;
-    ``ValueError`` for any other placement."""
-    dp, mp = PT.grid_axes(mesh)
-    placed, grid = _placed_grid(cache, "cache")
-    if grid.axis_names != mesh.axis_names or list(grid.devices.flat) != list(
-            mesh.devices.flat):
-        raise ValueError(f"the cache is placed on {grid!r}, the params on {mesh!r}")
-    want = dict(tree_leaves_with_path(SH.cache_shardings(mesh, cache, cfg, data_axis=dp,
-                                                         model_axis=mp)))
+    params' grid as ``cache_shardings`` places it with the grid's axes, by
+    leaf name; ``ValueError`` for any other placement."""
+    mesh = grid.mesh
+    placed, on = _placed_grid(cache, "cache")
+    if on.axis_names != mesh.axis_names or list(on.devices.flat) != list(mesh.devices.flat):
+        raise ValueError(f"the cache is placed on {on!r}, the params on {mesh!r}")
+    want = dict(tree_leaves_with_path(SH.cache_shardings(mesh, cache, cfg, data_axis=grid.dp,
+                                                         model_axis=grid.model)))
     for k, x in placed:
         spec = tuple(spec_axes(e) for e in want[k].spec)
         spec += ((),) * (x.dim() - len(spec))
@@ -370,7 +387,8 @@ def _placed_cache(cfg: ArchConfig, cache, mesh: M.Mesh):
 @torch.no_grad()
 def _partitioned_last_logits(cfg: ArchConfig, params, tokens, cache=None,
                              cache_index=None, *, positions=None,
-                             extra_embeds=None, frames=None) -> torch.Tensor:
+                             extra_embeds=None, frames=None, data_axis=M.FROM_MESH,
+                             model_axis=M.FROM_MESH) -> torch.Tensor:
     """The serving steps on placed params: ``tokens`` [B, S] (a tensor,
     an array, or placed by ``batch_shardings`` on the params' grid) through
     ``models.partitioned.partitioned_forward`` on the kernels, against
@@ -389,35 +407,36 @@ def _partitioned_last_logits(cfg: ArchConfig, params, tokens, cache=None,
     tokens whole on every slot, against a cache whose sequence
     ``cache_shardings`` splits over the batch axis (a context-parallel
     prefill and decode); ``positions`` and ``extra_embeds`` are then whole
-    on every slot, each chunk taking its part."""
-    named, mesh = _placed_grid(params, "params")
-    dp, _ = PT.grid_axes(mesh)
+    on every slot, each chunk taking its part.  ``data_axis`` and
+    ``model_axis`` name the grid (``make_train_step``'s)."""
+    named, layouts, grid = _params_grid(params, data_axis, model_axis)
+    mesh, dp = grid.mesh, grid.dp
     B, S = tokens.shape
-    seq = PT.seq_layout(B, S, mesh.extent(dp))
+    seq = PT.seq_layout(B, S, grid.R)
     batch = {k: v for k, v in (("tokens", tokens), ("positions", positions),
                                ("extra_embeds", extra_embeds), ("frames", frames))
              if v is not None}
     PT.check_partitionable(cfg, list(batch), serving=True)
     blocks = layouts_c = None
     if cache is not None:
-        blocks, layouts_c = _placed_cache(cfg, cache, mesh)
-    layouts = {k: x.layout for k, x in named}
+        blocks, layouts_c = _placed_cache(cfg, cache, grid)
     if seq is None:
         rows = _slot_rows(batch, mesh, dp)
     else:
         rows = _slot_sequence_batch(batch, mesh, dp, seq)
-    logits, _, _ = PT.partitioned_forward(cfg, mesh, {k: x.slot_blocks() for k, x in named},
+    logits, _, _ = PT.partitioned_forward(cfg, grid, {k: x.slot_blocks() for k, x in named},
                                           layouts, rows["tokens"],
                                           positions=rows.get("positions"),
                                           extra_embeds=rows.get("extra_embeds"), cache=blocks,
                                           cache_index=cache_index, differentiable=False,
                                           seq=seq, cache_layouts=layouts_c, last_only=True,
                                           frames=rows.get("frames"))
-    return PT.gather_last(logits, mesh, PT.vocab_axis(cfg, mesh, layouts), seq)
+    return PT.gather_last(logits, grid, PT.vocab_axis(cfg, grid, layouts), seq)
 
 
 @torch.no_grad()
-def partitioned_encode(cfg: ArchConfig, params, frames) -> Placed:
+def partitioned_encode(cfg: ArchConfig, params, frames, *, data_axis=M.FROM_MESH,
+                       model_axis=M.FROM_MESH) -> Placed:
     """``whisper.whisper_encode`` on placed params: ``frames`` [B, N, D]
     (whole, or placed by ``batch_shardings``) split over the batch axis,
     the encoder run on the kernels, tensor parallel over ``model``; the
@@ -426,24 +445,26 @@ def partitioned_encode(cfg: ArchConfig, params, frames) -> Placed:
     a batch the batch axis does not divide, the frames whole on every slot
     (as ``batch_shardings`` places them), the states come back split by
     their positions over the batch axis where it divides N, else whole
-    (``models.partitioned.seq_layout(B, N, R)``)."""
-    named, mesh = _placed_grid(params, "params")
-    dp, _ = PT.grid_axes(mesh)
+    (``models.partitioned.seq_layout(B, N, R)``).  ``data_axis`` and
+    ``model_axis`` name the grid (``make_train_step``'s)."""
+    named, layouts, grid = _params_grid(params, data_axis, model_axis)
+    mesh, dp, batch = grid.mesh, grid.dp, grid.batch
     B, N = frames.shape[:2]
     PT.check_partitionable(cfg, ["frames"], serving=True)
-    seq = PT.seq_layout(B, 1, mesh.extent(dp))
+    seq = PT.seq_layout(B, 1, grid.R)
     rows = (_slot_rows({"frames": frames}, mesh, dp) if seq is None
             else _slot_sequence_batch({"frames": frames}, mesh, dp, seq))["frames"]
-    enc = PT.partitioned_encode(cfg, mesh, {k: x.slot_blocks() for k, x in named},
-                                {k: x.layout for k, x in named}, rows, seq)
-    split = PT.seq_layout(B, N, mesh.extent(dp))
-    spec = ((dp,) if dp else (),) if split is None else ((), (dp,) if split == "chunks" else ())
+    enc = PT.partitioned_encode(cfg, grid, {k: x.slot_blocks() for k, x in named}, layouts,
+                                rows, seq)
+    split = PT.seq_layout(B, N, grid.R)
+    spec = (batch,) if split is None else ((), batch if split == "chunks" else ())
     lay = Layout((B, N) + tuple(enc[0].shape[2:]), spec, mesh)
     return Placed(lay, [enc[s] for s in lay.first_slot])
 
 
 @torch.no_grad()
-def partitioned_prime(cfg: ArchConfig, params, cache, enc_out):
+def partitioned_prime(cfg: ArchConfig, params, cache, enc_out, *, data_axis=M.FROM_MESH,
+                      model_axis=M.FROM_MESH):
     """``whisper.prime_cross_cache`` on placed params: every decoder
     layer's cross k/v from the encoder states ``enc_out`` (``whisper_encode``'s
     per-replica leaf, or whole [B, N, D]) written into the blocks of the
@@ -453,16 +474,17 @@ def partitioned_prime(cfg: ArchConfig, params, cache, enc_out):
     the batch axis does not divide, ``cache_shardings`` splits the N
     positions over the batch axis where it divides them: each slot writes
     its block from its chunk of the states (``whisper_encode``'s leaf split
-    so, or split here), with no gather.  Returns the cache."""
-    named, mesh = _placed_grid(params, "params")
-    dp, _ = PT.grid_axes(mesh)
+    so, or split here), with no gather.  Returns the cache.  ``data_axis``
+    and ``model_axis`` name the grid (``make_train_step``'s)."""
+    named, layouts, grid = _params_grid(params, data_axis, model_axis)
+    mesh, dp = grid.mesh, grid.dp
     PT.check_partitionable(cfg, ["frames"], serving=True)
-    blocks, _ = _placed_cache(cfg, cache, mesh)
-    split = PT.seq_layout(*enc_out.shape[:2], mesh.extent(dp))
+    blocks, _ = _placed_cache(cfg, cache, grid)
+    split = PT.seq_layout(*enc_out.shape[:2], grid.R)
     rows = (_slot_rows({"enc": enc_out}, mesh, dp)["enc"] if split is None
             else _slot_sequence(enc_out, mesh, dp, split, long=False))
-    PT.partitioned_prime(cfg, mesh, {k: x.slot_blocks() for k, x in named},
-                         {k: x.layout for k, x in named}, rows, blocks)
+    PT.partitioned_prime(cfg, grid, {k: x.slot_blocks() for k, x in named}, layouts, rows,
+                         blocks)
     return cache
 
 
@@ -474,7 +496,7 @@ def _slot_sequence(tokens, mesh: M.Mesh, dp, seq: str, long: bool = True) -> lis
     are split here.  Token ids as int64 (``long``; a mask, or encoder
     states [B, N, D] split along N, as they are)."""
     R, devices = mesh.extent(dp), list(mesh.devices.flat)
-    want = ((), (dp,) if seq == "chunks" else ()) + ((),) * (tokens.ndim - 2)
+    want = ((), spec_axes(dp) if seq == "chunks" else ()) + ((),) * (tokens.ndim - 2)
     cast = (lambda t: t.long()) if long else (lambda t: t)
     if (isinstance(tokens, Placed) and tokens.layout.spec == want
             and tokens.layout.mesh.axis_names == mesh.axis_names
@@ -500,7 +522,8 @@ def _slot_rows(batch, mesh: M.Mesh, dp) -> Dict[str, list]:
         axis = _batch_axis(key, v)
         if (isinstance(v, Placed) and v.layout.mesh.axis_names == mesh.axis_names
                 and list(v.layout.mesh.devices.flat) == devices
-                and (v.layout.spec[axis] == (dp,) or (R == 1 and not v.layout.spec[axis]))
+                and (v.layout.spec[axis] == spec_axes(dp)
+                     or (R == 1 and not v.layout.spec[axis]))
                 and not any(e for d, e in enumerate(v.layout.spec) if d != axis)):
             parts = v.slot_blocks()
         else:
@@ -587,16 +610,18 @@ def _slot_sequence_batch(batch, mesh: M.Mesh, dp, seq: str) -> Dict[str, list]:
     return out
 
 
-def make_eval_step(cfg: ArchConfig) -> Callable:
+def make_eval_step(cfg: ArchConfig, *, data_axis=M.FROM_MESH,
+                   model_axis=M.FROM_MESH) -> Callable:
     """``(params, batch) -> loss``: ``lm_loss`` of the batch (plus the aux
     loss at weight 0), computed on the kernels without gradients.  Placed
-    params (a grid of several slots) take ``_partitioned_eval``, at any
-    batch size."""
+    params (a grid of several slots, named by ``data_axis`` and
+    ``model_axis`` as in ``make_train_step``) take ``_partitioned_eval``,
+    at any batch size."""
 
     @torch.no_grad()
     def eval_step(params, batch):
         if is_placed(params):
-            return _partitioned_eval(cfg, params, batch)
+            return _partitioned_eval(cfg, params, batch, data_axis, model_axis)
         total, _, _ = _lm_loss_fn(cfg, params, _on_device(batch, tree_device(params)), 0.0,
                                differentiable=False)
         return total
@@ -604,34 +629,35 @@ def make_eval_step(cfg: ArchConfig) -> Callable:
     return eval_step
 
 
-def _partitioned_eval(cfg: ArchConfig, params, batch) -> torch.Tensor:
+def _partitioned_eval(cfg: ArchConfig, params, batch, data_axis=M.FROM_MESH,
+                      model_axis=M.FROM_MESH) -> torch.Tensor:
     """The eval step on placed params: the batch split as the train step
     splits it (by rows, or by its sequence where the batch axis does not
     divide it), ``models.partitioned.partitioned_forward`` on the kernels,
     each slot's share of the loss by ``lm_loss_vocab_parallel`` over the
     whole batch's count of scored pairs, summed over the batch axis (one
     all-reduce): the loss on slot 0's device."""
-    named, mesh = _placed_grid(params, "params")
-    dp, _ = PT.grid_axes(mesh)
-    seq = PT.seq_layout(*batch["tokens"].shape, mesh.extent(dp))
+    named, layouts, grid = _params_grid(params, data_axis, model_axis)
+    mesh, dp = grid.mesh, grid.dp
+    seq = PT.seq_layout(*batch["tokens"].shape, grid.R)
     PT.check_partitionable(cfg, list(batch), serving=True)
     rows = (_slot_rows(batch, mesh, dp) if seq is None
             else _slot_sequence_batch(batch, mesh, dp, seq))
-    layouts = {k: x.layout for k, x in named}
-    logits, _, _ = PT.partitioned_forward(cfg, mesh, {k: x.slot_blocks() for k, x in named},
+    logits, _, _ = PT.partitioned_forward(cfg, grid, {k: x.slot_blocks() for k, x in named},
                                           layouts, rows["tokens"],
                                           positions=rows.get("positions"),
                                           extra_embeds=rows.get("extra_embeds"),
                                           differentiable=False, seq=seq,
                                           frames=rows.get("frames"))
     losses = lm_loss_vocab_parallel(logits, rows["tokens"], mesh,
-                                    PT.vocab_axis(cfg, mesh, layouts), rows.get("mask"),
+                                    PT.vocab_axis(cfg, grid, layouts), rows.get("mask"),
                                     _pairs(rows, mesh, dp, seq),
                                     seq_axis=dp if seq == "chunks" else None)
     return M.axis_all_reduce(losses, mesh, dp)[0]
 
 
-def make_prefill_step(cfg: ArchConfig) -> Callable:
+def make_prefill_step(cfg: ArchConfig, *, data_axis=M.FROM_MESH,
+                      model_axis=M.FROM_MESH) -> Callable:
     """Forward pass of the full prompt, no cache: ``(params, batch) ->
     last-position logits [B, V]`` (the next-token distribution).
 
@@ -641,20 +667,23 @@ def make_prefill_step(cfg: ArchConfig) -> Callable:
     the batch axis (or come placed by ``batch_shardings``) and the logits
     come back whole, on slot 0's
     device (the reference's ``jax.jit(prefill_step, in_shardings=(params_sh,
-    batch_sh), out_shardings=None)``)."""
+    batch_sh), out_shardings=None)``).  ``data_axis`` and ``model_axis``
+    name the grid, as in ``make_train_step``."""
 
     def prefill_step(params, batch):
         if is_placed(params):
             return _partitioned_last_logits(cfg, params, batch["tokens"],
                                             positions=batch.get("positions"),
                                             extra_embeds=batch.get("extra_embeds"),
-                                            frames=batch.get("frames"))
+                                            frames=batch.get("frames"), data_axis=data_axis,
+                                            model_axis=model_axis)
         return _logits(cfg, params, batch, differentiable=False)[0][:, -1]
 
     return prefill_step
 
 
-def make_serve_step(cfg: ArchConfig) -> Callable:
+def make_serve_step(cfg: ArchConfig, *, data_axis=M.FROM_MESH,
+                    model_axis=M.FROM_MESH) -> Callable:
     """One step against a KV/state cache: ``(params, cache, tokens [B, S],
     cache_index) -> (logits [B, V], cache)``, the last position's logits;
     the cache is updated in place and returned.  S = 1 is a decode step;
@@ -666,11 +695,14 @@ def make_serve_step(cfg: ArchConfig) -> Callable:
     a cache placed on their grid by ``launch.sharding.cache_shardings``
     (the reference's ``in_shardings=(params_sh, cache_sh, tokens_sh, rep),
     out_shardings=(None, cache_sh)``): each slot writes its block in place,
-    and the logits come back whole on slot 0's device."""
+    and the logits come back whole on slot 0's device.  ``data_axis`` and
+    ``model_axis`` name the grid, as in ``make_train_step``; the cache is
+    placed with the same axes."""
 
     def serve_step(params, cache, tokens, cache_index):
         if is_placed(params):
-            return _partitioned_last_logits(cfg, params, tokens, cache, cache_index), cache
+            return _partitioned_last_logits(cfg, params, tokens, cache, cache_index,
+                                            data_axis=data_axis, model_axis=model_axis), cache
         if cfg.is_encoder_decoder:
             logits, _, cache = W.whisper_decode(cfg, params, tokens, cache=cache,
                                                 cache_index=cache_index)

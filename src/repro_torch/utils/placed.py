@@ -91,8 +91,11 @@ class Layout:
                 out.append(u)
         return out
 
-    def splits_over(self, axis: str) -> bool:
-        return any(axis in e for e in self.spec)
+    def splits_over(self, axis) -> bool:
+        """Whether any dim is split over ``axis`` (a name, or any name of a
+        tuple of names)."""
+        axes = set(spec_axes(axis))
+        return any(axes & set(e) for e in self.spec)
 
 
 class Placed:
