@@ -314,13 +314,15 @@ Phases (any failed check raises, so the script exits non-zero):
    printed.
 
 17. the dry-run tooling (slice 13, ``phase_dryrun``, under two minutes):
-   (a) ``python -m repro_torch.launch.dryrun`` as a user runs it, three
-   processes with no card visible, started together before phase 6 and run
-   beside the card's phases until phase 17 collects them (``DRYRUN_RUNS``: every
-   arch at decode_32k and gemma3-1b at every shape on pod1 and pod2, and
-   gemma3-1b's ColD step on cold8x2; the rest of ``--all --mesh both`` is
-   left to the CLI, ``DRYRUN_LEFT``), one line per artifact: the three
-   roofline terms, the bottleneck and the peak a chip; (b) phase 9's
+   (a) ``python -m repro_torch.launch.dryrun`` as a user runs it, the
+   partitioned step traced on a meta grid, five processes with no card
+   visible, started together before phase 5 and run beside the card's
+   phases until phase 17 collects them (``DRYRUN_RUNS``: every arch at
+   decode_32k on pod1, gemma3-1b's prefill_32k and decode_32k on pod1 and
+   pod2 and its train_4k on pod1, and its ColD step on cold8x2; the rest of
+   ``--all --mesh both`` is left to the CLI, ``DRYRUN_LEFT``), one line per
+   artifact: the traced grid and its seconds, the three roofline terms,
+   the collective bytes a chip, the bottleneck and the peak a slot; (b) phase 9's
    gemma3-1b bf16 prefill (4 x 1024, cache 1280) and one decode step,
    counted by ``utils.op_counts.OpCounter`` on the meta device and on the
    card: equal FLOPs, and the kernels' calls by route equal to the card's
@@ -541,6 +543,22 @@ Phases (any failed check raises, so the script exits non-zero):
    collectives of each step ``serve_collectives(data_axis=)``', the logits
    within 4x the yardstick (``tp_agreement``).  Its record is a
    ``{"pgrid": ...}`` line.
+27. **The partitioned dry run against the card** (slice 23,
+   ``phase_pdryrun``): gemma3-1b (6 of 26 layers at full width) on
+   ``(data 1, model 8)``, whose 4 query heads the model axis does not
+   divide (``wq`` gathered over ``model``, every head on every slot): one
+   f32 SGD step 8 x 512 whole and partitioned, every gradient and updated
+   param within 1e-5 of the leaf's largest value, the collectives
+   ``partitioned_collectives(grid=)``'; bf16 serving 4 x 512 -> 16 whole
+   and on the grid (``pgrid_serve``: launches exact by route, logits
+   within 4x the yardstick); then the train step, the prefill step and a
+   decode step at cache 528 each counted by an ``OpCounter`` on the card
+   and held against ``launch.dryrun.trace_step``'s meta trace of the same
+   step (``pdryrun_meta``, traced with no card visible beside phases 5-16):
+   equal FLOPs, the same collectives by axis, the kernels' calls by route
+   equal to the card's launches, the predicted peak of all 8 slots on one
+   card within ``PEAK_RTOL`` of the card's (train and prefill).  Its record
+   is a ``{"pdryrun": ...}`` line.
 
 Each phase prints ``[phase] <n> <name> <seconds> s``, its wall seconds
 from start to end, before the last lines (phases 3 and 4 alternate, one
@@ -552,7 +570,8 @@ phases 12's, 13's and 14's eval steps and generates, around each run of
 phase 15's mesh daemon, around phase 17's counted prefill and decode step
 and around each of phase 19's, 20's, 21's and 22's partitioned generates,
 phase 23's train steps and context-parallel generate, phases 24's and
-25's partitioned greedy runs and phase 26's train steps and generates,
+25's partitioned greedy runs, phase 26's train steps and generates and
+phase 27's generate,
 every kernel's launch
 counter is set to 0; it is read just after.  The last lines are the
 kernels' JSON record (launches from phase 7 for the three fuse kernels, with phase 10's
@@ -566,15 +585,16 @@ as ``launches_routed``, from phase 9 for the other two, phase 11's as
 ``launches_partitioned_moe``, phase 21's as ``launches_partitioned_ssm``,
 phase 22's as ``launches_context_parallel``, phase 24's as
 ``launches_partitioned_whisper``, phase 25's as
-``launches_context_parallel_whisper`` and phase 26's as ``launches_pgrid``
-for all five; phase 15's times under ``mesh``; phases 19's to 26's
+``launches_context_parallel_whisper``, phase 26's as ``launches_pgrid``
+and phase 27's as ``launches_pdryrun``
+for all five; phase 15's times under ``mesh``; phases 19's to 27's
 per-slot checks as ``per_slot_max_abs_err``; each kernel's
 ``cost_formula``; phases 22's, 24's, 25's and 26's ``[time]`` lines
 among ``flash_attention``'s ``routes`` and their launches by route as
 ``launches_by_route_context_parallel``,
 ``launches_by_route_partitioned_whisper``,
 ``launches_by_route_context_parallel_whisper`` and
-``launches_by_route_pgrid``, and one record each for the
+``launches_by_route_pgrid`` and ``launches_by_route_pdryrun``, and one record each for the
 two new entries, ``flash_attention.decode_partial`` and
 ``flash_attention.decode_merge``), phase 16's record as a ``{"cold_mesh": ...}``
 line, phase 17's as a ``{"dryrun": ...}`` line, phase 18's as a
@@ -585,7 +605,7 @@ line, phase 17's as a ``{"dryrun": ...}`` line, phase 18's as a
 ``{"context_parallel_train": ...}`` line, phase 24's as a
 ``{"partitioned_whisper": ...}`` line, phase 25's as a
 ``{"context_parallel_whisper": ...}`` line, phase 26's as a ``{"pgrid":
-...}`` line, ``nvidia-smi``'s line and
+...}`` line, phase 27's as a ``{"pdryrun": ...}`` line, ``nvidia-smi``'s line and
 ``{"ok": true, "device": {...}}``.  Without a card (or without the rest of
 the repository beside it) the script exits non-zero and prints no result.
 """
@@ -675,6 +695,7 @@ from repro_torch.utils.flat import (LANE, CohortSketch, DeltaPayload,  # noqa: E
                                     delta_decode, delta_encode, delta_encode_sharded)
 from repro_torch.utils.pytree import (tree_from_paths, tree_leaves,  # noqa: E402
                                       tree_leaves_with_path, tree_map)
+from repro_torch.configs.base import InputShape  # noqa: E402
 from repro_torch.launch.dryrun import tree_bytes  # noqa: E402
 from repro_torch.launch.specs import abstract_params  # noqa: E402
 from repro_torch.utils.flat import dtype_of  # noqa: E402
@@ -4979,7 +5000,9 @@ def partitioned_collectives(cfg, psh, R: int, M: int, microbatches: int = 1, opt
     input all-reduces for attention and the FFN, the logits' backward input
     all-reduce and the loss's three; KV weights all-gathered
     (reduce-scattered back) where Hkv does not split but their spec does,
-    their gradient all-reduced where the spec keeps them whole.  A MoE
+    their gradient all-reduced where the spec keeps them whole; ``wq``
+    all-gathered (reduce-scattered back) where its spec splits its
+    columns but M does not divide the query heads.  A MoE
     layer makes three all-reduces over ``model`` where its experts (or,
     with the lever, its F) split: the combine's and the backward's of the
     router's top-k weights and of the experts' input; and over ``replica``
@@ -5051,6 +5074,9 @@ def partitioned_collectives(cfg, psh, R: int, M: int, microbatches: int = 1, opt
                 rs += 2 * L
             else:
                 ar += 2 * L
+        if L and attn and cfg.num_heads % M:   # wq gathered: the attention replicated
+            ag += L
+            rs += L
     fsdp_uses = per_step = perm = 0
     if grid is not None:
         mesh = grid.mesh
@@ -5471,17 +5497,27 @@ def phase_cold_mesh(card):
 # slice 13: the dry-run tooling (phase 17)
 # ---------------------------------------------------------------------------
 
-# phase 17 (a): three runs of the dry-run CLI, started together on the host
-# with no card visible.  The whole --all --mesh both sweep takes about three
-# minutes of one core, over the phase's two-minute budget, so it runs every
-# arch at decode_32k, gemma3-1b at every shape and gemma3-1b's ColD step, and
-# leaves the rest (DRYRUN_LEFT) to the CLI
-DRYRUN_RUNS = (["--all", "--shape", "decode_32k", "--mesh", "both"],
-               ["--all", "--arch", "gemma3-1b", "--mesh", "both"],
+# phase 17 (a): runs of the dry-run CLI, started together on the host with no
+# card visible, beside phases 5-16.  The partitioned step traces every slot of
+# a sub-grid (the model axis whole: 32 slots on pod1), 1.6 to 168 s an artifact
+# on one host core (jamba's MoE widens its grid to 128 slots: 168 s; gemma3-1b's
+# train_4k 108 s; its long_500k on the full 256-slot grid about two minutes),
+# so the sweep runs every arch at decode_32k on pod1 (two processes),
+# gemma3-1b's prefill and decode on both meshes and its train step on pod1,
+# and its ColD step, and leaves the rest (DRYRUN_LEFT) to the CLI
+DRYRUN_RUNS = (["--arch", "jamba-1.5-large-398b", "whisper-tiny", "gemma3-1b",
+                "--shape", "decode_32k", "--mesh", "pod1"],
+               ["--arch", "mistral-nemo-12b", "granite-moe-1b-a400m", "qwen2-vl-72b",
+                "stablelm-12b", "granite-20b", "mixtral-8x7b", "rwkv6-7b",
+                "--shape", "decode_32k", "--mesh", "pod1"],
+               ["--arch", "gemma3-1b", "--shape", "prefill_32k", "decode_32k", "--mesh", "both"],
+               ["--arch", "gemma3-1b", "--shape", "train_4k", "--mesh", "pod1"],
                ["--arch", "gemma3-1b", "--shape", "train_4k", "--strategy", "cold",
                 "--cold-mesh", "8x2"])
-DRYRUN_LEFT = ("train_4k, prefill_32k and long_500k of the other nine archs on pod1 and pod2: "
-               "python -m repro_torch.launch.dryrun --all --mesh both")
+DRYRUN_LEFT = ("decode_32k of the other nine archs on pod2; train_4k and prefill_32k of the "
+               "other nine on pod1 and pod2; gemma3-1b's train_4k on pod2; long_500k (the full "
+               "256- or 512-slot grid) of its four archs; --strategy dp: python -m "
+               "repro_torch.launch.dryrun --all --mesh both [--strategy dp]")
 # (b): phase 9's gemma3-1b bf16 prefill, then one decode step at cache
 # GEMMA_MAX_LEN; each layer one flash_attention call on the route the card takes
 DRYRUN_PREFILL_ROUTES = {"prefill_tc": GEMMA.num_layers}
@@ -5494,11 +5530,13 @@ PEAK_RTOL = 0.10
 
 
 def dryrun_sweep_start():
-    """Phase 17 (a)'s CLI runs of ``DRYRUN_RUNS``, started as processes with
-    no card visible, one thread each: they trace on the meta device beside
-    the card's phases until ``dryrun_sweep`` collects them (the script's
+    """Phase 17 (a)'s CLI runs of ``DRYRUN_RUNS`` and phase 27's meta traces
+    (``pdryrun_meta``), started as processes with no card visible, one
+    thread each: they trace on the meta device beside the card's phases
+    until ``dryrun_sweep`` and ``phase_pdryrun`` collect them (the script's
     1200 s budget cannot hold them in line).  ``stop_sweep`` ends them."""
-    src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
+    root = os.path.dirname(os.path.abspath(__file__))
+    src = os.path.join(root, "src")
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1",
                PYTHONPATH=os.pathsep.join(filter(None, [src, os.environ.get("PYTHONPATH")])))
     workdir = tempfile.mkdtemp(prefix="chip_smoke-dryrun-")
@@ -5506,11 +5544,17 @@ def dryrun_sweep_start():
     procs = [subprocess.Popen([sys.executable, "-m", "repro_torch.launch.dryrun", *argv, "--out",
                                out, "--force"], env=env, stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True) for argv in DRYRUN_RUNS]
-    return {"workdir": workdir, "out": out, "procs": procs, "t0": time.perf_counter()}
+    meta = os.path.join(workdir, "pdryrun_meta.json")
+    pdry = subprocess.Popen(
+        [sys.executable, "-c", "import sys; sys.path.insert(0, sys.argv[1]); import chip_smoke; "
+         "chip_smoke.pdryrun_meta(sys.argv[2])", root, meta], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    return {"workdir": workdir, "out": out, "procs": procs, "t0": time.perf_counter(),
+            "pdryrun": (pdry, meta)}
 
 
 def stop_sweep(sweep):
-    for p in sweep["procs"]:
+    for p in sweep["procs"] + [sweep["pdryrun"][0]]:
         if p.poll() is None:
             p.kill()
             p.wait()
@@ -5537,21 +5581,31 @@ def dryrun_sweep(sweep):
         if res.get("skipped"):
             print(f"[dryrun] {res['arch']} {res['shape']} {res['mesh']}: skipped ({res['reason']})")
             continue
-        check(res["ok"] and res["partitioned"] is False, f"dryrun artifact {name}: {res}")
-        r, mem = res["roofline"], res["memory_analysis"]
+        check(res["ok"] and res["partitioned"] is True, f"dryrun artifact {name}: {res}")
+        r, mem, t = res["roofline"], res["memory_analysis"], res["traced"]
+        cols = res["collectives"]
         row = {"arch": res["arch"], "shape": res["shape"], "mesh": res["mesh"],
-               "strategy": res["strategy"], "compute_ms": r["compute_s"] * 1e3,
-               "memory_ms": r["memory_s"] * 1e3, "collective_ms": r["collective_s"] * 1e3,
+               "strategy": res["strategy"], "traced_grid": t["grid"], "slots": t["slots"],
+               "layout": t["layout"], "rows_a_slot": t["rows_a_slot"],
+               "flops_per_chip": r["flops_per_chip"], "hbm_bytes_per_chip": r["hbm_bytes_per_chip"],
+               "compute_ms": r["compute_s"] * 1e3, "memory_ms": r["memory_s"] * 1e3,
+               "collective_ms": r["collective_s"] * 1e3,
+               "collective_bytes_by_axis": {a: sum(k["bytes_per_slot"] for k in kinds.values())
+                                            for a, kinds in cols["by_axis"].items()},
                "bottleneck": r["bottleneck"],
                "peak_gib": mem["peak_memory_in_bytes"] / 2**30,
                "traced_peak_gib": mem["traced_peak_bytes"] / 2**30,
                "trace_s": res["trace_wall_s"]}
         rows.append(row)
-        print(f"[dryrun] {row['arch']} {row['shape']} {row['mesh']} ({row['strategy']}): "
-              f"compute {row['compute_ms']:.2f} ms, memory {row['memory_ms']:.2f} ms, "
-              f"collective {row['collective_ms']:.2f} ms -> {row['bottleneck']}; peak "
-              f"{row['peak_gib']:.2f} GiB a chip (partitioned), {row['traced_peak_gib']:.2f} GiB "
-              f"unpartitioned; traced in {row['trace_s']:.1f} s")
+        by_axis = ", ".join(f"{a} {b / 1e9:.3g} GB" for a, b in
+                            row["collective_bytes_by_axis"].items())
+        print(f"[dryrun] {row['arch']} {row['shape']} {row['mesh']} ({row['strategy']}), traced "
+              f"on {row['traced_grid']} ({row['slots']} of {res['chips']} slots, "
+              f"{row['rows_a_slot']} rows a slot, {row['layout']}): compute "
+              f"{row['compute_ms']:.2f} ms, memory {row['memory_ms']:.2f} ms, collective "
+              f"{row['collective_ms']:.2f} ms ({by_axis} a chip) -> {row['bottleneck']}; peak "
+              f"{row['peak_gib']:.2f} GiB a slot, {row['traced_peak_gib']:.2f} GiB on one card "
+              f"running the traced slots; traced in {row['trace_s']:.1f} s")
         if "fuse" in res:
             fc = res["fuse"]["collectives"]
             print(f"[dryrun]   its fuse: all-reduce {fc['count_by_kind'].get('all-reduce', 0)} "
@@ -5724,11 +5778,13 @@ def phase_dryrun(card, sweep=None):
     Returns the launches of (b)'s counted prefill and decode step on the
     card, and the phase's record."""
     t0 = time.perf_counter()
+    own = sweep is None   # a sweep started by main() runs on for phase 27's meta traces
     sweep = sweep or dryrun_sweep_start()
     try:
         rows, sweep_s = dryrun_sweep(sweep)
     finally:
-        stop_sweep(sweep)
+        if own:
+            stop_sweep(sweep)
     serve, counts = dryrun_serve(card)
     train = dryrun_train(card)
     seconds = time.perf_counter() - t0
@@ -5952,8 +6008,9 @@ def serve_collectives(cfg, psh, R: int, M: int, *, cached: bool = True, data_axi
     all-reduce where the vocabulary splits; an all-reduce a row-parallel
     output (attention's ``wo``, the GLU/MLP, the RWKV time mix's ``wo``,
     a MoE layer's combine where its experts or F split); ``wk``/``wv``
-    all-gathered where the KV heads do not split but their spec does; a
-    Mamba layer whose channels split, its in_proj product all-gathered and
+    all-gathered where the KV heads do not split but their spec does, and
+    ``wq`` where M does not divide the query heads but its spec splits its
+    columns; a Mamba layer whose channels split, its in_proj product all-gathered and
     its x_proj partials and out_proj all-reduced (1 + 2); with a cache, its
     k and v all-gathered where its spec splits ``head_dim``, and an RWKV
     layer's two token-shift states; the last logits all-gathered where they
@@ -6006,6 +6063,8 @@ def serve_collectives(cfg, psh, R: int, M: int, *, cached: bool = True, data_axi
         ag_m += mamba
         if n_attn and attn and Hkv % M and (Hkv * hd) % M == 0:
             ag_m += 2 * n_attn
+        if n_attn and attn and cfg.num_heads % M:
+            ag_m += n_attn
         if cached:
             if n_attn and Hkv % M and hd % M == 0 and step in (None, "decode"):
                 ag_m += 2 * n_attn
@@ -6047,7 +6106,9 @@ def whisper_collectives(cfg, psh, R: int, M: int, what: str, data_axis="data", *
     encoder layer's one, a decoder layer's two) and each MLP; ``wk``/``wv``
     all-gathered where the KV heads do not split but their spec does, for
     each attention that projects them (not a serve step's cross-attention,
-    which reads the primed cache); in a serve step, where the caches' spec
+    which reads the primed cache); ``wq`` all-gathered for each attention
+    (not a prime's) where M does not divide the query heads but its spec
+    splits its columns; in a serve step, where the caches' spec
     splits ``head_dim``, each layer's self and cross k and v all-gathered.
     Over the batch axis: each use of a leaf FSDP splits (the leaves that
     forward uses), and the decoder's last logits.
@@ -6080,6 +6141,7 @@ def whisper_collectives(cfg, psh, R: int, M: int, what: str, data_axis="data", *
         ar += vocab + (Le * enc + 2 * Ld * dec) * attn + (Le * enc + Ld * dec) * (cfg.d_ff % M == 0)
         projecting = Le * enc + Ld * ((what == "prefill") + dec + (what == "prime"))
         ag_m += vocab + 2 * projecting * kv_gathered
+        ag_m += (Le * enc + 2 * Ld * dec) * (attn and cfg.num_heads % M != 0)
         if what == "serve" and Hkv % M and hd % M == 0:
             ag_m += 4 * Ld if step in (None, "decode") else 2 * Ld
     if R > 1:
@@ -6107,18 +6169,24 @@ def whisper_collectives(cfg, psh, R: int, M: int, what: str, data_axis="data", *
     return kinds, {a: n for a, n in (("model", ar + ag_m), (data_axis, ag_d + bcast)) if n}
 
 
+def slot_heads(cfg, M: int) -> int:
+    """A model slot's query heads: ``Hq / M``, or all ``Hq`` where M does not
+    divide them (``models.partitioned._heads``: the attention replicated)."""
+    return cfg.num_heads // M if cfg.num_heads % M == 0 else cfg.num_heads
+
+
 def pserve_routes(cfg, prompt_len, new_tokens, n_slots: int, M: int):
     """The kernels' launches by route over one partitioned
     ``Engine.generate``, worked out from the code: each slot launches once a
     layer for the prefill and once a layer and new token after the first,
-    on the route its own heads take (attention: ``Hq / M`` query heads on
-    the KV heads they read)."""
+    on the route its own heads take (attention: ``slot_heads`` query heads
+    on the KV heads they read)."""
     n_attn = sum(b.mixer == "attn" for b in cfg.blocks)
     n_rwkv = sum(b.mixer == "rwkv" for b in cfg.blocks)
     steps = new_tokens - 1
     flash = dict.fromkeys(fa_mod.COUNTED, 0)
     if n_attn:
-        hq, rep = cfg.num_heads // M, cfg.num_heads // cfg.num_kv_heads
+        hq, rep = slot_heads(cfg, M), cfg.num_heads // cfg.num_kv_heads
         group = rep if (cfg.num_kv_heads % M == 0 or hq % rep == 0) else (
             hq if rep % hq == 0 else 1)      # query heads a slot's kv head serves
         flash[fa_mod.route(torch.bfloat16, prompt_len, group, 1)] += n_slots * n_attn
@@ -7057,7 +7125,7 @@ def cp_routes(cfg, new_tokens, n_slots: int, M: int):
     steps = new_tokens - 1
     flash = dict.fromkeys(fa_mod.COUNTED, 0)
     if n_attn:
-        hq, rep = cfg.num_heads // M, cfg.num_heads // cfg.num_kv_heads
+        hq, rep = slot_heads(cfg, M), cfg.num_heads // cfg.num_kv_heads
         rows = rep if (cfg.num_kv_heads % M == 0 or hq % rep == 0) else (
             hq if rep % hq == 0 else 1)      # query heads a slot's kv head serves
         groups = next(g for g in range(1, rows + 1) if rows % g == 0
@@ -8151,7 +8219,7 @@ def cpw_routes(cfg, dtype, prompt_len, new_tokens, max_len, R: int, M: int):
     cross-attention's (where R divides N, else the decode route)."""
     want = dict.fromkeys(fa_mod.COUNTED, 0)
     slots, N, P = R * M, cfg.encoder_seq, prompt_len
-    hq, rep = cfg.num_heads // M, cfg.num_heads // cfg.num_kv_heads
+    hq, rep = slot_heads(cfg, M), cfg.num_heads // cfg.num_kv_heads
     group = rep if (cfg.num_kv_heads % M == 0 or hq % rep == 0) else (
         hq if rep % hq == 0 else 1)      # query heads a slot's kv head serves
 
@@ -8725,6 +8793,311 @@ def phase_pgrid(card, gen):
                    "routes": lines, "flash_routes": routes, "seconds": seconds}
 
 
+# ---------------------------------------------------------------------------
+# slice 23: the partitioned dry run, and attention whose query heads the model
+# axis does not divide (phase 27)
+# ---------------------------------------------------------------------------
+
+# gemma3-1b at full width cut to its first period (6 of 26 layers) on (data 1,
+# model 8): its 4 query heads do not split over 8, so every slot runs all of
+# them (wq gathered over model); f32 SGD at PDRY_TRAIN, bf16 serving PDRY_SERVE
+PDRY_LAYERS = PGRID_LAYERS
+PGRID_GRIDS["m8"] = ((1, 8), ("data", "model"), "data", "model")
+PDRY_GRID = "m8"
+PDRY_TRAIN = (8, 512)
+PDRY_SERVE = (4, 512, 528)      # batch, prompt, cache slots; -> PGRID_NEW tokens
+# the steps whose meta predicted peak (the placed inputs' stored blocks + the
+# peak the step allocates) is held within PEAK_RTOL of the card's
+# torch.cuda.max_memory_allocated above what was allocated before; the decode
+# step's is printed
+PDRY_PEAK_STEPS = ("train", "prefill")
+
+
+def pdryrun_cfg(dtype):
+    return dataclasses.replace(GEMMA, num_layers=PDRY_LAYERS, param_dtype=dtype,
+                               compute_dtype=dtype)
+
+
+def pdryrun_shapes():
+    """The three steps phase 27 traces and runs: (kind, dtype, InputShape)."""
+    (B, S), (Bs, P, L) = PDRY_TRAIN, PDRY_SERVE
+    return (("train", "float32", InputShape("pdry_train", S, B, "train")),
+            ("prefill", "bfloat16", InputShape("pdry_prefill", P, Bs, "prefill")),
+            ("decode", "bfloat16", InputShape("pdry_decode", L, Bs, "decode")))
+
+
+def pdryrun_opt():
+    return make_optimizer("sgd", constant_lr(PARTITIONED_SGD_LR), momentum=0.9)
+
+
+def pdryrun_meta(path):
+    """Phase 27's meta side, run with no card visible (``dryrun_sweep_start``
+    starts it beside the card's phases): each of ``pdryrun_shapes``' steps
+    traced by ``launch.dryrun.trace_step`` on a meta (data 1, model 8) grid,
+    its FLOPs, kernel calls by route, collectives by axis and predicted
+    peak (the placed inputs' stored blocks on one device plus the peak the
+    step allocates) written to ``path`` as JSON."""
+    mesh = make_mesh(*PGRID_GRIDS[PDRY_GRID][:2], device="meta")
+    out = {}
+    for kind, dtype, shape in pdryrun_shapes():
+        tr = dryrun_mod.trace_step(pdryrun_cfg(dtype), kind, mesh, shape,
+                                   opt=pdryrun_opt() if kind == "train" else None)
+        axes = {}
+        for (axis, _, _, _), (calls, _) in tr.oc.by_axis.items():
+            axes[axis] = axes.get(axis, 0) + int(calls)
+        out[kind] = {"flops": tr.oc.flops, "hbm_bytes": tr.oc.hbm_bytes,
+                     "flash": tr.oc.calls("flash_attention"), "by_axis": axes_json(axes),
+                     "collectives": tr.oc.collectives.count_by_kind,
+                     "predicted_peak": tr.held_bytes + tr.oc.peak_live_bytes,
+                     "held": tr.held_bytes, "peak_live": tr.oc.peak_live_bytes,
+                     "trace_s": tr.wall_s}
+        print(f"[pdryrun] meta {kind}: {tr.wall_s:.1f} s", flush=True)
+    with open(path, "w") as f:
+        json.dump(out, f)
+
+
+def pdryrun_collect(sweep):
+    """The meta side's JSON, once its process ends."""
+    proc, path = sweep["pdryrun"]
+    log = proc.communicate(timeout=600)[0]
+    check(proc.returncode == 0, f"phase 27's meta traces exited {proc.returncode}:\n{log[-3000:]}")
+    with open(path) as f:
+        return json.load(f)
+
+
+def pdryrun_against_meta(what, kind, meta, oc, by_axis, peak, card):
+    """One counted step on the card held against its meta trace: equal
+    FLOPs, the same collectives by axis, the predicted peak within
+    PEAK_RTOL (``PDRY_PEAK_STEPS``) of ``peak``, the step's inputs on the
+    card (their stored blocks) plus ``torch.cuda.max_memory_allocated``
+    above what was allocated when the step began.  Returns the record."""
+    m = meta[kind]
+    axes = axes_json(by_axis)
+    ratio = peak / m["predicted_peak"]
+    print(f"[pdryrun] {what}: FLOPs meta {m['flops']:,.0f}, card {oc.flops:,.0f} "
+          f"({m['flops'] / 8:,.0f} a slot); collectives by axis meta {m['by_axis']}, card "
+          f"{axes}; peak on the card {peak / 2**30:.3f} GiB (its inputs + "
+          f"torch.cuda.max_memory_allocated above what was allocated before), predicted {m['predicted_peak'] / 2**30:.3f} GiB "
+          f"(inputs {m['held'] / 2**30:.3f} + the step's {m['peak_live'] / 2**30:.3f}): "
+          f"{ratio - 1:+.2%} (tolerance {PEAK_RTOL:.0%}"
+          f"{'' if kind in PDRY_PEAK_STEPS else ', printed only'}); traced on the meta grid in "
+          f"{m['trace_s']:.1f} s on the host; on {card}")
+    check(oc.flops == m["flops"], f"{what}: FLOPs card {oc.flops} != meta {m['flops']}")
+    check(axes == m["by_axis"], f"{what}: collectives by axis card {axes} != meta {m['by_axis']}")
+    if kind in PDRY_PEAK_STEPS:
+        check(abs(ratio - 1) <= PEAK_RTOL, f"{what}: peak {peak} vs predicted "
+              f"{m['predicted_peak']} beyond {PEAK_RTOL:.0%}")
+    return {"flops": oc.flops, "flops_per_slot": oc.flops / 8, "by_axis": axes,
+            "peak_bytes": peak, "predicted_peak_bytes": m["predicted_peak"],
+            "peak_ratio": ratio, "meta_trace_s": m["trace_s"]}
+
+
+def pdryrun_train(card, meta):
+    """gemma3-1b (PDRY_LAYERS layers, f32, SGD momentum 0.9) one step at
+    PDRY_TRAIN whole, every gradient kept, then placed on (data 1, model 8)
+    and the same step partitioned: every gradient and updated param within
+    PARTITIONED_RTOL of the leaf's largest value of the whole step's, the
+    collectives ``partitioned_collectives(grid=)``', no launch; then a
+    second step counted by an ``OpCounter`` against the meta trace
+    (``pdryrun_against_meta``).  Returns the record."""
+    t0 = time.perf_counter()
+    B, S = PDRY_TRAIN
+    cfg, opt = pdryrun_cfg("float32"), pdryrun_opt()
+    batch = {"tokens": torch.as_tensor(np.random.default_rng(27).integers(
+        3, cfg.vocab_size, (B, S)), device="cuda")}
+    kept = {}
+
+    def keep(grads):
+        kept.update(tree_leaves_with_path(grads))
+        return grads
+
+    def fresh():
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        return make_train_state(init_lm(cfg, gen, device="cuda"), opt)
+
+    state = fresh()
+    new, wm = make_train_step(cfg, opt, grad_sync=keep)(state, batch)
+    del state
+    want = {k: wm[k].float().item() for k in ("loss", "grad_norm")}
+    want_grads, want_new = dict(kept), dict(tree_leaves_with_path(new["params"]))
+    kept.clear()
+    del new, wm
+    mesh, axes, grid = pgrid_grid(PDRY_GRID)
+    state = fresh()
+    psh = sharding_mod.params_shardings(mesh, state["params"], cfg, **axes)
+    placed = device_put(state, {"params": psh, "opt": sharding_mod.opt_state_shardings(
+        mesh, state["opt"], psh)})
+    del state
+    step = make_train_step(cfg, opt, grad_sync=keep, grad_shardings=psh, **axes)
+    cols_want = partitioned_collectives(cfg, psh, grid.R, grid.M, grid=grid)
+    reset_launches()
+    mesh_mod.reset_collectives()
+    (placed, pm), first_ms = timed_run(lambda: step(placed, batch))
+    cols = dict(mesh_mod.collectives)
+    counts = launches()
+    worst = {k: abs(pm[k].float().item() - want[k]) / abs(want[k]) for k in want}
+    new_leaves = dict(tree_leaves_with_path(placed["params"]))
+    for part, got_tree, want_tree in (("grads", kept, want_grads),
+                                      ("params", new_leaves, want_new)):
+        for k, w in want_tree.items():
+            d = (sharding_mod.gather(got_tree[k]).float() - w.float()).abs().max()
+            worst[f"{part}/{k}"] = (d / w.float().abs().max().clamp(min=1e-30)).item()
+    kept.clear()
+    del new_leaves, pm, want_grads, want_new
+    over = {k: v for k, v in worst.items() if v > PARTITIONED_RTOL}
+    top = sorted(worst.items(), key=lambda kv: -kv[1])[:3]
+    check(cols == cols_want, f"pdryrun train: collectives {cols}, expected {cols_want}")
+    check(not over, f"pdryrun train: against the whole step beyond {PARTITIONED_RTOL:g}: {over}")
+    check(all(n == 0 for n in counts.values()), f"pdryrun train: the step launched {counts}")
+    counted = make_train_step(cfg, opt, grad_shardings=psh, **axes)
+    sync_cards()
+    torch.cuda.empty_cache()
+    held = dryrun_mod.stored_bytes(placed) + dryrun_mod.stored_bytes(batch)
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    mesh_mod.reset_collectives()
+    t1 = time.perf_counter()
+    with OpCounter() as oc:
+        placed, _ = counted(placed, batch)
+    sync_cards()
+    counted_ms = (time.perf_counter() - t1) * 1e3
+    peak = held + torch.cuda.max_memory_allocated() - base
+    rec = pdryrun_against_meta(f"gemma3-1b ({PDRY_LAYERS} layers, f32, SGD) train step {B} x {S} "
+                               f"on (data 1, model 8)", "train", meta, oc,
+                               dict(mesh_mod.collectives_by_axis), peak, card)
+    del placed, _
+    sync_cards()
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t0
+    print(f"[pdryrun] gemma3-1b ({PDRY_LAYERS} layers, f32, SGD) {B} x {S} on (data 1, model 8), "
+          f"4 query heads on every model slot (wq gathered over model): partitioned step "
+          f"{first_ms:.1f} ms (the first), counted {counted_ms:.1f} ms; collectives {cols} (the "
+          f"formula's); largest difference over the leaf's largest value, worst three "
+          f"{[(k, float(f'{v:.3g}')) for k, v in top]} (bound {PARTITIONED_RTOL:g}); "
+          f"{seconds:.1f} s on {card}")
+    return dict(rec, collectives=cols, first_ms=first_ms, counted_ms=counted_ms,
+                worst=max(worst.values()), seconds=seconds)
+
+
+def pdryrun_serve_counted(card, meta):
+    """gemma3-1b bf16 (PDRY_LAYERS layers) placed on (data 1, model 8): its
+    prefill step (``make_prefill_step``, PDRY_SERVE's prompt) and one decode
+    step at the last slot of a PDRY_SERVE cache, each counted by an
+    ``OpCounter`` on the card against its meta trace, the kernels' calls
+    by route equal to the meta trace's and to the card's launches (one
+    call a layer and slot).  Returns the record."""
+    B, P, L = PDRY_SERVE
+    cfg = pdryrun_cfg("bfloat16")
+    mesh, axes, grid = pgrid_grid(PDRY_GRID)
+    n = mesh.devices.size
+    params = init_lm(cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    placed = device_put(params, sharding_mod.params_shardings(mesh, params, cfg, **axes))
+    del params
+    tokens = torch.as_tensor(np.random.default_rng(27).integers(3, cfg.vocab_size, (B, P)),
+                             device="cuda")
+    out = {}
+    with torch.no_grad():
+        for kind, want in (("prefill", {"prefill_tc": n * PDRY_LAYERS}),
+                           ("decode", {"decode": n * PDRY_LAYERS,
+                                       "decode_combine": n * PDRY_LAYERS})):
+            if kind == "prefill":
+                def run():
+                    return make_prefill_step(cfg, **axes)(placed, {"tokens": tokens})
+            else:
+                cache = init_cache(cfg, B, L, device="cuda")
+                cache = device_put(cache, sharding_mod.cache_shardings(mesh, cache, cfg, **axes))
+
+                def run():
+                    return make_serve_step(cfg, **axes)(placed, cache, tokens[:, -1:], L - 1)
+            held = (dryrun_mod.stored_bytes(placed) + tokens[:, :1 if kind == "decode" else P]
+                    .numel() * tokens.element_size()
+                    + (dryrun_mod.stored_bytes(cache) if kind == "decode" else 0))
+            sync_cards()
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            mesh_mod.reset_collectives()
+            with OpCounter() as oc:
+                run()
+            sync_cards()
+            peak = held + torch.cuda.max_memory_allocated() - base
+            launched = {r: c for r, c in flash_attention.launches_by_route.items() if c}
+            calls = oc.calls("flash_attention")
+            check(calls == meta[kind]["flash"] == launched == want,
+                  f"pdryrun {kind}: flash_attention calls by route card {calls}, meta "
+                  f"{meta[kind]['flash']}, launched {launched}, expected {want}")
+            out[kind] = pdryrun_against_meta(
+                f"gemma3-1b ({PDRY_LAYERS} layers, bf16) {kind} {B} x "
+                f"{P if kind == 'prefill' else 1} (cache {L}) on (data 1, model 8)", kind, meta,
+                oc, dict(mesh_mod.collectives_by_axis), peak, card)
+            out[kind]["flash_routes"] = launched
+    del placed
+    sync_cards()
+    torch.cuda.empty_cache()
+    return out
+
+
+def pdryrun_slot_checks(gen):
+    """flash_attention at phase 27's per-slot shapes, every slot all 4
+    query heads on the one kv head: the prefill q [4, 512, 4, 256] over
+    its 512 keys on ``prefill_tc`` (window 512 and none) and the decode
+    step's q [4, 1, 4, 256] at q_offset 527 over the 528-slot cache on
+    ``decode``, bf16, against flash_attention_plain.  Returns the largest
+    error."""
+    B, P, L = PDRY_SERVE
+    hd = GEMMA.head_dim
+    worst = 0.0
+    q, k, v = qkv_on_card(B, P, P, GEMMA.num_heads, GEMMA.num_kv_heads, hd, torch.bfloat16, gen)
+    for window in (None, GEMMA_WINDOW):
+        kw = dict(causal=True, window=window)
+        worst = max(worst, bf16_close(flash_routed("prefill_tc", q, k, v, **kw),
+                                      flash_attention_plain(q, k, v, **kw),
+                                      f"flash per slot gemma3-1b on model 8, window {window}"))
+    q, k, v = qkv_on_card(B, 1, L, GEMMA.num_heads, GEMMA.num_kv_heads, hd, torch.bfloat16, gen)
+    for window in (None, GEMMA_WINDOW):
+        kw = dict(causal=True, window=window, q_offset=L - 1)
+        worst = max(worst, bf16_close(flash_routed("decode", q, k, v, **kw),
+                                      flash_attention_plain(q, k, v, **kw),
+                                      f"flash per slot gemma3-1b decode on model 8, window "
+                                      f"{window}"))
+    del q, k, v
+    print(f"[check] flash_attention per slot, gemma3-1b on (data 1, model 8) (all 4 query heads "
+          f"on 1 kv head, bf16): prefill q [{B}, {P}, 4, {hd}] on prefill_tc and decode q "
+          f"[{B}, 1, 4, {hd}] at q_offset {L - 1} on decode, window 512 and none: max|d| "
+          f"{worst:.3g} (bound 1 bf16 ulp + 2e-5 x max(1, max|plain|))")
+    return worst
+
+
+def phase_pdryrun(card, sweep=None):
+    """Phase 27: gemma3-1b's partitioned train step and serving on (data 1,
+    model 8), whose 4 query heads the model axis does not divide, against
+    the whole model (``pdryrun_train``; ``pgrid_serve`` on grid "m8"), then
+    each step counted on the card against ``launch.dryrun.trace_step``'s
+    meta trace (``pdryrun_meta``, started by ``dryrun_sweep_start``, here
+    unless ``sweep`` was).  Returns (the launches of the partitioned
+    generate, the phase's record)."""
+    t0 = time.perf_counter()
+    own = sweep is None
+    sweep = sweep or dryrun_sweep_start()
+    try:
+        meta = pdryrun_collect(sweep)
+    finally:
+        if own:
+            stop_sweep(sweep)
+    err = pdryrun_slot_checks(torch.Generator(device="cuda").manual_seed(27))
+    torch.cuda.empty_cache()
+    train = pdryrun_train(card, meta)
+    B, P, L = PDRY_SERVE
+    counts, served = pgrid_serve("gemma3-1b", PDRY_GRID, B, P, L, card)
+    counted = pdryrun_serve_counted(card, meta)
+    seconds = time.perf_counter() - t0
+    print(f"[pdryrun] phase 27: {seconds:.1f} s on {card}; launches over the partitioned "
+          f"generate {counts}, flash_attention by route {served['flash_routes']}")
+    return counts, {"train": train, "serve": served, "counted": counted, "meta": meta,
+                    "per_slot_max_abs_err": err, "seconds": seconds}
+
+
 class phase_clock:
     """Prints ``[phase] <n> <name> <seconds> s`` for each phase of the
     script, its wall seconds from start to end.  ``with clock(n, name):``
@@ -9005,6 +9378,13 @@ def main() -> int:
     with clock(26, "pgrid"):
         pgrid_counts, pgrid_rec = phase_pgrid(smi, gen)
     torch.cuda.empty_cache()
+
+    # the partitioned dry run held against the card, and attention whose query
+    # heads model does not divide (slice 23): counts reset just before the
+    # partitioned generate
+    with clock(27, "pdryrun"):
+        pdry_counts, pdry_rec = phase_pdryrun(smi, sweep)
+    torch.cuda.empty_cache()
     print(f"[done] {time.perf_counter() - t0:.1f} s after the card check")
 
     cost_of = {"cold_fuse": cf_mod.cost, "decode_accum": da_mod.cost, "row_sketch": sk_mod.cost,
@@ -9056,6 +9436,7 @@ def main() -> int:
         rec["launches_partitioned_whisper"] = pw_counts[rec["name"]]
         rec["launches_context_parallel_whisper"] = cpw_counts[rec["name"]]
         rec["launches_pgrid"] = pgrid_counts[rec["name"]]
+        rec["launches_pdryrun"] = pdry_counts[rec["name"]]
     for rec in (flash, rwkv):
         rec["per_slot_max_abs_err"] = pserve_rec["per_slot_max_abs_err"][rec["name"]]
     flash["per_slot_max_abs_err"] = max(flash["per_slot_max_abs_err"],
@@ -9065,7 +9446,8 @@ def main() -> int:
                                         cpt_rec["per_slot_max_abs_err"],
                                         pw_rec["per_slot_max_abs_err"],
                                         cpw_rec["per_slot_max_abs_err"],
-                                        pgrid_rec["per_slot_max_abs_err"])
+                                        pgrid_rec["per_slot_max_abs_err"],
+                                        pdry_rec["per_slot_max_abs_err"])
     # the context-parallel decode's two entries of flash_decode.cu: their
     # [time] lines, and their launches on phase 22's generates
     flash["routes"] += (cp_rec["routes"] + pw_rec["routes"] + cpw_rec["routes"]
@@ -9074,6 +9456,7 @@ def main() -> int:
     flash["launches_by_route_partitioned_whisper"] = pw_rec["serve"]["flash_routes"]
     flash["launches_by_route_context_parallel_whisper"] = cpw_rec["serve"]["flash_routes"]
     flash["launches_by_route_pgrid"] = pgrid_rec["flash_routes"]
+    flash["launches_by_route_pdryrun"] = pdry_rec["serve"]["flash_routes"]
     cp_entries = []
     for line in cp_rec["routes"][:2]:
         cp_entries.append({
@@ -9107,6 +9490,7 @@ def main() -> int:
     print(json.dumps({"partitioned_whisper": dict(pw_rec, launches=pw_counts)}))
     print(json.dumps({"context_parallel_whisper": dict(cpw_rec, launches=cpw_counts)}))
     print(json.dumps({"pgrid": dict(pgrid_rec, launches=pgrid_counts)}))
+    print(json.dumps({"pdryrun": dict(pdry_rec, launches=pdry_counts)}))
     print(json.dumps({"archs": arch_table}))
     print(json.dumps({"archs2": arch2_table}))
     fuse_kernels[0]["at_gemma3_1b"] = fuse_at_gemma

@@ -136,7 +136,7 @@ def count_collective(name: str, nbytes: int = 0, axes: Sequence = ()) -> None:
         for a in axes:
             a = axis_key(a)
             collectives_by_axis[a] = collectives_by_axis.get(a, 0) + 1
-    op_counts.count_collective(name, int(nbytes))
+    op_counts.count_collective(name, int(nbytes), [axis_key(a) for a in axes])
 
 
 def _nbytes(t: torch.Tensor) -> int:
@@ -341,6 +341,7 @@ def _spread(total: torch.Tensor, group, devices, out, share: bool) -> None:
         copies[dev] = out[s] = t
 
 
+@op_counts.collective_ops
 def _reduce(parts, mesh: Mesh, axis: Axis, share: bool, *, count: bool = True):
     devices = list(mesh.devices.flat)
     out = [None] * len(parts)
@@ -356,6 +357,7 @@ def _reduce(parts, mesh: Mesh, axis: Axis, share: bool, *, count: bool = True):
     return out
 
 
+@op_counts.collective_ops
 def _gather(parts, mesh: Mesh, axis: Axis, dim: int, share: bool = False):
     """With ``share`` the slots of a group on one device share one copy."""
     devices = list(mesh.devices.flat)
@@ -374,6 +376,7 @@ def _gather(parts, mesh: Mesh, axis: Axis, dim: int, share: bool = False):
     return out
 
 
+@op_counts.collective_ops
 def _scatter(parts, mesh: Mesh, axis: Axis, dim: int):
     devices = list(mesh.devices.flat)
     out = [None] * len(parts)
@@ -489,6 +492,7 @@ def axis_reduce_scatter(parts: Sequence[torch.Tensor], mesh: Mesh, axis: Axis,
     return _scatter(list(parts), mesh, axis, dim)
 
 
+@op_counts.collective_ops
 def axis_all_reduce_max(parts: Sequence[torch.Tensor], mesh: Mesh, axis: Axis
                         ) -> List[torch.Tensor]:
     """The elementwise maximum over each group of ``axis`` on every slot,
@@ -508,6 +512,7 @@ def axis_all_reduce_max(parts: Sequence[torch.Tensor], mesh: Mesh, axis: Axis
     return out
 
 
+@op_counts.collective_ops
 def _permute(xs, devices, axis: Axis) -> List[torch.Tensor]:
     """Each of ``xs`` copied to its device in ``devices``: one
     ``"permute"`` over ``axis``, of their bytes."""
@@ -548,6 +553,7 @@ def axis_send(parts: Sequence[Optional[torch.Tensor]], mesh: Mesh, axis: Axis, s
     return out
 
 
+@op_counts.collective_ops
 def axis_broadcast(parts: Sequence[Optional[torch.Tensor]], mesh: Mesh, axis: Axis, src: int
                    ) -> List[torch.Tensor]:
     """Each group's slot ``src`` along ``axis`` gives its operand to every

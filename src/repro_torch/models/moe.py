@@ -116,7 +116,9 @@ class Plan(NamedTuple):
 
 def pair_counts(topk_idx: torch.Tensor, E: int) -> torch.Tensor:
     """[E]: the (token, k) pairs a block queues on each expert."""
-    return torch.bincount(topk_idx.reshape(-1), minlength=E)
+    idx = topk_idx.reshape(-1).long()   # a scatter, not bincount: the meta device has no bincount
+    return torch.zeros(E, dtype=torch.long, device=idx.device).scatter_add_(
+        0, idx, torch.ones_like(idx))
 
 
 def plan(cfg: ArchConfig, probs, topk_idx, topk_w, *, tokens: Optional[int] = None,

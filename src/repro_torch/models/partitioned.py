@@ -34,7 +34,13 @@ parallelism, and the vocab-parallel loss over one slot.
   KV heads are split where ``Hkv % M == 0``, else the ``wk``/``wv`` blocks
   are all-gathered over ``model`` (or, where the spec keeps them whole,
   their gradient is all-reduced), and each slot attends with its own query
-  heads; ``wo`` is row-parallel with one all-reduce.  The GLU and MLP are
+  heads; ``wo`` is row-parallel with one all-reduce.  Where the spec splits
+  ``wq``'s columns but M does not divide the query heads (gemma3-1b's 4 on
+  16, whisper-tiny's 6), ``wq``'s column blocks are all-gathered over
+  ``model`` too (their backward reduce-scatters), every slot attends with
+  all ``Hq`` heads (the attention replicated, as the reference's GSPMD
+  program runs it) and keeps its column block of the output for its rows
+  of ``wo``.  The GLU and MLP are
   column-parallel, then row-parallel with one all-reduce.  A layer whose
   spec does not split it over ``model`` runs whole on every slot.
 * The replicated input of each column-parallel product passes
@@ -271,6 +277,7 @@ from repro_torch.models import moe as MOE
 from repro_torch.models import rwkv as R
 from repro_torch.models import transformer as T
 from repro_torch.train.losses import lm_loss_vocab_parallel
+from repro_torch.utils import op_counts as _oc
 from repro_torch.utils.flat import dtype_of
 from repro_torch.utils.placed import Layout, spec_axes
 
@@ -437,7 +444,8 @@ class _Slab:
                 if axes != batch:
                     raise NotImplementedError(f"{name}: dim {d} split over {axes}, the batch "
                                               f"axes are {batch}")
-                parts = M.axis_all_gather(parts, self.mesh, self.dp, d)
+                with _oc.operand_split():
+                    parts = M.axis_all_gather(parts, self.mesh, self.dp, d)
         return parts
 
     def norm(self, prefix: str, rep, x: List[torch.Tensor]) -> List[torch.Tensor]:
@@ -475,6 +483,16 @@ def _kv_heads(sl: _Slab, s: int, hq: int, k: torch.Tensor, v: torch.Tensor):
     return k.index_select(2, idx), v.index_select(2, idx)
 
 
+def _each(n: int, fn) -> list:
+    """``[fn(s) for s in range(n)]``, each call's kernel work booked to its
+    slot (``utils.op_counts.at_slot``: a dry run's busiest slot)."""
+    out = []
+    for s in range(n):
+        with _oc.at_slot(s):
+            out.append(fn(s))
+    return out
+
+
 def _kv_weights(sl: _Slab, pre: str, rep, split: bool, kv_split: bool):
     """Each slot's ``wk`` and ``wv``: its column blocks where the KV heads
     split over ``model``; all-gathered over ``model`` where they do not but
@@ -493,8 +511,12 @@ def _kv_weights(sl: _Slab, pre: str, rep, split: bool, kv_split: bool):
 
 
 def _heads(sl: _Slab, pre: str, rep, differentiable: bool):
-    """``(split, kv_split, hq, hkv)``: whether the query heads (and the KV
-    heads) split over ``model``, and a slot's counts of each."""
+    """``(split, kv_split, hq, hkv, q_whole)``: whether the spec splits the
+    query heads' columns (and the KV heads) over ``model``, a slot's counts
+    of each, and whether every slot runs all ``Hq`` query heads: the spec
+    splits ``wq``'s columns but M does not divide the heads, so ``wq`` is
+    all-gathered over ``model`` and the attention replicated on every slot
+    (the reference's GSPMD program for such a layout)."""
     cfg, stacked = sl.cfg, rep is not None
     Hq, Hkv = cfg.num_heads, cfg.num_kv_heads
     split = sl.split_over_model(f"{pre}/wq", -1, stacked)
@@ -503,11 +525,13 @@ def _heads(sl: _Slab, pre: str, rep, differentiable: bool):
             if sl.split_over_model(f"{pre}/{k}", -1 if k != "wo" else 0, stacked):
                 refuse(cfg, f"attention with {k} split over model and wq whole",
                        serving=not differentiable)
-    elif Hq % sl.M:
-        refuse(cfg, f"attention: {Hq} query heads do not split over model = {sl.M}",
+    q_whole = split and Hq % sl.M != 0
+    if q_whole and not sl.split_over_model(f"{pre}/wo", 0, stacked):
+        refuse(cfg, "attention with wq's columns split over model and wo's rows whole",
                serving=not differentiable)
     kv_split = split and Hkv % sl.M == 0
-    return split, kv_split, Hq // sl.M if split else Hq, Hkv // sl.M if kv_split else Hkv
+    hq = Hq // sl.M if split and not q_whole else Hq
+    return split, kv_split, hq, Hkv // sl.M if kv_split else Hkv, q_whole
 
 
 def _attention(sl: _Slab, pre: str, rep, blk, h, angles, *, cache=None, cache_index=None,
@@ -522,9 +546,11 @@ def _attention(sl: _Slab, pre: str, rep, blk, h, angles, *, cache=None, cache_in
     layout's), which tells a block split over the batch axis."""
     cfg, mesh, mp = sl.cfg, sl.mesh, sl.mp
     hd = cfg.head_dim
-    split, kv_split, hq, hkv = _heads(sl, pre, rep, differentiable)
+    split, kv_split, hq, hkv, q_whole = _heads(sl, pre, rep, differentiable)
     primed = cache is not None and cache_index is None
     wq, wo = sl.weight(f"{pre}/wq", rep), sl.weight(f"{pre}/wo", rep)
+    if q_whole:  # every query head on every slot: wq's column blocks gathered
+        wq = M.axis_all_gather(wq, mesh, mp, wq[0].dim() - 1)
     kv = None if primed else _kv_weights(sl, pre, rep, split, kv_split)
     if split:
         h = M.axis_sum_grads(h, mesh, mp)
@@ -547,7 +573,7 @@ def _attention(sl: _Slab, pre: str, rep, blk, h, angles, *, cache=None, cache_in
                 k = L.apply_rope(k, ang)
             ks.append(k)
             vs.append((y @ kv["wv"][s]).reshape(B, y.shape[1], hkv, hd))
-    select = split and not kv_split
+    select = split and not kv_split and not q_whole
     if sl.seq is not None and primed:
         attn = _cross_cp(sl, blk, qs, hq, hkv, select, cache, cache_len)
     elif sl.seq is not None and not causal:  # the encoder's, or a cross-attention over it
@@ -563,7 +589,13 @@ def _attention(sl: _Slab, pre: str, rep, blk, h, angles, *, cache=None, cache_in
     else:
         attn = _attention_rows(sl, blk, qs, ks, vs, hq, hkv, select, cache, cache_index,
                                differentiable, causal)
-    outs = [a.reshape(a.shape[0], a.shape[1], hq * hd) @ wo[s] for s, a in enumerate(attn)]
+    outs = []
+    for s, a in enumerate(attn):
+        a = a.reshape(a.shape[0], a.shape[1], hq * hd)
+        if q_whole:  # the slot's column block of the output, for its rows of wo
+            width = wo[s].shape[0]
+            a = a.narrow(2, mesh.coord(s, mp) * width, width)
+        outs.append(a @ wo[s])
     if split:
         outs = M.axis_all_reduce(outs, mesh, mp)
     return [o.to(x.dtype) for o, x in zip(outs, h)]
@@ -589,18 +621,18 @@ def _attention_rows(sl: _Slab, blk, qs, ks, vs, hq: int, hkv: int, select: bool,
         # where the cache's spec splits the heads or head_dim off the slot's
         ks = sl.whole_over_model(sl.whole_over_model(ck, 3, hd), 2, hkv)
         vs = sl.whole_over_model(sl.whole_over_model(cv, 3, hd), 2, hkv)
-    outs = []
-    for s in range(sl.n):
+
+    def one(s):
         q, k, v = qs[s], ks[s], vs[s]
         if select:
             k, v = _kv_heads(sl, s, hq, k, v)
         if differentiable:
-            outs.append(L._sdpa(q, k, v, causal=causal, window=blk.window))
-        else:
-            outs.append(L.kernel_attention(q, k, v, causal=causal, window=blk.window,
-                                           q_offset=0 if cache_index is None
-                                           else int(cache_index), ring=ring))
-    return outs
+            return L._sdpa(q, k, v, causal=causal, window=blk.window)
+        return L.kernel_attention(q, k, v, causal=causal, window=blk.window,
+                                  q_offset=0 if cache_index is None else int(cache_index),
+                                  ring=ring)
+
+    return _each(sl.n, one)
 
 
 def _write_kv(sl: _Slab, s: int, ck, cv, k, v, dst: slice, src: slice) -> None:
@@ -665,16 +697,18 @@ def _cross_cp(sl: _Slab, blk, qs, hq: int, hkv: int, select: bool, cache,
     rows = M.axis_all_gather(qs, mesh, dp, 1) if chunks else qs
     kb = sl.whole_over_model(sl.whole_over_model(ck, 3, hd), 2, hkv)
     vb = sl.whole_over_model(sl.whole_over_model(cv, 3, hd), 2, hkv)
-    parts = []
-    for s in range(sl.n):
+
+    def part(s):
         k, v = _kv_heads(sl, s, hq, kb[s], vb[s]) if select else (kb[s], vb[s])
-        parts.append(_partials(rows[s], k, v, causal=False))
-    parts = M.axis_all_gather(parts, mesh, dp, 2)
-    outs = []
-    for s in range(sl.n):
+        return _partials(rows[s], k, v, causal=False)
+
+    parts = M.axis_all_gather(_each(sl.n, part), mesh, dp, 2)
+
+    def merged(s):
         o = ops.attention_merge(parts[s], rows[s].shape[1], qs[s].dtype)
-        outs.append(o[:, mesh.coord(s, dp) * S:(mesh.coord(s, dp) + 1) * S] if chunks else o)
-    return outs
+        return o[:, mesh.coord(s, dp) * S:(mesh.coord(s, dp) + 1) * S] if chunks else o
+
+    return _each(sl.n, merged)
 
 
 def _attention_cp_train(sl: _Slab, blk, qs, ks, vs, hq: int, select: bool):
@@ -730,10 +764,10 @@ def _attention_cp(sl: _Slab, blk, qs, ks, vs, hq: int, hkv: int, select: bool, c
         kb = sl.whole_over_model(sl.whole_over_model(ck, 3, hd), 2, hkv)
         vb = sl.whole_over_model(sl.whole_over_model(cv, 3, hd), 2, hkv)
         parts = M.axis_all_gather(
-            [_partials(qs[s], *heads(s, kb[s], vb[s]), causal=True, window=window,
-                       q_offset=q_off) for s, (_, q_off, window) in enumerate(places)],
+            _each(sl.n, lambda s: _partials(qs[s], *heads(s, kb[s], vb[s]), causal=True,
+                                            window=places[s][2], q_offset=places[s][1])),
             mesh, dp, 2)
-        return [ops.attention_merge(parts[s], S, qs[s].dtype) for s in range(sl.n)]
+        return _each(sl.n, lambda s: ops.attention_merge(parts[s], S, qs[s].dtype))
 
     # a prompt at position 0: every position's k/v on every slot
     if chunks:
@@ -749,9 +783,9 @@ def _attention_cp(sl: _Slab, blk, qs, ks, vs, hq: int, hkv: int, select: bool, c
             if count:
                 _write_kv(sl, s, ck, cv, ks[s], vs[s], slice(dst, dst + count),
                           slice(src, src + count))
-    return [L.kernel_attention(qs[s], *heads(s, ks[s], vs[s]), causal=True, window=blk.window,
-                               q_offset=mesh.coord(s, dp) * S if chunks else 0)
-            for s in range(sl.n)]
+    return _each(sl.n, lambda s: L.kernel_attention(
+        qs[s], *heads(s, ks[s], vs[s]), causal=True, window=blk.window,
+        q_offset=mesh.coord(s, dp) * S if chunks else 0))
 
 
 def _ffn(sl: _Slab, pre: str, rep, kind: str, h, *, serving: bool = False):
@@ -939,8 +973,9 @@ def _time_mix(sl: _Slab, pre: str, rep, h, *, cache=None, differentiable: bool =
                                        "ln_bias")}
             p["lora_mix"] = {"a": ws["lora_mix/a"][s], "b": ws["lora_mix/b"][s]}
             p["lora_w"] = {"a": ws["lora_w/a"][s], "b": ws["lora_w/b"][s]}
-            yg, finals[s] = R.time_mix_heads(cfg, p, h[s], R._token_shift(h[s], prev[s]),
-                                             s0=starts[s], differentiable=differentiable)
+            with _oc.at_slot(s):
+                yg, finals[s] = R.time_mix_heads(cfg, p, h[s], R._token_shift(h[s], prev[s]),
+                                                 s0=starts[s], differentiable=differentiable)
             outs[s] = yg @ ws["wo"][s]
         _chain(sl, r, finals, starts)
     if cache is not None:  # after every slot has read its state: replicated blocks are shared
@@ -1010,7 +1045,8 @@ def _mamba(sl: _Slab, pre: str, rep, h, *, cache=None, differentiable: bool = Fa
     for r, slots in enumerate(_chunk_order(sl)):
         for s in slots:
             dA, dBx, Cmat = MB._ssm_inputs(cfg, ps[s], xcs[s], proj=proj[s])
-            ys, finals[s] = MB.selective_scan(dA, dBx, Cmat, starts[s])
+            with _oc.at_slot(s):
+                ys, finals[s] = MB.selective_scan(dA, dBx, Cmat, starts[s])
             outs[s] = MB.gated(ps[s], ys, xcs[s], zs[s]) @ ws["out_proj"][s]
         _chain(sl, r, finals, starts)
     if cache is not None:  # the slots' blocks of the state, in place, once all are read
@@ -1099,13 +1135,14 @@ def _slot_angles(sl: _Slab, tokens, positions, cache_index):
     replica's ``positions`` (by default 0..S-1, offset by ``cache_index``
     and, where the batch axis splits the sequence, by the chunk's start;
     given positions, every slot's whole, are then sliced to the chunk),
-    computed once per replica (or chunk) and device."""
+    computed once per replica (or chunk) and device; on the meta device (a
+    dry run) once per slot, as each card of a grid computes its own."""
     done, out = {}, []
     for s in range(sl.n):
         B, S = tokens[s].shape
         dev = tokens[s].device
         r = 0 if sl.seq == "whole" else sl.mesh.coord(s, sl.dp)
-        key = (r, dev)
+        key = (r, s if dev.type == "meta" else dev)
         if key not in done:
             first = _chunk_start(sl, s, S)
             pos = None if positions is None else positions[s]
@@ -1146,7 +1183,8 @@ def partitioned_forward(cfg: ArchConfig, grid, live: Dict[str, List[torch.Tensor
     where ``vocab_axis`` is ``model`` (else [B_r, S, V]), ``aux[s]`` the MoE
     layers' load-balance losses of the whole batch summed (0 without MoE
     layers, and when serving).  ``live[name][s]`` is slot ``s``'s tensor of
-    leaf ``name``, ``layouts[name]`` its layout; ``positions[s]`` and
+    leaf ``name`` (a stacked layer leaf's may be the list of its layers'),
+    ``layouts[name]`` its layout; ``positions[s]`` and
     ``extra_embeds[s]``, where given, the replica's rows of those inputs.
 
     ``differentiable=True`` is the train step's forward (``_sdpa`` and the
@@ -1343,7 +1381,7 @@ def partitioned_prime(cfg: ArchConfig, grid, live: Dict[str, List[torch.Tensor]]
     hd = cfg.head_dim
     for i in range(cfg.num_layers):
         pre = f"dec/layers/layer{i}/xattn"
-        split, kv_split, _, hkv = _heads(sl, pre, None, False)
+        split, kv_split, _, hkv, _ = _heads(sl, pre, None, False)
         kv = _kv_weights(sl, pre, None, split, kv_split)
         xk, xv = cache[f"layer{i}/xk"], cache[f"layer{i}/xv"]
         for s in range(sl.n):

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from repro_torch.launch import mesh as M
+from repro_torch.utils import op_counts as _oc
 from repro_torch.utils.placed import Layout, Placed
 from repro_torch.utils.pytree import (tree_from_paths, tree_leaves, tree_leaves_with_path,
                                       tree_map)
@@ -278,7 +279,8 @@ def adafactor(schedule: Schedule, decay: float = 0.8, eps: float = 1e-30,
                 whole = torch.empty(shape, device=dev)
                 for sl, gf in parts.values():
                     whole[sl] = (torch.square(gf) + eps).to(dev)
-                _count_over(g, "all_gather", whole.numel() * 4)
+                with _oc.operand_split():   # the whole g², k - 1 of its k blocks a slot
+                    _count_over(g, "all_gather", whole.numel() * 4)
                 v = keep * _stat(s["v"]) + mix * whole
                 new_s = {"v": _with_stat(s["v"], v)}
 

@@ -217,7 +217,6 @@ def make_train_step(cfg: ArchConfig, optimizer: Optimizer, *, microbatches: int 
         params = state["params"]
         named, layouts, grid = _params_grid(params, data_axis, model_axis)
         mesh, dp, R = grid.mesh, grid.dp, grid.R
-        n = mesh.devices.size
         seq = PT.seq_layout(*batch["tokens"].shape, R)
         PT.check_partitionable(cfg, list(batch))
         if grad_shardings is not None:
@@ -237,60 +236,68 @@ def make_train_step(cfg: ArchConfig, optimizer: Optimizer, *, microbatches: int 
         share = 1.0 / R if seq == "whole" else 1.0
         acc: Dict[str, list] = {}
         loss_sum = aux_sum = None
-        for i in range(microbatches):
-            if seq is None:
-                part = _microbatch_rows(rows, mesh, dp, i, microbatches)
-            else:
-                part = {k: [p.narrow(_batch_axis(k, p), i * mb, mb) for p in parts]
-                        for k, parts in rows.items()}
-            denominator = _pairs(part, mesh, dp, seq)
-            with torch.enable_grad():
-                live = {k: [b.detach().requires_grad_(True) for b in x.slot_blocks()]
-                        for k, x in named}
-                losses, auxes = PT.partitioned_loss(
-                    cfg, grid, live, layouts, part["tokens"], part.get("mask"), denominator,
-                    positions=part.get("positions"), extra_embeds=part.get("extra_embeds"),
-                    seq=seq, frames=part.get("frames"))
-                objective = [l + aux_w * share * a for l, a in zip(losses, auxes)]
-                flat = [t for k, _ in named for t in live[k]]
-                grads = torch.autograd.grad(objective, flat,
-                                            [torch.ones_like(x) for x in objective],
-                                            allow_unused=True)
-            del live
-            for j, (k, _) in enumerate(named):
-                got = [g if g is not None else torch.zeros_like(t) for t, g in
-                       zip(flat[j * n:(j + 1) * n], grads[j * n:(j + 1) * n])]
-                if microbatches == 1:
-                    acc[k] = got
-                elif k not in acc:
-                    acc[k] = [g.float() for g in got]
+        # on the meta device (a dry run) every microbatch dispatches the same
+        # ops: trace one, counted as run ``microbatches`` times
+        runs = 1 if mesh.devices.flat[0].type == "meta" else microbatches
+        with _oc.trips(microbatches // runs):
+            for i in range(runs):
+                if seq is None:
+                    part = _microbatch_rows(rows, mesh, dp, i, microbatches)
                 else:
-                    for a, g in zip(acc[k], got):
-                        a.add_(g)
-            del flat, grads, got, objective  # the slots' gradients live on in acc alone
-            step_loss = [x.detach() for x in losses]
-            loss_sum = (step_loss if loss_sum is None
-                        else [a + b for a, b in zip(loss_sum, step_loss)])
-            aux_sum = auxes[0].detach() if aux_sum is None else aux_sum + auxes[0].detach()
-        reduced = []
-        for k, x in named:
-            g = acc.pop(k)
-            if not x.layout.splits_over(dp):
-                g = M.axis_all_reduce(g, mesh, dp)
-            blocks = [g[s] for s in x.layout.first_slot]
-            del g
-            reduced.append(x.with_blocks([b / microbatches for b in blocks]
-                                         if microbatches > 1 else blocks))
-        grads = tree_unflatten(params, reduced)
-        del reduced
-        loss = M.axis_all_reduce(loss_sum, mesh, dp)[0] / microbatches
-        aux = (aux_sum / microbatches).to(loss.device)
-        if grad_sync is not None:
-            grads = grad_sync(grads)
-        grads, gnorm = clip_by_global_norm(grads, clip_norm,
-                                           [a for a in (grid.dp, grid.model) if a is not None])
-        updates, new_opt = optimizer.update(grads, state["opt"], params)
-        new_params = tree_map(torch.add, params, updates)
+                    part = {k: [p.narrow(_batch_axis(k, p), i * mb, mb) for p in parts]
+                            for k, parts in rows.items()}
+                denominator = _pairs(part, mesh, dp, seq)
+                with torch.enable_grad():
+                    live = {k: [_leaf_of(k, b) for b in x.slot_blocks()] for k, x in named}
+                    losses, auxes = PT.partitioned_loss(
+                        cfg, grid, live, layouts, part["tokens"], part.get("mask"), denominator,
+                        positions=part.get("positions"), extra_embeds=part.get("extra_embeds"),
+                        seq=seq, frames=part.get("frames"))
+                    objective = [l + aux_w * share * a for l, a in zip(losses, auxes)]
+                    flat = [t for k, _ in named for b in live[k]
+                            for t in (b if isinstance(b, list) else [b])]
+                    grads = torch.autograd.grad(objective, flat,
+                                                [torch.ones_like(x) for x in objective],
+                                                allow_unused=True)
+                with _oc.section("blocks"):   # each slot's work on its parameter blocks
+                    # consumed from the end, so that each gradient goes once it is stored
+                    pieces = list(zip(flat, grads))[::-1]
+                    del grads
+                    for k, _ in named:
+                        got = [_block_grad(b, pieces) for b in live[k]]
+                        if microbatches == 1:
+                            acc[k] = got
+                        elif k not in acc:
+                            acc[k] = [g.float() for g in got]
+                        else:
+                            for a, g in zip(acc[k], got):
+                                a.add_(g)
+                del live, flat, got, objective  # the slots' gradients live on in acc alone
+                step_loss = [x.detach() for x in losses]
+                loss_sum = (step_loss if loss_sum is None
+                            else [a + b for a, b in zip(loss_sum, step_loss)])
+                aux_sum = auxes[0].detach() if aux_sum is None else aux_sum + auxes[0].detach()
+        # the tail touches each stored block once (one a block and device)
+        with _oc.section("tail"):
+            reduced = []
+            for k, x in named:
+                g = acc.pop(k)
+                if not x.layout.splits_over(dp):
+                    g = M.axis_all_reduce(g, mesh, dp)
+                blocks = [g[s] for s in x.layout.first_slot]
+                del g
+                reduced.append(x.with_blocks([b / microbatches for b in blocks]
+                                             if microbatches > 1 else blocks))
+            grads = tree_unflatten(params, reduced)
+            del reduced
+            loss = M.axis_all_reduce(loss_sum, mesh, dp)[0] / microbatches
+            aux = (aux_sum / microbatches).to(loss.device)
+            if grad_sync is not None:
+                grads = grad_sync(grads)
+            grads, gnorm = clip_by_global_norm(grads, clip_norm,
+                                               [a for a in (grid.dp, grid.model) if a is not None])
+            updates, new_opt = optimizer.update(grads, state["opt"], params)
+            new_params = tree_map(torch.add, params, updates)
         metrics = {"loss": loss, "aux": aux, "grad_norm": gnorm}
         return {"params": new_params, "opt": new_opt}, metrics
 
@@ -336,6 +343,27 @@ def make_train_step(cfg: ArchConfig, optimizer: Optimizer, *, microbatches: int 
                                                         "grad_norm": gnorm}
 
     return train_step
+
+
+def _leaf_of(name: str, block: torch.Tensor):
+    """A slot's block of param ``name`` as the leaf (or leaves) the
+    partitioned forward differentiates: a stacked layer leaf (``scan/``) as
+    one leaf a layer, so that each layer's gradient is its slice alone (no
+    layer's backward writes a whole stacked block of zeros)."""
+    if name.startswith("scan/"):
+        return [p.detach().requires_grad_(True) for p in block.unbind(0)]
+    return block.detach().requires_grad_(True)
+
+
+def _block_grad(leaf, pieces: list) -> torch.Tensor:
+    """The gradient of a slot's block, popped from the end of ``pieces``
+    (``(leaf, grad)`` pairs in ``_leaf_of``'s order, reversed): zeros where
+    a leaf took none, a stacked leaf's layers stacked."""
+    parts = []
+    for _ in (leaf if isinstance(leaf, list) else [leaf]):
+        t, g = pieces.pop()
+        parts.append(g if g is not None else torch.zeros_like(t))
+    return torch.stack(parts) if isinstance(leaf, list) else parts[0]
 
 
 def _placed_grid(tree, what: str):

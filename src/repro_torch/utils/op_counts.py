@@ -11,7 +11,9 @@ operations the step dispatches.
   counts (mm, bmm, addmm, baddbmm, convolutions, SDPA; forward and
   backward, ``2·M·N·K`` a product), as ``hlo_flops`` counts its dots;
 * ``op_bytes`` — the operand and result bytes of every aten op: the
-  traffic of the step run eagerly, one kernel an op.  A view moves nothing,
+  traffic of the step run eagerly, one kernel an op, but for the copies
+  and sums by which ``launch.mesh`` carries out a collective in one
+  process (``collective_ops``: their traffic is the collective's bytes).  A view moves nothing,
   a gather moves its result (read and written), a scatter its update, a
   tensor broadcast by a zero stride counts its stored elements.  A fused
   program moves less, so this is an upper bound on what the reference's
@@ -27,10 +29,17 @@ operations the step dispatches.
 * memory: the bytes of tensors saved for the backward
   (``torch.autograd.graph.saved_tensors_hooks``) that the step allocated,
   the largest single allocation, and the peak of the bytes the step holds
-  live (each allocation from its op until its last reference goes);
+  live (each allocation from its op until its storage is freed: its last
+  tensor or view gone);
 * ``collectives`` — the port's collectives as ``launch.mesh`` counts them
   (``count_collective`` reports each call here), as a ``CollectiveStats``
-  in the reference's kind names.
+  in the reference's kind names; ``by_axis`` the same calls by the axis
+  (or tuple of axes) they run over, and whether each operand is a block of
+  something split over that axis (``operand_split``: an FSDP weight's
+  gather), which is how its bytes a slot grow with the axis's extent;
+* ``slot_entries`` — the entries booked inside ``at_slot(s)`` (the
+  partitioned forward runs each slot's kernels there), by slot, so that a
+  trace of every slot on one device tells the busiest slot's work.
 
 ``flops`` and ``hbm_bytes`` add the entries to the dispatcher's counts.
 Only one counter is active at a time; ``ACTIVE`` is it, or None (one
@@ -148,6 +157,10 @@ class _OpMode(TorchDispatchMode):
         out = func(*args, **kwargs)
         c = self.c
         c.ops += 1
+        if c._quiet:   # a collective's own copies: tracked as memory, not as op bytes
+            for o in _tensors(out if isinstance(out, (tuple, list)) else (out,)):
+                c._track(o)
+            return out
         ins = _tensors(args) + _tensors(kwargs.values())
         outs = _tensors(out if isinstance(out, (tuple, list)) else (out,))
         in_storages = {t.untyped_storage()._cdata for t in ins}
@@ -169,6 +182,8 @@ class _OpMode(TorchDispatchMode):
         else:
             nbytes = sum(footprint(t) for t in ins) + sum(footprint(o) for o in outs)
         c.op_bytes += c.mult * nbytes
+        for name in c._sections:
+            c.sections[name] += c.mult * nbytes
         return out
 
 
@@ -186,6 +201,14 @@ class OpCounter:
         self.live_bytes = 0
         self.peak_live_bytes = 0
         self.collectives = CollectiveStats()
+        # (axis key, kind, operand split, the call's axes) -> [calls, bytes]
+        self.by_axis: Dict[Tuple, List[float]] = {}
+        self.slot_entries: Dict[int, Dict[str, float]] = {}
+        self._slot: Optional[int] = None
+        self._split = False
+        self._quiet = 0
+        self.sections: Dict[str, float] = {}   # name -> the op bytes counted inside section(name)
+        self._sections: List[str] = []
         self._fc: Optional[FlopCounterMode] = None
         self._fc_extra = 0.0
         self._live: Dict[int, int] = {}     # storage id -> bytes, of the step's allocations
@@ -230,12 +253,23 @@ class OpCounter:
         e["calls"] += self.mult * calls
         e["flops"] += self.mult * flops
         e["bytes"] += self.mult * nbytes
+        if self._slot is not None:
+            t = self.slot_entries.setdefault(self._slot, {"flops": 0.0, "bytes": 0.0})
+            t["flops"] += self.mult * flops
+            t["bytes"] += self.mult * nbytes
 
-    def collective(self, name: str, nbytes: int) -> None:
+    def collective(self, name: str, nbytes: int, axes: Sequence = ()) -> None:
         kind = _KIND_OF.get(name, name)
         st = self.collectives
         st.bytes_by_kind[kind] = st.bytes_by_kind.get(kind, 0) + self.mult * int(nbytes)
         st.count_by_kind[kind] = st.count_by_kind.get(kind, 0) + self.mult
+        # a call over several axes (one group over their product: the
+        # global norm's) counts under each, its bytes shared among them
+        joint = tuple(n for a in axes for n in ((a,) if isinstance(a, str) else a))
+        for a in axes:
+            rec = self.by_axis.setdefault((a, kind, self._split, joint), [0, 0])
+            rec[0] += self.mult
+            rec[1] += self.mult * int(nbytes) / len(axes)
 
     def _track(self, t: torch.Tensor) -> None:
         st = t.untyped_storage()
@@ -246,7 +280,9 @@ class OpCounter:
         self.live_bytes += n
         self.largest_alloc = max(self.largest_alloc, n)
         self.peak_live_bytes = max(self.peak_live_bytes, self.live_bytes)
-        weakref.finalize(t, self._free, key, n)
+        # the storage's own Python object lives exactly as long as the storage
+        # (a view may outlive the tensor that made it)
+        weakref.finalize(st, self._free, key, n)
 
     def _free(self, key: int, n: int) -> None:
         if self._live.pop(key, None) is not None:
@@ -312,10 +348,79 @@ def add(name: str, route: str, flops: float, nbytes: float) -> None:
         c.add(name, route, flops, nbytes)
 
 
-def count_collective(name: str, nbytes: int) -> None:
+def count_collective(name: str, nbytes: int, axes: Sequence = ()) -> None:
     c = ACTIVE
     if c is not None:
-        c.collective(name, nbytes)
+        c.collective(name, nbytes, axes)
+
+
+def collective_ops(fn):
+    """Decorate a function that carries out a collective in one process
+    (``launch.mesh``): the ops it dispatches add no ``op_bytes`` (the
+    collective's bytes are counted as such), their results are tracked as
+    memory all the same."""
+
+    def run(*args, **kwargs):
+        c = ACTIVE
+        if c is None:
+            return fn(*args, **kwargs)
+        c._quiet += 1
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            c._quiet -= 1
+
+    run.__name__, run.__doc__, run.__wrapped__ = fn.__name__, fn.__doc__, fn
+    return run
+
+
+@contextlib.contextmanager
+def section(name: str):
+    """Add the op bytes counted inside to ``sections[name]`` as well (the
+    partitioned train step's work on its parameter blocks, which a dry run
+    scales with the blocks' size; nothing without an active counter)."""
+    c = ACTIVE
+    if c is None:
+        yield
+        return
+    c.sections.setdefault(name, 0.0)
+    c._sections.append(name)
+    try:
+        yield
+    finally:
+        c._sections.pop()
+
+
+@contextlib.contextmanager
+def at_slot(s: int):
+    """Book the entries added inside to slot ``s`` as well (nothing without
+    an active counter)."""
+    c = ACTIVE
+    if c is None:
+        yield
+        return
+    saved, c._slot = c._slot, s
+    try:
+        yield
+    finally:
+        c._slot = saved
+
+
+@contextlib.contextmanager
+def operand_split():
+    """Mark the collectives counted inside as carrying blocks of an operand
+    split over their axis (an FSDP weight gathered where a layer uses it):
+    their bytes a slot are a share (k - 1) / k of the whole, where another
+    gather's grow with the blocks it collects."""
+    c = ACTIVE
+    if c is None:
+        yield
+        return
+    saved, c._split = c._split, True
+    try:
+        yield
+    finally:
+        c._split = saved
 
 
 class _MetaLoop(torch.autograd.Function):

@@ -172,20 +172,28 @@ def _port_slot_bytes():
 
 def test_dryrun_cli_cold_gemma(tmp_path, monkeypatch, capsys):
     """The CLI on gemma3-1b train_4k over cold8x2, on the CPU: the
-    reference's roofline keys, ``"partitioned": false``, the fuse's one
+    reference's roofline keys, ``"partitioned": true`` (one slab's
+    partitioned local step traced on its (replica 2, model 16) grid, 16
+    rows a slot in 16 microbatches; the trace cut to 1 of the 26 layers,
+    whose full depth costs minutes on the meta device), the fuse's one
     all-reduce, and argument bytes a slot as the reference's."""
     monkeypatch.setattr(TD, "ARTIFACT_DIR", TD.ARTIFACT_DIR)
+    real = TD.trace_step
+    monkeypatch.setattr(TD, "trace_step", lambda cfg, *a, **k: real(
+        dataclasses.replace(cfg, num_layers=1, pattern=cfg.pattern[:1]), *a, **k))
     assert TD.main(["--arch", "gemma3-1b", "--shape", "train_4k", "--strategy", "cold",
                     "--cold-mesh", "8x2", "--out", str(tmp_path), "--force"]) == 0
     assert "-> memory" in capsys.readouterr().out
     got = json.load(open(tmp_path / "gemma3-1b__train_4k__cold8x2__cold.json"))
     ref = json.load(open(REF_ARTIFACT))
-    assert got["ok"] and got["partitioned"] is False and got["strategy"] == "cold"
+    assert got["ok"] and got["partitioned"] is True and got["strategy"] == "cold"
     assert set(ref["roofline"]) <= set(got["roofline"])
     assert set(ref["memory_analysis"]) <= set(got["memory_analysis"])
     assert got["mesh_shape"] == ref["mesh_shape"] and got["chips"] == ref["chips"]
     assert got["microbatches"] == ref["microbatches"] == 16
-    assert got["traced"]["batch"] == 16 and got["traced"]["trips"] == 16
+    assert got["traced"]["rows_a_slot"] == 16 and got["traced"]["trips"] == 16
+    assert got["traced"]["grid"] == {"replica": 2, "model": 16} == got["traced"]["slab_grid"]
+    assert set(got["collectives"]["by_axis"]) == {"replica", "model"}
     fuse = got["fuse"]["collectives"]
     assert fuse["count_by_kind"]["all-reduce"] == 1
     n = sum(int(np.prod(s)) for s, _ in _ttree(TS.abstract_params(
@@ -201,23 +209,45 @@ def test_dryrun_cli_cold_gemma(tmp_path, monkeypatch, capsys):
     assert abs(args - want) <= 0.005 * want, (args, want)
 
 
+# each arch's layers in these traces (the whole 26, 72 and 32 cost tens of seconds to
+# minutes on the meta grid): gemma3-1b's first two, jamba's first Mamba layer and its
+# first attention layer (both with the GLU FFN: a MoE layer widens the traced grid to 8
+# data slots, ``test_torch_dryrun_partitioned.py``), rwkv6-7b's first
+LAYERS = {"gemma3-1b": (0, 1), "jamba-1.5-large-398b": (0, 4), "rwkv6-7b": (0,)}
+
+
 @pytest.mark.parametrize("arch,shape,entries", [
-    ("gemma3-1b", "decode_32k", {"flash_attention": {"decode": 26, "decode_combine": 26}}),
-    ("gemma3-1b", "prefill_32k", {"flash_attention": {"prefill_tc": 26}}),
-    ("jamba-1.5-large-398b", "decode_32k", {"flash_attention": {"decode": 9},
-                                            "mamba_scan": {"forward": 63}}),
-    ("rwkv6-7b", "long_500k", {"rwkv6_scan": {"step": 32}}),
+    ("gemma3-1b", "decode_32k", {"flash_attention": {"decode": 2, "decode_combine": 2}}),
+    ("gemma3-1b", "prefill_32k", {"flash_attention": {"prefill_tc": 2}}),
+    ("jamba-1.5-large-398b", "decode_32k", {"flash_attention": {"decode": 1},
+                                            "mamba_scan": {"forward": 1}}),
+    ("rwkv6-7b", "long_500k", {"rwkv6_scan": {"step": 1}}),
 ])
-def test_dryrun_inference_kinds(arch, shape, entries):
-    """A serve and a prefill step traced on the meta device: each kernel
-    booked once a layer on the route the card takes, the Mamba scan by
-    formula, weights and cache whole a slot."""
+def test_dryrun_inference_kinds(arch, shape, entries, monkeypatch):
+    """A serve and a prefill step of the partitioned program traced on the
+    meta grid (``LAYERS``): each kernel booked once a layer and slot on the
+    route the card takes, the Mamba scan by formula; rows a slot the
+    grid's (B / 16 on a sub-grid of 2 data slots; the one long_500k
+    sequence whole on every slot of the full grid traced)."""
+    real = TD.get_config
+
+    def cut(a):
+        cfg = real(a)
+        return dataclasses.replace(cfg, num_layers=len(LAYERS[a]),
+                                   pattern=tuple(cfg.pattern[i] for i in LAYERS[a]))
+
+    monkeypatch.setattr(TD, "get_config", cut)
     res = TD.run_one(arch, shape, "pod1")
-    assert res["ok"] and res["partitioned"] is False
+    assert res["ok"] and res["partitioned"] is True
+    t = res["traced"]
+    B = SHAPES[shape].global_batch
+    assert t["rows_a_slot"] == (B // 16 if B % 16 == 0 else B)
+    assert t["slots"] == (2 * 16 if B % 16 == 0 else 256)
     got = {name: {r: e["calls"] for r, e in by_route.items()}
            for name, by_route in res["counts"]["entries"].items()}
     for name, want in entries.items():
-        assert {r: got[name].get(r) for r in want} == want, (name, got.get(name))
+        per_slot = {r: got[name].get(r, 0) / t["slots"] for r in want}
+        assert per_slot == want, (name, got.get(name))
     r = res["roofline"]
     assert r["flops_per_chip"] > 0 and r["hbm_bytes_per_chip"] > 0
     assert r["roofline_step_s"] == max(r["compute_s"], r["memory_s"], r["collective_s"])

@@ -371,11 +371,9 @@ def _placed_any(params, cfg, mesh):
 
 
 @pytest.mark.parametrize("arch, part, entry", [
-    ("whisper-tiny", "attention: 6 query heads do not split over model = 4", "generate"),
     ("gemma3-1b", "step of 4 positions at cache_index 4 at a batch the batch axis does not "
      "divide (a chunked prefill)", "serve_at"),
     ("gemma3-1b", "batch input 'frames'", "prefill"),
-    ("whisper-tiny", "attention: 6 query heads do not split over model = 4", "serve"),
     ("roberta-base", "encoder (RoBERTa)", "prefill"),
     ("qwen2-vl-72b", "step of 3 positions at cache_index 4 at a batch the batch axis does not "
      "divide (a chunked prefill)", "serve_at"),
@@ -393,44 +391,23 @@ def test_partitioned_serving_refusals(arch, part, entry):
     multi-position step every slot holds whole (qwen2-vl) against a cache
     whose sequence is split over data.  The encoder-decoder serves
     partitioned since ``tests/test_torch_partitioned_whisper.py`` (at any
-    batch since ``tests/test_torch_context_parallel_whisper.py``), but not
-    with 6 query heads on ``model`` 4 (reduced whisper at d 192) in its
-    generate (the encoder first) and its serve step."""
-    six = "query heads" in part
-    mesh = tmesh.make_mesh((1, 4) if six else (2, 2), ("data", "model"), device="cpu")
+    batch since ``tests/test_torch_context_parallel_whisper.py``; with query
+    heads that ``model`` does not divide since
+    ``test_heads_that_model_does_not_divide_serve``)."""
+    mesh = tmesh.make_mesh((2, 2), ("data", "model"), device="cpu")
     gen = torch.Generator().manual_seed(0)
     if arch == "roberta-base":
         cfg = TINY
         params = _placed_any(TE.init_encoder_body(cfg, gen, device="cpu"), cfg, mesh)
     else:
-        cfg = reduce_config(get_config(arch), d_model=192 if six else 128)
-        if arch == "whisper-tiny":
-            from repro_torch.models.whisper import init_whisper
-            if six:
-                cfg = dataclasses.replace(cfg, num_heads=6, num_kv_heads=6, head_dim=32)
-            params = _placed_any(init_whisper(cfg, gen, device="cpu"), cfg, mesh)
-        else:
-            params = _placed_any(TT.init_lm(cfg, gen, device="cpu"), cfg, mesh)
+        cfg = reduce_config(get_config(arch))
+        params = _placed_any(TT.init_lm(cfg, gen, device="cpu"), cfg, mesh)
     rows = 3 if entry == "serve_at" else 4
     toks = np.random.default_rng(0).integers(3, cfg.vocab_size, (rows, 5))
     match = (f"partitioned serving steps does not run {cfg.name}'s "
              + part.replace("(", r"\(").replace(")", r"\)"))
     with pytest.raises(NotImplementedError, match=match):
-        if entry == "generate" and cfg.is_encoder_decoder:
-            # whisper's greedy generate (``Engine`` drives decoder-only archs):
-            # encode and prime, the prompt through the serve step, then a token a step
-            from repro_torch.models import whisper as TW
-            cache = TW.init_whisper_cache(cfg, rows, 16, device="cpu")
-            cache = tsh.device_put(cache, tsh.cache_shardings(mesh, cache, cfg))
-            frames = torch.zeros((rows, cfg.encoder_seq, cfg.d_model))
-            cache = TW.prime_cross_cache(cfg, params, cache,
-                                         TW.whisper_encode(cfg, params, frames))
-            step = make_serve_step(cfg)
-            logits, cache = step(params, cache, toks, 0)
-            step(params, cache, torch.argmax(logits, -1)[:, None], toks.shape[1])
-        elif entry == "generate":
-            Engine(cfg, params, max_len=16).generate(toks, max_new_tokens=2)
-        elif entry.startswith("prefill"):
+        if entry == "prefill":
             batch = {"tokens": toks}
             if "frames" in part:
                 batch["frames"] = np.zeros((rows, 8, cfg.d_model), np.float32)
@@ -438,8 +415,47 @@ def test_partitioned_serving_refusals(arch, part, entry):
         elif entry == "serve_at":
             _, cache = Engine(cfg, params, max_len=16)._start(params, toks)
             make_serve_step(cfg)(params, cache, toks[:, :int(part.split()[2])], 4)
-        else:
-            from repro_torch.models.whisper import init_whisper_cache
-            cache = init_whisper_cache(cfg, rows, 16, device="cpu")
+
+
+@pytest.mark.parametrize("entry", ["generate", "serve"])
+def test_heads_that_model_does_not_divide_serve(entry):
+    """Reduced whisper at 6 query heads (d 192) on (data 1, model 4), where
+    ``model`` splits ``wq``'s columns but not the heads, serves partitioned
+    with every query head on every model slot: the generate (encode, prime,
+    the prompt through the serve step, then a token a step) gives the whole
+    model's greedy tokens with logits within 1e-5 each step, and one serve
+    step against a zero cache the whole step's logits.  The reference's
+    partitioned jit is ``tests/test_torch_heads_over_model.py``'s."""
+    from repro_torch.models import whisper as TW
+    cfg = dataclasses.replace(reduce_config(get_config("whisper-tiny"), d_model=192),
+                              num_heads=6, num_kv_heads=6, head_dim=32)
+    mesh = tmesh.make_mesh((1, 4), ("data", "model"), device="cpu")
+    whole = TW.init_whisper(cfg, torch.Generator().manual_seed(0), device="cpu")
+    params = _placed_any(whole, cfg, mesh)
+    rows = 4
+    toks = torch.from_numpy(np.random.default_rng(0).integers(3, cfg.vocab_size, (rows, 5)))
+    frames = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (rows, cfg.encoder_seq, cfg.d_model)).astype(np.float32))
+
+    def run(p, placed):
+        cache = TW.init_whisper_cache(cfg, rows, 16, device="cpu")
+        if placed:
             cache = tsh.device_put(cache, tsh.cache_shardings(mesh, cache, cfg))
-            make_serve_step(cfg)(params, cache, toks[:, :1], 0)
+        step = make_serve_step(cfg)
+        if entry == "serve":
+            return [step(p, cache, toks[:, :1], 0)[0]], None
+        cache = TW.prime_cross_cache(cfg, p, cache, TW.whisper_encode(cfg, p, frames))
+        logits, cache = step(p, cache, toks, 0)
+        out, got = [logits], [torch.argmax(logits, -1)]
+        for t in range(2):
+            logits, cache = step(p, cache, got[-1][:, None], toks.shape[1] + t)
+            out.append(logits)
+            got.append(torch.argmax(logits, -1))
+        return out, torch.stack(got, 1)
+
+    want, want_toks = run(whole, False)
+    got, got_toks = run(params, True)
+    for t, (g, w) in enumerate(zip(got, want)):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-5, atol=1e-5, err_msg=f"{t}")
+    if entry == "generate":
+        np.testing.assert_array_equal(got_toks.numpy(), want_toks.numpy())

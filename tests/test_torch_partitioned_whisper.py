@@ -422,7 +422,7 @@ def _meta_params(cfg):
         return TW.init_whisper(cfg, torch.Generator(), device="meta")
 
 
-# -- what stays refused -------------------------------------------------------------------
+# -- query heads that model does not divide, and what stays refused ---------------------------
 
 
 def _six_heads():
@@ -433,10 +433,13 @@ def _six_heads():
 
 
 @pytest.mark.parametrize("entry", ["train", "eval", "encode"])
-def test_heads_that_model_does_not_divide_are_refused(entry):
-    """6 query heads on ``model`` 4 raise ``NotImplementedError`` naming the
-    part (``models.partitioned._heads``), as they do for a decoder, in the
-    train step, the eval step and the encoder."""
+def test_heads_that_model_does_not_divide_match_the_whole_step(entry):
+    """6 query heads on ``model`` 4 run replicated on every model slot
+    (``models.partitioned._heads``: ``wq`` gathered over ``model``), in the
+    train step, the eval step and the encoder, and equal the port's whole
+    step (loss, grad_norm and params of one SGD step, the eval loss, the
+    encoder states) within 1e-5; the reference's partitioned jit is
+    ``tests/test_torch_heads_over_model.py``'s."""
     cfg = _six_heads()
     mesh = tmesh.make_mesh((1, 4), ("data", "model"), device="cpu")
     params = TW.init_whisper(cfg, torch.Generator().manual_seed(0), device="cpu")
@@ -444,18 +447,26 @@ def test_heads_that_model_does_not_divide_are_refused(entry):
     rng = np.random.default_rng(0)
     batch = {"tokens": rng.integers(3, cfg.vocab_size, (2, 6)),
              "frames": rng.standard_normal((2, cfg.encoder_seq, cfg.d_model)).astype(np.float32)}
-    match = "attention: 6 query heads do not split over model = 4"
-    with pytest.raises(NotImplementedError, match=match):
-        if entry == "train":
-            opt = make_optimizer("sgd", constant_lr(LR))
-            state = make_train_state(params, opt)
-            state = tsh.device_put(state, {"params": psh, "opt": tsh.opt_state_shardings(
-                mesh, state["opt"], psh)})
-            make_train_step(cfg, opt)(state, batch)
-        elif entry == "eval":
-            make_eval_step(cfg)(tsh.device_put(params, psh), batch)
-        else:
-            TW.whisper_encode(cfg, tsh.device_put(params, psh), torch.from_numpy(batch["frames"]))
+    if entry == "train":
+        opt = make_optimizer("sgd", constant_lr(LR))
+        whole, wm = make_train_step(cfg, opt)(make_train_state(params, opt), batch)
+        state = make_train_state(params, opt)
+        state = tsh.device_put(state, {"params": psh, "opt": tsh.opt_state_shardings(
+            mesh, state["opt"], psh)})
+        new, m = make_train_step(cfg, opt)(state, batch)
+        for k in ("loss", "grad_norm"):
+            np.testing.assert_allclose(float(m[k]), float(wm[k]), rtol=RTOL)
+        _close(tsh.gather(new["params"]), whole["params"])
+    elif entry == "eval":
+        got = make_eval_step(cfg)(tsh.device_put(params, psh), batch)
+        np.testing.assert_allclose(float(got), float(make_eval_step(cfg)(params, batch)),
+                                   rtol=RTOL, atol=ATOL)
+    else:
+        frames = torch.from_numpy(batch["frames"])
+        got = TW.whisper_encode(cfg, tsh.device_put(params, psh), frames)
+        got = got.whole() if isinstance(got, Placed) else got
+        np.testing.assert_allclose(got.numpy(), TW.whisper_encode(cfg, params, frames).numpy(),
+                                   rtol=RTOL, atol=ATOL)
 
 
 def test_frames_on_a_decoder_are_refused_by_the_eval_step():
